@@ -11,8 +11,9 @@ Phases, each fatal on failure:
    report;
 2. kernels — each kernel on the card at main-path shapes against its plain
    PyTorch version on the same card and inputs, with CUDA-event times:
-   water_fill, allocate_solve_batch and the packed output at
-   build_sim_args(10000, 100000, 5000); allocate_solve at
+   water_fill and allocate_solve_batch at build_sim_args(10000, 100000,
+   5000), with the packed decision buffer the solve writes and its one
+   fetch to the host; allocate_solve at
    build_sim_args(10000, 4000, 200); then a sweep of small solves over
    seeds and policies (classes, pod caps, releasing capacity, rollbacks);
 3. e2e batch — the port's Scheduler(store, full_conf("cuda") with actions
@@ -42,6 +43,17 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32, outside the tensor cores
+D2H_BYTES_PER_S = 64e9         # PCIe Gen5 x16, one direction
+
+# operations per (job, node) pair of the batch solve's score pass, and per
+# node of the exact solve's place step, as the function needs them (R = 2):
+# idle and releasing fits 8, class and pod-cap predicates 2, used_after 2,
+# free 4, least 6, shares 2, balanced 3, weighted sum 3, then (batch only)
+# the jitter hash and its fused add 8, the mask 1, and top-K/argmax 1
+BATCH_PAIR_OPS = 40
+EXACT_NODE_OPS = 31
+# per valid job of an exact select step: the active mask and the lex narrowing
+EXACT_JOB_OPS = 10
 
 # config 5 (bench.py: N_NODES, N_TASKS, N_JOBS, N_QUEUES, n_best_effort)
 CFG5 = dict(nodes=10_000, jobs=5_000, tasks_per_job=20, queues=2, best_effort=2_000)
@@ -111,6 +123,42 @@ def _water_fill_rounds(a):
             return rounds
 
 
+def _batch_solve_ops(out, a, M, P, n_sort_keys):
+    """Operations the batched solve's data needs, round by round: scoring
+    the heads of the selected active jobs over the valid nodes, ordering
+    the active jobs (a log2 a comparisons of n_sort_keys keys) and ordering
+    their proposals (f log2 f comparisons of a node and a rank).  The
+    active count of round r is the number of jobs whose surviving
+    placements reach round r or later, a lower bound of the true count."""
+    F = M * P
+    seq = out.task_seq.cpu().numpy()
+    job = a["task_job"].cpu().numpy()
+    placed = seq >= 0
+    last = np.full(a["job_queue"].shape[0], -1, np.int64)
+    np.maximum.at(last, job[placed], seq[placed] // F)
+    n_valid = int(a["node_valid"].sum())
+    ops = 0.0
+    for r in range(int(out.steps)):
+        act = int((last >= r).sum())
+        sel = min(M, act)
+        f = sel * P
+        ops += sel * n_valid * BATCH_PAIR_OPS
+        ops += act * np.log2(max(act, 1)) * n_sort_keys + f * np.log2(max(f, 1)) * 2
+    return ops
+
+
+def _exact_solve_ops(out, a):
+    """Operations the exact solve's data needs: one place step over the
+    valid nodes per placement and per drop, and one select step over the
+    valid jobs for each job that placed and each drop (a lower bound: a
+    job ready before its last task is selected again for each one)."""
+    n_valid = int(a["node_valid"].sum())
+    j_valid = int((a["job_queue"] >= 0).sum())
+    steps, drops = int(out.steps), int(out.dropped.sum())
+    jobs_placed = int(np.unique(a["task_job"][out.task_kind > 0].cpu().numpy()).size)
+    return (steps + drops) * n_valid * EXACT_NODE_OPS + (jobs_placed + drops) * j_valid * EXACT_JOB_OPS
+
+
 def phase_kernels():
     import torch
 
@@ -167,33 +215,31 @@ def phase_kernels():
     ms = cuda_ms(lambda: K.allocate_solve_batch(*args, **opts), 3)
     plain_ms = cuda_ms(lambda: K.allocate_solve_batch_plain(
         **solve_in, w_least=1.0, w_balanced=1.0, **opts), 1)
-    N, R = a["idle"].shape
-    T, J = a["task_req"].shape[0], a["job_queue"].shape[0]
+    J = a["job_queue"].shape[0]
     M, P = min(512, J), 16
     io = nbytes(*solve_in.values()) + nbytes(*out_k[:10])
-    ops = n_rounds * (M * N * 45 + J * J * 6 + M * P * 14 * 14 * 4)
-    b, kind = bound_ms(io, ops)
+    n_sort_keys = len(opts["job_key_order"]) + 2 + int(opts["use_proportion"])
+    b, kind = bound_ms(io, _batch_solve_ops(out_k, a, M, P, n_sort_keys))
     rows.append(dict(name="allocate_solve_batch", route="cuda",
                      source="volcano_tpu_torch/csrc/allocate_batch.cu",
                      replaces="volcano_tpu/scheduler/kernels.py:491",
                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                      bound_by=kind, library_ms=None))
-    log(f"[kernels] allocate_solve_batch: {ms:.3f} ms (plain {plain_ms:.3f} ms)")
+    log(f"[kernels] allocate_solve_batch: {ms:.3f} ms (plain {plain_ms:.3f} ms, "
+        f"bound {b:.4f} ms by {kind})")
 
-    # K4: the packed decision array the solves write, fetched once
-    packed = K.allocate_solve_batch(*args, packed=True, **opts)
-    ref = K.pack_outputs(out_p)
-    if not torch.equal(packed, ref):
-        raise AssertionError("packed_solve: kernel layout != packed plain outputs")
-    ms = cuda_ms(lambda: packed.cpu(), 20)
-    plain_ms = cuda_ms(lambda: K.pack_outputs(out_p).cpu(), 20)
-    b, kind = bound_ms(2 * nbytes(packed), 0)
-    rows.append(dict(name="packed_solve", route="cuda",
-                     source="volcano_tpu_torch/csrc/allocate_batch.cu",
-                     replaces="volcano_tpu/scheduler/tensor_actions.py:464",
-                     max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                     bound_by=kind, library_ms=None))
-    log(f"[kernels] packed_solve ok: fetch {ms:.3f} ms (plain cat+fetch {plain_ms:.3f} ms)")
+    # K4 is no launch of its own: the solves write their decisions straight
+    # into one int32 [3T + J] buffer, which the cycle fetches once
+    packed = K.pack_outputs(out_k)
+    if packed.data_ptr() != out_k.task_node.data_ptr():
+        raise AssertionError("packed layout: the solve's decisions are not one buffer")
+    if not torch.equal(packed, K.pack_outputs(out_p)):
+        raise AssertionError("packed layout: kernel buffer != packed plain outputs")
+    fetch_ms = cuda_ms(lambda: packed.cpu(), 20)
+    cat_fetch_ms = cuda_ms(lambda: K.pack_outputs(out_p).cpu(), 20)
+    log(f"[fetch] packed decisions ok: {nbytes(packed)} bytes to the host in "
+        f"{fetch_ms:.4f} ms (the plain outputs' cat + fetch {cat_fetch_ms:.4f} ms; "
+        f"bound {nbytes(packed) / D2H_BYTES_PER_S * 1e3:.4f} ms at PCIe Gen5 x16)")
 
     # ---- K2 exact at the exact path's shapes
     e_np = build_sim_args(10_000, 4_000, 200)
@@ -210,18 +256,15 @@ def phase_kernels():
     err = _compare("allocate_solve", out_k, out_p)
     steps = int(out_k.steps)
     ms = cuda_ms(lambda: K.allocate_solve(*args_e, **opts), 3)
-    N, R = e["idle"].shape
-    J = e["job_queue"].shape[0]
     io = nbytes(*solve_e.values()) + nbytes(*out_k[:10])
-    n_drop = int(out_k.dropped.sum())
-    ops = (steps + n_drop) * N * 40 + (steps + n_drop) * J * 10
-    b, kind = bound_ms(io, ops)
+    b, kind = bound_ms(io, _exact_solve_ops(out_k, e))
     rows.append(dict(name="allocate_solve", route="cuda",
                      source="volcano_tpu_torch/csrc/allocate_solve.cu",
                      replaces="volcano_tpu/scheduler/kernels.py:185",
                      max_abs_err=err, ms=ms, plain_ms=t_p * 1e3, bound_ms=b,
                      bound_by=kind, library_ms=None))
-    log(f"[kernels] allocate_solve ok: steps {steps}, {ms:.3f} ms (plain {t_p * 1e3:.1f} ms)")
+    log(f"[kernels] allocate_solve ok: steps {steps}, {ms:.3f} ms (plain {t_p * 1e3:.1f} ms, "
+        f"bound {b:.4f} ms by {kind})")
     return {r["name"]: r for r in rows}
 
 
@@ -484,10 +527,10 @@ def main(argv):
     kern = phase_kernels()
     phase_kernel_sweep()
     batch = phase_e2e("e2e batch", CFG5["jobs"], CFG5["best_effort"],
-                      want=("water_fill", "allocate_solve_batch", "packed_solve"),
+                      want=("water_fill", "allocate_solve_batch"),
                       forbid=("allocate_solve",))
     exact = phase_e2e("e2e exact", 200, 0,
-                      want=("water_fill", "allocate_solve", "packed_solve"),
+                      want=("water_fill", "allocate_solve"),
                       forbid=("allocate_solve_batch",))
     for name, row in kern.items():
         row["launches"] = exact[name] if name == "allocate_solve" else batch[name]

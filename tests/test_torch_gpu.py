@@ -73,6 +73,16 @@ def test_gpu_water_fill_matches_plain(seed):
 
 
 @pytest.mark.gpu
+def test_gpu_water_fill_raises_at_round_cap(monkeypatch):
+    dev = _cuda()
+    a = _args(dev, 0, False)
+    a["queue_request"][0] *= 0.25  # one queue capped: needs a second round
+    monkeypatch.setattr(K, "WATER_FILL_MAX_ROUNDS", 1)
+    with pytest.raises(RuntimeError, match="no convergence"):
+        K.water_fill(*_water_fill_inputs(a))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("batch", [False, True])
 @pytest.mark.parametrize("seed,releasing", [(0, False), (1, True), (2, True)])
 @pytest.mark.parametrize("policy", range(len(POLICIES)))
@@ -89,8 +99,8 @@ def test_gpu_solve_kernel_matches_plain(batch, seed, releasing, policy):
     assert K.LAUNCHES["allocate_solve_batch" if batch else "allocate_solve"] == 1
     out_p = plain(**args, w_least=1.0, w_balanced=1.0, **POLICIES[policy], **chunks)
     _assert_same(out_k, out_p)
-    packed = wrap(*args.values(), 1.0, 1.0, packed=True, **POLICIES[policy], **chunks)
-    assert K.LAUNCHES["packed_solve"] == 1
+    packed = K.pack_outputs(out_k)
+    assert packed.data_ptr() == out_k.task_node.data_ptr()  # the kernel's buffer, no copy
     assert torch.equal(packed, K.pack_outputs(out_p))
 
 
@@ -135,7 +145,8 @@ def test_gpu_scheduler_binds_equal_cpu(solve_mode, seed):
         K.reset_launches()
         sched.run_once()
         if backend == "cuda":
-            assert K.LAUNCHES["packed_solve"] == 1
+            assert K.LAUNCHES["allocate_solve_batch" if solve_mode == "batch"
+                              else "allocate_solve"] == 1
         states.append((
             {p.meta.key: p.node_name for p in store.list("Pod")},
             {g.meta.key: g.status.phase for g in store.list("PodGroup")},

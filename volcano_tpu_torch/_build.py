@@ -84,7 +84,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points' signatures (pointers and the stream as
     c_void_p, so ctypes never truncates them to 32 bits)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.vtt_water_fill.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp]
+    lib.vtt_water_fill.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]
     lib.vtt_water_fill.restype = ci
     for fn in (lib.vtt_allocate_solve, lib.vtt_allocate_solve_batch):
         fn.argtypes = [vp, vp]

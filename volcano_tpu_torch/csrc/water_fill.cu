@@ -7,7 +7,9 @@
 // threads own one (queue, dim) cell each; the round loop runs inside the
 // kernel, so the host pays one launch per cycle however many rounds the
 // fill takes.  Sums over queues run in index order on one thread per
-// dimension, as the reference's reduction does.
+// dimension, as the reference's reduction does.  The reference loop has no
+// cap; this one stops after max_rounds and writes -1 to *rounds_out, which
+// the wrapper turns into an error (else it writes the rounds taken).
 #include "common.cuh"
 
 #define VTT_WF_MAX_CELLS 1024
@@ -15,7 +17,8 @@
 __global__ void vtt_water_fill_kernel(const float* weight, const float* request,
                                       const float* total, const float* eps,
                                       const uint8_t* participates, int Q, int R,
-                                      int max_rounds, float* deserved) {
+                                      int max_rounds, float* deserved,
+                                      int32_t* rounds_out) {
   __shared__ float s_des[VTT_WF_MAX_CELLS];
   __shared__ float s_cap[VTT_WF_MAX_CELLS];
   __shared__ float s_rem[VTT_MAX_R];
@@ -37,6 +40,7 @@ __global__ void vtt_water_fill_kernel(const float* weight, const float* request,
   }
   __syncthreads();
 
+  int taken = -1;
   for (int round = 0; round < max_rounds; ++round) {
     if (tid == 0) {
       float tw = 0.0f;
@@ -80,20 +84,25 @@ __global__ void vtt_water_fill_kernel(const float* weight, const float* request,
       s_go = (tw > 0.0f) && !empty;
     }
     __syncthreads();
-    if (!s_go) break;
+    if (!s_go) {
+      taken = round + 1;
+      break;
+    }
   }
   if (own) deserved[tid] = s_des[tid];
+  if (tid == 0) *rounds_out = taken;
 }
 
 extern "C" int vtt_water_fill(const float* weight, const float* request,
                               const float* total, const float* eps,
                               const uint8_t* participates, int Q, int R,
-                              int max_rounds, float* deserved, void* stream) {
+                              int max_rounds, float* deserved, int32_t* rounds_out,
+                              void* stream) {
   if (Q < 1 || R < 1 || R > VTT_MAX_R || Q * R > VTT_WF_MAX_CELLS)
     return (int)cudaErrorInvalidValue;
   int threads = 32;
   while (threads < Q * R) threads *= 2;
   VTT_LAUNCH(vtt_water_fill_kernel, 1, threads, 0, (cudaStream_t)stream)(
-      weight, request, total, eps, participates, Q, R, max_rounds, deserved);
+      weight, request, total, eps, participates, Q, R, max_rounds, deserved, rounds_out);
   return (int)cudaGetLastError();
 }

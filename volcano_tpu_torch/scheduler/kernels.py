@@ -45,8 +45,10 @@ POS_INF = float("inf")
 #: the jitter scale of the batch solve, rounded to float32 as JAX rounds it
 _JSCALE = float(np.float32(1e-4 / 65535.0))
 
-#: safety cap on water-fill rounds (the reference loop stops after at most
-#: one round per queue plus one on any realistic input)
+#: water-fill rounds after which both versions raise instead of looping on
+#: (the reference loop has no cap; it stops after at most one round per
+#: queue plus one on any realistic input, and would spin forever on an
+#: input whose remainder no round can shrink)
 WATER_FILL_MAX_ROUNDS = 4096
 
 #: kernel launches since the last ``reset_launches()``; each CUDA wrapper
@@ -55,7 +57,6 @@ LAUNCHES: Dict[str, int] = {
     "water_fill": 0,
     "allocate_solve": 0,
     "allocate_solve_batch": 0,
-    "packed_solve": 0,
 }
 
 
@@ -182,8 +183,8 @@ def water_fill_plain(weight, request, total, eps, participates):
         remaining = remaining - _seq_sum0(capped - deserved)
         deserved = capped
         if not (bool(total_weight > 0) and not bool(is_empty(remaining, eps))):
-            break
-    return deserved
+            return deserved
+    raise RuntimeError(f"water_fill: no convergence in {WATER_FILL_MAX_ROUNDS} rounds")
 
 
 # --------------------------------------------------------------------------
@@ -537,10 +538,22 @@ def allocate_solve_batch_plain(
 
 
 def pack_outputs(out) -> torch.Tensor:
-    """The four decision outputs as ONE int32 [3T + J] array (the layout the
-    CUDA solves write directly), so the host fetches once."""
-    return torch.cat([out[0].to(torch.int32), out[1].to(torch.int32),
-                      out[2].to(torch.int32), out[3].to(torch.int32)])
+    """The four decision outputs as ONE int32 [3T + J] array, so the host
+    fetches once.  The CUDA solves write them straight into that layout:
+    their outputs come back as the buffer itself, with no copy; the plain
+    versions' separate outputs are concatenated."""
+    parts = out[:4]
+    storage = parts[0].untyped_storage()
+    start = at = parts[0].storage_offset()
+    in_layout = True
+    for p in parts:
+        in_layout &= (p.dtype == torch.int32 and p.dim() == 1 and p.is_contiguous()
+                      and p.storage_offset() == at
+                      and p.untyped_storage().data_ptr() == storage.data_ptr())
+        at += p.numel()
+    if in_layout:
+        return parts[0].new_empty(0).set_(storage, start, (at - start,))
+    return torch.cat([p.to(torch.int32) for p in parts])
 
 
 # --------------------------------------------------------------------------
@@ -606,11 +619,17 @@ def water_fill_launch(lib, stream, weight, request, total, eps, participates):
     if Q * R > 1024:
         raise ValueError(f"water_fill kernel takes Q*R <= 1024, got {Q}*{R}")
     deserved = torch.empty((Q, R), dtype=f32, device=dev)
+    rounds = torch.empty((1,), dtype=torch.int32, device=dev)
     err = lib.vtt_water_fill(
         weight.data_ptr(), request.data_ptr(), total.data_ptr(), eps.data_ptr(),
-        participates.data_ptr(), Q, R, WATER_FILL_MAX_ROUNDS, deserved.data_ptr(), stream,
+        participates.data_ptr(), Q, R, WATER_FILL_MAX_ROUNDS, deserved.data_ptr(),
+        rounds.data_ptr(), stream,
     )
     _raise_on(err, "vtt_water_fill")
+    # the kernel writes -1 when it stopped at the cap; reading it waits for
+    # the kernel (a 4-byte fetch, once a cycle)
+    if int(rounds[0]) < 0:
+        raise RuntimeError(f"water_fill: no convergence in {WATER_FILL_MAX_ROUNDS} rounds")
     return deserved
 
 
@@ -640,7 +659,9 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
                  use_gang_ready, use_proportion, m_chunk=512, p_chunk=16):
     """Validate the solve inputs ``a`` (name -> tensor), allocate outputs and
     scratch, and launch csrc/allocate_solve.cu (``batch=False``) or
-    csrc/allocate_batch.cu (``batch=True``).  Returns (packed, SolveOut)."""
+    csrc/allocate_batch.cu (``batch=True``).  Returns a ``SolveOut`` whose
+    four decision fields are views of one int32 [3T + J] buffer (see
+    ``pack_outputs``)."""
     dev = a["idle"].device
     N, R = a["idle"].shape
     T = a["task_req"].shape[0]
@@ -723,18 +744,17 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
     args.w_balanced = float(w_balanced)
     fn = lib.vtt_allocate_solve_batch if batch else lib.vtt_allocate_solve
     _raise_on(fn(ctypes.byref(args), stream), fn.__name__)
-    out = SolveOut(
+    return SolveOut(
         packed[:T], packed[T:2 * T], packed[2 * T:3 * T], packed[3 * T:],
         st["job_alloc"], st["queue_alloc"], st["idle"], st["releasing"],
         st["used"], st["dropped"], st["ctl"][0],
     )
-    return packed, out
 
 
 _POLICY_ARGS = ("job_key_order", "use_gang_ready", "use_proportion")
 
 
-def _solve(batch, args, kwargs, plain, packed):
+def _solve(batch, args, kwargs, plain):
     names = _SOLVE_ARGS + ("w_least", "w_balanced")
     a = dict(zip(names, args))
     a.update({k: v for k, v in kwargs.items() if k in names})
@@ -744,34 +764,29 @@ def _solve(batch, args, kwargs, plain, packed):
         raise TypeError(f"unexpected arguments {sorted(unknown)}")
     dev = a["idle"].device
     if dev.type == "cpu":
-        out = plain(**a, **opts)
-        return pack_outputs(out) if packed else out
+        return plain(**a, **opts)
     if dev.type != "cuda":
         raise ValueError(f"allocate solve: unsupported device {dev}")
     from volcano_tpu_torch import _build
 
     w_least, w_balanced = a.pop("w_least"), a.pop("w_balanced")
-    buf, out = solve_launch(
+    out = solve_launch(
         _build.load(), _stream(dev), batch, a, w_least, w_balanced,
         opts.get("job_key_order", ("priority", "gang", "drf")),
         opts.get("use_gang_ready", True), opts.get("use_proportion", True),
         **({k: opts[k] for k in ("m_chunk", "p_chunk") if k in opts}),
     )
     LAUNCHES["allocate_solve_batch" if batch else "allocate_solve"] += 1
-    if packed:
-        LAUNCHES["packed_solve"] += 1
-        return buf
     return out
 
 
-def allocate_solve(*args, packed=False, **kwargs):
+def allocate_solve(*args, **kwargs):
     """Exact sequential allocate solve (JAX ``kernels.allocate_solve`` with
-    ``portsel=None, volsel=None``).  Returns a ``SolveOut``, or with
-    ``packed=True`` the int32 [3T + J] decision array."""
-    return _solve(False, args, kwargs, allocate_solve_plain, packed)
+    ``portsel=None, volsel=None``).  Returns a ``SolveOut``."""
+    return _solve(False, args, kwargs, allocate_solve_plain)
 
 
-def allocate_solve_batch(*args, packed=False, **kwargs):
+def allocate_solve_batch(*args, **kwargs):
     """Batched-rounds allocate solve (JAX ``kernels.allocate_solve_batch``
     with ``portsel=None, exact_topk=True``)."""
-    return _solve(True, args, kwargs, allocate_solve_batch_plain, packed)
+    return _solve(True, args, kwargs, allocate_solve_batch_plain)

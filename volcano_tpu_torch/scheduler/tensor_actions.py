@@ -12,7 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from volcano_tpu_torch.scheduler.kernels import allocate_solve, allocate_solve_batch
+from volcano_tpu_torch.scheduler.kernels import (
+    allocate_solve, allocate_solve_batch, pack_outputs,
+)
 
 
 def use_batch_solve(backend, n_pending: int) -> bool:
@@ -29,7 +31,7 @@ def torch_allocate_solve(backend, snap, n_pending=None):
     solve = allocate_solve_batch if use_batch_solve(backend, n_pending) else allocate_solve
     w_least, w_balanced = backend.score_weights()
     dev = backend.to_device
-    packed = solve(
+    out = solve(
         dev(snap.node_idle), dev(snap.node_releasing), dev(snap.node_used),
         dev(snap.node_alloc), dev(snap.node_max_tasks), dev(snap.node_task_count),
         dev(snap.node_valid),
@@ -41,12 +43,12 @@ def torch_allocate_solve(backend, snap, n_pending=None):
         dev(snap.class_node_mask), dev(snap.class_node_score),
         dev(snap.total), dev(snap.eps),
         w_least, w_balanced,
-        packed=True,
         job_key_order=backend.job_key_order,
         use_gang_ready=backend.gang_job_ready,
         use_proportion=backend.proportion_queue_order,
     )
     # the one fetch boundary: wait for the device, copy the packed array
+    packed = pack_outputs(out)
     if packed.device.type == "cuda":
         torch.cuda.synchronize(packed.device)
     flat = packed.cpu().numpy()
