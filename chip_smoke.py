@@ -15,12 +15,23 @@ Phases, each fatal on failure:
    5000), with the packed decision buffer the solve writes and its one
    fetch to the host; allocate_solve at
    build_sim_args(10000, 4000, 200); then a sweep of small solves over
-   seeds and policies (classes, pod caps, releasing capacity, rollbacks);
+   seeds and policies (classes, pod caps, releasing capacity, rollbacks,
+   and build_portsel_args host ports and pod (anti)affinity);
 3. e2e batch — the port's Scheduler(store, full_conf("cuda") with actions
    enqueue, allocate, backfill).run_once() on the config-5 store (10,000
    nodes, 5,000 gangs x 20 tasks, 2,000 best-effort pods), launch counts
    reset just before and read just after;
-4. e2e exact — the same nodes with 200 gangs x 20 tasks (the exact solve).
+4. e2e exact — the same nodes with 200 gangs x 20 tasks (the exact solve);
+5. e2e cfg5d — config 5 with 10% dynamic gangs (bench.py config5_dynamic:
+   500 gangs with a host port or self-anti-affinity, 10,000 tasks): the
+   express solve and the dynamic solve both take K3, the dynamic one with
+   the portsel extension (K5); no node may hold a host port twice or two
+   pods that anti-affinity forbids together;
+6. e2e cfg5d-exact — the same store with 4% dynamic gangs (4,000 dynamic
+   tasks): the dynamic solve takes K2 with K5;
+7. K5 kernels — K3 and K2 with portsel against their plain versions on the
+   dynamic-solve inputs the two cells above captured from their first
+   cycle (mirror, snapshot, express solve, build_dyn_solve_inputs).
 
 With ``--profile``, a torch.profiler pass over one config-5 batch solve
 and one config-5 cycle runs after the build: device time by kernel and the
@@ -54,6 +65,11 @@ BATCH_PAIR_OPS = 40
 EXACT_NODE_OPS = 31
 # per valid job of an exact select step: the active mask and the lex narrowing
 EXACT_JOB_OPS = 10
+# the cells' bind deadline: every gang task and best-effort pod bound within
+# this many cycles (config 5 binds all in its first; the dynamic cells may
+# leave gangs whose rounds were cut by a drop for the next cycle)
+MAX_CYCLES = 2
+MAX_CYCLES_DYNAMIC = 3
 
 # config 5 (bench.py: N_NODES, N_TASKS, N_JOBS, N_QUEUES, n_best_effort)
 CFG5 = dict(nodes=10_000, jobs=5_000, tasks_per_job=20, queues=2, best_effort=2_000)
@@ -123,13 +139,53 @@ def _water_fill_rounds(a):
             return rounds
 
 
-def _batch_solve_ops(out, a, M, P, n_sort_keys):
+def _portsel_task_ops(portsel):
+    """K5's operations per task, counted from the words the task carries:
+    (per node of a score or place step, per proposal of a round, per
+    placement).  A node test is an AND and a test per nonzero port word and
+    per nonzero required or anti word, plus, for a task with selector bits,
+    one count added per set required or anti bit and the fused add of the
+    interpod term.  A proposal tests and folds its nonzero port words into
+    the node's running ports, tests its nonzero anti words against the
+    running labels and folds in its nonzero label words.  A placement ORs
+    its nonzero port words into the node and adds one count per label bit."""
+    port, aff, anti, self_ = (portsel[i].cpu().numpy() for i in (1, 3, 4, 5))
+
+    def words(w):
+        return (w != 0).sum(axis=1)
+
+    def bits(w):
+        octets = np.ascontiguousarray(w).view(np.uint8)
+        return np.unpackbits(octets, axis=1).sum(axis=1, dtype=np.int64)
+
+    n_sel_bits = bits(aff) + bits(anti)
+    node = 2 * (words(port) + words(aff) + words(anti)) + n_sel_bits + (n_sel_bits > 0)
+    proposal = 2 * words(port) + words(anti) + words(self_)
+    place = words(port) + bits(self_)
+    return node, proposal, place
+
+
+def _job_min(per_task, a):
+    """Per job, the least of per_task over its valid tasks (0 for a job
+    with none)."""
+    job = a["task_job"].cpu().numpy()
+    valid = a["task_valid"].cpu().numpy().astype(bool)
+    out = np.full(a["job_queue"].shape[0], np.iinfo(np.int64).max, np.int64)
+    np.minimum.at(out, job[valid], per_task[valid].astype(np.int64))
+    return np.where(out == np.iinfo(np.int64).max, 0, out)
+
+
+def _batch_solve_ops(out, a, M, P, n_sort_keys, ps_ops=None):
     """Operations the batched solve's data needs, round by round: scoring
     the heads of the selected active jobs over the valid nodes, ordering
     the active jobs (a log2 a comparisons of n_sort_keys keys) and ordering
     their proposals (f log2 f comparisons of a node and a rank).  The
     active count of round r is the number of jobs whose surviving
-    placements reach round r or later, a lower bound of the true count."""
+    placements reach round r or later, a lower bound of the true count.
+    ``ps_ops`` (from _portsel_task_ops) adds K5: each round charges the
+    ``sel`` active jobs whose least-costly tasks cost least, so that the
+    count stays a lower bound whichever jobs were selected, and each
+    surviving placement its fold."""
     F = M * P
     seq = out.task_seq.cpu().numpy()
     job = a["task_job"].cpu().numpy()
@@ -138,25 +194,42 @@ def _batch_solve_ops(out, a, M, P, n_sort_keys):
     np.maximum.at(last, job[placed], seq[placed] // F)
     n_valid = int(a["node_valid"].sum())
     ops = 0.0
+    if ps_ops is not None:
+        job_node, job_prop = _job_min(ps_ops[0], a), _job_min(ps_ops[1], a)
+        ops += float(ps_ops[2][placed].sum())
     for r in range(int(out.steps)):
-        act = int((last >= r).sum())
+        act_jobs = last >= r
+        act = int(act_jobs.sum())
         sel = min(M, act)
         f = sel * P
         ops += sel * n_valid * BATCH_PAIR_OPS
         ops += act * np.log2(max(act, 1)) * n_sort_keys + f * np.log2(max(f, 1)) * 2
+        if ps_ops is not None:
+            ops += float(np.sort(job_node[act_jobs])[:sel].sum()) * n_valid
+            ops += float(np.sort(job_prop[act_jobs])[:sel].sum()) * P
     return ops
 
 
-def _exact_solve_ops(out, a):
+def _exact_solve_ops(out, a, ps_ops=None):
     """Operations the exact solve's data needs: one place step over the
     valid nodes per placement and per drop, and one select step over the
     valid jobs for each job that placed and each drop (a lower bound: a
-    job ready before its last task is selected again for each one)."""
+    job ready before its last task is selected again for each one).
+    ``ps_ops`` (from _portsel_task_ops) adds K5: each placed task's node
+    tests over the valid nodes and its fold, and for each dropped job the
+    node tests of its least-costly task."""
     n_valid = int(a["node_valid"].sum())
     j_valid = int((a["job_queue"] >= 0).sum())
     steps, drops = int(out.steps), int(out.dropped.sum())
     jobs_placed = int(np.unique(a["task_job"][out.task_kind > 0].cpu().numpy()).size)
-    return (steps + drops) * n_valid * EXACT_NODE_OPS + (jobs_placed + drops) * j_valid * EXACT_JOB_OPS
+    ops = ((steps + drops) * n_valid * EXACT_NODE_OPS
+           + (jobs_placed + drops) * j_valid * EXACT_JOB_OPS)
+    if ps_ops is not None:
+        placed = out.task_kind.cpu().numpy() > 0
+        dropped = out.dropped.cpu().numpy().astype(bool)
+        ops += (float(ps_ops[0][placed].sum()) * n_valid + float(ps_ops[2][placed].sum())
+                + float(_job_min(ps_ops[0], a)[dropped].sum()) * n_valid)
+    return ops
 
 
 def phase_kernels():
@@ -275,7 +348,9 @@ def phase_kernel_sweep():
     import torch
 
     from volcano_tpu_torch.scheduler import kernels as K
-    from volcano_tpu_torch.scheduler.simargs import add_releasing, build_sim_args
+    from volcano_tpu_torch.scheduler.simargs import (
+        PORTSEL_KEYS, add_releasing, build_portsel_args, build_sim_args,
+    )
 
     dev = torch.device("cuda")
     policies = [
@@ -283,7 +358,7 @@ def phase_kernel_sweep():
         dict(job_key_order=("drf", "gang", "priority"), use_gang_ready=False, use_proportion=False),
         dict(job_key_order=("gang", "priority", "drf"), use_gang_ready=True, use_proportion=False),
     ]
-    n = pipelined = 0
+    n = n_ps = pipelined = 0
     for seed in range(4):
         for pol in policies:
             a = build_sim_args(12 + seed, 64, 16, n_queues=3, seed=seed,
@@ -295,18 +370,25 @@ def phase_kernel_sweep():
             des = K.water_fill(t["queue_weight"], t["queue_request"], t["total"], t["eps"],
                                t["queue_participates"])
             args = {k: (des if k == "queue_deserved" else t[k]) for k in K._SOLVE_ARGS}
+            p = build_portsel_args(12 + seed, 64, seed=seed, n_jobs=16,
+                                   w_podaff=(1.0, 0.1)[seed % 2])
+            ps = tuple(p[k] if k == "w_podaff" else torch.from_numpy(p[k]).to(dev)
+                       for k in PORTSEL_KEYS)
             for batch, chunks in ((False, {}), (True, {}), (True, dict(m_chunk=4, p_chunk=3))):
                 wrap = K.allocate_solve_batch if batch else K.allocate_solve
                 plain = K.allocate_solve_batch_plain if batch else K.allocate_solve_plain
-                out_k = wrap(*args.values(), 1.0, 1.0, **pol, **chunks)
-                out_p = plain(**args, w_least=1.0, w_balanced=1.0, **pol, **chunks)
-                _compare(f"sweep seed={seed} batch={batch} {chunks} {pol}", out_k, out_p)
-                pipelined += int((out_p.task_kind == 2).sum())
-                n += 1
+                for ext in ({}, dict(portsel=ps)):
+                    out_k = wrap(*args.values(), 1.0, 1.0, **pol, **chunks, **ext)
+                    out_p = plain(**args, w_least=1.0, w_balanced=1.0, **pol, **chunks, **ext)
+                    _compare(f"sweep seed={seed} batch={batch} {chunks} {pol} "
+                             f"portsel={bool(ext)}", out_k, out_p)
+                    pipelined += int((out_p.task_kind == 2).sum())
+                    n += 1
+                    n_ps += bool(ext)
     if not pipelined:
         raise AssertionError("kernel sweep: no pipelined placement exercised")
-    log(f"[kernels] sweep ok: {n} small solves equal to their plain versions "
-        f"({pipelined} pipelined placements)")
+    log(f"[kernels] sweep ok: {n} small solves ({n_ps} with portsel) equal to their plain "
+        f"versions ({pipelined} pipelined placements)")
 
 
 def _compare(name, out_k, out_p):
@@ -327,14 +409,17 @@ def _compare(name, out_k, out_p):
     return err
 
 
-def build_cfg5_store(n_jobs=CFG5["jobs"], n_best_effort=CFG5["best_effort"]):
-    """bench.py _build_e2e_store (dynamic_frac=0, volume_tasks=0) with the
-    port's objects: 10k nodes, n_jobs gangs x 20 tasks in 2 weighted queues
-    (plus "default"), PodGroups Pending (enqueue admits them), and one
-    best-effort pod on each of the first n_best_effort gangs."""
+def build_cfg5_store(n_jobs=CFG5["jobs"], n_best_effort=CFG5["best_effort"], dynamic_frac=0.0):
+    """bench.py _build_e2e_store (volume_tasks=0) with the port's objects:
+    10k nodes, n_jobs gangs x 20 tasks in 2 weighted queues (plus
+    "default"), PodGroups Pending (enqueue admits them).  The first
+    ``dynamic_frac`` x 5,000 gangs are dynamic: even ones give every task
+    host port 20000 + j % 64, odd ones label each task grp=g{j % 48} with
+    anti-affinity to that label.  One best-effort pod goes on each of the
+    next n_best_effort gangs (never on a dynamic one)."""
     from volcano_tpu_torch.api import (
-        POD_GROUP_KEY, Metadata, Node, Pod, PodGroup, PodGroupPhase, PodSpec,
-        Queue, Resource,
+        POD_GROUP_KEY, Affinity, Metadata, Node, Pod, PodGroup, PodGroupPhase,
+        PodSpec, Queue, Resource,
     )
     from volcano_tpu_torch.store import Store
 
@@ -344,6 +429,7 @@ def build_cfg5_store(n_jobs=CFG5["jobs"], n_best_effort=CFG5["best_effort"]):
     node_mem = rng.choice([16, 32, 64], n_nodes) * (1 << 30)
     cpus = rng.choice([250, 500, 1000, 2000], CFG5["jobs"] * tpj)
     mems = rng.choice([256, 512, 1024, 2048], CFG5["jobs"] * tpj) * (1 << 20)
+    n_dynamic = int(CFG5["jobs"] * dynamic_frac)
     store = Store()
     for q in range(n_q):
         store.create("Queue", Queue(meta=Metadata(name=f"q{q}", namespace=""), weight=n_q - q))
@@ -359,12 +445,21 @@ def build_cfg5_store(n_jobs=CFG5["jobs"], n_best_effort=CFG5["best_effort"]):
         pg.status.phase = PodGroupPhase.PENDING
         store.create("PodGroup", pg)
         ann = {POD_GROUP_KEY: f"pg{j:05d}"}
+        dyn_kind = None if j >= n_dynamic else ("ports" if j % 2 == 0 else "anti")
         for t in range(tpj):
+            spec = PodSpec(resources=Resource(float(cpus[k]), float(mems[k])))
+            labels = {}
+            if dyn_kind == "ports":
+                spec.host_ports = [20000 + j % 64]
+            elif dyn_kind == "anti":
+                labels = {"grp": f"g{j % 48}"}
+                spec.affinity = Affinity(pod_anti_affinity=[{"grp": f"g{j % 48}"}])
             store.create("Pod", Pod(
-                meta=Metadata(name=f"p{j:05d}-{t}", namespace="default", annotations=dict(ann)),
-                spec=PodSpec(resources=Resource(float(cpus[k]), float(mems[k])))))
+                meta=Metadata(name=f"p{j:05d}-{t}", namespace="default", annotations=dict(ann),
+                              labels=labels),
+                spec=spec))
             k += 1
-        if j < n_best_effort:
+        if dyn_kind is None and j < n_dynamic + n_best_effort:
             store.create("Pod", Pod(
                 meta=Metadata(name=f"be{j:05d}", namespace="default", annotations=dict(ann)),
                 spec=PodSpec(resources=Resource())))
@@ -372,7 +467,9 @@ def build_cfg5_store(n_jobs=CFG5["jobs"], n_best_effort=CFG5["best_effort"]):
 
 
 def check_placement(store):
-    """No node over its allocatable or pod cap; every gang all-or-nothing.
+    """No node over its allocatable or pod cap, none holding a host port
+    twice or a pod beside one its anti-affinity refuses, none missing a
+    neighbour its required affinity asks for; every gang all-or-nothing.
     Returns (gang tasks bound, best-effort pods bound)."""
     nodes = {n.meta.name: i for i, n in enumerate(store.list("Node"))}
     cap = np.array([[n.allocatable.milli_cpu, n.allocatable.memory,
@@ -380,11 +477,13 @@ def check_placement(store):
     used = np.zeros_like(cap)
     per_gang = {}
     be_bound = 0
+    on_node = {}
     for p in store.list("Pod"):
         if not p.node_name:
             continue
         i = nodes[p.node_name]
         used[i] += (p.spec.resources.milli_cpu, p.spec.resources.memory, 1)
+        on_node.setdefault(i, []).append(p)
         if p.meta.name.startswith("be"):
             be_bound += 1
         else:
@@ -393,57 +492,163 @@ def check_placement(store):
     over = np.nonzero((used > cap).any(axis=1))[0]
     if over.size:
         raise AssertionError(f"{over.size} nodes over capacity, e.g. row {over[0]}")
+    for i, pods in on_node.items():
+        ports = [port for p in pods for port in p.spec.host_ports]
+        if len(ports) != len(set(ports)):
+            raise AssertionError(f"node row {i} holds a host port twice: {sorted(ports)}")
+        for p in pods:
+            aff = p.spec.affinity
+            if aff is None:
+                continue
+            others = [q.meta.labels for q in pods if q is not p]
+            for sel in aff.pod_anti_affinity:
+                if any(all(lab.get(k) == v for k, v in sel.items()) for lab in others):
+                    raise AssertionError(f"{p.meta.key} on node row {i} beside a pod "
+                                         f"its anti-affinity {sel} refuses")
+            for sel in aff.pod_affinity:
+                if not any(all(lab.get(k) == v for k, v in sel.items()) for lab in others):
+                    raise AssertionError(f"{p.meta.key} on node row {i} without the "
+                                         f"neighbour its affinity {sel} needs")
     partial = {g: c for g, c in per_gang.items() if c != CFG5["tasks_per_job"]}
     if partial:
         raise AssertionError(f"gangs bound partially: {list(partial.items())[:5]}")
     return sum(per_gang.values()), be_bound
 
 
-def phase_e2e(label, n_jobs, n_best_effort, want, forbid):
+def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
+              max_cycles=MAX_CYCLES, capture=None):
     """Drive Scheduler.run_once on the card; returns the launch counts of
-    the first cycle (reset just before it, read just after)."""
+    the first cycle (reset just before it, read just after).  ``want`` maps
+    a kernel to the launches the first cycle must make at least (a name
+    alone: at least one); ``forbid`` lists kernels it must not launch.
+    ``capture``: a list that receives the first cycle's dynamic-solve
+    inputs (backend, snapshot, dyn arrays)."""
     import torch
 
     from volcano_tpu_torch.scheduler import kernels as K
     from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.fastpath import cycle as cycle_mod
     from volcano_tpu_torch.scheduler.scheduler import Scheduler
 
     t0 = time.perf_counter()
-    store = build_cfg5_store(n_jobs, n_best_effort)
+    store = build_cfg5_store(n_jobs, n_best_effort, dynamic_frac)
+    n_dyn = int(CFG5["jobs"] * dynamic_frac)
     log(f"[{label}] store built: {CFG5['nodes']} nodes, {n_jobs} gangs x "
-        f"{CFG5['tasks_per_job']}, {n_best_effort} best-effort ({time.perf_counter() - t0:.1f} s)")
+        f"{CFG5['tasks_per_job']} ({n_dyn} dynamic), {n_best_effort} best-effort "
+        f"({time.perf_counter() - t0:.1f} s)")
     sched = Scheduler(store, conf=full_conf("cuda"))
     log(f"[{label}] prewarm {sched.prewarm():.2f} s")
-    K.reset_launches()
-    t0 = time.perf_counter()
-    sched.run_once()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    solve_dyn = cycle_mod.torch_dynamic_solve
+    solve_walls = []
+    if capture is not None:
+        def recording(backend, snap, dyn, n_pending=None):
+            capture.append((backend, snap, dyn))
+            t = time.perf_counter()
+            out = solve_dyn(backend, snap, dyn, n_pending)
+            solve_walls.append(time.perf_counter() - t)
+            return out
+        cycle_mod.torch_dynamic_solve = recording
+    try:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        sched.run_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        cycle_mod.torch_dynamic_solve = solve_dyn
     phases = {k: round(v, 4) for k, v in sched.fast_cycle.phases.items()}
     log(f"[{label}] cycle 1 wall {wall:.3f} s phases {json.dumps(phases)} launches {launches}")
-    for name in want:
-        if launches[name] < 1:
-            raise AssertionError(f"{label}: kernel {name} not launched on the main path")
+    if solve_walls:
+        # the dyn_solve phase = the dynamic inputs built on the host, then
+        # the upload, the solve and its one fetch
+        log(f"[{label}] dyn_solve split: inputs on the host "
+            f"{phases['dyn_solve'] - solve_walls[0]:.4f} s, upload + solve + fetch "
+            f"{solve_walls[0]:.4f} s")
+    want = {k: 1 for k in want} if not isinstance(want, dict) else want
+    for name, at_least in want.items():
+        if launches[name] < at_least:
+            raise AssertionError(f"{label}: kernel {name} launched {launches[name]} times on "
+                                 f"the main path, expected at least {at_least}")
     for name in forbid:
         if launches[name]:
             raise AssertionError(f"{label}: kernel {name} launched ({launches[name]})")
+    want_gang = n_jobs * CFG5["tasks_per_job"]
     gang, be = check_placement(store)
     log(f"[{label}] bound after cycle 1: {gang} gang tasks, {be} best-effort")
-    if gang < n_jobs * CFG5["tasks_per_job"] or be < n_best_effort:
+    cycles = 1
+    while (gang < want_gang or be < n_best_effort) and cycles < max_cycles:
+        cycles += 1
         t0 = time.perf_counter()
         sched.run_once()
-        log(f"[{label}] cycle 2 wall {time.perf_counter() - t0:.3f} s")
+        log(f"[{label}] cycle {cycles} wall {time.perf_counter() - t0:.3f} s phases "
+            f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}")
         gang, be = check_placement(store)
-        log(f"[{label}] bound after cycle 2: {gang} gang tasks, {be} best-effort")
-    if gang != n_jobs * CFG5["tasks_per_job"] or be != n_best_effort:
-        raise AssertionError(f"{label}: {gang} gang tasks and {be} best-effort bound")
+        log(f"[{label}] bound after cycle {cycles}: {gang} gang tasks, {be} best-effort")
+    if gang != want_gang or be != n_best_effort:
+        raise AssertionError(f"{label}: {gang} gang tasks and {be} best-effort bound "
+                             f"after {cycles} cycles")
+    log(f"[{label}] all bound in {cycles} cycle(s) (deadline {max_cycles})")
     t0 = time.perf_counter()
     sched.run_once()
     steady = time.perf_counter() - t0
     log(f"[{label}] steady cycle wall {steady:.4f} s phases "
         f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}")
     return launches
+
+
+def phase_portsel_kernels(captured, n_launches):
+    """K5: the dynamic solves the e2e cells ran (K3 or K2 with portsel),
+    again on their captured inputs, against their plain versions, with
+    CUDA-event times and a bound counted from the work this data needs."""
+    import torch
+
+    from volcano_tpu_torch.scheduler import kernels as K
+    from volcano_tpu_torch.scheduler.tensor_actions import dyn_solve_args
+
+    rows = {}
+    for label, (backend, snap, dyn) in captured.items():
+        solve, args, kw = dyn_solve_args(backend, snap, dyn)
+        batch = solve is K.allocate_solve_batch
+        plain = K.allocate_solve_batch_plain if batch else K.allocate_solve_plain
+        names = K._SOLVE_ARGS + ("w_least", "w_balanced")
+        pargs = dict(zip(names, args))
+        out_k = solve(*args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p = plain(**pargs, **kw)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+        name = "allocate_solve_batch_portsel" if batch else "allocate_solve_portsel"
+        err = _compare(f"{label} {name}", out_k, out_p)
+        ms = cuda_ms(lambda: solve(*args, **kw), 3)
+        if batch:
+            plain_ms = cuda_ms(lambda: plain(**pargs, **kw), 1)
+        else:
+            plain_ms = t_p * 1e3
+        a = {k: v for k, v in pargs.items() if torch.is_tensor(v)}
+        ps = kw["portsel"]
+        io = nbytes(*a.values(), *ps[:6]) + nbytes(*out_k[:10])
+        ps_ops = _portsel_task_ops(ps)
+        if batch:
+            J = a["job_queue"].shape[0]
+            M, P = min(512, J), 16
+            n_keys = len(kw["job_key_order"]) + 2 + int(kw["use_proportion"])
+            ops = _batch_solve_ops(out_k, a, M, P, n_keys, ps_ops=ps_ops)
+        else:
+            ops = _exact_solve_ops(out_k, a, ps_ops=ps_ops)
+        b, kind = bound_ms(io, ops)
+        placed = int((out_k.task_kind > 0).sum())
+        log(f"[kernels] {label} {name} ok: {int(out_k.steps)} {'rounds' if batch else 'steps'}, "
+            f"{placed} placed, {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b:.4f} ms by {kind})")
+        src = "allocate_batch.cu" if batch else "allocate_solve.cu"
+        rows[name] = dict(
+            name=name, route="cuda", source=f"volcano_tpu_torch/csrc/{src}",
+            replaces=("volcano_tpu/scheduler/kernels.py:611-635" if batch
+                      else "volcano_tpu/scheduler/kernels.py:308-322"),
+            launches=n_launches[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b, bound_by=kind, library_ms=None, check="ok")
+    return rows
 
 
 def _device_ms(events):
@@ -532,8 +737,29 @@ def main(argv):
     exact = phase_e2e("e2e exact", 200, 0,
                       want=("water_fill", "allocate_solve"),
                       forbid=("allocate_solve_batch",))
+    captured = {}
+    cap = []
+    dyn = phase_e2e("e2e cfg5d", CFG5["jobs"], CFG5["best_effort"],
+                    want={"water_fill": 1, "allocate_solve_batch": 2,
+                          "allocate_solve_batch_portsel": 1},
+                    forbid=("allocate_solve", "allocate_solve_portsel"),
+                    dynamic_frac=0.10, max_cycles=MAX_CYCLES_DYNAMIC, capture=cap)
+    captured["cfg5d"] = cap[0]
+    cap = []
+    dyn_exact = phase_e2e("e2e cfg5d-exact", CFG5["jobs"], CFG5["best_effort"],
+                          want={"water_fill": 1, "allocate_solve_batch": 1,
+                                "allocate_solve": 1, "allocate_solve_portsel": 1},
+                          forbid=("allocate_solve_batch_portsel",),
+                          dynamic_frac=0.04, max_cycles=MAX_CYCLES_DYNAMIC, capture=cap)
+    captured["cfg5d-exact"] = cap[0]
+    kern.update(phase_portsel_kernels(captured, {
+        "allocate_solve_batch_portsel": dyn["allocate_solve_batch_portsel"],
+        "allocate_solve_portsel": dyn_exact["allocate_solve_portsel"]}))
     for name, row in kern.items():
-        row["launches"] = exact[name] if name == "allocate_solve" else batch[name]
+        if name in ("water_fill", "allocate_solve_batch"):
+            row["launches"] = batch[name]
+        elif name == "allocate_solve":
+            row["launches"] = exact[name]
         row["check"] = "ok"
     log(smi)
     log(json.dumps({"kernels": list(kern.values())}))

@@ -8,7 +8,7 @@ the port's ``Scheduler(..., backend="cpu").run_once()`` must give the same
 ``backend: tpu`` and the same actions and tiers — on the exact path and on
 the batch path (``solveMode: batch``; JAX with ``exactTopK``).  Also: the
 port imports neither jax nor volcano_tpu, its default backend needs a
-card, and clusters outside its slice raise.
+card, and clusters outside its slices raise.
 """
 
 import ast
@@ -29,7 +29,7 @@ from volcano_tpu.scheduler.fastpath import build_fast_snapshot as jax_build_fast
 from volcano_tpu.scheduler.scheduler import Scheduler as JScheduler
 from volcano_tpu.store import Store as JStore
 from volcano_tpu_torch import interop
-from volcano_tpu_torch.api import POD_GROUP_KEY
+from volcano_tpu_torch.api import POD_GROUP_KEY, Metadata
 from volcano_tpu_torch.scheduler import conf as tconf
 from volcano_tpu_torch.scheduler.fastpath import ArrayMirror, build_fast_snapshot
 from volcano_tpu_torch.scheduler.scheduler import Scheduler
@@ -305,7 +305,7 @@ def test_default_backend_without_a_card_raises(monkeypatch):
 
 
 def _pod(name, **spec_kw):
-    from volcano_tpu_torch.api import Metadata, Pod, PodSpec, Resource
+    from volcano_tpu_torch.api import Pod, PodSpec, Resource
 
     return Pod(meta=Metadata(name=name, annotations={POD_GROUP_KEY: "job3"}),
                spec=PodSpec(resources=Resource(500, 1 << 29), **spec_kw))
@@ -314,11 +314,13 @@ def _pod(name, **spec_kw):
 @pytest.mark.parametrize("case,match", [
     ("preempt", "contention slice"),
     ("plugin", "object path"),
-    ("ports", "dynamic-predicate slice"),
+    ("port-overflow", "intern-overflow.*object path"),
+    ("best-effort-dynamic", "best-effort.*object path"),
+    ("partition-unsafe", "partition unsafe.*object path"),
     ("volume", "volume slice"),
 ])
 def test_out_of_slice_clusters_raise(case, match):
-    from volcano_tpu_torch.api import Affinity
+    from volcano_tpu_torch.api import Affinity, PodGroup, PriorityClass, Resource
 
     store = interop.store_from_spec(cluster_spec(2))
     conf = tconf.full_conf("cpu")
@@ -326,9 +328,24 @@ def test_out_of_slice_clusters_raise(case, match):
         conf.actions = ["enqueue", "allocate", "backfill", "preempt"]
     elif case == "plugin":
         conf.tiers[0].plugins.append(tconf.PluginOption("binpack"))
-    elif case == "ports":
-        store.create("Pod", _pod("dyn", host_ports=[8080]))
+    elif case == "port-overflow":
+        # 129 distinct host ports: past the 128 the mirror interns
+        store.create("Pod", _pod("dyn", host_ports=list(range(20000, 20129))))
+    elif case == "best-effort-dynamic":
         store.create("Pod", _pod("anti", affinity=Affinity(pod_anti_affinity=[{"a": "b"}])))
+        pod = _pod("be")
+        pod.spec.resources = Resource()
+        store.create("Pod", pod)
+    elif case == "partition-unsafe":
+        # a dynamic job above every express job's priority in both queues
+        store.create("PriorityClass", PriorityClass(meta=Metadata(name="high", namespace=""),
+                                                    value=100))
+        for q in ("qa", "qb"):
+            store.create("PodGroup", PodGroup(meta=Metadata(name=f"hi-{q}"), min_member=1,
+                                              queue=q, priority_class_name="high"))
+            pod = _pod(f"hi-{q}-0", host_ports=[8080])
+            pod.meta.annotations[POD_GROUP_KEY] = f"hi-{q}"
+            store.create("Pod", pod)
     else:
         pod = _pod("vol")
         pod.volumes = ["claim"]

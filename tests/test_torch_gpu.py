@@ -19,7 +19,12 @@ from volcano_tpu_torch import interop
 from volcano_tpu_torch.scheduler import kernels as K
 from volcano_tpu_torch.scheduler.conf import full_conf
 from volcano_tpu_torch.scheduler.scheduler import Scheduler
-from volcano_tpu_torch.scheduler.simargs import add_releasing, build_sim_args
+from volcano_tpu_torch.scheduler.simargs import (
+    PORTSEL_KEYS,
+    add_releasing,
+    build_portsel_args,
+    build_sim_args,
+)
 
 # the plain versions are many small ops: one intra-op thread each, so that
 # parallel test workers do not oversubscribe the cores
@@ -153,3 +158,86 @@ def test_gpu_scheduler_binds_equal_cpu(solve_mode, seed):
         ))
     assert states[0] == states[1]
     assert any(states[0][0].values())
+
+
+# -- K5: the portsel extension -------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [False, True])
+@pytest.mark.parametrize("seed,w_podaff", [(0, 1.0), (1, 0.1), (2, 1.0), (3, 0.1)])
+def test_gpu_portsel_solve_matches_plain(batch, seed, w_podaff):
+    dev = _cuda()
+    a = _args(dev, seed, releasing=seed > 0)
+    p = build_portsel_args(14, 64, seed=seed, n_jobs=16, w_podaff=w_podaff)
+    ps = tuple(p[k] if k == "w_podaff" else torch.from_numpy(p[k]).to(dev) for k in PORTSEL_KEYS)
+    des = K.water_fill(*_water_fill_inputs(a))
+    args = {k: (des if k == "queue_deserved" else a[k]) for k in K._SOLVE_ARGS}
+    wrap = K.allocate_solve_batch if batch else K.allocate_solve
+    plain = K.allocate_solve_batch_plain if batch else K.allocate_solve_plain
+    chunks = dict(m_chunk=4, p_chunk=3) if batch and seed % 2 else {}
+    name = "allocate_solve_batch" if batch else "allocate_solve"
+    K.reset_launches()
+    out_k = wrap(*args.values(), 1.0, 1.0, portsel=ps, **chunks)
+    assert K.LAUNCHES[name] == 1 and K.LAUNCHES[name + "_portsel"] == 1
+    out_p = plain(**args, w_least=1.0, w_balanced=1.0, portsel=ps, **chunks)
+    _assert_same(out_k, out_p)
+    assert int((out_p.task_kind > 0).sum()) > 0
+
+
+def _dyn_spec(seed, n_nodes=10, n_jobs=12):
+    """Residents with labels and host ports, and pending jobs that are
+    plain, carry a host port, or require or refuse a labelled neighbour."""
+    rng = np.random.default_rng(seed)
+    pick = lambda seq: seq[int(rng.integers(len(seq)))]  # noqa: E731
+    labels = [{"app": "web"}, {"app": "db"}, {}]
+    spec = {"queues": [{"name": "default", "weight": 1}],
+            "nodes": [{"name": f"n{i:02d}", "allocatable": {"cpu": "8", "memory": "16Gi",
+                                                            "pods": 20}}
+                      for i in range(n_nodes)],
+            "podgroups": [{"name": "res", "min_member": 1, "queue": "default",
+                           "phase": "Running"}],
+            "pods": [{"name": f"res-{i}", "group": "res", "phase": "Running",
+                      "resources": {"cpu": "1", "memory": "1Gi"}, "labels": pick(labels),
+                      "node_name": f"n{i % n_nodes:02d}", "host_ports": [pick([80, 8080])]}
+                     for i in range(4)]}
+    for j in range(n_jobs):
+        kind = pick(["plain", "ports", "aff", "anti"])
+        spec["podgroups"].append({"name": f"j{j}", "min_member": 2, "queue": "default",
+                                  "phase": "Inqueue"})
+        for t in range(3):
+            pod = {"name": f"j{j}-{t}", "group": f"j{j}", "labels": pick(labels),
+                   "resources": {"cpu": pick(["500m", "1"]), "memory": "1Gi"}}
+            if kind == "ports":
+                pod["host_ports"] = [pick([80, 8080, 9090])]
+            elif kind == "aff":
+                pod["pod_affinity"] = [{"app": "web"}]
+            elif kind == "anti":
+                pod["pod_anti_affinity"] = [pick(labels[:2])]
+            spec["pods"].append(pod)
+    return spec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solve_mode", ["exact", "batch"])
+@pytest.mark.parametrize("seed", range(2))
+def test_gpu_dynamic_scheduler_binds_equal_cpu(solve_mode, seed):
+    """On a cluster with dynamic jobs the cuda backend's dynamic pass (K5
+    in K2 or K3) binds what the cpu backend's plain versions bind."""
+    _cuda()
+    states = []
+    for backend in ("cuda", "cpu"):
+        store = interop.store_from_spec(_dyn_spec(seed))
+        conf = full_conf(backend)
+        conf.solve_mode = solve_mode
+        sched = Scheduler(store, conf=conf)
+        K.reset_launches()
+        sched.run_once()
+        assert "dyn_solve" in sched.fast_cycle.phases
+        if backend == "cuda":
+            name = "allocate_solve_batch" if solve_mode == "batch" else "allocate_solve"
+            assert K.LAUNCHES[name + "_portsel"] == 1
+        states.append((
+            {p.meta.key: p.node_name for p in store.list("Pod")},
+            {g.meta.key: g.status.phase for g in store.list("PodGroup")},
+        ))
+    assert states[0] == states[1]

@@ -25,6 +25,27 @@
 //     by (node, rank), one thread per node segment for the running sums,
 //     and every state update in a fixed order.  Float sums never use
 //     atomics (integer atomicMin picks the best pipeline rank per node).
+//
+// K5 in K3 (has_portsel): replaces the portsel branches of the same
+// function: the [M, N] port / required / anti feasibility and the interpod
+// score (kernels.py:611-635), the one-task-per-target spread of heads with
+// ports or self-matching anti-affinity (:702-710), the segmented exclusive
+// cumulative-OR conflict scan (:763-793), the pipe exclusion of proposals
+// with ports or anti selectors (:805-811), the scatter-OR / scatter-add of
+// winners' ports and labels (:862-881) and the rollback's scatter-AND and
+// subtract (:935-943); the on-device unpack of tensor_actions.py:664-684
+// has no launch here, the words are tested in place.  Design: the propose
+// kernel tests a head's words against each node's port words and a
+// per-node "selector matched" word pair (kept beside the counts, refreshed
+// wherever a count moves) — no matrix products, no per-node shared arrays;
+// the accept kernel's one-thread-per-node-segment walk, which already
+// visits each node's proposals in rank order, carries six running words
+// (4 of ports, 2 of labels) and ORs in every proposal, accepted or not,
+// as the reference's scan does; the owners of a node's idle run, pipe win
+// and rollback fold ports and counts into that node.  Bound: as K3; K5
+// adds 24 bytes a (job, node) pair to the score pass's L2 reads, and only
+// for heads that carry ports or selectors.  The propose and accept kernels
+// are templates on the flag: without portsel no K5 code is compiled in.
 #include "common.cuh"
 
 #define VTT_PROPOSE_THREADS 256
@@ -52,6 +73,12 @@ __device__ __forceinline__ bool vtt_rank_less(const float* ka, int ia,
     if (ka[i] > kb[i]) return false;
   }
   return ia < ib;
+}
+
+// node_match from node_selcnt, once per solve (K5)
+__global__ void vtt_ps_init(VttSolveArgs a) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n < a.N) vtt_ps_init_node(a, n);
 }
 
 __global__ void vtt_batch_init(VttSolveArgs a) {
@@ -131,6 +158,7 @@ __global__ void vtt_batch_select(VttSolveArgs a) {
 
 // one CTA per selected job: head-task scores over all nodes in shared
 // memory, exact top-K, per-target counts and the job's P proposals
+template <bool PS>
 __global__ void __launch_bounds__(VTT_PROPOSE_THREADS)
     vtt_batch_propose(VttSolveArgs a) {
   VTT_DYN_SMEM(float, s_val);
@@ -167,18 +195,22 @@ __global__ void __launch_bounds__(VTT_PROPOSE_THREADS)
   const float* cscore = a.class_score + (size_t)cls * N;
   const uint32_t jh = (uint32_t)j * 2654435761u;
   const float jscale = (float)(1e-4 / 65535.0);
+  VttPs hps{};
+  if (PS) hps = vtt_ps_task(a, head_t);
 
   bool any_local = false;
   for (int n = tid; n < N; n += blockDim.x) {
     const bool fit_i = vtt_less_equal(req, &a.idle[(size_t)n * R], a.eps, R);
     const bool fit_r = vtt_less_equal(req, &a.releasing[(size_t)n * R], a.eps, R);
     const bool feasible = (fit_i || fit_r) && cmask[n] &&
-                          a.task_count[n] < a.node_max_tasks[n] && a.node_valid[n];
+                          a.task_count[n] < a.node_max_tasks[n] && a.node_valid[n] &&
+                          (!PS || vtt_ps_feasible(a, n, hps));
     float v = VTT_NEG_INF;
     if (feasible) {
-      const float sc = vtt_score_node(req, &a.used[(size_t)n * R],
-                                      &a.node_alloc[(size_t)n * R], cscore[n],
-                                      a.w_least, a.w_balanced);
+      float sc = vtt_score_node(req, &a.used[(size_t)n * R],
+                                &a.node_alloc[(size_t)n * R], cscore[n],
+                                a.w_least, a.w_balanced);
+      if (PS) sc = vtt_ps_score(a, n, hps, sc);
       uint32_t h = (jh ^ ((uint32_t)n * 40503u)) * 2246822519u;
       h ^= h >> 15;
       v = __fmaf_rn((float)(h & 0xFFFFu), jscale, sc);
@@ -218,7 +250,8 @@ __global__ void __launch_bounds__(VTT_PROPOSE_THREADS)
     const bool fit_r = vtt_less_equal(req, &a.releasing[(size_t)node * R], a.eps, R);
     const bool feasible = (fit_i || fit_r) && cmask[node] &&
                           a.task_count[node] < a.node_max_tasks[node] &&
-                          a.node_valid[node];
+                          a.node_valid[node] &&
+                          (!PS || vtt_ps_feasible(a, node, hps));
     const bool is_idle = fit_i && feasible;
     float c = VTT_POS_INF;
     for (int r = 0; r < R; ++r)
@@ -226,6 +259,12 @@ __global__ void __launch_bounds__(VTT_PROPOSE_THREADS)
         c = fminf(c, floorf((nid[r] + a.eps[r]) / fmaxf(req[r], 1e-30f)));
     c = is_idle ? fmaxf(c, 0.0f) : 0.0f;
     if (feasible && !is_idle) c = 1.0f;
+    if (PS) {
+      // a head with ports or self-matching anti-affinity: one task a node
+      bool self_anti = false;
+      for (int w = 0; w < VTT_SW; ++w) self_anti |= (hps.anti[w] & hps.self_[w]) != 0;
+      if (hps.any_port || self_anti) c = fminf(c, 1.0f);
+    }
     s_knode[k] = node;
     s_kidle[k] = is_idle ? 1 : 0;
     s_cnt[k] = c;
@@ -256,7 +295,14 @@ __global__ void __launch_bounds__(VTT_PROPOSE_THREADS)
         vtt_less_equal(&a.task_req[(size_t)t * R], &a.releasing[(size_t)nc * R],
                        a.eps, R) &&
         a.task_count[nc] < a.node_max_tasks[nc];
-    const bool pipe_ok = is_pipe && pipe_fits;
+    // a proposal whose OWN task has ports or anti selectors never pipelines
+    // (pipe wins bypass the accept kernel's conflict scan)
+    bool ps_pipe_ok = true;
+    if (PS) {
+      const VttPs tps = vtt_ps_task(a, t);
+      ps_pipe_ok = !tps.any_port && !(tps.anti[0] | tps.anti[1]);
+    }
+    const bool pipe_ok = is_pipe && pipe_fits && ps_pipe_ok;
     a.p_node[f] = node;
     a.p_t[f] = t;
     a.p_job[f] = j;
@@ -268,6 +314,7 @@ __global__ void __launch_bounds__(VTT_PROPOSE_THREADS)
 
 // one CTA: (node, rank) order, capacity-aware acceptance, pipeline wins,
 // per-job prefix cancel, state update, and the no-win drop with rollback
+template <bool PS>
 __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
     vtt_batch_accept(VttSolveArgs a, int Fp2) {
   VTT_DYN_SMEM(unsigned long long, s_key);
@@ -316,6 +363,8 @@ __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
     if (kn >= N || (i > 0 && (int)(s_key[i - 1] >> 32) == kn)) continue;
     float run[VTT_MAX_R];
     for (int r = 0; r < R; ++r) run[r] = 0.0f;
+    // K5: ports and labels of every earlier proposal in this node's run
+    uint32_t run_ports[VTT_PW] = {0, 0, 0, 0}, run_self[VTT_SW] = {0, 0};
     const float* nid = &a.idle[(size_t)kn * R];
     int pos = 0;
     for (int i2 = i; i2 < F && (int)(s_key[i2] >> 32) == kn; ++i2, ++pos) {
@@ -325,6 +374,17 @@ __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
       for (int r = 0; r < R; ++r) {
         run[r] = run[r] + rq[r];
         ok = ok && (run[r] < nid[r] + a.eps[r]);
+      }
+      if (PS) {
+        const VttPs tps = vtt_ps_task(a, a.p_t[f]);
+        for (int w = 0; w < VTT_PW; ++w) {
+          ok = ok && !(run_ports[w] & tps.port[w]);
+          run_ports[w] |= tps.port[w];
+        }
+        for (int w = 0; w < VTT_SW; ++w) {
+          ok = ok && !(run_self[w] & tps.anti[w]);
+          run_self[w] |= tps.self_[w];
+        }
       }
       if (ok && a.task_count[kn] + pos < a.node_max_tasks[kn]) a.p_flags[f] |= PF_ACCEPT;
     }
@@ -378,6 +438,7 @@ __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
         a.used[(size_t)kn * R + r] = a.used[(size_t)kn * R + r] + rq[r];
       }
       a.task_count[kn] += 1;
+      if (PS) vtt_ps_fold(a, kn, vtt_ps_task(a, a.p_t[f]), +1);
     }
   }
   for (int q = tid; q < Q; q += nthr) {
@@ -401,6 +462,8 @@ __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
       a.used[(size_t)n * R + r] = a.used[(size_t)n * R + r] + rq[r];
     }
     a.task_count[n] += 1;
+    // a pipe win has no ports or anti bits, but its labels count
+    if (PS) vtt_ps_fold(a, n, vtt_ps_task(a, a.p_t[f]), +1);
   }
   __syncthreads();
 
@@ -427,6 +490,7 @@ __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
             qsum[r] = qsum[r] + rq[r];
           }
           a.task_count[n] -= 1;
+          if (PS) vtt_ps_fold(a, n, vtt_ps_task(a, t), -1);
           task_node[t] = -1;
           task_kind[t] = 0;
           task_seq[t] = -1;
@@ -447,21 +511,18 @@ __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
 
 static int vtt_check() { return (int)cudaGetLastError(); }
 
-extern "C" int vtt_allocate_solve_batch(const VttSolveArgs* args, void* stream) {
-  const VttSolveArgs a = *args;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (a.R < 2 || a.R > VTT_MAX_R || a.P < 1 || a.P > VTT_MAX_P || a.K > a.P ||
-      a.n_keys > 3 || a.F != a.M * a.P)
-    return (int)cudaErrorInvalidValue;
+// the host round loop for one instantiation of the round kernels
+template <bool PS>
+static int vtt_batch_rounds(const VttSolveArgs& a, cudaStream_t s) {
   int Fp2 = 1;
   while (Fp2 < a.F) Fp2 <<= 1;
   const size_t propose_smem = (size_t)a.N * sizeof(float);
   const size_t accept_smem = (size_t)Fp2 * sizeof(unsigned long long);
-  int err = (int)cudaFuncSetAttribute(vtt_batch_propose,
+  int err = (int)cudaFuncSetAttribute(vtt_batch_propose<PS>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       (int)propose_smem);
   if (err) return err;
-  err = (int)cudaFuncSetAttribute(vtt_batch_accept,
+  err = (int)cudaFuncSetAttribute(vtt_batch_accept<PS>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)accept_smem);
   if (err) return err;
@@ -471,6 +532,7 @@ extern "C" int vtt_allocate_solve_batch(const VttSolveArgs* args, void* stream) 
   const int keys_blocks = (int)((wide + 255) / 256);
   const dim3 rank_grid((J + 255) / 256, (J + VTT_RANK_CHUNK - 1) / VTT_RANK_CHUNK);
 
+  if (PS) VTT_LAUNCH(vtt_ps_init, (int)((a.N + 255) / 256), 256, 0, s)(a);
   VTT_LAUNCH(vtt_batch_init, 1, 1, 0, s)(a);
   VTT_LAUNCH(vtt_batch_keys, keys_blocks, 256, 0, s)(a);
   if ((err = vtt_check())) return err;
@@ -483,10 +545,19 @@ extern "C" int vtt_allocate_solve_batch(const VttSolveArgs* args, void* stream) 
     if (go <= 0) break;
     VTT_LAUNCH(vtt_batch_rank, rank_grid, 256, 0, s)(a);
     VTT_LAUNCH(vtt_batch_select, (J + 255) / 256, 256, 0, s)(a);
-    VTT_LAUNCH(vtt_batch_propose, (int)a.M, VTT_PROPOSE_THREADS, propose_smem, s)(a);
-    VTT_LAUNCH(vtt_batch_accept, 1, VTT_ACCEPT_THREADS, accept_smem, s)(a, Fp2);
+    VTT_LAUNCH(vtt_batch_propose<PS>, (int)a.M, VTT_PROPOSE_THREADS, propose_smem, s)(a);
+    VTT_LAUNCH(vtt_batch_accept<PS>, 1, VTT_ACCEPT_THREADS, accept_smem, s)(a, Fp2);
     VTT_LAUNCH(vtt_batch_keys, keys_blocks, 256, 0, s)(a);
     if ((err = vtt_check())) return err;
   }
   return vtt_check();
+}
+
+extern "C" int vtt_allocate_solve_batch(const VttSolveArgs* args, void* stream) {
+  const VttSolveArgs a = *args;
+  if (a.R < 2 || a.R > VTT_MAX_R || a.P < 1 || a.P > VTT_MAX_P || a.K > a.P ||
+      a.n_keys > 3 || a.F != a.M * a.P)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return a.has_portsel ? vtt_batch_rounds<true>(a, s) : vtt_batch_rounds<false>(a, s);
 }

@@ -14,6 +14,20 @@
 // per step — with block-wide reductions between __syncthreads; thread 0
 // applies each step's scalar update.  The state lives in global memory in
 // the wrapper's working copies and stays L2-resident.
+//
+// K5 in K2 (has_portsel): replaces the portsel branches of the same
+// function, kernels.py:308-322 (port, required- and anti-selector
+// feasibility), :356-361 (the interpod score term) and :398-405 (the placed
+// pod's ports and labels join its node).  The inputs stay packed u32 words
+// (tensor_actions.py:664-684 unpacked them on the device; here no unpack
+// runs at all): each node's test is four port-word ANDs and two ANDs
+// against a per-node "selector matched" word pair, kept beside the counts
+// and refreshed where a count moves; the score reads only the counts of the
+// task's own selector bits.  Bound: the same chain of dependent steps as
+// K2 itself; K5 adds 24 bytes a node to a step's L2 reads (16 of ports, 8
+// of match words) and touches the counts of the placed node only.  The
+// kernel is a template on the flag: without portsel the K5 code is not
+// compiled in at all, so the plain solve keeps its registers and speed.
 #include "common.cuh"
 
 #define VTT_EXACT_THREADS 1024
@@ -47,6 +61,7 @@ __device__ __forceinline__ bool vtt_exact_active(const VttSolveArgs& a, int j) {
          !a.queue_dropped[qc] && q >= 0;
 }
 
+template <bool PS>
 __global__ void __launch_bounds__(VTT_EXACT_THREADS)
     vtt_allocate_solve_kernel(VttSolveArgs a) {
   __shared__ float s_v[VTT_EXACT_THREADS];
@@ -68,6 +83,8 @@ __global__ void __launch_bounds__(VTT_EXACT_THREADS)
   const int codes[3] = {(int)a.key0, (int)a.key1, (int)a.key2};
   const int nk = (int)a.n_keys;
   int counter = 0;
+  if (PS)
+    for (int n = tid; n < N; n += nthr) vtt_ps_init_node(a, n);
   if (tid == 0) s_cur = -1;
   __syncthreads();
 
@@ -145,6 +162,8 @@ __global__ void __launch_bounds__(VTT_EXACT_THREADS)
     const int cls = a.task_class[t];
     const uint8_t* cmask = a.class_mask + (size_t)cls * N;
     const float* cscore = a.class_score + (size_t)cls * N;
+    VttPs ps{};
+    if (PS) ps = vtt_ps_task(a, t);
     float bv = VTT_NEG_INF;
     int bi = 0x7fffffff;
     for (int n = tid; n < N; n += nthr) {
@@ -153,9 +172,11 @@ __global__ void __launch_bounds__(VTT_EXACT_THREADS)
       const bool fit_i = vtt_less_equal(req, &a.idle[(size_t)n * R], a.eps, R);
       const bool fit_r = vtt_less_equal(req, &a.releasing[(size_t)n * R], a.eps, R);
       if (!fit_i && !fit_r) continue;
-      const float sc = vtt_score_node(req, &a.used[(size_t)n * R],
-                                      &a.node_alloc[(size_t)n * R], cscore[n],
-                                      a.w_least, a.w_balanced);
+      if (PS && !vtt_ps_feasible(a, n, ps)) continue;
+      float sc = vtt_score_node(req, &a.used[(size_t)n * R],
+                                &a.node_alloc[(size_t)n * R], cscore[n],
+                                a.w_least, a.w_balanced);
+      if (PS) sc = vtt_ps_score(a, n, ps, sc);
       if (vtt_better(sc, n, bv, bi)) {
         bv = sc;
         bi = n;
@@ -193,6 +214,8 @@ __global__ void __launch_bounds__(VTT_EXACT_THREADS)
         task_kind[t] = use_idle ? 1 : 2;
         task_seq[t] = counter;
         s_cur = (now_ready || exhausted) ? -1 : j;
+        // the placed pod is resident now, pipelined or not
+        if (PS) vtt_ps_fold(a, n, ps, +1);
       }
     }
     counter += (bi != 0x7fffffff) ? 1 : 0;
@@ -204,7 +227,11 @@ __global__ void __launch_bounds__(VTT_EXACT_THREADS)
 extern "C" int vtt_allocate_solve(const VttSolveArgs* args, void* stream) {
   if (args->R < 2 || args->R > VTT_MAX_R || args->Q > 64 || args->n_keys > 3)
     return (int)cudaErrorInvalidValue;
-  VTT_LAUNCH(vtt_allocate_solve_kernel, 1, VTT_EXACT_THREADS, 0,
-             (cudaStream_t)stream)(*args);
+  if (args->has_portsel)
+    VTT_LAUNCH(vtt_allocate_solve_kernel<true>, 1, VTT_EXACT_THREADS, 0,
+               (cudaStream_t)stream)(*args);
+  else
+    VTT_LAUNCH(vtt_allocate_solve_kernel<false>, 1, VTT_EXACT_THREADS, 0,
+               (cudaStream_t)stream)(*args);
   return (int)cudaGetLastError();
 }

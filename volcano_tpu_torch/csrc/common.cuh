@@ -21,6 +21,9 @@
 #endif
 
 #define VTT_MAX_R 8
+#define VTT_PW 4   // u32 words of host-port bits (128 ports)
+#define VTT_SW 2   // u32 words of selector bits (64 selectors)
+#define VTT_S (32 * VTT_SW)
 #define VTT_NEG_INF (-__int_as_float(0x7f800000))
 #define VTT_POS_INF (__int_as_float(0x7f800000))
 
@@ -69,10 +72,21 @@ struct VttSolveArgs {
   int32_t* p_job;
   uint8_t* p_flags;
   int32_t* best_pipe;    // [N + 1]
+  // K5 (portsel; null unless has_portsel): resident host-port words and
+  // selector match counts per node (working copies), the tasks' port,
+  // required-selector, anti-selector and own-label words, and a scratch
+  // copy of "count > 0" per selector bit, refreshed wherever a count moves
+  int32_t* node_ports;         // [N, VTT_PW] u32 bit patterns
+  int32_t* node_selcnt;        // [N, VTT_S]
+  const int32_t* task_ports;   // [T, VTT_PW]
+  const int32_t* task_aff;     // [T, VTT_SW]
+  const int32_t* task_anti;    // [T, VTT_SW]
+  const int32_t* task_self;    // [T, VTT_SW]
+  int32_t* node_match;         // [N, VTT_SW] scratch
   int64_t N, R, T, J, Q, C, M, P, K, F;
   int64_t n_keys, key0, key1, key2;  // job_key_order: 1 priority, 2 gang, 3 drf
-  int64_t use_gang_ready, use_proportion;
-  float w_least, w_balanced;
+  int64_t use_gang_ready, use_proportion, has_portsel;
+  float w_least, w_balanced, w_podaff;
 };
 
 enum { VTT_KEY_PRIORITY = 1, VTT_KEY_GANG = 2, VTT_KEY_DRF = 3 };
@@ -167,4 +181,100 @@ __device__ __forceinline__ int vtt_block_sum(int v, int* s) {
   const int out = s[0];
   __syncthreads();
   return out;
+}
+
+// ---- K5: host ports and pod (anti)affinity as packed bitsets ------------
+
+// One task's portsel words.
+struct VttPs {
+  uint32_t port[VTT_PW];
+  uint32_t aff[VTT_SW], anti[VTT_SW], self_[VTT_SW];
+  bool any_port, any_sel;  // any port bit; any required or anti bit
+};
+
+__device__ __forceinline__ VttPs vtt_ps_task(const VttSolveArgs& a, int t) {
+  VttPs p;
+  uint32_t ports = 0, sel = 0;
+  for (int w = 0; w < VTT_PW; ++w) {
+    p.port[w] = (uint32_t)a.task_ports[(size_t)t * VTT_PW + w];
+    ports |= p.port[w];
+  }
+  for (int w = 0; w < VTT_SW; ++w) {
+    p.aff[w] = (uint32_t)a.task_aff[(size_t)t * VTT_SW + w];
+    p.anti[w] = (uint32_t)a.task_anti[(size_t)t * VTT_SW + w];
+    p.self_[w] = (uint32_t)a.task_self[(size_t)t * VTT_SW + w];
+    sel |= p.aff[w] | p.anti[w];
+  }
+  p.any_port = ports != 0;
+  p.any_sel = sel != 0;
+  return p;
+}
+
+// Node n admits the task: no host port in common with its residents, every
+// required selector matched by a resident, no anti selector matched.
+__device__ __forceinline__ bool vtt_ps_feasible(const VttSolveArgs& a, int n,
+                                                const VttPs& p) {
+  if (p.any_port) {
+    const int32_t* np = a.node_ports + (size_t)n * VTT_PW;
+    for (int w = 0; w < VTT_PW; ++w)
+      if ((uint32_t)np[w] & p.port[w]) return false;
+  }
+  if (p.any_sel) {
+    const int32_t* m = a.node_match + (size_t)n * VTT_SW;
+    for (int w = 0; w < VTT_SW; ++w) {
+      const uint32_t mw = (uint32_t)m[w];
+      if ((p.aff[w] & ~mw) || (p.anti[w] & mw)) return false;
+    }
+  }
+  return true;
+}
+
+// score + w_podaff * sum_s selcnt[n, s] * (aff_s - anti_s), rounded once as
+// the reference rounds it.  The dot is a sum of small integers (counts of
+// resident pods), exact in int32 and in float32 below 2^24, so it needs no
+// fixed order; a task with no selector bits keeps its score.
+__device__ __forceinline__ float vtt_ps_score(const VttSolveArgs& a, int n,
+                                              const VttPs& p, float score) {
+  if (!p.any_sel) return score;
+  const int32_t* cnt = a.node_selcnt + (size_t)n * VTT_S;
+  int dot = 0;
+  for (int w = 0; w < VTT_SW; ++w) {
+    for (uint32_t b = p.aff[w]; b; b &= b - 1) dot += cnt[w * 32 + __ffs(b) - 1];
+    for (uint32_t b = p.anti[w]; b; b &= b - 1) dot -= cnt[w * 32 + __ffs(b) - 1];
+  }
+  return __fmaf_rn(a.w_podaff, (float)dot, score);
+}
+
+// The task becomes resident on node n (sign +1: its ports join the node's,
+// its labels the selector counts) or leaves it (sign -1: its ports, which no
+// co-resident can share, are cleared and its counts subtracted).  One thread
+// owns node n while it runs.
+__device__ __forceinline__ void vtt_ps_fold(const VttSolveArgs& a, int n,
+                                            const VttPs& p, int sign) {
+  int32_t* np = a.node_ports + (size_t)n * VTT_PW;
+  for (int w = 0; w < VTT_PW; ++w)
+    np[w] = (int32_t)(sign > 0 ? ((uint32_t)np[w] | p.port[w])
+                               : ((uint32_t)np[w] & ~p.port[w]));
+  int32_t* cnt = a.node_selcnt + (size_t)n * VTT_S;
+  int32_t* m = a.node_match + (size_t)n * VTT_SW;
+  for (int w = 0; w < VTT_SW; ++w) {
+    uint32_t mw = (uint32_t)m[w];
+    for (uint32_t b = p.self_[w]; b; b &= b - 1) {
+      const int bit = __ffs(b) - 1;
+      const int c = cnt[w * 32 + bit] + sign;
+      cnt[w * 32 + bit] = c;
+      mw = c > 0 ? (mw | (1u << bit)) : (mw & ~(1u << bit));
+    }
+    m[w] = (int32_t)mw;
+  }
+}
+
+// node_match[n] from node_selcnt[n]
+__device__ __forceinline__ void vtt_ps_init_node(const VttSolveArgs& a, int n) {
+  const int32_t* cnt = a.node_selcnt + (size_t)n * VTT_S;
+  for (int w = 0; w < VTT_SW; ++w) {
+    uint32_t mw = 0;
+    for (int b = 0; b < 32; ++b) mw |= (cnt[w * 32 + b] > 0 ? 1u : 0u) << b;
+    a.node_match[(size_t)n * VTT_SW + w] = (int32_t)mw;
+  }
 }

@@ -15,10 +15,14 @@
                       "phase"?, "priority_class_name"?}],
        "pods":      [{"name", "namespace"?, "group"?, "resources": {...},
                       "priority"?, "node_name"?, "phase"?, "deleting"?,
-                      "labels"?}]}
+                      "labels"?, "host_ports"?, "pod_affinity"?,
+                      "pod_anti_affinity"?}]}
 
   Resources are k8s-style resource lists ({"cpu": "500m", "memory":
-  "1Gi"}); phases are the enum values ("Running", "Inqueue", ...).
+  "1Gi"}); phases are the enum values ("Running", "Inqueue", ...);
+  ``pod_affinity`` / ``pod_anti_affinity`` are lists of label selectors
+  ({"app": "web"}).  A resident pod is a pod with a ``node_name`` and a
+  phase such as "Running".
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 
 from volcano_tpu_torch.api.objects import (
     POD_GROUP_KEY,
+    Affinity,
     Metadata,
     Node,
     Pod,
@@ -73,6 +78,12 @@ def store_from_spec(spec: Dict[str, Any]) -> Store:
         store.create("PodGroup", pg)
     for p in spec.get("pods", ()):
         group = p.get("group", "")
+        affinity = None
+        if p.get("pod_affinity") or p.get("pod_anti_affinity"):
+            affinity = Affinity(
+                pod_affinity=[dict(x) for x in p.get("pod_affinity", ())],
+                pod_anti_affinity=[dict(x) for x in p.get("pod_anti_affinity", ())],
+            )
         store.create("Pod", Pod(
             meta=Metadata(
                 name=p["name"], namespace=p.get("namespace", "default"),
@@ -80,7 +91,8 @@ def store_from_spec(spec: Dict[str, Any]) -> Store:
                 labels=dict(p.get("labels", {})),
             ),
             spec=PodSpec(resources=Resource.from_resource_list(p.get("resources", {})),
-                         priority=p.get("priority", 0)),
+                         priority=p.get("priority", 0), affinity=affinity,
+                         host_ports=list(p.get("host_ports", ()))),
             phase=PodPhase(p.get("phase", "Pending")),
             node_name=p.get("node_name", ""),
             deleting=bool(p.get("deleting", False)),

@@ -1,10 +1,11 @@
 """FastCycle: the array-native cycle driver.
 
 The port's cut of ``volcano_tpu/scheduler/fastpath/cycle.py``: drain ->
-snapshot -> enqueue -> allocate solve -> backfill -> publish, with the
-same ``phases`` keys.  Where the JAX ``FastCycle.try_run`` returns False
-and hands the cycle to the object path, this cycle raises
-``NotImplementedError`` naming the ROADMAP item that will cover the case.
+snapshot -> enqueue -> allocate solve -> backfill -> dynamic solve ->
+publish, with the same ``phases`` keys.  Where the JAX
+``FastCycle.try_run`` returns False or hands jobs to its object sub-cycle,
+this cycle raises ``NotImplementedError`` naming the ROADMAP item that will
+cover the case.
 """
 
 from __future__ import annotations
@@ -17,8 +18,14 @@ import numpy as np
 from volcano_tpu_torch.api.types import PodGroupPhase
 from volcano_tpu_torch.scheduler.fastpath.mirror import _PENDING, ArrayMirror
 from volcano_tpu_torch.scheduler.fastpath.publish import publish_and_close
-from volcano_tpu_torch.scheduler.fastpath.snapshot_build import build_fast_snapshot
-from volcano_tpu_torch.scheduler.tensor_actions import torch_allocate_solve
+from volcano_tpu_torch.scheduler.fastpath.snapshot_build import (
+    build_dyn_solve_inputs,
+    build_fast_snapshot,
+)
+from volcano_tpu_torch.scheduler.tensor_actions import (
+    torch_allocate_solve,
+    torch_dynamic_solve,
+)
 from volcano_tpu_torch.scheduler.tensor_backend import TensorBackend
 
 #: enqueue's overcommit factor (enqueue.go:80)
@@ -26,8 +33,6 @@ OVERCOMMIT_FACTOR = 1.2
 
 _OBJECT_PATH = "ROADMAP queue 1 item 8 (object path)"
 _ROADMAP_FOR = {
-    "pending pods with host ports or pod (anti)affinity":
-        "ROADMAP queue 1 item 5 (dynamic-predicate slice)",
     "pending pods with volumes": "ROADMAP queue 1 item 6 (volume slice)",
 }
 
@@ -85,6 +90,15 @@ class FastCycle:
         ph["snapshot"] = time.perf_counter() - t
         if snap is None:
             raise NotImplementedError(f"cluster without queues: {_OBJECT_PATH}")
+        if aux["partition_unsafe"]:
+            raise NotImplementedError(
+                "a dynamic job outranks an express job in its queue "
+                f"(partition unsafe): {_OBJECT_PATH}")
+        if aux["residue_keys"]:
+            why = sorted(set(aux["residue_reasons"].values()))
+            raise NotImplementedError(
+                f"dynamic jobs the device solve cannot express ({', '.join(why)}): "
+                f"{_OBJECT_PATH}")
 
         enq_ops: List[dict] = []
         if "enqueue" in self.conf.actions:
@@ -93,11 +107,11 @@ class FastCycle:
             ph["enqueue"] = time.perf_counter() - t
 
         t = time.perf_counter()
+        backend = TensorBackend(
+            self.conf.tiers, self.sched.device, self.sched.uploads,
+            solve_mode=self.conf.solve_mode)
+        backend.snapshot = snap
         if aux["n_tasks"]:
-            backend = TensorBackend(
-                self.conf.tiers, self.sched.device, self.sched.uploads,
-                solve_mode=self.conf.solve_mode)
-            backend.snapshot = snap
             task_node, task_kind, task_seq, ready = torch_allocate_solve(backend, snap)
         else:
             T = snap.task_req.shape[0]
@@ -114,9 +128,38 @@ class FastCycle:
             be_per_job = np.zeros(snap.job_min_available.shape[0], np.int64)
         ph["backfill"] = time.perf_counter() - t
 
+        # the dynamic pass: dyn-expr jobs (host ports, pod (anti)affinity)
+        # run the solve with the portsel extension over the state the
+        # express solve and backfill left, and merge into the publish
+        # layout: express task rows first, then the dynamic ones
+        pe_rows_solve, task_job_solve, task_req_solve = aux["pe_rows"], snap.task_job, snap.task_req
+        if aux["dyn_expr_job"][:max(aux["n_jobs"], 1)].any():
+            t = time.perf_counter()
+            dyn = build_dyn_solve_inputs(m, snap, aux, self.nodeaffinity_weight,
+                                         task_node, task_kind, be_rows, be_nodes, ready)
+            if dyn is not None:
+                d_node, d_kind, _, d_ready = torch_dynamic_solve(backend, snap, dyn)
+                # task arrays are bucket-padded, row maps are not: pad each
+                # region's row map to its task length (padding rows have
+                # task_kind 0 and are never read)
+                pe_pad = np.full(snap.task_req.shape[0], -1, np.int64)
+                pe_pad[: pe_rows_solve.size] = pe_rows_solve
+                dyn_pad = np.full(dyn["task_req"].shape[0], -1, np.int64)
+                dyn_pad[: dyn["rows"].size] = dyn["rows"]
+                task_node = np.concatenate([task_node, d_node])
+                task_kind = np.concatenate([task_kind, d_kind])
+                pe_rows_solve = np.concatenate([pe_pad, dyn_pad])
+                task_job_solve = np.concatenate([task_job_solve, dyn["task_job"]])
+                task_req_solve = np.concatenate([task_req_solve, dyn["task_req"]])
+                dmask = np.zeros(ready.shape[0], bool)
+                dmask[:aux["n_jobs"]] = aux["dyn_expr_job"][:aux["n_jobs"]]
+                ready = np.where(dmask, d_ready, ready)
+            ph["dyn_solve"] = time.perf_counter() - t
+
         t = time.perf_counter()
         publish_and_close(self, m, snap, aux, task_node, task_kind, ready,
-                          be_rows, be_nodes, be_per_job)
+                          be_rows, be_nodes, be_per_job,
+                          pe_rows_solve, task_job_solve, task_req_solve)
         self._ship_enqueue_ops(enq_ops)
         ph["publish"] = time.perf_counter() - t
         return True

@@ -3,11 +3,13 @@
 The port's copy of ``volcano_tpu/scheduler/fastpath/mirror.py``: store
 watch events apply to numpy row tables in O(changes), and the snapshot
 builder reads the tables vectorized.  Kept: pods, nodes, PodGroups (plus
-shadow gangs for group-less pods), queues, priority classes and the lazily
-filled per-(predicate class, node) cells.  Left out (later slices):
-checkpoints, the digest audit, disruption budgets, port/selector interning
-and volume state — pods that need them are only flagged, and
-``ineligible_reason`` names them so the cycle can refuse the cluster.
+shadow gangs for group-less pods), queues, priority classes, the lazily
+filled per-(predicate class, node) cells, and the interned host ports and
+pod (anti)affinity selectors with their per-node resident counts (the
+dynamic solve's state).  Left out (later slices): checkpoints, the digest
+audit, disruption budgets and volume state — pods with volumes are only
+flagged, and ``ineligible_reason`` names them so the cycle can refuse the
+cluster.
 """
 
 from __future__ import annotations
@@ -86,7 +88,8 @@ def _grow(arr: np.ndarray, n: int) -> np.ndarray:
 
 _POD_COLS = (
     "p_req", "p_resreq", "p_prio", "p_status", "p_node", "p_job",
-    "p_best_effort", "p_live", "p_rank", "p_dynamic", "p_has_vol", "p_class",
+    "p_best_effort", "p_live", "p_rank", "p_dynamic", "p_dyn_expr", "p_has_vol",
+    "p_class", "p_ports", "p_selmatch", "p_aff_req", "p_aff_anti", "p_contrib_node",
 )
 _JOB_COLS = (
     "j_min", "j_queue", "j_prio", "j_phase", "j_rv", "j_min_req", "j_live",
@@ -126,9 +129,12 @@ class ArrayMirror:
         self.p_best_effort = np.zeros((0,), bool)
         self.p_live = np.zeros((0,), bool)
         self.p_rank = np.zeros((0,), np.int64)          # arrival order
-        # resident-state predicates (host ports, pod (anti)affinity) and
-        # claim-referencing pods: outside this port's slice
+        # resident-state predicates (host ports, pod (anti)affinity); a
+        # dynamic pod whose ports and selectors all interned is expressible
+        # (p_dyn_expr) and the device dynamic solve serves it
         self.p_dynamic = np.zeros((0,), bool)
+        self.p_dyn_expr = np.zeros((0,), bool)
+        # claim-referencing pods: outside this port's slice
         self.p_has_vol = np.zeros((0,), bool)
         self.p_class = np.zeros((0,), np.int32)
         self._next_rank = 0
@@ -170,6 +176,24 @@ class ArrayMirror:
         self.queues = _Rows()
         self.q_weight = np.zeros((0,), np.float32)
         self.q_live = np.zeros((0,), bool)
+
+        # host ports and exact-match pod (anti)affinity selectors intern to
+        # bit positions: per-pod bitset rows, per-node resident counts
+        # kept O(changes).  A port or selector past the cap leaves its pod
+        # dynamic but not expressible (its job goes to the object path)
+        self.PW = 4   # u32 words -> 128 distinct host ports
+        self.SW = 2   # u32 words -> 64 distinct affinity selectors
+        self.port_ids: Dict[int, int] = {}
+        self.sel_ids: Dict[frozenset, int] = {}
+        self.p_ports = np.zeros((0, self.PW), np.uint32)     # own host ports
+        self.p_selmatch = np.zeros((0, self.SW), np.uint32)  # labels satisfy
+        self.p_aff_req = np.zeros((0, self.SW), np.uint32)   # required terms
+        self.p_aff_anti = np.zeros((0, self.SW), np.uint32)  # anti terms
+        # node row each pod's bits are counted on, or -1
+        self.p_contrib_node = np.zeros((0,), np.int32)
+        self.p_labels: List[Optional[dict]] = []
+        self.n_port_cnt = np.zeros((0, 32 * self.PW), np.int16)
+        self.n_sel_cnt = np.zeros((0, 32 * self.SW), np.int16)
 
         self.priority_classes: Dict[str, int] = {}
         self.default_priority = 0
@@ -255,12 +279,19 @@ class ArrayMirror:
         self.n_alloc = _grow(self.n_alloc, n)
         self.n_max_tasks = _grow(self.n_max_tasks, n)
         self.n_live = _grow(self.n_live, n)
+        self.n_port_cnt = _grow(self.n_port_cnt, n)
+        self.n_sel_cnt = _grow(self.n_sel_cnt, n)
         if new:
-            # a node deleted and re-created takes its resident pods along
+            # a node deleted and re-created takes its resident pods along,
+            # and their port / selector counts with them
             retired = self._retired_node_rows.pop(node.meta.name, None)
             if retired:
                 stale = np.isin(self.p_node, np.asarray(retired, np.int32))
-                self.p_node[stale & self.p_live] = row
+                moved = np.nonzero(stale & self.p_live[: self.p_node.shape[0]])[0]
+                self.p_node[moved] = row
+                for prow in moved:
+                    self._sub_contrib(int(prow))
+                    self._add_contrib(int(prow), row)
         while len(self.node_objs) < n:
             self.node_objs.append(None)
         self.n_alloc[row] = 0.0
@@ -375,6 +406,107 @@ class ArrayMirror:
                 if not waiting:
                     del self._waiting_on_group[group_key]
 
+    # -- port/selector interning ---------------------------------------------
+
+    def _intern_port(self, port: int) -> Optional[int]:
+        pid = self.port_ids.get(port)
+        if pid is None:
+            if len(self.port_ids) >= 32 * self.PW:
+                return None
+            pid = len(self.port_ids)
+            self.port_ids[port] = pid
+        return pid
+
+    def _intern_selector(self, sel: Dict[str, str]) -> Optional[int]:
+        key = frozenset(sel.items())
+        sid = self.sel_ids.get(key)
+        if sid is None:
+            if len(self.sel_ids) >= 32 * self.SW:
+                return None
+            sid = len(self.sel_ids)
+            self.sel_ids[key] = sid
+            # pods seen before this selector: set its bit where their labels
+            # match (and count it on their nodes), once per new selector
+            self._backfill_selector(key, sid)
+        return sid
+
+    def _backfill_selector(self, sel_items, sid: int) -> None:
+        w, b = divmod(sid, 32)
+        bit = np.uint32(1 << b)
+        P = min(len(self.p_labels), self.p_selmatch.shape[0])
+        for row in np.nonzero(self.p_live[:P])[0]:
+            labels = self.p_labels[row]
+            if labels and all(labels.get(k) == v for k, v in sel_items):
+                self.p_selmatch[row, w] |= bit
+                crow = self.p_contrib_node[row]
+                if crow >= 0:
+                    self.n_sel_cnt[crow, sid] += 1
+
+    @staticmethod
+    def _bit_indices(words) -> List[int]:
+        out = []
+        for w in range(words.shape[0]):
+            word = int(words[w])
+            while word:
+                b = (word & -word).bit_length() - 1
+                out.append(w * 32 + b)
+                word &= word - 1
+        return out
+
+    def _sub_contrib(self, row: int) -> None:
+        """Take the pod's port and selector bits off its node's counts."""
+        crow = int(self.p_contrib_node[row])
+        if crow < 0:
+            return
+        if self.p_ports[row].any():
+            self.n_port_cnt[crow, self._bit_indices(self.p_ports[row])] -= 1
+        if self.p_selmatch[row].any():
+            self.n_sel_cnt[crow, self._bit_indices(self.p_selmatch[row])] -= 1
+        self.p_contrib_node[row] = -1
+
+    def _add_contrib(self, row: int, crow: int) -> None:
+        if self.p_ports[row].any():
+            self.n_port_cnt[crow, self._bit_indices(self.p_ports[row])] += 1
+        if self.p_selmatch[row].any():
+            self.n_sel_cnt[crow, self._bit_indices(self.p_selmatch[row])] += 1
+        self.p_contrib_node[row] = crow
+
+    def _intern_pod_bits(self, row: int, pod) -> bool:
+        """Fill the pod's port / selector rows; False when a port or a
+        selector did not fit the intern caps."""
+        labels = pod.meta.labels or {}
+        self.p_labels[row] = labels
+        spec = pod.spec
+        expr_ok = True
+        ports = np.zeros(self.PW, np.uint32)
+        for port in spec.host_ports:
+            pid = self._intern_port(port)
+            if pid is None:
+                expr_ok = False
+            else:
+                ports[pid // 32] |= np.uint32(1 << (pid % 32))
+        req = np.zeros(self.SW, np.uint32)
+        anti = np.zeros(self.SW, np.uint32)
+        aff = spec.affinity
+        if aff is not None:
+            for sel, out in ([(x, req) for x in aff.pod_affinity]
+                             + [(x, anti) for x in aff.pod_anti_affinity]):
+                sid = self._intern_selector(sel)
+                if sid is None:
+                    expr_ok = False
+                else:
+                    out[sid // 32] |= np.uint32(1 << (sid % 32))
+        match = np.zeros(self.SW, np.uint32)
+        if self.sel_ids and labels:
+            for sel_items, sid in self.sel_ids.items():
+                if all(labels.get(k) == v for k, v in sel_items):
+                    match[sid // 32] |= np.uint32(1 << (sid % 32))
+        self.p_ports[row] = ports
+        self.p_selmatch[row] = match
+        self.p_aff_req[row] = req
+        self.p_aff_anti[row] = anti
+        return expr_ok
+
     # -- predicate classes ---------------------------------------------------
 
     def _class_id(self, pod) -> Optional[int]:
@@ -455,9 +587,15 @@ class ArrayMirror:
         old_j = int(self.p_job[row]) if not new and self.p_live[row] else -1
         for col in _POD_COLS:
             setattr(self, col, _grow(getattr(self, col), row + 1))
+        while len(self.p_labels) < row + 1:
+            self.p_labels.append(None)
         if new:
             self.p_rank[row] = self._next_rank
             self._next_rank += 1
+            self.p_contrib_node[row] = -1
+        elif self.p_live[row]:
+            # the old state's bits leave its node before anything changes
+            self._sub_contrib(row)
         cid = self._class_id(pod)
         if cid is None:
             return
@@ -504,7 +642,11 @@ class ArrayMirror:
             or (aff is not None and (aff.pod_affinity or aff.pod_anti_affinity))
         )
         self.p_has_vol[row] = bool(pod.volumes)
+        self.p_dyn_expr[row] = self._intern_pod_bits(row, pod) and self.p_dynamic[row]
         self.p_live[row] = True
+        crow = int(self.p_node[row])
+        if crow >= 0:
+            self._add_contrib(row, crow)
 
     def _del_pod(self, pod) -> None:
         self._del_pod_key(pod.meta.key)
@@ -523,24 +665,24 @@ class ArrayMirror:
         self._clear_wait(key)
         if row is not None and self.p_live[row]:
             self.p_live[row] = False
+            self._sub_contrib(row)
+            self.p_labels[row] = None
             self._shadow_ref(int(self.p_job[row]), -1)
 
     # -- eligibility ----------------------------------------------------------
 
     def ineligible_reason(self) -> Optional[str]:
-        """Why this cluster is outside the port's express slice, or None:
-        the structural conditions of the JAX mirror, plus pending pods that
-        need resident-state predicates (host ports, pod (anti)affinity) or
-        volumes — the JAX cycle hands their jobs to the dynamic solve or the
-        object sub-cycle, which this port does not have yet."""
+        """Why this cluster is outside the port's slices, or None: the
+        structural conditions of the JAX mirror, plus pending pods with
+        volumes (the JAX cycle hands those to the volume partition, which
+        this port does not have yet).  Pending pods with host ports or pod
+        (anti)affinity are in: their jobs go to the dynamic solve."""
         if self.class_overflow:
             return "predicate class cap exceeded"
         if self.unlinked_pods:
             return "pods whose PodGroup is absent"
         P = len(self.p_live)
         pend = self.p_live[:P] & (self.p_status[:P] == _PENDING)
-        if (pend & self.p_dynamic[:P]).any():
-            return "pending pods with host ports or pod (anti)affinity"
         if (pend & self.p_has_vol[:P]).any():
             return "pending pods with volumes"
         return None

@@ -25,7 +25,12 @@ def render_fit_error(total_nodes: int, reasons: Dict[str, int]) -> str:
 
 
 def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
-                      be_rows, be_nodes, be_per_job) -> List[Tuple[str, str]]:
+                      be_rows, be_nodes, be_per_job, pe_rows_solve,
+                      task_job_solve, task_req_solve) -> List[Tuple[str, str]]:
+    """``task_node``/``task_kind`` index the solves' merged task layout
+    (express rows, then the dynamic solve's); ``pe_rows_solve``,
+    ``task_job_solve`` and ``task_req_solve`` are that layout's mirror pod
+    rows, jobs and requests."""
     n_jobs = aux["n_jobs"]
     J = snap.job_min_available.shape[0]
     jm = snap.job_min_available
@@ -34,7 +39,7 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
     express = np.nonzero(task_kind == 1)[0]
     express_per_job = np.zeros(J, np.int64)
     if express.size:
-        express_per_job += np.bincount(snap.task_job[express], minlength=J)
+        express_per_job += np.bincount(task_job_solve[express], minlength=J)
     ready_final = ready.astype(np.int64) + be_per_job
     gang_ready = ready_final >= jm if fc.gang_on else np.ones(J, bool)
 
@@ -43,9 +48,9 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
     names = snap.node_names
     cols = []
     if express.size:
-        pub = express[gang_ready[snap.task_job[express]]]
+        pub = express[gang_ready[task_job_solve[express]]]
         if pub.size:
-            cols.append((aux["pe_rows"][pub], task_node[pub]))
+            cols.append((pe_rows_solve[pub], task_node[pub]))
     if be_rows.size:
         keep = gang_ready[pod_j[be_rows]]
         if keep.any():
@@ -80,7 +85,7 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
                if fc.gang_on else np.zeros(n_jobs, bool))
     shadow_job = aux["shadow_job"]
     fit_msgs = fit_errors(fc, snap, aux, task_node, task_kind,
-                          unready & ~shadow_job[: unready.shape[0]])
+                          unready & ~shadow_job[: unready.shape[0]], task_req_solve)
 
     phase_idx = m._phase_idx
     inqueue = phase_idx[PodGroupPhase.INQUEUE]
@@ -129,9 +134,12 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
     return binds
 
 
-def fit_errors(fc, snap, aux, task_node, task_kind, unready) -> Dict[int, str]:
-    """Per-dim insufficient-node counts for unready jobs with pending tasks
-    (job_info.go:338-373), via sorted idle columns + searchsorted."""
+def fit_errors(fc, snap, aux, task_node, task_kind, unready,
+               task_req_solve) -> Dict[int, str]:
+    """Per-dim insufficient-node counts for unready express jobs with
+    pending tasks (job_info.go:338-373), via sorted idle columns +
+    searchsorted; the idle left counts every placement of the merged
+    layout."""
     n_jobs = aux["n_jobs"]
     if not fc.gang_on or not unready.any():
         return {}
@@ -142,7 +150,7 @@ def fit_errors(fc, snap, aux, task_node, task_kind, unready) -> Dict[int, str]:
     idle_after = snap.node_idle[:n_nodes].copy()
     placed = np.nonzero(task_kind == 1)[0]
     if placed.size:
-        np.subtract.at(idle_after, task_node[placed], snap.task_req[placed])
+        np.subtract.at(idle_after, task_node[placed], task_req_solve[placed])
     total = int(snap.node_valid[:n_nodes].sum())
     heads = snap.job_start[ujobs]
     head_cls = snap.task_class[heads]

@@ -1,17 +1,19 @@
 """Vectorized snapshot build for the fast cycle.
 
-The port's copy of ``build_fast_snapshot`` from
-``volcano_tpu/scheduler/fastpath/snapshot_build.py``, express partition
-only: the ArrayMirror's row tables become a bucketed ``TensorSnapshot``
-with the same semantics as the JAX builder (asserted by
-tests/test_torch_cycle.py).  Dynamic-predicate and volume pods never reach
-here — the mirror's ``ineligible_reason`` refuses such clusters first.
-Everything is host-side numpy.
+The port's copy of ``build_fast_snapshot`` and ``build_dyn_solve_inputs``
+from ``volcano_tpu/scheduler/fastpath/snapshot_build.py``: the
+ArrayMirror's row tables become a bucketed ``TensorSnapshot`` of the
+express jobs, with the same semantics as the JAX builder (asserted by
+tests/test_torch_cycle.py and tests/test_torch_dynamic.py), plus the
+dynamic-job partition (host ports, pod (anti)affinity) and the dynamic
+solve's inputs.  Volume pods never reach here — the mirror's
+``ineligible_reason`` refuses such clusters first.  Everything is
+host-side numpy.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -25,6 +27,7 @@ from volcano_tpu_torch.scheduler.fastpath.mirror import (
     _RELEASING,
     ArrayMirror,
 )
+from volcano_tpu_torch.scheduler.kernels import pack_bits, unpack_bits
 from volcano_tpu_torch.scheduler.snapshot import TensorSnapshot, _bucket
 
 
@@ -214,9 +217,57 @@ def build_fast_snapshot(
         job_ready_init[:n_jobs] = np.bincount(
             pod_j[rd_rows], minlength=n_jobs).astype(np.int32)[:n_jobs]
 
-    # pending non-best-effort task rows grouped by job in job order, within
-    # a job by (-priority, arrival)
-    pe_rows = np.nonzero(pend_all & ~m.p_best_effort[:P])[0]
+    # dynamic-job partition: a job with any pending resident-state pod
+    # (host ports, pod (anti)affinity) leaves the express solve WHOLE.  Its
+    # pods all interned and none best-effort: the device dynamic solve
+    # serves it after the express pass (dyn_expr_job); otherwise it is a
+    # residue job for the object path
+    nJ = max(n_jobs, 1)
+    dyn_job = np.zeros(nJ, bool)
+    dyn_rows = np.nonzero(pend_all & m.p_dynamic[:P])[0]
+    if dyn_rows.size and n_jobs:
+        dyn_job[np.unique(pod_j[dyn_rows])] = True
+    resid_job = np.zeros(nJ, bool)
+    residue_reason_job: Dict[int, str] = {}
+    if dyn_rows.size and n_jobs:
+        nonexpr = dyn_rows[(m.p_dynamic[:P] & ~m.p_dyn_expr[:P])[dyn_rows]]
+        for r in nonexpr:
+            residue_reason_job.setdefault(int(pod_j[r]), "intern-overflow")
+        if nonexpr.size:
+            resid_job[np.unique(pod_j[nonexpr])] = True
+        # a pending best-effort pod of a dynamic job needs a backfill with
+        # resident-state predicates, which the dynamic solve does not have
+        be_pend = np.nonzero(pend_all & m.p_best_effort[:P])[0]
+        if be_pend.size:
+            be_j = np.unique(pod_j[be_pend])
+            for j in be_j[dyn_job[be_j]]:
+                residue_reason_job.setdefault(int(j), "best-effort")
+            resid_job[be_j[dyn_job[be_j]]] = True
+    dyn_expr_job = dyn_job & ~resid_job
+    # job-order safety: a dynamic job outranking an express contender in its
+    # queue would be served after it by the express-first partition
+    partition_unsafe = False
+    if dyn_rows.size and n_jobs:
+        contender = np.zeros(nJ, bool)
+        nb_rows = np.nonzero(pend_all & ~m.p_best_effort[:P])[0]
+        if nb_rows.size:
+            contender[np.unique(pod_j[nb_rows])] = True
+        dyn_c = dyn_job[:n_jobs] & contender[:n_jobs]
+        exp_c = ~dyn_job[:n_jobs] & contender[:n_jobs]
+        for q in np.unique(job_q_idx[dyn_c]):
+            sel = job_q_idx == q
+            dp = m.j_prio[job_rows[sel & dyn_c]]
+            ep = m.j_prio[job_rows[sel & exp_c]]
+            if dp.size and ep.size and dp.max() > ep.min():
+                partition_unsafe = True
+                break
+
+    # pending non-best-effort task rows of EXPRESS jobs grouped by job in
+    # job order, within a job by (-priority, arrival)
+    dyn_of_pod = np.zeros(P, bool)
+    if dyn_rows.size:
+        dyn_of_pod[pod_j >= 0] = dyn_job[np.clip(pod_j[pod_j >= 0], 0, nJ - 1)]
+    pe_rows = np.nonzero(pend_all & ~m.p_best_effort[:P] & ~dyn_of_pod)[0]
     if pe_rows.size:
         pe_rows = pe_rows[np.lexsort(
             (m.p_rank[pe_rows], -m.p_prio[pe_rows], pod_j[pe_rows]))]
@@ -259,7 +310,7 @@ def build_fast_snapshot(
         class_node_score=ta["class_score"],
         total=node_alloc[node_valid].sum(axis=0).astype(np.float32),
     )
-    pend_any_per_job = np.zeros(max(n_jobs, 1), np.int64)
+    pend_any_per_job = np.zeros(nJ, np.int64)
     if pd_rows.size and n_jobs:
         pend_any_per_job[:n_jobs] = np.bincount(pod_j[pd_rows], minlength=n_jobs)[:n_jobs]
     aux = {
@@ -277,5 +328,108 @@ def build_fast_snapshot(
         "node_used": node_used,
         "pend_any_per_job": pend_any_per_job,
         "shadow_job": m.j_shadow[job_rows],
+        # the dynamic-job partition
+        "dyn_job": dyn_job,            # [max(n_jobs, 1)] bool
+        "dyn_expr_job": dyn_expr_job,  # served by the device dynamic solve
+        "partition_unsafe": partition_unsafe,
+        "residue_keys": {m.jobs.row_key[job_rows[j]] for j in np.nonzero(resid_job[:n_jobs])[0]},
+        "residue_reasons": {m.jobs.row_key[job_rows[j]]: why
+                            for j, why in residue_reason_job.items() if j < n_jobs},
     }
     return snap, aux
+
+
+def build_dyn_solve_inputs(m: ArrayMirror, snap: TensorSnapshot, aux: dict,
+                           nodeaffinity_weight: float,
+                           task_node, task_kind, be_rows, be_nodes,
+                           ready) -> Optional[dict]:
+    """The dynamic solve's inputs: the dyn-expr jobs' pending task arrays,
+    the node, job and queue state after the express solve and backfill,
+    and the resident port / selector state — this cycle's express and
+    backfill placements folded in.  Port and selector payloads stay packed
+    u32 words (selector counts u16).  None when no dyn-expr job has
+    pending work."""
+    n_jobs = aux["n_jobs"]
+    nJ = max(n_jobs, 1)
+    pod_j = aux["pod_j"]
+    P = aux["codes"].shape[0]
+    dyn_expr = aux["dyn_expr_job"]
+    de_of_pod = (pod_j >= 0) & dyn_expr[np.clip(pod_j, 0, nJ - 1)]
+    pend = aux["live"] & (aux["codes"] == _PENDING) & ~m.p_best_effort[:P] & de_of_pod
+    rows = np.nonzero(pend)[0]
+    if not rows.size:
+        return None
+    rows = rows[np.lexsort((m.p_rank[rows], -m.p_prio[rows], pod_j[rows]))]
+    N, R = snap.node_idle.shape
+    J = snap.job_queue.shape[0]
+    job_start = np.zeros(J, np.int32)
+    job_ntasks = np.zeros(J, np.int32)
+    ta = _task_arrays(m, rows, pod_j, n_jobs, N, R, aux["node_rows"],
+                      aux["n_nodes"], nodeaffinity_weight, job_start, job_ntasks)
+    T = ta["task_req"].shape[0]
+    S = 32 * m.SW
+
+    def pad(arr):
+        out = np.zeros((T,) + arr.shape[1:], arr.dtype)
+        out[: rows.size] = arr
+        return out
+
+    # resident port bits and selector match counts per node, plus this
+    # cycle's express and backfill placements (their labels can match)
+    n_live_ct = aux["n_nodes"]
+    node_ports_w = np.zeros((N, m.PW), np.uint32)
+    node_selcnt = np.zeros((N, S), np.int32)
+    if n_live_ct:
+        node_ports_w[:n_live_ct] = pack_bits(m.n_port_cnt[aux["node_rows"]] > 0)
+        node_selcnt[:n_live_ct] = m.n_sel_cnt[aux["node_rows"]]
+    placed = np.nonzero(task_kind > 0)[0]
+    if placed.size:
+        pm = m.p_selmatch[aux["pe_rows"][placed]]
+        nz = pm.any(axis=1)
+        if nz.any():
+            np.add.at(node_selcnt, task_node[placed[nz]], unpack_bits(pm[nz]).numpy())
+    if be_rows.size:
+        bm = m.p_selmatch[be_rows]
+        nz = bm.any(axis=1)
+        if nz.any():
+            np.add.at(node_selcnt, be_nodes[nz], unpack_bits(bm[nz]).numpy())
+    node_selcnt = node_selcnt.astype(np.uint16)
+
+    # node, job and queue state at the express solve's end; backfilled
+    # best-effort pods take task slots only
+    idle2 = snap.node_idle.copy()
+    rel2 = snap.node_releasing.copy()
+    used2 = snap.node_used.copy()
+    tc2 = snap.node_task_count.copy()
+    job_alloc2 = snap.job_alloc_init.copy()
+    queue_alloc2 = snap.queue_alloc_init.copy()
+    if placed.size:
+        alloc_rows = placed[task_kind[placed] == 1]
+        pipe_rows = placed[task_kind[placed] == 2]
+        np.subtract.at(idle2, task_node[alloc_rows], snap.task_req[alloc_rows])
+        np.subtract.at(rel2, task_node[pipe_rows], snap.task_req[pipe_rows])
+        np.add.at(used2, task_node[placed], snap.task_req[placed])
+        np.add.at(tc2, task_node[placed], 1)
+        np.add.at(job_alloc2, snap.task_job[placed], snap.task_req[placed])
+        np.add.at(queue_alloc2, snap.job_queue[snap.task_job[placed]], snap.task_req[placed])
+    if be_rows.size:
+        np.add.at(tc2, be_nodes, 1)
+
+    sched_mask = np.zeros(J, bool)
+    sched_mask[:n_jobs] = dyn_expr[:n_jobs]
+    return {
+        "rows": rows,
+        "task_req": ta["task_req"], "task_job": ta["task_job"],
+        "task_class": ta["task_class"], "task_valid": ta["task_valid"],
+        "class_mask": ta["class_mask"], "class_score": ta["class_score"],
+        "job_start": job_start, "job_ntasks": job_ntasks,
+        "job_schedulable": snap.job_schedulable & sched_mask,
+        "job_ready_init": ready.astype(np.int32),
+        "job_alloc_init": job_alloc2,
+        "queue_alloc_init": queue_alloc2,
+        "node_idle": idle2, "node_releasing": rel2, "node_used": used2,
+        "node_task_count": tc2,
+        "node_ports_w": node_ports_w, "node_selcnt": node_selcnt,
+        "task_ports_w": pad(m.p_ports[rows]), "task_aff_w": pad(m.p_aff_req[rows]),
+        "task_anti_w": pad(m.p_aff_anti[rows]), "task_self_w": pad(m.p_selmatch[rows]),
+    }

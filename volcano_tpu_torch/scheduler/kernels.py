@@ -26,6 +26,15 @@ whose compiler contracts ``a * b + c`` into one fused multiply-add):
   bits; per-queue sums at cluster scale are not, and both versions add
   them one after the other in the reference's flat order.
 
+The ``portsel`` extension (host ports and pod (anti)affinity, the dynamic
+solve) takes its bitsets PACKED: ``(node_ports [N, 4], task_ports [T, 4],
+node_selcnt [N, 64], task_aff [T, 2], task_anti [T, 2], task_self [T, 2],
+w_podaff)`` with the u32 words carried as int32 (bit-identical) and the
+resident selector counts as int32.  The JAX kernels take the same tuple
+unpacked (bool port bits, f32 selector vectors).  The interpod score term
+``score + w_podaff * dot`` is one fused multiply-add on the reference too;
+``dot`` is a sum of small integers, exact in float32 in any order.
+
 Tie-breaks are part of the contract: every argmax/argmin takes the lowest
 index among equals, and the batch solve's top-K follows ``lax.top_k``
 (values descending, lower index first among equals).
@@ -57,6 +66,10 @@ LAUNCHES: Dict[str, int] = {
     "water_fill": 0,
     "allocate_solve": 0,
     "allocate_solve_batch": 0,
+    # K5: launches of K2 / K3 that carried the portsel extension (each also
+    # counts under its solve's own name)
+    "allocate_solve_portsel": 0,
+    "allocate_solve_batch_portsel": 0,
 }
 
 
@@ -188,6 +201,54 @@ def water_fill_plain(weight, request, total, eps, participates):
 
 
 # --------------------------------------------------------------------------
+# K5: the portsel bitsets, unpacked for the plain versions
+# --------------------------------------------------------------------------
+
+#: u32 words of the packed bitsets: 128 host-port bits, 64 selector bits
+PORT_WORDS = 4
+SEL_WORDS = 2
+
+
+def pack_bits(bits: np.ndarray) -> np.ndarray:
+    """[n, W * 32] bool -> [n, W] u32 bitset words, column 32 w + b at bit b
+    of word w; ``unpack_bits`` inverts it."""
+    n, nbits = bits.shape
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    cols = bits.reshape(n, nbits // 32, 32).astype(np.uint64)
+    return (cols * weights).sum(axis=2).astype(np.uint32)
+
+
+def unpack_bits(words) -> torch.Tensor:
+    """[n, W] bitset words -> [n, W * 32] bool, bit b of word w at column
+    32 w + b.  ``words``: a tensor of the words' int32 bit patterns, or a
+    numpy array of u32 or int32 words."""
+    if isinstance(words, np.ndarray):
+        words = torch.from_numpy(np.ascontiguousarray(words).view(np.int32))
+    n, W = words.shape
+    shifts = torch.arange(32, device=words.device, dtype=torch.int64)
+    return (((words.long()[:, :, None] >> shifts) & 1) != 0).reshape(n, W * 32)
+
+
+class _Portsel(NamedTuple):
+    node_ports: torch.Tensor   # [N, 128] bool
+    task_ports: torch.Tensor   # [T, 128] bool
+    node_selcnt: torch.Tensor  # [N, 64] f32 resident match counts
+    task_aff: torch.Tensor     # [T, 64] f32 0/1 required selectors
+    task_anti: torch.Tensor    # [T, 64] f32 0/1 anti selectors
+    task_self: torch.Tensor    # [T, 64] f32 0/1 selectors the pod's labels match
+    w_podaff: float
+
+
+def _unpack_portsel(portsel) -> _Portsel:
+    node_ports_w, task_ports_w, node_selcnt, aff_w, anti_w, self_w, w = portsel
+    return _Portsel(
+        unpack_bits(node_ports_w), unpack_bits(task_ports_w),
+        node_selcnt.float(), unpack_bits(aff_w).float(),
+        unpack_bits(anti_w).float(), unpack_bits(self_w).float(), _f32(w),
+    )
+
+
+# --------------------------------------------------------------------------
 # K2: exact sequential allocate solve
 # --------------------------------------------------------------------------
 
@@ -228,8 +289,11 @@ def allocate_solve_plain(
     w_least, w_balanced,
     job_key_order=("priority", "gang", "drf"),
     use_gang_ready=True, use_proportion=True,
+    portsel=None,
 ):
-    """The reference allocate loop, one select or place step at a time."""
+    """The reference allocate loop, one select or place step at a time;
+    ``portsel`` (packed, see the module note) adds the resident-state
+    predicates and the interpod score."""
     dev = idle.device
     N, R = idle.shape
     T = task_req.shape[0]
@@ -247,6 +311,9 @@ def allocate_solve_plain(
     task_node = torch.full((T,), -1, dtype=torch.int32, device=dev)
     task_kind = torch.zeros(T, dtype=torch.int32, device=dev)
     task_seq = torch.full((T,), -1, dtype=torch.int32, device=dev)
+    ps = _unpack_portsel(portsel) if portsel is not None else None
+    if ps is not None:
+        node_ports, node_selcnt = ps.node_ports.clone(), ps.node_selcnt.clone()
     counter = 0
     cur_job = -1
     while True:
@@ -287,11 +354,23 @@ def allocate_solve_plain(
         fit_rel = less_equal(req[None, :], releasing, eps) & node_valid
         pred = class_mask[cls] & (task_count < node_max_tasks)
         feasible = (fit_idle | fit_rel) & pred
+        if ps is not None:
+            # host ports disjoint from the residents'; every required
+            # selector matched by a resident, no anti selector matched
+            matched = node_selcnt > 0.5
+            ports_ok = ~torch.any(node_ports & ps.task_ports[t][None, :], dim=1)
+            req_ok = torch.all(matched | (ps.task_aff[t][None, :] == 0), dim=1)
+            anti_ok = torch.all(~matched | (ps.task_anti[t][None, :] == 0), dim=1)
+            feasible = feasible & ports_ok & req_ok & anti_ok
         if not bool(feasible.any()):
             dropped[j] = True
             cur_job = -1
             continue
         score = _score_nodes(req, used, node_alloc, class_score[cls], w_least, w_balanced)
+        if ps is not None:
+            # interpod affinity: +1 per resident match of a required
+            # selector, -1 per anti match, weighted; one rounding
+            score = _fma(ps.w_podaff, node_selcnt @ (ps.task_aff[t] - ps.task_anti[t]), score)
         n = int(torch.argmax(torch.where(feasible, score, NEG_INF)))
         use_idle = bool(fit_idle[n])
         if use_idle:
@@ -313,6 +392,10 @@ def allocate_solve_plain(
         task_seq[t] = counter
         counter += 1
         cur_job = -1 if (now_ready or exhausted) else j
+        if ps is not None:
+            # the placed pod is resident now (pipelined ones too)
+            node_ports[n] = node_ports[n] | ps.task_ports[t]
+            node_selcnt[n] = node_selcnt[n] + ps.task_self[t]
     return SolveOut(
         task_node, task_kind, task_seq, ready, job_alloc, queue_alloc,
         idle, releasing, used, dropped,
@@ -335,10 +418,11 @@ def allocate_solve_batch_plain(
     w_least, w_balanced,
     job_key_order=("priority", "gang", "drf"),
     use_gang_ready=True, use_proportion=True,
-    m_chunk=512, p_chunk=16,
+    m_chunk=512, p_chunk=16, portsel=None,
 ):
     """Throughput-mode allocate: rounds of parallel block placement, with
-    the exact top-K (``exact_topk=True`` of the JAX function)."""
+    the exact top-K (``exact_topk=True`` of the JAX function); ``portsel``
+    as in ``allocate_solve_plain``."""
     dev = idle.device
     N, R = idle.shape
     T = task_req.shape[0]
@@ -369,6 +453,9 @@ def allocate_solve_batch_plain(
     ts = torch.full((T,), -1, dtype=i32, device=dev)
     rnd = 0
     progressed = True
+    ps = _unpack_portsel(portsel) if portsel is not None else None
+    if ps is not None:
+        node_ports, node_selcnt = ps.node_ports.clone(), ps.node_selcnt.clone()
 
     def active_mask():
         if use_proportion:
@@ -397,8 +484,19 @@ def allocate_solve_batch_plain(
         fit_r = torch.all(head_req[:, None, :] < rel[None, :, :] + eps, dim=-1)
         pred = class_mask[head_cls] & (tc < node_max_tasks)[None, :] & node_valid[None, :]
         feasible = (fit_i | fit_r) & pred & sel_active[:, None]
+        if ps is not None:
+            head_ports = ps.task_ports[head_t]
+            head_aff, head_anti = ps.task_aff[head_t], ps.task_anti[head_t]
+            matched = (node_selcnt > 0.5).float()
+            # [M, N] products of 0/1 and count matrices: exact in float32
+            port_overlap = head_ports.float() @ node_ports.float().T
+            req_missing = head_aff @ (1.0 - matched).T
+            anti_hit = head_anti @ matched.T
+            feasible = feasible & (port_overlap == 0) & (req_missing == 0) & (anti_hit == 0)
         score = _score_nodes(head_req, used, node_alloc, class_score[head_cls],
                              w_least, w_balanced)
+        if ps is not None:
+            score = _fma(ps.w_podaff, (head_aff - head_anti) @ node_selcnt.T, score)
         masked = torch.where(feasible, _fma(_jitter_bits(sel, N), _JSCALE, score), NEG_INF)
         job_ok = feasible.any(dim=1)
 
@@ -423,6 +521,11 @@ def allocate_solve_batch_plain(
         cnt = torch.where(head_req[:, None, :] > 0, cnt, POS_INF).amin(dim=-1)
         cnt = torch.where(topk_is_idle, torch.clamp_min(cnt, 0.0), zero)
         cnt = torch.where(topk_feasible & ~topk_is_idle, torch.ones_like(cnt), cnt)
+        if ps is not None:
+            # a head with ports or self-matching anti-affinity places at
+            # most one task per node
+            spread = head_ports.any(dim=1) | ((head_anti * ps.task_self[head_t]).sum(dim=1) > 0)
+            cnt = torch.where(spread[:, None], torch.clamp_max(cnt, 1.0), cnt)
         cum_cnt = torch.cumsum(cnt, dim=1)
         slot = (offs[None, :, None].float() >= cum_cnt[:, None, :]).sum(dim=-1)
         in_range = slot < K
@@ -456,6 +559,21 @@ def allocate_solve_batch_plain(
             torch.all(relcum < idle_rows + eps, dim=-1)
             & (tc_rows + pos_in_seg < cap_rows) & (sn < N)
         )
+        if ps is not None:
+            # a proposal's ports must miss, and its anti selectors must not
+            # match, those of EVERY earlier proposal in its node's run
+            # (rejected ones included): an exclusive segmented OR, taken
+            # here as a count of earlier set bits
+            p_ports, p_anti = ps.task_ports[p_t], ps.task_anti[p_t] > 0
+            sbits = torch.cat([p_ports, ps.task_self[p_t] > 0], dim=1)[order2].int()
+            inc = torch.cumsum(sbits, dim=0)
+            excl = (inc - sbits - (inc[start_pos] - sbits[start_pos])) > 0
+            PB = p_ports.shape[1]
+            conflict = (
+                torch.any(excl[:, :PB] & p_ports[order2], dim=1)
+                | torch.any(excl[:, PB:] & p_anti[order2], dim=1)
+            )
+            accept_sorted = accept_sorted & ~conflict
         accept_idle = torch.zeros(F, dtype=torch.bool, device=dev)
         accept_idle[order2] = accept_sorted
 
@@ -464,6 +582,10 @@ def allocate_solve_batch_plain(
             torch.all(p_req < rel[p_node_c] + eps, dim=-1)
             & (tc[p_node_c] < node_max_tasks[p_node_c])
         )
+        if ps is not None:
+            # proposals with ports or anti selectors never pipeline: pipe
+            # wins skip the conflict scan above
+            p_is_pipe = p_is_pipe & ~(p_ports.any(dim=1) | p_anti.any(dim=1))
         pipe_node = torch.where(p_is_pipe & pipe_fits, p_node, N)
         best_rank_pipe = torch.full((N + 1,), F, dtype=torch.int64, device=dev)
         best_rank_pipe.scatter_reduce_(0, pipe_node, rank, reduce="amin")
@@ -496,6 +618,16 @@ def allocate_solve_batch_plain(
         ts2 = pad(ts)
         ts2[t_tgt] = (rnd * F + rank).to(i32)
 
+        if ps is not None:
+            # winners' ports join their node (scatter-OR), their labels its
+            # selector counts
+            win_ports = torch.where(win[:, None], p_ports, False).int()
+            node_ports = node_ports | (
+                torch.zeros((N + 1, win_ports.shape[1]), dtype=i32, device=dev)
+                .index_add_(0, node_tgt, win_ports)[:N] > 0)
+            node_selcnt = pad(node_selcnt).index_add_(
+                0, node_tgt, torch.where(win[:, None], ps.task_self[p_t], zero))[:N]
+
         # no win this round: drop the lowest-ranked active job, unwinding
         # its placements if it never reached gang readiness
         any_win = bool(win.any())
@@ -526,6 +658,15 @@ def allocate_solve_batch_plain(
             ready[victim] = job_ready_init[victim]
             cursor = cursor.clone()
             cursor[victim] = 0
+            if ps is not None:
+                # a rolled-back task's port bits are its own on that node
+                # (a shared bit could not have co-placed): clear them
+                rb_ports = torch.where(rb_task[:, None], ps.task_ports, False).int()
+                node_ports = node_ports & ~(
+                    torch.zeros((N + 1, rb_ports.shape[1]), dtype=i32, device=dev)
+                    .index_add_(0, rb_tgt, rb_ports)[:N] > 0)
+                node_selcnt = pad(node_selcnt).index_add_(
+                    0, rb_tgt, -torch.where(rb_task[:, None], ps.task_self, zero))[:N]
             tn = torch.where(rb_task, -1, tn).to(i32)
             tk = torch.where(rb_task, 0, tk).to(i32)
             ts = torch.where(rb_task, -1, ts).to(i32)
@@ -575,11 +716,14 @@ class SolveArgs(ctypes.Structure):
         "packed", "ctl",
         "job_keys", "job_active", "job_rank", "sel",
         "p_node", "p_t", "p_job", "p_flags", "best_pipe",
+        "node_ports", "node_selcnt", "task_ports", "task_aff", "task_anti",
+        "task_self", "node_match",
     )] + [(name, ctypes.c_int64) for name in (
         "N", "R", "T", "J", "Q", "C", "M", "P", "K", "F",
         "n_keys", "key0", "key1", "key2",
-        "use_gang_ready", "use_proportion",
-    )] + [("w_least", ctypes.c_float), ("w_balanced", ctypes.c_float)]
+        "use_gang_ready", "use_proportion", "has_portsel",
+    )] + [("w_least", ctypes.c_float), ("w_balanced", ctypes.c_float),
+          ("w_podaff", ctypes.c_float)]
 
 
 _KEY_CODE = {"priority": 1, "gang": 2, "drf": 3}
@@ -656,12 +800,13 @@ _SOLVE_ARGS = (
 
 
 def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
-                 use_gang_ready, use_proportion, m_chunk=512, p_chunk=16):
+                 use_gang_ready, use_proportion, m_chunk=512, p_chunk=16,
+                 portsel=None):
     """Validate the solve inputs ``a`` (name -> tensor), allocate outputs and
     scratch, and launch csrc/allocate_solve.cu (``batch=False``) or
-    csrc/allocate_batch.cu (``batch=True``).  Returns a ``SolveOut`` whose
-    four decision fields are views of one int32 [3T + J] buffer (see
-    ``pack_outputs``)."""
+    csrc/allocate_batch.cu (``batch=True``), with the K5 extension when
+    ``portsel`` is given.  Returns a ``SolveOut`` whose four decision
+    fields are views of one int32 [3T + J] buffer (see ``pack_outputs``)."""
     dev = a["idle"].device
     N, R = a["idle"].shape
     T = a["task_req"].shape[0]
@@ -726,6 +871,23 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
             "p_job": empty((F,), i32), "p_flags": empty((F,), torch.uint8),
             "best_pipe": empty((N + 1,), i32),
         })
+    w_podaff = 0.0
+    if portsel is not None:
+        node_ports, task_ports, node_selcnt, aff, anti, self_, w_podaff = portsel
+        for name, t, shape in (
+            ("node_ports", node_ports, (N, PORT_WORDS)),
+            ("task_ports", task_ports, (T, PORT_WORDS)),
+            ("node_selcnt", node_selcnt, (N, 32 * SEL_WORDS)),
+            ("task_aff", aff, (T, SEL_WORDS)), ("task_anti", anti, (T, SEL_WORDS)),
+            ("task_self", self_, (T, SEL_WORDS)),
+        ):
+            _check(name, t, i32, shape, dev)
+        # the kernels update the resident state in place: working copies
+        st.update({
+            "node_ports": node_ports.clone(), "node_selcnt": node_selcnt.clone(),
+            "task_ports": task_ports, "task_aff": aff, "task_anti": anti,
+            "task_self": self_, "node_match": empty((N, SEL_WORDS), i32),
+        })
     args = SolveArgs()
     for fname, _ in SolveArgs._fields_:
         # working copies first: the kernels update them in place
@@ -740,8 +902,10 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
     args.key0, args.key1, args.key2 = codes[:3]
     args.use_gang_ready = int(bool(use_gang_ready))
     args.use_proportion = int(bool(use_proportion))
+    args.has_portsel = int(portsel is not None)
     args.w_least = float(w_least)
     args.w_balanced = float(w_balanced)
+    args.w_podaff = float(w_podaff)
     fn = lib.vtt_allocate_solve_batch if batch else lib.vtt_allocate_solve
     _raise_on(fn(ctypes.byref(args), stream), fn.__name__)
     return SolveOut(
@@ -759,7 +923,8 @@ def _solve(batch, args, kwargs, plain):
     a = dict(zip(names, args))
     a.update({k: v for k, v in kwargs.items() if k in names})
     opts = {k: v for k, v in kwargs.items() if k not in names}
-    unknown = set(opts) - set(_POLICY_ARGS + (("m_chunk", "p_chunk") if batch else ()))
+    unknown = set(opts) - set(_POLICY_ARGS + ("portsel",)
+                              + (("m_chunk", "p_chunk") if batch else ()))
     if unknown:
         raise TypeError(f"unexpected arguments {sorted(unknown)}")
     dev = a["idle"].device
@@ -774,19 +939,23 @@ def _solve(batch, args, kwargs, plain):
         _build.load(), _stream(dev), batch, a, w_least, w_balanced,
         opts.get("job_key_order", ("priority", "gang", "drf")),
         opts.get("use_gang_ready", True), opts.get("use_proportion", True),
-        **({k: opts[k] for k in ("m_chunk", "p_chunk") if k in opts}),
+        **({k: opts[k] for k in ("m_chunk", "p_chunk", "portsel") if k in opts}),
     )
-    LAUNCHES["allocate_solve_batch" if batch else "allocate_solve"] += 1
+    name = "allocate_solve_batch" if batch else "allocate_solve"
+    LAUNCHES[name] += 1
+    if opts.get("portsel") is not None:
+        LAUNCHES[name + "_portsel"] += 1
     return out
 
 
 def allocate_solve(*args, **kwargs):
     """Exact sequential allocate solve (JAX ``kernels.allocate_solve`` with
-    ``portsel=None, volsel=None``).  Returns a ``SolveOut``."""
+    ``volsel=None``; ``portsel=`` packed, see the module note).  Returns a
+    ``SolveOut``."""
     return _solve(False, args, kwargs, allocate_solve_plain)
 
 
 def allocate_solve_batch(*args, **kwargs):
     """Batched-rounds allocate solve (JAX ``kernels.allocate_solve_batch``
-    with ``portsel=None, exact_topk=True``)."""
+    with ``exact_topk=True``; ``portsel=`` packed, see the module note)."""
     return _solve(True, args, kwargs, allocate_solve_batch_plain)

@@ -4,12 +4,15 @@
 simargs.py``: the dense argument set of the allocate solves for a synthetic
 cluster — N nodes with mixed cpu/mem capacity, T pending tasks grouped into
 J gang jobs across Q weighted queues — plus the water-fill inputs.
+``build_portsel_args`` adds seeded host-port and pod (anti)affinity
+bitsets for the same cluster, packed as the port's solves take them.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from volcano_tpu_torch.scheduler.kernels import pack_bits
 from volcano_tpu_torch.scheduler.snapshot import _bucket
 
 
@@ -148,3 +151,77 @@ def add_releasing(args: dict, seed: int = 0, busy_frac: float = 0.6) -> dict:
                          * units).astype(np.float32)
     args["task_count"] = np.where(busy, rng.integers(1, 4, N), 0).astype(np.int32)
     return args
+
+
+def build_portsel_args(
+    n_nodes: int,
+    n_tasks: int,
+    seed: int = 0,
+    n_jobs: int = 0,
+    w_podaff: float = 1.0,
+    resident_frac: float = 0.4,
+):
+    """Seeded ``portsel`` inputs (host ports, pod (anti)affinity) for the
+    ``build_sim_args`` cluster of the same ``n_nodes`` / ``n_tasks`` /
+    ``n_jobs`` (0: one task per job), PACKED as the port's solves take
+    them: u32 bitset words carried as int32, resident counts as int32.
+
+    Residents: a ``resident_frac`` share of the nodes hold one host port
+    and a few selector matches.  Each job is one kind, its tasks sharing
+    the template: plain, ``ports`` (one host port), ``aff`` (a required
+    selector), ``anti`` (an anti selector), ``self-anti`` (labels matching
+    its own anti selector) or ``mixed`` (only the first task has a port,
+    the second an anti selector).  Port and selector bits sit at seeded
+    positions: six of the 128 ports and five of the 64 selectors, plus bit
+    31 and the last bit, so that the top bit of a word is among them.
+
+    Returns a dict: node_ports [N, 4], task_ports [T, 4], node_selcnt
+    [N, 64], task_aff / task_anti / task_self [T, 2], w_podaff."""
+    rng = np.random.default_rng(seed + 1000)
+    N, T = _bucket(n_nodes), _bucket(n_tasks)
+    n_jobs = n_jobs or n_tasks
+    tpj = n_tasks // n_jobs
+    PB, S = 128, 64
+    port_ids = np.unique(np.concatenate([[127, 31], rng.choice(PB, 6, replace=False)]))
+    sel_ids = np.unique(np.concatenate([[63, 31], rng.choice(S, 5, replace=False)]))
+
+    node_ports = np.zeros((N, PB), bool)
+    node_selcnt = np.zeros((N, S), np.int32)
+    res = np.nonzero(rng.random(n_nodes) < resident_frac)[0]
+    node_ports[res, rng.choice(port_ids, res.size)] = True
+    for k in range(2):
+        node_selcnt[res, rng.choice(sel_ids, res.size)] += rng.integers(0, 3, res.size)
+
+    task_ports = np.zeros((T, PB), bool)
+    aff = np.zeros((T, S), bool)
+    anti = np.zeros((T, S), bool)
+    self_ = np.zeros((T, S), bool)
+    kinds = rng.choice(["plain", "ports", "aff", "anti", "self-anti", "mixed"], n_jobs)
+    for j in range(n_jobs):
+        rows = np.arange(j * tpj, (j + 1) * tpj)
+        port, sel = rng.choice(port_ids), rng.choice(sel_ids)
+        self_[rows, rng.choice(sel_ids)] = rng.random() < 0.5
+        if kinds[j] == "ports":
+            task_ports[rows, port] = True
+        elif kinds[j] == "aff":
+            aff[rows, sel] = True
+        elif kinds[j] == "anti":
+            anti[rows, sel] = True
+        elif kinds[j] == "self-anti":
+            anti[rows, sel] = True
+            self_[rows, sel] = True
+        elif kinds[j] == "mixed":
+            task_ports[rows[0], port] = True
+            anti[rows[1:2], sel] = True
+    def words(bits):
+        return pack_bits(bits).view(np.int32)
+
+    return dict(
+        node_ports=words(node_ports), task_ports=words(task_ports),
+        node_selcnt=node_selcnt, task_aff=words(aff), task_anti=words(anti),
+        task_self=words(self_), w_podaff=float(w_podaff),
+    )
+
+
+PORTSEL_KEYS = ("node_ports", "task_ports", "node_selcnt", "task_aff",
+                "task_anti", "task_self", "w_podaff")

@@ -3,8 +3,8 @@
 The port's cut of ``volcano_tpu/scheduler/tensor_backend.py``: the
 plugin-derived policy flags (tier-ordered job keys, gang readiness,
 proportion queue order), the proportion deserved shares (the water-fill
-kernel, once per cycle), the node-order score weights, and host -> device
-uploads memoised by array identity.
+kernel, once per cycle), the node-order and interpod score weights, and
+host -> device uploads memoised by array identity.
 """
 
 from __future__ import annotations
@@ -102,6 +102,13 @@ class TensorBackend:
         w_least = get_plugin_arg(self.nodeorder_args, "leastrequested.weight", 1.0)
         w_bal = get_plugin_arg(self.nodeorder_args, "balancedresource.weight", 1.0)
         return float(w_least), float(w_bal)
+
+    def podaffinity_weight(self) -> float:
+        """The interpod score weight of the dynamic solve (0 without the
+        nodeorder plugin)."""
+        if not self.enabled["nodeorder"]:
+            return 0.0
+        return float(get_plugin_arg(self.nodeorder_args, "podaffinity.weight", 1.0))
 
     def nodeaffinity_weight(self) -> float:
         if not self.enabled["nodeorder"]:
