@@ -17,8 +17,9 @@ Phases, each fatal on failure:
    build_sim_args(10000, 4000, 200); then a sweep of small solves over
    seeds and policies (classes, pod caps, releasing capacity, rollbacks,
    and build_portsel_args host ports and pod (anti)affinity);
-3. e2e batch — the port's Scheduler(store, full_conf("cuda") with actions
-   enqueue, allocate, backfill).run_once() on the config-5 store (10,000
+3. e2e batch — the port's Scheduler(store, full_conf("cuda")).run_once()
+   (enqueue, reclaim, allocate, backfill, preempt; the contention
+   prechecks find no work here) on the config-5 store (10,000
    nodes, 5,000 gangs x 20 tasks, 2,000 best-effort pods), launch counts
    reset just before and read just after;
 4. e2e exact — the same nodes with 200 gangs x 20 tasks (the exact solve);
@@ -31,7 +32,21 @@ Phases, each fatal on failure:
    tasks): the dynamic solve takes K2 with K5;
 7. K5 kernels — K3 and K2 with portsel against their plain versions on the
    dynamic-solve inputs the two cells above captured from their first
-   cycle (mirror, snapshot, express solve, build_dyn_solve_inputs).
+   cycle (mirror, snapshot, express solve, build_dyn_solve_inputs);
+8. e2e cfg6, cfg6b, cfg6r — bench.py's contended store (10,000 nodes each
+   exactly full on cpu with ten 800m / 1.2Gi residents of q0): cfg6 storms
+   it with 100 urgent gangs x 20 tasks of 1500m / 2Gi (the batched preempt
+   rounds, K10), cfg6b adds an empty-request pod to the first gang (that
+   gang takes the exact preempt solve, K9), cfg6r has 10 gangs x 20 of a
+   second queue reclaiming (K8).  Three cycles each, the victims deleted
+   after each (as the kubelet does): no pod evicted twice, every victim a
+   q0 resident (below the preemptor's priority in the storm cells), the
+   pipelined requests covered by each node's idle plus releasing capacity
+   and pod cap, storm gangs pipelined all or nothing, and the per-cycle
+   (evictions, pipelines, binds) of the JAX package's 1/10-scale run;
+9. K8-K10 kernels — against their plain versions on the inputs the three
+   cells captured from their first cycle, and K9 over the whole cfg6 storm
+   as solveMode: exact runs it (2,000 attempts).
 
 With ``--profile``, a torch.profiler pass over one config-5 batch solve
 and one config-5 cycle runs after the build: device time by kernel and the
@@ -77,6 +92,22 @@ CFG5 = dict(nodes=10_000, jobs=5_000, tasks_per_job=20, queues=2, best_effort=2_
 
 def log(*a):
     print(*a, flush=True)
+
+
+def reset_launches():
+    from volcano_tpu_torch.scheduler import kernels as K
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    K.reset_launches()
+    VK.reset_launches()
+
+
+def read_launches():
+    """Every kernel's launches since the last reset_launches()."""
+    from volcano_tpu_torch.scheduler import kernels as K
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    return {**K.LAUNCHES, **VK.LAUNCHES}
 
 
 def cuda_ms(fn, reps):
@@ -549,12 +580,12 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
             return out
         cycle_mod.torch_dynamic_solve = recording
     try:
-        K.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         sched.run_once()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(K.LAUNCHES)
+        launches = read_launches()
     finally:
         cycle_mod.torch_dynamic_solve = solve_dyn
     phases = {k: round(v, 4) for k, v in sched.fast_cycle.phases.items()}
@@ -651,6 +682,426 @@ def phase_portsel_kernels(captured, n_launches):
     return rows
 
 
+# config 6 (bench.py _build_contended_store, config6): every node exactly
+# full on cpu with ten 800m / 1.2Gi residents of queue q0
+CFG6 = dict(nodes=10_000, run_jobs=5_000, tasks_per_job=20, storm_gangs=100,
+            reclaim_gangs=10)
+CONTENTION_KERNELS = ("reclaim_solve", "preempt_solve", "preempt_rounds")
+# per cycle (evictions, pipelines, binds), the victims reaped between
+# cycles: the JAX package's pattern at 1/10 scale
+# (tests/test_torch_contention.py TENTH_PATTERN), at full width
+CFG6_PATTERN = {
+    "cfg6": [(4000, 2000, 0), (0, 0, 2000), (0, 0, 0)],
+    "cfg6b": [(4000, 2000, 0), (0, 0, 2000), (0, 0, 0)],
+    "cfg6r": [(20, 10, 0), (20, 10, 0), (20, 10, 0)],
+}
+# operations per pool row and attempt of the victim core (R = 2): the base
+# test (live, queue, job) 3, the gang and conformance vetoes 3, the
+# eviction-order prefix (adds, cover test, first-victim flag) 6
+VICTIM_ROW_OPS = 12
+# per pool row and round of the batched rounds: the candidate analysis 10
+# and the victim materialisation 8
+ROUND_ROW_OPS = 18
+PLAIN_STORM_LIMIT_S = 60.0
+
+
+def build_contended_store(cell):
+    """bench.py _build_contended_store with the port's objects: 10,000 nodes
+    of 8 cpu / 16Gi / 110 pods, each exactly full on cpu with ten 800m /
+    1.2Gi residents of queue q0 (5,000 running jobs x 20).  cfg6: 100 urgent
+    gangs (priority 100) x 20 tasks of 1500m / 2Gi in q0; cfg6b: the same
+    plus one empty-request pod no node admits on the first gang; cfg6r: no
+    storm, but 10 gangs x 20 tasks of 1500m / 2Gi in a second queue q1 (both
+    weight 1) reclaiming."""
+    from volcano_tpu_torch.api import (
+        POD_GROUP_KEY, Metadata, Node, Pod, PodGroup, PodGroupPhase, PodPhase, PodSpec,
+        PriorityClass, Queue, Resource,
+    )
+    from volcano_tpu_torch.store import Store
+
+    n_nodes, tpj = CFG6["nodes"], CFG6["tasks_per_job"]
+    store = Store()
+    queues = ["q0", "q1", "default"] if cell == "cfg6r" else ["q0", "default"]
+    for q in queues:
+        store.create("Queue", Queue(meta=Metadata(name=q, namespace=""), weight=1))
+    store.create("PriorityClass", PriorityClass(meta=Metadata(name="urgent", namespace=""),
+                                                value=100))
+    for i in range(n_nodes):
+        store.create("Node", Node(meta=Metadata(name=f"n{i:05d}", namespace=""),
+                                  allocatable=Resource(8000.0, 16.0 * (1 << 30),
+                                                       max_task_num=110)))
+    k = 0
+    for j in range(CFG6["run_jobs"]):
+        pg = PodGroup(meta=Metadata(name=f"run{j:05d}", namespace="default"), min_member=1,
+                      queue="q0")
+        pg.status.phase = PodGroupPhase.RUNNING
+        store.create("PodGroup", pg)
+        ann = {POD_GROUP_KEY: f"run{j:05d}"}
+        for t in range(tpj):
+            store.create("Pod", Pod(
+                meta=Metadata(name=f"r{j:05d}-{t}", namespace="default", annotations=dict(ann)),
+                spec=PodSpec(resources=Resource(800.0, 1.2 * (1 << 30))),
+                phase=PodPhase.RUNNING, node_name=f"n{k % n_nodes:05d}"))
+            k += 1
+    gangs = CFG6["reclaim_gangs"] if cell == "cfg6r" else CFG6["storm_gangs"]
+    for j in range(gangs):
+        name = f"rec{j:03d}" if cell == "cfg6r" else f"hot{j:03d}"
+        pg = PodGroup(meta=Metadata(name=name, namespace="default"), min_member=tpj,
+                      queue="q1" if cell == "cfg6r" else "q0",
+                      priority_class_name="" if cell == "cfg6r" else "urgent")
+        pg.status.phase = PodGroupPhase.INQUEUE
+        store.create("PodGroup", pg)
+        ann = {POD_GROUP_KEY: name}
+        for t in range(tpj):
+            store.create("Pod", Pod(
+                meta=Metadata(name=f"{name}-{t}", namespace="default", annotations=dict(ann)),
+                spec=PodSpec(resources=Resource(1500.0, 2.0 * (1 << 30)))))
+        if cell == "cfg6b" and j == 0:
+            store.create("Pod", Pod(
+                meta=Metadata(name=f"hbe{j:03d}", namespace="default", annotations=dict(ann)),
+                spec=PodSpec(resources=Resource(), node_selector={"zone": "nowhere"})))
+    return store
+
+
+class ContentionCapture:
+    """During a cycle: the inputs of each contention kernel's first call (the
+    wrappers copy the state they update, so the inputs stay as the cycle
+    gave them), and every pipeline as (pod key, node name)."""
+
+    def __init__(self):
+        from volcano_tpu_torch.scheduler import fast_victims as FV
+        from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+        self.inputs, self.pipes = {}, []
+        self._saved = [(VK, n, getattr(VK, n)) for n in CONTENTION_KERNELS]
+        self._saved.append((FV.FastContention, "_append_records",
+                            FV.FastContention._append_records))
+        for mod, name, fn in self._saved[:-1]:
+            setattr(mod, name, self._recording(name, fn))
+        append, rec = self._saved[-1][2], self
+
+        def append_records(cont, evict_att, pipe_node, pipe_att, reason):
+            n0 = len(cont.pipelines)
+            append(cont, evict_att, pipe_node, pipe_att, reason)
+            rec.pipes += [(cont.snap.task_uids[t], cont.snap.node_names[n])
+                          for t, n in cont.pipelines[n0:]]
+
+        FV.FastContention._append_records = append_records
+
+    def _recording(self, name, fn):
+        def call(*args, **kwargs):
+            self.inputs.setdefault(name, (args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    def close(self):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def check_contention_cycle(label, cell, store, victims, pipes):
+    """One cycle's contention invariants: every victim a resident of q0 (for
+    the storm cells below the preemptor's priority); on every node the
+    pipelined requests covered by idle plus releasing capacity and the pod
+    cap kept; every storm gang pipelined all or nothing."""
+    nodes = {n.meta.name: n for n in store.list("Node")}
+    groups = {g.meta.key: g for g in store.list("PodGroup")}
+    from volcano_tpu_torch.api import POD_GROUP_KEY
+
+    def group_of(pod):
+        return groups[f"{pod.meta.namespace}/{pod.meta.annotations[POD_GROUP_KEY]}"]
+
+    for key in victims:
+        pod = store.get("Pod", key)
+        g = group_of(pod)
+        if g.queue != "q0" or not pod.deleting:
+            raise AssertionError(f"{label}: victim {key} in {g.queue}, deleting={pod.deleting}")
+        if cell != "cfg6r" and g.priority_class_name == "urgent":
+            raise AssertionError(f"{label}: victim {key} has the preemptors' priority")
+    used, rel, count = {}, {}, {}
+    for pod in store.list("Pod"):
+        if not pod.node_name:
+            continue
+        r = np.array([pod.spec.resources.milli_cpu, pod.spec.resources.memory])
+        used[pod.node_name] = used.get(pod.node_name, 0) + r
+        count[pod.node_name] = count.get(pod.node_name, 0) + 1
+        if pod.deleting:
+            rel[pod.node_name] = rel.get(pod.node_name, 0) + r
+    piped, per_gang = {}, {}
+    for key, node in pipes:
+        pod = store.get("Pod", key)
+        piped.setdefault(node, []).append(pod)
+        if pod.spec.resources.milli_cpu > 0:
+            g = group_of(pod).meta.name
+            per_gang[g] = per_gang.get(g, 0) + 1
+    eps = np.array([10.0, 10.0 * (1 << 20)])
+    for node, pods in piped.items():
+        a = nodes[node].allocatable
+        alloc = np.array([a.milli_cpu, a.memory])
+        free = np.maximum(alloc - used.get(node, 0), 0) + rel.get(node, 0)
+        need = sum(np.array([p.spec.resources.milli_cpu, p.spec.resources.memory]) for p in pods)
+        if not (need < free + eps).all():
+            raise AssertionError(f"{label}: node {node} pipelines {need} over {free}")
+        if count.get(node, 0) + len(pods) > a.max_task_num:
+            raise AssertionError(f"{label}: node {node} over its pod cap")
+    if cell != "cfg6r":
+        partial = {g: n for g, n in per_gang.items() if n != CFG6["tasks_per_job"]}
+        if partial:
+            raise AssertionError(f"{label}: gangs pipelined partially: {list(partial.items())[:5]}")
+
+
+def phase_contention(label, cell, want, forbid):
+    """Drive Scheduler.run_once on the card over a config-6 store for three
+    cycles, the victims reaped (deleted, as the kubelet does) after each.
+    Launch counts are reset just before the first cycle and read just
+    after it.  Returns (first-cycle launches, the kernels' captured
+    inputs)."""
+    import torch
+
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    t0 = time.perf_counter()
+    store = build_contended_store(cell)
+    log(f"[{label}] store built: {CFG6['nodes']} nodes, "
+        f"{CFG6['run_jobs'] * CFG6['tasks_per_job']} residents ({time.perf_counter() - t0:.1f} s)")
+    sched = Scheduler(store, conf=full_conf("cuda"))
+    log(f"[{label}] prewarm {sched.prewarm():.2f} s")
+    cap = ContentionCapture()
+    history, evicted = [], []
+    try:
+        for cycle in range(len(CFG6_PATTERN[cell])):
+            n_ev, n_pipe, n_bind = (len(sched.cache.evict_log), len(cap.pipes),
+                                    len(sched.cache.bind_log))
+            if cycle == 0:
+                reset_launches()
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if cycle == 0:
+                launches = read_launches()
+                captured = dict(cap.inputs)
+            victims = [k for k, _ in sched.cache.evict_log[n_ev:]]
+            pipes = cap.pipes[n_pipe:]
+            history.append((len(victims), len(pipes), len(sched.cache.bind_log) - n_bind))
+            phases = {k: round(v, 4) for k, v in sched.fast_cycle.phases.items()}
+            log(f"[{label}] cycle {cycle + 1} wall {wall:.3f} s phases {json.dumps(phases)} "
+                f"(evictions, pipelines, binds) {history[-1]}"
+                + (f" launches {launches}" if cycle == 0 else ""))
+            check_contention_cycle(label, cell, store, victims, pipes)
+            evicted += victims
+            for key in victims:  # the kubelet reaps the victims
+                store.delete("Pod", key)
+    finally:
+        cap.close()
+    if len(set(evicted)) != len(evicted):
+        raise AssertionError(f"{label}: a pod was evicted twice")
+    if history != CFG6_PATTERN[cell]:
+        raise AssertionError(f"{label}: per-cycle (evictions, pipelines, binds) {history}, "
+                             f"the reference's pattern is {CFG6_PATTERN[cell]}")
+    if cell != "cfg6r":
+        unbound = [p.meta.key for p in store.list("Pod")
+                   if p.meta.name.startswith("hot") and not p.node_name]
+        if unbound:
+            raise AssertionError(f"{label}: storm pods unbound: {unbound[:5]}")
+    for name, at_least in want.items():
+        if launches[name] < at_least:
+            raise AssertionError(f"{label}: kernel {name} launched {launches[name]} times on "
+                                 f"the main path, expected at least {at_least}")
+    for name in forbid:
+        if launches[name]:
+            raise AssertionError(f"{label}: kernel {name} launched ({launches[name]})")
+    log(f"[{label}] invariants hold; evictions per cycle {[h[0] for h in history]}")
+    return launches, captured
+
+
+def _victim_compare(name, out_k, out_p):
+    """Every integer and boolean output equal, float state within rtol 1e-6;
+    returns the largest float difference."""
+    import torch
+
+    err = 0.0
+    flat_k, flat_p = {}, {}
+    for flat, out in ((flat_k, out_k), (flat_p, out_p)):
+        for f in out._fields:
+            part = getattr(out, f)
+            if hasattr(part, "_fields"):
+                flat.update({f"{f}.{g}": getattr(part, g) for g in part._fields})
+            else:
+                flat[f] = part
+    for f, x in flat_k.items():
+        y = torch.as_tensor(flat_p[f], device=x.device)
+        if x.dtype.is_floating_point:
+            err = max(err, float((x - y.to(x.dtype)).abs().max()) if x.numel() else 0.0)
+            if not torch.allclose(x, y.to(x.dtype), rtol=1e-6, atol=0.0):
+                raise AssertionError(f"{name}: {f} differs (max abs err {err})")
+        elif not torch.equal(x, y.to(x.dtype)):
+            raise AssertionError(f"{name}: {f} differs")
+    return err
+
+
+def _victim_bytes(args, out):
+    import torch
+
+    ins = [a for a in args if torch.is_tensor(a)]
+    for a in args:
+        if hasattr(a, "_fields"):
+            ins += [x for x in a if torch.is_tensor(x)]
+    outs = list(out.state) + [out.pipe, *out.rec[:3]]
+    return nbytes(*ins) + nbytes(*outs)
+
+
+def _victim_ops(name, args, out):
+    """Operations the solve's data needs: per ok attempt (K8, K9; rollbacks
+    included) one pass of the victim core over the live pool rows and the
+    valid nodes, and one job selection over the valid jobs; per round (K10)
+    the candidate analysis and victim materialisation over the pool, and
+    the head-task score of each job that committed over the valid nodes."""
+    c = args[0]
+    v_live = int(args[1].run_live.sum())
+    n_valid = int(c.node_valid.sum())
+    j_valid = int((c.job_queue >= 0).sum())
+    if name == "preempt_rounds":
+        from volcano_tpu_torch.scheduler.victim_kernels import ROUNDS_P_CHUNK
+
+        F = min(128, c.job_queue.shape[0]) * ROUNDS_P_CHUNK  # fast_victims' chunks
+        rounds = int(out.rec.att) // (F + 1)
+        committed = int((out.pipe - args[9] > 0).sum())
+        return rounds * v_live * ROUND_ROW_OPS + committed * n_valid * BATCH_PAIR_OPS
+    attempts = int(out.rec.att) if name == "reclaim_solve" else int(out.att_total)
+    return attempts * (v_live * VICTIM_ROW_OPS + n_valid * EXACT_NODE_OPS
+                       + j_valid * EXACT_JOB_OPS)
+
+
+def _storm_exact_args(rounds_in, n_gangs=None):
+    """preempt_solve's inputs for the storm the rounds took, as the exact
+    mode (solveMode: exact) would hand them over: every attemptable row of
+    the storm's jobs, in one queue.  Rows of a job are contiguous in the
+    snapshot, so job_start is each job's first packed row.  ``n_gangs``
+    keeps only the first gangs."""
+    import torch
+
+    args, kw = rounds_in
+    c, s0, task_req, task_class, rows_packed, pstart, pcount, job_prio, avail, pipe0 = args
+    dev = task_req.device
+    J, T = c.job_queue.shape[0], task_req.shape[0]
+    jobs = torch.nonzero(avail & (pcount > 0)).flatten()
+    if n_gangs is not None:
+        jobs = jobs[:n_gangs]
+    job_start = torch.zeros(J, dtype=torch.int32, device=dev)
+    job_ntasks = torch.zeros(J, dtype=torch.int32, device=dev)
+    attempt = torch.zeros(T, dtype=torch.bool, device=dev)
+    for j in jobs.tolist():
+        rows = rows_packed[int(pstart[j]):int(pstart[j]) + int(pcount[j])]
+        if not torch.equal(rows, torch.arange(int(rows[0]), int(rows[0]) + rows.numel(),
+                                              device=dev, dtype=rows.dtype)):
+            raise AssertionError("storm rows are not contiguous per job")
+        job_start[j], job_ntasks[j] = rows[0], rows.numel()
+        attempt[rows.long()] = True
+    is_pre = torch.zeros(J, dtype=torch.bool, device=dev)
+    is_pre[jobs] = True
+    under = torch.zeros(J, dtype=torch.int32, device=dev)
+    under[:jobs.numel()] = jobs.int()
+    queues = torch.unique(c.job_queue[jobs])
+    qorder = torch.zeros(s0.queue_alloc.shape[0], dtype=torch.int32, device=dev)
+    qorder[:queues.numel()] = queues
+    ex = (c, s0, task_req, task_class, attempt, job_start, job_ntasks, job_prio, is_pre,
+          under, int(jobs.numel()), qorder, int(queues.numel()), pipe0)
+    ekw = {k: kw[k] for k in ("use_gang", "use_drf", "use_conformance", "order_by_priority",
+                              "job_key_order", "gang_pipelined")}
+    return ex, ekw
+
+
+def phase_victim_kernels(captured, launches):
+    """K8 (cfg6r), K9 (cfg6b, and the whole cfg6 storm in exact mode) and
+    K10 (cfg6) again on the inputs their cells captured, against their
+    plain versions, with CUDA-event times and a bound counted from the work
+    this data needs."""
+    import torch
+
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    meta = {
+        "reclaim_solve": ("reclaim_solve.cu", "volcano_tpu/scheduler/victim_kernels.py:457"),
+        "preempt_solve": ("preempt_solve.cu", "volcano_tpu/scheduler/victim_kernels.py:607"),
+        "preempt_rounds": ("preempt_rounds.cu", "volcano_tpu/scheduler/victim_kernels.py:830"),
+    }
+    plains = {"reclaim_solve": VK.reclaim_solve_plain, "preempt_solve": VK.preempt_solve_plain,
+              "preempt_rounds": VK.preempt_rounds_plain}
+
+    def measure(name, args, kw, reps=3):
+        wrap, plain = getattr(VK, name), plains[name]
+        out_k = wrap(*args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p = plain(*args, **kw)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+        err = _victim_compare(name, out_k, out_p)
+        ms = cuda_ms(lambda: wrap(*args, **kw), reps)
+        b, kind = bound_ms(_victim_bytes(args, out_k), _victim_ops(name, args, out_k))
+        return out_k, err, ms, t_p * 1e3, b, kind
+
+    rows = {}
+    for name, cell in (("reclaim_solve", "cfg6r"), ("preempt_solve", "cfg6b"),
+                       ("preempt_rounds", "cfg6")):
+        args, kw = captured[cell][name]
+        out_k, err, ms, plain_ms, b, kind = measure(name, args, kw)
+        if name == "preempt_rounds":
+            F = min(128, args[0].job_queue.shape[0]) * VK.ROUNDS_P_CHUNK
+            work = (f"{int(out_k.rec.att) // (F + 1)} rounds, "
+                    f"{int(out_k.att_total)} tasks committed")
+        else:
+            work = f"{int(out_k.rec.att)} ok attempts"
+        log(f"[kernels] {cell} {name} ok: {work}, "
+            f"{int((out_k.rec.evict_att >= 0).sum())} evictions, {ms:.3f} ms "
+            f"(plain {plain_ms:.1f} ms, bound {b:.4f} ms by {kind})")
+        src, rep = meta[name]
+        rows[name] = dict(name=name, route="cuda", source=f"volcano_tpu_torch/csrc/{src}",
+                          replaces=rep, launches=launches[cell][name], max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b, bound_by=kind, library_ms=None,
+                          check="ok", cell=cell)
+
+    # K9 over the whole cfg6 storm, as solveMode: exact runs it; its plain
+    # version is held on the first 10 gangs when the whole storm would take
+    # it past PLAIN_STORM_LIMIT_S
+    ex10, ekw = _storm_exact_args(captured["cfg6"]["preempt_rounds"], n_gangs=10)
+    t0 = time.perf_counter()
+    VK.preempt_solve_plain(*ex10, **ekw)
+    torch.cuda.synchronize()
+    est = (time.perf_counter() - t0) * CFG6["storm_gangs"] / 10
+    ex, ekw = _storm_exact_args(captured["cfg6"]["preempt_rounds"])
+    held = est > PLAIN_STORM_LIMIT_S
+    out_k = VK.preempt_solve(*ex, **ekw)
+    ms = cuda_ms(lambda: VK.preempt_solve(*ex, **ekw), 3)
+    b, kind = bound_ms(_victim_bytes(ex, out_k), _victim_ops("preempt_solve", ex, out_k))
+    if held:
+        out_k10 = VK.preempt_solve(*ex10, **ekw)
+        t0 = time.perf_counter()
+        out_p = VK.preempt_solve_plain(*ex10, **ekw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = _victim_compare("preempt_solve storm (first 10 gangs)", out_k10, out_p)
+    else:
+        t0 = time.perf_counter()
+        out_p = VK.preempt_solve_plain(*ex, **ekw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = _victim_compare("preempt_solve storm", out_k, out_p)
+    ok = int(out_k.att_total)
+    log(f"[kernels] cfg6 storm preempt_solve (exact) ok: {ok} ok attempts, "
+        f"{int((out_k.rec.evict_att >= 0).sum())} evictions, {ms:.3f} ms (plain "
+        f"{plain_ms:.1f} ms{' on the first 10 gangs' if held else ''}, estimated whole "
+        f"{est:.1f} s; bound {b:.4f} ms by {kind})")
+    if ok != CFG6["storm_gangs"] * CFG6["tasks_per_job"]:
+        raise AssertionError(f"storm preempt_solve: {ok} ok attempts")
+    rows["preempt_solve"].update(storm_exact_ms=ms, storm_exact_plain_ms=plain_ms,
+                                 storm_exact_plain_held_on_10_gangs=held,
+                                 storm_exact_bound_ms=b, storm_exact_max_abs_err=err)
+    return rows
+
+
 def _device_ms(events):
     """{name: (calls, device ms)} of profiler key averages, device time only."""
     out = {}
@@ -733,28 +1184,36 @@ def main(argv):
     phase_kernel_sweep()
     batch = phase_e2e("e2e batch", CFG5["jobs"], CFG5["best_effort"],
                       want=("water_fill", "allocate_solve_batch"),
-                      forbid=("allocate_solve",))
+                      forbid=("allocate_solve",) + CONTENTION_KERNELS)
     exact = phase_e2e("e2e exact", 200, 0,
                       want=("water_fill", "allocate_solve"),
-                      forbid=("allocate_solve_batch",))
+                      forbid=("allocate_solve_batch",) + CONTENTION_KERNELS)
     captured = {}
     cap = []
     dyn = phase_e2e("e2e cfg5d", CFG5["jobs"], CFG5["best_effort"],
                     want={"water_fill": 1, "allocate_solve_batch": 2,
                           "allocate_solve_batch_portsel": 1},
-                    forbid=("allocate_solve", "allocate_solve_portsel"),
+                    forbid=("allocate_solve", "allocate_solve_portsel") + CONTENTION_KERNELS,
                     dynamic_frac=0.10, max_cycles=MAX_CYCLES_DYNAMIC, capture=cap)
     captured["cfg5d"] = cap[0]
     cap = []
     dyn_exact = phase_e2e("e2e cfg5d-exact", CFG5["jobs"], CFG5["best_effort"],
                           want={"water_fill": 1, "allocate_solve_batch": 1,
                                 "allocate_solve": 1, "allocate_solve_portsel": 1},
-                          forbid=("allocate_solve_batch_portsel",),
+                          forbid=("allocate_solve_batch_portsel",) + CONTENTION_KERNELS,
                           dynamic_frac=0.04, max_cycles=MAX_CYCLES_DYNAMIC, capture=cap)
     captured["cfg5d-exact"] = cap[0]
     kern.update(phase_portsel_kernels(captured, {
         "allocate_solve_batch_portsel": dyn["allocate_solve_batch_portsel"],
         "allocate_solve_portsel": dyn_exact["allocate_solve_portsel"]}))
+    launches, captured = {}, {}
+    for cell, want, forbid in (
+        ("cfg6", {"preempt_rounds": 1, "water_fill": 1}, ("reclaim_solve",)),
+        ("cfg6b", {"preempt_rounds": 1, "preempt_solve": 1}, ("reclaim_solve",)),
+        ("cfg6r", {"reclaim_solve": 1}, ("preempt_solve", "preempt_rounds")),
+    ):
+        launches[cell], captured[cell] = phase_contention(f"e2e {cell}", cell, want, forbid)
+    kern.update(phase_victim_kernels(captured, launches))
     for name, row in kern.items():
         if name in ("water_fill", "allocate_solve_batch"):
             row["launches"] = batch[name]

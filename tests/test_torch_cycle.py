@@ -119,6 +119,7 @@ def _run_pair(spec, solve_mode="auto", cycles=1):
     jc.solve_mode = solve_mode
     jc.exact_topk = True
     tc = tconf.full_conf("cpu")
+    tc.actions = list(ACTIONS)
     tc.solve_mode = solve_mode
     js, ts = jax_store_from_spec(spec), interop.store_from_spec(spec)
     jsched, tsched = JScheduler(js, conf=jc), Scheduler(ts, conf=tc)
@@ -130,8 +131,9 @@ def _run_pair(spec, solve_mode="auto", cycles=1):
 
 
 def test_conf_is_the_jax_full_conf_minus_contention():
+    # the contention slice landed: the port's full_conf is the JAX one
     j, t = jconf.full_conf("tpu"), tconf.full_conf("cpu")
-    assert t.actions == [a for a in j.actions if a not in ("reclaim", "preempt")]
+    assert t.actions == j.actions == ["enqueue", "reclaim", "allocate", "backfill", "preempt"]
     assert [[p.name for p in tier.plugins] for tier in t.tiers] == \
         [[p.name for p in tier.plugins] for tier in j.tiers]
     assert tconf.SchedulerConf().backend == "cuda"
@@ -320,12 +322,22 @@ def _pod(name, **spec_kw):
     ("volume", "volume slice"),
 ])
 def test_out_of_slice_clusters_raise(case, match):
-    from volcano_tpu_torch.api import Affinity, PodGroup, PriorityClass, Resource
+    from volcano_tpu_torch.api import Affinity, PodGroup, PodGroupPhase, PriorityClass, Resource
 
     store = interop.store_from_spec(cluster_spec(2))
     conf = tconf.full_conf("cpu")
     if case == "preempt":
+        # preempt with an unplaceable dynamic job in each queue: the JAX
+        # cycle hands it to its object sub-cycle
         conf.actions = ["enqueue", "allocate", "backfill", "preempt"]
+        for q in ("qa", "qb"):
+            pg = PodGroup(meta=Metadata(name=f"dyn-{q}"), min_member=1, queue=q)
+            pg.status.phase = PodGroupPhase.INQUEUE
+            store.create("PodGroup", pg)
+            pod = _pod(f"dyn-{q}-0", host_ports=[8080])
+            pod.meta.annotations[POD_GROUP_KEY] = f"dyn-{q}"
+            pod.spec.resources = Resource(64000, 1 << 29)
+            store.create("Pod", pod)
     elif case == "plugin":
         conf.tiers[0].plugins.append(tconf.PluginOption("binpack"))
     elif case == "port-overflow":

@@ -310,6 +310,7 @@ def _schedulers(spec, solve_mode):
     jc.solve_mode = solve_mode
     jc.exact_topk = True
     tc = tconf.full_conf("cpu")
+    tc.actions = list(ACTIONS)
     tc.solve_mode = solve_mode
     js, ts = jax_store_from_spec(spec), interop.store_from_spec(spec)
     return (js, JScheduler(js, conf=jc)), (ts, Scheduler(ts, conf=tc))

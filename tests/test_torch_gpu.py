@@ -17,13 +17,17 @@ import torch
 
 from volcano_tpu_torch import interop
 from volcano_tpu_torch.scheduler import kernels as K
+from volcano_tpu_torch.scheduler import victim_kernels as VK
 from volcano_tpu_torch.scheduler.conf import full_conf
 from volcano_tpu_torch.scheduler.scheduler import Scheduler
 from volcano_tpu_torch.scheduler.simargs import (
     PORTSEL_KEYS,
     add_releasing,
     build_portsel_args,
+    build_reclaim_abort_sim,
     build_sim_args,
+    build_storm_sim,
+    storm_inputs,
 )
 
 # the plain versions are many small ops: one intra-op thread each, so that
@@ -228,6 +232,9 @@ def test_gpu_dynamic_scheduler_binds_equal_cpu(solve_mode, seed):
     for backend in ("cuda", "cpu"):
         store = interop.store_from_spec(_dyn_spec(seed))
         conf = full_conf(backend)
+        # the dynamic pass alone: preempt with dynamic jobs is the object
+        # path's (ROADMAP queue 1 item 8)
+        conf.actions = ["enqueue", "allocate", "backfill"]
         conf.solve_mode = solve_mode
         sched = Scheduler(store, conf=conf)
         K.reset_launches()
@@ -241,3 +248,172 @@ def test_gpu_dynamic_scheduler_binds_equal_cpu(solve_mode, seed):
             {g.meta.key: g.status.phase for g in store.list("PodGroup")},
         ))
     assert states[0] == states[1]
+
+
+# -- K8-K10: the contention solves ---------------------------------------------
+
+def _victim_flat(out):
+    flat = {}
+    for name in out._fields:
+        part = getattr(out, name)
+        if hasattr(part, "_fields"):
+            flat.update({f"{name}.{f}": getattr(part, f) for f in part._fields})
+        else:
+            flat[name] = part
+    return flat
+
+
+def _assert_victims_same(out_k, out_p):
+    """Decisions equal; float state bit-equal too (whole-number requests,
+    float64 segment sums: see victim_kernels' module note)."""
+    fk, fp = _victim_flat(out_k), _victim_flat(out_p)
+    for name, x in fk.items():
+        y = torch.as_tensor(fp[name], device=x.device)
+        assert torch.equal(x.to(y.dtype), y), name
+
+
+def _storm(dev, kind, seed, **kw):
+    c, s, t = build_storm_sim(seed, **kw)
+    tc, ts = interop.victim_from_arrays(c, s, dev)
+    args = [a if isinstance(a, int) else torch.from_numpy(np.asarray(a)).to(dev)
+            for a in storm_inputs(kind, c, s, t)]
+    return tc, ts, args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("use_prop,use_gang", [(True, True), (False, False)])
+def test_gpu_reclaim_solve_matches_plain(seed, use_prop, use_gang):
+    dev = _cuda()
+    c, s, args = _storm(dev, "reclaim", seed)
+    kw = dict(use_gang=use_gang, use_prop=use_prop, use_conformance=True,
+              order_by_priority=True, has_proportion=seed != 1)
+    VK.reset_launches()
+    out_k = VK.reclaim_solve(c, s, *args, **kw)
+    assert VK.LAUNCHES["reclaim_solve"] == 1
+    _assert_victims_same(out_k, VK.reclaim_solve_plain(c, s, *args, **kw))
+
+
+@pytest.mark.gpu
+def test_gpu_reclaim_abort_matches_plain():
+    dev = _cuda()
+    c, s, t = build_reclaim_abort_sim()
+    tc, ts = interop.victim_from_arrays(c, s, dev)
+    args = [torch.from_numpy(np.asarray(a)).to(dev) for a in storm_inputs("reclaim", c, s, t)]
+    kw = dict(use_gang=False, use_prop=False, use_conformance=False, order_by_priority=True,
+              has_proportion=True)
+    out_k = VK.reclaim_solve(tc, ts, *args, **kw)
+    assert bool(out_k.abort)
+    _assert_victims_same(out_k, VK.reclaim_solve_plain(tc, ts, *args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 5, 9, 29])
+@pytest.mark.parametrize("use_drf,gang_pipelined", [(True, True), (False, False)])
+def test_gpu_preempt_solve_matches_plain(seed, use_drf, gang_pipelined):
+    dev = _cuda()
+    c, s, args = _storm(dev, "preempt", seed, big=seed == 9)
+    kw = dict(use_gang=True, use_drf=use_drf, use_conformance=True, order_by_priority=True,
+              gang_pipelined=gang_pipelined)
+    VK.reset_launches()
+    out_k = VK.preempt_solve(c, s, *args, **kw)
+    assert VK.LAUNCHES["preempt_solve"] == 1
+    _assert_victims_same(out_k, VK.preempt_solve_plain(c, s, *args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("use_drf,chunks", [
+    (False, dict(m_chunk=4, p_chunk=3, k_chunk=2)), (True, dict()),
+])
+def test_gpu_preempt_rounds_match_plain(seed, use_drf, chunks):
+    dev = _cuda()
+    c, s, args = _storm(dev, "rounds", seed, n_new=4, big=seed == 2)
+    kw = dict(use_gang=True, use_drf=use_drf, use_conformance=True, order_by_priority=True,
+              **chunks)
+    VK.reset_launches()
+    out_k = VK.preempt_rounds(c, s, *args, **kw)
+    assert VK.LAUNCHES["preempt_rounds"] == 1
+    _assert_victims_same(out_k, VK.preempt_rounds_plain(c, s, *args, **kw))
+
+
+def _contended_spec(seed, n_nodes=8, storm=(3, 3)):
+    """Low-priority singleton gangs fill every node of queue qa (two a
+    node) and qb (one a node); urgent gangs in qa storm it, and a qb gang
+    of weight 3 reclaims."""
+    rng = np.random.default_rng(seed)
+    spec = {"priority_classes": [{"name": "urgent", "value": 10}, {"name": "low", "value": 1}],
+            "queues": [{"name": "qa"}, {"name": "qb", "weight": 3}, {"name": "default"}],
+            "nodes": [{"name": f"n{i:02d}", "allocatable": {"cpu": "6", "memory": "12Gi",
+                                                            "pods": 20}}
+                      for i in range(n_nodes)],
+            "podgroups": [], "pods": []}
+    k = 0
+    for i in range(n_nodes):
+        for q in ("qa", "qa", "qb"):
+            spec["podgroups"].append({"name": f"run{k}", "min_member": 1, "queue": q,
+                                      "priority_class_name": "low", "phase": "Running"})
+            spec["pods"].append({"name": f"run{k}-0", "group": f"run{k}", "priority": 1,
+                                 "resources": {"cpu": "2", "memory": "4Gi"},
+                                 "node_name": f"n{i:02d}", "phase": "Running"})
+            k += 1
+    n_gangs, size = storm
+    for g in range(n_gangs):
+        spec["podgroups"].append({"name": f"hot{g}", "min_member": size, "queue": "qa",
+                                  "priority_class_name": "urgent", "phase": "Inqueue"})
+        spec["pods"] += [{"name": f"hot{g}-{t}", "group": f"hot{g}", "priority": 10,
+                          "resources": {"cpu": str(int(rng.choice([1, 2]))), "memory": "2Gi"}}
+                         for t in range(size)]
+    spec["podgroups"].append({"name": "recl", "min_member": 1, "queue": "qb",
+                              "phase": "Inqueue"})
+    spec["pods"].append({"name": "recl-0", "group": "recl",
+                         "resources": {"cpu": "2", "memory": "2Gi"}})
+    return spec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solve_mode,storm", [("exact", (3, 3)), ("auto", (24, 3))])
+@pytest.mark.parametrize("seed", range(2))
+def test_gpu_contended_scheduler_equals_cpu(solve_mode, storm, seed):
+    """The full five-action conf on a contended store: the cuda backend's
+    reclaim and preempt passes (K8, K9, and K10 above the storm threshold)
+    evict and bind what the cpu backend's plain versions do."""
+    _cuda()
+    outs = []
+    for backend in ("cuda", "cpu"):
+        store = interop.store_from_spec(_contended_spec(seed, storm=storm))
+        conf = full_conf(backend)
+        conf.solve_mode = solve_mode
+        sched = Scheduler(store, conf=conf)
+        VK.reset_launches()
+        sched.run_once()
+        if backend == "cuda":
+            assert VK.LAUNCHES["reclaim_solve"] == 1
+            assert VK.LAUNCHES["preempt_rounds" if storm[0] * storm[1] > 64
+                               else "preempt_solve"] >= 1
+        outs.append((list(sched.cache.evict_log), dict(sched.cache.bind_log),
+                     {g.meta.key: g.status.phase for g in store.list("PodGroup")}))
+    assert outs[0] == outs[1]
+    assert outs[0][0], "the store must contend"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["reclaim", "preempt", "rounds"])
+def test_gpu_scalar_resource_solves_match_plain(kind):
+    """K8-K10 with a third, scalar resource (R = 3) and three predicate
+    classes against their plain versions."""
+    dev = _cuda()
+    c, s, args = _storm(dev, kind, 0, n_new=4 if kind == "rounds" else 3, scalar=True, classes=3)
+    if kind == "reclaim":
+        kw = dict(use_gang=True, use_prop=True, use_conformance=True, order_by_priority=True,
+                  has_proportion=True)
+        out_k, out_p = VK.reclaim_solve(c, s, *args, **kw), VK.reclaim_solve_plain(c, s, *args, **kw)
+    elif kind == "preempt":
+        kw = dict(use_gang=True, use_drf=True, use_conformance=True, order_by_priority=True)
+        out_k, out_p = VK.preempt_solve(c, s, *args, **kw), VK.preempt_solve_plain(c, s, *args, **kw)
+    else:
+        kw = dict(use_gang=True, use_drf=True, use_conformance=True, order_by_priority=True,
+                  m_chunk=4, p_chunk=3, k_chunk=2)
+        out_k, out_p = (VK.preempt_rounds(c, s, *args, **kw),
+                        VK.preempt_rounds_plain(c, s, *args, **kw))
+    _assert_victims_same(out_k, out_p)

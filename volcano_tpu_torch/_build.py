@@ -27,7 +27,8 @@ from typing import List, Optional
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = ("water_fill.cu", "allocate_solve.cu", "allocate_batch.cu")
+SOURCES = ("water_fill.cu", "allocate_solve.cu", "allocate_batch.cu",
+           "reclaim_solve.cu", "preempt_solve.cu", "preempt_rounds.cu")
 BUILD_DIR = _PKG.parent / "build" / "volcano_tpu_torch"
 LIB_NAME = "libvtt_kernels.so"
 NVCC_FLAGS = [
@@ -86,7 +87,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.vtt_water_fill.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]
     lib.vtt_water_fill.restype = ci
-    for fn in (lib.vtt_allocate_solve, lib.vtt_allocate_solve_batch):
+    for fn in (lib.vtt_allocate_solve, lib.vtt_allocate_solve_batch,
+               lib.vtt_reclaim_solve, lib.vtt_preempt_solve, lib.vtt_preempt_rounds):
         fn.argtypes = [vp, vp]
         fn.restype = ci
     return lib

@@ -1,0 +1,609 @@
+// K10: batched preempt rounds, one round = eight kernels.
+//
+// Replaces volcano_tpu/scheduler/victim_kernels.py:830 `preempt_rounds`
+// (exact top-K at :1062): rounds of parallel victim-capacity placement for
+// storms wider than fast_victims.CONTENTION_BATCH_THRESHOLD.  Each round:
+// candidate analysis over the pool (conformance, gang eviction budgets, the
+// DRF test at each queue's largest preemptor share), per-(node, queue)
+// capacity curves, the top-M jobs proposing their next P tasks over their
+// K best nodes, (node, queue, rank) prefix checks, gang all-or-nothing
+// commit, and victims materialised at round end.
+//
+// What bounds it on the H100: per round, the [M, N] score pass (M = 128
+// jobs x N nodes, ~40 bytes and ~40 flops a cell from L2), the O(J^2) job
+// ranking and two walks of the pool; all far below the card's rates, so a
+// round is bound by its launches and barriers, and the solve by its round
+// count.  Design, after K3 (csrc/allocate_batch.cu):
+//   * the host runs the round loop and reads one 48-byte control block a
+//     round (active jobs, progress, round count);
+//   * the pool is grouped by node once per launch (victim_common.cuh), and
+//     each row's within-job rank in the global eviction order is counted
+//     once (the gang eviction budget);
+//   * vtt_r_analysis and vtt_r_victims give each node to one thread, which
+//     walks the node's rows in (queue, priority, rank) order with float64
+//     running sums per (node, queue) cell;
+//   * vtt_r_rank counts, for each active job, the active jobs with a
+//     smaller key tuple (the rank, no sort);
+//   * vtt_r_propose runs one CTA per selected job: its scores stay in
+//     shared memory and K block-wide first-max passes follow lax.top_k's
+//     order (values descending, lower index first, -inf fill);
+//   * vtt_r_accept is one CTA: a bitonic sort of the F = M * P proposals by
+//     (cell, rank), one thread per cell for the running sums, per-job prefix
+//     and gang commit, and the job, queue and cell updates in a fixed order.
+//   Cross-node sums (victims per job and queue) use float64 atomics: the
+//   terms are whole numbers, so the sums are exact in any order.
+#include "victim_common.cuh"
+
+#define VTT_R_PROPOSE_THREADS 256
+#define VTT_R_ACCEPT_THREADS 1024
+#define VTT_R_RANK_CHUNK 1024
+#define VTT_R_MAX_PK 32
+
+// p_flags bits
+#define RF_VALID 1
+#define RF_WIN0 2
+#define RF_WIN 4
+
+__device__ __forceinline__ int vtt_f2ord(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float vtt_ord2f(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+// (node, queue, priority, rank, pool index): the global eviction order
+__device__ __forceinline__ bool vtt_gev_less(const VttVictimArgs& a, int u, int v) {
+  const int nu_ = a.run_node[u], nv_ = a.run_node[v];
+  if (nu_ != nv_) return nu_ < nv_;
+  return vtt_ev_less(a, VTT_EV_ROUNDS, u, v);
+}
+
+__global__ void vtt_r_job_count(VttVictimArgs a) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v < a.V) atomicAdd(&a.job_fill[vtt_clamp(a.run_job[v], 0, (int)a.J - 1)], 1);
+}
+
+__global__ void vtt_r_job_bucket(VttVictimArgs a) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= a.V) return;
+  const int j = vtt_clamp(a.run_job[v], 0, (int)a.J - 1);
+  a.job_bucket[a.job_off[j] + atomicAdd(&a.job_fill[j], 1)] = v;
+}
+
+// a live row's rank within its job in the global eviction order, counted
+// over every pool row (padding rows included, as the reference counts them)
+__global__ void vtt_r_cnt_in_job(VttVictimArgs a) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= a.V || !a.run_live[v]) return;
+  const int j = vtt_clamp(a.run_job[v], 0, (int)a.J - 1);
+  int c = 0;
+  for (int i = a.job_off[j]; i < a.job_off[j + 1]; ++i) {
+    const int u = a.job_bucket[i];
+    if (u != v && vtt_gev_less(a, u, v)) ++c;
+  }
+  a.cnt_in_job[v] = c;
+}
+
+__global__ void vtt_r_init(VttVictimArgs a) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q < a.Q) {
+    a.act_q[q] = 0;
+    a.ls_q[q] = vtt_f2ord(VTT_NEG_INF);
+  }
+  if (q == 0) {
+    for (int i = 0; i < 16; ++i) a.ctl[i] = 0;
+    a.ctl[VC_PROGRESS] = 1;
+  }
+}
+
+// round start: active jobs, their rank keys, act_q and ls_q; resets the
+// round's per-job scratch
+__global__ void vtt_r_start(VttVictimArgs a) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int J = (int)a.J, Q = (int)a.Q, T = (int)a.T, R = (int)a.R;
+  if (idx < a.M) a.sel[idx] = -1;
+  if (idx < Q)
+    for (int r = 0; r < R; ++r) a.vict_q[(size_t)idx * R + r] = 0.0;
+  if (idx >= J) return;
+  const int j = idx;
+  for (int r = 0; r < R; ++r) a.vict_job[(size_t)j * R + r] = 0.0;
+  a.vict_cnt[j] = 0;
+  a.job_rank[j] = 0;
+  const bool active = a.job_avail[j] && !a.dropped[j] && a.cursor[j] < a.job_pcount[j];
+  a.job_active[j] = active ? 1 : 0;
+  const int codes[3] = {(int)a.key0, (int)a.key1, (int)a.key2};
+  for (int i = 0; i < a.n_keys; ++i) a.job_keys[(size_t)j * 4 + i] = vtt_vjob_key(a, codes[i], j);
+  if (!active) return;
+  atomicAdd(&a.ctl[VC_ACTIVE], 1);
+  const int jq = a.job_queue[j];
+  const int qc = vtt_clamp(jq, 0, Q - 1);
+  if (jq >= 0) atomicOr(&a.act_q[qc], 1);
+  if (a.use_drf) {
+    const int head = vtt_clamp(a.rows_packed[vtt_clamp(a.job_pstart[j] + a.cursor[j], 0, T - 1)],
+                               0, T - 1);
+    float sum[VTT_MAX_R];
+    for (int r = 0; r < R; ++r)
+      sum[r] = a.job_alloc[(size_t)j * R + r] + a.task_req[(size_t)head * R + r];
+    atomicMax(&a.ls_q[qc], vtt_f2ord(vtt_dominant_share(sum, a.total, R)));
+  }
+}
+
+// one thread per node: candidate flags and the (node, queue) capacity curve
+__global__ void vtt_r_analysis(VttVictimArgs a) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int N = (int)a.N, Q = (int)a.Q, R = (int)a.R;
+  if (n >= N) return;
+  for (int i = 0; i < Q * R; ++i) {
+    a.cap_flat[(size_t)n * Q * R + i] = 0.0f;
+    a.cons_flat[(size_t)n * Q * R + i] = 0.0f;
+  }
+  for (int r = 0; r < R; ++r) a.cons_node[(size_t)n * R + r] = 0.0;
+  a.placed[n] = 0;
+  const int off = a.node_off[n], end = a.node_off[n + 1];
+  double acc[VTT_MAX_R];
+  float part[VTT_MAX_R];
+  if (a.use_drf) {
+    // hypothetical transfer per (node, job) against the queue's largest
+    // preemptor share (conservative)
+    int pj = -1;
+    for (int i = off; i < end; ++i) {
+      const int v = a.l_drf[i];
+      const int j = a.run_job[v];
+      const int rq = a.job_queue[j];
+      const int q = vtt_clamp(rq, 0, Q - 1);
+      if (j != pj) {
+        for (int r = 0; r < R; ++r) acc[r] = 0.0;
+        pj = j;
+      }
+      if (a.run_live[v] && a.act_q[q] && rq >= 0)
+        for (int r = 0; r < R; ++r) acc[r] += (double)a.run_req[(size_t)v * R + r];
+      for (int r = 0; r < R; ++r) part[r] = a.job_alloc[(size_t)j * R + r] - (float)acc[r];
+      const float rs = vtt_dominant_share(part, a.total, R);
+      const bool admit = rq >= 0 && vtt_ord2f(a.ls_q[q]) < rs + 1e-6f;
+      a.flag[v] = admit ? VF_ADMIT : 0;
+    }
+  }
+  int pq = -1;
+  for (int i = off; i < end; ++i) {
+    const int v = a.l_ev[i];
+    const int j = a.run_job[v];
+    const int rq = a.job_queue[j];
+    const int q = vtt_clamp(rq, 0, Q - 1);
+    if (q != pq) {
+      for (int r = 0; r < R; ++r) acc[r] = 0.0;
+      pq = q;
+    }
+    bool c = a.run_live[v] && a.act_q[q] && rq >= 0 && !a.job_avail[j];
+    if (a.use_conformance) c = c && a.run_evictable[v];
+    if (a.use_gang) {
+      const int jm = a.job_min[j];
+      const long long budget = jm > 1 ? (long long)a.job_occupied[j] - jm : 2147483647LL;
+      c = c && (long long)a.cnt_in_job[v] < budget;
+    }
+    if (a.use_drf) c = c && (a.flag[v] & VF_ADMIT);
+    a.flag[v] = c ? VF_CAND : 0;
+    if (c)
+      for (int r = 0; r < R; ++r) acc[r] += (double)a.run_req[(size_t)v * R + r];
+    if (i + 1 == end || vtt_clamp(vtt_row_queue(a, a.l_ev[i + 1]), 0, Q - 1) != q)
+      for (int r = 0; r < R; ++r) a.cap_flat[((size_t)n * Q + q) * R + r] = (float)acc[r];
+  }
+}
+
+// rank_j = #{active i : key_i < key_j}; blockIdx.y picks a chunk of i
+__global__ void vtt_r_rank(VttVictimArgs a) {
+  __shared__ float s_keys[VTT_R_RANK_CHUNK * 3];
+  __shared__ uint8_t s_act[VTT_R_RANK_CHUNK];
+  const int J = (int)a.J, nk = (int)a.n_keys;
+  const int c0 = blockIdx.y * VTT_R_RANK_CHUNK;
+  const int cn = min(VTT_R_RANK_CHUNK, J - c0);
+  for (int i = threadIdx.x; i < cn; i += blockDim.x) {
+    s_act[i] = a.job_active[c0 + i];
+    for (int k = 0; k < 3; ++k) s_keys[i * 3 + k] = a.job_keys[(size_t)(c0 + i) * 4 + k];
+  }
+  __syncthreads();
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= J || !a.job_active[j]) return;
+  float kj[3];
+  for (int k = 0; k < 3; ++k) kj[k] = a.job_keys[(size_t)j * 4 + k];
+  int cnt = 0;
+  for (int i = 0; i < cn; ++i) {
+    if (!s_act[i]) continue;
+    bool less = false, decided = false;
+    for (int k = 0; k < nk && !decided; ++k) {
+      if (s_keys[i * 3 + k] < kj[k]) less = decided = true;
+      else if (s_keys[i * 3 + k] > kj[k]) decided = true;
+    }
+    if (!decided) less = c0 + i < j;
+    cnt += less;
+  }
+  if (cnt) atomicAdd(&a.job_rank[j], cnt);
+}
+
+__global__ void vtt_r_select(VttVictimArgs a) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= a.J || !a.job_active[j]) return;
+  const int r = a.job_rank[j];
+  if (r < a.M) a.sel[r] = j;
+}
+
+// one CTA per selected job: scores of its head task over all nodes in
+// shared memory, exact top-K, per-target counts, its P proposals
+__global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_propose(VttVictimArgs a) {
+  VTT_DYN_SMEM(float, s_val);
+  __shared__ float s_v[VTT_R_PROPOSE_THREADS];
+  __shared__ int s_i[VTT_R_PROPOSE_THREADS];
+  __shared__ int s_top[VTT_R_MAX_PK];
+  __shared__ int s_knode[VTT_R_MAX_PK];
+  __shared__ float s_cnt[VTT_R_MAX_PK];
+  __shared__ float s_cum[VTT_R_MAX_PK];
+  __shared__ int s_flag;
+  const int tid = threadIdx.x;
+  const int m = blockIdx.x;
+  const int N = (int)a.N, R = (int)a.R, T = (int)a.T, Q = (int)a.Q, P = (int)a.P,
+            K = (int)a.K;
+  const int j = a.sel[m];
+  if (j < 0) {
+    for (int p = tid; p < P; p += blockDim.x) {
+      const int f = m * P + p;
+      a.p_flags[f] = 0;
+      a.p_node[f] = 0;
+      a.p_t[f] = 0;
+      a.p_job[f] = -1;
+    }
+    return;
+  }
+  const int cur = a.cursor[j];
+  const int head = vtt_clamp(a.rows_packed[vtt_clamp(a.job_pstart[j] + cur, 0, T - 1)], 0, T - 1);
+  float req[VTT_MAX_R];
+  for (int r = 0; r < R; ++r) req[r] = a.task_req[(size_t)head * R + r];
+  const int cls = a.task_class[head];
+  const int q = vtt_clamp(a.job_queue[j], 0, Q - 1);
+  const uint8_t* cmask = a.class_mask + (size_t)cls * N;
+  const float* cscore = a.class_score + (size_t)cls * N;
+  const uint32_t jh = (uint32_t)j * 2654435761u;
+  const float jscale = (float)(1e-4 / 65535.0);
+  bool any_local = false;
+  for (int n = tid; n < N; n += blockDim.x) {
+    const float* capn = &a.cap_flat[((size_t)n * Q + q) * R];
+    bool feasible = cmask[n] && a.task_count[n] < a.node_max_tasks[n] && a.node_valid[n];
+    for (int r = 0; r < R; ++r) feasible = feasible && req[r] < capn[r] + a.eps[r];
+    float v = VTT_NEG_INF;
+    if (feasible) {
+      const float sc = vtt_score_node(req, &a.used[(size_t)n * R], &a.node_alloc[(size_t)n * R],
+                                      cscore[n], a.w_least, a.w_balanced);
+      uint32_t h = (jh ^ ((uint32_t)n * 40503u)) * 2246822519u;
+      h ^= h >> 15;
+      v = __fmaf_rn((float)(h & 0xFFFFu), jscale, sc);
+      any_local = true;
+    }
+    s_val[n] = v;
+  }
+  const bool job_ok = vtt_block_any(any_local, &s_flag);
+  // exact top-K: K passes, each the first-max among entries ranked after
+  // the previous pass's winner
+  float prev_v = VTT_POS_INF;
+  int prev_i = -1;
+  for (int k = 0; k < K; ++k) {
+    float bv = VTT_NEG_INF;
+    int bi = 0x7fffffff;
+    for (int n = tid; n < N; n += blockDim.x) {
+      const float v = s_val[n];
+      if ((k == 0 || vtt_better(prev_v, prev_i, v, n)) && vtt_better(v, n, bv, bi)) {
+        bv = v;
+        bi = n;
+      }
+    }
+    vtt_block_argmax(bv, bi, s_v, s_i);
+    if (tid == 0) s_top[k] = bi;
+    prev_v = bv;
+    prev_i = bi;
+  }
+  __syncthreads();
+  if (tid < K) {
+    const int k = tid;
+    const int node = s_top[(k + m % K) % K];
+    const float* capk = &a.cap_flat[((size_t)node * Q + q) * R];
+    bool ok = cmask[node] && a.task_count[node] < a.node_max_tasks[node] && a.node_valid[node];
+    for (int r = 0; r < R; ++r) ok = ok && req[r] < capk[r] + a.eps[r];
+    float c = VTT_POS_INF;
+    for (int r = 0; r < R; ++r)
+      if (req[r] > 0.0f) c = fminf(c, floorf((capk[r] + a.eps[r]) / fmaxf(req[r], 1e-30f)));
+    s_knode[k] = node;
+    s_cnt[k] = ok ? fmaxf(c, 0.0f) : 0.0f;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float cum = 0.0f;
+    for (int k = 0; k < K; ++k) {
+      cum = k == 0 ? s_cnt[0] : cum + s_cnt[k];
+      s_cum[k] = cum;
+    }
+  }
+  __syncthreads();
+  if (tid < P) {
+    const int p = tid;
+    const int f = m * P + p;
+    int slot = 0;
+    for (int k = 0; k < K; ++k) slot += ((float)p >= s_cum[k]) ? 1 : 0;
+    const bool in_range = slot < K;
+    const bool valid = job_ok && cur + p < a.job_pcount[j] && in_range;
+    const int t = a.rows_packed[vtt_clamp(a.job_pstart[j] + cur + p, 0, T - 1)];
+    a.p_node[f] = s_knode[slot < K ? slot : K - 1];
+    a.p_t[f] = vtt_clamp(t, 0, T - 1);
+    a.p_job[f] = j;
+    a.p_flags[f] = valid ? RF_VALID : 0;
+  }
+}
+
+// one CTA: (cell, rank) order, capacity and pod-cap prefix checks, per-job
+// prefix and gang commit, the job / queue / cell updates
+__global__ void __launch_bounds__(VTT_R_ACCEPT_THREADS)
+    vtt_r_accept(VttVictimArgs a, int Fp2) {
+  VTT_DYN_SMEM(unsigned long long, s_key);
+  __shared__ int s_flag;
+  __shared__ int s_sum[VTT_R_ACCEPT_THREADS];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int N = (int)a.N, R = (int)a.R, Q = (int)a.Q, M = (int)a.M, P = (int)a.P,
+            F = (int)a.F;
+  const unsigned long long NQ = (unsigned long long)N * Q;
+  const int att = a.ctl[VC_ATT];
+
+  for (int i = tid; i < Fp2; i += nthr) {
+    if (i < F) {
+      const bool valid = a.p_flags[i] & RF_VALID;
+      const unsigned long long kf =
+          valid ? (unsigned long long)a.p_node[i] * Q +
+                      vtt_clamp(a.job_queue[a.p_job[i]], 0, Q - 1)
+                : NQ;
+      s_key[i] = (kf << 32) | (unsigned)i;
+    } else {
+      s_key[i] = ~0ull;
+    }
+  }
+  __syncthreads();
+  for (int k = 2; k <= Fp2; k <<= 1) {
+    for (int jj = k >> 1; jj > 0; jj >>= 1) {
+      for (int i = tid; i < Fp2; i += nthr) {
+        const int ixj = i ^ jj;
+        if (ixj > i) {
+          const unsigned long long x = s_key[i], y = s_key[ixj];
+          const bool up = (i & k) == 0;
+          if (up ? x > y : x < y) {
+            s_key[i] = y;
+            s_key[ixj] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  // running request sums per cell against its capacity, and the pod cap
+  for (int i = tid; i < F; i += nthr) {
+    const unsigned long long kf = s_key[i] >> 32;
+    if (kf >= NQ || (i > 0 && (s_key[i - 1] >> 32) == kf)) continue;
+    const int n = (int)(kf / Q);
+    const float* cap = &a.cap_flat[kf * R];
+    double acc[VTT_MAX_R];
+    for (int r = 0; r < R; ++r) acc[r] = 0.0;
+    long long pos = 0;
+    for (int i2 = i; i2 < F && (s_key[i2] >> 32) == kf; ++i2, ++pos) {
+      const int f = (int)(s_key[i2] & 0xffffffffu);
+      const float* rq = &a.task_req[(size_t)a.p_t[f] * R];
+      bool ok = true;
+      for (int r = 0; r < R; ++r) {
+        acc[r] += (double)rq[r];
+        ok = ok && (float)acc[r] < cap[r] + a.eps[r];
+      }
+      if (ok && (long long)a.task_count[n] + pos < (long long)a.node_max_tasks[n])
+        a.p_flags[f] |= RF_WIN0;
+    }
+  }
+  __syncthreads();
+  // wins must be an offset prefix per job, and a gang short of pipelined
+  // must win its whole remaining need in this round
+  bool any_local = false;
+  int wins_local = 0;
+  for (int m = tid; m < M; m += nthr) {
+    const int j = a.sel[m];
+    if (j < 0) continue;
+    const int need = a.gang_pipelined
+                         ? max(a.job_min[j] - a.job_occupied[j] - a.pipe[j], 0)
+                         : 0;
+    int wins = 0;
+    for (int p = 0; p < P; ++p) {
+      const uint8_t fl = a.p_flags[m * P + p];
+      if (!((fl & RF_VALID) && (fl & RF_WIN0))) break;
+      ++wins;
+    }
+    if (wins < need || wins == 0) continue;
+    double acc[VTT_MAX_R];
+    for (int r = 0; r < R; ++r) acc[r] = 0.0;
+    for (int p = 0; p < wins; ++p) {
+      const int f = m * P + p;
+      a.p_flags[f] |= RF_WIN;
+      const int t = a.p_t[f];
+      for (int r = 0; r < R; ++r) acc[r] += (double)a.task_req[(size_t)t * R + r];
+      a.pipe_node[t] = a.p_node[f];
+      a.pipe_att[t] = att + f;
+    }
+    for (int r = 0; r < R; ++r)
+      a.job_alloc[(size_t)j * R + r] = a.job_alloc[(size_t)j * R + r] + (float)acc[r];
+    a.pipe[j] += wins;
+    a.cursor[j] += wins;
+    any_local = true;
+    wins_local += wins;
+  }
+  const bool any_win = vtt_block_any(any_local, &s_flag);
+  const int wins_total = vtt_block_sum(wins_local, s_sum);
+  // granted capacity per cell and per node
+  for (int i = tid; i < F; i += nthr) {
+    const unsigned long long kf = s_key[i] >> 32;
+    if (kf >= NQ || (i > 0 && (s_key[i - 1] >> 32) == kf)) continue;
+    const int n = (int)(kf / Q);
+    double acc[VTT_MAX_R];
+    for (int r = 0; r < R; ++r) acc[r] = 0.0;
+    int cnt = 0;
+    for (int i2 = i; i2 < F && (s_key[i2] >> 32) == kf; ++i2) {
+      const int f = (int)(s_key[i2] & 0xffffffffu);
+      if (!(a.p_flags[f] & RF_WIN)) continue;
+      ++cnt;
+      for (int r = 0; r < R; ++r) acc[r] += (double)a.task_req[(size_t)a.p_t[f] * R + r];
+    }
+    for (int r = 0; r < R; ++r) {
+      a.cons_flat[kf * R + r] = (float)acc[r];
+      if (cnt) atomicAdd(&a.cons_node[(size_t)n * R + r], acc[r]);
+    }
+    if (cnt) atomicAdd(&a.placed[n], cnt);
+  }
+  for (int q = tid; q < Q; q += nthr) {
+    double acc[VTT_MAX_R];
+    for (int r = 0; r < R; ++r) acc[r] = 0.0;
+    for (int f = 0; f < F; ++f) {
+      if (!(a.p_flags[f] & RF_WIN) || vtt_clamp(a.job_queue[a.p_job[f]], 0, Q - 1) != q) continue;
+      for (int r = 0; r < R; ++r) acc[r] += (double)a.task_req[(size_t)a.p_t[f] * R + r];
+    }
+    for (int r = 0; r < R; ++r)
+      a.queue_alloc[(size_t)q * R + r] = a.queue_alloc[(size_t)q * R + r] + (float)acc[r];
+  }
+  if (tid == 0) {
+    int n_sel = 0;
+    for (int m = 0; m < M; ++m) n_sel += a.sel[m] >= 0;
+    if (!any_win)
+      for (int m = 0; m < M; ++m)
+        if (a.sel[m] >= 0) a.dropped[a.sel[m]] = 1;
+    a.ctl[VC_ANY_WIN] = any_win ? 1 : 0;
+    a.ctl[VC_ATT_TOTAL] += wins_total;
+    a.ctl[VC_PROGRESS] = (any_win || n_sel > 0) ? 1 : 0;
+  }
+}
+
+// one thread per node: the minimal admitted eviction-order prefix of each
+// (node, queue) cell that covers the cell's granted capacity
+__global__ void vtt_r_victims(VttVictimArgs a) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int N = (int)a.N, Q = (int)a.Q, R = (int)a.R;
+  if (n >= N) return;
+  const int off = a.node_off[n], end = a.node_off[n + 1];
+  const int ea = a.ctl[VC_ATT] + (int)a.F;
+  double acc[VTT_MAX_R], vn[VTT_MAX_R];
+  float excl[VTT_MAX_R];
+  for (int r = 0; r < R; ++r) vn[r] = 0.0;
+  int pq = -1, nv = 0;
+  for (int i = off; i < end; ++i) {
+    const int v = a.l_ev[i];
+    const int j = a.run_job[v];
+    const int rq = a.job_queue[j];
+    const int q = vtt_clamp(rq, 0, Q - 1);
+    if (q != pq) {
+      for (int r = 0; r < R; ++r) acc[r] = 0.0;
+      pq = q;
+    }
+    if (!(a.flag[v] & VF_CAND)) continue;
+    const float* rqv = &a.run_req[(size_t)v * R];
+    for (int r = 0; r < R; ++r) {
+      acc[r] += (double)rqv[r];
+      excl[r] = (float)acc[r] - rqv[r];
+    }
+    if (vtt_less_equal(&a.cons_flat[((size_t)n * Q + q) * R], excl, a.eps, R)) continue;
+    a.run_live[v] = 0;
+    a.evict_att[v] = ea;
+    ++nv;
+    for (int r = 0; r < R; ++r) {
+      vn[r] += (double)rqv[r];
+      atomicAdd(&a.vict_job[(size_t)j * R + r], (double)rqv[r]);
+      if (rq >= 0) atomicAdd(&a.vict_q[(size_t)q * R + r], (double)rqv[r]);
+    }
+    atomicAdd(&a.vict_cnt[j], 1);
+  }
+  if (nv) atomicAdd(&a.ctl[VC_NVICT], nv);
+  for (int r = 0; r < R; ++r) {
+    const size_t nr = (size_t)n * R + r;
+    const float cons = (float)a.cons_node[nr];
+    a.releasing[nr] = (a.releasing[nr] + (float)vn[r]) - cons;
+    a.used[nr] = a.used[nr] + cons;
+  }
+  a.task_count[n] += a.placed[n];
+}
+
+// round end: victims leave their jobs and queues; the round's bookkeeping
+__global__ void vtt_r_finish(VttVictimArgs a) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int R = (int)a.R;
+  if (idx < a.J) {
+    for (int r = 0; r < R; ++r) {
+      const size_t jr = (size_t)idx * R + r;
+      a.job_alloc[jr] = a.job_alloc[jr] - (float)a.vict_job[jr];
+    }
+    a.job_occupied[idx] -= a.vict_cnt[idx];
+  }
+  if (idx < a.Q) {
+    for (int r = 0; r < R; ++r) {
+      const size_t qr = (size_t)idx * R + r;
+      a.queue_alloc[qr] = a.queue_alloc[qr] - (float)a.vict_q[qr];
+    }
+    a.act_q[idx] = 0;
+    a.ls_q[idx] = vtt_f2ord(VTT_NEG_INF);
+  }
+  if (idx == 0) {
+    const int any_win = a.ctl[VC_ANY_WIN];
+    a.ctl[VC_ATT] += (int)a.F + 1;
+    if (any_win) a.ctl[VC_LAST_V] = a.ctl[VC_NVICT];
+    a.ctl[VC_ANY] |= any_win;
+    a.ctl[VC_ITERS] += 1;
+    a.ctl[VC_NVICT] = 0;
+    a.ctl[VC_ACTIVE] = 0;
+  }
+}
+
+extern "C" int vtt_preempt_rounds(const VttVictimArgs* args, void* stream) {
+  const VttVictimArgs a = *args;
+  if (a.R < 2 || a.R > VTT_MAX_R || a.n_keys > 3 || a.P < 1 || a.P > VTT_R_MAX_PK ||
+      a.K < 1 || a.K > VTT_R_MAX_PK || a.F != a.M * a.P)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = vtt_victim_setup(a, VTT_EV_ROUNDS, s);
+  if (err) return err;
+  int Fp2 = 1;
+  while (Fp2 < a.F) Fp2 <<= 1;
+  const size_t propose_smem = (size_t)a.N * sizeof(float);
+  const size_t accept_smem = (size_t)Fp2 * sizeof(unsigned long long);
+  if ((err = (int)cudaFuncSetAttribute(vtt_r_propose, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)propose_smem)))
+    return err;
+  if ((err = (int)cudaFuncSetAttribute(vtt_r_accept, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)accept_smem)))
+    return err;
+  const int J = (int)a.J;
+  const int vb = (int)((a.V + 255) / 256), nb = (int)((a.N + 255) / 256);
+  int64_t wide = a.J > a.Q ? a.J : a.Q;
+  if (a.M > wide) wide = a.M;
+  const int wb = (int)((wide + 255) / 256);
+  const dim3 rank_grid((J + 255) / 256, (J + VTT_R_RANK_CHUNK - 1) / VTT_R_RANK_CHUNK);
+
+  VTT_LAUNCH(vtt_r_job_count, vb, 256, 0, s)(a);
+  VTT_LAUNCH(vtt_v_scan, 1, VTT_VICTIM_THREADS, 0, s)(a.job_fill, a.job_off, J);
+  VTT_LAUNCH(vtt_r_job_bucket, vb, 256, 0, s)(a);
+  VTT_LAUNCH(vtt_r_cnt_in_job, vb, 256, 0, s)(a);
+  VTT_LAUNCH(vtt_r_init, (int)((a.Q + 255) / 256), 256, 0, s)(a);
+  VTT_LAUNCH(vtt_r_start, wb, 256, 0, s)(a);
+  if ((err = (int)cudaGetLastError())) return err;
+  for (;;) {
+    int32_t ctl[12];
+    if ((err = (int)cudaMemcpyAsync(ctl, a.ctl, sizeof(ctl), cudaMemcpyDeviceToHost, s)))
+      return err;
+    if ((err = (int)cudaStreamSynchronize(s))) return err;
+    if (!ctl[VC_PROGRESS] || ctl[VC_ACTIVE] <= 0 || ctl[VC_ITERS] >= J + 8) break;
+    VTT_LAUNCH(vtt_r_analysis, nb, 256, 0, s)(a);
+    VTT_LAUNCH(vtt_r_rank, rank_grid, 256, 0, s)(a);
+    VTT_LAUNCH(vtt_r_select, (J + 255) / 256, 256, 0, s)(a);
+    VTT_LAUNCH(vtt_r_propose, (int)a.M, VTT_R_PROPOSE_THREADS, propose_smem, s)(a);
+    VTT_LAUNCH(vtt_r_accept, 1, VTT_R_ACCEPT_THREADS, accept_smem, s)(a, Fp2);
+    VTT_LAUNCH(vtt_r_victims, nb, 256, 0, s)(a);
+    VTT_LAUNCH(vtt_r_finish, wb, 256, 0, s)(a);
+    VTT_LAUNCH(vtt_r_start, wb, 256, 0, s)(a);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  return (int)cudaGetLastError();
+}

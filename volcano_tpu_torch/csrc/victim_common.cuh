@@ -1,0 +1,640 @@
+// Shared pieces of the contention kernels (K8 reclaim_solve, K9
+// preempt_solve, K10 preempt_rounds): their argument block, the per-launch
+// setup that groups the victim pool by node, and the victim core of one
+// preemptor attempt as device functions.
+//
+// Replaces volcano_tpu/scheduler/victim_kernels.py:118-181 (`_seg_cumsum`,
+// `_orders_drf`, `_orders_prop`, `_orders_evict`) and :184-355
+// (`_victim_core`).  The JAX code sorts the whole pool by (node, key...) and
+// takes segment sums as one global float32 cumulative sum minus each
+// segment's base; here every order is a per-node list, built once per launch
+// by ranking each row among its node's rows (the pool holds about
+// max_tasks rows a node), and every segment sum is a sequential float64 sum
+// along the node's list, rounded to float32 once.  Requests are whole
+// numbers, so the float64 sums are exact and the result does not depend on
+// the order of terms (see scheduler/victim_kernels.py).
+//
+// The attempt core runs in one persistent CTA: each thread owns a strided
+// set of nodes and walks their lists (base and veto flags, the DRF and
+// proportion admission passes, the eviction-order prefix with its do-while
+// first victim, the node total), then two block-wide lexicographic argmins
+// give the first covered and the first valid node of the walk.  Thread 0
+// applies an attempt that is assigned and clean.
+#pragma once
+
+#include "common.cuh"
+
+#define VTT_VICTIM_THREADS 1024
+
+// row flags (scratch `flag`, one byte per pool row)
+#define VF_BASE 1
+#define VF_CAND 2
+#define VF_INPRE 4
+#define VF_ADMIT 8
+
+// ctl words
+enum {
+  VC_ATT = 0,        // ok attempts (rec.att)
+  VC_ABORT = 1,      // clean=False seen (or the iteration cap hit)
+  VC_ATT_TOTAL = 2,  // ok attempts, rollbacks included / committed tasks
+  VC_LAST_V = 3,     // victims of the last phase-1 ok attempt / round
+  VC_ANY = 4,        // any phase-1 ok attempt / any commit
+  VC_ITERS = 5,      // loop iterations / rounds
+  VC_ERROR = 6,      // 1: undo journal overflow
+  VC_ACTIVE = 7,     // rounds: active jobs at the round's start
+  VC_PROGRESS = 8,   // rounds: the last round progressed
+  VC_ANY_WIN = 9,    // rounds: this round had a winner
+  VC_NVICT = 10,     // rounds: victims of this round
+};
+
+// Every kernel and non-inline device function here is static: each kernel
+// source includes this header and links into one library.
+//
+// Mirror of victim_kernels.VictimArgs (ctypes): pointers, then int64 sizes
+// and flags, then the two score weights.  State arrays are the wrapper's
+// working copies, updated in place.
+struct VttVictimArgs {
+  // consts
+  const float* run_req;
+  const int32_t* run_node;
+  const int32_t* run_job;
+  const int32_t* run_prio;
+  const int32_t* run_rank;
+  const uint8_t* run_evictable;
+  const int32_t* job_queue;
+  const int32_t* job_min;
+  const float* node_alloc;
+  const int32_t* node_max_tasks;
+  const uint8_t* node_valid;
+  const uint8_t* class_mask;
+  const float* class_score;
+  const float* queue_deserved;
+  const float* total;
+  const float* eps;
+  // state
+  uint8_t* run_live;
+  float* releasing;
+  float* used;
+  int32_t* task_count;
+  float* job_alloc;
+  int32_t* job_occupied;
+  float* queue_alloc;
+  // tasks and jobs
+  const float* task_req;
+  const int32_t* task_class;
+  const uint8_t* task_attempt;
+  const int32_t* job_start;   // reclaim: job_first
+  const int32_t* job_ntasks;
+  const int32_t* job_prio;
+  const int32_t* under_request;
+  const int32_t* queues_order;
+  const int32_t* rows_packed;
+  const int32_t* job_pstart;
+  const int32_t* job_pcount;
+  uint8_t* job_avail;   // reclaim javail / preempt job_avail / rounds job_avail0
+  uint8_t* queue_live;  // reclaim
+  int32_t* pipe;
+  int32_t* cursor;
+  uint8_t* dropped;
+  // records
+  int32_t* evict_att;
+  int32_t* pipe_node;
+  int32_t* pipe_att;
+  int32_t* ctl;
+  // scratch: pool grouped by node
+  int32_t* node_off;   // [N + 1]
+  int32_t* node_fill;  // [N], zeroed by the wrapper
+  int32_t* bucket;     // [V]
+  int32_t* l_vidx;     // [V] per node: pool order
+  int32_t* l_ev;       // [V] per node: eviction order
+  int32_t* l_drf;      // [V] per node: (job, pool index)
+  int32_t* l_prop;     // [V] per node: (queue, pool index)
+  uint8_t* flag;       // [V]
+  // scratch: undo journal (K9)
+  unsigned long long* jr_addr;
+  uint32_t* jr_old;
+  // scratch: rounds (K10)
+  int32_t* job_off;     // [J + 1]
+  int32_t* job_fill;    // [J], zeroed by the wrapper
+  int32_t* job_bucket;  // [V]
+  int32_t* cnt_in_job;  // [V]
+  float* cap_flat;      // [N * Q, R]
+  float* cons_flat;     // [N * Q, R]
+  double* cons_node;    // [N, R]
+  int32_t* placed;      // [N]
+  double* vict_job;     // [J, R]
+  int32_t* vict_cnt;    // [J]
+  double* vict_q;       // [Q, R]
+  int32_t* act_q;       // [Q]
+  int32_t* ls_q;        // [Q] ordered-int float bits
+  uint8_t* job_active;  // [J]
+  float* job_keys;      // [J, 4]
+  int32_t* job_rank;    // [J]
+  int32_t* sel;         // [M]
+  int32_t* p_node;      // [F]
+  int32_t* p_t;         // [F]
+  int32_t* p_job;       // [F]
+  uint8_t* p_flags;     // [F]
+  int64_t V, N, R, T, J, Q, C, nu, nq, M, P, K, F, jr_cap;
+  int64_t use_gang, use_drf, use_prop, use_conformance, order_by_priority;
+  int64_t has_proportion, gang_pipelined, n_keys, key0, key1, key2;
+  float w_least, w_balanced;
+};
+
+__device__ __forceinline__ int vtt_clamp(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// queue of pool row v, or -1 (a job whose queue is missing)
+__device__ __forceinline__ int vtt_row_queue(const VttVictimArgs& a, int v) {
+  return a.job_queue[a.run_job[v]];
+}
+
+// ---- setup: the pool grouped by node ------------------------------------
+
+// eviction-order key kinds
+enum { VTT_EV_RECLAIM = 0, VTT_EV_PREEMPT = 1, VTT_EV_ROUNDS = 2 };
+
+// row u before row v in its node's eviction order (rows of one node)
+__device__ __forceinline__ bool vtt_ev_less(const VttVictimArgs& a, int kind,
+                                            int u, int v) {
+  if (kind == VTT_EV_ROUNDS) {
+    const int Q = (int)a.Q;
+    const int qu = vtt_clamp(vtt_row_queue(a, u), 0, Q - 1);
+    const int qv = vtt_clamp(vtt_row_queue(a, v), 0, Q - 1);
+    if (qu != qv) return qu < qv;
+  }
+  if (kind != VTT_EV_RECLAIM) {
+    if (a.order_by_priority && a.run_prio[u] != a.run_prio[v])
+      return a.run_prio[u] < a.run_prio[v];
+    const int ru = -a.run_rank[u], rv = -a.run_rank[v];
+    if (ru != rv) return ru < rv;
+  }
+  return u < v;
+}
+
+static __global__ void vtt_v_count(VttVictimArgs a) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v < a.V && a.run_live[v])
+    atomicAdd(&a.node_fill[vtt_clamp(a.run_node[v], 0, (int)a.N - 1)], 1);
+}
+
+// exclusive scan of cnt[0..n) into off[0..n]; one CTA, then cnt := 0
+static __global__ void vtt_v_scan(int32_t* cnt, int32_t* off, int n) {
+  __shared__ int s_part[VTT_VICTIM_THREADS];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int chunk = (n + nthr - 1) / nthr;
+  const int lo = min(n, tid * chunk), hi = min(n, lo + chunk);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += cnt[i];
+  s_part[tid] = sum;
+  __syncthreads();
+  if (tid == 0) {
+    int acc = 0;
+    for (int i = 0; i < nthr; ++i) {
+      const int x = s_part[i];
+      s_part[i] = acc;
+      acc += x;
+    }
+    off[n] = acc;
+  }
+  __syncthreads();
+  int acc = s_part[tid];
+  for (int i = lo; i < hi; ++i) {
+    off[i] = acc;
+    acc += cnt[i];
+    cnt[i] = 0;
+  }
+}
+
+static __global__ void vtt_v_bucket(VttVictimArgs a) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= a.V || !a.run_live[v]) return;
+  const int n = vtt_clamp(a.run_node[v], 0, (int)a.N - 1);
+  a.bucket[a.node_off[n] + atomicAdd(&a.node_fill[n], 1)] = v;
+}
+
+// each live row's rank among its node's rows under every order
+static __global__ void vtt_v_order(VttVictimArgs a, int ev_kind) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= a.V || !a.run_live[v]) return;
+  const int Q = (int)a.Q;
+  const int n = vtt_clamp(a.run_node[v], 0, (int)a.N - 1);
+  const int off = a.node_off[n], end = a.node_off[n + 1];
+  const int jv = a.run_job[v];
+  const int qv = vtt_clamp(vtt_row_queue(a, v), 0, Q - 1);
+  int p_vidx = 0, p_ev = 0, p_drf = 0, p_prop = 0;
+  for (int i = off; i < end; ++i) {
+    const int u = a.bucket[i];
+    if (u == v) continue;
+    p_vidx += u < v;
+    p_ev += vtt_ev_less(a, ev_kind, u, v);
+    const int ju = a.run_job[u];
+    p_drf += ju < jv || (ju == jv && u < v);
+    const int qu = vtt_clamp(vtt_row_queue(a, u), 0, Q - 1);
+    p_prop += qu < qv || (qu == qv && u < v);
+  }
+  a.l_vidx[off + p_vidx] = v;
+  a.l_ev[off + p_ev] = v;
+  a.l_drf[off + p_drf] = v;
+  a.l_prop[off + p_prop] = v;
+}
+
+// launches the setup kernels; node_fill must be zero
+static inline int vtt_victim_setup(const VttVictimArgs& a, int ev_kind,
+                                   cudaStream_t s) {
+  const int vb = (int)((a.V + 255) / 256);
+  VTT_LAUNCH(vtt_v_count, vb, 256, 0, s)(a);
+  VTT_LAUNCH(vtt_v_scan, 1, VTT_VICTIM_THREADS, 0, s)(a.node_fill, a.node_off, (int)a.N);
+  VTT_LAUNCH(vtt_v_bucket, vb, 256, 0, s)(a);
+  VTT_LAUNCH(vtt_v_order, vb, 256, 0, s)(a, ev_kind);
+  return (int)cudaGetLastError();
+}
+
+// ---- the victim core ----------------------------------------------------
+
+// one preemptor attempt
+struct VttAttempt {
+  float req[VTT_MAX_R];
+  int cls, jt, qt, t;
+  int mode;  // 0 queue (same queue, other jobs), 1 job (own job), 2 reclaim
+  float ls;  // DRF share of the preemptor's job with the request added
+};
+
+__device__ __forceinline__ bool vtt_row_base(const VttVictimArgs& a,
+                                             const VttAttempt& at, int v) {
+  if (!a.run_live[v]) return false;
+  const int j = a.run_job[v];
+  const int rq = a.job_queue[j];
+  if (at.mode == 0) return rq == at.qt && j != at.jt;
+  if (at.mode == 1) return j == at.jt;
+  return rq != at.qt;
+}
+
+// The flags of node n's rows and the node's verdict for this attempt:
+// valid (predicates, an admitted candidate, validateVictims) and covered
+// (the candidates' total covers the request); key is the walk key.
+static __device__ void vtt_core_node(const VttVictimArgs& a, const VttAttempt& at,
+                              int n, bool& valid, bool& covered, float& key) {
+  const int N = (int)a.N, R = (int)a.R, Q = (int)a.Q;
+  valid = covered = false;
+  key = 0.0f;
+  const int off = a.node_off[n], end = a.node_off[n + 1];
+  if (off == end || !a.node_valid[n] || !a.class_mask[(size_t)at.cls * N + n] ||
+      !((long long)a.task_count[n] + 1 <= (long long)a.node_max_tasks[n]))
+    return;
+  // base and the plain vetoes
+  for (int i = off; i < end; ++i) {
+    const int v = a.l_vidx[i];
+    uint8_t f = 0;
+    if (vtt_row_base(a, at, v)) {
+      f = VF_BASE;
+      bool c = true;
+      if (a.use_conformance) c = c && a.run_evictable[v];
+      if (a.use_gang) {
+        const int j = a.run_job[v];
+        const int vmin = a.job_min[j];
+        c = c && (vmin <= a.job_occupied[j] - 1 || vmin == 1);
+      }
+      if (c) f |= VF_CAND;
+    }
+    a.flag[v] = f;
+  }
+  double acc[VTT_MAX_R];
+  float part[VTT_MAX_R];
+  if (a.use_drf && at.mode != 2) {
+    // hypothetical transfer per (node, job): every base row subtracts
+    int pj = -1;
+    for (int i = off; i < end; ++i) {
+      const int v = a.l_drf[i];
+      const int j = a.run_job[v];
+      if (j != pj) {
+        for (int r = 0; r < R; ++r) acc[r] = 0.0;
+        pj = j;
+      }
+      const uint8_t f = a.flag[v];
+      if (f & VF_BASE)
+        for (int r = 0; r < R; ++r) acc[r] += (double)a.run_req[(size_t)v * R + r];
+      if (!(f & VF_CAND)) continue;
+      for (int r = 0; r < R; ++r)
+        part[r] = a.job_alloc[(size_t)j * R + r] - (float)acc[r];
+      const float rs = vtt_dominant_share(part, a.total, R);
+      if (!(at.ls < rs || fabsf(at.ls - rs) <= 1e-6f)) a.flag[v] = f & ~VF_CAND;
+    }
+  }
+  if (a.use_prop && at.mode == 2) {
+    // per (node, queue): queues stay at or above deserved
+    int pq = -1;
+    for (int i = off; i < end; ++i) {
+      const int v = a.l_prop[i];
+      const int rq = vtt_row_queue(a, v);
+      const int q = vtt_clamp(rq, 0, Q - 1);
+      if (q != pq) {
+        for (int r = 0; r < R; ++r) acc[r] = 0.0;
+        pq = q;
+      }
+      const uint8_t f = a.flag[v];
+      if ((f & VF_BASE) && rq >= 0)
+        for (int r = 0; r < R; ++r) acc[r] += (double)a.run_req[(size_t)v * R + r];
+      if (!(f & VF_CAND)) continue;
+      for (int r = 0; r < R; ++r)
+        part[r] = a.queue_alloc[(size_t)q * R + r] - (float)acc[r];
+      if (!(rq >= 0 && vtt_less_equal(&a.queue_deserved[(size_t)q * R], part, a.eps, R)))
+        a.flag[v] = f & ~VF_CAND;
+    }
+  }
+  // eviction-order prefix: the first candidate unconditionally (do-while),
+  // then each candidate whose predecessors do not yet cover the request
+  for (int r = 0; r < R; ++r) acc[r] = 0.0;
+  int cnt = 0;
+  for (int i = off; i < end; ++i) {
+    const int v = a.l_ev[i];
+    const uint8_t f = a.flag[v];
+    if (!(f & VF_CAND)) continue;
+    ++cnt;
+    for (int r = 0; r < R; ++r) {
+      const float q = a.run_req[(size_t)v * R + r];
+      acc[r] += (double)q;
+      part[r] = (float)acc[r] - q;
+    }
+    if (cnt == 1 || !vtt_less_equal(at.req, part, a.eps, R)) a.flag[v] = f | VF_INPRE;
+  }
+  if (cnt == 0) return;
+  bool all_below = true;
+  for (int r = 0; r < R; ++r) {
+    part[r] = (float)acc[r];
+    all_below = all_below && part[r] < at.req[r];
+  }
+  valid = !all_below;
+  covered = valid && vtt_less_equal(at.req, part, a.eps, R);
+  if (!valid) return;
+  if (at.mode == 2) {
+    key = (float)n;
+  } else {
+    key = -vtt_score_node(at.req, &a.used[(size_t)n * R], &a.node_alloc[(size_t)n * R],
+                          a.class_score[(size_t)at.cls * N + n], a.w_least,
+                          a.w_balanced);
+  }
+}
+
+// (key, index) lexicographic minimum; idx < 0 marks an empty entry
+__device__ __forceinline__ bool vtt_kmin_better(float ka, int ia, float kb, int ib) {
+  if (ia < 0) return false;
+  if (ib < 0) return true;
+  return ka < kb || (ka == kb && ia < ib);
+}
+
+struct VttCoreShared {
+  float kc[VTT_VICTIM_THREADS], kv[VTT_VICTIM_THREADS];
+  int ic[VTT_VICTIM_THREADS], iv[VTT_VICTIM_THREADS];
+};
+
+// The whole CTA runs the attempt; every thread returns the decision:
+// nstar (-1 when no node is covered) and clean.
+static __device__ void vtt_core(const VttVictimArgs& a, const VttAttempt& at,
+                         VttCoreShared& sh, int& nstar, bool& clean) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  float kc = 0.0f, kv = 0.0f;
+  int ic = -1, iv = -1;
+  for (int n = tid; n < a.N; n += nthr) {
+    bool valid, covered;
+    float key;
+    vtt_core_node(a, at, n, valid, covered, key);
+    if (valid && vtt_kmin_better(key, n, kv, iv)) {
+      kv = key;
+      iv = n;
+    }
+    if (covered && vtt_kmin_better(key, n, kc, ic)) {
+      kc = key;
+      ic = n;
+    }
+  }
+  sh.kc[tid] = kc;
+  sh.ic[tid] = ic;
+  sh.kv[tid] = kv;
+  sh.iv[tid] = iv;
+  __syncthreads();
+  for (int s = nthr / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      if (vtt_kmin_better(sh.kc[tid + s], sh.ic[tid + s], sh.kc[tid], sh.ic[tid])) {
+        sh.kc[tid] = sh.kc[tid + s];
+        sh.ic[tid] = sh.ic[tid + s];
+      }
+      if (vtt_kmin_better(sh.kv[tid + s], sh.iv[tid + s], sh.kv[tid], sh.iv[tid])) {
+        sh.kv[tid] = sh.kv[tid + s];
+        sh.iv[tid] = sh.iv[tid + s];
+      }
+    }
+    __syncthreads();
+  }
+  nstar = sh.ic[0];
+  if (nstar >= 0)
+    clean = sh.kv[0] == sh.kc[0] && sh.iv[0] == nstar;
+  else
+    clean = sh.iv[0] < 0;
+  __syncthreads();
+}
+
+// ---- state writes, optionally recorded in the undo journal -------------
+
+// tag of a one-byte entry (device addresses stay below 2^63)
+#define VTT_JR_BYTE (1ull << 63)
+
+struct VttJournal {
+  bool on;
+  int len;
+};
+
+__device__ __forceinline__ void vtt_jpush(const VttVictimArgs& a, VttJournal& jr,
+                                          void* p, uint32_t old, int bytes) {
+  if (!jr.on) return;
+  if (jr.len >= a.jr_cap) {
+    a.ctl[VC_ERROR] = 1;
+    return;
+  }
+  a.jr_addr[jr.len] = (unsigned long long)p | (bytes == 1 ? VTT_JR_BYTE : 0ull);
+  a.jr_old[jr.len] = old;
+  ++jr.len;
+}
+
+__device__ __forceinline__ void vtt_wf(const VttVictimArgs& a, VttJournal& jr,
+                                       float* p, float x) {
+  vtt_jpush(a, jr, p, __float_as_uint(*p), 4);
+  *p = x;
+}
+
+__device__ __forceinline__ void vtt_wi(const VttVictimArgs& a, VttJournal& jr,
+                                       int32_t* p, int32_t x) {
+  vtt_jpush(a, jr, p, (uint32_t)*p, 4);
+  *p = x;
+}
+
+__device__ __forceinline__ void vtt_wb(const VttVictimArgs& a, VttJournal& jr,
+                                       uint8_t* p, uint8_t x) {
+  vtt_jpush(a, jr, p, (uint32_t)*p, 1);
+  *p = x;
+}
+
+// undo every journalled write, newest first
+__device__ __forceinline__ void vtt_jrestore(const VttVictimArgs& a, VttJournal& jr) {
+  for (int i = jr.len - 1; i >= 0; --i) {
+    const unsigned long long p = a.jr_addr[i];
+    if (p & VTT_JR_BYTE)
+      *(uint8_t*)(p & ~VTT_JR_BYTE) = (uint8_t)a.jr_old[i];
+    else
+      *(uint32_t*)p = a.jr_old[i];
+  }
+  jr.len = 0;
+}
+
+// Apply an ok attempt on node n (one thread): evict the node's in-prefix
+// candidates, pipeline the preemptor.  Returns the victim count.
+static __device__ int vtt_apply(const VttVictimArgs& a, const VttAttempt& at, int n,
+                         VttJournal& jr) {
+  const int R = (int)a.R, Q = (int)a.Q;
+  const int off = a.node_off[n], end = a.node_off[n + 1];
+  const int att = a.ctl[VC_ATT];
+  double vs[VTT_MAX_R];
+  for (int r = 0; r < R; ++r) vs[r] = 0.0;
+  int nv = 0;
+  for (int i = off; i < end; ++i) {
+    const int v = a.l_ev[i];
+    if (!(a.flag[v] & VF_INPRE)) continue;
+    ++nv;
+    for (int r = 0; r < R; ++r) vs[r] += (double)a.run_req[(size_t)v * R + r];
+  }
+  // per job and per queue of the victims: one rounded sum each, applied
+  // at the job's / queue's first victim in eviction order
+  for (int i = off; i < end; ++i) {
+    const int v = a.l_ev[i];
+    if (!(a.flag[v] & VF_INPRE)) continue;
+    const int j = a.run_job[v];
+    const int rq = a.job_queue[j];
+    bool first_j = true, first_q = true;
+    for (int i2 = off; i2 < i; ++i2) {
+      const int u = a.l_ev[i2];
+      if (!(a.flag[u] & VF_INPRE)) continue;
+      first_j = first_j && a.run_job[u] != j;
+      first_q = first_q && a.job_queue[a.run_job[u]] != rq;
+    }
+    if (first_j) {
+      double js[VTT_MAX_R];
+      int jc = 0;
+      for (int r = 0; r < R; ++r) js[r] = 0.0;
+      for (int i2 = i; i2 < end; ++i2) {
+        const int u = a.l_ev[i2];
+        if (!(a.flag[u] & VF_INPRE) || a.run_job[u] != j) continue;
+        ++jc;
+        for (int r = 0; r < R; ++r) js[r] += (double)a.run_req[(size_t)u * R + r];
+      }
+      for (int r = 0; r < R; ++r)
+        vtt_wf(a, jr, &a.job_alloc[(size_t)j * R + r],
+               a.job_alloc[(size_t)j * R + r] - (float)js[r]);
+      vtt_wi(a, jr, &a.job_occupied[j], a.job_occupied[j] - jc);
+    }
+    if (first_q && rq >= 0) {
+      double qs[VTT_MAX_R];
+      for (int r = 0; r < R; ++r) qs[r] = 0.0;
+      for (int i2 = i; i2 < end; ++i2) {
+        const int u = a.l_ev[i2];
+        if (!(a.flag[u] & VF_INPRE) || a.job_queue[a.run_job[u]] != rq) continue;
+        for (int r = 0; r < R; ++r) qs[r] += (double)a.run_req[(size_t)u * R + r];
+      }
+      const int q = vtt_clamp(rq, 0, Q - 1);
+      for (int r = 0; r < R; ++r)
+        vtt_wf(a, jr, &a.queue_alloc[(size_t)q * R + r],
+               a.queue_alloc[(size_t)q * R + r] - (float)qs[r]);
+    }
+  }
+  for (int i = off; i < end; ++i) {
+    const int v = a.l_ev[i];
+    if (!(a.flag[v] & VF_INPRE)) continue;
+    vtt_wb(a, jr, &a.run_live[v], 0);
+    vtt_wi(a, jr, &a.evict_att[v], att);
+  }
+  for (int r = 0; r < R; ++r) {
+    const size_t nr = (size_t)n * R + r;
+    vtt_wf(a, jr, &a.releasing[nr], a.releasing[nr] + ((float)vs[r] - at.req[r]));
+    vtt_wf(a, jr, &a.used[nr], a.used[nr] + at.req[r]);
+    const size_t jr_ = (size_t)at.jt * R + r;
+    vtt_wf(a, jr, &a.job_alloc[jr_], a.job_alloc[jr_] + at.req[r]);
+    if (at.qt >= 0) {
+      const size_t qr = (size_t)min(at.qt, Q - 1) * R + r;
+      vtt_wf(a, jr, &a.queue_alloc[qr], a.queue_alloc[qr] + at.req[r]);
+    }
+  }
+  vtt_wi(a, jr, &a.task_count[n], a.task_count[n] + 1);
+  vtt_wi(a, jr, &a.pipe[at.jt], a.pipe[at.jt] + 1);
+  vtt_wi(a, jr, &a.pipe_node[at.t], n);
+  vtt_wi(a, jr, &a.pipe_att[at.t], att);
+  a.ctl[VC_ATT] = att + 1;
+  return nv;
+}
+
+// the attempt's inputs for task t of job jt
+__device__ __forceinline__ void vtt_attempt_init(const VttVictimArgs& a, VttAttempt& at,
+                                                 int t, int jt, int mode) {
+  const int R = (int)a.R;
+  at.t = t;
+  at.jt = jt;
+  at.qt = a.job_queue[jt];
+  at.mode = mode;
+  at.cls = a.task_class[t];
+  for (int r = 0; r < R; ++r) at.req[r] = a.task_req[(size_t)t * R + r];
+  at.ls = 0.0f;
+  if (a.use_drf && mode != 2) {
+    float sum[VTT_MAX_R];
+    for (int r = 0; r < R; ++r) sum[r] = a.job_alloc[(size_t)jt * R + r] + at.req[r];
+    at.ls = vtt_dominant_share(sum, a.total, R);
+  }
+}
+
+// ---- job selection: the session job order as a block-wide argmin -------
+
+struct VttVJobKey {
+  float k[3];
+  int j;
+};
+
+__device__ __forceinline__ bool vtt_vkey_less(const VttVJobKey& x, const VttVJobKey& y,
+                                              int nk) {
+  if (x.j < 0) return false;
+  if (y.j < 0) return true;
+  for (int i = 0; i < nk; ++i) {
+    if (x.k[i] < y.k[i]) return true;
+    if (x.k[i] > y.k[i]) return false;
+  }
+  return x.j < y.j;
+}
+
+__device__ __forceinline__ float vtt_vjob_key(const VttVictimArgs& a, int code, int j) {
+  if (code == VTT_KEY_PRIORITY) return -(float)a.job_prio[j];
+  if (code == VTT_KEY_GANG) return a.job_occupied[j] >= a.job_min[j] ? 1.0f : 0.0f;
+  return vtt_dominant_share(&a.job_alloc[(size_t)j * a.R], a.total, (int)a.R);
+}
+
+// best job among those with job_avail[j] and job_queue[j] == q, or -1;
+// every thread returns it
+static __device__ int vtt_select_job(const VttVictimArgs& a, int q, VttVJobKey* s_key) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int nk = (int)a.n_keys;
+  const int codes[3] = {(int)a.key0, (int)a.key1, (int)a.key2};
+  VttVJobKey best;
+  best.j = -1;
+  for (int j = tid; j < a.J; j += nthr) {
+    if (!a.job_avail[j] || a.job_queue[j] != q) continue;
+    VttVJobKey kj;
+    for (int i = 0; i < nk; ++i) kj.k[i] = vtt_vjob_key(a, codes[i], j);
+    kj.j = j;
+    if (vtt_vkey_less(kj, best, nk)) best = kj;
+  }
+  s_key[tid] = best;
+  __syncthreads();
+  for (int s = nthr / 2; s > 0; s >>= 1) {
+    if (tid < s && vtt_vkey_less(s_key[tid + s], s_key[tid], nk)) s_key[tid] = s_key[tid + s];
+    __syncthreads();
+  }
+  const int out = s_key[0].j;
+  __syncthreads();
+  return out;
+}

@@ -4,6 +4,10 @@
   of a snapshot's fields as numpy arrays and lists (for example
   ``dataclasses.asdict``-style fields of the JAX package's snapshot);
   fields the port does not model are ignored.
+* ``victim_from_arrays`` builds the port's ``VictimConsts`` and
+  ``VictimState`` from the same fields as numpy arrays (for example the
+  JAX package's ``VictimConsts`` / ``VictimState`` fetched to the host, or
+  ``simargs.build_victim_sim``'s dicts).
 * ``store_from_spec`` builds the port's ``Store`` from a plain description
   of a cluster, so that one seeded description can be instantiated in both
   packages:
@@ -11,12 +15,13 @@
       {"queues":    [{"name", "weight"}],
        "nodes":     [{"name", "allocatable": {"cpu", "memory", "pods"},
                       "labels"?}],
+       "priority_classes": [{"name", "value"}],
        "podgroups": [{"name", "namespace"?, "min_member", "queue",
                       "phase"?, "priority_class_name"?}],
        "pods":      [{"name", "namespace"?, "group"?, "resources": {...},
                       "priority"?, "node_name"?, "phase"?, "deleting"?,
                       "labels"?, "host_ports"?, "pod_affinity"?,
-                      "pod_anti_affinity"?}]}
+                      "pod_anti_affinity"?, "node_selector"?}]}
 
   Resources are k8s-style resource lists ({"cpu": "500m", "memory":
   "1Gi"}); phases are the enum values ("Running", "Inqueue", ...);
@@ -31,6 +36,7 @@ import dataclasses
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from volcano_tpu_torch.api.objects import (
     POD_GROUP_KEY,
@@ -40,11 +46,13 @@ from volcano_tpu_torch.api.objects import (
     Pod,
     PodGroup,
     PodSpec,
+    PriorityClass,
     Queue,
 )
 from volcano_tpu_torch.api.resource import Resource
 from volcano_tpu_torch.api.types import PodGroupPhase, PodPhase
 from volcano_tpu_torch.scheduler.snapshot import TensorSnapshot
+from volcano_tpu_torch.scheduler.victim_kernels import VictimConsts, VictimState
 from volcano_tpu_torch.store.store import Store
 
 
@@ -56,8 +64,23 @@ def snapshot_from_arrays(fields: Dict[str, Any]) -> TensorSnapshot:
     return TensorSnapshot(**kw)
 
 
+def victim_from_arrays(consts: Dict[str, Any], state: Dict[str, Any],
+                       device: torch.device = torch.device("cpu")):
+    """(VictimConsts, VictimState) on ``device`` from numpy fields named as
+    the JAX package's NamedTuples (``w_least``/``w_balanced`` scalars)."""
+    def t(v):
+        return torch.from_numpy(np.array(v, copy=True)).to(device)
+
+    c = VictimConsts(**{f: (float(consts[f]) if f in ("w_least", "w_balanced")
+                            else t(consts[f])) for f in VictimConsts._fields})
+    return c, VictimState(**{f: t(state[f]) for f in VictimState._fields})
+
+
 def store_from_spec(spec: Dict[str, Any]) -> Store:
     store = Store()
+    for pc in spec.get("priority_classes", ()):
+        store.create("PriorityClass", PriorityClass(
+            meta=Metadata(name=pc["name"], namespace=""), value=pc["value"]))
     for q in spec.get("queues", ()):
         store.create("Queue", Queue(meta=Metadata(name=q["name"], namespace=""),
                                     weight=q.get("weight", 1)))
@@ -92,7 +115,8 @@ def store_from_spec(spec: Dict[str, Any]) -> Store:
             ),
             spec=PodSpec(resources=Resource.from_resource_list(p.get("resources", {})),
                          priority=p.get("priority", 0), affinity=affinity,
-                         host_ports=list(p.get("host_ports", ()))),
+                         host_ports=list(p.get("host_ports", ())),
+                         node_selector=dict(p.get("node_selector", {}))),
             phase=PodPhase(p.get("phase", "Pending")),
             node_name=p.get("node_name", ""),
             deleting=bool(p.get("deleting", False)),

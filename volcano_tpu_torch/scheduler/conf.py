@@ -17,12 +17,16 @@ BACKENDS = ("cuda", "cpu")
 @dataclass
 class PluginOption:
     """A tier's plugin with its arguments and the callback enable flags the
-    express cycle reads (the reference defaults them all to true)."""
+    fast cycle reads (the reference defaults them all to true)."""
 
     name: str
     arguments: Dict[str, str] = field(default_factory=dict)
     enabled_job_order: bool = True
     enabled_job_ready: bool = True
+    enabled_job_pipelined: bool = True
+    enabled_task_order: bool = True
+    enabled_preemptable: bool = True
+    enabled_reclaimable: bool = True
     enabled_queue_order: bool = True
 
 
@@ -55,10 +59,11 @@ def default_conf(backend: str = "cuda") -> SchedulerConf:
 
 
 def full_conf(backend: str = "cuda") -> SchedulerConf:
-    """All seven plugins, with the actions this port runs: enqueue,
-    allocate, backfill (reclaim and preempt belong to a later slice)."""
+    """All five actions and all seven plugins: the reference's deployed
+    configuration (installer chart config/kube-batch.conf), reclaim before
+    allocate so that freed capacity is claimable in the same cycle."""
     conf = default_conf(backend)
-    conf.actions = ["enqueue", "allocate", "backfill"]
+    conf.actions = ["enqueue", "reclaim", "allocate", "backfill", "preempt"]
     conf.tiers[0].plugins.append(PluginOption("conformance"))
     return conf
 

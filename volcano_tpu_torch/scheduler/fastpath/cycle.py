@@ -1,11 +1,13 @@
 """FastCycle: the array-native cycle driver.
 
 The port's cut of ``volcano_tpu/scheduler/fastpath/cycle.py``: drain ->
-snapshot -> enqueue -> allocate solve -> backfill -> dynamic solve ->
-publish, with the same ``phases`` keys.  Where the JAX
-``FastCycle.try_run`` returns False or hands jobs to its object sub-cycle,
-this cycle raises ``NotImplementedError`` naming the ROADMAP item that will
-cover the case.
+snapshot -> enqueue -> reclaim -> allocate solve -> backfill -> dynamic
+solve -> preempt -> publish, with the same ``phases`` keys.  Reclaim and
+preempt run only when their conservative prechecks find possible work
+(``_reclaim_possible``, ``_preempt_possible``), through ``FastContention``
+(``scheduler/fast_victims.py``).  Where the JAX ``FastCycle.try_run``
+returns False or hands jobs to its object sub-cycle, this cycle raises
+``NotImplementedError`` naming the ROADMAP item that will cover the case.
 """
 
 from __future__ import annotations
@@ -16,11 +18,14 @@ from typing import Dict, List
 import numpy as np
 
 from volcano_tpu_torch.api.types import PodGroupPhase
-from volcano_tpu_torch.scheduler.fastpath.mirror import _PENDING, ArrayMirror
+from volcano_tpu_torch.native import water_fill_np
+from volcano_tpu_torch.scheduler.fast_victims import FastContention, _rebuild_task_arrays
+from volcano_tpu_torch.scheduler.fastpath.mirror import _PENDING, _RELEASING, ArrayMirror
 from volcano_tpu_torch.scheduler.fastpath.publish import publish_and_close
 from volcano_tpu_torch.scheduler.fastpath.snapshot_build import (
     build_dyn_solve_inputs,
     build_fast_snapshot,
+    build_victim_pool,
 )
 from volcano_tpu_torch.scheduler.tensor_actions import (
     torch_allocate_solve,
@@ -54,13 +59,13 @@ class FastCycle:
         self._err_seen = 0
 
     def conf_unsupported(self):
-        """Why the conf is outside this port's slice, or None."""
-        storm = [a for a in ("reclaim", "preempt") if a in self.conf.actions]
-        if storm:
-            return (f"actions {storm}: ROADMAP queue 1 item 7 (contention slice)")
+        """Why the conf is outside this port's slices, or None: plugins the
+        tensor path does not model, and action orders that are not a
+        subsequence of the canonical one (the object path runs those in
+        literal conf order)."""
         if self.probe.unsupported:
             return f"plugins {self.probe.unsupported}: {_OBJECT_PATH}"
-        canonical = iter(["enqueue", "allocate", "backfill"])
+        canonical = iter(["enqueue", "reclaim", "allocate", "backfill", "preempt"])
         if "allocate" not in self.conf.actions or not all(
                 a in canonical for a in self.conf.actions):
             return f"action order {self.conf.actions}: {_OBJECT_PATH}"
@@ -100,11 +105,32 @@ class FastCycle:
                 f"dynamic jobs the device solve cannot express ({', '.join(why)}): "
                 f"{_OBJECT_PATH}")
 
+        reclaim_work = "reclaim" in self.conf.actions and self._reclaim_possible(snap, aux)
+        # preempt is the last action: it runs only if starving tasks remain
+        # after the allocate, backfill and dynamic passes
+        preempt_later = "preempt" in self.conf.actions and self._preempt_possible(snap, aux)
+
         enq_ops: List[dict] = []
         if "enqueue" in self.conf.actions:
             t = time.perf_counter()
             enq_ops = self._enqueue_ops(m, aux, self._enqueue(m, snap, aux))
             ph["enqueue"] = time.perf_counter() - t
+
+        dyn_any = bool(aux["dyn_expr_job"][:max(aux["n_jobs"], 1)].any())
+        cont = None
+        if reclaim_work:
+            # reclaimers with host ports, pod (anti)affinity or an empty
+            # request need the object walk for the whole cycle
+            if dyn_any or self._pending_best_effort(m, snap, aux):
+                self._object_path(enq_ops, "reclaim with dynamic-predicate or best-effort "
+                                  "reclaimers")
+            t = time.perf_counter()
+            cont = self._make_contention(snap, aux)
+            if not cont.reclaim_pass():
+                self._object_path(enq_ops, "reclaim whose reference walk strands evictions "
+                                  "(clean=False)")
+            cont.fold_into_snapshot(m)
+            ph["reclaim"] = time.perf_counter() - t
 
         t = time.perf_counter()
         backend = TensorBackend(
@@ -128,17 +154,22 @@ class FastCycle:
             be_per_job = np.zeros(snap.job_min_available.shape[0], np.int64)
         ph["backfill"] = time.perf_counter() - t
 
+        unplaced = bool((snap.task_valid & (task_kind == 0)).any())
         # the dynamic pass: dyn-expr jobs (host ports, pod (anti)affinity)
         # run the solve with the portsel extension over the state the
         # express solve and backfill left, and merge into the publish
-        # layout: express task rows first, then the dynamic ones
+        # layout: express task rows first, then the dynamic ones.  The
+        # preempt pass may re-pack the task arrays; publish keeps the
+        # solve's layout
         pe_rows_solve, task_job_solve, task_req_solve = aux["pe_rows"], snap.task_job, snap.task_req
-        if aux["dyn_expr_job"][:max(aux["n_jobs"], 1)].any():
+        dyn_unplaced = False
+        if dyn_any:
             t = time.perf_counter()
             dyn = build_dyn_solve_inputs(m, snap, aux, self.nodeaffinity_weight,
                                          task_node, task_kind, be_rows, be_nodes, ready)
             if dyn is not None:
                 d_node, d_kind, _, d_ready = torch_dynamic_solve(backend, snap, dyn)
+                dyn_unplaced = bool((dyn["task_valid"] & (d_kind == 0)).any())
                 # task arrays are bucket-padded, row maps are not: pad each
                 # region's row map to its task length (padding rows have
                 # task_kind 0 and are never read)
@@ -156,13 +187,178 @@ class FastCycle:
                 ready = np.where(dmask, d_ready, ready)
             ph["dyn_solve"] = time.perf_counter() - t
 
+        be_left = self._pending_best_effort(m, snap, aux, minus_placed=be_rows)
+        if preempt_later and (unplaced or be_left or dyn_unplaced):
+            if dyn_any:
+                # the contention state folds only the express task layout
+                self._object_path(enq_ops, "preempt in a cycle with dynamic-predicate jobs")
+            t = time.perf_counter()
+            if cont is None:
+                cont = self._make_contention(snap, aux)
+            cont.advance_post_solve(task_node, task_kind, ready, be_rows, be_nodes)
+            if be_left:
+                # empty-request preemptors join the task arrays (the victim
+                # core takes exactly one victim for them, as the host loop)
+                placed_mask = self._repack_with_best_effort(m, snap, aux, cont, task_kind,
+                                                            be_rows)
+            else:
+                placed_mask = task_kind > 0
+            if not cont.preempt_pass(placed_mask):
+                self._object_path(enq_ops, "preempt whose reference walk strands evictions "
+                                  "(clean=False)")
+            ph["preempt"] = time.perf_counter() - t
+
         t = time.perf_counter()
+        evicts, ready_status = self._collect_contention(m, snap, aux, cont)
         publish_and_close(self, m, snap, aux, task_node, task_kind, ready,
                           be_rows, be_nodes, be_per_job,
-                          pe_rows_solve, task_job_solve, task_req_solve)
+                          pe_rows_solve, task_job_solve, task_req_solve,
+                          evicts=evicts, ready_status=ready_status)
         self._ship_enqueue_ops(enq_ops)
         ph["publish"] = time.perf_counter() - t
         return True
+
+    def _object_path(self, enq_ops, why: str) -> None:
+        """The JAX cycle hands this case to its object path; the port has
+        none yet.  Admissions already flipped in the mirror reach the store
+        first, so that mirror and store agree."""
+        self._ship_enqueue_ops(enq_ops)
+        raise NotImplementedError(f"{why}, outside the contention slice: {_OBJECT_PATH}")
+
+    # -- contention (fast_victims.py) ------------------------------------------
+
+    def _make_contention(self, snap, aux) -> FastContention:
+        """The victim pool and the contention driver, built only on cycles
+        whose prechecks found possible work; ``deserved`` comes from the host
+        water-fill, as in the reference cycle."""
+        build_victim_pool(self.mirror, snap, aux)
+        deserved = water_fill_np(snap.queue_weight, snap.queue_request, snap.total,
+                                 snap.eps, snap.queue_participates)
+        return FastContention(self, snap, aux, deserved)
+
+    def _repack_with_best_effort(self, m, snap, aux, cont, task_kind, be_rows) -> np.ndarray:
+        """Rebuild the task arrays with the pending best-effort rows of
+        schedulable express jobs (the host preemptor walk includes them;
+        allocate and backfill do not).  Returns the placed mask over the new
+        arrays: rows the solve placed stay out of the preemptor walk."""
+        P = aux["codes"].shape[0]
+        be = aux["live"] & (aux["codes"] == _PENDING) & m.p_best_effort[:P]
+        rows = np.nonzero(be)[0]
+        if rows.size:
+            rows = rows[snap.job_schedulable[aux["pod_j"][rows]]]
+        if rows.size:
+            rows = rows[~aux["dyn_job"][aux["pod_j"][rows]]]
+        if be_rows.size and rows.size:
+            rows = np.setdiff1d(rows, be_rows, assume_unique=False)
+        pe_rows = aux["pe_rows"]
+        placed_mirror = pe_rows[np.nonzero(task_kind > 0)[0]]
+        combined = np.concatenate([pe_rows, rows])
+        combined = combined[np.lexsort((m.p_rank[combined], -m.p_prio[combined],
+                                        aux["pod_j"][combined]))]
+        _rebuild_task_arrays(m, self, snap, aux, combined)
+        cont.refresh_for_preempt(snap)
+        new_pe = aux["pe_rows"]
+        placed_mask = np.zeros(snap.task_req.shape[0], bool)
+        if placed_mirror.size:
+            placed_mask[: new_pe.size] = np.isin(new_pe, placed_mirror)
+        return placed_mask
+
+    def _pending_best_effort(self, m, snap, aux, minus_placed=None) -> bool:
+        """Any pending empty-request task of a schedulable job.
+        ``minus_placed``: mirror rows backfill placed this cycle."""
+        P = aux["codes"].shape[0]
+        be = aux["live"] & (aux["codes"] == _PENDING) & m.p_best_effort[:P]
+        rows = np.nonzero(be)[0]
+        if not rows.size:
+            return False
+        rows = rows[snap.job_schedulable[aux["pod_j"][rows]]]
+        if minus_placed is not None and minus_placed.size and rows.size:
+            rows = np.setdiff1d(rows, minus_placed, assume_unique=False)
+        return bool(rows.size)
+
+    def _collect_contention(self, m, snap, aux, cont):
+        """The passes' evictions as (pod_key, reason), with the mirror rows
+        and the status counts moved to RELEASING, and the cycle's end-state
+        ready counts for the status writes (only once the preempt pass
+        folded the solve in; reclaim's evictions already reach the solve's
+        own ready output)."""
+        if cont is None or not (cont.evictions or cont.pipelines):
+            return [], None
+        evicts = []
+        run_rows = aux["run_rows"]
+        codes = aux["codes"]
+        for i, reason in cont.evictions:
+            prow = int(run_rows[i])
+            m.p_status[prow] = _RELEASING
+            codes[prow] = _RELEASING
+            evicts.append((snap.run_uids[i], reason))
+        return evicts, (cont.occ.copy() if cont.advanced else None)
+
+    # -- prechecks (conservative: False means the action has no work) --------
+
+    def _gang_escape(self, snap, aux, veto) -> np.ndarray:
+        """Per job: could gang's veto permit evicting one of its tasks
+        (min <= occupied - 1 or min == 1)?  All True when gang does not
+        veto; the other vetoes count as permissive."""
+        n_jobs = aux["n_jobs"]
+        if "gang" not in veto:
+            return np.ones(n_jobs, bool)
+        jm = snap.job_min_available[:n_jobs]
+        occupied = snap.job_ready_init[:n_jobs]
+        return (occupied - 1 >= jm) | (jm == 1)
+
+    def _preempt_possible(self, snap, aux) -> bool:
+        n_jobs = aux["n_jobs"]
+        if not n_jobs:
+            return False
+        veto_p, _ = self.probe.victim_vetoes()
+        escape = self._gang_escape(snap, aux, veto_p)
+        run_per_job = aux["run_per_job"][:n_jobs]
+        # dynamic and best-effort pending count too: the host preemptor walk
+        # attempts them
+        pend_per_job = aux["pend_any_per_job"][:n_jobs]
+        Q = snap.queue_weight.shape[0]
+        q_pending = np.zeros(Q, bool)
+        q_victims = np.zeros(Q, bool)
+        jq = snap.job_queue[:n_jobs]
+        q_pending[jq[pend_per_job > 0]] = True
+        q_victims[jq[(run_per_job > 0) & escape]] = True
+        # phase 1: same queue, other jobs
+        if bool((q_pending & q_victims).any()):
+            return True
+        # phase 2: within-job
+        return bool(((pend_per_job > 0) & (run_per_job > 0) & escape).any())
+
+    def _reclaim_possible(self, snap, aux) -> bool:
+        n_jobs = aux["n_jobs"]
+        if not n_jobs:
+            return False
+        _, veto_r = self.probe.victim_vetoes()
+        escape = self._gang_escape(snap, aux, veto_r)
+        run_per_job = aux["run_per_job"][:n_jobs]
+        pend_per_job = aux["pend_nonbe_per_job"][:n_jobs]
+        Q = snap.queue_weight.shape[0]
+        q_pending = np.zeros(Q, bool)
+        q_victims = np.zeros(Q, bool)
+        jq = snap.job_queue[:n_jobs]
+        q_pending[jq[pend_per_job > 0]] = True
+        q_victims[jq[(run_per_job > 0) & escape]] = True
+        if self.probe.enabled.get("proportion"):
+            deserved = water_fill_np(snap.queue_weight, snap.queue_request, snap.total,
+                                     snap.eps, snap.queue_participates)
+            # starving queues at or above deserved are skipped (overused)
+            overused = ((deserved < snap.queue_alloc_init)
+                        | (np.abs(snap.queue_alloc_init - deserved) < snap.eps[None, :])).all(1)
+            q_pending &= ~overused
+            if "proportion" in veto_r:
+                # proportion only releases victims of over-deserved queues
+                q_victims &= (snap.queue_alloc_init > deserved + snap.eps[None, :]).any(1)
+        if not q_pending.any() or not q_victims.any():
+            return False
+        # victims must come from another queue than the starving one
+        if (q_pending & ~q_victims).any() or (q_victims & ~q_pending).any():
+            return True
+        return bool((q_pending & q_victims).sum() > 1)
 
     def _reconcile_failures(self, m: ArrayMirror) -> None:
         """Failed writes mean the mirror's optimistic rows (or the status

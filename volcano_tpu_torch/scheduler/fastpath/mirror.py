@@ -6,7 +6,9 @@ builder reads the tables vectorized.  Kept: pods, nodes, PodGroups (plus
 shadow gangs for group-less pods), queues, priority classes, the lazily
 filled per-(predicate class, node) cells, and the interned host ports and
 pod (anti)affinity selectors with their per-node resident counts (the
-dynamic solve's state).  Left out (later slices): checkpoints, the digest
+dynamic solve's state), and the conformance veto of the contention passes
+(``p_evictable``; a pod being deleted is RELEASING, its capacity counted
+as releasing by the snapshot).  Left out (later slices): checkpoints, the digest
 audit, disruption budgets and volume state — pods with volumes are only
 flagged, and ``ineligible_reason`` names them so the cycle can refuse the
 cluster.
@@ -90,6 +92,7 @@ _POD_COLS = (
     "p_req", "p_resreq", "p_prio", "p_status", "p_node", "p_job",
     "p_best_effort", "p_live", "p_rank", "p_dynamic", "p_dyn_expr", "p_has_vol",
     "p_class", "p_ports", "p_selmatch", "p_aff_req", "p_aff_anti", "p_contrib_node",
+    "p_evictable",
 )
 _JOB_COLS = (
     "j_min", "j_queue", "j_prio", "j_phase", "j_rv", "j_min_req", "j_live",
@@ -137,6 +140,8 @@ class ArrayMirror:
         # claim-referencing pods: outside this port's slice
         self.p_has_vol = np.zeros((0,), bool)
         self.p_class = np.zeros((0,), np.int32)
+        # conformance veto: system-critical pods are never victims
+        self.p_evictable = np.zeros((0,), bool)
         self._next_rank = 0
 
         self.nodes = _Rows(reuse=False)
@@ -643,6 +648,10 @@ class ArrayMirror:
         )
         self.p_has_vol[row] = bool(pod.volumes)
         self.p_dyn_expr[row] = self._intern_pod_bits(row, pod) and self.p_dynamic[row]
+        self.p_evictable[row] = not (
+            pod.spec.priority_class in ("system-cluster-critical", "system-node-critical")
+            or pod.meta.namespace == "kube-system"
+        )
         self.p_live[row] = True
         crow = int(self.p_node[row])
         if crow >= 0:

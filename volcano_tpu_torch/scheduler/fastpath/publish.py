@@ -1,8 +1,8 @@
 """Publish + close: the fast cycle's output layer.
 
 The port's cut of ``volcano_tpu/scheduler/fastpath/publish.py``: gang-gated
-binds through the cache's synchronous bulk verb, and PodGroup status
-writes (phase, counts, the Unschedulable condition with its fit-error
+binds and the contention passes' evictions through the cache's synchronous
+bulk verbs, and PodGroup status writes (phase, counts, the Unschedulable condition with its fit-error
 message) with the fingerprint discipline that skips no-op writes.  Left
 out: the columnar segment, volume binds and the Unschedulable event.
 """
@@ -26,11 +26,15 @@ def render_fit_error(total_nodes: int, reasons: Dict[str, int]) -> str:
 
 def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
                       be_rows, be_nodes, be_per_job, pe_rows_solve,
-                      task_job_solve, task_req_solve) -> List[Tuple[str, str]]:
+                      task_job_solve, task_req_solve, evicts=(),
+                      ready_status=None) -> List[Tuple[str, str]]:
     """``task_node``/``task_kind`` index the solves' merged task layout
     (express rows, then the dynamic solve's); ``pe_rows_solve``,
     ``task_job_solve`` and ``task_req_solve`` are that layout's mirror pod
-    rows, jobs and requests."""
+    rows, jobs and requests.  ``evicts``: (pod_key, reason) victims of the
+    contention passes.  ``ready_status``: per-job ready counts at the
+    cycle's end for the status section when preempt ran after allocate
+    (the bind gate keeps allocate-time readiness)."""
     n_jobs = aux["n_jobs"]
     J = snap.job_min_available.shape[0]
     jm = snap.job_min_available
@@ -81,7 +85,8 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
     lrows = np.nonzero(live)[0]
     if lrows.size and n_jobs:
         ntasks_per_job[:n_jobs] = np.bincount(pod_j[lrows], minlength=n_jobs)[:n_jobs]
-    unready = (ready_final[:n_jobs] < jm[:n_jobs].astype(np.int64)
+    status_ready = ready_final if ready_status is None else ready_status.astype(np.int64)
+    unready = (status_ready[:n_jobs] < jm[:n_jobs].astype(np.int64)
                if fc.gang_on else np.zeros(n_jobs, bool))
     shadow_job = aux["shadow_job"]
     fit_msgs = fit_errors(fc, snap, aux, task_node, task_kind,
@@ -99,7 +104,7 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
         msg = ""
         if unsched:
             fit = fit_msgs.get(j, "")
-            msg = (f"{int(jm[j] - ready_final[j])}/{int(ntasks_per_job[j])} tasks in gang "
+            msg = (f"{int(jm[j] - status_ready[j])}/{int(ntasks_per_job[j])} tasks in gang "
                    f"unschedulable" + (f": {fit}" if fit else ""))
         if int(running_ct[j]) and unsched:
             phase = phase_idx[PodGroupPhase.UNKNOWN]
@@ -127,6 +132,7 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
                     "fields": {"status": status}})
 
     fc.cache.bind_bulk(binds)
+    fc.cache.evict_bulk(list(evicts))
     if ops:
         for op, err in zip(ops, fc.store.bulk(ops)):
             if err is not None:

@@ -5,8 +5,8 @@ from ``volcano_tpu/scheduler/fastpath/snapshot_build.py``: the
 ArrayMirror's row tables become a bucketed ``TensorSnapshot`` of the
 express jobs, with the same semantics as the JAX builder (asserted by
 tests/test_torch_cycle.py and tests/test_torch_dynamic.py), plus the
-dynamic-job partition (host ports, pod (anti)affinity) and the dynamic
-solve's inputs.  Volume pods never reach here — the mirror's
+dynamic-job partition (host ports, pod (anti)affinity), the dynamic
+solve's inputs, and the victim pool of the contention passes.  Volume pods never reach here — the mirror's
 ``ineligible_reason`` refuses such clusters first.  Everything is
 host-side numpy.
 """
@@ -25,6 +25,7 @@ from volcano_tpu_torch.scheduler.fastpath.mirror import (
     _PENDING,
     _READY_CODES,
     _RELEASING,
+    _RUNNING,
     ArrayMirror,
 )
 from volcano_tpu_torch.scheduler.kernels import pack_bits, unpack_bits
@@ -34,14 +35,19 @@ from volcano_tpu_torch.scheduler.snapshot import TensorSnapshot, _bucket
 def _task_arrays(m: ArrayMirror, pe_rows: np.ndarray, pod_j: np.ndarray,
                  n_jobs: int, N: int, R: int, node_rows_arr: np.ndarray,
                  n_live_ct: int, nodeaffinity_weight: float,
-                 job_start: np.ndarray, job_ntasks: np.ndarray) -> dict:
+                 job_start: np.ndarray, job_ntasks: np.ndarray,
+                 min_T: int = 1) -> dict:
     """Task and predicate-class arrays from the sorted pending rows;
-    ``job_start``/``job_ntasks`` are written in place."""
+    ``job_start``/``job_ntasks`` are written in place.  Called at snapshot
+    build and again by the contention passes when they re-pack the task
+    arrays (``min_T`` keeps a re-pack at the cycle's task bucket)."""
     n_tasks = pe_rows.size
-    T = _bucket(max(n_tasks, 1))
+    T = max(_bucket(max(n_tasks, 1)), min_T)
     task_req = np.zeros((T, R), np.float32)
     task_job = np.zeros((T,), np.int32)
     task_valid = np.zeros((T,), bool)
+    job_start[:] = 0
+    job_ntasks[:] = 0
     if n_tasks:
         task_req[:n_tasks] = m.p_req[pe_rows]
         task_job[:n_tasks] = pod_j[pe_rows]
@@ -310,9 +316,20 @@ def build_fast_snapshot(
         class_node_score=ta["class_score"],
         total=node_alloc[node_valid].sum(axis=0).astype(np.float32),
     )
+    # per-job counts for enqueue and the preempt / reclaim prechecks; the
+    # pending non-best-effort count includes dynamic jobs
+    run_per_job = np.zeros(nJ, np.int64)
     pend_any_per_job = np.zeros(nJ, np.int64)
-    if pd_rows.size and n_jobs:
-        pend_any_per_job[:n_jobs] = np.bincount(pod_j[pd_rows], minlength=n_jobs)[:n_jobs]
+    pend_nonbe_per_job = np.zeros(nJ, np.int64)
+    if n_jobs:
+        running_rows = np.nonzero(live & (codes == _RUNNING))[0]
+        if running_rows.size:
+            run_per_job[:n_jobs] = np.bincount(pod_j[running_rows], minlength=n_jobs)[:n_jobs]
+        if pd_rows.size:
+            pend_any_per_job[:n_jobs] = np.bincount(pod_j[pd_rows], minlength=n_jobs)[:n_jobs]
+        nb_all = np.nonzero(pend_all & ~m.p_best_effort[:P])[0]
+        if nb_all.size:
+            pend_nonbe_per_job[:n_jobs] = np.bincount(pod_j[nb_all], minlength=n_jobs)[:n_jobs]
     aux = {
         "pe_rows": pe_rows,            # task row -> mirror pod row
         "job_rows": job_rows,          # job index -> mirror job row
@@ -326,7 +343,9 @@ def build_fast_snapshot(
         # phases count the pre-publish state
         "codes": codes.copy(),
         "node_used": node_used,
+        "run_per_job": run_per_job,
         "pend_any_per_job": pend_any_per_job,
+        "pend_nonbe_per_job": pend_nonbe_per_job,
         "shadow_job": m.j_shadow[job_rows],
         # the dynamic-job partition
         "dyn_job": dyn_job,            # [max(n_jobs, 1)] bool
@@ -337,6 +356,58 @@ def build_fast_snapshot(
                             for j, why in residue_reason_job.items() if j < n_jobs},
     }
     return snap, aux
+
+
+def build_victim_pool(m: ArrayMirror, snap: TensorSnapshot, aux: dict) -> None:
+    """Fill ``snap.run_*``, the preempt / reclaim victim pool, from the
+    mirror: running tasks grouped by node in snapshot order, within a node
+    by arrival.  Built only on cycles whose prechecks found possible
+    contention work; adds ``aux["run_rows"]`` (pool index -> mirror row)."""
+    live, codes, pod_j = aux["live"], aux["codes"], aux["pod_j"]
+    R = snap.node_idle.shape[1]
+    node_rows_arr = aux["node_rows"]
+    n_idx_of_row = np.full(len(m.n_live), -1, np.int32)
+    if node_rows_arr.size:
+        n_idx_of_row[node_rows_arr] = np.arange(node_rows_arr.size, dtype=np.int32)
+    rrows = np.nonzero(live & (codes == _RUNNING))[0]
+    rnode = rrows
+    if rrows.size:
+        rn = m.p_node[rrows]
+        ok = rn >= 0
+        rrows, rn = rrows[ok], rn[ok]
+        if rrows.size:
+            ok = m.n_live[rn]
+            rrows, rn = rrows[ok], rn[ok]
+        rnode = n_idx_of_row[rn] if rrows.size else rn
+        if rrows.size:
+            ok = rnode >= 0
+            rrows, rnode = rrows[ok], rnode[ok]
+        if rrows.size:
+            order = np.lexsort((m.p_rank[rrows], rnode))
+            rrows, rnode = rrows[order], rnode[order]
+    nv = rrows.size
+    V = _bucket(max(nv, 1))
+    run_req = np.zeros((V, R), np.float32)
+    run_node = np.zeros((V,), np.int32)
+    run_job = np.zeros((V,), np.int32)
+    run_prio = np.zeros((V,), np.int32)
+    run_rank = np.zeros((V,), np.int32)
+    run_evictable = np.zeros((V,), bool)
+    run_valid = np.zeros((V,), bool)
+    if nv:
+        run_req[:nv] = m.p_resreq[rrows]
+        run_node[:nv] = rnode
+        run_job[:nv] = pod_j[rrows]
+        run_prio[:nv] = m.p_prio[rrows]
+        # dense rank over the pool by arrival
+        run_rank[:nv] = np.argsort(np.argsort(m.p_rank[rrows])).astype(np.int32)
+        run_evictable[:nv] = m.p_evictable[rrows]
+        run_valid[:nv] = True
+    snap.run_uids = [m.pods.row_key[r] for r in rrows]
+    snap.run_req, snap.run_node, snap.run_job = run_req, run_node, run_job
+    snap.run_prio, snap.run_rank = run_prio, run_rank
+    snap.run_evictable, snap.run_valid = run_evictable, run_valid
+    aux["run_rows"] = rrows
 
 
 def build_dyn_solve_inputs(m: ArrayMirror, snap: TensorSnapshot, aux: dict,

@@ -6,6 +6,12 @@ cluster — N nodes with mixed cpu/mem capacity, T pending tasks grouped into
 J gang jobs across Q weighted queues — plus the water-fill inputs.
 ``build_portsel_args`` adds seeded host-port and pod (anti)affinity
 bitsets for the same cluster, packed as the port's solves take them.
+``build_victim_sim`` (also verbatim) is the victim-selection scenario of
+the contention solves: running tasks spread over nodes, with the derived
+node, job and queue state; ``build_storm_sim`` adds seeded preemptor jobs
+to it (and ``storm_inputs`` the solves' arguments), and
+``build_reclaim_abort_sim`` is the smallest pool on which the reference's
+reclaim walk strands an eviction.
 """
 
 from __future__ import annotations
@@ -225,3 +231,256 @@ def build_portsel_args(
 
 PORTSEL_KEYS = ("node_ports", "task_ports", "node_selcnt", "task_aff",
                 "task_anti", "task_self", "w_podaff")
+
+
+def build_victim_sim(
+    n_nodes: int,
+    n_victims: int,
+    n_jobs: int,
+    n_queues: int = 2,
+    seed: int = 0,
+    node_cpu: float = 16000.0,
+    node_mem: float = 32.0 * (1 << 30),
+):
+    """(consts_kwargs, state_kwargs) numpy dicts for one victim-selection
+    scenario: ``n_victims`` running tasks spread over ``n_nodes``, with all
+    derived state (used/idle, per-job allocation and occupancy, per-node
+    task counts, per-queue allocation) accumulated consistently. Job row 0
+    is reserved for the preemptor (no residents). Field names match
+    ``VictimConsts`` / ``VictimState`` — construct with ``Consts(**c)``.
+    """
+    assert n_jobs >= 2, "n_jobs must be >= 2: job 0 is the reserved preemptor"
+    rng = np.random.default_rng(seed)
+    R = 2
+    N, V, J, Q = (
+        _bucket(n_nodes),
+        _bucket(n_victims),
+        _bucket(n_jobs, 4),
+        _bucket(n_queues, 4),
+    )
+
+    node_alloc = np.zeros((N, R), np.float32)
+    node_alloc[:n_nodes, 0] = node_cpu
+    node_alloc[:n_nodes, 1] = node_mem
+    run_req = np.zeros((V, R), np.float32)
+    run_req[:n_victims, 0] = rng.choice([250, 500, 1000], n_victims)
+    run_req[:n_victims, 1] = rng.choice([256, 512, 1024], n_victims) * (1 << 20)
+    run_node = np.zeros(V, np.int32)
+    run_node[:n_victims] = rng.integers(0, n_nodes, n_victims)
+    run_job = np.zeros(V, np.int32)
+    run_job[:n_victims] = rng.integers(1, n_jobs, n_victims)  # job 0 = preemptor
+    job_queue = np.zeros(J, np.int32)
+    job_queue[:n_jobs] = rng.integers(0, n_queues, n_jobs)
+    job_queue[0] = 0  # the reserved preemptor job; callers pass qt=0
+
+    live = np.arange(V) < n_victims
+    used = np.zeros((N, R), np.float32)
+    np.add.at(used, run_node[live], run_req[live])
+    job_alloc = np.zeros((J, R), np.float32)
+    np.add.at(job_alloc, run_job[live], run_req[live])
+    occupied = np.zeros(J, np.int32)
+    np.add.at(occupied, run_job[live], 1)
+    task_count = np.zeros(N, np.int32)
+    np.add.at(task_count, run_node[live], 1)
+    queue_alloc = np.zeros((Q, R), np.float32)
+    np.add.at(queue_alloc, job_queue[run_job[live]], run_req[live])
+
+    total = node_alloc[:n_nodes].sum(0).astype(np.float32)
+    consts = dict(
+        run_req=run_req,
+        run_node=run_node,
+        run_job=run_job,
+        run_prio=rng.integers(0, 3, V).astype(np.int32),
+        run_rank=rng.permutation(V).astype(np.int32),
+        run_evictable=np.ones(V, bool),
+        job_queue=job_queue,
+        job_min=np.ones(J, np.int32),
+        node_alloc=node_alloc,
+        node_max_tasks=np.full(N, 2**31 - 1, np.int32),
+        node_valid=(np.arange(N) < n_nodes),
+        class_mask=np.ones((1, N), bool),
+        class_score=np.zeros((1, N), np.float32),
+        queue_deserved=np.full((Q, R), 1e15, np.float32),
+        total=total,
+        eps=np.array([10.0, 10 * 1024 * 1024], np.float32),
+        w_least=np.float32(1.0),
+        w_balanced=np.float32(1.0),
+    )
+    state = dict(
+        run_live=live.copy(),
+        idle=np.maximum(node_alloc - used, 0.0).astype(np.float32),
+        releasing=np.zeros((N, R), np.float32),
+        used=used,
+        task_count=task_count,
+        job_alloc=job_alloc,
+        job_occupied=occupied,
+        queue_alloc=queue_alloc,
+    )
+    return consts, state
+
+
+def build_storm_sim(seed, n_nodes=6, n_victims=60, n_jobs=12, n_queues=2, n_new=3,
+                    n_old=2, big=False, scalar=False, classes=1):
+    """Victim pool + preemptor jobs: ``n_new`` fresh gangs (no residents,
+    min_member = their task count, job rows past the pool's jobs) and
+    ``n_old`` pool jobs with extra pending tasks (phase-2 material).  With
+    ``big`` one fresh gang asks more than any node's victims can cover, so
+    its statement is discarded; with ``scalar`` every request and node
+    carries a third, scalar resource (0-2 devices a pod, 8 a node); with
+    ``classes`` > 1 the tasks cycle through predicate classes whose masks
+    admit random halves of the nodes, with random static scores."""
+    c, s = build_victim_sim(n_nodes, n_victims, n_jobs, n_queues=n_queues, seed=seed)
+    rng = np.random.default_rng(seed + 1000)
+    if scalar:
+        live = s["run_live"]
+        V, N = c["run_req"].shape[0], c["node_alloc"].shape[0]
+        dev = np.where(live, rng.integers(0, 3, V), 0).astype(np.float32)
+        c["run_req"] = np.concatenate([c["run_req"], dev[:, None]], 1)
+        c["node_alloc"] = np.concatenate(
+            [c["node_alloc"], np.where(c["node_valid"], 8.0, 0.0).astype(np.float32)[:, None]], 1)
+        c["total"] = c["node_alloc"].sum(0).astype(np.float32)
+        c["eps"] = np.append(c["eps"], np.float32(10.0))
+        R = 3
+        used = np.zeros((N, R), np.float32)
+        np.add.at(used, c["run_node"][live], c["run_req"][live])
+        job_alloc = np.zeros((s["job_alloc"].shape[0], R), np.float32)
+        np.add.at(job_alloc, c["run_job"][live], c["run_req"][live])
+        queue_alloc = np.zeros((s["queue_alloc"].shape[0], R), np.float32)
+        np.add.at(queue_alloc, c["job_queue"][c["run_job"][live]], c["run_req"][live])
+        s.update(used=used, idle=np.maximum(c["node_alloc"] - used, 0.0).astype(np.float32),
+                 releasing=np.zeros((N, R), np.float32), job_alloc=job_alloc,
+                 queue_alloc=queue_alloc)
+    J = c["job_queue"].shape[0]
+    Q = s["queue_alloc"].shape[0]
+    assert n_jobs + n_new <= J
+    c["job_min"][:n_jobs] = rng.choice([1, 1, 2, 3], n_jobs)
+    c["run_evictable"][:] = rng.random(c["run_evictable"].shape[0]) < 0.9
+    c["run_prio"][:] = rng.integers(0, 3, c["run_prio"].shape[0])
+    # one queue below its deserved share (the reclaimers' queue), the others
+    # above it (their residents are reclaimable)
+    under = seed % n_queues
+    factor = np.where(np.arange(Q) == under, 1.5, 0.6)[:, None]
+    c["queue_deserved"] = (s["queue_alloc"] * factor).astype(np.float32)
+    new = np.arange(n_jobs, n_jobs + n_new)
+    c["job_queue"][new] = rng.integers(0, n_queues, n_new)
+    c["job_queue"][new[:2]] = under
+    old = rng.choice(np.arange(1, n_jobs), n_old, replace=False)
+    pre = np.concatenate([new, old])
+    counts = np.zeros(J, np.int32)
+    counts[new] = rng.integers(2, 5, n_new)
+    counts[old] = rng.integers(1, 3, n_old)
+    c["job_min"][new] = counts[new]
+    nt = int(counts.sum())
+    T = 8
+    while T < nt:
+        T *= 2
+    job_start = np.zeros(J, np.int32)
+    job_start[1:] = np.cumsum(counts)[:-1]
+    task_req = np.zeros((T, c["run_req"].shape[1]), np.float32)
+    task_req[:nt, 0] = rng.choice([250, 500, 1000], nt)
+    task_req[:nt, 1] = rng.choice([256, 512], nt) * (1 << 20)
+    if scalar:
+        task_req[:nt, 2] = rng.integers(0, 2, nt)
+    if big:
+        j = new[0]
+        task_req[job_start[j]:job_start[j] + counts[j], 0] = 9000
+    prio = np.zeros(J, np.int32)
+    prio[:n_jobs] = rng.choice([0, 5], n_jobs)
+    prio[new] = 10
+    task_class = np.zeros(T, np.int32)
+    if classes > 1:
+        N = c["node_alloc"].shape[0]
+        task_class[:nt] = np.arange(nt) % classes
+        mask = rng.random((classes, N)) < 0.5
+        mask[0] = True
+        c["class_mask"] = mask & c["node_valid"][None, :]
+        c["class_score"] = np.where(c["class_mask"], rng.random((classes, N)) * 10.0,
+                                    0.0).astype(np.float32)
+    return c, s, dict(task_req=task_req, task_class=task_class,
+                      job_start=job_start, job_ntasks=counts, job_prio=prio,
+                      pre=np.sort(pre), nt=nt, n_jobs=n_jobs + n_new)
+
+
+def _reclaim_inputs(c, s, t):
+    J = c["job_queue"].shape[0]
+    Q = s["queue_alloc"].shape[0]
+    cand = np.zeros(J, bool)
+    cand[t["pre"]] = True
+    live = np.zeros(Q, bool)
+    live[np.unique(c["job_queue"][t["pre"]])] = True
+    return [t["task_req"], t["task_class"], t["job_start"], t["job_prio"], cand, live,
+            np.zeros(J, np.int32)]
+
+
+def _preempt_inputs(c, s, t):
+    J = c["job_queue"].shape[0]
+    Q = s["queue_alloc"].shape[0]
+    T = t["task_req"].shape[0]
+    attempt = np.zeros(T, bool)
+    attempt[:t["nt"]] = True
+    avail = np.zeros(J, bool)
+    avail[t["pre"]] = True
+    under = np.zeros(J, np.int32)
+    under[:t["pre"].size] = t["pre"]
+    qs = c["job_queue"][:t["n_jobs"]]
+    _, first = np.unique(qs, return_index=True)
+    qorder = qs[np.sort(first)].astype(np.int32)
+    qpad = np.zeros(Q, np.int32)
+    qpad[:qorder.size] = qorder
+    return [t["task_req"], t["task_class"], attempt, t["job_start"], t["job_ntasks"],
+            t["job_prio"], avail, under, t["pre"].size, qpad, qorder.size,
+            np.zeros(J, np.int32)]
+
+
+def _rounds_inputs(c, s, t):
+    J = c["job_queue"].shape[0]
+    T = t["task_req"].shape[0]
+    rows = np.zeros(T, np.int32)
+    rows[:t["nt"]] = np.arange(t["nt"])
+    avail = np.zeros(J, bool)
+    avail[t["pre"]] = True
+    return [t["task_req"], t["task_class"], rows, t["job_start"], t["job_ntasks"],
+            t["job_prio"], avail, np.zeros(J, np.int32)]
+
+
+def storm_inputs(kind, c, s, t):
+    """The positional arguments after (consts, state) of ``reclaim_solve``,
+    ``preempt_solve`` or ``preempt_rounds`` for a storm scenario, as numpy
+    arrays and ints."""
+    return {"reclaim": _reclaim_inputs, "preempt": _preempt_inputs,
+            "rounds": _rounds_inputs}[kind](c, s, t)
+
+
+def build_reclaim_abort_sim():
+    """Two nodes, one victim each in queue 0; the reclaimer (queue 1) asks
+    2000m / 256Mi.  Node 0's victim has 1000m / 1Gi: valid (not below the
+    request in every dimension) but not covering; node 1's 4000m / 1Gi
+    covers.  The reference walks node 0 first and strands its eviction."""
+    c, s = build_victim_sim(2, 2, 2, n_queues=2, seed=0)
+    V = c["run_req"].shape[0]
+    c["run_node"][:2] = [0, 1]
+    c["run_job"][:2] = 1
+    c["run_req"][:2] = [[1000, 1 << 30], [4000, 1 << 30]]
+    c["job_queue"][:] = 0
+    c["job_queue"][0] = 1
+    s["run_live"][:] = np.arange(V) < 2
+    used = np.zeros_like(s["used"])
+    np.add.at(used, c["run_node"][:2], c["run_req"][:2])
+    s["used"] = used
+    s["idle"] = np.maximum(c["node_alloc"] - used, 0).astype(np.float32)
+    s["job_alloc"][:] = 0
+    s["job_alloc"][1] = c["run_req"][:2].sum(0)
+    s["job_occupied"][:] = 0
+    s["job_occupied"][1] = 2
+    s["queue_alloc"][:] = 0
+    s["queue_alloc"][0] = c["run_req"][:2].sum(0)
+    s["task_count"][:2] = 1
+    J = c["job_queue"].shape[0]
+    T = 8
+    task_req = np.zeros((T, 2), np.float32)
+    task_req[0] = [2000, 256 << 20]
+    counts = np.zeros(J, np.int32)
+    counts[0] = 1
+    return c, s, dict(task_req=task_req, task_class=np.zeros(T, np.int32),
+                      job_start=np.zeros(J, np.int32), job_ntasks=counts,
+                      job_prio=np.zeros(J, np.int32), pre=np.array([0]), nt=1, n_jobs=2)

@@ -1,7 +1,8 @@
 """Tensorized cluster snapshot: the dense per-cycle view the solves read.
 
 Counterpart of ``volcano_tpu/scheduler/snapshot.py``, cut to what the
-express fast cycle uses: the ``TensorSnapshot`` arrays (numpy, host side;
+fast cycle uses: the ``TensorSnapshot`` arrays (the victim pool's ``run_*``
+fields included) (numpy, host side;
 ``tensor_backend`` moves them to the device), shape bucketing, and the
 static predicate-class helpers (node selector, required node affinity,
 taints/tolerations, node conditions, preferred node-affinity score).
@@ -72,6 +73,18 @@ class TensorSnapshot:
     class_node_score: np.ndarray       # [C, N] f32 static score (node affinity)
 
     total: np.ndarray = field(default=None)  # [R] cluster allocatable total
+
+    # running tasks: the victim pool of preempt and reclaim, grouped by node
+    # (snapshot order), within a node by arrival; filled by
+    # fastpath.snapshot_build.build_victim_pool on contended cycles only
+    run_uids: List[str] = field(default_factory=list)
+    run_req: np.ndarray = field(default=None)        # [V, R] resreq
+    run_node: np.ndarray = field(default=None)       # [V] i32
+    run_job: np.ndarray = field(default=None)        # [V] i32
+    run_prio: np.ndarray = field(default=None)       # [V] i32
+    run_rank: np.ndarray = field(default=None)       # [V] i32 arrival rank
+    run_evictable: np.ndarray = field(default=None)  # [V] bool (conformance)
+    run_valid: np.ndarray = field(default=None)      # [V] bool
 
 
 def _task_class_key(pod: Pod):

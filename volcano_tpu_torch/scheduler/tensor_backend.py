@@ -2,7 +2,8 @@
 
 The port's cut of ``volcano_tpu/scheduler/tensor_backend.py``: the
 plugin-derived policy flags (tier-ordered job keys, gang readiness,
-proportion queue order), the proportion deserved shares (the water-fill
+proportion queue order, task order by priority), the victim veto sets of
+preempt and reclaim, the proportion deserved shares (the water-fill
 kernel, once per cycle), the node-order and interpod score weights, and
 host -> device uploads memoised by array identity.
 """
@@ -63,6 +64,8 @@ class TensorBackend:
         job_key_order = []
         self.gang_job_ready = False
         self.proportion_queue_order = False
+        self.task_order_by_priority = False
+        self.tiers = tiers
         names = set()
         for tier in tiers:
             for opt in tier.plugins:
@@ -76,6 +79,8 @@ class TensorBackend:
                         job_key_order.append(opt.name)
                 if opt.name == "gang" and opt.enabled_job_ready:
                     self.gang_job_ready = True
+                if opt.name == "priority" and opt.enabled_task_order:
+                    self.task_order_by_priority = True
                 if opt.name == "proportion" and opt.enabled_queue_order:
                     self.proportion_queue_order = True
         self.job_key_order = tuple(job_key_order)
@@ -95,6 +100,23 @@ class TensorBackend:
                 dev(s.eps), dev(s.queue_participates),
             )
         return self._deserved
+
+    def victim_vetoes(self):
+        """Active veto plugin sets for preempt and reclaim: the first tier
+        with any enabled plugin that registers the callback decides, and
+        the plugins within it intersect (session_plugins.go Preemptable /
+        Reclaimable)."""
+        preempt_set = reclaim_set = None
+        for tier in self.tiers:
+            p = {o.name for o in tier.plugins
+                 if o.name in ("gang", "drf", "conformance") and o.enabled_preemptable}
+            if preempt_set is None and p:
+                preempt_set = p
+            r = {o.name for o in tier.plugins
+                 if o.name in ("gang", "proportion", "conformance") and o.enabled_reclaimable}
+            if reclaim_set is None and r:
+                reclaim_set = r
+        return preempt_set or set(), reclaim_set or set()
 
     def score_weights(self):
         if not self.enabled["nodeorder"]:

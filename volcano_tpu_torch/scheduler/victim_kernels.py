@@ -1,0 +1,1162 @@
+"""The contention device programs: reclaim, preempt and the batched
+preempt rounds, as hand-written CUDA kernels for Hopper, each with the
+plain PyTorch version it must agree with.
+
+Counterpart of ``volcano_tpu/scheduler/victim_kernels.py``.  Every public
+entry (``reclaim_solve``, ``preempt_solve``, ``preempt_rounds``) takes the
+same arguments as its JAX namesake and returns the same fields:
+
+* given CPU tensors it runs the plain PyTorch version (``*_plain``), a
+  transcription of the JAX function;
+* given CUDA tensors it launches the kernel of ``csrc/victim_*.cu`` (built
+  at first use by ``_build``) or raises.  There is no fallback.
+
+The victim core (``_victim_core``: candidate mask, DRF and proportion
+vetoes, per-node eviction-order prefix sums, cover test, best node, state
+update) has no launch of its own: it runs inside each storm solve, as
+device functions in ``csrc/victim_common.cuh``.  The JAX standalone
+``victim_step`` serves only the object path and is not ported here.
+
+Float rules shared by both versions:
+
+* Segment sums (the per-(node, job), per-(node, queue) and per-node prefix
+  sums, node totals, and the per-job, per-queue and per-node sums of an
+  attempt's or a round's victims and grants) are accumulated in float64
+  and rounded to float32 once.  Resource requests are whole numbers
+  (millicores, bytes, counts), so these float64 sums are exact and do not
+  depend on the order of their terms.  The JAX functions take the same
+  sums in float32 as a global cumulative sum minus each segment's base;
+  the two agree wherever those float32 sums are exact, which holds at the
+  test sizes and fails once a global sum passes 2**24 ulps of its terms
+  (see ROADMAP, section 3).
+* Each state update adds or subtracts that one rounded sum, in the order
+  the JAX function applies its terms.
+* ``_score_nodes`` and the batch rounds' jitter round their fused
+  multiply-adds once, as in ``kernels.py``.
+
+Tie-breaks are part of the contract: every argmin takes the lowest index
+among equals, and the rounds' top-K follows ``lax.top_k`` (values
+descending, lower index first, ``-inf`` fill).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple
+
+import torch
+
+from volcano_tpu_torch.scheduler.kernels import (
+    NEG_INF,
+    POS_INF,
+    _KEY_CODE,
+    _MAX_R,
+    _check,
+    _fma,
+    _JSCALE,
+    _jitter_bits,
+    _lexsort,
+    _raise_on,
+    _score_nodes,
+    _stream,
+    dominant_share,
+    less_equal,
+)
+
+SHARE_DELTA = 1e-6
+#: one round's per-job proposal window in preempt_rounds; a gang whose
+#: remaining min-need exceeds it must take the exact loop
+ROUNDS_P_CHUNK = 32
+
+#: kernel launches since the last ``reset_launches()``; each CUDA wrapper
+#: adds one where it launches its kernel, and nowhere else
+LAUNCHES: Dict[str, int] = {
+    "reclaim_solve": 0,
+    "preempt_solve": 0,
+    "preempt_rounds": 0,
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class VictimConsts(NamedTuple):
+    """Cycle-constant arrays for victim selection."""
+
+    run_req: torch.Tensor        # [V, R] f32 resreq of running tasks
+    run_node: torch.Tensor       # [V] i32 node index
+    run_job: torch.Tensor        # [V] i32 job index
+    run_prio: torch.Tensor       # [V] i32 task priority
+    run_rank: torch.Tensor       # [V] i32 arrival rank (reverse-order ties)
+    run_evictable: torch.Tensor  # [V] bool conformance veto precomputed
+    job_queue: torch.Tensor      # [J] i32
+    job_min: torch.Tensor        # [J] i32
+    node_alloc: torch.Tensor     # [N, R] f32
+    node_max_tasks: torch.Tensor  # [N] i32
+    node_valid: torch.Tensor     # [N] bool
+    class_mask: torch.Tensor     # [C, N] bool
+    class_score: torch.Tensor    # [C, N] f32
+    queue_deserved: torch.Tensor  # [Q, R] f32
+    total: torch.Tensor          # [R] f32
+    eps: torch.Tensor            # [R] f32
+    w_least: float
+    w_balanced: float
+
+
+class VictimState(NamedTuple):
+    """The session state a solve mutates (the solves return a new one)."""
+
+    run_live: torch.Tensor      # [V] bool not yet evicted
+    idle: torch.Tensor          # [N, R] f32
+    releasing: torch.Tensor     # [N, R] f32
+    used: torch.Tensor          # [N, R] f32
+    task_count: torch.Tensor    # [N] i32
+    job_alloc: torch.Tensor     # [J, R] f32 drf allocated
+    job_occupied: torch.Tensor  # [J] i32 ready task count
+    queue_alloc: torch.Tensor   # [Q, R] f32 proportion allocated
+
+
+class StormRecords(NamedTuple):
+    """A storm solve's decision log, turned into ordered eviction and
+    pipeline lists on the host after one fetch."""
+
+    evict_att: torch.Tensor  # [V] i32 ok-attempt seq that evicted the row, -1
+    pipe_node: torch.Tensor  # [T] i32 node the task pipelined onto, -1
+    pipe_att: torch.Tensor   # [T] i32 ok-attempt seq of the pipeline, -1
+    att: torch.Tensor        # i32 count of ok attempts
+
+
+class ReclaimOut(NamedTuple):
+    state: VictimState
+    pipe: torch.Tensor       # [J] i32
+    rec: StormRecords
+    abort: torch.Tensor      # bool
+
+
+class PreemptOut(NamedTuple):
+    state: VictimState
+    pipe: torch.Tensor
+    rec: StormRecords
+    att_total: torch.Tensor  # i32 ok attempts, rollbacks included
+    last_v: torch.Tensor     # i32 victims of the last phase-1 ok attempt
+    any_p1: torch.Tensor     # bool any phase-1 ok attempt
+    abort: torch.Tensor
+
+
+class RoundsOut(NamedTuple):
+    state: VictimState
+    pipe: torch.Tensor
+    rec: StormRecords
+    att_total: torch.Tensor  # i32 committed tasks
+    last_v: torch.Tensor     # i32 victims of the last progressing round
+    any_commit: torch.Tensor  # bool
+    cursor: torch.Tensor     # [J] i32
+    dropped: torch.Tensor    # [J] bool
+
+
+# --------------------------------------------------------------------------
+# shared pieces of the plain versions
+# --------------------------------------------------------------------------
+
+def _seg_cumsum(values, new_seg):
+    """Inclusive prefix sums within runs delimited by ``new_seg`` flags,
+    accumulated in float64 and rounded once (see the module note)."""
+    n = values.shape[0]
+    v = values.double()
+    cum = torch.cumsum(v, dim=0)
+    idx = torch.arange(n, device=values.device)
+    start = torch.cummax(torch.where(new_seg, idx, torch.zeros_like(idx)), dim=0).values
+    return (cum - (cum[start] - v[start])).to(values.dtype)
+
+
+def _segment_sum(values, seg, n_seg):
+    """Per-segment sums of [V, R] float values in float64, rounded once."""
+    out = torch.zeros((n_seg,) + tuple(values.shape[1:]), dtype=torch.float64,
+                      device=values.device)
+    out.index_add_(0, seg.long(), values.double())
+    return out.float()
+
+
+def _segment_count(mask, seg, n_seg):
+    out = torch.zeros(n_seg, dtype=torch.int32, device=mask.device)
+    out.index_add_(0, seg.long(), mask.int())
+    return out
+
+
+def _seg_flags(*keys):
+    """True where any of the (already sorted) keys changes, and at 0."""
+    n = keys[0].shape[0]
+    flag = torch.zeros(n, dtype=torch.bool, device=keys[0].device)
+    flag[0] = True
+    for k in keys:
+        flag[1:] |= k[1:] != k[:-1]
+    return flag
+
+
+def _lex_argmin(mask, keys):
+    """First index minimizing (keys...) lexicographically within mask."""
+    m = mask
+    for k in keys:
+        kmin = torch.min(torch.where(m, k, torch.full_like(k, POS_INF)))
+        m = m & (k == kmin)
+    return int(torch.argmax(m.to(torch.int8)))
+
+
+def _orders_drf(c: VictimConsts):
+    """(node, job, pool-index) order + segment-start flags."""
+    V = c.run_req.shape[0]
+    vidx = torch.arange(V, device=c.run_req.device)
+    o = _lexsort((vidx, c.run_job, c.run_node))
+    return o, _seg_flags(c.run_node[o], c.run_job[o])
+
+
+def _orders_prop(c: VictimConsts, Q: int):
+    """(node, queue, pool-index) order + segment flags."""
+    V = c.run_req.shape[0]
+    vidx = torch.arange(V, device=c.run_req.device)
+    rq = torch.clamp(c.job_queue[c.run_job], 0, Q - 1)
+    o = _lexsort((vidx, rq, c.run_node))
+    return o, _seg_flags(c.run_node[o], rq[o])
+
+
+def _orders_evict(c: VictimConsts, order_by_priority: bool, reclaim_mode: bool):
+    """Per-node eviction order: preempt drains (priority asc, rank desc);
+    reclaim evicts in pool (insertion) order."""
+    V = c.run_req.shape[0]
+    vidx = torch.arange(V, device=c.run_req.device)
+    if reclaim_mode:
+        o = _lexsort((vidx, c.run_node))
+    else:
+        prio = c.run_prio if order_by_priority else torch.zeros_like(c.run_prio)
+        o = _lexsort((vidx, -c.run_rank, prio, c.run_node))
+    return o, _seg_flags(c.run_node[o])
+
+
+def _job_order_keys(c, s, job_prio, job_key_order):
+    """The session job order as lexicographic keys (priority desc, gang
+    not-ready first, DRF share asc), then the job index."""
+    J = c.job_queue.shape[0]
+    keys = []
+    for name in job_key_order:
+        if name == "priority":
+            keys.append(-job_prio.float())
+        elif name == "gang":
+            keys.append((s.job_occupied >= c.job_min).float())
+        elif name == "drf":
+            keys.append(dominant_share(s.job_alloc, c.total[None, :]))
+    keys.append(torch.arange(J, device=job_prio.device).float())
+    return keys
+
+
+def _clone_state(s: VictimState) -> VictimState:
+    return VictimState(*[x.clone() for x in s])
+
+
+def _victim_core(c, s, t_req, t_cls, jt, qt, base, o_drf, seg_drf, o_prop,
+                 seg_prop, o_ev, seg_ev, *, use_gang, use_drf, use_prop,
+                 use_conformance, reclaim_mode):
+    """One preemptor's victim solve over all nodes.  Returns (new_state,
+    assigned, nstar, vmask, clean); ``clean=False`` means the reference's
+    host walk would strand evictions on a node that cannot cover the
+    request, and the new state must be discarded."""
+    V = c.run_req.shape[0]
+    N = s.idle.shape[0]
+    J = c.job_queue.shape[0]
+    Q = s.queue_alloc.shape[0]
+    dev = c.run_req.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    rq_raw = c.job_queue[c.run_job]
+    has_q = rq_raw >= 0
+    run_q = torch.clamp(rq_raw, 0, Q - 1)
+
+    cand = base.clone()
+    if use_conformance:
+        cand &= c.run_evictable
+    if use_gang:
+        occ = s.job_occupied[c.run_job]
+        vmin = c.job_min[c.run_job]
+        cand &= (vmin <= occ - 1) | (vmin == 1)
+    if use_drf:
+        ls = dominant_share(s.job_alloc[jt] + t_req, c.total)
+        sreq = torch.where(base[o_drf, None], c.run_req[o_drf], zero)
+        relcum = _seg_cumsum(sreq, seg_drf)
+        rs = dominant_share(s.job_alloc[c.run_job[o_drf]] - relcum, c.total)
+        admit_s = (ls < rs) | (torch.abs(ls - rs) <= SHARE_DELTA)
+        admit = torch.zeros(V, dtype=torch.bool, device=dev)
+        admit[o_drf] = admit_s
+        cand &= admit
+    if use_prop:
+        sreq = torch.where((base & has_q)[o_prop, None], c.run_req[o_prop], zero)
+        relcum = _seg_cumsum(sreq, seg_prop)
+        sq = run_q[o_prop]
+        alloc_after = s.queue_alloc[sq] - relcum
+        admit_s = less_equal(c.queue_deserved[sq], alloc_after, c.eps) & has_q[o_prop]
+        admit = torch.zeros(V, dtype=torch.bool, device=dev)
+        admit[o_prop] = admit_s
+        cand &= admit
+
+    # eviction-order prefix sums per node; the host loop evicts a node's
+    # first admitted victim before its cover check (do-while), so the
+    # first candidate of each node is in the prefix unconditionally
+    cand_s = cand[o_ev]
+    s2req = torch.where(cand_s[:, None], c.run_req[o_ev], zero)
+    sn2 = c.run_node[o_ev]
+    cum2 = _seg_cumsum(s2req, seg_ev)
+    cum_excl = cum2 - s2req
+    cand_cnt = _seg_cumsum(cand_s.float()[:, None], seg_ev)[:, 0]
+    first_cand = cand_s & (cand_cnt == 1)
+    in_prefix_s = cand_s & (first_cand | ~less_equal(t_req[None, :], cum_excl, c.eps))
+
+    node_tgt = torch.where(cand, c.run_node, torch.full_like(c.run_node, N))
+    node_tot = _segment_sum(torch.where(cand[:, None], c.run_req, zero), node_tgt, N + 1)[:N]
+    any_adm = _segment_count(cand, node_tgt, N + 1)[:N] > 0
+    pred_ok = c.node_valid & c.class_mask[t_cls] & (s.task_count + 1 <= c.node_max_tasks)
+    validate = ~torch.all(node_tot < t_req[None, :], dim=-1)
+    valid_node = pred_ok & any_adm & validate
+    covered = less_equal(t_req[None, :], node_tot, c.eps) & valid_node
+
+    score = _score_nodes(t_req, s.used, c.node_alloc, c.class_score[t_cls],
+                         c.w_least, c.w_balanced)
+    if reclaim_mode:
+        walk_key = torch.arange(N, device=dev).float()
+    else:
+        walk_key = -score
+    inf = torch.full_like(walk_key, POS_INF)
+    kmin_cov = torch.min(torch.where(covered, walk_key, inf))
+    nstar = int(torch.argmax((covered & (walk_key == kmin_cov)).to(torch.int8)))
+    kmin_val = torch.min(torch.where(valid_node, walk_key, inf))
+    nstar_val = int(torch.argmax((valid_node & (walk_key == kmin_val)).to(torch.int8)))
+    assigned = bool(covered.any())
+    if assigned:
+        clean = bool(kmin_val == kmin_cov) and nstar_val == nstar
+    else:
+        clean = not bool(valid_node.any())
+
+    victim_s = in_prefix_s & (sn2 == nstar) & assigned
+    vmask = torch.zeros(V, dtype=torch.bool, device=dev)
+    vmask[o_ev] = victim_s
+
+    vreq = torch.where(vmask[:, None], c.run_req, zero)
+    vsum = vreq.double().sum(0).float()
+    t_add = t_req if assigned else torch.zeros_like(t_req)
+    releasing = s.releasing.clone()
+    releasing[nstar] = releasing[nstar] + (vsum - t_add)
+    used = s.used.clone()
+    used[nstar] = used[nstar] + t_add
+    task_count = s.task_count.clone()
+    task_count[nstar] += 1 if assigned else 0
+    job_alloc = s.job_alloc - _segment_sum(vreq, c.run_job, J)
+    job_alloc[jt] = job_alloc[jt] + t_add
+    job_occupied = s.job_occupied - _segment_count(vmask, c.run_job, J)
+    qtgt = torch.where(has_q, run_q, torch.full_like(run_q, Q))
+    queue_alloc = s.queue_alloc - _segment_sum(vreq, qtgt, Q + 1)[:Q]
+    if qt >= 0:
+        queue_alloc[min(qt, Q - 1)] = queue_alloc[min(qt, Q - 1)] + t_add
+    new_state = VictimState(
+        run_live=s.run_live & ~vmask, idle=s.idle, releasing=releasing,
+        used=used, task_count=task_count, job_alloc=job_alloc,
+        job_occupied=job_occupied, queue_alloc=queue_alloc,
+    )
+    return new_state, assigned, nstar, vmask, clean
+
+
+def _empty_records(V, T, dev):
+    return dict(
+        evict_att=torch.full((V,), -1, dtype=torch.int32, device=dev),
+        pipe_node=torch.full((T,), -1, dtype=torch.int32, device=dev),
+        pipe_att=torch.full((T,), -1, dtype=torch.int32, device=dev),
+        att=0,
+    )
+
+
+def _records(rec, dev) -> StormRecords:
+    return StormRecords(rec["evict_att"], rec["pipe_node"], rec["pipe_att"],
+                        torch.tensor(rec["att"], dtype=torch.int32, device=dev))
+
+
+def _record_ok(rec, vmask, t, nstar):
+    """An ok attempt: its victims, its pipeline, the next sequence number."""
+    rec["evict_att"][vmask] = rec["att"]
+    rec["pipe_node"][t] = nstar
+    rec["pipe_att"][t] = rec["att"]
+    rec["att"] += 1
+
+
+# --------------------------------------------------------------------------
+# K8: the whole reclaim action
+# --------------------------------------------------------------------------
+
+def reclaim_solve_plain(c, s0, task_req, task_class, job_first, job_prio,
+                        job_cand0, queue_live0, pipe0, *, use_gang, use_prop,
+                        use_conformance, order_by_priority, has_proportion,
+                        job_key_order=("priority", "gang", "drf")):
+    """reclaim.go:42-201: pop the queue with the lowest proportion share,
+    pop its best job once, attempt its head task cross-queue, re-arm the
+    queue only on success."""
+    dev = c.run_req.device
+    T = task_req.shape[0]
+    J = c.job_queue.shape[0]
+    Q = s0.queue_alloc.shape[0]
+    V = c.run_req.shape[0]
+    o_prop = seg_prop = None
+    if use_prop:
+        o_prop, seg_prop = _orders_prop(c, Q)
+    o_ev, seg_ev = _orders_evict(c, order_by_priority, True)
+    cap = 2 * (J + Q) + 64
+
+    s = _clone_state(s0)
+    qlive = queue_live0.clone()
+    javail = job_cand0.clone()
+    pipe = pipe0.clone()
+    rec = _empty_records(V, T, dev)
+    abort = False
+    iters = 0
+    while not abort and bool(qlive.any()) and iters < cap:
+        if has_proportion:
+            q_share = dominant_share(s.queue_alloc, c.queue_deserved)
+        else:
+            q_share = torch.zeros(Q, dtype=torch.float32, device=dev)
+        qkey = torch.where(qlive, q_share, torch.full_like(q_share, POS_INF))
+        qstar = int(torch.argmax((qlive & (q_share == qkey.min())).to(torch.int8)))
+        overused = has_proportion and bool(
+            less_equal(c.queue_deserved[qstar], s.queue_alloc[qstar], c.eps))
+        jcand = javail & (c.job_queue == qstar)
+        if not bool(jcand.any()) or overused:
+            qlive[qstar] = False
+        else:
+            keys = _job_order_keys(c, s, job_prio, job_key_order)
+            j = _lex_argmin(jcand, keys)
+            t = min(max(int(job_first[j]), 0), T - 1)
+            qt = int(c.job_queue[j])
+            base = s.run_live & (c.job_queue[c.run_job] != qt)
+            new_s, assigned, nstar, vmask, clean = _victim_core(
+                c, s, task_req[t], int(task_class[t]), j, qt, base,
+                None, None, o_prop, seg_prop, o_ev, seg_ev,
+                use_gang=use_gang, use_drf=False, use_prop=use_prop,
+                use_conformance=use_conformance, reclaim_mode=True)
+            ok = assigned and clean
+            javail[j] = False
+            qlive[qstar] = ok
+            if ok:
+                s = new_s
+                pipe[j] += 1
+                _record_ok(rec, vmask, t, nstar)
+            abort = not clean
+        iters += 1
+    abort = abort or iters >= cap
+    return ReclaimOut(s, pipe, _records(rec, dev),
+                      torch.tensor(abort, device=dev))
+
+
+# --------------------------------------------------------------------------
+# K9: the whole preempt action
+# --------------------------------------------------------------------------
+
+def preempt_solve_plain(c, s0, task_req, task_class, task_attempt, job_start,
+                        job_ntasks, job_prio, job_avail0, under_request, nu,
+                        queues_order, nq, pipe0, *, use_gang, use_drf,
+                        use_conformance, order_by_priority,
+                        job_key_order=("priority", "gang", "drf"),
+                        gang_pipelined=True):
+    """preempt.go:45-273: per queue, phase-1 same-queue cross-job
+    preemption with a statement (checkpoint / discard) per preemptor job,
+    then phase-2 within-job preemption over every under-request job."""
+    dev = c.run_req.device
+    T = task_req.shape[0]
+    J = c.job_queue.shape[0]
+    Q = queues_order.shape[0]
+    V = c.run_req.shape[0]
+    nu, nq = int(nu), int(nq)
+    o_drf = seg_drf = None
+    if use_drf:
+        o_drf, seg_drf = _orders_drf(c)
+    o_ev, seg_ev = _orders_evict(c, order_by_priority, False)
+    cap = 4 * T + 4 * J + nq * (nu + 4) + 64
+    job_queue = c.job_queue
+    rq_raw = job_queue[c.run_job]
+
+    s = _clone_state(s0)
+    pipe = pipe0.clone()
+    rec = _empty_records(V, T, dev)
+    ck = None  # (state, pipe, records) at the current job's pop
+    job_avail = job_avail0.clone()
+    cursor = torch.zeros(J, dtype=torch.int32, device=dev)
+    qpos = phase = cur_job = j2pos = last_v = att_total = iters = 0
+    assigned = any_p1 = abort = False
+
+    def pipelined(j):
+        if gang_pipelined:
+            return int(s.job_occupied[j]) + int(pipe[j]) >= int(c.job_min[j])
+        return True
+
+    def finish_job():
+        """Discard when the gang never pipelined; keep the job available
+        only when it pipelined and placed something this pop."""
+        nonlocal s, pipe, rec, phase
+        j = cur_job
+        pip = pipelined(j)
+        if not pip:
+            s, pipe, rec = ck[0], ck[1], ck[2]
+        job_avail[j] = pip and assigned
+        phase = 0
+
+    while not abort and qpos < nq and iters < cap:
+        do_att, t, jt, qm = False, 0, 0, True
+        if phase == 0:
+            q = int(queues_order[min(max(qpos, 0), Q - 1)])
+            cand = job_avail & (job_queue == q)
+            if bool(cand.any()):
+                j = _lex_argmin(cand, _job_order_keys(c, s, job_prio, job_key_order))
+                cur_job, assigned = j, False
+                job_avail[j] = False
+                ck = (_clone_state(s), pipe.clone(),
+                      {k: (v.clone() if torch.is_tensor(v) else v) for k, v in rec.items()})
+                phase = 1
+            else:
+                phase, j2pos = 2, 0
+        elif phase == 1:
+            j = cur_job
+            exhausted = int(cursor[j]) >= int(job_ntasks[j])
+            t = min(max(int(job_start[j]) + int(cursor[j]), 0), T - 1)
+            do_att = not exhausted and bool(task_attempt[t])
+            jt = j
+            if not exhausted:
+                cursor[j] += 1
+            else:
+                finish_job()
+        else:
+            done = j2pos >= nu
+            j = int(under_request[min(max(j2pos, 0), J - 1)])
+            exhausted = int(cursor[j]) >= int(job_ntasks[j])
+            t = min(max(int(job_start[j]) + int(cursor[j]), 0), T - 1)
+            do_att = not done and not exhausted and bool(task_attempt[t])
+            jt, qm = j, False
+            if done:
+                qpos += 1
+                phase = 0
+            elif exhausted:
+                j2pos += 1
+            else:
+                cursor[j] += 1
+        if do_att and not abort:
+            qt = int(job_queue[jt])
+            if qm:
+                base = s.run_live & (rq_raw == qt) & (c.run_job != jt)
+            else:
+                base = s.run_live & (c.run_job == jt)
+            new_s, assigned_t, nstar, vmask, clean = _victim_core(
+                c, s, task_req[t], int(task_class[t]), jt, qt, base,
+                o_drf, seg_drf, None, None, o_ev, seg_ev,
+                use_gang=use_gang, use_drf=use_drf, use_prop=False,
+                use_conformance=use_conformance, reclaim_mode=False)
+            ok = assigned_t and clean
+            abort = abort or not clean
+            if ok:
+                s = new_s
+                pipe[jt] += 1
+                _record_ok(rec, vmask, t, nstar)
+                att_total += 1
+                if qm:
+                    assigned = True
+                    last_v = int(vmask.sum())
+                    any_p1 = True
+            if not qm and clean and not assigned_t:
+                j2pos += 1  # phase 2 stops a job's drain at its first failure
+            # phase 1 checks JobPipelined after every attempt, ok or not
+            if qm and not abort and pipelined(jt):
+                finish_job()
+        iters += 1
+    abort = abort or qpos < nq
+    i32 = dict(dtype=torch.int32, device=dev)
+    return PreemptOut(s, pipe, _records(rec, dev), torch.tensor(att_total, **i32),
+                      torch.tensor(last_v, **i32), torch.tensor(any_p1, device=dev),
+                      torch.tensor(abort, device=dev))
+
+
+# --------------------------------------------------------------------------
+# K10: batched preempt rounds
+# --------------------------------------------------------------------------
+
+def preempt_rounds_plain(c, s0, task_req, task_class, rows_packed, job_pstart,
+                         job_pcount, job_prio, job_avail0, pipe0, *, use_gang,
+                         use_drf, use_conformance, order_by_priority,
+                         job_key_order=("priority", "gang", "drf"),
+                         gang_pipelined=True, m_chunk=128,
+                         p_chunk=ROUNDS_P_CHUNK, k_chunk=8):
+    """Rounds of parallel victim-capacity placement (the JAX docstring
+    has the five steps): candidate analysis over the pool, per-(node,
+    queue) capacity curves, top-M jobs proposing P tasks over their K best
+    nodes, (node, rank) prefix checks with gang all-or-nothing commit, and
+    victims materialised at round end."""
+    dev = c.run_req.device
+    V, R = c.run_req.shape
+    N = s0.idle.shape[0]
+    T = task_req.shape[0]
+    J = c.job_queue.shape[0]
+    Q = s0.queue_alloc.shape[0]
+    M, P, K = min(m_chunk, J), p_chunk, min(k_chunk, N)
+    F = M * P
+    i32 = dict(dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    jidx = torch.arange(J, **i32)
+    vidx = torch.arange(V, **i32)
+
+    # hoisted static layouts: eviction order grouped per (node, QUEUE)
+    rq_pool = torch.clamp(c.job_queue[c.run_job], 0, Q - 1)
+    prio_pool = c.run_prio if order_by_priority else torch.zeros_like(c.run_prio)
+    o_ev = _lexsort((vidx, -c.run_rank, prio_pool, rq_pool, c.run_node))
+    inv_ev = torch.zeros(V, **i32)
+    inv_ev[o_ev] = vidx
+    sn2 = c.run_node[o_ev]
+    req_ev = c.run_req[o_ev]
+    job_ev = c.run_job[o_ev]
+    rq_ev_raw = c.job_queue[job_ev]
+    has_q_ev = rq_ev_raw >= 0
+    rq_ev = torch.clamp(rq_ev_raw, 0, Q - 1)
+    flat_ev = sn2 * Q + rq_ev
+    seg_ev = _seg_flags(flat_ev)
+    evictable_ev = c.run_evictable[o_ev]
+    last_ev = torch.ones(V, dtype=torch.bool, device=dev)
+    last_ev[:-1] = seg_ev[1:]
+    # within-job rank in global evict order (gang eviction budgets)
+    o_jb = _lexsort((inv_ev, c.run_job))
+    jb_seg = _seg_flags(c.run_job[o_jb])
+    ar = torch.arange(V, device=dev)
+    jb_start = torch.cummax(torch.where(jb_seg, ar, torch.zeros_like(ar)), dim=0).values
+    cnt_in_job_pool = torch.zeros(V, **i32)
+    cnt_in_job_pool[o_jb] = (ar - jb_start).int()
+    cnt_in_job_ev = cnt_in_job_pool[o_ev]
+    row_is_pre_ev = job_avail0[job_ev]
+    if use_drf:
+        o_drf, seg_drf = _orders_drf(c)
+        ev_pos_drf = inv_ev[o_drf]
+        inv_drf = torch.zeros(V, **i32)
+        inv_drf[o_drf] = vidx
+        drf_pos_ev = inv_drf[o_ev]
+        req_drf = c.run_req[o_drf]
+        job_drf = c.run_job[o_drf]
+        rq_drf_raw = c.job_queue[job_drf]
+        has_q_drf = rq_drf_raw >= 0
+        rq_drf = torch.clamp(rq_drf_raw, 0, Q - 1)
+
+    s = _clone_state(s0)
+    live_ev = s0.run_live[o_ev].clone()
+    cursor = torch.zeros(J, **i32)
+    pipe = pipe0.clone()
+    dropped = torch.zeros(J, dtype=torch.bool, device=dev)
+    evict_att = torch.full((V,), -1, **i32)
+    pipe_node = torch.full((T,), -1, **i32)
+    pipe_att = torch.full((T,), -1, **i32)
+    att = att_total = last_v = round_ = 0
+    any_commit = False
+    progressed = True
+    jq_c = torch.clamp(c.job_queue, 0, Q - 1)
+
+    def active_mask():
+        return job_avail0 & ~dropped & (cursor < job_pcount)
+
+    while progressed and bool(active_mask().any()) and round_ < J + 8:
+        active = active_mask()
+        act_q = torch.zeros(Q, **i32)
+        act_q.index_add_(0, jq_c.long(), (active & (c.job_queue >= 0)).int())
+        act_q = act_q > 0
+
+        # ---- candidate analysis
+        cand_ev = live_ev & act_q[rq_ev] & has_q_ev & ~row_is_pre_ev
+        if use_conformance:
+            cand_ev &= evictable_ev
+        if use_gang:
+            budget = torch.where(c.job_min > 1, s.job_occupied - c.job_min,
+                                 torch.full_like(c.job_min, 2**31 - 1))
+            cand_ev &= cnt_in_job_ev < budget[job_ev]
+        head_t = rows_packed[torch.clamp(job_pstart + cursor, 0, T - 1)]
+        head_req_all = task_req[torch.clamp(head_t, 0, T - 1)]
+        if use_drf:
+            ls_j = dominant_share(s.job_alloc + head_req_all, c.total)
+            ls_q = torch.full((Q,), NEG_INF, dtype=torch.float32, device=dev)
+            ls_q = ls_q.scatter_reduce(
+                0, jq_c.long(), torch.where(active, ls_j, torch.full_like(ls_j, NEG_INF)),
+                reduce="amax")
+            live_drf = live_ev[ev_pos_drf]
+            base_drf = live_drf & act_q[rq_drf] & has_q_drf
+            sreq = torch.where(base_drf[:, None], req_drf, zero)
+            relcum = _seg_cumsum(sreq, seg_drf)
+            rs = dominant_share(s.job_alloc[job_drf] - relcum, c.total)
+            admit_drf = (ls_q[rq_drf] < rs + SHARE_DELTA) & has_q_drf
+            cand_ev &= admit_drf[drf_pos_ev]
+
+        # ---- per-(node, queue) evictable-capacity curves
+        vr = torch.where(cand_ev[:, None], req_ev, zero)
+        cum = _seg_cumsum(vr, seg_ev)
+        cap_flat = torch.zeros((N * Q + 1, R), dtype=torch.float32, device=dev)
+        cap_flat[torch.where(last_ev, flat_ev, torch.full_like(flat_ev, N * Q)).long()] = cum
+        cap_flat = cap_flat[: N * Q]
+
+        # ---- job ranking + proposals
+        keys = [jidx.float()]
+        for name in reversed(job_key_order):
+            if name == "priority":
+                keys.append(-job_prio.float())
+            elif name == "gang":
+                keys.append((s.job_occupied >= c.job_min).float())
+            elif name == "drf":
+                keys.append(dominant_share(s.job_alloc, c.total[None, :]))
+        keys.append((~active).float())
+        sel = _lexsort(tuple(keys))[:M]
+        sel_active = active[sel]
+        head_req = head_req_all[sel]
+        head_cls = task_class[torch.clamp(head_t[sel], 0, T - 1)]
+        q_sel = jq_c[sel]
+        cap_mnr = cap_flat.reshape(N, Q, R)[:, q_sel.long(), :].transpose(0, 1)
+        covered = torch.all(head_req[:, None, :] < cap_mnr + c.eps, dim=-1)
+        pred = (c.class_mask[head_cls] & (s.task_count < c.node_max_tasks)[None, :]
+                & c.node_valid[None, :])
+        feasible = covered & pred & sel_active[:, None]
+        job_ok = feasible.any(dim=1)
+        score = _score_nodes(head_req, s.used, c.node_alloc, c.class_score[head_cls],
+                             c.w_least, c.w_balanced)
+        masked = torch.where(feasible, _fma(_jitter_bits(sel, N), _JSCALE, score),
+                             torch.full_like(score, NEG_INF))
+        topk_nodes = torch.sort(masked, dim=1, descending=True, stable=True).indices[:, :K]
+        rot = (torch.arange(K, device=dev)[None, :] + (torch.arange(M, device=dev) % K)[:, None]) % K
+        topk_nodes = torch.gather(topk_nodes, 1, rot)
+        topk_ok = torch.gather(feasible, 1, topk_nodes)
+        cap_k = cap_mnr[torch.arange(M, device=dev)[:, None], topk_nodes]
+        req_safe = torch.clamp_min(head_req, 1e-30)[:, None, :]
+        cnt = torch.floor((cap_k + c.eps) / req_safe)
+        cnt = torch.where(head_req[:, None, :] > 0, cnt, torch.full_like(cnt, POS_INF)).amin(dim=-1)
+        cnt = torch.where(topk_ok, torch.clamp_min(cnt, 0.0), torch.zeros_like(cnt))
+        cum_cnt = torch.cumsum(cnt, dim=1)
+        offs = torch.arange(P, device=dev)
+        slot = (offs[None, :, None] >= cum_cnt[:, None, :]).sum(dim=-1)
+        in_range = slot < K
+        prop_node_mp = torch.gather(topk_nodes, 1, torch.clamp(slot, 0, K - 1))
+        pofs = job_pstart[sel][:, None] + cursor[sel][:, None] + offs[None, :]
+        prop_valid = (sel_active[:, None] & job_ok[:, None]
+                      & (cursor[sel][:, None] + offs[None, :] < job_pcount[sel][:, None])
+                      & in_range)
+        t_prop = rows_packed[torch.clamp(pofs, 0, T - 1)]
+        p_valid = prop_valid.reshape(F)
+        p_t = torch.clamp(t_prop, 0, T - 1).reshape(F)
+        p_req = task_req[p_t]
+        p_node = prop_node_mp.reshape(F).int()
+        p_job = sel[:, None].expand(M, P).reshape(F)
+        rank = torch.arange(F, device=dev)
+
+        # ---- conflicts against the proposer's own (node, queue) cell
+        p_q = jq_c[p_job]
+        key_flat = torch.where(p_valid, p_node * Q + p_q, torch.full_like(p_node, N * Q))
+        order2 = _lexsort((rank, key_flat))
+        skf = key_flat[order2]
+        snp = torch.where(skf < N * Q, torch.div(skf, Q, rounding_mode="floor"),
+                          torch.full_like(skf, N))
+        sreqp = torch.where(p_valid[order2, None], p_req[order2], zero)
+        seg_start = _seg_flags(skf)
+        relcump = _seg_cumsum(sreqp, seg_start)
+        start_pos = torch.cummax(torch.where(seg_start, rank, torch.zeros_like(rank)), dim=0).values
+        cap_rows = torch.cat([cap_flat, torch.zeros((1, R), dtype=torch.float32, device=dev)])[
+            torch.clamp(skf, 0, N * Q).long()]
+        tc_rows = torch.cat([s.task_count, torch.zeros(1, **i32)])[snp.long()]
+        max_rows = torch.cat([c.node_max_tasks, torch.full((1,), 2**31 - 1, **i32)])[snp.long()]
+        pos_in_seg = rank - start_pos
+        accept_sorted = (torch.all(relcump < cap_rows + c.eps, dim=-1)
+                         & (tc_rows.long() + pos_in_seg < max_rows.long()) & (snp < N))
+        win0 = torch.zeros(F, dtype=torch.bool, device=dev)
+        win0[order2] = accept_sorted
+        win0 &= p_valid
+        win_mp = win0.reshape(M, P)
+        win_mp &= torch.cumsum((~win_mp).int(), dim=1) == 0
+        if gang_pipelined:
+            need = torch.clamp_min(c.job_min[sel] - s.job_occupied[sel] - pipe[sel], 0)
+        else:
+            need = torch.zeros(M, **i32)
+        commit_m = win_mp.int().sum(dim=1) >= need
+        win = (win_mp & commit_m[:, None]).reshape(F)
+        any_win = bool(win.any())
+
+        # ---- commit: preemptor placements
+        delta = torch.where(win[:, None], p_req, zero)
+        flat_tgt = torch.where(win, p_node * Q + p_q, torch.full_like(p_node, N * Q))
+        consumed_flat = _segment_sum(delta, flat_tgt, N * Q + 1)[: N * Q]
+        node_tgt = torch.where(win, p_node, torch.full_like(p_node, N))
+        consumed = _segment_sum(delta, node_tgt, N + 1)[:N]
+        placed_cnt = _segment_count(win, node_tgt, N + 1)[:N]
+        job_tgt = torch.where(win, p_job, torch.full_like(p_job, J))
+        ja2 = s.job_alloc + _segment_sum(delta, job_tgt, J + 1)[:J]
+        q_tgt = torch.where(win, p_q, torch.full_like(p_q, Q))
+        qa2 = s.queue_alloc + _segment_sum(delta, q_tgt, Q + 1)[:Q]
+        wins_per_job = _segment_count(win, job_tgt, J + 1)[:J]
+        pipe = pipe + wins_per_job
+        cursor = cursor + wins_per_job
+        wt = p_t[win]
+        pipe_node[wt] = p_node[win]
+        pipe_att[wt] = (att + rank[win]).int()
+
+        # ---- materialise victims: the minimal admitted evict-order prefix
+        # of each (node, queue) cell covering that cell's consumed capacity
+        cum_excl = cum - vr
+        new_vict = cand_ev & ~less_equal(consumed_flat[flat_ev.long()], cum_excl, c.eps)
+        live_ev = live_ev & ~new_vict
+        evict_att = torch.where(new_vict, torch.full_like(evict_att, att + F), evict_att)
+        vreq_new = torch.where(new_vict[:, None], req_ev, zero)
+        vict_node = _segment_sum(vreq_new, sn2, N)
+        vict_job = _segment_sum(vreq_new, job_ev, J)
+        vict_job_cnt = _segment_count(new_vict, job_ev, J)
+        vict_q = _segment_sum(vreq_new, torch.where(has_q_ev, rq_ev, torch.full_like(rq_ev, Q)),
+                              Q + 1)[:Q]
+        n_vict = int(new_vict.sum())
+        s = VictimState(
+            run_live=s.run_live, idle=s.idle,
+            releasing=s.releasing + vict_node - consumed,
+            used=s.used + consumed,
+            task_count=s.task_count + placed_cnt,
+            job_alloc=ja2 - vict_job,
+            job_occupied=s.job_occupied - vict_job_cnt,
+            queue_alloc=qa2 - vict_q,
+        )
+        drop_now = torch.zeros(J, dtype=torch.bool, device=dev)
+        if not any_win:
+            drop_now[sel] = sel_active
+        dropped = dropped | drop_now
+        att += F + 1
+        att_total += int(win.sum())
+        if any_win:
+            last_v = n_vict
+        any_commit = any_commit or any_win
+        round_ += 1
+        progressed = any_win or bool(drop_now.any())
+
+    run_live = torch.zeros(V, dtype=torch.bool, device=dev)
+    run_live[o_ev] = live_ev
+    ea = torch.full((V,), -1, **i32)
+    ea[o_ev] = evict_att
+    s = s._replace(run_live=run_live)
+    rec = StormRecords(ea, pipe_node, pipe_att, torch.tensor(att, **i32))
+    return RoundsOut(s, pipe, rec, torch.tensor(att_total, **i32), torch.tensor(last_v, **i32),
+                     torch.tensor(any_commit, device=dev), cursor, dropped)
+
+
+# --------------------------------------------------------------------------
+# CUDA wrappers
+# --------------------------------------------------------------------------
+
+_PTR_FIELDS = (
+    "run_req", "run_node", "run_job", "run_prio", "run_rank", "run_evictable",
+    "job_queue", "job_min", "node_alloc", "node_max_tasks", "node_valid",
+    "class_mask", "class_score", "queue_deserved", "total", "eps",
+    "run_live", "releasing", "used", "task_count", "job_alloc", "job_occupied",
+    "queue_alloc",
+    "task_req", "task_class", "task_attempt", "job_start", "job_ntasks", "job_prio",
+    "under_request", "queues_order", "rows_packed", "job_pstart", "job_pcount",
+    "job_avail", "queue_live", "pipe", "cursor", "dropped",
+    "evict_att", "pipe_node", "pipe_att", "ctl",
+    "node_off", "node_fill", "bucket", "l_vidx", "l_ev", "l_drf", "l_prop", "flag",
+    "jr_addr", "jr_old",
+    "job_off", "job_fill", "job_bucket", "cnt_in_job", "cap_flat", "cons_flat",
+    "cons_node", "placed", "vict_job", "vict_cnt", "vict_q", "act_q", "ls_q",
+    "job_active", "job_keys", "job_rank", "sel", "p_node", "p_t", "p_job", "p_flags",
+)
+_INT_FIELDS = (
+    "V", "N", "R", "T", "J", "Q", "C", "nu", "nq", "M", "P", "K", "F", "jr_cap",
+    "use_gang", "use_drf", "use_prop", "use_conformance", "order_by_priority",
+    "has_proportion", "gang_pipelined", "n_keys", "key0", "key1", "key2",
+)
+
+
+class VictimArgs(ctypes.Structure):
+    """Mirror of ``struct VttVictimArgs`` in csrc/victim_common.cuh (field
+    order and types must match exactly)."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in _PTR_FIELDS]
+                + [(n, ctypes.c_int64) for n in _INT_FIELDS]
+                + [("w_least", ctypes.c_float), ("w_balanced", ctypes.c_float)])
+
+
+# ctl words (csrc/victim_common.cuh)
+_VC_ATT, _VC_ABORT, _VC_ATT_TOTAL, _VC_LAST_V, _VC_ANY, _VC_ERROR = 0, 1, 2, 3, 4, 6
+
+
+def _check_victim_inputs(c: VictimConsts, s: VictimState, task_req, task_class):
+    dev = c.run_req.device
+    V, R = c.run_req.shape
+    N = s.idle.shape[0]
+    J = c.job_queue.shape[0]
+    Q = s.queue_alloc.shape[0]
+    C = c.class_mask.shape[0]
+    T = task_req.shape[0]
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    spec = {
+        "run_req": (c.run_req, f32, (V, R)), "run_node": (c.run_node, i32, (V,)),
+        "run_job": (c.run_job, i32, (V,)), "run_prio": (c.run_prio, i32, (V,)),
+        "run_rank": (c.run_rank, i32, (V,)), "run_evictable": (c.run_evictable, b8, (V,)),
+        "job_queue": (c.job_queue, i32, (J,)), "job_min": (c.job_min, i32, (J,)),
+        "node_alloc": (c.node_alloc, f32, (N, R)),
+        "node_max_tasks": (c.node_max_tasks, i32, (N,)),
+        "node_valid": (c.node_valid, b8, (N,)), "class_mask": (c.class_mask, b8, (C, N)),
+        "class_score": (c.class_score, f32, (C, N)),
+        "queue_deserved": (c.queue_deserved, f32, (Q, R)),
+        "total": (c.total, f32, (R,)), "eps": (c.eps, f32, (R,)),
+        "run_live": (s.run_live, b8, (V,)), "releasing": (s.releasing, f32, (N, R)),
+        "used": (s.used, f32, (N, R)), "task_count": (s.task_count, i32, (N,)),
+        "job_alloc": (s.job_alloc, f32, (J, R)), "job_occupied": (s.job_occupied, i32, (J,)),
+        "queue_alloc": (s.queue_alloc, f32, (Q, R)),
+        "task_req": (task_req, f32, (T, R)), "task_class": (task_class, i32, (T,)),
+    }
+    for name, (t, dt, shape) in spec.items():
+        _check(name, t, dt, shape, dev)
+    if not 2 <= R <= _MAX_R:
+        raise ValueError(f"victim kernels take 2 <= R <= {_MAX_R}, got {R}")
+    return dev, V, N, R, T, J, Q, C
+
+
+def _victim_launch(lib, stream, entry, c, s0, task_req, task_class, extra, sizes, flags):
+    """Fill the argument block (working copies of the state and records,
+    scratch), launch ``entry`` of ``lib`` on ``stream`` and return the
+    state and the buffers."""
+    dev, V, N, R, T, J, Q, C = _check_victim_inputs(c, s0, task_req, task_class)
+    i32 = dict(dtype=torch.int32, device=dev)
+    st = VictimState(*[x.clone() for x in s0])
+    bufs = dict(zip(VictimState._fields, st))
+    bufs.update(
+        run_req=c.run_req, run_node=c.run_node, run_job=c.run_job, run_prio=c.run_prio,
+        run_rank=c.run_rank, run_evictable=c.run_evictable, job_queue=c.job_queue,
+        job_min=c.job_min, node_alloc=c.node_alloc, node_max_tasks=c.node_max_tasks,
+        node_valid=c.node_valid, class_mask=c.class_mask, class_score=c.class_score,
+        queue_deserved=c.queue_deserved, total=c.total, eps=c.eps,
+        task_req=task_req, task_class=task_class,
+        evict_att=torch.full((V,), -1, **i32), pipe_node=torch.full((T,), -1, **i32),
+        pipe_att=torch.full((T,), -1, **i32), ctl=torch.zeros(16, **i32),
+        node_off=torch.empty(N + 1, **i32), node_fill=torch.zeros(N, **i32),
+        bucket=torch.empty(V, **i32), l_vidx=torch.empty(V, **i32),
+        l_ev=torch.empty(V, **i32), l_drf=torch.empty(V, **i32),
+        l_prop=torch.empty(V, **i32), flag=torch.zeros(V, dtype=torch.uint8, device=dev),
+    )
+    bufs.update(extra)
+    args = VictimArgs()
+    for name in _PTR_FIELDS:
+        t = bufs.get(name)
+        if t is not None:
+            setattr(args, name, t.data_ptr())
+    codes = [_KEY_CODE[k] for k in flags.pop("job_key_order")] + [0, 0, 0]
+    if len(codes) > 6:
+        raise ValueError("job_key_order takes at most three keys")
+    vals = dict(V=V, N=N, R=R, T=T, J=J, Q=Q, C=C, n_keys=len(codes) - 3,
+                key0=codes[0], key1=codes[1], key2=codes[2])
+    vals.update(sizes)
+    vals.update({k: int(bool(v)) for k, v in flags.items()})
+    for name in _INT_FIELDS:
+        setattr(args, name, int(vals.get(name, 0)))
+    args.w_least = float(c.w_least)
+    args.w_balanced = float(c.w_balanced)
+    fn = getattr(lib, entry)
+    _raise_on(fn(ctypes.byref(args), stream), entry)
+    return st, bufs
+
+
+def _storm_records(bufs) -> StormRecords:
+    ctl = bufs["ctl"]
+    return StormRecords(bufs["evict_att"], bufs["pipe_node"], bufs["pipe_att"], ctl[_VC_ATT])
+
+
+def _device_of(c: VictimConsts, name: str) -> torch.device:
+    dev = c.run_req.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def _lib_stream(dev):
+    from volcano_tpu_torch import _build
+
+    return _build.load(), _stream(dev)
+
+
+def reclaim_solve(c, s0, task_req, task_class, job_first, job_prio, job_cand0,
+                  queue_live0, pipe0, *, use_gang, use_prop, use_conformance,
+                  order_by_priority, has_proportion,
+                  job_key_order=("priority", "gang", "drf")) -> ReclaimOut:
+    """The whole reclaim action (JAX ``victim_kernels.reclaim_solve``).
+
+    Replaces volcano_tpu/scheduler/victim_kernels.py:457.  Bound on the
+    card by latency: a chain of dependent attempts, each a walk of the pool
+    and the nodes.  Design (csrc/reclaim_solve.cu): the pool grouped by
+    node once per launch, then one persistent CTA runs the loop."""
+    kw = dict(use_gang=use_gang, use_prop=use_prop, use_conformance=use_conformance,
+              order_by_priority=order_by_priority, has_proportion=has_proportion,
+              job_key_order=tuple(job_key_order))
+    dev = _device_of(c, "reclaim_solve")
+    if dev.type == "cpu":
+        return reclaim_solve_plain(c, s0, task_req, task_class, job_first, job_prio,
+                                   job_cand0, queue_live0, pipe0, **kw)
+    out = reclaim_launch(*_lib_stream(dev), c, s0, task_req, task_class, job_first,
+                         job_prio, job_cand0, queue_live0, pipe0, **kw)
+    LAUNCHES["reclaim_solve"] += 1
+    return out
+
+
+def reclaim_launch(lib, stream, c, s0, task_req, task_class, job_first, job_prio,
+                   job_cand0, queue_live0, pipe0, *, use_gang, use_prop, use_conformance,
+                   order_by_priority, has_proportion,
+                   job_key_order=("priority", "gang", "drf")) -> ReclaimOut:
+    """Validate, launch csrc/reclaim_solve.cu and return its outputs."""
+    dev = c.run_req.device
+    J, Q = c.job_queue.shape[0], s0.queue_alloc.shape[0]
+    for name, t, dt, shape in (
+        ("job_first", job_first, torch.int32, (J,)), ("job_prio", job_prio, torch.int32, (J,)),
+        ("job_cand0", job_cand0, torch.bool, (J,)), ("queue_live0", queue_live0, torch.bool, (Q,)),
+        ("pipe0", pipe0, torch.int32, (J,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    extra = dict(job_start=job_first, job_prio=job_prio, job_avail=job_cand0.clone(),
+                 queue_live=queue_live0.clone(), pipe=pipe0.clone())
+    flags = dict(use_gang=use_gang, use_drf=False, use_prop=use_prop,
+                 use_conformance=use_conformance, order_by_priority=order_by_priority,
+                 has_proportion=has_proportion, job_key_order=job_key_order)
+    st, bufs = _victim_launch(lib, stream, "vtt_reclaim_solve", c, s0, task_req, task_class,
+                              extra, {}, flags)
+    return ReclaimOut(st, bufs["pipe"], _storm_records(bufs), bufs["ctl"][_VC_ABORT] != 0)
+
+
+def preempt_solve(c, s0, task_req, task_class, task_attempt, job_start, job_ntasks,
+                  job_prio, job_avail0, under_request, nu, queues_order, nq, pipe0, *,
+                  use_gang, use_drf, use_conformance, order_by_priority,
+                  job_key_order=("priority", "gang", "drf"),
+                  gang_pipelined=True) -> PreemptOut:
+    """The whole preempt action (JAX ``victim_kernels.preempt_solve``).
+    On the card, ``nu`` and ``nq`` are host integers.
+
+    Replaces volcano_tpu/scheduler/victim_kernels.py:607.  Bound by
+    latency, as K8.  Design (csrc/preempt_solve.cu): one persistent CTA
+    runs the two-phase state machine; a statement's discard replays an
+    undo journal of the words its attempts wrote."""
+    kw = dict(use_gang=use_gang, use_drf=use_drf, use_conformance=use_conformance,
+              order_by_priority=order_by_priority, job_key_order=tuple(job_key_order),
+              gang_pipelined=gang_pipelined)
+    dev = _device_of(c, "preempt_solve")
+    args = (c, s0, task_req, task_class, task_attempt, job_start, job_ntasks, job_prio,
+            job_avail0, under_request, nu, queues_order, nq, pipe0)
+    if dev.type == "cpu":
+        return preempt_solve_plain(*args, **kw)
+    out = preempt_launch(*_lib_stream(dev), *args, **kw)
+    LAUNCHES["preempt_solve"] += 1
+    return out
+
+
+def preempt_launch(lib, stream, c, s0, task_req, task_class, task_attempt, job_start,
+                   job_ntasks, job_prio, job_avail0, under_request, nu, queues_order, nq,
+                   pipe0, *, use_gang, use_drf, use_conformance, order_by_priority,
+                   job_key_order=("priority", "gang", "drf"),
+                   gang_pipelined=True) -> PreemptOut:
+    """Validate, launch csrc/preempt_solve.cu and return its outputs."""
+    dev = c.run_req.device
+    T = task_req.shape[0]
+    J, Q = c.job_queue.shape[0], queues_order.shape[0]
+    V, R = c.run_req.shape
+    for name, t, dt, shape in (
+        ("task_attempt", task_attempt, torch.bool, (T,)),
+        ("job_start", job_start, torch.int32, (J,)), ("job_ntasks", job_ntasks, torch.int32, (J,)),
+        ("job_prio", job_prio, torch.int32, (J,)), ("job_avail0", job_avail0, torch.bool, (J,)),
+        ("under_request", under_request, torch.int32, (J,)),
+        ("queues_order", queues_order, torch.int32, (Q,)), ("pipe0", pipe0, torch.int32, (J,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    # undo journal: per statement at most the job's tasks' node, job, queue
+    # and record words plus four words and two resource rows per victim
+    jr_cap = T * (4 * R + 6) + V * (2 * R + 4) + 64
+    extra = dict(
+        task_attempt=task_attempt, job_start=job_start, job_ntasks=job_ntasks,
+        job_prio=job_prio, under_request=under_request, queues_order=queues_order,
+        job_avail=job_avail0.clone(), pipe=pipe0.clone(),
+        cursor=torch.zeros(J, dtype=torch.int32, device=dev),
+        jr_addr=torch.empty(jr_cap, dtype=torch.int64, device=dev),
+        jr_old=torch.empty(jr_cap, dtype=torch.int32, device=dev),
+    )
+    flags = dict(use_gang=use_gang, use_drf=use_drf, use_prop=False,
+                 use_conformance=use_conformance, order_by_priority=order_by_priority,
+                 gang_pipelined=gang_pipelined, job_key_order=job_key_order)
+    st, bufs = _victim_launch(lib, stream, "vtt_preempt_solve", c, s0, task_req, task_class,
+                              extra, dict(nu=int(nu), nq=int(nq), jr_cap=jr_cap), flags)
+    ctl = bufs["ctl"]
+    if int(ctl[_VC_ERROR]):
+        raise RuntimeError("preempt_solve: undo journal overflow")
+    return PreemptOut(st, bufs["pipe"], _storm_records(bufs), ctl[_VC_ATT_TOTAL],
+                      ctl[_VC_LAST_V], ctl[_VC_ANY] != 0, ctl[_VC_ABORT] != 0)
+
+
+def preempt_rounds(c, s0, task_req, task_class, rows_packed, job_pstart, job_pcount,
+                   job_prio, job_avail0, pipe0, *, use_gang, use_drf, use_conformance,
+                   order_by_priority, job_key_order=("priority", "gang", "drf"),
+                   gang_pipelined=True, m_chunk=128, p_chunk=ROUNDS_P_CHUNK,
+                   k_chunk=8) -> RoundsOut:
+    """Batched preempt rounds (JAX ``victim_kernels.preempt_rounds``).
+
+    Replaces volcano_tpu/scheduler/victim_kernels.py:830.  Bound by its
+    launches and barriers, a round's work being far below the card's
+    rates.  Design (csrc/preempt_rounds.cu): eight kernels a round, the
+    host reading one 48-byte control block between rounds."""
+    kw = dict(use_gang=use_gang, use_drf=use_drf, use_conformance=use_conformance,
+              order_by_priority=order_by_priority, job_key_order=tuple(job_key_order),
+              gang_pipelined=gang_pipelined)
+    dev = _device_of(c, "preempt_rounds")
+    args = (c, s0, task_req, task_class, rows_packed, job_pstart, job_pcount, job_prio,
+            job_avail0, pipe0)
+    kw.update(m_chunk=m_chunk, p_chunk=p_chunk, k_chunk=k_chunk)
+    if dev.type == "cpu":
+        return preempt_rounds_plain(*args, **kw)
+    out = rounds_launch(*_lib_stream(dev), *args, **kw)
+    LAUNCHES["preempt_rounds"] += 1
+    return out
+
+
+def rounds_launch(lib, stream, c, s0, task_req, task_class, rows_packed, job_pstart,
+                  job_pcount, job_prio, job_avail0, pipe0, *, use_gang, use_drf,
+                  use_conformance, order_by_priority,
+                  job_key_order=("priority", "gang", "drf"), gang_pipelined=True,
+                  m_chunk=128, p_chunk=ROUNDS_P_CHUNK, k_chunk=8) -> RoundsOut:
+    """Validate, launch csrc/preempt_rounds.cu and return its outputs."""
+    dev = c.run_req.device
+    T = task_req.shape[0]
+    J, Q = c.job_queue.shape[0], s0.queue_alloc.shape[0]
+    V, R = c.run_req.shape
+    N = s0.idle.shape[0]
+    M, P, K = min(m_chunk, J), p_chunk, min(k_chunk, N)
+    F = M * P
+    for name, t, dt, shape in (
+        ("rows_packed", rows_packed, torch.int32, (T,)),
+        ("job_pstart", job_pstart, torch.int32, (J,)), ("job_pcount", job_pcount, torch.int32, (J,)),
+        ("job_prio", job_prio, torch.int32, (J,)), ("job_avail0", job_avail0, torch.bool, (J,)),
+        ("pipe0", pipe0, torch.int32, (J,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    if not (1 <= P <= 32 and 1 <= K <= 32) or N * 4 > 200 * 1024 or F > 16384:
+        raise ValueError(f"rounds kernel takes p_chunk, k_chunk in [1, 32], N <= 51200 "
+                         f"and F <= 16384, got {P}, {K}, {N}, {F}")
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32, f64 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.float64, device=dev)
+    extra = dict(
+        rows_packed=rows_packed, job_pstart=job_pstart, job_pcount=job_pcount,
+        job_prio=job_prio, job_avail=job_avail0, pipe=pipe0.clone(),
+        cursor=torch.zeros(J, **i32),
+        dropped=torch.zeros(J, dtype=torch.bool, device=dev),
+        job_off=torch.empty(J + 1, **i32), job_fill=torch.zeros(J, **i32),
+        job_bucket=torch.empty(V, **i32), cnt_in_job=torch.zeros(V, **i32),
+        cap_flat=torch.empty(N * Q * R, **f32), cons_flat=torch.empty(N * Q * R, **f32),
+        cons_node=torch.empty(N * R, **f64), placed=torch.empty(N, **i32),
+        vict_job=torch.empty(J * R, **f64), vict_cnt=torch.empty(J, **i32),
+        vict_q=torch.empty(Q * R, **f64), act_q=torch.empty(Q, **i32),
+        ls_q=torch.empty(Q, **i32), job_active=torch.empty(J, dtype=torch.uint8, device=dev),
+        job_keys=torch.zeros(J * 4, **f32), job_rank=torch.empty(J, **i32),
+        sel=torch.empty(M, **i32), p_node=torch.empty(F, **i32), p_t=torch.empty(F, **i32),
+        p_job=torch.empty(F, **i32), p_flags=torch.empty(F, dtype=torch.uint8, device=dev),
+    )
+    flags = dict(use_gang=use_gang, use_drf=use_drf, use_prop=False,
+                 use_conformance=use_conformance, order_by_priority=order_by_priority,
+                 gang_pipelined=gang_pipelined, job_key_order=job_key_order)
+    st, bufs = _victim_launch(lib, stream, "vtt_preempt_rounds", c, s0, task_req, task_class,
+                              extra, dict(M=M, P=P, K=K, F=F), flags)
+    ctl = bufs["ctl"]
+    return RoundsOut(st, bufs["pipe"], _storm_records(bufs), ctl[_VC_ATT_TOTAL],
+                     ctl[_VC_LAST_V], ctl[_VC_ANY] != 0, bufs["cursor"], bufs["dropped"])
