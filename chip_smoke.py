@@ -16,7 +16,9 @@ Phases, each fatal on failure:
    fetch to the host; allocate_solve at
    build_sim_args(10000, 4000, 200); then a sweep of small solves over
    seeds and policies (classes, pod caps, releasing capacity, rollbacks,
-   and build_portsel_args host ports and pod (anti)affinity);
+   build_portsel_args host ports and pod (anti)affinity, and
+   build_volsel_args volumes: global and node-pinned pools, bound-PV node
+   sets, two claims of one group on a task, jobs contending for one PV);
 3. e2e batch — the port's Scheduler(store, full_conf("cuda")).run_once()
    (enqueue, reclaim, allocate, backfill, preempt; the contention
    prechecks find no work here) on the config-5 store (10,000
@@ -46,7 +48,21 @@ Phases, each fatal on failure:
    (evictions, pipelines, binds) of the JAX package's 1/10-scale run;
 9. K8-K10 kernels — against their plain versions on the inputs the three
    cells captured from their first cycle, and K9 over the whole cfg6 storm
-   as solveMode: exact runs it (2,000 attempts).
+   as solveMode: exact runs it (2,000 attempts);
+10. e2e cfg5v-500, cfg5v-2000 — config 5 plus 500 / 2,000 volume-
+   constrained tasks in 20-task gangs (bench.py config5_volumes): even
+   gangs mount a Bound claim whose PV is pinned to one node, odd ones share
+   one pending claim of the static class volb, drawn from a node-pinned PV
+   pool.  The volume gangs take the dynamic solve on K2 with K5 and K6
+   (volsel).  Every bound-claim gang sits on its PV's node, every static
+   gang on one node whose volb PV now holds its claim (the claim Bound), no
+   PV is claimed twice and no pod is bound whose volume bind failed; every
+   other pod binds, and a volume gang left unbound has no node its claim
+   allows with room for it (the express pass and backfill filled them; the
+   JAX package leaves such gangs too);
+11. K6 kernel — K2 with portsel and volsel against its plain version on the
+   dynamic-solve inputs cfg5v-2000 captured, the final claim and capacity
+   state included (the sweep of phase 2 holds it on small seeded payloads).
 
 With ``--profile``, a torch.profiler pass over one config-5 batch solve
 and one config-5 cycle runs after the build: device time by kernel and the
@@ -85,6 +101,10 @@ EXACT_JOB_OPS = 10
 # leave gangs whose rounds were cut by a drop for the next cycle)
 MAX_CYCLES = 2
 MAX_CYCLES_DYNAMIC = 3
+# operations per node of a place step with volumes (the mask bit's shift and
+# test) and per claim of the task and node (the assumed / capacity test)
+VOLSEL_NODE_OPS = 2
+VOLSEL_CLAIM_OPS = 2
 
 # config 5 (bench.py: N_NODES, N_TASKS, N_JOBS, N_QUEUES, n_best_effort)
 CFG5 = dict(nodes=10_000, jobs=5_000, tasks_per_job=20, queues=2, best_effort=2_000)
@@ -378,9 +398,10 @@ def phase_kernel_sweep():
     capacity (pipelined placements), gang rollbacks, small batch chunks."""
     import torch
 
+    from volcano_tpu_torch import interop
     from volcano_tpu_torch.scheduler import kernels as K
     from volcano_tpu_torch.scheduler.simargs import (
-        PORTSEL_KEYS, add_releasing, build_portsel_args, build_sim_args,
+        PORTSEL_KEYS, add_releasing, build_portsel_args, build_sim_args, build_volsel_args,
     )
 
     dev = torch.device("cuda")
@@ -389,7 +410,8 @@ def phase_kernel_sweep():
         dict(job_key_order=("drf", "gang", "priority"), use_gang_ready=False, use_proportion=False),
         dict(job_key_order=("gang", "priority", "drf"), use_gang_ready=True, use_proportion=False),
     ]
-    n = n_ps = pipelined = 0
+    n = n_ps = n_vs = pipelined = 0
+    vol_seen = set()
     for seed in range(4):
         for pol in policies:
             a = build_sim_args(12 + seed, 64, 16, n_queues=3, seed=seed,
@@ -405,21 +427,65 @@ def phase_kernel_sweep():
                                    w_podaff=(1.0, 0.1)[seed % 2])
             ps = tuple(p[k] if k == "w_podaff" else torch.from_numpy(p[k]).to(dev)
                        for k in PORTSEL_KEYS)
+            vpay = build_volsel_args(12 + seed, 64, seed=seed, n_jobs=16)
+            vs = interop.volsel_from_payload(vpay, dev)
             for batch, chunks in ((False, {}), (True, {}), (True, dict(m_chunk=4, p_chunk=3))):
                 wrap = K.allocate_solve_batch if batch else K.allocate_solve
                 plain = K.allocate_solve_batch_plain if batch else K.allocate_solve_plain
-                for ext in ({}, dict(portsel=ps)):
+                exts = [{}, dict(portsel=ps)]
+                if not batch:  # volumes take the exact solve only
+                    exts += [dict(volsel=vs), dict(portsel=ps, volsel=vs)]
+                for ext in exts:
                     out_k = wrap(*args.values(), 1.0, 1.0, **pol, **chunks, **ext)
                     out_p = plain(**args, w_least=1.0, w_balanced=1.0, **pol, **chunks, **ext)
                     _compare(f"sweep seed={seed} batch={batch} {chunks} {pol} "
-                             f"portsel={bool(ext)}", out_k, out_p)
+                             f"portsel={'portsel' in ext} volsel={'volsel' in ext}", out_k, out_p)
                     pipelined += int((out_p.task_kind == 2).sum())
                     n += 1
-                    n_ps += bool(ext)
+                    n_ps += "portsel" in ext
+                    if "volsel" in ext:
+                        n_vs += 1
+                        vol_seen |= _volsel_features(vpay, out_p)
     if not pipelined:
         raise AssertionError("kernel sweep: no pipelined placement exercised")
-    log(f"[kernels] sweep ok: {n} small solves ({n_ps} with portsel) equal to their plain "
-        f"versions ({pipelined} pipelined placements)")
+    want = {"global", "pinned", "two-claims", "bound", "contended", "pipelined-claim"}
+    if not want <= vol_seen:
+        raise AssertionError(f"kernel sweep: volsel cases missed {sorted(want - vol_seen)}")
+    log(f"[kernels] sweep ok: {n} small solves ({n_ps} with portsel, {n_vs} with volsel) equal "
+        f"to their plain versions ({pipelined} pipelined placements; volsel cases "
+        f"{sorted(vol_seen)})")
+
+
+def _volsel_features(vpay, out):
+    """Which volume cases a solve exercised: a global and a pinned pool
+    decremented, a pinned count taken below zero by one task's two claims, a
+    placement inside a bound node set, a claim-carrying job dropped with
+    its group's PVs gone, and a claim-carrying task placed by releasing fit
+    (which assumes nothing)."""
+    from volcano_tpu_torch.scheduler.simargs import VOLSEL_KINDS
+
+    cap0, cap = vpay["group_cap"], out.vol_cap.cpu().numpy()
+    claims = vpay["task_claims"]
+    kind = out.task_kind.cpu().numpy()
+    seen = set()
+    glob = vpay["group_global"]
+    if ((cap < cap0) & glob[:, None]).any():
+        seen.add("global")
+    if ((cap < cap0) & ~glob[:, None]).any():
+        seen.add("pinned")
+    if (cap < 0).any():
+        seen.add("two-claims")
+    job = np.arange(kind.size) // 4  # build_volsel_args(.., 64, n_jobs=16): 4 tasks a job
+    kinds = np.array([VOLSEL_KINDS[j % len(VOLSEL_KINDS)] for j in job])
+    if ((kind > 0) & np.isin(kinds, ("bound", "bound-pinned"))).any():
+        seen.add("bound")
+    if ((kind == 2) & claims.any(axis=1)).any():
+        seen.add("pipelined-claim")
+    dropped = out.dropped.cpu().numpy().astype(bool)
+    claim_jobs = np.unique(job[claims.any(axis=1)])
+    if dropped[claim_jobs[claim_jobs < dropped.size]].any():
+        seen.add("contended")
+    return seen
 
 
 def _compare(name, out_k, out_p):
@@ -429,7 +495,8 @@ def _compare(name, out_k, out_p):
     err = 0.0
     for field in out_k._fields:
         x, y = getattr(out_k, field), getattr(out_p, field)
-        if field in ("task_node", "task_kind", "task_seq", "ready", "dropped", "steps"):
+        if field in ("task_node", "task_kind", "task_seq", "ready", "dropped", "steps",
+                     "claim_node", "vol_cap"):
             if not torch.equal(x.to(y.dtype), y):
                 diff = (x.to(y.dtype) != y).nonzero()[:5].flatten().tolist()
                 raise AssertionError(f"{name}: {field} differs at {diff}")
@@ -440,17 +507,22 @@ def _compare(name, out_k, out_p):
     return err
 
 
-def build_cfg5_store(n_jobs=CFG5["jobs"], n_best_effort=CFG5["best_effort"], dynamic_frac=0.0):
-    """bench.py _build_e2e_store (volume_tasks=0) with the port's objects:
-    10k nodes, n_jobs gangs x 20 tasks in 2 weighted queues (plus
-    "default"), PodGroups Pending (enqueue admits them).  The first
-    ``dynamic_frac`` x 5,000 gangs are dynamic: even ones give every task
-    host port 20000 + j % 64, odd ones label each task grp=g{j % 48} with
-    anti-affinity to that label.  One best-effort pod goes on each of the
-    next n_best_effort gangs (never on a dynamic one)."""
+def build_cfg5_store(n_jobs=CFG5["jobs"], n_best_effort=CFG5["best_effort"], dynamic_frac=0.0,
+                     volume_tasks=0):
+    """bench.py _build_e2e_store with the port's objects: 10k nodes, n_jobs
+    gangs x 20 tasks in 2 weighted queues (plus "default"), PodGroups
+    Pending (enqueue admits them).  The first ``dynamic_frac`` x 5,000
+    gangs are dynamic: even ones give every task host port 20000 + j % 64,
+    odd ones label each task grp=g{j % 48} with anti-affinity to that
+    label.  One best-effort pod goes on each of the next n_best_effort
+    gangs (never on a dynamic one).  ``volume_tasks`` / 20 volume gangs
+    vol{v} of 100m / 64Mi tasks (bench.py:329-365): even ones mount claim
+    vc{v}, Bound to a 50Gi PV of class net pinned to node
+    n{(v * 97) % 10000}; odd ones share the pending 5Gi claim vc{v} of the
+    static class volb, whose pool gets one 50Gi PV pinned the same way."""
     from volcano_tpu_torch.api import (
-        POD_GROUP_KEY, Affinity, Metadata, Node, Pod, PodGroup, PodGroupPhase,
-        PodSpec, Queue, Resource,
+        POD_GROUP_KEY, Affinity, Metadata, Node, PersistentVolume, PersistentVolumeClaim,
+        Pod, PodGroup, PodGroupPhase, PodSpec, Queue, Resource, StorageClass,
     )
     from volcano_tpu_torch.store import Store
 
@@ -494,7 +566,93 @@ def build_cfg5_store(n_jobs=CFG5["jobs"], n_best_effort=CFG5["best_effort"], dyn
             store.create("Pod", Pod(
                 meta=Metadata(name=f"be{j:05d}", namespace="default", annotations=dict(ann)),
                 spec=PodSpec(resources=Resource())))
+    n_vol = volume_tasks // tpj
+    if n_vol:
+        store.create("StorageClass", StorageClass(meta=Metadata(name="volb", namespace=""),
+                                                  provisioner=""))
+    for v in range(n_vol):
+        pin = {"kubernetes.io/hostname": f"n{(v * 97) % n_nodes:05d}"}
+        bound = v % 2 == 0
+        store.create("PV", PersistentVolume(
+            meta=Metadata(name=f"vpv{v:04d}", namespace=""), capacity="50Gi",
+            storage_class="net" if bound else "volb", node_affinity=pin,
+            claim_ref=f"default/vc{v:04d}" if bound else ""))
+        store.create("PVC", PersistentVolumeClaim(
+            meta=Metadata(name=f"vc{v:04d}", namespace="default"), size="5Gi",
+            storage_class="net" if bound else "volb",
+            volume_name=f"vpv{v:04d}" if bound else "", phase="Bound" if bound else "Pending"))
+        pg = PodGroup(meta=Metadata(name=f"vol{v:04d}", namespace="default"),
+                      min_member=tpj, queue=f"q{v % n_q}")
+        pg.status.phase = PodGroupPhase.PENDING
+        store.create("PodGroup", pg)
+        ann = {POD_GROUP_KEY: f"vol{v:04d}"}
+        for t in range(tpj):
+            store.create("Pod", Pod(
+                meta=Metadata(name=f"v{v:04d}-{t}", namespace="default", annotations=dict(ann)),
+                spec=PodSpec(resources=Resource(100.0, 64.0 * (1 << 20))),
+                volumes=[f"vc{v:04d}"]))
     return store
+
+
+def check_volumes(label, store, sched, n_vol):
+    """The volume invariants after a cycle: every pod of a bound-claim gang
+    on its PV's node; every bound static gang on one node, whose volb PV now
+    holds the gang's claim, the claim Bound to it; no PV claimed twice; no
+    pod bound whose volume bind failed.  Returns (volume gangs bound, the
+    unbound ones that could still fit whole on a node their claim allows:
+    the pin node of a bound claim, the node of an Available volb PV)."""
+    pods = {}
+    free = {}
+    for n in store.list("Node"):
+        a = n.allocatable
+        free[n.meta.name] = np.array([a.milli_cpu, a.memory, a.max_task_num], float)
+    for p in store.list("Pod"):
+        if p.meta.name.startswith("v"):
+            pods.setdefault(p.meta.name.split("-")[0], []).append(p)
+        if p.node_name:
+            free[p.node_name] -= (p.spec.resources.milli_cpu, p.spec.resources.memory, 1)
+    pvs = {pv.meta.name: pv for pv in store.list("PV")}
+    open_nodes = [pv.node_affinity["kubernetes.io/hostname"] for pv in pvs.values()
+                  if pv.storage_class == "volb" and not pv.claim_ref]
+    refs = [pv.claim_ref for pv in pvs.values() if pv.claim_ref]
+    if len(refs) != len(set(refs)):
+        raise AssertionError(f"{label}: a claim holds two PVs")
+    bound, placeable, why = 0, [], []
+    for v in range(n_vol):
+        gang = pods[f"v{v:04d}"]
+        nodes = {p.node_name for p in gang}
+        if nodes == {""}:
+            need = sum(np.array([p.spec.resources.milli_cpu, p.spec.resources.memory, 1.0])
+                       for p in gang)
+            cand = ([pvs[f"vpv{v:04d}"].node_affinity["kubernetes.io/hostname"]]
+                    if v % 2 == 0 else open_nodes)
+            if any((free[n] >= need).all() for n in cand):
+                placeable.append(v)
+            short = np.sum([free[n] < need for n in cand], axis=0) if cand else np.zeros(3)
+            why.append(f"v{v:04d} ({'bound claim' if v % 2 == 0 else 'static'}: of "
+                       f"{len(cand)} allowed nodes, {short[0]} short of cpu, {short[1]} of "
+                       f"memory, {short[2]} of pod slots)")
+            continue
+        if len(nodes) != 1 or "" in nodes:
+            raise AssertionError(f"{label}: volume gang {v} bound partly or on two nodes: {nodes}")
+        node = nodes.pop()
+        pvc = store.get("PVC", f"default/vc{v:04d}")
+        if v % 2 == 0:
+            want = pvs[f"vpv{v:04d}"].node_affinity["kubernetes.io/hostname"]
+            if node != want:
+                raise AssertionError(f"{label}: bound-claim gang {v} on {node}, its PV on {want}")
+        else:
+            pv = pvs.get(pvc.volume_name)
+            if (pvc.phase != "Bound" or pv is None or pv.claim_ref != pvc.meta.key
+                    or pv.storage_class != "volb"
+                    or pv.node_affinity.get("kubernetes.io/hostname") != node):
+                raise AssertionError(f"{label}: static gang {v} on {node}, claim "
+                                     f"{pvc.phase} -> {pvc.volume_name!r}")
+        bound += 1
+    for op, key, _ in sched.cache.err_log:
+        if op == "bind_volumes" and store.get("Pod", key).node_name:
+            raise AssertionError(f"{label}: {key} bound although its volume bind failed")
+    return bound, placeable, why
 
 
 def check_placement(store):
@@ -547,13 +705,15 @@ def check_placement(store):
 
 
 def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
-              max_cycles=MAX_CYCLES, capture=None):
+              max_cycles=MAX_CYCLES, capture=None, volume_tasks=0):
     """Drive Scheduler.run_once on the card; returns the launch counts of
     the first cycle (reset just before it, read just after).  ``want`` maps
     a kernel to the launches the first cycle must make at least (a name
     alone: at least one); ``forbid`` lists kernels it must not launch.
     ``capture``: a list that receives the first cycle's dynamic-solve
-    inputs (backend, snapshot, dyn arrays)."""
+    inputs (backend, snapshot, dyn arrays).  ``volume_tasks``: volume gangs
+    as bench.py config5_volumes adds them, held to ``check_volumes`` after
+    every cycle."""
     import torch
 
     from volcano_tpu_torch.scheduler import kernels as K
@@ -562,11 +722,12 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
     from volcano_tpu_torch.scheduler.scheduler import Scheduler
 
     t0 = time.perf_counter()
-    store = build_cfg5_store(n_jobs, n_best_effort, dynamic_frac)
+    store = build_cfg5_store(n_jobs, n_best_effort, dynamic_frac, volume_tasks)
     n_dyn = int(CFG5["jobs"] * dynamic_frac)
+    n_vol = volume_tasks // CFG5["tasks_per_job"]
     log(f"[{label}] store built: {CFG5['nodes']} nodes, {n_jobs} gangs x "
-        f"{CFG5['tasks_per_job']} ({n_dyn} dynamic), {n_best_effort} best-effort "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"{CFG5['tasks_per_job']} ({n_dyn} dynamic), {n_best_effort} best-effort, "
+        f"{n_vol} volume gangs ({time.perf_counter() - t0:.1f} s)")
     sched = Scheduler(store, conf=full_conf("cuda"))
     log(f"[{label}] prewarm {sched.prewarm():.2f} s")
     solve_dyn = cycle_mod.torch_dynamic_solve
@@ -605,26 +766,53 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
         if launches[name]:
             raise AssertionError(f"{label}: kernel {name} launched ({launches[name]})")
     want_gang = n_jobs * CFG5["tasks_per_job"]
-    gang, be = check_placement(store)
-    log(f"[{label}] bound after cycle 1: {gang} gang tasks, {be} best-effort")
+    vol_bound, placeable, unbound_why = [], [], []
+
+    def check(cycle):
+        """Gang tasks bound outside the volume gangs, best-effort pods bound."""
+        gang, be = check_placement(store)
+        extra = ""
+        if n_vol:
+            bound, left, why = check_volumes(label, store, sched, n_vol)
+            vol_bound.append(bound)
+            placeable[:] = left
+            unbound_why[:] = why
+            gang -= bound * CFG5["tasks_per_job"]
+            extra = (f", {bound} of {n_vol} volume gangs ({len(left)} unbound with a node "
+                     f"that fits them)")
+        log(f"[{label}] bound after cycle {cycle}: {gang} gang tasks, {be} best-effort{extra}")
+        return gang, be
+
+    gang, be = check(1)
     cycles = 1
-    while (gang < want_gang or be < n_best_effort) and cycles < max_cycles:
+    while (gang < want_gang or be < n_best_effort or placeable) and cycles < max_cycles:
         cycles += 1
         t0 = time.perf_counter()
         sched.run_once()
         log(f"[{label}] cycle {cycles} wall {time.perf_counter() - t0:.3f} s phases "
             f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}")
-        gang, be = check_placement(store)
-        log(f"[{label}] bound after cycle {cycles}: {gang} gang tasks, {be} best-effort")
-    if gang != want_gang or be != n_best_effort:
-        raise AssertionError(f"{label}: {gang} gang tasks and {be} best-effort bound "
-                             f"after {cycles} cycles")
-    log(f"[{label}] all bound in {cycles} cycle(s) (deadline {max_cycles})")
+        gang, be = check(cycles)
+    if gang != want_gang or be != n_best_effort or placeable:
+        raise AssertionError(f"{label}: {gang} gang tasks and {be} best-effort bound after "
+                             f"{cycles} cycles; volume gangs unbound though a node fits them: "
+                             f"{placeable}")
+    if n_vol:
+        # a volume gang left unbound has no node its claim allows with room
+        # for it (its pin node, or every Available volb PV's node, filled by
+        # the express pass), so later cycles cannot bind it either
+        log(f"[{label}] every other gang bound in {cycles} cycle(s) (deadline {max_cycles}); "
+            f"volume gangs {vol_bound[-1]} of {n_vol} bound, the other "
+            f"{n_vol - vol_bound[-1]} fit no node their claim allows (a gang needs 2000m "
+            f"1.25Gi 20 pods): {'; '.join(unbound_why)}")
+    else:
+        log(f"[{label}] all bound in {cycles} cycle(s) (deadline {max_cycles})")
     t0 = time.perf_counter()
     sched.run_once()
     steady = time.perf_counter() - t0
     log(f"[{label}] steady cycle wall {steady:.4f} s phases "
         f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}")
+    if n_vol:
+        log(f"[{label}] volume gangs bound per cycle (cumulative): {vol_bound}")
     return launches
 
 
@@ -680,6 +868,72 @@ def phase_portsel_kernels(captured, n_launches):
             launches=n_launches[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b, bound_by=kind, library_ms=None, check="ok")
     return rows
+
+
+def _volsel_ops(out, a, volsel):
+    """K6's operations on this data: per place step (each placement and
+    each drop, the dropped job's head task) the mask bit of every valid
+    node and one test per claim of the task and node; per claim its
+    placement assumed, one decrement (pinned) or a row of N (global)."""
+    n_valid = int(a["node_valid"].sum())
+    claims_w = volsel[1].cpu().numpy()
+    n_claims = np.unpackbits(np.ascontiguousarray(claims_w).view(np.uint8), axis=1).sum(axis=1)
+    step = n_valid * (VOLSEL_NODE_OPS + VOLSEL_CLAIM_OPS * n_claims.astype(np.int64))
+    placed = out.task_kind.cpu().numpy() > 0
+    dropped = out.dropped.cpu().numpy().astype(bool)
+    # a dropped job's step: counted at its first task's claims
+    heads = np.clip(a["job_start"].cpu().numpy()[dropped], 0, step.size - 1)
+    ops = float(step[placed].sum()) + float(step[heads].sum())
+    claim_node = out.claim_node.cpu().numpy()
+    glob = volsel[4].cpu().numpy()[volsel[2].cpu().numpy()]
+    N = int(a["node_valid"].shape[0])
+    ops += float(np.where(glob, N, 1)[claim_node >= 0].sum())
+    return ops
+
+
+def phase_volsel_kernel(captured, n_launches):
+    """K6: the dynamic solve cfg5v-2000 ran (K2 with portsel and volsel),
+    again on its captured inputs, against its plain version — decisions
+    and the final claim and capacity state — with CUDA-event times and a
+    bound counted from the work this data needs."""
+    import torch
+
+    from volcano_tpu_torch.scheduler import kernels as K
+    from volcano_tpu_torch.scheduler.tensor_actions import dyn_solve_args
+
+    backend, snap, dyn = captured
+    solve, args, kw = dyn_solve_args(backend, snap, dyn)
+    if solve is not K.allocate_solve or "volsel" not in kw:
+        raise AssertionError("cfg5v: the dynamic solve is not the exact solve with volsel")
+    pargs = dict(zip(K._SOLVE_ARGS + ("w_least", "w_balanced"), args))
+    before = [x.clone() for x in kw["volsel"]]
+    out_k = solve(*args, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(kw["volsel"], before)):
+        raise AssertionError("cfg5v allocate_solve_volsel: the kernel changed its inputs")
+    t0 = time.perf_counter()
+    out_p = K.allocate_solve_plain(**pargs, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _compare("cfg5v-2000 allocate_solve_volsel", out_k, out_p)
+    ms = cuda_ms(lambda: solve(*args, **kw), 3)
+    a = {k: v for k, v in pargs.items() if torch.is_tensor(v)}
+    ps, vs = kw["portsel"], kw["volsel"]
+    io = nbytes(*a.values(), *ps[:6], *vs) + nbytes(*out_k[:10], out_k.claim_node, out_k.vol_cap)
+    ops = (_exact_solve_ops(out_k, a, ps_ops=_portsel_task_ops(ps))
+           + _volsel_ops(out_k, a, vs))
+    b, kind = bound_ms(io, ops)
+    placed = int((out_k.task_kind > 0).sum())
+    assumed = int((out_k.claim_node >= 0).sum())
+    log(f"[kernels] cfg5v-2000 allocate_solve_volsel ok: {int(out_k.steps)} steps, {placed} "
+        f"placed, {assumed} of {vs[2].shape[0]} claim slots assumed, {ms:.3f} ms (plain "
+        f"{plain_ms:.1f} ms, bound {b:.4f} ms by {kind})")
+    return {"allocate_solve_volsel": dict(
+        name="allocate_solve_volsel", route="cuda",
+        source="volcano_tpu_torch/csrc/allocate_solve.cu",
+        replaces="volcano_tpu/scheduler/kernels.py:323-342",
+        launches=n_launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b, bound_by=kind, library_ms=None, check="ok")}
 
 
 # config 6 (bench.py _build_contended_store, config6): every node exactly
@@ -1214,6 +1468,16 @@ def main(argv):
     ):
         launches[cell], captured[cell] = phase_contention(f"e2e {cell}", cell, want, forbid)
     kern.update(phase_victim_kernels(captured, launches))
+    vol_want = {"water_fill": 1, "allocate_solve_batch": 1, "allocate_solve": 1,
+                "allocate_solve_portsel": 1, "allocate_solve_volsel": 1}
+    vol_forbid = ("allocate_solve_batch_portsel",) + CONTENTION_KERNELS
+    phase_e2e("e2e cfg5v-500", CFG5["jobs"], CFG5["best_effort"], want=vol_want,
+              forbid=vol_forbid, max_cycles=MAX_CYCLES_DYNAMIC, volume_tasks=500)
+    cap = []
+    vol = phase_e2e("e2e cfg5v-2000", CFG5["jobs"], CFG5["best_effort"], want=vol_want,
+                    forbid=vol_forbid, max_cycles=MAX_CYCLES_DYNAMIC, capture=cap,
+                    volume_tasks=2000)
+    kern.update(phase_volsel_kernel(cap[0], vol["allocate_solve_volsel"]))
     for name, row in kern.items():
         if name in ("water_fill", "allocate_solve_batch"):
             row["launches"] = batch[name]

@@ -319,7 +319,7 @@ def _pod(name, **spec_kw):
     ("port-overflow", "intern-overflow.*object path"),
     ("best-effort-dynamic", "best-effort.*object path"),
     ("partition-unsafe", "partition unsafe.*object path"),
-    ("volume", "volume slice"),
+    ("volume", "volume-shape.*object path"),
 ])
 def test_out_of_slice_clusters_raise(case, match):
     from volcano_tpu_torch.api import Affinity, PodGroup, PodGroupPhase, PriorityClass, Resource
@@ -359,8 +359,20 @@ def test_out_of_slice_clusters_raise(case, match):
             pod.meta.annotations[POD_GROUP_KEY] = f"hi-{q}"
             store.create("Pod", pod)
     else:
+        # two pending claims of one static class in one pod: a volume shape
+        # the JAX cycle hands to its residue engine (a claim-less volume
+        # binds: tests/test_torch_volumes.py)
+        from volcano_tpu_torch.api import PersistentVolume, PersistentVolumeClaim, StorageClass
+
+        store.create("StorageClass", StorageClass(meta=Metadata(name="local", namespace=""),
+                                                  provisioner=""))
+        for i in range(2):
+            store.create("PV", PersistentVolume(meta=Metadata(name=f"pv{i}", namespace=""),
+                                                capacity="10Gi", storage_class="local"))
+            store.create("PVC", PersistentVolumeClaim(meta=Metadata(name=f"c{i}"), size="1Gi",
+                                                      storage_class="local"))
         pod = _pod("vol")
-        pod.volumes = ["claim"]
+        pod.volumes = ["c0", "c1"]
         store.create("Pod", pod)
     with pytest.raises(NotImplementedError, match=match):
         Scheduler(store, conf=conf).run_once()

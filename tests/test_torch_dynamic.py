@@ -465,7 +465,7 @@ def test_dyn_snapshot_and_solve_inputs_equal_jax(seed):
     assert (dt is None) == (dj is None)
     if dt is None:
         return
-    assert dj.pop("volsel") is None
+    assert dj.pop("volsel") is None and dt.pop("volsel") is None
     assert dt.keys() == dj.keys()
     for key in dt:
         assert dt[key].dtype == dj[key].dtype, key

@@ -27,6 +27,7 @@ from volcano_tpu_torch.scheduler.simargs import (
     build_reclaim_abort_sim,
     build_sim_args,
     build_storm_sim,
+    build_volsel_args,
     storm_inputs,
 )
 
@@ -248,6 +249,104 @@ def test_gpu_dynamic_scheduler_binds_equal_cpu(solve_mode, seed):
             {g.meta.key: g.status.phase for g in store.list("PodGroup")},
         ))
     assert states[0] == states[1]
+
+
+# -- K6: volumes ---------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_portsel", [False, True])
+@pytest.mark.parametrize("seed,releasing", [(0, False), (1, True), (2, True), (3, True)])
+def test_gpu_volsel_solve_matches_plain(seed, releasing, with_portsel):
+    """K6 inside K2 (with and without K5) against the plain version: equal
+    decisions and final volume state, inputs untouched."""
+    dev = _cuda()
+    a = _args(dev, seed, releasing)
+    des = K.water_fill(*_water_fill_inputs(a))
+    args = {k: (des if k == "queue_deserved" else a[k]) for k in K._SOLVE_ARGS}
+    vs = interop.volsel_from_payload(build_volsel_args(14, 64, seed=seed, n_jobs=16), dev)
+    before = [x.clone() for x in vs]
+    ext = {}
+    if with_portsel:
+        p = build_portsel_args(14, 64, seed=seed, n_jobs=16)
+        ext["portsel"] = tuple(p[k] if k == "w_podaff" else torch.from_numpy(p[k]).to(dev)
+                               for k in PORTSEL_KEYS)
+    K.reset_launches()
+    out_k = K.allocate_solve(*args.values(), 1.0, 1.0, volsel=vs, **ext)
+    assert K.LAUNCHES["allocate_solve"] == K.LAUNCHES["allocate_solve_volsel"] == 1
+    out_p = K.allocate_solve_plain(**args, w_least=1.0, w_balanced=1.0, volsel=vs, **ext)
+    _assert_same(out_k, out_p)
+    assert torch.equal(out_k.claim_node, out_p.claim_node)
+    assert torch.equal(out_k.vol_cap, out_p.vol_cap)
+    assert all(torch.equal(x, y) for x, y in zip(vs, before))
+    assert int((out_p.task_kind > 0).sum()) > 0
+
+
+def _vol_spec():
+    """A pin bound by a claim, a zone-wide PV, a node-pinned pool two jobs
+    contend for, a network pool, a dynamic-class claim and a claim-less
+    volume, beside plain jobs."""
+    spec = {"queues": [{"name": "default", "weight": 1}],
+            "nodes": [{"name": f"n{i}", "labels": {"zone": "a" if i < 2 else "b"},
+                       "allocatable": {"cpu": "8", "memory": "16Gi", "pods": 20}}
+                      for i in range(8)],
+            "storage_classes": [{"name": "local", "provisioner": ""},
+                                {"name": "shared", "provisioner": ""}],
+            "pvs": [{"name": "pin5", "capacity": "20Gi", "storage_class": "net",
+                     "node_affinity": {"kubernetes.io/hostname": "n5"},
+                     "claim_ref": "default/b5"},
+                    {"name": "zoned", "capacity": "20Gi", "storage_class": "net",
+                     "node_affinity": {"zone": "a"}, "claim_ref": "default/bz"},
+                    {"name": "loc0", "capacity": "20Gi", "storage_class": "local",
+                     "node_affinity": {"kubernetes.io/hostname": "n3"}},
+                    {"name": "net0", "capacity": "20Gi", "storage_class": "shared"}],
+            "pvcs": [{"name": "b5", "size": "5Gi", "storage_class": "net", "volume_name": "pin5",
+                      "phase": "Bound"},
+                     {"name": "bz", "size": "5Gi", "storage_class": "net",
+                      "volume_name": "zoned", "phase": "Bound"},
+                     {"name": "l0", "size": "5Gi", "storage_class": "local"},
+                     {"name": "l1", "size": "5Gi", "storage_class": "local"},
+                     {"name": "g0", "size": "5Gi", "storage_class": "shared"},
+                     {"name": "dyn", "size": "5Gi", "storage_class": "standard"}],
+            "podgroups": [], "pods": []}
+    for name, n, vols in (("pin", 2, ["b5"]), ("zone", 2, ["bz"]), ("loc0", 2, ["l0"]),
+                          ("loc1", 1, ["l1"]), ("net", 2, ["g0"]),
+                          ("dyn", 2, ["dyn", "scratch"]), ("plain", 3, [])):
+        spec["podgroups"].append({"name": name, "min_member": n, "phase": "Inqueue"})
+        for t in range(n):
+            spec["pods"].append({"name": f"{name}-{t}", "group": name, "volumes": vols,
+                                 "resources": {"cpu": "1", "memory": "1Gi"}})
+    return spec
+
+
+@pytest.mark.gpu
+def test_gpu_volume_scheduler_equals_cpu():
+    """On a cluster with volume gangs the cuda backend's dynamic pass (K6
+    with K5 in K2) binds, phases and binds volumes as the cpu backend's
+    plain versions do."""
+    _cuda()
+    states = []
+    for backend in ("cuda", "cpu"):
+        store = interop.store_from_spec(_vol_spec())
+        sched = Scheduler(store, conf=full_conf(backend))
+        K.reset_launches()
+        sched.run_once()
+        assert "vol_solve" in sched.fast_cycle.phases and "dyn_solve" in sched.fast_cycle.phases
+        if backend == "cuda":
+            assert K.LAUNCHES["allocate_solve_volsel"] == 1
+        provisioned = {pv.meta.name: f"for:{pv.claim_ref}" for pv in store.list("PV")
+                       if pv.provisioned}
+        states.append((
+            {p.meta.key: p.node_name for p in store.list("Pod")},
+            {g.meta.key: g.status.phase for g in store.list("PodGroup")},
+            {provisioned.get(pv.meta.name, pv.meta.name): pv.claim_ref
+             for pv in store.list("PV")},
+            {c.meta.key: (c.phase, provisioned.get(c.volume_name, c.volume_name))
+             for c in store.list("PVC")},
+        ))
+    assert states[0] == states[1]
+    binds = states[0][0]
+    assert {binds["default/pin-0"], binds["default/pin-1"]} == {"n5"}
+    assert states[0][3]["default/l0"][0] == "Bound" or states[0][3]["default/l1"][0] == "Bound"
 
 
 # -- K8-K10: the contention solves ---------------------------------------------

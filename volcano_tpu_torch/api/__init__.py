@@ -4,6 +4,8 @@ from volcano_tpu_torch.api.objects import (
     Metadata,
     Node,
     NodeCondition,
+    PersistentVolume,
+    PersistentVolumeClaim,
     Pod,
     PodGroup,
     PodGroupCondition,
@@ -11,6 +13,7 @@ from volcano_tpu_torch.api.objects import (
     PodSpec,
     PriorityClass,
     Queue,
+    StorageClass,
     Taint,
     Toleration,
 )

@@ -1,6 +1,8 @@
-"""Cluster objects the express cycle reads and writes: Pod, Node, PodGroup,
-Queue, PriorityClass (the port's copy of ``volcano_tpu/api/objects.py``,
-without volume objects, budgets, node pools and commands)."""
+"""Cluster objects the fast cycle reads and writes: Pod, Node, PodGroup,
+Queue, PriorityClass and the volume objects PersistentVolumeClaim,
+StorageClass and PersistentVolume (the port's copy of
+``volcano_tpu/api/objects.py``, without budgets, node pools and
+commands)."""
 
 from __future__ import annotations
 
@@ -214,3 +216,47 @@ class PriorityClass:
     meta: Metadata
     value: int = 0
     global_default: bool = False
+
+
+@dataclass
+class PersistentVolumeClaim:
+    """A volume claim mounted by pods (``Pod.volumes`` names it).
+
+    WaitForFirstConsumer semantics: the claim stays ``Pending`` until a pod
+    that mounts it is scheduled; the scheduler's VolumeBinder picks (or
+    provisions) a PV at allocate time and commits it at bind time."""
+
+    meta: Metadata
+    size: str = ""
+    storage_class: str = ""
+    volume_name: str = ""      # bound PV name; empty while Pending
+    phase: str = "Pending"     # Pending | Bound
+
+
+@dataclass
+class StorageClass:
+    """Provisioning policy for claims: an empty ``provisioner`` means
+    static-only (claims bind to pre-created PVs); otherwise a PV is
+    provisioned at bind time wherever the pod lands."""
+
+    meta: Metadata
+    provisioner: str = "volcano.tpu/dynamic"
+    volume_binding_mode: str = "WaitForFirstConsumer"
+
+
+@dataclass
+class PersistentVolume:
+    """A provisioned volume.  ``node_affinity`` is a node-label selector
+    (empty: reachable from every node, network storage); a local volume
+    pins its claims to the nodes it matches."""
+
+    meta: Metadata
+    capacity: str = ""
+    storage_class: str = ""
+    node_affinity: Dict[str, str] = field(default_factory=dict)
+    claim_ref: str = ""        # bound PVC key; empty while Available
+    provisioned: bool = False  # created at bind (vs pre-created)
+
+    @property
+    def phase(self) -> str:
+        return "Bound" if self.claim_ref else "Available"

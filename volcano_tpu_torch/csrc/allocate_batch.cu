@@ -556,8 +556,8 @@ static int vtt_batch_rounds(const VttSolveArgs& a, cudaStream_t s) {
 extern "C" int vtt_allocate_solve_batch(const VttSolveArgs* args, void* stream) {
   const VttSolveArgs a = *args;
   if (a.R < 2 || a.R > VTT_MAX_R || a.P < 1 || a.P > VTT_MAX_P || a.K > a.P ||
-      a.n_keys > 3 || a.F != a.M * a.P)
-    return (int)cudaErrorInvalidValue;
+      a.n_keys > 3 || a.F != a.M * a.P || a.has_volsel)
+    return (int)cudaErrorInvalidValue;  // volumes take the exact solve only
   cudaStream_t s = (cudaStream_t)stream;
   return a.has_portsel ? vtt_batch_rounds<true>(a, s) : vtt_batch_rounds<false>(a, s);
 }

@@ -28,6 +28,24 @@
 // of match words) and touches the counts of the placed node only.  The
 // kernel is a template on the flag: without portsel the K5 code is not
 // compiled in at all, so the plain solve keeps its registers and speed.
+//
+// K6 in K2 (has_volsel): replaces the volsel branches of the same function,
+// kernels.py:323-342 (the task's feasible-node bitset, and per claim the
+// assumed node or the group's remaining capacity), :406-423 (the first
+// idle-fit placement of each claim assumes a volume there and takes one PV
+// off its group's count: the whole row for a global pool, the taken node's
+// column for a pinned one; a pipelined placement assumes nothing) and the
+// initial state at :455-462.  The inputs stay packed: a task's mask row is
+// tested in place, one bit a node (a warp's 32 nodes share one word), and
+// its claims (at most 64, two u32 words) are listed once a step by thread 0
+// in shared memory with their group, pool kind and assumed node.  The claim
+// and capacity state are working copies in global memory (vol_cap is
+// G x N x 4 bytes, about 160 KB at G = 4, N = 10,240: L2-resident).  Bound:
+// the same chain of dependent steps as K2; K6 adds to a step the task's
+// mask row (N / 8 bytes) and one capacity read a node per unassumed claim,
+// and to a placement one decrement per claim, or a row of N for a claim of
+// a global pool.  A second template flag: solves without volumes compile
+// none of it.
 #include "common.cuh"
 
 #define VTT_EXACT_THREADS 1024
@@ -61,9 +79,10 @@ __device__ __forceinline__ bool vtt_exact_active(const VttSolveArgs& a, int j) {
          !a.queue_dropped[qc] && q >= 0;
 }
 
-template <bool PS>
+template <bool PS, bool VS>
 __global__ void __launch_bounds__(VTT_EXACT_THREADS)
     vtt_allocate_solve_kernel(VttSolveArgs a) {
+  __shared__ VttVsTask s_vs;
   __shared__ float s_v[VTT_EXACT_THREADS];
   __shared__ int s_i[VTT_EXACT_THREADS];
   __shared__ VttJobKey s_key[VTT_EXACT_THREADS];
@@ -164,6 +183,10 @@ __global__ void __launch_bounds__(VTT_EXACT_THREADS)
     const float* cscore = a.class_score + (size_t)cls * N;
     VttPs ps{};
     if (PS) ps = vtt_ps_task(a, t);
+    if (VS) {
+      if (tid == 0) vtt_vs_task(a, t, s_vs);
+      __syncthreads();
+    }
     float bv = VTT_NEG_INF;
     int bi = 0x7fffffff;
     for (int n = tid; n < N; n += nthr) {
@@ -173,6 +196,7 @@ __global__ void __launch_bounds__(VTT_EXACT_THREADS)
       const bool fit_r = vtt_less_equal(req, &a.releasing[(size_t)n * R], a.eps, R);
       if (!fit_i && !fit_r) continue;
       if (PS && !vtt_ps_feasible(a, n, ps)) continue;
+      if (VS && !vtt_vs_feasible(a, n, t, s_vs)) continue;
       float sc = vtt_score_node(req, &a.used[(size_t)n * R],
                                 &a.node_alloc[(size_t)n * R], cscore[n],
                                 a.w_least, a.w_balanced);
@@ -216,22 +240,39 @@ __global__ void __launch_bounds__(VTT_EXACT_THREADS)
         s_cur = (now_ready || exhausted) ? -1 : j;
         // the placed pod is resident now, pipelined or not
         if (PS) vtt_ps_fold(a, n, ps, +1);
+        // its claims assume their volumes here, on an idle fit only
+        if (VS && use_idle) vtt_vs_assume(a, n, s_vs);
       }
     }
     counter += (bi != 0x7fffffff) ? 1 : 0;
     __syncthreads();
+    if (VS && s_vs.any_global_fresh) {
+      vtt_vs_fold_global(a, s_vs);
+      __syncthreads();
+    }
   }
   if (tid == 0) a.ctl[0] = counter;
 }
 
+template <bool PS, bool VS>
+static void vtt_exact_launch(const VttSolveArgs& a, cudaStream_t s) {
+  void (*kernel)(VttSolveArgs) = vtt_allocate_solve_kernel<PS, VS>;
+  VTT_LAUNCH(kernel, 1, VTT_EXACT_THREADS, 0, s)(a);
+}
+
 extern "C" int vtt_allocate_solve(const VttSolveArgs* args, void* stream) {
-  if (args->R < 2 || args->R > VTT_MAX_R || args->Q > 64 || args->n_keys > 3)
+  const VttSolveArgs& a = *args;
+  if (a.R < 2 || a.R > VTT_MAX_R || a.Q > 64 || a.n_keys > 3 ||
+      (a.has_volsel && (a.CL < 1 || a.CL > VTT_CLAIMS || a.VW * 32 < a.N)))
     return (int)cudaErrorInvalidValue;
-  if (args->has_portsel)
-    VTT_LAUNCH(vtt_allocate_solve_kernel<true>, 1, VTT_EXACT_THREADS, 0,
-               (cudaStream_t)stream)(*args);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (a.has_portsel && a.has_volsel)
+    vtt_exact_launch<true, true>(a, s);
+  else if (a.has_volsel)
+    vtt_exact_launch<false, true>(a, s);
+  else if (a.has_portsel)
+    vtt_exact_launch<true, false>(a, s);
   else
-    VTT_LAUNCH(vtt_allocate_solve_kernel<false>, 1, VTT_EXACT_THREADS, 0,
-               (cudaStream_t)stream)(*args);
+    vtt_exact_launch<false, false>(a, s);
   return (int)cudaGetLastError();
 }

@@ -24,6 +24,8 @@
 #define VTT_PW 4   // u32 words of host-port bits (128 ports)
 #define VTT_SW 2   // u32 words of selector bits (64 selectors)
 #define VTT_S (32 * VTT_SW)
+#define VTT_CW 2   // u32 words of a task's claim set (64 claims)
+#define VTT_CLAIMS (32 * VTT_CW)
 #define VTT_NEG_INF (-__int_as_float(0x7f800000))
 #define VTT_POS_INF (__int_as_float(0x7f800000))
 
@@ -83,9 +85,21 @@ struct VttSolveArgs {
   const int32_t* task_anti;    // [T, VTT_SW]
   const int32_t* task_self;    // [T, VTT_SW]
   int32_t* node_match;         // [N, VTT_SW] scratch
+  // K6 (volsel; null unless has_volsel, exact solve only): each task's
+  // feasible-node bitset words and claim set, each claim's capacity group,
+  // which groups are global pools, and the state the solve updates (working
+  // copies): the node each claim assumed its volume on (-1: none yet) and
+  // the Available PVs left per (group, node)
+  const int32_t* task_volmask;  // [T, VW] u32 bit patterns
+  const int32_t* task_claims;   // [T, VTT_CW] u32 bit patterns
+  const int32_t* claim_group;   // [CL]
+  const uint8_t* group_global;  // [G]
+  int32_t* claim_node;          // [CL]
+  int32_t* vol_cap;             // [G, N]
   int64_t N, R, T, J, Q, C, M, P, K, F;
   int64_t n_keys, key0, key1, key2;  // job_key_order: 1 priority, 2 gang, 3 drf
   int64_t use_gang_ready, use_proportion, has_portsel;
+  int64_t VW, CL, G, has_volsel;
   float w_least, w_balanced, w_podaff;
 };
 
@@ -276,5 +290,88 @@ __device__ __forceinline__ void vtt_ps_init_node(const VttSolveArgs& a, int n) {
     uint32_t mw = 0;
     for (int b = 0; b < 32; ++b) mw |= (cnt[w * 32 + b] > 0 ? 1u : 0u) << b;
     a.node_match[(size_t)n * VTT_SW + w] = (int32_t)mw;
+  }
+}
+
+// ---- K6: volumes (the exact solve's volsel extension) --------------------
+
+// The current task's claims, listed once a place step by thread 0 in shared
+// memory: claim index, capacity group, whether the group is a global pool,
+// the node the claim assumed its volume on at the step's start (-1: none),
+// and whether this step's placement assumes it.
+struct VttVsTask {
+  int n;
+  int c[VTT_CLAIMS];
+  int g[VTT_CLAIMS];
+  int node[VTT_CLAIMS];
+  uint8_t glob[VTT_CLAIMS];
+  uint8_t fresh[VTT_CLAIMS];
+  int any_global_fresh;
+};
+
+// Thread 0: list task t's claims (bit i of its claim words is claim i).
+__device__ __forceinline__ void vtt_vs_task(const VttSolveArgs& a, int t,
+                                            VttVsTask& v) {
+  int k = 0;
+  for (int w = 0; w < VTT_CW; ++w) {
+    for (uint32_t b = (uint32_t)a.task_claims[(size_t)t * VTT_CW + w]; b; b &= b - 1) {
+      const int c = w * 32 + __ffs(b) - 1;
+      if (c >= (int)a.CL) break;  // bits past the claim count carry nothing
+      const int g = a.claim_group[c];
+      v.c[k] = c;
+      v.g[k] = g;
+      v.glob[k] = a.group_global[g];
+      v.node[k] = a.claim_node[c];
+      v.fresh[k] = 0;
+      ++k;
+    }
+  }
+  v.n = k;
+  v.any_global_fresh = 0;
+}
+
+// Node n admits task t's volumes: its bit in the task's mask row, and per
+// claim, an assumed claim's node (a pinned pool) or any node (a global
+// pool), an unassumed claim a PV left in its group at n.
+__device__ __forceinline__ bool vtt_vs_feasible(const VttSolveArgs& a, int n,
+                                                int t, const VttVsTask& v) {
+  const uint32_t w = (uint32_t)a.task_volmask[(size_t)t * a.VW + (n >> 5)];
+  if (!((w >> (n & 31)) & 1u)) return false;
+  for (int i = 0; i < v.n; ++i) {
+    const int cn = v.node[i];
+    if (cn >= 0) {
+      if (!v.glob[i] && cn != n) return false;
+    } else if (a.vol_cap[(size_t)v.g[i] * a.N + n] <= 0) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// Thread 0, after a placement on node n by idle fit: the task's unassumed
+// claims assume their volume at n; a pinned group's count drops at n, one
+// per claim (so two claims of one group drop it by two, the segment sum of
+// the reference).  Global groups are left to vtt_vs_fold_global.
+__device__ __forceinline__ void vtt_vs_assume(const VttSolveArgs& a, int n,
+                                              VttVsTask& v) {
+  for (int i = 0; i < v.n; ++i) {
+    if (v.node[i] >= 0) continue;
+    v.fresh[i] = 1;
+    a.claim_node[v.c[i]] = n;
+    if (v.glob[i])
+      v.any_global_fresh = 1;
+    else
+      a.vol_cap[(size_t)v.g[i] * a.N + n] -= 1;
+  }
+}
+
+// Whole block: each newly assumed claim of a global group takes one PV off
+// every node's count of its group (each thread owns its columns).
+__device__ __forceinline__ void vtt_vs_fold_global(const VttSolveArgs& a,
+                                                   const VttVsTask& v) {
+  for (int i = 0; i < v.n; ++i) {
+    if (!v.fresh[i] || !v.glob[i]) continue;
+    int32_t* row = a.vol_cap + (size_t)v.g[i] * a.N;
+    for (int n = threadIdx.x; n < (int)a.N; n += blockDim.x) row[n] -= 1;
   }
 }

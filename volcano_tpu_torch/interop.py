@@ -8,6 +8,10 @@
   ``VictimState`` from the same fields as numpy arrays (for example the
   JAX package's ``VictimConsts`` / ``VictimState`` fetched to the host, or
   ``simargs.build_victim_sim``'s dicts).
+* ``volsel_from_payload`` carries a volume payload in the JAX package's
+  form (``volsolve.VolumePartition.payload``: ``task_volmask_w``,
+  ``task_claims``, ``claim_group``, ``group_cap``, ``group_global``) into
+  the packed ``volsel`` tuple the port's exact solve takes.
 * ``store_from_spec`` builds the port's ``Store`` from a plain description
   of a cluster, so that one seeded description can be instantiated in both
   packages:
@@ -16,18 +20,27 @@
        "nodes":     [{"name", "allocatable": {"cpu", "memory", "pods"},
                       "labels"?}],
        "priority_classes": [{"name", "value"}],
+       "storage_classes": [{"name", "provisioner"?}],
+       "pvs":       [{"name", "capacity", "storage_class",
+                      "node_affinity"?, "claim_ref"?}],
+       "pvcs":      [{"name", "namespace"?, "size", "storage_class",
+                      "volume_name"?, "phase"?}],
        "podgroups": [{"name", "namespace"?, "min_member", "queue",
                       "phase"?, "priority_class_name"?}],
        "pods":      [{"name", "namespace"?, "group"?, "resources": {...},
                       "priority"?, "node_name"?, "phase"?, "deleting"?,
                       "labels"?, "host_ports"?, "pod_affinity"?,
-                      "pod_anti_affinity"?, "node_selector"?}]}
+                      "pod_anti_affinity"?, "node_selector"?,
+                      "volumes"?}]}
 
   Resources are k8s-style resource lists ({"cpu": "500m", "memory":
   "1Gi"}); phases are the enum values ("Running", "Inqueue", ...);
   ``pod_affinity`` / ``pod_anti_affinity`` are lists of label selectors
   ({"app": "web"}).  A resident pod is a pod with a ``node_name`` and a
-  phase such as "Running".
+  phase such as "Running".  A storage class's ``provisioner`` defaults to
+  a dynamic one ("" makes it static); a PV's ``node_affinity`` is a
+  node-label selector ({"kubernetes.io/hostname": "n3"}); a pod's
+  ``volumes`` are the names of the claims it mounts, in its namespace.
 """
 
 from __future__ import annotations
@@ -43,14 +56,18 @@ from volcano_tpu_torch.api.objects import (
     Affinity,
     Metadata,
     Node,
+    PersistentVolume,
+    PersistentVolumeClaim,
     Pod,
     PodGroup,
     PodSpec,
     PriorityClass,
     Queue,
+    StorageClass,
 )
 from volcano_tpu_torch.api.resource import Resource
 from volcano_tpu_torch.api.types import PodGroupPhase, PodPhase
+from volcano_tpu_torch.scheduler.kernels import pack_volsel
 from volcano_tpu_torch.scheduler.snapshot import TensorSnapshot
 from volcano_tpu_torch.scheduler.victim_kernels import VictimConsts, VictimState
 from volcano_tpu_torch.store.store import Store
@@ -76,6 +93,14 @@ def victim_from_arrays(consts: Dict[str, Any], state: Dict[str, Any],
     return c, VictimState(**{f: t(state[f]) for f in VictimState._fields})
 
 
+def volsel_from_payload(payload: Dict[str, Any],
+                        device: torch.device = torch.device("cpu")) -> tuple:
+    """The packed ``volsel`` tuple on ``device`` from a payload dict of
+    numpy arrays in the JAX package's form."""
+    return tuple(torch.from_numpy(np.array(x, copy=True)).to(device)
+                 for x in pack_volsel(payload))
+
+
 def store_from_spec(spec: Dict[str, Any]) -> Store:
     store = Store()
     for pc in spec.get("priority_classes", ()):
@@ -90,6 +115,21 @@ def store_from_spec(spec: Dict[str, Any]) -> Store:
             allocatable=Resource.from_resource_list(n["allocatable"]),
             labels=dict(n.get("labels", {})),
         ))
+    for sc in spec.get("storage_classes", ()):
+        kw = {"provisioner": sc["provisioner"]} if "provisioner" in sc else {}
+        store.create("StorageClass", StorageClass(
+            meta=Metadata(name=sc["name"], namespace=""), **kw))
+    for pv in spec.get("pvs", ()):
+        store.create("PV", PersistentVolume(
+            meta=Metadata(name=pv["name"], namespace=""), capacity=pv.get("capacity", ""),
+            storage_class=pv.get("storage_class", ""),
+            node_affinity=dict(pv.get("node_affinity", {})),
+            claim_ref=pv.get("claim_ref", "")))
+    for c in spec.get("pvcs", ()):
+        store.create("PVC", PersistentVolumeClaim(
+            meta=Metadata(name=c["name"], namespace=c.get("namespace", "default")),
+            size=c.get("size", ""), storage_class=c.get("storage_class", ""),
+            volume_name=c.get("volume_name", ""), phase=c.get("phase", "Pending")))
     for g in spec.get("podgroups", ()):
         pg = PodGroup(
             meta=Metadata(name=g["name"], namespace=g.get("namespace", "default")),
@@ -120,5 +160,6 @@ def store_from_spec(spec: Dict[str, Any]) -> Store:
             phase=PodPhase(p.get("phase", "Pending")),
             node_name=p.get("node_name", ""),
             deleting=bool(p.get("deleting", False)),
+            volumes=list(p.get("volumes", ())),
         ))
     return store

@@ -1,18 +1,23 @@
-"""Minimal scheduler cache: the store handle and the bind and evict side
-effects.
+"""Minimal scheduler cache: the store handle, the bind and evict side
+effects and the volume binder.
 
 The port's cut of ``volcano_tpu/scheduler/cache.py``: binds and evictions
 apply synchronously through the store's bulk verb (one call each per
 cycle), with the same ``bind_log`` / ``evict_log`` / ``err_log``
 bookkeeping.  An eviction marks the pod for deletion (``deleting=True``);
-the kubelet reaps it.  No async applier, volume binder or eviction events
+the kubelet reaps it.  ``VolumeBinder`` assumes and commits a pod's claims
+at publish, as the reference's binder does; it takes the pod itself where
+the JAX binder takes a ``TaskInfo``.  No async applier or eviction events
 yet.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
+
+from volcano_tpu_torch.api.objects import Metadata, PersistentVolume
+from volcano_tpu_torch.api.resource import parse_quantity
 
 _LOG = logging.getLogger("volcano_tpu_torch.scheduler")
 
@@ -35,6 +40,218 @@ class Evictor:
                 for err in results]
 
 
+class VolumeBindingError(Exception):
+    """No PV satisfies a claim mounted by the pod on the chosen node."""
+
+
+class VolumeBinder:
+    """WaitForFirstConsumer volume binding through the scheduler.
+
+    Claim resolution per pod volume:
+      * bound claim (``volume_name`` set): the PV's node affinity must match
+        the candidate node;
+      * pending claim of a *static* class (a ``StorageClass`` with empty
+        ``provisioner``, or a class that has pre-created PVs): an Available
+        PV of the class, large enough and reachable from the candidate
+        node, is *assumed* at allocate time and committed at bind time;
+      * pending claim of a dynamic class: always fits, a PV is provisioned
+        at bind time.
+
+    Assumptions are session-scoped: ``clear_session`` drops them, so gangs
+    that never became ready release their volumes."""
+
+    def __init__(self, store):
+        self.store = store
+        # pvc_key -> assumed pv_name ("" = dynamic, provision at bind); one
+        # assumption per CLAIM, shared by every pod mounting it
+        self._claim_assumed: Dict[str, str] = {}
+        self._assumed_pvs: Dict[str, str] = {}  # pv_name -> pvc_key
+        # session caches (cleared by clear_session): a pod's claim list and
+        # a class's staticness do not change within a cycle
+        self._claims_cache: Dict[str, List[str]] = {}
+        self._static_cache: Dict[str, bool] = {}
+        self._qty_cache: Dict[str, float] = {}
+        # PVC objects and the PV list, fetched once a session;
+        # bind_volumes invalidates both
+        self._pvc_obj_cache: Dict[str, object] = {}
+        self._pv_list_cache: Optional[List] = None
+        self._pv_by_name: Dict[str, object] = {}
+
+    # -- resolution helpers --------------------------------------------------
+
+    def _pending_claims(self, pod) -> List:
+        keys = self._claims_cache.get(pod.meta.key)
+        if keys is None:
+            keys = []
+            for name in pod.volumes:
+                key = f"{pod.meta.namespace}/{name}"
+                if self.store.get("PVC", key) is not None:
+                    keys.append(key)
+            self._claims_cache[pod.meta.key] = keys
+        out = []
+        for key in keys:
+            pvc = self._pvc_obj_cache.get(key)
+            if pvc is None:
+                pvc = self.store.get("PVC", key)
+                if pvc is not None:
+                    self._pvc_obj_cache[key] = pvc
+            if pvc is not None:
+                out.append(pvc)
+        return out
+
+    def _pvs(self) -> List:
+        if self._pv_list_cache is None:
+            self._pv_list_cache = list(self.store.items("PV"))
+            self._pv_by_name = {pv.meta.name: pv for pv in self._pv_list_cache}
+        return self._pv_list_cache
+
+    def _pv(self, name: str):
+        self._pvs()
+        return self._pv_by_name.get(name)
+
+    def _is_static_class(self, class_name: str) -> bool:
+        cached = self._static_cache.get(class_name)
+        if cached is not None:
+            return cached
+        sc = self.store.get("StorageClass", f"/{class_name}")
+        if sc is not None:
+            static = not sc.provisioner
+        else:
+            # no StorageClass object: static iff pre-created PVs carry it
+            # (any phase); PVs provisioned at bind never count
+            static = any(pv.storage_class == class_name and not pv.provisioned
+                         for pv in self._pvs())
+        self._static_cache[class_name] = static
+        return static
+
+    def _qty(self, s: str) -> float:
+        v = self._qty_cache.get(s)
+        if v is None:
+            v = self._qty_cache[s] = parse_quantity("memory", s)
+        return v
+
+    @staticmethod
+    def _affinity_matches(pv, node_labels: Dict[str, str]) -> bool:
+        return all(node_labels.get(k) == v for k, v in pv.node_affinity.items())
+
+    def _find_pv(self, pvc, node_labels: Dict[str, str]):
+        """Smallest Available un-assumed PV fitting the claim on this node."""
+        want = self._qty(pvc.size) if pvc.size else 0.0
+        best, best_cap = None, None
+        for pv in self._pvs():
+            if pv.claim_ref or pv.meta.name in self._assumed_pvs:
+                continue
+            if pv.storage_class != pvc.storage_class:
+                continue
+            if not self._affinity_matches(pv, node_labels):
+                continue
+            cap = self._qty(pv.capacity) if pv.capacity else float("inf")
+            if cap < want:
+                continue
+            if best is None or cap < best_cap:
+                best, best_cap = pv, cap
+        return best
+
+    def _resolve_claim(self, pvc, labels) -> Tuple[Optional[str], Optional[str]]:
+        """(reason, assumption) for one claim on a node with these labels.
+        ``reason`` is set when the claim cannot land there; ``assumption`` is
+        the PV name to assume, "" to provision at bind, or None when the
+        claim is already bound or assumed."""
+        assumed = self._claim_assumed.get(pvc.meta.key)
+        if pvc.volume_name or assumed:
+            reason = self._reachable(pvc.volume_name or assumed, labels)
+            if reason is not None:
+                return f"{reason} (claim {pvc.meta.name})", None
+            return None, None
+        if self._is_static_class(pvc.storage_class):
+            pv = self._find_pv(pvc, labels)
+            if pv is None:
+                return (f"no available volume for claim {pvc.meta.name} "
+                        f"(class {pvc.storage_class!r})", None)
+            return None, pv.meta.name
+        return None, ""  # dynamic: provision at bind
+
+    def _reachable(self, pv_name: str, labels) -> Optional[str]:
+        pv = self._pv(pv_name)
+        if pv is None:
+            # a bound or assumed PV deleted from the store: unschedulable
+            # everywhere
+            return f"volume {pv_name} not found"
+        if pv.node_affinity and not self._affinity_matches(pv, labels):
+            return f"volume {pv_name} not reachable"
+        return None
+
+    # -- allocate / bind -----------------------------------------------------
+
+    def allocate_volumes(self, pod, hostname: str) -> None:
+        """Assume a PV for each of the pod's pending claims on ``hostname``;
+        raises VolumeBindingError (rolling back this call's assumptions)
+        when a claim cannot land there."""
+        node = self.store.get("Node", f"/{hostname}")
+        labels = node.labels if node is not None else {}
+        created: List[str] = []
+        try:
+            for pvc in self._pending_claims(pod):
+                key = pvc.meta.key
+                reason, assumption = self._resolve_claim(pvc, labels)
+                if reason is not None:
+                    raise VolumeBindingError(f"{reason} from {hostname}")
+                if assumption is None:
+                    continue  # already bound, or assumed by a sibling
+                self._claim_assumed[key] = assumption
+                if assumption:
+                    self._assumed_pvs[assumption] = key
+                created.append(key)
+        except VolumeBindingError:
+            for key in created:
+                pv_name = self._claim_assumed.pop(key, "")
+                if pv_name:
+                    self._assumed_pvs.pop(pv_name, None)
+            raise
+
+    def bind_volumes(self, pod) -> None:
+        """Commit the pod's assumed claims: a static PV takes the claim, a
+        dynamic claim gets a new PV; the PVC becomes Bound."""
+        for pvc in self._pending_claims(pod):
+            key = pvc.meta.key
+            if key not in self._claim_assumed:
+                continue  # committed by a sibling, or already bound
+            pv_name = self._claim_assumed.pop(key)
+            if not pv_name:
+                # dynamic provisioning: a network PV named by the claim's uid
+                pv_name = f"pv-{pvc.meta.uid}"
+                if self.store.get("PV", f"/{pv_name}") is None:
+                    self.store.create("PV", PersistentVolume(
+                        meta=Metadata(name=pv_name, namespace=""), capacity=pvc.size,
+                        storage_class=pvc.storage_class, claim_ref=key, provisioned=True))
+            else:
+                pv = self.store.get("PV", f"/{pv_name}")
+                if pv is None:
+                    # the assumed PV vanished between allocate and bind:
+                    # fail the bind rather than bind the claim to nothing
+                    self._assumed_pvs.pop(pv_name, None)
+                    raise VolumeBindingError(
+                        f"assumed volume {pv_name} for claim {key} vanished before bind")
+                pv.claim_ref = key
+                self.store.update("PV", pv)
+                self._assumed_pvs.pop(pv_name, None)
+            pvc.volume_name = pv_name
+            pvc.phase = "Bound"
+            self.store.update("PVC", pvc)
+            self._pvc_obj_cache[key] = pvc
+            self._pv_list_cache = None  # a PV was created or changed
+            self._pv_by_name = {}
+
+    def clear_session(self) -> None:
+        self._claim_assumed.clear()
+        self._assumed_pvs.clear()
+        self._claims_cache.clear()
+        self._static_cache.clear()
+        self._pvc_obj_cache.clear()
+        self._pv_list_cache = None
+        self._pv_by_name = {}
+
+
 class SchedulerCache:
     _ERR_LOG_CAP = 1000
 
@@ -44,6 +261,7 @@ class SchedulerCache:
         self.scheduler_name = scheduler_name
         self.default_queue = default_queue
         self.evictor = Evictor(store)
+        self.volume_binder = VolumeBinder(store)
         self.bind_log: List[Tuple[str, str]] = []
         self.evict_log: List[Tuple[str, str]] = []  # (pod_key, reason)
         # failed side effects, retried by the next cycle's fresh snapshot
@@ -90,3 +308,12 @@ class SchedulerCache:
                 self._record_err("evict", key, RuntimeError(err))
             else:
                 self.evict_log.append((key, reason))
+
+    def allocate_volumes(self, pod, hostname: str) -> None:
+        self.volume_binder.allocate_volumes(pod, hostname)
+
+    def bind_volumes(self, pod) -> None:
+        self.volume_binder.bind_volumes(pod)
+
+    def clear_session_volumes(self) -> None:
+        self.volume_binder.clear_session()

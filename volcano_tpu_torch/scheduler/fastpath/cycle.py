@@ -1,8 +1,9 @@
 """FastCycle: the array-native cycle driver.
 
 The port's cut of ``volcano_tpu/scheduler/fastpath/cycle.py``: drain ->
-snapshot -> enqueue -> reclaim -> allocate solve -> backfill -> dynamic
-solve -> preempt -> publish, with the same ``phases`` keys.  Reclaim and
+snapshot (with the volume verdicts, timed as ``vol_solve`` when volume
+pods are pending) -> enqueue -> reclaim -> allocate solve -> backfill ->
+dynamic solve -> preempt -> publish, with the same ``phases`` keys.  Reclaim and
 preempt run only when their conservative prechecks find possible work
 (``_reclaim_possible``, ``_preempt_possible``), through ``FastContention``
 (``scheduler/fast_victims.py``).  Where the JAX ``FastCycle.try_run``
@@ -37,9 +38,6 @@ from volcano_tpu_torch.scheduler.tensor_backend import TensorBackend
 OVERCOMMIT_FACTOR = 1.2
 
 _OBJECT_PATH = "ROADMAP queue 1 item 8 (object path)"
-_ROADMAP_FOR = {
-    "pending pods with volumes": "ROADMAP queue 1 item 6 (volume slice)",
-}
 
 
 class FastCycle:
@@ -57,6 +55,8 @@ class FastCycle:
         # pg key -> (phase, running, failed, succeeded, message) last written
         self._status_fp: Dict[str, tuple] = {}
         self._err_seen = 0
+        # publish clears the volume binder's session once a cycle
+        self._vol_session_cleared = False
 
     def conf_unsupported(self):
         """Why the conf is outside this port's slices, or None: plugins the
@@ -82,6 +82,7 @@ class FastCycle:
         if why:
             raise NotImplementedError(why)
         ph = self.phases = {}
+        self._vol_session_cleared = False
         t = time.perf_counter()
         self.sync_mirror()
         m = self.mirror
@@ -89,17 +90,27 @@ class FastCycle:
         ph["drain"] = time.perf_counter() - t
         why = m.ineligible_reason()
         if why is not None:
-            raise NotImplementedError(f"{why}: {_ROADMAP_FOR.get(why, _OBJECT_PATH)}")
+            raise NotImplementedError(f"{why}: {_OBJECT_PATH}")
         t = time.perf_counter()
-        snap, aux = build_fast_snapshot(m, self.nodeaffinity_weight)
+        snap, aux = build_fast_snapshot(
+            m, self.nodeaffinity_weight,
+            dyn_batch=(self.conf.solve_mode, self.probe.batch_threshold))
         ph["snapshot"] = time.perf_counter() - t
         if snap is None:
             raise NotImplementedError(f"cluster without queues: {_OBJECT_PATH}")
+        if aux["vol_solve_s"]:
+            # the volume verdicts, carved out of the snapshot phase; the
+            # phase appears only when volume pods are pending
+            ph["vol_solve"] = aux["vol_solve_s"]
+            ph["snapshot"] -= aux["vol_solve_s"]
         if aux["partition_unsafe"]:
             raise NotImplementedError(
                 "a dynamic job outranks an express job in its queue "
                 f"(partition unsafe): {_OBJECT_PATH}")
         if aux["residue_keys"]:
+            # the JAX cycle hands these jobs to its residue engine; the
+            # reasons name the classes (intern-overflow, best-effort,
+            # volume-shape, volume-claim-cap, contended-claims, batch-wave)
             why = sorted(set(aux["residue_reasons"].values()))
             raise NotImplementedError(
                 f"dynamic jobs the device solve cannot express ({', '.join(why)}): "

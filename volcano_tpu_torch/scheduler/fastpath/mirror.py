@@ -8,10 +8,12 @@ filled per-(predicate class, node) cells, and the interned host ports and
 pod (anti)affinity selectors with their per-node resident counts (the
 dynamic solve's state), and the conformance veto of the contention passes
 (``p_evictable``; a pod being deleted is RELEASING, its capacity counted
-as releasing by the snapshot).  Left out (later slices): checkpoints, the digest
-audit, disruption budgets and volume state — pods with volumes are only
-flagged, and ``ineligible_reason`` names them so the cycle can refuse the
-cluster.
+as releasing by the snapshot), and the pods that mount volumes
+(``p_has_vol``, with their objects in ``vol_pod_objs``): their verdicts are
+resolved once a cycle from the store's PV/PVC/StorageClass state by
+``build_fast_snapshot`` (``volsolve.py``), so the volume kinds are watched
+but carry no mirror state.  Left out (later slices): checkpoints, the
+digest audit and disruption budgets.
 """
 
 from __future__ import annotations
@@ -112,7 +114,8 @@ class ArrayMirror:
         self.default_queue = default_queue
         self._watches = [
             (kind, store.watch(kind))
-            for kind in ("Pod", "Node", "PodGroup", "Queue", "PriorityClass")
+            for kind in ("Pod", "Node", "PodGroup", "Queue", "PriorityClass",
+                         "PV", "PVC", "StorageClass")
         ]
         self._synced = False
         self._resyncing = False
@@ -137,8 +140,12 @@ class ArrayMirror:
         # (p_dyn_expr) and the device dynamic solve serves it
         self.p_dynamic = np.zeros((0,), bool)
         self.p_dyn_expr = np.zeros((0,), bool)
-        # claim-referencing pods: outside this port's slice
+        # claim-referencing pods (pod.volumes non-empty): their verdict
+        # (express, device volume solve or residue) is resolved once a cycle
+        # from the store, and vol_pod_objs keeps their objects so that it
+        # needs no store round trip per pod
         self.p_has_vol = np.zeros((0,), bool)
+        self.vol_pod_objs: Dict[int, object] = {}
         self.p_class = np.zeros((0,), np.int32)
         # conformance veto: system-critical pods are never victims
         self.p_evictable = np.zeros((0,), bool)
@@ -245,9 +252,11 @@ class ArrayMirror:
                     self._del_node(ev.obj) if deleted else self._on_node(ev.obj)
                 elif kind == "PodGroup":
                     self._del_podgroup(ev.obj) if deleted else self._on_podgroup(ev.obj)
-                else:
+                elif kind in ("Queue", "PriorityClass"):
                     # queue / priority-class changes re-wire job and pod rows
                     resync = True
+                # volume objects carry no mirror state: the snapshot reads
+                # them from the store once a cycle
         if resync:
             self._resync()
 
@@ -647,6 +656,9 @@ class ArrayMirror:
             or (aff is not None and (aff.pod_affinity or aff.pod_anti_affinity))
         )
         self.p_has_vol[row] = bool(pod.volumes)
+        self.vol_pod_objs.pop(row, None)
+        if pod.volumes:
+            self.vol_pod_objs[row] = pod
         self.p_dyn_expr[row] = self._intern_pod_bits(row, pod) and self.p_dynamic[row]
         self.p_evictable[row] = not (
             pod.spec.priority_class in ("system-cluster-critical", "system-node-critical")
@@ -672,6 +684,8 @@ class ArrayMirror:
         row = self.pods.release(key)
         self.unlinked_pods.discard(key)
         self._clear_wait(key)
+        if row is not None:
+            self.vol_pod_objs.pop(row, None)
         if row is not None and self.p_live[row]:
             self.p_live[row] = False
             self._sub_contrib(row)
@@ -681,17 +695,12 @@ class ArrayMirror:
     # -- eligibility ----------------------------------------------------------
 
     def ineligible_reason(self) -> Optional[str]:
-        """Why this cluster is outside the port's slices, or None: the
-        structural conditions of the JAX mirror, plus pending pods with
-        volumes (the JAX cycle hands those to the volume partition, which
-        this port does not have yet).  Pending pods with host ports or pod
-        (anti)affinity are in: their jobs go to the dynamic solve."""
+        """Why this cluster is outside the fast cycle, or None: the
+        structural conditions of the JAX mirror.  Pending pods with host
+        ports, pod (anti)affinity or volumes are in: the snapshot
+        partitions their jobs out of the express solve."""
         if self.class_overflow:
             return "predicate class cap exceeded"
         if self.unlinked_pods:
             return "pods whose PodGroup is absent"
-        P = len(self.p_live)
-        pend = self.p_live[:P] & (self.p_status[:P] == _PENDING)
-        if (pend & self.p_has_vol[:P]).any():
-            return "pending pods with volumes"
         return None

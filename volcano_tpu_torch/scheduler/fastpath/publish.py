@@ -2,9 +2,11 @@
 
 The port's cut of ``volcano_tpu/scheduler/fastpath/publish.py``: gang-gated
 binds and the contention passes' evictions through the cache's synchronous
-bulk verbs, and PodGroup status writes (phase, counts, the Unschedulable condition with its fit-error
-message) with the fingerprint discipline that skips no-op writes.  Left
-out: the columnar segment, volume binds and the Unschedulable event.
+bulk verbs, PodGroup status writes (phase, counts, the Unschedulable
+condition with its fit-error message) with the fingerprint discipline that
+skips no-op writes, and the volume binds of the pods that mount claims
+(``volume_bind_filter``).  Left out: the columnar segment and the
+Unschedulable event.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 
 from volcano_tpu_torch.api.objects import PodGroupCondition, PodGroupStatus
 from volcano_tpu_torch.api.types import PodGroupPhase
+from volcano_tpu_torch.scheduler.cache import VolumeBindingError
 from volcano_tpu_torch.scheduler.fastpath.mirror import _BOUND, _FAILED, _RUNNING, _SUCCEEDED
 
 
@@ -54,11 +57,11 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
     if express.size:
         pub = express[gang_ready[task_job_solve[express]]]
         if pub.size:
-            cols.append((pe_rows_solve[pub], task_node[pub]))
+            cols.append(volume_bind_filter(fc, m, pe_rows_solve[pub], task_node[pub], names))
     if be_rows.size:
         keep = gang_ready[pod_j[be_rows]]
         if keep.any():
-            cols.append((be_rows[keep], be_nodes[keep]))
+            cols.append(volume_bind_filter(fc, m, be_rows[keep], be_nodes[keep], names))
     binds: List[Tuple[str, str]] = []
     for prows, nidx in cols:
         m.p_status[prows] = _BOUND
@@ -138,6 +141,39 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
             if err is not None:
                 fc.cache._record_err("status", op["key"], RuntimeError(err))
     return binds
+
+
+def volume_bind_filter(fc, m, prows, nidx, names):
+    """allocate_volumes + bind_volumes for the published binds (mirror rows
+    ``prows`` on node indices ``nidx``) of pods that mount claims.  The
+    solve already chose the nodes, so this validates and commits: static
+    assumptions take their PV and dynamic claims get one provisioned.  A
+    concurrent store writer (a PV gone or taken since the solve) raises
+    VolumeBindingError: that bind is dropped and recorded, the pod stays
+    pending and a later cycle retries.  Returns the kept (rows, nodes);
+    volume-free binds pass on one vectorized check."""
+    hasv = m.p_has_vol[prows]
+    if not hasv.any():
+        return prows, nidx
+    if not fc._vol_session_cleared:
+        # a fresh binder view once a cycle (claims and PVs are cached per
+        # session)
+        fc.cache.clear_session_volumes()
+        fc._vol_session_cleared = True
+    keep = np.ones(prows.size, bool)
+    for i in np.nonzero(hasv)[0]:
+        pod = m.vol_pod_objs.get(int(prows[i]))
+        if pod is None or not pod.volumes:
+            continue
+        try:
+            fc.cache.allocate_volumes(pod, names[int(nidx[i])])
+            fc.cache.bind_volumes(pod)
+        except VolumeBindingError as e:
+            fc.cache._record_err("bind_volumes", pod.meta.key, e)
+            keep[i] = False
+    if keep.all():
+        return prows, nidx
+    return prows[keep], nidx[keep]
 
 
 def fit_errors(fc, snap, aux, task_node, task_kind, unready,

@@ -4,15 +4,16 @@ The port's copy of ``build_fast_snapshot`` and ``build_dyn_solve_inputs``
 from ``volcano_tpu/scheduler/fastpath/snapshot_build.py``: the
 ArrayMirror's row tables become a bucketed ``TensorSnapshot`` of the
 express jobs, with the same semantics as the JAX builder (asserted by
-tests/test_torch_cycle.py and tests/test_torch_dynamic.py), plus the
-dynamic-job partition (host ports, pod (anti)affinity), the dynamic
-solve's inputs, and the victim pool of the contention passes.  Volume pods never reach here — the mirror's
-``ineligible_reason`` refuses such clusters first.  Everything is
-host-side numpy.
+tests/test_torch_cycle.py, tests/test_torch_dynamic.py and
+tests/test_torch_volumes.py), plus the dynamic-job partition (host ports,
+pod (anti)affinity, volumes: the per-cycle volume verdicts of
+``volsolve.py``), the dynamic solve's inputs, and the victim pool of the
+contention passes.  Everything is host-side numpy.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -30,6 +31,7 @@ from volcano_tpu_torch.scheduler.fastpath.mirror import (
 )
 from volcano_tpu_torch.scheduler.kernels import pack_bits, unpack_bits
 from volcano_tpu_torch.scheduler.snapshot import TensorSnapshot, _bucket
+from volcano_tpu_torch.scheduler.volsolve import RESIDUE, VolumeCycleIndex, VolumePartition
 
 
 def _task_arrays(m: ArrayMirror, pe_rows: np.ndarray, pod_j: np.ndarray,
@@ -93,9 +95,12 @@ def _task_arrays(m: ArrayMirror, pe_rows: np.ndarray, pod_j: np.ndarray,
 
 def build_fast_snapshot(
     m: ArrayMirror, nodeaffinity_weight: float = 1.0,
+    dyn_batch: Optional[Tuple[str, int]] = None,
 ) -> Tuple[Optional[TensorSnapshot], dict]:
     """(snapshot, aux) from the mirror; aux carries the row <-> key maps the
-    publish step needs.  The snapshot is None when no queue exists."""
+    publish step needs.  The snapshot is None when no queue exists.
+    ``dyn_batch``: (solve mode, batch threshold) of the dynamic solve, for
+    the batch-wave demotion of volume jobs."""
     R = len(m.dims)
     eps = np.array([MIN_MILLI_CPU, MIN_MEMORY] + [MIN_SCALAR] * (R - 2), np.float32)
 
@@ -223,22 +228,56 @@ def build_fast_snapshot(
         job_ready_init[:n_jobs] = np.bincount(
             pod_j[rd_rows], minlength=n_jobs).astype(np.int32)[:n_jobs]
 
+    # volume verdicts, once a cycle and only when claim-referencing pending
+    # pods exist (volume-free cycles do no work here): each referenced claim
+    # interns to a feasible-node set and capacity group, each pod to
+    # express (no constraining claim), device or residue
+    vol_dev = vol_res_mask = volume_partition = None
+    vol_res_reason: Dict[int, str] = {}
+    vol_solve_s = 0.0
+    vol_rows = np.nonzero(pend_all & m.p_has_vol[:P])[0]
+    if vol_rows.size:
+        t0 = time.perf_counter()
+        volume_partition = VolumePartition(VolumeCycleIndex(
+            m.store, [m.node_objs[r] for r in node_rows_arr], n_live_ct))
+        vol_dev = np.zeros(P, bool)
+        vol_res_mask = np.zeros(P, bool)
+        for r in vol_rows:
+            pod = m.vol_pod_objs.get(int(r))
+            if pod is None:
+                continue
+            ns = pod.meta.namespace
+            tv = volume_partition.classify_task(int(r), [f"{ns}/{name}" for name in pod.volumes])
+            if tv.verdict == "device":
+                vol_dev[r] = True
+            elif tv.verdict == RESIDUE:
+                vol_res_mask[r] = True
+                vol_res_reason[int(r)] = tv.reason
+        vol_solve_s = time.perf_counter() - t0
+
     # dynamic-job partition: a job with any pending resident-state pod
-    # (host ports, pod (anti)affinity) leaves the express solve WHOLE.  Its
-    # pods all interned and none best-effort: the device dynamic solve
-    # serves it after the express pass (dyn_expr_job); otherwise it is a
-    # residue job for the object path
+    # (host ports, pod (anti)affinity, constraining volumes) leaves the
+    # express solve WHOLE.  Its pods all expressible and none best-effort:
+    # the device dynamic solve serves it after the express pass
+    # (dyn_expr_job); otherwise it is a residue job for the object path
     nJ = max(n_jobs, 1)
     dyn_job = np.zeros(nJ, bool)
-    dyn_rows = np.nonzero(pend_all & m.p_dynamic[:P])[0]
+    dyn_pod_mask = pend_all & m.p_dynamic[:P]
+    if vol_dev is not None:
+        dyn_pod_mask = dyn_pod_mask | (pend_all & (vol_dev | vol_res_mask))
+    dyn_rows = np.nonzero(dyn_pod_mask)[0]
     if dyn_rows.size and n_jobs:
         dyn_job[np.unique(pod_j[dyn_rows])] = True
     resid_job = np.zeros(nJ, bool)
     residue_reason_job: Dict[int, str] = {}
     if dyn_rows.size and n_jobs:
-        nonexpr = dyn_rows[(m.p_dynamic[:P] & ~m.p_dyn_expr[:P])[dyn_rows]]
+        nonexpr_row = m.p_dynamic[:P] & ~m.p_dyn_expr[:P]
+        if vol_res_mask is not None:
+            nonexpr_row = nonexpr_row | vol_res_mask
+        nonexpr = dyn_rows[nonexpr_row[dyn_rows]]
         for r in nonexpr:
-            residue_reason_job.setdefault(int(pod_j[r]), "intern-overflow")
+            residue_reason_job.setdefault(int(pod_j[r]),
+                                          vol_res_reason.get(int(r), "intern-overflow"))
         if nonexpr.size:
             resid_job[np.unique(pod_j[nonexpr])] = True
         # a pending best-effort pod of a dynamic job needs a backfill with
@@ -249,7 +288,33 @@ def build_fast_snapshot(
             for j in be_j[dyn_job[be_j]]:
                 residue_reason_job.setdefault(int(j), "best-effort")
             resid_job[be_j[dyn_job[be_j]]] = True
+    if volume_partition is not None:
+        # the contention closure: jobs sharing a capacity group with any
+        # residue-classed claimant join the residue, transitively
+        row_job = {int(r): int(pod_j[r]) for r in vol_rows if 0 <= int(pod_j[r]) < nJ}
+        resid_set = set(np.nonzero(resid_job)[0].tolist())
+        for j, why in volume_partition.demote_contended_jobs(row_job, resid_set).items():
+            resid_job[j] = True
+            residue_reason_job.setdefault(j, why)
     dyn_expr_job = dyn_job & ~resid_job
+    # batch-wave demotion: volume state forces the dynamic solve onto the
+    # exact kernel, so when the dyn-expr wave would take the batched one,
+    # the volume-device jobs step aside to the residue and the wave keeps
+    # its kernel
+    if dyn_batch is not None and vol_dev is not None and dyn_batch[0] != "exact":
+        vol_dev_job = np.zeros(nJ, bool)
+        vd_rows = np.nonzero(pend_all & vol_dev)[0]
+        if vd_rows.size and n_jobs:
+            vol_dev_job[np.unique(pod_j[vd_rows])] = True
+        cand = vol_dev_job & dyn_expr_job
+        if cand.any():
+            nbr = np.nonzero(pend_all & ~m.p_best_effort[:P])[0]
+            wave = int(dyn_expr_job[pod_j[nbr]].sum()) if nbr.size else 0
+            if dyn_batch[0] == "batch" or wave > dyn_batch[1]:
+                for j in np.nonzero(cand)[0]:
+                    resid_job[j] = True
+                    residue_reason_job.setdefault(int(j), "batch-wave")
+                dyn_expr_job = dyn_job & ~resid_job
     # job-order safety: a dynamic job outranking an express contender in its
     # queue would be served after it by the express-first partition
     partition_unsafe = False
@@ -354,6 +419,10 @@ def build_fast_snapshot(
         "residue_keys": {m.jobs.row_key[job_rows[j]] for j in np.nonzero(resid_job[:n_jobs])[0]},
         "residue_reasons": {m.jobs.row_key[job_rows[j]]: why
                             for j, why in residue_reason_job.items() if j < n_jobs},
+        # the cycle's volume interning: the dyn-solve payload and publish's
+        # volume binds read it; None on volume-free cycles
+        "volume_partition": volume_partition,
+        "vol_solve_s": vol_solve_s,
     }
     return snap, aux
 
@@ -416,10 +485,10 @@ def build_dyn_solve_inputs(m: ArrayMirror, snap: TensorSnapshot, aux: dict,
                            ready) -> Optional[dict]:
     """The dynamic solve's inputs: the dyn-expr jobs' pending task arrays,
     the node, job and queue state after the express solve and backfill,
-    and the resident port / selector state — this cycle's express and
-    backfill placements folded in.  Port and selector payloads stay packed
-    u32 words (selector counts u16).  None when no dyn-expr job has
-    pending work."""
+    the resident port / selector state — this cycle's express and backfill
+    placements folded in — and the volume payload (``volsel``, or None).
+    Port and selector payloads stay packed u32 words (selector counts u16).
+    None when no dyn-expr job has pending work."""
     n_jobs = aux["n_jobs"]
     nJ = max(n_jobs, 1)
     pod_j = aux["pod_j"]
@@ -488,8 +557,13 @@ def build_dyn_solve_inputs(m: ArrayMirror, snap: TensorSnapshot, aux: dict,
 
     sched_mask = np.zeros(J, bool)
     sched_mask[:n_jobs] = dyn_expr[:n_jobs]
+    # the volume payload of the routed tasks; None when none carries device
+    # volume state, so port/affinity-only waves keep their volsel-free solve
+    vp = aux.get("volume_partition")
+    volsel = vp.payload(rows, T, N) if vp is not None else None
     return {
         "rows": rows,
+        "volsel": volsel,
         "task_req": ta["task_req"], "task_job": ta["task_job"],
         "task_class": ta["task_class"], "task_valid": ta["task_valid"],
         "class_mask": ta["class_mask"], "class_score": ta["class_score"],

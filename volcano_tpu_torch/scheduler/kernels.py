@@ -35,6 +35,19 @@ unpacked (bool port bits, f32 selector vectors).  The interpod score term
 ``score + w_podaff * dot`` is one fused multiply-add on the reference too;
 ``dot`` is a sum of small integers, exact in float32 in any order.
 
+The ``volsel`` extension (volumes, K6, exact solve only) also arrives
+packed: ``(task_volmask [T, VW], task_claims [T, 2], claim_group [CL],
+group_cap [G, N], group_global [G])`` — each task's feasible-node bitset
+words (bit n % 32 of word n // 32), its claims as a 64-bit set (at most
+``CLAIM_CAP`` claims), each claim's capacity group, the per-(group, node)
+count of Available PVs, and whether a group's pool is global (network
+PVs: an assumption decrements the whole row) or node-pinned (only the
+taken node's column).  u32 words travel as int32.  ``pack_volsel`` packs
+the JAX package's form (``volsolve.VolumePartition.payload``: the claims
+as a [T, CL] bool matrix).  A solve with volsel returns ``VolSolveOut``:
+``SolveOut`` plus the final ``claim_node`` [CL] (-1: unassumed) and
+``vol_cap`` [G, N]; the inputs are not modified.
+
 Tie-breaks are part of the contract: every argmax/argmin takes the lowest
 index among equals, and the batch solve's top-K follows ``lax.top_k``
 (values descending, lower index first among equals).
@@ -70,6 +83,8 @@ LAUNCHES: Dict[str, int] = {
     # counts under its solve's own name)
     "allocate_solve_portsel": 0,
     "allocate_solve_batch_portsel": 0,
+    # K6: launches of K2 that carried the volsel extension
+    "allocate_solve_volsel": 0,
 }
 
 
@@ -249,6 +264,51 @@ def _unpack_portsel(portsel) -> _Portsel:
 
 
 # --------------------------------------------------------------------------
+# K6: the volsel payload, packed for the solve and unpacked for the plain one
+# --------------------------------------------------------------------------
+
+#: most distinct constraining claims one dynamic solve carries (the volume
+#: partition interns no more), and the u32 words a task's claim set takes
+CLAIM_CAP = 64
+CLAIM_WORDS = CLAIM_CAP // 32
+
+
+def pack_volsel(payload: dict) -> tuple:
+    """The solve's packed ``volsel`` tuple (numpy, u32 words as int32) from
+    a payload dict in the JAX package's form: ``task_volmask_w`` [T, VW]
+    u32, ``task_claims`` [T, CL] bool (CL <= 64), ``claim_group`` [CL] i32,
+    ``group_cap`` [G, N] i32, ``group_global`` [G] bool."""
+    claims = np.asarray(payload["task_claims"], bool)
+    T, CL = claims.shape
+    if CL > CLAIM_CAP:
+        raise ValueError(f"volsel: {CL} claims, at most {CLAIM_CAP}")
+    bits = np.zeros((T, CLAIM_CAP), bool)
+    bits[:, :CL] = claims
+    return (
+        np.ascontiguousarray(payload["task_volmask_w"], np.uint32).view(np.int32),
+        pack_bits(bits).view(np.int32),
+        np.ascontiguousarray(payload["claim_group"], np.int32),
+        np.ascontiguousarray(payload["group_cap"], np.int32),
+        np.ascontiguousarray(payload["group_global"], bool),
+    )
+
+
+class _Volsel(NamedTuple):
+    task_volmask: torch.Tensor  # [T, VW] int32 words
+    claims: torch.Tensor        # [T, CL] bool
+    claim_group: torch.Tensor   # [CL] int64
+    group_cap: torch.Tensor     # [G, N] int32
+    group_global: torch.Tensor  # [G] bool
+
+
+def _unpack_volsel(volsel) -> _Volsel:
+    mask_w, claims_w, claim_group, group_cap, group_global = volsel
+    CL = claim_group.shape[0]
+    return _Volsel(mask_w, unpack_bits(claims_w)[:, :CL], claim_group.long(),
+                   group_cap, group_global)
+
+
+# --------------------------------------------------------------------------
 # K2: exact sequential allocate solve
 # --------------------------------------------------------------------------
 
@@ -264,6 +324,13 @@ class SolveOut(NamedTuple):
     used: torch.Tensor
     dropped: torch.Tensor
     steps: torch.Tensor
+
+
+#: ``SolveOut`` of a solve with volsel, plus its final volume state:
+#: ``claim_node`` [CL] (the node each claim assumed its volume on, or -1) and
+#: ``vol_cap`` [G, N] (the Available PVs left per group and node)
+VolSolveOut = NamedTuple("VolSolveOut", [(f, torch.Tensor) for f in SolveOut._fields]
+                         + [("claim_node", torch.Tensor), ("vol_cap", torch.Tensor)])
 
 
 def _job_keys(names, job_prio, ready, job_min, job_alloc, total):
@@ -289,11 +356,12 @@ def allocate_solve_plain(
     w_least, w_balanced,
     job_key_order=("priority", "gang", "drf"),
     use_gang_ready=True, use_proportion=True,
-    portsel=None,
+    portsel=None, volsel=None,
 ):
     """The reference allocate loop, one select or place step at a time;
     ``portsel`` (packed, see the module note) adds the resident-state
-    predicates and the interpod score."""
+    predicates and the interpod score, ``volsel`` (packed) the volume
+    predicates and the claims' assumptions."""
     dev = idle.device
     N, R = idle.shape
     T = task_req.shape[0]
@@ -314,6 +382,12 @@ def allocate_solve_plain(
     ps = _unpack_portsel(portsel) if portsel is not None else None
     if ps is not None:
         node_ports, node_selcnt = ps.node_ports.clone(), ps.node_selcnt.clone()
+    vs = _unpack_volsel(volsel) if volsel is not None else None
+    if vs is not None:
+        claim_node = torch.full((vs.claim_group.shape[0],), -1, dtype=torch.int32, device=dev)
+        vol_cap = vs.group_cap.clone()
+        claim_glob = vs.group_global[vs.claim_group]
+        nidx = torch.arange(N, device=dev, dtype=torch.int32)
     counter = 0
     cur_job = -1
     while True:
@@ -362,6 +436,19 @@ def allocate_solve_plain(
             req_ok = torch.all(matched | (ps.task_aff[t][None, :] == 0), dim=1)
             anti_ok = torch.all(~matched | (ps.task_anti[t][None, :] == 0), dim=1)
             feasible = feasible & ports_ok & req_ok & anti_ok
+        if vs is not None:
+            # the task's feasible-node bits; per claim: an assumed claim
+            # admits its node only (pinned pool) or any node (global pool),
+            # an unassumed one the nodes whose group has a PV left
+            vmask = unpack_bits(vs.task_volmask[t:t + 1])[0, :N]
+            mine = torch.nonzero(vs.claims[t]).flatten()
+            cn = claim_node[mine]
+            claim_ok = torch.where(
+                (cn >= 0)[:, None],
+                claim_glob[mine][:, None] | (nidx[None, :] == cn[:, None]),
+                vol_cap[vs.claim_group[mine]] > 0,
+            )
+            feasible = feasible & vmask & claim_ok.all(dim=0)
         if not bool(feasible.any()):
             dropped[j] = True
             cur_job = -1
@@ -396,11 +483,24 @@ def allocate_solve_plain(
             # the placed pod is resident now (pipelined ones too)
             node_ports[n] = node_ports[n] | ps.task_ports[t]
             node_selcnt[n] = node_selcnt[n] + ps.task_self[t]
-    return SolveOut(
-        task_node, task_kind, task_seq, ready, job_alloc, queue_alloc,
-        idle, releasing, used, dropped,
-        torch.tensor(counter, dtype=torch.int32, device=dev),
-    )
+        if vs is not None and use_idle:
+            # the first allocation of each claim assumes a volume here (a
+            # pipelined placement assumes nothing): the claim pins to n and
+            # its group's count drops by the claims newly assumed (a
+            # segment sum) — over the whole row for a global pool, at n
+            # for a pinned one
+            newly = vs.claims[t] & (claim_node < 0)
+            cnt = torch.zeros(vol_cap.shape[0], dtype=torch.int32, device=dev)
+            cnt.index_add_(0, vs.claim_group, newly.to(torch.int32))
+            vol_cap = vol_cap - torch.where(vs.group_global, cnt, 0)[:, None]
+            vol_cap[:, n] -= torch.where(vs.group_global, 0, cnt)
+            claim_node = torch.where(newly, n, claim_node)
+    steps = torch.tensor(counter, dtype=torch.int32, device=dev)
+    out = (task_node, task_kind, task_seq, ready, job_alloc, queue_alloc,
+           idle, releasing, used, dropped, steps)
+    if vs is not None:
+        return VolSolveOut(*out, claim_node, vol_cap)
+    return SolveOut(*out)
 
 
 # --------------------------------------------------------------------------
@@ -718,10 +818,13 @@ class SolveArgs(ctypes.Structure):
         "p_node", "p_t", "p_job", "p_flags", "best_pipe",
         "node_ports", "node_selcnt", "task_ports", "task_aff", "task_anti",
         "task_self", "node_match",
+        "task_volmask", "task_claims", "claim_group", "group_global",
+        "claim_node", "vol_cap",
     )] + [(name, ctypes.c_int64) for name in (
         "N", "R", "T", "J", "Q", "C", "M", "P", "K", "F",
         "n_keys", "key0", "key1", "key2",
         "use_gang_ready", "use_proportion", "has_portsel",
+        "VW", "CL", "G", "has_volsel",
     )] + [("w_least", ctypes.c_float), ("w_balanced", ctypes.c_float),
           ("w_podaff", ctypes.c_float)]
 
@@ -801,12 +904,14 @@ _SOLVE_ARGS = (
 
 def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
                  use_gang_ready, use_proportion, m_chunk=512, p_chunk=16,
-                 portsel=None):
+                 portsel=None, volsel=None):
     """Validate the solve inputs ``a`` (name -> tensor), allocate outputs and
     scratch, and launch csrc/allocate_solve.cu (``batch=False``) or
     csrc/allocate_batch.cu (``batch=True``), with the K5 extension when
-    ``portsel`` is given.  Returns a ``SolveOut`` whose four decision
-    fields are views of one int32 [3T + J] buffer (see ``pack_outputs``)."""
+    ``portsel`` is given and the K6 extension (exact solve only) when
+    ``volsel`` is.  Returns a ``SolveOut`` (a ``VolSolveOut`` with volsel)
+    whose four decision fields are views of one int32 [3T + J] buffer (see
+    ``pack_outputs``)."""
     dev = a["idle"].device
     N, R = a["idle"].shape
     T = a["task_req"].shape[0]
@@ -888,6 +993,33 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
             "task_ports": task_ports, "task_aff": aff, "task_anti": anti,
             "task_self": self_, "node_match": empty((N, SEL_WORDS), i32),
         })
+    VW = CL = G = 0
+    if volsel is not None:
+        mask_w, claims_w, claim_group, group_cap, group_global = volsel
+        VW, CL, G = mask_w.shape[1], claim_group.shape[0], group_cap.shape[0]
+        for name, t, dt, shape in (
+            ("task_volmask", mask_w, i32, (T, VW)),
+            ("task_claims", claims_w, i32, (T, CLAIM_WORDS)),
+            ("claim_group", claim_group, i32, (CL,)),
+            ("group_cap", group_cap, i32, (G, N)),
+            ("group_global", group_global, b8, (G,)),
+        ):
+            _check(name, t, dt, shape, dev)
+        if VW * 32 < N or not 1 <= CL <= CLAIM_CAP or G < 1:
+            raise ValueError(f"volsel: {VW} mask words for {N} nodes, {CL} claims "
+                             f"(1..{CLAIM_CAP}), {G} groups")
+        # claim groups index vol_cap rows: checked here, where a bad one
+        # would otherwise read outside it on the card
+        if bool(((claim_group < 0) | (claim_group >= G)).any()):
+            raise ValueError("volsel: claim_group outside [0, G)")
+        # the claim and capacity state change as claims assume volumes:
+        # working copies, returned as the solve's final volume state
+        st.update({
+            "task_volmask": mask_w, "task_claims": claims_w, "claim_group": claim_group,
+            "group_global": group_global,
+            "claim_node": torch.full((CL,), -1, dtype=i32, device=dev),
+            "vol_cap": group_cap.clone(),
+        })
     args = SolveArgs()
     for fname, _ in SolveArgs._fields_:
         # working copies first: the kernels update them in place
@@ -903,16 +1035,19 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
     args.use_gang_ready = int(bool(use_gang_ready))
     args.use_proportion = int(bool(use_proportion))
     args.has_portsel = int(portsel is not None)
+    args.VW, args.CL, args.G = VW, CL, G
+    args.has_volsel = int(volsel is not None)
     args.w_least = float(w_least)
     args.w_balanced = float(w_balanced)
     args.w_podaff = float(w_podaff)
     fn = lib.vtt_allocate_solve_batch if batch else lib.vtt_allocate_solve
     _raise_on(fn(ctypes.byref(args), stream), fn.__name__)
-    return SolveOut(
-        packed[:T], packed[T:2 * T], packed[2 * T:3 * T], packed[3 * T:],
-        st["job_alloc"], st["queue_alloc"], st["idle"], st["releasing"],
-        st["used"], st["dropped"], st["ctl"][0],
-    )
+    out = (packed[:T], packed[T:2 * T], packed[2 * T:3 * T], packed[3 * T:],
+           st["job_alloc"], st["queue_alloc"], st["idle"], st["releasing"],
+           st["used"], st["dropped"], st["ctl"][0])
+    if volsel is not None:
+        return VolSolveOut(*out, st["claim_node"], st["vol_cap"])
+    return SolveOut(*out)
 
 
 _POLICY_ARGS = ("job_key_order", "use_gang_ready", "use_proportion")
@@ -923,8 +1058,12 @@ def _solve(batch, args, kwargs, plain):
     a = dict(zip(names, args))
     a.update({k: v for k, v in kwargs.items() if k in names})
     opts = {k: v for k, v in kwargs.items() if k not in names}
+    if batch and opts.get("volsel") is not None:
+        # as in the JAX package: volume state is ordered, so volumes force
+        # the exact solve
+        raise TypeError("allocate_solve_batch takes no volsel: volumes force the exact solve")
     unknown = set(opts) - set(_POLICY_ARGS + ("portsel",)
-                              + (("m_chunk", "p_chunk") if batch else ()))
+                              + (("m_chunk", "p_chunk") if batch else ("volsel",)))
     if unknown:
         raise TypeError(f"unexpected arguments {sorted(unknown)}")
     dev = a["idle"].device
@@ -939,23 +1078,26 @@ def _solve(batch, args, kwargs, plain):
         _build.load(), _stream(dev), batch, a, w_least, w_balanced,
         opts.get("job_key_order", ("priority", "gang", "drf")),
         opts.get("use_gang_ready", True), opts.get("use_proportion", True),
-        **({k: opts[k] for k in ("m_chunk", "p_chunk", "portsel") if k in opts}),
+        **({k: opts[k] for k in ("m_chunk", "p_chunk", "portsel", "volsel") if k in opts}),
     )
     name = "allocate_solve_batch" if batch else "allocate_solve"
     LAUNCHES[name] += 1
     if opts.get("portsel") is not None:
         LAUNCHES[name + "_portsel"] += 1
+    if opts.get("volsel") is not None:
+        LAUNCHES["allocate_solve_volsel"] += 1
     return out
 
 
 def allocate_solve(*args, **kwargs):
-    """Exact sequential allocate solve (JAX ``kernels.allocate_solve`` with
-    ``volsel=None``; ``portsel=`` packed, see the module note).  Returns a
-    ``SolveOut``."""
+    """Exact sequential allocate solve (JAX ``kernels.allocate_solve``;
+    ``portsel=`` and ``volsel=`` packed, see the module note).  Returns a
+    ``SolveOut``, or a ``VolSolveOut`` when ``volsel`` is given."""
     return _solve(False, args, kwargs, allocate_solve_plain)
 
 
 def allocate_solve_batch(*args, **kwargs):
     """Batched-rounds allocate solve (JAX ``kernels.allocate_solve_batch``
-    with ``exact_topk=True``; ``portsel=`` packed, see the module note)."""
+    with ``exact_topk=True``; ``portsel=`` packed, see the module note).
+    Raises TypeError for ``volsel``: volumes force the exact solve."""
     return _solve(True, args, kwargs, allocate_solve_batch_plain)

@@ -5,7 +5,9 @@ simargs.py``: the dense argument set of the allocate solves for a synthetic
 cluster — N nodes with mixed cpu/mem capacity, T pending tasks grouped into
 J gang jobs across Q weighted queues — plus the water-fill inputs.
 ``build_portsel_args`` adds seeded host-port and pod (anti)affinity
-bitsets for the same cluster, packed as the port's solves take them.
+bitsets for the same cluster, packed as the port's solves take them, and
+``build_volsel_args`` seeded volume payloads (``kernels.pack_volsel``
+packs them for the port's solve).
 ``build_victim_sim`` (also verbatim) is the victim-selection scenario of
 the contention solves: running tasks spread over nodes, with the derived
 node, job and queue state; ``build_storm_sim`` adds seeded preemptor jobs
@@ -231,6 +233,69 @@ def build_portsel_args(
 
 PORTSEL_KEYS = ("node_ports", "task_ports", "node_selcnt", "task_aff",
                 "task_anti", "task_self", "w_podaff")
+
+
+#: job kinds of build_volsel_args, in the order every seed lays them out
+VOLSEL_KINDS = ("plain", "bound", "pinned", "global", "two-claims", "bound-pinned",
+                "exhausted", "pinned")
+
+
+def build_volsel_args(n_nodes: int, n_tasks: int, seed: int = 0, n_jobs: int = 0):
+    """Seeded ``volsel`` payload, in the JAX package's form
+    (``volsolve.VolumePartition.payload``), for the ``build_sim_args``
+    cluster of the same ``n_nodes`` / ``n_tasks`` / ``n_jobs``.
+
+    Job j is of kind ``VOLSEL_KINDS[j % 8]``: ``plain`` (no volume state),
+    ``bound`` (its tasks may use a seeded set of one to three nodes, as a
+    bound PV's affinity gives), ``pinned`` (one claim the job's tasks share,
+    of group 0: node-pinned PVs on a few nodes, one or two a node, so that
+    the two ``pinned`` jobs contend for them), ``global`` (one shared claim
+    of group 1: network PVs, a count on every node), ``two-claims`` (two
+    claims of group 0 on every task, which its first placement assumes
+    together), ``bound-pinned`` (a node set and a group-0 claim), and
+    ``exhausted`` (a claim of group 2, whose pool is empty).
+
+    Returns a dict: task_volmask_w [T, VW] u32, task_claims [T, CL] bool,
+    claim_group [CL] i32, group_cap [G, N] i32, group_global [G] bool."""
+    rng = np.random.default_rng(seed + 2000)
+    N, T = _bucket(n_nodes), _bucket(n_tasks)
+    n_jobs = n_jobs or n_tasks
+    tpj = n_tasks // n_jobs
+    VW = max(1, (N + 31) // 32)
+    G = 4
+    group_cap = np.zeros((G, N), np.int32)
+    pins = rng.choice(n_nodes, size=min(3, n_nodes), replace=False)
+    group_cap[0, pins] = rng.integers(1, 3, pins.size)
+    group_cap[1, :] = int(rng.integers(1, 4))
+    group_global = np.array([False, True, True, False])
+    node_sets = np.zeros((T, N), bool)
+    node_sets[:] = True
+    claims = []          # (task rows, group)
+    for j in range(n_jobs):
+        rows = np.arange(j * tpj, (j + 1) * tpj)
+        kind = VOLSEL_KINDS[j % len(VOLSEL_KINDS)]
+        if kind in ("bound", "bound-pinned"):
+            allowed = np.zeros(N, bool)
+            allowed[rng.choice(n_nodes, size=int(rng.integers(1, 4)), replace=False)] = True
+            node_sets[rows] = allowed
+        if kind in ("pinned", "bound-pinned"):
+            claims.append((rows, 0))
+        elif kind == "global":
+            claims.append((rows, 1))
+        elif kind == "two-claims":
+            claims += [(rows, 0), (rows, 0)]
+        elif kind == "exhausted":
+            claims.append((rows, 2))
+    CL = _bucket(max(len(claims), 1), minimum=8)
+    task_claims = np.zeros((T, CL), bool)
+    claim_group = np.zeros(CL, np.int32)
+    for c, (rows, g) in enumerate(claims):
+        task_claims[rows, c] = True
+        claim_group[c] = g
+    bits = np.zeros((T, VW * 32), bool)
+    bits[:, :N] = node_sets
+    return dict(task_volmask_w=pack_bits(bits), task_claims=task_claims,
+                claim_group=claim_group, group_cap=group_cap, group_global=group_global)
 
 
 def build_victim_sim(

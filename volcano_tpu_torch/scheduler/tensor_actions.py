@@ -4,9 +4,11 @@ The port's cut of ``volcano_tpu/scheduler/tensor_actions.py:448-764``:
 pick the exact or the batched solve, upload the snapshot, and let the
 solve write its four decision outputs into one int32 [3T + J] array (the
 layout of the JAX ``_packed_solve`` wrapper), which is the only thing the
-host copies back.  The dynamic solve (host ports, pod (anti)affinity) runs
-the same kernels with the ``portsel`` extension over the dyn-expr jobs'
-tasks; its bitsets go up packed and are tested in place by the kernels.
+host copies back.  The dynamic solve (host ports, pod (anti)affinity,
+volumes) runs the same kernels with the ``portsel`` extension over the
+dyn-expr jobs' tasks, and with the ``volsel`` extension when a task carries
+volume state, which forces the exact solve; the bitsets go up packed and
+are tested in place by the kernels.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from volcano_tpu_torch.scheduler.kernels import (
-    allocate_solve, allocate_solve_batch, pack_outputs,
+    allocate_solve, allocate_solve_batch, pack_outputs, pack_volsel,
 )
 
 
@@ -67,11 +69,14 @@ def _fetch(out, T, J):
 def dyn_solve_args(backend, snap, dyn, n_pending=None):
     """(solve, positional args, keyword args) of the dynamic solve for the
     dyn inputs ``dyn`` (``build_dyn_solve_inputs``), on the device: the
-    same exact-or-batch rule as the express solve; the u32 words go up as
-    int32 (bit-identical), the u16 selector counts as int32."""
+    same exact-or-batch rule as the express solve, except that volume state
+    (``dyn["volsel"]``) is ordered and always takes the exact solve; the u32
+    words go up as int32 (bit-identical), the u16 selector counts as int32."""
     if n_pending is None:
         n_pending = int(dyn["task_valid"].sum())
-    solve = allocate_solve_batch if use_batch_solve(backend, n_pending) else allocate_solve
+    has_vol = dyn.get("volsel") is not None
+    use_batch = not has_vol and use_batch_solve(backend, n_pending)
+    solve = allocate_solve_batch if use_batch else allocate_solve
     w_least, w_balanced = backend.score_weights()
     dev = backend.to_device
 
@@ -104,6 +109,8 @@ def dyn_solve_args(backend, snap, dyn, n_pending=None):
         use_proportion=backend.proportion_queue_order,
         portsel=portsel,
     )
+    if has_vol:
+        kwargs["volsel"] = tuple(dev(x) for x in pack_volsel(dyn["volsel"]))
     return solve, args, kwargs
 
 
