@@ -62,7 +62,22 @@ Phases, each fatal on failure:
    JAX package leaves such gangs too);
 11. K6 kernel — K2 with portsel and volsel against its plain version on the
    dynamic-solve inputs cfg5v-2000 captured, the final claim and capacity
-   state included (the sweep of phase 2 holds it on small seeded payloads).
+   state included (the sweep of phase 2 holds it on small seeded payloads);
+12. e2e cfg6r-be — cfg6r plus one empty-request pod first in gang rec000's
+   task order: the fast cycle declines a best-effort reclaimer, so every
+   cycle runs the object path (session, plugins, the five actions over the
+   tensor backend); the reclaimer's attempt is a host detour with a
+   resync, every other preemptor attempt one K7 (victim_step) launch.
+   Three cycles, victims reaped: the cfg6 eviction invariants and the JAX
+   package's per-cycle pattern at 1/20 scale; K7 launches and device ms,
+   the resyncs' walls and the object cycle's walls (session open, each
+   action, close) per cycle;
+13. K7 kernel — victim_step against its plain version at bench config 4's
+   shape (16 solves timed), over the three modes and five flags on small
+   seeded inputs, and on the first inputs cfg6r-be gave it;
+14. e2e cfg5-obj — config 5's nodes and 5,000 gangs x 20 (no best-effort
+   pods) with fast_path off: the object cycle's allocate runs K3 and the
+   bulk apply; every gang task bound in cycle 1; two cycles.
 
 With ``--profile``, a torch.profiler pass over one config-5 batch solve
 and one config-5 cycle runs after the build: device time by kernel and the
@@ -758,6 +773,7 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
             f"{phases['dyn_solve'] - solve_walls[0]:.4f} s, upload + solve + fetch "
             f"{solve_walls[0]:.4f} s")
     want = {k: 1 for k in want} if not isinstance(want, dict) else want
+    forbid = tuple(forbid) + OBJECT_KERNELS
     for name, at_least in want.items():
         if launches[name] < at_least:
             raise AssertionError(f"{label}: kernel {name} launched {launches[name]} times on "
@@ -1163,7 +1179,7 @@ def phase_contention(label, cell, want, forbid):
         if launches[name] < at_least:
             raise AssertionError(f"{label}: kernel {name} launched {launches[name]} times on "
                                  f"the main path, expected at least {at_least}")
-    for name in forbid:
+    for name in tuple(forbid) + OBJECT_KERNELS:
         if launches[name]:
             raise AssertionError(f"{label}: kernel {name} launched ({launches[name]})")
     log(f"[{label}] invariants hold; evictions per cycle {[h[0] for h in history]}")
@@ -1356,6 +1372,311 @@ def phase_victim_kernels(captured, launches):
     return rows
 
 
+# cfg6r-be: cfg6r plus one empty-request pod, no selector, first in gang
+# rec000's task order; per cycle (evictions, pipelines, binds), the victims
+# reaped between cycles: the JAX package's pattern at 1/20 scale
+# (tests/test_torch_object.py CFG6R_BE_PATTERN), at full width
+CFG6R_BE_PATTERN = [(19, 10, 0), (19, 10, 0), (19, 10, 0)]
+# the object path's kernels; the fast-path cells must not launch them
+OBJECT_KERNELS = ("victim_step",)
+
+
+class ObjectCapture:
+    """During the object cells: the first victim_step call's inputs, CUDA
+    events around every call (its device time per cycle), the walls of the
+    victim driver's resyncs (the snapshot rebuilt after a host detour), and
+    every pipeline as (pod key, node name)."""
+
+    def __init__(self):
+        import torch
+
+        from volcano_tpu_torch.scheduler import session as S
+        from volcano_tpu_torch.scheduler import statement as ST
+        from volcano_tpu_torch.scheduler import tensor_actions as TA
+
+        self.first, self.events, self.resyncs, self.pipes = None, [], [], []
+        self._saved = [(TA, "victim_step", TA.victim_step),
+                       (TA._VictimDriver, "resync", TA._VictimDriver.resync),
+                       (S.Session, "pipeline", S.Session.pipeline),
+                       (ST.Statement, "pipeline", ST.Statement.pipeline)]
+        step, resync = TA.victim_step, TA._VictimDriver.resync
+        rec = self
+
+        def victim_step(*args, **kwargs):
+            if rec.first is None:
+                rec.first = (args, kwargs)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*args, **kwargs)
+            end.record()
+            rec.events.append((start, end))
+            return out
+
+        def timed_resync(driver):
+            t = time.perf_counter()
+            resync(driver)
+            rec.resyncs.append(time.perf_counter() - t)
+
+        TA.victim_step = victim_step
+        TA._VictimDriver.resync = timed_resync
+        for cls in (S.Session, ST.Statement):
+            orig = cls.pipeline
+
+            def pipeline(self_, task, hostname, _orig=orig):
+                rec.pipes.append((task.key, hostname))
+                return _orig(self_, task, hostname)
+
+            cls.pipeline = pipeline
+
+    def take_device_ms(self):
+        """Device ms of the victim_step calls since the last take."""
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        self.events = []
+        return ms
+
+    def close(self):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _object_walls(sched):
+    return {k: round(v, 4) for k, v in sched.object_phases.items()}
+
+
+def phase_object_cfg6r_be():
+    """Scheduler.run_once on the card over cfg6r-be for three cycles, the
+    victims reaped after each: every cycle takes the object path (the fast
+    cycle declines a best-effort reclaimer), the best-effort reclaimer's
+    attempt is a host detour and every other preemptor attempt is one K7
+    launch.  Launch counts are reset just before each cycle and read just
+    after it.  Returns (first-cycle launches, the first K7 call's inputs)."""
+    import torch
+
+    from volcano_tpu_torch.api import POD_GROUP_KEY, Metadata, Pod, PodSpec, Resource
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    label = "e2e cfg6r-be"
+    t0 = time.perf_counter()
+    store = build_contended_store("cfg6r")
+    store.create("Pod", Pod(
+        meta=Metadata(name="hbe000", namespace="default", annotations={POD_GROUP_KEY: "rec000"}),
+        spec=PodSpec(resources=Resource())))
+    log(f"[{label}] store built: {CFG6['nodes']} nodes, "
+        f"{CFG6['run_jobs'] * CFG6['tasks_per_job']} residents, "
+        f"{CFG6['reclaim_gangs']} reclaiming gangs + 1 best-effort pod "
+        f"({time.perf_counter() - t0:.1f} s)")
+    sched = Scheduler(store, conf=full_conf("cuda"))
+    log(f"[{label}] prewarm {sched.prewarm():.2f} s")
+    cap = ObjectCapture()
+    history, evicted, first = [], [], None
+    try:
+        for cycle in range(len(CFG6R_BE_PATTERN)):
+            n_ev, n_pipe, n_bind = (len(sched.cache.evict_log), len(cap.pipes),
+                                    len(sched.cache.bind_log))
+            n_resync = len(cap.resyncs)
+            reset_launches()
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            if cycle == 0:
+                first = launches
+            if sched.last_path != "object":
+                raise AssertionError(f"{label}: cycle {cycle + 1} took the {sched.last_path} "
+                                     "path, the reference's takes the object path")
+            victims = [k for k, _ in sched.cache.evict_log[n_ev:]]
+            pipes = cap.pipes[n_pipe:]
+            history.append((len(victims), len(pipes), len(sched.cache.bind_log) - n_bind))
+            resyncs = cap.resyncs[n_resync:]
+            log(f"[{label}] cycle {cycle + 1} wall {wall:.3f} s walls "
+                f"{json.dumps(_object_walls(sched))} (evictions, pipelines, binds) "
+                f"{history[-1]}; victim_step launches {launches['victim_step']}, device "
+                f"{cap.take_device_ms():.3f} ms; {len(resyncs)} resyncs "
+                f"{[round(r, 4) for r in resyncs]} s; launches {launches}")
+            if launches["victim_step"] < 1:
+                raise AssertionError(f"{label}: victim_step not launched in cycle {cycle + 1}")
+            for name in CONTENTION_KERNELS:
+                if launches[name]:
+                    raise AssertionError(f"{label}: kernel {name} launched ({launches[name]})")
+            check_contention_cycle(label, "cfg6r", store, victims, pipes)
+            evicted += victims
+            for key in victims:  # the kubelet reaps the victims
+                store.delete("Pod", key)
+    finally:
+        captured = cap.first
+        cap.close()
+    if len(set(evicted)) != len(evicted):
+        raise AssertionError(f"{label}: a pod was evicted twice")
+    if history != CFG6R_BE_PATTERN:
+        raise AssertionError(f"{label}: per-cycle (evictions, pipelines, binds) {history}, "
+                             f"the reference's pattern is {CFG6R_BE_PATTERN}")
+    log(f"[{label}] invariants hold; evictions per cycle {[h[0] for h in history]}")
+    return first, captured
+
+
+def phase_object_cfg5():
+    """Config 5's nodes and 5,000 gangs x 20 (no best-effort pods: on the
+    object path each would take a Python scan of the 10,000 nodes in
+    backfill) under full_conf("cuda") with fast_path "off": the object
+    cycle's allocate runs K3 and applies its 100,000 placements in bulk;
+    every gang task binds in cycle 1.  Two cycles.  Returns the first
+    cycle's launches."""
+    import torch
+
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    label = "e2e cfg5-obj"
+    t0 = time.perf_counter()
+    store = build_cfg5_store(CFG5["jobs"], 0)
+    log(f"[{label}] store built: {CFG5['nodes']} nodes, {CFG5['jobs']} gangs x "
+        f"{CFG5['tasks_per_job']}, no best-effort ({time.perf_counter() - t0:.1f} s)")
+    conf = full_conf("cuda")
+    conf.fast_path = "off"
+    sched = Scheduler(store, conf=conf)
+    log(f"[{label}] prewarm {sched.prewarm():.2f} s")
+    cap = ObjectCapture()
+    try:
+        for cycle in range(2):
+            reset_launches()
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            if cycle == 0:
+                first = launches
+            gang, be = check_placement(store)
+            log(f"[{label}] cycle {cycle + 1} wall {wall:.3f} s walls "
+                f"{json.dumps(_object_walls(sched))}; bound {gang} gang tasks; victim_step "
+                f"launches {launches['victim_step']}, device {cap.take_device_ms():.3f} ms; "
+                f"launches {launches}")
+            if cycle == 0 and gang != CFG5["jobs"] * CFG5["tasks_per_job"]:
+                raise AssertionError(f"{label}: {gang} gang tasks bound in cycle 1")
+    finally:
+        cap.close()
+    for name in ("water_fill", "allocate_solve_batch", "victim_step"):
+        if first[name] < 1:
+            raise AssertionError(f"{label}: kernel {name} not launched on the main path")
+    for name in ("allocate_solve",) + CONTENTION_KERNELS:
+        if first[name]:
+            raise AssertionError(f"{label}: kernel {name} launched ({first[name]})")
+    return first
+
+
+def _step_compare(name, out_k, out_p):
+    """The packed decision equal, integer and boolean state equal, float
+    state within rtol 1e-6; returns the largest float difference."""
+    import torch
+
+    if not torch.equal(out_k.packed, out_p.packed.to(out_k.packed.device)):
+        raise AssertionError(f"{name}: decision {out_k.packed[:4].tolist()} != "
+                             f"{out_p.packed[:4].tolist()} or victim masks differ")
+    err = 0.0
+    for f in out_k.state._fields:
+        x, y = getattr(out_k.state, f), getattr(out_p.state, f)
+        if x.dtype.is_floating_point:
+            err = max(err, float((x - y).abs().max()) if x.numel() else 0.0)
+            if not torch.allclose(x, y, rtol=1e-6, atol=0.0):
+                raise AssertionError(f"{name}: state {f} differs (max abs err {err})")
+        elif not torch.equal(x, y):
+            raise AssertionError(f"{name}: state {f} differs")
+    return err
+
+
+def _step_bound(c, s, t_req, out):
+    """Bytes: every input read once (constants, state, request), the new
+    state and the packed decision written once; operations: the victim
+    core's per-row work over the live pool and the per-node score over the
+    valid nodes."""
+    import torch
+
+    ins = [x for x in c if torch.is_tensor(x)] + list(s) + [t_req]
+    b = nbytes(*ins) + nbytes(*out.state, out.packed)
+    ops = int(s.run_live.sum()) * VICTIM_ROW_OPS + int(c.node_valid.sum()) * EXACT_NODE_OPS
+    return bound_ms(b, ops)
+
+
+def phase_victim_step_kernel(captured, launches):
+    """K7 against its plain version on the card: at bench config 4's shape
+    (build_victim_sim(10000, 100000, 5000, seed=4), a [2000, 4Gi] preemptor
+    of the reserved job 0, mode queue with the gang and drf vetoes: 16
+    solves timed), over the three modes and the five flags on small seeded
+    inputs, and on the first inputs cfg6r-be gave it."""
+    import torch
+
+    from volcano_tpu_torch import interop
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+    from volcano_tpu_torch.scheduler.simargs import build_victim_sim
+
+    dev = torch.device("cuda")
+
+    def plain_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    c_np, s_np = build_victim_sim(10_000, 100_000, 5_000, seed=4)
+    c, s = interop.victim_from_arrays(c_np, s_np, dev)
+    t_req = torch.tensor([2000.0, 4.0 * (1 << 30)], device=dev)
+    kw = dict(mode="queue", use_gang=True, use_drf=True)
+    out_k = VK.victim_step(c, s, t_req, 0, 0, 0, **kw)
+    out_p, p_ms = plain_ms(lambda: VK.victim_step_plain(c, s, t_req, 0, 0, 0, **kw))
+    err = _step_compare("victim_step config 4", out_k, out_p)
+    ms = cuda_ms(lambda: VK.victim_step(c, s, t_req, 0, 0, 0, **kw), 16)
+    b, kind = _step_bound(c, s, t_req, out_k)
+    head = out_k.packed[:4].tolist()
+    if not head[0]:
+        raise AssertionError("victim_step config 4: never assigned")
+    log(f"[kernels] victim_step config 4 ok: assigned {head[0]}, node {head[1]}, clean "
+        f"{head[2]}, {head[3]} victims; {ms:.4f} ms over 16 solves (plain {p_ms:.1f} ms, "
+        f"bound {b:.5f} ms by {kind})")
+
+    n = n_assigned = 0
+    for seed in range(2):
+        cs, ss = interop.victim_from_arrays(*build_victim_sim(16, 120, 10, n_queues=3,
+                                                              seed=seed), dev)
+        rng = np.random.default_rng(seed)
+        for mode in ("queue", "job", "reclaim"):
+            for flags in range(32):
+                fkw = dict(use_gang=bool(flags & 1), use_drf=bool(flags & 2),
+                           use_prop=bool(flags & 4), use_conformance=bool(flags & 8),
+                           order_by_priority=bool(flags & 16))
+                tr = torch.tensor([float(rng.choice([0, 500, 1500, 3000])),
+                                   float(rng.choice([0, 512, 2048]) * (1 << 20))], device=dev)
+                jt = int(rng.integers(0, 10))
+                qt = int(cs.job_queue[jt])
+                o_k = VK.victim_step(cs, ss, tr, 0, jt, qt, mode=mode, **fkw)
+                o_p = VK.victim_step_plain(cs, ss, tr, 0, jt, qt, mode=mode, **fkw)
+                err = max(err, _step_compare(f"victim_step sweep {seed} {mode} {fkw}", o_k, o_p))
+                n += 1
+                n_assigned += int(o_p.packed[0])
+    log(f"[kernels] victim_step sweep ok: {n} small solves ({n_assigned} assigned) equal to "
+        f"the plain version")
+
+    args, ckw = captured
+    c2, s2, tr2 = args[0], args[1], args[2]
+    o_k = VK.victim_step(*args, **ckw)
+    o_p, p2_ms = plain_ms(lambda: VK.victim_step_plain(*args, **ckw))
+    err = max(err, _step_compare("victim_step cfg6r-be", o_k, o_p))
+    ms2 = cuda_ms(lambda: VK.victim_step(*args, **ckw), 16)
+    b2, kind2 = _step_bound(c2, s2, tr2, o_k)
+    log(f"[kernels] victim_step cfg6r-be first inputs ok ({ckw['mode']}, decision "
+        f"{o_k.packed[:4].tolist()}): {ms2:.4f} ms (plain {p2_ms:.1f} ms, bound {b2:.5f} ms "
+        f"by {kind2})")
+    return {"victim_step": dict(
+        name="victim_step", route="cuda", source="volcano_tpu_torch/csrc/victim_step.cu",
+        replaces="volcano_tpu/scheduler/victim_kernels.py:362", launches=launches,
+        max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b, bound_by=kind, library_ms=None,
+        cell="config 4 shape; launches: cfg6r-be cycle 1", cfg6r_be_ms=ms2,
+        cfg6r_be_plain_ms=p2_ms, cfg6r_be_bound_ms=b2)}
+
+
 def _device_ms(events):
     """{name: (calls, device ms)} of profiler key averages, device time only."""
     out = {}
@@ -1478,6 +1799,9 @@ def main(argv):
                     forbid=vol_forbid, max_cycles=MAX_CYCLES_DYNAMIC, capture=cap,
                     volume_tasks=2000)
     kern.update(phase_volsel_kernel(cap[0], vol["allocate_solve_volsel"]))
+    be_launches, step_in = phase_object_cfg6r_be()
+    kern.update(phase_victim_step_kernel(step_in, be_launches["victim_step"]))
+    phase_object_cfg5()
     for name, row in kern.items():
         if name in ("water_fill", "allocate_solve_batch"):
             row["launches"] = batch[name]

@@ -5,7 +5,8 @@ plain cluster description and instantiated in both packages
 (``volcano_tpu_torch.interop.store_from_spec`` and the JAX twin below);
 the port's ``Scheduler(store, full_conf("cpu"))`` must give the JAX
 ``Scheduler(store, full_conf("tpu"))``'s binds, its evictions in order,
-its pipelined (pod, node) pairs in order, and its PodGroup phases.
+its pipelined (pod, node) pairs in order, and its PodGroup phases.  A
+cycle the fast passes decline runs on both object paths alike.
 """
 
 import random
@@ -347,18 +348,22 @@ def test_cfg6_pattern_at_tenth_scale_equals_jax(cell, monkeypatch):
     assert history == TENTH_PATTERN[cell]
 
 
-def test_stranded_walk_raises_naming_the_object_path():
+def test_stranded_walk_raises_naming_the_object_path(monkeypatch):
     """clean=False: qa's reclaimer (2 cpu / 256Mi) walks n0 first, whose qb
     victim (1 cpu / 1Gi) is valid (not below the request in memory) but
     does not cover it; the reference's walk would strand that eviction.
-    The JAX cycle replays such a cycle through its object path, which the
-    port does not have yet, so the port raises."""
+    The fast cycle declines such a cycle as the JAX one does, and the port's
+    object path replays the walk on the host: binds, evictions, pipelines,
+    pods and PodGroups equal the JAX Scheduler's."""
+    from test_torch_object import run_pair as run_object_pair
+
     spec = {"queues": [{"name": "qa", "weight": 3}, {"name": "qb"}, {"name": "default"}],
             "nodes": [{"name": f"n{i}", "allocatable": NODE} for i in range(2)],
             "podgroups": [_group("b0", "qb"), _group("b1", "qb"), _group("a0", "qa")],
             "pods": [_pod("b0-0", "b0", cpu="1", memory="1Gi", node="n0"),
                      _pod("b1-0", "b1", cpu="4", memory="1Gi", node="n1"),
                      _pod("a0-0", "a0", cpu="2", memory="256Mi")]}
-    store = interop.store_from_spec(spec)
-    with pytest.raises(NotImplementedError, match="clean=False.*item 8"):
-        Scheduler(store, conf=tconf.full_conf("cpu")).run_once()
+    history, sched = run_object_pair(monkeypatch, lambda: jax_store_from_spec(spec),
+                                     jax_conf=jconf.full_conf("tpu"), fast_path="auto")
+    assert sched.last_path == "object"
+    assert history[0][0] >= 1  # the stranded eviction happened, as in the reference

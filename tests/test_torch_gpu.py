@@ -27,6 +27,7 @@ from volcano_tpu_torch.scheduler.simargs import (
     build_reclaim_abort_sim,
     build_sim_args,
     build_storm_sim,
+    build_victim_sim,
     build_volsel_args,
     storm_inputs,
 )
@@ -516,3 +517,75 @@ def test_gpu_scalar_resource_solves_match_plain(kind):
         out_k, out_p = (VK.preempt_rounds(c, s, *args, **kw),
                         VK.preempt_rounds_plain(c, s, *args, **kw))
     _assert_victims_same(out_k, out_p)
+
+
+def _assert_step_same(out_k, out_p):
+    assert torch.equal(out_k.packed.cpu(), out_p.packed.cpu())
+    for f in VK.VictimState._fields:
+        x, y = getattr(out_k.state, f).cpu(), getattr(out_p.state, f).cpu()
+        if x.dtype.is_floating_point:
+            assert torch.allclose(x, y, rtol=1e-6, atol=0.0), f
+        else:
+            assert torch.equal(x, y), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["queue", "job", "reclaim"])
+@pytest.mark.parametrize("seed", range(3))
+def test_gpu_victim_step_matches_plain(mode, seed):
+    """K7 against its plain version over the veto and order flags, empty
+    requests included, and its input state left untouched."""
+    dev = _cuda()
+    c_np, s_np = build_victim_sim(16, 120, 10, n_queues=3, seed=seed)
+    c, s = interop.victim_from_arrays(c_np, s_np, dev)
+    before = [x.clone() for x in s]
+    rng = np.random.default_rng(seed)
+    n_assigned = 0
+    for flags in range(32):
+        kw = dict(use_gang=bool(flags & 1), use_drf=bool(flags & 2), use_prop=bool(flags & 4),
+                  use_conformance=bool(flags & 8), order_by_priority=bool(flags & 16))
+        t_req = torch.tensor([float(rng.choice([0, 500, 1500, 3000])),
+                              float(rng.choice([0, 512, 2048]) * (1 << 20))], device=dev)
+        jt = int(rng.integers(0, 10))
+        qt = int(c_np["job_queue"][jt])
+        out_k = VK.victim_step(c, s, t_req, 0, jt, qt, mode=mode, **kw)
+        out_p = VK.victim_step_plain(c, s, t_req, 0, jt, qt, mode=mode, **kw)
+        _assert_step_same(out_k, out_p)
+        n_assigned += int(out_p.packed[0])
+    assert n_assigned
+    for a, b in zip(before, s):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gpu_victim_step_launches_and_rejects_bad_input():
+    dev = _cuda()
+    c_np, s_np = build_victim_sim(8, 40, 6, seed=1)
+    c, s = interop.victim_from_arrays(c_np, s_np, dev)
+    VK.reset_launches()
+    VK.victim_step(c, s, torch.tensor([1000.0, float(1 << 30)], device=dev), 0, 0, 0)
+    assert VK.LAUNCHES["victim_step"] == 1
+    with pytest.raises(ValueError):
+        VK.victim_step(c, s, torch.tensor([1000.0, float(1 << 30)], device=dev), 0, 99, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(2))
+def test_gpu_object_path_equals_cpu(seed):
+    """fast_path off: the object path's preempt and reclaim drive K7 on the
+    card and evict, pipeline and bind what the cpu backend does."""
+    _cuda()
+    outs = []
+    for backend in ("cuda", "cpu"):
+        store = interop.store_from_spec(_contended_spec(seed))
+        conf = full_conf(backend)
+        conf.fast_path = "off"
+        sched = Scheduler(store, conf=conf)
+        VK.reset_launches()
+        sched.run_once()
+        if backend == "cuda":
+            assert VK.LAUNCHES["victim_step"] >= 1
+        outs.append((list(sched.cache.evict_log), dict(sched.cache.bind_log),
+                     {g.meta.key: g.status.phase for g in store.list("PodGroup")}))
+    assert outs[0] == outs[1]
+    assert outs[0][0], "the store must contend"

@@ -679,7 +679,7 @@ def test_residue_volume_shapes_raise_where_jax_leaves_the_device(case):
         reasons = got
     assert got == reasons
     want = "|".join(sorted(set(reasons.values())))
-    with pytest.raises(NotImplementedError, match=rf"({want}).*queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match=rf"({want}).*queue 1 item 8b"):
         tpair[1].run_once()
 
 

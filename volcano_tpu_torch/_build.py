@@ -28,7 +28,8 @@ from typing import List, Optional
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = ("water_fill.cu", "allocate_solve.cu", "allocate_batch.cu",
-           "reclaim_solve.cu", "preempt_solve.cu", "preempt_rounds.cu")
+           "reclaim_solve.cu", "preempt_solve.cu", "preempt_rounds.cu",
+           "victim_step.cu")
 BUILD_DIR = _PKG.parent / "build" / "volcano_tpu_torch"
 LIB_NAME = "libvtt_kernels.so"
 NVCC_FLAGS = [
@@ -91,6 +92,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.vtt_reclaim_solve, lib.vtt_preempt_solve, lib.vtt_preempt_rounds):
         fn.argtypes = [vp, vp]
         fn.restype = ci
+    lib.vtt_victim_step.argtypes = [vp, ci, ci, ci, ci, vp, vp]
+    lib.vtt_victim_step.restype = ci
     return lib
 
 

@@ -1,14 +1,15 @@
 """Multi-dimensional resource arithmetic with epsilon-tolerant comparisons.
 
-The port's own copy of ``volcano_tpu/api/resource.py``, cut to what the
-express cycle uses.  Dimensions: cpu in millicores, memory in bytes, plus
-scalar resources in milli-units; differences below MIN_MILLI_CPU /
-MIN_MEMORY / MIN_SCALAR count as equal.
+The port's own copy of ``volcano_tpu/api/resource.py``.  Dimensions: cpu
+in millicores, memory in bytes, plus scalar resources in milli-units;
+differences below MIN_MILLI_CPU / MIN_MEMORY / MIN_SCALAR count as equal,
+``sub`` refuses to go negative, and ``fit_delta`` subtracts request +
+epsilon so that a negative dimension means insufficient.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Iterable, Mapping, Optional
 
 MIN_MILLI_CPU = 10.0
 MIN_MEMORY = 10.0 * 1024 * 1024
@@ -84,6 +85,64 @@ class Resource:
             return False
         return all(q < MIN_SCALAR for q in self.scalars.values())
 
+    def is_zero(self, name: str) -> bool:
+        if name == "cpu":
+            return self.milli_cpu < MIN_MILLI_CPU
+        if name == "memory":
+            return self.memory < MIN_MEMORY
+        return self.scalars.get(name, 0.0) < MIN_SCALAR
+
+    def less(self, other: "Resource") -> bool:
+        """Strictly less in every dimension."""
+        if not (self.milli_cpu < other.milli_cpu and self.memory < other.memory):
+            return False
+        if not self.scalars:
+            return bool(other.scalars)
+        for name, q in self.scalars.items():
+            if q >= other.scalars.get(name, 0.0):
+                return False
+        return True
+
+    def less_equal(self, other: "Resource") -> bool:
+        """Epsilon-tolerant <= in every dimension."""
+        ok = (
+            self.milli_cpu < other.milli_cpu
+            or abs(other.milli_cpu - self.milli_cpu) < MIN_MILLI_CPU
+        ) and (
+            self.memory < other.memory or abs(other.memory - self.memory) < MIN_MEMORY
+        )
+        if not ok:
+            return False
+        for name, q in self.scalars.items():
+            oq = other.scalars.get(name, 0.0)
+            if not (q < oq or abs(oq - q) < MIN_SCALAR):
+                return False
+        return True
+
+    def add(self, other: "Resource") -> "Resource":
+        self.milli_cpu += other.milli_cpu
+        self.memory += other.memory
+        for name, q in other.scalars.items():
+            self.scalars[name] = self.scalars.get(name, 0.0) + q
+        return self
+
+    def sub(self, other: "Resource") -> "Resource":
+        if not other.less_equal(self):
+            raise ValueError(f"resource not sufficient: {self} sub {other}")
+        self.milli_cpu -= other.milli_cpu
+        self.memory -= other.memory
+        for name, q in other.scalars.items():
+            if name in self.scalars:
+                self.scalars[name] -= q
+        return self
+
+    def multi(self, ratio: float) -> "Resource":
+        self.milli_cpu *= ratio
+        self.memory *= ratio
+        for name in self.scalars:
+            self.scalars[name] *= ratio
+        return self
+
     def set_max(self, other: "Resource") -> "Resource":
         self.milli_cpu = max(self.milli_cpu, other.milli_cpu)
         self.memory = max(self.memory, other.memory)
@@ -91,6 +150,49 @@ class Resource:
             if q > self.scalars.get(name, 0.0):
                 self.scalars[name] = q
         return self
+
+    def fit_delta(self, req: "Resource") -> "Resource":
+        """Subtract req + epsilon per requested dim; negative => insufficient."""
+        if req.milli_cpu > 0:
+            self.milli_cpu -= req.milli_cpu + MIN_MILLI_CPU
+        if req.memory > 0:
+            self.memory -= req.memory + MIN_MEMORY
+        for name, q in req.scalars.items():
+            if q > 0:
+                self.scalars[name] = self.scalars.get(name, 0.0) - (q + MIN_SCALAR)
+        return self
+
+    def get(self, name: str) -> float:
+        if name == "cpu":
+            return self.milli_cpu
+        if name == "memory":
+            return self.memory
+        return self.scalars.get(name, 0.0)
+
+    def names(self) -> Iterable[str]:
+        return ["cpu", "memory", *self.scalars.keys()]
+
+    @staticmethod
+    def min(l: "Resource", r: "Resource") -> "Resource":
+        res = Resource(min(l.milli_cpu, r.milli_cpu), min(l.memory, r.memory))
+        if l.scalars and r.scalars:
+            for name, q in l.scalars.items():
+                res.scalars[name] = min(q, r.scalars.get(name, 0.0))
+        return res
+
+    @staticmethod
+    def share(l: float, r: float) -> float:
+        """l/r with 0/0 = 0 and x/0 = 1."""
+        if r == 0:
+            return 0.0 if l == 0 else 1.0
+        return l / r
+
+    def dominant_share(self, total: "Resource") -> float:
+        """Max over dims of allocated/total: the DRF share."""
+        res = 0.0
+        for name in total.names():
+            res = max(res, Resource.share(self.get(name), total.get(name)))
+        return res
 
     def __eq__(self, other) -> bool:
         if not isinstance(other, Resource):

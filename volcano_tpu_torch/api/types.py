@@ -1,5 +1,5 @@
 """Shared enums: task status, pod and PodGroup phases (the port's copy of
-the parts of ``volcano_tpu/api/types.py`` the express cycle reads)."""
+the parts of ``volcano_tpu/api/types.py`` the scheduler reads)."""
 
 from __future__ import annotations
 
@@ -17,6 +17,16 @@ class TaskStatus(enum.IntFlag):
     SUCCEEDED = 1 << 7
     FAILED = 1 << 8
     UNKNOWN = 1 << 9
+
+
+#: statuses whose resources are charged against the node
+ALLOCATED_STATUSES = (
+    TaskStatus.BOUND | TaskStatus.BINDING | TaskStatus.RUNNING | TaskStatus.ALLOCATED
+)
+
+
+def allocated_status(status: TaskStatus) -> bool:
+    return bool(status & ALLOCATED_STATUSES)
 
 
 class PodPhase(str, enum.Enum):

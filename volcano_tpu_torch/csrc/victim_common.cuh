@@ -1,7 +1,7 @@
-// Shared pieces of the contention kernels (K8 reclaim_solve, K9
-// preempt_solve, K10 preempt_rounds): their argument block, the per-launch
-// setup that groups the victim pool by node, and the victim core of one
-// preemptor attempt as device functions.
+// Shared pieces of the contention kernels (K7 victim_step, K8
+// reclaim_solve, K9 preempt_solve, K10 preempt_rounds): their argument
+// block, the per-launch setup that groups the victim pool by node, and the
+// victim core of one preemptor attempt as device functions.
 //
 // Replaces volcano_tpu/scheduler/victim_kernels.py:118-181 (`_seg_cumsum`,
 // `_orders_drf`, `_orders_prop`, `_orders_evict`) and :184-355
@@ -302,7 +302,7 @@ static __device__ void vtt_core_node(const VttVictimArgs& a, const VttAttempt& a
   }
   double acc[VTT_MAX_R];
   float part[VTT_MAX_R];
-  if (a.use_drf && at.mode != 2) {
+  if (a.use_drf) {
     // hypothetical transfer per (node, job): every base row subtracts
     int pj = -1;
     for (int i = off; i < end; ++i) {
@@ -322,7 +322,7 @@ static __device__ void vtt_core_node(const VttVictimArgs& a, const VttAttempt& a
       if (!(at.ls < rs || fabsf(at.ls - rs) <= 1e-6f)) a.flag[v] = f & ~VF_CAND;
     }
   }
-  if (a.use_prop && at.mode == 2) {
+  if (a.use_prop) {
     // per (node, queue): queues stay at or above deserved
     int pq = -1;
     for (int i = off; i < end; ++i) {

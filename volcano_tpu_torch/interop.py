@@ -77,7 +77,12 @@ def snapshot_from_arrays(fields: Dict[str, Any]) -> TensorSnapshot:
     kw = {}
     for f in dataclasses.fields(TensorSnapshot):
         v = fields[f.name]
-        kw[f.name] = list(v) if isinstance(v, (list, tuple)) else np.array(v, copy=True)
+        if isinstance(v, (list, tuple)):
+            kw[f.name] = list(v)
+        elif isinstance(v, (bool, np.bool_)):
+            kw[f.name] = bool(v)
+        else:
+            kw[f.name] = np.array(v, copy=True)
     return TensorSnapshot(**kw)
 
 

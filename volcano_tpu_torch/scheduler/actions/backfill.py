@@ -1,0 +1,55 @@
+"""Backfill action: place BestEffort (empty-request) tasks on any node
+passing predicates, with no scoring (the port's copy of
+``volcano_tpu/scheduler/actions/backfill.py``, without the events).
+"""
+
+from __future__ import annotations
+
+from volcano_tpu_torch.api.types import PodGroupPhase, TaskStatus
+from volcano_tpu_torch.scheduler import util
+from volcano_tpu_torch.scheduler.cache import VolumeBindingError
+from volcano_tpu_torch.scheduler.framework import Action
+from volcano_tpu_torch.scheduler.session import Session
+
+
+class BackfillAction(Action):
+    name = "backfill"
+
+    def execute(self, ssn: Session) -> None:
+        all_nodes = util.get_node_list(ssn.nodes)
+        for job in list(ssn.jobs.values()):
+            if (
+                job.pod_group is not None
+                and job.pod_group.status.phase == PodGroupPhase.PENDING
+            ):
+                continue
+            for task in list(
+                job.task_status_index.get(TaskStatus.PENDING, {}).values()
+            ):
+                if not task.init_resreq.is_empty():
+                    continue
+                reasons: dict = {}
+                placed = False
+                feasible = util.predicate_nodes(
+                    task, all_nodes, ssn.predicate_fn, reasons
+                )
+                for node in feasible:
+                    try:
+                        ssn.allocate(task, node.name)
+                    except VolumeBindingError:
+                        reasons["volume binding failed"] = (
+                            reasons.get("volume binding failed", 0) + 1
+                        )
+                        continue  # try the next node
+                    placed = True
+                    break
+                if not placed and (
+                    # surface the aggregated reasons, keeping allocate's
+                    # head-task histogram if it recorded one (that is what
+                    # blocks the gang)
+                    not job.fit_errors
+                    and not job.nodes_fit_delta
+                    and job.fit_error_fn is None
+                ):
+                    job.fit_errors = reasons
+                    job.fit_total_nodes = len(all_nodes)

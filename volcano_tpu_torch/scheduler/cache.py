@@ -1,14 +1,16 @@
-"""Minimal scheduler cache: the store handle, the bind and evict side
-effects and the volume binder.
+"""Scheduler cache: the store handle, the object snapshot, the bind,
+evict and status side effects and the volume binder.
 
-The port's cut of ``volcano_tpu/scheduler/cache.py``: binds and evictions
-apply synchronously through the store's bulk verb (one call each per
-cycle), with the same ``bind_log`` / ``evict_log`` / ``err_log``
-bookkeeping.  An eviction marks the pod for deletion (``deleting=True``);
-the kubelet reaps it.  ``VolumeBinder`` assumes and commits a pod's claims
-at publish, as the reference's binder does; it takes the pod itself where
-the JAX binder takes a ``TaskInfo``.  No async applier or eviction events
-yet.
+The port's cut of ``volcano_tpu/scheduler/cache.py``: ``snapshot()``
+builds the object path's ``ClusterInfo`` (shadow gangs for plain pods
+included, no PodDisruptionBudgets); binds and evictions apply
+synchronously, per task (``bind``, ``evict``) or through the store's bulk
+verb (``bind_bulk``, ``evict_bulk``, the fast cycle's), with the same
+``bind_log`` / ``evict_log`` / ``err_log`` bookkeeping.  An eviction marks
+the pod for deletion (``deleting=True``); the kubelet reaps it.
+``VolumeBinder`` assumes and commits a pod's claims, as the reference's
+binder does; it takes the pod itself where the JAX binder takes a
+``TaskInfo``.  No async applier or events yet.
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ from __future__ import annotations
 import logging
 from typing import Dict, List, Optional, Tuple
 
-from volcano_tpu_torch.api.objects import Metadata, PersistentVolume
+from volcano_tpu_torch.api.objects import POD_GROUP_KEY, Metadata, PersistentVolume, Pod
 from volcano_tpu_torch.api.resource import parse_quantity
+from volcano_tpu_torch.scheduler.model import ClusterInfo, JobInfo, NodeInfo, QueueInfo, TaskInfo
 
 _LOG = logging.getLogger("volcano_tpu_torch.scheduler")
 
@@ -181,6 +184,30 @@ class VolumeBinder:
             return f"volume {pv_name} not reachable"
         return None
 
+    # -- the predicate face --------------------------------------------------
+
+    def volume_fit(self, pod, node_labels: Dict[str, str]) -> Optional[str]:
+        """Reason the pod's volumes cannot land on a node with these
+        labels, or None (node-free wording, so fit errors aggregate one
+        histogram entry per volume)."""
+        for pvc in self._pending_claims(pod):
+            reason, _ = self._resolve_claim(pvc, node_labels)
+            if reason is not None:
+                return reason
+        return None
+
+    def task_constrains_nodes(self, pod) -> bool:
+        """Whether volume state can veto nodes for this pod: a bound claim
+        on a node-pinned PV, or a pending claim of a static class."""
+        for pvc in self._pending_claims(pod):
+            if pvc.volume_name:
+                pv = self._pv(pvc.volume_name)
+                if pv is not None and pv.node_affinity:
+                    return True
+            elif self._is_static_class(pvc.storage_class):
+                return True
+        return False
+
     # -- allocate / bind -----------------------------------------------------
 
     def allocate_volumes(self, pod, hostname: str) -> None:
@@ -273,6 +300,107 @@ class SchedulerCache:
         if len(self.err_log) > self._ERR_LOG_CAP:
             del self.err_log[: -self._ERR_LOG_CAP]
 
+    # -- snapshot --------------------------------------------------------------
+
+    def snapshot(self) -> ClusterInfo:
+        """The object path's view of the store: queues, nodes, a JobInfo per
+        PodGroup (in resource-version order; groups whose queue is missing
+        are dropped with their pods) and per shadow gang of plain pods,
+        each pod of this scheduler as a TaskInfo on its job and node."""
+        cluster = ClusterInfo()
+        for queue in self.store.items("Queue"):
+            qi = QueueInfo(queue)
+            cluster.queues[qi.uid] = qi
+        for node in self.store.items("Node"):
+            cluster.nodes[node.meta.name] = NodeInfo(node)
+
+        default_priority = 0
+        priority_classes: Dict[str, int] = {}
+        for pc in self.store.items("PriorityClass"):
+            priority_classes[pc.meta.name] = pc.value
+            if pc.global_default:
+                default_priority = pc.value
+
+        order = 0
+        pg_by_key: Dict[str, str] = {}
+        dropped_pg_uids = set()
+        for pg in sorted(self.store.items("PodGroup"), key=lambda p: p.meta.resource_version):
+            pg_by_key[pg.meta.key] = pg.meta.uid
+            ji = JobInfo(pg.meta.uid, pg)
+            ji.creation_order = order
+            order += 1
+            if not pg.queue:
+                ji.queue = self.default_queue
+            if ji.queue not in cluster.queues:
+                dropped_pg_uids.add(pg.meta.uid)
+                continue
+            ji.priority = priority_classes.get(pg.priority_class_name, default_priority)
+            cluster.jobs[ji.uid] = ji
+
+        for pod in self.store.items("Pod"):
+            if pod.spec.scheduler_name != self.scheduler_name:
+                continue
+            task = TaskInfo(pod)
+            if task.priority == 0 and task.priority_class:
+                task.priority = priority_classes.get(task.priority_class, default_priority)
+            job_uid = self._job_uid_for(pod, pg_by_key)
+            if job_uid in dropped_pg_uids:
+                continue
+            if job_uid not in cluster.jobs:
+                # shadow PodGroup for plain pods, MinMember 1
+                shadow = JobInfo(job_uid, None)
+                shadow.namespace = pod.meta.namespace
+                shadow.name = job_uid
+                shadow.queue = self.default_queue
+                shadow.min_available = 1
+                shadow.creation_order = order
+                order += 1
+                cluster.jobs[job_uid] = shadow
+            cluster.jobs[job_uid].add_task(task)
+            if task.node_name and task.node_name in cluster.nodes:
+                cluster.nodes[task.node_name].add_task(task)
+        return cluster
+
+    @staticmethod
+    def _job_uid_for(pod: Pod, pg_by_key: Dict[str, str]) -> str:
+        group = pod.meta.annotations.get(POD_GROUP_KEY, "")
+        if group:
+            key = f"{pod.meta.namespace}/{group}"
+            if key in pg_by_key:
+                return pg_by_key[key]
+            return f"shadow/{key}"
+        owner = pod.meta.owner
+        if owner:
+            return f"shadow/{pod.meta.namespace}/{owner[1]}"
+        return f"shadow/{pod.meta.namespace}/{pod.meta.name}"
+
+    # -- side effects ------------------------------------------------------------
+
+    def bind(self, task: TaskInfo, hostname: str) -> None:
+        """Write one placement; a vanished pod or a failed write is retried
+        by the next cycle's fresh snapshot."""
+        try:
+            self.store.patch("Pod", task.key, {"node_name": hostname})
+        except Exception as e:  # noqa: BLE001 — side-effect boundary
+            self._record_err("bind", task.key, e)
+            return
+        self.bind_log.append((task.key, hostname))
+
+    def evict(self, task: TaskInfo, reason: str) -> None:
+        """Mark one pod for deletion (a pod already gone is a success)."""
+        try:
+            if self.store.get("Pod", task.key) is not None:
+                self.store.patch("Pod", task.key, {"deleting": True})
+        except Exception as e:  # noqa: BLE001 — side-effect boundary
+            self._record_err("evict", task.key, e)
+            return
+        self.evict_log.append((task.key, reason))
+
+    def update_job_status(self, job: JobInfo) -> None:
+        pg = job.pod_group
+        if pg is not None and self.store.get("PodGroup", pg.meta.key) is not None:
+            self.store.update("PodGroup", pg)
+
     def bind_bulk(self, binds: List[Tuple[str, str]]) -> None:
         """Bind a cycle's placements, (pod_key, node_name) each."""
         if not binds:
@@ -314,6 +442,9 @@ class SchedulerCache:
 
     def bind_volumes(self, pod) -> None:
         self.volume_binder.bind_volumes(pod)
+
+    def volume_fit(self, pod, node_labels: Dict[str, str]) -> Optional[str]:
+        return self.volume_binder.volume_fit(pod, node_labels)
 
     def clear_session_volumes(self) -> None:
         self.volume_binder.clear_session()

@@ -41,6 +41,9 @@ class SchedulerConf:
     tiers: List[Tier] = field(default_factory=list)
     backend: str = "cuda"
     solve_mode: str = "auto"  # "auto" | "exact" | "batch"
+    # "auto": the array-native fast cycle whenever it can express the
+    # cycle, the object path otherwise; "off": the object path every cycle
+    fast_path: str = "auto"
 
 
 def default_conf(backend: str = "cuda") -> SchedulerConf:

@@ -7,7 +7,9 @@ dynamic solve -> preempt -> publish, with the same ``phases`` keys.  Reclaim and
 preempt run only when their conservative prechecks find possible work
 (``_reclaim_possible``, ``_preempt_possible``), through ``FastContention``
 (``scheduler/fast_victims.py``).  Where the JAX ``FastCycle.try_run``
-returns False or hands jobs to its object sub-cycle, this cycle raises
+returns False, this one does too (after shipping the enqueue admissions it
+already made), and the scheduler runs the whole cycle on the object path.
+Where the JAX cycle hands jobs to its object sub-cycle, this cycle raises
 ``NotImplementedError`` naming the ROADMAP item that will cover the case.
 """
 
@@ -37,7 +39,7 @@ from volcano_tpu_torch.scheduler.tensor_backend import TensorBackend
 #: enqueue's overcommit factor (enqueue.go:80)
 OVERCOMMIT_FACTOR = 1.2
 
-_OBJECT_PATH = "ROADMAP queue 1 item 8 (object path)"
+_SUBCYCLE = "ROADMAP queue 1 item 8b (object sub-cycle)"
 
 
 class FastCycle:
@@ -58,18 +60,15 @@ class FastCycle:
         # publish clears the volume binder's session once a cycle
         self._vol_session_cleared = False
 
-    def conf_unsupported(self):
-        """Why the conf is outside this port's slices, or None: plugins the
-        tensor path does not model, and action orders that are not a
-        subsequence of the canonical one (the object path runs those in
-        literal conf order)."""
+    def conf_ok(self) -> bool:
+        """False for plugins the tensor path does not model, and for action
+        orders that are not a subsequence of the canonical one (the object
+        path runs those in literal conf order)."""
         if self.probe.unsupported:
-            return f"plugins {self.probe.unsupported}: {_OBJECT_PATH}"
+            return False
         canonical = iter(["enqueue", "reclaim", "allocate", "backfill", "preempt"])
-        if "allocate" not in self.conf.actions or not all(
-                a in canonical for a in self.conf.actions):
-            return f"action order {self.conf.actions}: {_OBJECT_PATH}"
-        return None
+        return "allocate" in self.conf.actions and all(
+            a in canonical for a in self.conf.actions)
 
     def sync_mirror(self) -> None:
         if self.mirror is None:
@@ -78,9 +77,10 @@ class FastCycle:
         self.mirror.drain()
 
     def try_run(self) -> bool:
-        why = self.conf_unsupported()
-        if why:
-            raise NotImplementedError(why)
+        """One fast cycle; False (nothing published) where the cycle needs
+        the object path."""
+        if not self.conf_ok():
+            return False
         ph = self.phases = {}
         self._vol_session_cleared = False
         t = time.perf_counter()
@@ -88,35 +88,34 @@ class FastCycle:
         m = self.mirror
         self._reconcile_failures(m)
         ph["drain"] = time.perf_counter() - t
-        why = m.ineligible_reason()
-        if why is not None:
-            raise NotImplementedError(f"{why}: {_OBJECT_PATH}")
+        if m.ineligible_reason() is not None:
+            return False
         t = time.perf_counter()
         snap, aux = build_fast_snapshot(
             m, self.nodeaffinity_weight,
             dyn_batch=(self.conf.solve_mode, self.probe.batch_threshold))
         ph["snapshot"] = time.perf_counter() - t
         if snap is None:
-            raise NotImplementedError(f"cluster without queues: {_OBJECT_PATH}")
+            return False
         if aux["vol_solve_s"]:
             # the volume verdicts, carved out of the snapshot phase; the
             # phase appears only when volume pods are pending
             ph["vol_solve"] = aux["vol_solve_s"]
             ph["snapshot"] -= aux["vol_solve_s"]
         if aux["partition_unsafe"]:
-            raise NotImplementedError(
-                "a dynamic job outranks an express job in its queue "
-                f"(partition unsafe): {_OBJECT_PATH}")
-        if aux["residue_keys"]:
+            # a dynamic job outranks an express job in its queue: a
+            # device-first pass would invert priority under contention
+            return False
+        reclaim_work = "reclaim" in self.conf.actions and self._reclaim_possible(snap, aux)
+        if aux["residue_keys"] and not reclaim_work:
             # the JAX cycle hands these jobs to its residue engine; the
             # reasons name the classes (intern-overflow, best-effort,
             # volume-shape, volume-claim-cap, contended-claims, batch-wave)
             why = sorted(set(aux["residue_reasons"].values()))
             raise NotImplementedError(
                 f"dynamic jobs the device solve cannot express ({', '.join(why)}): "
-                f"{_OBJECT_PATH}")
+                f"{_SUBCYCLE}")
 
-        reclaim_work = "reclaim" in self.conf.actions and self._reclaim_possible(snap, aux)
         # preempt is the last action: it runs only if starving tasks remain
         # after the allocate, backfill and dynamic passes
         preempt_later = "preempt" in self.conf.actions and self._preempt_possible(snap, aux)
@@ -131,15 +130,15 @@ class FastCycle:
         cont = None
         if reclaim_work:
             # reclaimers with host ports, pod (anti)affinity or an empty
-            # request need the object walk for the whole cycle
-            if dyn_any or self._pending_best_effort(m, snap, aux):
-                self._object_path(enq_ops, "reclaim with dynamic-predicate or best-effort "
-                                  "reclaimers")
+            # request need the object walk for the whole cycle; nothing is
+            # published yet, so the object path re-runs it from the store
+            if aux["residue_keys"] or dyn_any or self._pending_best_effort(m, snap, aux):
+                return self._object_path(enq_ops)
             t = time.perf_counter()
             cont = self._make_contention(snap, aux)
             if not cont.reclaim_pass():
-                self._object_path(enq_ops, "reclaim whose reference walk strands evictions "
-                                  "(clean=False)")
+                # the reference's walk would strand evictions (clean=False)
+                return self._object_path(enq_ops)
             cont.fold_into_snapshot(m)
             ph["reclaim"] = time.perf_counter() - t
 
@@ -201,8 +200,12 @@ class FastCycle:
         be_left = self._pending_best_effort(m, snap, aux, minus_placed=be_rows)
         if preempt_later and (unplaced or be_left or dyn_unplaced):
             if dyn_any:
-                # the contention state folds only the express task layout
-                self._object_path(enq_ops, "preempt in a cycle with dynamic-predicate jobs")
+                # the contention state folds only the express task layout:
+                # the object machinery must run the preempt, a whole object
+                # cycle once the reclaim pass holds unpublished records
+                if cont is not None and (cont.evictions or cont.pipelines):
+                    return self._object_path(enq_ops)
+                self._subcycle(enq_ops, "preempt in a cycle with dynamic-predicate jobs")
             t = time.perf_counter()
             if cont is None:
                 cont = self._make_contention(snap, aux)
@@ -215,8 +218,12 @@ class FastCycle:
             else:
                 placed_mask = task_kind > 0
             if not cont.preempt_pass(placed_mask):
-                self._object_path(enq_ops, "preempt whose reference walk strands evictions "
-                                  "(clean=False)")
+                # the reference's walk would strand evictions (clean=False);
+                # reclaim's records must not publish without that preempt
+                if cont.evictions or cont.pipelines:
+                    return self._object_path(enq_ops)
+                self._subcycle(enq_ops, "preempt whose reference walk strands evictions "
+                               "(clean=False)")
             ph["preempt"] = time.perf_counter() - t
 
         t = time.perf_counter()
@@ -229,12 +236,18 @@ class FastCycle:
         ph["publish"] = time.perf_counter() - t
         return True
 
-    def _object_path(self, enq_ops, why: str) -> None:
-        """The JAX cycle hands this case to its object path; the port has
-        none yet.  Admissions already flipped in the mirror reach the store
-        first, so that mirror and store agree."""
+    def _object_path(self, enq_ops) -> bool:
+        """Decline the cycle for the object path.  Admissions already
+        flipped in the mirror reach the store first, so that the object
+        session reads them."""
         self._ship_enqueue_ops(enq_ops)
-        raise NotImplementedError(f"{why}, outside the contention slice: {_OBJECT_PATH}")
+        return False
+
+    def _subcycle(self, enq_ops, why: str) -> None:
+        """The JAX cycle hands this case to its object sub-cycle, which the
+        port does not have yet: ship the admissions and raise."""
+        self._ship_enqueue_ops(enq_ops)
+        raise NotImplementedError(f"{why}: {_SUBCYCLE}")
 
     # -- contention (fast_victims.py) ------------------------------------------
 

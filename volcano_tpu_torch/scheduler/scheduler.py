@@ -1,24 +1,33 @@
-"""The scheduler: one express cycle per ``run_once``.
+"""The scheduler: one cycle per ``run_once``.
 
-The port's cut of ``volcano_tpu/scheduler/scheduler.py``: every cycle runs
-the array-native fast cycle (``fastpath/cycle.py``) on the conf's device.
-``backend="cuda"`` (the default) runs the hand-written kernels on the card
-and raises RuntimeError when no card is present; ``backend="cpu"`` runs
-their plain PyTorch versions.  Clusters or confs outside this port's slice
-raise NotImplementedError — there is no object-path fallback yet.
+The port's cut of ``volcano_tpu/scheduler/scheduler.py``: every cycle
+tries the array-native fast cycle (``fastpath/cycle.py``) first and falls
+back to the object path (``run_object_actions``: open a session with a
+``TensorBackend`` attached, run the conf's actions in order, close it)
+wherever the fast cycle declines, or on every cycle with ``fast_path:
+off``.  ``backend="cuda"`` (the default) runs the hand-written kernels on
+the card and raises RuntimeError when no card is present;
+``backend="cpu"`` runs their plain PyTorch versions.  The fast cycle's
+object sub-cycle (dynamic-predicate residue jobs) is not ported yet: those
+cycles raise NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
+import volcano_tpu_torch.scheduler.actions  # noqa: F401  (registers actions)
+import volcano_tpu_torch.scheduler.plugins  # noqa: F401  (registers plugins)
 from volcano_tpu_torch.scheduler.cache import SchedulerCache
 from volcano_tpu_torch.scheduler.conf import BACKENDS, SchedulerConf, full_conf
 from volcano_tpu_torch.scheduler.fastpath.cycle import FastCycle
-from volcano_tpu_torch.scheduler.tensor_backend import DeviceUploads
+from volcano_tpu_torch.scheduler.framework import close_session, get_action, open_session
+from volcano_tpu_torch.scheduler.tensor_backend import DeviceUploads, TensorBackend
+
+FAST_PATHS = ("auto", "off")
 
 
 def resolve_device(backend: str) -> torch.device:
@@ -38,11 +47,19 @@ class Scheduler:
                  scheduler_name: str = "volcano-tpu",
                  default_queue: str = "default"):
         self.conf = conf or full_conf()
+        if self.conf.fast_path not in FAST_PATHS:
+            raise ValueError(f"fast_path must be one of {FAST_PATHS}, "
+                             f"got {self.conf.fast_path!r}")
         self.device = resolve_device(self.conf.backend)
         self.cache = SchedulerCache(store, scheduler_name=scheduler_name,
                                     default_queue=default_queue)
         self.uploads = DeviceUploads(self.device)
-        self.fast_cycle = FastCycle(self)
+        self.fast_cycle = FastCycle(self) if self.conf.fast_path != "off" else None
+        #: "fast" or "object": the path the last cycle took
+        self.last_path = ""
+        #: wall seconds of the last object cycle: session_open, each
+        #: action by name, close_session
+        self.object_phases: Dict[str, float] = {}
 
     def prewarm(self) -> float:
         """Build and load the kernels (on the card), touch the device, and
@@ -54,8 +71,38 @@ class Scheduler:
 
             _build.load()
             torch.ones(1, device=self.device).sum().item()
-        self.fast_cycle.sync_mirror()
+        if self.fast_cycle is not None:
+            self.fast_cycle.sync_mirror()
         return time.perf_counter() - t0
 
     def run_once(self) -> None:
-        self.fast_cycle.try_run()
+        if self.fast_cycle is not None and self.fast_cycle.try_run():
+            self.last_path = "fast"
+            return
+        self.run_object_actions(self.conf.actions)
+        self.last_path = "object"
+
+    def _open_object_session(self):
+        ssn = open_session(self.cache, self.conf.tiers)
+        ssn.tensor_backend = TensorBackend(
+            self.conf.tiers, self.device, self.uploads,
+            solve_mode=self.conf.solve_mode, ssn=ssn)
+        return ssn
+
+    def run_object_actions(self, names) -> None:
+        """One object-path pass: open a session with the tensor backend
+        attached, execute ``names`` in order, close."""
+        ph = self.object_phases = {}
+        t = time.perf_counter()
+        ssn = self._open_object_session()
+        ph["session_open"] = time.perf_counter() - t
+        for name in names:
+            action = get_action(name)
+            if action is None:
+                continue
+            t = time.perf_counter()
+            action.execute(ssn)
+            ph[name] = time.perf_counter() - t
+        t = time.perf_counter()
+        close_session(ssn)
+        ph["close_session"] = time.perf_counter() - t

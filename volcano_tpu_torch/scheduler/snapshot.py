@@ -1,23 +1,28 @@
 """Tensorized cluster snapshot: the dense per-cycle view the solves read.
 
-Counterpart of ``volcano_tpu/scheduler/snapshot.py``, cut to what the
-fast cycle uses: the ``TensorSnapshot`` arrays (the victim pool's ``run_*``
-fields included) (numpy, host side;
-``tensor_backend`` moves them to the device), shape bucketing, and the
-static predicate-class helpers (node selector, required node affinity,
-taints/tolerations, node conditions, preferred node-affinity score).
-Tasks sharing a (selector, affinity, tolerations, ports) template share one
-[N] predicate row, so no [T, N] mask is ever built.
+Counterpart of ``volcano_tpu/scheduler/snapshot.py``: the
+``TensorSnapshot`` arrays (numpy, host side; ``tensor_backend`` moves them
+to the device), shape bucketing, the static predicate-class helpers (node
+selector, required node affinity, taints/tolerations, node conditions,
+preferred node-affinity score), and ``build_tensor_snapshot``, which the
+object path builds from a session (the victim pool's ``run_*`` fields,
+the dynamic-job partition and ``partition_unsafe`` included; no
+cross-cycle ``SnapshotCache``).  The fast cycle builds the same arrays
+from its watch mirror (``fastpath/snapshot_build.py``).  Tasks sharing a
+(selector, affinity, tolerations, ports) template share one [N] predicate
+row, so no [T, N] mask is ever built.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
 from volcano_tpu_torch.api.objects import Node, Pod, match_expressions
+from volcano_tpu_torch.api.resource import MIN_MEMORY, MIN_MILLI_CPU, MIN_SCALAR
+from volcano_tpu_torch.api.types import PodGroupPhase, TaskStatus, allocated_status
 
 
 def _bucket(n: int, minimum: int = 8) -> int:
@@ -74,9 +79,17 @@ class TensorSnapshot:
 
     total: np.ndarray = field(default=None)  # [R] cluster allocatable total
 
-    # running tasks: the victim pool of preempt and reclaim, grouped by node
-    # (snapshot order), within a node by arrival; filled by
-    # fastpath.snapshot_build.build_victim_pool on contended cycles only
+    # object path only: jobs with a pending task whose predicates depend on
+    # resident state (host ports, pod (anti)affinity, constraining volumes)
+    # are left out of the task arrays and placed by the host afterwards;
+    # ``partition_unsafe``: such a job outranks an express job of its queue
+    has_dynamic_predicates: bool = False
+    dynamic_job_uids: List[str] = field(default_factory=list)
+    partition_unsafe: bool = False
+
+    # running tasks: the victim pool of preempt and reclaim, by node in
+    # snapshot order, within a node by residence; filled on contended
+    # cycles only by fastpath.snapshot_build.build_victim_pool
     run_uids: List[str] = field(default_factory=list)
     run_req: np.ndarray = field(default=None)        # [V, R] resreq
     run_node: np.ndarray = field(default=None)       # [V] i32
@@ -145,3 +158,259 @@ def node_affinity_score(pod: Pod, node: Node) -> float:
         if match_expressions(node.labels, term):
             score += weight
     return score
+
+
+def _resource_vec(res, dims: List[str], out: np.ndarray) -> None:
+    out[0] = res.milli_cpu
+    out[1] = res.memory
+    for i, name in enumerate(dims[2:], start=2):
+        out[i] = res.scalars.get(name, 0.0)
+
+
+_CRITICAL_CLASSES = ("system-cluster-critical", "system-node-critical")
+
+
+def build_tensor_snapshot(ssn, nodeaffinity_weight: float = 1.0,
+                          task_order_by_priority: bool = True) -> TensorSnapshot:
+    """The dense snapshot of a session's object state (the JAX
+    ``build_tensor_snapshot`` with ``cache=None``); sums accumulate in
+    float32 in the same order."""
+    volume_constrains = ssn.cache.volume_binder.task_constrains_nodes
+
+    # -- resource dims ---------------------------------------------------------
+    scalar_names: List[str] = []
+    seen = set()
+
+    def note_scalars(res):
+        for name in res.scalars:
+            if name not in seen:
+                seen.add(name)
+                scalar_names.append(name)
+
+    for node in ssn.nodes.values():
+        note_scalars(node.allocatable)
+    for job in ssn.jobs.values():
+        for t in job.tasks.values():
+            note_scalars(t.resreq)
+    dims = ["cpu", "memory", *sorted(scalar_names)]
+    R = len(dims)
+    eps = np.array([MIN_MILLI_CPU, MIN_MEMORY] + [MIN_SCALAR] * (R - 2), dtype=np.float32)
+
+    # -- nodes -----------------------------------------------------------------
+    nodes = list(ssn.nodes.values())
+    N = _bucket(max(len(nodes), 1))
+    node_idle = np.zeros((N, R), np.float32)
+    node_rel = np.zeros((N, R), np.float32)
+    node_used = np.zeros((N, R), np.float32)
+    node_tc = np.zeros((N,), np.int32)
+    node_allocatable = np.zeros((N, R), np.float32)
+    node_max_tasks = np.full((N,), np.iinfo(np.int32).max, np.int32)
+    node_valid = np.zeros((N,), bool)
+    for i, ni in enumerate(nodes):
+        _resource_vec(ni.allocatable, dims, node_allocatable[i])
+        if ni.allocatable.max_task_num is not None:
+            node_max_tasks[i] = ni.allocatable.max_task_num
+        node_valid[i] = True
+        _resource_vec(ni.idle, dims, node_idle[i])
+        _resource_vec(ni.releasing, dims, node_rel[i])
+        _resource_vec(ni.used, dims, node_used[i])
+        node_tc[i] = len(ni.tasks)
+
+    # -- queues, sorted by uid (queue order ties compare uids) -----------------
+    queues = sorted(ssn.queues.values(), key=lambda q: q.uid)
+    queue_index = {q.uid: i for i, q in enumerate(queues)}
+    Q = _bucket(max(len(queues), 1), minimum=4)
+    queue_weight = np.zeros((Q,), np.float32)
+    queue_alloc = np.zeros((Q, R), np.float32)
+    queue_request = np.zeros((Q, R), np.float32)
+    queue_valid = np.zeros((Q,), bool)
+    queue_participates = np.zeros((Q,), bool)
+    for i, q in enumerate(queues):
+        queue_weight[i] = q.weight
+        queue_valid[i] = True
+
+    # -- jobs + pending tasks --------------------------------------------------
+    jobs = sorted(ssn.jobs.values(), key=lambda j: j.creation_order)
+    J = _bucket(max(len(jobs), 1), minimum=4)
+    job_queue = np.zeros((J,), np.int32)
+    job_min = np.zeros((J,), np.int32)
+    job_prio = np.zeros((J,), np.int32)
+    job_creation = np.arange(J, dtype=np.int32)
+    job_ready_init = np.zeros((J,), np.int32)
+    job_alloc_init = np.zeros((J, R), np.float32)
+    job_schedulable = np.zeros((J,), bool)
+    job_start = np.zeros((J,), np.int32)
+    job_ntasks = np.zeros((J,), np.int32)
+
+    task_rows = []
+    classes: Dict[object, int] = {}
+    class_examples = []
+    task_job_list: List[int] = []
+    task_class_list: List[int] = []
+    dynamic_predicates = False
+    dynamic_job_uids: List[str] = []
+    queue_max_dynamic_prio: Dict[int, int] = {}
+    queue_min_express_prio: Dict[int, int] = {}
+
+    tmp = np.zeros((R,), np.float32)
+    for j, job in enumerate(jobs):
+        qi = queue_index.get(job.queue)
+        job_queue[j] = -1 if qi is None else qi
+        if qi is not None:
+            queue_participates[qi] = True
+        job_min[j] = job.min_available
+        job_prio[j] = job.priority
+        job_schedulable[j] = not (
+            job.pod_group is not None
+            and job.pod_group.status.phase == PodGroupPhase.PENDING
+        )
+        for status, tasks in job.task_status_index.items():
+            # pipelined tasks count toward drf/proportion shares, as the
+            # plugins' allocate events charged them
+            charge = allocated_status(status) or status == TaskStatus.PIPELINED
+            ready = allocated_status(status) or status == TaskStatus.SUCCEEDED
+            for t in tasks.values():
+                if charge:
+                    _resource_vec(t.resreq, dims, tmp)
+                    job_alloc_init[j] += tmp
+                    if qi is not None:
+                        queue_alloc[qi] += tmp
+                        queue_request[qi] += tmp
+                elif status == TaskStatus.PENDING and qi is not None:
+                    _resource_vec(t.resreq, dims, tmp)
+                    queue_request[qi] += tmp
+            if ready:
+                job_ready_init[j] += len(tasks)
+
+        # pending non-BestEffort tasks in task order: (priority desc, uid)
+        # with the priority plugin's task order, else uid
+        pend = [t for t in job.task_status_index.get(TaskStatus.PENDING, {}).values()
+                if not t.resreq.is_empty()]
+        if task_order_by_priority:
+            pend.sort(key=lambda t: (-t.priority, t.uid))
+        else:
+            pend.sort(key=lambda t: t.uid)
+
+        # partition by job: a job with any resident-state-dependent pending
+        # task leaves the task arrays whole
+        job_dynamic = False
+        for t in pend:
+            aff = t.pod.spec.affinity
+            if t.pod.spec.host_ports or (aff and (aff.pod_affinity or aff.pod_anti_affinity)):
+                job_dynamic = True
+                break
+            if t.pod.volumes and volume_constrains(t.pod):
+                job_dynamic = True
+                break
+        if job_dynamic and pend:
+            dynamic_predicates = True
+            dynamic_job_uids.append(job.uid)
+            if qi is not None:
+                cur = queue_max_dynamic_prio.get(qi)
+                if cur is None or job.priority > cur:
+                    queue_max_dynamic_prio[qi] = job.priority
+            job_start[j] = len(task_rows)
+            job_ntasks[j] = 0
+            continue
+        if pend and qi is not None:
+            cur = queue_min_express_prio.get(qi)
+            if cur is None or job.priority < cur:
+                queue_min_express_prio[qi] = job.priority
+
+        job_start[j] = len(task_rows)
+        job_ntasks[j] = len(pend)
+        for t in pend:
+            key = _task_class_key(t.pod)
+            if key not in classes:
+                classes[key] = len(classes)
+                class_examples.append(t)
+            task_rows.append(t)
+            task_job_list.append(j)
+            task_class_list.append(classes[key])
+
+    T = _bucket(max(len(task_rows), 1))
+    task_req = np.zeros((T, R), np.float32)
+    task_job = np.zeros((T,), np.int32)
+    task_class_arr = np.zeros((T,), np.int32)
+    task_valid = np.zeros((T,), bool)
+    task_uids = []
+    for i, t in enumerate(task_rows):
+        _resource_vec(t.init_resreq, dims, task_req[i])
+        task_job[i] = task_job_list[i]
+        task_class_arr[i] = task_class_list[i]
+        task_valid[i] = True
+        task_uids.append(t.uid)
+
+    # -- predicate classes -----------------------------------------------------
+    C = _bucket(max(len(classes), 1), minimum=4)
+    class_mask = np.zeros((C, N), bool)
+    class_score = np.zeros((C, N), np.float32)
+    for c, example in enumerate(class_examples):
+        pod = example.pod
+        for i, ni in enumerate(nodes):
+            ok = _static_predicate(pod, ni.node)
+            class_mask[c, i] = ok
+            if ok:
+                class_score[c, i] = nodeaffinity_weight * node_affinity_score(pod, ni.node)
+    if not class_examples:
+        class_mask[:, : len(nodes)] = True
+
+    total = node_allocatable[node_valid].sum(axis=0).astype(np.float32)
+
+    # -- running tasks (victim pool), in node-resident order -------------------
+    job_row = {job.uid: j for j, job in enumerate(jobs)}
+    run_rows: List[Tuple[object, int, int]] = []
+    for i, ni in enumerate(nodes):
+        for t in ni.tasks.values():
+            if t.status != TaskStatus.RUNNING:
+                continue
+            j = job_row.get(t.job_uid)
+            if j is not None:
+                run_rows.append((t, i, j))
+    V = _bucket(max(len(run_rows), 1))
+    run_req = np.zeros((V, R), np.float32)
+    run_node = np.zeros((V,), np.int32)
+    run_job = np.zeros((V,), np.int32)
+    run_prio = np.zeros((V,), np.int32)
+    run_rank = np.zeros((V,), np.int32)
+    run_evictable = np.zeros((V,), bool)
+    run_valid = np.zeros((V,), bool)
+    run_uids: List[str] = []
+    uid_rank = {uid: r for r, uid in enumerate(sorted(t.uid for t, _, _ in run_rows))}
+    for i, (t, n_idx, j_idx) in enumerate(run_rows):
+        _resource_vec(t.resreq, dims, run_req[i])
+        run_node[i] = n_idx
+        run_job[i] = j_idx
+        run_prio[i] = t.priority
+        run_rank[i] = uid_rank[t.uid]
+        run_evictable[i] = not (t.priority_class in _CRITICAL_CLASSES
+                                or t.namespace == "kube-system")
+        run_valid[i] = True
+        run_uids.append(t.uid)
+
+    return TensorSnapshot(
+        dims=dims, eps=eps,
+        node_names=[n.name for n in nodes], node_idle=node_idle,
+        node_releasing=node_rel, node_used=node_used, node_alloc=node_allocatable,
+        node_max_tasks=node_max_tasks, node_task_count=node_tc, node_valid=node_valid,
+        task_uids=task_uids, task_req=task_req, task_job=task_job,
+        task_class=task_class_arr, task_valid=task_valid,
+        job_uids=[j.uid for j in jobs], job_queue=job_queue, job_min_available=job_min,
+        job_priority=job_prio, job_creation=job_creation, job_ready_init=job_ready_init,
+        job_alloc_init=job_alloc_init, job_schedulable=job_schedulable,
+        job_start=job_start, job_ntasks=job_ntasks,
+        queue_names=[q.name for q in queues], queue_weight=queue_weight,
+        queue_alloc_init=queue_alloc, queue_request=queue_request,
+        queue_valid=queue_valid, queue_participates=queue_participates,
+        class_node_mask=class_mask, class_node_score=class_score, total=total,
+        has_dynamic_predicates=dynamic_predicates, dynamic_job_uids=dynamic_job_uids,
+        # a dynamic job above an express job of its queue: device-first
+        # placement would invert priority under contention
+        partition_unsafe=any(
+            queue_max_dynamic_prio[qi] > queue_min_express_prio.get(qi, dp)
+            for qi, dp in queue_max_dynamic_prio.items()
+        ),
+        run_uids=run_uids, run_req=run_req, run_node=run_node, run_job=run_job,
+        run_prio=run_prio, run_rank=run_rank, run_evictable=run_evictable,
+        run_valid=run_valid,
+    )

@@ -1,14 +1,27 @@
-"""Allocate-solve dispatch with ONE device -> host fetch.
+"""Tensor-backed actions and the allocate-solve dispatch.
 
-The port's cut of ``volcano_tpu/scheduler/tensor_actions.py:448-764``:
-pick the exact or the batched solve, upload the snapshot, and let the
-solve write its four decision outputs into one int32 [3T + J] array (the
-layout of the JAX ``_packed_solve`` wrapper), which is the only thing the
-host copies back.  The dynamic solve (host ports, pod (anti)affinity,
-volumes) runs the same kernels with the ``portsel`` extension over the
-dyn-expr jobs' tasks, and with the ``volsel`` extension when a task carries
-volume state, which forces the exact solve; the bitsets go up packed and
-are tested in place by the kernels.
+The port's copy of ``volcano_tpu/scheduler/tensor_actions.py``:
+
+* the solve dispatch with ONE device -> host fetch: pick the exact or the
+  batched solve, upload the snapshot, and let the solve write its four
+  decision outputs into one int32 [3T + J] array (the layout of the JAX
+  ``_packed_solve`` wrapper), which is the only thing the host copies
+  back.  The dynamic solve (host ports, pod (anti)affinity, volumes) runs
+  the same kernels with the ``portsel`` extension over the dyn-expr jobs'
+  tasks, and with the ``volsel`` extension when a task carries volume
+  state, which forces the exact solve; the bitsets go up packed and are
+  tested in place by the kernels;
+* the object path's actions over a session's ``TensorBackend``:
+  ``allocate`` (the solve, then its decisions replayed through the
+  session, or applied in bulk above ``bulk_threshold`` placements; the
+  dynamic-predicate jobs placed by the host afterwards), and ``preempt``
+  and ``reclaim``, the host loops of the actions with each preemptor's
+  victim search done by one ``victim_step`` (K7) and one fetch.  The
+  host fallbacks are part of the reference's semantics: the whole action
+  on the host when the victim path cannot serve the session, and one
+  preemptor on the host (then a resync) when the kernel reports that the
+  reference's walk would strand evictions (``clean=False``) or the
+  preemptor has no snapshot row (an empty request).
 """
 
 from __future__ import annotations
@@ -16,9 +29,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from volcano_tpu_torch.api.types import PodGroupPhase, TaskStatus
+from volcano_tpu_torch.scheduler.cache import VolumeBindingError
 from volcano_tpu_torch.scheduler.kernels import (
     allocate_solve, allocate_solve_batch, pack_outputs, pack_volsel,
 )
+from volcano_tpu_torch.scheduler.pqueue import PriorityQueue
+from volcano_tpu_torch.scheduler.statement import Statement
+from volcano_tpu_torch.scheduler.victim_kernels import unpack_step, victim_step
 
 
 def use_batch_solve(backend, n_pending: int) -> bool:
@@ -119,3 +137,407 @@ def torch_dynamic_solve(backend, snap, dyn, n_pending=None):
     task_seq, ready) over the dyn task layout, in ONE packed fetch."""
     solve, args, kwargs = dyn_solve_args(backend, snap, dyn, n_pending)
     return _fetch(solve(*args, **kwargs), dyn["task_req"].shape[0], snap.job_queue.shape[0])
+
+
+# --------------------------------------------------------------------------
+# the object path's actions
+# --------------------------------------------------------------------------
+
+def _host_allocate(ssn) -> None:
+    from volcano_tpu_torch.scheduler.actions.allocate import AllocateAction
+
+    AllocateAction()._execute_host(ssn)
+
+
+def _host_allocate_jobs(ssn, job_uids) -> None:
+    """Host pass over the dynamic-predicate jobs, against session state
+    already advanced by the device pass."""
+    from volcano_tpu_torch.scheduler.actions.allocate import AllocateAction
+
+    AllocateAction()._execute_host(ssn, job_filter=lambda job: job.uid in job_uids)
+
+
+def _victim_path_usable(ssn, backend) -> bool:
+    """Whether the victim kernel can serve this session: tensorizable
+    tiers and class-expressible predicates."""
+    if backend is None or not backend.supported:
+        return False
+    return not backend.snapshot.has_dynamic_predicates
+
+
+class _VictimDriver:
+    """Host loop control around victim_step: every device decision is
+    replayed through the Statement/Session seams, so plugin event handlers
+    and cache effects match the host path, while the victim search runs on
+    the device."""
+
+    def __init__(self, ssn, backend, veto_set, use_drf, use_prop):
+        self.ssn = ssn
+        self.backend = backend
+        self.kw = dict(
+            use_gang="gang" in veto_set,
+            use_drf=use_drf and "drf" in veto_set,
+            use_prop=use_prop and "proportion" in veto_set,
+            use_conformance="conformance" in veto_set,
+            order_by_priority=backend.task_order_by_priority,
+        )
+        self._load()
+
+    def _load(self):
+        self.snap = snap = self.backend.snapshot
+        self.consts, self.state = self.backend.victim_arrays()
+        self.task_req = self.backend.to_device(snap.task_req)
+        self.task_row = {uid: i for i, uid in enumerate(snap.task_uids)}
+        self.job_row = {uid: i for i, uid in enumerate(snap.job_uids)}
+        self.queue_row = {name: i for i, name in enumerate(snap.queue_names)}
+
+    def resync(self):
+        """Rebuild the device state from the session after a host detour
+        (the deserved shares stay frozen: the backend keeps them)."""
+        self.backend.invalidate()
+        self._load()
+
+    def checkpoint(self):
+        # victim_step never writes its input state, so references suffice
+        return (self.snap, self.consts, self.state, self.task_req, self.task_row,
+                self.job_row, self.queue_row)
+
+    def restore(self, ckpt):
+        (self.snap, self.consts, self.state, self.task_req, self.task_row,
+         self.job_row, self.queue_row) = ckpt
+
+    def attempt(self, task, mode):
+        """Solve one preemptor: (assigned, node_name, victims, clean).  On a
+        clean assignment the device state advances and the caller replays
+        the decision; ``clean=False`` (the reference's walk would strand
+        evictions, or the task has no snapshot row: an empty request) leaves
+        the state untouched for the caller's host fallback."""
+        t = self.task_row.get(task.uid)
+        if t is None:
+            return False, "", [], False
+        snap = self.snap
+        jt = self.job_row[task.job_uid]
+        qt = self.queue_row.get(self.ssn.jobs[task.job_uid].queue, -1)
+        out = victim_step(self.consts, self.state, self.task_req[t],
+                          int(snap.task_class[t]), jt, qt, mode=mode, **self.kw)
+        packed = out.packed
+        if packed.device.type == "cuda":
+            torch.cuda.synchronize(packed.device)
+        # the one fetch of the attempt
+        assigned, nstar, vmask, clean = unpack_step(packed.cpu().numpy(),
+                                                    snap.run_req.shape[0])
+        if not clean:
+            return False, "", [], False
+        if not assigned:
+            return False, "", [], True
+        self.state = out.state
+        vidx = np.nonzero(vmask)[0]
+        if mode == "reclaim":
+            # reclaim evicts in candidate (insertion) order
+            vidx = sorted(vidx)
+        elif self.kw["order_by_priority"]:
+            # preempt drains the reversed task-order queue: (prio asc, uid desc)
+            vidx = sorted(vidx, key=lambda i: (snap.run_prio[i], -snap.run_rank[i]))
+        else:
+            vidx = sorted(vidx, key=lambda i: -snap.run_rank[i])
+        victims = []
+        for i in vidx:
+            job_uid = snap.job_uids[snap.run_job[i]]
+            victims.append(self.ssn.jobs[job_uid].tasks[snap.run_uids[i]].clone())
+        return True, snap.node_names[nstar], victims, True
+
+
+def _preemptors(ssn, with_queue_pq: bool):
+    """The actions' shared set-up: per queue a job priority queue of the
+    schedulable jobs with pending tasks, per job a task priority queue."""
+    queues_pq = PriorityQueue(ssn.queue_order_fn) if with_queue_pq else None
+    seen_queues = set()
+    queues = {}
+    preemptors_map = {}
+    preemptor_tasks = {}
+    under_request = []
+    for job in ssn.jobs.values():
+        if job.pod_group is not None and job.pod_group.status.phase == PodGroupPhase.PENDING:
+            continue
+        queue = ssn.queues.get(job.queue)
+        if queue is None:
+            continue
+        queues.setdefault(queue.uid, queue)
+        if queues_pq is not None and queue.uid not in seen_queues:
+            seen_queues.add(queue.uid)
+            queues_pq.push(queue)
+        if job.task_status_index.get(TaskStatus.PENDING):
+            if job.queue not in preemptors_map:
+                preemptors_map[job.queue] = PriorityQueue(ssn.job_order_fn)
+            preemptors_map[job.queue].push(job)
+            under_request.append(job)
+            tasks = PriorityQueue(ssn.task_order_fn)
+            for task in job.task_status_index[TaskStatus.PENDING].values():
+                tasks.push(task)
+            preemptor_tasks[job.uid] = tasks
+    return queues_pq, queues, preemptors_map, preemptor_tasks, under_request
+
+
+def preempt(ssn) -> None:
+    """preempt.go's loops with the per-node victim collection replaced by
+    one victim_step per preemptor."""
+    from volcano_tpu_torch.scheduler.actions.preempt import PreemptAction, _preempt
+
+    backend = ssn.tensor_backend
+    if not _victim_path_usable(ssn, backend):
+        PreemptAction()._execute_host(ssn)
+        if backend is not None:
+            backend.invalidate()  # the host path mutated state behind the snapshot
+        return
+
+    veto_p, _ = backend.victim_vetoes()
+    driver = _VictimDriver(ssn, backend, veto_p, use_drf=True, use_prop=False)
+
+    def host_attempt(stmt, preemptor, task_filter):
+        ok = _preempt(ssn, stmt, preemptor, task_filter)
+        driver.resync()
+        return ok
+
+    _, queues, preemptors_map, preemptor_tasks, under_request = _preemptors(ssn, False)
+    for queue in queues.values():
+        while True:
+            preemptors = preemptors_map.get(queue.uid)
+            if preemptors is None or preemptors.empty():
+                break
+            preemptor_job = preemptors.pop()
+            stmt = Statement(ssn)
+            ckpt = driver.checkpoint()
+            assigned = False
+            while True:
+                if preemptor_tasks[preemptor_job.uid].empty():
+                    break
+                preemptor = preemptor_tasks[preemptor_job.uid].pop()
+                ok, node_name, victims, clean = driver.attempt(preemptor, "queue")
+                if not clean:
+                    def job_filter(task, _job=preemptor_job, _p=preemptor):
+                        if task.status != TaskStatus.RUNNING:
+                            return False
+                        j = ssn.jobs.get(task.job_uid)
+                        return (j is not None and j.queue == _job.queue
+                                and _p.job_uid != task.job_uid)
+
+                    ok = host_attempt(stmt, preemptor, job_filter)
+                elif ok:
+                    for v in victims:
+                        stmt.evict(v, "preempt")
+                    stmt.pipeline(preemptor, node_name)
+                if ok:
+                    assigned = True
+                if ssn.job_pipelined(preemptor_job):
+                    break
+            if ssn.job_pipelined(preemptor_job):
+                stmt.commit()
+            else:
+                stmt.discard()
+                driver.restore(ckpt)
+                continue
+            if assigned:
+                preemptors.push(preemptor_job)
+
+        # phase 2: task-level preemption within each job
+        for job in under_request:
+            while True:
+                tasks = preemptor_tasks.get(job.uid)
+                if tasks is None or tasks.empty():
+                    break
+                preemptor = tasks.pop()
+                stmt = Statement(ssn)
+                ok, node_name, victims, clean = driver.attempt(preemptor, "job")
+                if not clean:
+                    def task_filter(task, _p=preemptor):
+                        return task.status == TaskStatus.RUNNING and _p.job_uid == task.job_uid
+
+                    ok = host_attempt(stmt, preemptor, task_filter)
+                elif ok:
+                    for v in victims:
+                        stmt.evict(v, "preempt")
+                    stmt.pipeline(preemptor, node_name)
+                stmt.commit()
+                if not ok:
+                    break
+    backend.invalidate()
+
+
+def reclaim(ssn) -> None:
+    """reclaim.go's loop with the per-node victim collection replaced by
+    one victim_step per reclaimer."""
+    from volcano_tpu_torch.scheduler.actions.reclaim import ReclaimAction, reclaim_task
+
+    backend = ssn.tensor_backend
+    if not _victim_path_usable(ssn, backend):
+        ReclaimAction()._execute_host(ssn)
+        if backend is not None:
+            backend.invalidate()
+        return
+
+    _, veto_r = backend.victim_vetoes()
+    driver = _VictimDriver(ssn, backend, veto_r, use_drf=False, use_prop=True)
+    queues, _, preemptors_map, preemptor_tasks, _ = _preemptors(ssn, True)
+    while not queues.empty():
+        queue = queues.pop()
+        if ssn.overused(queue):
+            continue
+        jobs = preemptors_map.get(queue.uid)
+        if jobs is None or jobs.empty():
+            continue
+        job = jobs.pop()
+        tasks = preemptor_tasks.get(job.uid)
+        if tasks is None or tasks.empty():
+            continue
+        task = tasks.pop()
+        ok, node_name, victims, clean = driver.attempt(task, "reclaim")
+        if not clean:
+            ok = reclaim_task(ssn, job, task)
+            driver.resync()
+        elif ok:
+            for v in victims:
+                ssn.evict(v, "reclaim")
+            ssn.pipeline(task, node_name)
+        if ok:
+            queues.push(queue)
+    backend.invalidate()
+
+
+def allocate(ssn) -> None:
+    backend = ssn.tensor_backend
+    if backend is None or not backend.supported:
+        _host_allocate(ssn)
+        return
+    snap = backend.snapshot
+    # dynamic-predicate jobs were partitioned out of the task arrays; the
+    # host places them after the device pass
+    residue = set(snap.dynamic_job_uids)
+    if residue and (snap.partition_unsafe or not np.any(snap.task_valid)):
+        # a dynamic job outranks an express job of its queue, or nothing is
+        # expressible: the exact host path for the whole action
+        _host_allocate(ssn)
+        backend.invalidate()
+        return
+
+    task_node, task_kind, task_seq, ready = torch_allocate_solve(backend, snap)
+    placed = np.nonzero(task_kind > 0)[0]
+    _set_fit_error_fns(ssn, snap, task_node, task_kind, placed)
+    if not placed.size and not residue:
+        return  # nothing changed: later actions keep the snapshot
+    if placed.size:
+        order = placed[np.argsort(task_seq[placed])]
+        # the bulk path skips per-task allocate events, sound only for the
+        # plugins whose accounting the solve models (drf, proportion)
+        foreign_handlers = any(eh.owner not in ("drf", "proportion")
+                               for eh in ssn.event_handlers)
+        if placed.size <= backend.bulk_threshold or foreign_handlers:
+            _replay_exact(ssn, snap, order, task_node, task_kind)
+        else:
+            _apply_bulk(ssn, snap, order, task_node, task_kind, ready,
+                        use_gang=backend.gang_job_ready, account_nodes=bool(residue))
+            if residue:
+                ssn.resync_plugin_shares()
+    if residue:
+        _host_allocate_jobs(ssn, residue)
+    backend.invalidate()
+
+
+def _set_fit_error_fns(ssn, snap, task_node, task_kind, placed) -> None:
+    """Attach a lazy fit-error histogram producer to every job the solve
+    left with unplaced pending tasks, so gang's close-time condition renders
+    the host path's "0/N nodes are available, ..." aggregate."""
+    unplaced = np.nonzero(snap.task_valid & (task_kind == 0))[0]
+    if not unplaced.size:
+        return
+    # allocations consume idle; pipelines consume releasing space
+    alloc_rows = placed[task_kind[placed] == 1]
+    idle_after = snap.node_idle.copy()
+    if alloc_rows.size:
+        np.subtract.at(idle_after, task_node[alloc_rows], snap.task_req[alloc_rows])
+    seen = set()
+    for t in unplaced:
+        j = int(snap.task_job[t])
+        if j in seen:
+            continue
+        seen.add(j)
+        job = ssn.jobs.get(snap.job_uids[j])
+        if job is not None:
+            job.fit_error_fn = _fit_error_producer(snap, idle_after, int(t))
+
+
+def _fit_error_producer(snap, idle_after, t):
+    def produce():
+        valid = snap.node_valid.astype(bool)
+        total = int(valid.sum())
+        mask = snap.class_node_mask[int(snap.task_class[t])].astype(bool) & valid
+        reasons = {}
+        excluded = total - int(mask.sum())
+        if excluded:
+            reasons["node(s) excluded by predicates"] = excluded
+        insufficient = idle_after < snap.task_req[t][None, :]
+        for r, dim in enumerate(snap.dims):
+            count = int((insufficient[:, r] & mask).sum())
+            if count:
+                reasons[f"insufficient {dim}"] = count
+        return total, reasons
+
+    return produce
+
+
+def _replay_exact(ssn, snap, order, task_node, task_kind) -> None:
+    """Each decision through Session.allocate/pipeline in solve order: the
+    host path's side effects (events, dispatch, binds)."""
+    for t in order:
+        job = ssn.jobs.get(snap.job_uids[snap.task_job[t]])
+        if job is None:
+            continue
+        task = job.tasks[snap.task_uids[t]]
+        node_name = snap.node_names[task_node[t]]
+        if task_kind[t] == 1:
+            try:
+                ssn.allocate(task, node_name)
+            except VolumeBindingError:
+                continue  # volume state changed under the solve: stays pending
+        else:
+            ssn.pipeline(task, node_name)
+
+
+def _apply_bulk(ssn, snap, order, task_node, task_kind, ready,
+                use_gang=True, account_nodes=False) -> None:
+    """Bulk application: binds go to the cache for the allocated tasks of
+    gang-ready jobs (every job counts as ready without gang's JobReady);
+    task statuses move on the session's jobs, so close_session writes the
+    right PodGroup statuses, and job allocations add up in solve order, as
+    the per-task status updates do.  Plugin event handlers do not fire (the
+    solve accounted the shares).  ``account_nodes`` charges the placements
+    to the NodeInfo objects too, for a host pass that reads them after."""
+    if use_gang:
+        ready_jobs = {snap.job_uids[j] for j in range(len(snap.job_uids))
+                      if ready[j] >= snap.job_min_available[j]}
+    else:
+        ready_jobs = set(snap.job_uids)
+    for t in order:
+        job_uid = snap.job_uids[snap.task_job[t]]
+        job = ssn.jobs.get(job_uid)
+        if job is None:
+            continue
+        task = job.tasks[snap.task_uids[t]]
+        node_name = snap.node_names[task_node[t]]
+        task.node_name = node_name
+        if task_kind[t] == 1:
+            if job_uid in ready_jobs:
+                if task.pod is not None and task.pod.volumes:
+                    try:
+                        ssn.cache.allocate_volumes(task.pod, node_name)
+                        ssn.cache.bind_volumes(task.pod)
+                    except VolumeBindingError:
+                        job.update_task_status(task, TaskStatus.ALLOCATED)
+                        continue
+                ssn.cache.bind(task, node_name)
+                job.update_task_status(task, TaskStatus.BINDING)
+            else:
+                job.update_task_status(task, TaskStatus.ALLOCATED)
+        else:
+            job.update_task_status(task, TaskStatus.PIPELINED)
+        if account_nodes:
+            ssn.nodes[node_name].add_task(task)

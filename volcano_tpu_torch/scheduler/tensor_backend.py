@@ -6,6 +6,12 @@ proportion queue order, task order by priority), the victim veto sets of
 preempt and reclaim, the proportion deserved shares (the water-fill
 kernel, once per cycle), the node-order and interpod score weights, and
 host -> device uploads memoised by array identity.
+
+The fast cycle hands the backend its snapshot (``backend.snapshot =
+snap``).  The object path attaches a backend to its session
+(``ssn=``): the snapshot is then built from the session on first use
+(``build_tensor_snapshot``) and rebuilt after ``invalidate()``, and
+``victim_arrays()`` gives ``victim_step`` its constants and state.
 """
 
 from __future__ import annotations
@@ -17,8 +23,11 @@ import numpy as np
 import torch
 
 from volcano_tpu_torch.scheduler.conf import get_plugin_arg
-from volcano_tpu_torch.scheduler.snapshot import TensorSnapshot
+from volcano_tpu_torch.scheduler.snapshot import TensorSnapshot, build_tensor_snapshot
 
+#: above this many placements the object path's allocate applies the
+#: solve's decisions in bulk instead of replaying each through the session
+BULK_THRESHOLD = 5000
 #: above this many pending tasks the batched-rounds solve replaces the
 #: exact sequential solve
 BATCH_THRESHOLD = 4096
@@ -54,7 +63,10 @@ class DeviceUploads:
 
 class TensorBackend:
     def __init__(self, tiers, device: torch.device, uploads: DeviceUploads,
-                 solve_mode: str = "auto", batch_threshold: int = BATCH_THRESHOLD):
+                 solve_mode: str = "auto", batch_threshold: int = BATCH_THRESHOLD,
+                 ssn=None):
+        self.ssn = ssn
+        self.bulk_threshold = BULK_THRESHOLD
         self.device = device
         self.to_device = uploads
         self.solve_mode = solve_mode
@@ -85,8 +97,26 @@ class TensorBackend:
                     self.proportion_queue_order = True
         self.job_key_order = tuple(job_key_order)
         self.enabled = {n: (n in names) for n in TENSORIZABLE}
-        self.snapshot: Optional[TensorSnapshot] = None
+        self.supported = not self.unsupported
+        self._snapshot: Optional[TensorSnapshot] = None
         self._deserved: Optional[torch.Tensor] = None
+
+    @property
+    def snapshot(self) -> TensorSnapshot:
+        if self._snapshot is None and self.ssn is not None:
+            self._snapshot = build_tensor_snapshot(
+                self.ssn, nodeaffinity_weight=self.nodeaffinity_weight(),
+                task_order_by_priority=self.task_order_by_priority)
+        return self._snapshot
+
+    @snapshot.setter
+    def snapshot(self, snap: TensorSnapshot) -> None:
+        self._snapshot = snap
+
+    def invalidate(self) -> None:
+        """Host state changed behind the snapshot: rebuild it on next use.
+        The deserved shares stay: proportion freezes them at session open."""
+        self._snapshot = None
 
     def deserved(self) -> torch.Tensor:
         """Proportion water-filling deserved shares [Q, R] on the device,
@@ -100,6 +130,35 @@ class TensorBackend:
                 dev(s.eps), dev(s.queue_participates),
             )
         return self._deserved
+
+    def victim_arrays(self):
+        """(VictimConsts, VictimState) of the snapshot on the device; the
+        state tensors are fresh copies, never views of the host arrays."""
+        from volcano_tpu_torch.scheduler.victim_kernels import VictimConsts, VictimState
+
+        s, dev = self.snapshot, self.to_device
+        w_least, w_bal = self.score_weights()
+        consts = VictimConsts(
+            run_req=dev(s.run_req), run_node=dev(s.run_node), run_job=dev(s.run_job),
+            run_prio=dev(s.run_prio), run_rank=dev(s.run_rank),
+            run_evictable=dev(s.run_evictable), job_queue=dev(s.job_queue),
+            job_min=dev(s.job_min_available), node_alloc=dev(s.node_alloc),
+            node_max_tasks=dev(s.node_max_tasks), node_valid=dev(s.node_valid),
+            class_mask=dev(s.class_node_mask), class_score=dev(s.class_node_score),
+            queue_deserved=self.deserved(), total=dev(s.total), eps=dev(s.eps),
+            w_least=w_least, w_balanced=w_bal,
+        )
+
+        def fresh(arr):
+            return torch.from_numpy(np.array(arr)).to(self.device)
+
+        state = VictimState(
+            run_live=fresh(s.run_valid), idle=fresh(s.node_idle),
+            releasing=fresh(s.node_releasing), used=fresh(s.node_used),
+            task_count=fresh(s.node_task_count), job_alloc=fresh(s.job_alloc_init),
+            job_occupied=fresh(s.job_ready_init), queue_alloc=fresh(s.queue_alloc_init),
+        )
+        return consts, state
 
     def victim_vetoes(self):
         """Active veto plugin sets for preempt and reclaim: the first tier

@@ -1,10 +1,13 @@
-"""The contention device programs: reclaim, preempt and the batched
-preempt rounds, as hand-written CUDA kernels for Hopper, each with the
-plain PyTorch version it must agree with.
+"""The contention device programs: one preemptor's victim solve, reclaim,
+preempt and the batched preempt rounds, as hand-written CUDA kernels for
+Hopper, each with the plain PyTorch version it must agree with.
 
-Counterpart of ``volcano_tpu/scheduler/victim_kernels.py``.  Every public
-entry (``reclaim_solve``, ``preempt_solve``, ``preempt_rounds``) takes the
-same arguments as its JAX namesake and returns the same fields:
+Counterpart of ``volcano_tpu/scheduler/victim_kernels.py``.  The storm
+entries (``reclaim_solve``, ``preempt_solve``, ``preempt_rounds``) take the
+same arguments as their JAX namesakes and return the same fields;
+``victim_step`` takes the JAX function's arguments and returns the new
+state with the decision packed into one int32 tensor (``unpack_step``
+reads it after the one fetch):
 
 * given CPU tensors it runs the plain PyTorch version (``*_plain``), a
   transcription of the JAX function;
@@ -13,9 +16,9 @@ same arguments as its JAX namesake and returns the same fields:
 
 The victim core (``_victim_core``: candidate mask, DRF and proportion
 vetoes, per-node eviction-order prefix sums, cover test, best node, state
-update) has no launch of its own: it runs inside each storm solve, as
-device functions in ``csrc/victim_common.cuh``.  The JAX standalone
-``victim_step`` serves only the object path and is not ported here.
+update) is a set of device functions in ``csrc/victim_common.cuh``, run by
+each storm solve and by ``victim_step``'s own launch (the object path's
+preempt and reclaim, one per preemptor).
 
 Float rules shared by both versions:
 
@@ -44,6 +47,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, NamedTuple
 
+import numpy as np
 import torch
 
 from volcano_tpu_torch.scheduler.kernels import (
@@ -71,6 +75,7 @@ ROUNDS_P_CHUNK = 32
 #: kernel launches since the last ``reset_launches()``; each CUDA wrapper
 #: adds one where it launches its kernel, and nowhere else
 LAUNCHES: Dict[str, int] = {
+    "victim_step": 0,
     "reclaim_solve": 0,
     "preempt_solve": 0,
     "preempt_rounds": 0,
@@ -116,6 +121,16 @@ class VictimState(NamedTuple):
     job_alloc: torch.Tensor     # [J, R] f32 drf allocated
     job_occupied: torch.Tensor  # [J] i32 ready task count
     queue_alloc: torch.Tensor   # [Q, R] f32 proportion allocated
+
+
+class VictimStepOut(NamedTuple):
+    """``victim_step``'s result: the new state (the input state is left
+    untouched) and the decision as int32 [4 + ceil(V / 32)]: assigned,
+    nstar (0 when unassigned), clean, the victim count, then the victim
+    mask, bit ``v % 32`` of word ``v // 32``."""
+
+    state: "VictimState"
+    packed: torch.Tensor
 
 
 class StormRecords(NamedTuple):
@@ -361,6 +376,64 @@ def _victim_core(c, s, t_req, t_cls, jt, qt, base, o_drf, seg_drf, o_prop,
         job_occupied=job_occupied, queue_alloc=queue_alloc,
     )
     return new_state, assigned, nstar, vmask, clean
+
+
+# --------------------------------------------------------------------------
+# K7: one preemptor's victim solve
+# --------------------------------------------------------------------------
+
+_STEP_MODES = {"queue": 0, "job": 1, "reclaim": 2}
+
+
+def _step_base(c, s, jt, qt, mode):
+    """The candidate pool by mode; raw queue rows keep -1 (a job whose
+    queue is missing) so such residents never match a real queue."""
+    rq_raw = c.job_queue[c.run_job]
+    if mode == "queue":
+        return s.run_live & (rq_raw == qt) & (c.run_job != jt)
+    if mode == "job":
+        return s.run_live & (c.run_job == jt)
+    return s.run_live & (rq_raw != qt)
+
+
+def pack_step(assigned: bool, nstar: int, clean: bool, vmask: torch.Tensor) -> torch.Tensor:
+    """The packed int32 decision of ``VictimStepOut`` from its parts."""
+    V = vmask.shape[0]
+    nw = (V + 31) // 32
+    bits = torch.zeros(nw * 32, dtype=torch.int64, device=vmask.device)
+    bits[:V] = vmask.long()
+    words = (bits.view(nw, 32) << torch.arange(32, device=vmask.device)).sum(1)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words).int()
+    head = torch.tensor([int(assigned), nstar if assigned else 0, int(clean),
+                         int(vmask.sum())], dtype=torch.int32, device=vmask.device)
+    return torch.cat([head, words])
+
+
+def unpack_step(packed, V: int):
+    """(assigned, nstar, vmask [V] bool numpy, clean) from the fetched
+    packed decision (numpy int32)."""
+    words = np.ascontiguousarray(packed[4:]).view(np.uint8)
+    vmask = np.unpackbits(words, bitorder="little")[:V].astype(bool)
+    return bool(packed[0]), int(packed[1]), vmask, bool(packed[2])
+
+
+def victim_step_plain(c, s, t_req, t_cls, jt, qt, *, mode="queue", use_gang=True,
+                      use_drf=False, use_prop=False, use_conformance=False,
+                      order_by_priority=True) -> VictimStepOut:
+    """The JAX ``victim_step``: the mode's base mask over ``_victim_core``."""
+    Q = s.queue_alloc.shape[0]
+    base = _step_base(c, s, jt, qt, mode)
+    o_drf = seg_drf = o_prop = seg_prop = None
+    if use_drf:
+        o_drf, seg_drf = _orders_drf(c)
+    if use_prop:
+        o_prop, seg_prop = _orders_prop(c, Q)
+    o_ev, seg_ev = _orders_evict(c, order_by_priority, mode == "reclaim")
+    new_s, assigned, nstar, vmask, clean = _victim_core(
+        c, s, t_req, t_cls, jt, qt, base, o_drf, seg_drf, o_prop, seg_prop, o_ev, seg_ev,
+        use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
+        use_conformance=use_conformance, reclaim_mode=(mode == "reclaim"))
+    return VictimStepOut(new_s, pack_step(assigned, nstar, clean, vmask))
 
 
 def _empty_records(V, T, dev):
@@ -912,10 +985,9 @@ def _check_victim_inputs(c: VictimConsts, s: VictimState, task_req, task_class):
     return dev, V, N, R, T, J, Q, C
 
 
-def _victim_launch(lib, stream, entry, c, s0, task_req, task_class, extra, sizes, flags):
-    """Fill the argument block (working copies of the state and records,
-    scratch), launch ``entry`` of ``lib`` on ``stream`` and return the
-    state and the buffers."""
+def _victim_args(c, s0, task_req, task_class, extra, sizes, flags):
+    """Fill the argument block: working copies of the state and records,
+    scratch.  Returns (args, state, buffers)."""
     dev, V, N, R, T, J, Q, C = _check_victim_inputs(c, s0, task_req, task_class)
     i32 = dict(dtype=torch.int32, device=dev)
     st = VictimState(*[x.clone() for x in s0])
@@ -951,8 +1023,14 @@ def _victim_launch(lib, stream, entry, c, s0, task_req, task_class, extra, sizes
         setattr(args, name, int(vals.get(name, 0)))
     args.w_least = float(c.w_least)
     args.w_balanced = float(c.w_balanced)
-    fn = getattr(lib, entry)
-    _raise_on(fn(ctypes.byref(args), stream), entry)
+    return args, st, bufs
+
+
+def _victim_launch(lib, stream, entry, c, s0, task_req, task_class, extra, sizes, flags):
+    """Launch ``entry`` of ``lib`` on ``stream`` over a filled argument
+    block; returns the state and the buffers."""
+    args, st, bufs = _victim_args(c, s0, task_req, task_class, extra, sizes, flags)
+    _raise_on(getattr(lib, entry)(ctypes.byref(args), stream), entry)
     return st, bufs
 
 
@@ -972,6 +1050,54 @@ def _lib_stream(dev):
     from volcano_tpu_torch import _build
 
     return _build.load(), _stream(dev)
+
+
+def victim_step(c, s, t_req, t_cls, jt, qt, *, mode="queue", use_gang=True, use_drf=False,
+                use_prop=False, use_conformance=False,
+                order_by_priority=True) -> VictimStepOut:
+    """One preemptor's victim solve over all nodes (JAX ``victim_step``);
+    ``t_req`` is the preemptor's [R] request on the pool's device, the
+    other preemptor arguments are host integers (``qt`` -1: no queue).
+
+    Replaces volcano_tpu/scheduler/victim_kernels.py:362.  Bound on the
+    card by latency: a launch chain over a few passes of the pool.  Design
+    (csrc/victim_step.cu): the storm solves' per-node setup and victim
+    core, one CTA for the attempt, the decision packed for one fetch."""
+    if mode not in _STEP_MODES:
+        raise ValueError(f"victim_step: mode must be one of {tuple(_STEP_MODES)}, got {mode!r}")
+    kw = dict(mode=mode, use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
+              use_conformance=use_conformance, order_by_priority=order_by_priority)
+    dev = _device_of(c, "victim_step")
+    if dev.type == "cpu":
+        return victim_step_plain(c, s, t_req, t_cls, jt, qt, **kw)
+    out = victim_step_launch(*_lib_stream(dev), c, s, t_req, t_cls, jt, qt, **kw)
+    LAUNCHES["victim_step"] += 1
+    return out
+
+
+def victim_step_launch(lib, stream, c, s, t_req, t_cls, jt, qt, *, mode, use_gang, use_drf,
+                       use_prop, use_conformance, order_by_priority) -> VictimStepOut:
+    """Validate, launch csrc/victim_step.cu and return its outputs."""
+    dev = c.run_req.device
+    V, R = c.run_req.shape
+    J = c.job_queue.shape[0]
+    C = c.class_mask.shape[0]
+    _check("t_req", t_req, torch.float32, (R,), dev)
+    if not (0 <= jt < J and 0 <= t_cls < C and qt >= -1):
+        raise ValueError(f"victim_step: jt {jt}, t_cls {t_cls}, qt {qt} outside "
+                         f"J={J}, C={C}")
+    i32 = dict(dtype=torch.int32, device=dev)
+    extra = dict(pipe=torch.zeros(J, **i32))
+    flags = dict(use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
+                 use_conformance=use_conformance, order_by_priority=order_by_priority,
+                 job_key_order=())
+    args, st, _ = _victim_args(c, s, t_req.view(1, R), torch.full((1,), t_cls, **i32),
+                               extra, {}, flags)
+    packed = torch.empty(4 + (V + 31) // 32, **i32)
+    _raise_on(lib.vtt_victim_step(ctypes.byref(args), int(t_cls), int(jt), int(qt),
+                                  _STEP_MODES[mode], packed.data_ptr(), stream),
+              "vtt_victim_step")
+    return VictimStepOut(st, packed)
 
 
 def reclaim_solve(c, s0, task_req, task_class, job_first, job_prio, job_cand0,
