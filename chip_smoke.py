@@ -77,11 +77,30 @@ Phases, each fatal on failure:
    seeded inputs, and on the first inputs cfg6r-be gave it;
 14. e2e cfg5-obj — config 5's nodes and 5,000 gangs x 20 (no best-effort
    pods) with fast_path off: the object cycle's allocate runs K3 and the
-   bulk apply; every gang task bound in cycle 1; two cycles.
+   bulk apply; every gang task bound in cycle 1; two cycles;
+15. cap lifts — the shapes the card refused before the node-tiled solves,
+   each against its plain version: K3 at 65,536- and 131,072-node buckets
+   (build_sim_args(40,000 / 100,000, 100,000, 5,000)), K10 at a 65,536-node
+   bucket (build_storm_sim), K2 with 128 queues, K1 with 2,048 (queue, dim)
+   cells;
+16. e2e cfg9 — bench.py's cfg9 store (_build_shard_e2e_store: 100,000
+   nodes, 1,000,000 tasks in gangs of 20 over 16 namespaces, two weighted
+   queues) under full_conf("cuda") with mesh "4" (solve_mode auto: the
+   batched solve runs on four node blocks, K12a): every gang task bound
+   within two cycles, no node over capacity, every gang all or nothing;
+   the first batched solve's inputs captured;
+17. K12a — on cfg9's captured inputs: the one-block tiled K3 against its
+   plain version and against the cycle's sharded decisions, the sharded
+   solve and its plain version on local meshes of 1, 2, 4 and 8 blocks
+   (each equal bit for bit to the one-block run), and a one-rank NCCL
+   process group (FileStore rendezvous) running four blocks
+   over all_gather_into_tensor.
 
 With ``--profile``, a torch.profiler pass over one config-5 batch solve
-and one config-5 cycle runs after the build: device time by kernel and the
-device's idle share of the cycle (also written to OUT.json when given).
+and one config-5 cycle, one batched solve at cfg9's shape on four node
+blocks and one cfg9 cycle runs after the build: device time by kernel and
+the device's idle share of the cycles (also written to OUT.json when
+given).
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero with no result line
@@ -130,19 +149,22 @@ def log(*a):
 
 
 def reset_launches():
+    from volcano_tpu_torch.parallel import sharded as S
     from volcano_tpu_torch.scheduler import kernels as K
     from volcano_tpu_torch.scheduler import victim_kernels as VK
 
     K.reset_launches()
     VK.reset_launches()
+    S.reset_launches()
 
 
 def read_launches():
     """Every kernel's launches since the last reset_launches()."""
+    from volcano_tpu_torch.parallel import sharded as S
     from volcano_tpu_torch.scheduler import kernels as K
     from volcano_tpu_torch.scheduler import victim_kernels as VK
 
-    return {**K.LAUNCHES, **VK.LAUNCHES}
+    return {**K.LAUNCHES, **VK.LAUNCHES, **S.LAUNCHES}
 
 
 def cuda_ms(fn, reps):
@@ -1658,6 +1680,29 @@ def phase_victim_step_kernel(captured, launches):
                 n_assigned += int(o_p.packed[0])
     log(f"[kernels] victim_step sweep ok: {n} small solves ({n_assigned} assigned) equal to "
         f"the plain version")
+    # reclaim mode with the drf veto on: the preemptor's share counts in any
+    # mode; only cases where drf changes the plain decision are kept
+    n_drf = 0
+    for seed in range(4):
+        cs, ss = interop.victim_from_arrays(*build_victim_sim(16, 120, 10, n_queues=3,
+                                                              seed=seed), dev)
+        for jt in range(10):
+            qt = int(cs.job_queue[jt])
+            for cpu in (500.0, 3000.0, 6000.0):
+                tr = torch.tensor([cpu, 2048.0 * (1 << 20)], device=dev)
+                o_p = VK.victim_step_plain(cs, ss, tr, 0, jt, qt, mode="reclaim", use_drf=True)
+                o_off = VK.victim_step_plain(cs, ss, tr, 0, jt, qt, mode="reclaim",
+                                             use_drf=False)
+                if torch.equal(o_p.packed, o_off.packed):
+                    continue
+                o_k = VK.victim_step(cs, ss, tr, 0, jt, qt, mode="reclaim", use_drf=True)
+                err = max(err, _step_compare(f"victim_step reclaim+drf {seed} {jt} {cpu}",
+                                             o_k, o_p))
+                n_drf += 1
+    if not n_drf:
+        raise AssertionError("victim_step: no reclaim-mode case where drf decides")
+    log(f"[kernels] victim_step reclaim mode with drf ok: {n_drf} solves where the veto "
+        f"changes the decision, equal to the plain version")
 
     args, ckw = captured
     c2, s2, tr2 = args[0], args[1], args[2]
@@ -1677,6 +1722,371 @@ def phase_victim_step_kernel(captured, launches):
         cfg6r_be_plain_ms=p2_ms, cfg6r_be_bound_ms=b2)}
 
 
+# ---- the shape caps lifted, and the node-sharded cycle (K12a) at cfg9 -------
+
+# cfg9 (bench.py N_NODES9, N_TASKS9, CFG9_NAMESPACES, _build_shard_e2e_store)
+CFG9 = dict(nodes=100_000, tasks=1_000_000, tasks_per_job=20, namespaces=16, queues=2)
+#: the conf mesh of the cfg9 cell (bench.py config9_shard sets conf.mesh)
+CFG9_MESH = "4"
+#: local meshes the sharded cycle runs on at cfg9's captured solve inputs
+MESH_BLOCKS = (1, 2, 4, 8)
+
+
+def _solve_inputs_np(a):
+    """build_sim_args arrays on the card plus the K1 deserved shares."""
+    import torch
+
+    from volcano_tpu_torch.scheduler import kernels as K
+
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda") for k, v in a.items()}
+    des = K.water_fill(t["queue_weight"], t["queue_request"], t["total"], t["eps"],
+                       t["queue_participates"])
+    return {k: (des if k == "queue_deserved" else t[k]) for k in K._SOLVE_ARGS}
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_cap_lifts():
+    """The shapes the card refused before the tiled solves, each against its
+    plain version on the same inputs: K3 at 65,536- and 131,072-node
+    buckets, K10 at 65,536 nodes, K2 with 128 queues, K1 with Q*R = 2,048
+    cells."""
+    import torch
+
+    from volcano_tpu_torch import interop
+    from volcano_tpu_torch.scheduler import kernels as K
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+    from volcano_tpu_torch.scheduler.simargs import (
+        build_sim_args, build_storm_sim, storm_inputs,
+    )
+
+    opts = dict(job_key_order=("priority", "gang", "drf"), use_gang_ready=True,
+                use_proportion=True)
+    res = {}
+    for n_nodes in (40_000, 100_000):
+        si = _solve_inputs_np(build_sim_args(n_nodes, 100_000, 5_000, seed=9))
+        N = si["idle"].shape[0]
+        args = [si[k] for k in K._SOLVE_ARGS] + [1.0, 1.0]
+        out_k = K.allocate_solve_batch(*args, **opts)
+        out_p, p_ms = _timed(lambda: K.allocate_solve_batch_plain(
+            **si, w_least=1.0, w_balanced=1.0, **opts))
+        err = _compare(f"allocate_solve_batch N={N}", out_k, out_p)
+        ms = cuda_ms(lambda: K.allocate_solve_batch(*args, **opts), 2)
+        placed = int((out_k.task_kind > 0).sum())
+        res[f"K3@{N}"] = dict(ms=ms, plain_ms=p_ms, rounds=int(out_k.steps), err=err)
+        log(f"[caps] allocate_solve_batch at a {N}-node bucket ({n_nodes} valid) ok: "
+            f"{int(out_k.steps)} rounds, {placed} placed, {ms:.3f} ms (plain {p_ms:.1f} ms), "
+            f"max abs err {err}")
+
+    c_np, s_np, t_np = build_storm_sim(0, n_nodes=40_000, n_victims=120_000, n_jobs=3_000,
+                                       n_new=64)
+    c, st = interop.victim_from_arrays(c_np, s_np, torch.device("cuda"))
+    sargs = [x if isinstance(x, int) else torch.from_numpy(np.asarray(x)).to("cuda")
+             for x in storm_inputs("rounds", c_np, s_np, t_np)]
+    kw = dict(use_gang=True, use_drf=True, use_conformance=True, order_by_priority=True)
+    out_k = VK.preempt_rounds(c, st, *sargs, **kw)
+    out_p, p_ms = _timed(lambda: VK.preempt_rounds_plain(c, st, *sargs, **kw))
+    err = _victim_compare("preempt_rounds N=65536", out_k, out_p)
+    ms = cuda_ms(lambda: VK.preempt_rounds(c, st, *sargs, **kw), 2)
+    N = c.node_alloc.shape[0]
+    res[f"K10@{N}"] = dict(ms=ms, plain_ms=p_ms, err=err)
+    log(f"[caps] preempt_rounds at a {N}-node bucket ok: {ms:.3f} ms (plain {p_ms:.1f} ms), "
+        f"max abs err {err}")
+
+    si = _solve_inputs_np(build_sim_args(10_000, 4_000, 200, n_queues=128, seed=5))
+    Q = si["queue_alloc_init"].shape[0]
+    args = [si[k] for k in K._SOLVE_ARGS] + [1.0, 1.0]
+    out_k = K.allocate_solve(*args, **opts)
+    out_p, p_ms = _timed(lambda: K.allocate_solve_plain(**si, w_least=1.0, w_balanced=1.0,
+                                                        **opts))
+    err = _compare(f"allocate_solve Q={Q}", out_k, out_p)
+    ms = cuda_ms(lambda: K.allocate_solve(*args, **opts), 2)
+    res[f"K2@Q{Q}"] = dict(ms=ms, plain_ms=p_ms, steps=int(out_k.steps), err=err)
+    log(f"[caps] allocate_solve with {Q} queues ok: {int(out_k.steps)} steps, {ms:.3f} ms "
+        f"(plain {p_ms:.1f} ms)")
+
+    a = build_sim_args(1_000, 4_000, 2_000, n_queues=600, seed=6)
+    t = {k: torch.from_numpy(np.ascontiguousarray(a[k])).to("cuda")
+         for k in ("queue_weight", "queue_request", "total", "eps", "queue_participates")}
+    wf = (t["queue_weight"], t["queue_request"], t["total"], t["eps"], t["queue_participates"])
+    des_k = K.water_fill(*wf)
+    des_p, p_ms = _timed(lambda: K.water_fill_plain(*wf))
+    cells = t["queue_request"].numel()
+    if cells <= 1024 or not torch.equal(des_k, des_p):
+        raise AssertionError(f"water_fill with {cells} cells: kernel != plain or no lift")
+    ms = cuda_ms(lambda: K.water_fill(*wf), 20)
+    res[f"K1@{cells}"] = dict(ms=ms, plain_ms=p_ms, err=0.0)
+    log(f"[caps] water_fill with Q*R = {cells} cells ok: {ms:.4f} ms (plain {p_ms:.2f} ms)")
+    return res
+
+
+def build_cfg9_store(n_nodes=CFG9["nodes"], n_tasks=CFG9["tasks"],
+                     tasks_per_job=CFG9["tasks_per_job"], n_namespaces=CFG9["namespaces"],
+                     n_queues=CFG9["queues"]):
+    """bench.py _build_shard_e2e_store with the port's objects: the same
+    rng(9) draws, n_queues weighted queues (plus "default"), gangs of 20
+    over 16 namespaces, PodGroups Pending (enqueue admits them)."""
+    from volcano_tpu_torch.api import (
+        POD_GROUP_KEY, Metadata, Node, Pod, PodGroup, PodGroupPhase, PodSpec, Queue, Resource,
+    )
+    from volcano_tpu_torch.store import Store
+
+    rng = np.random.default_rng(9)
+    n_jobs = max(n_tasks // tasks_per_job, 1)
+    node_cpu = rng.choice([16000, 32000], n_nodes)
+    node_mem = rng.choice([32, 64], n_nodes) * (1 << 30)
+    cpus = rng.choice([250, 500, 1000, 2000], n_tasks)
+    mems = rng.choice([256, 512, 1024, 2048], n_tasks) * (1 << 20)
+
+    store = Store()
+    for q in range(n_queues):
+        store.create("Queue", Queue(meta=Metadata(name=f"q{q}", namespace=""),
+                                    weight=n_queues - q))
+    store.create("Queue", Queue(meta=Metadata(name="default", namespace=""), weight=1))
+    for i in range(n_nodes):
+        store.create("Node", Node(meta=Metadata(name=f"n{i:06d}", namespace=""),
+                                  allocatable=Resource(float(node_cpu[i]), float(node_mem[i]),
+                                                       max_task_num=110)))
+    k = 0
+    for j in range(n_jobs):
+        ns = f"team{j % n_namespaces}"
+        pg = PodGroup(meta=Metadata(name=f"pg{j:06d}", namespace=ns),
+                      min_member=min(tasks_per_job, n_tasks - k), queue=f"q{j % n_queues}")
+        pg.status.phase = PodGroupPhase.PENDING
+        store.create("PodGroup", pg)
+        ann = {POD_GROUP_KEY: f"pg{j:06d}"}
+        for _t in range(min(tasks_per_job, n_tasks - k)):
+            store.create("Pod", Pod(
+                meta=Metadata(name=f"p{k:07d}", namespace=ns, annotations=dict(ann)),
+                spec=PodSpec(resources=Resource(float(cpus[k]), float(mems[k])))))
+            k += 1
+        if k >= n_tasks:
+            break
+    return store
+
+
+def check_cfg9_placement(store):
+    """No node over its allocatable or pod cap; every gang all or nothing.
+    Returns the tasks bound."""
+    from volcano_tpu_torch.api import POD_GROUP_KEY
+
+    nodes = {}
+    cap = []
+    for i, n in enumerate(store.list("Node")):
+        nodes[n.meta.name] = i
+        cap.append((n.allocatable.milli_cpu, n.allocatable.memory, n.allocatable.max_task_num))
+    cap = np.array(cap)
+    used = np.zeros_like(cap)
+    per_gang, size = {}, {}
+    for p in store.list("Pod"):
+        g = (p.meta.namespace, p.meta.annotations.get(POD_GROUP_KEY, ""))
+        size[g] = size.get(g, 0) + 1
+        if not p.node_name:
+            continue
+        used[nodes[p.node_name]] += (p.spec.resources.milli_cpu, p.spec.resources.memory, 1)
+        per_gang[g] = per_gang.get(g, 0) + 1
+    over = np.nonzero((used > cap).any(axis=1))[0]
+    if over.size:
+        raise AssertionError(f"cfg9: {over.size} nodes over capacity, e.g. row {over[0]}")
+    partial = [g for g, c in per_gang.items() if c != size[g]]
+    if partial:
+        raise AssertionError(f"cfg9: gangs bound partially: {partial[:5]}")
+    return sum(per_gang.values())
+
+
+def phase_cfg9():
+    """cfg9 end to end: 100,000 nodes, the cfg9 tasks in gangs of 20,
+    full_conf("cuda") with mesh "4" and solve_mode auto (the batched solve
+    runs: the pending tasks are far above the exact threshold).  Launch
+    counts reset just before cycle 1 and read just after; every gang task
+    bound within two cycles, the placement invariants after each; returns
+    the launches and the first solve's captured (backend, snapshot,
+    decisions)."""
+    import torch
+
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.fastpath import cycle as cycle_mod
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    t0 = time.perf_counter()
+    store = build_cfg9_store()
+    log(f"[e2e cfg9] store built: {CFG9['nodes']} nodes, {CFG9['tasks']} tasks in gangs of "
+        f"{CFG9['tasks_per_job']} over {CFG9['namespaces']} namespaces "
+        f"({time.perf_counter() - t0:.1f} s)")
+    conf = full_conf("cuda")
+    conf.mesh = CFG9_MESH
+    sched = Scheduler(store, conf=conf)
+    if sched.mesh is None or sched.mesh.size != int(CFG9_MESH):
+        raise AssertionError(f"cfg9: mesh {CFG9_MESH} resolved to {sched.mesh}")
+    log(f"[e2e cfg9] mesh {sched.mesh}; prewarm {sched.prewarm():.2f} s")
+    solve = cycle_mod.torch_allocate_solve
+    captured = []
+
+    def recording(backend, snap, n_pending=None):
+        out = solve(backend, snap, n_pending)
+        if not captured:
+            captured.append((backend, snap, out))
+        return out
+
+    cycle_mod.torch_allocate_solve = recording
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        sched.run_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        cycle_mod.torch_allocate_solve = solve
+    phases = {k: round(v, 4) for k, v in sched.fast_cycle.phases.items()}
+    log(f"[e2e cfg9] cycle 1 wall {wall:.3f} s phases {json.dumps(phases)} "
+        f"launches {launches}")
+    for name in ("water_fill", "allocate_solve_batch", "sharded_cycle"):
+        if launches[name] < 1:
+            raise AssertionError(f"cfg9: kernel {name} launched {launches[name]} times")
+    for name in ("allocate_solve",) + CONTENTION_KERNELS + OBJECT_KERNELS:
+        if launches[name]:
+            raise AssertionError(f"cfg9: kernel {name} launched ({launches[name]})")
+    if sched.last_path != "fast" or not captured:
+        raise AssertionError(f"cfg9: cycle 1 took the {sched.last_path} path")
+    t0 = time.perf_counter()
+    bound = check_cfg9_placement(store)
+    log(f"[e2e cfg9] bound after cycle 1: {bound} of {CFG9['tasks']} "
+        f"(checked in {time.perf_counter() - t0:.1f} s)")
+    cycles = 1
+    while bound < CFG9["tasks"] and cycles < MAX_CYCLES:
+        cycles += 1
+        t0 = time.perf_counter()
+        sched.run_once()
+        log(f"[e2e cfg9] cycle {cycles} wall {time.perf_counter() - t0:.3f} s phases "
+            f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}")
+        bound = check_cfg9_placement(store)
+        log(f"[e2e cfg9] bound after cycle {cycles}: {bound}")
+    if bound != CFG9["tasks"]:
+        raise AssertionError(f"cfg9: {bound} of {CFG9['tasks']} gang tasks bound after "
+                             f"{cycles} cycles")
+    log(f"[e2e cfg9] all bound in {cycles} cycle(s) (deadline {MAX_CYCLES})")
+    return launches, captured[0]
+
+
+def phase_sharded_kernels(captured, launches):
+    """K12a on the card at cfg9's captured solve inputs (the cycle's first
+    batched solve): the one-block tiled K3 against its plain version and
+    against the cycle's own decisions; the sharded solve and its plain
+    version on local meshes of 1, 2, 4 and 8 blocks, each bit for bit
+    equal to the one-block run; a one-rank NCCL process group
+    (FileStore rendezvous) running the cell's mesh over
+    all_gather_into_tensor.  CUDA-event times."""
+    import torch
+    import torch.distributed as dist
+
+    from volcano_tpu_torch import _build
+    from volcano_tpu_torch.parallel import sharded as S
+    from volcano_tpu_torch.scheduler import kernels as K
+    from volcano_tpu_torch.scheduler.tensor_actions import solve_inputs
+    from volcano_tpu_torch.scheduler.tensor_backend import TensorBackend
+
+    backend, snap, decisions = captured
+    one = TensorBackend(backend.tiers, backend.device, backend.to_device,
+                        solve_mode=backend.solve_mode)
+    one.snapshot = snap
+    one._deserved = backend.deserved()
+    inputs = solve_inputs(one, snap, True)
+    w_least, w_balanced = one.score_weights()
+    policy = dict(job_key_order=one.job_key_order, use_gang_ready=one.gang_job_ready,
+                  use_proportion=one.proportion_queue_order)
+    args = [inputs[k] for k in K._SOLVE_ARGS] + [w_least, w_balanced]
+    N = inputs["idle"].shape[0]
+    T, J = inputs["task_req"].shape[0], inputs["job_queue"].shape[0]
+
+    ref = K.allocate_solve_batch(*args, **policy)
+    packed = K.pack_outputs(ref).cpu().numpy()
+    for name, got, want in zip(("task_node", "task_kind", "task_seq", "ready"), decisions,
+                               (packed[:T], packed[T:2 * T], packed[2 * T:3 * T],
+                                packed[3 * T:3 * T + J])):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"cfg9: the cycle's sharded {name} != the one-block K3's")
+    k3_ms = cuda_ms(lambda: K.allocate_solve_batch(*args, **policy), 2)
+    plain, k3_plain_ms = _timed(lambda: K.allocate_solve_batch_plain(
+        **inputs, w_least=w_least, w_balanced=w_balanced, **policy))
+    err = _compare("allocate_solve_batch cfg9", ref, plain)
+    rounds, placed = int(ref.steps), int((ref.task_kind > 0).sum())
+    log(f"[sharded] one-block tiled K3 at cfg9 ({N}-node bucket, {T} task rows, {J} job "
+        f"rows) ok: {rounds} rounds, {placed} placed, {k3_ms:.3f} ms (plain "
+        f"{k3_plain_ms:.1f} ms); equal to the cycle's mesh-{CFG9_MESH} decisions")
+
+    repl = {k: inputs[k] for k in K._SOLVE_ARGS if k not in K.NODE_PLANES}
+    ms, plain_ms = {}, {}
+    for n in MESH_BLOCKS:
+        mesh = S.LocalMesh(n, torch.device("cuda"))
+        planes = {k: S.split_rows(mesh, k, inputs[k]) for k in K.NODE_PLANES}
+
+        def run(mesh=mesh, planes=planes):
+            return S.sharded_solve(mesh, planes, repl, w_least, w_balanced, **policy)
+
+        err = max(err, _compare(f"sharded_cycle {n} blocks", run(), ref))
+        ms[n] = cuda_ms(run, 2)
+        plain_s, plain_ms[n] = _timed(lambda: S.batch_blocks_plain(
+            repl, S._blocks(mesh, planes), n, mesh.exchange, w_least, w_balanced, **policy))
+        err = max(err, _compare(f"sharded_cycle plain {n} blocks", plain_s, ref))
+        log(f"[sharded] local mesh of {n} blocks ok: {ms[n]:.3f} ms (plain version on the "
+            f"same blocks {plain_ms[n]:.1f} ms), both equal to the one-block K3")
+
+    # the rendezvous file lives in the checkout's build directory
+    store_path = _build.BUILD_DIR / f"nccl_store_{os.getpid()}"
+    store_path.parent.mkdir(parents=True, exist_ok=True)
+    if store_path.exists():
+        store_path.unlink()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_path), 1),
+                            rank=0, world_size=1)
+    try:
+        gmesh = S.make_mesh(int(CFG9_MESH))
+        if not isinstance(gmesh, S.GroupMesh) or gmesh.n_local != int(CFG9_MESH):
+            raise AssertionError(f"NCCL mesh: {gmesh}")
+        gplanes = {k: S.split_rows(gmesh, k, inputs[k]) for k in K.NODE_PLANES}
+
+        def grun():
+            return S.sharded_solve(gmesh, gplanes, repl, w_least, w_balanced, **policy)
+
+        gout = grun()
+        err = max(err, _compare("sharded_cycle NCCL group", gout, ref))
+        gms = cuda_ms(grun, 2)
+        out_rows = S.fetch_outputs(gout, gmesh)
+        if not np.array_equal(out_rows[6], ref.idle.cpu().numpy()):
+            raise AssertionError("NCCL mesh: gathered idle rows != the one-block run's")
+        log(f"[sharded] one-rank NCCL group, {gmesh.size} blocks over all_gather_into_tensor "
+            f"ok: {gms:.3f} ms")
+    finally:
+        dist.destroy_process_group()
+        if store_path.exists():
+            store_path.unlink()
+
+    io = nbytes(*inputs.values()) + nbytes(*ref[:10])
+    n_sort_keys = len(policy["job_key_order"]) + 2 + int(policy["use_proportion"])
+    M, P = min(512, J), 16
+    b, kind = bound_ms(io, _batch_solve_ops(ref, inputs, M, P, n_sort_keys))
+    log(f"[sharded] bound {b:.4f} ms by {kind}; local-mesh ms by blocks "
+        f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}")
+    return {"sharded_cycle": dict(
+        name="sharded_cycle", route="cuda", source="volcano_tpu_torch/csrc/allocate_batch.cu",
+        replaces="volcano_tpu/parallel/sharded.py:152", launches=launches["sharded_cycle"],
+        max_abs_err=err, ms=ms[int(CFG9_MESH)], plain_ms=plain_ms[int(CFG9_MESH)], bound_ms=b,
+        bound_by=kind, library_ms=None,
+        cell=f"cfg9 captured inputs, local mesh of {CFG9_MESH} blocks",
+        ms_by_blocks={str(k): v for k, v in ms.items()},
+        plain_ms_by_blocks={str(k): v for k, v in plain_ms.items()}, nccl_group_ms=gms,
+        one_block_k3_ms=k3_ms, one_block_k3_plain_ms=k3_plain_ms, rounds=rounds)}
+
+
+
 def _device_ms(events):
     """{name: (calls, device ms)} of profiler key averages, device time only."""
     out = {}
@@ -1690,9 +2100,11 @@ def _device_ms(events):
 
 
 def phase_profile(out_path=None):
-    """torch.profiler over one config-5 batch solve and one config-5 cycle:
-    device time by kernel and the device's busy share of the cycle wall;
-    the numbers also go to ``out_path`` as JSON when given."""
+    """torch.profiler over one config-5 batch solve and one config-5 cycle,
+    then one batched solve at cfg9's shape (build_sim_args(100,000,
+    1,000,000, 50,000)) on a local mesh of four blocks and one cfg9 cycle
+    with mesh "4": device time by kernel and the device's busy share of the
+    cycle walls; the numbers also go to ``out_path`` as JSON when given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1736,11 +2148,58 @@ def phase_profile(out_path=None):
     phases = dict(sched.fast_cycle.phases)
     log(f"[profile] cycle: wall {cwall:.3f} s, device {cbusy:.3f} ms, idle share "
         f"{1 - cbusy / (cwall * 1e3):.5f}, phases {json.dumps(phases)}")
+    del sched, store
+
+    from volcano_tpu_torch.parallel import sharded as S
+
+    a = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in build_sim_args(100_000, 1_000_000, 50_000, seed=9).items()}
+    des = K.water_fill(a["queue_weight"], a["queue_request"], a["total"], a["eps"],
+                       a["queue_participates"])
+    mesh = S.LocalMesh(int(CFG9_MESH), dev)
+    planes = {k: S.split_rows(mesh, k, a[k]) for k in K.NODE_PLANES}
+    repl = {k: (des if k == "queue_deserved" else a[k]) for k in K._SOLVE_ARGS
+            if k not in K.NODE_PLANES}
+    S.sharded_solve(mesh, planes, repl, 1.0, 1.0)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out9 = S.sharded_solve(mesh, planes, repl, 1.0, 1.0)
+        torch.cuda.synchronize()
+        wall9 = time.perf_counter() - t0
+    solve9 = _device_ms(prof.key_averages())
+    busy9 = sum(ms for _, ms in solve9.values())
+    log(f"[profile] cfg9-shape sharded solve ({mesh}): wall {wall9 * 1e3:.3f} ms, "
+        f"{int(out9.steps)} rounds, device {busy9:.3f} ms ({busy9 / (wall9 * 1e3):.3f} busy)")
+    for name, (calls, ms) in sorted(solve9.items(), key=lambda kv: -kv[1][1]):
+        log(f"[profile]   {name}: {calls} calls, {ms:.3f} ms")
+    del a, planes, repl, out9
+
+    from volcano_tpu_torch.scheduler.conf import full_conf as _full
+
+    store = build_cfg9_store()
+    conf = _full("cuda")
+    conf.mesh = CFG9_MESH
+    sched = Scheduler(store, conf=conf)
+    sched.prewarm()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sched.run_once()
+        torch.cuda.synchronize()
+        cwall9 = time.perf_counter() - t0
+    cycle9 = _device_ms(prof.key_averages())
+    cbusy9 = sum(ms for _, ms in cycle9.values())
+    phases9 = dict(sched.fast_cycle.phases)
+    log(f"[profile] cfg9 cycle: wall {cwall9:.3f} s, device {cbusy9:.3f} ms, idle share "
+        f"{1 - cbusy9 / (cwall9 * 1e3):.5f}, phases {json.dumps(phases9)}")
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         with open(out_path, "w") as f:
             json.dump({"solve_wall_ms": wall * 1e3, "rounds": rounds, "solve_device": solve,
-                       "cycle_wall_s": cwall, "cycle_device": cycle, "cycle_phases": phases},
+                       "cycle_wall_s": cwall, "cycle_device": cycle, "cycle_phases": phases,
+                       "cfg9_solve_wall_ms": wall9 * 1e3, "cfg9_solve_device": solve9,
+                       "cfg9_cycle_wall_s": cwall9, "cfg9_cycle_device": cycle9,
+                       "cfg9_cycle_phases": phases9},
                       f, indent=1)
 
 
@@ -1802,6 +2261,12 @@ def main(argv):
     be_launches, step_in = phase_object_cfg6r_be()
     kern.update(phase_victim_step_kernel(step_in, be_launches["victim_step"]))
     phase_object_cfg5()
+    caps = phase_cap_lifts()
+    cfg9_launches, cfg9_captured = phase_cfg9()
+    kern.update(phase_sharded_kernels(cfg9_captured, cfg9_launches))
+    for name, kid in (("allocate_solve_batch", "K3"), ("preempt_rounds", "K10"),
+                      ("allocate_solve", "K2"), ("water_fill", "K1")):
+        kern[name]["cap_lifts"] = {k: v for k, v in caps.items() if k.split("@")[0] == kid}
     for name, row in kern.items():
         if name in ("water_fill", "allocate_solve_batch"):
             row["launches"] = batch[name]

@@ -589,3 +589,104 @@ def test_gpu_object_path_equals_cpu(seed):
                      {g.meta.key: g.status.phase for g in store.list("PodGroup")}))
     assert outs[0] == outs[1]
     assert outs[0][0], "the store must contend"
+
+
+# -- the lifted shape caps, and the node-sharded solve (K12a) -------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,releasing", [(0, False), (1, True)])
+@pytest.mark.parametrize("with_portsel", [False, True])
+def test_gpu_batch_solve_over_node_tiles_matches_plain(seed, releasing, with_portsel,
+                                                       monkeypatch):
+    """K3 with tiles of 4 node rows (four tiles a solve): the tile top-Ks
+    merge into the exact top-K, so the decisions equal the plain version."""
+    dev = _cuda()
+    monkeypatch.setattr(K, "BATCH_TILE", 4)
+    a = _args(dev, seed, releasing)
+    des = K.water_fill(*_water_fill_inputs(a))
+    args = {k: (des if k == "queue_deserved" else a[k]) for k in K._SOLVE_ARGS}
+    ext = {}
+    if with_portsel:
+        p = build_portsel_args(14, 64, seed=seed, n_jobs=16, w_podaff=1.0)
+        ext["portsel"] = tuple(p[k] if k == "w_podaff" else torch.from_numpy(p[k]).to(dev)
+                               for k in PORTSEL_KEYS)
+    out_k = K.allocate_solve_batch(*args.values(), 1.0, 1.0, m_chunk=4, p_chunk=3, **ext)
+    out_p = K.allocate_solve_batch_plain(**args, w_least=1.0, w_balanced=1.0, m_chunk=4,
+                                         p_chunk=3, **ext)
+    _assert_same(out_k, out_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(2))
+def test_gpu_preempt_rounds_over_node_tiles_match_plain(seed, monkeypatch):
+    """K10 with tiles of 4 node rows."""
+    dev = _cuda()
+    monkeypatch.setattr(VK, "ROUNDS_TILE", 4)
+    c, s, args = _storm(dev, "rounds", seed, n_new=4, n_nodes=12)
+    kw = dict(use_gang=True, use_drf=True, use_conformance=True, order_by_priority=True)
+    _assert_victims_same(VK.preempt_rounds(c, s, *args, **kw),
+                         VK.preempt_rounds_plain(c, s, *args, **kw))
+
+
+@pytest.mark.gpu
+def test_gpu_many_queues_match_plain():
+    """K2 with 128 queues and K1 with 2,048 (queue, dim) cells: past the
+    old per-queue shared-memory tables."""
+    dev = _cuda()
+    a = {k: torch.from_numpy(v).to(dev)
+         for k, v in build_sim_args(12, 256, 128, n_queues=100, seed=4).items()}
+    assert a["queue_alloc_init"].shape[0] == 128
+    des = K.water_fill(*_water_fill_inputs(a))
+    assert torch.equal(des, K.water_fill_plain(*_water_fill_inputs(a)))
+    args = {k: (des if k == "queue_deserved" else a[k]) for k in K._SOLVE_ARGS}
+    _assert_same(K.allocate_solve(*args.values(), 1.0, 1.0),
+                 K.allocate_solve_plain(**args, w_least=1.0, w_balanced=1.0))
+    w = {k: torch.from_numpy(v).to(dev)
+         for k, v in build_sim_args(12, 1200, 600, n_queues=600, seed=5).items()}
+    assert w["queue_request"].numel() > 1024
+    assert torch.equal(K.water_fill(*_water_fill_inputs(w)),
+                       K.water_fill_plain(*_water_fill_inputs(w)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_blocks", [1, 2, 4, 8])
+@pytest.mark.parametrize("seed", range(2))
+def test_gpu_sharded_cycle_local_mesh_matches_plain(n_blocks, seed, monkeypatch):
+    """K12a on a local mesh: the sharded cycle on the card equals its plain
+    version on the same blocks and the one-block K3, bit for bit."""
+    from volcano_tpu_torch.parallel import sharded as S
+
+    dev = _cuda()
+    monkeypatch.setattr(K, "BATCH_TILE", 8)
+    args = build_sim_args(64, 256, 32, n_queues=2, seed=seed)
+    if seed:
+        add_releasing(args, seed)
+    mesh = S.LocalMesh(n_blocks, dev)
+    fn, dargs = S.make_sharded_cycle(mesh, args, m_chunk=8, p_chunk=4)
+    S.reset_launches()
+    out_k = fn(dargs)
+    assert S.LAUNCHES["sharded_cycle"] == 1
+    cpu = S.LocalMesh(n_blocks, "cpu")
+    pfn, pargs = S.make_sharded_cycle(cpu, args, m_chunk=8, p_chunk=4)
+    out_p = pfn(pargs)
+    ref = S.run_cycle_reference(args, m_chunk=8, p_chunk=4, device=dev)
+    for name, k, p, r in zip(S.OUTPUT_NAMES, S.fetch_outputs(out_k, mesh),
+                             S.fetch_outputs(out_p, cpu), S.fetch_outputs(ref)):
+        np.testing.assert_array_equal(k, p, err_msg=name)
+        np.testing.assert_array_equal(k, r, err_msg=name)
+
+
+@pytest.mark.gpu
+def test_gpu_mesh_scheduler_binds_equal_cpu():
+    """The cuda backend with mesh "4" binds what the cpu backend binds."""
+    _cuda()
+    states = []
+    for backend in ("cuda", "cpu"):
+        store = interop.store_from_spec(_spec(1, n_nodes=16))
+        conf = full_conf(backend)
+        conf.solve_mode = "batch"
+        conf.mesh = "4"
+        sched = Scheduler(store, conf=conf)
+        sched.run_once()
+        states.append({p.meta.key: p.node_name for p in store.list("Pod")})
+    assert states[0] == states[1] and any(states[0].values())

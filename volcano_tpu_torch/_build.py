@@ -86,11 +86,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points' signatures (pointers and the stream as
     c_void_p, so ctypes never truncates them to 32 bits)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.vtt_water_fill.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]
+    lib.vtt_water_fill.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp]
     lib.vtt_water_fill.restype = ci
-    for fn in (lib.vtt_allocate_solve, lib.vtt_allocate_solve_batch,
-               lib.vtt_reclaim_solve, lib.vtt_preempt_solve, lib.vtt_preempt_rounds):
+    for fn in (lib.vtt_allocate_solve, lib.vtt_reclaim_solve, lib.vtt_preempt_solve,
+               lib.vtt_preempt_rounds):
         fn.argtypes = [vp, vp]
+        fn.restype = ci
+    # the batch solve's round loop runs on the host: (base args, the local
+    # blocks' args, their count, stream)
+    for fn in (lib.vtt_batch_begin, lib.vtt_batch_candidates, lib.vtt_batch_decide):
+        fn.argtypes = [vp, vp, ci, vp]
         fn.restype = ci
     lib.vtt_victim_step.argtypes = [vp, ci, ci, ci, ci, vp, vp]
     lib.vtt_victim_step.restype = ci

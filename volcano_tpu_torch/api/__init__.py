@@ -7,6 +7,7 @@ from volcano_tpu_torch.api.objects import (
     PersistentVolume,
     PersistentVolumeClaim,
     Pod,
+    PodDisruptionBudget,
     PodGroup,
     PodGroupCondition,
     PodGroupStatus,

@@ -219,6 +219,16 @@ class PriorityClass:
 
 
 @dataclass
+class PodDisruptionBudget:
+    """Gang grouping for plain controller-owned pods (reference: the PDB
+    informer and SetPDB): pods sharing the budget's controlling owner form
+    one shadow job whose MinAvailable comes from the budget."""
+
+    meta: Metadata  # meta.owner = the controlling object, shared with pods
+    min_available: int = 1
+
+
+@dataclass
 class PersistentVolumeClaim:
     """A volume claim mounted by pods (``Pod.volumes`` names it).
 

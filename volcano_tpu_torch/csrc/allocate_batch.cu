@@ -1,30 +1,52 @@
-// K3: the batched-rounds allocate solve, one round = five kernels.
+// K3: the batched-rounds allocate solve on node blocks; K12a runs it over
+// S blocks.
 //
 // Replaces volcano_tpu/scheduler/kernels.py:491 `allocate_solve_batch`
-// (portsel=None, exact_topk=True).  Each round: rank the jobs by the tier
-// key, let the top M propose their next P tasks over their K best nodes,
-// accept the (node, rank)-ordered proposals whose running request sum fits
-// the node, apply the winners, and drop (with gang rollback) the
-// lowest-ranked job when nothing won.
+// (portsel=None, exact_topk=True) and, with S > 1 blocks,
+// volcano_tpu/parallel/sharded.py:152 `_cycle` / :230 `make_sharded_cycle`
+// (the same solve with every node-shaped plane split into equal blocks of
+// rows).  Each round: rank the jobs by the tier key, let the top M propose
+// their next P tasks over their K best nodes, accept the (node, rank)-
+// ordered proposals whose running request sum fits the node, apply the
+// winners, and drop (with gang rollback) the lowest-ranked job when
+// nothing won.
 //
 // What bounds it on the H100: per round, the [M, N] head-task score pass
-// (M = 512 jobs x N = 16384 nodes, ~40 bytes and ~30 flops a cell, all
-// from L2) and the O(J^2) job ranking; both are far below the card's
-// rates, so the round is bound by its launches and barriers, and the
-// solve by its round count.  Design:
-//   * the host runs the round loop and reads ONE 4-byte flag a round: the
-//     active-job count, which vtt_batch_keys accumulates only when the
-//     last round progressed (the reference's `progressed & any(active)`);
+// (M = 512 jobs x N nodes, ~40 bytes and ~30 flops a cell, from L2) and
+// the O(J^2) job ranking; both are far below the card's rates, so the
+// round is bound by its launches and barriers, and the solve by its round
+// count.  Design:
+//   * the host runs the round loop (scheduler/kernels.py batch_launch) and
+//     reads ONE 4-byte flag a round: the active-job count, which
+//     vtt_batch_keys accumulates only when the last round progressed (the
+//     reference's `progressed & any(active)`);
 //   * vtt_batch_rank counts, for each active job, the active jobs with a
-//     smaller key tuple (jidx last, so all keys are distinct) — the rank,
+//     smaller key tuple (jidx last, so all keys are distinct) -- the rank,
 //     with no sort;
-//   * vtt_batch_propose runs one CTA per selected job: the job's scores
-//     never leave shared memory, and K passes of a block-wide first-max
-//     take lax.top_k's order (values descending, lower index first);
-//   * vtt_batch_accept is one CTA: a bitonic sort of the F = M*P proposals
-//     by (node, rank), one thread per node segment for the running sums,
-//     and every state update in a fixed order.  Float sums never use
-//     atomics (integer atomicMin picks the best pipeline rank per node).
+//   * node blocks (VttSolveArgs n0 / NB; one block is the whole of K3):
+//     vtt_batch_tiles runs one CTA per (selected job, tile of TILE rows of
+//     the block), the tile's scores in shared memory, and writes the tile's
+//     exact top-K (value, global row); vtt_batch_pack merges a job's tiles
+//     into the block's top-K and writes one record per candidate: value,
+//     row, feasible and idle-fit bits, task count, pod cap, idle and
+//     releasing -- everything the decision reads of a node.  Tiles lift
+//     the shared-memory cap on N; the union of the parts' top-Ks holds the
+//     global top-K, so the decisions do not change;
+//   * the exchange (the host: nothing on one device, an all-gather over a
+//     process group) gives every block every block's records;
+//   * vtt_batch_propose (one CTA per selected job) merges the S x K records
+//     into the job's top-K in lax.top_k's order (values descending, lower
+//     index first), then rotates by rank, counts tasks per target and
+//     writes the P proposals; vtt_batch_accept is one CTA: a bitonic sort
+//     of the F = M*P proposals by (node, rank), one thread per node segment
+//     for the running sums against the records, per-job prefix cancel, the
+//     job / task / queue updates in a fixed order and the no-win drop.
+//     Both are replicated: every block reaches the same winners from the
+//     same records, with no float atomics (integer atomicMin picks the
+//     best pipeline rank per node);
+//   * vtt_batch_apply applies the winners and a dropped gang's rollback to
+//     the rows each block owns; vtt_batch_finish clears the rolled-back
+//     gang's task rows and job state (replicated).
 //
 // K5 in K3 (has_portsel): replaces the portsel branches of the same
 // function: the [M, N] port / required / anti feasibility and the interpod
@@ -34,22 +56,23 @@
 // with ports or anti selectors (:805-811), the scatter-OR / scatter-add of
 // winners' ports and labels (:862-881) and the rollback's scatter-AND and
 // subtract (:935-943); the on-device unpack of tensor_actions.py:664-684
-// has no launch here, the words are tested in place.  Design: the propose
-// kernel tests a head's words against each node's port words and a
-// per-node "selector matched" word pair (kept beside the counts, refreshed
-// wherever a count moves) — no matrix products, no per-node shared arrays;
-// the accept kernel's one-thread-per-node-segment walk, which already
-// visits each node's proposals in rank order, carries six running words
-// (4 of ports, 2 of labels) and ORs in every proposal, accepted or not,
-// as the reference's scan does; the owners of a node's idle run, pipe win
-// and rollback fold ports and counts into that node.  Bound: as K3; K5
-// adds 24 bytes a (job, node) pair to the score pass's L2 reads, and only
-// for heads that carry ports or selectors.  The propose and accept kernels
-// are templates on the flag: without portsel no K5 code is compiled in.
+// has no launch here, the words are tested in place.  Design: the tile
+// pass tests a head's words against each node's port words and a per-node
+// "selector matched" word pair (kept beside the counts, refreshed wherever
+// a count moves) -- no matrix products, no per-node shared arrays; the
+// accept kernel's one-thread-per-node-segment walk, which already visits
+// each node's proposals in rank order, carries six running words (4 of
+// ports, 2 of labels) and ORs in every proposal, accepted or not, as the
+// reference's scan does; the apply kernel folds ports and counts into the
+// rows a block owns.  Bound: as K3; K5 adds 24 bytes a (job, node) pair to
+// the score pass's reads, and only for heads that carry ports or
+// selectors.  The kernels are templates on the flag: without portsel no K5
+// code is compiled in.
 #include "common.cuh"
 
 #define VTT_PROPOSE_THREADS 256
 #define VTT_ACCEPT_THREADS 1024
+#define VTT_TILE_MAX 8192
 #define VTT_RANK_CHUNK 1024
 #define VTT_MAX_P 32
 
@@ -75,16 +98,17 @@ __device__ __forceinline__ bool vtt_rank_less(const float* ka, int ia,
   return ia < ib;
 }
 
-// node_match from node_selcnt, once per solve (K5)
+// node_match from node_selcnt, once per solve and block (K5)
 __global__ void vtt_ps_init(VttSolveArgs a) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n < a.N) vtt_ps_init_node(a, n);
+  if (n < a.NB) vtt_ps_init_node(a, n);
 }
 
 __global__ void vtt_batch_init(VttSolveArgs a) {
   a.ctl[0] = 0;  // rounds
   a.ctl[1] = 0;  // active jobs if the last round progressed, else 0
   a.ctl[2] = 1;  // progressed
+  a.ctl[4] = -1; // the job whose gang the round's apply rolls back
 }
 
 // active mask + rank keys per job; resets the per-round scratch
@@ -156,16 +180,169 @@ __global__ void vtt_batch_select(VttSolveArgs a) {
   if (r == a.ctl[1] - 1) a.ctl[3] = j;
 }
 
-// one CTA per selected job: head-task scores over all nodes in shared
-// memory, exact top-K, per-target counts and the job's P proposals
+// record words: value bits, global row, flags, task count, pod cap, then
+// idle [R] and releasing [R] (W = 5 + 2R)
+#define RW_VAL 0
+#define RW_ROW 1
+#define RW_FLAGS 2
+#define RW_TC 3
+#define RW_CAP 4
+#define RW_IDLE 5
+// record flags
+#define RF_FEASIBLE 1
+#define RF_FIT_IDLE 2
+#define RF_BLOCK_ANY 4
+
+// The selected job m's head task: its request, class and K5 words.
+struct VttHead {
+  int j, cursor, t, cls;
+  float req[VTT_MAX_R];
+};
+
+__device__ __forceinline__ VttHead vtt_head(const VttSolveArgs& a, int m) {
+  VttHead h;
+  h.j = a.sel[m];
+  if (h.j < 0) return h;
+  h.cursor = a.cursor[h.j];
+  h.t = vtt_clampi(a.job_start[h.j] + h.cursor, 0, (int)a.T - 1);
+  for (int r = 0; r < a.R; ++r) h.req[r] = a.task_req[(size_t)h.t * a.R + r];
+  h.cls = a.task_class[h.t];
+  return h;
+}
+
+// Block-local row ln against the head: idle fit, releasing fit, feasible.
+template <bool PS>
+__device__ __forceinline__ bool vtt_node_feasible(const VttSolveArgs& a, int ln,
+                                                  const VttHead& h, const VttPs& hps,
+                                                  bool& fit_i) {
+  const int R = (int)a.R;
+  fit_i = vtt_less_equal(h.req, &a.idle[(size_t)ln * R], a.eps, R);
+  const bool fit_r = vtt_less_equal(h.req, &a.releasing[(size_t)ln * R], a.eps, R);
+  return (fit_i || fit_r) && a.class_mask[(size_t)h.cls * a.NB + ln] &&
+         a.task_count[ln] < a.node_max_tasks[ln] && a.node_valid[ln] &&
+         (!PS || vtt_ps_feasible(a, ln, hps));
+}
+
+// one CTA per (selected job, tile of the block's rows): the head task's
+// scores over the tile in shared memory, the tile's exact top-K
 template <bool PS>
 __global__ void __launch_bounds__(VTT_PROPOSE_THREADS)
-    vtt_batch_propose(VttSolveArgs a) {
+    vtt_batch_tiles(VttSolveArgs a) {
   VTT_DYN_SMEM(float, s_val);
   __shared__ float s_v[VTT_PROPOSE_THREADS];
   __shared__ int s_i[VTT_PROPOSE_THREADS];
-  __shared__ int s_top[VTT_MAX_P];
+  __shared__ int s_p[VTT_PROPOSE_THREADS];
+  __shared__ int s_flag;
+  const int tid = threadIdx.x;
+  const int m = blockIdx.x, tb = blockIdx.y;
+  const VttHead h = vtt_head(a, m);
+  if (h.j < 0) return;
+  const int R = (int)a.R, K = (int)a.K, TB = (int)a.TB;
+  const int lo = tb * (int)a.TILE;
+  const int hi = min((int)a.NB, lo + (int)a.TILE);
+  const int n0 = (int)a.n0;
+  const float* cscore = a.class_score + (size_t)h.cls * a.NB;
+  const uint32_t jh = (uint32_t)h.j * 2654435761u;
+  const float jscale = (float)(1e-4 / 65535.0);
+  VttPs hps{};
+  if (PS) hps = vtt_ps_task(a, h.t);
+
+  bool any_local = false;
+  for (int ln = lo + tid; ln < hi; ln += blockDim.x) {
+    bool fit_i;
+    float v = VTT_NEG_INF;
+    if (vtt_node_feasible<PS>(a, ln, h, hps, fit_i)) {
+      float sc = vtt_score_node(h.req, &a.used[(size_t)ln * R],
+                                &a.node_alloc[(size_t)ln * R], cscore[ln],
+                                a.w_least, a.w_balanced);
+      if (PS) sc = vtt_ps_score(a, ln, hps, sc);
+      const uint32_t g = (uint32_t)(n0 + ln);
+      uint32_t hh = (jh ^ (g * 40503u)) * 2246822519u;
+      hh ^= hh >> 15;
+      v = __fmaf_rn((float)(hh & 0xFFFFu), jscale, sc);
+      any_local = true;
+    }
+    s_val[ln - lo] = v;
+  }
+  const bool any = vtt_block_any(any_local, &s_flag);
+  const size_t at = ((size_t)m * TB + tb) * K;
+  __shared__ int s_pos[VTT_MAX_P];
+  const int base = n0 + lo;
+  vtt_block_topk(
+      [&](int c, float& v, int& i) {
+        v = s_val[c];
+        i = base + c;
+      },
+      hi - lo, K, s_v, s_i, s_p, a.t_val + at, a.t_idx + at, s_pos);
+  if (tid == 0) a.t_any[(size_t)m * TB + tb] = any ? 1 : 0;
+}
+
+// one CTA per selected job: the block's top-K from its tiles' candidates,
+// packed into records with the node state the decision reads
+template <bool PS>
+__global__ void __launch_bounds__(VTT_PROPOSE_THREADS)
+    vtt_batch_pack(VttSolveArgs a) {
+  __shared__ float s_v[VTT_PROPOSE_THREADS];
+  __shared__ int s_i[VTT_PROPOSE_THREADS];
+  __shared__ int s_p[VTT_PROPOSE_THREADS];
+  __shared__ float s_kv[VTT_MAX_P];
+  __shared__ int s_ki[VTT_MAX_P];
+  __shared__ int s_kp[VTT_MAX_P];
+  __shared__ int s_flag;
+  const int tid = threadIdx.x;
+  const int m = blockIdx.x;
+  const VttHead h = vtt_head(a, m);
+  if (h.j < 0) return;
+  const int R = (int)a.R, K = (int)a.K, TB = (int)a.TB, W = (int)a.W;
+  const float* tv = a.t_val + (size_t)m * TB * K;
+  const int* ti = a.t_idx + (size_t)m * TB * K;
+  bool any_local = false;
+  for (int tb = tid; tb < TB; tb += blockDim.x) any_local |= a.t_any[(size_t)m * TB + tb] != 0;
+  const bool any = vtt_block_any(any_local, &s_flag);
+  vtt_block_topk(
+      [&](int c, float& v, int& i) {
+        v = tv[c];
+        i = ti[c];
+      },
+      TB * K, K, s_v, s_i, s_p, s_kv, s_ki, s_kp);
+  if (tid < K) {
+    VttPs hps{};
+    if (PS) hps = vtt_ps_task(a, h.t);
+    int32_t* rec = a.send + ((size_t)m * K + tid) * W;
+    const int g = s_ki[tid];
+    int flags = any ? RF_BLOCK_ANY : 0;
+    for (int w = RW_TC; w < W; ++w) rec[w] = 0;
+    if (g != 0x7fffffff) {
+      const int ln = g - (int)a.n0;
+      bool fit_i;
+      const bool feasible = vtt_node_feasible<PS>(a, ln, h, hps, fit_i);
+      flags |= (feasible ? RF_FEASIBLE : 0) | (fit_i ? RF_FIT_IDLE : 0);
+      rec[RW_TC] = a.task_count[ln];
+      rec[RW_CAP] = a.node_max_tasks[ln];
+      for (int r = 0; r < R; ++r) {
+        rec[RW_IDLE + r] = __float_as_int(a.idle[(size_t)ln * R + r]);
+        rec[RW_IDLE + R + r] = __float_as_int(a.releasing[(size_t)ln * R + r]);
+      }
+    }
+    rec[RW_VAL] = __float_as_int(s_kv[tid]);
+    rec[RW_ROW] = g;
+    rec[RW_FLAGS] = flags;
+  }
+}
+
+// one CTA per selected job (replicated): the job's top-K from every
+// block's records, per-target counts and the job's P proposals
+template <bool PS>
+__global__ void __launch_bounds__(VTT_PROPOSE_THREADS)
+    vtt_batch_propose(VttSolveArgs a) {
+  __shared__ float s_v[VTT_PROPOSE_THREADS];
+  __shared__ int s_i[VTT_PROPOSE_THREADS];
+  __shared__ int s_p[VTT_PROPOSE_THREADS];
+  __shared__ float s_kv[VTT_MAX_P];
+  __shared__ int s_ki[VTT_MAX_P];
+  __shared__ int s_kp[VTT_MAX_P];
   __shared__ int s_knode[VTT_MAX_P];
+  __shared__ int s_krec[VTT_MAX_P];
   __shared__ uint8_t s_kidle[VTT_MAX_P];
   __shared__ float s_cnt[VTT_MAX_P];
   __shared__ float s_cum[VTT_MAX_P];
@@ -173,90 +350,49 @@ __global__ void __launch_bounds__(VTT_PROPOSE_THREADS)
 
   const int tid = threadIdx.x;
   const int m = blockIdx.x;
-  const int N = (int)a.N, R = (int)a.R, T = (int)a.T, P = (int)a.P,
-            K = (int)a.K;
-  const int j = a.sel[m];
-  if (j < 0) {
+  const int R = (int)a.R, T = (int)a.T, P = (int)a.P, K = (int)a.K,
+            M = (int)a.M, S = (int)a.S, W = (int)a.W;
+  const VttHead h = vtt_head(a, m);
+  if (h.j < 0) {
     for (int p = tid; p < P; p += blockDim.x) {
       const int f = m * P + p;
       a.p_flags[f] = 0;
       a.p_node[f] = 0;
       a.p_t[f] = 0;
       a.p_job[f] = -1;
+      a.p_rec[f] = 0;
     }
     return;
   }
-  const int cursor = a.cursor[j];
-  const int head_t = vtt_clampi(a.job_start[j] + cursor, 0, T - 1);
-  float req[VTT_MAX_R];
-  for (int r = 0; r < R; ++r) req[r] = a.task_req[(size_t)head_t * R + r];
-  const int cls = a.task_class[head_t];
-  const uint8_t* cmask = a.class_mask + (size_t)cls * N;
-  const float* cscore = a.class_score + (size_t)cls * N;
-  const uint32_t jh = (uint32_t)j * 2654435761u;
-  const float jscale = (float)(1e-4 / 65535.0);
-  VttPs hps{};
-  if (PS) hps = vtt_ps_task(a, head_t);
-
+  const int j = h.j;
+  // candidate c = (block s, slot k): record (s * M + m) * K + k
+  auto rec_of = [&](int c) { return ((size_t)(c / K) * M + m) * K + c % K; };
   bool any_local = false;
-  for (int n = tid; n < N; n += blockDim.x) {
-    const bool fit_i = vtt_less_equal(req, &a.idle[(size_t)n * R], a.eps, R);
-    const bool fit_r = vtt_less_equal(req, &a.releasing[(size_t)n * R], a.eps, R);
-    const bool feasible = (fit_i || fit_r) && cmask[n] &&
-                          a.task_count[n] < a.node_max_tasks[n] && a.node_valid[n] &&
-                          (!PS || vtt_ps_feasible(a, n, hps));
-    float v = VTT_NEG_INF;
-    if (feasible) {
-      float sc = vtt_score_node(req, &a.used[(size_t)n * R],
-                                &a.node_alloc[(size_t)n * R], cscore[n],
-                                a.w_least, a.w_balanced);
-      if (PS) sc = vtt_ps_score(a, n, hps, sc);
-      uint32_t h = (jh ^ ((uint32_t)n * 40503u)) * 2246822519u;
-      h ^= h >> 15;
-      v = __fmaf_rn((float)(h & 0xFFFFu), jscale, sc);
-      any_local = true;
-    }
-    s_val[n] = v;
-  }
+  for (int s = tid; s < S; s += blockDim.x)
+    any_local |= (a.recv[rec_of(s * K) * W + RW_FLAGS] & RF_BLOCK_ANY) != 0;
   const bool job_ok = vtt_block_any(any_local, &s_flag);
-
-  // exact top-K: K passes, each the first-max among entries ranked after
-  // the previous pass's winner
-  float prev_v = VTT_POS_INF;
-  int prev_i = -1;
-  for (int k = 0; k < K; ++k) {
-    float bv = VTT_NEG_INF;
-    int bi = 0x7fffffff;
-    for (int n = tid; n < N; n += blockDim.x) {
-      const float v = s_val[n];
-      if ((k == 0 || vtt_better(prev_v, prev_i, v, n)) && vtt_better(v, n, bv, bi)) {
-        bv = v;
-        bi = n;
-      }
-    }
-    vtt_block_argmax(bv, bi, s_v, s_i);
-    if (tid == 0) s_top[k] = bi;
-    prev_v = bv;
-    prev_i = bi;
-  }
-  __syncthreads();
+  vtt_block_topk(
+      [&](int c, float& v, int& i) {
+        const int32_t* rec = a.recv + rec_of(c) * W;
+        v = __int_as_float(rec[RW_VAL]);
+        i = rec[RW_ROW];
+      },
+      S * K, K, s_v, s_i, s_p, s_kv, s_ki, s_kp);
+  VttPs hps{};
+  if (PS) hps = vtt_ps_task(a, h.t);
 
   // rotate by rank, per-target task counts
   if (tid < K) {
     const int k = tid;
-    const int node = s_top[(k + m % K) % K];
-    const float* nid = &a.idle[(size_t)node * R];
-    const bool fit_i = vtt_less_equal(req, nid, a.eps, R);
-    const bool fit_r = vtt_less_equal(req, &a.releasing[(size_t)node * R], a.eps, R);
-    const bool feasible = (fit_i || fit_r) && cmask[node] &&
-                          a.task_count[node] < a.node_max_tasks[node] &&
-                          a.node_valid[node] &&
-                          (!PS || vtt_ps_feasible(a, node, hps));
-    const bool is_idle = fit_i && feasible;
+    const int ri = (int)rec_of(s_kp[(k + m % K) % K]);
+    const int32_t* rec = a.recv + (size_t)ri * W;
+    const bool feasible = (rec[RW_FLAGS] & RF_FEASIBLE) != 0;
+    const bool is_idle = (rec[RW_FLAGS] & RF_FIT_IDLE) && feasible;
     float c = VTT_POS_INF;
     for (int r = 0; r < R; ++r)
-      if (req[r] > 0.0f)
-        c = fminf(c, floorf((nid[r] + a.eps[r]) / fmaxf(req[r], 1e-30f)));
+      if (h.req[r] > 0.0f)
+        c = fminf(c, floorf((__int_as_float(rec[RW_IDLE + r]) + a.eps[r]) /
+                            fmaxf(h.req[r], 1e-30f)));
     c = is_idle ? fmaxf(c, 0.0f) : 0.0f;
     if (feasible && !is_idle) c = 1.0f;
     if (PS) {
@@ -265,7 +401,8 @@ __global__ void __launch_bounds__(VTT_PROPOSE_THREADS)
       for (int w = 0; w < VTT_SW; ++w) self_anti |= (hps.anti[w] & hps.self_[w]) != 0;
       if (hps.any_port || self_anti) c = fminf(c, 1.0f);
     }
-    s_knode[k] = node;
+    s_knode[k] = rec[RW_ROW];
+    s_krec[k] = ri;
     s_kidle[k] = is_idle ? 1 : 0;
     s_cnt[k] = c;
   }
@@ -286,15 +423,15 @@ __global__ void __launch_bounds__(VTT_PROPOSE_THREADS)
     const bool in_range = slot < K;
     const int sc = slot < K ? slot : K - 1;
     const int node = s_knode[sc];
-    const bool valid = job_ok && (cursor + p < a.job_ntasks[j]) && in_range;
-    const int t = vtt_clampi(a.job_start[j] + cursor + p, 0, T - 1);
+    const int32_t* rec = a.recv + (size_t)s_krec[sc] * W;
+    const bool valid = job_ok && (h.cursor + p < a.job_ntasks[j]) && in_range;
+    const int t = vtt_clampi(a.job_start[j] + h.cursor + p, 0, T - 1);
     const bool is_idle = s_kidle[sc] && valid;
     const bool is_pipe = valid && !is_idle;
-    const int nc = vtt_clampi(node, 0, N - 1);
-    const bool pipe_fits =
-        vtt_less_equal(&a.task_req[(size_t)t * R], &a.releasing[(size_t)nc * R],
-                       a.eps, R) &&
-        a.task_count[nc] < a.node_max_tasks[nc];
+    bool pipe_fits = rec[RW_TC] < rec[RW_CAP];
+    for (int r = 0; r < R; ++r)
+      pipe_fits = pipe_fits && (a.task_req[(size_t)t * R + r] <
+                                __int_as_float(rec[RW_IDLE + R + r]) + a.eps[r]);
     // a proposal whose OWN task has ports or anti selectors never pipelines
     // (pipe wins bypass the accept kernel's conflict scan)
     bool ps_pipe_ok = true;
@@ -306,14 +443,16 @@ __global__ void __launch_bounds__(VTT_PROPOSE_THREADS)
     a.p_node[f] = node;
     a.p_t[f] = t;
     a.p_job[f] = j;
+    a.p_rec[f] = s_krec[sc];
     a.p_flags[f] = (valid ? PF_VALID : 0) | (is_idle ? PF_IDLE : 0) |
                    (pipe_ok ? PF_PIPE : 0);
     if (pipe_ok) atomicMin(&a.best_pipe[node], f);
   }
 }
 
-// one CTA: (node, rank) order, capacity-aware acceptance, pipeline wins,
-// per-job prefix cancel, state update, and the no-win drop with rollback
+// one CTA (replicated): (node, rank) order, capacity-aware acceptance
+// against the records, pipeline wins, per-job prefix cancel, the job, task
+// and queue updates, and the no-win drop
 template <bool PS>
 __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
     vtt_batch_accept(VttSolveArgs a, int Fp2) {
@@ -322,7 +461,7 @@ __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int N = (int)a.N, R = (int)a.R, T = (int)a.T, Q = (int)a.Q,
-            M = (int)a.M, P = (int)a.P, F = (int)a.F;
+            M = (int)a.M, P = (int)a.P, F = (int)a.F, W = (int)a.W;
   int32_t* task_node = a.packed;
   int32_t* task_kind = a.packed + T;
   int32_t* task_seq = a.packed + 2 * T;
@@ -357,15 +496,18 @@ __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
     }
   }
 
-  // running request sum per node segment against idle + eps and the pod cap
+  // running request sum per node segment against the record's idle + eps
+  // and its pod cap
   for (int i = tid; i < F; i += nthr) {
+    a.p_key[i] = s_key[i];
     const int kn = (int)(s_key[i] >> 32);
     if (kn >= N || (i > 0 && (int)(s_key[i - 1] >> 32) == kn)) continue;
     float run[VTT_MAX_R];
     for (int r = 0; r < R; ++r) run[r] = 0.0f;
     // K5: ports and labels of every earlier proposal in this node's run
     uint32_t run_ports[VTT_PW] = {0, 0, 0, 0}, run_self[VTT_SW] = {0, 0};
-    const float* nid = &a.idle[(size_t)kn * R];
+    const int32_t* rec = a.recv + (size_t)a.p_rec[(int)(s_key[i] & 0xffffffffu)] * W;
+    const int tc = rec[RW_TC], cap = rec[RW_CAP];
     int pos = 0;
     for (int i2 = i; i2 < F && (int)(s_key[i2] >> 32) == kn; ++i2, ++pos) {
       const int f = (int)(s_key[i2] & 0xffffffffu);
@@ -373,7 +515,7 @@ __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
       bool ok = true;
       for (int r = 0; r < R; ++r) {
         run[r] = run[r] + rq[r];
-        ok = ok && (run[r] < nid[r] + a.eps[r]);
+        ok = ok && (run[r] < __int_as_float(rec[RW_IDLE + r]) + a.eps[r]);
       }
       if (PS) {
         const VttPs tps = vtt_ps_task(a, a.p_t[f]);
@@ -386,7 +528,7 @@ __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
           run_self[w] |= tps.self_[w];
         }
       }
-      if (ok && a.task_count[kn] + pos < a.node_max_tasks[kn]) a.p_flags[f] |= PF_ACCEPT;
+      if (ok && tc + pos < cap) a.p_flags[f] |= PF_ACCEPT;
     }
   }
   __syncthreads();
@@ -425,22 +567,7 @@ __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
   }
   const bool any_win = vtt_block_any(any_local, &s_flag);
 
-  // node updates: idle runs per segment; queue shares in flat order
-  for (int i = tid; i < F; i += nthr) {
-    const int kn = (int)(s_key[i] >> 32);
-    if (kn >= N || (i > 0 && (int)(s_key[i - 1] >> 32) == kn)) continue;
-    for (int i2 = i; i2 < F && (int)(s_key[i2] >> 32) == kn; ++i2) {
-      const int f = (int)(s_key[i2] & 0xffffffffu);
-      if (!(a.p_flags[f] & PF_USE_IDLE)) continue;
-      const float* rq = &a.task_req[(size_t)a.p_t[f] * R];
-      for (int r = 0; r < R; ++r) {
-        a.idle[(size_t)kn * R + r] = a.idle[(size_t)kn * R + r] - rq[r];
-        a.used[(size_t)kn * R + r] = a.used[(size_t)kn * R + r] + rq[r];
-      }
-      a.task_count[kn] += 1;
-      if (PS) vtt_ps_fold(a, kn, vtt_ps_task(a, a.p_t[f]), +1);
-    }
-  }
+  // queue shares in flat order
   for (int q = tid; q < Q; q += nthr) {
     for (int f = 0; f < F; ++f) {
       if (!(a.p_flags[f] & PF_WIN)) continue;
@@ -451,57 +578,17 @@ __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
     }
   }
   __syncthreads();
-  // pipeline wins: at most one per node
-  for (int f = tid; f < F; f += nthr) {
-    const uint8_t fl = a.p_flags[f];
-    if (!(fl & PF_WIN) || (fl & PF_USE_IDLE)) continue;
-    const int n = a.p_node[f];
-    const float* rq = &a.task_req[(size_t)a.p_t[f] * R];
-    for (int r = 0; r < R; ++r) {
-      a.releasing[(size_t)n * R + r] = a.releasing[(size_t)n * R + r] - rq[r];
-      a.used[(size_t)n * R + r] = a.used[(size_t)n * R + r] + rq[r];
-    }
-    a.task_count[n] += 1;
-    // a pipe win has no ports or anti bits, but its labels count
-    if (PS) vtt_ps_fold(a, n, vtt_ps_task(a, a.p_t[f]), +1);
-  }
-  __syncthreads();
 
   if (tid == 0) {
     const int n_active = a.ctl[1];
     const bool do_evict = !any_win && n_active > 0;
+    a.ctl[4] = -1;
     if (do_evict) {
       const int v = a.ctl[3];
       a.dropped[v] = 1;
-      if (a.use_gang_ready && ready[v] < a.job_min[v]) {
-        // unwind the gang's session placements (its rows are contiguous)
-        float qsum[VTT_MAX_R];
-        for (int r = 0; r < R; ++r) qsum[r] = 0.0f;
-        const int t0 = a.job_start[v], t1 = t0 + a.job_ntasks[v];
-        for (int t = t0; t < t1; ++t) {
-          const int kind = task_kind[t];
-          if (kind <= 0 || !a.task_valid[t] || a.task_job[t] != v) continue;
-          const int n = vtt_clampi(task_node[t], 0, N - 1);
-          const float* rq = &a.task_req[(size_t)t * R];
-          float* back = kind == 1 ? &a.idle[(size_t)n * R] : &a.releasing[(size_t)n * R];
-          for (int r = 0; r < R; ++r) {
-            back[r] = back[r] + rq[r];
-            a.used[(size_t)n * R + r] = a.used[(size_t)n * R + r] - rq[r];
-            qsum[r] = qsum[r] + rq[r];
-          }
-          a.task_count[n] -= 1;
-          if (PS) vtt_ps_fold(a, n, vtt_ps_task(a, t), -1);
-          task_node[t] = -1;
-          task_kind[t] = 0;
-          task_seq[t] = -1;
-        }
-        for (int r = 0; r < R; ++r) a.job_alloc[(size_t)v * R + r] = a.job_alloc_init[(size_t)v * R + r];
-        ready[v] = a.job_ready_init[v];
-        a.cursor[v] = 0;
-        const int qv = vtt_clampi(a.job_queue[v], 0, Q - 1);
-        for (int r = 0; r < R; ++r)
-          a.queue_alloc[(size_t)qv * R + r] = a.queue_alloc[(size_t)qv * R + r] - qsum[r];
-      }
+      // the gang's session placements unwind in vtt_batch_apply (node
+      // rows, per block) and vtt_batch_finish (tasks, job, queue)
+      if (a.use_gang_ready && ready[v] < a.job_min[v]) a.ctl[4] = v;
     }
     a.ctl[2] = (any_win || do_evict) ? 1 : 0;
     a.ctl[0] = round + 1;
@@ -509,55 +596,206 @@ __global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
   }
 }
 
+// one CTA per block: the round's winners and a dropped gang's rollback on
+// the node rows this block owns
+template <bool PS>
+__global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
+    vtt_batch_apply(VttSolveArgs a) {
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int N = (int)a.N, R = (int)a.R, T = (int)a.T, F = (int)a.F;
+  const int n0 = (int)a.n0, NB = (int)a.NB;
+  const int32_t* task_node = a.packed;
+  const int32_t* task_kind = a.packed + T;
+  // idle runs, one thread per node segment, in rank order
+  for (int i = tid; i < F; i += nthr) {
+    const unsigned long long key = a.p_key[i];
+    const int kn = (int)(key >> 32);
+    if (kn >= N || (i > 0 && (int)(a.p_key[i - 1] >> 32) == kn)) continue;
+    const int ln = kn - n0;
+    if (ln < 0 || ln >= NB) continue;
+    for (int i2 = i; i2 < F && (int)(a.p_key[i2] >> 32) == kn; ++i2) {
+      const int f = (int)(a.p_key[i2] & 0xffffffffu);
+      if (!(a.p_flags[f] & PF_USE_IDLE)) continue;
+      const float* rq = &a.task_req[(size_t)a.p_t[f] * R];
+      for (int r = 0; r < R; ++r) {
+        a.idle[(size_t)ln * R + r] = a.idle[(size_t)ln * R + r] - rq[r];
+        a.used[(size_t)ln * R + r] = a.used[(size_t)ln * R + r] + rq[r];
+      }
+      a.task_count[ln] += 1;
+      if (PS) vtt_ps_fold(a, ln, vtt_ps_task(a, a.p_t[f]), +1);
+    }
+  }
+  __syncthreads();
+  // pipeline wins: at most one per node
+  for (int f = tid; f < F; f += nthr) {
+    const uint8_t fl = a.p_flags[f];
+    if (!(fl & PF_WIN) || (fl & PF_USE_IDLE)) continue;
+    const int ln = a.p_node[f] - n0;
+    if (ln < 0 || ln >= NB) continue;
+    const float* rq = &a.task_req[(size_t)a.p_t[f] * R];
+    for (int r = 0; r < R; ++r) {
+      a.releasing[(size_t)ln * R + r] = a.releasing[(size_t)ln * R + r] - rq[r];
+      a.used[(size_t)ln * R + r] = a.used[(size_t)ln * R + r] + rq[r];
+    }
+    a.task_count[ln] += 1;
+    // a pipe win has no ports or anti bits, but its labels count
+    if (PS) vtt_ps_fold(a, ln, vtt_ps_task(a, a.p_t[f]), +1);
+  }
+  __syncthreads();
+  if (tid == 0 && a.ctl[4] >= 0) {
+    // unwind the dropped gang's placements on this block's rows (its task
+    // rows are contiguous)
+    const int v = a.ctl[4];
+    const int t0 = a.job_start[v], t1 = t0 + a.job_ntasks[v];
+    for (int t = t0; t < t1; ++t) {
+      const int kind = task_kind[t];
+      if (kind <= 0 || !a.task_valid[t] || a.task_job[t] != v) continue;
+      const int ln = vtt_clampi(task_node[t], 0, N - 1) - n0;
+      if (ln < 0 || ln >= NB) continue;
+      const float* rq = &a.task_req[(size_t)t * R];
+      float* back = kind == 1 ? &a.idle[(size_t)ln * R] : &a.releasing[(size_t)ln * R];
+      for (int r = 0; r < R; ++r) {
+        back[r] = back[r] + rq[r];
+        a.used[(size_t)ln * R + r] = a.used[(size_t)ln * R + r] - rq[r];
+      }
+      a.task_count[ln] -= 1;
+      if (PS) vtt_ps_fold(a, ln, vtt_ps_task(a, t), -1);
+    }
+  }
+}
+
+// one thread (replicated): the rolled-back gang's task rows, job state and
+// queue share
+__global__ void vtt_batch_finish(VttSolveArgs a) {
+  const int v = a.ctl[4];
+  if (v < 0) return;
+  const int R = (int)a.R, T = (int)a.T, Q = (int)a.Q;
+  int32_t* task_node = a.packed;
+  int32_t* task_kind = a.packed + T;
+  int32_t* task_seq = a.packed + 2 * T;
+  int32_t* ready = a.packed + 3 * T;
+  float qsum[VTT_MAX_R];
+  for (int r = 0; r < R; ++r) qsum[r] = 0.0f;
+  const int t0 = a.job_start[v], t1 = t0 + a.job_ntasks[v];
+  for (int t = t0; t < t1; ++t) {
+    if (task_kind[t] <= 0 || !a.task_valid[t] || a.task_job[t] != v) continue;
+    for (int r = 0; r < R; ++r) qsum[r] = qsum[r] + a.task_req[(size_t)t * R + r];
+    task_node[t] = -1;
+    task_kind[t] = 0;
+    task_seq[t] = -1;
+  }
+  for (int r = 0; r < R; ++r) a.job_alloc[(size_t)v * R + r] = a.job_alloc_init[(size_t)v * R + r];
+  ready[v] = a.job_ready_init[v];
+  a.cursor[v] = 0;
+  const int qv = vtt_clampi(a.job_queue[v], 0, Q - 1);
+  for (int r = 0; r < R; ++r)
+    a.queue_alloc[(size_t)qv * R + r] = a.queue_alloc[(size_t)qv * R + r] - qsum[r];
+  a.ctl[4] = -1;
+}
+
 static int vtt_check() { return (int)cudaGetLastError(); }
 
-// the host round loop for one instantiation of the round kernels
-template <bool PS>
-static int vtt_batch_rounds(const VttSolveArgs& a, cudaStream_t s) {
+static int vtt_batch_ok(const VttSolveArgs& a) {
+  return a.R >= 2 && a.R <= VTT_MAX_R && a.P >= 1 && a.P <= VTT_MAX_P && a.K <= a.P &&
+         a.K >= 1 && a.n_keys <= 3 && a.F == a.M * a.P && !a.has_volsel && a.S >= 1 &&
+         a.NB >= 1 && a.TILE >= 1 && a.TILE <= VTT_TILE_MAX && a.TB * a.TILE >= a.NB &&
+         a.W == 5 + 2 * a.R;
+}
+
+static int vtt_fp2(const VttSolveArgs& a) {
   int Fp2 = 1;
   while (Fp2 < a.F) Fp2 <<= 1;
-  const size_t propose_smem = (size_t)a.N * sizeof(float);
-  const size_t accept_smem = (size_t)Fp2 * sizeof(unsigned long long);
-  int err = (int)cudaFuncSetAttribute(vtt_batch_propose<PS>,
+  return Fp2;
+}
+
+template <bool PS>
+static int vtt_batch_begin_t(const VttSolveArgs& a, cudaStream_t s) {
+  int err = (int)cudaFuncSetAttribute(vtt_batch_tiles<PS>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)propose_smem);
+                                      (int)(a.TILE * sizeof(float)));
   if (err) return err;
   err = (int)cudaFuncSetAttribute(vtt_batch_accept<PS>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)accept_smem);
+                                  (int)(vtt_fp2(a) * sizeof(unsigned long long)));
   if (err) return err;
-  const int J = (int)a.J;
-  int64_t wide = a.N + 1 > a.J ? a.N + 1 : a.J;
-  if (a.M > wide) wide = a.M;
-  const int keys_blocks = (int)((wide + 255) / 256);
-  const dim3 rank_grid((J + 255) / 256, (J + VTT_RANK_CHUNK - 1) / VTT_RANK_CHUNK);
-
-  if (PS) VTT_LAUNCH(vtt_ps_init, (int)((a.N + 255) / 256), 256, 0, s)(a);
   VTT_LAUNCH(vtt_batch_init, 1, 1, 0, s)(a);
-  VTT_LAUNCH(vtt_batch_keys, keys_blocks, 256, 0, s)(a);
-  if ((err = vtt_check())) return err;
-  for (;;) {
-    int32_t go = 0;
-    err = (int)cudaMemcpyAsync(&go, a.ctl + 1, sizeof(go), cudaMemcpyDeviceToHost, s);
-    if (err) return err;
-    err = (int)cudaStreamSynchronize(s);
-    if (err) return err;
-    if (go <= 0) break;
-    VTT_LAUNCH(vtt_batch_rank, rank_grid, 256, 0, s)(a);
-    VTT_LAUNCH(vtt_batch_select, (J + 255) / 256, 256, 0, s)(a);
-    VTT_LAUNCH(vtt_batch_propose<PS>, (int)a.M, VTT_PROPOSE_THREADS, propose_smem, s)(a);
-    VTT_LAUNCH(vtt_batch_accept<PS>, 1, VTT_ACCEPT_THREADS, accept_smem, s)(a, Fp2);
-    VTT_LAUNCH(vtt_batch_keys, keys_blocks, 256, 0, s)(a);
-    if ((err = vtt_check())) return err;
-  }
   return vtt_check();
 }
 
-extern "C" int vtt_allocate_solve_batch(const VttSolveArgs* args, void* stream) {
-  const VttSolveArgs a = *args;
-  if (a.R < 2 || a.R > VTT_MAX_R || a.P < 1 || a.P > VTT_MAX_P || a.K > a.P ||
-      a.n_keys > 3 || a.F != a.M * a.P || a.has_volsel)
-    return (int)cudaErrorInvalidValue;  // volumes take the exact solve only
+static void vtt_batch_keys_launch(const VttSolveArgs& a, cudaStream_t s) {
+  int64_t wide = a.N + 1 > a.J ? a.N + 1 : a.J;
+  if (a.M > wide) wide = a.M;
+  VTT_LAUNCH(vtt_batch_keys, (int)((wide + 255) / 256), 256, 0, s)(a);
+}
+
+// Start a solve: the base (replicated) arguments, then each local block's
+// (K5's per-block node_match).  Leaves the first round's go flag in ctl[1].
+extern "C" int vtt_batch_begin(const VttSolveArgs* base, const VttSolveArgs* blocks,
+                               int n_blocks, void* stream) {
+  const VttSolveArgs& a = *base;
+  if (!vtt_batch_ok(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return a.has_portsel ? vtt_batch_rounds<true>(a, s) : vtt_batch_rounds<false>(a, s);
+  int err = a.has_portsel ? vtt_batch_begin_t<true>(a, s) : vtt_batch_begin_t<false>(a, s);
+  if (err) return err;
+  for (int b = 0; b < n_blocks; ++b) {
+    if (!vtt_batch_ok(blocks[b])) return (int)cudaErrorInvalidValue;
+    if (a.has_portsel)
+      VTT_LAUNCH(vtt_ps_init, (int)((blocks[b].NB + 255) / 256), 256, 0, s)(blocks[b]);
+  }
+  vtt_batch_keys_launch(a, s);
+  return vtt_check();
+}
+
+template <bool PS>
+static void vtt_batch_candidates_t(const VttSolveArgs& a, const VttSolveArgs* blocks,
+                                   int n_blocks, cudaStream_t s) {
+  const int J = (int)a.J;
+  const dim3 rank_grid((J + 255) / 256, (J + VTT_RANK_CHUNK - 1) / VTT_RANK_CHUNK);
+  VTT_LAUNCH(vtt_batch_rank, rank_grid, 256, 0, s)(a);
+  VTT_LAUNCH(vtt_batch_select, (J + 255) / 256, 256, 0, s)(a);
+  for (int b = 0; b < n_blocks; ++b) {
+    const VttSolveArgs& blk = blocks[b];
+    VTT_LAUNCH(vtt_batch_tiles<PS>, dim3((unsigned)blk.M, (unsigned)blk.TB),
+               VTT_PROPOSE_THREADS, blk.TILE * sizeof(float), s)(blk);
+    VTT_LAUNCH(vtt_batch_pack<PS>, (int)blk.M, VTT_PROPOSE_THREADS, 0, s)(blk);
+  }
+}
+
+// The first half of a round: rank and select the jobs, then each local
+// block's tile pass and records (into its slot of `send`).
+extern "C" int vtt_batch_candidates(const VttSolveArgs* base, const VttSolveArgs* blocks,
+                                    int n_blocks, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (base->has_portsel)
+    vtt_batch_candidates_t<true>(*base, blocks, n_blocks, s);
+  else
+    vtt_batch_candidates_t<false>(*base, blocks, n_blocks, s);
+  return vtt_check();
+}
+
+template <bool PS>
+static void vtt_batch_decide_t(const VttSolveArgs& a, const VttSolveArgs* blocks,
+                               int n_blocks, cudaStream_t s) {
+  const int Fp2 = vtt_fp2(a);
+  VTT_LAUNCH(vtt_batch_propose<PS>, (int)a.M, VTT_PROPOSE_THREADS, 0, s)(a);
+  VTT_LAUNCH(vtt_batch_accept<PS>, 1, VTT_ACCEPT_THREADS,
+             Fp2 * sizeof(unsigned long long), s)(a, Fp2);
+  for (int b = 0; b < n_blocks; ++b)
+    VTT_LAUNCH(vtt_batch_apply<PS>, 1, VTT_ACCEPT_THREADS, 0, s)(blocks[b]);
+  VTT_LAUNCH(vtt_batch_finish, 1, 1, 0, s)(a);
+  vtt_batch_keys_launch(a, s);
+}
+
+// The second half of a round, after the exchange filled `recv`: the
+// replicated decision, each local block's apply, the rollback's replicated
+// part and the next round's keys (and go flag).
+extern "C" int vtt_batch_decide(const VttSolveArgs* base, const VttSolveArgs* blocks,
+                                int n_blocks, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (base->has_portsel)
+    vtt_batch_decide_t<true>(*base, blocks, n_blocks, s);
+  else
+    vtt_batch_decide_t<false>(*base, blocks, n_blocks, s);
+  return vtt_check();
 }

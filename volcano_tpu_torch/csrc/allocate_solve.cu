@@ -13,7 +13,8 @@
 // one 1024-thread CTA runs the whole loop — one launch per solve, never one
 // per step — with block-wide reductions between __syncthreads; thread 0
 // applies each step's scalar update.  The state lives in global memory in
-// the wrapper's working copies and stays L2-resident.
+// the wrapper's working copies and stays L2-resident, the select step's
+// per-queue flags too (`queue_has`, sized by Q, so any queue count runs).
 //
 // K5 in K2 (has_portsel): replaces the portsel branches of the same
 // function, kernels.py:308-322 (port, required- and anti-selector
@@ -89,7 +90,8 @@ __global__ void __launch_bounds__(VTT_EXACT_THREADS)
   __shared__ int s_flag;
   __shared__ int s_cur;
   __shared__ int s_qstar;
-  __shared__ uint8_t s_qhas[64];
+  // which queues hold an active job: global scratch sized by Q
+  uint8_t* s_qhas = a.queue_has;
 
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
@@ -111,7 +113,7 @@ __global__ void __launch_bounds__(VTT_EXACT_THREADS)
     const int cur = s_cur;
     if (cur < 0) {
       // ---- select step
-      if (tid < Q) s_qhas[tid] = 0;
+      for (int q = tid; q < Q; q += nthr) s_qhas[q] = 0;
       __syncthreads();
       bool any_local = false;
       for (int j = tid; j < J; j += nthr) {
@@ -262,7 +264,7 @@ static void vtt_exact_launch(const VttSolveArgs& a, cudaStream_t s) {
 
 extern "C" int vtt_allocate_solve(const VttSolveArgs* args, void* stream) {
   const VttSolveArgs& a = *args;
-  if (a.R < 2 || a.R > VTT_MAX_R || a.Q > 64 || a.n_keys > 3 ||
+  if (a.R < 2 || a.R > VTT_MAX_R || a.Q < 1 || !a.queue_has || a.n_keys > 3 ||
       (a.has_volsel && (a.CL < 1 || a.CL > VTT_CLAIMS || a.VW * 32 < a.N)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;

@@ -96,6 +96,23 @@ struct VttSolveArgs {
   const uint8_t* group_global;  // [G]
   int32_t* claim_node;          // [CL]
   int32_t* vol_cap;             // [G, N]
+  // K2: which queues hold an active job in a select step (scratch)
+  uint8_t* queue_has;           // [Q]
+  // K3 on node blocks (the batch solve; K12a runs S blocks): a block owns
+  // the node rows [n0, n0 + NB) of the N, and its node pointers above
+  // (idle ... node_valid, class_mask / class_score [C, NB], the K5 node
+  // planes) address its own rows.  Each round its tiles of TILE rows
+  // write their exact top-K, its pack writes its K best records a job
+  // into `send`, the exchange gathers every block's into `recv`, and the
+  // replicated kernels decide from the records alone.
+  float* t_val;                 // [M, TB, K] tile candidates: values
+  int32_t* t_idx;               // [M, TB, K] tile candidates: global node rows
+  uint8_t* t_any;               // [M, TB] a feasible node in the tile
+  int32_t* send;                // this block's records [M, K, W]
+  const int32_t* recv;          // every block's records [S, M, K, W]
+  int32_t* p_rec;               // [F] the record a proposal's node came from
+  unsigned long long* p_key;    // [F] proposals in (node, rank) order
+  int64_t n0, NB, S, TB, TILE, W;
   int64_t N, R, T, J, Q, C, M, P, K, F;
   int64_t n_keys, key0, key1, key2;  // job_key_order: 1 priority, 2 gang, 3 drf
   int64_t use_gang_ready, use_proportion, has_portsel;
@@ -170,6 +187,66 @@ __device__ __forceinline__ void vtt_block_argmax(float& v, int& i, float* sv,
   v = sv[0];
   i = si[0];
   __syncthreads();
+}
+
+// Block-wide exact top-K of n candidates in lax.top_k's order (values
+// descending, lower index first): K passes, each the first-max among the
+// candidates ranked after the previous pass's winner.  get(i, v, idx)
+// yields candidate i; indices are distinct except for padding, which
+// carries (-inf, INT_MAX) and ranks after every real candidate.  Thread 0
+// writes out_v / out_i / out_p (the winner's position i; -1 once the
+// candidates run out).  sv, si, sp hold blockDim.x entries (a power of
+// two).  Used by the tile pass and by the merges of the batch solves: the
+// global top-K is contained in the union of the parts' top-Ks, so a merge
+// of parts' top-Ks gives the decisions of one pass over all candidates.
+template <class Get>
+__device__ __forceinline__ void vtt_block_topk(Get get, int n, int K, float* sv,
+                                               int* si, int* sp, float* out_v,
+                                               int* out_i, int* out_p) {
+  const int tid = threadIdx.x;
+  float prev_v = VTT_POS_INF;
+  int prev_i = -1;
+  for (int k = 0; k < K; ++k) {
+    float bv = VTT_NEG_INF;
+    int bi = 0x7fffffff, bp = -1;
+    for (int c = tid; c < n; c += blockDim.x) {
+      float v;
+      int i;
+      get(c, v, i);
+      if ((k == 0 || vtt_better(prev_v, prev_i, v, i)) &&
+          (bp < 0 || vtt_better(v, i, bv, bi))) {
+        bv = v;
+        bi = i;
+        bp = c;
+      }
+    }
+    sv[tid] = bv;
+    si[tid] = bi;
+    sp[tid] = bp;
+    __syncthreads();
+    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+      if (tid < s && sp[tid + s] >= 0 &&
+          (sp[tid] < 0 || vtt_better(sv[tid + s], si[tid + s], sv[tid], si[tid]))) {
+        sv[tid] = sv[tid + s];
+        si[tid] = si[tid + s];
+        sp[tid] = sp[tid + s];
+      }
+      __syncthreads();
+    }
+    bv = sv[0];
+    bi = si[0];
+    bp = sp[0];
+    if (tid == 0) {
+      out_v[k] = bv;
+      out_i[k] = bp < 0 ? 0x7fffffff : bi;
+      out_p[k] = bp;
+    }
+    __syncthreads();
+    if (bp >= 0) {
+      prev_v = bv;
+      prev_i = bi;
+    }
+  }
 }
 
 // Block-wide OR of a predicate; every thread returns the result.

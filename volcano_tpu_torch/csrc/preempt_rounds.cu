@@ -1,4 +1,4 @@
-// K10: batched preempt rounds, one round = eight kernels.
+// K10: batched preempt rounds, one round = nine kernels.
 //
 // Replaces volcano_tpu/scheduler/victim_kernels.py:830 `preempt_rounds`
 // (exact top-K at :1062): rounds of parallel victim-capacity placement for
@@ -24,9 +24,12 @@
 //     running sums per (node, queue) cell;
 //   * vtt_r_rank counts, for each active job, the active jobs with a
 //     smaller key tuple (the rank, no sort);
-//   * vtt_r_propose runs one CTA per selected job: its scores stay in
-//     shared memory and K block-wide first-max passes follow lax.top_k's
-//     order (values descending, lower index first, -inf fill);
+//   * vtt_r_tiles runs one CTA per (selected job, tile of TILE nodes): the
+//     tile's scores stay in shared memory and K block-wide first-max
+//     passes take its exact top-K in lax.top_k's order (values
+//     descending, lower index first, -inf fill); vtt_r_propose merges a
+//     job's tiles into its top-K (the union of the tiles' top-Ks holds it)
+//     and writes the proposals.  Tiles lift the shared-memory cap on N;
 //   * vtt_r_accept is one CTA: a bitonic sort of the F = M * P proposals by
 //     (cell, rank), one thread per cell for the running sums, per-job prefix
 //     and gang commit, and the job, queue and cell updates in a fixed order.
@@ -228,13 +231,80 @@ __global__ void vtt_r_select(VttVictimArgs a) {
   if (r < a.M) a.sel[r] = j;
 }
 
-// one CTA per selected job: scores of its head task over all nodes in
-// shared memory, exact top-K, per-target counts, its P proposals
-__global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_propose(VttVictimArgs a) {
+// The selected job m's head task row, its request, class and queue.
+struct VttRHead {
+  int j, cur, head, cls, q;
+  float req[VTT_MAX_R];
+};
+
+__device__ __forceinline__ VttRHead vtt_r_head(const VttVictimArgs& a, int m) {
+  VttRHead h;
+  h.j = a.sel[m];
+  if (h.j < 0) return h;
+  const int T = (int)a.T;
+  h.cur = a.cursor[h.j];
+  h.head = vtt_clamp(a.rows_packed[vtt_clamp(a.job_pstart[h.j] + h.cur, 0, T - 1)], 0, T - 1);
+  for (int r = 0; r < a.R; ++r) h.req[r] = a.task_req[(size_t)h.head * a.R + r];
+  h.cls = a.task_class[h.head];
+  h.q = vtt_clamp(a.job_queue[h.j], 0, (int)a.Q - 1);
+  return h;
+}
+
+// one CTA per (selected job, tile of TILE nodes): the head task's scores
+// over the tile in shared memory, the tile's exact top-K
+__global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_tiles(VttVictimArgs a) {
   VTT_DYN_SMEM(float, s_val);
   __shared__ float s_v[VTT_R_PROPOSE_THREADS];
   __shared__ int s_i[VTT_R_PROPOSE_THREADS];
+  __shared__ int s_p[VTT_R_PROPOSE_THREADS];
+  __shared__ int s_pos[VTT_R_MAX_PK];
+  __shared__ int s_flag;
+  const int tid = threadIdx.x;
+  const int m = blockIdx.x, tb = blockIdx.y;
+  const VttRHead h = vtt_r_head(a, m);
+  if (h.j < 0) return;
+  const int N = (int)a.N, R = (int)a.R, Q = (int)a.Q, K = (int)a.K, TB = (int)a.TB;
+  const int lo = tb * (int)a.TILE, hi = min(N, lo + (int)a.TILE);
+  const uint8_t* cmask = a.class_mask + (size_t)h.cls * N;
+  const float* cscore = a.class_score + (size_t)h.cls * N;
+  const uint32_t jh = (uint32_t)h.j * 2654435761u;
+  const float jscale = (float)(1e-4 / 65535.0);
+  bool any_local = false;
+  for (int n = lo + tid; n < hi; n += blockDim.x) {
+    const float* capn = &a.cap_flat[((size_t)n * Q + h.q) * R];
+    bool feasible = cmask[n] && a.task_count[n] < a.node_max_tasks[n] && a.node_valid[n];
+    for (int r = 0; r < R; ++r) feasible = feasible && h.req[r] < capn[r] + a.eps[r];
+    float v = VTT_NEG_INF;
+    if (feasible) {
+      const float sc = vtt_score_node(h.req, &a.used[(size_t)n * R], &a.node_alloc[(size_t)n * R],
+                                      cscore[n], a.w_least, a.w_balanced);
+      uint32_t hh = (jh ^ ((uint32_t)n * 40503u)) * 2246822519u;
+      hh ^= hh >> 15;
+      v = __fmaf_rn((float)(hh & 0xFFFFu), jscale, sc);
+      any_local = true;
+    }
+    s_val[n - lo] = v;
+  }
+  const bool any = vtt_block_any(any_local, &s_flag);
+  const size_t at = ((size_t)m * TB + tb) * K;
+  vtt_block_topk(
+      [&](int c, float& v, int& i) {
+        v = s_val[c];
+        i = lo + c;
+      },
+      hi - lo, K, s_v, s_i, s_p, a.t_val + at, a.t_idx + at, s_pos);
+  if (tid == 0) a.t_any[(size_t)m * TB + tb] = any ? 1 : 0;
+}
+
+// one CTA per selected job: the job's top-K from its tiles' candidates,
+// per-target counts, its P proposals
+__global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_propose(VttVictimArgs a) {
+  __shared__ float s_v[VTT_R_PROPOSE_THREADS];
+  __shared__ int s_i[VTT_R_PROPOSE_THREADS];
+  __shared__ int s_p[VTT_R_PROPOSE_THREADS];
+  __shared__ float s_kv[VTT_R_MAX_PK];
   __shared__ int s_top[VTT_R_MAX_PK];
+  __shared__ int s_kp[VTT_R_MAX_PK];
   __shared__ int s_knode[VTT_R_MAX_PK];
   __shared__ float s_cnt[VTT_R_MAX_PK];
   __shared__ float s_cum[VTT_R_MAX_PK];
@@ -242,9 +312,9 @@ __global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_propose(VttVictim
   const int tid = threadIdx.x;
   const int m = blockIdx.x;
   const int N = (int)a.N, R = (int)a.R, T = (int)a.T, Q = (int)a.Q, P = (int)a.P,
-            K = (int)a.K;
-  const int j = a.sel[m];
-  if (j < 0) {
+            K = (int)a.K, TB = (int)a.TB;
+  const VttRHead h = vtt_r_head(a, m);
+  if (h.j < 0) {
     for (int p = tid; p < P; p += blockDim.x) {
       const int f = m * P + p;
       a.p_flags[f] = 0;
@@ -254,62 +324,28 @@ __global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_propose(VttVictim
     }
     return;
   }
-  const int cur = a.cursor[j];
-  const int head = vtt_clamp(a.rows_packed[vtt_clamp(a.job_pstart[j] + cur, 0, T - 1)], 0, T - 1);
-  float req[VTT_MAX_R];
-  for (int r = 0; r < R; ++r) req[r] = a.task_req[(size_t)head * R + r];
-  const int cls = a.task_class[head];
-  const int q = vtt_clamp(a.job_queue[j], 0, Q - 1);
-  const uint8_t* cmask = a.class_mask + (size_t)cls * N;
-  const float* cscore = a.class_score + (size_t)cls * N;
-  const uint32_t jh = (uint32_t)j * 2654435761u;
-  const float jscale = (float)(1e-4 / 65535.0);
+  const int j = h.j;
   bool any_local = false;
-  for (int n = tid; n < N; n += blockDim.x) {
-    const float* capn = &a.cap_flat[((size_t)n * Q + q) * R];
-    bool feasible = cmask[n] && a.task_count[n] < a.node_max_tasks[n] && a.node_valid[n];
-    for (int r = 0; r < R; ++r) feasible = feasible && req[r] < capn[r] + a.eps[r];
-    float v = VTT_NEG_INF;
-    if (feasible) {
-      const float sc = vtt_score_node(req, &a.used[(size_t)n * R], &a.node_alloc[(size_t)n * R],
-                                      cscore[n], a.w_least, a.w_balanced);
-      uint32_t h = (jh ^ ((uint32_t)n * 40503u)) * 2246822519u;
-      h ^= h >> 15;
-      v = __fmaf_rn((float)(h & 0xFFFFu), jscale, sc);
-      any_local = true;
-    }
-    s_val[n] = v;
-  }
+  for (int tb = tid; tb < TB; tb += blockDim.x) any_local |= a.t_any[(size_t)m * TB + tb] != 0;
   const bool job_ok = vtt_block_any(any_local, &s_flag);
-  // exact top-K: K passes, each the first-max among entries ranked after
-  // the previous pass's winner
-  float prev_v = VTT_POS_INF;
-  int prev_i = -1;
-  for (int k = 0; k < K; ++k) {
-    float bv = VTT_NEG_INF;
-    int bi = 0x7fffffff;
-    for (int n = tid; n < N; n += blockDim.x) {
-      const float v = s_val[n];
-      if ((k == 0 || vtt_better(prev_v, prev_i, v, n)) && vtt_better(v, n, bv, bi)) {
-        bv = v;
-        bi = n;
-      }
-    }
-    vtt_block_argmax(bv, bi, s_v, s_i);
-    if (tid == 0) s_top[k] = bi;
-    prev_v = bv;
-    prev_i = bi;
-  }
-  __syncthreads();
+  const float* tv = a.t_val + (size_t)m * TB * K;
+  const int* ti = a.t_idx + (size_t)m * TB * K;
+  vtt_block_topk(
+      [&](int c, float& v, int& i) {
+        v = tv[c];
+        i = ti[c];
+      },
+      TB * K, K, s_v, s_i, s_p, s_kv, s_top, s_kp);
+  const uint8_t* cmask = a.class_mask + (size_t)h.cls * N;
   if (tid < K) {
     const int k = tid;
     const int node = s_top[(k + m % K) % K];
-    const float* capk = &a.cap_flat[((size_t)node * Q + q) * R];
+    const float* capk = &a.cap_flat[((size_t)node * Q + h.q) * R];
     bool ok = cmask[node] && a.task_count[node] < a.node_max_tasks[node] && a.node_valid[node];
-    for (int r = 0; r < R; ++r) ok = ok && req[r] < capk[r] + a.eps[r];
+    for (int r = 0; r < R; ++r) ok = ok && h.req[r] < capk[r] + a.eps[r];
     float c = VTT_POS_INF;
     for (int r = 0; r < R; ++r)
-      if (req[r] > 0.0f) c = fminf(c, floorf((capk[r] + a.eps[r]) / fmaxf(req[r], 1e-30f)));
+      if (h.req[r] > 0.0f) c = fminf(c, floorf((capk[r] + a.eps[r]) / fmaxf(h.req[r], 1e-30f)));
     s_knode[k] = node;
     s_cnt[k] = ok ? fmaxf(c, 0.0f) : 0.0f;
   }
@@ -328,8 +364,8 @@ __global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_propose(VttVictim
     int slot = 0;
     for (int k = 0; k < K; ++k) slot += ((float)p >= s_cum[k]) ? 1 : 0;
     const bool in_range = slot < K;
-    const bool valid = job_ok && cur + p < a.job_pcount[j] && in_range;
-    const int t = a.rows_packed[vtt_clamp(a.job_pstart[j] + cur + p, 0, T - 1)];
+    const bool valid = job_ok && h.cur + p < a.job_pcount[j] && in_range;
+    const int t = a.rows_packed[vtt_clamp(a.job_pstart[j] + h.cur + p, 0, T - 1)];
     a.p_node[f] = s_knode[slot < K ? slot : K - 1];
     a.p_t[f] = vtt_clamp(t, 0, T - 1);
     a.p_job[f] = j;
@@ -560,17 +596,18 @@ __global__ void vtt_r_finish(VttVictimArgs a) {
 extern "C" int vtt_preempt_rounds(const VttVictimArgs* args, void* stream) {
   const VttVictimArgs a = *args;
   if (a.R < 2 || a.R > VTT_MAX_R || a.n_keys > 3 || a.P < 1 || a.P > VTT_R_MAX_PK ||
-      a.K < 1 || a.K > VTT_R_MAX_PK || a.F != a.M * a.P)
+      a.K < 1 || a.K > VTT_R_MAX_PK || a.F != a.M * a.P || a.TILE < 1 ||
+      a.TILE > 8192 || a.TB * a.TILE < a.N)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int err = vtt_victim_setup(a, VTT_EV_ROUNDS, s);
   if (err) return err;
   int Fp2 = 1;
   while (Fp2 < a.F) Fp2 <<= 1;
-  const size_t propose_smem = (size_t)a.N * sizeof(float);
+  const size_t tile_smem = (size_t)a.TILE * sizeof(float);
   const size_t accept_smem = (size_t)Fp2 * sizeof(unsigned long long);
-  if ((err = (int)cudaFuncSetAttribute(vtt_r_propose, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)propose_smem)))
+  if ((err = (int)cudaFuncSetAttribute(vtt_r_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)tile_smem)))
     return err;
   if ((err = (int)cudaFuncSetAttribute(vtt_r_accept, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)accept_smem)))
@@ -598,7 +635,9 @@ extern "C" int vtt_preempt_rounds(const VttVictimArgs* args, void* stream) {
     VTT_LAUNCH(vtt_r_analysis, nb, 256, 0, s)(a);
     VTT_LAUNCH(vtt_r_rank, rank_grid, 256, 0, s)(a);
     VTT_LAUNCH(vtt_r_select, (J + 255) / 256, 256, 0, s)(a);
-    VTT_LAUNCH(vtt_r_propose, (int)a.M, VTT_R_PROPOSE_THREADS, propose_smem, s)(a);
+    VTT_LAUNCH(vtt_r_tiles, dim3((unsigned)a.M, (unsigned)a.TB), VTT_R_PROPOSE_THREADS,
+               tile_smem, s)(a);
+    VTT_LAUNCH(vtt_r_propose, (int)a.M, VTT_R_PROPOSE_THREADS, 0, s)(a);
     VTT_LAUNCH(vtt_r_accept, 1, VTT_R_ACCEPT_THREADS, accept_smem, s)(a, Fp2);
     VTT_LAUNCH(vtt_r_victims, nb, 256, 0, s)(a);
     VTT_LAUNCH(vtt_r_finish, wb, 256, 0, s)(a);

@@ -135,7 +135,10 @@ struct VttVictimArgs {
   int32_t* p_t;         // [F]
   int32_t* p_job;       // [F]
   uint8_t* p_flags;     // [F]
-  int64_t V, N, R, T, J, Q, C, nu, nq, M, P, K, F, jr_cap;
+  float* t_val;         // [M, TB, K] tile candidates: values
+  int32_t* t_idx;       // [M, TB, K] tile candidates: node rows
+  uint8_t* t_any;       // [M, TB] a feasible node in the tile
+  int64_t V, N, R, T, J, Q, C, nu, nq, M, P, K, F, jr_cap, TB, TILE;
   int64_t use_gang, use_drf, use_prop, use_conformance, order_by_priority;
   int64_t has_proportion, gang_pipelined, n_keys, key0, key1, key2;
   float w_least, w_balanced;
@@ -582,7 +585,9 @@ __device__ __forceinline__ void vtt_attempt_init(const VttVictimArgs& a, VttAtte
   at.cls = a.task_class[t];
   for (int r = 0; r < R; ++r) at.req[r] = a.task_req[(size_t)t * R + r];
   at.ls = 0.0f;
-  if (a.use_drf && mode != 2) {
+  // the preemptor's share feeds the drf veto, keyed on the flag alone in
+  // any mode (victim_kernels.py:229)
+  if (a.use_drf) {
     float sum[VTT_MAX_R];
     for (int r = 0; r < R; ++r) sum[r] = a.job_alloc[(size_t)jt * R + r] + at.req[r];
     at.ls = vtt_dominant_share(sum, a.total, R);

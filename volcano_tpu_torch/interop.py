@@ -27,11 +27,13 @@
                       "volume_name"?, "phase"?}],
        "podgroups": [{"name", "namespace"?, "min_member", "queue",
                       "phase"?, "priority_class_name"?}],
+       "pdbs":      [{"name", "namespace"?, "owner": (kind, name),
+                      "min_available"}],
        "pods":      [{"name", "namespace"?, "group"?, "resources": {...},
                       "priority"?, "node_name"?, "phase"?, "deleting"?,
                       "labels"?, "host_ports"?, "pod_affinity"?,
                       "pod_anti_affinity"?, "node_selector"?,
-                      "volumes"?}]}
+                      "volumes"?, "owner"?: (kind, name)}]}
 
   Resources are k8s-style resource lists ({"cpu": "500m", "memory":
   "1Gi"}); phases are the enum values ("Running", "Inqueue", ...);
@@ -40,7 +42,9 @@
   phase such as "Running".  A storage class's ``provisioner`` defaults to
   a dynamic one ("" makes it static); a PV's ``node_affinity`` is a
   node-label selector ({"kubernetes.io/hostname": "n3"}); a pod's
-  ``volumes`` are the names of the claims it mounts, in its namespace.
+  ``volumes`` are the names of the claims it mounts, in its namespace.  A
+  PodDisruptionBudget's ``owner`` names the controller whose plain pods
+  (pods with that ``owner`` and no group) form its shadow gang.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from volcano_tpu_torch.api.objects import (
     PersistentVolume,
     PersistentVolumeClaim,
     Pod,
+    PodDisruptionBudget,
     PodGroup,
     PodSpec,
     PriorityClass,
@@ -144,6 +149,12 @@ def store_from_spec(spec: Dict[str, Any]) -> Store:
         )
         pg.status.phase = PodGroupPhase(g.get("phase", "Pending"))
         store.create("PodGroup", pg)
+    for b in spec.get("pdbs", ()):
+        owner = b.get("owner")
+        store.create("PodDisruptionBudget", PodDisruptionBudget(
+            meta=Metadata(name=b["name"], namespace=b.get("namespace", "default"),
+                          owner=tuple(owner) if owner else None),
+            min_available=b.get("min_available", 1)))
     for p in spec.get("pods", ()):
         group = p.get("group", "")
         affinity = None
@@ -157,6 +168,7 @@ def store_from_spec(spec: Dict[str, Any]) -> Store:
                 name=p["name"], namespace=p.get("namespace", "default"),
                 annotations={POD_GROUP_KEY: group} if group else {},
                 labels=dict(p.get("labels", {})),
+                owner=tuple(p["owner"]) if p.get("owner") else None,
             ),
             spec=PodSpec(resources=Resource.from_resource_list(p.get("resources", {})),
                          priority=p.get("priority", 0), affinity=affinity,

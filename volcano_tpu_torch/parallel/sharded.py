@@ -1,0 +1,665 @@
+"""Node-sharded decision cycle (K12a): node state split into blocks of rows.
+
+The port of ``volcano_tpu/parallel/sharded.py`` (``_cycle``,
+``make_sharded_cycle``, ``run_cycle_reference``, ``resolve_mesh``) on
+``torch.distributed``:
+
+* every node-shaped plane (``_SPECS``: idle, releasing, used, allocatable
+  ``[N, R]``, task counts, pod caps, validity ``[N]``, the class masks and
+  scores ``[C, N]``, and the dynamic solve's resident port and selector
+  planes) splits into S equal blocks of contiguous rows; task, job and
+  queue planes replicate (``_REPLICATED``);
+* the batched solve runs on the blocks (``kernels.batch_launch``, the same
+  code as K3, which is the one-block case): each round every block scores
+  its own rows, takes its K best nodes for each selected job and packs
+  them into candidate records (value, row, feasible and idle-fit bits,
+  task count, pod cap, idle and releasing); ONE all-gather of the records
+  a round gives every block all of them; the merge, the proposals, the
+  accept and the job, task and queue updates run replicated on the
+  gathered records with no float atomics, so every block reaches the same
+  winners; each block applies the winners and a dropped gang's rollback
+  to the rows it owns.  The exact top-K over N is contained in the union
+  of the blocks' top-Ks, so every block count gives the one-block run's
+  outputs bit for bit (the JAX package's contract under
+  ``exact_topk=True``; the port's batch solve is always exact);
+* K1 (the water fill) runs replicated.
+
+A mesh has two transports behind one interface (``exchange``,
+``gather_rows``):
+
+* ``GroupMesh``: a process group (NCCL on the card, gloo on the CPU),
+  S / world blocks a rank, the exchange an ``all_gather_into_tensor``;
+* ``LocalMesh``: S blocks on this process's one device (NCCL refuses two
+  ranks on one card), the exchange the records buffer itself, which every
+  block wrote in place.
+
+On CPU tensors the solve runs its plain PyTorch version
+(``batch_blocks_plain``), per block with the same exchange; on CUDA
+tensors it launches the kernels or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from volcano_tpu_torch.scheduler import kernels as K
+
+#: sharded-solve launches on the card since the last ``reset_launches()``
+LAUNCHES: Dict[str, int] = {"sharded_cycle": 0}
+
+#: node-axis planes: argument name -> the axis its node rows lie on
+_SPECS: Dict[str, int] = {
+    "idle": 0, "releasing": 0, "used": 0, "node_alloc": 0,
+    "node_max_tasks": 0, "task_count": 0, "node_valid": 0,
+    "class_mask": 1, "class_score": 1,
+    # the dynamic solve's resident port words and selector counts
+    "node_ports_w": 0, "node_selcnt": 0,
+}
+
+#: cycle arguments that replicate, listed so that every input has a
+#: declared placement (``shard_args`` refuses a name in neither table)
+_REPLICATED = frozenset({
+    "task_req", "task_job", "task_class", "task_valid",
+    "job_queue", "job_min", "job_prio", "job_ready_init",
+    "job_alloc_init", "job_schedulable", "job_start", "job_ntasks",
+    "queue_weight", "queue_request", "queue_alloc_init",
+    "queue_participates",
+    "total", "eps",
+    "task_ports_w", "task_aff_w", "task_anti_w", "task_self_w",
+})
+
+#: the solve's input names for the node planes (``kernels.NODE_PLANES``)
+#: and the two K5 planes
+_PLANE_OF = {"node_ports_w": "node_ports", "node_selcnt": "node_selcnt"}
+
+#: most blocks a local mesh takes: each block costs three launches a round
+MAX_LOCAL_BLOCKS = 64
+
+OUTPUT_NAMES = ("task_node", "task_kind", "task_seq", "ready", "job_alloc",
+                "queue_alloc", "idle", "releasing", "used", "dropped", "rounds")
+#: outputs whose rows are node rows: each process holds its blocks' rows
+_NODE_OUTPUTS = ("idle", "releasing", "used")
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _all_gather(out: torch.Tensor, inp: torch.Tensor) -> None:
+    import torch.distributed as dist
+
+    # newer releases deprecate all_gather_into_tensor for all_gather_single
+    fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    fn(out, inp)
+
+
+class LocalMesh:
+    """S node blocks on this process's one device."""
+
+    def __init__(self, n_blocks: int, device: torch.device):
+        if n_blocks < 1 or n_blocks & (n_blocks - 1) or n_blocks > MAX_LOCAL_BLOCKS:
+            raise ValueError(f"a local mesh takes a power of two up to {MAX_LOCAL_BLOCKS} "
+                             f"blocks, got {n_blocks}")
+        self.size = n_blocks
+        self.device = torch.device(device)
+        self.world, self.rank = 1, 0
+        self.n_local, self.first = n_blocks, 0
+
+    def exchange(self, send: torch.Tensor) -> torch.Tensor:
+        return send
+
+    def gather_rows(self, local: torch.Tensor) -> torch.Tensor:
+        return local
+
+    def __repr__(self) -> str:
+        return f"LocalMesh({self.size} blocks on {self.device})"
+
+
+class GroupMesh:
+    """The default torch.distributed process group: ``n_blocks / world``
+    blocks a rank, rank r holding blocks [r * n_local, (r + 1) * n_local)."""
+
+    def __init__(self, n_blocks: int, device: Optional[torch.device] = None):
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise RuntimeError("a group mesh needs an initialised process group")
+        self.world = dist.get_world_size()
+        self.rank = dist.get_rank()
+        if n_blocks < self.world or n_blocks % self.world or n_blocks & (n_blocks - 1):
+            raise ValueError(f"mesh of {n_blocks} blocks over {self.world} ranks: the block "
+                             "count must be a power of two and a multiple of the world size")
+        self.size = n_blocks
+        self.n_local = n_blocks // self.world
+        self.first = self.rank * self.n_local
+        backend = dist.get_backend()
+        if device is None:
+            device = (torch.device("cuda", torch.cuda.current_device()) if backend == "nccl"
+                      else torch.device("cpu"))
+        self.device = torch.device(device)
+        if (backend == "nccl") != (self.device.type == "cuda"):
+            raise ValueError(f"a {backend} group cannot exchange {self.device} tensors")
+
+    def exchange(self, send: torch.Tensor) -> torch.Tensor:
+        out = torch.empty((self.world * send.shape[0],) + tuple(send.shape[1:]),
+                          dtype=send.dtype, device=send.device)
+        _all_gather(out, send.contiguous())
+        return out
+
+    def gather_rows(self, local: torch.Tensor) -> torch.Tensor:
+        return self.exchange(local)
+
+    def __repr__(self) -> str:
+        return (f"GroupMesh({self.size} blocks, rank {self.rank} of {self.world}, "
+                f"{self.device})")
+
+
+def make_mesh(n_blocks: Optional[int] = None, device=None):
+    """A mesh of ``n_blocks`` node blocks: over the process group when one
+    is initialised (one block a rank by default), else on ``device`` (the
+    CPU by default) alone."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return GroupMesh(n_blocks or dist.get_world_size(), device)
+    return LocalMesh(n_blocks or 1, torch.device(device or "cpu"))
+
+
+def resolve_mesh(setting: Optional[str], device=None):
+    """The scheduler-conf ``mesh:`` key -> a mesh, or None (one block).
+
+    "off" / None / "" -> None; "auto" -> the process group's world size
+    (rounded down to a power of two), or 1 with no group; "N" -> N blocks:
+    N / world a rank under a process group, else all N on ``device``.  A
+    size-1 result resolves to None; a request that cannot be honoured (not
+    a power of two, fewer blocks than ranks or not a multiple of them, more
+    than a local mesh takes) raises, never running on one block in
+    silence."""
+    import torch.distributed as dist
+
+    if not setting or setting == "off":
+        return None
+    grouped = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if grouped else 1
+    if setting == "auto":
+        n = world
+        while n & (n - 1):
+            n -= 1
+    else:
+        try:
+            n = int(setting)
+        except ValueError:
+            raise ValueError(f"mesh must be 'off', 'auto' or a block count, got {setting!r}")
+        if n < 1 or n & (n - 1):
+            raise ValueError(f"mesh: {setting} is not a power of two: snapshot node axes "
+                             "bucket to powers of two, so it could never divide them")
+        if grouped and (n < world or n % world):
+            raise ValueError(f"mesh: {setting} blocks cannot spread over {world} ranks")
+        if not grouped and n > MAX_LOCAL_BLOCKS:
+            raise ValueError(f"mesh: {setting} blocks requested, a local mesh takes at most "
+                             f"{MAX_LOCAL_BLOCKS}")
+    if n <= 1:
+        return None
+    return make_mesh(n, device)
+
+
+def split_rows(mesh, name: str, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """This process's blocks of a node-axis plane, each contiguous."""
+    axis = _SPECS[name]
+    n = x.shape[axis]
+    if n % mesh.size:
+        raise ValueError(f"{name}: {n} node rows do not divide into {mesh.size} blocks")
+    nb = n // mesh.size
+    return tuple(x.narrow(axis, (mesh.first + i) * nb, nb).contiguous()
+                 for i in range(mesh.n_local))
+
+
+def shard_args(mesh, args: Dict[str, object]) -> Dict[str, object]:
+    """Host arrays (or tensors) -> this process's placement on the mesh's
+    device: node-axis planes as a tuple of its blocks, everything else
+    whole."""
+    undeclared = sorted(set(args) - set(_SPECS) - _REPLICATED)
+    if undeclared:
+        raise ValueError(f"cycle arguments with no declared placement: {undeclared}")
+    out = {}
+    for k, v in args.items():
+        t = v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))
+        t = t.to(mesh.device)
+        out[k] = split_rows(mesh, k, t) if k in _SPECS else t
+    return out
+
+
+def _blocks(mesh, planes: Dict[str, Tuple[torch.Tensor, ...]]):
+    """[(n0, {plane: block})] of this process, from per-plane block tuples
+    keyed by ``_SPECS`` names."""
+    nb = planes["idle"][0].shape[0]
+    out = []
+    for i in range(mesh.n_local):
+        blk = {_PLANE_OF.get(k, k): v[i] for k, v in planes.items()}
+        out.append(((mesh.first + i) * nb, blk))
+    return out
+
+
+def sharded_solve(mesh, planes, repl, w_least, w_balanced,
+                  job_key_order=("priority", "gang", "drf"), use_gang_ready=True,
+                  use_proportion=True, m_chunk=512, p_chunk=16, portsel_task=None):
+    """The batched allocate solve over the mesh's node blocks.
+
+    ``planes``: node-axis planes by ``_SPECS`` name, each a tuple of this
+    process's blocks; ``repl``: the replicated solve inputs with
+    ``queue_deserved``; ``portsel_task``: K5's task words and weight
+    ``(task_ports, task_aff, task_anti, task_self, w_podaff)`` as int32
+    words (the node planes then include ``node_ports_w`` /
+    ``node_selcnt``).  CPU tensors run ``batch_blocks_plain``; CUDA tensors
+    launch K3's kernels on the blocks.  Returns a ``SolveOut`` whose node
+    planes are this process's rows."""
+    blocks = _blocks(mesh, planes)
+    dev = repl["task_req"].device
+    args = (repl, blocks, mesh.size, mesh.exchange, w_least, w_balanced, job_key_order,
+            use_gang_ready, use_proportion, m_chunk, p_chunk, portsel_task)
+    if dev.type == "cpu":
+        return batch_blocks_plain(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"sharded solve: unsupported device {dev}")
+    from volcano_tpu_torch import _build
+
+    out = K.batch_launch(_build.load(), K._stream(dev), *args)
+    LAUNCHES["sharded_cycle"] += 1
+    K.LAUNCHES["allocate_solve_batch"] += 1
+    if portsel_task is not None:
+        K.LAUNCHES["allocate_solve_batch_portsel"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# the plain version: per block, with the same exchange
+# --------------------------------------------------------------------------
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.float32)
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+def batch_blocks_plain(a, blocks, n_blocks, exchange, w_least, w_balanced,
+                       job_key_order=("priority", "gang", "drf"), use_gang_ready=True,
+                       use_proportion=True, m_chunk=512, p_chunk=16, task_words=None):
+    """The plain PyTorch version of ``kernels.batch_launch`` (same
+    arguments): ``kernels.allocate_solve_batch_plain`` with every node
+    plane held per block, the candidate records exchanged each round and
+    the decision taken from them."""
+    dev = a["task_req"].device
+    L = len(blocks)
+    NB = blocks[0][1]["idle"].shape[0]
+    N = NB * n_blocks
+    T, R = a["task_req"].shape
+    J = a["job_queue"].shape[0]
+    Q = a["queue_alloc_init"].shape[0]
+    M, P, Kk = min(m_chunk, J), p_chunk, min(p_chunk, N)
+    F = M * P
+    W = K.record_words(R)
+    i32 = torch.int32
+    jidx = torch.arange(J, device=dev)
+    job_queue, job_start, job_ntasks = a["job_queue"], a["job_start"], a["job_ntasks"]
+    task_req, task_job, task_valid = a["task_req"], a["task_job"], a["task_valid"]
+    eps, total = a["eps"], a["total"]
+    queue_deserved = a["queue_deserved"]
+    jq_c = job_queue.clamp(0, Q - 1).long()
+    offs = torch.arange(P, device=dev)
+    rank = torch.arange(F, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def pad(x, fill=0):
+        return torch.cat([x, torch.full((1,) + x.shape[1:], fill, dtype=x.dtype, device=dev)])
+
+    ps = None
+    if task_words is not None:
+        ps = K._unpack_portsel((torch.zeros((1, K.PORT_WORDS), dtype=i32, device=dev),
+                                task_words[0], torch.zeros((1, 32 * K.SEL_WORDS), device=dev),
+                                *task_words[1:]))
+    # replicated state
+    ja, ready = a["job_alloc_init"].clone(), a["job_ready_init"].clone()
+    cursor = torch.zeros(J, dtype=i32, device=dev)
+    dropped = torch.zeros(J, dtype=torch.bool, device=dev)
+    qa = a["queue_alloc_init"].clone()
+    tn = torch.full((T,), -1, dtype=i32, device=dev)
+    tk = torch.zeros(T, dtype=i32, device=dev)
+    ts = torch.full((T,), -1, dtype=i32, device=dev)
+    # per-block state and constants
+    bs = []
+    for n0, pl in blocks:
+        b = {"n0": n0, "alloc": pl["node_alloc"], "cap": pl["node_max_tasks"],
+             "valid": pl["node_valid"], "cmask": pl["class_mask"], "cscore": pl["class_score"],
+             "idle": pl["idle"].clone(), "rel": pl["releasing"].clone(),
+             "used": pl["used"].clone(), "tc": pl["task_count"].clone()}
+        if ps is not None:
+            b["ports"] = K.unpack_bits(pl["node_ports"])
+            b["selcnt"] = pl["node_selcnt"].float()
+        bs.append(b)
+    rnd = 0
+    progressed = True
+
+    def active_mask():
+        if use_proportion:
+            q_ok = ~K.less_equal(queue_deserved, qa, eps)[jq_c]
+        else:
+            q_ok = torch.ones(J, dtype=torch.bool, device=dev)
+        return a["job_schedulable"] & ~dropped & (cursor < job_ntasks) & (job_queue >= 0) & q_ok
+
+    def local(b, tgt, mask):
+        """Per block: a node row target as this block's row, or NB."""
+        lt = tgt - b["n0"]
+        return torch.where(mask & (lt >= 0) & (lt < NB), lt, NB).long()
+
+    while True:
+        active = active_mask()
+        if not (progressed and bool(active.any())):
+            break
+        keys = [jidx.float()]
+        keys += list(reversed(K._job_keys(job_key_order, a["job_prio"], ready, a["job_min"],
+                                          ja, total)))
+        if use_proportion:
+            keys.append(K.dominant_share(qa, queue_deserved)[jq_c])
+        keys.append((~active).to(torch.int8))
+        order = K._lexsort(keys)
+        sel = order[:M]
+        sel_active = active[sel]
+        head_t = (job_start[sel] + cursor[sel]).clamp(0, T - 1).long()
+        head_req = task_req[head_t]
+        head_cls = a["task_class"][head_t].long()
+
+        # each block: its K best nodes a selected job, as records
+        send = torch.stack([_block_records(b, head_req, head_cls, head_t, sel, sel_active, eps,
+                                           w_least, w_balanced, ps, Kk, W)
+                            for b in bs]).reshape(L, M * Kk * W)
+        recv = exchange(send).reshape(n_blocks, M, Kk, W)
+
+        # the merge: the job's top-K over every block's records
+        cand = recv.permute(1, 0, 2, 3).reshape(M, n_blocks * Kk, W)
+        by_row = torch.sort(cand[:, :, 1], dim=1, stable=True).indices
+        vals = torch.gather(_f32(cand[:, :, 0]), 1, by_row)
+        pick = torch.gather(by_row, 1, torch.sort(vals, dim=1, descending=True,
+                                                  stable=True).indices)[:, :Kk]
+        job_ok = ((recv[:, :, 0, 2] & 4) != 0).any(dim=0)
+        rot = (torch.arange(Kk, device=dev)[None, :]
+               + (torch.arange(M, device=dev) % Kk)[:, None]) % Kk
+        pick = torch.gather(pick, 1, rot)
+        top = torch.gather(cand, 1, pick[:, :, None].expand(M, Kk, W))  # [M, K, W]
+        topk_nodes = top[:, :, 1].long()
+        topk_feasible = (top[:, :, 2] & 1) != 0
+        topk_is_idle = ((top[:, :, 2] & 2) != 0) & topk_feasible
+        idle_k = _f32(top[:, :, 5:5 + R])
+        req_safe = torch.clamp_min(head_req, 1e-30)[:, None, :]
+        cnt = torch.floor((idle_k + eps) / req_safe)
+        cnt = torch.where(head_req[:, None, :] > 0, cnt, K.POS_INF).amin(dim=-1)
+        cnt = torch.where(topk_is_idle, torch.clamp_min(cnt, 0.0), zero)
+        cnt = torch.where(topk_feasible & ~topk_is_idle, torch.ones_like(cnt), cnt)
+        if ps is not None:
+            spread = (ps.task_ports[head_t].any(dim=1)
+                      | ((ps.task_anti[head_t] * ps.task_self[head_t]).sum(dim=1) > 0))
+            cnt = torch.where(spread[:, None], torch.clamp_max(cnt, 1.0), cnt)
+        cum_cnt = torch.cumsum(cnt, dim=1)
+        slot = (offs[None, :, None].float() >= cum_cnt[:, None, :]).sum(dim=-1)
+        in_range = slot < Kk
+        slot_c = slot.clamp(0, Kk - 1)
+        prop_node_mp = torch.gather(topk_nodes, 1, slot_c)
+        prop_idle_mp = torch.gather(topk_is_idle, 1, slot_c)
+        prop_rec = torch.gather(top, 1, slot_c[:, :, None].expand(M, P, W)).reshape(F, W)
+
+        t_prop = job_start[sel][:, None] + cursor[sel][:, None] + offs[None, :]
+        prop_valid = (
+            sel_active[:, None] & job_ok[:, None]
+            & (cursor[sel][:, None] + offs[None, :] < job_ntasks[sel][:, None]) & in_range
+        )
+        t_prop_c = t_prop.clamp(0, T - 1).long()
+        p_valid = prop_valid.reshape(F)
+        p_req = task_req[t_prop_c].reshape(F, R)
+        p_node = prop_node_mp.reshape(F)
+        p_is_idle = prop_idle_mp.reshape(F) & p_valid
+        p_is_pipe = p_valid & ~p_is_idle
+        p_job = sel[:, None].expand(M, P).reshape(F)
+        p_t = t_prop_c.reshape(F)
+
+        # capacity-aware acceptance over (node, rank)-sorted proposals,
+        # against the records' node state
+        key_node = torch.where(p_is_idle, p_node, N)
+        order2 = torch.sort(key_node, stable=True).indices
+        sn = key_node[order2]
+        sreq = p_req[order2]
+        seg_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), sn[1:] != sn[:-1]])
+        cum = torch.cumsum(sreq, dim=0)
+        start_pos = torch.cummax(torch.where(seg_start, rank, 0), dim=0).values
+        relcum = cum - (cum[start_pos] - sreq[start_pos])
+        srec = prop_rec[order2]
+        pos_in_seg = rank - start_pos
+        accept_sorted = (
+            torch.all(relcum < _f32(srec[:, 5:5 + R]) + eps, dim=-1)
+            & (srec[:, 3] + pos_in_seg < srec[:, 4]) & (sn < N)
+        )
+        if ps is not None:
+            p_ports, p_anti = ps.task_ports[p_t], ps.task_anti[p_t] > 0
+            sbits = torch.cat([p_ports, ps.task_self[p_t] > 0], dim=1)[order2].int()
+            inc = torch.cumsum(sbits, dim=0)
+            excl = (inc - sbits - (inc[start_pos] - sbits[start_pos])) > 0
+            PB = p_ports.shape[1]
+            conflict = (
+                torch.any(excl[:, :PB] & p_ports[order2], dim=1)
+                | torch.any(excl[:, PB:] & p_anti[order2], dim=1)
+            )
+            accept_sorted = accept_sorted & ~conflict
+        accept_idle = torch.zeros(F, dtype=torch.bool, device=dev)
+        accept_idle[order2] = accept_sorted
+
+        pipe_fits = (torch.all(p_req < _f32(prop_rec[:, 5 + R:5 + 2 * R]) + eps, dim=-1)
+                     & (prop_rec[:, 3] < prop_rec[:, 4]))
+        if ps is not None:
+            p_is_pipe = p_is_pipe & ~(p_ports.any(dim=1) | p_anti.any(dim=1))
+        pipe_node = torch.where(p_is_pipe & pipe_fits, p_node, N)
+        best_rank_pipe = torch.full((N + 1,), F, dtype=torch.int64, device=dev)
+        best_rank_pipe.scatter_reduce_(0, pipe_node, rank, reduce="amin")
+        win_pipe = (best_rank_pipe[pipe_node] == rank) & p_is_pipe & pipe_fits
+
+        win_mp = (accept_idle | win_pipe).reshape(M, P)
+        prefix_ok = torch.cumsum((~win_mp).int(), dim=1) == 0
+        win = (win_mp & prefix_ok).reshape(F)
+        use_idle = accept_idle & win
+
+        # replicated: job, task and queue state
+        delta = torch.where(win[:, None], p_req, zero)
+        job_tgt = torch.where(win, p_job, J)
+        ja = pad(ja).index_add_(0, job_tgt, delta)[:J]
+        ready = pad(ready).index_add_(0, job_tgt, use_idle.to(i32))[:J]
+        cursor = pad(cursor).index_add_(0, job_tgt, win.to(i32))[:J]
+        q_tgt = torch.where(win, jq_c[p_job], Q)
+        qa = pad(qa).cpu().index_add_(0, q_tgt.cpu(), delta.cpu()).to(dev)[:Q]
+        t_tgt = torch.where(win, p_t, T)
+        tn2, tk2, ts2 = pad(tn), pad(tk), pad(ts)
+        tn2[t_tgt] = torch.where(win, p_node, 0).to(i32)
+        tk2[t_tgt] = torch.where(use_idle, 1, 2).to(i32)
+        ts2[t_tgt] = (rnd * F + rank).to(i32)
+        tn, tk, ts = tn2[:T], tk2[:T], ts2[:T]
+
+        # each block: the winners on its own rows
+        for b in bs:
+            lt = local(b, p_node, win)
+            b["idle"] = pad(b["idle"]).index_add_(0, torch.where(use_idle, lt, NB), -delta)[:NB]
+            b["rel"] = pad(b["rel"]).index_add_(0, torch.where(win & ~use_idle, lt, NB),
+                                                -delta)[:NB]
+            b["used"] = pad(b["used"]).index_add_(0, lt, delta)[:NB]
+            b["tc"] = pad(b["tc"]).index_add_(0, lt, win.to(i32))[:NB]
+            if ps is not None:
+                win_ports = torch.where(win[:, None], p_ports, False).int()
+                b["ports"] = b["ports"] | (
+                    torch.zeros((NB + 1, win_ports.shape[1]), dtype=i32, device=dev)
+                    .index_add_(0, lt, win_ports)[:NB] > 0)
+                b["selcnt"] = pad(b["selcnt"]).index_add_(
+                    0, lt, torch.where(win[:, None], ps.task_self[p_t], zero))[:NB]
+
+        # no win this round: drop the lowest-ranked active job, unwinding
+        # its placements if it never reached gang readiness
+        any_win = bool(win.any())
+        n_active = int(active.sum())
+        do_evict = (not any_win) and n_active > 0
+        victim = int(order[max(n_active - 1, 0)])
+        need_rb = do_evict and use_gang_ready and int(ready[victim]) < int(a["job_min"][victim])
+        if do_evict:
+            dropped[victim] = True
+        if need_rb:
+            rb_task = (task_job == victim) & (tk > 0) & task_valid
+            rb_req = torch.where(rb_task[:, None], task_req, zero)
+            t_node = tn.clamp(0, N - 1)
+            for b in bs:
+                lt = local(b, t_node, rb_task)
+                b["idle"] = pad(b["idle"]).index_add_(
+                    0, torch.where(tk == 1, lt, NB), rb_req)[:NB]
+                b["rel"] = pad(b["rel"]).index_add_(0, torch.where(tk == 2, lt, NB), rb_req)[:NB]
+                b["used"] = pad(b["used"]).index_add_(0, lt, -rb_req)[:NB]
+                b["tc"] = pad(b["tc"]).index_add_(0, lt, -rb_task.to(i32))[:NB]
+                if ps is not None:
+                    rb_ports = torch.where(rb_task[:, None], ps.task_ports, False).int()
+                    b["ports"] = b["ports"] & ~(
+                        torch.zeros((NB + 1, rb_ports.shape[1]), dtype=i32, device=dev)
+                        .index_add_(0, lt, rb_ports)[:NB] > 0)
+                    b["selcnt"] = pad(b["selcnt"]).index_add_(
+                        0, lt, -torch.where(rb_task[:, None], ps.task_self, zero))[:NB]
+            q_rb = torch.zeros((Q + 1, R), dtype=torch.float32, device=dev).index_add_(
+                0, torch.where(rb_task, jq_c[task_job.long()], Q), rb_req)
+            qa = qa - q_rb[:Q]
+            ja = ja.clone()
+            ja[victim] = a["job_alloc_init"][victim]
+            ready = ready.clone()
+            ready[victim] = a["job_ready_init"][victim]
+            cursor = cursor.clone()
+            cursor[victim] = 0
+            tn = torch.where(rb_task, -1, tn).to(i32)
+            tk = torch.where(rb_task, 0, tk).to(i32)
+            ts = torch.where(rb_task, -1, ts).to(i32)
+        progressed = any_win or do_evict
+        rnd += 1
+
+    def rows(name):
+        return bs[0][name] if L == 1 else torch.cat([b[name] for b in bs])
+
+    return K.SolveOut(tn, tk, ts, ready, ja, qa, rows("idle"), rows("rel"), rows("used"),
+                      dropped, torch.tensor(rnd, dtype=torch.int32, device=dev))
+
+
+def _block_records(b, head_req, head_cls, head_t, sel, sel_active, eps, w_least, w_balanced,
+                   ps, Kk, W):
+    """One block's candidate records [M, K, W] int32: for each selected
+    job, the block's K best nodes by (value desc, row asc), padded with
+    (-inf, INT_MAX) when the block holds fewer rows."""
+    dev = head_req.device
+    NB = b["idle"].shape[0]
+    M, R = head_req.shape
+    fit_i = torch.all(head_req[:, None, :] < b["idle"][None, :, :] + eps, dim=-1)
+    fit_r = torch.all(head_req[:, None, :] < b["rel"][None, :, :] + eps, dim=-1)
+    pred = b["cmask"][head_cls] & (b["tc"] < b["cap"])[None, :] & b["valid"][None, :]
+    feasible = (fit_i | fit_r) & pred & sel_active[:, None]
+    if ps is not None:
+        head_ports = ps.task_ports[head_t]
+        head_aff, head_anti = ps.task_aff[head_t], ps.task_anti[head_t]
+        matched = (b["selcnt"] > 0.5).float()
+        port_overlap = head_ports.float() @ b["ports"].float().T
+        req_missing = head_aff @ (1.0 - matched).T
+        anti_hit = head_anti @ matched.T
+        feasible = feasible & (port_overlap == 0) & (req_missing == 0) & (anti_hit == 0)
+    score = K._score_nodes(head_req, b["used"], b["alloc"], b["cscore"][head_cls],
+                           w_least, w_balanced)
+    if ps is not None:
+        score = K._fma(ps.w_podaff, (head_aff - head_anti) @ b["selcnt"].T, score)
+    masked = torch.where(feasible, K._fma(K._jitter_bits(sel, NB, b["n0"]), K._JSCALE, score),
+                         K.NEG_INF)
+    any_b = feasible.any(dim=1)
+    kb = min(Kk, NB)
+    top = torch.sort(masked, dim=1, descending=True, stable=True).indices[:, :kb]
+    flags = (torch.gather(feasible, 1, top).int() | (torch.gather(fit_i, 1, top).int() << 1)
+             | (any_b.int() << 2)[:, None])
+    rec = torch.zeros((M, Kk, W), dtype=torch.int32, device=dev)
+    rec[:, :, 0] = _i32(torch.full((M, Kk), K.NEG_INF, device=dev))
+    rec[:, :, 1] = 0x7FFFFFFF
+    rec[:, :, 2] = (any_b.int() << 2)[:, None]
+    rec[:, :kb, 0] = _i32(torch.gather(masked, 1, top))
+    rec[:, :kb, 1] = (top + b["n0"]).int()
+    rec[:, :kb, 2] = flags
+    rec[:, :kb, 3] = b["tc"][top]
+    rec[:, :kb, 4] = b["cap"][top]
+    rec[:, :kb, 5:5 + R] = _i32(b["idle"][top])
+    rec[:, :kb, 5 + R:5 + 2 * R] = _i32(b["rel"][top])
+    return rec
+
+
+# --------------------------------------------------------------------------
+# the cycle
+# --------------------------------------------------------------------------
+
+_CYCLE_SOLVE = ("task_req", "task_job", "task_class", "task_valid", "job_queue", "job_min",
+                "job_prio", "job_ready_init", "job_alloc_init", "job_schedulable",
+                "job_start", "job_ntasks", "queue_alloc_init", "total", "eps")
+
+
+def _cycle(mesh, dargs, w_least, w_balanced, job_key_order, use_gang_ready, use_proportion,
+           m_chunk, p_chunk):
+    """One decision cycle: the water fill (K1, replicated), then the
+    batched allocate solve over the node blocks."""
+    deserved = K.water_fill(dargs["queue_weight"], dargs["queue_request"], dargs["total"],
+                            dargs["eps"], dargs["queue_participates"])
+    repl = {k: dargs[k] for k in _CYCLE_SOLVE}
+    repl["queue_deserved"] = deserved
+    planes = {k: dargs[k] for k in K.NODE_PLANES}
+    return sharded_solve(mesh, planes, repl, w_least, w_balanced, job_key_order,
+                         use_gang_ready, use_proportion, m_chunk, p_chunk)
+
+
+def run_cycle_reference(args, w_least=1.0, w_balanced=1.0,
+                        job_key_order=("priority", "gang", "drf"), use_gang_ready=True,
+                        use_proportion=True, m_chunk=512, p_chunk=16, device="cpu"):
+    """The unsharded cycle on ``device`` (the parity oracle): K1, then
+    ``kernels.allocate_solve_batch`` on whole planes."""
+    dev = torch.device(device)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in args.items()}
+    deserved = K.water_fill(t["queue_weight"], t["queue_request"], t["total"], t["eps"],
+                            t["queue_participates"])
+    solve_in = [deserved if k == "queue_deserved" else t[k] for k in K._SOLVE_ARGS]
+    return K.allocate_solve_batch(*solve_in, w_least, w_balanced, job_key_order=job_key_order,
+                                  use_gang_ready=use_gang_ready, use_proportion=use_proportion,
+                                  m_chunk=m_chunk, p_chunk=p_chunk)
+
+
+def make_sharded_cycle(mesh, args: Dict[str, object], w_least: float = 1.0,
+                       w_balanced: float = 1.0, job_key_order=("priority", "gang", "drf"),
+                       use_gang_ready: bool = True, use_proportion: bool = True,
+                       m_chunk: int = 512, p_chunk: int = 16):
+    """(fn, device_args): ``device_args`` places the host args on the mesh
+    (node planes split into this process's blocks, the rest whole) and
+    ``fn(device_args)`` runs one cycle; its node-plane outputs hold this
+    process's rows (``fetch_outputs`` gathers them)."""
+    n_rows = np.shape(args["idle"])[0]
+    if n_rows % mesh.size:
+        raise ValueError(f"node bucket {n_rows} not divisible by mesh size {mesh.size}")
+    device_args = shard_args(mesh, args)
+
+    def fn(dargs):
+        return _cycle(mesh, dargs, w_least, w_balanced, job_key_order, use_gang_ready,
+                      use_proportion, m_chunk, p_chunk)
+
+    return fn, device_args
+
+
+def fetch_outputs(out, mesh=None) -> List[np.ndarray]:
+    """A cycle's outputs on the host, in ``OUTPUT_NAMES`` order, with the
+    node planes gathered over the mesh's ranks."""
+    res = []
+    for name, x in zip(OUTPUT_NAMES, out):
+        if mesh is not None and name in _NODE_OUTPUTS:
+            x = mesh.gather_rows(x)
+        if x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+        res.append(x.cpu().numpy())
+    return res

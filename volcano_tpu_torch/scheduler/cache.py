@@ -3,7 +3,8 @@ evict and status side effects and the volume binder.
 
 The port's cut of ``volcano_tpu/scheduler/cache.py``: ``snapshot()``
 builds the object path's ``ClusterInfo`` (shadow gangs for plain pods
-included, no PodDisruptionBudgets); binds and evictions apply
+included, their minimum set by a PodDisruptionBudget where one names their
+controller); binds and evictions apply
 synchronously, per task (``bind``, ``evict``) or through the store's bulk
 verb (``bind_bulk``, ``evict_bulk``, the fast cycle's), with the same
 ``bind_log`` / ``evict_log`` / ``err_log`` bookkeeping.  An eviction marks
@@ -336,6 +337,23 @@ class SchedulerCache:
                 continue
             ji.priority = priority_classes.get(pg.priority_class_name, default_priority)
             cluster.jobs[ji.uid] = ji
+
+        # budgets before pods: a budget creates (or configures) the shadow
+        # gang of its controller's pods (setPDB): MinAvailable from the
+        # budget, name from the PDB, default queue
+        for pdb in self.store.items("PodDisruptionBudget"):
+            if pdb.meta.owner is None:
+                continue  # a budget without a controller configures nothing
+            uid = f"shadow/{pdb.meta.namespace}/{pdb.meta.owner[1]}"
+            if uid not in cluster.jobs:
+                shadow = JobInfo(uid, None)
+                shadow.namespace = pdb.meta.namespace
+                shadow.queue = self.default_queue
+                shadow.creation_order = order
+                order += 1
+                cluster.jobs[uid] = shadow
+            cluster.jobs[uid].name = pdb.meta.name
+            cluster.jobs[uid].min_available = pdb.min_available
 
         for pod in self.store.items("Pod"):
             if pod.spec.scheduler_name != self.scheduler_name:

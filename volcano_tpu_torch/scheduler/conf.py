@@ -1,9 +1,12 @@
 """Scheduler configuration: actions + tiered plugin options.
 
-The port's copy of ``volcano_tpu/scheduler/conf.py`` without the mesh,
-delta and checkpoint keys.  ``backend`` selects where the solves run:
-``"cuda"`` (the default: the hand-written kernels on the card; raises when
-no card is present) or ``"cpu"`` (their plain PyTorch versions).
+The port's copy of ``volcano_tpu/scheduler/conf.py`` without the delta
+and checkpoint keys.  ``backend`` selects where the solves run: ``"cuda"``
+(the default: the hand-written kernels on the card; raises when no card is
+present) or ``"cpu"`` (their plain PyTorch versions).  ``mesh`` splits the
+batched solve's node planes into blocks (``parallel/sharded.py``
+``resolve_mesh``): ``"off"``, ``"auto"`` (the process group's world size)
+or a power-of-two block count.
 """
 
 from __future__ import annotations
@@ -44,6 +47,14 @@ class SchedulerConf:
     # "auto": the array-native fast cycle whenever it can express the
     # cycle, the object path otherwise; "off": the object path every cycle
     fast_path: str = "auto"
+    # node blocks of the batched solve: "off", "auto" or a power of two.
+    # Under an initialised process group the blocks spread over its ranks;
+    # otherwise they all sit on this process's device.  Only the batched
+    # solve shards (the exact solve stays on one block)
+    mesh: str = "off"
+    # the multi-controller launch's host count (parallel/multihost.py in
+    # the JAX package); only 1 runs in the port
+    mesh_hosts: int = 1
 
 
 def default_conf(backend: str = "cuda") -> SchedulerConf:

@@ -11,6 +11,9 @@ returns False, this one does too (after shipping the enqueue admissions it
 already made), and the scheduler runs the whole cycle on the object path.
 Where the JAX cycle hands jobs to its object sub-cycle, this cycle raises
 ``NotImplementedError`` naming the ROADMAP item that will cover the case.
+Under a conf mesh the batched solves (the express one and the dynamic
+one) run on node blocks; a contention pass under a mesh with
+``solve_mode="batch"`` raises, as the JAX cycle would shard it there.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from volcano_tpu_torch.scheduler.tensor_backend import TensorBackend
 OVERCOMMIT_FACTOR = 1.2
 
 _SUBCYCLE = "ROADMAP queue 1 item 8b (object sub-cycle)"
+_MESH_CONTENTION = "ROADMAP queue 1 item 10c (contention solves on node blocks)"
 
 
 class FastCycle:
@@ -48,7 +52,8 @@ class FastCycle:
         self.cache = scheduler.cache
         self.store = scheduler.cache.store
         self.conf = scheduler.conf
-        self.probe = TensorBackend(self.conf.tiers, scheduler.device, scheduler.uploads)
+        self.probe = TensorBackend(self.conf.tiers, scheduler.device, scheduler.uploads,
+                                   mesh=getattr(scheduler, "mesh", None))
         self.gang_on = self.probe.gang_job_ready
         self.nodeaffinity_weight = self.probe.nodeaffinity_weight()
         self.mirror = None
@@ -145,7 +150,7 @@ class FastCycle:
         t = time.perf_counter()
         backend = TensorBackend(
             self.conf.tiers, self.sched.device, self.sched.uploads,
-            solve_mode=self.conf.solve_mode)
+            solve_mode=self.conf.solve_mode, mesh=self.sched.mesh)
         backend.snapshot = snap
         if aux["n_tasks"]:
             task_node, task_kind, task_seq, ready = torch_allocate_solve(backend, snap)
@@ -255,6 +260,12 @@ class FastCycle:
         """The victim pool and the contention driver, built only on cycles
         whose prechecks found possible work; ``deserved`` comes from the host
         water-fill, as in the reference cycle."""
+        if self.sched.mesh is not None and self.conf.solve_mode == "batch":
+            # the JAX cycle shards the contention solves' node planes only
+            # under solveMode: batch (fast_victims.py:144)
+            raise NotImplementedError(
+                f"a contention pass under mesh {self.conf.mesh} with solve_mode 'batch' "
+                f"(K10 on node blocks): {_MESH_CONTENTION}")
         build_victim_pool(self.mirror, snap, aux)
         deserved = water_fill_np(snap.queue_weight, snap.queue_request, snap.total,
                                  snap.eps, snap.queue_participates)

@@ -12,8 +12,10 @@ as releasing by the snapshot), and the pods that mount volumes
 (``p_has_vol``, with their objects in ``vol_pod_objs``): their verdicts are
 resolved once a cycle from the store's PV/PVC/StorageClass state by
 ``build_fast_snapshot`` (``volsolve.py``), so the volume kinds are watched
-but carry no mirror state.  Left out (later slices): checkpoints, the
-digest audit and disruption budgets.
+but carry no mirror state.  PodDisruptionBudgets configure the shadow gang
+of their controller's plain pods (``j_pdb``: MinMember from the budget; a
+budget-backed row outlives its member pods).  Left out (later slices):
+checkpoints and the digest audit.
 """
 
 from __future__ import annotations
@@ -98,7 +100,7 @@ _POD_COLS = (
 )
 _JOB_COLS = (
     "j_min", "j_queue", "j_prio", "j_phase", "j_rv", "j_min_req", "j_live",
-    "j_shadow", "j_members",
+    "j_shadow", "j_pdb", "j_members",
 )
 
 
@@ -115,7 +117,7 @@ class ArrayMirror:
         self._watches = [
             (kind, store.watch(kind))
             for kind in ("Pod", "Node", "PodGroup", "Queue", "PriorityClass",
-                         "PV", "PVC", "StorageClass")
+                         "PodDisruptionBudget", "PV", "PVC", "StorageClass")
         ]
         self._synced = False
         self._resyncing = False
@@ -177,8 +179,13 @@ class ArrayMirror:
         self.j_min_req = np.zeros((0, R), np.float32)
         self.j_live = np.zeros((0,), bool)
         # shadow gangs for group-less pods (cache/util.go:36-60): MinMember
-        # 1, default queue, priority 0, always schedulable, no status writes
+        # 1 unless a PodDisruptionBudget configures it, default queue,
+        # priority 0, always schedulable, no status writes.  j_pdb marks
+        # budget-backed gangs, which outlive their member pods; j_members
+        # refcounts live member pods so that a member-less, budget-less row
+        # is released
         self.j_shadow = np.zeros((0,), bool)
+        self.j_pdb = np.zeros((0,), bool)
         self.j_members = np.zeros((0,), np.int32)
         self._shadow_seq = 0
         self.unlinked_pods: Set[str] = set()
@@ -231,6 +238,10 @@ class ArrayMirror:
             self._on_node(node)
         for pg in self.store.items("PodGroup"):
             self._on_podgroup(pg)
+        # budgets before pods, like the object snapshot: a budget creates or
+        # configures the shadow gang its controller's plain pods join
+        for pdb in self.store.items("PodDisruptionBudget"):
+            self._on_pdb(pdb)
         for pod in self.store.items("Pod"):
             self._on_pod(pod)
         self._synced = True
@@ -255,6 +266,8 @@ class ArrayMirror:
                 elif kind in ("Queue", "PriorityClass"):
                     # queue / priority-class changes re-wire job and pod rows
                     resync = True
+                elif kind == "PodDisruptionBudget":
+                    self._del_pdb(ev.obj) if deleted else self._on_pdb(ev.obj)
                 # volume objects carry no mirror state: the snapshot reads
                 # them from the store once a cycle
         if resync:
@@ -392,6 +405,7 @@ class ArrayMirror:
             self._shadow_seq += 1
             self.j_min_req[row] = 0.0
             self.j_shadow[row] = True
+            self.j_pdb[row] = False
             self.j_members[row] = 0
             self.j_live[row] = True
         return row
@@ -400,11 +414,35 @@ class ArrayMirror:
         if jrow < 0 or not self.j_shadow[jrow]:
             return
         self.j_members[jrow] += delta
-        if self.j_members[jrow] <= 0:
+        if self.j_members[jrow] <= 0 and not self.j_pdb[jrow]:
             key = self.jobs.row_key[jrow]
             if key is not None:
                 self.jobs.release(key)
             self.j_live[jrow] = False
+
+    @staticmethod
+    def _pdb_key(pdb) -> str:
+        return f"shadow/{pdb.meta.namespace}/{pdb.meta.owner[1]}"
+
+    def _on_pdb(self, pdb) -> None:
+        """setPDB: the budget's controller owner names the shadow gang, its
+        MinAvailable the gang's minimum."""
+        if pdb.meta.owner is None:
+            return  # a budget without a controller configures nothing
+        row = self._ensure_shadow_row(self._pdb_key(pdb))
+        self.j_min[row] = pdb.min_available
+        self.j_pdb[row] = True
+
+    def _del_pdb(self, pdb) -> None:
+        """A deleted budget reverts its gang to the plain-pod MinMember of
+        1, and a member-less row loses its reason to exist."""
+        if pdb.meta.owner is None:
+            return
+        row = self.jobs.key_row.get(self._pdb_key(pdb))
+        if row is not None and self.j_shadow[row]:
+            self.j_min[row] = 1
+            self.j_pdb[row] = False
+            self._shadow_ref(row, 0)
 
     def _set_wait(self, pod_key: str, group_key: str) -> None:
         self._clear_wait(pod_key)

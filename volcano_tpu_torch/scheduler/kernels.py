@@ -11,6 +11,10 @@ same arguments and returns the same tuple as its JAX namesake:
   ``volcano_tpu_torch/csrc`` (built at first use by ``_build``) or raises.
   There is no fallback from one to the other.
 
+The batched solve's kernels run on node blocks (``batch_launch``): the
+whole node axis as one block here, S blocks under a mesh
+(``parallel/sharded.py``), one code path.
+
 Float rules shared by both versions (the reference is JAX on the CPU,
 whose compiler contracts ``a * b + c`` into one fused multiply-add):
 
@@ -162,11 +166,12 @@ def _score_nodes(req, used, cap, class_score_row, w_least, w_balanced):
     return _fma(_f32(w_least), least, balanced * _f32(w_balanced)) + class_score_row
 
 
-def _jitter_bits(jobs, N):
-    """[M, N] float32 of the per-(job, node) u32 hash's low 16 bits."""
+def _jitter_bits(jobs, N, n0=0):
+    """[M, N] float32 of the per-(job, node) u32 hash's low 16 bits, for the
+    node rows n0 .. n0 + N - 1."""
     mask = 0xFFFFFFFF
     jh = (jobs.long() * 2654435761) & mask
-    nh = (torch.arange(N, device=jobs.device, dtype=torch.int64) * 40503) & mask
+    nh = ((torch.arange(N, device=jobs.device, dtype=torch.int64) + n0) * 40503) & mask
     h = ((jh[:, None] ^ nh[None, :]) * 2246822519) & mask
     h = h ^ (h >> 15)
     return (h & 0xFFFF).float()
@@ -819,8 +824,10 @@ class SolveArgs(ctypes.Structure):
         "node_ports", "node_selcnt", "task_ports", "task_aff", "task_anti",
         "task_self", "node_match",
         "task_volmask", "task_claims", "claim_group", "group_global",
-        "claim_node", "vol_cap",
+        "claim_node", "vol_cap", "queue_has",
+        "t_val", "t_idx", "t_any", "send", "recv", "p_rec", "p_key",
     )] + [(name, ctypes.c_int64) for name in (
+        "n0", "NB", "S", "TB", "TILE", "W",
         "N", "R", "T", "J", "Q", "C", "M", "P", "K", "F",
         "n_keys", "key0", "key1", "key2",
         "use_gang_ready", "use_proportion", "has_portsel",
@@ -863,14 +870,17 @@ def water_fill_launch(lib, stream, weight, request, total, eps, participates):
     _check("total", total, f32, (R,), dev)
     _check("eps", eps, f32, (R,), dev)
     _check("participates", participates, torch.bool, (Q,), dev)
-    if Q * R > 1024:
-        raise ValueError(f"water_fill kernel takes Q*R <= 1024, got {Q}*{R}")
+    if not 1 <= R <= _MAX_R:
+        raise ValueError(f"water_fill kernel takes 1 <= R <= {_MAX_R}, got {R}")
     deserved = torch.empty((Q, R), dtype=f32, device=dev)
+    # the kernel's working cells: capped grants, then met / exceeded flags
+    cap = torch.empty((Q, R), dtype=f32, device=dev)
+    flags = torch.empty((2 * Q,), dtype=torch.uint8, device=dev)
     rounds = torch.empty((1,), dtype=torch.int32, device=dev)
     err = lib.vtt_water_fill(
         weight.data_ptr(), request.data_ptr(), total.data_ptr(), eps.data_ptr(),
         participates.data_ptr(), Q, R, WATER_FILL_MAX_ROUNDS, deserved.data_ptr(),
-        rounds.data_ptr(), stream,
+        cap.data_ptr(), flags.data_ptr(), rounds.data_ptr(), stream,
     )
     _raise_on(err, "vtt_water_fill")
     # the kernel writes -1 when it stopped at the cap; reading it waits for
@@ -907,11 +917,11 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
                  portsel=None, volsel=None):
     """Validate the solve inputs ``a`` (name -> tensor), allocate outputs and
     scratch, and launch csrc/allocate_solve.cu (``batch=False``) or
-    csrc/allocate_batch.cu (``batch=True``), with the K5 extension when
-    ``portsel`` is given and the K6 extension (exact solve only) when
-    ``volsel`` is.  Returns a ``SolveOut`` (a ``VolSolveOut`` with volsel)
-    whose four decision fields are views of one int32 [3T + J] buffer (see
-    ``pack_outputs``)."""
+    csrc/allocate_batch.cu on one node block (``batch=True``, through
+    ``batch_launch``), with the K5 extension when ``portsel`` is given and
+    the K6 extension (exact solve only) when ``volsel`` is.  Returns a
+    ``SolveOut`` (a ``VolSolveOut`` with volsel) whose four decision fields
+    are views of one int32 [3T + J] buffer (see ``pack_outputs``)."""
     dev = a["idle"].device
     N, R = a["idle"].shape
     T = a["task_req"].shape[0]
@@ -938,17 +948,19 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
         raise ValueError(f"solve kernels take 2 <= R <= {_MAX_R}, got {R}")
     if len(job_key_order) > 3 or any(k not in _KEY_CODE for k in job_key_order):
         raise ValueError(f"unsupported job_key_order {job_key_order!r}")
-    M = min(m_chunk, J)
-    P = p_chunk
-    K = min(p_chunk, N)
-    F = M * P
     if batch:
-        if not 1 <= P <= 32:
-            raise ValueError(f"batch kernel takes p_chunk in [1, 32], got {P}")
-        if N * 4 > 160 * 1024 or F > 16384:
-            raise ValueError(f"batch kernel takes N <= 40960 and F <= 16384, got {N}, {F}")
-    elif Q > 64:
-        raise ValueError(f"exact kernel takes Q <= 64 queues, got {Q}")
+        if volsel is not None:
+            raise TypeError("the batch kernel takes no volsel: volumes force the exact solve")
+        block = {k: a[k] for k in NODE_PLANES}
+        repl = {k: v for k, v in a.items() if k not in NODE_PLANES}
+        task_words = None
+        if portsel is not None:
+            node_ports, task_ports, node_selcnt, aff, anti, self_, w_podaff = portsel
+            block.update(node_ports=node_ports, node_selcnt=node_selcnt)
+            task_words = (task_ports, aff, anti, self_, w_podaff)
+        return batch_launch(lib, stream, repl, [(0, block)], 1, lambda send: send,
+                            w_least, w_balanced, job_key_order, use_gang_ready,
+                            use_proportion, m_chunk, p_chunk, task_words)
 
     def empty(shape, dt):
         return torch.empty(shape, dtype=dt, device=dev)
@@ -968,14 +980,8 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
         "queue_dropped": torch.zeros(Q, dtype=b8, device=dev),
         "ctl": torch.zeros(16, dtype=i32, device=dev),
     }
-    if batch:
-        st.update({
-            "job_keys": empty((J, 4), f32), "job_active": empty((J,), b8),
-            "job_rank": empty((J,), i32), "sel": empty((M,), i32),
-            "p_node": empty((F,), i32), "p_t": empty((F,), i32),
-            "p_job": empty((F,), i32), "p_flags": empty((F,), torch.uint8),
-            "best_pipe": empty((N + 1,), i32),
-        })
+    # the select step's per-queue flags (any queue count)
+    st["queue_has"] = empty((Q,), torch.uint8)
     w_podaff = 0.0
     if portsel is not None:
         node_ports, task_ports, node_selcnt, aff, anti, self_, w_podaff = portsel
@@ -1029,7 +1035,6 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
     args.packed = packed.data_ptr()
     codes = [_KEY_CODE[k] for k in job_key_order] + [0, 0, 0]
     args.N, args.R, args.T, args.J, args.Q, args.C = N, R, T, J, Q, C
-    args.M, args.P, args.K, args.F = M, P, K, F
     args.n_keys = len(job_key_order)
     args.key0, args.key1, args.key2 = codes[:3]
     args.use_gang_ready = int(bool(use_gang_ready))
@@ -1040,14 +1045,185 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
     args.w_least = float(w_least)
     args.w_balanced = float(w_balanced)
     args.w_podaff = float(w_podaff)
-    fn = lib.vtt_allocate_solve_batch if batch else lib.vtt_allocate_solve
-    _raise_on(fn(ctypes.byref(args), stream), fn.__name__)
+    _raise_on(lib.vtt_allocate_solve(ctypes.byref(args), stream), "vtt_allocate_solve")
     out = (packed[:T], packed[T:2 * T], packed[2 * T:3 * T], packed[3 * T:],
            st["job_alloc"], st["queue_alloc"], st["idle"], st["releasing"],
            st["used"], st["dropped"], st["ctl"][0])
     if volsel is not None:
         return VolSolveOut(*out, st["claim_node"], st["vol_cap"])
     return SolveOut(*out)
+
+
+#: node-shaped solve inputs: a node block holds these for its own rows (the
+#: class planes as [C, NB]); every other input is replicated
+NODE_PLANES = ("idle", "releasing", "used", "node_alloc", "node_max_tasks",
+               "task_count", "node_valid", "class_mask", "class_score")
+#: node rows a CTA of the batch solve scores in shared memory (32 KB of
+#: floats); a block's score pass runs over ceil(NB / BATCH_TILE) tiles
+BATCH_TILE = 8192
+#: proposals a round of the batch solve sorts in one CTA's shared memory
+#: (128 KB of keys): m_chunk * p_chunk may not exceed it
+MAX_PROPOSALS = 16384
+
+
+def record_words(R: int) -> int:
+    """int32 words of one candidate record of the batch solve: value bits,
+    global node row, flags (feasible 1, idle fit 2, the block holds a
+    feasible node 4), task count, pod cap, idle [R], releasing [R]."""
+    return 5 + 2 * R
+
+
+def batch_launch(lib, stream, a, blocks, n_blocks, exchange, w_least, w_balanced,
+                 job_key_order, use_gang_ready, use_proportion, m_chunk=512, p_chunk=16,
+                 task_words=None):
+    """K3 (csrc/allocate_batch.cu) on node blocks; with ``n_blocks`` > 1 it
+    is K12a's sharded solve.
+
+    ``a``: the replicated inputs (the solve inputs but the node planes, and
+    ``queue_deserved``).  ``blocks``: this process's node blocks in row
+    order, each ``(n0, planes)`` with ``planes`` the ``NODE_PLANES`` of rows
+    ``[n0, n0 + NB)`` (and, with K5, its ``node_ports`` / ``node_selcnt``);
+    ``task_words``: K5's task words and weight ``(task_ports, task_aff,
+    task_anti, task_self, w_podaff)`` or None.  ``n_blocks``: blocks over
+    every process, S = N / NB.  ``exchange(send)`` takes this process's
+    records ``[L, M*K*W]`` int32 and returns every block's ``[S, M*K*W]``
+    in block order (``send`` itself when every block is local).
+
+    The host runs the round loop: two launches of the library a round
+    around the exchange, and one 4-byte read of the go flag.  Returns a
+    ``SolveOut`` whose four decision fields are views of one int32
+    [3T + J] buffer and whose node planes are this process's rows."""
+    dev = a["task_req"].device
+    L = len(blocks)
+    NB = blocks[0][1]["idle"].shape[0]
+    N = NB * n_blocks
+    R = a["task_req"].shape[1]
+    T = a["task_req"].shape[0]
+    J = a["job_queue"].shape[0]
+    Q = a["queue_alloc_init"].shape[0]
+    C = blocks[0][1]["class_mask"].shape[0]
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    rspec = {
+        "task_req": (f32, (T, R)), "task_job": (i32, (T,)), "task_class": (i32, (T,)),
+        "task_valid": (b8, (T,)), "job_queue": (i32, (J,)), "job_min": (i32, (J,)),
+        "job_prio": (i32, (J,)), "job_ready_init": (i32, (J,)),
+        "job_alloc_init": (f32, (J, R)), "job_schedulable": (b8, (J,)),
+        "job_start": (i32, (J,)), "job_ntasks": (i32, (J,)),
+        "queue_alloc_init": (f32, (Q, R)), "queue_deserved": (f32, (Q, R)),
+        "total": (f32, (R,)), "eps": (f32, (R,)),
+    }
+    for name, (dt, shape) in rspec.items():
+        _check(name, a[name], dt, shape, dev)
+    bspec = {
+        "idle": (f32, (NB, R)), "releasing": (f32, (NB, R)), "used": (f32, (NB, R)),
+        "node_alloc": (f32, (NB, R)), "node_max_tasks": (i32, (NB,)),
+        "task_count": (i32, (NB,)), "node_valid": (b8, (NB,)),
+        "class_mask": (b8, (C, NB)), "class_score": (f32, (C, NB)),
+    }
+    if task_words is not None:
+        bspec.update(node_ports=(i32, (NB, PORT_WORDS)), node_selcnt=(i32, (NB, 32 * SEL_WORDS)))
+        for name, t in zip(("task_ports", "task_aff", "task_anti", "task_self"), task_words):
+            _check(name, t, i32, (T, PORT_WORDS if name == "task_ports" else SEL_WORDS), dev)
+    for i, (n0, planes) in enumerate(blocks):
+        if n0 % NB or not 0 <= n0 < N:
+            raise ValueError(f"block {i}: first row {n0} is not a block boundary of {N} rows")
+        for name, (dt, shape) in bspec.items():
+            _check(f"block {i} {name}", planes[name], dt, shape, dev)
+    if not 2 <= R <= _MAX_R:
+        raise ValueError(f"solve kernels take 2 <= R <= {_MAX_R}, got {R}")
+    if len(job_key_order) > 3 or any(k not in _KEY_CODE for k in job_key_order):
+        raise ValueError(f"unsupported job_key_order {job_key_order!r}")
+    M, P, K = min(m_chunk, J), p_chunk, min(p_chunk, N)
+    F = M * P
+    if not 1 <= P <= 32 or F > MAX_PROPOSALS:
+        raise ValueError(f"batch kernel takes p_chunk in [1, 32] and m_chunk * p_chunk <= "
+                         f"{MAX_PROPOSALS} (the accept sort's shared memory), got {P}, {F}")
+    TB = -(-NB // BATCH_TILE)
+    W = record_words(R)
+
+    def empty(shape, dt):
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    packed = empty((3 * T + J,), i32)
+    packed[:T] = -1
+    packed[T:2 * T] = 0
+    packed[2 * T:3 * T] = -1
+    packed[3 * T:] = a["job_ready_init"]
+    send = empty((L, M * K * W), i32)
+    st = {
+        "job_alloc": a["job_alloc_init"].clone(),
+        "cursor": torch.zeros(J, dtype=i32, device=dev),
+        "dropped": torch.zeros(J, dtype=b8, device=dev),
+        "queue_alloc": a["queue_alloc_init"].clone(),
+        "ctl": torch.zeros(16, dtype=i32, device=dev),
+        "job_keys": empty((J, 4), f32), "job_active": empty((J,), b8),
+        "job_rank": empty((J,), i32), "sel": empty((M,), i32),
+        "p_node": empty((F,), i32), "p_t": empty((F,), i32),
+        "p_job": empty((F,), i32), "p_flags": empty((F,), torch.uint8),
+        "best_pipe": empty((N + 1,), i32), "p_rec": empty((F,), i32),
+        "p_key": empty((F,), torch.int64),
+        "t_val": empty((M * TB * K,), f32), "t_idx": empty((M * TB * K,), i32),
+        "t_any": empty((M * TB,), torch.uint8),
+        "packed": packed, "send": send, "recv": send,
+    }
+    # queue_alloc_init has no field: the kernels start from its copy
+    base_fields = {k: a[k] for k in rspec if k != "queue_alloc_init"}
+    base_fields.update(st)
+    if task_words is not None:
+        base_fields.update(zip(("task_ports", "task_aff", "task_anti", "task_self"),
+                               task_words[:4]))
+    codes = [_KEY_CODE[k] for k in job_key_order] + [0, 0, 0]
+    sizes = dict(
+        N=N, R=R, T=T, J=J, Q=Q, C=C, M=M, P=P, K=K, F=F, S=n_blocks, NB=NB, TB=TB,
+        TILE=BATCH_TILE, W=W, n_keys=len(job_key_order), key0=codes[0], key1=codes[1],
+        key2=codes[2], use_gang_ready=int(bool(use_gang_ready)),
+        use_proportion=int(bool(use_proportion)), has_portsel=int(task_words is not None),
+    )
+    base = SolveArgs()
+    for name, t in base_fields.items():
+        setattr(base, name, t.data_ptr())
+    for name, v in sizes.items():
+        setattr(base, name, v)
+    base.w_least, base.w_balanced = float(w_least), float(w_balanced)
+    base.w_podaff = float(task_words[4]) if task_words is not None else 0.0
+    work = []
+    blk_arr = (SolveArgs * L)()
+    for i, (n0, planes) in enumerate(blocks):
+        # the kernels update the node state in place: working copies
+        w = {k: planes[k].clone() for k in ("idle", "releasing", "used", "task_count")}
+        if task_words is not None:
+            w.update(node_ports=planes["node_ports"].clone(),
+                     node_selcnt=planes["node_selcnt"].clone(),
+                     node_match=empty((NB, SEL_WORDS), i32))
+        work.append(w)
+        blk = SolveArgs.from_buffer_copy(base)
+        for k in ("node_alloc", "node_max_tasks", "node_valid", "class_mask", "class_score"):
+            setattr(blk, k, planes[k].data_ptr())
+        for k, t in w.items():
+            setattr(blk, k, t.data_ptr())
+        blk.n0 = n0
+        blk.send = send[i].data_ptr()
+        blk_arr[i] = blk
+    _raise_on(lib.vtt_batch_begin(ctypes.byref(base), blk_arr, L, stream), "vtt_batch_begin")
+    ctl = st["ctl"]
+    while int(ctl[1]) > 0:
+        _raise_on(lib.vtt_batch_candidates(ctypes.byref(base), blk_arr, L, stream),
+                  "vtt_batch_candidates")
+        recv = exchange(send)
+        if tuple(recv.shape) != (n_blocks, M * K * W) or recv.dtype != i32:
+            raise ValueError(f"exchange returned {tuple(recv.shape)} {recv.dtype}, expected "
+                             f"({n_blocks}, {M * K * W}) int32")
+        st["recv"] = recv  # kept alive until the launches that read it ran
+        base.recv = recv.data_ptr()
+        _raise_on(lib.vtt_batch_decide(ctypes.byref(base), blk_arr, L, stream),
+                  "vtt_batch_decide")
+
+    def rows(name):
+        return work[0][name] if L == 1 else torch.cat([w[name] for w in work])
+
+    return SolveOut(packed[:T], packed[T:2 * T], packed[2 * T:3 * T], packed[3 * T:],
+                    st["job_alloc"], st["queue_alloc"], rows("idle"), rows("releasing"),
+                    rows("used"), st["dropped"], ctl[0])
 
 
 _POLICY_ARGS = ("job_key_order", "use_gang_ready", "use_proportion")

@@ -7,9 +7,11 @@ back to the object path (``run_object_actions``: open a session with a
 wherever the fast cycle declines, or on every cycle with ``fast_path:
 off``.  ``backend="cuda"`` (the default) runs the hand-written kernels on
 the card and raises RuntimeError when no card is present;
-``backend="cpu"`` runs their plain PyTorch versions.  The fast cycle's
-object sub-cycle (dynamic-predicate residue jobs) is not ported yet: those
-cycles raise NotImplementedError naming the ROADMAP item.
+``backend="cpu"`` runs their plain PyTorch versions.  A conf ``mesh``
+resolves to the node blocks every batched solve shards over
+(``parallel/sharded.py``).  The fast cycle's object sub-cycle
+(dynamic-predicate residue jobs) is not ported yet: those cycles raise
+NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,6 +53,16 @@ class Scheduler:
             raise ValueError(f"fast_path must be one of {FAST_PATHS}, "
                              f"got {self.conf.fast_path!r}")
         self.device = resolve_device(self.conf.backend)
+        if self.conf.mesh_hosts > 1:
+            raise NotImplementedError(
+                f"mesh_hosts {self.conf.mesh_hosts}: the multi-controller cycle (K13) is "
+                "ROADMAP queue 1 item 10")
+        #: the node blocks every batched solve shards over, or None
+        self.mesh = None
+        if self.conf.mesh != "off":
+            from volcano_tpu_torch.parallel.sharded import resolve_mesh
+
+            self.mesh = resolve_mesh(self.conf.mesh, self.device)
         self.cache = SchedulerCache(store, scheduler_name=scheduler_name,
                                     default_queue=default_queue)
         self.uploads = DeviceUploads(self.device)
@@ -86,7 +98,7 @@ class Scheduler:
         ssn = open_session(self.cache, self.conf.tiers)
         ssn.tensor_backend = TensorBackend(
             self.conf.tiers, self.device, self.uploads,
-            solve_mode=self.conf.solve_mode, ssn=ssn)
+            solve_mode=self.conf.solve_mode, ssn=ssn, mesh=self.mesh)
         return ssn
 
     def run_object_actions(self, names) -> None:

@@ -6,8 +6,10 @@ The port's copy of ``volcano_tpu/scheduler/tensor_actions.py``:
   batched solve, upload the snapshot, and let the solve write its four
   decision outputs into one int32 [3T + J] array (the layout of the JAX
   ``_packed_solve`` wrapper), which is the only thing the host copies
-  back.  The dynamic solve (host ports, pod (anti)affinity, volumes) runs
-  the same kernels with the ``portsel`` extension over the dyn-expr jobs'
+  back.  Under a conf mesh the batched solve runs on node blocks
+  (``parallel/sharded.py``); the exact solve stays on one block.  The
+  dynamic solve (host ports, pod (anti)affinity, volumes) runs the same
+  kernels with the ``portsel`` extension over the dyn-expr jobs'
   tasks, and with the ``volsel`` extension when a task carries volume
   state, which forces the exact solve; the bitsets go up packed and are
   tested in place by the kernels;
@@ -45,30 +47,75 @@ def use_batch_solve(backend, n_pending: int) -> bool:
     )
 
 
+def _policy(backend):
+    return dict(job_key_order=backend.job_key_order, use_gang_ready=backend.gang_job_ready,
+                use_proportion=backend.proportion_queue_order)
+
+
+def _one_block_call(backend, use_batch, inputs, task_words=None, volsel=None):
+    """(solve, positional args, keyword args) of the exact or the batched
+    solve on one block, from named inputs (``_SOLVE_ARGS`` names, and with
+    K5 ``node_ports_w`` / ``node_selcnt``)."""
+    from volcano_tpu_torch.scheduler.kernels import _SOLVE_ARGS
+
+    kwargs = _policy(backend)
+    if task_words is not None:
+        tp, aff, anti, self_, w_podaff = task_words
+        kwargs["portsel"] = (inputs["node_ports_w"], tp, inputs["node_selcnt"], aff, anti,
+                             self_, w_podaff)
+    if volsel is not None:
+        kwargs["volsel"] = volsel
+    solve = allocate_solve_batch if use_batch else allocate_solve
+    return solve, [inputs[k] for k in _SOLVE_ARGS] + list(backend.score_weights()), kwargs
+
+
+def _solve(backend, use_batch, inputs, task_words=None, volsel=None):
+    """Run the exact or the batched solve on named inputs as placed by
+    ``backend.placement_fn``: on the mesh's node blocks when the batched
+    solve runs under a conf mesh, on one block otherwise."""
+    if use_batch and backend.mesh is not None:
+        from volcano_tpu_torch.parallel.sharded import _SPECS, sharded_solve
+        from volcano_tpu_torch.scheduler.kernels import _SOLVE_ARGS
+
+        planes = {k: v for k, v in inputs.items() if k in _SPECS}
+        repl = {k: inputs[k] for k in _SOLVE_ARGS if k not in _SPECS}
+        return sharded_solve(backend.mesh, planes, repl, *backend.score_weights(),
+                             portsel_task=task_words, **_policy(backend))
+    solve, args, kwargs = _one_block_call(backend, use_batch, inputs, task_words, volsel)
+    return solve(*args, **kwargs)
+
+
+def solve_inputs(backend, snap, use_batch):
+    """The express solve's named inputs on the device, the node planes
+    placed by ``backend.placement_fn(use_batch)``."""
+    dev = backend.to_device
+    devn = backend.placement_fn(use_batch)
+    return dict(
+        idle=devn(snap.node_idle, "idle"), releasing=devn(snap.node_releasing, "releasing"),
+        used=devn(snap.node_used, "used"), node_alloc=devn(snap.node_alloc, "node_alloc"),
+        node_max_tasks=devn(snap.node_max_tasks, "node_max_tasks"),
+        task_count=devn(snap.node_task_count, "task_count"),
+        node_valid=devn(snap.node_valid, "node_valid"),
+        task_req=dev(snap.task_req), task_job=dev(snap.task_job),
+        task_class=dev(snap.task_class), task_valid=dev(snap.task_valid),
+        job_queue=dev(snap.job_queue), job_min=dev(snap.job_min_available),
+        job_prio=dev(snap.job_priority), job_ready_init=dev(snap.job_ready_init),
+        job_alloc_init=dev(snap.job_alloc_init), job_schedulable=dev(snap.job_schedulable),
+        job_start=dev(snap.job_start), job_ntasks=dev(snap.job_ntasks),
+        queue_alloc_init=dev(snap.queue_alloc_init), queue_deserved=backend.deserved(),
+        class_mask=devn(snap.class_node_mask, "class_mask"),
+        class_score=devn(snap.class_node_score, "class_score"),
+        total=dev(snap.total), eps=dev(snap.eps),
+    )
+
+
 def torch_allocate_solve(backend, snap, n_pending=None):
     """Run the allocate solve for ``snap``; returns numpy (task_node,
     task_kind, task_seq, ready)."""
     if n_pending is None:
         n_pending = int(snap.task_valid.sum())
-    solve = allocate_solve_batch if use_batch_solve(backend, n_pending) else allocate_solve
-    w_least, w_balanced = backend.score_weights()
-    dev = backend.to_device
-    out = solve(
-        dev(snap.node_idle), dev(snap.node_releasing), dev(snap.node_used),
-        dev(snap.node_alloc), dev(snap.node_max_tasks), dev(snap.node_task_count),
-        dev(snap.node_valid),
-        dev(snap.task_req), dev(snap.task_job), dev(snap.task_class), dev(snap.task_valid),
-        dev(snap.job_queue), dev(snap.job_min_available), dev(snap.job_priority),
-        dev(snap.job_ready_init), dev(snap.job_alloc_init), dev(snap.job_schedulable),
-        dev(snap.job_start), dev(snap.job_ntasks),
-        dev(snap.queue_alloc_init), backend.deserved(),
-        dev(snap.class_node_mask), dev(snap.class_node_score),
-        dev(snap.total), dev(snap.eps),
-        w_least, w_balanced,
-        job_key_order=backend.job_key_order,
-        use_gang_ready=backend.gang_job_ready,
-        use_proportion=backend.proportion_queue_order,
-    )
+    use_batch = use_batch_solve(backend, n_pending)
+    out = _solve(backend, use_batch, solve_inputs(backend, snap, use_batch))
     return _fetch(out, snap.task_req.shape[0], snap.job_queue.shape[0])
 
 
@@ -84,59 +131,63 @@ def _fetch(out, T, J):
     )
 
 
-def dyn_solve_args(backend, snap, dyn, n_pending=None):
-    """(solve, positional args, keyword args) of the dynamic solve for the
-    dyn inputs ``dyn`` (``build_dyn_solve_inputs``), on the device: the
-    same exact-or-batch rule as the express solve, except that volume state
-    (``dyn["volsel"]``) is ordered and always takes the exact solve; the u32
-    words go up as int32 (bit-identical), the u16 selector counts as int32."""
+def dyn_solve_inputs(backend, snap, dyn, n_pending=None):
+    """(use_batch, named inputs, K5 task words, volsel) of the dynamic solve
+    for the dyn inputs ``dyn`` (``build_dyn_solve_inputs``), on the device:
+    the same exact-or-batch rule as the express solve, except that volume
+    state (``dyn["volsel"]``) is ordered and always takes the exact solve;
+    the u32 words go up as int32 (bit-identical), the u16 selector counts
+    as int32; under a conf mesh the batched solve's node planes (the
+    resident port and selector planes too) go up as node blocks."""
     if n_pending is None:
         n_pending = int(dyn["task_valid"].sum())
     has_vol = dyn.get("volsel") is not None
     use_batch = not has_vol and use_batch_solve(backend, n_pending)
-    solve = allocate_solve_batch if use_batch else allocate_solve
-    w_least, w_balanced = backend.score_weights()
     dev = backend.to_device
+    devn = backend.placement_fn(use_batch)
 
     def words(name):
         return dev(dyn[name].view(np.int32))
 
-    portsel = (
-        words("node_ports_w"), words("task_ports_w"),
-        dev(dyn["node_selcnt"].astype(np.int32)),
-        words("task_aff_w"), words("task_anti_w"), words("task_self_w"),
-        backend.podaffinity_weight(),
+    inputs = dict(
+        idle=devn(dyn["node_idle"], "idle"), releasing=devn(dyn["node_releasing"], "releasing"),
+        used=devn(dyn["node_used"], "used"), node_alloc=devn(snap.node_alloc, "node_alloc"),
+        node_max_tasks=devn(snap.node_max_tasks, "node_max_tasks"),
+        task_count=devn(dyn["node_task_count"], "task_count"),
+        node_valid=devn(snap.node_valid, "node_valid"),
+        task_req=dev(dyn["task_req"]), task_job=dev(dyn["task_job"]),
+        task_class=dev(dyn["task_class"]), task_valid=dev(dyn["task_valid"]),
+        job_queue=dev(snap.job_queue), job_min=dev(snap.job_min_available),
+        job_prio=dev(snap.job_priority), job_ready_init=dev(dyn["job_ready_init"]),
+        job_alloc_init=dev(dyn["job_alloc_init"]),
+        job_schedulable=dev(dyn["job_schedulable"]), job_start=dev(dyn["job_start"]),
+        job_ntasks=dev(dyn["job_ntasks"]),
+        queue_alloc_init=dev(dyn["queue_alloc_init"]), queue_deserved=backend.deserved(),
+        class_mask=devn(dyn["class_mask"], "class_mask"),
+        class_score=devn(dyn["class_score"], "class_score"),
+        total=dev(snap.total), eps=dev(snap.eps),
+        node_ports_w=devn(dyn["node_ports_w"].view(np.int32), "node_ports_w"),
+        node_selcnt=devn(dyn["node_selcnt"].astype(np.int32), "node_selcnt"),
     )
-    args = (
-        dev(dyn["node_idle"]), dev(dyn["node_releasing"]), dev(dyn["node_used"]),
-        dev(snap.node_alloc), dev(snap.node_max_tasks), dev(dyn["node_task_count"]),
-        dev(snap.node_valid),
-        dev(dyn["task_req"]), dev(dyn["task_job"]), dev(dyn["task_class"]),
-        dev(dyn["task_valid"]),
-        dev(snap.job_queue), dev(snap.job_min_available), dev(snap.job_priority),
-        dev(dyn["job_ready_init"]), dev(dyn["job_alloc_init"]),
-        dev(dyn["job_schedulable"]), dev(dyn["job_start"]), dev(dyn["job_ntasks"]),
-        dev(dyn["queue_alloc_init"]), backend.deserved(),
-        dev(dyn["class_mask"]), dev(dyn["class_score"]),
-        dev(snap.total), dev(snap.eps),
-        w_least, w_balanced,
-    )
-    kwargs = dict(
-        job_key_order=backend.job_key_order,
-        use_gang_ready=backend.gang_job_ready,
-        use_proportion=backend.proportion_queue_order,
-        portsel=portsel,
-    )
-    if has_vol:
-        kwargs["volsel"] = tuple(dev(x) for x in pack_volsel(dyn["volsel"]))
-    return solve, args, kwargs
+    task_words = (words("task_ports_w"), words("task_aff_w"), words("task_anti_w"),
+                  words("task_self_w"), backend.podaffinity_weight())
+    volsel = tuple(dev(x) for x in pack_volsel(dyn["volsel"])) if has_vol else None
+    return use_batch, inputs, task_words, volsel
+
+
+def dyn_solve_args(backend, snap, dyn, n_pending=None):
+    """(solve, positional args, keyword args) of the dynamic solve on one
+    block (``allocate_solve`` or ``allocate_solve_batch`` with portsel and,
+    for volume state, volsel)."""
+    return _one_block_call(backend, *dyn_solve_inputs(backend, snap, dyn, n_pending))
 
 
 def torch_dynamic_solve(backend, snap, dyn, n_pending=None):
     """Run the dynamic solve; returns numpy (task_node, task_kind,
     task_seq, ready) over the dyn task layout, in ONE packed fetch."""
-    solve, args, kwargs = dyn_solve_args(backend, snap, dyn, n_pending)
-    return _fetch(solve(*args, **kwargs), dyn["task_req"].shape[0], snap.job_queue.shape[0])
+    use_batch, inputs, task_words, volsel = dyn_solve_inputs(backend, snap, dyn, n_pending)
+    out = _solve(backend, use_batch, inputs, task_words, volsel)
+    return _fetch(out, dyn["task_req"].shape[0], snap.job_queue.shape[0])
 
 
 # --------------------------------------------------------------------------
@@ -184,6 +235,12 @@ class _VictimDriver:
         self._load()
 
     def _load(self):
+        if self.backend.mesh is not None and self.backend.solve_mode == "batch":
+            # the JAX package shards the victim solve's node planes only
+            # under solveMode: batch (tensor_backend.py victim_arrays)
+            raise NotImplementedError(
+                "the victim solve on node blocks (make_sharded_victim_step, K12b): "
+                "ROADMAP queue 1 item 10")
         self.snap = snap = self.backend.snapshot
         self.consts, self.state = self.backend.victim_arrays()
         self.task_req = self.backend.to_device(snap.task_req)

@@ -5,7 +5,9 @@ plugin-derived policy flags (tier-ordered job keys, gang readiness,
 proportion queue order, task order by priority), the victim veto sets of
 preempt and reclaim, the proportion deserved shares (the water-fill
 kernel, once per cycle), the node-order and interpod score weights, and
-host -> device uploads memoised by array identity.
+host -> device uploads memoised by array identity.  With a conf mesh
+(``parallel/sharded.py``), ``placement_fn`` places the node-axis planes of
+a batched solve as this process's blocks of rows.
 
 The fast cycle hands the backend its snapshot (``backend.snapshot =
 snap``).  The object path attaches a backend to its session
@@ -64,8 +66,11 @@ class DeviceUploads:
 class TensorBackend:
     def __init__(self, tiers, device: torch.device, uploads: DeviceUploads,
                  solve_mode: str = "auto", batch_threshold: int = BATCH_THRESHOLD,
-                 ssn=None):
+                 ssn=None, mesh=None):
         self.ssn = ssn
+        #: the conf mesh (parallel/sharded.py LocalMesh / GroupMesh) or None
+        self.mesh = mesh
+        self._mesh_memo: Dict[str, tuple] = {}
         self.bulk_threshold = BULK_THRESHOLD
         self.device = device
         self.to_device = uploads
@@ -112,6 +117,33 @@ class TensorBackend:
     @snapshot.setter
     def snapshot(self, snap: TensorSnapshot) -> None:
         self._snapshot = snap
+
+    def to_device_named(self, arr: np.ndarray, name: str):
+        """Host -> device with the conf mesh's placement: a node-axis plane
+        (``name`` as in parallel/sharded._SPECS) as the tuple of this
+        process's blocks of rows, anything else as ``to_device`` places it.
+        A plane whose node rows do not divide into the mesh's blocks raises
+        (no silent single-block run).  Placements memoise by field name and
+        host-array identity."""
+        from volcano_tpu_torch.parallel.sharded import _SPECS, split_rows
+
+        if self.mesh is None or name not in _SPECS:
+            return self.to_device(arr)
+        hit = self._mesh_memo.get(name)
+        if hit is not None and hit[0] is arr:
+            return hit[1]
+        blocks = split_rows(self.mesh, name, self.to_device(arr))
+        self._mesh_memo[name] = (arr, blocks)
+        return blocks
+
+    def placement_fn(self, batch_active: bool):
+        """The one sharding decision: blocks only when the batched solve
+        will consume the arrays (the exact solve's steps stay on one
+        block).  The callable has ``to_device_named``'s ``(arr, name)``
+        shape."""
+        if batch_active and self.mesh is not None:
+            return self.to_device_named
+        return lambda arr, name: self.to_device(arr)
 
     def invalidate(self) -> None:
         """Host state changed behind the snapshot: rebuild it on next use.

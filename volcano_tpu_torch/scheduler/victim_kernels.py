@@ -71,6 +71,9 @@ SHARE_DELTA = 1e-6
 #: one round's per-job proposal window in preempt_rounds; a gang whose
 #: remaining min-need exceeds it must take the exact loop
 ROUNDS_P_CHUNK = 32
+#: node rows a CTA of the rounds kernel scores in shared memory (32 KB of
+#: floats); the score pass runs over ceil(N / ROUNDS_TILE) tiles
+ROUNDS_TILE = 8192
 
 #: kernel launches since the last ``reset_launches()``; each CUDA wrapper
 #: adds one where it launches its kernel, and nowhere else
@@ -931,9 +934,10 @@ _PTR_FIELDS = (
     "job_off", "job_fill", "job_bucket", "cnt_in_job", "cap_flat", "cons_flat",
     "cons_node", "placed", "vict_job", "vict_cnt", "vict_q", "act_q", "ls_q",
     "job_active", "job_keys", "job_rank", "sel", "p_node", "p_t", "p_job", "p_flags",
+    "t_val", "t_idx", "t_any",
 )
 _INT_FIELDS = (
-    "V", "N", "R", "T", "J", "Q", "C", "nu", "nq", "M", "P", "K", "F", "jr_cap",
+    "V", "N", "R", "T", "J", "Q", "C", "nu", "nq", "M", "P", "K", "F", "jr_cap", "TB", "TILE",
     "use_gang", "use_drf", "use_prop", "use_conformance", "order_by_priority",
     "has_proportion", "gang_pipelined", "n_keys", "key0", "key1", "key2",
 )
@@ -1257,9 +1261,12 @@ def rounds_launch(lib, stream, c, s0, task_req, task_class, rows_packed, job_pst
         ("pipe0", pipe0, torch.int32, (J,)),
     ):
         _check(name, t, dt, shape, dev)
-    if not (1 <= P <= 32 and 1 <= K <= 32) or N * 4 > 200 * 1024 or F > 16384:
-        raise ValueError(f"rounds kernel takes p_chunk, k_chunk in [1, 32], N <= 51200 "
-                         f"and F <= 16384, got {P}, {K}, {N}, {F}")
+    if not (1 <= P <= 32 and 1 <= K <= 32) or F > 16384:
+        raise ValueError(f"rounds kernel takes p_chunk, k_chunk in [1, 32] and F = m_chunk "
+                         f"* p_chunk <= 16384 (the accept sort's shared memory), got {P}, "
+                         f"{K}, {F}")
+    # the score pass runs over node tiles: any N
+    TB = -(-N // ROUNDS_TILE)
     i32 = dict(dtype=torch.int32, device=dev)
     f32, f64 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.float64, device=dev)
     extra = dict(
@@ -1277,12 +1284,14 @@ def rounds_launch(lib, stream, c, s0, task_req, task_class, rows_packed, job_pst
         job_keys=torch.zeros(J * 4, **f32), job_rank=torch.empty(J, **i32),
         sel=torch.empty(M, **i32), p_node=torch.empty(F, **i32), p_t=torch.empty(F, **i32),
         p_job=torch.empty(F, **i32), p_flags=torch.empty(F, dtype=torch.uint8, device=dev),
+        t_val=torch.empty(M * TB * K, **f32), t_idx=torch.empty(M * TB * K, **i32),
+        t_any=torch.empty(M * TB, dtype=torch.uint8, device=dev),
     )
     flags = dict(use_gang=use_gang, use_drf=use_drf, use_prop=False,
                  use_conformance=use_conformance, order_by_priority=order_by_priority,
                  gang_pipelined=gang_pipelined, job_key_order=job_key_order)
     st, bufs = _victim_launch(lib, stream, "vtt_preempt_rounds", c, s0, task_req, task_class,
-                              extra, dict(M=M, P=P, K=K, F=F), flags)
+                              extra, dict(M=M, P=P, K=K, F=F, TB=TB, TILE=ROUNDS_TILE), flags)
     ctl = bufs["ctl"]
     return RoundsOut(st, bufs["pipe"], _storm_records(bufs), ctl[_VC_ATT_TOTAL],
                      ctl[_VC_LAST_V], ctl[_VC_ANY] != 0, bufs["cursor"], bufs["dropped"])
