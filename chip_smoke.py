@@ -91,16 +91,46 @@ Phases, each fatal on failure:
    the first batched solve's inputs captured;
 17. K12a — on cfg9's captured inputs: the one-block tiled K3 against its
    plain version and against the cycle's sharded decisions, the sharded
-   solve and its plain version on local meshes of 1, 2, 4 and 8 blocks
-   (each equal bit for bit to the one-block run), and a one-rank NCCL
+   solve on local meshes of 1, 2, 4 and 8 blocks and its plain version on
+   the cell's 4 (each equal bit for bit to the one-block run), and a one-rank NCCL
    process group (FileStore rendezvous) running four blocks
-   over all_gather_into_tensor.
+   over all_gather_into_tensor;
+18. e2e cfg6r-be-mesh — the cfg6r-be store under full_conf("cuda") with
+   mesh "4" and solve_mode "batch": every preemptor attempt is one K12b
+   (victim_step_sharded) launch on four node blocks.  Three cycles,
+   victims reaped, the cfg6 eviction invariants and the per-cycle pattern;
+   the per-cycle (evictions, pipelines, binds), the ordered evictions, the
+   pipelines and the binds equal the same store's run under mesh "off"
+   with solve_mode "batch" (K7), with as many K12b launches each cycle as
+   that run's K7 launches; K12b launches, device ms and the object cycle's
+   walls per cycle;
+19. K12b kernel — at bench config 4's shape on local meshes of 1, 2, 4 and
+   8 blocks (16 solves timed), each bit for bit equal to its plain version
+   on the same blocks and to the one-block K7, state included; a chain of
+   16 solves with the blocked state fed back; the three modes and the
+   flags on small seeded inputs on 2, 4 and 8 blocks; a one-rank NCCL group
+   running four blocks; the first inputs cfg6r-be-mesh gave it;
+20. K13 at cfg9 — run_lockstep at 1, 2 and 4 hosts over four node blocks on
+   phase 16's captured inputs, the merged outputs bit for bit equal to
+   phase 17's 4-block K12a run, each host's build / dispatch / owned fetch
+   walls and the solve_wait; four hosts' owned slices tiling every output;
+21. cfg5-2h and the process mode — config 5's store under mesh "4" (no
+   reclaim or preempt: mesh_hosts > 1 refuses them) on one host, then as
+   the coordinator and the worker of two hosts, each over its own store:
+   disjoint binds whose union is the one host's, the worker writing no
+   status; ``python -m volcano_tpu_torch.parallel.multihost --mesh-hosts
+   2`` at config 5's widths (a coordinator and one worker process sharing
+   the card) ok and not degraded, the worker's slice the owned half; a
+   worker whose coordinator is dead falls back to a full cycle.
 
 With ``--profile``, a torch.profiler pass over one config-5 batch solve
 and one config-5 cycle, one batched solve at cfg9's shape on four node
 blocks and one cfg9 cycle runs after the build: device time by kernel and
 the device's idle share of the cycles (also written to OUT.json when
 given).
+
+Phase 20 runs right after phase 17, on phase 16's captured inputs; the
+cfg9 objects are then released before phases 18, 19 and 21.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero with no result line
@@ -109,6 +139,7 @@ when CUDA is unavailable or any phase fails.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -148,23 +179,23 @@ def log(*a):
     print(*a, flush=True)
 
 
-def reset_launches():
+def _counters():
+    from volcano_tpu_torch.parallel import multihost as MH
     from volcano_tpu_torch.parallel import sharded as S
     from volcano_tpu_torch.scheduler import kernels as K
     from volcano_tpu_torch.scheduler import victim_kernels as VK
 
-    K.reset_launches()
-    VK.reset_launches()
-    S.reset_launches()
+    return K, VK, S, MH
+
+
+def reset_launches():
+    for mod in _counters():
+        mod.reset_launches()
 
 
 def read_launches():
     """Every kernel's launches since the last reset_launches()."""
-    from volcano_tpu_torch.parallel import sharded as S
-    from volcano_tpu_torch.scheduler import kernels as K
-    from volcano_tpu_torch.scheduler import victim_kernels as VK
-
-    return {**K.LAUNCHES, **VK.LAUNCHES, **S.LAUNCHES}
+    return {k: v for mod in _counters() for k, v in mod.LAUNCHES.items()}
 
 
 def cuda_ms(fn, reps):
@@ -1400,14 +1431,15 @@ def phase_victim_kernels(captured, launches):
 # (tests/test_torch_object.py CFG6R_BE_PATTERN), at full width
 CFG6R_BE_PATTERN = [(19, 10, 0), (19, 10, 0), (19, 10, 0)]
 # the object path's kernels; the fast-path cells must not launch them
-OBJECT_KERNELS = ("victim_step",)
+OBJECT_KERNELS = ("victim_step", "victim_step_sharded")
 
 
 class ObjectCapture:
-    """During the object cells: the first victim_step call's inputs, CUDA
-    events around every call (its device time per cycle), the walls of the
-    victim driver's resyncs (the snapshot rebuilt after a host detour), and
-    every pipeline as (pod key, node name)."""
+    """During the object cells: the inputs of the first call of each victim
+    solve (K7 victim_step, K12b victim_step_sharded), CUDA events around
+    every call (their device time per cycle), the walls of the victim
+    driver's resyncs (the snapshot rebuilt after a host detour), and every
+    pipeline as (pod key, node name)."""
 
     def __init__(self):
         import torch
@@ -1416,31 +1448,33 @@ class ObjectCapture:
         from volcano_tpu_torch.scheduler import statement as ST
         from volcano_tpu_torch.scheduler import tensor_actions as TA
 
-        self.first, self.events, self.resyncs, self.pipes = None, [], [], []
-        self._saved = [(TA, "victim_step", TA.victim_step),
-                       (TA._VictimDriver, "resync", TA._VictimDriver.resync),
-                       (S.Session, "pipeline", S.Session.pipeline),
-                       (ST.Statement, "pipeline", ST.Statement.pipeline)]
-        step, resync = TA.victim_step, TA._VictimDriver.resync
+        self.first, self.events, self.resyncs, self.pipes = {}, [], [], []
+        self._saved = [(TA, name, getattr(TA, name)) for name in OBJECT_KERNELS]
+        self._saved += [(TA._VictimDriver, "resync", TA._VictimDriver.resync),
+                        (S.Session, "pipeline", S.Session.pipeline),
+                        (ST.Statement, "pipeline", ST.Statement.pipeline)]
+        resync = TA._VictimDriver.resync
         rec = self
 
-        def victim_step(*args, **kwargs):
-            if rec.first is None:
-                rec.first = (args, kwargs)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = step(*args, **kwargs)
-            end.record()
-            rec.events.append((start, end))
-            return out
+        def timed(name, step):
+            def call(*args, **kwargs):
+                rec.first.setdefault(name, (args, kwargs))
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(*args, **kwargs)
+                end.record()
+                rec.events.append((start, end))
+                return out
+            return call
 
         def timed_resync(driver):
             t = time.perf_counter()
             resync(driver)
             rec.resyncs.append(time.perf_counter() - t)
 
-        TA.victim_step = victim_step
+        for name in OBJECT_KERNELS:
+            setattr(TA, name, timed(name, getattr(TA, name)))
         TA._VictimDriver.resync = timed_resync
         for cls in (S.Session, ST.Statement):
             orig = cls.pipeline
@@ -1466,20 +1500,21 @@ def _object_walls(sched):
     return {k: round(v, 4) for k, v in sched.object_phases.items()}
 
 
-def phase_object_cfg6r_be():
-    """Scheduler.run_once on the card over cfg6r-be for three cycles, the
-    victims reaped after each: every cycle takes the object path (the fast
-    cycle declines a best-effort reclaimer), the best-effort reclaimer's
-    attempt is a host detour and every other preemptor attempt is one K7
-    launch.  Launch counts are reset just before each cycle and read just
-    after it.  Returns (first-cycle launches, the first K7 call's inputs)."""
+def _object_cfg6r_be(label, conf, kernel):
+    """Scheduler.run_once on the card over cfg6r-be for three cycles under
+    ``conf``, the victims reaped after each: every cycle takes the object
+    path (the fast cycle declines a best-effort reclaimer), the best-effort
+    reclaimer's attempt is a host detour and every other preemptor attempt
+    one launch of the victim solve ``kernel``.  Launch counts are reset just
+    before each cycle and read just after it.  Returns the per-cycle
+    launches, the first call's inputs of ``kernel``, and the run's
+    (evictions, pipelines, binds) per cycle, ordered evictions, pipelines
+    and binds."""
     import torch
 
     from volcano_tpu_torch.api import POD_GROUP_KEY, Metadata, Pod, PodSpec, Resource
-    from volcano_tpu_torch.scheduler.conf import full_conf
     from volcano_tpu_torch.scheduler.scheduler import Scheduler
 
-    label = "e2e cfg6r-be"
     t0 = time.perf_counter()
     store = build_contended_store("cfg6r")
     store.create("Pod", Pod(
@@ -1489,10 +1524,11 @@ def phase_object_cfg6r_be():
         f"{CFG6['run_jobs'] * CFG6['tasks_per_job']} residents, "
         f"{CFG6['reclaim_gangs']} reclaiming gangs + 1 best-effort pod "
         f"({time.perf_counter() - t0:.1f} s)")
-    sched = Scheduler(store, conf=full_conf("cuda"))
-    log(f"[{label}] prewarm {sched.prewarm():.2f} s")
+    sched = Scheduler(store, conf=conf)
+    log(f"[{label}] mesh {sched.mesh}, solve_mode {conf.solve_mode}; prewarm "
+        f"{sched.prewarm():.2f} s")
     cap = ObjectCapture()
-    history, evicted, first = [], [], None
+    history, evicted, per_cycle = [], [], []
     try:
         for cycle in range(len(CFG6R_BE_PATTERN)):
             n_ev, n_pipe, n_bind = (len(sched.cache.evict_log), len(cap.pipes),
@@ -1504,8 +1540,7 @@ def phase_object_cfg6r_be():
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = read_launches()
-            if cycle == 0:
-                first = launches
+            per_cycle.append(launches)
             if sched.last_path != "object":
                 raise AssertionError(f"{label}: cycle {cycle + 1} took the {sched.last_path} "
                                      "path, the reference's takes the object path")
@@ -1515,12 +1550,12 @@ def phase_object_cfg6r_be():
             resyncs = cap.resyncs[n_resync:]
             log(f"[{label}] cycle {cycle + 1} wall {wall:.3f} s walls "
                 f"{json.dumps(_object_walls(sched))} (evictions, pipelines, binds) "
-                f"{history[-1]}; victim_step launches {launches['victim_step']}, device "
+                f"{history[-1]}; {kernel} launches {launches[kernel]}, device "
                 f"{cap.take_device_ms():.3f} ms; {len(resyncs)} resyncs "
                 f"{[round(r, 4) for r in resyncs]} s; launches {launches}")
-            if launches["victim_step"] < 1:
-                raise AssertionError(f"{label}: victim_step not launched in cycle {cycle + 1}")
-            for name in CONTENTION_KERNELS:
+            if launches[kernel] < 1:
+                raise AssertionError(f"{label}: {kernel} not launched in cycle {cycle + 1}")
+            for name in CONTENTION_KERNELS + tuple(k for k in OBJECT_KERNELS if k != kernel):
                 if launches[name]:
                     raise AssertionError(f"{label}: kernel {name} launched ({launches[name]})")
             check_contention_cycle(label, "cfg6r", store, victims, pipes)
@@ -1528,7 +1563,8 @@ def phase_object_cfg6r_be():
             for key in victims:  # the kubelet reaps the victims
                 store.delete("Pod", key)
     finally:
-        captured = cap.first
+        captured = cap.first.get(kernel)
+        pipes = list(cap.pipes)
         cap.close()
     if len(set(evicted)) != len(evicted):
         raise AssertionError(f"{label}: a pod was evicted twice")
@@ -1536,7 +1572,47 @@ def phase_object_cfg6r_be():
         raise AssertionError(f"{label}: per-cycle (evictions, pipelines, binds) {history}, "
                              f"the reference's pattern is {CFG6R_BE_PATTERN}")
     log(f"[{label}] invariants hold; evictions per cycle {[h[0] for h in history]}")
-    return first, captured
+    return per_cycle, captured, dict(history=history, evicts=list(sched.cache.evict_log),
+                                     pipes=pipes, binds=list(sched.cache.bind_log))
+
+
+def phase_object_cfg6r_be():
+    """cfg6r-be under full_conf("cuda"): every preemptor attempt one K7
+    launch.  Returns (first-cycle launches, the first K7 call's inputs)."""
+    from volcano_tpu_torch.scheduler.conf import full_conf
+
+    per_cycle, captured, _ = _object_cfg6r_be("e2e cfg6r-be", full_conf("cuda"), "victim_step")
+    return per_cycle[0], captured
+
+
+def phase_object_cfg6r_be_mesh():
+    """cfg6r-be-mesh: the cfg6r-be store under full_conf("cuda") with mesh
+    "4" and solve_mode "batch", so that every preemptor attempt is one K12b
+    launch on four node blocks, against the same store under mesh "off"
+    with solve_mode "batch" (K7): equal per-cycle (evictions, pipelines,
+    binds), ordered evictions, pipelines and binds, and as many K12b
+    launches each cycle as the oracle's K7 launches.  Returns the mesh
+    run's first-cycle launches and the first K12b call's inputs."""
+    from volcano_tpu_torch.scheduler.conf import full_conf
+
+    runs = {}
+    for mesh, kernel in (("off", "victim_step"), (CFG6R_BE_MESH, "victim_step_sharded")):
+        conf = full_conf("cuda")
+        conf.solve_mode, conf.mesh = "batch", mesh
+        runs[mesh] = _object_cfg6r_be(f"e2e cfg6r-be-mesh, mesh {mesh}", conf, kernel)
+    (oracle, _, want), (per_cycle, captured, got) = runs["off"], runs[CFG6R_BE_MESH]
+    for key in ("history", "evicts", "pipes", "binds"):
+        if got[key] != want[key]:
+            raise AssertionError(f"cfg6r-be-mesh: {key} differ from the mesh-off oracle")
+    k7 = [launches["victim_step"] for launches in oracle]
+    k12b = [launches["victim_step_sharded"] for launches in per_cycle]
+    if k12b != k7:
+        raise AssertionError(f"cfg6r-be-mesh: K12b launches per cycle {k12b}, the oracle's "
+                             f"K7 launches {k7}")
+    log(f"[e2e cfg6r-be-mesh] equal to the mesh-off oracle: {got['history']}, "
+        f"{len(got['evicts'])} evictions, {len(got['pipes'])} pipelines in order; K12b "
+        f"launches per cycle {k12b} (oracle's K7 {k7})")
+    return per_cycle[0], captured
 
 
 def phase_object_cfg5():
@@ -1583,7 +1659,7 @@ def phase_object_cfg5():
     for name in ("water_fill", "allocate_solve_batch", "victim_step"):
         if first[name] < 1:
             raise AssertionError(f"{label}: kernel {name} not launched on the main path")
-    for name in ("allocate_solve",) + CONTENTION_KERNELS:
+    for name in ("allocate_solve", "victim_step_sharded") + CONTENTION_KERNELS:
         if first[name]:
             raise AssertionError(f"{label}: kernel {name} launched ({first[name]})")
     return first
@@ -1728,6 +1804,8 @@ def phase_victim_step_kernel(captured, launches):
 CFG9 = dict(nodes=100_000, tasks=1_000_000, tasks_per_job=20, namespaces=16, queues=2)
 #: the conf mesh of the cfg9 cell (bench.py config9_shard sets conf.mesh)
 CFG9_MESH = "4"
+#: the conf mesh of the cfg6r-be-mesh cell
+CFG6R_BE_MESH = "4"
 #: local meshes the sharded cycle runs on at cfg9's captured solve inputs
 MESH_BLOCKS = (1, 2, 4, 8)
 
@@ -1980,9 +2058,9 @@ def phase_cfg9():
 def phase_sharded_kernels(captured, launches):
     """K12a on the card at cfg9's captured solve inputs (the cycle's first
     batched solve): the one-block tiled K3 against its plain version and
-    against the cycle's own decisions; the sharded solve and its plain
-    version on local meshes of 1, 2, 4 and 8 blocks, each bit for bit
-    equal to the one-block run; a one-rank NCCL process group
+    against the cycle's own decisions; the sharded solve on local meshes of
+    1, 2, 4 and 8 blocks and its plain version on the cell's four, each bit
+    for bit equal to the one-block run; a one-rank NCCL process group
     (FileStore rendezvous) running the cell's mesh over
     all_gather_into_tensor.  CUDA-event times."""
     import torch
@@ -2032,11 +2110,17 @@ def phase_sharded_kernels(captured, launches):
         def run(mesh=mesh, planes=planes):
             return S.sharded_solve(mesh, planes, repl, w_least, w_balanced, **policy)
 
-        err = max(err, _compare(f"sharded_cycle {n} blocks", run(), ref))
+        out_n = run()
+        err = max(err, _compare(f"sharded_cycle {n} blocks", out_n, ref))
+        if n == int(CFG9_MESH):
+            # phase 20 holds the multihost cycle to this run's outputs
+            outputs = S.fetch_outputs(out_n, mesh)
+        del out_n
         ms[n] = cuda_ms(run, 2)
         plain_s, plain_ms[n] = _timed(lambda: S.batch_blocks_plain(
             repl, S._blocks(mesh, planes), n, mesh.exchange, w_least, w_balanced, **policy))
         err = max(err, _compare(f"sharded_cycle plain {n} blocks", plain_s, ref))
+        del plain_s
         log(f"[sharded] local mesh of {n} blocks ok: {ms[n]:.3f} ms (plain version on the "
             f"same blocks {plain_ms[n]:.1f} ms), both equal to the one-block K3")
 
@@ -2075,7 +2159,7 @@ def phase_sharded_kernels(captured, launches):
     b, kind = bound_ms(io, _batch_solve_ops(ref, inputs, M, P, n_sort_keys))
     log(f"[sharded] bound {b:.4f} ms by {kind}; local-mesh ms by blocks "
         f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}")
-    return {"sharded_cycle": dict(
+    return outputs, {"sharded_cycle": dict(
         name="sharded_cycle", route="cuda", source="volcano_tpu_torch/csrc/allocate_batch.cu",
         replaces="volcano_tpu/parallel/sharded.py:152", launches=launches["sharded_cycle"],
         max_abs_err=err, ms=ms[int(CFG9_MESH)], plain_ms=plain_ms[int(CFG9_MESH)], bound_ms=b,
@@ -2084,6 +2168,408 @@ def phase_sharded_kernels(captured, launches):
         ms_by_blocks={str(k): v for k, v in ms.items()},
         plain_ms_by_blocks={str(k): v for k, v in plain_ms.items()}, nccl_group_ms=gms,
         one_block_k3_ms=k3_ms, one_block_k3_plain_ms=k3_plain_ms, rounds=rounds)}
+
+
+# ---- the victim solve on node blocks (K12b) and the multi-controller cycle (K13)
+
+def _unblock(tup):
+    """A VictimConsts / VictimState with its node-plane blocks joined."""
+    import torch
+
+    def join(name, x):
+        if not isinstance(x, tuple):
+            return x
+        return torch.cat(list(x), dim=1 if name in ("class_mask", "class_score") else 0)
+
+    return type(tup)(**{f: join(f, getattr(tup, f)) for f in tup._fields})
+
+
+def _blocked_compare(name, out_k, out_p):
+    """The packed decision and every state field bit for bit (node planes
+    as their blocks' rows); returns the largest float difference (0)."""
+    import torch
+
+    if not torch.equal(out_k.packed, out_p.packed.to(out_k.packed.device)):
+        raise AssertionError(f"{name}: decision {out_k.packed[:4].tolist()} != "
+                             f"{out_p.packed[:4].tolist()} or victim masks differ")
+    sk, sp = _unblock(out_k.state), _unblock(out_p.state)
+    err = 0.0
+    for f in sk._fields:
+        x, y = getattr(sk, f), getattr(sp, f).to(getattr(sk, f).device)
+        if x.dtype.is_floating_point and x.numel():
+            err = max(err, float((x - y).abs().max()))
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: state {f} differs")
+    return err
+
+
+def phase_victim_sharded_kernel(captured, launches):
+    """K12b on the card: at bench config 4's shape (build_victim_sim(10000,
+    100000, 5000, seed=4), the [2000, 4Gi] preemptor of phase 13) on local
+    meshes of 1, 2, 4 and 8 blocks, each bit for bit equal to its plain
+    version on the same blocks and to the one-block K7, state included (16
+    solves timed); a chain of 16 solves with the blocked state fed back,
+    timed, equal to the one-block K7 chain; the three modes and the veto and
+    order flags on small seeded inputs on 2, 4 and 8 blocks; a one-rank
+    NCCL group (FileStore rendezvous) running four blocks; the first inputs
+    cfg6r-be-mesh gave it."""
+    import torch
+    import torch.distributed as dist
+
+    from volcano_tpu_torch import _build, interop
+    from volcano_tpu_torch.parallel import sharded as S
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+    from volcano_tpu_torch.scheduler.simargs import build_victim_sim
+
+    dev = torch.device("cuda")
+    c_np, s_np = build_victim_sim(10_000, 100_000, 5_000, seed=4)
+    c, s = interop.victim_from_arrays(c_np, s_np, dev)
+    N = c.node_alloc.shape[0]
+    t_req = torch.tensor([2000.0, 4.0 * (1 << 30)], device=dev)
+    kw = dict(mode="queue", use_gang=True, use_drf=True)
+    one = VK.victim_step(c, s, t_req, 0, 0, 0, **kw)
+    err, ms, plain_ms = 0.0, {}, {}
+    for n in MESH_BLOCKS:
+        mesh = S.LocalMesh(n, dev)
+        _, dc, ds = S.make_sharded_victim_step(mesh, c, s)
+
+        def run(mesh=mesh, dc=dc, ds=ds):
+            return VK.victim_step_sharded(dc, ds, t_req, 0, 0, 0, mesh, **kw)
+
+        out_k = run()
+        out_p, plain_ms[n] = _timed(lambda: S.victim_blocks_plain(
+            dc, ds, t_req, 0, 0, 0, mesh, N // n, **kw))
+        err = max(err, _blocked_compare(f"K12b config 4, {n} blocks vs plain", out_k, out_p),
+                  _blocked_compare(f"K12b config 4, {n} blocks vs K7", out_k, one))
+        ms[n] = cuda_ms(run, 16)
+        log(f"[K12b] config 4 on {n} blocks ok (decision {out_k.packed[:4].tolist()}): "
+            f"{ms[n]:.4f} ms over 16 solves (plain on the same blocks {plain_ms[n]:.1f} ms), "
+            "equal to the plain version and to K7 bit for bit")
+    b, kind = _step_bound(c, s, t_req, one)
+
+    # a chain of 16 solves, the blocked state fed back on each assignment
+    mesh = S.LocalMesh(int(CFG6R_BE_MESH), dev)
+    _, dc, ds = S.make_sharded_victim_step(mesh, c, s)
+    rng = np.random.default_rng(4)
+    chain = []
+    for _ in range(16):
+        jt = int(rng.integers(0, 5_000))
+        chain.append((torch.tensor([float(rng.choice([1000, 2000, 4000])),
+                                    float(rng.choice([1, 2, 4]) * (1 << 30))], device=dev),
+                      jt, int(c_np["job_queue"][jt])))
+
+    def run_chain(ds, step):
+        outs = []
+        for tr, jt, qt in chain:
+            out = step(ds, tr, jt, qt)
+            outs.append(out)
+            if bool(out.packed[0]):
+                ds = out.state
+        return outs
+
+    outs_k, chain_wall = _timed(lambda: run_chain(
+        ds, lambda st, tr, jt, qt: VK.victim_step_sharded(dc, st, tr, 0, jt, qt, mesh, **kw)))
+    outs_1 = run_chain(s, lambda st, tr, jt, qt: VK.victim_step(c, st, tr, 0, jt, qt, **kw))
+    for i, (ok, o1) in enumerate(zip(outs_k, outs_1)):
+        err = max(err, _blocked_compare(f"K12b chain step {i}", ok, o1))
+    chain_ms = chain_wall / len(chain)
+    log(f"[K12b] chain of {len(chain)} solves on {mesh.size} blocks ok "
+        f"({sum(int(o.packed[0]) for o in outs_1)} assigned): {chain_ms:.4f} ms a solve "
+        "(host wall, the decision read each step), equal to the K7 chain bit for bit")
+
+    n_small = 0
+    for seed in range(2):
+        cs, ss = interop.victim_from_arrays(*build_victim_sim(16, 120, 10, n_queues=3,
+                                                              seed=seed), dev)
+        rng = np.random.default_rng(seed)
+        for n in (2, 4, 8):
+            smesh = S.LocalMesh(n, dev)
+            _, dcs, dss = S.make_sharded_victim_step(smesh, cs, ss)
+            for mode in ("queue", "job", "reclaim"):
+                for flags in range(0, 32, 3):
+                    fkw = dict(mode=mode, use_gang=bool(flags & 1), use_drf=bool(flags & 2),
+                               use_prop=bool(flags & 4), use_conformance=bool(flags & 8),
+                               order_by_priority=bool(flags & 16))
+                    tr = torch.tensor([float(rng.choice([0, 500, 1500, 3000])),
+                                       float(rng.choice([0, 512, 2048]) * (1 << 20))],
+                                      device=dev)
+                    jt = int(rng.integers(0, 10))
+                    qt = int(cs.job_queue[jt])
+                    o_k = VK.victim_step_sharded(dcs, dss, tr, 0, jt, qt, smesh, **fkw)
+                    tag = f"K12b sweep {seed} {n} blocks {fkw}"
+                    err = max(err, _blocked_compare(tag, o_k, S.victim_blocks_plain(
+                        dcs, dss, tr, 0, jt, qt, smesh, 16 // n, **fkw)),
+                        _blocked_compare(tag, o_k, VK.victim_step(cs, ss, tr, 0, jt, qt, **fkw)))
+                    n_small += 1
+    log(f"[K12b] sweep ok: {n_small} small solves on 2, 4 and 8 blocks equal to the plain "
+        "version and to K7")
+
+    store_path = _build.BUILD_DIR / f"nccl_store_k12b_{os.getpid()}"
+    store_path.parent.mkdir(parents=True, exist_ok=True)
+    if store_path.exists():
+        store_path.unlink()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_path), 1),
+                            rank=0, world_size=1)
+    try:
+        gmesh = S.make_mesh(int(CFG6R_BE_MESH))
+        if not isinstance(gmesh, S.GroupMesh) or gmesh.n_local != gmesh.size:
+            raise AssertionError(f"NCCL mesh: {gmesh}")
+        _, gc, gs = S.make_sharded_victim_step(gmesh, c, s)
+
+        def grun():
+            return VK.victim_step_sharded(gc, gs, t_req, 0, 0, 0, gmesh, **kw)
+
+        err = max(err, _blocked_compare("K12b NCCL group", grun(), one))
+        gms = cuda_ms(grun, 16)
+        log(f"[K12b] one-rank NCCL group, {gmesh.size} blocks over all_gather_into_tensor ok: "
+            f"{gms:.4f} ms")
+    finally:
+        dist.destroy_process_group()
+        if store_path.exists():
+            store_path.unlink()
+
+    args, ckw = captured
+    cc, cs_, ctr, ct_cls, cjt, cqt, cmesh = args
+    cnb = _unblock(cc).node_alloc.shape[0] // cmesh.size
+    o_k = VK.victim_step_sharded(*args, **ckw)
+    o_p, p2_ms = _timed(lambda: S.victim_blocks_plain(cc, cs_, ctr, ct_cls, cjt, cqt, cmesh, cnb,
+                                                      **ckw))
+    err = max(err, _blocked_compare("K12b cfg6r-be-mesh vs plain", o_k, o_p),
+              _blocked_compare("K12b cfg6r-be-mesh vs K7", o_k, VK.victim_step(
+                  _unblock(cc), _unblock(cs_), ctr, ct_cls, cjt, cqt, **ckw)))
+    ms2 = cuda_ms(lambda: VK.victim_step_sharded(*args, **ckw), 16)
+    b2, kind2 = _step_bound(_unblock(cc), _unblock(cs_), ctr,
+                            VK.VictimStepOut(_unblock(o_p.state), o_p.packed))
+    log(f"[K12b] cfg6r-be-mesh first inputs ok ({ckw['mode']}, {cmesh}, decision "
+        f"{o_k.packed[:4].tolist()}): {ms2:.4f} ms (plain {p2_ms:.1f} ms, bound {b2:.5f} ms by "
+        f"{kind2}); config 4 bound {b:.5f} ms by {kind}")
+    m = int(CFG6R_BE_MESH)
+    return {"victim_step_sharded": dict(
+        name="victim_step_sharded", route="cuda", source="volcano_tpu_torch/csrc/victim_step.cu",
+        replaces="volcano_tpu/parallel/sharded.py:202", launches=launches, max_abs_err=err,
+        ms=ms[m], plain_ms=plain_ms[m], bound_ms=b, bound_by=kind, library_ms=None,
+        cell=f"config 4 shape, local mesh of {m} blocks; launches: cfg6r-be-mesh cycle 1",
+        ms_by_blocks={str(k): v for k, v in ms.items()},
+        plain_ms_by_blocks={str(k): v for k, v in plain_ms.items()}, chain_ms=chain_ms,
+        nccl_group_ms=gms, cfg6r_be_mesh_ms=ms2, cfg6r_be_mesh_plain_ms=p2_ms,
+        cfg6r_be_mesh_bound_ms=b2)}
+
+
+def _snapshot_cycle_args(snap):
+    """A snapshot's planes as the cycle's named arguments (build_sim_args'
+    names)."""
+    return dict(
+        idle=snap.node_idle, releasing=snap.node_releasing, used=snap.node_used,
+        node_alloc=snap.node_alloc, node_max_tasks=snap.node_max_tasks,
+        task_count=snap.node_task_count, node_valid=snap.node_valid,
+        task_req=snap.task_req, task_job=snap.task_job, task_class=snap.task_class,
+        task_valid=snap.task_valid, job_queue=snap.job_queue,
+        job_min=snap.job_min_available, job_prio=snap.job_priority,
+        job_ready_init=snap.job_ready_init, job_alloc_init=snap.job_alloc_init,
+        job_schedulable=snap.job_schedulable, job_start=snap.job_start,
+        job_ntasks=snap.job_ntasks, queue_weight=snap.queue_weight,
+        queue_request=snap.queue_request, queue_alloc_init=snap.queue_alloc_init,
+        queue_participates=snap.queue_participates, total=snap.total, eps=snap.eps,
+        class_mask=snap.class_node_mask, class_score=snap.class_node_score)
+
+
+def phase_multihost_cfg9(captured, want, k12a_row):
+    """K13 at cfg9's width on the cycle's captured inputs: run_lockstep at
+    1, 2 and 4 hosts over four node blocks (each host's build, dispatch and
+    owned fetch timed on its own after a synchronize, the global solve as
+    solve_wait_s), the merged outputs bit for bit equal to phase 17's
+    4-block K12a run; the owned slices of four hosts cover every row once.
+    Launch counts reset just before the lockstep runs and read just after."""
+    import torch
+
+    from volcano_tpu_torch.parallel import multihost as MH
+
+    backend, snap, _ = captured
+    dev = torch.device("cuda")
+    args = _snapshot_cycle_args(snap)
+    w_least, w_balanced = backend.score_weights()
+    policy = dict(job_key_order=backend.job_key_order, use_gang_ready=backend.gang_job_ready,
+                  use_proportion=backend.proportion_queue_order, w_least=w_least,
+                  w_balanced=w_balanced)
+    n_blocks = int(CFG9_MESH)
+
+    def same(got, tag):
+        for name, g, w in zip(MH.OUTPUT_NAMES, got, want):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"K13 {tag}: {name} differs from the 4-block K12a run")
+
+    reset_launches()
+    walls = {}
+    for H in (1, 2, 4):
+        res = MH.run_lockstep(args, H, n_blocks=n_blocks, device=dev, **policy)
+        same(res["outputs"], f"{H} hosts")
+        walls[H] = res
+        log(f"[K13] cfg9, {H} host(s) x {n_blocks // H} block(s) ok, equal to K12a bit for "
+            f"bit: critical path {res['critical_path_s']:.4f} s, solve_wait "
+            f"{res['solve_wait_s']:.4f} s, per host "
+            f"{json.dumps([{k: round(v, 4) for k, v in r.items()} for r in res['per_host']])}")
+    launches = read_launches()
+    if launches["multihost_cycle"] != 3 or launches["sharded_cycle"] != 3:
+        raise AssertionError(f"K13: launches {launches}")
+
+    mesh = MH.LocalHostMesh(4, n_blocks, dev)
+    fn, dargs = MH.make_multihost_cycle(mesh, args, **policy)
+    out = fn(dargs)
+    slices = [MH.owned_output_slices(out, h, 4, mesh) for h in range(4)]
+    T, N = want[0].shape[0], want[6].shape[0]
+    if (sum(sl["task_kind"].shape[0] for sl in slices) != T
+            or sum(sl["idle"].shape[0] for sl in slices) != N
+            or [("ready" in sl) for sl in slices] != [True, False, False, False]):
+        raise AssertionError("K13: the owned slices do not tile the outputs")
+    same(MH.merge_output_slices(slices), "owned slices of 4 hosts")
+    del out
+    ms = cuda_ms(lambda: fn(dargs), 1)
+    log(f"[K13] owned slices of 4 hosts cover the {T} task rows and {N} node rows once; "
+        f"the cycle {ms:.3f} ms (CUDA events)")
+    return {"multihost_cycle": dict(
+        name="multihost_cycle", route="cuda",
+        source="volcano_tpu_torch/parallel/multihost.py (K1, K12a: csrc/water_fill.cu, "
+               "csrc/allocate_batch.cu)",
+        replaces="volcano_tpu/parallel/multihost.py:168", launches=launches["multihost_cycle"],
+        max_abs_err=0.0, ms=ms, plain_ms=k12a_row["plain_ms"], bound_ms=k12a_row["bound_ms"],
+        bound_by=k12a_row["bound_by"], library_ms=None,
+        cell="cfg9 captured inputs, 4 hosts x 1 block; plain_ms: the same solve's plain "
+             "version on 4 blocks (phase 17); launches: the lockstep runs at 1, 2, 4 hosts",
+        critical_path_s={str(h): r["critical_path_s"] for h, r in walls.items()},
+        solve_wait_s={str(h): r["solve_wait_s"] for h, r in walls.items()})}
+
+
+def phase_cfg5_two_hosts():
+    """cfg5-2h: config 5's store (phase 3) under full_conf("cuda") without
+    reclaim and preempt (mesh_hosts > 1 refuses them) and mesh "4", once on
+    a single host and once each as the coordinator (mesh_host_id 0) and the
+    worker (1) of two hosts, each over its own copy of the store: disjoint
+    bind sets whose union binds the single host's pods, every gang task on
+    the single host's node, the best-effort pods all the coordinator's, the
+    worker writing no PodGroup status and no admission.  The coordinator's
+    backfill counts only its own task block's placements (as the JAX
+    package's does: ROADMAP section 3), so its best-effort pods may land
+    elsewhere than the single host's; how many, and how many nodes the
+    merged binds put over their pod cap, is printed."""
+    import torch
+
+    from volcano_tpu_torch.api import PodGroupPhase
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    binds = {}
+    for hosts, host_id in ((1, 0), (2, 0), (2, 1)):
+        label = f"e2e cfg5-2h, host {host_id} of {hosts}"
+        t0 = time.perf_counter()
+        store = build_cfg5_store()
+        conf = full_conf("cuda")
+        conf.actions = ["enqueue", "allocate", "backfill"]
+        conf.mesh, conf.mesh_hosts, conf.mesh_host_id = CFG9_MESH, hosts, host_id
+        sched = Scheduler(store, conf=conf)
+        log(f"[{label}] store built ({time.perf_counter() - t0:.1f} s); prewarm "
+            f"{sched.prewarm():.2f} s")
+        reset_launches()
+        t0 = time.perf_counter()
+        sched.run_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if sched.last_path != "fast" or launches["sharded_cycle"] != 1:
+            raise AssertionError(f"{label}: path {sched.last_path}, launches {launches}")
+        binds[(hosts, host_id)] = dict(sched.cache.bind_log)
+        pending = sum(pg.status.phase == PodGroupPhase.PENDING for pg in store.list("PodGroup"))
+        log(f"[{label}] cycle 1 wall {wall:.3f} s phases "
+            f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}; "
+            f"{len(binds[(hosts, host_id)])} binds, {pending} PodGroups still Pending")
+        if host_id == 1 and pending != len(store.list("PodGroup")):
+            raise AssertionError(f"{label}: the worker wrote PodGroup phases")
+        cap = {n.meta.name: n.allocatable.max_task_num for n in store.list("Node")}
+        del sched, store
+    single, coord, worker = binds[(1, 0)], binds[(2, 0)], binds[(2, 1)]
+    merged = {**coord, **worker}
+
+    def gang(b):
+        return {k: v for k, v in b.items() if not k.split("/")[1].startswith("be")}
+
+    gang_single = gang(single)
+    if (set(coord) & set(worker) or set(merged) != set(single) or not (coord and worker)
+            or gang(merged) != gang_single or gang(worker) != worker):
+        raise AssertionError(f"cfg5-2h: coordinator {len(coord)} and worker {len(worker)} "
+                             f"binds do not split the single host's {len(single)}")
+    be_moved = sum(merged[k] != v for k, v in single.items() if k not in gang_single)
+    per_node = {}
+    for node in merged.values():
+        per_node[node] = per_node.get(node, 0) + 1
+    over = sum(c > cap[n] for n, c in per_node.items())
+    log(f"[e2e cfg5-2h] the coordinator's {len(coord)} and the worker's {len(worker)} binds "
+        f"are disjoint and bind the single host's {len(single)} pods, every gang task on the "
+        f"single host's node; {be_moved} of {len(single) - len(gang_single)} best-effort pods "
+        f"on another node than the single host's, {over} nodes over their pod cap in the "
+        "merged binds (the reference's coordinator backfill)")
+
+
+def phase_multihost_cli():
+    """The process mode on the card: ``python -m
+    volcano_tpu_torch.parallel.multihost --mesh-hosts 2`` at config 5's
+    widths, a coordinator and one worker process sharing the card: ok, not
+    degraded (a degraded run fails), the worker's shipped slice the owned
+    half; then a worker whose coordinator's pid is dead: ``fallback`` and
+    full planes."""
+    import shutil
+
+    import torch
+
+    from volcano_tpu_torch import _build
+    from volcano_tpu_torch.parallel.multihost import host_bounds
+    from volcano_tpu_torch.scheduler.simargs import build_sim_args
+
+    widths = ["--nodes", str(CFG5["nodes"]), "--tasks", str(CFG5["jobs"] * CFG5["tasks_per_job"]),
+              "--jobs", str(CFG5["jobs"])]
+    a = build_sim_args(CFG5["nodes"], CFG5["jobs"] * CFG5["tasks_per_job"], CFG5["jobs"],
+                       n_queues=2, seed=11)
+    T, N = a["task_req"].shape[0], a["idle"].shape[0]
+    outdir = _build.BUILD_DIR / f"multihost_{os.getpid()}"
+    shutil.rmtree(outdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def cli(extra):
+        cmd = [sys.executable, "-m", "volcano_tpu_torch.parallel.multihost", "--mesh-hosts", "2",
+               *widths, "--outdir", str(outdir), *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"multihost CLI {extra} exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        return json.loads(lines[-1]), time.perf_counter() - t0
+
+    try:
+        summary, wall = cli([])
+        if summary["degraded"] or not summary["ok"] or [w["ok"] for w in summary["workers"]] != [True]:
+            raise AssertionError(f"multihost CLI: {summary}")
+        with np.load(outdir / "host01.npz") as shipped:
+            lo, hi = host_bounds(T, 2)[1]
+            nlo, nhi = host_bounds(N, 2)[1]
+            if shipped["task_node"].shape[0] != hi - lo or shipped["idle"].shape[0] != nhi - nlo:
+                raise AssertionError("multihost CLI: the worker's slice is not the owned half")
+        log(f"[multihost CLI] 2 hosts on {summary['device']}: ok, not degraded, {summary['binds']} "
+            f"binds; critical path {summary['critical_path_s']:.4f} s, solve_wait "
+            f"{summary['solve_wait_s']:.4f} s, per host "
+            f"{json.dumps([{k: round(v, 4) for k, v in r.items()} for r in summary['per_host']])};"
+            f" whole run {wall:.1f} s")
+        dead = subprocess.Popen([sys.executable, "-c", "pass"])
+        dead.wait(timeout=60)
+        payload, wall = cli(["--host-id", "1", "--coordinator-pid", str(dead.pid)])
+        with np.load(outdir / "host01.npz") as shipped:
+            full = shipped["task_node"].shape[0] == T and shipped["idle"].shape[0] == N
+            bound = int((shipped["task_kind"] == 1).sum())
+        if not payload["fallback"] or not full or not bound:
+            raise AssertionError(f"multihost CLI, dead coordinator: {payload}")
+        log(f"[multihost CLI] worker with a dead coordinator: fallback, full planes, {bound} "
+            f"binds ({wall:.1f} s)")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
 
 
 
@@ -2203,6 +2689,19 @@ def phase_profile(out_path=None):
                       f, indent=1)
 
 
+def _phase_clock():
+    """mark(name): log how far into the run ``name`` ended, and its share."""
+    t0 = last = time.perf_counter()
+
+    def mark(name):
+        nonlocal last
+        now = time.perf_counter()
+        log(f"[time] {name} done at {now - t0:.1f} s (+{now - last:.1f} s)")
+        last = now
+
+    return mark
+
+
 def main(argv):
     import torch
 
@@ -2210,12 +2709,14 @@ def main(argv):
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    mark = _phase_clock()
     smi = phase_build()
     if "--profile" in argv:
         i = argv.index("--profile") + 1
         phase_profile(argv[i] if i < len(argv) else None)
     kern = phase_kernels()
     phase_kernel_sweep()
+    mark("phases 1-2")
     batch = phase_e2e("e2e batch", CFG5["jobs"], CFG5["best_effort"],
                       want=("water_fill", "allocate_solve_batch"),
                       forbid=("allocate_solve",) + CONTENTION_KERNELS)
@@ -2240,6 +2741,7 @@ def main(argv):
     kern.update(phase_portsel_kernels(captured, {
         "allocate_solve_batch_portsel": dyn["allocate_solve_batch_portsel"],
         "allocate_solve_portsel": dyn_exact["allocate_solve_portsel"]}))
+    mark("phases 3-7")
     launches, captured = {}, {}
     for cell, want, forbid in (
         ("cfg6", {"preempt_rounds": 1, "water_fill": 1}, ("reclaim_solve",)),
@@ -2248,6 +2750,7 @@ def main(argv):
     ):
         launches[cell], captured[cell] = phase_contention(f"e2e {cell}", cell, want, forbid)
     kern.update(phase_victim_kernels(captured, launches))
+    mark("phases 8-9")
     vol_want = {"water_fill": 1, "allocate_solve_batch": 1, "allocate_solve": 1,
                 "allocate_solve_portsel": 1, "allocate_solve_volsel": 1}
     vol_forbid = ("allocate_solve_batch_portsel",) + CONTENTION_KERNELS
@@ -2258,12 +2761,29 @@ def main(argv):
                     forbid=vol_forbid, max_cycles=MAX_CYCLES_DYNAMIC, capture=cap,
                     volume_tasks=2000)
     kern.update(phase_volsel_kernel(cap[0], vol["allocate_solve_volsel"]))
+    mark("phases 10-11")
     be_launches, step_in = phase_object_cfg6r_be()
     kern.update(phase_victim_step_kernel(step_in, be_launches["victim_step"]))
+    mark("phases 12-13")
     phase_object_cfg5()
     caps = phase_cap_lifts()
+    mark("phases 14-15")
     cfg9_launches, cfg9_captured = phase_cfg9()
-    kern.update(phase_sharded_kernels(cfg9_captured, cfg9_launches))
+    k12a_out, k12a = phase_sharded_kernels(cfg9_captured, cfg9_launches)
+    kern.update(k12a)
+    mark("phases 16-17")
+    # phase 20 runs on phase 16's captured inputs, then the cfg9 objects go
+    kern.update(phase_multihost_cfg9(cfg9_captured, k12a_out, k12a["sharded_cycle"]))
+    del cfg9_captured, k12a_out
+    gc.collect()
+    mark("phase 20")
+    mesh_launches, sharded_step_in = phase_object_cfg6r_be_mesh()
+    kern.update(phase_victim_sharded_kernel(sharded_step_in,
+                                            mesh_launches["victim_step_sharded"]))
+    mark("phases 18-19")
+    phase_cfg5_two_hosts()
+    phase_multihost_cli()
+    mark("phase 21")
     for name, kid in (("allocate_solve_batch", "K3"), ("preempt_rounds", "K10"),
                       ("allocate_solve", "K2"), ("water_fill", "K1")):
         kern[name]["cap_lifts"] = {k: v for k, v in caps.items() if k.split("@")[0] == kid}

@@ -690,3 +690,124 @@ def test_gpu_mesh_scheduler_binds_equal_cpu():
         sched.run_once()
         states.append({p.meta.key: p.node_name for p in store.list("Pod")})
     assert states[0] == states[1] and any(states[0].values())
+
+
+# -- the victim solve on node blocks (K12b) and the multi-controller cycle (K13)
+
+def _rows(x):
+    return (torch.cat(x) if isinstance(x, tuple) else x).cpu()
+
+
+def _assert_blocked_same(out_k, out_p):
+    """Packed decision and every state field bit for bit (node planes
+    compared as their blocks' rows)."""
+    assert torch.equal(out_k.packed.cpu(), out_p.packed.cpu())
+    for f in VK.VictimState._fields:
+        assert torch.equal(_rows(getattr(out_k.state, f)), _rows(getattr(out_p.state, f))), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_blocks", [2, 4, 8])
+@pytest.mark.parametrize("mode", ["queue", "job", "reclaim"])
+def test_gpu_victim_step_sharded_matches_plain(n_blocks, mode):
+    """K12b on a local mesh against its plain version on the same blocks
+    and against the one-block K7, over the veto and order flags and two
+    seeds, empty requests included: bit for bit, state included."""
+    from volcano_tpu_torch.parallel import sharded as S
+
+    dev = _cuda()
+    mesh = S.LocalMesh(n_blocks, dev)
+    n_assigned = 0
+    for seed in range(2):
+        c_np, s_np = build_victim_sim(16, 120, 10, n_queues=3, seed=seed)
+        c, s = interop.victim_from_arrays(c_np, s_np, dev)
+        _, dc, ds = S.make_sharded_victim_step(mesh, c, s)
+        rng = np.random.default_rng(seed)
+        for flags in range(32):
+            kw = dict(mode=mode, use_gang=bool(flags & 1), use_drf=bool(flags & 2),
+                      use_prop=bool(flags & 4), use_conformance=bool(flags & 8),
+                      order_by_priority=bool(flags & 16))
+            t_req = torch.tensor([float(rng.choice([0, 500, 1500, 3000])),
+                                  float(rng.choice([0, 512, 2048]) * (1 << 20))], device=dev)
+            jt = int(rng.integers(0, 10))
+            qt = int(c_np["job_queue"][jt])
+            nb = 16 // n_blocks
+            out_k = VK.victim_step_sharded(dc, ds, t_req, 0, jt, qt, mesh, **kw)
+            out_p = S.victim_blocks_plain(dc, ds, t_req, 0, jt, qt, mesh, nb, **kw)
+            _assert_blocked_same(out_k, out_p)
+            _assert_blocked_same(out_k, VK.victim_step(c, s, t_req, 0, jt, qt, **kw))
+            n_assigned += int(out_p.packed[0])
+    assert n_assigned
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_blocks", [2, 4, 8])
+def test_gpu_victim_step_sharded_chain_launches(n_blocks):
+    """A chain of 10 preemptors, each assignment's blocked state fed to the
+    next: one launch a solve, and every decision and the final state equal the
+    one-block K7 chain's bit for bit."""
+    from volcano_tpu_torch.parallel import sharded as S
+
+    dev = _cuda()
+    c_np, s_np = build_victim_sim(64, 256, 16, n_queues=1, seed=5)
+    c, s = interop.victim_from_arrays(c_np, s_np, dev)
+    mesh = S.LocalMesh(n_blocks, dev)
+    _, dc, ds = S.make_sharded_victim_step(mesh, c, s)
+    rng = np.random.default_rng(5)
+    kw = dict(mode="queue", use_gang=True, use_drf=True, use_conformance=True)
+    VK.reset_launches()
+    n_ok = 0
+    for _ in range(10):
+        jt = int(rng.integers(0, 16))
+        t_req = torch.tensor([float(rng.choice([1000, 2000, 4000])),
+                              float(rng.choice([1, 2, 4]) * (1 << 30))], device=dev)
+        qt = int(c_np["job_queue"][jt])
+        out_k = VK.victim_step_sharded(dc, ds, t_req, 0, jt, qt, mesh, **kw)
+        out_1 = VK.victim_step(c, s, t_req, 0, jt, qt, **kw)
+        _assert_blocked_same(out_k, out_1)
+        if bool(out_1.packed[0]):
+            # the solve returns its updated state whenever it assigns
+            ds, s = out_k.state, out_1.state
+            n_ok += 1
+    assert VK.LAUNCHES["victim_step_sharded"] == 10 and n_ok >= 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", ["2", "4"])
+def test_gpu_object_path_mesh_equals_cpu(mesh):
+    """fast_path off, a mesh with solve_mode batch: the object path's
+    preempt and reclaim drive K12b on the card and evict, pipeline and bind
+    what the cpu backend does."""
+    _cuda()
+    outs = []
+    for backend in ("cuda", "cpu"):
+        store = interop.store_from_spec(_contended_spec(0))
+        conf = full_conf(backend)
+        conf.fast_path, conf.solve_mode, conf.mesh = "off", "batch", mesh
+        sched = Scheduler(store, conf=conf)
+        VK.reset_launches()
+        sched.run_once()
+        if backend == "cuda":
+            assert VK.LAUNCHES["victim_step_sharded"] >= 1
+            assert VK.LAUNCHES["victim_step"] == 0
+        outs.append((list(sched.cache.evict_log), dict(sched.cache.bind_log),
+                     {g.meta.key: g.status.phase for g in store.list("PodGroup")}))
+    assert outs[0] == outs[1]
+    assert outs[0][0], "the store must contend"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_hosts", [1, 2, 4])
+def test_gpu_run_lockstep_matches_cpu(n_hosts, monkeypatch):
+    """K13 on the card: the lockstep cycle over four node blocks equals the
+    same cycle's plain version on the CPU bit for bit, all 11 outputs."""
+    from volcano_tpu_torch.parallel import multihost as MH
+
+    dev = _cuda()
+    monkeypatch.setattr(K, "BATCH_TILE", 8)
+    args = build_sim_args(64, 256, 32, n_queues=2, seed=n_hosts)
+    got = MH.run_lockstep(args, n_hosts, n_blocks=4, m_chunk=8, p_chunk=4, device=dev)
+    want = MH.run_lockstep(args, n_hosts, n_blocks=4, m_chunk=8, p_chunk=4, device="cpu")
+    for name, k, p in zip(MH.OUTPUT_NAMES, got["outputs"], want["outputs"]):
+        np.testing.assert_array_equal(k, p, err_msg=name)
+    assert (got["outputs"][1] > 0).sum() > 0

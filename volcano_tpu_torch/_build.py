@@ -6,7 +6,14 @@ interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
          -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu
-    nvcc -shared -o build/volcano_tpu_torch/libvtt_kernels.so *.o
+    nvcc -shared -o build/volcano_tpu_torch/libvtt_kernels-<hash>.so *.o
+
+The library's name carries a hash of the sources and the flags: a process
+finds the library another process of the same checkout built from the same
+sources and loads it (the multi-controller workers of
+``parallel/multihost.py`` do); a build compiles into a directory of its own
+and moves the finished library into place, so two processes never write
+one file.
 
 ``--fmad=false`` keeps nvcc from contracting products into fused
 multiply-adds; the sources write out the few fused operations the
@@ -18,6 +25,7 @@ register and shared-memory lines from the build.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -31,7 +39,7 @@ SOURCES = ("water_fill.cu", "allocate_solve.cu", "allocate_batch.cu",
            "reclaim_solve.cu", "preempt_solve.cu", "preempt_rounds.cu",
            "victim_step.cu")
 BUILD_DIR = _PKG.parent / "build" / "volcano_tpu_torch"
-LIB_NAME = "libvtt_kernels.so"
+LIB_STEM = "libvtt_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,14 +57,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def lib_path(build_dir: Path = BUILD_DIR) -> Path:
+    """Where the library of these sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return build_dir / f"{LIB_STEM}-{h.hexdigest()[:16]}.so"
+
+
 def build(build_dir: Path = BUILD_DIR) -> Path:
     """Compile every source in parallel and link the library; returns its
     path.  Raises RuntimeError with the compiler output on failure."""
     nvcc = _nvcc()
-    build_dir.mkdir(parents=True, exist_ok=True)
+    target = lib_path(build_dir)
+    work = build_dir / f"tmp-{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
     procs = []
     for src in SOURCES:
-        obj = build_dir / (Path(src).stem + ".o")
+        obj = work / (Path(src).stem + ".o")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -72,14 +91,16 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
         objs.append(str(obj))
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    lib = build_dir / LIB_NAME
+    lib = work / f"{LIB_STEM}.so"
     link = subprocess.run(
         [nvcc, "-shared", "-o", str(lib), *objs],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if link.returncode:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    return lib
+    os.replace(lib, target)
+    shutil.rmtree(work, ignore_errors=True)
+    return target
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -99,15 +120,23 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = ci
     lib.vtt_victim_step.argtypes = [vp, ci, ci, ci, ci, vp, vp]
     lib.vtt_victim_step.restype = ci
+    # K12b: (blocks, count, t_cls, jt, qt, mode, send, stream) and (base,
+    # blocks, count, t_cls, jt, qt, mode, recv, S, out, vsum, stream)
+    lib.vtt_victim_blocks_core.argtypes = [vp, ci, ci, ci, ci, ci, vp, vp]
+    lib.vtt_victim_blocks_core.restype = ci
+    lib.vtt_victim_blocks_apply.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, ci, vp, vp, vp]
+    lib.vtt_victim_blocks_apply.restype = ci
     return lib
 
 
 def load() -> ctypes.CDLL:
-    """The loaded kernel library, building it on first use."""
+    """The loaded kernel library, building it on first use unless a library
+    of the same sources is already built."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = bind(ctypes.CDLL(str(build())))
+            path = lib_path()
+            _lib = bind(ctypes.CDLL(str(path if path.exists() else build())))
         return _lib
 
 

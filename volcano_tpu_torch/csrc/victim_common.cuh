@@ -141,6 +141,8 @@ struct VttVictimArgs {
   int64_t V, N, R, T, J, Q, C, nu, nq, M, P, K, F, jr_cap, TB, TILE;
   int64_t use_gang, use_drf, use_prop, use_conformance, order_by_priority;
   int64_t has_proportion, gang_pipelined, n_keys, key0, key1, key2;
+  // K12b: the node planes are rows [n0, n0 + N) of NT (0: all NT = N rows)
+  int64_t n0, NT;
   float w_least, w_balanced;
 };
 
@@ -154,6 +156,14 @@ __device__ __forceinline__ int vtt_row_queue(const VttVictimArgs& a, int v) {
 }
 
 // ---- setup: the pool grouped by node ------------------------------------
+
+// pool row v's node as a row of these node planes, or -1 when it lies in
+// another block (K12b); out-of-range nodes clamp into [0, NT) as in K7
+__device__ __forceinline__ int vtt_v_node(const VttVictimArgs& a, int v) {
+  const int nt = a.NT > 0 ? (int)a.NT : (int)a.N;
+  const int n = vtt_clamp(a.run_node[v], 0, nt - 1) - (int)a.n0;
+  return n >= 0 && n < a.N ? n : -1;
+}
 
 // eviction-order key kinds
 enum { VTT_EV_RECLAIM = 0, VTT_EV_PREEMPT = 1, VTT_EV_ROUNDS = 2 };
@@ -178,8 +188,9 @@ __device__ __forceinline__ bool vtt_ev_less(const VttVictimArgs& a, int kind,
 
 static __global__ void vtt_v_count(VttVictimArgs a) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v < a.V && a.run_live[v])
-    atomicAdd(&a.node_fill[vtt_clamp(a.run_node[v], 0, (int)a.N - 1)], 1);
+  if (v >= a.V || !a.run_live[v]) return;
+  const int n = vtt_v_node(a, v);
+  if (n >= 0) atomicAdd(&a.node_fill[n], 1);
 }
 
 // exclusive scan of cnt[0..n) into off[0..n]; one CTA, then cnt := 0
@@ -213,22 +224,22 @@ static __global__ void vtt_v_scan(int32_t* cnt, int32_t* off, int n) {
 static __global__ void vtt_v_bucket(VttVictimArgs a) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= a.V || !a.run_live[v]) return;
-  const int n = vtt_clamp(a.run_node[v], 0, (int)a.N - 1);
-  a.bucket[a.node_off[n] + atomicAdd(&a.node_fill[n], 1)] = v;
+  const int n = vtt_v_node(a, v);
+  if (n >= 0) a.bucket[a.node_off[n] + atomicAdd(&a.node_fill[n], 1)] = v;
 }
 
-// each live row's rank among its node's rows under every order
-static __global__ void vtt_v_order(VttVictimArgs a, int ev_kind) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= a.V || !a.run_live[v]) return;
+// Row v's rank among the rows rows[off, end) of its node under every
+// order, written into the four per-node lists at off + rank.
+__device__ __forceinline__ void vtt_rank_row(const VttVictimArgs& a, int ev_kind, int v,
+                                             const int32_t* rows, int off, int end,
+                                             int32_t* l_vidx, int32_t* l_ev, int32_t* l_drf,
+                                             int32_t* l_prop) {
   const int Q = (int)a.Q;
-  const int n = vtt_clamp(a.run_node[v], 0, (int)a.N - 1);
-  const int off = a.node_off[n], end = a.node_off[n + 1];
   const int jv = a.run_job[v];
   const int qv = vtt_clamp(vtt_row_queue(a, v), 0, Q - 1);
   int p_vidx = 0, p_ev = 0, p_drf = 0, p_prop = 0;
   for (int i = off; i < end; ++i) {
-    const int u = a.bucket[i];
+    const int u = rows[i];
     if (u == v) continue;
     p_vidx += u < v;
     p_ev += vtt_ev_less(a, ev_kind, u, v);
@@ -237,10 +248,20 @@ static __global__ void vtt_v_order(VttVictimArgs a, int ev_kind) {
     const int qu = vtt_clamp(vtt_row_queue(a, u), 0, Q - 1);
     p_prop += qu < qv || (qu == qv && u < v);
   }
-  a.l_vidx[off + p_vidx] = v;
-  a.l_ev[off + p_ev] = v;
-  a.l_drf[off + p_drf] = v;
-  a.l_prop[off + p_prop] = v;
+  l_vidx[off + p_vidx] = v;
+  l_ev[off + p_ev] = v;
+  l_drf[off + p_drf] = v;
+  l_prop[off + p_prop] = v;
+}
+
+// each live row's rank among its node's rows under every order
+static __global__ void vtt_v_order(VttVictimArgs a, int ev_kind) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= a.V || !a.run_live[v]) return;
+  const int n = vtt_v_node(a, v);
+  if (n < 0) return;
+  vtt_rank_row(a, ev_kind, v, a.bucket, a.node_off[n], a.node_off[n + 1], a.l_vidx, a.l_ev,
+               a.l_drf, a.l_prop);
 }
 
 // launches the setup kernels; node_fill must be zero
@@ -274,21 +295,17 @@ __device__ __forceinline__ bool vtt_row_base(const VttVictimArgs& a,
   return rq != at.qt;
 }
 
-// The flags of node n's rows and the node's verdict for this attempt:
-// valid (predicates, an admitted candidate, validateVictims) and covered
-// (the candidates' total covers the request); key is the walk key.
-static __device__ void vtt_core_node(const VttVictimArgs& a, const VttAttempt& at,
-                              int n, bool& valid, bool& covered, float& key) {
-  const int N = (int)a.N, R = (int)a.R, Q = (int)a.Q;
-  valid = covered = false;
-  key = 0.0f;
-  const int off = a.node_off[n], end = a.node_off[n + 1];
-  if (off == end || !a.node_valid[n] || !a.class_mask[(size_t)at.cls * N + n] ||
-      !((long long)a.task_count[n] + 1 <= (long long)a.node_max_tasks[n]))
-    return;
+// The flags of one node's rows for this attempt (base, the vetoes, the
+// eviction-order prefix), from the node's lists [off, end): pool order,
+// (job, row), (queue, row) and eviction order.  Returns the candidate count
+// and their total in acc[] (float64, exact: whole-number requests).
+static __device__ int vtt_node_flags(const VttVictimArgs& a, const VttAttempt& at, int off,
+                                     int end, const int32_t* l_vidx, const int32_t* l_drf,
+                                     const int32_t* l_prop, const int32_t* l_ev, double* acc) {
+  const int R = (int)a.R, Q = (int)a.Q;
   // base and the plain vetoes
   for (int i = off; i < end; ++i) {
-    const int v = a.l_vidx[i];
+    const int v = l_vidx[i];
     uint8_t f = 0;
     if (vtt_row_base(a, at, v)) {
       f = VF_BASE;
@@ -303,13 +320,12 @@ static __device__ void vtt_core_node(const VttVictimArgs& a, const VttAttempt& a
     }
     a.flag[v] = f;
   }
-  double acc[VTT_MAX_R];
   float part[VTT_MAX_R];
   if (a.use_drf) {
     // hypothetical transfer per (node, job): every base row subtracts
     int pj = -1;
     for (int i = off; i < end; ++i) {
-      const int v = a.l_drf[i];
+      const int v = l_drf[i];
       const int j = a.run_job[v];
       if (j != pj) {
         for (int r = 0; r < R; ++r) acc[r] = 0.0;
@@ -329,7 +345,7 @@ static __device__ void vtt_core_node(const VttVictimArgs& a, const VttAttempt& a
     // per (node, queue): queues stay at or above deserved
     int pq = -1;
     for (int i = off; i < end; ++i) {
-      const int v = a.l_prop[i];
+      const int v = l_prop[i];
       const int rq = vtt_row_queue(a, v);
       const int q = vtt_clamp(rq, 0, Q - 1);
       if (q != pq) {
@@ -351,7 +367,7 @@ static __device__ void vtt_core_node(const VttVictimArgs& a, const VttAttempt& a
   for (int r = 0; r < R; ++r) acc[r] = 0.0;
   int cnt = 0;
   for (int i = off; i < end; ++i) {
-    const int v = a.l_ev[i];
+    const int v = l_ev[i];
     const uint8_t f = a.flag[v];
     if (!(f & VF_CAND)) continue;
     ++cnt;
@@ -362,7 +378,24 @@ static __device__ void vtt_core_node(const VttVictimArgs& a, const VttAttempt& a
     }
     if (cnt == 1 || !vtt_less_equal(at.req, part, a.eps, R)) a.flag[v] = f | VF_INPRE;
   }
-  if (cnt == 0) return;
+  return cnt;
+}
+
+// The flags of node n's rows and the node's verdict for this attempt:
+// valid (predicates, an admitted candidate, validateVictims) and covered
+// (the candidates' total covers the request); key is the walk key.
+static __device__ void vtt_core_node(const VttVictimArgs& a, const VttAttempt& at,
+                              int n, bool& valid, bool& covered, float& key) {
+  const int N = (int)a.N, R = (int)a.R;
+  valid = covered = false;
+  key = 0.0f;
+  const int off = a.node_off[n], end = a.node_off[n + 1];
+  if (off == end || !a.node_valid[n] || !a.class_mask[(size_t)at.cls * N + n] ||
+      !((long long)a.task_count[n] + 1 <= (long long)a.node_max_tasks[n]))
+    return;
+  double acc[VTT_MAX_R];
+  if (vtt_node_flags(a, at, off, end, a.l_vidx, a.l_drf, a.l_prop, a.l_ev, acc) == 0) return;
+  float part[VTT_MAX_R];
   bool all_below = true;
   for (int r = 0; r < R; ++r) {
     part[r] = (float)acc[r];
@@ -372,7 +405,8 @@ static __device__ void vtt_core_node(const VttVictimArgs& a, const VttAttempt& a
   covered = valid && vtt_less_equal(at.req, part, a.eps, R);
   if (!valid) return;
   if (at.mode == 2) {
-    key = (float)n;
+    // reclaim walks the snapshot order: the global node row
+    key = (float)(a.n0 + n);
   } else {
     key = -vtt_score_node(at.req, &a.used[(size_t)n * R], &a.node_alloc[(size_t)n * R],
                           a.class_score[(size_t)at.cls * N + n], a.w_least,
@@ -392,10 +426,11 @@ struct VttCoreShared {
   int ic[VTT_VICTIM_THREADS], iv[VTT_VICTIM_THREADS];
 };
 
-// The whole CTA runs the attempt; every thread returns the decision:
-// nstar (-1 when no node is covered) and clean.
-static __device__ void vtt_core(const VttVictimArgs& a, const VttAttempt& at,
-                         VttCoreShared& sh, int& nstar, bool& clean) {
+// The whole CTA scans its nodes; sh.kc[0] / sh.ic[0] and sh.kv[0] /
+// sh.iv[0] end as the (key, node) lexicographic minimum over the covered
+// and the valid nodes (ic / iv -1 when there is none).
+static __device__ void vtt_core_scan(const VttVictimArgs& a, const VttAttempt& at,
+                                     VttCoreShared& sh) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   float kc = 0.0f, kv = 0.0f;
   int ic = -1, iv = -1;
@@ -430,6 +465,13 @@ static __device__ void vtt_core(const VttVictimArgs& a, const VttAttempt& at,
     }
     __syncthreads();
   }
+}
+
+// The whole CTA runs the attempt; every thread returns the decision:
+// nstar (-1 when no node is covered) and clean.
+static __device__ void vtt_core(const VttVictimArgs& a, const VttAttempt& at,
+                         VttCoreShared& sh, int& nstar, bool& clean) {
+  vtt_core_scan(a, at, sh);
   nstar = sh.ic[0];
   if (nstar >= 0)
     clean = sh.kv[0] == sh.kc[0] && sh.iv[0] == nstar;
@@ -490,18 +532,17 @@ __device__ __forceinline__ void vtt_jrestore(const VttVictimArgs& a, VttJournal&
   jr.len = 0;
 }
 
-// Apply an ok attempt on node n (one thread): evict the node's in-prefix
-// candidates, pipeline the preemptor.  Returns the victim count.
-static __device__ int vtt_apply(const VttVictimArgs& a, const VttAttempt& at, int n,
-                         VttJournal& jr) {
+// Evict the in-prefix candidates of one node's eviction list l_ev[off,
+// end) (one thread): the victims' per-job and per-queue sums, run_live and
+// evict_att.  Returns the victim count and their total in vs[] (float64).
+static __device__ int vtt_evict_prefix(const VttVictimArgs& a, const int32_t* l_ev, int off,
+                                       int end, VttJournal& jr, double* vs) {
   const int R = (int)a.R, Q = (int)a.Q;
-  const int off = a.node_off[n], end = a.node_off[n + 1];
   const int att = a.ctl[VC_ATT];
-  double vs[VTT_MAX_R];
   for (int r = 0; r < R; ++r) vs[r] = 0.0;
   int nv = 0;
   for (int i = off; i < end; ++i) {
-    const int v = a.l_ev[i];
+    const int v = l_ev[i];
     if (!(a.flag[v] & VF_INPRE)) continue;
     ++nv;
     for (int r = 0; r < R; ++r) vs[r] += (double)a.run_req[(size_t)v * R + r];
@@ -509,13 +550,13 @@ static __device__ int vtt_apply(const VttVictimArgs& a, const VttAttempt& at, in
   // per job and per queue of the victims: one rounded sum each, applied
   // at the job's / queue's first victim in eviction order
   for (int i = off; i < end; ++i) {
-    const int v = a.l_ev[i];
+    const int v = l_ev[i];
     if (!(a.flag[v] & VF_INPRE)) continue;
     const int j = a.run_job[v];
     const int rq = a.job_queue[j];
     bool first_j = true, first_q = true;
     for (int i2 = off; i2 < i; ++i2) {
-      const int u = a.l_ev[i2];
+      const int u = l_ev[i2];
       if (!(a.flag[u] & VF_INPRE)) continue;
       first_j = first_j && a.run_job[u] != j;
       first_q = first_q && a.job_queue[a.run_job[u]] != rq;
@@ -525,7 +566,7 @@ static __device__ int vtt_apply(const VttVictimArgs& a, const VttAttempt& at, in
       int jc = 0;
       for (int r = 0; r < R; ++r) js[r] = 0.0;
       for (int i2 = i; i2 < end; ++i2) {
-        const int u = a.l_ev[i2];
+        const int u = l_ev[i2];
         if (!(a.flag[u] & VF_INPRE) || a.run_job[u] != j) continue;
         ++jc;
         for (int r = 0; r < R; ++r) js[r] += (double)a.run_req[(size_t)u * R + r];
@@ -539,7 +580,7 @@ static __device__ int vtt_apply(const VttVictimArgs& a, const VttAttempt& at, in
       double qs[VTT_MAX_R];
       for (int r = 0; r < R; ++r) qs[r] = 0.0;
       for (int i2 = i; i2 < end; ++i2) {
-        const int u = a.l_ev[i2];
+        const int u = l_ev[i2];
         if (!(a.flag[u] & VF_INPRE) || a.job_queue[a.run_job[u]] != rq) continue;
         for (int r = 0; r < R; ++r) qs[r] += (double)a.run_req[(size_t)u * R + r];
       }
@@ -550,11 +591,22 @@ static __device__ int vtt_apply(const VttVictimArgs& a, const VttAttempt& at, in
     }
   }
   for (int i = off; i < end; ++i) {
-    const int v = a.l_ev[i];
+    const int v = l_ev[i];
     if (!(a.flag[v] & VF_INPRE)) continue;
     vtt_wb(a, jr, &a.run_live[v], 0);
     vtt_wi(a, jr, &a.evict_att[v], att);
   }
+  return nv;
+}
+
+// Apply an ok attempt on node n (one thread): evict the node's in-prefix
+// candidates, pipeline the preemptor.  Returns the victim count.
+static __device__ int vtt_apply(const VttVictimArgs& a, const VttAttempt& at, int n,
+                         VttJournal& jr) {
+  const int R = (int)a.R, Q = (int)a.Q;
+  const int att = a.ctl[VC_ATT];
+  double vs[VTT_MAX_R];
+  const int nv = vtt_evict_prefix(a, a.l_ev, a.node_off[n], a.node_off[n + 1], jr, vs);
   for (int r = 0; r < R; ++r) {
     const size_t nr = (size_t)n * R + r;
     vtt_wf(a, jr, &a.releasing[nr], a.releasing[nr] + ((float)vs[r] - at.req[r]));

@@ -21,7 +21,55 @@
 // returns its updated state either way.  The last kernel packs the result
 // into one int32 buffer: assigned, nstar (0 when unassigned), clean, the
 // victim count, then the victim mask as ceil(V / 32) words.
+//
+// K12b: the same solve with the node planes of the constants and state in
+// blocks of rows.  Replaces volcano_tpu/parallel/sharded.py:202
+// `make_sharded_victim_step` (K7 with `_VICTIM_SPECS`: node planes split
+// over the mesh's node axis, the [V] pool replicated).  Per preemptor:
+//   1. vtt_victim_blocks_core, for each of this process's blocks: the setup
+//      kernels group the pool rows whose node lies in the block (offsets for
+//      the block's own rows only), and one CTA runs the core over them and
+//      writes a record of VTT_VB_WORDS int32: the (walk key, global row)
+//      lexicographic minimum over the block's covered nodes and over its
+//      valid nodes, and the two any-flags;
+//   2. the caller exchanges the records (the records buffer itself on one
+//      device, an all-gather over a process group);
+//   3. vtt_victim_blocks_apply: one CTA takes the minimum of the S records
+//      (assigned, nstar, clean exactly as the one-block core defines them),
+//      then gathers nstar's live pool rows itself, ranks them in the node's
+//      four orders, reruns the node's flag pass and evicts the prefix into
+//      the replicated state (run_live, job, queue); the block that owns nstar
+//      adds the preemptor and the victims' total to its node rows.
+// Every block recomputes nstar's victims rather than receiving the owner's
+// mask words in a second exchange: what the flag pass reads (the pool,
+// run_live, the job and queue state) is replicated, nstar's rows are a few
+// dozen, and one exchange a preemptor is one host round trip fewer over a
+// process group.  The same per-node lists and float64 sums as K7 make every
+// block count give the one-block outputs bit for bit, state included.
 #include "victim_common.cuh"
+
+// K12b record: kmin_cov bits, nstar_cov, kmin_val bits, nstar_val (global
+// rows, -1 for none), any covered, any valid
+#define VTT_VB_WORDS 6
+
+// the preemptor's attempt: request task_req[0], class, job, queue, mode,
+// and its DRF share keyed on the drf flag alone
+__device__ __forceinline__ void vtt_step_attempt(const VttVictimArgs& a, VttAttempt& at,
+                                                 int t_cls, int jt, int qt, int mode) {
+  const int R = (int)a.R;
+  at.t = 0;
+  at.jt = jt;
+  at.qt = qt;
+  at.mode = mode;
+  at.cls = t_cls;
+  for (int r = 0; r < R; ++r) at.req[r] = a.task_req[r];
+  at.ls = 0.0f;
+  if (a.use_drf) {
+    float sum[VTT_MAX_R];
+    for (int r = 0; r < R; ++r) sum[r] = a.job_alloc[(size_t)jt * R + r] + at.req[r];
+    at.ls = vtt_dominant_share(sum, a.total, R);
+  }
+}
 
 __global__ void __launch_bounds__(VTT_VICTIM_THREADS)
     vtt_victim_step_kernel(VttVictimArgs a, int t_cls, int jt, int qt, int mode,
@@ -29,22 +77,7 @@ __global__ void __launch_bounds__(VTT_VICTIM_THREADS)
   __shared__ VttCoreShared sh;
   __shared__ VttAttempt s_at;
   const int tid = threadIdx.x;
-  const int R = (int)a.R;
-  if (tid == 0) {
-    VttAttempt& at = s_at;
-    at.t = 0;
-    at.jt = jt;
-    at.qt = qt;
-    at.mode = mode;
-    at.cls = t_cls;
-    for (int r = 0; r < R; ++r) at.req[r] = a.task_req[r];
-    at.ls = 0.0f;
-    if (a.use_drf) {
-      float sum[VTT_MAX_R];
-      for (int r = 0; r < R; ++r) sum[r] = a.job_alloc[(size_t)jt * R + r] + at.req[r];
-      at.ls = vtt_dominant_share(sum, a.total, R);
-    }
-  }
+  if (tid == 0) vtt_step_attempt(a, s_at, t_cls, jt, qt, mode);
   __syncthreads();
   int nstar;
   bool clean;
@@ -83,6 +116,150 @@ extern "C" int vtt_victim_step(const VttVictimArgs* args, int t_cls, int jt, int
   if (err) return err;
   int32_t* o = (int32_t*)out;
   VTT_LAUNCH(vtt_victim_step_kernel, 1, VTT_VICTIM_THREADS, 0, s)(a, t_cls, jt, qt, mode, o);
+  const int nw = (int)((a.V + 31) / 32);
+  VTT_LAUNCH(vtt_victim_step_pack, (nw + 255) / 256, 256, 0, s)(a, o);
+  return (int)cudaGetLastError();
+}
+
+// ---- K12b: the victim solve on node blocks -------------------------------
+
+// one block's core over its own rows, as a record
+__global__ void __launch_bounds__(VTT_VICTIM_THREADS)
+    vtt_vb_core(VttVictimArgs a, int t_cls, int jt, int qt, int mode, int32_t* rec) {
+  __shared__ VttCoreShared sh;
+  __shared__ VttAttempt s_at;
+  if (threadIdx.x == 0) vtt_step_attempt(a, s_at, t_cls, jt, qt, mode);
+  __syncthreads();
+  vtt_core_scan(a, s_at, sh);
+  if (threadIdx.x == 0) {
+    const int ic = sh.ic[0], iv = sh.iv[0];
+    rec[0] = __float_as_int(sh.kc[0]);
+    rec[1] = ic >= 0 ? (int)a.n0 + ic : -1;
+    rec[2] = __float_as_int(sh.kv[0]);
+    rec[3] = iv >= 0 ? (int)a.n0 + iv : -1;
+    rec[4] = ic >= 0;
+    rec[5] = iv >= 0;
+  }
+}
+
+// the replicated merge and apply over the S exchanged records (`a`: the
+// process's replicated arguments, N the mesh's rows)
+__global__ void __launch_bounds__(VTT_VICTIM_THREADS)
+    vtt_vb_merge(VttVictimArgs a, int t_cls, int jt, int qt, int mode, const int32_t* recv,
+                 int S, int32_t* out, float* vsum) {
+  __shared__ VttAttempt s_at;
+  __shared__ int s_nstar, s_clean, s_m;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int R = (int)a.R, Q = (int)a.Q;
+  if (tid == 0) {
+    vtt_step_attempt(a, s_at, t_cls, jt, qt, mode);
+    float kc = 0.0f, kv = 0.0f;
+    int ic = -1, iv = -1;
+    for (int b = 0; b < S; ++b) {
+      const int32_t* r = recv + (size_t)b * VTT_VB_WORDS;
+      if (r[4] && vtt_kmin_better(__int_as_float(r[0]), r[1], kc, ic)) {
+        kc = __int_as_float(r[0]);
+        ic = r[1];
+      }
+      if (r[5] && vtt_kmin_better(__int_as_float(r[2]), r[3], kv, iv)) {
+        kv = __int_as_float(r[2]);
+        iv = r[3];
+      }
+    }
+    s_nstar = ic;
+    s_clean = ic >= 0 ? (kv == kc && iv == ic) : iv < 0;
+    s_m = 0;
+  }
+  __syncthreads();
+  const int nstar = s_nstar;
+  int nv = 0;
+  if (nstar >= 0) {
+    // nstar's live rows, then their ranks in the node's orders
+    for (int v = tid; v < a.V; v += nthr)
+      if (a.run_live[v] && vtt_clamp(a.run_node[v], 0, (int)a.N - 1) == nstar)
+        a.bucket[atomicAdd(&s_m, 1)] = v;
+    __syncthreads();
+    const int m = s_m;
+    const int ev_kind = mode == 2 ? VTT_EV_RECLAIM : VTT_EV_PREEMPT;
+    for (int i = tid; i < m; i += nthr)
+      vtt_rank_row(a, ev_kind, a.bucket[i], a.bucket, 0, m, a.l_vidx, a.l_ev, a.l_drf,
+                   a.l_prop);
+    __syncthreads();
+    if (tid == 0) {
+      double acc[VTT_MAX_R], vs[VTT_MAX_R];
+      vtt_node_flags(a, s_at, 0, m, a.l_vidx, a.l_drf, a.l_prop, a.l_ev, acc);
+      VttJournal jr{false, 0};
+      nv = vtt_evict_prefix(a, a.l_ev, 0, m, jr, vs);
+      for (int r = 0; r < R; ++r) {
+        const size_t jr_ = (size_t)jt * R + r;
+        a.job_alloc[jr_] = a.job_alloc[jr_] + s_at.req[r];
+        if (qt >= 0) {
+          const size_t qr = (size_t)min(qt, Q - 1) * R + r;
+          a.queue_alloc[qr] = a.queue_alloc[qr] + s_at.req[r];
+        }
+        vsum[r] = (float)vs[r];
+      }
+    }
+  }
+  if (tid == 0) {
+    out[0] = nstar >= 0;
+    out[1] = nstar >= 0 ? nstar : 0;
+    out[2] = s_clean;
+    out[3] = nv;
+  }
+}
+
+// the owner block's node rows: the preemptor pipelined on nstar
+static __global__ void vtt_vb_own(VttVictimArgs a, const int32_t* out, const float* vsum) {
+  if (!out[0]) return;
+  const int n = out[1] - (int)a.n0;
+  if (n < 0 || n >= a.N) return;
+  const int R = (int)a.R;
+  for (int r = 0; r < R; ++r) {
+    const size_t nr = (size_t)n * R + r;
+    a.releasing[nr] = a.releasing[nr] + (vsum[r] - a.task_req[r]);
+    a.used[nr] = a.used[nr] + a.task_req[r];
+  }
+  a.task_count[n] = a.task_count[n] + 1;
+}
+
+static inline bool vtt_vb_ok(const VttVictimArgs& a, int t_cls, int jt, int mode) {
+  return a.R >= 2 && a.R <= VTT_MAX_R && mode >= 0 && mode <= 2 && jt >= 0 && jt < a.J &&
+         t_cls >= 0 && t_cls < a.C;
+}
+
+// First half of a K12b solve: each local block's setup and core, its record
+// into `send` [n_blocks, VTT_VB_WORDS].  Each block's node_fill must be zero.
+extern "C" int vtt_victim_blocks_core(const VttVictimArgs* blocks, int n_blocks, int t_cls,
+                                      int jt, int qt, int mode, void* send, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int32_t* rec = (int32_t*)send;
+  for (int b = 0; b < n_blocks; ++b) {
+    const VttVictimArgs& a = blocks[b];
+    if (!vtt_vb_ok(a, t_cls, jt, mode)) return (int)cudaErrorInvalidValue;
+    int err = vtt_victim_setup(a, mode == 2 ? VTT_EV_RECLAIM : VTT_EV_PREEMPT, s);
+    if (err) return err;
+    VTT_LAUNCH(vtt_vb_core, 1, VTT_VICTIM_THREADS, 0, s)(a, t_cls, jt, qt, mode,
+                                                          rec + (size_t)b * VTT_VB_WORDS);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Second half, after the exchange filled `recv` [S, VTT_VB_WORDS]: the
+// replicated merge and apply, the owner's node rows, the packed decision
+// into `out` [4 + ceil(V / 32)]; `vsum` is [R] float scratch.
+extern "C" int vtt_victim_blocks_apply(const VttVictimArgs* base, const VttVictimArgs* blocks,
+                                       int n_blocks, int t_cls, int jt, int qt, int mode,
+                                       const void* recv, int S, void* out, void* vsum,
+                                       void* stream) {
+  const VttVictimArgs& a = *base;
+  if (!vtt_vb_ok(a, t_cls, jt, mode) || S < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int32_t* o = (int32_t*)out;
+  float* vf = (float*)vsum;
+  VTT_LAUNCH(vtt_vb_merge, 1, VTT_VICTIM_THREADS, 0, s)(a, t_cls, jt, qt, mode,
+                                                        (const int32_t*)recv, S, o, vf);
+  for (int b = 0; b < n_blocks; ++b) VTT_LAUNCH(vtt_vb_own, 1, 1, 0, s)(blocks[b], o, vf);
   const int nw = (int)((a.V + 31) / 32);
   VTT_LAUNCH(vtt_victim_step_pack, (nw + 255) / 256, 256, 0, s)(a, o);
   return (int)cudaGetLastError();

@@ -24,6 +24,15 @@ The port of ``volcano_tpu/parallel/sharded.py`` (``_cycle``,
   ``exact_topk=True``; the port's batch solve is always exact);
 * K1 (the water fill) runs replicated.
 
+The victim solve of the object path's preempt and reclaim (K12b,
+``make_sharded_victim_step``) splits the node planes of its constants and
+state the same way (``_VICTIM_SPECS``) and keeps the [V] pool whole: each
+block finds the best covered and the best valid node among its own rows,
+ONE exchange of those records gives every block the same node, and every
+block then ranks that node's pool rows itself, so the victims, the
+replicated state and the owner block's rows equal the one-block solve's bit
+for bit (``victim_kernels.victim_step_sharded``, ``victim_blocks_plain``).
+
 A mesh has two transports behind one interface (``exchange``,
 ``gather_rows``):
 
@@ -69,6 +78,18 @@ _REPLICATED = frozenset({
     "queue_participates",
     "total", "eps",
     "task_ports_w", "task_aff_w", "task_anti_w", "task_self_w",
+})
+
+#: the node planes of VictimConsts and VictimState, each mapped to its node
+#: axis as ``_SPECS`` maps the cycle's; the [V] pool and the job and queue
+#: state replicate (``_VICTIM_REPLICATED``); a field in neither table raises
+_VICTIM_SPECS: Dict[str, int] = {k: _SPECS[k] for k in (
+    "node_alloc", "node_max_tasks", "node_valid", "class_mask", "class_score",
+    "idle", "releasing", "used", "task_count")}
+_VICTIM_REPLICATED = frozenset({
+    "run_req", "run_node", "run_job", "run_prio", "run_rank", "run_evictable",
+    "job_queue", "job_min", "queue_deserved", "total", "eps", "w_least", "w_balanced",
+    "run_live", "job_alloc", "job_occupied", "queue_alloc",
 })
 
 #: the solve's input names for the node planes (``kernels.NODE_PLANES``)
@@ -158,15 +179,28 @@ class GroupMesh:
                 f"{self.device})")
 
 
+def local_device(device=None) -> torch.device:
+    """``device``, or the card when None; a CUDA device with no card
+    raises, never running on the CPU in its place."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("a mesh on the card needs a CUDA device and none is available; "
+                               "pass device='cpu' to run the plain PyTorch versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def make_mesh(n_blocks: Optional[int] = None, device=None):
     """A mesh of ``n_blocks`` node blocks: over the process group when one
     is initialised (one block a rank by default), else on ``device`` (the
-    CPU by default) alone."""
+    card by default) alone."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
         return GroupMesh(n_blocks or dist.get_world_size(), device)
-    return LocalMesh(n_blocks or 1, torch.device(device or "cpu"))
+    return LocalMesh(n_blocks or 1, local_device(device))
 
 
 def resolve_mesh(setting: Optional[str], device=None):
@@ -619,10 +653,10 @@ def _cycle(mesh, dargs, w_least, w_balanced, job_key_order, use_gang_ready, use_
 
 def run_cycle_reference(args, w_least=1.0, w_balanced=1.0,
                         job_key_order=("priority", "gang", "drf"), use_gang_ready=True,
-                        use_proportion=True, m_chunk=512, p_chunk=16, device="cpu"):
-    """The unsharded cycle on ``device`` (the parity oracle): K1, then
-    ``kernels.allocate_solve_batch`` on whole planes."""
-    dev = torch.device(device)
+                        use_proportion=True, m_chunk=512, p_chunk=16, device=None):
+    """The unsharded cycle on ``device`` (the card by default; the parity
+    oracle): K1, then ``kernels.allocate_solve_batch`` on whole planes."""
+    dev = local_device(device)
     t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in args.items()}
     deserved = K.water_fill(t["queue_weight"], t["queue_request"], t["total"], t["eps"],
                             t["queue_participates"])
@@ -663,3 +697,153 @@ def fetch_outputs(out, mesh=None) -> List[np.ndarray]:
             torch.cuda.synchronize(x.device)
         res.append(x.cpu().numpy())
     return res
+
+
+# --------------------------------------------------------------------------
+# K12b: the victim solve on node blocks
+# --------------------------------------------------------------------------
+
+def _place_victim(mesh, tup):
+    """A VictimConsts / VictimState of host arrays or tensors on the mesh's
+    device: node planes as tuples of this process's blocks, the rest whole."""
+    fields = {}
+    for name in tup._fields:
+        v = getattr(tup, name)
+        if name in ("w_least", "w_balanced"):
+            fields[name] = float(v)
+            continue
+        if name not in _VICTIM_SPECS and name not in _VICTIM_REPLICATED:
+            raise ValueError(f"victim field {name!r} has no declared placement")
+        t = v if torch.is_tensor(v) else torch.from_numpy(np.array(v, copy=True))
+        t = t.to(mesh.device)
+        fields[name] = split_rows(mesh, name, t) if name in _VICTIM_SPECS else t
+    return type(tup)(**fields)
+
+
+def make_sharded_victim_step(mesh, consts, state, **static_kw):
+    """(fn, dev_consts, dev_state): the victim solve on the mesh's node
+    blocks.  ``dev_consts`` / ``dev_state`` place ``consts`` and ``state``
+    (VictimConsts / VictimState of host arrays or tensors) with their node
+    planes split into this process's blocks; ``fn(dev_consts, dev_state,
+    t_req, t_cls, jt, qt)`` runs one preemptor's solve and returns
+    ``(new_state, assigned, nstar, vmask, clean)`` after the one fetch of the
+    decision (``vmask`` a numpy bool [V]); the new state's node planes stay
+    in this process's blocks, so chained solves stay blocked.
+    ``static_kw``: ``victim_step``'s mode and flags."""
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    dev_consts = _place_victim(mesh, consts)
+    dev_state = _place_victim(mesh, state)
+    V = dev_consts.run_req.shape[0]
+
+    def fn(c, s, t_req, t_cls, jt, qt):
+        if not torch.is_tensor(t_req):
+            t_req = torch.from_numpy(np.asarray(t_req, np.float32).copy())
+        out = VK.victim_step_sharded(c, s, t_req.to(mesh.device), int(t_cls), int(jt),
+                                     int(qt), mesh, **static_kw)
+        if out.packed.device.type == "cuda":
+            torch.cuda.synchronize(out.packed.device)
+        assigned, nstar, vmask, clean = VK.unpack_step(out.packed.cpu().numpy(), V)
+        return out.state, assigned, nstar, vmask, clean
+
+    return fn, dev_consts, dev_state
+
+
+def _kmin_better(ka, ia, kb, ib):
+    """(key, row) lexicographic order; a row of -1 is no entry."""
+    if ia < 0:
+        return False
+    return ib < 0 or ka < kb or (ka == kb and ia < ib)
+
+
+def victim_blocks_plain(c, s, t_req, t_cls, jt, qt, mesh, nb, *, mode="queue", use_gang=True,
+                        use_drf=False, use_prop=False, use_conformance=False,
+                        order_by_priority=True):
+    """The plain PyTorch version of ``victim_kernels.victim_step_sharded``
+    (same arguments): each block's core over its own rows as a record,
+    the mesh's exchange, the replicated merge, nstar's victims ranked again
+    from the replicated pool, the replicated update and the owner block's
+    rows."""
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    dev = c.run_req.device
+    V = c.run_req.shape[0]
+    Q = s.queue_alloc.shape[0]
+    N = nb * mesh.size
+    reclaim = mode == "reclaim"
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    base = VK._step_base(c, s, jt, qt, mode)
+    none = (None, None)
+    orders = ((VK._orders_drf(c) if use_drf else none)
+              + (VK._orders_prop(c, Q) if use_prop else none)
+              + VK._orders_evict(c, order_by_priority, reclaim))
+    flags = dict(use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
+                 use_conformance=use_conformance)
+    node_g = torch.clamp(c.run_node, 0, N - 1)
+
+    # each block: the lexicographic minima of its covered and valid nodes
+    send = torch.zeros((mesh.n_local, VK.VB_WORDS), dtype=torch.int32, device=dev)
+    for i in range(mesh.n_local):
+        n0 = (mesh.first + i) * nb
+        rows = (node_g >= n0) & (node_g < n0 + nb)
+        cand, _ = VK._victim_flags(c, s, t_req, jt, base, *orders, rows=rows, **flags)
+        tgt = torch.where(cand, node_g - n0, torch.full_like(node_g, nb))
+        node_tot = VK._segment_sum(torch.where(cand[:, None], c.run_req, zero), tgt,
+                                   nb + 1)[:nb]
+        any_adm = VK._segment_count(cand, tgt, nb + 1)[:nb] > 0
+        pred_ok = (c.node_valid[i] & c.class_mask[i][t_cls]
+                   & (s.task_count[i] + 1 <= c.node_max_tasks[i]))
+        valid = pred_ok & any_adm & ~torch.all(node_tot < t_req[None, :], dim=-1)
+        covered = VK.less_equal(t_req[None, :], node_tot, c.eps) & valid
+        if reclaim:
+            walk = torch.arange(n0, n0 + nb, device=dev).float()
+        else:
+            walk = -VK._score_nodes(t_req, s.used[i], c.node_alloc[i], c.class_score[i][t_cls],
+                                    c.w_least, c.w_balanced)
+        for k, mask in ((0, covered), (2, valid)):
+            if bool(mask.any()):
+                kmin = torch.min(torch.where(mask, walk, torch.full_like(walk, VK.POS_INF)))
+                row = int(torch.argmax((mask & (walk == kmin)).to(torch.int8)))
+                send[i, k] = kmin.view(torch.int32)
+                send[i, k + 1] = n0 + row
+                send[i, 4 + k // 2] = 1
+            else:
+                send[i, k + 1] = -1
+    recv = mesh.exchange(send)
+
+    # the replicated merge
+    kc = kv = 0.0
+    ic = iv = -1
+    for rec in recv.cpu().tolist():
+        kr = torch.tensor(rec, dtype=torch.int32).view(torch.float32).tolist()
+        if rec[4] and _kmin_better(kr[0], rec[1], kc, ic):
+            kc, ic = kr[0], rec[1]
+        if rec[5] and _kmin_better(kr[2], rec[3], kv, iv):
+            kv, iv = kr[2], rec[3]
+    assigned = ic >= 0
+    nstar = ic if assigned else 0
+    clean = (kv == kc and iv == ic) if assigned else iv < 0
+
+    # nstar's victims, ranked again from the replicated pool
+    vmask = torch.zeros(V, dtype=torch.bool, device=dev)
+    if assigned:
+        rows = node_g == nstar
+        _, in_prefix = VK._victim_flags(c, s, t_req, jt, base, *orders, rows=rows, **flags)
+        vmask = in_prefix & rows
+    (run_live, job_alloc, job_occupied, queue_alloc), vsum, t_add = VK._victim_apply(
+        c, s, t_req, jt, qt, assigned, vmask)
+    # the owner block's rows
+    releasing, used, task_count = [], [], []
+    for i in range(mesh.n_local):
+        rel, use, tc = s.releasing[i].clone(), s.used[i].clone(), s.task_count[i].clone()
+        local = nstar - (mesh.first + i) * nb
+        if assigned and 0 <= local < nb:
+            VK._add_to_node(rel, use, tc, local, vsum, t_add, assigned)
+        releasing.append(rel)
+        used.append(use)
+        task_count.append(tc)
+    state = VK.VictimState(
+        run_live=run_live, idle=s.idle, releasing=tuple(releasing),
+        used=tuple(used), task_count=tuple(task_count), job_alloc=job_alloc,
+        job_occupied=job_occupied, queue_alloc=queue_alloc)
+    return VK.VictimStepOut(state, VK.pack_step(assigned, nstar, clean, vmask))

@@ -6,7 +6,10 @@ and checkpoint keys.  ``backend`` selects where the solves run: ``"cuda"``
 present) or ``"cpu"`` (their plain PyTorch versions).  ``mesh`` splits the
 batched solve's node planes into blocks (``parallel/sharded.py``
 ``resolve_mesh``): ``"off"``, ``"auto"`` (the process group's world size)
-or a power-of-two block count.
+or a power-of-two block count.  ``mesh_hosts`` / ``mesh_host_id`` launch the
+multi-controller cycle (``parallel/multihost.py``): every host runs the
+same global solve and publishes only its owned task block's binds; host 0,
+the coordinator, also owns statuses and enqueue admissions.
 """
 
 from __future__ import annotations
@@ -52,9 +55,22 @@ class SchedulerConf:
     # otherwise they all sit on this process's device.  Only the batched
     # solve shards (the exact solve stays on one block)
     mesh: str = "off"
-    # the multi-controller launch's host count (parallel/multihost.py in
-    # the JAX package); only 1 runs in the port
+    # the multi-controller launch (parallel/multihost.py): the host count
+    # and this process's host id; 1 / 0 is the single controller
     mesh_hosts: int = 1
+    mesh_host_id: int = 0
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        """Raise ValueError for a host count below 1 or a host id outside
+        [0, mesh_hosts) (the JAX loader's checks)."""
+        if self.mesh_hosts < 1:
+            raise ValueError(f"mesh_hosts must be >= 1, got {self.mesh_hosts}")
+        if not 0 <= self.mesh_host_id < self.mesh_hosts:
+            raise ValueError(f"mesh_host_id {self.mesh_host_id} outside "
+                             f"[0, {self.mesh_hosts})")
 
 
 def default_conf(backend: str = "cuda") -> SchedulerConf:

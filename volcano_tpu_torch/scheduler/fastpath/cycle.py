@@ -14,6 +14,10 @@ Where the JAX cycle hands jobs to its object sub-cycle, this cycle raises
 Under a conf mesh the batched solves (the express one and the dynamic
 one) run on node blocks; a contention pass under a mesh with
 ``solve_mode="batch"`` raises, as the JAX cycle would shard it there.
+Under ``mesh_hosts > 1`` every host runs the same global solve and fetches
+only its owned task block; a worker (``mesh_host_id != 0``) publishes only
+those binds, and the coordinator also owns the dynamic and best-effort
+placements, the PodGroup statuses and the enqueue admissions.
 """
 
 from __future__ import annotations
@@ -56,6 +60,12 @@ class FastCycle:
                                    mesh=getattr(scheduler, "mesh", None))
         self.gang_on = self.probe.gang_job_ready
         self.nodeaffinity_weight = self.probe.nodeaffinity_weight()
+        # multi-controller launch: host h publishes only the binds of its
+        # owned task block; host 0, the coordinator, also owns statuses,
+        # enqueue admissions, the dynamic and best-effort placements
+        self.mesh_hosts = max(int(self.conf.mesh_hosts), 1)
+        self.mesh_host_id = int(self.conf.mesh_host_id)
+        self.is_coordinator = self.mesh_host_id == 0
         self.mirror = None
         #: wall seconds per phase of the last try_run
         self.phases: Dict[str, float] = {}
@@ -112,7 +122,8 @@ class FastCycle:
             # device-first pass would invert priority under contention
             return False
         reclaim_work = "reclaim" in self.conf.actions and self._reclaim_possible(snap, aux)
-        if aux["residue_keys"] and not reclaim_work:
+        # a worker never runs the sub-cycle: the residue is the coordinator's
+        if aux["residue_keys"] and not reclaim_work and self.is_coordinator:
             # the JAX cycle hands these jobs to its residue engine; the
             # reasons name the classes (intern-overflow, best-effort,
             # volume-shape, volume-claim-cap, contended-claims, batch-wave)
@@ -152,6 +163,10 @@ class FastCycle:
             self.conf.tiers, self.sched.device, self.sched.uploads,
             solve_mode=self.conf.solve_mode, mesh=self.sched.mesh)
         backend.snapshot = snap
+        if self.mesh_hosts > 1:
+            # the owned-slice fetch: only this host's task block comes back
+            backend.mesh_host = self.mesh_host_id
+            backend.mesh_hosts = self.mesh_hosts
         if aux["n_tasks"]:
             task_node, task_kind, task_seq, ready = torch_allocate_solve(backend, snap)
         else:
@@ -231,12 +246,26 @@ class FastCycle:
                                "(clean=False)")
             ph["preempt"] = time.perf_counter() - t
 
+        if not self.is_coordinator:
+            # owned-slice publish: the fetch zero-filled the express rows
+            # outside this host's block; the dynamic rows and the backfill
+            # placements are the coordinator's.  The gang gate counts no
+            # backfill here (a gang made ready only by best-effort pods
+            # gates closed on the worker this cycle and heals next cycle)
+            T_express = snap.task_req.shape[0]
+            if task_kind.shape[0] > T_express:
+                task_kind = task_kind.copy()
+                task_kind[T_express:] = 0
+            be_rows = np.zeros(0, np.int64)
+            be_nodes = np.zeros(0, np.int32)
+            be_per_job = np.zeros_like(be_per_job)
         t = time.perf_counter()
         evicts, ready_status = self._collect_contention(m, snap, aux, cont)
         publish_and_close(self, m, snap, aux, task_node, task_kind, ready,
                           be_rows, be_nodes, be_per_job,
                           pe_rows_solve, task_job_solve, task_req_solve,
-                          evicts=evicts, ready_status=ready_status)
+                          evicts=evicts, ready_status=ready_status,
+                          write_status=self.is_coordinator)
         self._ship_enqueue_ops(enq_ops)
         ph["publish"] = time.perf_counter() - t
         return True
@@ -265,7 +294,7 @@ class FastCycle:
             # under solveMode: batch (fast_victims.py:144)
             raise NotImplementedError(
                 f"a contention pass under mesh {self.conf.mesh} with solve_mode 'batch' "
-                f"(K10 on node blocks): {_MESH_CONTENTION}")
+                f"(K8-K10 on node blocks): {_MESH_CONTENTION}")
         build_victim_pool(self.mirror, snap, aux)
         deserved = water_fill_np(snap.queue_weight, snap.queue_request, snap.total,
                                  snap.eps, snap.queue_participates)
@@ -461,7 +490,9 @@ class FastCycle:
         ]
 
     def _ship_enqueue_ops(self, ops: List[dict]) -> None:
-        if not ops:
+        if not ops or not self.is_coordinator:
+            # admissions are the coordinator's (a worker computes them for
+            # the solve's inputs and never writes them)
             return
         for op, err in zip(ops, self.store.bulk(ops)):
             if err is not None and not err.startswith("PreconditionFailed"):

@@ -30,14 +30,15 @@ def render_fit_error(total_nodes: int, reasons: Dict[str, int]) -> str:
 def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
                       be_rows, be_nodes, be_per_job, pe_rows_solve,
                       task_job_solve, task_req_solve, evicts=(),
-                      ready_status=None) -> List[Tuple[str, str]]:
+                      ready_status=None, write_status=True) -> List[Tuple[str, str]]:
     """``task_node``/``task_kind`` index the solves' merged task layout
     (express rows, then the dynamic solve's); ``pe_rows_solve``,
     ``task_job_solve`` and ``task_req_solve`` are that layout's mirror pod
     rows, jobs and requests.  ``evicts``: (pod_key, reason) victims of the
     contention passes.  ``ready_status``: per-job ready counts at the
     cycle's end for the status section when preempt ran after allocate
-    (the bind gate keeps allocate-time readiness)."""
+    (the bind gate keeps allocate-time readiness).  ``write_status``:
+    False on a multi-controller worker (statuses are the coordinator's)."""
     n_jobs = aux["n_jobs"]
     J = snap.job_min_available.shape[0]
     jm = snap.job_min_available
@@ -47,6 +48,12 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
     express_per_job = np.zeros(J, np.int64)
     if express.size:
         express_per_job += np.bincount(task_job_solve[express], minlength=J)
+    if fc.mesh_hosts > 1:
+        # the owned-slice fetch zero-filled task_kind outside this host's
+        # block: the per-job counts come from the ready deltas of the whole
+        # [J] plane every host fetched
+        express_per_job = np.maximum(
+            ready.astype(np.int64) - snap.job_ready_init.astype(np.int64), 0)
     ready_final = ready.astype(np.int64) + be_per_job
     gang_ready = ready_final >= jm if fc.gang_on else np.ones(J, bool)
 
@@ -93,12 +100,13 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
                if fc.gang_on else np.zeros(n_jobs, bool))
     shadow_job = aux["shadow_job"]
     fit_msgs = fit_errors(fc, snap, aux, task_node, task_kind,
-                          unready & ~shadow_job[: unready.shape[0]], task_req_solve)
+                          unready & ~shadow_job[: unready.shape[0]],
+                          task_req_solve) if write_status else {}
 
     phase_idx = m._phase_idx
     inqueue = phase_idx[PodGroupPhase.INQUEUE]
     ops: List[dict] = []
-    for j in range(n_jobs):
+    for j in range(n_jobs if write_status else 0):
         if shadow_job[j]:
             continue  # shadow gangs have no PodGroup to write to
         jrow = aux["job_rows"][j]

@@ -578,3 +578,38 @@ def build_dyn_solve_inputs(m: ArrayMirror, snap: TensorSnapshot, aux: dict,
         "task_ports_w": pad(m.p_ports[rows]), "task_aff_w": pad(m.p_aff_req[rows]),
         "task_anti_w": pad(m.p_aff_anti[rows]), "task_self_w": pad(m.p_selmatch[rows]),
     }
+
+
+# -- multi-controller host shards -----------------------------------------
+
+def host_plane_shard(args, host: int, n_hosts: int):
+    """ONE host's shard of the cycle-argument planes (JAX
+    ``host_plane_shard``): task planes by task block, node planes by node
+    block, replicated planes whole: the per-host snapshot-build unit of the
+    multi-controller cycle (``parallel/multihost.py``), whose lockstep run
+    times this call per host as that host's ``build_s``.  Slices are made
+    contiguous (``ascontiguousarray``: a row slice already is one, a column
+    slice of a [C, N] plane is copied).  A cycle argument with no declared
+    placement raises."""
+    from volcano_tpu_torch.parallel.multihost import _REPLICATED, _SPECS, host_bounds
+
+    out = {}
+    n_nodes = np.shape(args["idle"])[0]
+    n_tasks = np.shape(args["task_req"])[0]
+    nlo, nhi = host_bounds(n_nodes, n_hosts)[host]
+    tlo, thi = host_bounds(n_tasks, n_hosts)[host]
+    for name, v in args.items():
+        arr = np.asarray(v)
+        spec = _SPECS.get(name)
+        if spec is None:
+            if name not in _REPLICATED:
+                raise KeyError(f"cycle arg {name!r} has no declared multihost placement "
+                               "(_SPECS/_REPLICATED)")
+            out[name] = arr
+        elif spec[0] == "hosts":           # task plane, host-blocked
+            out[name] = np.ascontiguousarray(arr[tlo:thi])
+        elif spec[1] == 1:                 # [C, N]: node axis second
+            out[name] = np.ascontiguousarray(arr[:, nlo:nhi])
+        else:                              # node plane, axis 0
+            out[name] = np.ascontiguousarray(arr[nlo:nhi])
+    return out

@@ -9,9 +9,11 @@ off``.  ``backend="cuda"`` (the default) runs the hand-written kernels on
 the card and raises RuntimeError when no card is present;
 ``backend="cpu"`` runs their plain PyTorch versions.  A conf ``mesh``
 resolves to the node blocks every batched solve shards over
-(``parallel/sharded.py``).  The fast cycle's object sub-cycle
-(dynamic-predicate residue jobs) is not ported yet: those cycles raise
-NotImplementedError naming the ROADMAP item.
+(``parallel/sharded.py``).  ``mesh_hosts > 1`` runs the multi-controller
+cycle: this process publishes only its owned task block, and a worker
+(``mesh_host_id != 0``) skips the cycles its fast cycle declines.  The fast
+cycle's object sub-cycle (dynamic-predicate residue jobs) is not ported
+yet: those cycles raise NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -53,10 +55,20 @@ class Scheduler:
             raise ValueError(f"fast_path must be one of {FAST_PATHS}, "
                              f"got {self.conf.fast_path!r}")
         self.device = resolve_device(self.conf.backend)
+        self.conf.validate()
+        # multi-controller launch (parallel/multihost.py): this process
+        # solves the global cycle and publishes only its owned task block.
+        # Contention passes write victim state outside any one host's block,
+        # so preempt and reclaim are refused.  The JAX package also requires
+        # backend "tpu" here, to keep out its host and native backends; both
+        # of the port's backends ("cuda" and "cpu") are the tensor path, so
+        # either is accepted.
         if self.conf.mesh_hosts > 1:
-            raise NotImplementedError(
-                f"mesh_hosts {self.conf.mesh_hosts}: the multi-controller cycle (K13) is "
-                "ROADMAP queue 1 item 10")
+            storm = sorted({"preempt", "reclaim"} & set(self.conf.actions))
+            if storm:
+                raise ValueError(
+                    f"mesh_hosts > 1 forbids actions {storm}: contention passes write "
+                    "victim state outside the host's owned task block")
         #: the node blocks every batched solve shards over, or None
         self.mesh = None
         if self.conf.mesh != "off":
@@ -90,6 +102,12 @@ class Scheduler:
     def run_once(self) -> None:
         if self.fast_cycle is not None and self.fast_cycle.try_run():
             self.last_path = "fast"
+            return
+        if self.fast_cycle is not None and not self.fast_cycle.is_coordinator:
+            # a mesh-host worker whose fast cycle declined: the object path
+            # writes the whole cluster, single-writer work the coordinator
+            # takes; the worker's mirror reconciles through the watch
+            self.last_path = "mesh-worker-skip"
             return
         self.run_object_actions(self.conf.actions)
         self.last_path = "object"

@@ -2,7 +2,9 @@
 
 The port's copy of ``volcano_tpu/scheduler/tensor_actions.py``:
 
-* the solve dispatch with ONE device -> host fetch: pick the exact or the
+* the solve dispatch with ONE device -> host fetch (under
+  ``mesh_hosts > 1`` only this host's task block and the ready plane:
+  ``_fetch_owned``): pick the exact or the
   batched solve, upload the snapshot, and let the solve write its four
   decision outputs into one int32 [3T + J] array (the layout of the JAX
   ``_packed_solve`` wrapper), which is the only thing the host copies
@@ -18,7 +20,9 @@ The port's copy of ``volcano_tpu/scheduler/tensor_actions.py``:
   session, or applied in bulk above ``bulk_threshold`` placements; the
   dynamic-predicate jobs placed by the host afterwards), and ``preempt``
   and ``reclaim``, the host loops of the actions with each preemptor's
-  victim search done by one ``victim_step`` (K7) and one fetch.  The
+  victim search done by one ``victim_step`` (K7) and one fetch, or under
+  a conf mesh with ``solve_mode="batch"`` by one ``victim_step_sharded``
+  (K12b, the node planes in blocks) and one fetch.  The
   host fallbacks are part of the reference's semantics: the whole action
   on the host when the victim path cannot serve the session, and one
   preemptor on the host (then a resync) when the kernel reports that the
@@ -38,7 +42,9 @@ from volcano_tpu_torch.scheduler.kernels import (
 )
 from volcano_tpu_torch.scheduler.pqueue import PriorityQueue
 from volcano_tpu_torch.scheduler.statement import Statement
-from volcano_tpu_torch.scheduler.victim_kernels import unpack_step, victim_step
+from volcano_tpu_torch.scheduler.victim_kernels import (
+    unpack_step, victim_step, victim_step_sharded,
+)
 
 
 def use_batch_solve(backend, n_pending: int) -> bool:
@@ -116,7 +122,30 @@ def torch_allocate_solve(backend, snap, n_pending=None):
         n_pending = int(snap.task_valid.sum())
     use_batch = use_batch_solve(backend, n_pending)
     out = _solve(backend, use_batch, solve_inputs(backend, snap, use_batch))
-    return _fetch(out, snap.task_req.shape[0], snap.job_queue.shape[0])
+    T, J = snap.task_req.shape[0], snap.job_queue.shape[0]
+    if backend.mesh_host is not None:
+        return _fetch_owned(out, T, J, backend.mesh_host, backend.mesh_hosts)
+    return _fetch(out, T, J)
+
+
+def _fetch_owned(out, T, J, host, n_hosts):
+    """The multi-controller fetch (JAX tensor_actions.py:522-590): only
+    this host's task block of the three task planes, and the whole [J]
+    ready plane every host needs for gang gating; rows outside the block
+    are zero-filled (task_kind 0: not this host's to publish)."""
+    from volcano_tpu_torch.parallel.multihost import host_bounds
+
+    packed = pack_outputs(out)
+    if packed.device.type == "cuda":
+        torch.cuda.synchronize(packed.device)
+    lo, hi = host_bounds(T, n_hosts)[host]
+
+    def plane(k):
+        buf = np.zeros(T, np.int32)
+        buf[lo:hi] = packed[k * T + lo:k * T + hi].cpu().numpy()
+        return buf
+
+    return plane(0), plane(1), plane(2), packed[3 * T:3 * T + J].cpu().numpy()
 
 
 def _fetch(out, T, J):
@@ -235,12 +264,9 @@ class _VictimDriver:
         self._load()
 
     def _load(self):
-        if self.backend.mesh is not None and self.backend.solve_mode == "batch":
-            # the JAX package shards the victim solve's node planes only
-            # under solveMode: batch (tensor_backend.py victim_arrays)
-            raise NotImplementedError(
-                "the victim solve on node blocks (make_sharded_victim_step, K12b): "
-                "ROADMAP queue 1 item 10")
+        # under a conf mesh with solveMode: batch the victim arrays' node
+        # planes are node blocks and each attempt is one K12b solve
+        self.mesh = self.backend.mesh if self.backend.victim_sharded() else None
         self.snap = snap = self.backend.snapshot
         self.consts, self.state = self.backend.victim_arrays()
         self.task_req = self.backend.to_device(snap.task_req)
@@ -255,13 +281,14 @@ class _VictimDriver:
         self._load()
 
     def checkpoint(self):
-        # victim_step never writes its input state, so references suffice
+        # neither solve writes its input state (blocked or not), so
+        # references suffice
         return (self.snap, self.consts, self.state, self.task_req, self.task_row,
-                self.job_row, self.queue_row)
+                self.job_row, self.queue_row, self.mesh)
 
     def restore(self, ckpt):
         (self.snap, self.consts, self.state, self.task_req, self.task_row,
-         self.job_row, self.queue_row) = ckpt
+         self.job_row, self.queue_row, self.mesh) = ckpt
 
     def attempt(self, task, mode):
         """Solve one preemptor: (assigned, node_name, victims, clean).  On a
@@ -275,8 +302,13 @@ class _VictimDriver:
         snap = self.snap
         jt = self.job_row[task.job_uid]
         qt = self.queue_row.get(self.ssn.jobs[task.job_uid].queue, -1)
-        out = victim_step(self.consts, self.state, self.task_req[t],
-                          int(snap.task_class[t]), jt, qt, mode=mode, **self.kw)
+        if self.mesh is None:
+            out = victim_step(self.consts, self.state, self.task_req[t],
+                              int(snap.task_class[t]), jt, qt, mode=mode, **self.kw)
+        else:
+            out = victim_step_sharded(self.consts, self.state, self.task_req[t],
+                                      int(snap.task_class[t]), jt, qt, self.mesh, mode=mode,
+                                      **self.kw)
         packed = out.packed
         if packed.device.type == "cuda":
             torch.cuda.synchronize(packed.device)

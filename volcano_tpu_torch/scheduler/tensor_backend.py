@@ -70,6 +70,10 @@ class TensorBackend:
         self.ssn = ssn
         #: the conf mesh (parallel/sharded.py LocalMesh / GroupMesh) or None
         self.mesh = mesh
+        #: the multi-controller launch: this host's id (None: one
+        #: controller) and the host count; the fast cycle sets them
+        self.mesh_host: Optional[int] = None
+        self.mesh_hosts = 1
         self._mesh_memo: Dict[str, tuple] = {}
         self.bulk_threshold = BULK_THRESHOLD
         self.device = device
@@ -163,32 +167,48 @@ class TensorBackend:
             )
         return self._deserved
 
+    def victim_sharded(self) -> bool:
+        """Whether the victim solve runs on the mesh's node blocks (K12b):
+        under a conf mesh with ``solve_mode="batch"`` only, as in the JAX
+        package."""
+        return self.mesh is not None and self.solve_mode == "batch"
+
     def victim_arrays(self):
         """(VictimConsts, VictimState) of the snapshot on the device; the
-        state tensors are fresh copies, never views of the host arrays."""
+        state tensors are fresh copies, never views of the host arrays.
+        When ``victim_sharded()``, the node planes of both are tuples of this
+        process's blocks (``parallel/sharded._VICTIM_SPECS``)."""
+        from volcano_tpu_torch.parallel.sharded import split_rows
         from volcano_tpu_torch.scheduler.victim_kernels import VictimConsts, VictimState
 
         s, dev = self.snapshot, self.to_device
+        # the constants' node planes split only under solveMode: batch
+        devn = self.placement_fn(self.solve_mode == "batch")
         w_least, w_bal = self.score_weights()
         consts = VictimConsts(
             run_req=dev(s.run_req), run_node=dev(s.run_node), run_job=dev(s.run_job),
             run_prio=dev(s.run_prio), run_rank=dev(s.run_rank),
             run_evictable=dev(s.run_evictable), job_queue=dev(s.job_queue),
-            job_min=dev(s.job_min_available), node_alloc=dev(s.node_alloc),
-            node_max_tasks=dev(s.node_max_tasks), node_valid=dev(s.node_valid),
-            class_mask=dev(s.class_node_mask), class_score=dev(s.class_node_score),
+            job_min=dev(s.job_min_available), node_alloc=devn(s.node_alloc, "node_alloc"),
+            node_max_tasks=devn(s.node_max_tasks, "node_max_tasks"),
+            node_valid=devn(s.node_valid, "node_valid"),
+            class_mask=devn(s.class_node_mask, "class_mask"),
+            class_score=devn(s.class_node_score, "class_score"),
             queue_deserved=self.deserved(), total=dev(s.total), eps=dev(s.eps),
             w_least=w_least, w_balanced=w_bal,
         )
+        blocked = self.victim_sharded()
 
-        def fresh(arr):
-            return torch.from_numpy(np.array(arr)).to(self.device)
+        def fresh(arr, name=None):
+            t = torch.from_numpy(np.array(arr)).to(self.device)
+            return split_rows(self.mesh, name, t) if blocked and name else t
 
         state = VictimState(
-            run_live=fresh(s.run_valid), idle=fresh(s.node_idle),
-            releasing=fresh(s.node_releasing), used=fresh(s.node_used),
-            task_count=fresh(s.node_task_count), job_alloc=fresh(s.job_alloc_init),
-            job_occupied=fresh(s.job_ready_init), queue_alloc=fresh(s.queue_alloc_init),
+            run_live=fresh(s.run_valid), idle=fresh(s.node_idle, "idle"),
+            releasing=fresh(s.node_releasing, "releasing"), used=fresh(s.node_used, "used"),
+            task_count=fresh(s.node_task_count, "task_count"),
+            job_alloc=fresh(s.job_alloc_init), job_occupied=fresh(s.job_ready_init),
+            queue_alloc=fresh(s.queue_alloc_init),
         )
         return consts, state
 

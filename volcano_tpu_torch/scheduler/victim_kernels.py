@@ -18,7 +18,13 @@ The victim core (``_victim_core``: candidate mask, DRF and proportion
 vetoes, per-node eviction-order prefix sums, cover test, best node, state
 update) is a set of device functions in ``csrc/victim_common.cuh``, run by
 each storm solve and by ``victim_step``'s own launch (the object path's
-preempt and reclaim, one per preemptor).
+preempt and reclaim, one per preemptor).  ``victim_step_sharded`` (K12b)
+runs the same core on node blocks of the constants and state: each
+block's core over its own rows, one record exchange over the mesh, a
+replicated merge and apply (``parallel/sharded.victim_blocks_plain`` is
+its plain version; it shares ``_victim_flags``, the candidate and prefix
+masks over a set of pool rows, and ``_victim_apply``, the state update,
+with ``_victim_core``).
 
 Float rules shared by both versions:
 
@@ -79,6 +85,7 @@ ROUNDS_TILE = 8192
 #: adds one where it launches its kernel, and nowhere else
 LAUNCHES: Dict[str, int] = {
     "victim_step": 0,
+    "victim_step_sharded": 0,
     "reclaim_solve": 0,
     "preempt_solve": 0,
     "preempt_rounds": 0,
@@ -272,25 +279,33 @@ def _clone_state(s: VictimState) -> VictimState:
     return VictimState(*[x.clone() for x in s])
 
 
-def _victim_core(c, s, t_req, t_cls, jt, qt, base, o_drf, seg_drf, o_prop,
-                 seg_prop, o_ev, seg_ev, *, use_gang, use_drf, use_prop,
-                 use_conformance, reclaim_mode):
-    """One preemptor's victim solve over all nodes.  Returns (new_state,
-    assigned, nstar, vmask, clean); ``clean=False`` means the reference's
-    host walk would strand evictions on a node that cannot cover the
-    request, and the new state must be discarded."""
+def _victim_flags(c, s, t_req, jt, base, o_drf, seg_drf, o_prop, seg_prop, o_ev, seg_ev, *,
+                  use_gang, use_drf, use_prop, use_conformance, rows=None):
+    """(cand, in_prefix) bool [V]: the pool rows that pass the vetoes, and
+    those in their node's eviction-order prefix that covers ``t_req``.
+    Each order (``o_*``) groups the pool by node, with its segment-start
+    flags (``seg_*``).  ``rows`` (bool [V], whole nodes) restricts both to
+    those pool rows, as one node block of the mesh sees them: each order
+    keeps its rows' node segments, whose start flags stay as they were."""
     V = c.run_req.shape[0]
-    N = s.idle.shape[0]
-    J = c.job_queue.shape[0]
     Q = s.queue_alloc.shape[0]
     dev = c.run_req.device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    none = torch.zeros(V, dtype=torch.bool, device=dev)
 
+    def keep(o, seg):
+        if rows is None:
+            return o, seg
+        k = rows[o]
+        return o[k], seg[k]
+
+    cand = base.clone() if rows is None else base & rows
+    if rows is not None and not bool(rows.any()):
+        return cand, none
     rq_raw = c.job_queue[c.run_job]
     has_q = rq_raw >= 0
     run_q = torch.clamp(rq_raw, 0, Q - 1)
 
-    cand = base.clone()
     if use_conformance:
         cand &= c.run_evictable
     if use_gang:
@@ -298,35 +313,83 @@ def _victim_core(c, s, t_req, t_cls, jt, qt, base, o_drf, seg_drf, o_prop,
         vmin = c.job_min[c.run_job]
         cand &= (vmin <= occ - 1) | (vmin == 1)
     if use_drf:
+        o, seg = keep(o_drf, seg_drf)
         ls = dominant_share(s.job_alloc[jt] + t_req, c.total)
-        sreq = torch.where(base[o_drf, None], c.run_req[o_drf], zero)
-        relcum = _seg_cumsum(sreq, seg_drf)
-        rs = dominant_share(s.job_alloc[c.run_job[o_drf]] - relcum, c.total)
-        admit_s = (ls < rs) | (torch.abs(ls - rs) <= SHARE_DELTA)
-        admit = torch.zeros(V, dtype=torch.bool, device=dev)
-        admit[o_drf] = admit_s
+        sreq = torch.where(base[o, None], c.run_req[o], zero)
+        relcum = _seg_cumsum(sreq, seg)
+        rs = dominant_share(s.job_alloc[c.run_job[o]] - relcum, c.total)
+        admit = none.clone()
+        admit[o] = (ls < rs) | (torch.abs(ls - rs) <= SHARE_DELTA)
         cand &= admit
     if use_prop:
-        sreq = torch.where((base & has_q)[o_prop, None], c.run_req[o_prop], zero)
-        relcum = _seg_cumsum(sreq, seg_prop)
-        sq = run_q[o_prop]
-        alloc_after = s.queue_alloc[sq] - relcum
-        admit_s = less_equal(c.queue_deserved[sq], alloc_after, c.eps) & has_q[o_prop]
-        admit = torch.zeros(V, dtype=torch.bool, device=dev)
-        admit[o_prop] = admit_s
+        o, seg = keep(o_prop, seg_prop)
+        sreq = torch.where((base & has_q)[o, None], c.run_req[o], zero)
+        relcum = _seg_cumsum(sreq, seg)
+        sq = run_q[o]
+        admit = none.clone()
+        admit[o] = less_equal(c.queue_deserved[sq], s.queue_alloc[sq] - relcum,
+                              c.eps) & has_q[o]
         cand &= admit
 
     # eviction-order prefix sums per node; the host loop evicts a node's
     # first admitted victim before its cover check (do-while), so the
     # first candidate of each node is in the prefix unconditionally
-    cand_s = cand[o_ev]
-    s2req = torch.where(cand_s[:, None], c.run_req[o_ev], zero)
-    sn2 = c.run_node[o_ev]
-    cum2 = _seg_cumsum(s2req, seg_ev)
-    cum_excl = cum2 - s2req
-    cand_cnt = _seg_cumsum(cand_s.float()[:, None], seg_ev)[:, 0]
+    o, seg = keep(o_ev, seg_ev)
+    cand_s = cand[o]
+    s2req = torch.where(cand_s[:, None], c.run_req[o], zero)
+    cum_excl = _seg_cumsum(s2req, seg) - s2req
+    cand_cnt = _seg_cumsum(cand_s.float()[:, None], seg)[:, 0]
     first_cand = cand_s & (cand_cnt == 1)
-    in_prefix_s = cand_s & (first_cand | ~less_equal(t_req[None, :], cum_excl, c.eps))
+    in_prefix = none.clone()
+    in_prefix[o] = cand_s & (first_cand | ~less_equal(t_req[None, :], cum_excl, c.eps))
+    return cand, in_prefix
+
+
+def _victim_apply(c, s, t_req, jt, qt, assigned, vmask):
+    """The node-free part of one solve's state update: (run_live,
+    job_alloc, job_occupied, queue_alloc), with the victims' summed request
+    and the preemptor's granted request, which ``_add_to_node`` adds to
+    nstar's rows."""
+    J = c.job_queue.shape[0]
+    Q = s.queue_alloc.shape[0]
+    zero = torch.zeros((), dtype=torch.float32, device=c.run_req.device)
+    vreq = torch.where(vmask[:, None], c.run_req, zero)
+    vsum = vreq.double().sum(0).float()
+    t_add = t_req if assigned else torch.zeros_like(t_req)
+    job_alloc = s.job_alloc - _segment_sum(vreq, c.run_job, J)
+    job_alloc[jt] = job_alloc[jt] + t_add
+    job_occupied = s.job_occupied - _segment_count(vmask, c.run_job, J)
+    rq_raw = c.job_queue[c.run_job]
+    run_q = torch.clamp(rq_raw, 0, Q - 1)
+    qtgt = torch.where(rq_raw >= 0, run_q, torch.full_like(run_q, Q))
+    queue_alloc = s.queue_alloc - _segment_sum(vreq, qtgt, Q + 1)[:Q]
+    if qt >= 0:
+        queue_alloc[min(qt, Q - 1)] = queue_alloc[min(qt, Q - 1)] + t_add
+    return (s.run_live & ~vmask, job_alloc, job_occupied, queue_alloc), vsum, t_add
+
+
+def _add_to_node(releasing, used, task_count, row, vsum, t_add, assigned):
+    """nstar's rows after the solve (in place): its victims' request now
+    releasing less the granted request, which it now uses."""
+    releasing[row] = releasing[row] + (vsum - t_add)
+    used[row] = used[row] + t_add
+    task_count[row] += 1 if assigned else 0
+
+
+def _victim_core(c, s, t_req, t_cls, jt, qt, base, o_drf, seg_drf, o_prop,
+                 seg_prop, o_ev, seg_ev, *, use_gang, use_drf, use_prop,
+                 use_conformance, reclaim_mode):
+    """One preemptor's victim solve over all nodes.  Returns (new_state,
+    assigned, nstar, vmask, clean); ``clean=False`` means the reference's
+    host walk would strand evictions on a node that cannot cover the
+    request, and the new state must be discarded."""
+    N = s.idle.shape[0]
+    dev = c.run_req.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    cand, in_prefix = _victim_flags(
+        c, s, t_req, jt, base, o_drf, seg_drf, o_prop, seg_prop, o_ev, seg_ev,
+        use_gang=use_gang, use_drf=use_drf, use_prop=use_prop, use_conformance=use_conformance)
 
     node_tgt = torch.where(cand, c.run_node, torch.full_like(c.run_node, N))
     node_tot = _segment_sum(torch.where(cand[:, None], c.run_req, zero), node_tgt, N + 1)[:N]
@@ -353,28 +416,13 @@ def _victim_core(c, s, t_req, t_cls, jt, qt, base, o_drf, seg_drf, o_prop,
     else:
         clean = not bool(valid_node.any())
 
-    victim_s = in_prefix_s & (sn2 == nstar) & assigned
-    vmask = torch.zeros(V, dtype=torch.bool, device=dev)
-    vmask[o_ev] = victim_s
-
-    vreq = torch.where(vmask[:, None], c.run_req, zero)
-    vsum = vreq.double().sum(0).float()
-    t_add = t_req if assigned else torch.zeros_like(t_req)
-    releasing = s.releasing.clone()
-    releasing[nstar] = releasing[nstar] + (vsum - t_add)
-    used = s.used.clone()
-    used[nstar] = used[nstar] + t_add
-    task_count = s.task_count.clone()
-    task_count[nstar] += 1 if assigned else 0
-    job_alloc = s.job_alloc - _segment_sum(vreq, c.run_job, J)
-    job_alloc[jt] = job_alloc[jt] + t_add
-    job_occupied = s.job_occupied - _segment_count(vmask, c.run_job, J)
-    qtgt = torch.where(has_q, run_q, torch.full_like(run_q, Q))
-    queue_alloc = s.queue_alloc - _segment_sum(vreq, qtgt, Q + 1)[:Q]
-    if qt >= 0:
-        queue_alloc[min(qt, Q - 1)] = queue_alloc[min(qt, Q - 1)] + t_add
+    vmask = in_prefix & (c.run_node == nstar) & assigned
+    (run_live, job_alloc, job_occupied, queue_alloc), vsum, t_add = _victim_apply(
+        c, s, t_req, jt, qt, assigned, vmask)
+    releasing, used, task_count = s.releasing.clone(), s.used.clone(), s.task_count.clone()
+    _add_to_node(releasing, used, task_count, nstar, vsum, t_add, assigned)
     new_state = VictimState(
-        run_live=s.run_live & ~vmask, idle=s.idle, releasing=releasing,
+        run_live=run_live, idle=s.idle, releasing=releasing,
         used=used, task_count=task_count, job_alloc=job_alloc,
         job_occupied=job_occupied, queue_alloc=queue_alloc,
     )
@@ -940,6 +988,7 @@ _INT_FIELDS = (
     "V", "N", "R", "T", "J", "Q", "C", "nu", "nq", "M", "P", "K", "F", "jr_cap", "TB", "TILE",
     "use_gang", "use_drf", "use_prop", "use_conformance", "order_by_priority",
     "has_proportion", "gang_pipelined", "n_keys", "key0", "key1", "key2",
+    "n0", "NT",
 )
 
 
@@ -1102,6 +1151,165 @@ def victim_step_launch(lib, stream, c, s, t_req, t_cls, jt, qt, *, mode, use_gan
                                   _STEP_MODES[mode], packed.data_ptr(), stream),
               "vtt_victim_step")
     return VictimStepOut(st, packed)
+
+
+# --------------------------------------------------------------------------
+# K12b: the victim solve on node blocks
+# --------------------------------------------------------------------------
+
+#: the node planes of VictimConsts / VictimState, held in blocks of rows
+#: under a mesh (``parallel/sharded._VICTIM_SPECS`` maps them to their axes)
+CONST_NODE_PLANES = ("node_alloc", "node_max_tasks", "node_valid", "class_mask", "class_score")
+STATE_NODE_PLANES = ("idle", "releasing", "used", "task_count")
+#: int32 words of one block's record (csrc/victim_step.cu VTT_VB_WORDS)
+VB_WORDS = 6
+
+
+def victim_step_sharded(c, s, t_req, t_cls, jt, qt, mesh, *, mode="queue", use_gang=True,
+                        use_drf=False, use_prop=False, use_conformance=False,
+                        order_by_priority=True) -> VictimStepOut:
+    """``victim_step`` with the node planes of ``c`` and ``s`` in blocks of
+    rows: each of ``CONST_NODE_PLANES`` / ``STATE_NODE_PLANES`` is a tuple of
+    this process's blocks of ``mesh`` (``parallel/sharded.py``), the other
+    fields whole.  Returns the new state (its node planes again tuples of
+    this process's blocks) and the packed decision, equal bit for bit to
+    the one-block solve's.
+
+    Replaces volcano_tpu/parallel/sharded.py:202 make_sharded_victim_step.
+    CPU tensors run ``parallel/sharded.victim_blocks_plain``; CUDA tensors
+    launch csrc/victim_step.cu's block entries (each block's core, the
+    mesh's record exchange, the replicated merge and apply) or raise."""
+    if mode not in _STEP_MODES:
+        raise ValueError(f"victim_step: mode must be one of {tuple(_STEP_MODES)}, got {mode!r}")
+    kw = dict(mode=mode, use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
+              use_conformance=use_conformance, order_by_priority=order_by_priority)
+    dev = _device_of(c, "victim_step_sharded")
+    nb = _check_blocks(c, s, mesh)
+    if dev.type == "cpu":
+        from volcano_tpu_torch.parallel.sharded import victim_blocks_plain
+
+        return victim_blocks_plain(c, s, t_req, t_cls, jt, qt, mesh, nb, **kw)
+    out = victim_sharded_launch(*_lib_stream(dev), c, s, t_req, t_cls, jt, qt, mesh, nb, **kw)
+    LAUNCHES["victim_step_sharded"] += 1
+    return out
+
+
+def _check_blocks(c, s, mesh) -> int:
+    """Every node plane a tuple of this process's blocks, all of one row
+    count; returns it."""
+    rows = set()
+    for tup, names in ((c, CONST_NODE_PLANES), (s, STATE_NODE_PLANES)):
+        for name in names:
+            blocks = getattr(tup, name)
+            if not isinstance(blocks, (tuple, list)) or len(blocks) != mesh.n_local:
+                raise ValueError(f"victim_step_sharded: {name} must hold this process's "
+                                 f"{mesh.n_local} blocks")
+            axis = 1 if name in ("class_mask", "class_score") else 0
+            rows.update(int(b.shape[axis]) for b in blocks)
+    if len(rows) != 1:
+        raise ValueError(f"victim_step_sharded: the blocks' row counts differ: {sorted(rows)}")
+    return rows.pop()
+
+
+def victim_sharded_launch(lib, stream, c, s, t_req, t_cls, jt, qt, mesh, nb, *, mode, use_gang,
+                          use_drf, use_prop, use_conformance, order_by_priority):
+    """Validate, launch csrc/victim_step.cu's block entries around the
+    mesh's exchange and return ``VictimStepOut``."""
+    dev = c.run_req.device
+    V, R = c.run_req.shape
+    J = c.job_queue.shape[0]
+    Q = s.queue_alloc.shape[0]
+    C = c.class_mask[0].shape[0]
+    L, S = mesh.n_local, mesh.size
+    N = nb * S
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    spec = {
+        "run_req": (c.run_req, f32, (V, R)), "run_node": (c.run_node, i32, (V,)),
+        "run_job": (c.run_job, i32, (V,)), "run_prio": (c.run_prio, i32, (V,)),
+        "run_rank": (c.run_rank, i32, (V,)), "run_evictable": (c.run_evictable, b8, (V,)),
+        "job_queue": (c.job_queue, i32, (J,)), "job_min": (c.job_min, i32, (J,)),
+        "queue_deserved": (c.queue_deserved, f32, (Q, R)),
+        "total": (c.total, f32, (R,)), "eps": (c.eps, f32, (R,)),
+        "run_live": (s.run_live, b8, (V,)), "job_alloc": (s.job_alloc, f32, (J, R)),
+        "job_occupied": (s.job_occupied, i32, (J,)), "queue_alloc": (s.queue_alloc, f32, (Q, R)),
+        "t_req": (t_req, f32, (R,)),
+    }
+    for name, (t, dt, shape) in spec.items():
+        _check(name, t, dt, shape, dev)
+    bspec = {"node_alloc": (f32, (nb, R)), "node_max_tasks": (i32, (nb,)),
+             "node_valid": (b8, (nb,)), "class_mask": (b8, (C, nb)),
+             "class_score": (f32, (C, nb)), "idle": (f32, (nb, R)),
+             "releasing": (f32, (nb, R)), "used": (f32, (nb, R)), "task_count": (i32, (nb,))}
+    for name, (dt, shape) in bspec.items():
+        for i, b in enumerate(getattr(c if name in CONST_NODE_PLANES else s, name)):
+            _check(f"block {i} {name}", b, dt, shape, dev)
+    if not 2 <= R <= _MAX_R:
+        raise ValueError(f"victim kernels take 2 <= R <= {_MAX_R}, got {R}")
+    if not (0 <= jt < J and 0 <= t_cls < C and qt >= -1):
+        raise ValueError(f"victim_step_sharded: jt {jt}, t_cls {t_cls}, qt {qt} outside "
+                         f"J={J}, C={C}")
+
+    def empty(n, dt=i32):
+        return torch.empty(n, dtype=dt, device=dev)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=i32, device=dev)
+
+    # replicated working state and scratch (the merge's lists of nstar)
+    rep = dict(run_live=s.run_live.clone(), job_alloc=s.job_alloc.clone(),
+               job_occupied=s.job_occupied.clone(), queue_alloc=s.queue_alloc.clone())
+    bufs = dict(
+        run_req=c.run_req, run_node=c.run_node, run_job=c.run_job, run_prio=c.run_prio,
+        run_rank=c.run_rank, run_evictable=c.run_evictable, job_queue=c.job_queue,
+        job_min=c.job_min, queue_deserved=c.queue_deserved, total=c.total, eps=c.eps,
+        task_req=t_req.view(1, R), task_class=torch.full((1,), t_cls, dtype=i32, device=dev),
+        evict_att=torch.full((V,), -1, dtype=i32, device=dev), pipe=zeros(J),
+        pipe_node=empty(1), pipe_att=empty(1), ctl=zeros(16),
+        bucket=empty(V), l_vidx=empty(V), l_ev=empty(V), l_drf=empty(V), l_prop=empty(V),
+        flag=torch.zeros(V, dtype=torch.uint8, device=dev), **rep)
+    sizes = dict(V=V, N=N, R=R, T=1, J=J, Q=Q, C=C, NT=N, n0=0, use_gang=use_gang,
+                 use_drf=use_drf, use_prop=use_prop, use_conformance=use_conformance,
+                 order_by_priority=order_by_priority)
+    base = VictimArgs()
+    for name, t in bufs.items():
+        setattr(base, name, t.data_ptr())
+    for name, v in sizes.items():
+        setattr(base, name, int(v))
+    base.w_least, base.w_balanced = float(c.w_least), float(c.w_balanced)
+    # each block: its node planes (working copies of the state's), its
+    # grouping of the pool
+    blocks, keep = (VictimArgs * L)(), []
+    new_rows = {k: [] for k in ("releasing", "used", "task_count")}
+    for i in range(L):
+        blk = VictimArgs.from_buffer_copy(base)
+        planes = {k: getattr(c, k)[i] for k in CONST_NODE_PLANES}
+        for k in new_rows:
+            new_rows[k].append(getattr(s, k)[i].clone())
+            planes[k] = new_rows[k][-1]
+        planes.update(node_off=empty(nb + 1), node_fill=zeros(nb),
+                      bucket=empty(V), l_vidx=empty(V), l_ev=empty(V), l_drf=empty(V),
+                      l_prop=empty(V))
+        for k, t in planes.items():
+            setattr(blk, k, t.data_ptr())
+        blk.N, blk.n0 = nb, (mesh.first + i) * nb
+        blocks[i] = blk
+        keep.append(planes)
+    send = empty((L, VB_WORDS))
+    _raise_on(lib.vtt_victim_blocks_core(blocks, L, int(t_cls), int(jt), int(qt),
+                                         _STEP_MODES[mode], send.data_ptr(), stream),
+              "vtt_victim_blocks_core")
+    recv = mesh.exchange(send)
+    if tuple(recv.shape) != (S, VB_WORDS) or recv.dtype != i32:
+        raise ValueError(f"exchange returned {tuple(recv.shape)} {recv.dtype}, expected "
+                         f"({S}, {VB_WORDS}) int32")
+    packed = empty(4 + (V + 31) // 32)
+    vsum = empty(R, f32)
+    _raise_on(lib.vtt_victim_blocks_apply(ctypes.byref(base), blocks, L, int(t_cls), int(jt),
+                                          int(qt), _STEP_MODES[mode], recv.data_ptr(), S,
+                                          packed.data_ptr(), vsum.data_ptr(), stream),
+              "vtt_victim_blocks_apply")
+    state = VictimState(idle=s.idle, **{k: tuple(v) for k, v in new_rows.items()}, **rep)
+    return VictimStepOut(state, packed)
 
 
 def reclaim_solve(c, s0, task_req, task_class, job_first, job_prio, job_cand0,
