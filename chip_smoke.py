@@ -121,7 +121,22 @@ Phases, each fatal on failure:
    status; ``python -m volcano_tpu_torch.parallel.multihost --mesh-hosts
    2`` at config 5's widths (a coordinator and one worker process sharing
    the card) ok and not degraded, the worker's slice the owned half; a
-   worker whose coordinator is dead falls back to a full cycle.
+   worker whose coordinator is dead falls back to a full cycle;
+22. e2e cfg6-mesh, cfg6b-mesh, cfg6r-mesh — each config-6 store under
+   full_conf("cuda") with mesh "4" and solve_mode "batch": every contention
+   pass on four node blocks (K15c preempt_rounds_sharded in cfg6 and cfg6b,
+   K15b preempt_solve_sharded in cfg6b, K15a reclaim_solve_sharded in
+   cfg6r; the one-block K8-K10 and the object kernels not launched).  Three
+   cycles each, victims reaped, the cfg6 invariants and CFG6_PATTERN; the
+   ordered evictions, pipelines and binds equal the same store's run under
+   mesh "off" with solve_mode "batch" (K8-K10), run first; each cycle's
+   wall, phases and the solves' CUDA-event ms;
+23. K15a-c — on the inputs phase 22 captured from its first cycle, on
+   local meshes of 1, 2, 4 and 8 blocks, each bit for bit equal, state
+   included, to its plain version on the same blocks and to the one-block
+   K8 / K9 / K10; a one-rank NCCL group running four blocks; K15b over the
+   whole cfg6 storm (2,000 attempts, phase 9's inputs) on four blocks
+   against the one-block K9.
 
 With ``--profile``, a torch.profiler pass over one config-5 batch solve
 and one config-5 cycle, one batched solve at cfg9's shape on four node
@@ -130,7 +145,7 @@ the device's idle share of the cycles (also written to OUT.json when
 given).
 
 Phase 20 runs right after phase 17, on phase 16's captured inputs; the
-cfg9 objects are then released before phases 18, 19 and 21.
+cfg9 objects are then released before phases 18, 19, 21, 22 and 23.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero with no result line
@@ -1010,6 +1025,9 @@ def phase_volsel_kernel(captured, n_launches):
 CFG6 = dict(nodes=10_000, run_jobs=5_000, tasks_per_job=20, storm_gangs=100,
             reclaim_gangs=10)
 CONTENTION_KERNELS = ("reclaim_solve", "preempt_solve", "preempt_rounds")
+# K15a-c: the same solves on node blocks (a conf mesh with solve_mode batch)
+MESH_CONTENTION_KERNELS = tuple(k + "_sharded" for k in CONTENTION_KERNELS)
+CFG6_MESH = "4"
 # per cycle (evictions, pipelines, binds), the victims reaped between
 # cycles: the JAX package's pattern at 1/10 scale
 # (tests/test_torch_contention.py TENTH_PATTERN), at full width
@@ -1087,21 +1105,39 @@ def build_contended_store(cell):
 
 
 class ContentionCapture:
-    """During a cycle: the inputs of each contention kernel's first call (the
-    wrappers copy the state they update, so the inputs stay as the cycle
-    gave them), and every pipeline as (pod key, node name)."""
+    """During a cycle: the inputs of the first call of each contention
+    kernel in ``names`` (the wrappers copy the state they update, so the
+    inputs stay as the cycle gave them), CUDA events around every such call
+    (their time on the stream per cycle), and every pipeline as (pod key,
+    node name)."""
 
-    def __init__(self):
+    def __init__(self, names=CONTENTION_KERNELS):
+        import torch
+
         from volcano_tpu_torch.scheduler import fast_victims as FV
         from volcano_tpu_torch.scheduler import victim_kernels as VK
 
-        self.inputs, self.pipes = {}, []
-        self._saved = [(VK, n, getattr(VK, n)) for n in CONTENTION_KERNELS]
+        self.inputs, self.pipes, self.events = {}, [], []
+        self._saved = [(VK, n, getattr(VK, n)) for n in names]
         self._saved.append((FV.FastContention, "_append_records",
                             FV.FastContention._append_records))
+        rec = self
+
+        def recording(name, fn):
+            def call(*args, **kwargs):
+                rec.inputs.setdefault(name, (args, kwargs))
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                rec.events.append((start, end))
+                return out
+            return call
+
         for mod, name, fn in self._saved[:-1]:
-            setattr(mod, name, self._recording(name, fn))
-        append, rec = self._saved[-1][2], self
+            setattr(mod, name, recording(name, fn))
+        append = self._saved[-1][2]
 
         def append_records(cont, evict_att, pipe_node, pipe_att, reason):
             n0 = len(cont.pipelines)
@@ -1111,11 +1147,12 @@ class ContentionCapture:
 
         FV.FastContention._append_records = append_records
 
-    def _recording(self, name, fn):
-        def call(*args, **kwargs):
-            self.inputs.setdefault(name, (args, kwargs))
-            return fn(*args, **kwargs)
-        return call
+    def take_ms(self):
+        """CUDA-event ms of the recorded calls since the last take (each
+        call's span on the stream, its host round trips included)."""
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        self.events = []
+        return ms
 
     def close(self):
         for mod, name, fn in self._saved:
@@ -1173,12 +1210,14 @@ def check_contention_cycle(label, cell, store, victims, pipes):
             raise AssertionError(f"{label}: gangs pipelined partially: {list(partial.items())[:5]}")
 
 
-def phase_contention(label, cell, want, forbid):
+def phase_contention(label, cell, want, forbid, conf=None, names=CONTENTION_KERNELS):
     """Drive Scheduler.run_once on the card over a config-6 store for three
-    cycles, the victims reaped (deleted, as the kubelet does) after each.
-    Launch counts are reset just before the first cycle and read just
-    after it.  Returns (first-cycle launches, the kernels' captured
-    inputs)."""
+    cycles under ``conf`` (full_conf("cuda") by default), the victims reaped
+    (deleted, as the kubelet does) after each.  Launch counts are reset
+    just before the first cycle and read just after it.  Returns
+    (first-cycle launches, the first inputs of the kernels in ``names``,
+    the run's per-cycle (evictions, pipelines, binds), ordered evictions,
+    pipelines and binds)."""
     import torch
 
     from volcano_tpu_torch.scheduler.conf import full_conf
@@ -1188,9 +1227,10 @@ def phase_contention(label, cell, want, forbid):
     store = build_contended_store(cell)
     log(f"[{label}] store built: {CFG6['nodes']} nodes, "
         f"{CFG6['run_jobs'] * CFG6['tasks_per_job']} residents ({time.perf_counter() - t0:.1f} s)")
-    sched = Scheduler(store, conf=full_conf("cuda"))
-    log(f"[{label}] prewarm {sched.prewarm():.2f} s")
-    cap = ContentionCapture()
+    sched = Scheduler(store, conf=conf or full_conf("cuda"))
+    log(f"[{label}] mesh {sched.mesh}, solve_mode {sched.conf.solve_mode}; prewarm "
+        f"{sched.prewarm():.2f} s")
+    cap = ContentionCapture(names)
     history, evicted = [], []
     try:
         for cycle in range(len(CFG6_PATTERN[cell])):
@@ -1210,13 +1250,15 @@ def phase_contention(label, cell, want, forbid):
             history.append((len(victims), len(pipes), len(sched.cache.bind_log) - n_bind))
             phases = {k: round(v, 4) for k, v in sched.fast_cycle.phases.items()}
             log(f"[{label}] cycle {cycle + 1} wall {wall:.3f} s phases {json.dumps(phases)} "
-                f"(evictions, pipelines, binds) {history[-1]}"
+                f"(evictions, pipelines, binds) {history[-1]}; {'/'.join(names)} "
+                f"{cap.take_ms():.3f} ms on the stream"
                 + (f" launches {launches}" if cycle == 0 else ""))
             check_contention_cycle(label, cell, store, victims, pipes)
             evicted += victims
             for key in victims:  # the kubelet reaps the victims
                 store.delete("Pod", key)
     finally:
+        pipes = list(cap.pipes)
         cap.close()
     if len(set(evicted)) != len(evicted):
         raise AssertionError(f"{label}: a pod was evicted twice")
@@ -1236,7 +1278,8 @@ def phase_contention(label, cell, want, forbid):
         if launches[name]:
             raise AssertionError(f"{label}: kernel {name} launched ({launches[name]})")
     log(f"[{label}] invariants hold; evictions per cycle {[h[0] for h in history]}")
-    return launches, captured
+    return launches, captured, dict(history=history, evicts=list(sched.cache.evict_log),
+                                    pipes=pipes, binds=list(sched.cache.bind_log))
 
 
 def _victim_compare(name, out_k, out_p):
@@ -2689,6 +2732,198 @@ def phase_profile(out_path=None):
                       f, indent=1)
 
 
+def phase_contention_mesh():
+    """cfg6-mesh, cfg6b-mesh, cfg6r-mesh: each config-6 store under
+    full_conf("cuda") with mesh "4" and solve_mode "batch", every contention
+    pass on four node blocks (K15c in cfg6 and cfg6b, K15b in cfg6b, K15a in
+    cfg6r), against the same store's run under mesh "off" with solve_mode
+    "batch" (K10, K9, K8): each run holds the cfg6 invariants and the
+    per-cycle pattern, and the mesh run's ordered evictions, pipelines and
+    binds equal the oracle's.  (solve_mode "auto", phase 8's, allocates the
+    storm with the exact solve and so binds otherwise: a separate oracle.)
+    Returns the mesh runs' first-cycle launches and the blocked solves'
+    first inputs, by cell."""
+    from volcano_tpu_torch.scheduler.conf import full_conf
+
+    kernels = {"cfg6": ("preempt_rounds",), "cfg6b": ("preempt_rounds", "preempt_solve"),
+               "cfg6r": ("reclaim_solve",)}
+    launches, captured = {}, {}
+    for cell, names in kernels.items():
+        runs = {}
+        for mesh in ("off", CFG6_MESH):
+            run_names = names if mesh == "off" else tuple(n + "_sharded" for n in names)
+            forbid = tuple(k for k in CONTENTION_KERNELS + MESH_CONTENTION_KERNELS
+                           if k not in run_names)
+            conf = full_conf("cuda")
+            conf.solve_mode, conf.mesh = "batch", mesh
+            runs[mesh] = phase_contention(f"e2e {cell}-mesh, mesh {mesh}", cell,
+                                          {n: 1 for n in run_names}, forbid, conf=conf,
+                                          names=run_names)
+        (_, _, want), (first, cap, got) = runs["off"], runs[CFG6_MESH]
+        for key in ("history", "evicts", "pipes", "binds"):
+            if got[key] != want[key]:
+                raise AssertionError(f"{cell}-mesh: {key} differ from the mesh-off oracle")
+        launches[cell], captured[cell] = first, cap
+        log(f"[e2e {cell}-mesh] equal to the mesh-off oracle: {got['history']}, "
+            f"{len(got['evicts'])} evictions, {len(got['pipes'])} pipelines, "
+            f"{len(got['binds'])} binds in order; launches "
+            f"{ {n: first[n] for n in MESH_CONTENTION_KERNELS} }")
+    return launches, captured
+
+
+def _solve_host(out):
+    """A contention solve's outputs by name, node planes joined."""
+    import torch
+
+    flat = {}
+    for f in out._fields:
+        part = getattr(out, f)
+        items = ({f"{f}.{g}": getattr(part, g) for g in part._fields}
+                 if hasattr(part, "_fields") else {f: part})
+        for k, x in items.items():
+            flat[k] = torch.cat(list(x)) if isinstance(x, tuple) else torch.as_tensor(x)
+    return flat
+
+
+def _solve_compare(name, out_k, out_p):
+    """Every output bit for bit, state included (node planes as their
+    blocks' rows); returns the largest float difference (0)."""
+    import torch
+
+    fk, fp = _solve_host(out_k), _solve_host(out_p)
+    err = 0.0
+    for f, x in fk.items():
+        y = fp[f].to(x.device)
+        if x.dtype.is_floating_point and x.numel():
+            err = max(err, float((x - y.to(x.dtype)).abs().max()))
+        if not torch.equal(x, y.to(x.dtype)):
+            raise AssertionError(f"{name}: {f} differs")
+    return err
+
+
+def phase_contention_mesh_kernels(captured, launches, captured8):
+    """K15a (cfg6r), K15b (cfg6b) and K15c (cfg6) on the inputs their
+    mesh cells captured: on local meshes of 1, 2, 4 and 8 blocks each bit
+    for bit equal, state included, to its plain version on the same blocks
+    and to the one-block K8 / K9 / K10 on the same inputs; a one-rank NCCL
+    group (FileStore rendezvous) running four blocks; K15b over the whole
+    cfg6 storm as solveMode: exact runs it (2,000 attempts, phase 9's
+    inputs) on four blocks against the one-block K9 (its plain version is
+    not run at that size).  CUDA-event ms, and a bound counted from the
+    work this data needs (the one-block solve's)."""
+    import torch
+    import torch.distributed as dist
+
+    from volcano_tpu_torch import _build
+    from volcano_tpu_torch.parallel import sharded as S
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    meta = {
+        "reclaim_solve": ("cfg6r", "reclaim_solve.cu",
+                          "volcano_tpu/scheduler/victim_kernels.py:457", S.reclaim_blocks_plain),
+        "preempt_solve": ("cfg6b", "preempt_solve.cu",
+                          "volcano_tpu/scheduler/victim_kernels.py:607", S.preempt_blocks_plain),
+        "preempt_rounds": ("cfg6", "preempt_rounds.cu",
+                           "volcano_tpu/scheduler/victim_kernels.py:830", S.rounds_blocks_plain),
+    }
+    inputs, rows = {}, {}
+    for name, (cell, src, rep, plain) in meta.items():
+        sharded = getattr(VK, name + "_sharded")
+        args, kw = captured[cell][name + "_sharded"]
+        dev = args[0].run_req.device
+        c1, s1 = _unblock(args[0]), _unblock(args[1])
+        rest = args[2:-1]
+        inputs[name] = (c1, s1, rest, kw)
+        one = getattr(VK, name)(c1, s1, *rest, **kw)
+        n_all = c1.node_alloc.shape[0]
+        err, ms, plain_ms = 0.0, {}, {}
+        for n in MESH_BLOCKS:
+            mesh = S.LocalMesh(n, dev)
+            cb, sb = S._place_victim(mesh, c1), S._place_victim(mesh, s1)
+
+            def run(cb=cb, sb=sb, mesh=mesh):
+                return sharded(cb, sb, *rest, mesh, **kw)
+
+            out_k = run()
+            out_p, plain_ms[n] = _timed(lambda: plain(cb, sb, *rest, mesh, n_all // n, **kw))
+            err = max(err, _solve_compare(f"{name}_sharded {cell}, {n} blocks vs plain", out_k,
+                                          out_p),
+                      _solve_compare(f"{name}_sharded {cell}, {n} blocks vs one block", out_k,
+                                     one))
+            ms[n] = cuda_ms(run, 3)
+        b, kind = bound_ms(_victim_bytes((c1, s1, *rest), one),
+                           _victim_ops(name, (c1, s1, *rest), one))
+        one_ms = cuda_ms(lambda: getattr(VK, name)(c1, s1, *rest, **kw), 3)
+        log(f"[K15] {cell} {name}_sharded ok at 1 / 2 / 4 / 8 blocks: "
+            f"{' / '.join(f'{ms[n]:.3f}' for n in MESH_BLOCKS)} ms (plain on the same blocks "
+            f"{' / '.join(f'{plain_ms[n]:.1f}' for n in MESH_BLOCKS)} ms; one block "
+            f"{one_ms:.3f} ms; bound {b:.4f} ms by {kind}), equal to the plain version and to "
+            f"{name} bit for bit")
+        m = int(CFG6_MESH)
+        rows[name + "_sharded"] = dict(
+            name=name + "_sharded", route="cuda", source=f"volcano_tpu_torch/csrc/{src}",
+            replaces=rep, launches=launches[cell][name + "_sharded"], max_abs_err=err,
+            ms=ms[m], plain_ms=plain_ms[m], bound_ms=b, bound_by=kind, library_ms=None,
+            check="ok", cell=f"{cell}-mesh, local mesh of {m} blocks",
+            ms_by_blocks={str(k): v for k, v in ms.items()},
+            plain_ms_by_blocks={str(k): v for k, v in plain_ms.items()}, one_block_ms=one_ms)
+
+    store_path = _build.BUILD_DIR / f"nccl_store_k15_{os.getpid()}"
+    store_path.parent.mkdir(parents=True, exist_ok=True)
+    if store_path.exists():
+        store_path.unlink()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_path), 1),
+                            rank=0, world_size=1)
+    try:
+        gmesh = S.make_mesh(int(CFG6_MESH))
+        if not isinstance(gmesh, S.GroupMesh) or gmesh.n_local != gmesh.size:
+            raise AssertionError(f"NCCL mesh: {gmesh}")
+        for name in meta:
+            c1, s1, rest, kw = inputs[name]
+            cg, sg = S._place_victim(gmesh, c1), S._place_victim(gmesh, s1)
+
+            def grun(cg=cg, sg=sg, rest=rest, kw=kw, name=name):
+                return getattr(VK, name + "_sharded")(cg, sg, *rest, gmesh, **kw)
+
+            err = _solve_compare(f"{name}_sharded NCCL group", grun(),
+                                 getattr(VK, name)(c1, s1, *rest, **kw))
+            gms = cuda_ms(grun, 3)
+            rows[name + "_sharded"]["nccl_group_ms"] = gms
+            rows[name + "_sharded"]["max_abs_err"] = max(rows[name + "_sharded"]["max_abs_err"],
+                                                         err)
+            log(f"[K15] {name}_sharded on a one-rank NCCL group, {gmesh.size} blocks over "
+                f"all_gather_into_tensor ok: {gms:.3f} ms")
+    finally:
+        dist.destroy_process_group()
+        if store_path.exists():
+            store_path.unlink()
+
+    # K15b over the whole cfg6 storm, as solveMode: exact runs it
+    ex, ekw = _storm_exact_args(captured8["cfg6"]["preempt_rounds"])
+    mesh = S.LocalMesh(int(CFG6_MESH), dev)
+    cb, sb = S._place_victim(mesh, ex[0]), S._place_victim(mesh, ex[1])
+
+    def storm():
+        return VK.preempt_solve_sharded(cb, sb, *ex[2:], mesh, **ekw)
+
+    out_k = storm()
+    out_1 = VK.preempt_solve(*ex, **ekw)
+    err = _solve_compare("preempt_solve_sharded whole cfg6 storm vs one block", out_k, out_1)
+    ms = cuda_ms(storm, 1)
+    one_ms = cuda_ms(lambda: VK.preempt_solve(*ex, **ekw), 1)
+    b, kind = bound_ms(_victim_bytes(ex, out_1), _victim_ops("preempt_solve", ex, out_1))
+    ok = int(out_k.att_total)
+    log(f"[K15] cfg6 storm preempt_solve_sharded (exact) on {mesh.size} blocks ok: {ok} ok "
+        f"attempts, {int((out_k.rec.evict_att >= 0).sum())} evictions, {ms:.3f} ms (one block "
+        f"{one_ms:.3f} ms; bound {b:.4f} ms by {kind}), equal to preempt_solve bit for bit")
+    if ok != CFG6["storm_gangs"] * CFG6["tasks_per_job"]:
+        raise AssertionError(f"storm preempt_solve_sharded: {ok} ok attempts")
+    rows["preempt_solve_sharded"].update(storm_exact_ms=ms, storm_exact_one_block_ms=one_ms,
+                                         storm_exact_bound_ms=b,
+                                         storm_exact_max_abs_err=err)
+    return rows
+
+
 def _phase_clock():
     """mark(name): log how far into the run ``name`` ended, and its share."""
     t0 = last = time.perf_counter()
@@ -2748,7 +2983,8 @@ def main(argv):
         ("cfg6b", {"preempt_rounds": 1, "preempt_solve": 1}, ("reclaim_solve",)),
         ("cfg6r", {"reclaim_solve": 1}, ("preempt_solve", "preempt_rounds")),
     ):
-        launches[cell], captured[cell] = phase_contention(f"e2e {cell}", cell, want, forbid)
+        launches[cell], captured[cell], _ = phase_contention(f"e2e {cell}", cell, want,
+                                                             forbid + MESH_CONTENTION_KERNELS)
     kern.update(phase_victim_kernels(captured, launches))
     mark("phases 8-9")
     vol_want = {"water_fill": 1, "allocate_solve_batch": 1, "allocate_solve": 1,
@@ -2784,6 +3020,10 @@ def main(argv):
     phase_cfg5_two_hosts()
     phase_multihost_cli()
     mark("phase 21")
+    k15_launches, k15_in = phase_contention_mesh()
+    mark("phase 22")
+    kern.update(phase_contention_mesh_kernels(k15_in, k15_launches, captured))
+    mark("phase 23")
     for name, kid in (("allocate_solve_batch", "K3"), ("preempt_rounds", "K10"),
                       ("allocate_solve", "K2"), ("water_fill", "K1")):
         kern[name]["cap_lifts"] = {k: v for k, v in caps.items() if k.split("@")[0] == kid}

@@ -184,17 +184,22 @@ def _outcome(store, sched):
             "pods": pods, "phases": phases}
 
 
-def run_pair(spec, monkeypatch, actions=None, solve_mode="auto", cycles=1, reap=False):
-    """Both schedulers over ``cycles`` cycles; with ``reap`` the evicted pods
-    are deleted between cycles (the sim kubelet).  Asserts the port's
-    outcome equals the JAX one after every cycle; returns the port's last
-    outcome, its pipelines, and per cycle (evictions, pipelines, binds)."""
+def run_pair(spec, monkeypatch, actions=None, solve_mode="auto", cycles=1, reap=False,
+             mesh="off"):
+    """Both schedulers over ``cycles`` cycles, under the conf ``mesh`` (the
+    JAX one with ``exactTopK``); with ``reap`` the evicted pods are deleted
+    between cycles (the sim kubelet).  Asserts the port's outcome equals the
+    JAX one after every cycle; returns the port's last outcome, its
+    pipelines, and per cycle (evictions, pipelines, binds)."""
     jrec, trec = Recorder(monkeypatch, jfv), Recorder(monkeypatch, tfv)
     jc, tc = jconf.full_conf("tpu"), tconf.full_conf("cpu")
     for c in (jc, tc):
         c.solve_mode = solve_mode
+        c.mesh = mesh
         if actions:
             c.actions = list(actions)
+    if mesh != "off":
+        jc.exact_topk = True
     js, ts = jax_store_from_spec(spec), interop.store_from_spec(spec)
     jsched, tsched = JScheduler(js, conf=jc), Scheduler(ts, conf=tc)
     history = []

@@ -811,3 +811,68 @@ def test_gpu_run_lockstep_matches_cpu(n_hosts, monkeypatch):
     for name, k, p in zip(MH.OUTPUT_NAMES, got["outputs"], want["outputs"]):
         np.testing.assert_array_equal(k, p, err_msg=name)
     assert (got["outputs"][1] > 0).sum() > 0
+
+
+def _blocked_flat(out):
+    """A storm solve's outputs by name, node planes joined."""
+    flat = {}
+    for f in out._fields:
+        part = getattr(out, f)
+        items = ({f"{f}.{g}": getattr(part, g) for g in part._fields}
+                 if hasattr(part, "_fields") else {f: part})
+        for k, x in items.items():
+            flat[k] = _rows(x) if isinstance(x, tuple) else torch.as_tensor(x).cpu()
+    return flat
+
+
+def _assert_storm_blocked_same(out_k, out_p):
+    fk, fp = _blocked_flat(out_k), _blocked_flat(out_p)
+    assert fk.keys() == fp.keys()
+    for name, x in fk.items():
+        assert torch.equal(x, fp[name].to(x.dtype)), name
+
+
+#: K15a-c cases: (kind, seed, sim keywords, solve flags)
+K15_CASES = [
+    ("reclaim", 0, {}, dict(use_gang=True, use_prop=True, use_conformance=True,
+                            order_by_priority=True, has_proportion=True)),
+    ("reclaim", 2, {}, dict(use_gang=False, use_prop=False, use_conformance=True,
+                            order_by_priority=True, has_proportion=False)),
+    ("preempt", 0, {}, dict(use_gang=True, use_drf=True, use_conformance=True,
+                            order_by_priority=True)),
+    ("preempt", 9, dict(big=True), dict(use_gang=False, use_drf=True, use_conformance=True,
+                                        order_by_priority=True, gang_pipelined=False)),
+    ("rounds", 0, dict(n_new=4), dict(use_gang=True, use_drf=False, use_conformance=True,
+                                      order_by_priority=True, m_chunk=4, p_chunk=3,
+                                      k_chunk=2)),
+    ("rounds", 1, dict(n_new=4), dict(use_gang=True, use_drf=True, use_conformance=True,
+                                      order_by_priority=False, m_chunk=8, p_chunk=2,
+                                      k_chunk=4)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_blocks", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", range(len(K15_CASES)))
+def test_gpu_contention_solves_on_blocks_match_plain(case, n_blocks):
+    """K15a-c on a local mesh against their plain versions on the same
+    blocks and against the one-block K8 / K9 / K10 (rollbacks and aborts
+    among the preempt cases): bit for bit, state included; each wrapper
+    counts its launch."""
+    from volcano_tpu_torch.parallel import sharded as S
+
+    dev = _cuda()
+    kind, seed, sim, kw = K15_CASES[case]
+    c, s, args = _storm(dev, kind, seed, **sim)
+    mesh = S.LocalMesh(n_blocks, dev)
+    dc, ds = S._place_victim(mesh, c), S._place_victim(mesh, s)
+    nb = c.node_alloc.shape[0] // n_blocks
+    name = {"reclaim": "reclaim_solve", "preempt": "preempt_solve",
+            "rounds": "preempt_rounds"}[kind]
+    plain = {"reclaim": S.reclaim_blocks_plain, "preempt": S.preempt_blocks_plain,
+             "rounds": S.rounds_blocks_plain}[kind]
+    VK.reset_launches()
+    out_k = getattr(VK, name + "_sharded")(dc, ds, *args, mesh, **kw)
+    assert VK.LAUNCHES[name + "_sharded"] == 1 and VK.LAUNCHES[name] == 0
+    _assert_storm_blocked_same(out_k, plain(dc, ds, *args, mesh, nb, **kw))
+    _assert_storm_blocked_same(out_k, getattr(VK, name)(c, s, *args, **kw))

@@ -17,7 +17,8 @@
   against ``"off"`` and against the JAX Scheduler with the same mesh on the
   same store (binds equal), with dynamic jobs, and with contention under
   ``solve_mode: auto`` (unsharded contention solves, as in the JAX
-  package);
+  package; ``tests/test_torch_contention_mesh.py`` holds them on node
+  blocks under ``solve_mode: batch``);
 * ``resolve_mesh`` and the cases out of this slice, which raise;
 * the victim solve on node blocks (K12b, ``make_sharded_victim_step``):
   local meshes of 1, 2, 4 and 8 blocks at ``build_victim_sim(64, 256, 16,
@@ -345,20 +346,6 @@ def test_mesh_hosts_raise():
     conf.mesh_host_id = 2
     with pytest.raises(ValueError, match="outside"):
         Scheduler(port_store(_small_store()), conf=conf)
-
-
-def test_mesh_contention_in_batch_mode_raises():
-    """A contention pass under a mesh and ``solve_mode: batch`` (K10 on node
-    blocks) raises naming its ROADMAP item."""
-    from test_torch_contention import storm_spec
-
-    conf = tconf.full_conf("cpu")
-    conf.solve_mode = "batch"
-    conf.mesh = "2"
-    sched = Scheduler(interop.store_from_spec(storm_spec(n_nodes=8, per_node=4, n_gangs=6,
-                                                         gang_size=3)), conf=conf)
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        sched.run_once()
 
 
 def test_mesh_victim_solve_in_batch_mode_raises():

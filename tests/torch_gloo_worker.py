@@ -1,6 +1,8 @@
 """One rank of the gloo rehearsals in ``tests/test_torch_parallel.py``
-(the sharded cycle, the victim solve on node blocks) and
-``tests/test_torch_multihost.py`` (the multi-controller cycle).
+(the sharded cycle, the victim solve on node blocks),
+``tests/test_torch_contention_mesh.py`` (the contention solves on node
+blocks) and ``tests/test_torch_multihost.py`` (the multi-controller
+cycle).
 
 A module of its own, importing neither JAX nor the JAX package, so that
 each spawned rank starts with torch and the port alone."""
@@ -106,3 +108,63 @@ def run_rank_multihost(rank, world, store_path, out_dir, n_hosts, n_blocks, sim_
                  **{f"own_{n}": x for n, x in owned.items()})
     finally:
         dist.destroy_process_group()
+
+
+def contention_case(kind, seed, kw):
+    """(consts, state, positional inputs) of a seeded storm case for
+    ``reclaim_solve`` / ``preempt_solve`` / ``preempt_rounds`` as tensors:
+    ``build_storm_sim`` and ``storm_inputs`` (``kw["big"]`` / ``n_new``
+    shape the sim, the rest are the solve's flags)."""
+    from volcano_tpu_torch import interop
+    from volcano_tpu_torch.scheduler.simargs import build_storm_sim, storm_inputs
+
+    sim = {k: kw[k] for k in ("big", "n_new") if k in kw}
+    c, s, t = build_storm_sim(seed, **sim)
+    tc, ts = interop.victim_from_arrays(c, s)
+    args = [a if isinstance(a, int) else torch.from_numpy(np.asarray(a))
+            for a in storm_inputs(kind, c, s, t)]
+    return tc, ts, args
+
+
+def run_rank_contention(rank, world, store_path, out_dir, n_blocks, cases):
+    """Join a gloo group, run each (kind, seed, flags) of ``cases`` through
+    the contention solve on ``n_blocks`` node blocks over the group
+    (``reclaim_solve_sharded`` / ``preempt_solve_sharded`` /
+    ``preempt_rounds_sharded``: on CPU tensors their plain versions, the
+    records exchanged over the group), and save every output, node planes
+    gathered, to ``out_dir/contention{rank}.npz``."""
+    import torch.distributed as dist
+
+    from volcano_tpu_torch.parallel import sharded as S
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    _join(rank, world, store_path)
+    try:
+        mesh = S.make_mesh(n_blocks)
+        assert isinstance(mesh, S.GroupMesh) and mesh.n_local == n_blocks // world
+        out = {}
+        for i, (kind, seed, kw) in enumerate(cases):
+            tc, ts, args = contention_case(kind, seed, kw)
+            flags = {k: v for k, v in kw.items() if k not in ("big", "n_new")}
+            fn = getattr(VK, {"reclaim": "reclaim_solve", "preempt": "preempt_solve",
+                              "rounds": "preempt_rounds"}[kind] + "_sharded")
+            res = fn(S._place_victim(mesh, tc), S._place_victim(mesh, ts), *args, mesh, **flags)
+            for name, x in flat_outputs(res).items():
+                if isinstance(x, tuple):
+                    x = mesh.gather_rows(torch.cat(x))
+                out[f"{i}:{name}"] = x.numpy()
+        np.savez(os.path.join(out_dir, f"contention{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def flat_outputs(res):
+    """A solve's outputs by dotted name (the records' fields under rec.)."""
+    out = {}
+    for f in res._fields:
+        x = getattr(res, f)
+        if hasattr(x, "_fields"):
+            out.update({f"{f}.{g}": getattr(x, g) for g in x._fields})
+        else:
+            out[f] = x
+    return out

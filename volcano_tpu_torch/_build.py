@@ -109,8 +109,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.vtt_water_fill.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp]
     lib.vtt_water_fill.restype = ci
-    for fn in (lib.vtt_allocate_solve, lib.vtt_reclaim_solve, lib.vtt_preempt_solve,
-               lib.vtt_preempt_rounds):
+    for fn in (lib.vtt_allocate_solve, lib.vtt_reclaim_solve, lib.vtt_preempt_solve):
         fn.argtypes = [vp, vp]
         fn.restype = ci
     # the batch solve's round loop runs on the host: (base args, the local
@@ -126,6 +125,27 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vtt_victim_blocks_core.restype = ci
     lib.vtt_victim_blocks_apply.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, ci, vp, vp, vp]
     lib.vtt_victim_blocks_apply.restype = ci
+    # K15a / K15b walks: begin (base, blocks, device blocks, count, pending,
+    # stream), step (base, device blocks, count, pending, stream), and the
+    # blocks' cores (device blocks, count, stream)
+    for fn in (lib.vtt_reclaim_blocks_begin, lib.vtt_preempt_blocks_begin):
+        fn.argtypes = [vp, vp, vp, ci, vp, vp]
+        fn.restype = ci
+    for fn in (lib.vtt_reclaim_blocks_step, lib.vtt_preempt_blocks_step):
+        fn.argtypes = [vp, vp, ci, vp, vp]
+        fn.restype = ci
+    lib.vtt_walk_blocks_core.argtypes = [vp, ci, vp]
+    lib.vtt_walk_blocks_core.restype = ci
+    # K10 / K15c rounds: begin (base, blocks, count, ctl out, stream), the
+    # two halves of a round (base, blocks, count, stream), finish (base,
+    # ctl out, stream)
+    lib.vtt_rounds_begin.argtypes = [vp, vp, ci, vp, vp]
+    lib.vtt_rounds_begin.restype = ci
+    for fn in (lib.vtt_rounds_candidates, lib.vtt_rounds_decide):
+        fn.argtypes = [vp, vp, ci, vp]
+        fn.restype = ci
+    lib.vtt_rounds_finish.argtypes = [vp, vp, vp]
+    lib.vtt_rounds_finish.restype = ci
     return lib
 
 

@@ -1,4 +1,5 @@
-// K10: batched preempt rounds, one round = nine kernels.
+// K10: batched preempt rounds; K15c: the same rounds with the node planes
+// in blocks.  One code path: K10 is the case of one block.
 //
 // Replaces volcano_tpu/scheduler/victim_kernels.py:830 `preempt_rounds`
 // (exact top-K at :1062): rounds of parallel victim-capacity placement for
@@ -7,34 +8,47 @@
 // DRF test at each queue's largest preemptor share), per-(node, queue)
 // capacity curves, the top-M jobs proposing their next P tasks over their
 // K best nodes, (node, queue, rank) prefix checks, gang all-or-nothing
-// commit, and victims materialised at round end.
+// commit, and victims materialised at round end.  K15c replaces it under a
+// mesh with solveMode: batch (volcano_tpu/scheduler/fast_victims.py:148-163:
+// node planes in S blocks of rows, the [V] pool replicated).
 //
 // What bounds it on the H100: per round, the [M, N] score pass (M = 128
 // jobs x N nodes, ~40 bytes and ~40 flops a cell from L2), the O(J^2) job
 // ranking and two walks of the pool; all far below the card's rates, so a
 // round is bound by its launches and barriers, and the solve by its round
-// count.  Design, after K3 (csrc/allocate_batch.cu):
-//   * the host runs the round loop and reads one 48-byte control block a
-//     round (active jobs, progress, round count);
-//   * the pool is grouped by node once per launch (victim_common.cuh), and
-//     each row's within-job rank in the global eviction order is counted
-//     once (the gang eviction budget);
-//   * vtt_r_analysis and vtt_r_victims give each node to one thread, which
-//     walks the node's rows in (queue, priority, rank) order with float64
-//     running sums per (node, queue) cell;
-//   * vtt_r_rank counts, for each active job, the active jobs with a
-//     smaller key tuple (the rank, no sort);
-//   * vtt_r_tiles runs one CTA per (selected job, tile of TILE nodes): the
-//     tile's scores stay in shared memory and K block-wide first-max
-//     passes take its exact top-K in lax.top_k's order (values
-//     descending, lower index first, -inf fill); vtt_r_propose merges a
-//     job's tiles into its top-K (the union of the tiles' top-Ks holds it)
-//     and writes the proposals.  Tiles lift the shared-memory cap on N;
-//   * vtt_r_accept is one CTA: a bitonic sort of the F = M * P proposals by
-//     (cell, rank), one thread per cell for the running sums, per-job prefix
-//     and gang commit, and the job, queue and cell updates in a fixed order.
-//   Cross-node sums (victims per job and queue) use float64 atomics: the
-//   terms are whole numbers, so the sums are exact in any order.
+// count.  Design, after K3 / K12a (csrc/allocate_batch.cu):
+//   * the host runs the round loop: vtt_rounds_candidates, the exchange of
+//     the blocks' records, vtt_rounds_decide, the exchange of the blocks'
+//     victim sums, vtt_rounds_finish, which leaves a 48-byte control block
+//     on the host (active jobs, progress, round count);
+//   * each block's pool rows are grouped by node once per solve
+//     (victim_common.cuh); each row's within-job rank in the global
+//     eviction order is counted once, replicated (the gang budget);
+//   * per block, over its own rows: vtt_r_analysis and vtt_r_victims give
+//     each node to one thread, which walks the node's rows in (queue,
+//     priority, rank) order with float64 running sums per (node, queue)
+//     cell; vtt_r_tiles runs one CTA per (selected job, tile of TILE
+//     nodes) and keeps the tile's exact top-K in lax.top_k's order;
+//     vtt_r_pack merges a job's tiles into the block's top-K and packs each
+//     as a record (value, node, predicate bit, task count, pod cap and the
+//     (node, queue) cell's capacity): the union of the blocks' top-Ks holds
+//     the global one (PR 6's tile argument);
+//   * replicated, on the gathered records: vtt_r_rank counts, for each
+//     active job, the active jobs with a smaller key tuple (the rank, no
+//     sort); vtt_r_propose merges the S blocks' records into the job's
+//     top-K and writes its P proposals, each with its node's record;
+//     vtt_r_accept is one CTA: a bitonic sort of the F = M * P proposals by
+//     (cell, rank), one thread per cell for the running sums against the
+//     records, per-job prefix and gang commit, and the job and queue
+//     updates in a fixed order;
+//   * vtt_r_grant: each block takes the granted capacity of its own cells
+//     from the accept's order; vtt_r_victims evicts on its own nodes.
+//   Cross-node sums (victims per job and queue, their count, the evicted
+//   rows) are per block: float64 atomics of whole numbers, exact in any
+//   order, into the block's partial row [W2]; the rows travel in a second
+//   exchange a round and vtt_r_finish adds them in block order, so every
+//   block count gives the one-block outputs bit for bit.  On one device
+//   both exchanges are the buffers the blocks wrote.
 #include "victim_common.cuh"
 
 #define VTT_R_PROPOSE_THREADS 256
@@ -101,18 +115,13 @@ __global__ void vtt_r_init(VttVictimArgs a) {
   }
 }
 
-// round start: active jobs, their rank keys, act_q and ls_q; resets the
-// round's per-job scratch
+// round start: active jobs, their rank keys, act_q and ls_q
 __global__ void vtt_r_start(VttVictimArgs a) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const int J = (int)a.J, Q = (int)a.Q, T = (int)a.T, R = (int)a.R;
   if (idx < a.M) a.sel[idx] = -1;
-  if (idx < Q)
-    for (int r = 0; r < R; ++r) a.vict_q[(size_t)idx * R + r] = 0.0;
   if (idx >= J) return;
   const int j = idx;
-  for (int r = 0; r < R; ++r) a.vict_job[(size_t)j * R + r] = 0.0;
-  a.vict_cnt[j] = 0;
   a.job_rank[j] = 0;
   const bool active = a.job_avail[j] && !a.dropped[j] && a.cursor[j] < a.job_pcount[j];
   a.job_active[j] = active ? 1 : 0;
@@ -250,8 +259,9 @@ __device__ __forceinline__ VttRHead vtt_r_head(const VttVictimArgs& a, int m) {
   return h;
 }
 
-// one CTA per (selected job, tile of TILE nodes): the head task's scores
-// over the tile in shared memory, the tile's exact top-K
+// one CTA per (selected job, tile of TILE of the block's nodes): the head
+// task's scores over the tile in shared memory, the tile's exact top-K
+// (global node rows)
 __global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_tiles(VttVictimArgs a) {
   VTT_DYN_SMEM(float, s_val);
   __shared__ float s_v[VTT_R_PROPOSE_THREADS];
@@ -278,7 +288,7 @@ __global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_tiles(VttVictimAr
     if (feasible) {
       const float sc = vtt_score_node(h.req, &a.used[(size_t)n * R], &a.node_alloc[(size_t)n * R],
                                       cscore[n], a.w_least, a.w_balanced);
-      uint32_t hh = (jh ^ ((uint32_t)n * 40503u)) * 2246822519u;
+      uint32_t hh = (jh ^ ((uint32_t)(n + a.n0) * 40503u)) * 2246822519u;
       hh ^= hh >> 15;
       v = __fmaf_rn((float)(hh & 0xFFFFu), jscale, sc);
       any_local = true;
@@ -290,14 +300,75 @@ __global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_tiles(VttVictimAr
   vtt_block_topk(
       [&](int c, float& v, int& i) {
         v = s_val[c];
-        i = lo + c;
+        i = (int)a.n0 + lo + c;
       },
       hi - lo, K, s_v, s_i, s_p, a.t_val + at, a.t_idx + at, s_pos);
   if (tid == 0) a.t_any[(size_t)m * TB + tb] = any ? 1 : 0;
 }
 
-// one CTA per selected job: the job's top-K from its tiles' candidates,
-// per-target counts, its P proposals
+// record words (W = 5 + R): value bits, global node (INT_MAX: none), flags
+// (bit 0: class mask, pod cap and validity admit; bit 1: the block has a
+// feasible node for the job), task count, pod cap, the (node, job's queue)
+// cell's capacity [R]
+#define RR_PRED 1
+#define RR_ANY 2
+
+// one CTA per selected job, per block: the block's top-K from its tiles'
+// candidates, as records into its send slot [M, K, W]
+__global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_pack(VttVictimArgs a) {
+  __shared__ float s_v[VTT_R_PROPOSE_THREADS];
+  __shared__ int s_i[VTT_R_PROPOSE_THREADS];
+  __shared__ int s_p[VTT_R_PROPOSE_THREADS];
+  __shared__ float s_kv[VTT_R_MAX_PK];
+  __shared__ int s_top[VTT_R_MAX_PK];
+  __shared__ int s_kp[VTT_R_MAX_PK];
+  __shared__ int s_flag;
+  const int tid = threadIdx.x;
+  const int m = blockIdx.x;
+  const int N = (int)a.N, R = (int)a.R, Q = (int)a.Q, K = (int)a.K, TB = (int)a.TB,
+            W = (int)a.W;
+  int32_t* rec = a.send + (size_t)m * K * W;
+  const VttRHead h = vtt_r_head(a, m);
+  if (h.j < 0) {
+    for (int i = tid; i < K * W; i += blockDim.x) rec[i] = 0;
+    return;
+  }
+  bool any_local = false;
+  for (int tb = tid; tb < TB; tb += blockDim.x) any_local |= a.t_any[(size_t)m * TB + tb] != 0;
+  const bool any = vtt_block_any(any_local, &s_flag);
+  const float* tv = a.t_val + (size_t)m * TB * K;
+  const int* ti = a.t_idx + (size_t)m * TB * K;
+  vtt_block_topk(
+      [&](int c, float& v, int& i) {
+        v = tv[c];
+        i = ti[c];
+      },
+      TB * K, K, s_v, s_i, s_p, s_kv, s_top, s_kp);
+  if (tid < K) {
+    int32_t* r = rec + (size_t)tid * W;
+    const int node = s_top[tid];
+    const bool real = s_kp[tid] >= 0 && node != 0x7fffffff;
+    r[0] = __float_as_int(real ? s_kv[tid] : VTT_NEG_INF);
+    r[1] = real ? node : 0x7fffffff;
+    int flags = any ? RR_ANY : 0;
+    for (int k = 3; k < W; ++k) r[k] = 0;
+    if (real) {
+      const int n = node - (int)a.n0;
+      if (a.class_mask[(size_t)h.cls * N + n] && a.task_count[n] < a.node_max_tasks[n] &&
+          a.node_valid[n])
+        flags |= RR_PRED;
+      r[3] = a.task_count[n];
+      r[4] = a.node_max_tasks[n];
+      const float* capn = &a.cap_flat[((size_t)n * Q + h.q) * R];
+      for (int rr = 0; rr < R; ++rr) r[5 + rr] = __float_as_int(capn[rr]);
+    }
+    r[2] = flags;
+  }
+}
+
+// one CTA per selected job, replicated: the job's top-K from the S blocks'
+// records (a.recv [S, M, K, W]), per-target counts, its P proposals, each
+// with its node's record in p_rec
 __global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_propose(VttVictimArgs a) {
   __shared__ float s_v[VTT_R_PROPOSE_THREADS];
   __shared__ int s_i[VTT_R_PROPOSE_THREADS];
@@ -306,13 +377,14 @@ __global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_propose(VttVictim
   __shared__ int s_top[VTT_R_MAX_PK];
   __shared__ int s_kp[VTT_R_MAX_PK];
   __shared__ int s_knode[VTT_R_MAX_PK];
+  __shared__ int s_kpos[VTT_R_MAX_PK];
   __shared__ float s_cnt[VTT_R_MAX_PK];
   __shared__ float s_cum[VTT_R_MAX_PK];
   __shared__ int s_flag;
   const int tid = threadIdx.x;
   const int m = blockIdx.x;
-  const int N = (int)a.N, R = (int)a.R, T = (int)a.T, Q = (int)a.Q, P = (int)a.P,
-            K = (int)a.K, TB = (int)a.TB;
+  const int R = (int)a.R, T = (int)a.T, P = (int)a.P, K = (int)a.K, M = (int)a.M,
+            S = (int)a.S, W = (int)a.W;
   const VttRHead h = vtt_r_head(a, m);
   if (h.j < 0) {
     for (int p = tid; p < P; p += blockDim.x) {
@@ -325,29 +397,34 @@ __global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_propose(VttVictim
     return;
   }
   const int j = h.j;
+  // record c of this job: block c / K, slot c % K
+  auto recp = [&](int c) {
+    return a.recv + (((size_t)(c / K) * M + m) * K + (size_t)(c % K)) * W;
+  };
   bool any_local = false;
-  for (int tb = tid; tb < TB; tb += blockDim.x) any_local |= a.t_any[(size_t)m * TB + tb] != 0;
+  for (int b = tid; b < S; b += blockDim.x) any_local |= (recp(b * K)[2] & RR_ANY) != 0;
   const bool job_ok = vtt_block_any(any_local, &s_flag);
-  const float* tv = a.t_val + (size_t)m * TB * K;
-  const int* ti = a.t_idx + (size_t)m * TB * K;
   vtt_block_topk(
       [&](int c, float& v, int& i) {
-        v = tv[c];
-        i = ti[c];
+        const int32_t* r = recp(c);
+        v = __int_as_float(r[0]);
+        i = r[1];
       },
-      TB * K, K, s_v, s_i, s_p, s_kv, s_top, s_kp);
-  const uint8_t* cmask = a.class_mask + (size_t)h.cls * N;
+      S * K, K, s_v, s_i, s_p, s_kv, s_top, s_kp);
   if (tid < K) {
     const int k = tid;
-    const int node = s_top[(k + m % K) % K];
-    const float* capk = &a.cap_flat[((size_t)node * Q + h.q) * R];
-    bool ok = cmask[node] && a.task_count[node] < a.node_max_tasks[node] && a.node_valid[node];
-    for (int r = 0; r < R; ++r) ok = ok && h.req[r] < capk[r] + a.eps[r];
-    float c = VTT_POS_INF;
-    for (int r = 0; r < R; ++r)
-      if (h.req[r] > 0.0f) c = fminf(c, floorf((capk[r] + a.eps[r]) / fmaxf(h.req[r], 1e-30f)));
-    s_knode[k] = node;
-    s_cnt[k] = ok ? fmaxf(c, 0.0f) : 0.0f;
+    const int c = s_kp[(k + m % K) % K];
+    const int32_t* r = recp(c >= 0 ? c : 0);
+    const float* capk = (const float*)(r + 5);
+    bool ok = c >= 0 && (r[2] & RR_PRED);
+    for (int rr = 0; rr < R; ++rr) ok = ok && h.req[rr] < capk[rr] + a.eps[rr];
+    float cn = VTT_POS_INF;
+    for (int rr = 0; rr < R; ++rr)
+      if (h.req[rr] > 0.0f)
+        cn = fminf(cn, floorf((capk[rr] + a.eps[rr]) / fmaxf(h.req[rr], 1e-30f)));
+    s_knode[k] = r[1];
+    s_kpos[k] = c >= 0 ? c : 0;
+    s_cnt[k] = ok ? fmaxf(cn, 0.0f) : 0.0f;
   }
   __syncthreads();
   if (tid == 0) {
@@ -366,15 +443,19 @@ __global__ void __launch_bounds__(VTT_R_PROPOSE_THREADS) vtt_r_propose(VttVictim
     const bool in_range = slot < K;
     const bool valid = job_ok && h.cur + p < a.job_pcount[j] && in_range;
     const int t = a.rows_packed[vtt_clamp(a.job_pstart[j] + h.cur + p, 0, T - 1)];
-    a.p_node[f] = s_knode[slot < K ? slot : K - 1];
+    const int sl = slot < K ? slot : K - 1;
+    a.p_node[f] = s_knode[sl];
     a.p_t[f] = vtt_clamp(t, 0, T - 1);
     a.p_job[f] = j;
     a.p_flags[f] = valid ? RF_VALID : 0;
+    const int32_t* r = recp(s_kpos[sl]);
+    for (int w = 0; w < W; ++w) a.p_rec[(size_t)f * W + w] = r[w];
   }
 }
 
-// one CTA: (cell, rank) order, capacity and pod-cap prefix checks, per-job
-// prefix and gang commit, the job / queue / cell updates
+// one CTA, replicated: (cell, rank) order (kept in p_key), capacity and
+// pod-cap prefix checks against the proposals' records, per-job prefix and
+// gang commit, the job and queue updates
 __global__ void __launch_bounds__(VTT_R_ACCEPT_THREADS)
     vtt_r_accept(VttVictimArgs a, int Fp2) {
   VTT_DYN_SMEM(unsigned long long, s_key);
@@ -382,7 +463,7 @@ __global__ void __launch_bounds__(VTT_R_ACCEPT_THREADS)
   __shared__ int s_sum[VTT_R_ACCEPT_THREADS];
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int N = (int)a.N, R = (int)a.R, Q = (int)a.Q, M = (int)a.M, P = (int)a.P,
-            F = (int)a.F;
+            F = (int)a.F, W = (int)a.W;
   const unsigned long long NQ = (unsigned long long)N * Q;
   const int att = a.ctl[VC_ATT];
 
@@ -415,12 +496,14 @@ __global__ void __launch_bounds__(VTT_R_ACCEPT_THREADS)
       __syncthreads();
     }
   }
-  // running request sums per cell against its capacity, and the pod cap
+  for (int i = tid; i < F; i += nthr) a.p_key[i] = s_key[i];
+  // running request sums per cell against its capacity, and the pod cap,
+  // from the record of the cell's node (every proposal of a cell has it)
   for (int i = tid; i < F; i += nthr) {
     const unsigned long long kf = s_key[i] >> 32;
     if (kf >= NQ || (i > 0 && (s_key[i - 1] >> 32) == kf)) continue;
-    const int n = (int)(kf / Q);
-    const float* cap = &a.cap_flat[kf * R];
+    const int32_t* pr = a.p_rec + (size_t)(s_key[i] & 0xffffffffu) * W;
+    const float* cap = (const float*)(pr + 5);
     double acc[VTT_MAX_R];
     for (int r = 0; r < R; ++r) acc[r] = 0.0;
     long long pos = 0;
@@ -432,8 +515,7 @@ __global__ void __launch_bounds__(VTT_R_ACCEPT_THREADS)
         acc[r] += (double)rq[r];
         ok = ok && (float)acc[r] < cap[r] + a.eps[r];
       }
-      if (ok && (long long)a.task_count[n] + pos < (long long)a.node_max_tasks[n])
-        a.p_flags[f] |= RF_WIN0;
+      if (ok && (long long)pr[3] + pos < (long long)pr[4]) a.p_flags[f] |= RF_WIN0;
     }
   }
   __syncthreads();
@@ -473,26 +555,6 @@ __global__ void __launch_bounds__(VTT_R_ACCEPT_THREADS)
   }
   const bool any_win = vtt_block_any(any_local, &s_flag);
   const int wins_total = vtt_block_sum(wins_local, s_sum);
-  // granted capacity per cell and per node
-  for (int i = tid; i < F; i += nthr) {
-    const unsigned long long kf = s_key[i] >> 32;
-    if (kf >= NQ || (i > 0 && (s_key[i - 1] >> 32) == kf)) continue;
-    const int n = (int)(kf / Q);
-    double acc[VTT_MAX_R];
-    for (int r = 0; r < R; ++r) acc[r] = 0.0;
-    int cnt = 0;
-    for (int i2 = i; i2 < F && (s_key[i2] >> 32) == kf; ++i2) {
-      const int f = (int)(s_key[i2] & 0xffffffffu);
-      if (!(a.p_flags[f] & RF_WIN)) continue;
-      ++cnt;
-      for (int r = 0; r < R; ++r) acc[r] += (double)a.task_req[(size_t)a.p_t[f] * R + r];
-    }
-    for (int r = 0; r < R; ++r) {
-      a.cons_flat[kf * R + r] = (float)acc[r];
-      if (cnt) atomicAdd(&a.cons_node[(size_t)n * R + r], acc[r]);
-    }
-    if (cnt) atomicAdd(&a.placed[n], cnt);
-  }
   for (int q = tid; q < Q; q += nthr) {
     double acc[VTT_MAX_R];
     for (int r = 0; r < R; ++r) acc[r] = 0.0;
@@ -515,26 +577,65 @@ __global__ void __launch_bounds__(VTT_R_ACCEPT_THREADS)
   }
 }
 
-// one thread per node: the minimal admitted eviction-order prefix of each
-// (node, queue) cell that covers the cell's granted capacity
+// one CTA per block: the granted capacity of the block's own cells, from
+// the accept's (cell, rank) order, and per node its sum and placements
+__global__ void __launch_bounds__(VTT_R_ACCEPT_THREADS) vtt_r_grant(VttVictimArgs a) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int N = (int)a.N, R = (int)a.R, Q = (int)a.Q, F = (int)a.F;
+  const unsigned long long NQ = (unsigned long long)(a.NT > 0 ? a.NT : a.N) * Q;
+  for (int i = tid; i < F; i += nthr) {
+    const unsigned long long kf = a.p_key[i] >> 32;
+    if (kf >= NQ || (i > 0 && (a.p_key[i - 1] >> 32) == kf)) continue;
+    const int n = (int)(kf / Q) - (int)a.n0, q = (int)(kf % Q);
+    if (n < 0 || n >= N) continue;
+    double acc[VTT_MAX_R];
+    for (int r = 0; r < R; ++r) acc[r] = 0.0;
+    int cnt = 0;
+    for (int i2 = i; i2 < F && (a.p_key[i2] >> 32) == kf; ++i2) {
+      const int f = (int)(a.p_key[i2] & 0xffffffffu);
+      if (!(a.p_flags[f] & RF_WIN)) continue;
+      ++cnt;
+      for (int r = 0; r < R; ++r) acc[r] += (double)a.task_req[(size_t)a.p_t[f] * R + r];
+    }
+    for (int r = 0; r < R; ++r) {
+      a.cons_flat[((size_t)n * Q + q) * R + r] = (float)acc[r];
+      if (cnt) atomicAdd(&a.cons_node[(size_t)n * R + r], acc[r]);
+    }
+    if (cnt) atomicAdd(&a.placed[n], cnt);
+  }
+}
+
+// a block's partial row [W2] (doubles): victims' request per job [J, R], per
+// queue [Q, R], victims per job [J], the victim count, then the evicted
+// rows as a bit mask of ceil(V / 32) words
+__device__ __forceinline__ size_t vtt_r_mask_at(const VttVictimArgs& a) {
+  return (size_t)a.J * a.R + (size_t)a.Q * a.R + (size_t)a.J + 1;
+}
+
+// one thread per node of the block: the minimal admitted eviction-order
+// prefix of each (node, queue) cell that covers the cell's granted
+// capacity; the node's rows, and the victims into the block's partial row
 __global__ void vtt_r_victims(VttVictimArgs a) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const int N = (int)a.N, Q = (int)a.Q, R = (int)a.R;
+  const int N = (int)a.N, Q = (int)a.Q, R = (int)a.R, J = (int)a.J;
   if (n >= N) return;
+  double* pj = a.part;
+  double* pq = pj + (size_t)J * R;
+  double* pc = pq + (size_t)Q * R;
+  uint32_t* mask = (uint32_t*)(a.part + vtt_r_mask_at(a));
   const int off = a.node_off[n], end = a.node_off[n + 1];
-  const int ea = a.ctl[VC_ATT] + (int)a.F;
   double acc[VTT_MAX_R], vn[VTT_MAX_R];
   float excl[VTT_MAX_R];
   for (int r = 0; r < R; ++r) vn[r] = 0.0;
-  int pq = -1, nv = 0;
+  int pq_ = -1, nv = 0;
   for (int i = off; i < end; ++i) {
     const int v = a.l_ev[i];
     const int j = a.run_job[v];
     const int rq = a.job_queue[j];
     const int q = vtt_clamp(rq, 0, Q - 1);
-    if (q != pq) {
+    if (q != pq_) {
       for (int r = 0; r < R; ++r) acc[r] = 0.0;
-      pq = q;
+      pq_ = q;
     }
     if (!(a.flag[v] & VF_CAND)) continue;
     const float* rqv = &a.run_req[(size_t)v * R];
@@ -543,17 +644,16 @@ __global__ void vtt_r_victims(VttVictimArgs a) {
       excl[r] = (float)acc[r] - rqv[r];
     }
     if (vtt_less_equal(&a.cons_flat[((size_t)n * Q + q) * R], excl, a.eps, R)) continue;
-    a.run_live[v] = 0;
-    a.evict_att[v] = ea;
+    atomicOr(&mask[v >> 5], 1u << (v & 31));
     ++nv;
     for (int r = 0; r < R; ++r) {
       vn[r] += (double)rqv[r];
-      atomicAdd(&a.vict_job[(size_t)j * R + r], (double)rqv[r]);
-      if (rq >= 0) atomicAdd(&a.vict_q[(size_t)q * R + r], (double)rqv[r]);
+      atomicAdd(&pj[(size_t)j * R + r], (double)rqv[r]);
+      if (rq >= 0) atomicAdd(&pq[(size_t)q * R + r], (double)rqv[r]);
     }
-    atomicAdd(&a.vict_cnt[j], 1);
+    atomicAdd(&pc[j], 1.0);
   }
-  if (nv) atomicAdd(&a.ctl[VC_NVICT], nv);
+  if (nv) atomicAdd(&pc[J], (double)nv);
   for (int r = 0; r < R; ++r) {
     const size_t nr = (size_t)n * R + r;
     const float cons = (float)a.cons_node[nr];
@@ -563,86 +663,173 @@ __global__ void vtt_r_victims(VttVictimArgs a) {
   a.task_count[n] += a.placed[n];
 }
 
-// round end: victims leave their jobs and queues; the round's bookkeeping
+// one thread per mask word, replicated: the rows any block evicted this
+// round (a.part: the S blocks' exchanged partial rows)
+__global__ void vtt_r_evict(VttVictimArgs a) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= (a.V + 31) / 32) return;
+  const size_t at = vtt_r_mask_at(a);
+  uint32_t bits = 0;
+  for (int b = 0; b < a.S; ++b)
+    bits |= ((const uint32_t*)(a.part + (size_t)b * a.W2 + at))[w];
+  if (!bits) return;
+  const int ea = a.ctl[VC_ATT] + (int)a.F;
+  for (int k = 0; k < 32; ++k) {
+    const long long v = (long long)w * 32 + k;
+    if (((bits >> k) & 1u) && v < a.V) {
+      a.run_live[v] = 0;
+      a.evict_att[v] = ea;
+    }
+  }
+}
+
+// round end, replicated: victims leave their jobs and queues, the S
+// blocks' sums added in block order; the round's bookkeeping
 __global__ void vtt_r_finish(VttVictimArgs a) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int R = (int)a.R;
-  if (idx < a.J) {
+  const int R = (int)a.R, J = (int)a.J, Q = (int)a.Q, S = (int)a.S;
+  const size_t W2 = (size_t)a.W2;
+  const double* pj = a.part;
+  const double* pq = pj + (size_t)J * R;
+  const double* pc = pq + (size_t)Q * R;
+  if (idx < J) {
     for (int r = 0; r < R; ++r) {
       const size_t jr = (size_t)idx * R + r;
-      a.job_alloc[jr] = a.job_alloc[jr] - (float)a.vict_job[jr];
+      double sum = 0.0;
+      for (int b = 0; b < S; ++b) sum += pj[b * W2 + jr];
+      a.job_alloc[jr] = a.job_alloc[jr] - (float)sum;
     }
-    a.job_occupied[idx] -= a.vict_cnt[idx];
+    double cnt = 0.0;
+    for (int b = 0; b < S; ++b) cnt += pc[b * W2 + idx];
+    a.job_occupied[idx] -= (int)cnt;
   }
-  if (idx < a.Q) {
+  if (idx < Q) {
     for (int r = 0; r < R; ++r) {
       const size_t qr = (size_t)idx * R + r;
-      a.queue_alloc[qr] = a.queue_alloc[qr] - (float)a.vict_q[qr];
+      double sum = 0.0;
+      for (int b = 0; b < S; ++b) sum += pq[b * W2 + qr];
+      a.queue_alloc[qr] = a.queue_alloc[qr] - (float)sum;
     }
     a.act_q[idx] = 0;
     a.ls_q[idx] = vtt_f2ord(VTT_NEG_INF);
   }
   if (idx == 0) {
+    double nvict = 0.0;
+    for (int b = 0; b < S; ++b) nvict += pc[b * W2 + J];
     const int any_win = a.ctl[VC_ANY_WIN];
     a.ctl[VC_ATT] += (int)a.F + 1;
-    if (any_win) a.ctl[VC_LAST_V] = a.ctl[VC_NVICT];
+    if (any_win) a.ctl[VC_LAST_V] = (int)nvict;
     a.ctl[VC_ANY] |= any_win;
     a.ctl[VC_ITERS] += 1;
-    a.ctl[VC_NVICT] = 0;
     a.ctl[VC_ACTIVE] = 0;
   }
 }
 
-extern "C" int vtt_preempt_rounds(const VttVictimArgs* args, void* stream) {
-  const VttVictimArgs a = *args;
-  if (a.R < 2 || a.R > VTT_MAX_R || a.n_keys > 3 || a.P < 1 || a.P > VTT_R_MAX_PK ||
-      a.K < 1 || a.K > VTT_R_MAX_PK || a.F != a.M * a.P || a.TILE < 1 ||
-      a.TILE > 8192 || a.TB * a.TILE < a.N)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int err = vtt_victim_setup(a, VTT_EV_ROUNDS, s);
-  if (err) return err;
+static inline int vtt_rounds_fp2(const VttVictimArgs& a) {
   int Fp2 = 1;
   while (Fp2 < a.F) Fp2 <<= 1;
-  const size_t tile_smem = (size_t)a.TILE * sizeof(float);
-  const size_t accept_smem = (size_t)Fp2 * sizeof(unsigned long long);
-  if ((err = (int)cudaFuncSetAttribute(vtt_r_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)tile_smem)))
-    return err;
-  if ((err = (int)cudaFuncSetAttribute(vtt_r_accept, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)accept_smem)))
-    return err;
-  const int J = (int)a.J;
-  const int vb = (int)((a.V + 255) / 256), nb = (int)((a.N + 255) / 256);
+  return Fp2;
+}
+
+static inline int vtt_rounds_wide_blocks(const VttVictimArgs& a) {
   int64_t wide = a.J > a.Q ? a.J : a.Q;
   if (a.M > wide) wide = a.M;
-  const int wb = (int)((wide + 255) / 256);
-  const dim3 rank_grid((J + 255) / 256, (J + VTT_R_RANK_CHUNK - 1) / VTT_R_RANK_CHUNK);
+  return (int)((wide + 255) / 256);
+}
 
+// the control block (ctl[0, 12)) on the host, once the stream has drained
+static inline int vtt_rounds_ctl(const VttVictimArgs& a, int32_t* ctl_out, cudaStream_t s) {
+  int err = (int)cudaMemcpyAsync(ctl_out, a.ctl, 12 * sizeof(int32_t),
+                                 cudaMemcpyDeviceToHost, s);
+  if (!err) err = (int)cudaStreamSynchronize(s);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// Begin a solve: each local block's pool rows grouped by node, the
+// replicated within-job ranks, the first round's start; the control block
+// into ctl_out[12].  The host then runs rounds while ctl_out says progress,
+// active jobs and fewer than J + 8 rounds.  job_fill and each block's
+// node_fill must be zero.
+extern "C" int vtt_rounds_begin(const VttVictimArgs* base, const VttVictimArgs* blocks,
+                                int n_blocks, int32_t* ctl_out, void* stream) {
+  const VttVictimArgs& a = *base;
+  if (a.R < 2 || a.R > VTT_MAX_R || a.n_keys > 3 || a.P < 1 || a.P > VTT_R_MAX_PK ||
+      a.K < 1 || a.K > VTT_R_MAX_PK || a.F != a.M * a.P || a.TILE < 1 || a.TILE > 8192 ||
+      a.W != 5 + a.R || a.S < 1 || n_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  for (int b = 0; b < n_blocks; ++b)
+    if (blocks[b].TB * blocks[b].TILE < blocks[b].N) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = vtt_blocks_setup(blocks, n_blocks, VTT_EV_ROUNDS, s);
+  if (err) return err;
+  if ((err = (int)cudaFuncSetAttribute(vtt_r_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)(a.TILE * sizeof(float)))))
+    return err;
+  if ((err = (int)cudaFuncSetAttribute(vtt_r_accept, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)(vtt_rounds_fp2(a) * sizeof(unsigned long long)))))
+    return err;
+  const int J = (int)a.J;
+  const int vb = (int)((a.V + 255) / 256);
   VTT_LAUNCH(vtt_r_job_count, vb, 256, 0, s)(a);
   VTT_LAUNCH(vtt_v_scan, 1, VTT_VICTIM_THREADS, 0, s)(a.job_fill, a.job_off, J);
   VTT_LAUNCH(vtt_r_job_bucket, vb, 256, 0, s)(a);
   VTT_LAUNCH(vtt_r_cnt_in_job, vb, 256, 0, s)(a);
   VTT_LAUNCH(vtt_r_init, (int)((a.Q + 255) / 256), 256, 0, s)(a);
-  VTT_LAUNCH(vtt_r_start, wb, 256, 0, s)(a);
-  if ((err = (int)cudaGetLastError())) return err;
-  for (;;) {
-    int32_t ctl[12];
-    if ((err = (int)cudaMemcpyAsync(ctl, a.ctl, sizeof(ctl), cudaMemcpyDeviceToHost, s)))
-      return err;
-    if ((err = (int)cudaStreamSynchronize(s))) return err;
-    if (!ctl[VC_PROGRESS] || ctl[VC_ACTIVE] <= 0 || ctl[VC_ITERS] >= J + 8) break;
-    VTT_LAUNCH(vtt_r_analysis, nb, 256, 0, s)(a);
-    VTT_LAUNCH(vtt_r_rank, rank_grid, 256, 0, s)(a);
-    VTT_LAUNCH(vtt_r_select, (J + 255) / 256, 256, 0, s)(a);
-    VTT_LAUNCH(vtt_r_tiles, dim3((unsigned)a.M, (unsigned)a.TB), VTT_R_PROPOSE_THREADS,
-               tile_smem, s)(a);
-    VTT_LAUNCH(vtt_r_propose, (int)a.M, VTT_R_PROPOSE_THREADS, 0, s)(a);
-    VTT_LAUNCH(vtt_r_accept, 1, VTT_R_ACCEPT_THREADS, accept_smem, s)(a, Fp2);
-    VTT_LAUNCH(vtt_r_victims, nb, 256, 0, s)(a);
-    VTT_LAUNCH(vtt_r_finish, wb, 256, 0, s)(a);
-    VTT_LAUNCH(vtt_r_start, wb, 256, 0, s)(a);
-    if ((err = (int)cudaGetLastError())) return err;
+  VTT_LAUNCH(vtt_r_start, vtt_rounds_wide_blocks(a), 256, 0, s)(a);
+  return vtt_rounds_ctl(a, ctl_out, s);
+}
+
+// The first half of a round: each local block's analysis, the replicated
+// rank and selection, then each block's tiles and records (into its send
+// slot).
+extern "C" int vtt_rounds_candidates(const VttVictimArgs* base, const VttVictimArgs* blocks,
+                                     int n_blocks, void* stream) {
+  const VttVictimArgs& a = *base;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int J = (int)a.J;
+  for (int b = 0; b < n_blocks; ++b)
+    VTT_LAUNCH(vtt_r_analysis, (int)((blocks[b].N + 255) / 256), 256, 0, s)(blocks[b]);
+  const dim3 rank_grid((J + 255) / 256, (J + VTT_R_RANK_CHUNK - 1) / VTT_R_RANK_CHUNK);
+  VTT_LAUNCH(vtt_r_rank, rank_grid, 256, 0, s)(a);
+  VTT_LAUNCH(vtt_r_select, (J + 255) / 256, 256, 0, s)(a);
+  for (int b = 0; b < n_blocks; ++b) {
+    const VttVictimArgs& blk = blocks[b];
+    VTT_LAUNCH(vtt_r_tiles, dim3((unsigned)blk.M, (unsigned)blk.TB), VTT_R_PROPOSE_THREADS,
+               blk.TILE * sizeof(float), s)(blk);
+    VTT_LAUNCH(vtt_r_pack, (int)blk.M, VTT_R_PROPOSE_THREADS, 0, s)(blk);
   }
   return (int)cudaGetLastError();
+}
+
+// The second half, after the exchange filled base->recv: the replicated
+// proposals and accept, then each local block's grants and victims (into
+// its zeroed partial row).
+extern "C" int vtt_rounds_decide(const VttVictimArgs* base, const VttVictimArgs* blocks,
+                                 int n_blocks, void* stream) {
+  const VttVictimArgs& a = *base;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int Fp2 = vtt_rounds_fp2(a);
+  VTT_LAUNCH(vtt_r_propose, (int)a.M, VTT_R_PROPOSE_THREADS, 0, s)(a);
+  VTT_LAUNCH(vtt_r_accept, 1, VTT_R_ACCEPT_THREADS, Fp2 * sizeof(unsigned long long), s)(a, Fp2);
+  for (int b = 0; b < n_blocks; ++b) {
+    const VttVictimArgs& blk = blocks[b];
+    int err = (int)cudaMemsetAsync(blk.part, 0, (size_t)blk.W2 * sizeof(double), s);
+    if (err) return err;
+    VTT_LAUNCH(vtt_r_grant, 1, VTT_R_ACCEPT_THREADS, 0, s)(blk);
+    VTT_LAUNCH(vtt_r_victims, (int)((blk.N + 255) / 256), 256, 0, s)(blk);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The round's end, after the second exchange filled base->part with the S
+// blocks' partial rows: the evictions and sums, then the next round's
+// start; the control block into ctl_out[12].
+extern "C" int vtt_rounds_finish(const VttVictimArgs* base, int32_t* ctl_out, void* stream) {
+  const VttVictimArgs& a = *base;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int wb = vtt_rounds_wide_blocks(a);
+  VTT_LAUNCH(vtt_r_evict, (int)(((a.V + 31) / 32 + 255) / 256), 256, 0, s)(a);
+  VTT_LAUNCH(vtt_r_finish, wb, 256, 0, s)(a);
+  VTT_LAUNCH(vtt_r_start, wb, 256, 0, s)(a);
+  return vtt_rounds_ctl(a, ctl_out, s);
 }

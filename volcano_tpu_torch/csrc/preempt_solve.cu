@@ -1,4 +1,5 @@
-// K9: the whole preempt action as ONE persistent CTA.
+// K9: the whole preempt action as ONE persistent CTA; K15b: the same walk
+// with the node planes in blocks.
 //
 // Replaces volcano_tpu/scheduler/victim_kernels.py:607 `preempt_solve`
 // (preempt.go:45-273): for each queue in discovery order, phase 1 pops the
@@ -17,142 +18,169 @@
 // phase-1 statement (an undo journal, a few dozen words an attempt) and
 // writes them back, newest first, on discard.  A journal that would
 // overflow sets an error word the wrapper raises on.
+//
+// K15b replaces the same function under a mesh with solveMode: batch
+// (volcano_tpu/scheduler/fast_victims.py:148-163, :191-198), as K15a does
+// for K8 (reclaim_solve.cu): the state machine (vtt_pw_advance /
+// vtt_pw_after) is the same device code with its state, the journal's
+// length included, in global memory; per attempt every block's core, the
+// exchange of the records, and one step launch that merges them, applies
+// and advances.  The journal lives with the walk on each process and
+// records the replicated words and the node rows of that process's own
+// blocks, so a discard restores every word the statement wrote, each on
+// the process that holds it.
 #include "victim_common.cuh"
 
-struct VttPreemptCtl {
-  int phase;  // 0 select, 1 drain the popped job, 2 within-job
-  int qpos, cur, j2pos;
-  int assigned, last_v, any_p1, att_total, ck_att;
-  int go, do_att, t, jt, qm;
-};
-
-// the popped job's statement ends: discard unless the gang pipelined; the
-// job stays available only when it pipelined and placed something
-__device__ void vtt_finish_job(const VttVictimArgs& a, VttPreemptCtl& c, VttJournal& jr) {
-  const int j = c.cur;
+// the popped job's statement ends (thread 0): discard unless the gang
+// pipelined; the job stays available only when it pipelined and placed
+// something
+static __device__ __forceinline__ void vtt_finish_job(const VttVictimArgs& a, VttWalk& w) {
+  const int j = w.cur;
   const bool pip = !a.gang_pipelined || a.job_occupied[j] + a.pipe[j] >= a.job_min[j];
   if (!pip) {
-    vtt_jrestore(a, jr);
-    a.ctl[VC_ATT] = c.ck_att;
+    vtt_jrestore(a, w.jr);
+    a.ctl[VC_ATT] = w.ck_att;
   }
-  a.job_avail[j] = (pip && c.assigned) ? 1 : 0;
-  c.phase = 0;
-  jr.on = false;
-  jr.len = 0;
+  a.job_avail[j] = (pip && w.assigned) ? 1 : 0;
+  w.phase = 0;
+  w.jr.on = false;
+  w.jr.len = 0;
 }
 
-__global__ void __launch_bounds__(VTT_VICTIM_THREADS)
-    vtt_preempt_kernel(VttVictimArgs a) {
-  __shared__ VttCoreShared sh;
-  __shared__ VttVJobKey s_key[VTT_VICTIM_THREADS];
-  __shared__ VttAttempt s_at;
-  __shared__ VttPreemptCtl c;
+static __device__ __forceinline__ void vtt_pw_init(VttWalk& w) {
+  w.phase = w.qpos = w.cur = w.j2pos = w.iters = 0;
+  w.assigned = w.last_v = w.any_p1 = w.att_total = w.ck_att = 0;
+  w.jr = VttJournal{false, 0};
+}
 
+// Advance the state machine to its next attempt (all threads): true with
+// w.at set, false when the walk ended.
+static __device__ __forceinline__ bool vtt_pw_advance(const VttVictimArgs& a, VttWalk& w,
+                                                      VttVJobKey* s_key) {
   const int tid = threadIdx.x;
   const int J = (int)a.J, Q = (int)a.Q, T = (int)a.T;
   const int nu = (int)a.nu, nq = (int)a.nq;
   const long long cap = 4LL * T + 4LL * J + (long long)nq * (nu + 4) + 64;
-  VttJournal jr{false, 0};
-  if (tid == 0) {
-    c.phase = c.qpos = c.cur = c.j2pos = 0;
-    c.assigned = c.last_v = c.any_p1 = c.att_total = c.ck_att = 0;
-  }
-  long long iters = 0;
-  for (;; ++iters) {
-    if (tid == 0) c.go = !a.ctl[VC_ABORT] && c.qpos < nq && iters < cap;
+  for (;;) {
+    if (tid == 0) w.go = !a.ctl[VC_ABORT] && w.qpos < nq && w.iters < cap;
     __syncthreads();
     // every thread reads go and phase before thread 0 moves them
-    const bool go = c.go;
-    const int phase = c.phase;
+    const bool go = w.go;
+    const int phase = w.phase;
     __syncthreads();
-    if (!go) break;
+    if (!go) return false;
     if (phase == 0) {
-      const int q = a.queues_order[vtt_clamp(c.qpos, 0, Q - 1)];
+      const int q = a.queues_order[vtt_clamp(w.qpos, 0, Q - 1)];
       const int j = vtt_select_job(a, q, s_key);
       if (tid == 0) {
-        c.do_att = 0;
+        w.do_att = 0;
         if (j >= 0) {
-          c.cur = j;
-          c.assigned = 0;
+          w.cur = j;
+          w.assigned = 0;
           a.job_avail[j] = 0;
           // the statement's checkpoint
-          jr.on = true;
-          jr.len = 0;
-          c.ck_att = a.ctl[VC_ATT];
-          c.phase = 1;
+          w.jr.on = true;
+          w.jr.len = 0;
+          w.ck_att = a.ctl[VC_ATT];
+          w.phase = 1;
         } else {
-          c.phase = 2;
-          c.j2pos = 0;
+          w.phase = 2;
+          w.j2pos = 0;
         }
       }
     } else if (tid == 0) {
       if (phase == 1) {
-        const int j = c.cur;
+        const int j = w.cur;
         const bool exhausted = a.cursor[j] >= a.job_ntasks[j];
         const int t = vtt_clamp(a.job_start[j] + a.cursor[j], 0, T - 1);
-        c.do_att = !exhausted && a.task_attempt[t];
-        c.t = t;
-        c.jt = j;
-        c.qm = 1;
+        w.do_att = !exhausted && a.task_attempt[t];
+        w.t = t;
+        w.jt = j;
+        w.qm = 1;
         if (!exhausted)
           a.cursor[j] += 1;
         else
-          vtt_finish_job(a, c, jr);
+          vtt_finish_job(a, w);
       } else {
-        const bool done = c.j2pos >= nu;
-        const int j = a.under_request[vtt_clamp(c.j2pos, 0, J - 1)];
+        const bool done = w.j2pos >= nu;
+        const int j = a.under_request[vtt_clamp(w.j2pos, 0, J - 1)];
         const bool exhausted = a.cursor[j] >= a.job_ntasks[j];
         const int t = vtt_clamp(a.job_start[j] + a.cursor[j], 0, T - 1);
-        c.do_att = !done && !exhausted && a.task_attempt[t];
-        c.t = t;
-        c.jt = j;
-        c.qm = 0;
+        w.do_att = !done && !exhausted && a.task_attempt[t];
+        w.t = t;
+        w.jt = j;
+        w.qm = 0;
         if (done) {
-          c.qpos += 1;
-          c.phase = 0;
+          w.qpos += 1;
+          w.phase = 0;
         } else if (exhausted) {
-          c.j2pos += 1;
+          w.j2pos += 1;
         } else {
           a.cursor[j] += 1;
         }
       }
     }
     __syncthreads();
-    if (!c.do_att) continue;
-    if (tid == 0) vtt_attempt_init(a, s_at, c.t, c.jt, c.qm ? 0 : 1);
-    __syncthreads();
+    if (w.do_att) {
+      if (tid == 0) vtt_attempt_init(a, w.at, w.t, w.jt, w.qm ? 0 : 1);
+      __syncthreads();
+      return true;
+    }
+    if (tid == 0) w.iters += 1;
+  }
+}
+
+// After the attempt (thread 0; an ok attempt is applied already, with nv
+// victims).
+static __device__ __forceinline__ void vtt_pw_after(const VttVictimArgs& a, VttWalk& w,
+                                                    int nstar, bool clean, int nv) {
+  if (!clean) a.ctl[VC_ABORT] = 1;
+  if (nstar >= 0 && clean) {
+    w.att_total += 1;
+    if (w.qm) {
+      w.assigned = 1;
+      w.last_v = nv;
+      w.any_p1 = 1;
+    }
+  }
+  // phase 2 stops a job's drain at its first failed attempt
+  if (!w.qm && clean && nstar < 0) w.j2pos += 1;
+  // phase 1 checks JobPipelined after every attempt, ok or not
+  const int jt = w.jt;
+  if (w.qm && clean && (!a.gang_pipelined || a.job_occupied[jt] + a.pipe[jt] >= a.job_min[jt]))
+    vtt_finish_job(a, w);
+  w.iters += 1;
+}
+
+static __device__ __forceinline__ void vtt_pw_final(const VttVictimArgs& a,
+                                                    const VttWalk& w) {
+  a.ctl[VC_ATT_TOTAL] = w.att_total;
+  a.ctl[VC_LAST_V] = w.last_v;
+  a.ctl[VC_ANY] = w.any_p1;
+  a.ctl[VC_ITERS] = w.iters;
+  if (w.qpos < a.nq) a.ctl[VC_ABORT] = 1;
+}
+
+// one CTA a launch (minBlocks 1): without it ptxas caps the kernel at 32
+// registers and spills in the node walk
+__global__ void __launch_bounds__(VTT_VICTIM_THREADS, 1)
+    vtt_preempt_kernel(VttVictimArgs a) {
+  __shared__ VttCoreShared sh;
+  __shared__ VttVJobKey s_key[VTT_VICTIM_THREADS];
+  __shared__ VttWalk w;
+  if (threadIdx.x == 0) vtt_pw_init(w);
+  __syncthreads();
+  while (vtt_pw_advance(a, w, s_key)) {
     int nstar;
     bool clean;
-    vtt_core(a, s_at, sh, nstar, clean);
-    if (tid == 0) {
-      const bool ok = nstar >= 0 && clean;
-      if (!clean) a.ctl[VC_ABORT] = 1;
-      if (ok) {
-        const int nv = vtt_apply(a, s_at, nstar, jr);
-        c.att_total += 1;
-        if (c.qm) {
-          c.assigned = 1;
-          c.last_v = nv;
-          c.any_p1 = 1;
-        }
-      }
-      // phase 2 stops a job's drain at its first failed attempt
-      if (!c.qm && clean && nstar < 0) c.j2pos += 1;
-      // phase 1 checks JobPipelined after every attempt, ok or not
-      const int jt = c.jt;
-      if (c.qm && clean &&
-          (!a.gang_pipelined || a.job_occupied[jt] + a.pipe[jt] >= a.job_min[jt]))
-        vtt_finish_job(a, c, jr);
+    vtt_core(a, w.at, sh, nstar, clean);
+    if (threadIdx.x == 0) {
+      const int nv = (nstar >= 0 && clean) ? vtt_apply(a, w.at, nstar, w.jr) : 0;
+      vtt_pw_after(a, w, nstar, clean, nv);
     }
     __syncthreads();
   }
-  if (tid == 0) {
-    a.ctl[VC_ATT_TOTAL] = c.att_total;
-    a.ctl[VC_LAST_V] = c.last_v;
-    a.ctl[VC_ANY] = c.any_p1;
-    a.ctl[VC_ITERS] = (int)iters;
-    if (c.qpos < nq) a.ctl[VC_ABORT] = 1;
-  }
+  if (threadIdx.x == 0) vtt_pw_final(a, w);
 }
 
 extern "C" int vtt_preempt_solve(const VttVictimArgs* args, void* stream) {
@@ -163,4 +191,52 @@ extern "C" int vtt_preempt_solve(const VttVictimArgs* args, void* stream) {
   if (err) return err;
   VTT_LAUNCH(vtt_preempt_kernel, 1, VTT_VICTIM_THREADS, 0, s)(a);
   return (int)cudaGetLastError();
+}
+
+// ---- K15b: the walk on node blocks ---------------------------------------
+
+// start (!step): the walk's state, then its first attempt; step: the
+// pending attempt from the exchanged records, then the next one.  The
+// pending flag lands in ctl[VC_WALK].
+__global__ void __launch_bounds__(VTT_VICTIM_THREADS)
+    vtt_preempt_blocks_kernel(VttVictimArgs a, const VttVictimArgs* blocks, int L, int step) {
+  __shared__ VttVJobKey s_key[VTT_VICTIM_THREADS];
+  __shared__ int s_sh[3];
+  VttWalk& w = *(VttWalk*)a.walk;
+  if (step) {
+    int nstar, nv;
+    bool clean;
+    vtt_wb_apply(a, blocks, L, w, VTT_EV_PREEMPT, s_sh, nstar, clean, nv);
+    if (threadIdx.x == 0) vtt_pw_after(a, w, nstar, clean, nv);
+  } else if (threadIdx.x == 0) {
+    vtt_pw_init(w);
+  }
+  __syncthreads();
+  const bool more = vtt_pw_advance(a, w, s_key);
+  if (threadIdx.x == 0) {
+    a.ctl[VC_WALK] = more ? 1 : 0;
+    if (!more) vtt_pw_final(a, w);
+  }
+}
+
+// Begin a K15b solve, as vtt_reclaim_blocks_begin does for K15a.
+extern "C" int vtt_preempt_blocks_begin(const VttVictimArgs* base, const VttVictimArgs* blocks,
+                                        const VttVictimArgs* dblk, int n_blocks, int* pending,
+                                        void* stream) {
+  const VttVictimArgs& a = *base;
+  if (!vtt_walk_ok(a) || n_blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = vtt_blocks_setup(blocks, n_blocks, VTT_EV_PREEMPT, s);
+  if (err) return err;
+  VTT_LAUNCH(vtt_preempt_blocks_kernel, 1, VTT_VICTIM_THREADS, 0, s)(a, dblk, n_blocks, 0);
+  return vtt_walk_pending(a, pending, s);
+}
+
+// One attempt's step, after the exchange filled base->recv.
+extern "C" int vtt_preempt_blocks_step(const VttVictimArgs* base, const VttVictimArgs* dblk,
+                                       int n_blocks, int* pending, void* stream) {
+  const VttVictimArgs& a = *base;
+  cudaStream_t s = (cudaStream_t)stream;
+  VTT_LAUNCH(vtt_preempt_blocks_kernel, 1, VTT_VICTIM_THREADS, 0, s)(a, dblk, n_blocks, 1);
+  return vtt_walk_pending(a, pending, s);
 }

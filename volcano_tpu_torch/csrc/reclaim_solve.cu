@@ -1,4 +1,5 @@
-// K8: the whole reclaim action as ONE persistent CTA.
+// K8: the whole reclaim action as ONE persistent CTA; K15a: the same walk
+// with the node planes in blocks.
 //
 // Replaces volcano_tpu/scheduler/victim_kernels.py:457 `reclaim_solve`
 // (reclaim.go:42-201): pop the queue with the lowest proportion share, pop
@@ -14,26 +15,37 @@
 // the queue and job choice and the state update on thread 0.  An attempt
 // that is not clean (the reference's walk would strand evictions) stops the
 // loop with the abort flag set, as the JAX loop does.
+//
+// K15a replaces the same function under a mesh with solveMode: batch
+// (volcano_tpu/scheduler/fast_victims.py:148-163: the node planes of the
+// constants and state split into S blocks of rows, the [V] pool, job and
+// queue state replicated).  The walk is the same device code
+// (vtt_rw_advance / vtt_rw_after) with its state in global memory, and
+// every attempt leaves the CTA: vtt_reclaim_blocks_begin groups each local
+// block's pool rows by node and advances the walk to its first attempt;
+// per attempt the host launches every block's core (vtt_walk_blocks_core,
+// victim_step.cu), exchanges the S records (K12b's: the lexicographic
+// minima of the block's covered and valid nodes) and launches
+// vtt_reclaim_blocks_step, which merges them, ranks the chosen node's rows
+// from the replicated pool, applies (node rows on the owner block only)
+// and advances to the next attempt.  One host read of a 4-byte flag per
+// attempt; an abort stops every process at the same attempt, since the
+// walk and the records are replicated.
 #include "victim_common.cuh"
 
-__global__ void __launch_bounds__(VTT_VICTIM_THREADS)
-    vtt_reclaim_kernel(VttVictimArgs a) {
-  __shared__ VttCoreShared sh;
-  __shared__ VttVJobKey s_key[VTT_VICTIM_THREADS];
-  __shared__ VttAttempt s_at;
-  __shared__ int s_go, s_q, s_over;
-
+// Advance the walk to its next attempt (all threads): true with w.at set,
+// false when the walk ended.
+static __device__ __forceinline__ bool vtt_rw_advance(const VttVictimArgs& a, VttWalk& w,
+                                                      VttVJobKey* s_key) {
   const int tid = threadIdx.x;
   const int J = (int)a.J, Q = (int)a.Q, T = (int)a.T, R = (int)a.R;
   const int cap = 2 * (J + Q) + 64;
-  VttJournal jr{false, 0};
-  int iters = 0;
-  for (;; ++iters) {
+  for (;;) {
     if (tid == 0) {
       bool any_q = false;
       for (int q = 0; q < Q; ++q) any_q = any_q || a.queue_live[q];
-      s_go = !a.ctl[VC_ABORT] && any_q && iters < cap;
-      if (s_go) {
+      w.go = !a.ctl[VC_ABORT] && any_q && w.iters < cap;
+      if (w.go) {
         int qstar = -1;
         float best = VTT_POS_INF;
         for (int q = 0; q < Q; ++q) {
@@ -48,40 +60,72 @@ __global__ void __launch_bounds__(VTT_VICTIM_THREADS)
             qstar = q;
           }
         }
-        s_q = qstar;
-        s_over = a.has_proportion &&
+        w.qstar = qstar;
+        w.over = a.has_proportion &&
                  vtt_less_equal(&a.queue_deserved[(size_t)qstar * R],
                                 &a.queue_alloc[(size_t)qstar * R], a.eps, R);
       }
     }
     __syncthreads();
-    if (!s_go) break;
-    const int qstar = s_q;
-    const int j = s_over ? -1 : vtt_select_job(a, qstar, s_key);
+    if (!w.go) return false;
+    const int qstar = w.qstar;
+    const int j = w.over ? -1 : vtt_select_job(a, qstar, s_key);
     if (j < 0) {
       // nothing to take from this queue: it leaves the priority queue
-      if (tid == 0) a.queue_live[qstar] = 0;
+      if (tid == 0) {
+        a.queue_live[qstar] = 0;
+        w.iters += 1;
+      }
       __syncthreads();
       continue;
     }
-    if (tid == 0) vtt_attempt_init(a, s_at, vtt_clamp(a.job_start[j], 0, T - 1), j, 2);
+    if (tid == 0) {
+      w.job = j;
+      vtt_attempt_init(a, w.at, vtt_clamp(a.job_start[j], 0, T - 1), j, 2);
+    }
     __syncthreads();
+    return true;
+  }
+}
+
+// After the attempt (thread 0; an ok attempt is applied already): the job
+// is popped, its queue re-armed only on success, an unclean walk aborts.
+static __device__ __forceinline__ void vtt_rw_after(const VttVictimArgs& a, VttWalk& w,
+                                                    int nstar, bool clean) {
+  a.job_avail[w.job] = 0;
+  a.queue_live[w.qstar] = (nstar >= 0 && clean) ? 1 : 0;
+  if (!clean) a.ctl[VC_ABORT] = 1;
+  w.iters += 1;
+}
+
+static __device__ __forceinline__ void vtt_rw_final(const VttVictimArgs& a, const VttWalk& w) {
+  a.ctl[VC_ITERS] = w.iters;
+  if (w.iters >= 2 * (a.J + a.Q) + 64) a.ctl[VC_ABORT] = 1;
+}
+
+// one CTA a launch (minBlocks 1): without it ptxas caps the kernel at 32
+// registers and spills in the node walk
+__global__ void __launch_bounds__(VTT_VICTIM_THREADS, 1)
+    vtt_reclaim_kernel(VttVictimArgs a) {
+  __shared__ VttCoreShared sh;
+  __shared__ VttVJobKey s_key[VTT_VICTIM_THREADS];
+  __shared__ VttWalk w;
+  if (threadIdx.x == 0) {
+    w.iters = 0;
+    w.jr = VttJournal{false, 0};
+  }
+  __syncthreads();
+  while (vtt_rw_advance(a, w, s_key)) {
     int nstar;
     bool clean;
-    vtt_core(a, s_at, sh, nstar, clean);
-    if (tid == 0) {
-      const bool ok = nstar >= 0 && clean;
-      a.job_avail[j] = 0;
-      a.queue_live[qstar] = ok ? 1 : 0;
-      if (ok) vtt_apply(a, s_at, nstar, jr);
-      if (!clean) a.ctl[VC_ABORT] = 1;
+    vtt_core(a, w.at, sh, nstar, clean);
+    if (threadIdx.x == 0) {
+      if (nstar >= 0 && clean) vtt_apply(a, w.at, nstar, w.jr);
+      vtt_rw_after(a, w, nstar, clean);
     }
     __syncthreads();
   }
-  if (tid == 0) {
-    a.ctl[VC_ITERS] = iters;
-    if (iters >= cap) a.ctl[VC_ABORT] = 1;
-  }
+  if (threadIdx.x == 0) vtt_rw_final(a, w);
 }
 
 extern "C" int vtt_reclaim_solve(const VttVictimArgs* args, void* stream) {
@@ -92,4 +136,57 @@ extern "C" int vtt_reclaim_solve(const VttVictimArgs* args, void* stream) {
   if (err) return err;
   VTT_LAUNCH(vtt_reclaim_kernel, 1, VTT_VICTIM_THREADS, 0, s)(a);
   return (int)cudaGetLastError();
+}
+
+// ---- K15a: the walk on node blocks ---------------------------------------
+
+// start (!step): the walk's state, then its first attempt; step: the
+// pending attempt from the exchanged records, then the next one.  The
+// pending flag lands in ctl[VC_WALK].
+__global__ void __launch_bounds__(VTT_VICTIM_THREADS)
+    vtt_reclaim_blocks_kernel(VttVictimArgs a, const VttVictimArgs* blocks, int L, int step) {
+  __shared__ VttVJobKey s_key[VTT_VICTIM_THREADS];
+  __shared__ int s_sh[3];
+  VttWalk& w = *(VttWalk*)a.walk;
+  if (step) {
+    int nstar, nv;
+    bool clean;
+    vtt_wb_apply(a, blocks, L, w, VTT_EV_RECLAIM, s_sh, nstar, clean, nv);
+    if (threadIdx.x == 0) vtt_rw_after(a, w, nstar, clean);
+  } else if (threadIdx.x == 0) {
+    w.iters = 0;
+    w.jr = VttJournal{false, 0};
+  }
+  __syncthreads();
+  const bool more = vtt_rw_advance(a, w, s_key);
+  if (threadIdx.x == 0) {
+    a.ctl[VC_WALK] = more ? 1 : 0;
+    if (!more) vtt_rw_final(a, w);
+  }
+}
+
+// Begin a K15a solve: each local block's pool grouped by node (`blocks`
+// on the host), the walk to its first attempt; *pending says whether one
+// waits (the host then runs vtt_walk_blocks_core, the exchange and
+// vtt_reclaim_blocks_step until it is 0).  `dblk`: the blocks in device
+// memory.
+extern "C" int vtt_reclaim_blocks_begin(const VttVictimArgs* base, const VttVictimArgs* blocks,
+                                        const VttVictimArgs* dblk, int n_blocks, int* pending,
+                                        void* stream) {
+  const VttVictimArgs& a = *base;
+  if (!vtt_walk_ok(a) || n_blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = vtt_blocks_setup(blocks, n_blocks, VTT_EV_RECLAIM, s);
+  if (err) return err;
+  VTT_LAUNCH(vtt_reclaim_blocks_kernel, 1, VTT_VICTIM_THREADS, 0, s)(a, dblk, n_blocks, 0);
+  return vtt_walk_pending(a, pending, s);
+}
+
+// One attempt's step, after the exchange filled base->recv.
+extern "C" int vtt_reclaim_blocks_step(const VttVictimArgs* base, const VttVictimArgs* dblk,
+                                       int n_blocks, int* pending, void* stream) {
+  const VttVictimArgs& a = *base;
+  cudaStream_t s = (cudaStream_t)stream;
+  VTT_LAUNCH(vtt_reclaim_blocks_kernel, 1, VTT_VICTIM_THREADS, 0, s)(a, dblk, n_blocks, 1);
+  return vtt_walk_pending(a, pending, s);
 }

@@ -45,6 +45,7 @@ enum {
   VC_PROGRESS = 8,   // rounds: the last round progressed
   VC_ANY_WIN = 9,    // rounds: this round had a winner
   VC_NVICT = 10,     // rounds: victims of this round
+  VC_WALK = 11,      // walks on node blocks: 1 while an attempt waits for its node
 };
 
 // Every kernel and non-inline device function here is static: each kernel
@@ -122,9 +123,6 @@ struct VttVictimArgs {
   float* cons_flat;     // [N * Q, R]
   double* cons_node;    // [N, R]
   int32_t* placed;      // [N]
-  double* vict_job;     // [J, R]
-  int32_t* vict_cnt;    // [J]
-  double* vict_q;       // [Q, R]
   int32_t* act_q;       // [Q]
   int32_t* ls_q;        // [Q] ordered-int float bits
   uint8_t* job_active;  // [J]
@@ -138,11 +136,21 @@ struct VttVictimArgs {
   float* t_val;         // [M, TB, K] tile candidates: values
   int32_t* t_idx;       // [M, TB, K] tile candidates: node rows
   uint8_t* t_any;       // [M, TB] a feasible node in the tile
+  // on node blocks (K15a-c; one block is the case S = 1 of K15c)
+  unsigned char* walk;  // K15a / K15b: the walk's state (VttWalk), replicated
+  int32_t* send;        // a block's record slot (K15a / b: VTT_VB_WORDS; K15c: [M, K, W])
+  const int32_t* recv;  // the exchanged records of the S blocks, in block order
+  int32_t* p_rec;       // K15c: [F, W] each proposal's node record
+  unsigned long long* p_key;  // K15c: [F] the accept's (cell, rank) order
+  double* part;         // K15c: a block's partial sums and victim mask [W2]; the
+                        // base's: the S blocks' exchanged [S, W2]
   int64_t V, N, R, T, J, Q, C, nu, nq, M, P, K, F, jr_cap, TB, TILE;
   int64_t use_gang, use_drf, use_prop, use_conformance, order_by_priority;
   int64_t has_proportion, gang_pipelined, n_keys, key0, key1, key2;
-  // K12b: the node planes are rows [n0, n0 + N) of NT (0: all NT = N rows)
+  // K12b, K15a-c: the node planes are rows [n0, n0 + N) of NT (0: all NT = N rows)
   int64_t n0, NT;
+  // K15a-c: blocks over the mesh, K15c's record words and partial words
+  int64_t S, W, W2;
   float w_least, w_balanced;
 };
 
@@ -299,9 +307,11 @@ __device__ __forceinline__ bool vtt_row_base(const VttVictimArgs& a,
 // eviction-order prefix), from the node's lists [off, end): pool order,
 // (job, row), (queue, row) and eviction order.  Returns the candidate count
 // and their total in acc[] (float64, exact: whole-number requests).
-static __device__ int vtt_node_flags(const VttVictimArgs& a, const VttAttempt& at, int off,
-                                     int end, const int32_t* l_vidx, const int32_t* l_drf,
-                                     const int32_t* l_prop, const int32_t* l_ev, double* acc) {
+static __device__ __forceinline__ int vtt_node_flags(const VttVictimArgs& a,
+                                                     const VttAttempt& at, int off, int end,
+                                                     const int32_t* l_vidx, const int32_t* l_drf,
+                                                     const int32_t* l_prop, const int32_t* l_ev,
+                                                     double* acc) {
   const int R = (int)a.R, Q = (int)a.Q;
   // base and the plain vetoes
   for (int i = off; i < end; ++i) {
@@ -384,8 +394,9 @@ static __device__ int vtt_node_flags(const VttVictimArgs& a, const VttAttempt& a
 // The flags of node n's rows and the node's verdict for this attempt:
 // valid (predicates, an admitted candidate, validateVictims) and covered
 // (the candidates' total covers the request); key is the walk key.
-static __device__ void vtt_core_node(const VttVictimArgs& a, const VttAttempt& at,
-                              int n, bool& valid, bool& covered, float& key) {
+static __device__ __forceinline__ void vtt_core_node(const VttVictimArgs& a,
+                                                     const VttAttempt& at, int n, bool& valid,
+                                                     bool& covered, float& key) {
   const int N = (int)a.N, R = (int)a.R;
   valid = covered = false;
   key = 0.0f;
@@ -429,8 +440,8 @@ struct VttCoreShared {
 // The whole CTA scans its nodes; sh.kc[0] / sh.ic[0] and sh.kv[0] /
 // sh.iv[0] end as the (key, node) lexicographic minimum over the covered
 // and the valid nodes (ic / iv -1 when there is none).
-static __device__ void vtt_core_scan(const VttVictimArgs& a, const VttAttempt& at,
-                                     VttCoreShared& sh) {
+static __device__ __forceinline__ void vtt_core_scan(const VttVictimArgs& a,
+                                                     const VttAttempt& at, VttCoreShared& sh) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   float kc = 0.0f, kv = 0.0f;
   int ic = -1, iv = -1;
@@ -469,8 +480,8 @@ static __device__ void vtt_core_scan(const VttVictimArgs& a, const VttAttempt& a
 
 // The whole CTA runs the attempt; every thread returns the decision:
 // nstar (-1 when no node is covered) and clean.
-static __device__ void vtt_core(const VttVictimArgs& a, const VttAttempt& at,
-                         VttCoreShared& sh, int& nstar, bool& clean) {
+static __device__ __forceinline__ void vtt_core(const VttVictimArgs& a, const VttAttempt& at,
+                                                VttCoreShared& sh, int& nstar, bool& clean) {
   vtt_core_scan(a, at, sh);
   nstar = sh.ic[0];
   if (nstar >= 0)
@@ -535,8 +546,9 @@ __device__ __forceinline__ void vtt_jrestore(const VttVictimArgs& a, VttJournal&
 // Evict the in-prefix candidates of one node's eviction list l_ev[off,
 // end) (one thread): the victims' per-job and per-queue sums, run_live and
 // evict_att.  Returns the victim count and their total in vs[] (float64).
-static __device__ int vtt_evict_prefix(const VttVictimArgs& a, const int32_t* l_ev, int off,
-                                       int end, VttJournal& jr, double* vs) {
+static __device__ __forceinline__ int vtt_evict_prefix(const VttVictimArgs& a,
+                                                       const int32_t* l_ev, int off, int end,
+                                                       VttJournal& jr, double* vs) {
   const int R = (int)a.R, Q = (int)a.Q;
   const int att = a.ctl[VC_ATT];
   for (int r = 0; r < R; ++r) vs[r] = 0.0;
@@ -599,18 +611,24 @@ static __device__ int vtt_evict_prefix(const VttVictimArgs& a, const int32_t* l_
   return nv;
 }
 
-// Apply an ok attempt on node n (one thread): evict the node's in-prefix
-// candidates, pipeline the preemptor.  Returns the victim count.
-static __device__ int vtt_apply(const VttVictimArgs& a, const VttAttempt& at, int n,
-                         VttJournal& jr) {
+// Apply an ok attempt on a node (one thread): evict the in-prefix
+// candidates of its eviction list l_ev[off, end), pipeline the preemptor.
+// rel / used / tc are the node's rows (null when another process owns the
+// node: its rows are left to that process); n_glob is the node's row of
+// the whole cluster.  Returns the victim count.
+static __device__ __forceinline__ int vtt_apply_on(const VttVictimArgs& a,
+                                                   const VttAttempt& at, const int32_t* l_ev,
+                                                   int off, int end, float* rel, float* used,
+                                                   int32_t* tc, int n_glob, VttJournal& jr) {
   const int R = (int)a.R, Q = (int)a.Q;
   const int att = a.ctl[VC_ATT];
   double vs[VTT_MAX_R];
-  const int nv = vtt_evict_prefix(a, a.l_ev, a.node_off[n], a.node_off[n + 1], jr, vs);
+  const int nv = vtt_evict_prefix(a, l_ev, off, end, jr, vs);
   for (int r = 0; r < R; ++r) {
-    const size_t nr = (size_t)n * R + r;
-    vtt_wf(a, jr, &a.releasing[nr], a.releasing[nr] + ((float)vs[r] - at.req[r]));
-    vtt_wf(a, jr, &a.used[nr], a.used[nr] + at.req[r]);
+    if (rel) {
+      vtt_wf(a, jr, &rel[r], rel[r] + ((float)vs[r] - at.req[r]));
+      vtt_wf(a, jr, &used[r], used[r] + at.req[r]);
+    }
     const size_t jr_ = (size_t)at.jt * R + r;
     vtt_wf(a, jr, &a.job_alloc[jr_], a.job_alloc[jr_] + at.req[r]);
     if (at.qt >= 0) {
@@ -618,12 +636,20 @@ static __device__ int vtt_apply(const VttVictimArgs& a, const VttAttempt& at, in
       vtt_wf(a, jr, &a.queue_alloc[qr], a.queue_alloc[qr] + at.req[r]);
     }
   }
-  vtt_wi(a, jr, &a.task_count[n], a.task_count[n] + 1);
+  if (tc) vtt_wi(a, jr, tc, *tc + 1);
   vtt_wi(a, jr, &a.pipe[at.jt], a.pipe[at.jt] + 1);
-  vtt_wi(a, jr, &a.pipe_node[at.t], n);
+  vtt_wi(a, jr, &a.pipe_node[at.t], n_glob);
   vtt_wi(a, jr, &a.pipe_att[at.t], att);
   a.ctl[VC_ATT] = att + 1;
   return nv;
+}
+
+// Apply an ok attempt on node n of these planes (one thread).
+static __device__ __forceinline__ int vtt_apply(const VttVictimArgs& a, const VttAttempt& at,
+                                                int n, VttJournal& jr) {
+  const size_t nr = (size_t)n * a.R;
+  return vtt_apply_on(a, at, a.l_ev, a.node_off[n], a.node_off[n + 1], a.releasing + nr,
+                      a.used + nr, a.task_count + n, (int)a.n0 + n, jr);
 }
 
 // the attempt's inputs for task t of job jt
@@ -672,7 +698,8 @@ __device__ __forceinline__ float vtt_vjob_key(const VttVictimArgs& a, int code, 
 
 // best job among those with job_avail[j] and job_queue[j] == q, or -1;
 // every thread returns it
-static __device__ int vtt_select_job(const VttVictimArgs& a, int q, VttVJobKey* s_key) {
+static __device__ __forceinline__ int vtt_select_job(const VttVictimArgs& a, int q,
+                                                    VttVJobKey* s_key) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int nk = (int)a.n_keys;
   const int codes[3] = {(int)a.key0, (int)a.key1, (int)a.key2};
@@ -694,4 +721,139 @@ static __device__ int vtt_select_job(const VttVictimArgs& a, int q, VttVJobKey* 
   const int out = s_key[0].j;
   __syncthreads();
   return out;
+}
+
+// ---- K8 and K9 as walks, and their attempts on node blocks (K15a, K15b) --
+
+// A walk's state between attempts: shared memory in the one-CTA solves;
+// global memory (the base's `walk`, replicated on every process) on node
+// blocks, where each attempt is one launch of the blocks' cores, the
+// exchange of their records, and one launch that applies the attempt and
+// advances the walk to the next one.
+struct VttWalk {
+  int go, do_att, iters;
+  int phase, qpos, cur, j2pos;                          // K9
+  int assigned, last_v, any_p1, att_total, ck_att, qm;  // K9
+  int t, jt;                                            // K9: the drained task
+  int qstar, over, job;                                 // K8
+  VttJournal jr;
+  VttAttempt at;  // the attempt the last advance left
+};
+
+// a block's record of a core scan: kmin_cov bits, nstar_cov, kmin_val bits,
+// nstar_val (global rows, -1 for none), any covered, any valid
+#define VTT_VB_WORDS 6
+
+// one block's record from its scan (thread 0)
+static __device__ void vtt_core_record(const VttVictimArgs& a, const VttCoreShared& sh,
+                                       int32_t* rec) {
+  const int ic = sh.ic[0], iv = sh.iv[0];
+  rec[0] = __float_as_int(sh.kc[0]);
+  rec[1] = ic >= 0 ? (int)a.n0 + ic : -1;
+  rec[2] = __float_as_int(sh.kv[0]);
+  rec[3] = iv >= 0 ? (int)a.n0 + iv : -1;
+  rec[4] = ic >= 0;
+  rec[5] = iv >= 0;
+}
+
+// The minimum of the S blocks' records (one thread): nstar (-1 when no
+// node is covered) and clean, exactly as the one-block core defines them.
+static __device__ void vtt_merge_records(const int32_t* recv, int S, int& nstar, bool& clean) {
+  float kc = 0.0f, kv = 0.0f;
+  int ic = -1, iv = -1;
+  for (int b = 0; b < S; ++b) {
+    const int32_t* r = recv + (size_t)b * VTT_VB_WORDS;
+    if (r[4] && vtt_kmin_better(__int_as_float(r[0]), r[1], kc, ic)) {
+      kc = __int_as_float(r[0]);
+      ic = r[1];
+    }
+    if (r[5] && vtt_kmin_better(__int_as_float(r[2]), r[3], kv, iv)) {
+      kv = __int_as_float(r[2]);
+      iv = r[3];
+    }
+  }
+  nstar = ic;
+  clean = ic >= 0 ? (kv == kc && iv == ic) : iv < 0;
+}
+
+// Node nstar's live pool rows into a.bucket[0, m) and their ranks in the
+// node's four orders into a.l_*[0, m), from the replicated pool (all
+// threads; s_m is shared scratch).  Returns m.
+static __device__ int vtt_gather_node(const VttVictimArgs& a, int nstar, int ev_kind,
+                                      int* s_m) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int nt = a.NT > 0 ? (int)a.NT : (int)a.N;
+  if (tid == 0) *s_m = 0;
+  __syncthreads();
+  for (int v = tid; v < a.V; v += nthr)
+    if (a.run_live[v] && vtt_clamp(a.run_node[v], 0, nt - 1) == nstar)
+      a.bucket[atomicAdd(s_m, 1)] = v;
+  __syncthreads();
+  const int m = *s_m;
+  for (int i = tid; i < m; i += nthr)
+    vtt_rank_row(a, ev_kind, a.bucket[i], a.bucket, 0, m, a.l_vidx, a.l_ev, a.l_drf, a.l_prop);
+  __syncthreads();
+  return m;
+}
+
+// The pending attempt w.at of a walk on node blocks, after the exchange
+// filled a.recv with the S blocks' records (all threads; `a` is the
+// process's replicated base, `blocks` its local blocks in device memory,
+// s_sh three shared ints).  The merge gives nstar and clean; an ok attempt
+// ranks nstar's rows from the replicated pool, reruns their flag pass and
+// applies, journalled as the one-block apply, writing node rows only where
+// a local block owns nstar.  Thread 0 returns nstar, clean and the victims.
+static __device__ void vtt_wb_apply(const VttVictimArgs& a, const VttVictimArgs* blocks,
+                                    int L, VttWalk& w, int ev_kind, int* s_sh, int& nstar,
+                                    bool& clean, int& nv) {
+  if (threadIdx.x == 0) {
+    int n;
+    bool c;
+    vtt_merge_records(a.recv, (int)a.S, n, c);
+    s_sh[1] = n;
+    s_sh[2] = c;
+  }
+  __syncthreads();
+  nstar = s_sh[1];
+  clean = s_sh[2] != 0;
+  nv = 0;
+  if (nstar < 0 || !clean) return;
+  const int m = vtt_gather_node(a, nstar, ev_kind, &s_sh[0]);
+  if (threadIdx.x == 0) {
+    double acc[VTT_MAX_R];
+    vtt_node_flags(a, w.at, 0, m, a.l_vidx, a.l_drf, a.l_prop, a.l_ev, acc);
+    float *rel = nullptr, *used = nullptr;
+    int32_t* tc = nullptr;
+    for (int b = 0; b < L; ++b) {
+      const int n = nstar - (int)blocks[b].n0;
+      if (n >= 0 && n < blocks[b].N) {
+        rel = blocks[b].releasing + (size_t)n * a.R;
+        used = blocks[b].used + (size_t)n * a.R;
+        tc = blocks[b].task_count + n;
+      }
+    }
+    nv = vtt_apply_on(a, w.at, a.l_ev, 0, m, rel, used, tc, nstar, w.jr);
+  }
+}
+
+// each local block's pool grouped by node, once a solve (node_fill zero)
+static inline int vtt_blocks_setup(const VttVictimArgs* blocks, int L, int ev_kind,
+                                   cudaStream_t s) {
+  for (int b = 0; b < L; ++b) {
+    const int err = vtt_victim_setup(blocks[b], ev_kind, s);
+    if (err) return err;
+  }
+  return 0;
+}
+
+// the walk's pending flag on the host, once the stream has drained
+static inline int vtt_walk_pending(const VttVictimArgs& a, int* pending, cudaStream_t s) {
+  int err = (int)cudaMemcpyAsync(pending, a.ctl + VC_WALK, sizeof(int),
+                                 cudaMemcpyDeviceToHost, s);
+  if (!err) err = (int)cudaStreamSynchronize(s);
+  return err ? err : (int)cudaGetLastError();
+}
+
+static inline bool vtt_walk_ok(const VttVictimArgs& a) {
+  return a.R >= 2 && a.R <= VTT_MAX_R && a.n_keys <= 3 && a.S >= 1;
 }

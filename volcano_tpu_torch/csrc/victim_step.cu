@@ -48,10 +48,6 @@
 // block count give the one-block outputs bit for bit, state included.
 #include "victim_common.cuh"
 
-// K12b record: kmin_cov bits, nstar_cov, kmin_val bits, nstar_val (global
-// rows, -1 for none), any covered, any valid
-#define VTT_VB_WORDS 6
-
 // the preemptor's attempt: request task_req[0], class, job, queue, mode,
 // and its DRF share keyed on the drf flag alone
 __device__ __forceinline__ void vtt_step_attempt(const VttVictimArgs& a, VttAttempt& at,
@@ -131,15 +127,7 @@ __global__ void __launch_bounds__(VTT_VICTIM_THREADS)
   if (threadIdx.x == 0) vtt_step_attempt(a, s_at, t_cls, jt, qt, mode);
   __syncthreads();
   vtt_core_scan(a, s_at, sh);
-  if (threadIdx.x == 0) {
-    const int ic = sh.ic[0], iv = sh.iv[0];
-    rec[0] = __float_as_int(sh.kc[0]);
-    rec[1] = ic >= 0 ? (int)a.n0 + ic : -1;
-    rec[2] = __float_as_int(sh.kv[0]);
-    rec[3] = iv >= 0 ? (int)a.n0 + iv : -1;
-    rec[4] = ic >= 0;
-    rec[5] = iv >= 0;
-  }
+  if (threadIdx.x == 0) vtt_core_record(a, sh, rec);
 }
 
 // the replicated merge and apply over the S exchanged records (`a`: the
@@ -149,42 +137,22 @@ __global__ void __launch_bounds__(VTT_VICTIM_THREADS)
                  int S, int32_t* out, float* vsum) {
   __shared__ VttAttempt s_at;
   __shared__ int s_nstar, s_clean, s_m;
-  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int tid = threadIdx.x;
   const int R = (int)a.R, Q = (int)a.Q;
   if (tid == 0) {
     vtt_step_attempt(a, s_at, t_cls, jt, qt, mode);
-    float kc = 0.0f, kv = 0.0f;
-    int ic = -1, iv = -1;
-    for (int b = 0; b < S; ++b) {
-      const int32_t* r = recv + (size_t)b * VTT_VB_WORDS;
-      if (r[4] && vtt_kmin_better(__int_as_float(r[0]), r[1], kc, ic)) {
-        kc = __int_as_float(r[0]);
-        ic = r[1];
-      }
-      if (r[5] && vtt_kmin_better(__int_as_float(r[2]), r[3], kv, iv)) {
-        kv = __int_as_float(r[2]);
-        iv = r[3];
-      }
-    }
+    int ic;
+    bool clean;
+    vtt_merge_records(recv, S, ic, clean);
     s_nstar = ic;
-    s_clean = ic >= 0 ? (kv == kc && iv == ic) : iv < 0;
-    s_m = 0;
+    s_clean = clean;
   }
   __syncthreads();
   const int nstar = s_nstar;
   int nv = 0;
   if (nstar >= 0) {
     // nstar's live rows, then their ranks in the node's orders
-    for (int v = tid; v < a.V; v += nthr)
-      if (a.run_live[v] && vtt_clamp(a.run_node[v], 0, (int)a.N - 1) == nstar)
-        a.bucket[atomicAdd(&s_m, 1)] = v;
-    __syncthreads();
-    const int m = s_m;
-    const int ev_kind = mode == 2 ? VTT_EV_RECLAIM : VTT_EV_PREEMPT;
-    for (int i = tid; i < m; i += nthr)
-      vtt_rank_row(a, ev_kind, a.bucket[i], a.bucket, 0, m, a.l_vidx, a.l_ev, a.l_drf,
-                   a.l_prop);
-    __syncthreads();
+    const int m = vtt_gather_node(a, nstar, mode == 2 ? VTT_EV_RECLAIM : VTT_EV_PREEMPT, &s_m);
     if (tid == 0) {
       double acc[VTT_MAX_R], vs[VTT_MAX_R];
       vtt_node_flags(a, s_at, 0, m, a.l_vidx, a.l_drf, a.l_prop, a.l_ev, acc);
@@ -262,5 +230,31 @@ extern "C" int vtt_victim_blocks_apply(const VttVictimArgs* base, const VttVicti
   for (int b = 0; b < n_blocks; ++b) VTT_LAUNCH(vtt_vb_own, 1, 1, 0, s)(blocks[b], o, vf);
   const int nw = (int)((a.V + 31) / 32);
   VTT_LAUNCH(vtt_victim_step_pack, (nw + 255) / 256, 256, 0, s)(a, o);
+  return (int)cudaGetLastError();
+}
+
+// ---- K15a / K15b: a walk's pending attempt, one core per block -----------
+
+// One CTA a local block (`blocks` in device memory): the block's core over
+// its own rows for the attempt the walk left, as a record into its slot.
+__global__ void __launch_bounds__(VTT_VICTIM_THREADS) vtt_wb_core(const VttVictimArgs* blocks) {
+  __shared__ VttCoreShared sh;
+  __shared__ VttAttempt s_at;
+  __shared__ VttVictimArgs s_a;
+  if (threadIdx.x == 0) {
+    s_a = blocks[blockIdx.x];
+    s_at = ((const VttWalk*)s_a.walk)->at;
+  }
+  __syncthreads();
+  vtt_core_scan(s_a, s_at, sh);
+  if (threadIdx.x == 0) vtt_core_record(s_a, sh, s_a.send);
+}
+
+// The cores of the pending attempt of a K15a / K15b walk: every local
+// block's record into its slot of the send buffer (`dblk`: the L blocks'
+// arguments in device memory).
+extern "C" int vtt_walk_blocks_core(const VttVictimArgs* dblk, int n_blocks, void* stream) {
+  if (n_blocks < 1) return (int)cudaErrorInvalidValue;
+  VTT_LAUNCH(vtt_wb_core, n_blocks, VTT_VICTIM_THREADS, 0, (cudaStream_t)stream)(dblk);
   return (int)cudaGetLastError();
 }

@@ -760,18 +760,12 @@ def victim_blocks_plain(c, s, t_req, t_cls, jt, qt, mesh, nb, *, mode="queue", u
                         use_drf=False, use_prop=False, use_conformance=False,
                         order_by_priority=True):
     """The plain PyTorch version of ``victim_kernels.victim_step_sharded``
-    (same arguments): each block's core over its own rows as a record,
-    the mesh's exchange, the replicated merge, nstar's victims ranked again
-    from the replicated pool, the replicated update and the owner block's
-    rows."""
+    (same arguments): ``_blocks_core`` under the mode's base mask, the
+    decision packed."""
     from volcano_tpu_torch.scheduler import victim_kernels as VK
 
-    dev = c.run_req.device
-    V = c.run_req.shape[0]
     Q = s.queue_alloc.shape[0]
-    N = nb * mesh.size
     reclaim = mode == "reclaim"
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
     base = VK._step_base(c, s, jt, qt, mode)
     none = (None, None)
     orders = ((VK._orders_drf(c) if use_drf else none)
@@ -779,6 +773,25 @@ def victim_blocks_plain(c, s, t_req, t_cls, jt, qt, mesh, nb, *, mode="queue", u
               + VK._orders_evict(c, order_by_priority, reclaim))
     flags = dict(use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
                  use_conformance=use_conformance)
+    state, assigned, nstar, vmask, clean = _blocks_core(c, s, t_req, t_cls, jt, qt, base, orders,
+                                                        flags, mesh, nb, reclaim)
+    return VK.VictimStepOut(state, VK.pack_step(assigned, nstar, clean, vmask))
+
+
+def _blocks_core(c, s, t_req, t_cls, jt, qt, base, orders, flags, mesh, nb, reclaim):
+    """One preemptor's victim solve with the node planes of ``c`` and ``s``
+    in this process's blocks (``victim_kernels._victim_core`` on blocks):
+    each block's core over its own rows as a record, the mesh's exchange,
+    the replicated merge, nstar's victims ranked again from the replicated
+    pool, the replicated update and the owner block's rows.  Returns
+    (new_state, assigned, nstar, vmask, clean), the new state's node planes
+    again tuples of blocks."""
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    dev = c.run_req.device
+    V = c.run_req.shape[0]
+    N = nb * mesh.size
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     node_g = torch.clamp(c.run_node, 0, N - 1)
 
     # each block: the lexicographic minima of its covered and valid nodes
@@ -846,4 +859,365 @@ def victim_blocks_plain(c, s, t_req, t_cls, jt, qt, mesh, nb, *, mode="queue", u
         run_live=run_live, idle=s.idle, releasing=tuple(releasing),
         used=tuple(used), task_count=tuple(task_count), job_alloc=job_alloc,
         job_occupied=job_occupied, queue_alloc=queue_alloc)
-    return VK.VictimStepOut(state, VK.pack_step(assigned, nstar, clean, vmask))
+    return state, assigned, nstar, vmask, clean
+
+
+# --------------------------------------------------------------------------
+# K15a-c: the contention solves on node blocks (plain versions)
+# --------------------------------------------------------------------------
+
+def reclaim_blocks_plain(c, s0, task_req, task_class, job_first, job_prio, job_cand0,
+                         queue_live0, pipe0, mesh, nb, **kw):
+    """The plain PyTorch version of ``victim_kernels.reclaim_solve_sharded``
+    (same arguments): the reclaim walk with each attempt on the node blocks
+    (``_blocks_core``)."""
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    return VK.reclaim_solve_plain(c, s0, task_req, task_class, job_first, job_prio, job_cand0,
+                                  queue_live0, pipe0, blocks=(mesh, nb), **kw)
+
+
+def preempt_blocks_plain(c, s0, task_req, task_class, task_attempt, job_start, job_ntasks,
+                         job_prio, job_avail0, under_request, nu, queues_order, nq, pipe0, mesh,
+                         nb, **kw):
+    """The plain PyTorch version of ``victim_kernels.preempt_solve_sharded``
+    (same arguments): the preempt walk with each attempt on the node
+    blocks; a discarded statement restores the blocks' rows with the rest
+    of its checkpoint."""
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    return VK.preempt_solve_plain(c, s0, task_req, task_class, task_attempt, job_start,
+                                  job_ntasks, job_prio, job_avail0, under_request, nu,
+                                  queues_order, nq, pipe0, blocks=(mesh, nb), **kw)
+
+
+def rounds_blocks_plain(c, s0, task_req, task_class, rows_packed, job_pstart, job_pcount,
+                        job_prio, job_avail0, pipe0, mesh, nb, *, use_gang, use_drf,
+                        use_conformance, order_by_priority,
+                        job_key_order=("priority", "gang", "drf"), gang_pipelined=True,
+                        m_chunk=128, p_chunk=32, k_chunk=8):
+    """The plain PyTorch version of ``victim_kernels.preempt_rounds_sharded``
+    (same arguments): ``victim_kernels.preempt_rounds_plain`` with the node
+    planes held per block.  Each round every block analyses its own pool
+    rows (capacity curves of its (node, queue) cells) and packs its K best
+    nodes for each selected job as records; one exchange; the proposals
+    and the accept run replicated on the records; every block takes its
+    cells' grants and its victims, whose per-job and per-queue sums (float64,
+    exact) and rows travel in a second exchange and are added in block
+    order."""
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    dev = c.run_req.device
+    V, R = c.run_req.shape
+    L, S = mesh.n_local, mesh.size
+    N = nb * S
+    T = task_req.shape[0]
+    J = c.job_queue.shape[0]
+    Q = s0.queue_alloc.shape[0]
+    M, P, Kk = min(m_chunk, J), p_chunk, min(k_chunk, N)
+    F = M * P
+    W = 5 + R
+    i32 = dict(dtype=torch.int32, device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    jidx = torch.arange(J, **i32)
+    vidx = torch.arange(V, **i32)
+    jq_c = torch.clamp(c.job_queue, 0, Q - 1)
+
+    # static layouts, replicated: eviction order grouped per (node, queue)
+    rq_pool = torch.clamp(c.job_queue[c.run_job], 0, Q - 1)
+    prio_pool = c.run_prio if order_by_priority else torch.zeros_like(c.run_prio)
+    o_ev = K._lexsort((vidx, -c.run_rank, prio_pool, rq_pool, c.run_node))
+    inv_ev = torch.zeros(V, **i32)
+    inv_ev[o_ev] = vidx
+    sn2 = torch.clamp(c.run_node[o_ev], 0, N - 1)
+    req_ev = c.run_req[o_ev]
+    job_ev = c.run_job[o_ev]
+    rq_ev_raw = c.job_queue[job_ev]
+    has_q_ev = rq_ev_raw >= 0
+    rq_ev = torch.clamp(rq_ev_raw, 0, Q - 1)
+    seg_ev = VK._seg_flags(c.run_node[o_ev] * Q + rq_ev)
+    last_ev = torch.ones(V, dtype=torch.bool, device=dev)
+    last_ev[:-1] = seg_ev[1:]
+    evictable_ev = c.run_evictable[o_ev]
+    o_jb = K._lexsort((inv_ev, c.run_job))
+    jb_seg = VK._seg_flags(c.run_job[o_jb])
+    ar = torch.arange(V, device=dev)
+    jb_start = torch.cummax(torch.where(jb_seg, ar, torch.zeros_like(ar)), dim=0).values
+    cnt_in_job_pool = torch.zeros(V, **i32)
+    cnt_in_job_pool[o_jb] = (ar - jb_start).int()
+    cnt_in_job_ev = cnt_in_job_pool[o_ev]
+    row_is_pre_ev = job_avail0[job_ev]
+    if use_drf:
+        o_drf, seg_drf = VK._orders_drf(c)
+        ev_pos_drf = inv_ev[o_drf]
+        inv_drf = torch.zeros(V, **i32)
+        inv_drf[o_drf] = vidx
+        drf_pos_ev = inv_drf[o_ev]
+        req_drf = c.run_req[o_drf]
+        job_drf = c.run_job[o_drf]
+        has_q_drf = c.job_queue[job_drf] >= 0
+        rq_drf = torch.clamp(c.job_queue[job_drf], 0, Q - 1)
+        node_drf = torch.clamp(c.run_node[o_drf], 0, N - 1)
+
+    # each block: its rows in those orders, its node planes
+    bs = []
+    for i in range(L):
+        n0 = (mesh.first + i) * nb
+        ev = torch.nonzero((sn2 >= n0) & (sn2 < n0 + nb)).flatten()
+        b = dict(n0=n0, ev=ev, loc=((sn2[ev] - n0) * Q + rq_ev[ev]).long(),
+                 node=(sn2[ev] - n0).long(), cmask=c.class_mask[i], cscore=c.class_score[i],
+                 alloc=c.node_alloc[i], cap=c.node_max_tasks[i], valid=c.node_valid[i],
+                 rel=s0.releasing[i].clone(), used=s0.used[i].clone(),
+                 tc=s0.task_count[i].clone())
+        if use_drf:
+            b["drf"] = torch.nonzero((node_drf >= n0) & (node_drf < n0 + nb)).flatten()
+        bs.append(b)
+
+    run_live0 = torch.zeros(V, dtype=torch.bool, device=dev)
+    run_live0[:] = s0.run_live
+    live_ev = run_live0[o_ev].clone()
+    job_alloc, job_occupied = s0.job_alloc.clone(), s0.job_occupied.clone()
+    queue_alloc = s0.queue_alloc.clone()
+    cursor = torch.zeros(J, **i32)
+    pipe = pipe0.clone()
+    dropped = torch.zeros(J, dtype=torch.bool, device=dev)
+    evict_att = torch.full((V,), -1, **i32)
+    pipe_node = torch.full((T,), -1, **i32)
+    pipe_att = torch.full((T,), -1, **i32)
+    att = att_total = last_v = round_ = 0
+    any_commit = False
+    progressed = True
+    mask_at = J * R + Q * R + J + 1
+
+    def active_mask():
+        return job_avail0 & ~dropped & (cursor < job_pcount)
+
+    while progressed and bool(active_mask().any()) and round_ < J + 8:
+        active = active_mask()
+        act_q = torch.zeros(Q, **i32)
+        act_q.index_add_(0, jq_c.long(), (active & (c.job_queue >= 0)).int())
+        act_q = act_q > 0
+        head_t = rows_packed[torch.clamp(job_pstart + cursor, 0, T - 1)]
+        head_req_all = task_req[torch.clamp(head_t, 0, T - 1)]
+        budget = torch.where(c.job_min > 1, job_occupied - c.job_min,
+                             torch.full_like(c.job_min, 2**31 - 1))
+        if use_drf:
+            ls_j = K.dominant_share(job_alloc + head_req_all, c.total)
+            ls_q = torch.full((Q,), K.NEG_INF, dtype=torch.float32, device=dev)
+            ls_q = ls_q.scatter_reduce(
+                0, jq_c.long(), torch.where(active, ls_j, torch.full_like(ls_j, K.NEG_INF)),
+                reduce="amax")
+
+        # ---- each block: candidate analysis and its cells' capacity curves
+        for b in bs:
+            ev = b["ev"]
+            cand = live_ev[ev] & act_q[rq_ev[ev]] & has_q_ev[ev] & ~row_is_pre_ev[ev]
+            if use_conformance:
+                cand &= evictable_ev[ev]
+            if use_gang:
+                cand &= cnt_in_job_ev[ev] < budget[job_ev[ev]]
+            if use_drf:
+                dr = b["drf"]
+                base_drf = live_ev[ev_pos_drf[dr]] & act_q[rq_drf[dr]] & has_q_drf[dr]
+                sreq = torch.where(base_drf[:, None], req_drf[dr], zero)
+                relcum = VK._seg_cumsum(sreq, seg_drf[dr])
+                rs = K.dominant_share(job_alloc[job_drf[dr]] - relcum, c.total)
+                admit = torch.zeros(V, dtype=torch.bool, device=dev)
+                admit[dr] = (ls_q[rq_drf[dr]] < rs + VK.SHARE_DELTA) & has_q_drf[dr]
+                cand &= admit[drf_pos_ev[ev]]
+            vr = torch.where(cand[:, None], req_ev[ev], zero)
+            cum = VK._seg_cumsum(vr, seg_ev[ev])
+            cap_flat = torch.zeros((nb * Q + 1, R), dtype=torch.float32, device=dev)
+            cap_flat[torch.where(last_ev[ev], b["loc"], nb * Q)] = cum
+            b.update(cand=cand, vr=vr, cum=cum, cap_flat=cap_flat[:nb * Q])
+
+        # ---- job ranking (replicated)
+        keys = [jidx.float()]
+        for name in reversed(job_key_order):
+            if name == "priority":
+                keys.append(-job_prio.float())
+            elif name == "gang":
+                keys.append((job_occupied >= c.job_min).float())
+            elif name == "drf":
+                keys.append(K.dominant_share(job_alloc, c.total[None, :]))
+        keys.append((~active).float())
+        sel = K._lexsort(tuple(keys))[:M]
+        sel_active = active[sel]
+        head_req = head_req_all[sel]
+        head_cls = task_class[torch.clamp(head_t[sel], 0, T - 1)]
+        q_sel = jq_c[sel].long()
+
+        # ---- each block: its K best nodes a selected job, as records
+        send = torch.zeros((L, M, Kk, W), **i32)
+        for i, b in enumerate(bs):
+            n0 = b["n0"]
+            cap_mnr = b["cap_flat"].reshape(nb, Q, R)[:, q_sel, :].transpose(0, 1)
+            covered = torch.all(head_req[:, None, :] < cap_mnr + c.eps, dim=-1)
+            pred = b["cmask"][head_cls] & (b["tc"] < b["cap"])[None, :] & b["valid"][None, :]
+            feasible = covered & pred & sel_active[:, None]
+            any_b = feasible.any(dim=1).int() << 1
+            score = K._score_nodes(head_req, b["used"], b["alloc"], b["cscore"][head_cls],
+                                   c.w_least, c.w_balanced)
+            masked = torch.where(feasible, K._fma(K._jitter_bits(sel, nb, n0), K._JSCALE, score),
+                                 torch.full_like(score, K.NEG_INF))
+            kb = min(Kk, nb)
+            top = torch.sort(masked, dim=1, descending=True, stable=True).indices[:, :kb]
+            rec = send[i]
+            rec[:, :, 0] = _i32(torch.full((M, Kk), K.NEG_INF, device=dev))
+            rec[:, :, 1] = 0x7FFFFFFF
+            rec[:, :, 2] = any_b[:, None]
+            rec[:, :kb, 0] = _i32(torch.gather(masked, 1, top))
+            rec[:, :kb, 1] = (top + n0).int()
+            rec[:, :kb, 2] |= torch.gather(pred, 1, top).int()
+            rec[:, :kb, 3] = b["tc"][top]
+            rec[:, :kb, 4] = b["cap"][top]
+            rec[:, :kb, 5:] = _i32(torch.gather(cap_mnr, 1, top[:, :, None].expand(M, kb, R)))
+        recv = mesh.exchange(send.reshape(L, M * Kk * W)).reshape(S, M, Kk, W)
+
+        # ---- the merge and the proposals (replicated)
+        cand_r = recv.permute(1, 0, 2, 3).reshape(M, S * Kk, W)
+        by_node = torch.sort(cand_r[:, :, 1], dim=1, stable=True).indices
+        vals = torch.gather(_f32(cand_r[:, :, 0]), 1, by_node)
+        pick = torch.gather(by_node, 1, torch.sort(vals, dim=1, descending=True,
+                                                   stable=True).indices)[:, :Kk]
+        job_ok = ((recv[:, :, 0, 2] & 2) != 0).any(dim=0)
+        rot = (torch.arange(Kk, device=dev)[None, :]
+               + (torch.arange(M, device=dev) % Kk)[:, None]) % Kk
+        pick = torch.gather(pick, 1, rot)
+        top = torch.gather(cand_r, 1, pick[:, :, None].expand(M, Kk, W))
+        topk_nodes = top[:, :, 1].long()
+        cap_k = _f32(top[:, :, 5:])
+        topk_ok = (((top[:, :, 2] & 1) != 0) & sel_active[:, None]
+                   & torch.all(head_req[:, None, :] < cap_k + c.eps, dim=-1))
+        req_safe = torch.clamp_min(head_req, 1e-30)[:, None, :]
+        cnt = torch.floor((cap_k + c.eps) / req_safe)
+        cnt = torch.where(head_req[:, None, :] > 0, cnt, torch.full_like(cnt, K.POS_INF)).amin(-1)
+        cnt = torch.where(topk_ok, torch.clamp_min(cnt, 0.0), torch.zeros_like(cnt))
+        cum_cnt = torch.cumsum(cnt, dim=1)
+        offs = torch.arange(P, device=dev)
+        slot = (offs[None, :, None] >= cum_cnt[:, None, :]).sum(dim=-1)
+        in_range = slot < Kk
+        slot_c = torch.clamp(slot, 0, Kk - 1)
+        prop_node_mp = torch.gather(topk_nodes, 1, slot_c)
+        prop_rec = torch.gather(top, 1, slot_c[:, :, None].expand(M, P, W)).reshape(F, W)
+        pofs = job_pstart[sel][:, None] + cursor[sel][:, None] + offs[None, :]
+        prop_valid = (sel_active[:, None] & job_ok[:, None]
+                      & (cursor[sel][:, None] + offs[None, :] < job_pcount[sel][:, None])
+                      & in_range)
+        t_prop = rows_packed[torch.clamp(pofs, 0, T - 1)]
+        p_valid = prop_valid.reshape(F)
+        p_t = torch.clamp(t_prop, 0, T - 1).reshape(F)
+        p_req = task_req[p_t]
+        p_node = prop_node_mp.reshape(F).int()
+        p_job = sel[:, None].expand(M, P).reshape(F)
+        rank = torch.arange(F, device=dev)
+
+        # ---- the accept against the records of the proposals' cells
+        p_q = jq_c[p_job]
+        key_flat = torch.where(p_valid, p_node * Q + p_q, torch.full_like(p_node, N * Q))
+        order2 = K._lexsort((rank, key_flat))
+        skf = key_flat[order2]
+        snp = torch.where(skf < N * Q, torch.div(skf, Q, rounding_mode="floor"),
+                          torch.full_like(skf, N))
+        sreqp = torch.where(p_valid[order2, None], p_req[order2], zero)
+        seg_start = VK._seg_flags(skf)
+        relcump = VK._seg_cumsum(sreqp, seg_start)
+        start_pos = torch.cummax(torch.where(seg_start, rank, torch.zeros_like(rank)),
+                                 dim=0).values
+        srec = prop_rec[order2]
+        pos_in_seg = rank - start_pos
+        accept_sorted = (torch.all(relcump < _f32(srec[:, 5:]) + c.eps, dim=-1)
+                         & (srec[:, 3].long() + pos_in_seg < srec[:, 4].long()) & (snp < N))
+        win0 = torch.zeros(F, dtype=torch.bool, device=dev)
+        win0[order2] = accept_sorted
+        win0 &= p_valid
+        win_mp = win0.reshape(M, P)
+        win_mp &= torch.cumsum((~win_mp).int(), dim=1) == 0
+        if gang_pipelined:
+            need = torch.clamp_min(c.job_min[sel] - job_occupied[sel] - pipe[sel], 0)
+        else:
+            need = torch.zeros(M, **i32)
+        commit_m = win_mp.int().sum(dim=1) >= need
+        win = (win_mp & commit_m[:, None]).reshape(F)
+        any_win = bool(win.any())
+
+        # ---- commit: preemptor placements (replicated)
+        delta = torch.where(win[:, None], p_req, zero)
+        job_tgt = torch.where(win, p_job, torch.full_like(p_job, J))
+        ja2 = job_alloc + VK._segment_sum(delta, job_tgt, J + 1)[:J]
+        q_tgt = torch.where(win, p_q, torch.full_like(p_q, Q))
+        qa2 = queue_alloc + VK._segment_sum(delta, q_tgt, Q + 1)[:Q]
+        wins_per_job = VK._segment_count(win, job_tgt, J + 1)[:J]
+        pipe = pipe + wins_per_job
+        cursor = cursor + wins_per_job
+        wt = p_t[win]
+        pipe_node[wt] = p_node[win]
+        pipe_att[wt] = (att + rank[win]).int()
+
+        # ---- each block: its cells' grants, its victims (the minimal
+        # admitted evict-order prefix of each cell covering its grant), its
+        # rows, and its partial sums and victim rows
+        parts = torch.zeros((L, mask_at + V), **f64)
+        for i, b in enumerate(bs):
+            local = p_node.long() - b["n0"]
+            mine = win & (local >= 0) & (local < nb)
+            flat_tgt = torch.where(mine, local * Q + p_q, nb * Q)
+            consumed_flat = VK._segment_sum(delta, flat_tgt, nb * Q + 1)[:nb * Q]
+            node_tgt = torch.where(mine, local, nb)
+            consumed = VK._segment_sum(delta, node_tgt, nb + 1)[:nb]
+            placed_cnt = VK._segment_count(mine, node_tgt, nb + 1)[:nb]
+            cum_excl = b["cum"] - b["vr"]
+            new_vict = b["cand"] & ~K.less_equal(consumed_flat[b["loc"]], cum_excl, c.eps)
+            vreq_new = torch.where(new_vict[:, None], req_ev[b["ev"]], zero)
+            vict_node = VK._segment_sum(vreq_new, b["node"], nb)
+            b["rel"] = b["rel"] + vict_node - consumed
+            b["used"] = b["used"] + consumed
+            b["tc"] = b["tc"] + placed_cnt
+            jb = job_ev[b["ev"]].long()
+            pj = torch.zeros((J, R), **f64).index_add_(0, jb, vreq_new.double())
+            qb = torch.where(has_q_ev[b["ev"]], rq_ev[b["ev"]], Q).long()
+            pq = torch.zeros((Q + 1, R), **f64).index_add_(0, qb, vreq_new.double())[:Q]
+            pc = torch.zeros(J, **f64).index_add_(0, jb, new_vict.double())
+            row = parts[i]
+            row[:J * R] = pj.reshape(-1)
+            row[J * R:J * R + Q * R] = pq.reshape(-1)
+            row[J * R + Q * R:J * R + Q * R + J] = pc
+            row[mask_at - 1] = float(new_vict.sum())
+            row[mask_at + b["ev"]] = new_vict.double()
+        recv2 = mesh.exchange(parts)
+
+        # ---- round end (replicated): the blocks' sums in block order
+        tot = torch.zeros(mask_at, **f64)
+        for k in range(S):
+            tot = tot + recv2[k, :mask_at]
+        evicted = (recv2[:, mask_at:] > 0).any(dim=0)
+        live_ev = live_ev & ~evicted
+        evict_att = torch.where(evicted, torch.full_like(evict_att, att + F), evict_att)
+        job_alloc = ja2 - tot[:J * R].reshape(J, R).float()
+        queue_alloc = qa2 - tot[J * R:J * R + Q * R].reshape(Q, R).float()
+        job_occupied = job_occupied - tot[J * R + Q * R:mask_at - 1].int()
+        n_vict = int(tot[mask_at - 1])
+        drop_now = torch.zeros(J, dtype=torch.bool, device=dev)
+        if not any_win:
+            drop_now[sel] = sel_active
+        dropped = dropped | drop_now
+        att += F + 1
+        att_total += int(win.sum())
+        if any_win:
+            last_v = n_vict
+        any_commit = any_commit or any_win
+        round_ += 1
+        progressed = any_win or bool(drop_now.any())
+
+    run_live = torch.zeros(V, dtype=torch.bool, device=dev)
+    run_live[o_ev] = live_ev
+    ea = torch.full((V,), -1, **i32)
+    ea[o_ev] = evict_att
+    s = VK.VictimState(run_live=run_live, idle=s0.idle, releasing=tuple(b["rel"] for b in bs),
+                       used=tuple(b["used"] for b in bs), task_count=tuple(b["tc"] for b in bs),
+                       job_alloc=job_alloc, job_occupied=job_occupied, queue_alloc=queue_alloc)
+    rec = VK.StormRecords(ea, pipe_node, pipe_att, torch.tensor(att, **i32))
+    return VK.RoundsOut(s, pipe, rec, torch.tensor(att_total, **i32),
+                        torch.tensor(last_v, **i32), torch.tensor(any_commit, device=dev),
+                        cursor, dropped)

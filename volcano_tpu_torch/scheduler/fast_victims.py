@@ -15,6 +15,14 @@ final state back in the pass's one fetch), and turns the solves' records
 (victim row -> ok-attempt sequence, preemptor task -> node and sequence)
 into the ordered eviction and pipeline lists the cycle publishes.
 
+Under a conf mesh with ``solve_mode="batch"`` (``TensorBackend.victim_sharded``,
+the decision the object path's victim solve takes too; the JAX module's
+``fast_victims.py:148-163``) the node planes of the constants and of the
+uploaded state split into the mesh's blocks of rows, each pass runs its
+solve on them (``victim_kernels.reclaim_solve_sharded`` /
+``preempt_solve_sharded`` / ``preempt_rounds_sharded``, K15a-c), and the
+final state's node planes are gathered back in the pass's one fetch.
+
 A pass the kernel cannot express — the reference's host walk would strand
 evictions on a node that cannot cover the request (``clean=False``) —
 returns False with nothing recorded; the cycle then raises, since the
@@ -113,16 +121,20 @@ class FastContention:
         self.has_proportion = static["has_proportion"]
         self.job_key_order = static["job_key_order"]
 
+        # the conf mesh's blocks, or None for whole node planes
+        self.mesh = probe.mesh if probe.victim_sharded() else None
         w_least, w_balanced = probe.score_weights()
-        up = self._up
+        up, node = self._up, self._node
         self.consts = VK.VictimConsts(
             run_req=up(snap.run_req), run_node=up(snap.run_node),
             run_job=up(snap.run_job), run_prio=up(snap.run_prio),
             run_rank=up(snap.run_rank), run_evictable=up(snap.run_evictable),
             job_queue=up(snap.job_queue), job_min=up(snap.job_min_available),
-            node_alloc=up(snap.node_alloc), node_max_tasks=up(snap.node_max_tasks),
-            node_valid=up(snap.node_valid), class_mask=up(snap.class_node_mask),
-            class_score=up(snap.class_node_score),
+            node_alloc=node(snap.node_alloc, "node_alloc"),
+            node_max_tasks=node(snap.node_max_tasks, "node_max_tasks"),
+            node_valid=node(snap.node_valid, "node_valid"),
+            class_mask=node(snap.class_node_mask, "class_mask"),
+            class_score=node(snap.class_node_score, "class_score"),
             queue_deserved=up(deserved.astype(np.float32)), total=up(snap.total),
             eps=up(snap.eps), w_least=float(np.float32(w_least)),
             w_balanced=float(np.float32(w_balanced)),
@@ -141,16 +153,36 @@ class FastContention:
     def _up(self, arr) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _node(self, arr, name: str):
+        """A node plane on the device: whole, or this process's blocks of the
+        mesh (``parallel/sharded.split_rows`` raises when they cannot divide
+        the rows)."""
+        t = self._up(arr)
+        if self.mesh is None:
+            return t
+        from volcano_tpu_torch.parallel.sharded import split_rows
+
+        return split_rows(self.mesh, name, t)
+
     def _state_dev(self) -> VK.VictimState:
-        return VK.VictimState(*[self._up(x) for x in self.state])
+        return VK.VictimState(*[self._node(x, f) if f in VK.STATE_NODE_PLANES else self._up(x)
+                                for f, x in zip(VK.VictimState._fields, self.state)])
+
+    def _solve(self, name: str, *args, **kw):
+        """The pass's storm solve: on whole node planes, or the ``*_sharded``
+        one on the mesh's blocks."""
+        if self.mesh is None:
+            return getattr(VK, name)(*args, **kw)
+        return getattr(VK, name + "_sharded")(*args, self.mesh, **kw)
 
     # -- consts rebuild after a task re-pack --------------------------------
 
     def refresh_for_preempt(self, snap) -> None:
         """The task and class arrays were re-packed: the preempt pass reads
         the new class indexing."""
-        self.consts = self.consts._replace(class_mask=self._up(snap.class_node_mask),
-                                           class_score=self._up(snap.class_node_score))
+        self.consts = self.consts._replace(
+            class_mask=self._node(snap.class_node_mask, "class_mask"),
+            class_score=self._node(snap.class_node_score, "class_score"))
         self.task_req_dev = self._up(snap.task_req)
         self.task_class_dev = self._up(snap.task_class)
 
@@ -236,9 +268,12 @@ class FastContention:
             self.pipelines.append((int(t), int(pipe_node[t])))
 
     def _solve_fetch(self, out, extra: Sequence[torch.Tensor]):
-        """The pass's one fetch: final state, pipe, records, then ``extra``."""
-        host = fetch(list(out.state) + [out.pipe, out.rec.evict_att, out.rec.pipe_node,
-                                        out.rec.pipe_att] + list(extra))
+        """The pass's one fetch: final state (node planes gathered from the
+        mesh's blocks), pipe, records, then ``extra``."""
+        state = [self.mesh.gather_rows(torch.cat(x)) if isinstance(x, tuple) else x
+                 for x in out.state]
+        host = fetch(state + [out.pipe, out.rec.evict_att, out.rec.pipe_node,
+                              out.rec.pipe_att] + list(extra))
         n = len(VK.VictimState._fields)
         return host[:n], host[n], host[n + 1], host[n + 2], host[n + 3], host[n + 4:]
 
@@ -258,8 +293,9 @@ class FastContention:
         if not job_cand.any() or not queue_live.any():
             return True
         up = self._up
-        out = VK.reclaim_solve(
-            self.consts, self._state_dev(), self.task_req_dev, self.task_class_dev,
+        out = self._solve(
+            "reclaim_solve", self.consts, self._state_dev(), self.task_req_dev,
+            self.task_class_dev,
             up(snap.job_start.astype(np.int32)), up(self.job_prio.astype(np.int32)),
             up(job_cand), up(queue_live), up(self.pipe.astype(np.int32)),
             has_proportion=self.has_proportion, job_key_order=self.job_key_order,
@@ -332,8 +368,9 @@ class FastContention:
             if not is_pre.any():
                 return True
         up = self._up
-        out = VK.preempt_solve(
-            self.consts, self._state_dev(), self.task_req_dev, self.task_class_dev,
+        out = self._solve(
+            "preempt_solve", self.consts, self._state_dev(), self.task_req_dev,
+            self.task_class_dev,
             up(attempt_rows), up(snap.job_start.astype(np.int32)),
             up(snap.job_ntasks.astype(np.int32)), up(self.job_prio.astype(np.int32)),
             up(is_pre), up(under_pad), nu, up(qpad), nq, up(self.pipe.astype(np.int32)),
@@ -362,8 +399,9 @@ class FastContention:
         rows_packed = np.zeros(T, np.int32)
         rows_packed[: rows.size] = rows
         up = self._up
-        out = VK.preempt_rounds(
-            self.consts, self._state_dev(), self.task_req_dev, self.task_class_dev,
+        out = self._solve(
+            "preempt_rounds", self.consts, self._state_dev(), self.task_req_dev,
+            self.task_class_dev,
             up(rows_packed), up(pstart), up(counts), up(self.job_prio.astype(np.int32)),
             up(is_pre), up(self.pipe.astype(np.int32)),
             job_key_order=self.job_key_order, gang_pipelined=self.gang_pipelined,

@@ -12,8 +12,8 @@ already made), and the scheduler runs the whole cycle on the object path.
 Where the JAX cycle hands jobs to its object sub-cycle, this cycle raises
 ``NotImplementedError`` naming the ROADMAP item that will cover the case.
 Under a conf mesh the batched solves (the express one and the dynamic
-one) run on node blocks; a contention pass under a mesh with
-``solve_mode="batch"`` raises, as the JAX cycle would shard it there.
+one) run on node blocks, and with ``solve_mode="batch"`` the contention
+passes too (K15a-c), as the JAX cycle shards them there.
 Under ``mesh_hosts > 1`` every host runs the same global solve and fetches
 only its owned task block; a worker (``mesh_host_id != 0``) publishes only
 those binds, and the coordinator also owns the dynamic and best-effort
@@ -47,7 +47,6 @@ from volcano_tpu_torch.scheduler.tensor_backend import TensorBackend
 OVERCOMMIT_FACTOR = 1.2
 
 _SUBCYCLE = "ROADMAP queue 1 item 8b (object sub-cycle)"
-_MESH_CONTENTION = "ROADMAP queue 1 item 10c (contention solves on node blocks)"
 
 
 class FastCycle:
@@ -57,6 +56,7 @@ class FastCycle:
         self.store = scheduler.cache.store
         self.conf = scheduler.conf
         self.probe = TensorBackend(self.conf.tiers, scheduler.device, scheduler.uploads,
+                                   solve_mode=self.conf.solve_mode,
                                    mesh=getattr(scheduler, "mesh", None))
         self.gang_on = self.probe.gang_job_ready
         self.nodeaffinity_weight = self.probe.nodeaffinity_weight()
@@ -289,12 +289,6 @@ class FastCycle:
         """The victim pool and the contention driver, built only on cycles
         whose prechecks found possible work; ``deserved`` comes from the host
         water-fill, as in the reference cycle."""
-        if self.sched.mesh is not None and self.conf.solve_mode == "batch":
-            # the JAX cycle shards the contention solves' node planes only
-            # under solveMode: batch (fast_victims.py:144)
-            raise NotImplementedError(
-                f"a contention pass under mesh {self.conf.mesh} with solve_mode 'batch' "
-                f"(K8-K10 on node blocks): {_MESH_CONTENTION}")
         build_victim_pool(self.mirror, snap, aux)
         deserved = water_fill_np(snap.queue_weight, snap.queue_request, snap.total,
                                  snap.eps, snap.queue_participates)

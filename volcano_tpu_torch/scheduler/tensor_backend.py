@@ -168,9 +168,9 @@ class TensorBackend:
         return self._deserved
 
     def victim_sharded(self) -> bool:
-        """Whether the victim solve runs on the mesh's node blocks (K12b):
-        under a conf mesh with ``solve_mode="batch"`` only, as in the JAX
-        package."""
+        """Whether the victim solves run on the mesh's node blocks (the
+        object path's K12b, the fast cycle's K15a-c): under a conf mesh with
+        ``solve_mode="batch"`` only, as in the JAX package."""
         return self.mesh is not None and self.solve_mode == "batch"
 
     def victim_arrays(self):
@@ -183,7 +183,7 @@ class TensorBackend:
 
         s, dev = self.snapshot, self.to_device
         # the constants' node planes split only under solveMode: batch
-        devn = self.placement_fn(self.solve_mode == "batch")
+        devn = self.placement_fn(self.victim_sharded())
         w_least, w_bal = self.score_weights()
         consts = VictimConsts(
             run_req=dev(s.run_req), run_node=dev(s.run_node), run_job=dev(s.run_job),

@@ -24,7 +24,14 @@ block's core over its own rows, one record exchange over the mesh, a
 replicated merge and apply (``parallel/sharded.victim_blocks_plain`` is
 its plain version; it shares ``_victim_flags``, the candidate and prefix
 masks over a set of pool rows, and ``_victim_apply``, the state update,
-with ``_victim_core``).
+with ``_victim_core``).  The storm solves run on node blocks too (K15a-c:
+``reclaim_solve_sharded``, ``preempt_solve_sharded``,
+``preempt_rounds_sharded``): the reclaim and preempt walks take K12b's
+records, merge and owner-row apply once an attempt, and the rounds run
+per block with two exchanges a round.  Their plain versions are the walks
+here with ``parallel/sharded._blocks_core`` as the attempt and
+``parallel/sharded.rounds_blocks_plain``, whose one-block case is
+``preempt_rounds_plain`` (as K10 is K15c's).
 
 Float rules shared by both versions:
 
@@ -57,14 +64,10 @@ import numpy as np
 import torch
 
 from volcano_tpu_torch.scheduler.kernels import (
-    NEG_INF,
     POS_INF,
     _KEY_CODE,
     _MAX_R,
     _check,
-    _fma,
-    _JSCALE,
-    _jitter_bits,
     _lexsort,
     _raise_on,
     _score_nodes,
@@ -89,6 +92,9 @@ LAUNCHES: Dict[str, int] = {
     "reclaim_solve": 0,
     "preempt_solve": 0,
     "preempt_rounds": 0,
+    "reclaim_solve_sharded": 0,
+    "preempt_solve_sharded": 0,
+    "preempt_rounds_sharded": 0,
 }
 
 
@@ -276,7 +282,9 @@ def _job_order_keys(c, s, job_prio, job_key_order):
 
 
 def _clone_state(s: VictimState) -> VictimState:
-    return VictimState(*[x.clone() for x in s])
+    """A copy of the state; node planes held as tuples of blocks stay so."""
+    return VictimState(*[tuple(b.clone() for b in x) if isinstance(x, tuple) else x.clone()
+                         for x in s])
 
 
 def _victim_flags(c, s, t_req, jt, base, o_drf, seg_drf, o_prop, seg_prop, o_ev, seg_ev, *,
@@ -513,22 +521,45 @@ def _record_ok(rec, vmask, t, nstar):
 # K8: the whole reclaim action
 # --------------------------------------------------------------------------
 
+def _walk_core(c, Q, reclaim, *, use_gang, use_drf, use_prop, use_conformance,
+               order_by_priority, blocks=None):
+    """The attempt of a storm walk as ``core(s, t_req, t_cls, jt, qt, base)``
+    -> (new_state, assigned, nstar, vmask, clean): ``_victim_core`` over
+    whole node planes or, with ``blocks`` = (mesh, rows a block), over the
+    node blocks of ``parallel/sharded._blocks_core``.  The pool orders are
+    taken once a solve."""
+    none = (None, None)
+    orders = ((_orders_drf(c) if use_drf else none) + (_orders_prop(c, Q) if use_prop else none)
+              + _orders_evict(c, order_by_priority, reclaim))
+    flags = dict(use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
+                 use_conformance=use_conformance)
+    if blocks is not None:
+        from volcano_tpu_torch.parallel.sharded import _blocks_core
+
+        mesh, nb = blocks
+        return lambda s, t_req, t_cls, jt, qt, base: _blocks_core(
+            c, s, t_req, t_cls, jt, qt, base, orders, flags, mesh, nb, reclaim)
+    return lambda s, t_req, t_cls, jt, qt, base: _victim_core(
+        c, s, t_req, t_cls, jt, qt, base, *orders, reclaim_mode=reclaim, **flags)
+
+
 def reclaim_solve_plain(c, s0, task_req, task_class, job_first, job_prio,
                         job_cand0, queue_live0, pipe0, *, use_gang, use_prop,
                         use_conformance, order_by_priority, has_proportion,
-                        job_key_order=("priority", "gang", "drf")):
+                        job_key_order=("priority", "gang", "drf"), blocks=None):
     """reclaim.go:42-201: pop the queue with the lowest proportion share,
     pop its best job once, attempt its head task cross-queue, re-arm the
-    queue only on success."""
+    queue only on success.  ``blocks`` (mesh, rows a block): the node
+    planes of ``c`` and ``s0`` are tuples of this process's blocks, and each
+    attempt runs on them (K15a's plain version)."""
     dev = c.run_req.device
     T = task_req.shape[0]
     J = c.job_queue.shape[0]
     Q = s0.queue_alloc.shape[0]
     V = c.run_req.shape[0]
-    o_prop = seg_prop = None
-    if use_prop:
-        o_prop, seg_prop = _orders_prop(c, Q)
-    o_ev, seg_ev = _orders_evict(c, order_by_priority, True)
+    core = _walk_core(c, Q, True, use_gang=use_gang, use_drf=False, use_prop=use_prop,
+                      use_conformance=use_conformance, order_by_priority=order_by_priority,
+                      blocks=blocks)
     cap = 2 * (J + Q) + 64
 
     s = _clone_state(s0)
@@ -556,11 +587,8 @@ def reclaim_solve_plain(c, s0, task_req, task_class, job_first, job_prio,
             t = min(max(int(job_first[j]), 0), T - 1)
             qt = int(c.job_queue[j])
             base = s.run_live & (c.job_queue[c.run_job] != qt)
-            new_s, assigned, nstar, vmask, clean = _victim_core(
-                c, s, task_req[t], int(task_class[t]), j, qt, base,
-                None, None, o_prop, seg_prop, o_ev, seg_ev,
-                use_gang=use_gang, use_drf=False, use_prop=use_prop,
-                use_conformance=use_conformance, reclaim_mode=True)
+            new_s, assigned, nstar, vmask, clean = core(s, task_req[t], int(task_class[t]), j,
+                                                        qt, base)
             ok = assigned and clean
             javail[j] = False
             qlive[qstar] = ok
@@ -584,20 +612,22 @@ def preempt_solve_plain(c, s0, task_req, task_class, task_attempt, job_start,
                         queues_order, nq, pipe0, *, use_gang, use_drf,
                         use_conformance, order_by_priority,
                         job_key_order=("priority", "gang", "drf"),
-                        gang_pipelined=True):
+                        gang_pipelined=True, blocks=None):
     """preempt.go:45-273: per queue, phase-1 same-queue cross-job
     preemption with a statement (checkpoint / discard) per preemptor job,
-    then phase-2 within-job preemption over every under-request job."""
+    then phase-2 within-job preemption over every under-request job.
+    ``blocks`` (mesh, rows a block): the node planes of ``c`` and ``s0``
+    are tuples of this process's blocks, and each attempt runs on them
+    (K15b's plain version)."""
     dev = c.run_req.device
     T = task_req.shape[0]
     J = c.job_queue.shape[0]
     Q = queues_order.shape[0]
     V = c.run_req.shape[0]
     nu, nq = int(nu), int(nq)
-    o_drf = seg_drf = None
-    if use_drf:
-        o_drf, seg_drf = _orders_drf(c)
-    o_ev, seg_ev = _orders_evict(c, order_by_priority, False)
+    core = _walk_core(c, s0.queue_alloc.shape[0], False, use_gang=use_gang, use_drf=use_drf,
+                      use_prop=False, use_conformance=use_conformance,
+                      order_by_priority=order_by_priority, blocks=blocks)
     cap = 4 * T + 4 * J + nq * (nu + 4) + 64
     job_queue = c.job_queue
     rq_raw = job_queue[c.run_job]
@@ -671,11 +701,8 @@ def preempt_solve_plain(c, s0, task_req, task_class, task_attempt, job_start,
                 base = s.run_live & (rq_raw == qt) & (c.run_job != jt)
             else:
                 base = s.run_live & (c.run_job == jt)
-            new_s, assigned_t, nstar, vmask, clean = _victim_core(
-                c, s, task_req[t], int(task_class[t]), jt, qt, base,
-                o_drf, seg_drf, None, None, o_ev, seg_ev,
-                use_gang=use_gang, use_drf=use_drf, use_prop=False,
-                use_conformance=use_conformance, reclaim_mode=False)
+            new_s, assigned_t, nstar, vmask, clean = core(s, task_req[t], int(task_class[t]),
+                                                          jt, qt, base)
             ok = assigned_t and clean
             abort = abort or not clean
             if ok:
@@ -705,262 +732,18 @@ def preempt_solve_plain(c, s0, task_req, task_class, task_attempt, job_start,
 # --------------------------------------------------------------------------
 
 def preempt_rounds_plain(c, s0, task_req, task_class, rows_packed, job_pstart,
-                         job_pcount, job_prio, job_avail0, pipe0, *, use_gang,
-                         use_drf, use_conformance, order_by_priority,
-                         job_key_order=("priority", "gang", "drf"),
-                         gang_pipelined=True, m_chunk=128,
-                         p_chunk=ROUNDS_P_CHUNK, k_chunk=8):
+                         job_pcount, job_prio, job_avail0, pipe0, **kw) -> RoundsOut:
     """Rounds of parallel victim-capacity placement (the JAX docstring
     has the five steps): candidate analysis over the pool, per-(node,
     queue) capacity curves, top-M jobs proposing P tasks over their K best
     nodes, (node, rank) prefix checks with gang all-or-nothing commit, and
-    victims materialised at round end."""
-    dev = c.run_req.device
-    V, R = c.run_req.shape
-    N = s0.idle.shape[0]
-    T = task_req.shape[0]
-    J = c.job_queue.shape[0]
-    Q = s0.queue_alloc.shape[0]
-    M, P, K = min(m_chunk, J), p_chunk, min(k_chunk, N)
-    F = M * P
-    i32 = dict(dtype=torch.int32, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    jidx = torch.arange(J, **i32)
-    vidx = torch.arange(V, **i32)
+    victims materialised at round end.  The one-block case of
+    ``parallel/sharded.rounds_blocks_plain``, as K10 is K15c's."""
+    from volcano_tpu_torch.parallel.sharded import rounds_blocks_plain
 
-    # hoisted static layouts: eviction order grouped per (node, QUEUE)
-    rq_pool = torch.clamp(c.job_queue[c.run_job], 0, Q - 1)
-    prio_pool = c.run_prio if order_by_priority else torch.zeros_like(c.run_prio)
-    o_ev = _lexsort((vidx, -c.run_rank, prio_pool, rq_pool, c.run_node))
-    inv_ev = torch.zeros(V, **i32)
-    inv_ev[o_ev] = vidx
-    sn2 = c.run_node[o_ev]
-    req_ev = c.run_req[o_ev]
-    job_ev = c.run_job[o_ev]
-    rq_ev_raw = c.job_queue[job_ev]
-    has_q_ev = rq_ev_raw >= 0
-    rq_ev = torch.clamp(rq_ev_raw, 0, Q - 1)
-    flat_ev = sn2 * Q + rq_ev
-    seg_ev = _seg_flags(flat_ev)
-    evictable_ev = c.run_evictable[o_ev]
-    last_ev = torch.ones(V, dtype=torch.bool, device=dev)
-    last_ev[:-1] = seg_ev[1:]
-    # within-job rank in global evict order (gang eviction budgets)
-    o_jb = _lexsort((inv_ev, c.run_job))
-    jb_seg = _seg_flags(c.run_job[o_jb])
-    ar = torch.arange(V, device=dev)
-    jb_start = torch.cummax(torch.where(jb_seg, ar, torch.zeros_like(ar)), dim=0).values
-    cnt_in_job_pool = torch.zeros(V, **i32)
-    cnt_in_job_pool[o_jb] = (ar - jb_start).int()
-    cnt_in_job_ev = cnt_in_job_pool[o_ev]
-    row_is_pre_ev = job_avail0[job_ev]
-    if use_drf:
-        o_drf, seg_drf = _orders_drf(c)
-        ev_pos_drf = inv_ev[o_drf]
-        inv_drf = torch.zeros(V, **i32)
-        inv_drf[o_drf] = vidx
-        drf_pos_ev = inv_drf[o_ev]
-        req_drf = c.run_req[o_drf]
-        job_drf = c.run_job[o_drf]
-        rq_drf_raw = c.job_queue[job_drf]
-        has_q_drf = rq_drf_raw >= 0
-        rq_drf = torch.clamp(rq_drf_raw, 0, Q - 1)
-
-    s = _clone_state(s0)
-    live_ev = s0.run_live[o_ev].clone()
-    cursor = torch.zeros(J, **i32)
-    pipe = pipe0.clone()
-    dropped = torch.zeros(J, dtype=torch.bool, device=dev)
-    evict_att = torch.full((V,), -1, **i32)
-    pipe_node = torch.full((T,), -1, **i32)
-    pipe_att = torch.full((T,), -1, **i32)
-    att = att_total = last_v = round_ = 0
-    any_commit = False
-    progressed = True
-    jq_c = torch.clamp(c.job_queue, 0, Q - 1)
-
-    def active_mask():
-        return job_avail0 & ~dropped & (cursor < job_pcount)
-
-    while progressed and bool(active_mask().any()) and round_ < J + 8:
-        active = active_mask()
-        act_q = torch.zeros(Q, **i32)
-        act_q.index_add_(0, jq_c.long(), (active & (c.job_queue >= 0)).int())
-        act_q = act_q > 0
-
-        # ---- candidate analysis
-        cand_ev = live_ev & act_q[rq_ev] & has_q_ev & ~row_is_pre_ev
-        if use_conformance:
-            cand_ev &= evictable_ev
-        if use_gang:
-            budget = torch.where(c.job_min > 1, s.job_occupied - c.job_min,
-                                 torch.full_like(c.job_min, 2**31 - 1))
-            cand_ev &= cnt_in_job_ev < budget[job_ev]
-        head_t = rows_packed[torch.clamp(job_pstart + cursor, 0, T - 1)]
-        head_req_all = task_req[torch.clamp(head_t, 0, T - 1)]
-        if use_drf:
-            ls_j = dominant_share(s.job_alloc + head_req_all, c.total)
-            ls_q = torch.full((Q,), NEG_INF, dtype=torch.float32, device=dev)
-            ls_q = ls_q.scatter_reduce(
-                0, jq_c.long(), torch.where(active, ls_j, torch.full_like(ls_j, NEG_INF)),
-                reduce="amax")
-            live_drf = live_ev[ev_pos_drf]
-            base_drf = live_drf & act_q[rq_drf] & has_q_drf
-            sreq = torch.where(base_drf[:, None], req_drf, zero)
-            relcum = _seg_cumsum(sreq, seg_drf)
-            rs = dominant_share(s.job_alloc[job_drf] - relcum, c.total)
-            admit_drf = (ls_q[rq_drf] < rs + SHARE_DELTA) & has_q_drf
-            cand_ev &= admit_drf[drf_pos_ev]
-
-        # ---- per-(node, queue) evictable-capacity curves
-        vr = torch.where(cand_ev[:, None], req_ev, zero)
-        cum = _seg_cumsum(vr, seg_ev)
-        cap_flat = torch.zeros((N * Q + 1, R), dtype=torch.float32, device=dev)
-        cap_flat[torch.where(last_ev, flat_ev, torch.full_like(flat_ev, N * Q)).long()] = cum
-        cap_flat = cap_flat[: N * Q]
-
-        # ---- job ranking + proposals
-        keys = [jidx.float()]
-        for name in reversed(job_key_order):
-            if name == "priority":
-                keys.append(-job_prio.float())
-            elif name == "gang":
-                keys.append((s.job_occupied >= c.job_min).float())
-            elif name == "drf":
-                keys.append(dominant_share(s.job_alloc, c.total[None, :]))
-        keys.append((~active).float())
-        sel = _lexsort(tuple(keys))[:M]
-        sel_active = active[sel]
-        head_req = head_req_all[sel]
-        head_cls = task_class[torch.clamp(head_t[sel], 0, T - 1)]
-        q_sel = jq_c[sel]
-        cap_mnr = cap_flat.reshape(N, Q, R)[:, q_sel.long(), :].transpose(0, 1)
-        covered = torch.all(head_req[:, None, :] < cap_mnr + c.eps, dim=-1)
-        pred = (c.class_mask[head_cls] & (s.task_count < c.node_max_tasks)[None, :]
-                & c.node_valid[None, :])
-        feasible = covered & pred & sel_active[:, None]
-        job_ok = feasible.any(dim=1)
-        score = _score_nodes(head_req, s.used, c.node_alloc, c.class_score[head_cls],
-                             c.w_least, c.w_balanced)
-        masked = torch.where(feasible, _fma(_jitter_bits(sel, N), _JSCALE, score),
-                             torch.full_like(score, NEG_INF))
-        topk_nodes = torch.sort(masked, dim=1, descending=True, stable=True).indices[:, :K]
-        rot = (torch.arange(K, device=dev)[None, :] + (torch.arange(M, device=dev) % K)[:, None]) % K
-        topk_nodes = torch.gather(topk_nodes, 1, rot)
-        topk_ok = torch.gather(feasible, 1, topk_nodes)
-        cap_k = cap_mnr[torch.arange(M, device=dev)[:, None], topk_nodes]
-        req_safe = torch.clamp_min(head_req, 1e-30)[:, None, :]
-        cnt = torch.floor((cap_k + c.eps) / req_safe)
-        cnt = torch.where(head_req[:, None, :] > 0, cnt, torch.full_like(cnt, POS_INF)).amin(dim=-1)
-        cnt = torch.where(topk_ok, torch.clamp_min(cnt, 0.0), torch.zeros_like(cnt))
-        cum_cnt = torch.cumsum(cnt, dim=1)
-        offs = torch.arange(P, device=dev)
-        slot = (offs[None, :, None] >= cum_cnt[:, None, :]).sum(dim=-1)
-        in_range = slot < K
-        prop_node_mp = torch.gather(topk_nodes, 1, torch.clamp(slot, 0, K - 1))
-        pofs = job_pstart[sel][:, None] + cursor[sel][:, None] + offs[None, :]
-        prop_valid = (sel_active[:, None] & job_ok[:, None]
-                      & (cursor[sel][:, None] + offs[None, :] < job_pcount[sel][:, None])
-                      & in_range)
-        t_prop = rows_packed[torch.clamp(pofs, 0, T - 1)]
-        p_valid = prop_valid.reshape(F)
-        p_t = torch.clamp(t_prop, 0, T - 1).reshape(F)
-        p_req = task_req[p_t]
-        p_node = prop_node_mp.reshape(F).int()
-        p_job = sel[:, None].expand(M, P).reshape(F)
-        rank = torch.arange(F, device=dev)
-
-        # ---- conflicts against the proposer's own (node, queue) cell
-        p_q = jq_c[p_job]
-        key_flat = torch.where(p_valid, p_node * Q + p_q, torch.full_like(p_node, N * Q))
-        order2 = _lexsort((rank, key_flat))
-        skf = key_flat[order2]
-        snp = torch.where(skf < N * Q, torch.div(skf, Q, rounding_mode="floor"),
-                          torch.full_like(skf, N))
-        sreqp = torch.where(p_valid[order2, None], p_req[order2], zero)
-        seg_start = _seg_flags(skf)
-        relcump = _seg_cumsum(sreqp, seg_start)
-        start_pos = torch.cummax(torch.where(seg_start, rank, torch.zeros_like(rank)), dim=0).values
-        cap_rows = torch.cat([cap_flat, torch.zeros((1, R), dtype=torch.float32, device=dev)])[
-            torch.clamp(skf, 0, N * Q).long()]
-        tc_rows = torch.cat([s.task_count, torch.zeros(1, **i32)])[snp.long()]
-        max_rows = torch.cat([c.node_max_tasks, torch.full((1,), 2**31 - 1, **i32)])[snp.long()]
-        pos_in_seg = rank - start_pos
-        accept_sorted = (torch.all(relcump < cap_rows + c.eps, dim=-1)
-                         & (tc_rows.long() + pos_in_seg < max_rows.long()) & (snp < N))
-        win0 = torch.zeros(F, dtype=torch.bool, device=dev)
-        win0[order2] = accept_sorted
-        win0 &= p_valid
-        win_mp = win0.reshape(M, P)
-        win_mp &= torch.cumsum((~win_mp).int(), dim=1) == 0
-        if gang_pipelined:
-            need = torch.clamp_min(c.job_min[sel] - s.job_occupied[sel] - pipe[sel], 0)
-        else:
-            need = torch.zeros(M, **i32)
-        commit_m = win_mp.int().sum(dim=1) >= need
-        win = (win_mp & commit_m[:, None]).reshape(F)
-        any_win = bool(win.any())
-
-        # ---- commit: preemptor placements
-        delta = torch.where(win[:, None], p_req, zero)
-        flat_tgt = torch.where(win, p_node * Q + p_q, torch.full_like(p_node, N * Q))
-        consumed_flat = _segment_sum(delta, flat_tgt, N * Q + 1)[: N * Q]
-        node_tgt = torch.where(win, p_node, torch.full_like(p_node, N))
-        consumed = _segment_sum(delta, node_tgt, N + 1)[:N]
-        placed_cnt = _segment_count(win, node_tgt, N + 1)[:N]
-        job_tgt = torch.where(win, p_job, torch.full_like(p_job, J))
-        ja2 = s.job_alloc + _segment_sum(delta, job_tgt, J + 1)[:J]
-        q_tgt = torch.where(win, p_q, torch.full_like(p_q, Q))
-        qa2 = s.queue_alloc + _segment_sum(delta, q_tgt, Q + 1)[:Q]
-        wins_per_job = _segment_count(win, job_tgt, J + 1)[:J]
-        pipe = pipe + wins_per_job
-        cursor = cursor + wins_per_job
-        wt = p_t[win]
-        pipe_node[wt] = p_node[win]
-        pipe_att[wt] = (att + rank[win]).int()
-
-        # ---- materialise victims: the minimal admitted evict-order prefix
-        # of each (node, queue) cell covering that cell's consumed capacity
-        cum_excl = cum - vr
-        new_vict = cand_ev & ~less_equal(consumed_flat[flat_ev.long()], cum_excl, c.eps)
-        live_ev = live_ev & ~new_vict
-        evict_att = torch.where(new_vict, torch.full_like(evict_att, att + F), evict_att)
-        vreq_new = torch.where(new_vict[:, None], req_ev, zero)
-        vict_node = _segment_sum(vreq_new, sn2, N)
-        vict_job = _segment_sum(vreq_new, job_ev, J)
-        vict_job_cnt = _segment_count(new_vict, job_ev, J)
-        vict_q = _segment_sum(vreq_new, torch.where(has_q_ev, rq_ev, torch.full_like(rq_ev, Q)),
-                              Q + 1)[:Q]
-        n_vict = int(new_vict.sum())
-        s = VictimState(
-            run_live=s.run_live, idle=s.idle,
-            releasing=s.releasing + vict_node - consumed,
-            used=s.used + consumed,
-            task_count=s.task_count + placed_cnt,
-            job_alloc=ja2 - vict_job,
-            job_occupied=s.job_occupied - vict_job_cnt,
-            queue_alloc=qa2 - vict_q,
-        )
-        drop_now = torch.zeros(J, dtype=torch.bool, device=dev)
-        if not any_win:
-            drop_now[sel] = sel_active
-        dropped = dropped | drop_now
-        att += F + 1
-        att_total += int(win.sum())
-        if any_win:
-            last_v = n_vict
-        any_commit = any_commit or any_win
-        round_ += 1
-        progressed = any_win or bool(drop_now.any())
-
-    run_live = torch.zeros(V, dtype=torch.bool, device=dev)
-    run_live[o_ev] = live_ev
-    ea = torch.full((V,), -1, **i32)
-    ea[o_ev] = evict_att
-    s = s._replace(run_live=run_live)
-    rec = StormRecords(ea, pipe_node, pipe_att, torch.tensor(att, **i32))
-    return RoundsOut(s, pipe, rec, torch.tensor(att_total, **i32), torch.tensor(last_v, **i32),
-                     torch.tensor(any_commit, device=dev), cursor, dropped)
+    return _whole(rounds_blocks_plain(*_as_one_block(c, s0), task_req, task_class, rows_packed,
+                                      job_pstart, job_pcount, job_prio, job_avail0, pipe0,
+                                      _OneBlock, s0.idle.shape[0], **kw))
 
 
 # --------------------------------------------------------------------------
@@ -980,15 +763,16 @@ _PTR_FIELDS = (
     "node_off", "node_fill", "bucket", "l_vidx", "l_ev", "l_drf", "l_prop", "flag",
     "jr_addr", "jr_old",
     "job_off", "job_fill", "job_bucket", "cnt_in_job", "cap_flat", "cons_flat",
-    "cons_node", "placed", "vict_job", "vict_cnt", "vict_q", "act_q", "ls_q",
+    "cons_node", "placed", "act_q", "ls_q",
     "job_active", "job_keys", "job_rank", "sel", "p_node", "p_t", "p_job", "p_flags",
     "t_val", "t_idx", "t_any",
+    "walk", "send", "recv", "p_rec", "p_key", "part",
 )
 _INT_FIELDS = (
     "V", "N", "R", "T", "J", "Q", "C", "nu", "nq", "M", "P", "K", "F", "jr_cap", "TB", "TILE",
     "use_gang", "use_drf", "use_prop", "use_conformance", "order_by_priority",
     "has_proportion", "gang_pipelined", "n_keys", "key0", "key1", "key2",
-    "n0", "NT",
+    "n0", "NT", "S", "W", "W2",
 )
 
 
@@ -1003,6 +787,7 @@ class VictimArgs(ctypes.Structure):
 
 # ctl words (csrc/victim_common.cuh)
 _VC_ATT, _VC_ABORT, _VC_ATT_TOTAL, _VC_LAST_V, _VC_ANY, _VC_ERROR = 0, 1, 2, 3, 4, 6
+_VC_ITERS, _VC_ACTIVE, _VC_PROGRESS = 5, 7, 8
 
 
 def _check_victim_inputs(c: VictimConsts, s: VictimState, task_req, task_class):
@@ -1161,8 +946,31 @@ def victim_step_launch(lib, stream, c, s, t_req, t_cls, jt, qt, *, mode, use_gan
 #: under a mesh (``parallel/sharded._VICTIM_SPECS`` maps them to their axes)
 CONST_NODE_PLANES = ("node_alloc", "node_max_tasks", "node_valid", "class_mask", "class_score")
 STATE_NODE_PLANES = ("idle", "releasing", "used", "task_count")
-#: int32 words of one block's record (csrc/victim_step.cu VTT_VB_WORDS)
+#: int32 words of one block's record (csrc/victim_common.cuh VTT_VB_WORDS)
 VB_WORDS = 6
+
+
+class _OneBlock:
+    """The mesh of one block on this process: K10 is K15c's one-block case."""
+
+    size = n_local = 1
+    first = 0
+
+    @staticmethod
+    def exchange(send: torch.Tensor) -> torch.Tensor:
+        return send
+
+
+def _as_one_block(c: VictimConsts, s: VictimState):
+    """(c, s) with every node plane a 1-tuple: the one block of ``_OneBlock``."""
+    return (c._replace(**{k: (getattr(c, k),) for k in CONST_NODE_PLANES}),
+            s._replace(**{k: (getattr(s, k),) for k in STATE_NODE_PLANES}))
+
+
+def _whole(out):
+    """A solve's outputs with the one block's node planes unwrapped."""
+    return out._replace(state=out.state._replace(
+        **{k: getattr(out.state, k)[0] for k in STATE_NODE_PLANES}))
 
 
 def victim_step_sharded(c, s, t_req, t_cls, jt, qt, mesh, *, mode="queue", use_gang=True,
@@ -1194,7 +1002,7 @@ def victim_step_sharded(c, s, t_req, t_cls, jt, qt, mesh, *, mode="queue", use_g
     return out
 
 
-def _check_blocks(c, s, mesh) -> int:
+def _check_blocks(c, s, mesh, fn="victim_step_sharded") -> int:
     """Every node plane a tuple of this process's blocks, all of one row
     count; returns it."""
     rows = set()
@@ -1202,23 +1010,24 @@ def _check_blocks(c, s, mesh) -> int:
         for name in names:
             blocks = getattr(tup, name)
             if not isinstance(blocks, (tuple, list)) or len(blocks) != mesh.n_local:
-                raise ValueError(f"victim_step_sharded: {name} must hold this process's "
+                raise ValueError(f"{fn}: {name} must hold this process's "
                                  f"{mesh.n_local} blocks")
             axis = 1 if name in ("class_mask", "class_score") else 0
             rows.update(int(b.shape[axis]) for b in blocks)
     if len(rows) != 1:
-        raise ValueError(f"victim_step_sharded: the blocks' row counts differ: {sorted(rows)}")
+        raise ValueError(f"{fn}: the blocks' row counts differ: {sorted(rows)}")
     return rows.pop()
 
 
-def victim_sharded_launch(lib, stream, c, s, t_req, t_cls, jt, qt, mesh, nb, *, mode, use_gang,
-                          use_drf, use_prop, use_conformance, order_by_priority):
-    """Validate, launch csrc/victim_step.cu's block entries around the
-    mesh's exchange and return ``VictimStepOut``."""
+def _blocks_args(c, s0, task_req, task_class, mesh, nb, extra, sizes, flags, block_extra):
+    """The argument blocks of a solve on node blocks: the base (this
+    process's replicated inputs and working state, ``extra``) and each local
+    block's (its node planes, working copies of its node state, its setup
+    scratch and ``block_extra(i)``).  Returns (base, blocks, state, bufs,
+    block buffers); ``state`` is the working state, node planes as tuples."""
     dev = c.run_req.device
     V, R = c.run_req.shape
-    J = c.job_queue.shape[0]
-    Q = s.queue_alloc.shape[0]
+    J, Q, T = c.job_queue.shape[0], s0.queue_alloc.shape[0], task_req.shape[0]
     C = c.class_mask[0].shape[0]
     L, S = mesh.n_local, mesh.size
     N = nb * S
@@ -1230,9 +1039,10 @@ def victim_sharded_launch(lib, stream, c, s, t_req, t_cls, jt, qt, mesh, nb, *, 
         "job_queue": (c.job_queue, i32, (J,)), "job_min": (c.job_min, i32, (J,)),
         "queue_deserved": (c.queue_deserved, f32, (Q, R)),
         "total": (c.total, f32, (R,)), "eps": (c.eps, f32, (R,)),
-        "run_live": (s.run_live, b8, (V,)), "job_alloc": (s.job_alloc, f32, (J, R)),
-        "job_occupied": (s.job_occupied, i32, (J,)), "queue_alloc": (s.queue_alloc, f32, (Q, R)),
-        "t_req": (t_req, f32, (R,)),
+        "run_live": (s0.run_live, b8, (V,)), "job_alloc": (s0.job_alloc, f32, (J, R)),
+        "job_occupied": (s0.job_occupied, i32, (J,)),
+        "queue_alloc": (s0.queue_alloc, f32, (Q, R)),
+        "task_req": (task_req, f32, (T, R)), "task_class": (task_class, i32, (T,)),
     }
     for name, (t, dt, shape) in spec.items():
         _check(name, t, dt, shape, dev)
@@ -1241,74 +1051,103 @@ def victim_sharded_launch(lib, stream, c, s, t_req, t_cls, jt, qt, mesh, nb, *, 
              "class_score": (f32, (C, nb)), "idle": (f32, (nb, R)),
              "releasing": (f32, (nb, R)), "used": (f32, (nb, R)), "task_count": (i32, (nb,))}
     for name, (dt, shape) in bspec.items():
-        for i, b in enumerate(getattr(c if name in CONST_NODE_PLANES else s, name)):
+        for i, b in enumerate(getattr(c if name in CONST_NODE_PLANES else s0, name)):
             _check(f"block {i} {name}", b, dt, shape, dev)
     if not 2 <= R <= _MAX_R:
         raise ValueError(f"victim kernels take 2 <= R <= {_MAX_R}, got {R}")
-    if not (0 <= jt < J and 0 <= t_cls < C and qt >= -1):
-        raise ValueError(f"victim_step_sharded: jt {jt}, t_cls {t_cls}, qt {qt} outside "
-                         f"J={J}, C={C}")
 
     def empty(n, dt=i32):
         return torch.empty(n, dtype=dt, device=dev)
 
-    def zeros(n):
-        return torch.zeros(n, dtype=i32, device=dev)
-
-    # replicated working state and scratch (the merge's lists of nstar)
-    rep = dict(run_live=s.run_live.clone(), job_alloc=s.job_alloc.clone(),
-               job_occupied=s.job_occupied.clone(), queue_alloc=s.queue_alloc.clone())
+    rep = dict(run_live=s0.run_live.clone(), job_alloc=s0.job_alloc.clone(),
+               job_occupied=s0.job_occupied.clone(), queue_alloc=s0.queue_alloc.clone())
     bufs = dict(
         run_req=c.run_req, run_node=c.run_node, run_job=c.run_job, run_prio=c.run_prio,
         run_rank=c.run_rank, run_evictable=c.run_evictable, job_queue=c.job_queue,
         job_min=c.job_min, queue_deserved=c.queue_deserved, total=c.total, eps=c.eps,
-        task_req=t_req.view(1, R), task_class=torch.full((1,), t_cls, dtype=i32, device=dev),
-        evict_att=torch.full((V,), -1, dtype=i32, device=dev), pipe=zeros(J),
-        pipe_node=empty(1), pipe_att=empty(1), ctl=zeros(16),
-        bucket=empty(V), l_vidx=empty(V), l_ev=empty(V), l_drf=empty(V), l_prop=empty(V),
+        task_req=task_req, task_class=task_class,
+        evict_att=torch.full((V,), -1, dtype=i32, device=dev),
+        pipe_node=torch.full((T,), -1, dtype=i32, device=dev),
+        pipe_att=torch.full((T,), -1, dtype=i32, device=dev),
+        ctl=torch.zeros(16, dtype=i32, device=dev), bucket=empty(V), l_vidx=empty(V),
+        l_ev=empty(V), l_drf=empty(V), l_prop=empty(V),
         flag=torch.zeros(V, dtype=torch.uint8, device=dev), **rep)
-    sizes = dict(V=V, N=N, R=R, T=1, J=J, Q=Q, C=C, NT=N, n0=0, use_gang=use_gang,
-                 use_drf=use_drf, use_prop=use_prop, use_conformance=use_conformance,
-                 order_by_priority=order_by_priority)
+    bufs.update(extra)
     base = VictimArgs()
     for name, t in bufs.items():
         setattr(base, name, t.data_ptr())
-    for name, v in sizes.items():
-        setattr(base, name, int(v))
+    codes = [_KEY_CODE[k] for k in flags.pop("job_key_order")] + [0, 0, 0]
+    if len(codes) > 6:
+        raise ValueError("job_key_order takes at most three keys")
+    vals = dict(V=V, N=N, R=R, T=T, J=J, Q=Q, C=C, NT=N, n0=0, S=S, n_keys=len(codes) - 3,
+                key0=codes[0], key1=codes[1], key2=codes[2])
+    vals.update(sizes)
+    vals.update({k: int(bool(v)) for k, v in flags.items()})
+    for name in _INT_FIELDS:
+        setattr(base, name, int(vals.get(name, 0)))
     base.w_least, base.w_balanced = float(c.w_least), float(c.w_balanced)
-    # each block: its node planes (working copies of the state's), its
-    # grouping of the pool
     blocks, keep = (VictimArgs * L)(), []
-    new_rows = {k: [] for k in ("releasing", "used", "task_count")}
+    rows = {k: [] for k in ("releasing", "used", "task_count")}
     for i in range(L):
         blk = VictimArgs.from_buffer_copy(base)
         planes = {k: getattr(c, k)[i] for k in CONST_NODE_PLANES}
-        for k in new_rows:
-            new_rows[k].append(getattr(s, k)[i].clone())
-            planes[k] = new_rows[k][-1]
-        planes.update(node_off=empty(nb + 1), node_fill=zeros(nb),
+        for k in rows:
+            rows[k].append(getattr(s0, k)[i].clone())
+            planes[k] = rows[k][-1]
+        planes.update(node_off=empty(nb + 1), node_fill=torch.zeros(nb, dtype=i32, device=dev),
                       bucket=empty(V), l_vidx=empty(V), l_ev=empty(V), l_drf=empty(V),
-                      l_prop=empty(V))
+                      l_prop=empty(V), **block_extra(i))
         for k, t in planes.items():
             setattr(blk, k, t.data_ptr())
         blk.N, blk.n0 = nb, (mesh.first + i) * nb
         blocks[i] = blk
         keep.append(planes)
-    send = empty((L, VB_WORDS))
+    state = VictimState(idle=s0.idle, **{k: tuple(v) for k, v in rows.items()}, **rep)
+    return base, blocks, state, bufs, keep
+
+
+def _exchanged(mesh, send: torch.Tensor) -> torch.Tensor:
+    """Every block's rows of ``send`` in block order, over the mesh."""
+    recv = mesh.exchange(send)
+    want = (mesh.size,) + tuple(send.shape[1:])
+    if tuple(recv.shape) != want or recv.dtype != send.dtype:
+        raise ValueError(f"exchange returned {tuple(recv.shape)} {recv.dtype}, expected "
+                         f"{want} {send.dtype}")
+    return recv
+
+
+def victim_sharded_launch(lib, stream, c, s, t_req, t_cls, jt, qt, mesh, nb, *, mode, use_gang,
+                          use_drf, use_prop, use_conformance, order_by_priority):
+    """Validate, launch csrc/victim_step.cu's block entries around the
+    mesh's exchange and return ``VictimStepOut``."""
+    dev = c.run_req.device
+    V, R = c.run_req.shape
+    J = c.job_queue.shape[0]
+    C = c.class_mask[0].shape[0]
+    L, S = mesh.n_local, mesh.size
+    i32 = torch.int32
+    _check("t_req", t_req, torch.float32, (R,), dev)
+    if not (0 <= jt < J and 0 <= t_cls < C and qt >= -1):
+        raise ValueError(f"victim_step_sharded: jt {jt}, t_cls {t_cls}, qt {qt} outside "
+                         f"J={J}, C={C}")
+    flags = dict(use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
+                 use_conformance=use_conformance, order_by_priority=order_by_priority,
+                 job_key_order=())
+    # bufs and keep hold the buffers the launches below read
+    base, blocks, state, bufs, keep = _blocks_args(
+        c, s, t_req.view(1, R), torch.full((1,), t_cls, dtype=i32, device=dev), mesh, nb,
+        dict(pipe=torch.zeros(J, dtype=i32, device=dev)), {}, flags, lambda i: {})
+    send = torch.empty((L, VB_WORDS), dtype=i32, device=dev)
     _raise_on(lib.vtt_victim_blocks_core(blocks, L, int(t_cls), int(jt), int(qt),
                                          _STEP_MODES[mode], send.data_ptr(), stream),
               "vtt_victim_blocks_core")
-    recv = mesh.exchange(send)
-    if tuple(recv.shape) != (S, VB_WORDS) or recv.dtype != i32:
-        raise ValueError(f"exchange returned {tuple(recv.shape)} {recv.dtype}, expected "
-                         f"({S}, {VB_WORDS}) int32")
-    packed = empty(4 + (V + 31) // 32)
-    vsum = empty(R, f32)
+    recv = _exchanged(mesh, send)
+    packed = torch.empty(4 + (V + 31) // 32, dtype=i32, device=dev)
+    vsum = torch.empty(R, dtype=torch.float32, device=dev)
     _raise_on(lib.vtt_victim_blocks_apply(ctypes.byref(base), blocks, L, int(t_cls), int(jt),
                                           int(qt), _STEP_MODES[mode], recv.data_ptr(), S,
                                           packed.data_ptr(), vsum.data_ptr(), stream),
               "vtt_victim_blocks_apply")
-    state = VictimState(idle=s.idle, **{k: tuple(v) for k, v in new_rows.items()}, **rep)
     return VictimStepOut(state, packed)
 
 
@@ -1450,21 +1289,231 @@ def preempt_rounds(c, s0, task_req, task_class, rows_packed, job_pstart, job_pco
 
 
 def rounds_launch(lib, stream, c, s0, task_req, task_class, rows_packed, job_pstart,
-                  job_pcount, job_prio, job_avail0, pipe0, *, use_gang, use_drf,
-                  use_conformance, order_by_priority,
-                  job_key_order=("priority", "gang", "drf"), gang_pipelined=True,
-                  m_chunk=128, p_chunk=ROUNDS_P_CHUNK, k_chunk=8) -> RoundsOut:
-    """Validate, launch csrc/preempt_rounds.cu and return its outputs."""
+                  job_pcount, job_prio, job_avail0, pipe0, **kw) -> RoundsOut:
+    """Validate, run csrc/preempt_rounds.cu as one block and return its
+    outputs."""
+    _check_victim_inputs(c, s0, task_req, task_class)
+    return _whole(rounds_blocks_launch(lib, stream, *_as_one_block(c, s0), task_req, task_class,
+                                       rows_packed, job_pstart, job_pcount, job_prio, job_avail0,
+                                       pipe0, _OneBlock, s0.idle.shape[0], **kw))
+
+
+# --------------------------------------------------------------------------
+# K15a-c: the contention solves on node blocks
+# --------------------------------------------------------------------------
+
+#: bytes of a walk's state on the card (csrc/victim_common.cuh VttWalk)
+WALK_BYTES = 512
+
+
+def _walk_launch(lib, stream, kind, c, s0, task_req, task_class, mesh, nb, extra, sizes,
+                 flags):
+    """K15a / K15b on the card: begin, then per pending attempt every local
+    block's core, the exchange of their records and the step.  Returns the
+    state (node planes as tuples) and the buffers."""
+    dev = c.run_req.device
+    L = mesh.n_local
+    send = torch.empty((L, VB_WORDS), dtype=torch.int32, device=dev)
+    extra = dict(extra, walk=torch.zeros(WALK_BYTES, dtype=torch.uint8, device=dev))
+    base, blocks, state, bufs, keep = _blocks_args(c, s0, task_req, task_class, mesh, nb, extra,
+                                                   sizes, flags, lambda i: {"send": send[i]})
+    raw = bytearray(bytes(blocks))
+    dblk = torch.frombuffer(raw, dtype=torch.uint8).clone().to(dev)
+    pending = ctypes.c_int(0)
+    begin = f"vtt_{kind}_blocks_begin"
+    step = f"vtt_{kind}_blocks_step"
+    _raise_on(getattr(lib, begin)(ctypes.byref(base), blocks, dblk.data_ptr(), L,
+                                  ctypes.byref(pending), stream), begin)
+    while pending.value:
+        _raise_on(lib.vtt_walk_blocks_core(dblk.data_ptr(), L, stream), "vtt_walk_blocks_core")
+        recv = _exchanged(mesh, send)
+        base.recv = recv.data_ptr()
+        _raise_on(getattr(lib, step)(ctypes.byref(base), dblk.data_ptr(), L,
+                                     ctypes.byref(pending), stream), step)
+    return state, bufs
+
+
+def reclaim_solve_sharded(c, s0, task_req, task_class, job_first, job_prio, job_cand0,
+                          queue_live0, pipe0, mesh, *, use_gang, use_prop, use_conformance,
+                          order_by_priority, has_proportion,
+                          job_key_order=("priority", "gang", "drf")) -> ReclaimOut:
+    """``reclaim_solve`` with the node planes of ``c`` and ``s0`` in blocks
+    of rows (K15a): each of ``CONST_NODE_PLANES`` / ``STATE_NODE_PLANES`` a
+    tuple of this process's blocks of ``mesh``, the rest whole.  Returns
+    the one-block solve's outputs bit for bit, the state's node planes again
+    tuples of this process's blocks.
+
+    Replaces volcano_tpu/scheduler/victim_kernels.py:457 as the JAX fast
+    cycle runs it under a mesh with solveMode: batch
+    (volcano_tpu/scheduler/fast_victims.py:148-163).  Bound on the card by
+    latency: each attempt of the walk is a host round trip (the blocks'
+    cores, the exchange of one record a block, the step), far above its
+    bytes.  Design (csrc/reclaim_solve.cu): K8's walk with its state in
+    global memory, K12b's records, merge and owner-row apply.  CPU tensors
+    run ``parallel/sharded.reclaim_blocks_plain``; CUDA tensors launch the
+    kernels or raise."""
+    kw = dict(use_gang=use_gang, use_prop=use_prop, use_conformance=use_conformance,
+              order_by_priority=order_by_priority, has_proportion=has_proportion,
+              job_key_order=tuple(job_key_order))
+    dev = _device_of(c, "reclaim_solve_sharded")
+    nb = _check_blocks(c, s0, mesh, "reclaim_solve_sharded")
+    args = (c, s0, task_req, task_class, job_first, job_prio, job_cand0, queue_live0, pipe0)
+    if dev.type == "cpu":
+        from volcano_tpu_torch.parallel.sharded import reclaim_blocks_plain
+
+        return reclaim_blocks_plain(*args, mesh, nb, **kw)
+    out = reclaim_blocks_launch(*_lib_stream(dev), *args, mesh, nb, **kw)
+    LAUNCHES["reclaim_solve_sharded"] += 1
+    return out
+
+
+def reclaim_blocks_launch(lib, stream, c, s0, task_req, task_class, job_first, job_prio,
+                          job_cand0, queue_live0, pipe0, mesh, nb, *, use_gang, use_prop,
+                          use_conformance, order_by_priority, has_proportion,
+                          job_key_order=("priority", "gang", "drf")) -> ReclaimOut:
+    """Validate, run csrc/reclaim_solve.cu's block entries around the mesh's
+    exchange and return ``ReclaimOut``."""
+    dev = c.run_req.device
+    J, Q = c.job_queue.shape[0], s0.queue_alloc.shape[0]
+    for name, t, dt, shape in (
+        ("job_first", job_first, torch.int32, (J,)), ("job_prio", job_prio, torch.int32, (J,)),
+        ("job_cand0", job_cand0, torch.bool, (J,)), ("queue_live0", queue_live0, torch.bool, (Q,)),
+        ("pipe0", pipe0, torch.int32, (J,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    extra = dict(job_start=job_first, job_prio=job_prio, job_avail=job_cand0.clone(),
+                 queue_live=queue_live0.clone(), pipe=pipe0.clone())
+    flags = dict(use_gang=use_gang, use_drf=False, use_prop=use_prop,
+                 use_conformance=use_conformance, order_by_priority=order_by_priority,
+                 has_proportion=has_proportion, job_key_order=job_key_order)
+    st, bufs = _walk_launch(lib, stream, "reclaim", c, s0, task_req, task_class, mesh, nb, extra,
+                            {}, flags)
+    return ReclaimOut(st, bufs["pipe"], _storm_records(bufs), bufs["ctl"][_VC_ABORT] != 0)
+
+
+def preempt_solve_sharded(c, s0, task_req, task_class, task_attempt, job_start, job_ntasks,
+                          job_prio, job_avail0, under_request, nu, queues_order, nq, pipe0, mesh,
+                          *, use_gang, use_drf, use_conformance, order_by_priority,
+                          job_key_order=("priority", "gang", "drf"),
+                          gang_pipelined=True) -> PreemptOut:
+    """``preempt_solve`` with the node planes in blocks (K15b), as
+    ``reclaim_solve_sharded`` is K8's.
+
+    Replaces volcano_tpu/scheduler/victim_kernels.py:607 under
+    fast_victims.py:148-163, :191-198.  Bound by latency, as K15a.  Design
+    (csrc/preempt_solve.cu): K9's state machine with its state and undo
+    journal in global memory; each process journals its replicated words
+    and its own blocks' node rows."""
+    kw = dict(use_gang=use_gang, use_drf=use_drf, use_conformance=use_conformance,
+              order_by_priority=order_by_priority, job_key_order=tuple(job_key_order),
+              gang_pipelined=gang_pipelined)
+    dev = _device_of(c, "preempt_solve_sharded")
+    nb = _check_blocks(c, s0, mesh, "preempt_solve_sharded")
+    args = (c, s0, task_req, task_class, task_attempt, job_start, job_ntasks, job_prio,
+            job_avail0, under_request, nu, queues_order, nq, pipe0)
+    if dev.type == "cpu":
+        from volcano_tpu_torch.parallel.sharded import preempt_blocks_plain
+
+        return preempt_blocks_plain(*args, mesh, nb, **kw)
+    out = preempt_blocks_launch(*_lib_stream(dev), *args, mesh, nb, **kw)
+    LAUNCHES["preempt_solve_sharded"] += 1
+    return out
+
+
+def preempt_blocks_launch(lib, stream, c, s0, task_req, task_class, task_attempt, job_start,
+                          job_ntasks, job_prio, job_avail0, under_request, nu, queues_order, nq,
+                          pipe0, mesh, nb, *, use_gang, use_drf, use_conformance,
+                          order_by_priority, job_key_order=("priority", "gang", "drf"),
+                          gang_pipelined=True) -> PreemptOut:
+    """Validate, run csrc/preempt_solve.cu's block entries around the mesh's
+    exchange and return ``PreemptOut``."""
+    dev = c.run_req.device
+    T = task_req.shape[0]
+    J, Q = c.job_queue.shape[0], queues_order.shape[0]
+    V, R = c.run_req.shape
+    for name, t, dt, shape in (
+        ("task_attempt", task_attempt, torch.bool, (T,)),
+        ("job_start", job_start, torch.int32, (J,)), ("job_ntasks", job_ntasks, torch.int32, (J,)),
+        ("job_prio", job_prio, torch.int32, (J,)), ("job_avail0", job_avail0, torch.bool, (J,)),
+        ("under_request", under_request, torch.int32, (J,)),
+        ("queues_order", queues_order, torch.int32, (Q,)), ("pipe0", pipe0, torch.int32, (J,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    # the undo journal, as preempt_launch sizes it
+    jr_cap = T * (4 * R + 6) + V * (2 * R + 4) + 64
+    extra = dict(
+        task_attempt=task_attempt, job_start=job_start, job_ntasks=job_ntasks,
+        job_prio=job_prio, under_request=under_request, queues_order=queues_order,
+        job_avail=job_avail0.clone(), pipe=pipe0.clone(),
+        cursor=torch.zeros(J, dtype=torch.int32, device=dev),
+        jr_addr=torch.empty(jr_cap, dtype=torch.int64, device=dev),
+        jr_old=torch.empty(jr_cap, dtype=torch.int32, device=dev),
+    )
+    flags = dict(use_gang=use_gang, use_drf=use_drf, use_prop=False,
+                 use_conformance=use_conformance, order_by_priority=order_by_priority,
+                 gang_pipelined=gang_pipelined, job_key_order=job_key_order)
+    st, bufs = _walk_launch(lib, stream, "preempt", c, s0, task_req, task_class, mesh, nb, extra,
+                            dict(nu=int(nu), nq=int(nq), jr_cap=jr_cap), flags)
+    ctl = bufs["ctl"]
+    if int(ctl[_VC_ERROR]):
+        raise RuntimeError("preempt_solve_sharded: undo journal overflow")
+    return PreemptOut(st, bufs["pipe"], _storm_records(bufs), ctl[_VC_ATT_TOTAL],
+                      ctl[_VC_LAST_V], ctl[_VC_ANY] != 0, ctl[_VC_ABORT] != 0)
+
+
+def preempt_rounds_sharded(c, s0, task_req, task_class, rows_packed, job_pstart, job_pcount,
+                           job_prio, job_avail0, pipe0, mesh, *, use_gang, use_drf,
+                           use_conformance, order_by_priority,
+                           job_key_order=("priority", "gang", "drf"), gang_pipelined=True,
+                           m_chunk=128, p_chunk=ROUNDS_P_CHUNK, k_chunk=8) -> RoundsOut:
+    """``preempt_rounds`` with the node planes in blocks (K15c), as
+    ``reclaim_solve_sharded`` is K8's.
+
+    Replaces volcano_tpu/scheduler/victim_kernels.py:830 under
+    fast_victims.py:148-163.  Bound by its launches, barriers and two host
+    round trips a round (the exchanges).  Design (csrc/preempt_rounds.cu,
+    the same code as K10): per block the candidate analysis, the tile pass
+    and records, the cells' grants and the victims; replicated the rank,
+    the proposals from the gathered records and the accept; the blocks'
+    victim sums in a second exchange a round.  CPU tensors run
+    ``parallel/sharded.rounds_blocks_plain``."""
+    kw = dict(use_gang=use_gang, use_drf=use_drf, use_conformance=use_conformance,
+              order_by_priority=order_by_priority, job_key_order=tuple(job_key_order),
+              gang_pipelined=gang_pipelined, m_chunk=m_chunk, p_chunk=p_chunk, k_chunk=k_chunk)
+    dev = _device_of(c, "preempt_rounds_sharded")
+    nb = _check_blocks(c, s0, mesh, "preempt_rounds_sharded")
+    args = (c, s0, task_req, task_class, rows_packed, job_pstart, job_pcount, job_prio,
+            job_avail0, pipe0)
+    if dev.type == "cpu":
+        from volcano_tpu_torch.parallel.sharded import rounds_blocks_plain
+
+        return rounds_blocks_plain(*args, mesh, nb, **kw)
+    out = rounds_blocks_launch(*_lib_stream(dev), *args, mesh, nb, **kw)
+    LAUNCHES["preempt_rounds_sharded"] += 1
+    return out
+
+
+def rounds_blocks_launch(lib, stream, c, s0, task_req, task_class, rows_packed, job_pstart,
+                         job_pcount, job_prio, job_avail0, pipe0, mesh, nb, *, use_gang,
+                         use_drf, use_conformance, order_by_priority,
+                         job_key_order=("priority", "gang", "drf"), gang_pipelined=True,
+                         m_chunk=128, p_chunk=ROUNDS_P_CHUNK, k_chunk=8) -> RoundsOut:
+    """Validate, run csrc/preempt_rounds.cu on the local blocks around the
+    mesh's two exchanges a round and return ``RoundsOut`` (node planes as
+    tuples of this process's blocks)."""
     dev = c.run_req.device
     T = task_req.shape[0]
     J, Q = c.job_queue.shape[0], s0.queue_alloc.shape[0]
     V, R = c.run_req.shape
-    N = s0.idle.shape[0]
+    L, S = mesh.n_local, mesh.size
+    N = nb * S
     M, P, K = min(m_chunk, J), p_chunk, min(k_chunk, N)
     F = M * P
+    W = 5 + R
     for name, t, dt, shape in (
         ("rows_packed", rows_packed, torch.int32, (T,)),
-        ("job_pstart", job_pstart, torch.int32, (J,)), ("job_pcount", job_pcount, torch.int32, (J,)),
+        ("job_pstart", job_pstart, torch.int32, (J,)),
+        ("job_pcount", job_pcount, torch.int32, (J,)),
         ("job_prio", job_prio, torch.int32, (J,)), ("job_avail0", job_avail0, torch.bool, (J,)),
         ("pipe0", pipe0, torch.int32, (J,)),
     ):
@@ -1473,33 +1522,56 @@ def rounds_launch(lib, stream, c, s0, task_req, task_class, rows_packed, job_pst
         raise ValueError(f"rounds kernel takes p_chunk, k_chunk in [1, 32] and F = m_chunk "
                          f"* p_chunk <= 16384 (the accept sort's shared memory), got {P}, "
                          f"{K}, {F}")
-    # the score pass runs over node tiles: any N
-    TB = -(-N // ROUNDS_TILE)
+    # the score pass runs over node tiles of each block: any N
+    TB = -(-nb // ROUNDS_TILE)
+    # a block's partial row: victims' sums per job and queue, per-job
+    # counts, the victim count, the evicted rows' mask words in pairs
+    W2 = J * R + Q * R + J + 1 + -(-(-(-V // 32)) // 2)
     i32 = dict(dtype=torch.int32, device=dev)
     f32, f64 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.float64, device=dev)
+    u8 = dict(dtype=torch.uint8, device=dev)
+    send = torch.empty((L, M * K * W), **i32)
+    part = torch.zeros((L, W2), **f64)
     extra = dict(
         rows_packed=rows_packed, job_pstart=job_pstart, job_pcount=job_pcount,
         job_prio=job_prio, job_avail=job_avail0, pipe=pipe0.clone(),
-        cursor=torch.zeros(J, **i32),
-        dropped=torch.zeros(J, dtype=torch.bool, device=dev),
+        cursor=torch.zeros(J, **i32), dropped=torch.zeros(J, dtype=torch.bool, device=dev),
         job_off=torch.empty(J + 1, **i32), job_fill=torch.zeros(J, **i32),
         job_bucket=torch.empty(V, **i32), cnt_in_job=torch.zeros(V, **i32),
-        cap_flat=torch.empty(N * Q * R, **f32), cons_flat=torch.empty(N * Q * R, **f32),
-        cons_node=torch.empty(N * R, **f64), placed=torch.empty(N, **i32),
-        vict_job=torch.empty(J * R, **f64), vict_cnt=torch.empty(J, **i32),
-        vict_q=torch.empty(Q * R, **f64), act_q=torch.empty(Q, **i32),
-        ls_q=torch.empty(Q, **i32), job_active=torch.empty(J, dtype=torch.uint8, device=dev),
-        job_keys=torch.zeros(J * 4, **f32), job_rank=torch.empty(J, **i32),
-        sel=torch.empty(M, **i32), p_node=torch.empty(F, **i32), p_t=torch.empty(F, **i32),
-        p_job=torch.empty(F, **i32), p_flags=torch.empty(F, dtype=torch.uint8, device=dev),
-        t_val=torch.empty(M * TB * K, **f32), t_idx=torch.empty(M * TB * K, **i32),
-        t_any=torch.empty(M * TB, dtype=torch.uint8, device=dev),
+        act_q=torch.empty(Q, **i32), ls_q=torch.empty(Q, **i32),
+        job_active=torch.empty(J, **u8), job_keys=torch.zeros(J * 4, **f32),
+        job_rank=torch.empty(J, **i32), sel=torch.empty(M, **i32),
+        p_node=torch.empty(F, **i32), p_t=torch.empty(F, **i32), p_job=torch.empty(F, **i32),
+        p_flags=torch.empty(F, **u8), p_rec=torch.empty(F * W, **i32),
+        p_key=torch.empty(F, dtype=torch.int64, device=dev), recv=send, part=part,
     )
+
+    def block_extra(i):
+        return dict(cap_flat=torch.empty(nb * Q * R, **f32),
+                    cons_flat=torch.empty(nb * Q * R, **f32),
+                    cons_node=torch.empty(nb * R, **f64), placed=torch.empty(nb, **i32),
+                    t_val=torch.empty(M * TB * K, **f32), t_idx=torch.empty(M * TB * K, **i32),
+                    t_any=torch.empty(M * TB, **u8), send=send[i], part=part[i])
+
     flags = dict(use_gang=use_gang, use_drf=use_drf, use_prop=False,
                  use_conformance=use_conformance, order_by_priority=order_by_priority,
                  gang_pipelined=gang_pipelined, job_key_order=job_key_order)
-    st, bufs = _victim_launch(lib, stream, "vtt_preempt_rounds", c, s0, task_req, task_class,
-                              extra, dict(M=M, P=P, K=K, F=F, TB=TB, TILE=ROUNDS_TILE), flags)
-    ctl = bufs["ctl"]
-    return RoundsOut(st, bufs["pipe"], _storm_records(bufs), ctl[_VC_ATT_TOTAL],
-                     ctl[_VC_LAST_V], ctl[_VC_ANY] != 0, bufs["cursor"], bufs["dropped"])
+    base, blocks, st, bufs, keep = _blocks_args(
+        c, s0, task_req, task_class, mesh, nb, extra,
+        dict(M=M, P=P, K=K, F=F, TB=TB, TILE=ROUNDS_TILE, W=W, W2=W2), flags, block_extra)
+    ctl = (ctypes.c_int32 * 12)()
+    _raise_on(lib.vtt_rounds_begin(ctypes.byref(base), blocks, L, ctl, stream),
+              "vtt_rounds_begin")
+    while ctl[_VC_PROGRESS] and ctl[_VC_ACTIVE] > 0 and ctl[_VC_ITERS] < J + 8:
+        _raise_on(lib.vtt_rounds_candidates(ctypes.byref(base), blocks, L, stream),
+                  "vtt_rounds_candidates")
+        recv = _exchanged(mesh, send)
+        base.recv = recv.data_ptr()
+        _raise_on(lib.vtt_rounds_decide(ctypes.byref(base), blocks, L, stream),
+                  "vtt_rounds_decide")
+        recv2 = _exchanged(mesh, part)
+        base.part = recv2.data_ptr()
+        _raise_on(lib.vtt_rounds_finish(ctypes.byref(base), ctl, stream), "vtt_rounds_finish")
+    ctl_dev = bufs["ctl"]
+    return RoundsOut(st, bufs["pipe"], _storm_records(bufs), ctl_dev[_VC_ATT_TOTAL],
+                     ctl_dev[_VC_LAST_V], ctl_dev[_VC_ANY] != 0, bufs["cursor"], bufs["dropped"])
