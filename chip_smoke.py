@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --profile [OUT.json]  # first a profiler pass
+    python3 chip_smoke.py --split    # only the batched solve's stage split
 
 Phases, each fatal on failure:
 
@@ -13,7 +14,9 @@ Phases, each fatal on failure:
    PyTorch version on the same card and inputs, with CUDA-event times:
    water_fill and allocate_solve_batch at build_sim_args(10000, 100000,
    5000), with the packed decision buffer the solve writes and its one
-   fetch to the host; allocate_solve at
+   fetch to the host, and the batched solve's split (batch_split: a
+   torch.profiler pass over one solve, device ms by kernel of
+   csrc/allocate_batch.cu, the rounds and the host gap); allocate_solve at
    build_sim_args(10000, 4000, 200); then a sweep of small solves over
    seeds and policies (classes, pod caps, releasing capacity, rollbacks,
    build_portsel_args host ports and pod (anti)affinity, and
@@ -94,7 +97,7 @@ Phases, each fatal on failure:
    solve on local meshes of 1, 2, 4 and 8 blocks and its plain version on
    the cell's 4 (each equal bit for bit to the one-block run), and a one-rank NCCL
    process group (FileStore rendezvous) running four blocks
-   over all_gather_into_tensor;
+   over all_gather_into_tensor; the 4-block solve's split (batch_split);
 18. e2e cfg6r-be-mesh — the cfg6r-be store under full_conf("cuda") with
    mesh "4" and solve_mode "batch": every preemptor attempt is one K12b
    (victim_step_sharded) launch on four node blocks.  Three cycles,
@@ -138,11 +141,12 @@ Phases, each fatal on failure:
    whole cfg6 storm (2,000 attempts, phase 9's inputs) on four blocks
    against the one-block K9.
 
-With ``--profile``, a torch.profiler pass over one config-5 batch solve
-and one config-5 cycle, one batched solve at cfg9's shape on four node
-blocks and one cfg9 cycle runs after the build: device time by kernel and
-the device's idle share of the cycles (also written to OUT.json when
-given).
+With ``--profile``, a torch.profiler pass runs after the build: the
+batched solve's split (``--split``: K3 at config 5 and the 4-block solve at
+cfg9's shape, each against its plain version), then one config-5 cycle and
+one cfg9 cycle: device time by kernel and the device's idle share of the
+cycles (also written to OUT.json when given).  ``--split`` runs the build
+and that split alone.
 
 Phase 20 runs right after phase 17, on phase 16's captured inputs; the
 cfg9 objects are then released before phases 18, 19, 21, 22 and 23.
@@ -427,13 +431,15 @@ def phase_kernels():
     io = nbytes(*solve_in.values()) + nbytes(*out_k[:10])
     n_sort_keys = len(opts["job_key_order"]) + 2 + int(opts["use_proportion"])
     b, kind = bound_ms(io, _batch_solve_ops(out_k, a, M, P, n_sort_keys))
+    split = batch_split("K3 at config 5", lambda: K.allocate_solve_batch(*args, **opts))
     rows.append(dict(name="allocate_solve_batch", route="cuda",
                      source="volcano_tpu_torch/csrc/allocate_batch.cu",
                      replaces="volcano_tpu/scheduler/kernels.py:491",
                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                     bound_by=kind, library_ms=None))
+                     bound_by=kind, library_ms=None, rounds=n_rounds,
+                     ms_per_round=ms / max(n_rounds, 1), split=split))
     log(f"[kernels] allocate_solve_batch: {ms:.3f} ms (plain {plain_ms:.3f} ms, "
-        f"bound {b:.4f} ms by {kind})")
+        f"bound {b:.4f} ms by {kind}), {ms / max(n_rounds, 1):.4f} ms a round")
 
     # K4 is no launch of its own: the solves write their decisions straight
     # into one int32 [3T + J] buffer, which the cycle fetches once
@@ -2196,6 +2202,12 @@ def phase_sharded_kernels(captured, launches):
         if store_path.exists():
             store_path.unlink()
 
+    mesh = S.LocalMesh(int(CFG9_MESH), torch.device("cuda"))
+    planes = {k: S.split_rows(mesh, k, inputs[k]) for k in K.NODE_PLANES}
+    split = batch_split(f"K12a at cfg9, local mesh of {CFG9_MESH} blocks",
+                        lambda: S.sharded_solve(mesh, planes, repl, w_least, w_balanced,
+                                                **policy))
+    del planes
     io = nbytes(*inputs.values()) + nbytes(*ref[:10])
     n_sort_keys = len(policy["job_key_order"]) + 2 + int(policy["use_proportion"])
     M, P = min(512, J), 16
@@ -2210,7 +2222,8 @@ def phase_sharded_kernels(captured, launches):
         cell=f"cfg9 captured inputs, local mesh of {CFG9_MESH} blocks",
         ms_by_blocks={str(k): v for k, v in ms.items()},
         plain_ms_by_blocks={str(k): v for k, v in plain_ms.items()}, nccl_group_ms=gms,
-        one_block_k3_ms=k3_ms, one_block_k3_plain_ms=k3_plain_ms, rounds=rounds)}
+        one_block_k3_ms=k3_ms, one_block_k3_plain_ms=k3_plain_ms, rounds=rounds,
+        ms_per_round=ms[int(CFG9_MESH)] / max(rounds, 1), split=split)}
 
 
 # ---- the victim solve on node blocks (K12b) and the multi-controller cycle (K13)
@@ -2628,108 +2641,134 @@ def _device_ms(events):
     return out
 
 
-def phase_profile(out_path=None):
-    """torch.profiler over one config-5 batch solve and one config-5 cycle,
-    then one batched solve at cfg9's shape (build_sim_args(100,000,
-    1,000,000, 50,000)) on a local mesh of four blocks and one cfg9 cycle
-    with mesh "4": device time by kernel and the device's busy share of the
-    cycle walls; the numbers also go to ``out_path`` as JSON when given."""
+def _batch_stage(name):
+    """The stage of csrc/allocate_batch.cu a profiler kernel name belongs
+    to (its vtt_batch_* kernel), "ps_init" for K5's, else "other"."""
+    import re
+
+    m = re.search(r"vtt_batch_([a-z_]+)", name)
+    if m:
+        return m.group(1)
+    return "ps_init" if "vtt_ps_init" in name else "other"
+
+
+def batch_split(label, run):
+    """torch.profiler over one batched solve (``run()`` returns its
+    SolveOut, warmed up first): device ms and launches by kernel of
+    csrc/allocate_batch.cu ("other": the wrapper's copies and fills and
+    the go flag's fetch), the rounds, and the host gap, the unprofiled
+    wall (host clock, synchronized) less the profiled device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from volcano_tpu_torch.scheduler import kernels as K
-    from volcano_tpu_torch.scheduler.conf import full_conf
-    from volcano_tpu_torch.scheduler.scheduler import Scheduler
-    from volcano_tpu_torch.scheduler.simargs import build_sim_args
-
-    dev = torch.device("cuda")
-    a = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-         for k, v in build_sim_args(10_000, 100_000, 5_000).items()}
-    des = K.water_fill(a["queue_weight"], a["queue_request"], a["total"], a["eps"],
-                       a["queue_participates"])
-    args = [des if k == "queue_deserved" else a[k] for k in K._SOLVE_ARGS] + [1.0, 1.0]
-    K.allocate_solve_batch(*args)
+    run()
     torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = K.allocate_solve_batch(*args)
+        run()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    solve = _device_ms(prof.key_averages())
-    rounds = int(out.steps)
-    busy = sum(ms for _, ms in solve.values())
-    log(f"[profile] batch solve: wall {wall * 1e3:.3f} ms, {rounds} rounds, "
-        f"device {busy:.3f} ms ({busy / (wall * 1e3):.3f} busy)")
-    for name, (calls, ms) in sorted(solve.items(), key=lambda kv: -kv[1][1]):
-        log(f"[profile]   {name}: {calls} calls, {ms:.3f} ms")
+        pwall = (time.perf_counter() - t0) * 1e3
+    stages = {}
+    for name, (calls, ms) in _device_ms(prof.key_averages()).items():
+        if name.startswith(("aten::", "cuda")):
+            continue  # host rows: their kernels have rows of their own
+        st = _batch_stage(name)
+        c, m = stages.get(st, (0, 0.0))
+        stages[st] = (c + calls, m + ms)
+    rounds = max(int(out.steps), 1)
+    device = sum(ms for _, ms in stages.values())
+    gap = wall - device
+    log(f"[split] {label}: {rounds} rounds, wall {wall:.3f} ms ({wall / rounds:.4f} ms a "
+        f"round), device {device:.3f} ms, host gap {gap:.3f} ms ({gap / wall:.3f} of the "
+        f"wall); wall under the profiler {pwall:.3f} ms")
+    for st, (c, ms) in sorted(stages.items(), key=lambda kv: -kv[1][1]):
+        log(f"[split]   {st}: {c} launches, {ms:.3f} ms ({ms / max(device, 1e-9):.3f} of the "
+            f"device time), {ms / rounds:.4f} ms a round")
+    return dict(rounds=rounds, wall_ms=wall, device_ms=device, host_gap_ms=gap,
+                profiled_wall_ms=pwall,
+                stages={st: dict(launches=c, ms=ms) for st, (c, ms) in stages.items()})
 
-    store = build_cfg5_store()
-    sched = Scheduler(store, conf=full_conf("cuda"))
-    sched.prewarm()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        sched.run_once()
-        torch.cuda.synchronize()
-        cwall = time.perf_counter() - t0
-    cycle = _device_ms(prof.key_averages())
-    cbusy = sum(ms for _, ms in cycle.values())
-    phases = dict(sched.fast_cycle.phases)
-    log(f"[profile] cycle: wall {cwall:.3f} s, device {cbusy:.3f} ms, idle share "
-        f"{1 - cbusy / (cwall * 1e3):.5f}, phases {json.dumps(phases)}")
-    del sched, store
+
+def phase_split():
+    """The per-stage split of the batched solve alone (``--split``): K3 at
+    config 5 (build_sim_args(10,000, 100,000, 5,000)) and the 4-block
+    sharded solve at cfg9's shape (build_sim_args(100,000, 1,000,000,
+    50,000, seed=9)), each from batch_split."""
+    import torch
 
     from volcano_tpu_torch.parallel import sharded as S
+    from volcano_tpu_torch.scheduler import kernels as K
+    from volcano_tpu_torch.scheduler.simargs import build_sim_args
 
-    a = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-         for k, v in build_sim_args(100_000, 1_000_000, 50_000, seed=9).items()}
-    des = K.water_fill(a["queue_weight"], a["queue_request"], a["total"], a["eps"],
-                       a["queue_participates"])
-    mesh = S.LocalMesh(int(CFG9_MESH), dev)
-    planes = {k: S.split_rows(mesh, k, a[k]) for k in K.NODE_PLANES}
-    repl = {k: (des if k == "queue_deserved" else a[k]) for k in K._SOLVE_ARGS
-            if k not in K.NODE_PLANES}
-    S.sharded_solve(mesh, planes, repl, 1.0, 1.0)
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        out9 = S.sharded_solve(mesh, planes, repl, 1.0, 1.0)
-        torch.cuda.synchronize()
-        wall9 = time.perf_counter() - t0
-    solve9 = _device_ms(prof.key_averages())
-    busy9 = sum(ms for _, ms in solve9.values())
-    log(f"[profile] cfg9-shape sharded solve ({mesh}): wall {wall9 * 1e3:.3f} ms, "
-        f"{int(out9.steps)} rounds, device {busy9:.3f} ms ({busy9 / (wall9 * 1e3):.3f} busy)")
-    for name, (calls, ms) in sorted(solve9.items(), key=lambda kv: -kv[1][1]):
-        log(f"[profile]   {name}: {calls} calls, {ms:.3f} ms")
-    del a, planes, repl, out9
+    res = {}
+    for key, label, shape, blocks in (
+        ("K3 cfg5", "K3 at config 5", (10_000, 100_000, 5_000, 0), None),
+        ("K12a cfg9-shape", f"K12a at cfg9's shape, {CFG9_MESH} blocks",
+         (100_000, 1_000_000, 50_000, 9), int(CFG9_MESH)),
+    ):
+        n, t, j, seed = shape
+        si = _solve_inputs_np(build_sim_args(n, t, j, seed=seed))
+        if blocks is None:
+            args = [si[k] for k in K._SOLVE_ARGS] + [1.0, 1.0]
 
-    from volcano_tpu_torch.scheduler.conf import full_conf as _full
+            def run(args=args):
+                return K.allocate_solve_batch(*args)
+        else:
+            mesh = S.LocalMesh(blocks, torch.device("cuda"))
+            planes = {k: S.split_rows(mesh, k, si[k]) for k in K.NODE_PLANES}
+            repl = {k: si[k] for k in K._SOLVE_ARGS if k not in K.NODE_PLANES}
 
-    store = build_cfg9_store()
-    conf = _full("cuda")
-    conf.mesh = CFG9_MESH
-    sched = Scheduler(store, conf=conf)
-    sched.prewarm()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        sched.run_once()
-        torch.cuda.synchronize()
-        cwall9 = time.perf_counter() - t0
-    cycle9 = _device_ms(prof.key_averages())
-    cbusy9 = sum(ms for _, ms in cycle9.values())
-    phases9 = dict(sched.fast_cycle.phases)
-    log(f"[profile] cfg9 cycle: wall {cwall9:.3f} s, device {cbusy9:.3f} ms, idle share "
-        f"{1 - cbusy9 / (cwall9 * 1e3):.5f}, phases {json.dumps(phases9)}")
+            def run(mesh=mesh, planes=planes, repl=repl):
+                return S.sharded_solve(mesh, planes, repl, 1.0, 1.0)
+        res[key] = batch_split(label, run)
+        res[key]["max_abs_err"] = _compare(label, run(), K.allocate_solve_batch_plain(
+            **si, w_least=1.0, w_balanced=1.0))
+        del si, run
+    return res
+
+
+def phase_profile(out_path=None):
+    """torch.profiler over the batched solve (phase_split: K3 at config 5,
+    the 4-block solve at cfg9's shape), then one config-5 cycle and one
+    cfg9 cycle with mesh "4": device time by kernel and the device's idle
+    share of the cycle walls; the numbers also go to ``out_path`` as JSON
+    when given."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    res = {"split": phase_split()}
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for key, build, mesh in (("cycle", build_cfg5_store, None),
+                             ("cfg9_cycle", build_cfg9_store, CFG9_MESH)):
+        store = build()
+        conf = full_conf("cuda")
+        if mesh:
+            conf.mesh = mesh
+        sched = Scheduler(store, conf=conf)
+        sched.prewarm()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        device = _device_ms(prof.key_averages())
+        busy = sum(ms for _, ms in device.values())
+        phases = dict(sched.fast_cycle.phases)
+        log(f"[profile] {key}: wall {wall:.3f} s, device {busy:.3f} ms, idle share "
+            f"{1 - busy / (wall * 1e3):.5f}, phases {json.dumps(phases)}")
+        res[key] = {"wall_s": wall, "device": device, "phases": phases}
+        del sched, store
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         with open(out_path, "w") as f:
-            json.dump({"solve_wall_ms": wall * 1e3, "rounds": rounds, "solve_device": solve,
-                       "cycle_wall_s": cwall, "cycle_device": cycle, "cycle_phases": phases,
-                       "cfg9_solve_wall_ms": wall9 * 1e3, "cfg9_solve_device": solve9,
-                       "cfg9_cycle_wall_s": cwall9, "cfg9_cycle_device": cycle9,
-                       "cfg9_cycle_phases": phases9},
-                      f, indent=1)
+            json.dump(res, f, indent=1)
 
 
 def phase_contention_mesh():
@@ -2946,6 +2985,10 @@ def main(argv):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     mark = _phase_clock()
     smi = phase_build()
+    if "--split" in argv:
+        log(smi)
+        log(json.dumps({"split": phase_split()}))
+        return 0
     if "--profile" in argv:
         i = argv.index("--profile") + 1
         phase_profile(argv[i] if i < len(argv) else None)

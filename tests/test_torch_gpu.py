@@ -21,8 +21,10 @@ from volcano_tpu_torch.scheduler import victim_kernels as VK
 from volcano_tpu_torch.scheduler.conf import full_conf
 from volcano_tpu_torch.scheduler.scheduler import Scheduler
 from volcano_tpu_torch.scheduler.simargs import (
+    BATCH_EDGE_CASES,
     PORTSEL_KEYS,
     add_releasing,
+    build_batch_edge_args,
     build_portsel_args,
     build_reclaim_abort_sim,
     build_sim_args,
@@ -594,14 +596,29 @@ def test_gpu_object_path_equals_cpu(seed):
 # -- the lifted shape caps, and the node-sharded solve (K12a) -------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("seed,releasing", [(0, False), (1, True)])
-@pytest.mark.parametrize("with_portsel", [False, True])
-def test_gpu_batch_solve_over_node_tiles_matches_plain(seed, releasing, with_portsel,
+@pytest.mark.parametrize("seed,releasing,with_portsel,case", [
+    (0, False, False, None), (0, False, True, None), (1, True, False, None),
+    (1, True, True, None),
+] + [(0, False, False, case) for case in BATCH_EDGE_CASES])
+def test_gpu_batch_solve_over_node_tiles_matches_plain(seed, releasing, with_portsel, case,
                                                        monkeypatch):
     """K3 with tiles of 4 node rows (four tiles a solve): the tile top-Ks
-    merge into the exact top-K, so the decisions equal the plain version."""
+    merge into the exact top-K, so the decisions equal the plain version.
+    ``case``: one of simargs.build_batch_edge_args's shapes of the chunked
+    select and the spread accept (more jobs than a select chunk, fewer
+    active jobs than M, priority 0, winners in every queue, one long node
+    segment, a dropped gang's rollback)."""
     dev = _cuda()
     monkeypatch.setattr(K, "BATCH_TILE", 4)
+    if case is not None:
+        a, opts = build_batch_edge_args(case, seed)
+        a = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+        des = K.water_fill(*_water_fill_inputs(a))
+        args = {k: (des if k == "queue_deserved" else a[k]) for k in K._SOLVE_ARGS}
+        _assert_same(K.allocate_solve_batch(*args.values(), 1.0, 1.0, **opts),
+                     K.allocate_solve_batch_plain(**args, w_least=1.0, w_balanced=1.0,
+                                                  **opts))
+        return
     a = _args(dev, seed, releasing)
     des = K.water_fill(*_water_fill_inputs(a))
     args = {k: (des if k == "queue_deserved" else a[k]) for k in K._SOLVE_ARGS}
@@ -649,27 +666,33 @@ def test_gpu_many_queues_match_plain():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_blocks", [1, 2, 4, 8])
-@pytest.mark.parametrize("seed", range(2))
-def test_gpu_sharded_cycle_local_mesh_matches_plain(n_blocks, seed, monkeypatch):
+@pytest.mark.parametrize("n_blocks,seed,case", [
+    (n, seed, None) for n in (1, 2, 4, 8) for seed in range(2)
+] + [(n, 0, case) for n in (1, 2, 4) for case in BATCH_EDGE_CASES])
+def test_gpu_sharded_cycle_local_mesh_matches_plain(n_blocks, seed, case, monkeypatch):
     """K12a on a local mesh: the sharded cycle on the card equals its plain
-    version on the same blocks and the one-block K3, bit for bit."""
+    version on the same blocks and the one-block K3, bit for bit; ``case``
+    one of simargs.build_batch_edge_args's shapes."""
     from volcano_tpu_torch.parallel import sharded as S
 
     dev = _cuda()
     monkeypatch.setattr(K, "BATCH_TILE", 8)
-    args = build_sim_args(64, 256, 32, n_queues=2, seed=seed)
-    if seed:
-        add_releasing(args, seed)
+    if case is None:
+        args = build_sim_args(64, 256, 32, n_queues=2, seed=seed)
+        if seed:
+            add_releasing(args, seed)
+        opts = dict(m_chunk=8, p_chunk=4)
+    else:
+        args, opts = build_batch_edge_args(case, seed)
     mesh = S.LocalMesh(n_blocks, dev)
-    fn, dargs = S.make_sharded_cycle(mesh, args, m_chunk=8, p_chunk=4)
+    fn, dargs = S.make_sharded_cycle(mesh, args, **opts)
     S.reset_launches()
     out_k = fn(dargs)
     assert S.LAUNCHES["sharded_cycle"] == 1
     cpu = S.LocalMesh(n_blocks, "cpu")
-    pfn, pargs = S.make_sharded_cycle(cpu, args, m_chunk=8, p_chunk=4)
+    pfn, pargs = S.make_sharded_cycle(cpu, args, **opts)
     out_p = pfn(pargs)
-    ref = S.run_cycle_reference(args, m_chunk=8, p_chunk=4, device=dev)
+    ref = S.run_cycle_reference(args, device=dev, **opts)
     for name, k, p, r in zip(S.OUTPUT_NAMES, S.fetch_outputs(out_k, mesh),
                              S.fetch_outputs(out_p, cpu), S.fetch_outputs(ref)):
         np.testing.assert_array_equal(k, p, err_msg=name)

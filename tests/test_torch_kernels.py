@@ -21,7 +21,12 @@ import torch
 from volcano_tpu.scheduler import kernels as JK
 from volcano_tpu.scheduler.simargs import build_sim_args as jax_build_sim_args
 from volcano_tpu_torch.scheduler import kernels as TK
-from volcano_tpu_torch.scheduler.simargs import add_releasing, build_sim_args
+from volcano_tpu_torch.scheduler.simargs import (
+    BATCH_EDGE_CASES,
+    add_releasing,
+    build_batch_edge_args,
+    build_sim_args,
+)
 
 # the plain versions are many small ops: one intra-op thread each, so that
 # parallel test workers do not oversubscribe the cores
@@ -126,6 +131,40 @@ def test_batch_solve_small_chunks_matches_jax(seed):
     oj, ot = _run_both(a, batch=True, m_chunk=4, p_chunk=3)
     assert int(ot.steps) > 2
     _assert_same(oj, ot)
+
+
+def _check_edge_shape(case, a, opts, out):
+    """The case reached the shape it names."""
+    F = min(opts.get("m_chunk", 512), a["job_queue"].shape[0]) * opts.get("p_chunk", 16)
+    seq, node = out.task_seq.numpy(), out.task_node.numpy()
+    first = (seq >= 0) & (seq < F)
+    n_jobs = int((a["job_queue"] >= 0).sum())
+    if case == "tied_chunks":
+        assert n_jobs > TK.SEL_CHUNK and int((seq >= 0).sum()) == n_jobs
+    elif case == "few_active":
+        assert int(a["job_schedulable"].sum()) < opts["m_chunk"]
+    elif case == "prio_zero":
+        assert (a["job_prio"][:n_jobs] == 0).any() and (a["job_prio"][:n_jobs] > 0).any()
+    elif case == "many_queues":
+        q_first = set(a["job_queue"][a["task_job"][first]].tolist())
+        assert q_first == set(a["job_queue"][:n_jobs].tolist()) and len(q_first) > 20
+    elif case == "hot_node":
+        assert int((first & (node == 0)).sum()) > 2 * opts["p_chunk"]
+    elif case == "drop_rollback":
+        dropped = np.nonzero(out.dropped.numpy())[0]
+        assert dropped.size and int(out.steps) > 2
+        assert (out.task_kind.numpy()[a["task_job"] == dropped[0]] == 0).all()
+
+
+@pytest.mark.parametrize("case", BATCH_EDGE_CASES)
+def test_batch_solve_edge_shapes_match_jax(case):
+    """The shapes the batched solve's chunked select and spread accept must
+    get right (simargs.build_batch_edge_args): the plain version against
+    JAX with the exact top-K."""
+    a, opts = build_batch_edge_args(case)
+    oj, ot = _run_both(a, batch=True, **opts)
+    _assert_same(oj, ot)
+    _check_edge_shape(case, a, opts, ot)
 
 
 def test_releasing_capacity_pipelines():

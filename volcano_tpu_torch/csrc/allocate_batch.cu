@@ -11,18 +11,29 @@
 // winners, and drop (with gang rollback) the lowest-ranked job when
 // nothing won.
 //
-// What bounds it on the H100: per round, the [M, N] head-task score pass
-// (M = 512 jobs x N nodes, ~40 bytes and ~30 flops a cell, from L2) and
-// the O(J^2) job ranking; both are far below the card's rates, so the
-// round is bound by its launches and barriers, and the solve by its round
+// What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W): per round,
+// the [M, N] head-task score pass (M = 512 jobs x N nodes, ~40 bytes and
+// ~30 flops a cell, from L2); far below the card's rates, so the round is
+// bound by its launches and its serial chains, and the solve by its round
 // count.  Design:
 //   * the host runs the round loop (scheduler/kernels.py batch_launch) and
 //     reads ONE 4-byte flag a round: the active-job count, which
 //     vtt_batch_keys accumulates only when the last round progressed (the
 //     reference's `progressed & any(active)`);
-//   * vtt_batch_rank counts, for each active job, the active jobs with a
-//     smaller key tuple (jidx last, so all keys are distinct) -- the rank,
-//     with no sort;
+//   * the select is a top-M by chunks, O(J log^2 C) a round in place of a
+//     count over all pairs of jobs: vtt_batch_chunk (one CTA per chunk of
+//     VTT_SEL_CHUNK jobs) sorts the chunk's active jobs in shared memory
+//     by a bitonic network and keeps its M first; vtt_batch_merge gives
+//     each kept job its rank among every chunk's kept jobs (a binary search
+//     a chunk); vtt_batch_place writes sel[rank] for rank < M and the
+//     largest active job (the drop victim, ctl[3]) from the chunks' last
+//     ones.  The M first jobs of the whole order all lie in their chunks'
+//     M first, so the ranks are exact.  Every comparison is vtt_rank_less
+//     on the float keys and jidx: no packed integer key, so -0.0 and +0.0
+//     (the priority key of priority 0) compare equal as the reference's
+//     sort has them, and the order is the old count's wherever that count
+//     was a permutation -- that is, wherever no key is NaN (a share is
+//     alloc / denom of finite quantities, or 0 / 1 for a zero denom);
 //   * node blocks (VttSolveArgs n0 / NB; one block is the whole of K3):
 //     vtt_batch_tiles runs one CTA per (selected job, tile of TILE rows of
 //     the block), the tile's scores in shared memory, and writes the tile's
@@ -37,16 +48,28 @@
 //   * vtt_batch_propose (one CTA per selected job) merges the S x K records
 //     into the job's top-K in lax.top_k's order (values descending, lower
 //     index first), then rotates by rank, counts tasks per target and
-//     writes the P proposals; vtt_batch_accept is one CTA: a bitonic sort
-//     of the F = M*P proposals by (node, rank), one thread per node segment
-//     for the running sums against the records, per-job prefix cancel, the
-//     job / task / queue updates in a fixed order and the no-win drop.
-//     Both are replicated: every block reaches the same winners from the
-//     same records, with no float atomics (integer atomicMin picks the
-//     best pipeline rank per node);
-//   * vtt_batch_apply applies the winners and a dropped gang's rollback to
-//     the rows each block owns; vtt_batch_finish clears the rolled-back
-//     gang's task rows and job state (replicated).
+//     writes the P proposals.  The accept is five launches, each as wide as
+//     its work: vtt_batch_sort (one CTA) orders the F = M*P proposals by
+//     (node, flat index) with a stable radix sort on the node, 4 bits a
+//     pass, of the proposals in flat order; vtt_batch_seg (one thread per
+//     node segment, over the card) keeps the running request sum against
+//     the record's idle + eps and pod cap, and K5's running port and label
+//     words; vtt_batch_jobs (one thread per selected job) takes the pipe
+//     wins, cancels past the first loss of each job's offsets and updates
+//     job_alloc (in offset order), ready, cursor and the task rows;
+//     vtt_batch_queue (one CTA) compacts the winners in flat order with a
+//     block scan and lets one thread per (queue, resource) add its queue's
+//     winners in that order -- the queue sums outgrow float32's exact range
+//     at scale, so no atomics and no tree -- then decides the no-win drop.
+//     Every kernel is replicated: every block reaches the same winners from
+//     the same records (integer atomicMin picks the best pipeline rank per
+//     node);
+//   * vtt_batch_apply_idle (a thread per node segment) and
+//     vtt_batch_apply_pipe (a thread per proposal) apply the winners to the
+//     rows each block owns, idle runs before pipe wins as one CTA did them;
+//     vtt_batch_rollback unwinds a dropped gang's rows (one thread, in task
+//     order) and vtt_batch_finish its task rows and job state
+//     (replicated).
 //
 // K5 in K3 (has_portsel): replaces the portsel branches of the same
 // function: the [M, N] port / required / anti feasibility and the interpod
@@ -60,8 +83,8 @@
 // pass tests a head's words against each node's port words and a per-node
 // "selector matched" word pair (kept beside the counts, refreshed wherever
 // a count moves) -- no matrix products, no per-node shared arrays; the
-// accept kernel's one-thread-per-node-segment walk, which already visits
-// each node's proposals in rank order, carries six running words (4 of
+// segment walk (vtt_batch_seg), which already visits each node's
+// proposals in rank order, carries six running words (4 of
 // ports, 2 of labels) and ORs in every proposal, accepted or not, as the
 // reference's scan does; the apply kernel folds ports and counts into the
 // rows a block owns.  Bound: as K3; K5 adds 24 bytes a (job, node) pair to
@@ -71,9 +94,14 @@
 #include "common.cuh"
 
 #define VTT_PROPOSE_THREADS 256
-#define VTT_ACCEPT_THREADS 1024
+#define VTT_ONE_CTA_THREADS 1024  // the sort and the queue sums (one CTA)
+#define VTT_WIDE_THREADS 256      // the kernels spread over the card
 #define VTT_TILE_MAX 8192
-#define VTT_RANK_CHUNK 1024
+#define VTT_SEL_CHUNK 2048        // jobs a select CTA sorts in shared memory
+#define VTT_SEL_THREADS 1024
+#define VTT_SEL_SCRATCH \
+  (VTT_SEL_CHUNK / 2 > VTT_SEL_THREADS ? VTT_SEL_CHUNK / 2 : VTT_SEL_THREADS)
+#define VTT_QTILE 1024            // winners a queue-sum tile stages
 #define VTT_MAX_P 32
 
 // p_flags bits
@@ -81,19 +109,21 @@
 #define PF_IDLE 2
 #define PF_PIPE 4
 #define PF_ACCEPT 8
-#define PF_RAW 16
-#define PF_WIN 32
-#define PF_USE_IDLE 64
+#define PF_WIN 16
+#define PF_USE_IDLE 32
 
 __device__ __forceinline__ int vtt_clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// The job order: the nk keys (the k-th at ka[k * stride]) most
+// significant first, then the job index.
 __device__ __forceinline__ bool vtt_rank_less(const float* ka, int ia,
-                                              const float* kb, int ib, int nk) {
+                                              const float* kb, int ib, int nk,
+                                              int stride = 1) {
   for (int i = 0; i < nk; ++i) {
-    if (ka[i] < kb[i]) return true;
-    if (ka[i] > kb[i]) return false;
+    if (ka[i * stride] < kb[i * stride]) return true;
+    if (ka[i * stride] > kb[i * stride]) return false;
   }
   return ia < ib;
 }
@@ -128,7 +158,6 @@ __global__ void vtt_batch_keys(VttSolveArgs a) {
   const bool active = a.job_schedulable[j] && !a.dropped[j] &&
                       a.cursor[j] < a.job_ntasks[j] && jq >= 0 && q_ok;
   a.job_active[j] = active ? 1 : 0;
-  a.job_rank[j] = 0;
   const int32_t* ready = a.packed + 3 * a.T;
   float* keys = a.job_keys + (size_t)j * 4;
   int nk = 0;
@@ -148,36 +177,169 @@ __global__ void vtt_batch_keys(VttSolveArgs a) {
   if (active && a.ctl[2]) atomicAdd(&a.ctl[1], 1);
 }
 
-// rank_j = #{active i : key_i < key_j}; blockIdx.y picks a chunk of i
-__global__ void vtt_batch_rank(VttSolveArgs a) {
-  __shared__ float s_keys[VTT_RANK_CHUNK * 4];
-  __shared__ uint8_t s_act[VTT_RANK_CHUNK];
-  const int J = (int)a.J;
-  const int nk = (int)(a.n_keys + (a.use_proportion ? 1 : 0));
-  const int c0 = blockIdx.y * VTT_RANK_CHUNK;
-  const int cn = min(VTT_RANK_CHUNK, J - c0);
-  for (int i = threadIdx.x; i < cn; i += blockDim.x) {
-    s_act[i] = a.job_active[c0 + i];
-    for (int k = 0; k < 4; ++k) s_keys[i * 4 + k] = a.job_keys[(size_t)(c0 + i) * 4 + k];
+// Block-wide exclusive prefix sum of one int a thread (blockDim.x a
+// multiple of 32, at most 1024); s holds blockDim.x ints, s_tot 33.  Every
+// thread returns its prefix and the block's total.
+__device__ __forceinline__ int vtt_block_scan(int v, int* s, int* s_tot, int& total) {
+  const int tid = threadIdx.x, gs = blockDim.x / 32;
+  s[tid] = v;
+  __syncthreads();
+  if (tid < 32) {
+    int run = 0;
+    for (int e = 0; e < gs; ++e) {
+      const int c = s[tid * gs + e];
+      s[tid * gs + e] = run;
+      run += c;
+    }
+    s_tot[tid] = run;
   }
   __syncthreads();
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= J || !a.job_active[j]) return;
-  float kj[4];
-  for (int k = 0; k < 4; ++k) kj[k] = a.job_keys[(size_t)j * 4 + k];
-  int cnt = 0;
-  for (int i = 0; i < cn; ++i)
-    if (s_act[i] && vtt_rank_less(&s_keys[i * 4], c0 + i, kj, j, nk)) ++cnt;
-  if (cnt) atomicAdd(&a.job_rank[j], cnt);
+  if (tid == 0) {
+    int run = 0;
+    for (int e = 0; e < 32; ++e) {
+      const int c = s_tot[e];
+      s_tot[e] = run;
+      run += c;
+    }
+    s_tot[32] = run;
+  }
+  __syncthreads();
+  const int out = s[tid] + s_tot[tid / gs];
+  total = s_tot[32];
+  __syncthreads();
+  return out;
 }
 
-// sel[rank] = job for the top M; the lowest-ranked active job is the victim
-__global__ void vtt_batch_select(VttSolveArgs a) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= a.J || !a.job_active[j]) return;
-  const int r = a.job_rank[j];
-  if (r < a.M) a.sel[r] = j;
-  if (r == a.ctl[1] - 1) a.ctl[3] = j;
+__device__ __forceinline__ int vtt_rank_nk(const VttSolveArgs& a) {
+  return (int)(a.n_keys + (a.use_proportion ? 1 : 0));
+}
+
+// The select, stage 1: one CTA per chunk of VTT_SEL_CHUNK jobs sorts the
+// chunk's active jobs (a bitonic network over an index permutation in
+// shared memory, vtt_rank_less the comparator) and keeps the first
+// min(M, active) as the chunk's list: job, keys, and its rank within the
+// chunk, to which vtt_batch_merge adds the other chunks' counts.  Also the
+// chunk's last active job.  With one chunk the list is the selection.
+// The keys lie key-major in shared memory (s_k[k][slot]), so that the
+// network's permuted reads spread over the banks.
+__global__ void __launch_bounds__(VTT_SEL_THREADS) vtt_batch_chunk(VttSolveArgs a) {
+  __shared__ float s_k[4 * VTT_SEL_CHUNK];
+  __shared__ int s_j[VTT_SEL_CHUNK];
+  // the block scan's scratch, then the permutation (int16): 45 KB in all
+  __shared__ int s_pi[VTT_SEL_SCRATCH];
+  __shared__ int s_tot[33];
+  int16_t* s_p = reinterpret_cast<int16_t*>(s_pi);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int J = (int)a.J, M = (int)a.M, b = blockIdx.x;
+  const int nk = vtt_rank_nk(a);
+  const int c0 = b * VTT_SEL_CHUNK, cn = min(VTT_SEL_CHUNK, J - c0);
+  // the active jobs in job order: thread t holds [t * ipt, (t + 1) * ipt)
+  const int ipt = (VTT_SEL_CHUNK + nthr - 1) / nthr;
+  const int lo = min(cn, tid * ipt), hi = min(cn, lo + ipt);
+  int c = 0;
+  for (int i = lo; i < hi; ++i) c += a.job_active[c0 + i] ? 1 : 0;
+  int n;
+  int slot = vtt_block_scan(c, s_pi, s_tot, n);
+  for (int i = lo; i < hi; ++i) {
+    const int j = c0 + i;
+    if (!a.job_active[j]) continue;
+    s_j[slot] = j;
+    for (int k = 0; k < nk; ++k) s_k[k * VTT_SEL_CHUNK + slot] = a.job_keys[(size_t)j * 4 + k];
+    ++slot;
+  }
+  if (n == 0) {
+    if (tid == 0) {
+      a.c_cnt[b] = 0;
+      a.c_max[b] = -1;
+    }
+    return;
+  }
+  int n2 = 1;
+  while (n2 < n) n2 <<= 1;
+  for (int i = tid; i < n2; i += nthr) s_p[i] = (int16_t)(i < n ? i : -1);
+  __syncthreads();
+  // x before y: padding (-1) after every job
+  auto before = [&](int x, int y) {
+    return x >= 0 && (y < 0 || vtt_rank_less(&s_k[x], s_j[x], &s_k[y], s_j[y], nk,
+                                             VTT_SEL_CHUNK));
+  };
+  for (int k = 2; k <= n2; k <<= 1) {
+    for (int jj = k >> 1; jj > 0; jj >>= 1) {
+      for (int q = tid; q < (n2 >> 1); q += nthr) {
+        const int i = ((q & ~(jj - 1)) << 1) | (q & (jj - 1));
+        const int x = s_p[i], y = s_p[i + jj];
+        if ((i & k) == 0 ? before(y, x) : before(x, y)) {
+          s_p[i] = (int16_t)y;
+          s_p[i + jj] = (int16_t)x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const int keep = min(M, n);
+  for (int r = tid; r < keep; r += nthr) {
+    const int p = s_p[r];
+    if (a.nC == 1) {
+      a.sel[r] = s_j[p];
+      continue;
+    }
+    const size_t x = (size_t)b * M + r;
+    a.c_job[x] = s_j[p];
+    for (int k = 0; k < nk; ++k) a.c_key[x * 4 + k] = s_k[k * VTT_SEL_CHUNK + p];
+    a.c_rank[x] = r;
+  }
+  if (tid == 0) {
+    a.c_cnt[b] = keep;
+    a.c_max[b] = s_j[s_p[n - 1]];
+    if (a.nC == 1) a.ctl[3] = a.c_max[b];
+  }
+}
+
+// The select, stage 2: thread (kept job x, chunk c2) adds to x's rank the
+// jobs of c2's list that order before x (a binary search: the list is
+// sorted).
+__global__ void __launch_bounds__(VTT_WIDE_THREADS) vtt_batch_merge(VttSolveArgs a) {
+  const int M = (int)a.M;
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = x / M, c2 = blockIdx.y;
+  if (c >= a.nC || c2 == c || x - c * M >= a.c_cnt[c]) return;
+  const int nk = vtt_rank_nk(a);
+  float kx[4];
+  for (int k = 0; k < nk; ++k) kx[k] = a.c_key[(size_t)x * 4 + k];
+  const int jx = a.c_job[x];
+  int lo = 0, hi = a.c_cnt[c2];
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const size_t y = (size_t)c2 * M + mid;
+    if (vtt_rank_less(&a.c_key[y * 4], a.c_job[y], kx, jx, nk))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  if (lo) atomicAdd(&a.c_rank[x], lo);
+}
+
+// The select, stage 3: sel[rank] for the kept jobs of rank < M; thread 0
+// takes the drop victim, the last of the chunks' last active jobs.
+__global__ void __launch_bounds__(VTT_WIDE_THREADS) vtt_batch_place(VttSolveArgs a) {
+  const int M = (int)a.M;
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = x / M;
+  if (c < a.nC && x - c * M < a.c_cnt[c]) {
+    const int r = a.c_rank[x];
+    if (r < M) a.sel[r] = a.c_job[x];
+  }
+  if (x == 0) {
+    const int nk = vtt_rank_nk(a);
+    int v = -1;
+    for (int c2 = 0; c2 < a.nC; ++c2) {
+      const int j = a.c_max[c2];
+      if (j >= 0 && (v < 0 || vtt_rank_less(&a.job_keys[(size_t)v * 4], v,
+                                            &a.job_keys[(size_t)j * 4], j, nk)))
+        v = j;
+    }
+    if (v >= 0) a.ctl[3] = v;
+  }
 }
 
 // record words: value bits, global row, flags, task count, pod cap, then
@@ -450,218 +612,286 @@ __global__ void __launch_bounds__(VTT_PROPOSE_THREADS)
   }
 }
 
-// one CTA (replicated): (node, rank) order, capacity-aware acceptance
-// against the records, pipeline wins, per-job prefix cancel, the job, task
-// and queue updates, and the no-win drop
+// Threads of vtt_batch_sort: 512 past 8,192 proposals, so that the shared
+// memory below stays inside the card's 227 KB at 16,384.
+static int vtt_sort_threads(int F) { return F > 8192 ? 512 : VTT_ONE_CTA_THREADS; }
+
+// Shared memory of vtt_batch_sort for F proposals on nthr threads: two
+// buffers of node keys (u32) and flat indices (u16), and a 16-digit x
+// nthr table of counters (u16).
+static size_t vtt_sort_smem(int F, int nthr) {
+  const size_t fp = (size_t)((F + nthr - 1) / nthr) * nthr;
+  return fp * 2 * (sizeof(uint32_t) + sizeof(uint16_t)) + 16 * (size_t)nthr * sizeof(uint16_t);
+}
+
+// one CTA (replicated): the F proposals in (node, flat index) order into
+// p_key -- a stable LSD radix sort, 4 bits a pass, on the node (N for a
+// proposal that does not take idle capacity) of the proposals in flat
+// order.  Thread t holds the proposals [t * ipt, (t + 1) * ipt) in every
+// pass; a pass counts each thread's digits in its own column of the
+// counter table, scans the table digit-major, and scatters each thread's
+// proposals in order: stable, so the flat order survives within a node.
+__global__ void __launch_bounds__(VTT_ONE_CTA_THREADS) vtt_batch_sort(VttSolveArgs a) {
+  VTT_DYN_SMEM(uint32_t, s_buf);
+  __shared__ int s_part[VTT_ONE_CTA_THREADS];
+  __shared__ int s_tot[33];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int F = (int)a.F, N = (int)a.N;
+  const int ipt = (F + nthr - 1) / nthr, fp = ipt * nthr;
+  uint32_t* kin = s_buf;
+  uint32_t* kout = s_buf + fp;
+  uint16_t* vin = reinterpret_cast<uint16_t*>(s_buf + 2 * fp);
+  uint16_t* vout = vin + fp;
+  uint16_t* cnt = vout + fp;
+  const int lo = min(F, tid * ipt), hi = min(F, lo + ipt);
+  for (int f = lo; f < hi; ++f) {
+    kin[f] = (a.p_flags[f] & PF_IDLE) ? (uint32_t)a.p_node[f] : (uint32_t)N;
+    vin[f] = (uint16_t)f;
+  }
+  const int passes = (32 - __clz(N) + 3) / 4;  // the bits of N, 4 a pass
+  for (int pass = 0; pass < passes; ++pass) {
+    const int shift = 4 * pass;
+    for (int d = 0; d < 16; ++d) cnt[d * nthr + tid] = 0;
+    for (int i = lo; i < hi; ++i) ++cnt[((kin[i] >> shift) & 15u) * nthr + tid];
+    __syncthreads();
+    // exclusive scan of the table, digit-major: thread t its 16 entries
+    int c16 = 0;
+    for (int e = 0; e < 16; ++e) c16 += cnt[tid * 16 + e];
+    int total;
+    int run = vtt_block_scan(c16, s_part, s_tot, total);
+    for (int e = 0; e < 16; ++e) {
+      const int c = cnt[tid * 16 + e];
+      cnt[tid * 16 + e] = (uint16_t)run;
+      run += c;
+    }
+    __syncthreads();
+    for (int i = lo; i < hi; ++i) {
+      const uint32_t k = kin[i];
+      const int pos = cnt[((k >> shift) & 15u) * nthr + tid]++;
+      kout[pos] = k;
+      vout[pos] = vin[i];
+    }
+    __syncthreads();
+    uint32_t* kt = kin;
+    kin = kout;
+    kout = kt;
+    uint16_t* vt = vin;
+    vin = vout;
+    vout = vt;
+  }
+  for (int i = tid; i < F; i += nthr)
+    a.p_key[i] = ((unsigned long long)kin[i] << 32) | (unsigned long long)vin[i];
+}
+
+// one thread per node segment of p_key (replicated, over the card): the
+// running request sum against the record's idle + eps and its pod cap,
+// and K5's running port and label words
 template <bool PS>
-__global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
-    vtt_batch_accept(VttSolveArgs a, int Fp2) {
-  VTT_DYN_SMEM(unsigned long long, s_key);
-  __shared__ int s_flag;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int N = (int)a.N, R = (int)a.R, T = (int)a.T, Q = (int)a.Q,
-            M = (int)a.M, P = (int)a.P, F = (int)a.F, W = (int)a.W;
+__global__ void __launch_bounds__(VTT_WIDE_THREADS) vtt_batch_seg(VttSolveArgs a) {
+  const int N = (int)a.N, R = (int)a.R, F = (int)a.F, W = (int)a.W;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= F) return;
+  const int kn = (int)(a.p_key[i] >> 32);
+  if (kn >= N || (i > 0 && (int)(a.p_key[i - 1] >> 32) == kn)) return;
+  float run[VTT_MAX_R];
+  for (int r = 0; r < R; ++r) run[r] = 0.0f;
+  // K5: ports and labels of every earlier proposal in this node's run
+  uint32_t run_ports[VTT_PW] = {0, 0, 0, 0}, run_self[VTT_SW] = {0, 0};
+  const int32_t* rec = a.recv + (size_t)a.p_rec[(int)(a.p_key[i] & 0xffffffffu)] * W;
+  const int tc = rec[RW_TC], cap = rec[RW_CAP];
+  int pos = 0;
+  for (int i2 = i; i2 < F && (int)(a.p_key[i2] >> 32) == kn; ++i2, ++pos) {
+    const int f = (int)(a.p_key[i2] & 0xffffffffu);
+    const float* rq = &a.task_req[(size_t)a.p_t[f] * R];
+    bool ok = true;
+    for (int r = 0; r < R; ++r) {
+      run[r] = run[r] + rq[r];
+      ok = ok && (run[r] < __int_as_float(rec[RW_IDLE + r]) + a.eps[r]);
+    }
+    if (PS) {
+      const VttPs tps = vtt_ps_task(a, a.p_t[f]);
+      for (int w = 0; w < VTT_PW; ++w) {
+        ok = ok && !(run_ports[w] & tps.port[w]);
+        run_ports[w] |= tps.port[w];
+      }
+      for (int w = 0; w < VTT_SW; ++w) {
+        ok = ok && !(run_self[w] & tps.anti[w]);
+        run_self[w] |= tps.self_[w];
+      }
+    }
+    if (ok && tc + pos < cap) a.p_flags[f] |= PF_ACCEPT;
+  }
+}
+
+// one thread per selected job (replicated, over the card): its proposals'
+// wins (accepted on idle capacity, or the node's best pipeline), cut at
+// the first loss of its offsets, and the job and task updates in offset
+// order
+__global__ void __launch_bounds__(VTT_WIDE_THREADS) vtt_batch_jobs(VttSolveArgs a) {
+  const int R = (int)a.R, T = (int)a.T, P = (int)a.P, F = (int)a.F;
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= a.M) return;
   int32_t* task_node = a.packed;
   int32_t* task_kind = a.packed + T;
   int32_t* task_seq = a.packed + 2 * T;
   int32_t* ready = a.packed + 3 * T;
   const int round = a.ctl[0];
-
-  for (int i = tid; i < Fp2; i += nthr) {
-    if (i < F) {
-      const uint8_t fl = a.p_flags[i] & (PF_VALID | PF_IDLE | PF_PIPE);
-      a.p_flags[i] = fl;
-      const unsigned long long kn = (fl & PF_IDLE) ? (unsigned)a.p_node[i] : (unsigned)N;
-      s_key[i] = (kn << 32) | (unsigned)i;
-    } else {
-      s_key[i] = ~0ull;
-    }
-  }
-  __syncthreads();
-  for (int k = 2; k <= Fp2; k <<= 1) {
-    for (int jj = k >> 1; jj > 0; jj >>= 1) {
-      for (int i = tid; i < Fp2; i += nthr) {
-        const int ixj = i ^ jj;
-        if (ixj > i) {
-          const unsigned long long x = s_key[i], y = s_key[ixj];
-          const bool up = (i & k) == 0;
-          if (up ? x > y : x < y) {
-            s_key[i] = y;
-            s_key[ixj] = x;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  // running request sum per node segment against the record's idle + eps
-  // and its pod cap
-  for (int i = tid; i < F; i += nthr) {
-    a.p_key[i] = s_key[i];
-    const int kn = (int)(s_key[i] >> 32);
-    if (kn >= N || (i > 0 && (int)(s_key[i - 1] >> 32) == kn)) continue;
-    float run[VTT_MAX_R];
-    for (int r = 0; r < R; ++r) run[r] = 0.0f;
-    // K5: ports and labels of every earlier proposal in this node's run
-    uint32_t run_ports[VTT_PW] = {0, 0, 0, 0}, run_self[VTT_SW] = {0, 0};
-    const int32_t* rec = a.recv + (size_t)a.p_rec[(int)(s_key[i] & 0xffffffffu)] * W;
-    const int tc = rec[RW_TC], cap = rec[RW_CAP];
-    int pos = 0;
-    for (int i2 = i; i2 < F && (int)(s_key[i2] >> 32) == kn; ++i2, ++pos) {
-      const int f = (int)(s_key[i2] & 0xffffffffu);
-      const float* rq = &a.task_req[(size_t)a.p_t[f] * R];
-      bool ok = true;
-      for (int r = 0; r < R; ++r) {
-        run[r] = run[r] + rq[r];
-        ok = ok && (run[r] < __int_as_float(rec[RW_IDLE + r]) + a.eps[r]);
-      }
-      if (PS) {
-        const VttPs tps = vtt_ps_task(a, a.p_t[f]);
-        for (int w = 0; w < VTT_PW; ++w) {
-          ok = ok && !(run_ports[w] & tps.port[w]);
-          run_ports[w] |= tps.port[w];
-        }
-        for (int w = 0; w < VTT_SW; ++w) {
-          ok = ok && !(run_self[w] & tps.anti[w]);
-          run_self[w] |= tps.self_[w];
-        }
-      }
-      if (ok && tc + pos < cap) a.p_flags[f] |= PF_ACCEPT;
-    }
-  }
-  __syncthreads();
-  for (int f = tid; f < F; f += nthr) {
+  bool ok = true;
+  for (int p = 0; p < P && ok; ++p) {
+    const int f = m * P + p;
     const uint8_t fl = a.p_flags[f];
-    const bool win_pipe = (fl & PF_PIPE) && a.best_pipe[a.p_node[f]] == f;
-    if ((fl & PF_ACCEPT) || win_pipe) a.p_flags[f] = fl | PF_RAW;
+    const bool ui = (fl & PF_ACCEPT) != 0;
+    ok = ui || ((fl & PF_PIPE) && a.best_pipe[a.p_node[f]] == f);
+    if (!ok) break;
+    a.p_flags[f] = fl | PF_WIN | (ui ? PF_USE_IDLE : 0);
+    const int j = a.p_job[f];
+    const int t = a.p_t[f];
+    for (int r = 0; r < R; ++r)
+      a.job_alloc[(size_t)j * R + r] =
+          a.job_alloc[(size_t)j * R + r] + a.task_req[(size_t)t * R + r];
+    ready[j] += ui ? 1 : 0;
+    a.cursor[j] += 1;
+    task_node[t] = a.p_node[f];
+    task_kind[t] = ui ? 1 : 2;
+    task_seq[t] = round * F + f;
   }
-  __syncthreads();
+}
 
-  // wins must be an offset-prefix per job; apply job and task updates
-  bool any_local = false;
-  for (int m = tid; m < M; m += nthr) {
-    bool ok = true;
-    for (int p = 0; p < P; ++p) {
-      const int f = m * P + p;
-      const uint8_t fl = a.p_flags[f];
-      const bool raw = (fl & PF_RAW) != 0;
-      const bool w = raw && ok;
-      ok = ok && raw;
-      if (!w) continue;
-      const bool ui = (fl & PF_ACCEPT) != 0;
-      a.p_flags[f] = fl | PF_WIN | (ui ? PF_USE_IDLE : 0);
-      const int j = a.p_job[f];
+// Shared memory of vtt_batch_queue: the winners' flat indices [F], then a
+// tile's queues [VTT_QTILE] and requests [VTT_QTILE, R].
+static size_t vtt_queue_smem(int F, int R) {
+  return ((size_t)F + VTT_QTILE) * sizeof(int) + (size_t)VTT_QTILE * R * sizeof(float);
+}
+
+// one CTA (replicated): the winners compacted in flat order (a block
+// scan), the queue shares added in that order by one thread per (queue,
+// resource) over tiles staged in shared memory, and the no-win drop
+__global__ void __launch_bounds__(VTT_ONE_CTA_THREADS) vtt_batch_queue(VttSolveArgs a) {
+  VTT_DYN_SMEM(int, s_wf);
+  __shared__ int s_part[VTT_ONE_CTA_THREADS];
+  __shared__ int s_tot[33];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int R = (int)a.R, T = (int)a.T, Q = (int)a.Q, F = (int)a.F;
+  int* s_q = s_wf + F;
+  float* s_rq = reinterpret_cast<float*>(s_q + VTT_QTILE);
+  const int ipt = (F + nthr - 1) / nthr;
+  const int lo = min(F, tid * ipt), hi = min(F, lo + ipt);
+  int c = 0;
+  for (int f = lo; f < hi; ++f) c += (a.p_flags[f] & PF_WIN) ? 1 : 0;
+  int nw;
+  int at = vtt_block_scan(c, s_part, s_tot, nw);
+  for (int f = lo; f < hi; ++f)
+    if (a.p_flags[f] & PF_WIN) s_wf[at++] = f;
+  __syncthreads();
+  for (int base = 0; base < nw; base += VTT_QTILE) {
+    const int n = min(VTT_QTILE, nw - base);
+    for (int k = tid; k < n; k += nthr) {
+      const int f = s_wf[base + k];
       const int t = a.p_t[f];
-      for (int r = 0; r < R; ++r)
-        a.job_alloc[(size_t)j * R + r] =
-            a.job_alloc[(size_t)j * R + r] + a.task_req[(size_t)t * R + r];
-      ready[j] += ui ? 1 : 0;
-      a.cursor[j] += 1;
-      task_node[t] = a.p_node[f];
-      task_kind[t] = ui ? 1 : 2;
-      task_seq[t] = round * F + f;
-      any_local = true;
+      s_q[k] = vtt_clampi(a.job_queue[a.p_job[f]], 0, Q - 1);
+      for (int r = 0; r < R; ++r) s_rq[k * R + r] = a.task_req[(size_t)t * R + r];
     }
-  }
-  const bool any_win = vtt_block_any(any_local, &s_flag);
-
-  // queue shares in flat order
-  for (int q = tid; q < Q; q += nthr) {
-    for (int f = 0; f < F; ++f) {
-      if (!(a.p_flags[f] & PF_WIN)) continue;
-      if (vtt_clampi(a.job_queue[a.p_job[f]], 0, Q - 1) != q) continue;
-      const float* rq = &a.task_req[(size_t)a.p_t[f] * R];
-      for (int r = 0; r < R; ++r)
-        a.queue_alloc[(size_t)q * R + r] = a.queue_alloc[(size_t)q * R + r] + rq[r];
+    __syncthreads();
+    for (int qr = tid; qr < Q * R; qr += nthr) {
+      const int q = qr / R, r = qr - q * R;
+      float acc = a.queue_alloc[qr];
+#pragma unroll 8
+      for (int k = 0; k < n; ++k)
+        if (s_q[k] == q) acc = acc + s_rq[k * R + r];
+      a.queue_alloc[qr] = acc;
     }
+    __syncthreads();
   }
-  __syncthreads();
-
   if (tid == 0) {
+    const int32_t* ready = a.packed + 3 * T;
+    const bool any_win = nw > 0;
     const int n_active = a.ctl[1];
     const bool do_evict = !any_win && n_active > 0;
     a.ctl[4] = -1;
     if (do_evict) {
       const int v = a.ctl[3];
       a.dropped[v] = 1;
-      // the gang's session placements unwind in vtt_batch_apply (node
+      // the gang's session placements unwind in vtt_batch_rollback (node
       // rows, per block) and vtt_batch_finish (tasks, job, queue)
       if (a.use_gang_ready && ready[v] < a.job_min[v]) a.ctl[4] = v;
     }
     a.ctl[2] = (any_win || do_evict) ? 1 : 0;
-    a.ctl[0] = round + 1;
+    a.ctl[0] += 1;
     a.ctl[1] = 0;
   }
 }
 
-// one CTA per block: the round's winners and a dropped gang's rollback on
-// the node rows this block owns
+// a thread per node segment of the block's rows: the idle wins in rank
+// order
 template <bool PS>
-__global__ void __launch_bounds__(VTT_ACCEPT_THREADS)
-    vtt_batch_apply(VttSolveArgs a) {
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int N = (int)a.N, R = (int)a.R, T = (int)a.T, F = (int)a.F;
+__global__ void __launch_bounds__(VTT_WIDE_THREADS) vtt_batch_apply_idle(VttSolveArgs a) {
+  const int N = (int)a.N, R = (int)a.R, F = (int)a.F;
   const int n0 = (int)a.n0, NB = (int)a.NB;
-  const int32_t* task_node = a.packed;
-  const int32_t* task_kind = a.packed + T;
-  // idle runs, one thread per node segment, in rank order
-  for (int i = tid; i < F; i += nthr) {
-    const unsigned long long key = a.p_key[i];
-    const int kn = (int)(key >> 32);
-    if (kn >= N || (i > 0 && (int)(a.p_key[i - 1] >> 32) == kn)) continue;
-    const int ln = kn - n0;
-    if (ln < 0 || ln >= NB) continue;
-    for (int i2 = i; i2 < F && (int)(a.p_key[i2] >> 32) == kn; ++i2) {
-      const int f = (int)(a.p_key[i2] & 0xffffffffu);
-      if (!(a.p_flags[f] & PF_USE_IDLE)) continue;
-      const float* rq = &a.task_req[(size_t)a.p_t[f] * R];
-      for (int r = 0; r < R; ++r) {
-        a.idle[(size_t)ln * R + r] = a.idle[(size_t)ln * R + r] - rq[r];
-        a.used[(size_t)ln * R + r] = a.used[(size_t)ln * R + r] + rq[r];
-      }
-      a.task_count[ln] += 1;
-      if (PS) vtt_ps_fold(a, ln, vtt_ps_task(a, a.p_t[f]), +1);
-    }
-  }
-  __syncthreads();
-  // pipeline wins: at most one per node
-  for (int f = tid; f < F; f += nthr) {
-    const uint8_t fl = a.p_flags[f];
-    if (!(fl & PF_WIN) || (fl & PF_USE_IDLE)) continue;
-    const int ln = a.p_node[f] - n0;
-    if (ln < 0 || ln >= NB) continue;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= F) return;
+  const int kn = (int)(a.p_key[i] >> 32);
+  if (kn >= N || (i > 0 && (int)(a.p_key[i - 1] >> 32) == kn)) return;
+  const int ln = kn - n0;
+  if (ln < 0 || ln >= NB) return;
+  for (int i2 = i; i2 < F && (int)(a.p_key[i2] >> 32) == kn; ++i2) {
+    const int f = (int)(a.p_key[i2] & 0xffffffffu);
+    if (!(a.p_flags[f] & PF_USE_IDLE)) continue;
     const float* rq = &a.task_req[(size_t)a.p_t[f] * R];
     for (int r = 0; r < R; ++r) {
-      a.releasing[(size_t)ln * R + r] = a.releasing[(size_t)ln * R + r] - rq[r];
+      a.idle[(size_t)ln * R + r] = a.idle[(size_t)ln * R + r] - rq[r];
       a.used[(size_t)ln * R + r] = a.used[(size_t)ln * R + r] + rq[r];
     }
     a.task_count[ln] += 1;
-    // a pipe win has no ports or anti bits, but its labels count
     if (PS) vtt_ps_fold(a, ln, vtt_ps_task(a, a.p_t[f]), +1);
   }
-  __syncthreads();
-  if (tid == 0 && a.ctl[4] >= 0) {
-    // unwind the dropped gang's placements on this block's rows (its task
-    // rows are contiguous)
-    const int v = a.ctl[4];
-    const int t0 = a.job_start[v], t1 = t0 + a.job_ntasks[v];
-    for (int t = t0; t < t1; ++t) {
-      const int kind = task_kind[t];
-      if (kind <= 0 || !a.task_valid[t] || a.task_job[t] != v) continue;
-      const int ln = vtt_clampi(task_node[t], 0, N - 1) - n0;
-      if (ln < 0 || ln >= NB) continue;
-      const float* rq = &a.task_req[(size_t)t * R];
-      float* back = kind == 1 ? &a.idle[(size_t)ln * R] : &a.releasing[(size_t)ln * R];
-      for (int r = 0; r < R; ++r) {
-        back[r] = back[r] + rq[r];
-        a.used[(size_t)ln * R + r] = a.used[(size_t)ln * R + r] - rq[r];
-      }
-      a.task_count[ln] -= 1;
-      if (PS) vtt_ps_fold(a, ln, vtt_ps_task(a, t), -1);
+}
+
+// a thread per proposal: the pipeline wins on the block's rows (at most
+// one a node), after its idle wins
+template <bool PS>
+__global__ void __launch_bounds__(VTT_WIDE_THREADS) vtt_batch_apply_pipe(VttSolveArgs a) {
+  const int R = (int)a.R, F = (int)a.F;
+  const int n0 = (int)a.n0, NB = (int)a.NB;
+  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+  if (f >= F) return;
+  const uint8_t fl = a.p_flags[f];
+  if (!(fl & PF_WIN) || (fl & PF_USE_IDLE)) return;
+  const int ln = a.p_node[f] - n0;
+  if (ln < 0 || ln >= NB) return;
+  const float* rq = &a.task_req[(size_t)a.p_t[f] * R];
+  for (int r = 0; r < R; ++r) {
+    a.releasing[(size_t)ln * R + r] = a.releasing[(size_t)ln * R + r] - rq[r];
+    a.used[(size_t)ln * R + r] = a.used[(size_t)ln * R + r] + rq[r];
+  }
+  a.task_count[ln] += 1;
+  // a pipe win has no ports or anti bits, but its labels count
+  if (PS) vtt_ps_fold(a, ln, vtt_ps_task(a, a.p_t[f]), +1);
+}
+
+// one thread per block: unwind the dropped gang's placements on the
+// block's rows, in task order (its task rows are contiguous)
+template <bool PS>
+__global__ void vtt_batch_rollback(VttSolveArgs a) {
+  const int v = a.ctl[4];
+  if (v < 0) return;
+  const int N = (int)a.N, R = (int)a.R, T = (int)a.T;
+  const int n0 = (int)a.n0, NB = (int)a.NB;
+  const int32_t* task_node = a.packed;
+  const int32_t* task_kind = a.packed + T;
+  const int t0 = a.job_start[v], t1 = t0 + a.job_ntasks[v];
+  for (int t = t0; t < t1; ++t) {
+    const int kind = task_kind[t];
+    if (kind <= 0 || !a.task_valid[t] || a.task_job[t] != v) continue;
+    const int ln = vtt_clampi(task_node[t], 0, N - 1) - n0;
+    if (ln < 0 || ln >= NB) continue;
+    const float* rq = &a.task_req[(size_t)t * R];
+    float* back = kind == 1 ? &a.idle[(size_t)ln * R] : &a.releasing[(size_t)ln * R];
+    for (int r = 0; r < R; ++r) {
+      back[r] = back[r] + rq[r];
+      a.used[(size_t)ln * R + r] = a.used[(size_t)ln * R + r] - rq[r];
     }
+    a.task_count[ln] -= 1;
+    if (PS) vtt_ps_fold(a, ln, vtt_ps_task(a, t), -1);
   }
 }
 
@@ -698,15 +928,10 @@ static int vtt_check() { return (int)cudaGetLastError(); }
 
 static int vtt_batch_ok(const VttSolveArgs& a) {
   return a.R >= 2 && a.R <= VTT_MAX_R && a.P >= 1 && a.P <= VTT_MAX_P && a.K <= a.P &&
-         a.K >= 1 && a.n_keys <= 3 && a.F == a.M * a.P && !a.has_volsel && a.S >= 1 &&
-         a.NB >= 1 && a.TILE >= 1 && a.TILE <= VTT_TILE_MAX && a.TB * a.TILE >= a.NB &&
-         a.W == 5 + 2 * a.R;
-}
-
-static int vtt_fp2(const VttSolveArgs& a) {
-  int Fp2 = 1;
-  while (Fp2 < a.F) Fp2 <<= 1;
-  return Fp2;
+         a.K >= 1 && a.n_keys <= 3 && a.F == a.M * a.P && a.F <= 65536 && !a.has_volsel &&
+         a.S >= 1 && a.NB >= 1 && a.TILE >= 1 && a.TILE <= VTT_TILE_MAX &&
+         a.TB * a.TILE >= a.NB && a.W == 5 + 2 * a.R &&
+         a.nC == (a.J + VTT_SEL_CHUNK - 1) / VTT_SEL_CHUNK;
 }
 
 template <bool PS>
@@ -715,9 +940,12 @@ static int vtt_batch_begin_t(const VttSolveArgs& a, cudaStream_t s) {
                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       (int)(a.TILE * sizeof(float)));
   if (err) return err;
-  err = (int)cudaFuncSetAttribute(vtt_batch_accept<PS>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)(vtt_fp2(a) * sizeof(unsigned long long)));
+  const int F = (int)a.F;
+  err = (int)cudaFuncSetAttribute(vtt_batch_sort, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)vtt_sort_smem(F, vtt_sort_threads(F)));
+  if (err) return err;
+  err = (int)cudaFuncSetAttribute(vtt_batch_queue, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)vtt_queue_smem((int)a.F, (int)a.R));
   if (err) return err;
   VTT_LAUNCH(vtt_batch_init, 1, 1, 0, s)(a);
   return vtt_check();
@@ -750,10 +978,13 @@ extern "C" int vtt_batch_begin(const VttSolveArgs* base, const VttSolveArgs* blo
 template <bool PS>
 static void vtt_batch_candidates_t(const VttSolveArgs& a, const VttSolveArgs* blocks,
                                    int n_blocks, cudaStream_t s) {
-  const int J = (int)a.J;
-  const dim3 rank_grid((J + 255) / 256, (J + VTT_RANK_CHUNK - 1) / VTT_RANK_CHUNK);
-  VTT_LAUNCH(vtt_batch_rank, rank_grid, 256, 0, s)(a);
-  VTT_LAUNCH(vtt_batch_select, (J + 255) / 256, 256, 0, s)(a);
+  const int nC = (int)a.nC, kept = (int)(a.nC * a.M);
+  VTT_LAUNCH(vtt_batch_chunk, nC, VTT_SEL_THREADS, 0, s)(a);
+  if (nC > 1) {
+    const unsigned wide = (unsigned)((kept + VTT_WIDE_THREADS - 1) / VTT_WIDE_THREADS);
+    VTT_LAUNCH(vtt_batch_merge, dim3(wide, (unsigned)nC), VTT_WIDE_THREADS, 0, s)(a);
+    VTT_LAUNCH(vtt_batch_place, (int)wide, VTT_WIDE_THREADS, 0, s)(a);
+  }
   for (int b = 0; b < n_blocks; ++b) {
     const VttSolveArgs& blk = blocks[b];
     VTT_LAUNCH(vtt_batch_tiles<PS>, dim3((unsigned)blk.M, (unsigned)blk.TB),
@@ -762,7 +993,7 @@ static void vtt_batch_candidates_t(const VttSolveArgs& a, const VttSolveArgs* bl
   }
 }
 
-// The first half of a round: rank and select the jobs, then each local
+// The first half of a round: select the jobs, then each local
 // block's tile pass and records (into its slot of `send`).
 extern "C" int vtt_batch_candidates(const VttSolveArgs* base, const VttSolveArgs* blocks,
                                     int n_blocks, void* stream) {
@@ -777,12 +1008,20 @@ extern "C" int vtt_batch_candidates(const VttSolveArgs* base, const VttSolveArgs
 template <bool PS>
 static void vtt_batch_decide_t(const VttSolveArgs& a, const VttSolveArgs* blocks,
                                int n_blocks, cudaStream_t s) {
-  const int Fp2 = vtt_fp2(a);
+  const int F = (int)a.F;
+  const int wide_f = (F + VTT_WIDE_THREADS - 1) / VTT_WIDE_THREADS;
   VTT_LAUNCH(vtt_batch_propose<PS>, (int)a.M, VTT_PROPOSE_THREADS, 0, s)(a);
-  VTT_LAUNCH(vtt_batch_accept<PS>, 1, VTT_ACCEPT_THREADS,
-             Fp2 * sizeof(unsigned long long), s)(a, Fp2);
-  for (int b = 0; b < n_blocks; ++b)
-    VTT_LAUNCH(vtt_batch_apply<PS>, 1, VTT_ACCEPT_THREADS, 0, s)(blocks[b]);
+  VTT_LAUNCH(vtt_batch_sort, 1, vtt_sort_threads(F), vtt_sort_smem(F, vtt_sort_threads(F)),
+             s)(a);
+  VTT_LAUNCH(vtt_batch_seg<PS>, wide_f, VTT_WIDE_THREADS, 0, s)(a);
+  VTT_LAUNCH(vtt_batch_jobs, (int)((a.M + VTT_WIDE_THREADS - 1) / VTT_WIDE_THREADS),
+             VTT_WIDE_THREADS, 0, s)(a);
+  VTT_LAUNCH(vtt_batch_queue, 1, VTT_ONE_CTA_THREADS, vtt_queue_smem(F, (int)a.R), s)(a);
+  for (int b = 0; b < n_blocks; ++b) {
+    VTT_LAUNCH(vtt_batch_apply_idle<PS>, wide_f, VTT_WIDE_THREADS, 0, s)(blocks[b]);
+    VTT_LAUNCH(vtt_batch_apply_pipe<PS>, wide_f, VTT_WIDE_THREADS, 0, s)(blocks[b]);
+    VTT_LAUNCH(vtt_batch_rollback<PS>, 1, 1, 0, s)(blocks[b]);
+  }
   VTT_LAUNCH(vtt_batch_finish, 1, 1, 0, s)(a);
   vtt_batch_keys_launch(a, s);
 }

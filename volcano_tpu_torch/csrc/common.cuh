@@ -67,7 +67,6 @@ struct VttSolveArgs {
   // batch-solve scratch
   float* job_keys;       // [J, 4] rank keys, most significant first
   uint8_t* job_active;   // [J]
-  int32_t* job_rank;     // [J]
   int32_t* sel;          // [M] job at each rank, -1 past the active count
   int32_t* p_node;       // [F] proposals, flat (job rank, task offset)
   int32_t* p_t;
@@ -112,11 +111,19 @@ struct VttSolveArgs {
   const int32_t* recv;          // every block's records [S, M, K, W]
   int32_t* p_rec;               // [F] the record a proposal's node came from
   unsigned long long* p_key;    // [F] proposals in (node, rank) order
+  // the batch solve's select: nC chunks of jobs, each with a list of its
+  // first M active jobs in rank order (job, keys, rank over every list),
+  // its list length and its last active job
+  float* c_key;                 // [nC, M, 4]
+  int32_t* c_job;               // [nC, M]
+  int32_t* c_rank;              // [nC, M]
+  int32_t* c_cnt;               // [nC]
+  int32_t* c_max;               // [nC]
   int64_t n0, NB, S, TB, TILE, W;
   int64_t N, R, T, J, Q, C, M, P, K, F;
   int64_t n_keys, key0, key1, key2;  // job_key_order: 1 priority, 2 gang, 3 drf
   int64_t use_gang_ready, use_proportion, has_portsel;
-  int64_t VW, CL, G, has_volsel;
+  int64_t VW, CL, G, has_volsel, nC;
   float w_least, w_balanced, w_podaff;
 };
 

@@ -819,19 +819,20 @@ class SolveArgs(ctypes.Structure):
         "queue_deserved", "class_mask", "class_score", "total", "eps",
         "job_alloc", "cursor", "dropped", "queue_alloc", "queue_dropped",
         "packed", "ctl",
-        "job_keys", "job_active", "job_rank", "sel",
+        "job_keys", "job_active", "sel",
         "p_node", "p_t", "p_job", "p_flags", "best_pipe",
         "node_ports", "node_selcnt", "task_ports", "task_aff", "task_anti",
         "task_self", "node_match",
         "task_volmask", "task_claims", "claim_group", "group_global",
         "claim_node", "vol_cap", "queue_has",
         "t_val", "t_idx", "t_any", "send", "recv", "p_rec", "p_key",
+        "c_key", "c_job", "c_rank", "c_cnt", "c_max",
     )] + [(name, ctypes.c_int64) for name in (
         "n0", "NB", "S", "TB", "TILE", "W",
         "N", "R", "T", "J", "Q", "C", "M", "P", "K", "F",
         "n_keys", "key0", "key1", "key2",
         "use_gang_ready", "use_proportion", "has_portsel",
-        "VW", "CL", "G", "has_volsel",
+        "VW", "CL", "G", "has_volsel", "nC",
     )] + [("w_least", ctypes.c_float), ("w_balanced", ctypes.c_float),
           ("w_podaff", ctypes.c_float)]
 
@@ -1062,8 +1063,11 @@ NODE_PLANES = ("idle", "releasing", "used", "node_alloc", "node_max_tasks",
 #: floats); a block's score pass runs over ceil(NB / BATCH_TILE) tiles
 BATCH_TILE = 8192
 #: proposals a round of the batch solve sorts in one CTA's shared memory
-#: (128 KB of keys): m_chunk * p_chunk may not exceed it
+#: (224 KB of keys, indices and digit counters at this cap): m_chunk *
+#: p_chunk may not exceed it
 MAX_PROPOSALS = 16384
+#: jobs a CTA of the batch solve's select sorts (csrc VTT_SEL_CHUNK)
+SEL_CHUNK = 2048
 
 
 def record_words(R: int) -> int:
@@ -1140,6 +1144,7 @@ def batch_launch(lib, stream, a, blocks, n_blocks, exchange, w_least, w_balanced
                          f"{MAX_PROPOSALS} (the accept sort's shared memory), got {P}, {F}")
     TB = -(-NB // BATCH_TILE)
     W = record_words(R)
+    nC = -(-J // SEL_CHUNK)
 
     def empty(shape, dt):
         return torch.empty(shape, dtype=dt, device=dev)
@@ -1157,7 +1162,10 @@ def batch_launch(lib, stream, a, blocks, n_blocks, exchange, w_least, w_balanced
         "queue_alloc": a["queue_alloc_init"].clone(),
         "ctl": torch.zeros(16, dtype=i32, device=dev),
         "job_keys": empty((J, 4), f32), "job_active": empty((J,), b8),
-        "job_rank": empty((J,), i32), "sel": empty((M,), i32),
+        "sel": empty((M,), i32),
+        "c_key": empty((nC * M * 4,), f32), "c_job": empty((nC * M,), i32),
+        "c_rank": empty((nC * M,), i32), "c_cnt": empty((nC,), i32),
+        "c_max": empty((nC,), i32),
         "p_node": empty((F,), i32), "p_t": empty((F,), i32),
         "p_job": empty((F,), i32), "p_flags": empty((F,), torch.uint8),
         "best_pipe": empty((N + 1,), i32), "p_rec": empty((F,), i32),
@@ -1178,6 +1186,7 @@ def batch_launch(lib, stream, a, blocks, n_blocks, exchange, w_least, w_balanced
         TILE=BATCH_TILE, W=W, n_keys=len(job_key_order), key0=codes[0], key1=codes[1],
         key2=codes[2], use_gang_ready=int(bool(use_gang_ready)),
         use_proportion=int(bool(use_proportion)), has_portsel=int(task_words is not None),
+        nC=nC,
     )
     base = SolveArgs()
     for name, t in base_fields.items():

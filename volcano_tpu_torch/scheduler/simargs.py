@@ -7,7 +7,8 @@ J gang jobs across Q weighted queues — plus the water-fill inputs.
 ``build_portsel_args`` adds seeded host-port and pod (anti)affinity
 bitsets for the same cluster, packed as the port's solves take them, and
 ``build_volsel_args`` seeded volume payloads (``kernels.pack_volsel``
-packs them for the port's solve).
+packs them for the port's solve), and ``build_batch_edge_args`` the edge
+shapes of the batched solve's select and accept.
 ``build_victim_sim`` (also verbatim) is the victim-selection scenario of
 the contention solves: running tasks spread over nodes, with the derived
 node, job and queue state; ``build_storm_sim`` adds seeded preemptor jobs
@@ -159,6 +160,77 @@ def add_releasing(args: dict, seed: int = 0, busy_frac: float = 0.6) -> dict:
                          * units).astype(np.float32)
     args["task_count"] = np.where(busy, rng.integers(1, 4, N), 0).astype(np.int32)
     return args
+
+
+#: the shapes the batched solve's select and accept must get right
+#: (``build_batch_edge_args``)
+BATCH_EDGE_CASES = ("tied_chunks", "few_active", "prio_zero", "many_queues", "hot_node",
+                    "drop_rollback")
+
+
+def _refresh_totals(a: dict) -> None:
+    """Recompute idle, total and the queues' requests after a reshape."""
+    a["idle"] = a["node_alloc"].copy()
+    a["total"] = a["node_alloc"][a["node_valid"]].sum(0).astype(np.float32)
+    n_tasks = int(a["task_valid"].sum())
+    q_of_task = a["job_queue"][a["task_job"][:n_tasks]]
+    for q in range(a["queue_request"].shape[0]):
+        a["queue_request"][q] = a["task_req"][:n_tasks][q_of_task == q].sum(0)
+
+
+def build_batch_edge_args(case: str, seed: int = 0):
+    """``(args, opts)``: ``build_sim_args`` inputs reshaped into one edge
+    shape of the batched solve's select and accept, and the solve options
+    that reach it:
+
+    * ``tied_chunks``: 2,100 one-task jobs of one queue at one priority on
+      64 nodes with room for all: more jobs than one select chunk (2,048),
+      every tier key tied, so the job index alone orders them;
+    * ``few_active``: 40 jobs of which 20 are schedulable, m_chunk 32:
+      fewer active jobs than M;
+    * ``prio_zero``: priority 0 (the key -0.0) beside priority 3, the
+      priority key first;
+    * ``many_queues``: 96 two-task jobs over 24 queues, all selected in the
+      first round, with room for all: winners in every queue in one round;
+    * ``hot_node``: one node a hundred times the size of the others, which
+      are too small for any task: every proposal lands on that node (one
+      long node segment);
+    * ``drop_rollback``: three 6-task gangs (min 6) on four nodes with room
+      for three tasks each, no proportion: a round with no win drops the
+      lowest-ranked gang and unwinds its placements.
+    """
+    if case == "tied_chunks":
+        a = build_sim_args(64, 2100, 2100, n_queues=1, seed=seed)
+        a["job_prio"][:] = 0
+        a["node_alloc"] *= 100
+        opts = dict(p_chunk=2)
+    elif case == "few_active":
+        a = build_sim_args(16, 160, 40, n_queues=2, seed=seed)
+        a["job_schedulable"][:40:2] = False
+        opts = dict(m_chunk=32, p_chunk=3)
+    elif case == "prio_zero":
+        a = build_sim_args(16, 128, 32, n_queues=2, seed=seed)
+        a["job_prio"][:32] = np.where(np.arange(32) % 3 == 0, 3, 0)
+        opts = dict(m_chunk=8, p_chunk=3, job_key_order=("priority", "drf", "gang"))
+    elif case == "many_queues":
+        a = build_sim_args(32, 192, 96, n_queues=24, seed=seed)
+        a["node_alloc"] *= 10
+        opts = dict(m_chunk=96, p_chunk=2)
+    elif case == "hot_node":
+        a = build_sim_args(16, 256, 32, n_queues=2, seed=seed)
+        a["node_alloc"][0] *= 100
+        a["node_alloc"][1:16] = (100.0, 64.0 * (1 << 20))
+        opts = dict(m_chunk=32, p_chunk=8)
+    elif case == "drop_rollback":
+        a = build_sim_args(4, 18, 3, n_queues=1, seed=seed)
+        a["task_req"][:18] = (1000.0, 1024.0 * (1 << 20))
+        a["node_alloc"][:4] = (3000.0, 3072.0 * (1 << 20))
+        a["job_min"][:3] = 6
+        opts = dict(m_chunk=3, p_chunk=3, use_proportion=False)
+    else:
+        raise ValueError(f"unknown batch edge case {case!r}")
+    _refresh_totals(a)
+    return a, opts
 
 
 def build_portsel_args(
