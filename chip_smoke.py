@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --profile [OUT.json]  # first a profiler pass
     python3 chip_smoke.py --split    # only the batched solve's stage split
+    python3 chip_smoke.py --victim-split  # only the victim solve's split (K7, K12b)
+    python3 chip_smoke.py --storm-split   # only K8-K10 and K15a-c at config 6, timed
 
 Phases, each fatal on failure:
 
@@ -70,14 +72,18 @@ Phases, each fatal on failure:
    task order: the fast cycle declines a best-effort reclaimer, so every
    cycle runs the object path (session, plugins, the five actions over the
    tensor backend); the reclaimer's attempt is a host detour with a
-   resync, every other preemptor attempt one K7 (victim_step) launch.
+   resync, every other preemptor attempt one K7 (victim_step) launch over
+   the groups _VictimDriver builds once per snapshot load (victim_groups).
    Three cycles, victims reaped: the cfg6 eviction invariants and the JAX
-   package's per-cycle pattern at 1/20 scale; K7 launches and device ms,
-   the resyncs' walls and the object cycle's walls (session open, each
-   action, close) per cycle;
-13. K7 kernel — victim_step against its plain version at bench config 4's
-   shape (16 solves timed), over the three modes and five flags on small
-   seeded inputs, and on the first inputs cfg6r-be gave it;
+   package's per-cycle pattern at 1/20 scale; K7 and group-build launches,
+   K7 device ms, the resyncs' walls and the object cycle's walls (session
+   open, each action, close) per cycle;
+13. K7 kernel — the group build against its plain version at bench config
+   4's shape, victim_step warm (the groups held) and cold (built in the
+   call) against its plain version there (16 solves timed each), a chain of
+   32 solves over one grouping with the state fed back against the plain
+   chain, the three modes and five flags on small seeded inputs, cold and
+   warm, and the first inputs cfg6r-be gave it, warm and cold;
 14. e2e cfg5-obj — config 5's nodes and 5,000 gangs x 20 (no best-effort
    pods) with fast_path off: the object cycle's allocate runs K3 and the
    bulk apply; every gang task bound in cycle 1; two cycles;
@@ -108,9 +114,10 @@ Phases, each fatal on failure:
    that run's K7 launches; K12b launches, device ms and the object cycle's
    walls per cycle;
 19. K12b kernel — at bench config 4's shape on local meshes of 1, 2, 4 and
-   8 blocks (16 solves timed), each bit for bit equal to its plain version
-   on the same blocks and to the one-block K7, state included; a chain of
-   16 solves with the blocked state fed back; the three modes and the
+   8 blocks (16 solves timed, warm and cold), each bit for bit equal to its
+   plain version on the same blocks and to the one-block K7, state
+   included; a chain of 16 solves over one grouping with the blocked state
+   fed back; the three modes and the
    flags on small seeded inputs on 2, 4 and 8 blocks; a one-rank NCCL group
    running four blocks; the first inputs cfg6r-be-mesh gave it;
 20. K13 at cfg9 — run_lockstep at 1, 2 and 4 hosts over four node blocks on
@@ -146,7 +153,11 @@ batched solve's split (``--split``: K3 at config 5 and the 4-block solve at
 cfg9's shape, each against its plain version), then one config-5 cycle and
 one cfg9 cycle: device time by kernel and the device's idle share of the
 cycles (also written to OUT.json when given).  ``--split`` runs the build
-and that split alone.
+and that split alone.  ``--victim-split`` runs the build and the victim
+solve's split alone (phase_victim_split: K7 at config 4 and on cfg6r-be's
+first inputs, K12b at config 4 on 4 blocks; device ms and launches by
+kernel, the wrapper's host us, the wall and the host gap, warm, cold and
+the group build alone), so a parent commit is measured in the same call.
 
 Phase 20 runs right after phase 17, on phase 16's captured inputs; the
 cfg9 objects are then released before phases 18, 19, 21, 22 and 23.
@@ -847,7 +858,7 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
             f"{phases['dyn_solve'] - solve_walls[0]:.4f} s, upload + solve + fetch "
             f"{solve_walls[0]:.4f} s")
     want = {k: 1 for k in want} if not isinstance(want, dict) else want
-    forbid = tuple(forbid) + OBJECT_KERNELS
+    forbid = tuple(forbid) + OBJECT_FORBID
     for name, at_least in want.items():
         if launches[name] < at_least:
             raise AssertionError(f"{label}: kernel {name} launched {launches[name]} times on "
@@ -1280,7 +1291,7 @@ def phase_contention(label, cell, want, forbid, conf=None, names=CONTENTION_KERN
         if launches[name] < at_least:
             raise AssertionError(f"{label}: kernel {name} launched {launches[name]} times on "
                                  f"the main path, expected at least {at_least}")
-    for name in tuple(forbid) + OBJECT_KERNELS:
+    for name in tuple(forbid) + OBJECT_FORBID:
         if launches[name]:
             raise AssertionError(f"{label}: kernel {name} launched ({launches[name]})")
     log(f"[{label}] invariants hold; evictions per cycle {[h[0] for h in history]}")
@@ -1481,6 +1492,10 @@ def phase_victim_kernels(captured, launches):
 CFG6R_BE_PATTERN = [(19, 10, 0), (19, 10, 0), (19, 10, 0)]
 # the object path's kernels; the fast-path cells must not launch them
 OBJECT_KERNELS = ("victim_step", "victim_step_sharded")
+#: the object path's group build (once per snapshot load), and with the
+#: solves the kernels the fast-path cells must not launch
+GROUP_KERNEL = "victim_groups"
+OBJECT_FORBID = OBJECT_KERNELS + (GROUP_KERNEL,)
 
 
 class ObjectCapture:
@@ -1545,6 +1560,18 @@ class ObjectCapture:
             setattr(owner, name, fn)
 
 
+def build_cfg6r_be_store():
+    """cfg6r plus one empty-request pod first in gang rec000's task order
+    (a best-effort reclaimer: the fast cycle declines it)."""
+    from volcano_tpu_torch.api import POD_GROUP_KEY, Metadata, Pod, PodSpec, Resource
+
+    store = build_contended_store("cfg6r")
+    store.create("Pod", Pod(
+        meta=Metadata(name="hbe000", namespace="default", annotations={POD_GROUP_KEY: "rec000"}),
+        spec=PodSpec(resources=Resource())))
+    return store
+
+
 def _object_walls(sched):
     return {k: round(v, 4) for k, v in sched.object_phases.items()}
 
@@ -1561,14 +1588,10 @@ def _object_cfg6r_be(label, conf, kernel):
     and binds."""
     import torch
 
-    from volcano_tpu_torch.api import POD_GROUP_KEY, Metadata, Pod, PodSpec, Resource
     from volcano_tpu_torch.scheduler.scheduler import Scheduler
 
     t0 = time.perf_counter()
-    store = build_contended_store("cfg6r")
-    store.create("Pod", Pod(
-        meta=Metadata(name="hbe000", namespace="default", annotations={POD_GROUP_KEY: "rec000"}),
-        spec=PodSpec(resources=Resource())))
+    store = build_cfg6r_be_store()
     log(f"[{label}] store built: {CFG6['nodes']} nodes, "
         f"{CFG6['run_jobs'] * CFG6['tasks_per_job']} residents, "
         f"{CFG6['reclaim_gangs']} reclaiming gangs + 1 best-effort pod "
@@ -1602,8 +1625,9 @@ def _object_cfg6r_be(label, conf, kernel):
                 f"{history[-1]}; {kernel} launches {launches[kernel]}, device "
                 f"{cap.take_device_ms():.3f} ms; {len(resyncs)} resyncs "
                 f"{[round(r, 4) for r in resyncs]} s; launches {launches}")
-            if launches[kernel] < 1:
-                raise AssertionError(f"{label}: {kernel} not launched in cycle {cycle + 1}")
+            for name in (kernel, GROUP_KERNEL):
+                if launches[name] < 1:
+                    raise AssertionError(f"{label}: {name} not launched in cycle {cycle + 1}")
             for name in CONTENTION_KERNELS + tuple(k for k in OBJECT_KERNELS if k != kernel):
                 if launches[name]:
                     raise AssertionError(f"{label}: kernel {name} launched ({launches[name]})")
@@ -1714,26 +1738,6 @@ def phase_object_cfg5():
     return first
 
 
-def _step_compare(name, out_k, out_p):
-    """The packed decision equal, integer and boolean state equal, float
-    state within rtol 1e-6; returns the largest float difference."""
-    import torch
-
-    if not torch.equal(out_k.packed, out_p.packed.to(out_k.packed.device)):
-        raise AssertionError(f"{name}: decision {out_k.packed[:4].tolist()} != "
-                             f"{out_p.packed[:4].tolist()} or victim masks differ")
-    err = 0.0
-    for f in out_k.state._fields:
-        x, y = getattr(out_k.state, f), getattr(out_p.state, f)
-        if x.dtype.is_floating_point:
-            err = max(err, float((x - y).abs().max()) if x.numel() else 0.0)
-            if not torch.allclose(x, y, rtol=1e-6, atol=0.0):
-                raise AssertionError(f"{name}: state {f} differs (max abs err {err})")
-        elif not torch.equal(x, y):
-            raise AssertionError(f"{name}: state {f} differs")
-    return err
-
-
 def _step_bound(c, s, t_req, out):
     """Bytes: every input read once (constants, state, request), the new
     state and the packed decision written once; operations: the victim
@@ -1747,12 +1751,47 @@ def _step_bound(c, s, t_req, out):
     return bound_ms(b, ops)
 
 
+#: operations of one comparison in the group build's per-node sorts (two
+#: keys' loads, compare, select)
+GROUP_CMP_OPS = 4
+
+
+def _groups_bound(c, live, g):
+    """Bytes: the constants the build reads (run_node, run_job, run_prio,
+    run_rank, job_queue) and the live mask once, the offsets and the four
+    lists written once; operations: each node's four sorts of its grouped
+    rows, m log2 m comparisons each."""
+    m = np.diff(g.node_off.cpu().numpy()).astype(np.float64)
+    cmp = float((m * np.log2(np.maximum(m, 1))).sum()) * 4
+    b = nbytes(c.run_node, c.run_job, c.run_prio, c.run_rank, c.job_queue, live, *g[:5])
+    return bound_ms(b, cmp * GROUP_CMP_OPS)
+
+
+def _plain_groups(label, g, c, live, mesh=None):
+    """The plain grouping of the rows of ``live``; raises unless the
+    groups ``g`` (built on the card) equal it field for field."""
+    import torch
+
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    want = VK.victim_groups_plain(c, live, order_by_priority=g.order_by_priority, mesh=mesh)
+    for name, x, y in zip(VK.VictimGroups._fields[:5], g, want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: groups {name} differ from the plain version")
+    return want
+
+
 def phase_victim_step_kernel(captured, launches):
-    """K7 against its plain version on the card: at bench config 4's shape
-    (build_victim_sim(10000, 100000, 5000, seed=4), a [2000, 4Gi] preemptor
-    of the reserved job 0, mode queue with the gang and drf vetoes: 16
-    solves timed), over the three modes and the five flags on small seeded
-    inputs, and on the first inputs cfg6r-be gave it."""
+    """K7 and the group build against their plain versions on the card: at
+    bench config 4's shape (build_victim_sim(10000, 100000, 5000, seed=4),
+    a [2000, 4Gi] preemptor of the reserved job 0, mode queue with the gang
+    and drf vetoes), the groups of the live rows equal to
+    victim_groups_plain, K7 warm (the groups held) and cold (built in the
+    call), 16 solves timed each, and a chain of 32 solves over one grouping
+    with the state fed back, each bit for bit the plain chain's; over the
+    three modes and the five flags on small seeded inputs, cold and warm;
+    and on the first inputs cfg6r-be gave it, warm and cold.  ``launches``:
+    cfg6r-be's first-cycle launches."""
     import torch
 
     from volcano_tpu_torch import interop
@@ -1772,22 +1811,81 @@ def phase_victim_step_kernel(captured, launches):
     c, s = interop.victim_from_arrays(c_np, s_np, dev)
     t_req = torch.tensor([2000.0, 4.0 * (1 << 30)], device=dev)
     kw = dict(mode="queue", use_gang=True, use_drf=True)
-    out_k = VK.victim_step(c, s, t_req, 0, 0, 0, **kw)
-    out_p, p_ms = plain_ms(lambda: VK.victim_step_plain(c, s, t_req, 0, 0, 0, **kw))
-    err = _step_compare("victim_step config 4", out_k, out_p)
-    ms = cuda_ms(lambda: VK.victim_step(c, s, t_req, 0, 0, 0, **kw), 16)
+
+    def groups():
+        return VK.victim_groups(c, s.run_live, order_by_priority=True)
+
+    g = groups()
+    g_p = _plain_groups("victim_groups config 4", g, c, s.run_live)
+    _, g_plain_ms = plain_ms(lambda: VK.victim_groups_plain(c, s.run_live))
+    g_ms = cuda_ms(groups, 16)
+    g_b, g_kind = _groups_bound(c, s.run_live, g)
+    log(f"[kernels] victim_groups config 4 ok: {int(g.node_off[-1])} rows on "
+        f"{g.node_off.shape[0] - 1} nodes, equal to the plain version; {g_ms:.4f} ms over 16 "
+        f"builds (plain {g_plain_ms:.1f} ms, bound {g_b:.5f} ms by {g_kind})")
+
+    def warm():
+        return VK.victim_step(c, s, t_req, 0, 0, 0, groups=g, **kw)
+
+    def cold():
+        return VK.victim_step(c, s, t_req, 0, 0, 0, **kw)
+
+    out_k = warm()
+    out_p, p_ms = plain_ms(lambda: VK.victim_step_plain(c, s, t_req, 0, 0, 0, groups=g_p,
+                                                        **kw))
+    _, p_cold_ms = plain_ms(lambda: VK.victim_step_plain(c, s, t_req, 0, 0, 0, **kw))
+    err = max(_blocked_compare("victim_step config 4, warm", out_k, out_p),
+              _blocked_compare("victim_step config 4, cold", cold(), out_p))
+    ms = cuda_ms(warm, 16)
+    cold_ms = cuda_ms(cold, 16)
     b, kind = _step_bound(c, s, t_req, out_k)
     head = out_k.packed[:4].tolist()
     if not head[0]:
         raise AssertionError("victim_step config 4: never assigned")
     log(f"[kernels] victim_step config 4 ok: assigned {head[0]}, node {head[1]}, clean "
-        f"{head[2]}, {head[3]} victims; {ms:.4f} ms over 16 solves (plain {p_ms:.1f} ms, "
-        f"bound {b:.5f} ms by {kind})")
+        f"{head[2]}, {head[3]} victims; warm {ms:.4f} ms, cold {cold_ms:.4f} ms over 16 solves "
+        f"(plain {p_ms:.1f} ms given the groups, {p_cold_ms:.1f} ms building them; bound "
+        f"{b:.5f} ms by {kind})")
+
+    # a chain of 32 solves over one grouping, the state fed back on each
+    # assignment (the decision read each step, as _VictimDriver does)
+    rng = np.random.default_rng(4)
+    chain = []
+    for _ in range(32):
+        jt = int(rng.integers(0, 5_000))
+        chain.append((torch.tensor([float(rng.choice([1000, 2000, 4000])),
+                                    float(rng.choice([1, 2, 4]) * (1 << 30))], device=dev),
+                      jt, int(c_np["job_queue"][jt])))
+
+    def run_chain(step):
+        st, outs = s, []
+        for tr, jt, qt in chain:
+            out = step(st, tr, jt, qt)
+            outs.append(out)
+            if bool(out.packed[0]):
+                st = out.state
+        return outs
+
+    outs_k, chain_wall = _timed(lambda: run_chain(
+        lambda st, tr, jt, qt: VK.victim_step(c, st, tr, 0, jt, qt, groups=g, **kw)))
+    outs_p = run_chain(
+        lambda st, tr, jt, qt: VK.victim_step_plain(c, st, tr, 0, jt, qt, groups=g_p, **kw))
+    for i, (ok, op) in enumerate(zip(outs_k, outs_p)):
+        err = max(err, _blocked_compare(f"victim_step chain step {i}", ok, op))
+    chain_ms = chain_wall / len(chain)
+    n_ev = sum(int(o.packed[3]) for o in outs_p if bool(o.packed[0]))
+    log(f"[kernels] victim_step chain of {len(chain)} solves over one grouping ok "
+        f"({sum(int(o.packed[0]) for o in outs_p)} assigned, {n_ev} victims): {chain_ms:.4f} ms "
+        "a solve (host wall, the decision read each step), equal to the plain chain bit for bit")
 
     n = n_assigned = 0
     for seed in range(2):
         cs, ss = interop.victim_from_arrays(*build_victim_sim(16, 120, 10, n_queues=3,
                                                               seed=seed), dev)
+        gs = {obp: VK.victim_groups(cs, ss.run_live, order_by_priority=obp)
+              for obp in (False, True)}
+        for obp, gk in gs.items():
+            _plain_groups(f"victim_groups sweep {seed} {obp}", gk, cs, ss.run_live)
         rng = np.random.default_rng(seed)
         for mode in ("queue", "job", "reclaim"):
             for flags in range(32):
@@ -1798,13 +1896,17 @@ def phase_victim_step_kernel(captured, launches):
                                    float(rng.choice([0, 512, 2048]) * (1 << 20))], device=dev)
                 jt = int(rng.integers(0, 10))
                 qt = int(cs.job_queue[jt])
-                o_k = VK.victim_step(cs, ss, tr, 0, jt, qt, mode=mode, **fkw)
                 o_p = VK.victim_step_plain(cs, ss, tr, 0, jt, qt, mode=mode, **fkw)
-                err = max(err, _step_compare(f"victim_step sweep {seed} {mode} {fkw}", o_k, o_p))
+                tag = f"victim_step sweep {seed} {mode} {fkw}"
+                err = max(err, _blocked_compare(
+                    tag + " cold", VK.victim_step(cs, ss, tr, 0, jt, qt, mode=mode, **fkw), o_p),
+                    _blocked_compare(tag + " warm", VK.victim_step(
+                        cs, ss, tr, 0, jt, qt, mode=mode, groups=gs[bool(flags & 16)], **fkw),
+                        o_p))
                 n += 1
                 n_assigned += int(o_p.packed[0])
-    log(f"[kernels] victim_step sweep ok: {n} small solves ({n_assigned} assigned) equal to "
-        f"the plain version")
+    log(f"[kernels] victim_step sweep ok: {n} small solves ({n_assigned} assigned), cold and "
+        "warm, equal to the plain version")
     # reclaim mode with the drf veto on: the preemptor's share counts in any
     # mode; only cases where drf changes the plain decision are kept
     n_drf = 0
@@ -1821,8 +1923,8 @@ def phase_victim_step_kernel(captured, launches):
                 if torch.equal(o_p.packed, o_off.packed):
                     continue
                 o_k = VK.victim_step(cs, ss, tr, 0, jt, qt, mode="reclaim", use_drf=True)
-                err = max(err, _step_compare(f"victim_step reclaim+drf {seed} {jt} {cpu}",
-                                             o_k, o_p))
+                err = max(err, _blocked_compare(f"victim_step reclaim+drf {seed} {jt} {cpu}",
+                                                o_k, o_p))
                 n_drf += 1
     if not n_drf:
         raise AssertionError("victim_step: no reclaim-mode case where drf decides")
@@ -1831,19 +1933,34 @@ def phase_victim_step_kernel(captured, launches):
 
     args, ckw = captured
     c2, s2, tr2 = args[0], args[1], args[2]
+    if "groups" not in ckw:
+        raise AssertionError("victim_step cfg6r-be: the object path passed no groups")
+    cold_kw = {k: v for k, v in ckw.items() if k != "groups"}
+    # _VictimDriver grouped the rows live at its load, the first attempt's
+    g2_p = _plain_groups("victim_groups cfg6r-be", ckw["groups"], c2, s2.run_live)
     o_k = VK.victim_step(*args, **ckw)
-    o_p, p2_ms = plain_ms(lambda: VK.victim_step_plain(*args, **ckw))
-    err = max(err, _step_compare("victim_step cfg6r-be", o_k, o_p))
+    o_p, p2_ms = plain_ms(lambda: VK.victim_step_plain(*args, **cold_kw, groups=g2_p))
+    err = max(err, _blocked_compare("victim_step cfg6r-be, warm", o_k, o_p),
+              _blocked_compare("victim_step cfg6r-be, cold", VK.victim_step(*args, **cold_kw),
+                               o_p))
     ms2 = cuda_ms(lambda: VK.victim_step(*args, **ckw), 16)
+    cold_ms2 = cuda_ms(lambda: VK.victim_step(*args, **cold_kw), 16)
     b2, kind2 = _step_bound(c2, s2, tr2, o_k)
     log(f"[kernels] victim_step cfg6r-be first inputs ok ({ckw['mode']}, decision "
-        f"{o_k.packed[:4].tolist()}): {ms2:.4f} ms (plain {p2_ms:.1f} ms, bound {b2:.5f} ms "
-        f"by {kind2})")
-    return {"victim_step": dict(
-        name="victim_step", route="cuda", source="volcano_tpu_torch/csrc/victim_step.cu",
-        replaces="volcano_tpu/scheduler/victim_kernels.py:362", launches=launches,
+        f"{o_k.packed[:4].tolist()}): warm {ms2:.4f} ms, cold {cold_ms2:.4f} ms (plain "
+        f"{p2_ms:.1f} ms, bound {b2:.5f} ms by {kind2})")
+    src = "volcano_tpu_torch/csrc/victim_step.cu"
+    return {"victim_groups": dict(
+        name="victim_groups", route="cuda", source=src,
+        replaces="volcano_tpu/scheduler/victim_kernels.py:131", launches=launches[GROUP_KERNEL],
+        max_abs_err=0.0, ms=g_ms, plain_ms=g_plain_ms, bound_ms=g_b, bound_by=g_kind,
+        library_ms=None, cell="config 4 shape, the live rows; launches: cfg6r-be cycle 1"),
+        "victim_step": dict(
+        name="victim_step", route="cuda", source=src,
+        replaces="volcano_tpu/scheduler/victim_kernels.py:362", launches=launches["victim_step"],
         max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b, bound_by=kind, library_ms=None,
-        cell="config 4 shape; launches: cfg6r-be cycle 1", cfg6r_be_ms=ms2,
+        cell="config 4 shape, warm; launches: cfg6r-be cycle 1", cold_ms=cold_ms,
+        plain_cold_ms=p_cold_ms, chain_ms=chain_ms, cfg6r_be_ms=ms2, cfg6r_be_cold_ms=cold_ms2,
         cfg6r_be_plain_ms=p2_ms, cfg6r_be_bound_ms=b2)}
 
 
@@ -2079,7 +2196,7 @@ def phase_cfg9():
     for name in ("water_fill", "allocate_solve_batch", "sharded_cycle"):
         if launches[name] < 1:
             raise AssertionError(f"cfg9: kernel {name} launched {launches[name]} times")
-    for name in ("allocate_solve",) + CONTENTION_KERNELS + OBJECT_KERNELS:
+    for name in ("allocate_solve",) + CONTENTION_KERNELS + OBJECT_FORBID:
         if launches[name]:
             raise AssertionError(f"cfg9: kernel {name} launched ({launches[name]})")
     if sched.last_path != "fast" or not captured:
@@ -2264,8 +2381,9 @@ def phase_victim_sharded_kernel(captured, launches):
     100000, 5000, seed=4), the [2000, 4Gi] preemptor of phase 13) on local
     meshes of 1, 2, 4 and 8 blocks, each bit for bit equal to its plain
     version on the same blocks and to the one-block K7, state included (16
-    solves timed); a chain of 16 solves with the blocked state fed back,
-    timed, equal to the one-block K7 chain; the three modes and the veto and
+    solves timed warm, over one grouping of the pool, and cold); a chain
+    of 16 solves over one grouping with the blocked state fed back, timed,
+    equal to the one-block K7 chain; the three modes and the veto and
     order flags on small seeded inputs on 2, 4 and 8 blocks; a one-rank
     NCCL group (FileStore rendezvous) running four blocks; the first inputs
     cfg6r-be-mesh gave it."""
@@ -2284,28 +2402,36 @@ def phase_victim_sharded_kernel(captured, launches):
     t_req = torch.tensor([2000.0, 4.0 * (1 << 30)], device=dev)
     kw = dict(mode="queue", use_gang=True, use_drf=True)
     one = VK.victim_step(c, s, t_req, 0, 0, 0, **kw)
-    err, ms, plain_ms = 0.0, {}, {}
+    err, ms, plain_ms, cold_ms = 0.0, {}, {}, {}
     for n in MESH_BLOCKS:
         mesh = S.LocalMesh(n, dev)
         _, dc, ds = S.make_sharded_victim_step(mesh, c, s)
+        g = VK.victim_groups(dc, ds.run_live, mesh=mesh)
+        g_p = _plain_groups(f"K12b groups, {n} blocks", g, dc, ds.run_live, mesh)
 
-        def run(mesh=mesh, dc=dc, ds=ds):
-            return VK.victim_step_sharded(dc, ds, t_req, 0, 0, 0, mesh, **kw)
+        def run(mesh=mesh, dc=dc, ds=ds, **gkw):
+            return VK.victim_step_sharded(dc, ds, t_req, 0, 0, 0, mesh, **kw, **gkw)
 
-        out_k = run()
+        out_k = run(groups=g)
         out_p, plain_ms[n] = _timed(lambda: S.victim_blocks_plain(
-            dc, ds, t_req, 0, 0, 0, mesh, N // n, **kw))
+            dc, ds, t_req, 0, 0, 0, mesh, N // n, groups=g_p, **kw))
         err = max(err, _blocked_compare(f"K12b config 4, {n} blocks vs plain", out_k, out_p),
-                  _blocked_compare(f"K12b config 4, {n} blocks vs K7", out_k, one))
-        ms[n] = cuda_ms(run, 16)
-        log(f"[K12b] config 4 on {n} blocks ok (decision {out_k.packed[:4].tolist()}): "
-            f"{ms[n]:.4f} ms over 16 solves (plain on the same blocks {plain_ms[n]:.1f} ms), "
-            "equal to the plain version and to K7 bit for bit")
+                  _blocked_compare(f"K12b config 4, {n} blocks vs K7", out_k, one),
+                  _blocked_compare(f"K12b config 4, {n} blocks cold", run(), one))
+        ms[n] = cuda_ms(lambda: run(groups=g), 16)
+        cold_ms[n] = cuda_ms(run, 16)
+        log(f"[K12b] config 4 on {n} blocks ok (decision {out_k.packed[:4].tolist()}): warm "
+            f"{ms[n]:.4f} ms, cold {cold_ms[n]:.4f} ms over 16 solves (plain on the same blocks "
+            f"{plain_ms[n]:.1f} ms), equal to the plain version and to K7 bit for bit")
     b, kind = _step_bound(c, s, t_req, one)
 
     # a chain of 16 solves, the blocked state fed back on each assignment
     mesh = S.LocalMesh(int(CFG6R_BE_MESH), dev)
     _, dc, ds = S.make_sharded_victim_step(mesh, c, s)
+    g = VK.victim_groups(dc, ds.run_live, mesh=mesh)
+    g1 = VK.victim_groups(c, s.run_live)
+    _plain_groups("K12b chain groups", g, dc, ds.run_live, mesh)
+    _plain_groups("K7 chain groups", g1, c, s.run_live)
     rng = np.random.default_rng(4)
     chain = []
     for _ in range(16):
@@ -2324,8 +2450,10 @@ def phase_victim_sharded_kernel(captured, launches):
         return outs
 
     outs_k, chain_wall = _timed(lambda: run_chain(
-        ds, lambda st, tr, jt, qt: VK.victim_step_sharded(dc, st, tr, 0, jt, qt, mesh, **kw)))
-    outs_1 = run_chain(s, lambda st, tr, jt, qt: VK.victim_step(c, st, tr, 0, jt, qt, **kw))
+        ds, lambda st, tr, jt, qt: VK.victim_step_sharded(dc, st, tr, 0, jt, qt, mesh,
+                                                          groups=g, **kw)))
+    outs_1 = run_chain(s, lambda st, tr, jt, qt: VK.victim_step(c, st, tr, 0, jt, qt,
+                                                                groups=g1, **kw))
     for i, (ok, o1) in enumerate(zip(outs_k, outs_1)):
         err = max(err, _blocked_compare(f"K12b chain step {i}", ok, o1))
     chain_ms = chain_wall / len(chain)
@@ -2371,9 +2499,11 @@ def phase_victim_sharded_kernel(captured, launches):
         if not isinstance(gmesh, S.GroupMesh) or gmesh.n_local != gmesh.size:
             raise AssertionError(f"NCCL mesh: {gmesh}")
         _, gc, gs = S.make_sharded_victim_step(gmesh, c, s)
+        gg = VK.victim_groups(gc, gs.run_live, mesh=gmesh)
+        _plain_groups("K12b NCCL group groups", gg, gc, gs.run_live, gmesh)
 
         def grun():
-            return VK.victim_step_sharded(gc, gs, t_req, 0, 0, 0, gmesh, **kw)
+            return VK.victim_step_sharded(gc, gs, t_req, 0, 0, 0, gmesh, groups=gg, **kw)
 
         err = max(err, _blocked_compare("K12b NCCL group", grun(), one))
         gms = cuda_ms(grun, 16)
@@ -2387,9 +2517,11 @@ def phase_victim_sharded_kernel(captured, launches):
     args, ckw = captured
     cc, cs_, ctr, ct_cls, cjt, cqt, cmesh = args
     cnb = _unblock(cc).node_alloc.shape[0] // cmesh.size
+    cold_kw = {k: v for k, v in ckw.items() if k != "groups"}
+    cg_p = _plain_groups("K12b cfg6r-be-mesh groups", ckw["groups"], cc, cs_.run_live, cmesh)
     o_k = VK.victim_step_sharded(*args, **ckw)
     o_p, p2_ms = _timed(lambda: S.victim_blocks_plain(cc, cs_, ctr, ct_cls, cjt, cqt, cmesh, cnb,
-                                                      **ckw))
+                                                      groups=cg_p, **cold_kw))
     err = max(err, _blocked_compare("K12b cfg6r-be-mesh vs plain", o_k, o_p),
               _blocked_compare("K12b cfg6r-be-mesh vs K7", o_k, VK.victim_step(
                   _unblock(cc), _unblock(cs_), ctr, ct_cls, cjt, cqt, **ckw)))
@@ -2404,8 +2536,9 @@ def phase_victim_sharded_kernel(captured, launches):
         name="victim_step_sharded", route="cuda", source="volcano_tpu_torch/csrc/victim_step.cu",
         replaces="volcano_tpu/parallel/sharded.py:202", launches=launches, max_abs_err=err,
         ms=ms[m], plain_ms=plain_ms[m], bound_ms=b, bound_by=kind, library_ms=None,
-        cell=f"config 4 shape, local mesh of {m} blocks; launches: cfg6r-be-mesh cycle 1",
+        cell=f"config 4 shape, local mesh of {m} blocks, warm; launches: cfg6r-be-mesh cycle 1",
         ms_by_blocks={str(k): v for k, v in ms.items()},
+        cold_ms_by_blocks={str(k): v for k, v in cold_ms.items()},
         plain_ms_by_blocks={str(k): v for k, v in plain_ms.items()}, chain_ms=chain_ms,
         nccl_group_ms=gms, cfg6r_be_mesh_ms=ms2, cfg6r_be_mesh_plain_ms=p2_ms,
         cfg6r_be_mesh_bound_ms=b2)}
@@ -2731,6 +2864,219 @@ def phase_split():
     return res
 
 
+#: calls of each solve the victim split times and profiles
+VICTIM_SPLIT_REPS = 10
+
+
+def _victim_stage(name):
+    """A profiler kernel name's vtt_* or NCCL kernel, else "copies and
+    fills" (the wrapper's clones, fills and zeroes)."""
+    import re
+
+    m = re.search(r"(vtt_[a-z0-9_]+|nccl[A-Za-z]+)", name)
+    return m.group(1) if m else "copies and fills"
+
+
+def victim_split(label, run, reps=VICTIM_SPLIT_REPS):
+    """One victim solve (``run()``, warmed up first) split into: device ms
+    and launches a call by kernel (torch.profiler over ``reps`` calls), the
+    wrapper's host us from entry to return (it returns after its last
+    launch, without a sync), the synchronized wall (host clock) and the host
+    gap (the wall less the device time); medians over ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    host, wall = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append((t1 - t0) * 1e6)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    stages = {}
+    for name, (calls, ms) in _device_ms(prof.key_averages()).items():
+        if name.startswith(("aten::", "cuda")):
+            continue  # host rows
+        st = _victim_stage(name)
+        c, m = stages.get(st, (0, 0.0))
+        stages[st] = (c + calls, m + ms)
+    stages = {st: (c / reps, m / reps) for st, (c, m) in stages.items()}
+    device = sum(m for _, m in stages.values())
+    launches = sum(c for c, _ in stages.values())
+    host_us, wall_ms = float(np.median(host)), float(np.median(wall))
+    gap = wall_ms - device
+    log(f"[victim split] {label}: device {device:.4f} ms in {launches:g} launches, wrapper "
+        f"host {host_us:.1f} us, wall {wall_ms:.4f} ms, host gap {gap:.4f} ms "
+        f"({gap / wall_ms:.3f} of the wall)")
+    for st, (c, ms) in sorted(stages.items(), key=lambda kv: -kv[1][1]):
+        log(f"[victim split]   {st}: {c:g} launches, {ms:.4f} ms")
+    return dict(device_ms=device, launches=launches, host_us=host_us, wall_ms=wall_ms,
+                host_gap_ms=gap,
+                stages={st: dict(launches=c, ms=ms) for st, (c, ms) in stages.items()})
+
+
+def _capture_cfg6r_be_step():
+    """The first K7 call's inputs of one cfg6r-be object cycle."""
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    sched = Scheduler(build_cfg6r_be_store(), conf=full_conf("cuda"))
+    sched.prewarm()
+    cap = ObjectCapture()
+    try:
+        sched.run_once()
+    finally:
+        cap.close()
+    if sched.last_path != "object" or "victim_step" not in cap.first:
+        raise AssertionError("victim split: the cfg6r-be cycle launched no K7")
+    return cap.first["victim_step"]
+
+
+def phase_victim_split():
+    """The victim solve's split (``--victim-split``): one K7 call at bench
+    config 4's shape (build_victim_sim(10,000, 100,000, 5,000, seed=4), the
+    [2000, 4Gi] preemptor of job 0, mode queue, gang and drf vetoes), one
+    on the first inputs cfg6r-be gives it, and one K12b call at config 4
+    on a local mesh of 4 blocks, each from victim_split: warm (the groups
+    built once, as the object path's _VictimDriver holds them), cold
+    (built inside the call), and the group build alone; each solve's
+    result held against its plain version."""
+    import torch
+
+    from volcano_tpu_torch import interop
+    from volcano_tpu_torch.parallel import sharded as S
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+    from volcano_tpu_torch.scheduler.simargs import build_victim_sim
+
+    dev = torch.device("cuda")
+    c, s = interop.victim_from_arrays(*build_victim_sim(10_000, 100_000, 5_000, seed=4), dev)
+    t_req = torch.tensor([2000.0, 4.0 * (1 << 30)], device=dev)
+    kw = dict(mode="queue", use_gang=True, use_drf=True)
+    args, ckw = _capture_cfg6r_be_step()
+    ckw = {k: v for k, v in ckw.items() if k != "groups"}
+    mesh = S.LocalMesh(4, dev)
+    _, dc, ds = S.make_sharded_victim_step(mesh, c, s)
+    cases = [
+        ("K7 config 4", lambda **g: VK.victim_step(c, s, t_req, 0, 0, 0, **kw, **g),
+         lambda: VK.victim_step_plain(c, s, t_req, 0, 0, 0, **kw),
+         lambda: VK.victim_groups(c, s.run_live, order_by_priority=True)),
+        ("K7 cfg6r-be first inputs", lambda **g: VK.victim_step(*args, **ckw, **g),
+         lambda: VK.victim_step_plain(*args, **ckw),
+         lambda: VK.victim_groups(args[0], args[1].run_live,
+                                  order_by_priority=ckw.get("order_by_priority", True))),
+        ("K12b config 4, 4 blocks",
+         lambda **g: VK.victim_step_sharded(dc, ds, t_req, 0, 0, 0, mesh, **kw, **g),
+         lambda: S.victim_blocks_plain(dc, ds, t_req, 0, 0, 0, mesh,
+                                       c.node_alloc.shape[0] // 4, **kw),
+         lambda: VK.victim_groups(dc, ds.run_live, order_by_priority=True, mesh=mesh)),
+    ]
+    res = {}
+    for label, step, plain, groups in cases:
+        want = plain()
+        g = groups()
+        res[label + ", warm"] = victim_split(label + ", warm", lambda: step(groups=g))
+        res[label + ", cold"] = victim_split(label + ", cold", step)
+        res[label + ", groups"] = victim_split(label + ", groups alone", groups)
+        _blocked_compare(label + ", warm", step(groups=g), want)
+        _blocked_compare(label + ", cold", step(), want)
+    return res
+
+
+#: CUDA-event calls timed per storm solve in the storm split
+STORM_SPLIT_REPS = 10
+
+
+def _capture_storms():
+    """The first inputs of K8 (cfg6r), K9 (cfg6b) and K10 (cfg6): one
+    cycle of each config-6 cell on the card, as phase 8 drives it."""
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    out = {}
+    for name, cell in (("reclaim_solve", "cfg6r"), ("preempt_solve", "cfg6b"),
+                       ("preempt_rounds", "cfg6")):
+        sched = Scheduler(build_contended_store(cell), conf=full_conf("cuda"))
+        sched.prewarm()
+        cap = ContentionCapture((name,))
+        try:
+            sched.run_once()
+        finally:
+            cap.close()
+        if name not in cap.inputs:
+            raise AssertionError(f"storm split: the {cell} cycle launched no {name}")
+        out[name] = (cell, cap.inputs[name])
+    return out
+
+
+def phase_storm_split(reps=STORM_SPLIT_REPS):
+    """The storm solves (``--storm-split``), which share
+    csrc/victim_common.cuh with K7: CUDA-event ms of K8 (cfg6r), K9 (cfg6b)
+    and K10 (cfg6) on the first inputs their cells give them, on one block,
+    on a local mesh of 4 blocks (K15a-c) and over a one-rank NCCL group of
+    4 blocks, each held against the one-block solve; ``reps`` calls timed
+    each, then each split by victim_split (device ms by kernel, host gap),
+    so a parent and a change compare in one chip call."""
+    import torch
+    import torch.distributed as dist
+
+    from volcano_tpu_torch import _build
+    from volcano_tpu_torch.parallel import sharded as S
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    dev = torch.device("cuda")
+    inputs = _capture_storms()
+    res = {}
+    for name, (cell, (args, kw)) in inputs.items():
+        one, sharded = getattr(VK, name), getattr(VK, name + "_sharded")
+        mesh = S.LocalMesh(int(CFG6_MESH), dev)
+        cb, sb = S._place_victim(mesh, args[0]), S._place_victim(mesh, args[1])
+        ref = one(*args, **kw)
+        _solve_compare(f"storm split {cell} {name}, {mesh.size} blocks",
+                       sharded(cb, sb, *args[2:], mesh, **kw), ref)
+        runs = {"one block": lambda: one(*args, **kw),
+                f"{mesh.size} blocks": lambda: sharded(cb, sb, *args[2:], mesh, **kw)}
+        res[name] = dict(cell=cell, one_block_ms=cuda_ms(runs["one block"], reps),
+                         blocks4_ms=cuda_ms(runs[f"{mesh.size} blocks"], reps))
+        res[name]["split"] = {label: victim_split(f"{cell} {name}, {label}", run, reps)
+                              for label, run in runs.items()}
+    store_path = _build.BUILD_DIR / f"nccl_store_storms_{os.getpid()}"
+    store_path.parent.mkdir(parents=True, exist_ok=True)
+    if store_path.exists():
+        store_path.unlink()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_path), 1),
+                            rank=0, world_size=1)
+    try:
+        gmesh = S.make_mesh(int(CFG6_MESH))
+        for name, (cell, (args, kw)) in inputs.items():
+            sharded = getattr(VK, name + "_sharded")
+            cg, sg = S._place_victim(gmesh, args[0]), S._place_victim(gmesh, args[1])
+            _solve_compare(f"storm split {cell} {name}, NCCL group",
+                           sharded(cg, sg, *args[2:], gmesh, **kw),
+                           getattr(VK, name)(*args, **kw))
+            res[name]["nccl_group_ms"] = cuda_ms(
+                lambda: sharded(cg, sg, *args[2:], gmesh, **kw), reps)
+            res[name]["split"]["NCCL group"] = victim_split(
+                f"{cell} {name}, NCCL group", lambda: sharded(cg, sg, *args[2:], gmesh, **kw),
+                reps)
+    finally:
+        dist.destroy_process_group()
+        if store_path.exists():
+            store_path.unlink()
+    for name, r in res.items():
+        log(f"[storm split] {r['cell']} {name}: one block {r['one_block_ms']:.4f} ms, "
+            f"{CFG6_MESH} blocks {r['blocks4_ms']:.4f} ms, NCCL group {r['nccl_group_ms']:.4f} "
+            f"ms ({reps} calls each)")
+    return res
+
+
 def phase_profile(out_path=None):
     """torch.profiler over the batched solve (phase_split: K3 at config 5,
     the 4-block solve at cfg9's shape), then one config-5 cycle and one
@@ -2989,6 +3335,14 @@ def main(argv):
         log(smi)
         log(json.dumps({"split": phase_split()}))
         return 0
+    if "--victim-split" in argv:
+        log(smi)
+        log(json.dumps({"victim_split": phase_victim_split()}))
+        return 0
+    if "--storm-split" in argv:
+        log(smi)
+        log(json.dumps({"storm_split": phase_storm_split()}))
+        return 0
     if "--profile" in argv:
         i = argv.index("--profile") + 1
         phase_profile(argv[i] if i < len(argv) else None)
@@ -3042,7 +3396,7 @@ def main(argv):
     kern.update(phase_volsel_kernel(cap[0], vol["allocate_solve_volsel"]))
     mark("phases 10-11")
     be_launches, step_in = phase_object_cfg6r_be()
-    kern.update(phase_victim_step_kernel(step_in, be_launches["victim_step"]))
+    kern.update(phase_victim_step_kernel(step_in, be_launches))
     mark("phases 12-13")
     phase_object_cfg5()
     caps = phase_cap_lifts()

@@ -541,6 +541,7 @@ def test_gpu_victim_step_matches_plain(mode, seed):
     c_np, s_np = build_victim_sim(16, 120, 10, n_queues=3, seed=seed)
     c, s = interop.victim_from_arrays(c_np, s_np, dev)
     before = [x.clone() for x in s]
+    groups = {obp: VK.victim_groups(c, s.run_live, order_by_priority=obp) for obp in (False, True)}
     rng = np.random.default_rng(seed)
     n_assigned = 0
     for flags in range(32):
@@ -553,10 +554,104 @@ def test_gpu_victim_step_matches_plain(mode, seed):
         out_k = VK.victim_step(c, s, t_req, 0, jt, qt, mode=mode, **kw)
         out_p = VK.victim_step_plain(c, s, t_req, 0, jt, qt, mode=mode, **kw)
         _assert_step_same(out_k, out_p)
+        # warm: the groups built once for these constants
+        out_w = VK.victim_step(c, s, t_req, 0, jt, qt, mode=mode, groups=groups[bool(flags & 16)],
+                               **kw)
+        _assert_step_equal(out_w, out_p)
         n_assigned += int(out_p.packed[0])
     assert n_assigned
     for a, b in zip(before, s):
         assert torch.equal(a, b)
+
+
+def _assert_step_equal(out_k, out_p):
+    """The packed decision and every state field bit for bit."""
+    assert torch.equal(out_k.packed.cpu(), out_p.packed.cpu())
+    for f in VK.VictimState._fields:
+        assert torch.equal(_rows(getattr(out_k.state, f)), _rows(getattr(out_p.state, f))), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(3))
+def test_gpu_victim_groups_match_plain(seed):
+    """The group build on the card equals its plain version: the live rows
+    (and, at the small width, a mask of every row), both eviction orders,
+    at small and at config-4 widths."""
+    dev = _cuda()
+    shapes = [(16, 120, 10)] + ([(10_000, 100_000, 5_000)] if seed == 0 else [])
+    for n_nodes, n_victims, n_jobs in shapes:
+        c_np, s_np = build_victim_sim(n_nodes, n_victims, n_jobs, n_queues=3, seed=seed)
+        c, s = interop.victim_from_arrays(c_np, s_np, dev)
+        masks = [s.run_live] + ([torch.ones_like(s.run_live)] if n_victims < 1000 else [])
+        for live in masks:
+            for obp in (False, True):
+                g = VK.victim_groups(c, live, order_by_priority=obp)
+                want = VK.victim_groups_plain(c, live, order_by_priority=obp)
+                for x, y in zip(g[:5], want[:5]):
+                    assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["queue", "job", "reclaim"])
+def test_gpu_victim_step_chain_reuses_groups(mode):
+    """32 solves over one grouping of the first state's live rows, each
+    assignment's state fed to the next: every decision and state bit for
+    bit the plain chain's, the input states untouched."""
+    dev = _cuda()
+    c_np, s_np = build_victim_sim(64, 400, 16, n_queues=3, seed=11)
+    c, s = interop.victim_from_arrays(c_np, s_np, dev)
+    # no proportion veto (build_victim_sim's deserved shares refuse every
+    # victim), and the drf veto where it leaves victims to take
+    kw = dict(use_gang=True, use_drf=mode == "queue", use_conformance=True)
+    g = VK.victim_groups(c, s.run_live, order_by_priority=True)
+    rng = np.random.default_rng(11)
+    sk = sp = s
+    n_ok = 0
+    for _ in range(32):
+        jt = int(rng.integers(0, 16))
+        t_req = torch.tensor([float(rng.choice([250, 500, 1000, 2000])),
+                              float(rng.choice([256, 512, 1024]) * (1 << 20))], device=dev)
+        qt = int(c_np["job_queue"][jt])
+        before = [x.clone() for x in sk]
+        out_k = VK.victim_step(c, sk, t_req, 0, jt, qt, mode=mode, groups=g, **kw)
+        out_p = VK.victim_step_plain(c, sp, t_req, 0, jt, qt, mode=mode, groups=g, **kw)
+        _assert_step_equal(out_k, out_p)
+        for a, b in zip(before, sk):
+            assert torch.equal(a, b)
+        if bool(out_p.packed[0]):
+            sk, sp = out_k.state, out_p.state
+            n_ok += int(out_p.packed[3] > 0)
+    assert n_ok >= 3
+
+
+@pytest.mark.gpu
+def test_gpu_victim_groups_launches_and_mismatch():
+    """Cold K7 launches the group build and the solve, warm the solve
+    alone; groups of other constants, shapes, order or device raise."""
+    dev = _cuda()
+    c_np, s_np = build_victim_sim(16, 120, 10, seed=3)
+    c, s = interop.victim_from_arrays(c_np, s_np, dev)
+    t_req = torch.tensor([1000.0, float(1 << 30)], device=dev)
+    VK.reset_launches()
+    VK.victim_step(c, s, t_req, 0, 0, 0)
+    assert (VK.LAUNCHES["victim_groups"], VK.LAUNCHES["victim_step"]) == (1, 1)
+    g = VK.victim_groups(c, s.run_live)
+    VK.victim_step(c, s, t_req, 0, 0, 0, groups=g)
+    assert (VK.LAUNCHES["victim_groups"], VK.LAUNCHES["victim_step"]) == (2, 2)
+    c2, _ = interop.victim_from_arrays(c_np, s_np, dev)
+    with pytest.raises(ValueError, match="other constants"):
+        VK.victim_step(c2, s, t_req, 0, 0, 0, groups=g)
+    with pytest.raises(ValueError, match="order_by_priority"):
+        VK.victim_step(c, s, t_req, 0, 0, 0, groups=g, order_by_priority=False)
+    with pytest.raises(ValueError, match="groups of"):
+        VK.victim_step(c, s, t_req, 0, 0, 0, groups=g._replace(node_off=g.node_off[:-1]))
+    with pytest.raises(ValueError, match="int32 on"):
+        VK.victim_step(c, s, t_req, 0, 0, 0, groups=g._replace(
+            **{k: getattr(g, k).cpu() for k in ("node_off", "l_vidx", "l_ev", "l_drf",
+                                                 "l_prop")}))
+    with pytest.raises(ValueError, match="live"):
+        VK.victim_groups(c, s.run_live.int())
+    assert VK.LAUNCHES["victim_step"] == 2
 
 
 @pytest.mark.gpu
@@ -793,6 +888,43 @@ def test_gpu_victim_step_sharded_chain_launches(n_blocks):
             ds, s = out_k.state, out_1.state
             n_ok += 1
     assert VK.LAUNCHES["victim_step_sharded"] == 10 and n_ok >= 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_blocks", [1, 2, 4, 8])
+def test_gpu_victim_step_sharded_warm_equals_k7(n_blocks):
+    """K12b over one grouping of the whole pool on 1, 2, 4 and 8 blocks, a
+    chain of 12 solves with the blocked state fed back: each bit for bit
+    the one-block K7 chain's over the same grouping, two launches a solve
+    and no group build."""
+    from volcano_tpu_torch.parallel import sharded as S
+
+    dev = _cuda()
+    c_np, s_np = build_victim_sim(64, 400, 16, n_queues=2, seed=7)
+    c, s = interop.victim_from_arrays(c_np, s_np, dev)
+    mesh = S.LocalMesh(n_blocks, dev)
+    _, dc, ds = S.make_sharded_victim_step(mesh, c, s)
+    for mode in ("queue", "reclaim"):
+        kw = dict(mode=mode, use_gang=True, use_drf=mode == "queue", use_conformance=True)
+        g = VK.victim_groups(c, s.run_live)
+        gb = VK.victim_groups(dc, ds.run_live, mesh=mesh)
+        for x, y in zip(g[:5], gb[:5]):
+            assert torch.equal(x, y)
+        rng = np.random.default_rng(n_blocks)
+        sk, s1 = ds, s
+        VK.reset_launches()
+        for _ in range(12):
+            jt = int(rng.integers(0, 16))
+            t_req = torch.tensor([float(rng.choice([500, 1000, 2000])),
+                                  float(rng.choice([1, 2]) * (1 << 30))], device=dev)
+            qt = int(c_np["job_queue"][jt])
+            out_k = VK.victim_step_sharded(dc, sk, t_req, 0, jt, qt, mesh, groups=gb, **kw)
+            out_1 = VK.victim_step(c, s1, t_req, 0, jt, qt, groups=g, **kw)
+            _assert_step_equal(out_k, out_1)
+            if bool(out_1.packed[0]):
+                sk, s1 = out_k.state, out_1.state
+        assert VK.LAUNCHES["victim_step_sharded"] == 12
+        assert VK.LAUNCHES["victim_groups"] == 0
 
 
 @pytest.mark.gpu

@@ -117,13 +117,19 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.vtt_batch_begin, lib.vtt_batch_candidates, lib.vtt_batch_decide):
         fn.argtypes = [vp, vp, ci, vp]
         fn.restype = ci
-    lib.vtt_victim_step.argtypes = [vp, ci, ci, ci, ci, vp, vp]
+    cl = ctypes.c_longlong
+    # the victim groups: (args, live mask, stream)
+    lib.vtt_victim_groups.argtypes = [vp, vp, vp]
+    lib.vtt_victim_groups.restype = ci
+    # K7: (args, outputs, t_cls, jt, qt, mode, stream)
+    lib.vtt_victim_step.argtypes = [vp, vp, ci, ci, ci, ci, vp]
     lib.vtt_victim_step.restype = ci
-    # K12b: (blocks, count, t_cls, jt, qt, mode, send, stream) and (base,
-    # blocks, count, t_cls, jt, qt, mode, recv, S, out, vsum, stream)
-    lib.vtt_victim_blocks_core.argtypes = [vp, ci, ci, ci, ci, ci, vp, vp]
+    # K12b: (base, device block constants, block inputs, outputs, count,
+    # t_cls, jt, qt, mode, send, stream) and (base, outputs, recv, S, first
+    # local row, local rows, t_cls, jt, qt, mode, stream)
+    lib.vtt_victim_blocks_core.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
     lib.vtt_victim_blocks_core.restype = ci
-    lib.vtt_victim_blocks_apply.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, ci, vp, vp, vp]
+    lib.vtt_victim_blocks_apply.argtypes = [vp, vp, vp, ci, cl, cl, ci, ci, ci, ci, vp]
     lib.vtt_victim_blocks_apply.restype = ci
     # K15a / K15b walks: begin (base, blocks, device blocks, count, pending,
     # stream), step (base, device blocks, count, pending, stream), and the

@@ -14,12 +14,15 @@
 // numbers, so the float64 sums are exact and the result does not depend on
 // the order of terms (see scheduler/victim_kernels.py).
 //
-// The attempt core runs in one persistent CTA: each thread owns a strided
-// set of nodes and walks their lists (base and veto flags, the DRF and
-// proportion admission passes, the eviction-order prefix with its do-while
-// first victim, the node total), then two block-wide lexicographic argmins
-// give the first covered and the first valid node of the walk.  Thread 0
-// applies an attempt that is assigned and clean.
+// In the storm solves (K8-K10, K15a-c) the setup runs once per launch and
+// the attempt core in one persistent CTA: each thread owns a strided set of
+// nodes and walks their lists (base and veto flags, the DRF and proportion
+// admission passes, the eviction-order prefix with its do-while first
+// victim, the node total), then two block-wide lexicographic argmins give
+// the first covered and the first valid node of the walk.  Thread 0
+// applies an attempt that is assigned and clean.  K7 and K12b
+// (victim_step.cu) take the same lists built once per constants and run
+// the same node walk a thread a node over the whole card.
 #pragma once
 
 #include "common.cuh"
@@ -201,7 +204,8 @@ static __global__ void vtt_v_count(VttVictimArgs a) {
   if (n >= 0) atomicAdd(&a.node_fill[n], 1);
 }
 
-// exclusive scan of cnt[0..n) into off[0..n]; one CTA, then cnt := 0
+// exclusive scan of cnt[0..n) into off[0..n]; one CTA (each thread's
+// chunk sum, a Hillis-Steele block scan of the sums), then cnt := 0
 static __global__ void vtt_v_scan(int32_t* cnt, int32_t* off, int n) {
   __shared__ int s_part[VTT_VICTIM_THREADS];
   const int tid = threadIdx.x, nthr = blockDim.x;
@@ -211,17 +215,14 @@ static __global__ void vtt_v_scan(int32_t* cnt, int32_t* off, int n) {
   for (int i = lo; i < hi; ++i) sum += cnt[i];
   s_part[tid] = sum;
   __syncthreads();
-  if (tid == 0) {
-    int acc = 0;
-    for (int i = 0; i < nthr; ++i) {
-      const int x = s_part[i];
-      s_part[i] = acc;
-      acc += x;
-    }
-    off[n] = acc;
+  for (int d = 1; d < nthr; d <<= 1) {
+    const int x = tid >= d ? s_part[tid - d] : 0;
+    __syncthreads();
+    s_part[tid] += x;
+    __syncthreads();
   }
-  __syncthreads();
-  int acc = s_part[tid];
+  if (tid == nthr - 1) off[n] = s_part[tid];
+  int acc = s_part[tid] - sum;
   for (int i = lo; i < hi; ++i) {
     off[i] = acc;
     acc += cnt[i];

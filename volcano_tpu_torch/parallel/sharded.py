@@ -758,19 +758,18 @@ def _kmin_better(ka, ia, kb, ib):
 
 def victim_blocks_plain(c, s, t_req, t_cls, jt, qt, mesh, nb, *, mode="queue", use_gang=True,
                         use_drf=False, use_prop=False, use_conformance=False,
-                        order_by_priority=True):
+                        order_by_priority=True, groups=None):
     """The plain PyTorch version of ``victim_kernels.victim_step_sharded``
-    (same arguments): ``_blocks_core`` under the mode's base mask, the
-    decision packed."""
+    (same arguments): ``_blocks_core`` under the mode's base mask over the
+    groups' orders, the decision packed."""
     from volcano_tpu_torch.scheduler import victim_kernels as VK
 
-    Q = s.queue_alloc.shape[0]
     reclaim = mode == "reclaim"
+    groups = VK._step_groups("victim_step_sharded", c, s.run_live, groups, order_by_priority,
+                             mesh)
     base = VK._step_base(c, s, jt, qt, mode)
-    none = (None, None)
-    orders = ((VK._orders_drf(c) if use_drf else none)
-              + (VK._orders_prop(c, Q) if use_prop else none)
-              + VK._orders_evict(c, order_by_priority, reclaim))
+    orders = VK._group_orders(c, groups, s.queue_alloc.shape[0], nb * mesh.size, reclaim,
+                              use_drf, use_prop)
     flags = dict(use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
                  use_conformance=use_conformance)
     state, assigned, nstar, vmask, clean = _blocks_core(c, s, t_req, t_cls, jt, qt, base, orders,

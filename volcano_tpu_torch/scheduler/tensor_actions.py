@@ -43,7 +43,7 @@ from volcano_tpu_torch.scheduler.kernels import (
 from volcano_tpu_torch.scheduler.pqueue import PriorityQueue
 from volcano_tpu_torch.scheduler.statement import Statement
 from volcano_tpu_torch.scheduler.victim_kernels import (
-    unpack_step, victim_step, victim_step_sharded,
+    unpack_step, victim_groups, victim_step, victim_step_sharded,
 )
 
 
@@ -269,6 +269,11 @@ class _VictimDriver:
         self.mesh = self.backend.mesh if self.backend.victim_sharded() else None
         self.snap = snap = self.backend.snapshot
         self.consts, self.state = self.backend.victim_arrays()
+        # the pool grouped by node once per snapshot: every attempt of this
+        # load takes these groups (rows evicted later stay in them, skipped)
+        self.groups = victim_groups(self.consts, self.state.run_live,
+                                    order_by_priority=self.kw["order_by_priority"],
+                                    mesh=self.mesh)
         self.task_req = self.backend.to_device(snap.task_req)
         self.task_row = {uid: i for i, uid in enumerate(snap.task_uids)}
         self.job_row = {uid: i for i, uid in enumerate(snap.job_uids)}
@@ -283,11 +288,11 @@ class _VictimDriver:
     def checkpoint(self):
         # neither solve writes its input state (blocked or not), so
         # references suffice
-        return (self.snap, self.consts, self.state, self.task_req, self.task_row,
+        return (self.snap, self.consts, self.groups, self.state, self.task_req, self.task_row,
                 self.job_row, self.queue_row, self.mesh)
 
     def restore(self, ckpt):
-        (self.snap, self.consts, self.state, self.task_req, self.task_row,
+        (self.snap, self.consts, self.groups, self.state, self.task_req, self.task_row,
          self.job_row, self.queue_row, self.mesh) = ckpt
 
     def attempt(self, task, mode):
@@ -304,11 +309,12 @@ class _VictimDriver:
         qt = self.queue_row.get(self.ssn.jobs[task.job_uid].queue, -1)
         if self.mesh is None:
             out = victim_step(self.consts, self.state, self.task_req[t],
-                              int(snap.task_class[t]), jt, qt, mode=mode, **self.kw)
+                              int(snap.task_class[t]), jt, qt, mode=mode, groups=self.groups,
+                              **self.kw)
         else:
             out = victim_step_sharded(self.consts, self.state, self.task_req[t],
                                       int(snap.task_class[t]), jt, qt, self.mesh, mode=mode,
-                                      **self.kw)
+                                      groups=self.groups, **self.kw)
         packed = out.packed
         if packed.device.type == "cuda":
             torch.cuda.synchronize(packed.device)

@@ -18,7 +18,11 @@ The victim core (``_victim_core``: candidate mask, DRF and proportion
 vetoes, per-node eviction-order prefix sums, cover test, best node, state
 update) is a set of device functions in ``csrc/victim_common.cuh``, run by
 each storm solve and by ``victim_step``'s own launch (the object path's
-preempt and reclaim, one per preemptor).  ``victim_step_sharded`` (K12b)
+preempt and reclaim, one per preemptor).  ``victim_step`` takes the pool
+grouped by node once per constants (``victim_groups``: each node's rows
+in the JAX orders, ``_orders_*`` restricted to the node), so an attempt
+is one launch; the object path's ``_VictimDriver`` builds the groups
+once per snapshot load.  ``victim_step_sharded`` (K12b)
 runs the same core on node blocks of the constants and state: each
 block's core over its own rows, one record exchange over the mesh, a
 replicated merge and apply (``parallel/sharded.victim_blocks_plain`` is
@@ -87,6 +91,7 @@ ROUNDS_TILE = 8192
 #: kernel launches since the last ``reset_launches()``; each CUDA wrapper
 #: adds one where it launches its kernel, and nowhere else
 LAUNCHES: Dict[str, int] = {
+    "victim_groups": 0,
     "victim_step": 0,
     "victim_step_sharded": 0,
     "reclaim_solve": 0,
@@ -137,6 +142,27 @@ class VictimState(NamedTuple):
     job_alloc: torch.Tensor     # [J, R] f32 drf allocated
     job_occupied: torch.Tensor  # [J] i32 ready task count
     queue_alloc: torch.Tensor   # [Q, R] f32 proportion allocated
+
+
+class VictimGroups(NamedTuple):
+    """The rows of a live mask grouped by node (``victim_groups``): node n's rows are
+    ``l_*[node_off[n]:node_off[n + 1]]`` in four orders, pool order, (job,
+    row), (queue, row) and the preempt eviction order; reclaim evicts in
+    pool order.  Each node's list is the JAX package's global lexsort
+    (``_orders_*``) restricted to that node and to the grouped rows, a
+    row's node clamped into [0, N).  The lists read only the constants, so
+    one grouping serves every solve over those constants whose state has
+    no live row outside it (rows that die stay in the lists and are
+    skipped); under a mesh one grouping of the whole pool serves every
+    block, a block's lists the slice of its node rows."""
+
+    node_off: torch.Tensor  # [N + 1] i32
+    l_vidx: torch.Tensor    # [V] i32, -1 past node_off[N]
+    l_ev: torch.Tensor      # [V] i32 (priority asc when order_by_priority, rank desc, row)
+    l_drf: torch.Tensor     # [V] i32 (job, row)
+    l_prop: torch.Tensor    # [V] i32 (queue, row)
+    order_by_priority: bool
+    source: tuple           # the constants' tensors the lists were built from
 
 
 class VictimStepOut(NamedTuple):
@@ -220,7 +246,8 @@ def _seg_flags(*keys):
     """True where any of the (already sorted) keys changes, and at 0."""
     n = keys[0].shape[0]
     flag = torch.zeros(n, dtype=torch.bool, device=keys[0].device)
-    flag[0] = True
+    if n:
+        flag[0] = True
     for k in keys:
         flag[1:] |= k[1:] != k[:-1]
     return flag
@@ -263,6 +290,95 @@ def _orders_evict(c: VictimConsts, order_by_priority: bool, reclaim_mode: bool):
         prio = c.run_prio if order_by_priority else torch.zeros_like(c.run_prio)
         o = _lexsort((vidx, -c.run_rank, prio, c.run_node))
     return o, _seg_flags(c.run_node[o])
+
+
+def _group_source(c: VictimConsts) -> tuple:
+    """The constants' tensors a grouping reads."""
+    return (c.run_node, c.run_job, c.job_queue, c.run_prio, c.run_rank)
+
+
+def _group_nodes(c: VictimConsts, mesh=None) -> int:
+    """Node rows of the constants: whole, or this process's blocks of
+    ``mesh``."""
+    if mesh is None:
+        if isinstance(c.node_alloc, (tuple, list)):
+            raise ValueError("victim_groups: constants in blocks need their mesh")
+        return int(c.node_alloc.shape[0])
+    return int(c.node_alloc[0].shape[0]) * mesh.size
+
+
+def victim_groups_plain(c: VictimConsts, live, *, order_by_priority=True,
+                        mesh=None) -> VictimGroups:
+    """The plain PyTorch version of ``victim_groups``."""
+    N = _group_nodes(c, mesh)
+    V = c.run_req.shape[0]
+    Q = c.queue_deserved.shape[0]
+    dev = c.run_req.device
+    rows = torch.nonzero(live, as_tuple=False)[:, 0]
+    node = torch.clamp(c.run_node[rows], 0, N - 1)
+    job = c.run_job[rows]
+    queue = torch.clamp(c.job_queue[job], 0, Q - 1)
+    prio = c.run_prio[rows] if order_by_priority else torch.zeros_like(node)
+
+    def lists(*keys):
+        out = torch.full((V,), -1, dtype=torch.int32, device=dev)
+        out[:rows.shape[0]] = rows[_lexsort((rows,) + keys + (node,))].int()
+        return out
+
+    node_off = torch.zeros(N + 1, dtype=torch.int32, device=dev)
+    node_off[1:] = torch.cumsum(torch.bincount(node, minlength=N), 0)
+    return VictimGroups(node_off, lists(), lists(-c.run_rank[rows], prio), lists(job),
+                        lists(queue), bool(order_by_priority), _group_source(c))
+
+
+def _check_groups(name, g, c: VictimConsts, n_nodes: int, order_by_priority) -> None:
+    """``g`` groups the pool of ``c`` over ``n_nodes`` rows, on its device,
+    in the eviction order asked for; else ValueError."""
+    if not isinstance(g, VictimGroups):
+        raise ValueError(f"{name}: groups must be a VictimGroups, got {type(g).__name__}")
+    if len(g.source) != 5 or any(x is not y for x, y in zip(g.source, _group_source(c))):
+        raise ValueError(f"{name}: the groups were built for other constants")
+    V = c.run_req.shape[0]
+    if g.node_off.shape != (n_nodes + 1,) or any(x.shape != (V,) for x in g[1:5]):
+        raise ValueError(f"{name}: groups of {g.node_off.shape[0] - 1} nodes and "
+                         f"{g.l_vidx.shape[0]} rows, the solve has {n_nodes} and {V}")
+    if any(x.device != c.run_req.device or x.dtype != torch.int32 for x in g[:5]):
+        raise ValueError(f"{name}: groups must be int32 on {c.run_req.device}")
+    if g.order_by_priority != bool(order_by_priority):
+        raise ValueError(f"{name}: groups built with order_by_priority="
+                         f"{g.order_by_priority}, the solve asks {bool(order_by_priority)}")
+
+
+def _step_groups(name, c, live, groups, order_by_priority, mesh=None) -> VictimGroups:
+    """``groups`` checked against the solve and against the rows live in
+    ``live`` (each must be grouped), or the plain grouping of those rows
+    when not given."""
+    if groups is None:
+        return victim_groups_plain(c, live, order_by_priority=order_by_priority, mesh=mesh)
+    _check_groups(name, groups, c, _group_nodes(c, mesh), order_by_priority)
+    grouped = torch.zeros_like(live)
+    grouped[groups.l_vidx[:int(groups.node_off[-1])].long()] = True
+    if bool((live & ~grouped).any()):
+        raise ValueError(f"{name}: the groups miss rows live in the state")
+    return groups
+
+
+def _group_orders(c, g: VictimGroups, Q, n_nodes, reclaim, use_drf, use_prop):
+    """The (order, segment-start flags) pairs of ``_victim_flags`` from the
+    groups' lists: drf and proportion where their vetoes are on, then the
+    eviction order (reclaim: pool order)."""
+    m = int(g.node_off[-1])
+    node = torch.clamp(c.run_node, 0, n_nodes - 1)
+
+    def order(lst, *keys):
+        o = lst[:m].long()
+        return o, _seg_flags(node[o], *(k[o] for k in keys))
+
+    none = (None, None)
+    drf = order(g.l_drf, c.run_job) if use_drf else none
+    prop = (order(g.l_prop, torch.clamp(c.job_queue[c.run_job], 0, Q - 1)) if use_prop
+            else none)
+    return drf + prop + order(g.l_vidx if reclaim else g.l_ev)
 
 
 def _job_order_keys(c, s, job_prio, job_key_order):
@@ -478,18 +594,17 @@ def unpack_step(packed, V: int):
 
 def victim_step_plain(c, s, t_req, t_cls, jt, qt, *, mode="queue", use_gang=True,
                       use_drf=False, use_prop=False, use_conformance=False,
-                      order_by_priority=True) -> VictimStepOut:
-    """The JAX ``victim_step``: the mode's base mask over ``_victim_core``."""
-    Q = s.queue_alloc.shape[0]
+                      order_by_priority=True, groups=None) -> VictimStepOut:
+    """The JAX ``victim_step``: the mode's base mask over ``_victim_core``,
+    each node's orders the lists of ``groups`` (``victim_groups_plain`` of
+    the rows live in ``s`` when not given)."""
+    N = s.idle.shape[0]
+    groups = _step_groups("victim_step", c, s.run_live, groups, order_by_priority)
     base = _step_base(c, s, jt, qt, mode)
-    o_drf = seg_drf = o_prop = seg_prop = None
-    if use_drf:
-        o_drf, seg_drf = _orders_drf(c)
-    if use_prop:
-        o_prop, seg_prop = _orders_prop(c, Q)
-    o_ev, seg_ev = _orders_evict(c, order_by_priority, mode == "reclaim")
+    orders = _group_orders(c, groups, s.queue_alloc.shape[0], N, mode == "reclaim", use_drf,
+                           use_prop)
     new_s, assigned, nstar, vmask, clean = _victim_core(
-        c, s, t_req, t_cls, jt, qt, base, o_drf, seg_drf, o_prop, seg_prop, o_ev, seg_ev,
+        c, s, t_req, t_cls, jt, qt, base, *orders,
         use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
         use_conformance=use_conformance, reclaim_mode=(mode == "reclaim"))
     return VictimStepOut(new_s, pack_step(assigned, nstar, clean, vmask))
@@ -890,52 +1005,291 @@ def _lib_stream(dev):
     return _build.load(), _stream(dev)
 
 
+def victim_groups(c: VictimConsts, live, *, order_by_priority=True,
+                  mesh=None) -> VictimGroups:
+    """The rows of ``live`` (bool [V]) in the pool of ``c`` grouped by node
+    (``VictimGroups``); the object path passes the rows live at its
+    snapshot.  With ``mesh``, ``c``'s node planes are this process's blocks
+    and the groups span the mesh's rows.
+
+    Replaces volcano_tpu/scheduler/victim_kernels.py:131-182 (``_orders_drf``,
+    ``_orders_prop``, ``_orders_evict``), which the JAX package hoists out
+    of its storm loops; K7 and K12b take the groups as they are, so a
+    solve over the same constants runs no setup of its own.  Bound on the
+    card by latency (four small launches).  Design (csrc/victim_step.cu
+    ``vtt_victim_groups``): count rows a node, the one-CTA block scan into
+    offsets, bucket the rows, and rank each row among its node's rows in
+    every order.  CPU tensors run ``victim_groups_plain``."""
+    dev = _device_of(c, "victim_groups")
+    if dev.type == "cpu":
+        return victim_groups_plain(c, live, order_by_priority=order_by_priority, mesh=mesh)
+    out = victim_groups_launch(*_lib_stream(dev), c, live, order_by_priority,
+                               _group_nodes(c, mesh))
+    LAUNCHES["victim_groups"] += 1
+    return out
+
+
+def victim_groups_launch(lib, stream, c, live, order_by_priority, n_nodes) -> VictimGroups:
+    """Validate, launch csrc/victim_step.cu's group build and return the
+    groups."""
+    dev = c.run_req.device
+    V = c.run_req.shape[0]
+    J, Q = c.job_queue.shape[0], c.queue_deserved.shape[0]
+    i32 = dict(dtype=torch.int32, device=dev)
+    for name, (t, dt, shape) in {
+        "run_node": (c.run_node, torch.int32, (V,)), "run_job": (c.run_job, torch.int32, (V,)),
+        "run_prio": (c.run_prio, torch.int32, (V,)), "run_rank": (c.run_rank, torch.int32, (V,)),
+        "job_queue": (c.job_queue, torch.int32, (J,)),
+        "queue_deserved": (c.queue_deserved, torch.float32, (Q, c.run_req.shape[1])),
+    }.items():
+        _check(name, t, dt, shape, dev)
+    _check("live", live, torch.bool, (V,), dev)
+    # node_fill is zero between builds
+    key = ("groups", dev, V, n_nodes)
+    scratch = _workspace(key, lambda: dict(node_fill=torch.zeros(n_nodes, **i32),
+                                           bucket=torch.empty(V, **i32)))
+    g = VictimGroups(torch.empty(n_nodes + 1, **i32), *(torch.empty(V, **i32) for _ in range(4)),
+                     bool(order_by_priority), _group_source(c))
+    args = VictimArgs()
+    for name, t in dict(scratch, run_node=c.run_node, run_job=c.run_job, run_prio=c.run_prio,
+                        run_rank=c.run_rank, job_queue=c.job_queue, node_off=g.node_off,
+                        l_vidx=g.l_vidx, l_ev=g.l_ev, l_drf=g.l_drf, l_prop=g.l_prop).items():
+        setattr(args, name, t.data_ptr())
+    args.V, args.N, args.NT, args.Q = V, n_nodes, n_nodes, Q
+    args.order_by_priority = int(bool(order_by_priority))
+    _launch_in(key, "vtt_victim_groups",
+               lib.vtt_victim_groups(ctypes.byref(args), live.data_ptr(), stream))
+    return g
+
+
 def victim_step(c, s, t_req, t_cls, jt, qt, *, mode="queue", use_gang=True, use_drf=False,
-                use_prop=False, use_conformance=False,
-                order_by_priority=True) -> VictimStepOut:
+                use_prop=False, use_conformance=False, order_by_priority=True,
+                groups=None) -> VictimStepOut:
     """One preemptor's victim solve over all nodes (JAX ``victim_step``);
     ``t_req`` is the preemptor's [R] request on the pool's device, the
     other preemptor arguments are host integers (``qt`` -1: no queue).
+    ``groups``: ``victim_groups`` of ``c`` over rows that include every
+    row live in ``s`` (built here from the rows live in ``s`` when not
+    given: the cold path); groups of other constants raise ValueError, and
+    the plain version also raises on groups that miss a live row.
 
     Replaces volcano_tpu/scheduler/victim_kernels.py:362.  Bound on the
-    card by latency: a launch chain over a few passes of the pool.  Design
-    (csrc/victim_step.cu): the storm solves' per-node setup and victim
-    core, one CTA for the attempt, the decision packed for one fetch."""
+    card by latency: one launch and the slowest node's walk, far above the
+    bytes.  Design (csrc/victim_step.cu): one launch over the card, a
+    thread a node, the last CTA merging the CTAs' records, applying and
+    packing the decision for one fetch; the state copied inside it."""
     if mode not in _STEP_MODES:
         raise ValueError(f"victim_step: mode must be one of {tuple(_STEP_MODES)}, got {mode!r}")
     kw = dict(mode=mode, use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
               use_conformance=use_conformance, order_by_priority=order_by_priority)
     dev = _device_of(c, "victim_step")
     if dev.type == "cpu":
-        return victim_step_plain(c, s, t_req, t_cls, jt, qt, **kw)
-    out = victim_step_launch(*_lib_stream(dev), c, s, t_req, t_cls, jt, qt, **kw)
+        return victim_step_plain(c, s, t_req, t_cls, jt, qt, groups=groups, **kw)
+    if groups is None:
+        groups = victim_groups(c, s.run_live, order_by_priority=order_by_priority)
+    out = victim_step_launch(*_lib_stream(dev), c, s, t_req, t_cls, jt, qt, groups=groups, **kw)
     LAUNCHES["victim_step"] += 1
     return out
 
 
-def victim_step_launch(lib, stream, c, s, t_req, t_cls, jt, qt, *, mode, use_gang, use_drf,
-                       use_prop, use_conformance, order_by_priority) -> VictimStepOut:
-    """Validate, launch csrc/victim_step.cu and return its outputs."""
+#: threads of a K7 / K12b core CTA, one node a thread (csrc/victim_step.cu
+#: VTT_STEP_THREADS)
+STEP_THREADS = 128
+#: most local blocks a K12b launch takes (VTT_VB_MAX)
+VB_MAX = 64
+#: ctl word of the first CTA ticket (VTT_STEP_TICKET)
+_STEP_TICKET = 12
+
+
+class _StepOut(ctypes.Structure):
+    """Mirror of ``struct VttStepOut`` (csrc/victim_step.cu)."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "run_live", "job_alloc", "job_occupied", "queue_alloc", "releasing", "used",
+        "task_count", "packed")]
+
+
+class _VbIn(ctypes.Structure):
+    """Mirror of ``struct VttVbIn``: each local block's input node rows."""
+
+    _fields_ = [(n, ctypes.c_void_p * VB_MAX) for n in ("releasing", "used", "task_count")]
+
+
+class _VbConst(ctypes.Structure):
+    """Mirror of ``struct VttVbConst``: a local block's constant planes."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "node_alloc", "node_max_tasks", "node_valid", "class_mask", "class_score")] + [
+        ("n0", ctypes.c_int64)]
+
+
+_STATE_REPLICATED = ("run_live", "job_alloc", "job_occupied", "queue_alloc")
+_STEP_CONSTS = ("run_req", "run_node", "run_job", "run_prio", "run_rank", "run_evictable",
+                "job_queue", "job_min", "queue_deserved", "total", "eps")
+
+
+class _StepWorkspace:
+    """K7's or K12b's scratch and argument block for one device and shape
+    (``L`` local blocks of ``nb`` rows; K7 is one block of all rows),
+    reused across calls on the port's one stream: the row flags, the
+    ok-attempt counter and the CTA tickets (zero between launches), the
+    CTA and block records, and the records the apply writes that nothing
+    reads.  The constants are checked and their pointers set once per
+    constants object, the groups once per groups object; a call sets the
+    state's and the request's pointers and the flags."""
+
+    def __init__(self, dev, V, nb, R, J, Q, C, L, S):
+        i32 = dict(dtype=torch.int32, device=dev)
+        cpb = -(-nb // STEP_THREADS)
+        self.bufs = dict(
+            flag=torch.zeros(V, dtype=torch.uint8, device=dev),
+            ctl=torch.zeros(_STEP_TICKET + VB_MAX, **i32),
+            evict_att=torch.full((V,), -1, **i32), pipe=torch.zeros(J, **i32),
+            pipe_node=torch.full((1,), -1, **i32), pipe_att=torch.full((1,), -1, **i32),
+            send=torch.empty(L * cpb * VB_WORDS, **i32))
+        self.block_send = torch.empty((L, VB_WORDS), **i32)
+        self.args = VictimArgs()
+        for name, t in self.bufs.items():
+            setattr(self.args, name, t.data_ptr())
+        for name, v in dict(V=V, N=nb, NT=nb * S, R=R, T=1, J=J, Q=Q, C=C, S=S).items():
+            setattr(self.args, name, v)
+        self.out, self.vb_in = _StepOut(), _VbIn()
+        self.consts = self.groups = self.dblk = None
+        self.trusted = ()
+
+    def bind_consts(self, c, blocks=None):
+        """The constants' pointers (``blocks``: the local blocks' constant
+        planes, placed in device memory)."""
+        for name in _STEP_CONSTS:
+            setattr(self.args, name, getattr(c, name).data_ptr())
+        if blocks is None:
+            for name in CONST_NODE_PLANES:
+                setattr(self.args, name, getattr(c, name).data_ptr())
+        else:
+            raw = bytearray(bytes(blocks))
+            self.dblk = torch.frombuffer(raw, dtype=torch.uint8).clone().to(c.run_req.device)
+        self.args.w_least, self.args.w_balanced = float(c.w_least), float(c.w_balanced)
+        self.consts, self.groups = c, None
+
+    def bind_call(self, s, t_req, groups, flags):
+        """The state's replicated fields, the request, the groups, the
+        flags; returns the fresh replicated outputs."""
+        a = self.args
+        if groups is not self.groups:
+            for name in ("node_off", "l_vidx", "l_ev", "l_drf", "l_prop"):
+                setattr(a, name, getattr(groups, name).data_ptr())
+            self.groups = groups
+        for name in _STATE_REPLICATED:
+            setattr(a, name, getattr(s, name).data_ptr())
+        a.task_req = t_req.data_ptr()
+        for name, v in flags.items():
+            setattr(a, name, int(bool(v)))
+        outs = {name: torch.empty_like(getattr(s, name)) for name in _STATE_REPLICATED}
+        for name, t in outs.items():
+            setattr(self.out, name, t.data_ptr())
+        return outs
+
+
+#: workspaces by (kind, device, shape): a solve's ``_StepWorkspace``, the
+#: group build's scratch dict; a few shapes live at a time
+_WORKSPACES: Dict[tuple, object] = {}
+
+
+def _workspace(key, make):
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        if len(_WORKSPACES) >= 8:
+            _WORKSPACES.clear()
+        ws = _WORKSPACES[key] = make()
+    return ws
+
+
+def _launch_in(key, entry, err) -> None:
+    """Raise on a failed launch, dropping the workspace (its tickets or
+    node fills may be left set)."""
+    if err:
+        _WORKSPACES.pop(key, None)
+    _raise_on(err, entry)
+
+
+def _check_step_consts(c, Q, name):
+    """The replicated constants of a K7 / K12b solve."""
     dev = c.run_req.device
     V, R = c.run_req.shape
     J = c.job_queue.shape[0]
-    C = c.class_mask.shape[0]
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    for field, (dt, shape) in {
+        "run_req": (f32, (V, R)), "run_node": (i32, (V,)), "run_job": (i32, (V,)),
+        "run_prio": (i32, (V,)), "run_rank": (i32, (V,)), "run_evictable": (b8, (V,)),
+        "job_queue": (i32, (J,)), "job_min": (i32, (J,)), "queue_deserved": (f32, (Q, R)),
+        "total": (f32, (R,)), "eps": (f32, (R,)),
+    }.items():
+        _check(field, getattr(c, field), dt, shape, dev)
+    if not 2 <= R <= _MAX_R:
+        raise ValueError(f"{name}: victim kernels take 2 <= R <= {_MAX_R}, got {R}")
+
+
+def _check_step_state(s, V, R, J, Q, dev):
+    for field, (dt, shape) in {
+        "run_live": (torch.bool, (V,)), "job_alloc": (torch.float32, (J, R)),
+        "job_occupied": (torch.int32, (J,)), "queue_alloc": (torch.float32, (Q, R)),
+    }.items():
+        _check(field, getattr(s, field), dt, shape, dev)
+
+
+def _check_preemptor(name, t_req, t_cls, jt, qt, R, J, C, dev):
     _check("t_req", t_req, torch.float32, (R,), dev)
     if not (0 <= jt < J and 0 <= t_cls < C and qt >= -1):
-        raise ValueError(f"victim_step: jt {jt}, t_cls {t_cls}, qt {qt} outside "
-                         f"J={J}, C={C}")
-    i32 = dict(dtype=torch.int32, device=dev)
-    extra = dict(pipe=torch.zeros(J, **i32))
-    flags = dict(use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
-                 use_conformance=use_conformance, order_by_priority=order_by_priority,
-                 job_key_order=())
-    args, st, _ = _victim_args(c, s, t_req.view(1, R), torch.full((1,), t_cls, **i32),
-                               extra, {}, flags)
-    packed = torch.empty(4 + (V + 31) // 32, **i32)
-    _raise_on(lib.vtt_victim_step(ctypes.byref(args), int(t_cls), int(jt), int(qt),
-                                  _STEP_MODES[mode], packed.data_ptr(), stream),
-              "vtt_victim_step")
-    return VictimStepOut(st, packed)
+        raise ValueError(f"{name}: jt {jt}, t_cls {t_cls}, qt {qt} outside J={J}, C={C}")
+
+
+def victim_step_launch(lib, stream, c, s, t_req, t_cls, jt, qt, *, mode, use_gang, use_drf,
+                       use_prop, use_conformance, order_by_priority,
+                       groups) -> VictimStepOut:
+    """Validate, launch csrc/victim_step.cu's K7 on this shape's workspace
+    and return its outputs (fresh tensors; ``idle`` is the input's, which
+    no solve writes)."""
+    dev = c.run_req.device
+    V, R = c.run_req.shape
+    N = c.node_alloc.shape[0]
+    J, Q, C = c.job_queue.shape[0], s.queue_alloc.shape[0], c.class_mask.shape[0]
+    key = ("step", dev, V, N, R, J, Q, C)
+    ws = _workspace(key, lambda: _StepWorkspace(dev, V, N, R, J, Q, C, 1, 1))
+    if ws.consts is not c:
+        _check_step_consts(c, Q, "victim_step")
+        for field, (dt, shape) in {
+            "node_alloc": (torch.float32, (N, R)), "node_max_tasks": (torch.int32, (N,)),
+            "node_valid": (torch.bool, (N,)), "class_mask": (torch.bool, (C, N)),
+            "class_score": (torch.float32, (C, N)),
+        }.items():
+            _check(field, getattr(c, field), dt, shape, dev)
+        ws.bind_consts(c)
+    if groups is not ws.groups or groups.order_by_priority != bool(order_by_priority):
+        _check_groups("victim_step", groups, c, N, order_by_priority)
+    if not any(s is t for t in ws.trusted):
+        _check_step_state(s, V, R, J, Q, dev)
+        for field, (dt, shape) in {"releasing": (torch.float32, (N, R)),
+                                   "used": (torch.float32, (N, R)),
+                                   "task_count": (torch.int32, (N,))}.items():
+            _check(field, getattr(s, field), dt, shape, dev)
+    _check_preemptor("victim_step", t_req, t_cls, jt, qt, R, J, C, dev)
+    outs = ws.bind_call(s, t_req, groups, dict(
+        use_gang=use_gang, use_drf=use_drf, use_prop=use_prop, use_conformance=use_conformance,
+        order_by_priority=order_by_priority))
+    a, o = ws.args, ws.out
+    for name in ("releasing", "used", "task_count"):
+        t = getattr(s, name)
+        setattr(a, name, t.data_ptr())
+        outs[name] = torch.empty_like(t)
+        setattr(o, name, outs[name].data_ptr())
+    packed = torch.empty(4 + (V + 31) // 32, dtype=torch.int32, device=dev)
+    o.packed = packed.data_ptr()
+    _launch_in(key, "vtt_victim_step", lib.vtt_victim_step(
+        ctypes.byref(a), ctypes.byref(o), int(t_cls), int(jt), int(qt), _STEP_MODES[mode],
+        stream))
+    state = VictimState(idle=s.idle, **outs)
+    ws.trusted = (s, state)
+    return VictimStepOut(state, packed)
 
 
 # --------------------------------------------------------------------------
@@ -975,18 +1329,21 @@ def _whole(out):
 
 def victim_step_sharded(c, s, t_req, t_cls, jt, qt, mesh, *, mode="queue", use_gang=True,
                         use_drf=False, use_prop=False, use_conformance=False,
-                        order_by_priority=True) -> VictimStepOut:
+                        order_by_priority=True, groups=None) -> VictimStepOut:
     """``victim_step`` with the node planes of ``c`` and ``s`` in blocks of
     rows: each of ``CONST_NODE_PLANES`` / ``STATE_NODE_PLANES`` is a tuple of
     this process's blocks of ``mesh`` (``parallel/sharded.py``), the other
     fields whole.  Returns the new state (its node planes again tuples of
     this process's blocks) and the packed decision, equal bit for bit to
-    the one-block solve's.
+    the one-block solve's.  ``groups``: ``victim_groups(c, live, mesh=mesh)``
+    over rows that include every row live in ``s`` (built here from the
+    rows live in ``s`` when not given), as for ``victim_step``.
 
     Replaces volcano_tpu/parallel/sharded.py:202 make_sharded_victim_step.
     CPU tensors run ``parallel/sharded.victim_blocks_plain``; CUDA tensors
-    launch csrc/victim_step.cu's block entries (each block's core, the
-    mesh's record exchange, the replicated merge and apply) or raise."""
+    launch csrc/victim_step.cu's block entries (every local block's cores
+    in one launch, the mesh's record exchange, the replicated merge and
+    apply in a second) or raise."""
     if mode not in _STEP_MODES:
         raise ValueError(f"victim_step: mode must be one of {tuple(_STEP_MODES)}, got {mode!r}")
     kw = dict(mode=mode, use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
@@ -996,8 +1353,11 @@ def victim_step_sharded(c, s, t_req, t_cls, jt, qt, mesh, *, mode="queue", use_g
     if dev.type == "cpu":
         from volcano_tpu_torch.parallel.sharded import victim_blocks_plain
 
-        return victim_blocks_plain(c, s, t_req, t_cls, jt, qt, mesh, nb, **kw)
-    out = victim_sharded_launch(*_lib_stream(dev), c, s, t_req, t_cls, jt, qt, mesh, nb, **kw)
+        return victim_blocks_plain(c, s, t_req, t_cls, jt, qt, mesh, nb, groups=groups, **kw)
+    if groups is None:
+        groups = victim_groups(c, s.run_live, order_by_priority=order_by_priority, mesh=mesh)
+    out = victim_sharded_launch(*_lib_stream(dev), c, s, t_req, t_cls, jt, qt, mesh, nb,
+                                groups=groups, **kw)
     LAUNCHES["victim_step_sharded"] += 1
     return out
 
@@ -1117,37 +1477,67 @@ def _exchanged(mesh, send: torch.Tensor) -> torch.Tensor:
 
 
 def victim_sharded_launch(lib, stream, c, s, t_req, t_cls, jt, qt, mesh, nb, *, mode, use_gang,
-                          use_drf, use_prop, use_conformance, order_by_priority):
+                          use_drf, use_prop, use_conformance, order_by_priority, groups):
     """Validate, launch csrc/victim_step.cu's block entries around the
-    mesh's exchange and return ``VictimStepOut``."""
+    mesh's exchange on this shape's workspace and return ``VictimStepOut``
+    (the node planes of the new state views of one buffer a plane)."""
     dev = c.run_req.device
     V, R = c.run_req.shape
-    J = c.job_queue.shape[0]
+    J, Q = c.job_queue.shape[0], s.queue_alloc.shape[0]
     C = c.class_mask[0].shape[0]
     L, S = mesh.n_local, mesh.size
-    i32 = torch.int32
-    _check("t_req", t_req, torch.float32, (R,), dev)
-    if not (0 <= jt < J and 0 <= t_cls < C and qt >= -1):
-        raise ValueError(f"victim_step_sharded: jt {jt}, t_cls {t_cls}, qt {qt} outside "
-                         f"J={J}, C={C}")
-    flags = dict(use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
-                 use_conformance=use_conformance, order_by_priority=order_by_priority,
-                 job_key_order=())
-    # bufs and keep hold the buffers the launches below read
-    base, blocks, state, bufs, keep = _blocks_args(
-        c, s, t_req.view(1, R), torch.full((1,), t_cls, dtype=i32, device=dev), mesh, nb,
-        dict(pipe=torch.zeros(J, dtype=i32, device=dev)), {}, flags, lambda i: {})
-    send = torch.empty((L, VB_WORDS), dtype=i32, device=dev)
-    _raise_on(lib.vtt_victim_blocks_core(blocks, L, int(t_cls), int(jt), int(qt),
-                                         _STEP_MODES[mode], send.data_ptr(), stream),
-              "vtt_victim_blocks_core")
-    recv = _exchanged(mesh, send)
-    packed = torch.empty(4 + (V + 31) // 32, dtype=i32, device=dev)
-    vsum = torch.empty(R, dtype=torch.float32, device=dev)
-    _raise_on(lib.vtt_victim_blocks_apply(ctypes.byref(base), blocks, L, int(t_cls), int(jt),
-                                          int(qt), _STEP_MODES[mode], recv.data_ptr(), S,
-                                          packed.data_ptr(), vsum.data_ptr(), stream),
-              "vtt_victim_blocks_apply")
+    if L > VB_MAX:
+        raise ValueError(f"victim_step_sharded: at most {VB_MAX} local blocks, got {L}")
+    key = ("blocks", dev, V, nb, R, J, Q, C, L, S, mesh.first)
+    ws = _workspace(key, lambda: _StepWorkspace(dev, V, nb, R, J, Q, C, L, S))
+    if ws.consts is not c:
+        _check_step_consts(c, Q, "victim_step_sharded")
+        blocks = (_VbConst * L)()
+        for i in range(L):
+            for name, (dt, shape) in {
+                "node_alloc": (torch.float32, (nb, R)), "node_max_tasks": (torch.int32, (nb,)),
+                "node_valid": (torch.bool, (nb,)), "class_mask": (torch.bool, (C, nb)),
+                "class_score": (torch.float32, (C, nb)),
+            }.items():
+                t = getattr(c, name)[i]
+                _check(f"block {i} {name}", t, dt, shape, dev)
+                setattr(blocks[i], name, t.data_ptr())
+            blocks[i].n0 = (mesh.first + i) * nb
+        ws.bind_consts(c, blocks)
+    if groups is not ws.groups or groups.order_by_priority != bool(order_by_priority):
+        _check_groups("victim_step_sharded", groups, c, nb * S, order_by_priority)
+    if not any(s is t for t in ws.trusted):
+        _check_step_state(s, V, R, J, Q, dev)
+        for name, (dt, shape) in {"releasing": (torch.float32, (nb, R)),
+                                  "used": (torch.float32, (nb, R)),
+                                  "task_count": (torch.int32, (nb,))}.items():
+            for i, b in enumerate(getattr(s, name)):
+                _check(f"block {i} {name}", b, dt, shape, dev)
+    _check_preemptor("victim_step_sharded", t_req, t_cls, jt, qt, R, J, C, dev)
+    outs = ws.bind_call(s, t_req, groups, dict(
+        use_gang=use_gang, use_drf=use_drf, use_prop=use_prop, use_conformance=use_conformance,
+        order_by_priority=order_by_priority))
+    a, o, vb_in = ws.args, ws.out, ws.vb_in
+    for name in ("releasing", "used", "task_count"):
+        ptrs = getattr(vb_in, name)
+        for i, b in enumerate(getattr(s, name)):
+            ptrs[i] = b.data_ptr()
+        b0 = getattr(s, name)[0]
+        whole = torch.empty((L * nb,) + tuple(b0.shape[1:]), dtype=b0.dtype, device=dev)
+        setattr(o, name, whole.data_ptr())
+        outs[name] = whole.split(nb)
+    packed = torch.empty(4 + (V + 31) // 32, dtype=torch.int32, device=dev)
+    o.packed = packed.data_ptr()
+    mode_i = _STEP_MODES[mode]
+    _launch_in(key, "vtt_victim_blocks_core", lib.vtt_victim_blocks_core(
+        ctypes.byref(a), ws.dblk.data_ptr(), ctypes.byref(vb_in), ctypes.byref(o), L,
+        int(t_cls), int(jt), int(qt), mode_i, ws.block_send.data_ptr(), stream))
+    recv = _exchanged(mesh, ws.block_send)
+    _launch_in(key, "vtt_victim_blocks_apply", lib.vtt_victim_blocks_apply(
+        ctypes.byref(a), ctypes.byref(o), recv.data_ptr(), S, mesh.first * nb, L * nb,
+        int(t_cls), int(jt), int(qt), mode_i, stream))
+    state = VictimState(idle=s.idle, **outs)
+    ws.trusted = (s, state)
     return VictimStepOut(state, packed)
 
 
