@@ -6,6 +6,7 @@
     python3 chip_smoke.py --split    # only the batched solve's stage split
     python3 chip_smoke.py --victim-split  # only the victim solve's split (K7, K12b)
     python3 chip_smoke.py --storm-split   # only K8-K10 and K15a-c at config 6, timed
+    python3 chip_smoke.py --exact-split   # only the exact solve's split (K2, K5 / K6 in it)
 
 Phases, each fatal on failure:
 
@@ -19,7 +20,9 @@ Phases, each fatal on failure:
    fetch to the host, and the batched solve's split (batch_split: a
    torch.profiler pass over one solve, device ms by kernel of
    csrc/allocate_batch.cu, the rounds and the host gap); allocate_solve at
-   build_sim_args(10000, 4000, 200); then a sweep of small solves over
+   build_sim_args(10000, 4000, 200), with the cluster size it ran on, us a
+   step and the timed instantiation's split (_exact_timed; the K5 and K6
+   rows of phases 7 and 11 carry the same); then a sweep of small solves over
    seeds and policies (classes, pod caps, releasing capacity, rollbacks,
    build_portsel_args host ports and pod (anti)affinity, and
    build_volsel_args volumes: global and node-pinned pools, bound-PV node
@@ -158,6 +161,12 @@ solve's split alone (phase_victim_split: K7 at config 4 and on cfg6r-be's
 first inputs, K12b at config 4 on 4 blocks; device ms and launches by
 kernel, the wrapper's host us, the wall and the host gap, warm, cold and
 the group build alone), so a parent commit is measured in the same call.
+``--exact-split`` runs the build and the exact solve's split alone
+(phase_exact_split: K2 on cfg5-exact's inputs, on the dynamic solves
+cfg5d-exact (K5) and cfg5v-2000 (K5 and K6) capture, at 128 queues and on a
+select-heavy and a place-heavy shape: device ms, placements, drops, us a
+place step, launches and an output digest; on a tree with the cluster
+kernel also each cluster size, equal to the default, and the timed split).
 
 Phase 20 runs right after phase 17, on phase 16's captured inputs; the
 cfg9 objects are then released before phases 18, 19, 21, 22 and 23.
@@ -482,13 +491,16 @@ def phase_kernels():
     ms = cuda_ms(lambda: K.allocate_solve(*args_e, **opts), 3)
     io = nbytes(*solve_e.values()) + nbytes(*out_k[:10])
     b, kind = bound_ms(io, _exact_solve_ops(out_k, e))
+    timed = _exact_timed(_exact_launcher(args_e, opts), ms, _solve_digest(out_k),
+                         "allocate_solve")
     rows.append(dict(name="allocate_solve", route="cuda",
                      source="volcano_tpu_torch/csrc/allocate_solve.cu",
                      replaces="volcano_tpu/scheduler/kernels.py:185",
                      max_abs_err=err, ms=ms, plain_ms=t_p * 1e3, bound_ms=b,
-                     bound_by=kind, library_ms=None))
+                     bound_by=kind, library_ms=None, **timed))
     log(f"[kernels] allocate_solve ok: steps {steps}, {ms:.3f} ms (plain {t_p * 1e3:.1f} ms, "
-        f"bound {b:.4f} ms by {kind})")
+        f"bound {b:.4f} ms by {kind}), cluster {timed['cluster']}, "
+        f"{timed['us_per_step']:.3f} us a step, split {json.dumps(timed['split'])}")
     return {r["name"]: r for r in rows}
 
 
@@ -962,12 +974,17 @@ def phase_portsel_kernels(captured, n_launches):
         log(f"[kernels] {label} {name} ok: {int(out_k.steps)} {'rounds' if batch else 'steps'}, "
             f"{placed} placed, {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b:.4f} ms by {kind})")
         src = "allocate_batch.cu" if batch else "allocate_solve.cu"
+        timed = {} if batch else _exact_timed(_exact_launcher(args, kw), ms,
+                                              _solve_digest(out_k), f"{label} {name}")
+        if timed:
+            log(f"[kernels] {label} {name}: cluster {timed['cluster']}, "
+                f"{timed['us_per_step']:.3f} us a step, split {json.dumps(timed['split'])}")
         rows[name] = dict(
             name=name, route="cuda", source=f"volcano_tpu_torch/csrc/{src}",
             replaces=("volcano_tpu/scheduler/kernels.py:611-635" if batch
                       else "volcano_tpu/scheduler/kernels.py:308-322"),
             launches=n_launches[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b, bound_by=kind, library_ms=None, check="ok")
+            bound_ms=b, bound_by=kind, library_ms=None, check="ok", **timed)
     return rows
 
 
@@ -1026,15 +1043,18 @@ def phase_volsel_kernel(captured, n_launches):
     b, kind = bound_ms(io, ops)
     placed = int((out_k.task_kind > 0).sum())
     assumed = int((out_k.claim_node >= 0).sum())
+    timed = _exact_timed(_exact_launcher(args, kw), ms, _solve_digest(out_k),
+                         "cfg5v-2000 allocate_solve_volsel")
     log(f"[kernels] cfg5v-2000 allocate_solve_volsel ok: {int(out_k.steps)} steps, {placed} "
         f"placed, {assumed} of {vs[2].shape[0]} claim slots assumed, {ms:.3f} ms (plain "
-        f"{plain_ms:.1f} ms, bound {b:.4f} ms by {kind})")
+        f"{plain_ms:.1f} ms, bound {b:.4f} ms by {kind}), cluster {timed['cluster']}, "
+        f"{timed['us_per_step']:.3f} us a step, split {json.dumps(timed['split'])}")
     return {"allocate_solve_volsel": dict(
         name="allocate_solve_volsel", route="cuda",
         source="volcano_tpu_torch/csrc/allocate_solve.cu",
         replaces="volcano_tpu/scheduler/kernels.py:323-342",
         launches=n_launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=b, bound_by=kind, library_ms=None, check="ok")}
+        bound_ms=b, bound_by=kind, library_ms=None, check="ok", **timed)}
 
 
 # config 6 (bench.py _build_contended_store, config6): every node exactly
@@ -3077,6 +3097,196 @@ def phase_storm_split(reps=STORM_SPLIT_REPS):
     return res
 
 
+#: CUDA-event calls timed per input in the exact split
+EXACT_SPLIT_REPS = 5
+#: the stages of the timed exact solve, in the order of its split buffer
+EXACT_STAGES = ("class_row", "scan", "reduce", "cluster_barrier", "apply", "select")
+#: a select step's parts in the split: the queue, the job candidates, the
+#: reduce to the CTA's record, the cluster barrier, the records' read
+EXACT_SELECT_STAGES = ("queue", "job_scan", "job_reduce", "cluster_barrier", "read")
+
+
+def _capture_dyn(label, dynamic_frac=0.0, volume_tasks=0):
+    """The first cycle's dynamic-solve inputs of a config-5 store with
+    dynamic or volume gangs (phase_e2e's capture, without its checks)."""
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.fastpath import cycle as cycle_mod
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    store = build_cfg5_store(CFG5["jobs"], CFG5["best_effort"], dynamic_frac, volume_tasks)
+    sched = Scheduler(store, conf=full_conf("cuda"))
+    sched.prewarm()
+    solve_dyn, cap = cycle_mod.torch_dynamic_solve, []
+
+    def recording(backend, snap, dyn, n_pending=None):
+        cap.append((backend, snap, dyn))
+        return solve_dyn(backend, snap, dyn, n_pending)
+
+    cycle_mod.torch_dynamic_solve = recording
+    try:
+        sched.run_once()
+    finally:
+        cycle_mod.torch_dynamic_solve = solve_dyn
+    if not cap:
+        raise AssertionError(f"exact split: the {label} cycle ran no dynamic solve")
+    return cap[0]
+
+
+def _exact_cases():
+    """(label, positional args, keyword args) of each input the exact split
+    times: cfg5-exact, the dynamic solves cfg5d-exact (K5) and cfg5v-2000
+    (K5 and K6) capture, 128 queues (phase 15's shape), a select-heavy shape
+    (4,000 one-task jobs) and a place-heavy one (one 4,000-task gang whose
+    min member is its size, so it stays current)."""
+    from volcano_tpu_torch.scheduler import kernels as K
+    from volcano_tpu_torch.scheduler.simargs import build_sim_args
+    from volcano_tpu_torch.scheduler.tensor_actions import dyn_solve_args
+
+    opts = dict(job_key_order=("priority", "gang", "drf"), use_gang_ready=True,
+                use_proportion=True)
+
+    def sim(a):
+        si = _solve_inputs_np(a)
+        return [si[k] for k in K._SOLVE_ARGS] + [1.0, 1.0], dict(opts)
+
+    yield ("cfg5-exact", *sim(build_sim_args(10_000, 4_000, 200)))
+    for label, frac, vol in (("cfg5d-exact", 0.04, 0), ("cfg5v-2000", 0.0, 2000)):
+        solve, args, kw = dyn_solve_args(*_capture_dyn(label, frac, vol))
+        if solve is not K.allocate_solve:
+            raise AssertionError(f"exact split: {label}'s dynamic solve is not the exact one")
+        yield label, list(args), kw
+    yield ("128 queues", *sim(build_sim_args(10_000, 4_000, 200, n_queues=128, seed=5)))
+    yield ("select-heavy", *sim(build_sim_args(10_000, 4_000, 4_000, seed=7)))
+    a = build_sim_args(10_000, 4_000, 1, n_queues=1, seed=8)
+    a["job_min"][0] = 4_000
+    yield ("place-heavy", *sim(a))
+
+
+def _solve_digest(out):
+    """sha256 of every output of a solve, decisions and float state."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in out:
+        h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def exact_split(label, args, kw, reps=EXACT_SPLIT_REPS):
+    """K2 on one input: device ms (CUDA events over ``reps`` calls),
+    placements, drops, place steps, us a place step, launches a call and a
+    digest of the outputs; on a tree whose wrapper takes ``cluster``, also
+    the cluster size it chose, each size of K.EXACT_CLUSTERS timed (or the
+    error the card refused it with), each equal to the default's outputs,
+    and the timed instantiation's split: select and place steps and each
+    stage's share of the kernel's clock."""
+    import inspect
+
+    import torch
+
+    from volcano_tpu_torch.scheduler import kernels as K
+
+    def run():
+        return K.allocate_solve(*args, **kw)
+
+    run()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES["allocate_solve"]
+    ms = cuda_ms(run, reps)
+    placed, drops = int(out.steps), int(out.dropped.sum())
+    place_steps = placed + drops
+    row = dict(ms=ms, steps=placed, drops=drops, place_steps=place_steps,
+               us_per_place_step=ms * 1e3 / max(place_steps, 1), launches=launches,
+               digest=_solve_digest(out))
+    msg = (f"[exact split] {label}: {ms:.3f} ms, {placed} placements, {drops} drops, "
+           f"{row['us_per_place_step']:.3f} us a place step, {launches} launch(es), "
+           f"digest {row['digest']}")
+    if "cluster" not in inspect.signature(K.solve_launch).parameters:
+        log(msg)
+        return row
+    launch = _exact_launcher(args, kw)
+    row["clusters"] = {}
+    for c in K.EXACT_CLUSTERS:
+        try:
+            o = launch(c)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            row["clusters"][c] = f"refused: {e}"
+            continue
+        if _solve_digest(o) != row["digest"]:
+            raise AssertionError(f"exact split {label}: cluster {c} differs from the default")
+        row["clusters"][c] = cuda_ms(lambda: launch(c), reps)
+    row.update(_exact_timed(launch, ms, row["digest"], label))
+    sp = row["split"]
+    log(msg + f", cluster {row['cluster']} (by size: {row['clusters']}); timed "
+        f"{sp['ms']:.3f} ms: {sp['place_steps']} place / {sp['select_steps']} select steps "
+        f"({sp['queue_drops']} queue drops), {row['us_per_step']:.3f} us a step; " + ", ".join(
+            f"{st} {v:.3f} ms" for st, v in sp["stages_ms"].items()) + "; select: " + ", ".join(
+            f"{st} {v:.3f} ms" for st, v in sp["select_stages_ms"].items()))
+    return row
+
+
+def _exact_launcher(args, kw):
+    """launch(cluster=None, split=None): K2 through solve_launch on the
+    exact solve's positional ``args`` (solve inputs, then the two score
+    weights) and keywords ``kw``."""
+    from volcano_tpu_torch import _build
+    from volcano_tpu_torch.scheduler import kernels as K
+
+    names = K._SOLVE_ARGS + ("w_least", "w_balanced")
+    a = dict(zip(names, args))
+    wl, wb = a.pop("w_least"), a.pop("w_balanced")
+    ext = {k: kw[k] for k in ("portsel", "volsel") if kw.get(k) is not None}
+    lib, dev = _build.load(), a["idle"].device
+
+    def launch(cluster=None, split=None):
+        return K.solve_launch(lib, K._stream(dev), False, a, wl, wb, kw["job_key_order"],
+                              kw["use_gang_ready"], kw["use_proportion"], cluster=cluster,
+                              split=split, **ext)
+
+    launch.device = dev
+    return launch
+
+
+def _exact_timed(launch, ms, digest, label):
+    """The timed instantiation's split of one K2 solve at the default
+    cluster size (``launch`` from _exact_launcher; ``ms`` the untimed
+    solve's CUDA-event time, ``digest`` its outputs'): the cluster size
+    launched, select and place steps, queue drops,
+    each stage's time (its share of the kernel's clock64 cycles, scaled by
+    the %globaltimer wall of the solve), the resident rows of a CTA and us a
+    step of the untimed solve."""
+    import torch
+
+    buf = torch.zeros(32, dtype=torch.int64, device=launch.device)
+    o = launch(split=buf)
+    torch.cuda.synchronize()
+    if _solve_digest(o) != digest:
+        raise AssertionError(f"{label}: the timed exact solve differs from the untimed one")
+    s = buf.cpu().tolist()
+    ns, cyc = s[0], max(s[1], 1)
+    stages = {st: s[2 + i] * ns / cyc / 1e6 for i, st in enumerate(EXACT_STAGES)}
+    select = {st: s[16 + i] * ns / cyc / 1e6 for i, st in enumerate(EXACT_SELECT_STAGES)}
+    split = dict(ms=ns / 1e6, place_steps=s[8], select_steps=s[9], queue_drops=s[10],
+                 cluster=s[12], resident_rows=s[13], slice_rows=s[14], stages_ms=stages,
+                 select_stages_ms=select)
+    return dict(cluster=s[12], split=split, us_per_step=ms * 1e3 / max(s[8] + s[9], 1))
+
+
+def phase_exact_split():
+    """The exact solve's split alone (``--exact-split``): exact_split on
+    each of _exact_cases, so a parent commit is measured in the same call."""
+    res = {}
+    for label, args, kw in _exact_cases():
+        res[label] = exact_split(label, args, kw)
+        del args, kw
+        gc.collect()
+    return res
+
+
 def phase_profile(out_path=None):
     """torch.profiler over the batched solve (phase_split: K3 at config 5,
     the 4-block solve at cfg9's shape), then one config-5 cycle and one
@@ -3342,6 +3552,10 @@ def main(argv):
     if "--storm-split" in argv:
         log(smi)
         log(json.dumps({"storm_split": phase_storm_split()}))
+        return 0
+    if "--exact-split" in argv:
+        log(smi)
+        log(json.dumps({"exact_split": phase_exact_split()}))
         return 0
     if "--profile" in argv:
         i = argv.index("--profile") + 1

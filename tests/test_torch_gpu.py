@@ -22,9 +22,11 @@ from volcano_tpu_torch.scheduler.conf import full_conf
 from volcano_tpu_torch.scheduler.scheduler import Scheduler
 from volcano_tpu_torch.scheduler.simargs import (
     BATCH_EDGE_CASES,
+    EXACT_EDGE_CASES,
     PORTSEL_KEYS,
     add_releasing,
     build_batch_edge_args,
+    build_exact_edge_args,
     build_portsel_args,
     build_reclaim_abort_sim,
     build_sim_args,
@@ -1031,3 +1033,118 @@ def test_gpu_contention_solves_on_blocks_match_plain(case, n_blocks):
     assert VK.LAUNCHES[name + "_sharded"] == 1 and VK.LAUNCHES[name] == 0
     _assert_storm_blocked_same(out_k, plain(dc, ds, *args, mesh, nb, **kw))
     _assert_storm_blocked_same(out_k, getattr(VK, name)(c, s, *args, **kw))
+
+
+# -- K2 on a thread-block cluster --------------------------------------------
+
+def _exact_inputs(dev, a, ps=None, vs=None):
+    """The exact solve's named inputs on ``dev`` (K1's deserved shares) and
+    its portsel / volsel keywords."""
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in a.items()}
+    des = K.water_fill(*_water_fill_inputs(t))
+    si = {k: (des if k == "queue_deserved" else t[k]) for k in K._SOLVE_ARGS}
+    ext = {}
+    if ps is not None:
+        ext["portsel"] = tuple(ps[k] if k == "w_podaff" else torch.from_numpy(ps[k]).to(dev)
+                               for k in PORTSEL_KEYS)
+    if vs is not None:
+        ext["volsel"] = interop.volsel_from_payload(vs, dev)
+    return si, ext
+
+
+def _exact_launch(si, opts, cluster=None, split=None, **ext):
+    from volcano_tpu_torch import _build
+
+    pol = dict(dict(job_key_order=("priority", "gang", "drf"), use_gang_ready=True,
+                    use_proportion=True), **opts)
+    return K.solve_launch(_build.load(), K._stream(si["idle"].device), False, si, 1.0, 1.0,
+                          pol["job_key_order"], pol["use_gang_ready"], pol["use_proportion"],
+                          cluster=cluster, split=split, **ext)
+
+
+def _assert_exact_same(out_k, out_p):
+    _assert_same(out_k, out_p)
+    if hasattr(out_p, "claim_node"):
+        assert torch.equal(out_k.claim_node, out_p.claim_node)
+        assert torch.equal(out_k.vol_cap, out_p.vol_cap)
+
+
+def _exact_at_every_cluster(si, opts, ext):
+    """The kernel at each cluster size against the plain version; the
+    portable sizes (1, 2, 4, 8) must be admitted, and a size the card
+    refuses raises.  Returns the sizes admitted."""
+    pol = dict(dict(job_key_order=("priority", "gang", "drf"), use_gang_ready=True,
+                    use_proportion=True), **opts)
+    out_p = K.allocate_solve_plain(**si, w_least=1.0, w_balanced=1.0, **pol, **ext)
+    admitted = []
+    for c in K.EXACT_CLUSTERS:
+        try:
+            out_k = _exact_launch(si, opts, cluster=c, **ext)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            assert c == 16, f"portable cluster size {c} refused"
+            continue
+        _assert_exact_same(out_k, out_p)
+        admitted.append(c)
+    return admitted, out_p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", EXACT_EDGE_CASES)
+def test_gpu_exact_edge_shapes_match_plain(case):
+    """K2 (with K5 / K6 where the case carries them) on every edge shape
+    of simargs.build_exact_edge_args at each cluster size the card admits,
+    bit for bit its plain version, volume state included."""
+    dev = _cuda()
+    a, opts, ps, vs = build_exact_edge_args(case)
+    si, ext = _exact_inputs(dev, a, ps, vs)
+    admitted, out_p = _exact_at_every_cluster(si, opts, ext)
+    assert {1, 2, 4, 8} <= set(admitted)
+    assert int(out_p.steps) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ext_kind", ["plain", "portsel+volsel"])
+def test_gpu_exact_past_the_resident_budget_matches_plain(ext_kind):
+    """131,072 node rows (100,000 valid) and 400 tasks: a CTA's slice is
+    larger than its shared memory at every cluster size, so part of it runs
+    from the working copies in global memory, in the same kernel."""
+    dev = _cuda()
+    a = build_sim_args(100_000, 400, 40, n_queues=3, seed=11, n_classes=3, class_fill=0.7)
+    add_releasing(a, 11)
+    ps = vs = None
+    if ext_kind != "plain":
+        ps = build_portsel_args(100_000, 400, seed=11, n_jobs=40)
+        vs = build_volsel_args(100_000, 400, seed=11, n_jobs=40)
+    assert a["idle"].shape[0] == 131_072
+    si, ext = _exact_inputs(dev, a, ps, vs)
+    admitted, out_p = _exact_at_every_cluster(si, {}, ext)
+    assert {1, 2, 4, 8} <= set(admitted) and int(out_p.steps) > 0
+
+
+@pytest.mark.gpu
+def test_gpu_exact_cluster_choice_launches_and_refusals():
+    """allocate_solve is one launch; the timed instantiation gives the same
+    outputs, fills its split and ran on the largest admitted cluster; a
+    size outside EXACT_CLUSTERS and options the batch solve lacks raise."""
+    dev = _cuda()
+    a = build_sim_args(14, 64, 16, n_queues=3, seed=2, n_classes=3, class_fill=0.6)
+    si, _ = _exact_inputs(dev, a)
+    K.reset_launches()
+    out = K.allocate_solve(*si.values(), 1.0, 1.0)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["allocate_solve"] == 1
+    split = torch.zeros(32, dtype=torch.int64, device=dev)
+    timed = _exact_launch(si, {}, split=split)
+    torch.cuda.synchronize()
+    _assert_same(timed, out)
+    sp = split.cpu().tolist()
+    assert sp[0] > 0 and sp[8] == int(out.steps) + int(out.dropped.sum()) and sp[9] > 0
+    assert sp[12] in (8, 16)  # the largest admitted size; 8 is portable
+    with pytest.raises(ValueError, match="cluster"):
+        _exact_launch(si, {}, cluster=3)
+    with pytest.raises(TypeError, match="cluster"):
+        from volcano_tpu_torch import _build
+
+        K.solve_launch(_build.load(), K._stream(dev), True, si, 1.0, 1.0,
+                       ("priority", "gang", "drf"), True, True, cluster=8)

@@ -21,10 +21,14 @@ import torch
 from volcano_tpu.scheduler import kernels as JK
 from volcano_tpu.scheduler.simargs import build_sim_args as jax_build_sim_args
 from volcano_tpu_torch.scheduler import kernels as TK
+from volcano_tpu_torch import interop
 from volcano_tpu_torch.scheduler.simargs import (
     BATCH_EDGE_CASES,
+    EXACT_EDGE_CASES,
+    PORTSEL_KEYS,
     add_releasing,
     build_batch_edge_args,
+    build_exact_edge_args,
     build_sim_args,
 )
 
@@ -41,7 +45,7 @@ def _water_fill_inputs(a):
             a["queue_participates"])
 
 
-def _run_both(a, batch, w=(1.0, 1.0), **kw):
+def _run_both(a, batch, w=(1.0, 1.0), jax_kw=None, torch_kw=None, **kw):
     des_j = np.asarray(JK.water_fill(*[jnp.asarray(x) for x in _water_fill_inputs(a)]))
     des_t = TK.water_fill(*[torch.from_numpy(x) for x in _water_fill_inputs(a)])
     np.testing.assert_allclose(des_t.numpy(), des_j, rtol=1e-6)
@@ -54,8 +58,8 @@ def _run_both(a, batch, w=(1.0, 1.0), **kw):
         oj = JK.allocate_solve_batch(*jargs, *jw, exact_topk=True, **kw)
         ot = TK.allocate_solve_batch(*targs, *w, **kw)
     else:
-        oj = JK.allocate_solve(*jargs, *jw, **kw)
-        ot = TK.allocate_solve(*targs, *w, **kw)
+        oj = JK.allocate_solve(*jargs, *jw, **kw, **(jax_kw or {}))
+        ot = TK.allocate_solve(*targs, *w, **kw, **(torch_kw or {}))
     return oj, ot
 
 
@@ -165,6 +169,74 @@ def test_batch_solve_edge_shapes_match_jax(case):
     oj, ot = _run_both(a, batch=True, **opts)
     _assert_same(oj, ot)
     _check_edge_shape(case, a, opts, ot)
+
+
+VOLSEL_FIELDS = ("task_volmask_w", "task_claims", "claim_group", "group_cap", "group_global")
+
+
+def _jax_portsel(p):
+    def bits(w):
+        return TK.unpack_bits(w).numpy()
+
+    return (jnp.asarray(bits(p["node_ports"])), jnp.asarray(bits(p["task_ports"])),
+            jnp.asarray(p["node_selcnt"].astype(np.float32)),
+            jnp.asarray(bits(p["task_aff"]).astype(np.float32)),
+            jnp.asarray(bits(p["task_anti"]).astype(np.float32)),
+            jnp.asarray(bits(p["task_self"]).astype(np.float32)), jnp.float32(p["w_podaff"]))
+
+
+def _check_exact_edge_shape(case, a, ps, vs, out):
+    """The case reached the shape it names."""
+    node, kind, seq = out.task_node.numpy(), out.task_kind.numpy(), out.task_seq.numpy()
+    job, dropped = a["task_job"], out.dropped.numpy()
+    n_tasks = int(a["task_valid"].sum())
+    if case == "tied_scores":
+        valid = a["node_valid"]
+        assert (a["node_alloc"][valid] == a["node_alloc"][0]).all() and not a["class_score"].any()
+        assert node[seq == 0][0] == 0
+    elif case == "odd_nodes":
+        assert a["idle"].shape[0] == 13 and int(out.steps) > 0
+    elif case == "queue_drops":
+        n_jobs = int((a["job_queue"] >= 0).sum())
+        placed = np.bincount(job[:n_tasks][kind[:n_tasks] > 0], minlength=n_jobs)
+        left = ~dropped[:n_jobs] & (placed < a["job_ntasks"][:n_jobs])
+        assert a["queue_alloc_init"].shape[0] == 128 and left.any()
+    elif case == "unfit_head":
+        assert dropped[3] and (kind[job == 3] == 0).all()
+    elif case == "long_gang":
+        s0 = np.sort(seq[(job == 0) & (kind > 0)])
+        assert s0.size == 32 and (np.diff(s0) == 1).all()
+    elif case == "releasing_only":
+        assert (kind == 2).sum() > 0 and (a["idle"][:6] == 0).all()
+    elif case == "global_pool":
+        cap = out.vol_cap.numpy()
+        assert (cap[0] < vs["group_cap"][0]).all() and int(out.claim_node[0]) >= 0
+    elif case == "port_conflict":
+        hosts = node[:4][kind[:4] > 0]
+        assert hosts.size >= 2 and len(set(hosts.tolist())) == hosts.size and 0 in hosts
+    elif case == "anti_veto":
+        mine = (job == 0) & (kind > 0)
+        assert mine.any() and (node[mine] != 0).all() and (node[(job != 0) & (kind > 0)] == 0).any()
+
+
+@pytest.mark.parametrize("case", EXACT_EDGE_CASES)
+def test_exact_solve_edge_shapes_match_jax(case):
+    """The shapes the exact solve's cluster kernel must get right
+    (simargs.build_exact_edge_args): the plain version against JAX, with
+    portsel and volsel where the case carries them (the JAX solve returns
+    no final volume state; the decisions are compared)."""
+    a, opts, ps, vs = build_exact_edge_args(case)
+    jkw, tkw = {}, {}
+    if ps is not None:
+        jkw["portsel"] = _jax_portsel(ps)
+        tkw["portsel"] = tuple(ps[k] if k == "w_podaff" else torch.from_numpy(ps[k])
+                               for k in PORTSEL_KEYS)
+    if vs is not None:
+        jkw["volsel"] = tuple(jnp.asarray(vs[k]) for k in VOLSEL_FIELDS)
+        tkw["volsel"] = interop.volsel_from_payload(vs)
+    oj, ot = _run_both(a, batch=False, jax_kw=jkw, torch_kw=tkw, **opts)
+    _assert_same(oj, ot)
+    _check_exact_edge_shape(case, a, ps, vs, ot)
 
 
 def test_releasing_capacity_pipelines():

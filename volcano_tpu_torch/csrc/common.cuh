@@ -95,8 +95,6 @@ struct VttSolveArgs {
   const uint8_t* group_global;  // [G]
   int32_t* claim_node;          // [CL]
   int32_t* vol_cap;             // [G, N]
-  // K2: which queues hold an active job in a select step (scratch)
-  uint8_t* queue_has;           // [Q]
   // K3 on node blocks (the batch solve; K12a runs S blocks): a block owns
   // the node rows [n0, n0 + NB) of the N, and its node pointers above
   // (idle ... node_valid, class_mask / class_score [C, NB], the K5 node
@@ -119,11 +117,22 @@ struct VttSolveArgs {
   int32_t* c_rank;              // [nC, M]
   int32_t* c_cnt;               // [nC]
   int32_t* c_max;               // [nC]
+  // K2 on a thread-block cluster: each CTA's copy of the queue state
+  // (alloc [Q, R] floats, active-job count [Q], dropped [Q]) when it does
+  // not fit in shared memory, 16 copies; the timed solve's split (null:
+  // the untimed kernel)
+  int32_t* x_qstate;            // [16, Q * (R + 2)]
+  int64_t* x_split;             // [32]
   int64_t n0, NB, S, TB, TILE, W;
   int64_t N, R, T, J, Q, C, M, P, K, F;
   int64_t n_keys, key0, key1, key2;  // job_key_order: 1 priority, 2 gang, 3 drf
   int64_t use_gang_ready, use_proportion, has_portsel;
   int64_t VW, CL, G, has_volsel, nC;
+  // K2: the cluster size asked for (0: the largest the card admits; the
+  // entry writes back the size launched), and, set by the entry, the nodes
+  // a CTA owns, how many of them stay in its shared memory, whether the
+  // queue state does, and the job rows a CTA keeps there (0: none)
+  int64_t cluster, x_ns, x_nres, x_qsmem, x_jl;
   float w_least, w_balanced, w_podaff;
 };
 
@@ -176,25 +185,107 @@ __device__ __forceinline__ bool vtt_better(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
 
-// Block-wide first-max over (v, i); blockDim.x must be a power of two and
-// sv/si hold blockDim.x entries.  Every thread returns the winner.
-__device__ __forceinline__ void vtt_block_argmax(float& v, int& i, float* sv,
-                                                 int* si) {
-  const int tid = threadIdx.x;
-  sv[tid] = v;
-  si[tid] = i;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s && vtt_better(sv[tid + s], si[tid + s], sv[tid], si[tid])) {
-      sv[tid] = sv[tid + s];
-      si[tid] = si[tid + s];
+// Warp-wide first-max over (v, i) by an xor butterfly: every lane returns
+// the winner (vtt_better is a total order, so both lanes of a pair agree).
+__device__ __forceinline__ void vtt_warp_argmax(float& v, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (vtt_better(ov, oi, v, i)) {
+      v = ov;
+      i = oi;
     }
-    __syncthreads();
   }
-  v = sv[0];
-  i = si[0];
-  __syncthreads();
 }
+
+// One (value, index) candidate of a first-max.
+struct VttArg {
+  float v;
+  int i;
+};
+
+// A CTA's first-max as a record the other CTAs of its cluster read: one
+// 16-byte word.
+struct alignas(16) VttArgRec {
+  VttArg a;
+  int pad[2];
+};
+
+// CTA-wide first-max: warp shuffles, then one pass of warp 0 over the
+// warps' results in `warps` (one slot a warp).  Every lane of warp 0
+// returns the CTA's winner (the other warps their own warp's).  One
+// __syncthreads; blockDim.x a multiple of 32.
+__device__ __forceinline__ VttArg vtt_cta_argmax(float v, int i, VttArg* warps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  vtt_warp_argmax(v, i);
+  if (lane == 0) warps[warp] = VttArg{v, i};
+  __syncthreads();
+  if (warp == 0) {
+    VttArg r = lane < (int)(blockDim.x >> 5) ? warps[lane] : VttArg{VTT_NEG_INF, 0x7fffffff};
+    vtt_warp_argmax(r.v, r.i);
+    return r;
+  }
+  return VttArg{v, i};
+}
+
+// ---- thread block clusters (sm_90) ----------------------------------------
+// The CTA's rank in its cluster and the cluster's size, a pointer to the
+// same shared-memory object in another CTA of the cluster (distributed
+// shared memory, written with vtt_cluster_store), and the split cluster
+// barrier: arrive releases this
+// thread's prior writes (shared and global) to the cluster, wait acquires
+// every other thread's.  Every thread of every CTA must take part.
+#ifndef VTT_CLUSTER_EMULATED
+__device__ __forceinline__ int vtt_cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int vtt_cluster_size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return (int)n;
+}
+// Write v into CTA rank's copy of the shared-memory object *p (a type of
+// whole 16-byte words, 16-byte aligned) with st.shared::cluster.v4: the
+// stores go out together and need no reply, and the release of the next
+// cluster barrier makes them visible there (reading the other CTA's copy
+// with generic loads through a mapa'd pointer instead cost about 0.7 us a
+// word, one after the other, on an H100).
+template <class T>
+__device__ __forceinline__ void vtt_cluster_store(T* p, int rank, const T& v) {
+  static_assert(sizeof(T) % 16 == 0 && alignof(T) >= 16, "16-byte words");
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(addr)
+               : "r"((uint32_t)__cvta_generic_to_shared(p)), "r"((unsigned)rank));
+  union {
+    T t;
+    int4 w[sizeof(T) / 16];
+  } u;
+  u.t = v;
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 16); ++i)
+    asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};"
+                 :
+                 : "r"(addr + 16 * i), "r"(u.w[i].x), "r"(u.w[i].y), "r"(u.w[i].z),
+                   "r"(u.w[i].w)
+                 : "memory");
+}
+__device__ __forceinline__ void vtt_cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void vtt_cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+// the device's nanosecond clock (for timed instantiations only)
+__device__ __forceinline__ unsigned long long vtt_globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#endif
 
 // Block-wide exact top-K of n candidates in lax.top_k's order (values
 // descending, lower index first): K passes, each the first-max among the
@@ -379,23 +470,23 @@ __device__ __forceinline__ void vtt_ps_init_node(const VttSolveArgs& a, int n) {
 
 // ---- K6: volumes (the exact solve's volsel extension) --------------------
 
-// The current task's claims, listed once a place step by thread 0 in shared
-// memory: claim index, capacity group, whether the group is a global pool,
-// the node the claim assumed its volume on at the step's start (-1: none),
-// and whether this step's placement assumes it.
+// The current task's claims, listed once a place step by thread 0 of each
+// CTA in its shared memory: claim index, capacity group, whether the group
+// is a global pool, and the node the claim assumed its volume on at the
+// step's start (-1: none).  A placement by idle fit assumes every claim
+// listed with node -1 ("fresh").
 struct VttVsTask {
   int n;
   int c[VTT_CLAIMS];
   int g[VTT_CLAIMS];
   int node[VTT_CLAIMS];
   uint8_t glob[VTT_CLAIMS];
-  uint8_t fresh[VTT_CLAIMS];
-  int any_global_fresh;
 };
 
-// Thread 0: list task t's claims (bit i of its claim words is claim i).
+// Thread 0: list task t's claims (bit i of its claim words is claim i);
+// claim_node is the CTA's copy of the claims' assumed nodes.
 __device__ __forceinline__ void vtt_vs_task(const VttSolveArgs& a, int t,
-                                            VttVsTask& v) {
+                                            const int* claim_node, VttVsTask& v) {
   int k = 0;
   for (int w = 0; w < VTT_CW; ++w) {
     for (uint32_t b = (uint32_t)a.task_claims[(size_t)t * VTT_CW + w]; b; b &= b - 1) {
@@ -405,57 +496,28 @@ __device__ __forceinline__ void vtt_vs_task(const VttSolveArgs& a, int t,
       v.c[k] = c;
       v.g[k] = g;
       v.glob[k] = a.group_global[g];
-      v.node[k] = a.claim_node[c];
-      v.fresh[k] = 0;
+      v.node[k] = claim_node[c];
       ++k;
     }
   }
   v.n = k;
-  v.any_global_fresh = 0;
 }
 
-// Node n admits task t's volumes: its bit in the task's mask row, and per
-// claim, an assumed claim's node (a pinned pool) or any node (a global
-// pool), an unassumed claim a PV left in its group at n.
-__device__ __forceinline__ bool vtt_vs_feasible(const VttSolveArgs& a, int n,
-                                                int t, const VttVsTask& v) {
-  const uint32_t w = (uint32_t)a.task_volmask[(size_t)t * a.VW + (n >> 5)];
-  if (!((w >> (n & 31)) & 1u)) return false;
+// Node n admits task t's volumes: its bit in the task's mask word `mask_w`
+// (word n / 32 of the task's row), and per claim, an assumed claim's node
+// (a pinned pool) or any node (a global pool), an unassumed claim a PV
+// left in its group at n: cap(g) reads the node's count of group g.
+template <class Cap>
+__device__ __forceinline__ bool vtt_vs_feasible(uint32_t mask_w, int n, const VttVsTask& v,
+                                                Cap cap) {
+  if (!((mask_w >> (n & 31)) & 1u)) return false;
   for (int i = 0; i < v.n; ++i) {
     const int cn = v.node[i];
     if (cn >= 0) {
       if (!v.glob[i] && cn != n) return false;
-    } else if (a.vol_cap[(size_t)v.g[i] * a.N + n] <= 0) {
+    } else if (cap(v.g[i]) <= 0) {
       return false;
     }
   }
   return true;
-}
-
-// Thread 0, after a placement on node n by idle fit: the task's unassumed
-// claims assume their volume at n; a pinned group's count drops at n, one
-// per claim (so two claims of one group drop it by two, the segment sum of
-// the reference).  Global groups are left to vtt_vs_fold_global.
-__device__ __forceinline__ void vtt_vs_assume(const VttSolveArgs& a, int n,
-                                              VttVsTask& v) {
-  for (int i = 0; i < v.n; ++i) {
-    if (v.node[i] >= 0) continue;
-    v.fresh[i] = 1;
-    a.claim_node[v.c[i]] = n;
-    if (v.glob[i])
-      v.any_global_fresh = 1;
-    else
-      a.vol_cap[(size_t)v.g[i] * a.N + n] -= 1;
-  }
-}
-
-// Whole block: each newly assumed claim of a global group takes one PV off
-// every node's count of its group (each thread owns its columns).
-__device__ __forceinline__ void vtt_vs_fold_global(const VttSolveArgs& a,
-                                                   const VttVsTask& v) {
-  for (int i = 0; i < v.n; ++i) {
-    if (!v.fresh[i] || !v.glob[i]) continue;
-    int32_t* row = a.vol_cap + (size_t)v.g[i] * a.N;
-    for (int n = threadIdx.x; n < (int)a.N; n += blockDim.x) row[n] -= 1;
-  }
 }

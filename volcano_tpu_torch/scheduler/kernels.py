@@ -824,21 +824,28 @@ class SolveArgs(ctypes.Structure):
         "node_ports", "node_selcnt", "task_ports", "task_aff", "task_anti",
         "task_self", "node_match",
         "task_volmask", "task_claims", "claim_group", "group_global",
-        "claim_node", "vol_cap", "queue_has",
+        "claim_node", "vol_cap",
         "t_val", "t_idx", "t_any", "send", "recv", "p_rec", "p_key",
-        "c_key", "c_job", "c_rank", "c_cnt", "c_max",
+        "c_key", "c_job", "c_rank", "c_cnt", "c_max", "x_qstate", "x_split",
     )] + [(name, ctypes.c_int64) for name in (
         "n0", "NB", "S", "TB", "TILE", "W",
         "N", "R", "T", "J", "Q", "C", "M", "P", "K", "F",
         "n_keys", "key0", "key1", "key2",
         "use_gang_ready", "use_proportion", "has_portsel",
         "VW", "CL", "G", "has_volsel", "nC",
+        "cluster", "x_ns", "x_nres", "x_qsmem", "x_jl",
     )] + [("w_least", ctypes.c_float), ("w_balanced", ctypes.c_float),
           ("w_podaff", ctypes.c_float)]
 
 
 _KEY_CODE = {"priority": 1, "gang": 2, "drf": 3}
 _MAX_R = 8
+#: cluster sizes the exact solve runs on (CTAs of one thread-block cluster)
+EXACT_CLUSTERS = (1, 2, 4, 8, 16)
+#: bytes of queue state (Q * (2R + 2) words) a CTA of the exact solve keeps
+#: in shared memory (csrc VTT_EXACT_QSMEM); past it, each CTA's copy lives
+#: in global memory
+EXACT_QSMEM_BYTES = 16384
 
 
 def _check(name, t, dtype, shape, device):
@@ -915,14 +922,21 @@ _SOLVE_ARGS = (
 
 def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
                  use_gang_ready, use_proportion, m_chunk=512, p_chunk=16,
-                 portsel=None, volsel=None):
+                 portsel=None, volsel=None, cluster=None, split=None):
     """Validate the solve inputs ``a`` (name -> tensor), allocate outputs and
     scratch, and launch csrc/allocate_solve.cu (``batch=False``) or
     csrc/allocate_batch.cu on one node block (``batch=True``, through
     ``batch_launch``), with the K5 extension when ``portsel`` is given and
     the K6 extension (exact solve only) when ``volsel`` is.  Returns a
     ``SolveOut`` (a ``VolSolveOut`` with volsel) whose four decision fields
-    are views of one int32 [3T + J] buffer (see ``pack_outputs``)."""
+    are views of one int32 [3T + J] buffer (see ``pack_outputs``).
+
+    The exact solve runs as one cluster of ``cluster`` CTAs (one of
+    ``EXACT_CLUSTERS``; None: the largest the card admits at this shape),
+    and raises if the card refuses that size.  ``split``, an int64 [32]
+    tensor on the card, runs the timed instantiation instead, which writes
+    there its stage split and, at index 12, the cluster size it ran on
+    (see csrc/allocate_solve.cu)."""
     dev = a["idle"].device
     N, R = a["idle"].shape
     T = a["task_req"].shape[0]
@@ -947,6 +961,14 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
         _check(name, a[name], dt, shape, dev)
     if not 2 <= R <= _MAX_R:
         raise ValueError(f"solve kernels take 2 <= R <= {_MAX_R}, got {R}")
+    if batch and (cluster is not None or split is not None):
+        raise TypeError("cluster and split are options of the exact solve")
+    if cluster is not None and cluster not in EXACT_CLUSTERS:
+        raise ValueError(f"cluster {cluster}: the exact solve takes one of {EXACT_CLUSTERS}")
+    if split is not None:
+        _check("split", split, torch.int64, (32,), dev)
+    if not batch and N >= 1 << 30:
+        raise ValueError(f"the exact solve takes N < 2**30 nodes, got {N}")
     if len(job_key_order) > 3 or any(k not in _KEY_CODE for k in job_key_order):
         raise ValueError(f"unsupported job_key_order {job_key_order!r}")
     if batch:
@@ -981,8 +1003,10 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
         "queue_dropped": torch.zeros(Q, dtype=b8, device=dev),
         "ctl": torch.zeros(16, dtype=i32, device=dev),
     }
-    # the select step's per-queue flags (any queue count)
-    st["queue_has"] = empty((Q,), torch.uint8)
+    # each CTA's copy of the queue state, where it does not fit in shared
+    # memory (any queue count runs)
+    if Q * (2 * R + 2) * 4 > EXACT_QSMEM_BYTES:
+        st["x_qstate"] = empty((max(EXACT_CLUSTERS) * Q * (R + 2),), i32)
     w_podaff = 0.0
     if portsel is not None:
         node_ports, task_ports, node_selcnt, aff, anti, self_, w_podaff = portsel
@@ -1046,7 +1070,11 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
     args.w_least = float(w_least)
     args.w_balanced = float(w_balanced)
     args.w_podaff = float(w_podaff)
-    _raise_on(lib.vtt_allocate_solve(ctypes.byref(args), stream), "vtt_allocate_solve")
+    args.cluster = cluster or 0
+    if split is not None:
+        args.x_split = split.data_ptr()
+    _raise_on(lib.vtt_allocate_solve(ctypes.byref(args), stream),
+              f"vtt_allocate_solve (cluster {cluster or 'auto'})")
     out = (packed[:T], packed[T:2 * T], packed[2 * T:3 * T], packed[3 * T:],
            st["job_alloc"], st["queue_alloc"], st["idle"], st["releasing"],
            st["used"], st["dropped"], st["ctl"][0])

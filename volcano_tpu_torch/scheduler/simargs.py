@@ -7,8 +7,9 @@ J gang jobs across Q weighted queues — plus the water-fill inputs.
 ``build_portsel_args`` adds seeded host-port and pod (anti)affinity
 bitsets for the same cluster, packed as the port's solves take them, and
 ``build_volsel_args`` seeded volume payloads (``kernels.pack_volsel``
-packs them for the port's solve), and ``build_batch_edge_args`` the edge
-shapes of the batched solve's select and accept.
+packs them for the port's solve), ``build_batch_edge_args`` the edge
+shapes of the batched solve's select and accept, and
+``build_exact_edge_args`` those of the exact solve.
 ``build_victim_sim`` (also verbatim) is the victim-selection scenario of
 the contention solves: running tasks spread over nodes, with the derived
 node, job and queue state; ``build_storm_sim`` adds seeded preemptor jobs
@@ -231,6 +232,114 @@ def build_batch_edge_args(case: str, seed: int = 0):
         raise ValueError(f"unknown batch edge case {case!r}")
     _refresh_totals(a)
     return a, opts
+
+
+#: the shapes the exact solve's cluster kernel must get right
+#: (``build_exact_edge_args``)
+EXACT_EDGE_CASES = ("tied_scores", "odd_nodes", "queue_drops", "unfit_head", "long_gang",
+                    "releasing_only", "global_pool", "port_conflict", "anti_veto")
+
+
+def _slice_nodes(a: dict, n: int) -> None:
+    """Cut the node axis of ``a`` to its first ``n`` rows (any N, not a
+    bucket size)."""
+    for k in ("idle", "releasing", "used", "node_alloc", "node_max_tasks", "task_count",
+              "node_valid"):
+        a[k] = np.ascontiguousarray(a[k][:n])
+    for k in ("class_mask", "class_score"):
+        a[k] = np.ascontiguousarray(a[k][:, :n])
+
+
+def _empty_portsel(N: int, T: int) -> dict:
+    z = np.zeros
+    return dict(node_ports=z((N, 4), np.int32), task_ports=z((T, 4), np.int32),
+                node_selcnt=z((N, 64), np.int32), task_aff=z((T, 2), np.int32),
+                task_anti=z((T, 2), np.int32), task_self=z((T, 2), np.int32), w_podaff=1.0)
+
+
+def build_exact_edge_args(case: str, seed: int = 0):
+    """``(args, opts, portsel, volsel)``: ``build_sim_args`` inputs reshaped
+    into one edge shape of the exact solve, the solve options, and the
+    packed ``portsel`` dict (``PORTSEL_KEYS``) and ``volsel`` payload
+    (``build_volsel_args``' form) the case needs, or None:
+
+    * ``tied_scores``: 40 identical nodes and no class score: every node
+      scores the same at the first step, so the lowest index must win;
+    * ``odd_nodes``: 13 nodes (not a bucket, not a multiple of 8 or 16,
+      fewer than a warp);
+    * ``queue_drops``: 128 queues on six nodes that cannot hold their
+      requests: queues reach their deserved share and drop with active
+      jobs left;
+    * ``unfit_head``: job 3's tasks ask ten times the largest node: its head
+      task fits nowhere and the job drops;
+    * ``long_gang``: job 0 is a 32-task gang whose min member is its size:
+      it stays current for 32 place steps;
+    * ``releasing_only``: six of eight nodes have no idle capacity, only
+      releasing: placements pipeline;
+    * ``global_pool``: two jobs share claims of a global PV pool (one count
+      on every node) and one a pinned pool: an idle-fit placement folds a
+      decrement into the global group's whole row;
+    * ``port_conflict``: node 0 is ten times the others and four one-task
+      jobs ask the same host port: one lands on node 0, the rest elsewhere;
+    * ``anti_veto``: node 0 is ten times the others and holds a resident
+      matching the anti selector of job 0's tasks: they avoid node 0.
+    """
+    ps = vs = None
+    opts = {}
+    if case == "tied_scores":
+        a = build_sim_args(40, 64, 16, n_queues=2, seed=seed)
+        a["node_alloc"][:40] = (16000.0, 32.0 * (1 << 30))
+    elif case == "odd_nodes":
+        a = build_sim_args(13, 40, 10, n_queues=2, seed=seed)
+        _slice_nodes(a, 13)
+    elif case == "queue_drops":
+        a = build_sim_args(6, 256, 128, n_queues=100, seed=seed)
+    elif case == "unfit_head":
+        a = build_sim_args(16, 64, 16, n_queues=2, seed=seed)
+        a["task_req"][a["task_job"] == 3] = a["node_alloc"].max(0) * 10
+    elif case == "long_gang":
+        a = build_sim_args(16, 96, 3, n_queues=1, seed=seed)
+        a["job_min"][0] = 32
+        a["node_alloc"][:16] = (32000.0, 64.0 * (1 << 30))
+    elif case == "releasing_only":
+        a = build_sim_args(8, 32, 8, n_queues=2, seed=seed)
+        a["node_alloc"][6:8] = (250.0, 256.0 * (1 << 20))
+        _refresh_totals(a)
+        a["used"][:6] = a["node_alloc"][:6]
+        a["idle"][:6] = 0
+        a["releasing"][:6] = a["node_alloc"][:6]
+        return a, opts, ps, vs
+    elif case == "global_pool":
+        a = build_sim_args(12, 32, 8, n_queues=2, seed=seed)
+        N, T = a["node_valid"].shape[0], a["task_valid"].shape[0]
+        claims = np.zeros((T, 8), bool)
+        claims[a["task_job"] == 0, 0] = True
+        claims[a["task_job"] == 1, 1] = True
+        claims[a["task_job"] == 2, 2] = True
+        claims[32:] = False
+        cap = np.zeros((2, N), np.int32)
+        cap[0, :] = 2
+        cap[1, :4] = 1
+        bits = np.zeros((T, max(1, (N + 31) // 32) * 32), bool)
+        bits[:, :N] = True
+        vs = dict(task_volmask_w=pack_bits(bits), task_claims=claims,
+                  claim_group=np.array([0, 0, 1, 0, 0, 0, 0, 0], np.int32), group_cap=cap,
+                  group_global=np.array([True, False]))
+    elif case in ("port_conflict", "anti_veto"):
+        a = build_sim_args(8, 32, 8 if case == "anti_veto" else 32, n_queues=1, seed=seed)
+        a["node_alloc"][0] *= 10
+        N, T = a["node_valid"].shape[0], a["task_valid"].shape[0]
+        ps = _empty_portsel(N, T)
+        if case == "port_conflict":
+            ps["task_ports"][:4, 0] = 1 << 5
+        else:
+            ps["node_selcnt"][0, 7] = 1
+            ps["task_anti"][a["task_job"] == 0, 0] = 1 << 7
+            ps["task_anti"][32:] = 0
+    else:
+        raise ValueError(f"unknown exact edge case {case!r}")
+    _refresh_totals(a)
+    return a, opts, ps, vs
 
 
 def build_portsel_args(
