@@ -1452,8 +1452,7 @@ def phase_victim_kernels(captured, launches):
         args, kw = captured[cell][name]
         out_k, err, ms, plain_ms, b, kind = measure(name, args, kw)
         if name == "preempt_rounds":
-            F = min(128, args[0].job_queue.shape[0]) * VK.ROUNDS_P_CHUNK
-            work = (f"{int(out_k.rec.att) // (F + 1)} rounds, "
+            work = (f"{_rounds_of(out_k, args, kw)} rounds, "
                     f"{int(out_k.att_total)} tasks committed")
         else:
             work = f"{int(out_k.rec.att)} ok attempts"
@@ -3036,14 +3035,109 @@ def _capture_storms():
     return out
 
 
+#: the rounds solve's kernels of the within-job count and of the job
+#: select, by their names in this design and in the earlier one
+#: (vtt_r_cnt_in_job; vtt_r_rank, vtt_r_select), so the storm split sums a
+#: parent tree's alike
+ROUNDS_COUNT_KERNELS = ("vtt_r_cnt_in_job", "vtt_r_count_items", "vtt_r_count_tiles")
+ROUNDS_SELECT_KERNELS = ("vtt_r_rank", "vtt_r_select", "vtt_r_sel_chunk", "vtt_r_sel_merge",
+                         "vtt_r_sel_place")
+#: big-job: cfg6's captured K10 input with this many live rows in one job
+#: (pool-job: with all of them)
+BIG_JOB_ROWS = 16_384
+#: many-jobs: build_storm_sim's pool (running rows over nodes, pool jobs)
+#: and fresh gangs, about 60,000 job rows of 65,536
+MANY_JOBS = dict(seed=12, n_nodes=40_000, n_victims=160_000, n_jobs=48_000, n_new=12_000)
+#: CUDA-event calls timed per synthetic rounds shape
+ROUNDS_SHAPE_REPS = 5
+
+
+def _big_job_args(rounds_in, rows=BIG_JOB_ROWS):
+    """cfg6's captured K10 input with its first ``rows`` live rows of
+    non-preemptor jobs (all of them when ``rows`` is None) moved into the
+    job of the first of them, their allocation (float64, rounded once) and
+    occupancy moved along."""
+    import torch
+
+    args, kw = rounds_in
+    c, s0, avail = args[0], args[1], args[8]
+    take = torch.nonzero(s0.run_live & ~avail[c.run_job.long()]).flatten()[:rows]
+    if rows is None:
+        log(f"[storm split] pool-job: {take.numel()} live rows in one job")
+    elif take.numel() < rows:
+        raise AssertionError(f"big-job: {take.numel()} live rows, {rows} wanted")
+    old = c.run_job[take].long()
+    to = torch.full_like(old, int(c.run_job[take[0]]))
+    req = c.run_req[take].double()
+    alloc = s0.job_alloc.double().index_add_(0, old, -req).index_add_(0, to, req)
+    one = torch.ones_like(take, dtype=torch.int32)
+    occ = s0.job_occupied.clone().index_add_(0, old, -one).index_add_(0, to, one)
+    run_job = c.run_job.clone()
+    run_job[take] = to.int()
+    return (c._replace(run_job=run_job), s0._replace(job_alloc=alloc.float(), job_occupied=occ),
+            *args[2:]), kw
+
+
+def _many_jobs_args(kw):
+    """build_storm_sim at MANY_JOBS on the card, K10's arguments, the cfg6
+    cell's flags."""
+    import torch
+
+    from volcano_tpu_torch import interop
+    from volcano_tpu_torch.scheduler.simargs import build_storm_sim, storm_inputs
+
+    p = dict(MANY_JOBS)
+    c, s, t = build_storm_sim(p.pop("seed"), **p)
+    dev = torch.device("cuda")
+    tc, ts = interop.victim_from_arrays(c, s, dev)
+    rest = [torch.from_numpy(np.asarray(a)).to(dev) for a in storm_inputs("rounds", c, s, t)]
+    return (tc, ts, *rest), dict(kw)
+
+
+def _rounds_of(out, args, kw):
+    """A rounds solve's round count: each round adds F + 1 to rec.att."""
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    F = min(kw.get("m_chunk", 128), args[0].job_queue.shape[0]) * kw.get(
+        "p_chunk", VK.ROUNDS_P_CHUNK)
+    return int(out.rec.att) // (F + 1)
+
+
+def _solve_digest_named(out):
+    """sha256 of every output of a contention solve by name, node planes
+    joined: equal on one block, on blocks and over a group."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, x in sorted(_solve_host(out).items()):
+        h.update(k.encode())
+        h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _rounds_stages(split, rounds):
+    """The count's and the select's device ms in a victim_split result,
+    and the select's a round."""
+    st = split["stages"]
+    count = sum(v["ms"] for k, v in st.items() if k in ROUNDS_COUNT_KERNELS)
+    select = sum(v["ms"] for k, v in st.items() if k in ROUNDS_SELECT_KERNELS)
+    return dict(count_ms=count, select_ms=select, select_ms_a_round=select / max(rounds, 1))
+
+
 def phase_storm_split(reps=STORM_SPLIT_REPS):
     """The storm solves (``--storm-split``), which share
     csrc/victim_common.cuh with K7: CUDA-event ms of K8 (cfg6r), K9 (cfg6b)
-    and K10 (cfg6) on the first inputs their cells give them, on one block,
-    on a local mesh of 4 blocks (K15a-c) and over a one-rank NCCL group of
-    4 blocks, each held against the one-block solve; ``reps`` calls timed
-    each, then each split by victim_split (device ms by kernel, host gap),
-    so a parent and a change compare in one chip call."""
+    and K10 (cfg6) on the first inputs their cells give them, and of K10 on
+    three synthetic shapes (big-job: cfg6's input with one running job of
+    BIG_JOB_ROWS rows; pool-job: with all its live rows in one job;
+    many-jobs: MANY_JOBS from build_storm_sim), on one
+    block, on a local mesh of 4 blocks (K15a-c) and over a one-rank NCCL
+    group of 4 blocks, each held against the one-block solve (K10 also
+    against its plain version); ``reps`` calls timed each (ROUNDS_SHAPE_REPS
+    on the synthetic shapes), then each split by victim_split (device ms by
+    kernel, host gap; for K10 the count's and the select's ms), with the
+    rounds and an output digest of K10, so a parent and a change compare in
+    one chip call."""
     import torch
     import torch.distributed as dist
 
@@ -3052,9 +3146,17 @@ def phase_storm_split(reps=STORM_SPLIT_REPS):
     from volcano_tpu_torch.scheduler import victim_kernels as VK
 
     dev = torch.device("cuda")
-    inputs = _capture_storms()
+    captured = _capture_storms()
+    cfg6_in = captured["preempt_rounds"][1]
+    cases = [(name, name, cell, args, kw, reps)
+             for name, (cell, (args, kw)) in captured.items()]
+    for shape, (args, kw) in (("big-job", _big_job_args(cfg6_in)),
+                              ("pool-job", _big_job_args(cfg6_in, None)),
+                              ("many-jobs", _many_jobs_args(cfg6_in[1]))):
+        cases.append((f"preempt_rounds {shape}", "preempt_rounds", shape, args, kw,
+                      ROUNDS_SHAPE_REPS))
     res = {}
-    for name, (cell, (args, kw)) in inputs.items():
+    for key, name, cell, args, kw, n in cases:
         one, sharded = getattr(VK, name), getattr(VK, name + "_sharded")
         mesh = S.LocalMesh(int(CFG6_MESH), dev)
         cb, sb = S._place_victim(mesh, args[0]), S._place_victim(mesh, args[1])
@@ -3063,10 +3165,18 @@ def phase_storm_split(reps=STORM_SPLIT_REPS):
                        sharded(cb, sb, *args[2:], mesh, **kw), ref)
         runs = {"one block": lambda: one(*args, **kw),
                 f"{mesh.size} blocks": lambda: sharded(cb, sb, *args[2:], mesh, **kw)}
-        res[name] = dict(cell=cell, one_block_ms=cuda_ms(runs["one block"], reps),
-                         blocks4_ms=cuda_ms(runs[f"{mesh.size} blocks"], reps))
-        res[name]["split"] = {label: victim_split(f"{cell} {name}, {label}", run, reps)
-                              for label, run in runs.items()}
+        res[key] = dict(cell=cell, one_block_ms=cuda_ms(runs["one block"], n),
+                        blocks4_ms=cuda_ms(runs[f"{mesh.size} blocks"], n))
+        res[key]["split"] = {label: victim_split(f"{cell} {name}, {label}", run, n)
+                             for label, run in runs.items()}
+        if name == "preempt_rounds":
+            _solve_compare(f"storm split {cell} {name}, plain", ref,
+                           VK.preempt_rounds_plain(*args, **kw))
+            rounds = _rounds_of(ref, args, kw)
+            res[key].update(rounds=rounds, digest=_solve_digest_named(ref),
+                            tasks_committed=int(ref.att_total),
+                            evictions=int((ref.rec.evict_att >= 0).sum()),
+                            **_rounds_stages(res[key]["split"]["one block"], rounds))
     store_path = _build.BUILD_DIR / f"nccl_store_storms_{os.getpid()}"
     store_path.parent.mkdir(parents=True, exist_ok=True)
     if store_path.exists():
@@ -3075,25 +3185,30 @@ def phase_storm_split(reps=STORM_SPLIT_REPS):
                             rank=0, world_size=1)
     try:
         gmesh = S.make_mesh(int(CFG6_MESH))
-        for name, (cell, (args, kw)) in inputs.items():
+        for key, name, cell, args, kw, n in cases:
             sharded = getattr(VK, name + "_sharded")
             cg, sg = S._place_victim(gmesh, args[0]), S._place_victim(gmesh, args[1])
             _solve_compare(f"storm split {cell} {name}, NCCL group",
                            sharded(cg, sg, *args[2:], gmesh, **kw),
                            getattr(VK, name)(*args, **kw))
-            res[name]["nccl_group_ms"] = cuda_ms(
-                lambda: sharded(cg, sg, *args[2:], gmesh, **kw), reps)
-            res[name]["split"]["NCCL group"] = victim_split(
+            res[key]["nccl_group_ms"] = cuda_ms(
+                lambda: sharded(cg, sg, *args[2:], gmesh, **kw), n)
+            res[key]["split"]["NCCL group"] = victim_split(
                 f"{cell} {name}, NCCL group", lambda: sharded(cg, sg, *args[2:], gmesh, **kw),
-                reps)
+                n)
     finally:
         dist.destroy_process_group()
         if store_path.exists():
             store_path.unlink()
-    for name, r in res.items():
-        log(f"[storm split] {r['cell']} {name}: one block {r['one_block_ms']:.4f} ms, "
+    for key, r in res.items():
+        log(f"[storm split] {r['cell']} {key}: one block {r['one_block_ms']:.4f} ms, "
             f"{CFG6_MESH} blocks {r['blocks4_ms']:.4f} ms, NCCL group {r['nccl_group_ms']:.4f} "
-            f"ms ({reps} calls each)")
+            f"ms")
+        if "rounds" in r:
+            log(f"[storm split]   {r['rounds']} rounds, {r['tasks_committed']} tasks "
+                f"committed, {r['evictions']} evictions, digest {r['digest']}; one block: "
+                f"count {r['count_ms']:.4f} ms, select {r['select_ms']:.4f} ms "
+                f"({r['select_ms_a_round']:.5f} ms a round)")
     return res
 
 

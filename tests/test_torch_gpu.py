@@ -24,11 +24,13 @@ from volcano_tpu_torch.scheduler.simargs import (
     BATCH_EDGE_CASES,
     EXACT_EDGE_CASES,
     PORTSEL_KEYS,
+    ROUNDS_EDGE_CASES,
     add_releasing,
     build_batch_edge_args,
     build_exact_edge_args,
     build_portsel_args,
     build_reclaim_abort_sim,
+    build_rounds_edge_args,
     build_sim_args,
     build_storm_sim,
     build_victim_sim,
@@ -1033,6 +1035,36 @@ def test_gpu_contention_solves_on_blocks_match_plain(case, n_blocks):
     assert VK.LAUNCHES[name + "_sharded"] == 1 and VK.LAUNCHES[name] == 0
     _assert_storm_blocked_same(out_k, plain(dc, ds, *args, mesh, nb, **kw))
     _assert_storm_blocked_same(out_k, getattr(VK, name)(c, s, *args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_blocks", [1, 4])
+@pytest.mark.parametrize("case", ROUNDS_EDGE_CASES)
+def test_gpu_rounds_edge_matches_plain(case, n_blocks):
+    """K10 (one block) and K15c (a local mesh of four) on each edge shape of
+    the within-job count and the job select (``build_rounds_edge_args``):
+    bit for bit their plain versions, state included; on four blocks also
+    the one-block K10; each wrapper counts its launch."""
+    from volcano_tpu_torch.parallel import sharded as S
+
+    dev = _cuda()
+    c, s, t, kw = build_rounds_edge_args(case)
+    tc, ts = interop.victim_from_arrays(c, s, dev)
+    args = [torch.from_numpy(np.asarray(a)).to(dev) for a in storm_inputs("rounds", c, s, t)]
+    VK.reset_launches()
+    if n_blocks == 1:
+        out_k = VK.preempt_rounds(tc, ts, *args, **kw)
+        assert VK.LAUNCHES["preempt_rounds"] == 1
+        _assert_victims_same(out_k, VK.preempt_rounds_plain(tc, ts, *args, **kw))
+        assert int(out_k.att_total) > 0
+        return
+    mesh = S.LocalMesh(n_blocks, dev)
+    dc, ds = S._place_victim(mesh, tc), S._place_victim(mesh, ts)
+    out_k = VK.preempt_rounds_sharded(dc, ds, *args, mesh, **kw)
+    assert VK.LAUNCHES["preempt_rounds_sharded"] == 1 and VK.LAUNCHES["preempt_rounds"] == 0
+    nb = tc.node_alloc.shape[0] // n_blocks
+    _assert_storm_blocked_same(out_k, S.rounds_blocks_plain(dc, ds, *args, mesh, nb, **kw))
+    _assert_storm_blocked_same(out_k, VK.preempt_rounds(tc, ts, *args, **kw))
 
 
 # -- K2 on a thread-block cluster --------------------------------------------

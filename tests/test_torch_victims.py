@@ -23,8 +23,11 @@ from volcano_tpu.scheduler import victim_kernels as JV
 from volcano_tpu.scheduler.simargs import build_victim_sim as jax_build_victim_sim
 from volcano_tpu_torch import interop
 from volcano_tpu_torch.scheduler import victim_kernels as TV
+from volcano_tpu_torch.scheduler.kernels import SEL_CHUNK
 from volcano_tpu_torch.scheduler.simargs import (
+    ROUNDS_EDGE_CASES,
     build_reclaim_abort_sim,
+    build_rounds_edge_args,
     build_storm_sim,
     build_victim_sim,
     storm_inputs,
@@ -195,6 +198,48 @@ def test_rounds_cases_exercise_commits_and_victims():
         total += int(out.att_total)
         assert int(out.att_total) == 0 or bool((out.rec.evict_att >= 0).any())
     assert total >= 6
+
+
+@pytest.mark.parametrize("case", ROUNDS_EDGE_CASES)
+def test_rounds_edge_matches_jax(case):
+    """The rounds solve on each edge shape of its within-job count and job
+    select (``build_rounds_edge_args``): every output equal to JAX's."""
+    c, s, t, kw = build_rounds_edge_args(case)
+    out = run_rounds(c, s, storm_inputs("rounds", c, s, t), **kw)
+    assert int(out.att_total) > 0
+
+
+@pytest.mark.parametrize("case", ROUNDS_EDGE_CASES)
+def test_rounds_edge_reaches_its_shape(case):
+    """Each rounds edge case builds the shape it names."""
+    c, s, t, kw = build_rounds_edge_args(case)
+    live = s["run_live"]
+    J = c["job_queue"].shape[0]
+    per_job = np.bincount(c["run_job"][live], minlength=J)
+    active = t["pre"]
+    m_chunk = kw.get("m_chunk", 128)
+    if case == "padded_job0":
+        dead0 = ~live & (c["run_job"] == 0) & (c["run_node"] == 0)
+        assert dead0.sum() > 2 * TV.ROUNDS_COUNT_TILE
+        assert per_job[0] > 0 and c["job_min"][0] > 1
+    elif case == "big_job":
+        j = int(per_job.argmax())
+        assert per_job[j] > TV.ROUNDS_COUNT_TILE and c["job_min"][j] > 1
+        assert np.unique(c["run_node"][live & (c["run_job"] == j)]).size > 1
+    elif case == "tied_rows":
+        key = np.stack([c["run_job"], c["run_node"], c["run_prio"], c["run_rank"]], 1)[live]
+        assert np.unique(key, axis=0).shape[0] < key.shape[0]
+    elif case == "no_priority_order":
+        assert not kw["order_by_priority"]
+        rows = np.flatnonzero(live & (c["run_node"] == 0))
+        prio, rank = c["run_prio"][rows], c["run_rank"][rows]
+        assert ((prio[:, None] < prio[None, :]) & (rank[:, None] > rank[None, :])).any()
+    elif case == "many_chunks":
+        assert J > SEL_CHUNK and active.size > m_chunk
+        assert (active < SEL_CHUNK).sum() > m_chunk and (active >= SEL_CHUNK).sum() > m_chunk
+        assert (t["job_prio"][active] == 0).any() and (t["job_prio"][active] != 0).any()
+    elif case == "few_active":
+        assert active.size < min(m_chunk, J)
 
 
 def test_victim_from_arrays_round_trip():

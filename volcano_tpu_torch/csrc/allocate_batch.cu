@@ -20,8 +20,9 @@
 //     reads ONE 4-byte flag a round: the active-job count, which
 //     vtt_batch_keys accumulates only when the last round progressed (the
 //     reference's `progressed & any(active)`);
-//   * the select is a top-M by chunks, O(J log^2 C) a round in place of a
-//     count over all pairs of jobs: vtt_batch_chunk (one CTA per chunk of
+//   * the select is a top-M by chunks (common.cuh vtt_sel_*, shared with
+//     K10's rounds), O(J log^2 C) a round in place of a count over all
+//     pairs of jobs: vtt_batch_chunk (one CTA per chunk of
 //     VTT_SEL_CHUNK jobs) sorts the chunk's active jobs in shared memory
 //     by a bitonic network and keeps its M first; vtt_batch_merge gives
 //     each kept job its rank among every chunk's kept jobs (a binary search
@@ -97,10 +98,6 @@
 #define VTT_ONE_CTA_THREADS 1024  // the sort and the queue sums (one CTA)
 #define VTT_WIDE_THREADS 256      // the kernels spread over the card
 #define VTT_TILE_MAX 8192
-#define VTT_SEL_CHUNK 2048        // jobs a select CTA sorts in shared memory
-#define VTT_SEL_THREADS 1024
-#define VTT_SEL_SCRATCH \
-  (VTT_SEL_CHUNK / 2 > VTT_SEL_THREADS ? VTT_SEL_CHUNK / 2 : VTT_SEL_THREADS)
 #define VTT_QTILE 1024            // winners a queue-sum tile stages
 #define VTT_MAX_P 32
 
@@ -114,18 +111,6 @@
 
 __device__ __forceinline__ int vtt_clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
-}
-
-// The job order: the nk keys (the k-th at ka[k * stride]) most
-// significant first, then the job index.
-__device__ __forceinline__ bool vtt_rank_less(const float* ka, int ia,
-                                              const float* kb, int ib, int nk,
-                                              int stride = 1) {
-  for (int i = 0; i < nk; ++i) {
-    if (ka[i * stride] < kb[i * stride]) return true;
-    if (ka[i * stride] > kb[i * stride]) return false;
-  }
-  return ia < ib;
 }
 
 // node_match from node_selcnt, once per solve and block (K5)
@@ -177,159 +162,32 @@ __global__ void vtt_batch_keys(VttSolveArgs a) {
   if (active && a.ctl[2]) atomicAdd(&a.ctl[1], 1);
 }
 
-// Block-wide exclusive prefix sum of one int a thread (blockDim.x a
-// multiple of 32, at most 1024); s holds blockDim.x ints, s_tot 33.  Every
-// thread returns its prefix and the block's total.
-__device__ __forceinline__ int vtt_block_scan(int v, int* s, int* s_tot, int& total) {
-  const int tid = threadIdx.x, gs = blockDim.x / 32;
-  s[tid] = v;
-  __syncthreads();
-  if (tid < 32) {
-    int run = 0;
-    for (int e = 0; e < gs; ++e) {
-      const int c = s[tid * gs + e];
-      s[tid * gs + e] = run;
-      run += c;
-    }
-    s_tot[tid] = run;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int run = 0;
-    for (int e = 0; e < 32; ++e) {
-      const int c = s_tot[e];
-      s_tot[e] = run;
-      run += c;
-    }
-    s_tot[32] = run;
-  }
-  __syncthreads();
-  const int out = s[tid] + s_tot[tid / gs];
-  total = s_tot[32];
-  __syncthreads();
-  return out;
-}
-
 __device__ __forceinline__ int vtt_rank_nk(const VttSolveArgs& a) {
   return (int)(a.n_keys + (a.use_proportion ? 1 : 0));
 }
 
-// The select, stage 1: one CTA per chunk of VTT_SEL_CHUNK jobs sorts the
-// chunk's active jobs (a bitonic network over an index permutation in
-// shared memory, vtt_rank_less the comparator) and keeps the first
-// min(M, active) as the chunk's list: job, keys, and its rank within the
-// chunk, to which vtt_batch_merge adds the other chunks' counts.  Also the
-// chunk's last active job.  With one chunk the list is the selection.
-// The keys lie key-major in shared memory (s_k[k][slot]), so that the
-// network's permuted reads spread over the banks.
-__global__ void __launch_bounds__(VTT_SEL_THREADS) vtt_batch_chunk(VttSolveArgs a) {
-  __shared__ float s_k[4 * VTT_SEL_CHUNK];
-  __shared__ int s_j[VTT_SEL_CHUNK];
-  // the block scan's scratch, then the permutation (int16): 45 KB in all
-  __shared__ int s_pi[VTT_SEL_SCRATCH];
-  __shared__ int s_tot[33];
-  int16_t* s_p = reinterpret_cast<int16_t*>(s_pi);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int J = (int)a.J, M = (int)a.M, b = blockIdx.x;
-  const int nk = vtt_rank_nk(a);
-  const int c0 = b * VTT_SEL_CHUNK, cn = min(VTT_SEL_CHUNK, J - c0);
-  // the active jobs in job order: thread t holds [t * ipt, (t + 1) * ipt)
-  const int ipt = (VTT_SEL_CHUNK + nthr - 1) / nthr;
-  const int lo = min(cn, tid * ipt), hi = min(cn, lo + ipt);
-  int c = 0;
-  for (int i = lo; i < hi; ++i) c += a.job_active[c0 + i] ? 1 : 0;
-  int n;
-  int slot = vtt_block_scan(c, s_pi, s_tot, n);
-  for (int i = lo; i < hi; ++i) {
-    const int j = c0 + i;
-    if (!a.job_active[j]) continue;
-    s_j[slot] = j;
-    for (int k = 0; k < nk; ++k) s_k[k * VTT_SEL_CHUNK + slot] = a.job_keys[(size_t)j * 4 + k];
-    ++slot;
-  }
-  if (n == 0) {
-    if (tid == 0) {
-      a.c_cnt[b] = 0;
-      a.c_max[b] = -1;
-    }
-    return;
-  }
-  int n2 = 1;
-  while (n2 < n) n2 <<= 1;
-  for (int i = tid; i < n2; i += nthr) s_p[i] = (int16_t)(i < n ? i : -1);
-  __syncthreads();
-  // x before y: padding (-1) after every job
-  auto before = [&](int x, int y) {
-    return x >= 0 && (y < 0 || vtt_rank_less(&s_k[x], s_j[x], &s_k[y], s_j[y], nk,
-                                             VTT_SEL_CHUNK));
-  };
-  for (int k = 2; k <= n2; k <<= 1) {
-    for (int jj = k >> 1; jj > 0; jj >>= 1) {
-      for (int q = tid; q < (n2 >> 1); q += nthr) {
-        const int i = ((q & ~(jj - 1)) << 1) | (q & (jj - 1));
-        const int x = s_p[i], y = s_p[i + jj];
-        if ((i & k) == 0 ? before(y, x) : before(x, y)) {
-          s_p[i] = (int16_t)y;
-          s_p[i + jj] = (int16_t)x;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  const int keep = min(M, n);
-  for (int r = tid; r < keep; r += nthr) {
-    const int p = s_p[r];
-    if (a.nC == 1) {
-      a.sel[r] = s_j[p];
-      continue;
-    }
-    const size_t x = (size_t)b * M + r;
-    a.c_job[x] = s_j[p];
-    for (int k = 0; k < nk; ++k) a.c_key[x * 4 + k] = s_k[k * VTT_SEL_CHUNK + p];
-    a.c_rank[x] = r;
-  }
-  if (tid == 0) {
-    a.c_cnt[b] = keep;
-    a.c_max[b] = s_j[s_p[n - 1]];
-    if (a.nC == 1) a.ctl[3] = a.c_max[b];
-  }
+__device__ __forceinline__ VttSel vtt_batch_sel(const VttSolveArgs& a) {
+  return VttSel{a.job_active, a.job_keys, a.sel, a.c_key, a.c_job, a.c_rank, a.c_cnt,
+                a.c_max, (int)a.J, (int)a.M, vtt_rank_nk(a), (int)a.nC};
 }
 
-// The select, stage 2: thread (kept job x, chunk c2) adds to x's rank the
-// jobs of c2's list that order before x (a binary search: the list is
-// sorted).
+// The select (common.cuh vtt_sel_*), stage 1: each chunk's list and its
+// last active job; with one chunk that job is the drop victim (ctl[3]).
+__global__ void __launch_bounds__(VTT_SEL_THREADS) vtt_batch_chunk(VttSolveArgs a) {
+  const int last = vtt_sel_chunk(vtt_batch_sel(a));
+  if (threadIdx.x == 0 && a.nC == 1 && last >= 0) a.ctl[3] = last;
+}
+
+// The select, stage 2: each kept job's rank among every chunk's list.
 __global__ void __launch_bounds__(VTT_WIDE_THREADS) vtt_batch_merge(VttSolveArgs a) {
-  const int M = (int)a.M;
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int c = x / M, c2 = blockIdx.y;
-  if (c >= a.nC || c2 == c || x - c * M >= a.c_cnt[c]) return;
-  const int nk = vtt_rank_nk(a);
-  float kx[4];
-  for (int k = 0; k < nk; ++k) kx[k] = a.c_key[(size_t)x * 4 + k];
-  const int jx = a.c_job[x];
-  int lo = 0, hi = a.c_cnt[c2];
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const size_t y = (size_t)c2 * M + mid;
-    if (vtt_rank_less(&a.c_key[y * 4], a.c_job[y], kx, jx, nk))
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  if (lo) atomicAdd(&a.c_rank[x], lo);
+  vtt_sel_merge(vtt_batch_sel(a));
 }
 
 // The select, stage 3: sel[rank] for the kept jobs of rank < M; thread 0
 // takes the drop victim, the last of the chunks' last active jobs.
 __global__ void __launch_bounds__(VTT_WIDE_THREADS) vtt_batch_place(VttSolveArgs a) {
-  const int M = (int)a.M;
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int c = x / M;
-  if (c < a.nC && x - c * M < a.c_cnt[c]) {
-    const int r = a.c_rank[x];
-    if (r < M) a.sel[r] = a.c_job[x];
-  }
-  if (x == 0) {
+  vtt_sel_place(vtt_batch_sel(a));
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
     const int nk = vtt_rank_nk(a);
     int v = -1;
     for (int c2 = 0; c2 < a.nC; ++c2) {

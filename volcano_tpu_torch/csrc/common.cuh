@@ -372,6 +372,200 @@ __device__ __forceinline__ int vtt_block_sum(int v, int* s) {
   return out;
 }
 
+// Block-wide exclusive prefix sum of one int a thread (blockDim.x a
+// multiple of 32, at most 1024); s holds blockDim.x ints, s_tot 33.  Every
+// thread returns its prefix and the block's total.
+__device__ __forceinline__ int vtt_block_scan(int v, int* s, int* s_tot, int& total) {
+  const int tid = threadIdx.x, gs = blockDim.x / 32;
+  s[tid] = v;
+  __syncthreads();
+  if (tid < 32) {
+    int run = 0;
+    for (int e = 0; e < gs; ++e) {
+      const int c = s[tid * gs + e];
+      s[tid * gs + e] = run;
+      run += c;
+    }
+    s_tot[tid] = run;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int run = 0;
+    for (int e = 0; e < 32; ++e) {
+      const int c = s_tot[e];
+      s_tot[e] = run;
+      run += c;
+    }
+    s_tot[32] = run;
+  }
+  __syncthreads();
+  const int out = s[tid] + s_tot[tid / gs];
+  total = s_tot[32];
+  __syncthreads();
+  return out;
+}
+
+// ---- the job select of the batched rounds (K3, K10): a top-M by chunks ----
+//
+// sel[r] = the active job of rank r < M in the order vtt_rank_less gives
+// (the nk float keys, then the job index), in O(J log^2 C) a round in place
+// of a count over all pairs of jobs.  vtt_sel_chunk (one CTA per chunk of
+// VTT_SEL_CHUNK jobs) sorts the chunk's active jobs in shared memory by a
+// bitonic network and keeps its M first; vtt_sel_merge gives each kept job
+// its rank among every chunk's kept jobs (a binary search a chunk);
+// vtt_sel_place writes sel[rank] for rank < M.  The M first jobs of the
+// whole order all lie in their chunks' M first, so the ranks are exact.
+// Every comparison is on the float keys: no packed integer key, so -0.0 and
+// +0.0 (the priority key of priority 0) compare equal as the reference's
+// sort has them, and the order is that of a count over all pairs wherever
+// that count is a permutation -- that is, wherever no key is NaN.
+#define VTT_SEL_CHUNK 2048  // jobs a select CTA sorts in shared memory
+#define VTT_SEL_THREADS 1024
+#define VTT_SEL_SCRATCH \
+  (VTT_SEL_CHUNK / 2 > VTT_SEL_THREADS ? VTT_SEL_CHUNK / 2 : VTT_SEL_THREADS)
+
+// The job order: the nk keys (the k-th at ka[k * stride]) most
+// significant first, then the job index.
+__device__ __forceinline__ bool vtt_rank_less(const float* ka, int ia,
+                                              const float* kb, int ib, int nk,
+                                              int stride = 1) {
+  for (int i = 0; i < nk; ++i) {
+    if (ka[i * stride] < kb[i * stride]) return true;
+    if (ka[i * stride] > kb[i * stride]) return false;
+  }
+  return ia < ib;
+}
+
+// A select's inputs and scratch: the jobs' active flags and keys ([J, 4],
+// nk used), sel [M], and per chunk its list of kept jobs (job, keys, rank)
+// and their count; c_max (may be null) takes each chunk's last active job.
+struct VttSel {
+  const uint8_t* active;
+  const float* keys;
+  int32_t* sel;
+  float* c_key;     // [nC, M, 4]
+  int32_t* c_job;   // [nC, M]
+  int32_t* c_rank;  // [nC, M]
+  int32_t* c_cnt;   // [nC]
+  int32_t* c_max;   // [nC] or null
+  int J, M, nk, nC;
+};
+
+// Stage 1, one CTA of VTT_SEL_THREADS a chunk: the chunk's active jobs in
+// job order (a block scan compacts them), sorted by an index permutation in
+// shared memory, vtt_rank_less the comparator; the first min(M, active)
+// become the chunk's list (with one chunk, the selection itself).  The keys
+// lie key-major in shared memory (s_k[k][slot]), so that the network's
+// permuted reads spread over the banks.  Thread 0 returns the chunk's last
+// active job (-1: none).
+__device__ __forceinline__ int vtt_sel_chunk(const VttSel& a) {
+  __shared__ float s_k[4 * VTT_SEL_CHUNK];
+  __shared__ int s_j[VTT_SEL_CHUNK];
+  // the block scan's scratch, then the permutation (int16): 45 KB in all
+  __shared__ int s_pi[VTT_SEL_SCRATCH];
+  __shared__ int s_tot[33];
+  int16_t* s_p = reinterpret_cast<int16_t*>(s_pi);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int J = a.J, M = a.M, nk = a.nk, b = blockIdx.x;
+  const int c0 = b * VTT_SEL_CHUNK, cn = min(VTT_SEL_CHUNK, J - c0);
+  // the active jobs in job order: thread t holds [t * ipt, (t + 1) * ipt)
+  const int ipt = (VTT_SEL_CHUNK + nthr - 1) / nthr;
+  const int lo = min(cn, tid * ipt), hi = min(cn, lo + ipt);
+  int c = 0;
+  for (int i = lo; i < hi; ++i) c += a.active[c0 + i] ? 1 : 0;
+  int n;
+  int slot = vtt_block_scan(c, s_pi, s_tot, n);
+  for (int i = lo; i < hi; ++i) {
+    const int j = c0 + i;
+    if (!a.active[j]) continue;
+    s_j[slot] = j;
+    for (int k = 0; k < nk; ++k) s_k[k * VTT_SEL_CHUNK + slot] = a.keys[(size_t)j * 4 + k];
+    ++slot;
+  }
+  if (n == 0) {
+    if (tid == 0) {
+      a.c_cnt[b] = 0;
+      if (a.c_max) a.c_max[b] = -1;
+    }
+    return -1;
+  }
+  int n2 = 1;
+  while (n2 < n) n2 <<= 1;
+  for (int i = tid; i < n2; i += nthr) s_p[i] = (int16_t)(i < n ? i : -1);
+  __syncthreads();
+  // x before y: padding (-1) after every job
+  auto before = [&](int x, int y) {
+    return x >= 0 && (y < 0 || vtt_rank_less(&s_k[x], s_j[x], &s_k[y], s_j[y], nk,
+                                             VTT_SEL_CHUNK));
+  };
+  for (int k = 2; k <= n2; k <<= 1) {
+    for (int jj = k >> 1; jj > 0; jj >>= 1) {
+      for (int q = tid; q < (n2 >> 1); q += nthr) {
+        const int i = ((q & ~(jj - 1)) << 1) | (q & (jj - 1));
+        const int x = s_p[i], y = s_p[i + jj];
+        if ((i & k) == 0 ? before(y, x) : before(x, y)) {
+          s_p[i] = (int16_t)y;
+          s_p[i + jj] = (int16_t)x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const int keep = min(M, n);
+  for (int r = tid; r < keep; r += nthr) {
+    const int p = s_p[r];
+    if (a.nC == 1) {
+      a.sel[r] = s_j[p];
+      continue;
+    }
+    const size_t x = (size_t)b * M + r;
+    a.c_job[x] = s_j[p];
+    for (int k = 0; k < nk; ++k) a.c_key[x * 4 + k] = s_k[k * VTT_SEL_CHUNK + p];
+    a.c_rank[x] = r;
+  }
+  const int last = s_j[s_p[n - 1]];
+  if (tid == 0) {
+    a.c_cnt[b] = keep;
+    if (a.c_max) a.c_max[b] = last;
+  }
+  return last;
+}
+
+// Stage 2, thread (kept job x, chunk blockIdx.y): adds to x's rank the jobs
+// of that chunk's list that order before x (a binary search: the list is
+// sorted).
+__device__ __forceinline__ void vtt_sel_merge(const VttSel& a) {
+  const int M = a.M;
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = x / M, c2 = blockIdx.y;
+  if (c >= a.nC || c2 == c || x - c * M >= a.c_cnt[c]) return;
+  const int nk = a.nk;
+  float kx[4];
+  for (int k = 0; k < nk; ++k) kx[k] = a.c_key[(size_t)x * 4 + k];
+  const int jx = a.c_job[x];
+  int lo = 0, hi = a.c_cnt[c2];
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const size_t y = (size_t)c2 * M + mid;
+    if (vtt_rank_less(&a.c_key[y * 4], a.c_job[y], kx, jx, nk))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  if (lo) atomicAdd(&a.c_rank[x], lo);
+}
+
+// Stage 3, a thread a kept job: sel[rank] for the kept jobs of rank < M.
+__device__ __forceinline__ void vtt_sel_place(const VttSel& a) {
+  const int M = a.M;
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = x / M;
+  if (c < a.nC && x - c * M < a.c_cnt[c]) {
+    const int r = a.c_rank[x];
+    if (r < M) a.sel[r] = a.c_job[x];
+  }
+}
+
 // ---- K5: host ports and pod (anti)affinity as packed bitsets ------------
 
 // One task's portsel words.

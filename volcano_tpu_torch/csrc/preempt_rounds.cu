@@ -12,18 +12,33 @@
 // mesh with solveMode: batch (volcano_tpu/scheduler/fast_victims.py:148-163:
 // node planes in S blocks of rows, the [V] pool replicated).
 //
-// What bounds it on the H100: per round, the [M, N] score pass (M = 128
-// jobs x N nodes, ~40 bytes and ~40 flops a cell from L2), the O(J^2) job
-// ranking and two walks of the pool; all far below the card's rates, so a
-// round is bound by its launches and barriers, and the solve by its round
-// count.  Design, after K3 / K12a (csrc/allocate_batch.cu):
+// What bounds it on the H100: no stage comes near the card's rates.  Once a
+// solve, the gang budgets' within-job count compares each live row with
+// every row of its job's bucket, sum over jobs of (bucket rows x live rows)
+// compares, spread over the card; per round, the [M, N] score pass (M = 128
+// jobs x N nodes, ~40 bytes and ~40 flops a cell from L2) and the accept's
+// one-CTA sort of F = M * P proposals; the rest is launches, barriers and
+// the host's read of the control block between rounds, so a round is bound
+// by its launches and the solve by its round count.  Design:
 //   * the host runs the round loop: vtt_rounds_candidates, the exchange of
 //     the blocks' records, vtt_rounds_decide, the exchange of the blocks'
 //     victim sums, vtt_rounds_finish, which leaves a 48-byte control block
 //     on the host (active jobs, progress, round count);
-//   * each block's pool rows are grouped by node once per solve
-//     (victim_common.cuh); each row's within-job rank in the global
-//     eviction order is counted once, replicated (the gang budget);
+//   * once a solve: each block's pool rows grouped by node
+//     (victim_common.cuh); the whole pool bucketed by job, padding rows
+//     included as the reference counts them (vtt_r_job_count, vtt_v_scan,
+//     vtt_r_job_bucket, warp-aggregated atomics), each job's live rows first
+//     and each entry's eviction-order key gathered once into two 64-bit
+//     words (node, queue | priority, -rank; the pool index last), so no
+//     comparison reads through run_job -> job_queue; then the within-job
+//     count: work items of (tile of VTT_CNT_TILE bucket entries) x (chunk of
+//     VTT_CNT_ROWS live rows) per job (vtt_r_count_items, vtt_v_scan into
+//     item_off), which vtt_r_count_tiles deals to warps over the card: the
+//     tile in registers, each live row broadcast in turn, the entries before
+//     it counted by ballots, the partial counts added with integer atomics
+//     (exact in any order).  No thread walks more than one tile of a
+//     bucket, so a padded job-0 bucket or a large gang spreads over many
+//     warps instead of one thread's chain of dependent loads;
 //   * per block, over its own rows: vtt_r_analysis and vtt_r_victims give
 //     each node to one thread, which walks the node's rows in (queue,
 //     priority, rank) order with float64 running sums per (node, queue)
@@ -33,14 +48,17 @@
 //     as a record (value, node, predicate bit, task count, pod cap and the
 //     (node, queue) cell's capacity): the union of the blocks' top-Ks holds
 //     the global one (PR 6's tile argument);
-//   * replicated, on the gathered records: vtt_r_rank counts, for each
-//     active job, the active jobs with a smaller key tuple (the rank, no
-//     sort); vtt_r_propose merges the S blocks' records into the job's
-//     top-K and writes its P proposals, each with its node's record;
-//     vtt_r_accept is one CTA: a bitonic sort of the F = M * P proposals by
-//     (cell, rank), one thread per cell for the running sums against the
-//     records, per-job prefix and gang commit, and the job and queue
-//     updates in a fixed order;
+//   * replicated, on the gathered records: the select is K3's top-M by
+//     chunks (common.cuh vtt_sel_*: vtt_r_sel_chunk sorts each chunk of
+//     VTT_SEL_CHUNK jobs in shared memory, vtt_r_sel_merge ranks each kept
+//     job by binary searches, vtt_r_sel_place writes sel), on the float keys
+//     and the job index, as the count over all pairs of jobs it replaces
+//     ordered them; vtt_r_propose merges the S blocks' records into the
+//     job's top-K and writes its P proposals, each with its node's record;
+//     vtt_r_accept is one CTA: a bitonic sort of the proposals by (cell,
+//     rank), one thread per cell for the running sums against the records,
+//     one per job for the prefix and gang commit, a warp per queue for the
+//     queue sums;
 //   * vtt_r_grant: each block takes the granted capacity of its own cells
 //     from the accept's order; vtt_r_victims evicts on its own nodes.
 //   Cross-node sums (victims per job and queue, their count, the evicted
@@ -49,12 +67,20 @@
 //   exchange a round and vtt_r_finish adds them in block order, so every
 //   block count gives the one-block outputs bit for bit.  On one device
 //   both exchanges are the buffers the blocks wrote.
+#include <atomic>
+
 #include "victim_common.cuh"
 
 #define VTT_R_PROPOSE_THREADS 256
 #define VTT_R_ACCEPT_THREADS 1024
-#define VTT_R_RANK_CHUNK 1024
+#define VTT_R_WIDE_THREADS 256
 #define VTT_R_MAX_PK 32
+#define VTT_CNT_TILE 256  // bucket entries a count item holds (8 a lane;
+                          // victim_kernels.ROUNDS_COUNT_TILE)
+#define VTT_CNT_ROWS 32   // live rows a count item counts (one a lane)
+#define VTT_CNT_THREADS 256
+#define VTT_CNT_CTAS_PER_SM 8
+#define VTT_MAX_DEVICES 64  // devices whose SM count is kept
 
 // p_flags bits
 #define RF_VALID 1
@@ -70,37 +96,132 @@ __device__ __forceinline__ float vtt_ord2f(int i) {
   return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
 }
 
-// (node, queue, priority, rank, pool index): the global eviction order
-__device__ __forceinline__ bool vtt_gev_less(const VttVictimArgs& a, int u, int v) {
-  const int nu_ = a.run_node[u], nv_ = a.run_node[v];
-  if (nu_ != nv_) return nu_ < nv_;
-  return vtt_ev_less(a, VTT_EV_ROUNDS, u, v);
+#define FULL_MASK 0xffffffffu
+
+// The lanes of a warp whose `key` (>= 0) is equal take consecutive slots
+// of the counter ctr(key) with one atomicAdd; a lane with key < 0 takes
+// none.  Every lane of the warp calls it.
+template <class Ctr>
+__device__ __forceinline__ int vtt_warp_slot(int key, Ctr ctr) {
+  const unsigned peers = __match_any_sync(FULL_MASK, key);
+  const int lane = threadIdx.x & 31, leader = __ffs(peers) - 1;
+  int base = 0;
+  if (key >= 0 && lane == leader) base = atomicAdd(ctr(key), __popc(peers));
+  base = __shfl_sync(FULL_MASK, base, leader);
+  return base + __popc(peers & ((1u << lane) - 1u));
 }
 
+// per job: its pool rows (job_fill[j]) and its live rows (job_fill[J + j])
 __global__ void vtt_r_job_count(VttVictimArgs a) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v < a.V) atomicAdd(&a.job_fill[vtt_clamp(a.run_job[v], 0, (int)a.J - 1)], 1);
+  const int J = (int)a.J;
+  const bool in = v < a.V;
+  const int j = in ? vtt_clamp(a.run_job[v], 0, J - 1) : -1;
+  vtt_warp_slot(j, [&](int k) { return &a.job_fill[k]; });
+  vtt_warp_slot(in && a.run_live[v] ? j : -1, [&](int k) { return &a.job_fill[J + k]; });
 }
 
+// Each pool row into its job's bucket, the live rows first (job_fill[j],
+// zeroed by the scan, counts them from the front; job_fill[2J + j] the
+// others from the back), with its key in the global eviction order
+// (node, queue, priority, -rank) as two words that compare as unsigned
+// integers: each field's sign bit flipped, the queue clamped as the
+// per-node order clamps it, the priority 0 when order_by_priority is off.
+// The pool index, the last key, is the bucket entry itself.
 __global__ void vtt_r_job_bucket(VttVictimArgs a) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= a.V) return;
-  const int j = vtt_clamp(a.run_job[v], 0, (int)a.J - 1);
-  a.job_bucket[a.job_off[j] + atomicAdd(&a.job_fill[j], 1)] = v;
+  const int J = (int)a.J;
+  const bool in = v < a.V;
+  const int j = in ? vtt_clamp(a.run_job[v], 0, J - 1) : -1;
+  const bool live = in && a.run_live[v];
+  const int slot = vtt_warp_slot(!in ? -1 : live ? j : J + j, [&](int k) {
+    return k < J ? &a.job_fill[k] : &a.job_fill[J + k];
+  });
+  if (!in) return;
+  const int pos = live ? a.job_off[j] + slot : a.job_off[j + 1] - 1 - slot;
+  const uint32_t q = (uint32_t)vtt_clamp(vtt_row_queue(a, v), 0, (int)a.Q - 1);
+  const uint32_t prio = a.order_by_priority ? (uint32_t)a.run_prio[v] : 0u;
+  const uint32_t neg_rank = 0u - (uint32_t)a.run_rank[v];
+  a.job_key[2 * (size_t)pos] =
+      ((unsigned long long)((uint32_t)a.run_node[v] ^ 0x80000000u) << 32) | q;
+  a.job_key[2 * (size_t)pos + 1] =
+      ((unsigned long long)(prio ^ 0x80000000u) << 32) | (neg_rank ^ 0x80000000u);
+  a.job_bucket[pos] = v;
 }
 
-// a live row's rank within its job in the global eviction order, counted
-// over every pool row (padding rows included, as the reference counts them)
-__global__ void vtt_r_cnt_in_job(VttVictimArgs a) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= a.V || !a.run_live[v]) return;
-  const int j = vtt_clamp(a.run_job[v], 0, (int)a.J - 1);
-  int c = 0;
-  for (int i = a.job_off[j]; i < a.job_off[j + 1]; ++i) {
-    const int u = a.job_bucket[i];
-    if (u != v && vtt_gev_less(a, u, v)) ++c;
+// The within-job count's work items of job j: (tile of VTT_CNT_TILE
+// bucket entries) x (chunk of VTT_CNT_ROWS live rows), none without live
+// rows; into job_fill[2J + j], which vtt_v_scan turns into item_off.
+__global__ void vtt_r_count_items(VttVictimArgs a) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int J = (int)a.J;
+  if (j >= J) return;
+  const int B = a.job_off[j + 1] - a.job_off[j], L = a.job_fill[J + j];
+  a.job_fill[2 * J + j] = L ? ((B + VTT_CNT_TILE - 1) / VTT_CNT_TILE) *
+                                  ((L + VTT_CNT_ROWS - 1) / VTT_CNT_ROWS)
+                            : 0;
+}
+
+// Each live row's rank within its job in the global eviction order,
+// counted over every pool row of the job (padding rows included, as the
+// reference counts them).  A warp takes one work item at a time over the
+// card: the item's tile of the job's bucket in registers (8 entries a
+// lane), each of its up to 32 live rows in turn broadcast from the lane
+// that holds it, the entries before it counted by ballots; the row's lane
+// adds the count into cnt_in_job (integer atomics, exact in any order).
+// No lane compares more than one tile's entries against a row.
+__global__ void __launch_bounds__(VTT_CNT_THREADS) vtt_r_count_tiles(VttVictimArgs a) {
+  constexpr int PER_LANE = VTT_CNT_TILE / 32;
+  const int J = (int)a.J, lane = threadIdx.x & 31;
+  const int n_warps = gridDim.x * (blockDim.x >> 5);
+  const int total = a.item_off[J];
+  for (int w = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; w < total; w += n_warps) {
+    // the item's job: the last j with item_off[j] <= w
+    int lo = 0, hi = J - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (a.item_off[mid] <= w)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    const int j = lo;
+    const int off = a.job_off[j], B = a.job_off[j + 1] - off, L = a.job_fill[J + j];
+    const int n_chunks = (L + VTT_CNT_ROWS - 1) / VTT_CNT_ROWS;
+    const int item = w - a.item_off[j], t = item / n_chunks, c = item - t * n_chunks;
+    const int e0 = off + t * VTT_CNT_TILE, e1 = off + min(B, (t + 1) * VTT_CNT_TILE);
+    // past the tile: a key above every real one (a real queue word is < 2^31)
+    unsigned long long k0[PER_LANE], k1[PER_LANE];
+    int kv[PER_LANE];
+#pragma unroll
+    for (int i = 0; i < PER_LANE; ++i) {
+      const int e = e0 + i * 32 + lane;
+      const bool in = e < e1;
+      k0[i] = in ? a.job_key[2 * (size_t)e] : ~0ull;
+      k1[i] = in ? a.job_key[2 * (size_t)e + 1] : ~0ull;
+      kv[i] = in ? a.job_bucket[e] : 0x7fffffff;
+    }
+    const int r = c * VTT_CNT_ROWS + lane, rows = min(VTT_CNT_ROWS, L - c * VTT_CNT_ROWS);
+    const bool mine = lane < rows;
+    const unsigned long long r0 = mine ? a.job_key[2 * (size_t)(off + r)] : 0ull;
+    const unsigned long long r1 = mine ? a.job_key[2 * (size_t)(off + r) + 1] : 0ull;
+    const int rv = mine ? a.job_bucket[off + r] : 0;
+    int cnt = 0;
+    for (int x = 0; x < rows; ++x) {
+      const unsigned long long x0 = __shfl_sync(FULL_MASK, r0, x);
+      const unsigned long long x1 = __shfl_sync(FULL_MASK, r1, x);
+      const int xv = __shfl_sync(FULL_MASK, rv, x);
+      int n = 0;
+#pragma unroll
+      for (int i = 0; i < PER_LANE; ++i) {
+        const bool before =
+            k0[i] < x0 || (k0[i] == x0 && (k1[i] < x1 || (k1[i] == x1 && kv[i] < xv)));
+        n += __popc(__ballot_sync(FULL_MASK, before));
+      }
+      if (lane == x) cnt = n;
+    }
+    if (mine && cnt) atomicAdd(&a.cnt_in_job[rv], cnt);
   }
-  a.cnt_in_job[v] = c;
 }
 
 __global__ void vtt_r_init(VttVictimArgs a) {
@@ -122,7 +243,6 @@ __global__ void vtt_r_start(VttVictimArgs a) {
   if (idx < a.M) a.sel[idx] = -1;
   if (idx >= J) return;
   const int j = idx;
-  a.job_rank[j] = 0;
   const bool active = a.job_avail[j] && !a.dropped[j] && a.cursor[j] < a.job_pcount[j];
   a.job_active[j] = active ? 1 : 0;
   const int codes[3] = {(int)a.key0, (int)a.key1, (int)a.key2};
@@ -203,41 +323,23 @@ __global__ void vtt_r_analysis(VttVictimArgs a) {
   }
 }
 
-// rank_j = #{active i : key_i < key_j}; blockIdx.y picks a chunk of i
-__global__ void vtt_r_rank(VttVictimArgs a) {
-  __shared__ float s_keys[VTT_R_RANK_CHUNK * 3];
-  __shared__ uint8_t s_act[VTT_R_RANK_CHUNK];
-  const int J = (int)a.J, nk = (int)a.n_keys;
-  const int c0 = blockIdx.y * VTT_R_RANK_CHUNK;
-  const int cn = min(VTT_R_RANK_CHUNK, J - c0);
-  for (int i = threadIdx.x; i < cn; i += blockDim.x) {
-    s_act[i] = a.job_active[c0 + i];
-    for (int k = 0; k < 3; ++k) s_keys[i * 3 + k] = a.job_keys[(size_t)(c0 + i) * 4 + k];
-  }
-  __syncthreads();
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= J || !a.job_active[j]) return;
-  float kj[3];
-  for (int k = 0; k < 3; ++k) kj[k] = a.job_keys[(size_t)j * 4 + k];
-  int cnt = 0;
-  for (int i = 0; i < cn; ++i) {
-    if (!s_act[i]) continue;
-    bool less = false, decided = false;
-    for (int k = 0; k < nk && !decided; ++k) {
-      if (s_keys[i * 3 + k] < kj[k]) less = decided = true;
-      else if (s_keys[i * 3 + k] > kj[k]) decided = true;
-    }
-    if (!decided) less = c0 + i < j;
-    cnt += less;
-  }
-  if (cnt) atomicAdd(&a.job_rank[j], cnt);
+// The select (common.cuh vtt_sel_*): sel[r] = the active job of rank r < M
+// in the session order (n_keys float keys, then the job index).
+__device__ __forceinline__ VttSel vtt_r_sel(const VttVictimArgs& a) {
+  return VttSel{a.job_active, a.job_keys, a.sel, a.c_key, a.c_job, a.c_rank, a.c_cnt,
+                nullptr, (int)a.J, (int)a.M, (int)a.n_keys, (int)a.nC};
 }
 
-__global__ void vtt_r_select(VttVictimArgs a) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= a.J || !a.job_active[j]) return;
-  const int r = a.job_rank[j];
-  if (r < a.M) a.sel[r] = j;
+__global__ void __launch_bounds__(VTT_SEL_THREADS) vtt_r_sel_chunk(VttVictimArgs a) {
+  vtt_sel_chunk(vtt_r_sel(a));
+}
+
+__global__ void __launch_bounds__(VTT_R_WIDE_THREADS) vtt_r_sel_merge(VttVictimArgs a) {
+  vtt_sel_merge(vtt_r_sel(a));
+}
+
+__global__ void __launch_bounds__(VTT_R_WIDE_THREADS) vtt_r_sel_place(VttVictimArgs a) {
+  vtt_sel_place(vtt_r_sel(a));
 }
 
 // The selected job m's head task row, its request, class and queue.
@@ -522,10 +624,11 @@ __global__ void __launch_bounds__(VTT_R_ACCEPT_THREADS)
   // wins must be an offset prefix per job, and a gang short of pipelined
   // must win its whole remaining need in this round
   bool any_local = false;
-  int wins_local = 0;
+  int wins_local = 0, sel_local = 0;
   for (int m = tid; m < M; m += nthr) {
     const int j = a.sel[m];
     if (j < 0) continue;
+    ++sel_local;
     const int need = a.gang_pipelined
                          ? max(a.job_min[j] - a.job_occupied[j] - a.pipe[j], 0)
                          : 0;
@@ -555,22 +658,29 @@ __global__ void __launch_bounds__(VTT_R_ACCEPT_THREADS)
   }
   const bool any_win = vtt_block_any(any_local, &s_flag);
   const int wins_total = vtt_block_sum(wins_local, s_sum);
-  for (int q = tid; q < Q; q += nthr) {
+  const int n_sel = vtt_block_sum(sel_local, s_sum);
+  // the winners' requests per queue: a warp a queue, its lanes over the
+  // proposals, float64 sums of whole numbers (exact in any order), rounded
+  // once into the queue's float32 row
+  const int lane = tid & 31;
+  for (int q = tid >> 5; q < Q; q += nthr >> 5) {
     double acc[VTT_MAX_R];
     for (int r = 0; r < R; ++r) acc[r] = 0.0;
-    for (int f = 0; f < F; ++f) {
+    for (int f = lane; f < F; f += 32) {
       if (!(a.p_flags[f] & RF_WIN) || vtt_clamp(a.job_queue[a.p_job[f]], 0, Q - 1) != q) continue;
       for (int r = 0; r < R; ++r) acc[r] += (double)a.task_req[(size_t)a.p_t[f] * R + r];
     }
-    for (int r = 0; r < R; ++r)
-      a.queue_alloc[(size_t)q * R + r] = a.queue_alloc[(size_t)q * R + r] + (float)acc[r];
+    for (int r = 0; r < R; ++r) {
+      double x = acc[r];
+      for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(FULL_MASK, x, o);
+      if (lane == 0)
+        a.queue_alloc[(size_t)q * R + r] = a.queue_alloc[(size_t)q * R + r] + (float)x;
+    }
   }
+  if (!any_win)
+    for (int m = tid; m < M; m += nthr)
+      if (a.sel[m] >= 0) a.dropped[a.sel[m]] = 1;
   if (tid == 0) {
-    int n_sel = 0;
-    for (int m = 0; m < M; ++m) n_sel += a.sel[m] >= 0;
-    if (!any_win)
-      for (int m = 0; m < M; ++m)
-        if (a.sel[m] >= 0) a.dropped[a.sel[m]] = 1;
     a.ctl[VC_ANY_WIN] = any_win ? 1 : 0;
     a.ctl[VC_ATT_TOTAL] += wins_total;
     a.ctl[VC_PROGRESS] = (any_win || n_sel > 0) ? 1 : 0;
@@ -745,6 +855,17 @@ static inline int vtt_rounds_ctl(const VttVictimArgs& a, int32_t* ctl_out, cudaS
   return err ? err : (int)cudaGetLastError();
 }
 
+// The current device's SM count, asked of the runtime once per device.
+static int vtt_sm_count(int* sms) {
+  static std::atomic<int> known[VTT_MAX_DEVICES];
+  int dev = 0, err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev < VTT_MAX_DEVICES && (*sms = known[dev].load(std::memory_order_relaxed))) return 0;
+  if ((err = (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev))) return err;
+  if (dev < VTT_MAX_DEVICES) known[dev].store(*sms, std::memory_order_relaxed);
+  return 0;
+}
+
 // Begin a solve: each local block's pool rows grouped by node, the
 // replicated within-job ranks, the first round's start; the control block
 // into ctl_out[12].  The host then runs rounds while ctl_out says progress,
@@ -755,7 +876,8 @@ extern "C" int vtt_rounds_begin(const VttVictimArgs* base, const VttVictimArgs* 
   const VttVictimArgs& a = *base;
   if (a.R < 2 || a.R > VTT_MAX_R || a.n_keys > 3 || a.P < 1 || a.P > VTT_R_MAX_PK ||
       a.K < 1 || a.K > VTT_R_MAX_PK || a.F != a.M * a.P || a.TILE < 1 || a.TILE > 8192 ||
-      a.W != 5 + a.R || a.S < 1 || n_blocks < 1)
+      a.W != 5 + a.R || a.S < 1 || n_blocks < 1 ||
+      a.nC != (a.J + VTT_SEL_CHUNK - 1) / VTT_SEL_CHUNK)
     return (int)cudaErrorInvalidValue;
   for (int b = 0; b < n_blocks; ++b)
     if (blocks[b].TB * blocks[b].TILE < blocks[b].N) return (int)cudaErrorInvalidValue;
@@ -770,10 +892,14 @@ extern "C" int vtt_rounds_begin(const VttVictimArgs* base, const VttVictimArgs* 
     return err;
   const int J = (int)a.J;
   const int vb = (int)((a.V + 255) / 256);
+  int sms = 0;
+  if ((err = vtt_sm_count(&sms))) return err;
   VTT_LAUNCH(vtt_r_job_count, vb, 256, 0, s)(a);
   VTT_LAUNCH(vtt_v_scan, 1, VTT_VICTIM_THREADS, 0, s)(a.job_fill, a.job_off, J);
   VTT_LAUNCH(vtt_r_job_bucket, vb, 256, 0, s)(a);
-  VTT_LAUNCH(vtt_r_cnt_in_job, vb, 256, 0, s)(a);
+  VTT_LAUNCH(vtt_r_count_items, (J + 255) / 256, 256, 0, s)(a);
+  VTT_LAUNCH(vtt_v_scan, 1, VTT_VICTIM_THREADS, 0, s)(a.job_fill + 2 * J, a.item_off, J);
+  VTT_LAUNCH(vtt_r_count_tiles, sms * VTT_CNT_CTAS_PER_SM, VTT_CNT_THREADS, 0, s)(a);
   VTT_LAUNCH(vtt_r_init, (int)((a.Q + 255) / 256), 256, 0, s)(a);
   VTT_LAUNCH(vtt_r_start, vtt_rounds_wide_blocks(a), 256, 0, s)(a);
   return vtt_rounds_ctl(a, ctl_out, s);
@@ -786,12 +912,15 @@ extern "C" int vtt_rounds_candidates(const VttVictimArgs* base, const VttVictimA
                                      int n_blocks, void* stream) {
   const VttVictimArgs& a = *base;
   cudaStream_t s = (cudaStream_t)stream;
-  const int J = (int)a.J;
   for (int b = 0; b < n_blocks; ++b)
     VTT_LAUNCH(vtt_r_analysis, (int)((blocks[b].N + 255) / 256), 256, 0, s)(blocks[b]);
-  const dim3 rank_grid((J + 255) / 256, (J + VTT_R_RANK_CHUNK - 1) / VTT_R_RANK_CHUNK);
-  VTT_LAUNCH(vtt_r_rank, rank_grid, 256, 0, s)(a);
-  VTT_LAUNCH(vtt_r_select, (J + 255) / 256, 256, 0, s)(a);
+  const int nC = (int)a.nC;
+  VTT_LAUNCH(vtt_r_sel_chunk, nC, VTT_SEL_THREADS, 0, s)(a);
+  if (nC > 1) {
+    const unsigned wide = (unsigned)((a.nC * a.M + VTT_R_WIDE_THREADS - 1) / VTT_R_WIDE_THREADS);
+    VTT_LAUNCH(vtt_r_sel_merge, dim3(wide, (unsigned)nC), VTT_R_WIDE_THREADS, 0, s)(a);
+    VTT_LAUNCH(vtt_r_sel_place, (int)wide, VTT_R_WIDE_THREADS, 0, s)(a);
+  }
   for (int b = 0; b < n_blocks; ++b) {
     const VttVictimArgs& blk = blocks[b];
     VTT_LAUNCH(vtt_r_tiles, dim3((unsigned)blk.M, (unsigned)blk.TB), VTT_R_PROPOSE_THREADS,

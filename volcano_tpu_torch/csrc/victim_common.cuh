@@ -118,10 +118,12 @@ struct VttVictimArgs {
   unsigned long long* jr_addr;
   uint32_t* jr_old;
   // scratch: rounds (K10)
-  int32_t* job_off;     // [J + 1]
-  int32_t* job_fill;    // [J], zeroed by the wrapper
-  int32_t* job_bucket;  // [V]
-  int32_t* cnt_in_job;  // [V]
+  int32_t* job_off;     // [J + 1] the pool's rows by job
+  int32_t* job_fill;    // [3J], zeroed by the wrapper: rows, live rows, counters
+  int32_t* job_bucket;  // [V] per job: its live rows first
+  unsigned long long* job_key;  // [V, 2] each bucket entry's eviction-order key
+  int32_t* item_off;    // [J + 1] the within-job count's work items by job
+  int32_t* cnt_in_job;  // [V], zeroed by the wrapper
   float* cap_flat;      // [N * Q, R]
   float* cons_flat;     // [N * Q, R]
   double* cons_node;    // [N, R]
@@ -130,8 +132,11 @@ struct VttVictimArgs {
   int32_t* ls_q;        // [Q] ordered-int float bits
   uint8_t* job_active;  // [J]
   float* job_keys;      // [J, 4]
-  int32_t* job_rank;    // [J]
   int32_t* sel;         // [M]
+  float* c_key;         // [nC, M, 4] the select's chunk lists (common.cuh VttSel)
+  int32_t* c_job;       // [nC, M]
+  int32_t* c_rank;      // [nC, M]
+  int32_t* c_cnt;       // [nC]
   int32_t* p_node;      // [F]
   int32_t* p_t;         // [F]
   int32_t* p_job;       // [F]
@@ -152,8 +157,9 @@ struct VttVictimArgs {
   int64_t has_proportion, gang_pipelined, n_keys, key0, key1, key2;
   // K12b, K15a-c: the node planes are rows [n0, n0 + N) of NT (0: all NT = N rows)
   int64_t n0, NT;
-  // K15a-c: blocks over the mesh, K15c's record words and partial words
-  int64_t S, W, W2;
+  // K15a-c: blocks over the mesh, K15c's record words and partial words;
+  // K10 / K15c: the select's chunks
+  int64_t S, W, W2, nC;
   float w_least, w_balanced;
 };
 

@@ -15,7 +15,9 @@ the contention solves: running tasks spread over nodes, with the derived
 node, job and queue state; ``build_storm_sim`` adds seeded preemptor jobs
 to it (and ``storm_inputs`` the solves' arguments), and
 ``build_reclaim_abort_sim`` is the smallest pool on which the reference's
-reclaim walk strands an eviction.
+reclaim walk strands an eviction; ``build_rounds_edge_args`` reshapes a
+storm into the edge shapes of the rounds solve's within-job count and job
+select.
 """
 
 from __future__ import annotations
@@ -695,6 +697,95 @@ def storm_inputs(kind, c, s, t):
     arrays and ints."""
     return {"reclaim": _reclaim_inputs, "preempt": _preempt_inputs,
             "rounds": _rounds_inputs}[kind](c, s, t)
+
+
+#: the shapes the rounds solve's within-job count and job select must get
+#: right (``build_rounds_edge_args``)
+ROUNDS_EDGE_CASES = ("padded_job0", "big_job", "tied_rows", "no_priority_order",
+                     "many_chunks", "few_active")
+
+
+def _move_rows(c, s, rows, job):
+    """Rows ``rows`` of the pool into job ``job``; the jobs' allocation and
+    occupancy summed again from the live rows, as ``build_victim_sim`` sums
+    them."""
+    c["run_job"][rows] = job
+    live = s["run_live"]
+    job_alloc = np.zeros_like(s["job_alloc"])
+    np.add.at(job_alloc, c["run_job"][live], c["run_req"][live])
+    occupied = np.zeros_like(s["job_occupied"])
+    np.add.at(occupied, c["run_job"][live], 1)
+    s["job_alloc"], s["job_occupied"] = job_alloc, occupied
+
+
+def build_rounds_edge_args(case: str, seed: int = 0):
+    """``(consts, state, tasks, opts)``: a ``build_storm_sim`` scenario
+    reshaped into one edge shape of the rounds solve's within-job count or
+    job select, and the solve options that reach it (``storm_inputs("rounds",
+    ...)`` gives its arguments):
+
+    * ``padded_job0``: a pool padded to its bucket whose dead rows (job 0,
+      node 0) fill more than two count tiles, with 24 live rows of job 0
+      (min member 3, queue 0, first in their nodes' eviction order) beside
+      them: the padding rows keep those off node 0 out of the gang budget;
+    * ``big_job``: one live job of 616 rows over every node, its gang
+      budget 40 rows: a bucket of three count tiles and 20 row chunks;
+    * ``tied_rows``: each node's rows of one job share one priority and one
+      rank, so only the pool index orders them;
+    * ``no_priority_order``: ``order_by_priority`` off, over a 300-row job
+      whose rows' priorities disagree with their ranks;
+    * ``many_chunks``: 1,900 fresh gangs and 400 pool jobs with pending
+      tasks (4,096 job rows, active jobs in both select chunks), the fresh
+      ones at priority 0 (the key -0.0) or 3, the gang key first, so most
+      keys tie and the job index orders them;
+    * ``few_active``: five active jobs against m_chunk 16.
+    """
+    kw = dict(use_gang=True, use_drf=False, use_conformance=True, order_by_priority=True)
+    if case == "padded_job0":
+        c, s, t = build_storm_sim(seed, n_nodes=8, n_victims=1100, n_jobs=40, n_new=6)
+        live = np.flatnonzero(s["run_live"])
+        c["job_queue"][0] = 0
+        c["job_min"][0] = 3
+        _move_rows(c, s, live[:24], 0)
+        # job 0's rows first in their nodes' eviction order
+        c["run_prio"][live] = np.where(c["run_job"][live] == 0, 0, 2)
+        kw.update(m_chunk=8, p_chunk=6, k_chunk=3)
+    elif case == "big_job":
+        c, s, t = build_storm_sim(seed, n_nodes=12, n_victims=900, n_jobs=26, n_new=6)
+        live = np.flatnonzero(s["run_live"])
+        c["job_queue"][1] = 0
+        _move_rows(c, s, live[:600], 1)
+        c["job_min"][1] = s["job_occupied"][1] - 40
+        kw.update(use_drf=True)
+    elif case == "tied_rows":
+        c, s, t = build_storm_sim(seed, n_nodes=6, n_victims=200, n_jobs=12, n_new=4)
+        live = s["run_live"]
+        key = c["run_job"] * 1024 + c["run_node"]
+        for k in np.unique(key[live]):
+            rows = np.flatnonzero(live & (key == k))
+            c["run_prio"][rows] = c["run_prio"][rows[0]]
+            c["run_rank"][rows] = c["run_rank"][rows[0]]
+        c["job_min"][:12] = 2
+    elif case == "no_priority_order":
+        c, s, t = build_storm_sim(seed, n_nodes=8, n_victims=400, n_jobs=12, n_new=4)
+        live = np.flatnonzero(s["run_live"])
+        c["job_queue"][2] = 0
+        c["job_min"][2] = 4
+        _move_rows(c, s, live[:300], 2)
+        c["run_prio"][live] = np.arange(live.size) % 3
+        kw.update(order_by_priority=False, m_chunk=4, p_chunk=8, k_chunk=4)
+    elif case == "many_chunks":
+        c, s, t = build_storm_sim(seed, n_nodes=16, n_victims=300, n_jobs=2100, n_new=1900,
+                                  n_old=400)
+        new = np.arange(2100, 4000)
+        t["job_prio"][new] = np.where(new % 5 == 0, 3, 0)
+        kw.update(job_key_order=("gang", "priority", "drf"), p_chunk=2, k_chunk=2)
+    elif case == "few_active":
+        c, s, t = build_storm_sim(seed, n_nodes=8, n_victims=120, n_jobs=12, n_new=3)
+        kw.update(m_chunk=16)
+    else:
+        raise ValueError(f"unknown rounds edge case {case!r}")
+    return c, s, t, kw
 
 
 def build_reclaim_abort_sim():

@@ -69,6 +69,7 @@ import torch
 
 from volcano_tpu_torch.scheduler.kernels import (
     POS_INF,
+    SEL_CHUNK,
     _KEY_CODE,
     _MAX_R,
     _check,
@@ -87,6 +88,9 @@ ROUNDS_P_CHUNK = 32
 #: node rows a CTA of the rounds kernel scores in shared memory (32 KB of
 #: floats); the score pass runs over ceil(N / ROUNDS_TILE) tiles
 ROUNDS_TILE = 8192
+#: entries of a job's bucket that one work item of the rounds solve's
+#: within-job count compares with its live rows (csrc VTT_CNT_TILE)
+ROUNDS_COUNT_TILE = 256
 
 #: kernel launches since the last ``reset_launches()``; each CUDA wrapper
 #: adds one where it launches its kernel, and nowhere else
@@ -877,9 +881,10 @@ _PTR_FIELDS = (
     "evict_att", "pipe_node", "pipe_att", "ctl",
     "node_off", "node_fill", "bucket", "l_vidx", "l_ev", "l_drf", "l_prop", "flag",
     "jr_addr", "jr_old",
-    "job_off", "job_fill", "job_bucket", "cnt_in_job", "cap_flat", "cons_flat",
-    "cons_node", "placed", "act_q", "ls_q",
-    "job_active", "job_keys", "job_rank", "sel", "p_node", "p_t", "p_job", "p_flags",
+    "job_off", "job_fill", "job_bucket", "job_key", "item_off", "cnt_in_job", "cap_flat",
+    "cons_flat", "cons_node", "placed", "act_q", "ls_q",
+    "job_active", "job_keys", "sel", "c_key", "c_job", "c_rank", "c_cnt",
+    "p_node", "p_t", "p_job", "p_flags",
     "t_val", "t_idx", "t_any",
     "walk", "send", "recv", "p_rec", "p_key", "part",
 )
@@ -887,7 +892,7 @@ _INT_FIELDS = (
     "V", "N", "R", "T", "J", "Q", "C", "nu", "nq", "M", "P", "K", "F", "jr_cap", "TB", "TILE",
     "use_gang", "use_drf", "use_prop", "use_conformance", "order_by_priority",
     "has_proportion", "gang_pipelined", "n_keys", "key0", "key1", "key2",
-    "n0", "NT", "S", "W", "W2",
+    "n0", "NT", "S", "W", "W2", "nC",
 )
 
 
@@ -1661,9 +1666,11 @@ def preempt_rounds(c, s0, task_req, task_class, rows_packed, job_pstart, job_pco
     """Batched preempt rounds (JAX ``victim_kernels.preempt_rounds``).
 
     Replaces volcano_tpu/scheduler/victim_kernels.py:830.  Bound by its
-    launches and barriers, a round's work being far below the card's
-    rates.  Design (csrc/preempt_rounds.cu): eight kernels a round, the
-    host reading one 48-byte control block between rounds."""
+    launches, barriers and the host's read of one 48-byte control block
+    between rounds, a round's work being far below the card's rates.
+    Design (csrc/preempt_rounds.cu): once a solve, the pool bucketed by job
+    and each live row's within-job count spread over the card; a round's
+    kernels, the job select a top-M by chunks."""
     kw = dict(use_gang=use_gang, use_drf=use_drf, use_conformance=use_conformance,
               order_by_priority=order_by_priority, job_key_order=tuple(job_key_order),
               gang_pipelined=gang_pipelined)
@@ -1863,10 +1870,10 @@ def preempt_rounds_sharded(c, s0, task_req, task_class, rows_packed, job_pstart,
     fast_victims.py:148-163.  Bound by its launches, barriers and two host
     round trips a round (the exchanges).  Design (csrc/preempt_rounds.cu,
     the same code as K10): per block the candidate analysis, the tile pass
-    and records, the cells' grants and the victims; replicated the rank,
-    the proposals from the gathered records and the accept; the blocks'
-    victim sums in a second exchange a round.  CPU tensors run
-    ``parallel/sharded.rounds_blocks_plain``."""
+    and records, the cells' grants and the victims; replicated the
+    within-job count, the select, the proposals from the gathered records
+    and the accept; the blocks' victim sums in a second exchange a round.
+    CPU tensors run ``parallel/sharded.rounds_blocks_plain``."""
     kw = dict(use_gang=use_gang, use_drf=use_drf, use_conformance=use_conformance,
               order_by_priority=order_by_priority, job_key_order=tuple(job_key_order),
               gang_pipelined=gang_pipelined, m_chunk=m_chunk, p_chunk=p_chunk, k_chunk=k_chunk)
@@ -1912,8 +1919,10 @@ def rounds_blocks_launch(lib, stream, c, s0, task_req, task_class, rows_packed, 
         raise ValueError(f"rounds kernel takes p_chunk, k_chunk in [1, 32] and F = m_chunk "
                          f"* p_chunk <= 16384 (the accept sort's shared memory), got {P}, "
                          f"{K}, {F}")
-    # the score pass runs over node tiles of each block: any N
+    # the score pass runs over node tiles of each block: any N; the select
+    # over chunks of SEL_CHUNK job rows
     TB = -(-nb // ROUNDS_TILE)
+    nC = -(-J // SEL_CHUNK)
     # a block's partial row: victims' sums per job and queue, per-job
     # counts, the victim count, the evicted rows' mask words in pairs
     W2 = J * R + Q * R + J + 1 + -(-(-(-V // 32)) // 2)
@@ -1926,11 +1935,15 @@ def rounds_blocks_launch(lib, stream, c, s0, task_req, task_class, rows_packed, 
         rows_packed=rows_packed, job_pstart=job_pstart, job_pcount=job_pcount,
         job_prio=job_prio, job_avail=job_avail0, pipe=pipe0.clone(),
         cursor=torch.zeros(J, **i32), dropped=torch.zeros(J, dtype=torch.bool, device=dev),
-        job_off=torch.empty(J + 1, **i32), job_fill=torch.zeros(J, **i32),
-        job_bucket=torch.empty(V, **i32), cnt_in_job=torch.zeros(V, **i32),
+        job_off=torch.empty(J + 1, **i32), job_fill=torch.zeros(3 * J, **i32),
+        job_bucket=torch.empty(V, **i32), job_key=torch.empty(2 * V, dtype=torch.int64,
+                                                              device=dev),
+        item_off=torch.empty(J + 1, **i32), cnt_in_job=torch.zeros(V, **i32),
         act_q=torch.empty(Q, **i32), ls_q=torch.empty(Q, **i32),
         job_active=torch.empty(J, **u8), job_keys=torch.zeros(J * 4, **f32),
-        job_rank=torch.empty(J, **i32), sel=torch.empty(M, **i32),
+        sel=torch.empty(M, **i32), c_key=torch.empty(nC * M * 4, **f32),
+        c_job=torch.empty(nC * M, **i32), c_rank=torch.empty(nC * M, **i32),
+        c_cnt=torch.empty(nC, **i32),
         p_node=torch.empty(F, **i32), p_t=torch.empty(F, **i32), p_job=torch.empty(F, **i32),
         p_flags=torch.empty(F, **u8), p_rec=torch.empty(F * W, **i32),
         p_key=torch.empty(F, dtype=torch.int64, device=dev), recv=send, part=part,
@@ -1948,7 +1961,8 @@ def rounds_blocks_launch(lib, stream, c, s0, task_req, task_class, rows_packed, 
                  gang_pipelined=gang_pipelined, job_key_order=job_key_order)
     base, blocks, st, bufs, keep = _blocks_args(
         c, s0, task_req, task_class, mesh, nb, extra,
-        dict(M=M, P=P, K=K, F=F, TB=TB, TILE=ROUNDS_TILE, W=W, W2=W2), flags, block_extra)
+        dict(M=M, P=P, K=K, F=F, TB=TB, TILE=ROUNDS_TILE, W=W, W2=W2, nC=nC), flags,
+        block_extra)
     ctl = (ctypes.c_int32 * 12)()
     _raise_on(lib.vtt_rounds_begin(ctypes.byref(base), blocks, L, ctl, stream),
               "vtt_rounds_begin")
