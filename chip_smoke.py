@@ -1083,14 +1083,14 @@ ROUND_ROW_OPS = 18
 PLAIN_STORM_LIMIT_S = 60.0
 
 
-def build_contended_store(cell):
+def build_contended_store(cell, reclaim_gangs=CFG6["reclaim_gangs"]):
     """bench.py _build_contended_store with the port's objects: 10,000 nodes
     of 8 cpu / 16Gi / 110 pods, each exactly full on cpu with ten 800m /
-    1.2Gi residents of queue q0 (5,000 running jobs x 20).  cfg6: 100 urgent
-    gangs (priority 100) x 20 tasks of 1500m / 2Gi in q0; cfg6b: the same
-    plus one empty-request pod no node admits on the first gang; cfg6r: no
-    storm, but 10 gangs x 20 tasks of 1500m / 2Gi in a second queue q1 (both
-    weight 1) reclaiming."""
+    1.2Gi residents of queue q0 (5,000 running jobs x 20).  cfg6 (and
+    cfg6-exact): 100 urgent gangs (priority 100) x 20 tasks of 1500m / 2Gi in
+    q0; cfg6b: the same plus one empty-request pod no node admits on the
+    first gang; cfg6r: no storm, but ``reclaim_gangs`` gangs x 20 tasks of
+    1500m / 2Gi in a second queue q1 (both weight 1) reclaiming."""
     from volcano_tpu_torch.api import (
         POD_GROUP_KEY, Metadata, Node, Pod, PodGroup, PodGroupPhase, PodPhase, PodSpec,
         PriorityClass, Queue, Resource,
@@ -1121,7 +1121,7 @@ def build_contended_store(cell):
                 spec=PodSpec(resources=Resource(800.0, 1.2 * (1 << 30))),
                 phase=PodPhase.RUNNING, node_name=f"n{k % n_nodes:05d}"))
             k += 1
-    gangs = CFG6["reclaim_gangs"] if cell == "cfg6r" else CFG6["storm_gangs"]
+    gangs = reclaim_gangs if cell == "cfg6r" else CFG6["storm_gangs"]
     for j in range(gangs):
         name = f"rec{j:03d}" if cell == "cfg6r" else f"hot{j:03d}"
         pg = PodGroup(meta=Metadata(name=name, namespace="default"), min_member=tpj,
@@ -3013,16 +3013,28 @@ def phase_victim_split():
 STORM_SPLIT_REPS = 10
 
 
+#: the wide-reclaim input of the storm split: cfg6r's store with this many
+#: reclaiming gangs, so K8's rate an attempt shows past its setup
+WIDE_RECLAIM_GANGS = 100
+#: CUDA-event calls timed on the whole cfg6 storm (2,000 attempts)
+STORM_EXACT_REPS = 3
+
+
 def _capture_storms():
-    """The first inputs of K8 (cfg6r), K9 (cfg6b) and K10 (cfg6): one
-    cycle of each config-6 cell on the card, as phase 8 drives it."""
+    """The first inputs of K8 (cfg6r, and cfg6r-wide: WIDE_RECLAIM_GANGS
+    reclaiming gangs), K9 (cfg6b) and K10 (cfg6): one cycle of each
+    config-6 cell on the card, as phase 8 drives it."""
     from volcano_tpu_torch.scheduler.conf import full_conf
     from volcano_tpu_torch.scheduler.scheduler import Scheduler
 
     out = {}
-    for name, cell in (("reclaim_solve", "cfg6r"), ("preempt_solve", "cfg6b"),
-                       ("preempt_rounds", "cfg6")):
-        sched = Scheduler(build_contended_store(cell), conf=full_conf("cuda"))
+    for key, name, cell, gangs in (
+            ("reclaim_solve", "reclaim_solve", "cfg6r", CFG6["reclaim_gangs"]),
+            ("reclaim_solve wide", "reclaim_solve", "cfg6r", WIDE_RECLAIM_GANGS),
+            ("preempt_solve", "preempt_solve", "cfg6b", None),
+            ("preempt_rounds", "preempt_rounds", "cfg6", None)):
+        store = build_contended_store(cell, **({"reclaim_gangs": gangs} if gangs else {}))
+        sched = Scheduler(store, conf=full_conf("cuda"))
         sched.prewarm()
         cap = ContentionCapture((name,))
         try:
@@ -3031,8 +3043,97 @@ def _capture_storms():
             cap.close()
         if name not in cap.inputs:
             raise AssertionError(f"storm split: the {cell} cycle launched no {name}")
-        out[name] = (cell, cap.inputs[name])
+        label = f"cfg6r-wide ({gangs} gangs)" if key.endswith("wide") else cell
+        out[key] = (name, label, cap.inputs[name])
     return out
+
+
+#: the walk's setup kernels (the pool grouped by node, once a solve)
+WALK_SETUP_KERNELS = ("vtt_v_count", "vtt_v_scan", "vtt_v_bucket", "vtt_v_order")
+
+
+def _walk_launcher(name, args, kw):
+    """launch(cluster=None, split=None): K8 or K9 through its launch wrapper
+    (``reclaim_launch`` / ``preempt_launch``) on ``args`` / ``kw``;
+    ``launch.timed`` / ``launch.clusters`` say whether the tree's wrapper
+    takes ``split`` / ``cluster`` (a parent tree may take neither)."""
+    import inspect
+
+    from volcano_tpu_torch import _build
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    entry = VK.reclaim_launch if name == "reclaim_solve" else VK.preempt_launch
+    lib, dev = _build.load(), args[0].run_req.device
+    params = inspect.signature(entry).parameters
+
+    def launch(cluster=None, split=None):
+        extra = {k: v for k, v in (("cluster", cluster), ("split", split)) if v is not None}
+        return entry(lib, VK._stream(dev), *args, **kw, **extra)
+
+    launch.device = dev
+    launch.timed, launch.clusters = "split" in params, "cluster" in params
+    return launch
+
+
+def _walk_timed(launch, ms, digest, label):
+    """The timed instantiation's split of one K8 / K9 solve at the default
+    cluster size (``launch`` from _walk_launcher; ``ms`` the untimed solve's
+    CUDA-event time, ``digest`` its outputs'): the cluster size, attempts,
+    job selects, the kernel's wall (%globaltimer, the setup launches
+    excluded) and each stage's time (its share of the clock64 cycles of the
+    timing thread, scaled by that wall), and us an attempt of the untimed
+    solve (setup included)."""
+    import torch
+
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    buf = torch.zeros(32, dtype=torch.int64, device=launch.device)
+    o = launch(split=buf)
+    torch.cuda.synchronize()
+    if _solve_digest_named(o) != digest:
+        raise AssertionError(f"{label}: the timed walk differs from the untimed one")
+    s = buf.cpu().tolist()
+    ns, cyc = s[0], max(s[1], 1)
+    stages = {st: s[2 + i] * ns / cyc / 1e6 for i, st in enumerate(VK.WALK_STAGES)}
+    # the advance's cycles include its selects': report them apart
+    stages["advance"] -= stages["select"]
+    return dict(cluster=s[12], threads=s[13], attempts=s[8], selects=s[9], kernel_ms=ns / 1e6,
+                stages_ms=stages, us_per_attempt=ms * 1e3 / max(s[8], 1),
+                kernel_us_per_attempt=ns / 1e3 / max(s[8], 1))
+
+
+def walk_split(label, name, args, kw, ms, digest, reps):
+    """K8 / K9 on one input, beyond its CUDA-event time ``ms`` and output
+    ``digest``: on a tree whose wrapper takes them, the timed split
+    (_walk_timed) and each cluster size of VK.WALK_CLUSTERS timed (or the
+    error the card refused it with), each equal to the default's outputs."""
+    import torch
+
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+
+    launch = _walk_launcher(name, args, kw)
+    row = {}
+    if launch.clusters:
+        row["clusters"] = {}
+        for c in VK.WALK_CLUSTERS:
+            try:
+                o = launch(cluster=c)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                row["clusters"][c] = f"refused: {e}"
+                continue
+            if _solve_digest_named(o) != digest:
+                raise AssertionError(f"walk split {label}: cluster {c} differs from the default")
+            row["clusters"][c] = cuda_ms(lambda: launch(cluster=c), reps)
+    if launch.timed:
+        row.update(_walk_timed(launch, ms, digest, label))
+        log(f"[walk split] {label}: cluster {row['cluster']} x {row['threads']} threads, "
+            f"{row['attempts']} attempts, {row['selects']} job selects, kernel "
+            f"{row['kernel_ms']:.4f} ms ({row['kernel_us_per_attempt']:.2f} us an attempt), "
+            f"{row['us_per_attempt']:.2f} us an attempt with the setup; " + ", ".join(
+                f"{st} {v:.4f} ms" for st, v in row["stages_ms"].items())
+            + (f"; by cluster size {row['clusters']}" if launch.clusters else ""))
+    return row
 
 
 #: the rounds solve's kernels of the within-job count and of the job
@@ -3126,8 +3227,10 @@ def _rounds_stages(split, rounds):
 
 def phase_storm_split(reps=STORM_SPLIT_REPS):
     """The storm solves (``--storm-split``), which share
-    csrc/victim_common.cuh with K7: CUDA-event ms of K8 (cfg6r), K9 (cfg6b)
-    and K10 (cfg6) on the first inputs their cells give them, and of K10 on
+    csrc/victim_common.cuh with K7: CUDA-event ms of K8 (cfg6r, and
+    cfg6r-wide with WIDE_RECLAIM_GANGS reclaiming gangs), K9 (cfg6b, and the
+    whole cfg6 storm as solveMode: exact hands it over) and K10 (cfg6) on
+    the first inputs their cells give them, and of K10 on
     three synthetic shapes (big-job: cfg6's input with one running job of
     BIG_JOB_ROWS rows; pool-job: with all its live rows in one job;
     many-jobs: MANY_JOBS from build_storm_sim), on one
@@ -3137,7 +3240,10 @@ def phase_storm_split(reps=STORM_SPLIT_REPS):
     on the synthetic shapes), then each split by victim_split (device ms by
     kernel, host gap; for K10 the count's and the select's ms), with the
     rounds and an output digest of K10, so a parent and a change compare in
-    one chip call."""
+    one chip call; K8 and K9 also against their plain versions (the whole
+    storm's is phase 9's, on its first 10 gangs), with an output digest,
+    their ok attempts, the setup kernels' device ms and walk_split (the
+    timed walk's stages, each cluster size) where the tree has them."""
     import torch
     import torch.distributed as dist
 
@@ -3147,9 +3253,12 @@ def phase_storm_split(reps=STORM_SPLIT_REPS):
 
     dev = torch.device("cuda")
     captured = _capture_storms()
-    cfg6_in = captured["preempt_rounds"][1]
-    cases = [(name, name, cell, args, kw, reps)
-             for name, (cell, (args, kw)) in captured.items()]
+    cfg6_in = captured["preempt_rounds"][2]
+    cases = [(key, name, cell, args, kw, reps)
+             for key, (name, cell, (args, kw)) in captured.items()]
+    ex, ekw = _storm_exact_args(cfg6_in)
+    cases.append(("preempt_solve cfg6 storm", "preempt_solve", "cfg6 storm (exact)", ex, ekw,
+                  STORM_EXACT_REPS))
     for shape, (args, kw) in (("big-job", _big_job_args(cfg6_in)),
                               ("pool-job", _big_job_args(cfg6_in, None)),
                               ("many-jobs", _many_jobs_args(cfg6_in[1]))):
@@ -3169,6 +3278,17 @@ def phase_storm_split(reps=STORM_SPLIT_REPS):
                         blocks4_ms=cuda_ms(runs[f"{mesh.size} blocks"], n))
         res[key]["split"] = {label: victim_split(f"{cell} {name}, {label}", run, n)
                              for label, run in runs.items()}
+        if name != "preempt_rounds":
+            res[key].update(digest=_solve_digest_named(ref), ok_attempts=int(ref.rec.att),
+                            evictions=int((ref.rec.evict_att >= 0).sum()),
+                            setup_ms=sum(v["ms"] for k, v in
+                                         res[key]["split"]["one block"]["stages"].items()
+                                         if k in WALK_SETUP_KERNELS))
+            if "storm" not in cell:  # the whole storm's plain version: phase 9, on 10 gangs
+                _solve_compare(f"storm split {cell} {name}, plain", ref,
+                               getattr(VK, name + "_plain")(*args, **kw))
+            res[key]["walk"] = walk_split(f"{cell} {name}", name, args, kw,
+                                          res[key]["one_block_ms"], res[key]["digest"], n)
         if name == "preempt_rounds":
             _solve_compare(f"storm split {cell} {name}, plain", ref,
                            VK.preempt_rounds_plain(*args, **kw))
@@ -3204,6 +3324,9 @@ def phase_storm_split(reps=STORM_SPLIT_REPS):
         log(f"[storm split] {r['cell']} {key}: one block {r['one_block_ms']:.4f} ms, "
             f"{CFG6_MESH} blocks {r['blocks4_ms']:.4f} ms, NCCL group {r['nccl_group_ms']:.4f} "
             f"ms")
+        if "setup_ms" in r:
+            log(f"[storm split]   {r['ok_attempts']} ok attempts, {r['evictions']} evictions, "
+                f"digest {r['digest']}; one block: setup {r['setup_ms']:.4f} ms of device time")
         if "rounds" in r:
             log(f"[storm split]   {r['rounds']} rounds, {r['tasks_committed']} tasks "
                 f"committed, {r['evictions']} evictions, digest {r['digest']}; one block: "

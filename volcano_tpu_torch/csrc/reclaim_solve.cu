@@ -36,7 +36,8 @@
 // Advance the walk to its next attempt (all threads): true with w.at set,
 // false when the walk ended.
 static __device__ __forceinline__ bool vtt_rw_advance(const VttVictimArgs& a, VttWalk& w,
-                                                      VttVJobKey* s_key) {
+                                                      VttVJobKey* s_key,
+                                                      VttWalkTm* tm = nullptr) {
   const int tid = threadIdx.x;
   const int J = (int)a.J, Q = (int)a.Q, T = (int)a.T, R = (int)a.R;
   const int cap = 2 * (J + Q) + 64;
@@ -69,7 +70,7 @@ static __device__ __forceinline__ bool vtt_rw_advance(const VttVictimArgs& a, Vt
     __syncthreads();
     if (!w.go) return false;
     const int qstar = w.qstar;
-    const int j = w.over ? -1 : vtt_select_job(a, qstar, s_key);
+    const int j = w.over ? -1 : vtt_select_job(a, qstar, s_key, tm);
     if (j < 0) {
       // nothing to take from this queue: it leaves the priority queue
       if (tid == 0) {
@@ -104,28 +105,47 @@ static __device__ __forceinline__ void vtt_rw_final(const VttVictimArgs& a, cons
 }
 
 // one CTA a launch (minBlocks 1): without it ptxas caps the kernel at 32
-// registers and spills in the node walk
+// registers and spills in the node walk.  TM: the timed instantiation,
+// thread 0's stage sums into a.x_split
+template <bool TM>
 __global__ void __launch_bounds__(VTT_VICTIM_THREADS, 1)
     vtt_reclaim_kernel(VttVictimArgs a) {
   __shared__ VttCoreShared sh;
   __shared__ VttVJobKey s_key[VTT_VICTIM_THREADS];
   __shared__ VttWalk w;
+  __shared__ VttWalkTm tm;
+  const bool tm0 = TM && threadIdx.x == 0;
   if (threadIdx.x == 0) {
     w.iters = 0;
     w.jr = VttJournal{false, 0};
   }
+  if (tm0) vtt_tm_start(tm);
   __syncthreads();
-  while (vtt_rw_advance(a, w, s_key)) {
+  for (;;) {
+    const long long c0 = TM ? clock64() : 0;
+    const bool more = vtt_rw_advance(a, w, s_key, TM ? &tm : nullptr);
+    const long long c1 = TM ? clock64() : 0;
+    if (tm0) tm.st[VTT_TM_ADVANCE] += c1 - c0;
+    if (!more) break;
     int nstar;
     bool clean;
-    vtt_core(a, w.at, sh, nstar, clean);
+    long long c2 = 0;
+    vtt_core(a, w.at, sh, nstar, clean, TM ? &c2 : nullptr);
+    const long long c3 = TM ? clock64() : 0;
     if (threadIdx.x == 0) {
       if (nstar >= 0 && clean) vtt_apply(a, w.at, nstar, w.jr);
       vtt_rw_after(a, w, nstar, clean);
     }
     __syncthreads();
+    if (tm0) {
+      tm.st[VTT_TM_SCAN] += c2 - c1;
+      tm.st[VTT_TM_REDUCE] += c3 - c2;
+      tm.st[VTT_TM_APPLY] += clock64() - c3;
+      tm.attempts += 1;
+    }
   }
   if (threadIdx.x == 0) vtt_rw_final(a, w);
+  if (tm0) vtt_tm_write(tm, a.x_split, 1);
 }
 
 extern "C" int vtt_reclaim_solve(const VttVictimArgs* args, void* stream) {
@@ -134,7 +154,10 @@ extern "C" int vtt_reclaim_solve(const VttVictimArgs* args, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   int err = vtt_victim_setup(a, VTT_EV_RECLAIM, s);
   if (err) return err;
-  VTT_LAUNCH(vtt_reclaim_kernel, 1, VTT_VICTIM_THREADS, 0, s)(a);
+  if (a.x_split)
+    VTT_LAUNCH(vtt_reclaim_kernel<true>, 1, VTT_VICTIM_THREADS, 0, s)(a);
+  else
+    VTT_LAUNCH(vtt_reclaim_kernel<false>, 1, VTT_VICTIM_THREADS, 0, s)(a);
   return (int)cudaGetLastError();
 }
 

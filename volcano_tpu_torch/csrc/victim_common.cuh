@@ -152,6 +152,7 @@ struct VttVictimArgs {
   unsigned long long* p_key;  // K15c: [F] the accept's (cell, rank) order
   double* part;         // K15c: a block's partial sums and victim mask [W2]; the
                         // base's: the S blocks' exchanged [S, W2]
+  int64_t* x_split;     // K8 / K9: the timed walk's split [32] (null: the untimed kernel)
   int64_t V, N, R, T, J, Q, C, nu, nq, M, P, K, F, jr_cap, TB, TILE;
   int64_t use_gang, use_drf, use_prop, use_conformance, order_by_priority;
   int64_t has_proportion, gang_pipelined, n_keys, key0, key1, key2;
@@ -160,6 +161,8 @@ struct VttVictimArgs {
   // K15a-c: blocks over the mesh, K15c's record words and partial words;
   // K10 / K15c: the select's chunks
   int64_t S, W, W2, nC;
+  // K8 / K9: the cluster size asked for (0: the largest the card admits)
+  int64_t cluster;
   float w_least, w_balanced;
 };
 
@@ -446,9 +449,11 @@ struct VttCoreShared {
 
 // The whole CTA scans its nodes; sh.kc[0] / sh.ic[0] and sh.kv[0] /
 // sh.iv[0] end as the (key, node) lexicographic minimum over the covered
-// and the valid nodes (ic / iv -1 when there is none).
+// and the valid nodes (ic / iv -1 when there is none).  Thread 0 writes
+// clock64 into *ts (when given) once every thread's scan is done.
 static __device__ __forceinline__ void vtt_core_scan(const VttVictimArgs& a,
-                                                     const VttAttempt& at, VttCoreShared& sh) {
+                                                     const VttAttempt& at, VttCoreShared& sh,
+                                                     long long* ts = nullptr) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   float kc = 0.0f, kv = 0.0f;
   int ic = -1, iv = -1;
@@ -470,6 +475,7 @@ static __device__ __forceinline__ void vtt_core_scan(const VttVictimArgs& a,
   sh.kv[tid] = kv;
   sh.iv[tid] = iv;
   __syncthreads();
+  if (ts && tid == 0) *ts = clock64();
   for (int s = nthr / 2; s > 0; s >>= 1) {
     if (tid < s) {
       if (vtt_kmin_better(sh.kc[tid + s], sh.ic[tid + s], sh.kc[tid], sh.ic[tid])) {
@@ -488,8 +494,9 @@ static __device__ __forceinline__ void vtt_core_scan(const VttVictimArgs& a,
 // The whole CTA runs the attempt; every thread returns the decision:
 // nstar (-1 when no node is covered) and clean.
 static __device__ __forceinline__ void vtt_core(const VttVictimArgs& a, const VttAttempt& at,
-                                                VttCoreShared& sh, int& nstar, bool& clean) {
-  vtt_core_scan(a, at, sh);
+                                                VttCoreShared& sh, int& nstar, bool& clean,
+                                                long long* ts = nullptr) {
+  vtt_core_scan(a, at, sh, ts);
   nstar = sh.ic[0];
   if (nstar >= 0)
     clean = sh.kv[0] == sh.kc[0] && sh.iv[0] == nstar;
@@ -679,6 +686,39 @@ __device__ __forceinline__ void vtt_attempt_init(const VttVictimArgs& a, VttAtte
   }
 }
 
+// The timed walk's sums, kept by one thread: clock64 cycles by stage
+// (VTT_TM_*: the advance with its job selects, the selects alone, the node
+// scan, the reduce and record exchange, the cluster barriers, the apply
+// with the walk's bookkeeping), attempts and job selects.  The wall
+// (%globaltimer ns) and the total cycles scale the stages to time.
+enum { VTT_TM_ADVANCE = 0, VTT_TM_SELECT, VTT_TM_SCAN, VTT_TM_REDUCE, VTT_TM_BARRIER,
+       VTT_TM_APPLY, VTT_TM_STAGES };
+struct VttWalkTm {
+  long long st[VTT_TM_STAGES];
+  long long attempts, selects;
+  unsigned long long g0;
+  long long k0;
+};
+
+__device__ __forceinline__ void vtt_tm_start(VttWalkTm& tm) {
+  for (int i = 0; i < VTT_TM_STAGES; ++i) tm.st[i] = 0;
+  tm.attempts = tm.selects = 0;
+  tm.g0 = vtt_globaltimer();
+  tm.k0 = clock64();
+}
+
+// the split buffer [32]: wall ns, cycles, the stages' cycles at 2..7,
+// attempts, selects, and at 12 the cluster size, at 13 threads a CTA
+__device__ __forceinline__ void vtt_tm_write(const VttWalkTm& tm, int64_t* s, int C) {
+  s[0] = (int64_t)(vtt_globaltimer() - tm.g0);
+  s[1] = clock64() - tm.k0;
+  for (int i = 0; i < VTT_TM_STAGES; ++i) s[2 + i] = tm.st[i];
+  s[8] = tm.attempts;
+  s[9] = tm.selects;
+  s[12] = C;
+  s[13] = blockDim.x;
+}
+
 // ---- job selection: the session job order as a block-wide argmin -------
 
 struct VttVJobKey {
@@ -728,6 +768,19 @@ static __device__ __forceinline__ int vtt_select_job(const VttVictimArgs& a, int
   const int out = s_key[0].j;
   __syncthreads();
   return out;
+}
+
+// vtt_select_job, thread 0 adding its cycles and one select to *tm when
+// given (the timed walk)
+static __device__ __forceinline__ int vtt_select_job(const VttVictimArgs& a, int q,
+                                                    VttVJobKey* s_key, VttWalkTm* tm) {
+  const long long t0 = tm && threadIdx.x == 0 ? clock64() : 0;
+  const int j = vtt_select_job(a, q, s_key);
+  if (tm && threadIdx.x == 0) {
+    tm->st[VTT_TM_SELECT] += clock64() - t0;
+    tm->selects += 1;
+  }
+  return j;
 }
 
 // ---- K8 and K9 as walks, and their attempts on node blocks (K15a, K15b) --

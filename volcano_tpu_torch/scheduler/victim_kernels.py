@@ -886,13 +886,13 @@ _PTR_FIELDS = (
     "job_active", "job_keys", "sel", "c_key", "c_job", "c_rank", "c_cnt",
     "p_node", "p_t", "p_job", "p_flags",
     "t_val", "t_idx", "t_any",
-    "walk", "send", "recv", "p_rec", "p_key", "part",
+    "walk", "send", "recv", "p_rec", "p_key", "part", "x_split",
 )
 _INT_FIELDS = (
     "V", "N", "R", "T", "J", "Q", "C", "nu", "nq", "M", "P", "K", "F", "jr_cap", "TB", "TILE",
     "use_gang", "use_drf", "use_prop", "use_conformance", "order_by_priority",
     "has_proportion", "gang_pipelined", "n_keys", "key0", "key1", "key2",
-    "n0", "NT", "S", "W", "W2", "nC",
+    "n0", "NT", "S", "W", "W2", "nC", "cluster",
 )
 
 
@@ -1546,6 +1546,22 @@ def victim_sharded_launch(lib, stream, c, s, t_req, t_cls, jt, qt, mesh, nb, *, 
     return VictimStepOut(state, packed)
 
 
+#: the timed walk's stages, in the order of its split buffer (indices 2-7):
+#: the advance with its job selects, the selects alone, the node scan, the
+#: reduce and record exchange, the cluster barriers, the apply with the
+#: walk's bookkeeping; index 8 counts attempts, 9 job selects, 12 holds the
+#: cluster size the walk ran on
+WALK_STAGES = ("advance", "select", "scan", "reduce_exchange", "barrier", "apply")
+
+
+def _split_extra(split, dev) -> dict:
+    """The argument block's split buffer, validated, or nothing."""
+    if split is None:
+        return {}
+    _check("split", split, torch.int64, (32,), dev)
+    return dict(x_split=split)
+
+
 def reclaim_solve(c, s0, task_req, task_class, job_first, job_prio, job_cand0,
                   queue_live0, pipe0, *, use_gang, use_prop, use_conformance,
                   order_by_priority, has_proportion,
@@ -1572,8 +1588,10 @@ def reclaim_solve(c, s0, task_req, task_class, job_first, job_prio, job_cand0,
 def reclaim_launch(lib, stream, c, s0, task_req, task_class, job_first, job_prio,
                    job_cand0, queue_live0, pipe0, *, use_gang, use_prop, use_conformance,
                    order_by_priority, has_proportion,
-                   job_key_order=("priority", "gang", "drf")) -> ReclaimOut:
-    """Validate, launch csrc/reclaim_solve.cu and return its outputs."""
+                   job_key_order=("priority", "gang", "drf"), split=None) -> ReclaimOut:
+    """Validate, launch csrc/reclaim_solve.cu and return its outputs.
+    ``split``, an int64 [32] tensor, runs the timed instantiation, which
+    writes its stage split there (``WALK_STAGES``)."""
     dev = c.run_req.device
     J, Q = c.job_queue.shape[0], s0.queue_alloc.shape[0]
     for name, t, dt, shape in (
@@ -1583,7 +1601,7 @@ def reclaim_launch(lib, stream, c, s0, task_req, task_class, job_first, job_prio
     ):
         _check(name, t, dt, shape, dev)
     extra = dict(job_start=job_first, job_prio=job_prio, job_avail=job_cand0.clone(),
-                 queue_live=queue_live0.clone(), pipe=pipe0.clone())
+                 queue_live=queue_live0.clone(), pipe=pipe0.clone(), **_split_extra(split, dev))
     flags = dict(use_gang=use_gang, use_drf=False, use_prop=use_prop,
                  use_conformance=use_conformance, order_by_priority=order_by_priority,
                  has_proportion=has_proportion, job_key_order=job_key_order)
@@ -1621,8 +1639,9 @@ def preempt_launch(lib, stream, c, s0, task_req, task_class, task_attempt, job_s
                    job_ntasks, job_prio, job_avail0, under_request, nu, queues_order, nq,
                    pipe0, *, use_gang, use_drf, use_conformance, order_by_priority,
                    job_key_order=("priority", "gang", "drf"),
-                   gang_pipelined=True) -> PreemptOut:
-    """Validate, launch csrc/preempt_solve.cu and return its outputs."""
+                   gang_pipelined=True, split=None) -> PreemptOut:
+    """Validate, launch csrc/preempt_solve.cu and return its outputs;
+    ``split`` as ``reclaim_launch`` takes it."""
     dev = c.run_req.device
     T = task_req.shape[0]
     J, Q = c.job_queue.shape[0], queues_order.shape[0]
@@ -1644,7 +1663,7 @@ def preempt_launch(lib, stream, c, s0, task_req, task_class, task_attempt, job_s
         job_avail=job_avail0.clone(), pipe=pipe0.clone(),
         cursor=torch.zeros(J, dtype=torch.int32, device=dev),
         jr_addr=torch.empty(jr_cap, dtype=torch.int64, device=dev),
-        jr_old=torch.empty(jr_cap, dtype=torch.int32, device=dev),
+        jr_old=torch.empty(jr_cap, dtype=torch.int32, device=dev), **_split_extra(split, dev),
     )
     flags = dict(use_gang=use_gang, use_drf=use_drf, use_prop=False,
                  use_conformance=use_conformance, order_by_priority=order_by_priority,
