@@ -131,16 +131,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vtt_victim_blocks_core.restype = ci
     lib.vtt_victim_blocks_apply.argtypes = [vp, vp, vp, ci, cl, cl, ci, ci, ci, ci, vp]
     lib.vtt_victim_blocks_apply.restype = ci
-    # K15a / K15b walks: begin (base, blocks, device blocks, count, pending,
-    # stream), step (base, device blocks, count, pending, stream), and the
-    # blocks' cores (device blocks, count, stream)
-    for fn in (lib.vtt_reclaim_blocks_begin, lib.vtt_preempt_blocks_begin):
-        fn.argtypes = [vp, vp, vp, ci, vp, vp]
-        fn.restype = ci
-    for fn in (lib.vtt_reclaim_blocks_step, lib.vtt_preempt_blocks_step):
+    # K15a / K15b walks: begin and step (base, device blocks, count,
+    # pending, stream), and the blocks' cores (device blocks, count, rows a
+    # block, CTA records, tickets, stream)
+    for fn in (lib.vtt_reclaim_blocks_begin, lib.vtt_preempt_blocks_begin,
+               lib.vtt_reclaim_blocks_step, lib.vtt_preempt_blocks_step):
         fn.argtypes = [vp, vp, ci, vp, vp]
         fn.restype = ci
-    lib.vtt_walk_blocks_core.argtypes = [vp, ci, vp]
+    lib.vtt_walk_blocks_core.argtypes = [vp, ci, ci, vp, vp, vp]
     lib.vtt_walk_blocks_core.restype = ci
     # K10 / K15c rounds: begin (base, blocks, count, ctl out, stream), the
     # two halves of a round (base, blocks, count, stream), finish (base,

@@ -1,5 +1,5 @@
-// K9: the whole preempt action as ONE persistent CTA; K15b: the same walk
-// with the node planes in blocks.
+// K9: the whole preempt action as ONE launch of one thread-block cluster;
+// K15b: the same walk with the node planes in blocks.
 //
 // Replaces volcano_tpu/scheduler/victim_kernels.py:607 `preempt_solve`
 // (preempt.go:45-273): for each queue in discovery order, phase 1 pops the
@@ -9,26 +9,30 @@
 // over every under-request job.
 //
 // What bounds it on the H100: latency, as K8: a chain of dependent
-// attempts, each a few passes over the pool and one over the nodes.
-// Design: the setup kernels of victim_common.cuh, then one 1024-thread CTA
-// runs the state machine (select / drain / within-job) on thread 0 and
-// every attempt's node walk on all threads.  The JAX loop checkpoints its
-// immutable state at each job pop and selects it back on discard; here
-// thread 0 records the old value of every word an attempt writes inside a
-// phase-1 statement (an undo journal, a few dozen words an attempt) and
-// writes them back, newest first, on discard.  A journal that would
-// overflow sets an error word the wrapper raises on.
+// attempts (2,000 in cfg6's storm under solveMode: exact), each a few
+// passes over every node's pool rows, through dependent loads.  Design:
+// the setup kernels of victim_common.cuh group the pool by node once a
+// solve; then vtt_walk_cluster (victim_common.cuh) runs the walk on one
+// cluster of up to 16 CTAs x 1024 threads, one node a thread over row-
+// balanced node ranges, two cluster barriers an attempt; rank 0 runs the
+// state machine (select / drain / within-job) and applies.  The JAX loop
+// checkpoints its immutable state at each job pop and selects it back on
+// discard; here rank 0's thread 0 records the old value of every word an
+// attempt writes inside a phase-1 statement (an undo journal, a few dozen
+// words an attempt) and writes them back, newest first, on discard.  A
+// journal that would overflow sets an error word the wrapper raises on.
 //
 // K15b replaces the same function under a mesh with solveMode: batch
 // (volcano_tpu/scheduler/fast_victims.py:148-163, :191-198), as K15a does
 // for K8 (reclaim_solve.cu): the state machine (vtt_pw_advance /
 // vtt_pw_after) is the same device code with its state, the journal's
-// length included, in global memory; per attempt every block's core, the
-// exchange of the records, and one step launch that merges them, applies
-// and advances.  The journal lives with the walk on each process and
-// records the replicated words and the node rows of that process's own
-// blocks, so a discard restores every word the statement wrote, each on
-// the process that holds it.
+// length included, in global memory; the pool is grouped by node over the
+// whole mesh once a solve; per attempt every block's core over several
+// CTAs, the exchange of the records, and one step launch that merges them,
+// applies from nstar's lists and advances.  The journal lives with the walk
+// on each process and records the replicated words and the node rows of
+// that process's own blocks, so a discard restores every word the
+// statement wrote, each on the process that holds it.
 #include "victim_common.cuh"
 
 // the popped job's statement ends (thread 0): discard unless the gang
@@ -162,45 +166,26 @@ static __device__ __forceinline__ void vtt_pw_final(const VttVictimArgs& a,
   if (w.qpos < a.nq) a.ctl[VC_ABORT] = 1;
 }
 
-// one CTA a launch (minBlocks 1): without it ptxas caps the kernel at 32
-// registers and spills in the node walk.  TM: the timed instantiation,
-// thread 0's stage sums into a.x_split
+// the walk's state machine, as vtt_walk_cluster takes it
+struct VttPreemptWalk {
+  static __device__ void init(VttWalk& w) { vtt_pw_init(w); }
+  static __device__ bool advance(const VttVictimArgs& a, VttWalk& w, VttVJobKey* s_key,
+                                 VttWalkTm* tm) {
+    return vtt_pw_advance(a, w, s_key, tm);
+  }
+  static __device__ void after(const VttVictimArgs& a, VttWalk& w, int nstar, bool clean) {
+    const int nv = (nstar >= 0 && clean) ? vtt_apply(a, w.at, nstar, w.jr) : 0;
+    vtt_pw_after(a, w, nstar, clean, nv);
+  }
+  static __device__ void finish(const VttVictimArgs& a, const VttWalk& w) { vtt_pw_final(a, w); }
+};
+
+// one CTA an SM (minBlocks 1): without it ptxas caps the kernel at 32
+// registers and spills in the node walk.  TM: the timed instantiation.
 template <bool TM>
 __global__ void __launch_bounds__(VTT_VICTIM_THREADS, 1)
     vtt_preempt_kernel(VttVictimArgs a) {
-  __shared__ VttCoreShared sh;
-  __shared__ VttVJobKey s_key[VTT_VICTIM_THREADS];
-  __shared__ VttWalk w;
-  __shared__ VttWalkTm tm;
-  const bool tm0 = TM && threadIdx.x == 0;
-  if (threadIdx.x == 0) vtt_pw_init(w);
-  if (tm0) vtt_tm_start(tm);
-  __syncthreads();
-  for (;;) {
-    const long long c0 = TM ? clock64() : 0;
-    const bool more = vtt_pw_advance(a, w, s_key, TM ? &tm : nullptr);
-    const long long c1 = TM ? clock64() : 0;
-    if (tm0) tm.st[VTT_TM_ADVANCE] += c1 - c0;
-    if (!more) break;
-    int nstar;
-    bool clean;
-    long long c2 = 0;
-    vtt_core(a, w.at, sh, nstar, clean, TM ? &c2 : nullptr);
-    const long long c3 = TM ? clock64() : 0;
-    if (threadIdx.x == 0) {
-      const int nv = (nstar >= 0 && clean) ? vtt_apply(a, w.at, nstar, w.jr) : 0;
-      vtt_pw_after(a, w, nstar, clean, nv);
-    }
-    __syncthreads();
-    if (tm0) {
-      tm.st[VTT_TM_SCAN] += c2 - c1;
-      tm.st[VTT_TM_REDUCE] += c3 - c2;
-      tm.st[VTT_TM_APPLY] += clock64() - c3;
-      tm.attempts += 1;
-    }
-  }
-  if (threadIdx.x == 0) vtt_pw_final(a, w);
-  if (tm0) vtt_tm_write(tm, a.x_split, 1);
+  vtt_walk_cluster<VttPreemptWalk, TM>(a);
 }
 
 extern "C" int vtt_preempt_solve(const VttVictimArgs* args, void* stream) {
@@ -209,11 +194,7 @@ extern "C" int vtt_preempt_solve(const VttVictimArgs* args, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   int err = vtt_victim_setup(a, VTT_EV_PREEMPT, s);
   if (err) return err;
-  if (a.x_split)
-    VTT_LAUNCH(vtt_preempt_kernel<true>, 1, VTT_VICTIM_THREADS, 0, s)(a);
-  else
-    VTT_LAUNCH(vtt_preempt_kernel<false>, 1, VTT_VICTIM_THREADS, 0, s)(a);
-  return (int)cudaGetLastError();
+  return vtt_walk_launch(a.x_split ? vtt_preempt_kernel<true> : vtt_preempt_kernel<false>, a, s);
 }
 
 // ---- K15b: the walk on node blocks ---------------------------------------
@@ -224,15 +205,16 @@ extern "C" int vtt_preempt_solve(const VttVictimArgs* args, void* stream) {
 __global__ void __launch_bounds__(VTT_VICTIM_THREADS)
     vtt_preempt_blocks_kernel(VttVictimArgs a, const VttVictimArgs* blocks, int L, int step) {
   __shared__ VttVJobKey s_key[VTT_VICTIM_THREADS];
-  __shared__ int s_sh[3];
   VttWalk& w = *(VttWalk*)a.walk;
-  if (step) {
-    int nstar, nv;
-    bool clean;
-    vtt_wb_apply(a, blocks, L, w, VTT_EV_PREEMPT, s_sh, nstar, clean, nv);
-    if (threadIdx.x == 0) vtt_pw_after(a, w, nstar, clean, nv);
-  } else if (threadIdx.x == 0) {
-    vtt_pw_init(w);
+  if (threadIdx.x == 0) {
+    if (step) {
+      int nstar, nv;
+      bool clean;
+      vtt_wb_apply(a, blocks, L, w, nstar, clean, nv);
+      vtt_pw_after(a, w, nstar, clean, nv);
+    } else {
+      vtt_pw_init(w);
+    }
   }
   __syncthreads();
   const bool more = vtt_pw_advance(a, w, s_key);
@@ -243,13 +225,12 @@ __global__ void __launch_bounds__(VTT_VICTIM_THREADS)
 }
 
 // Begin a K15b solve, as vtt_reclaim_blocks_begin does for K15a.
-extern "C" int vtt_preempt_blocks_begin(const VttVictimArgs* base, const VttVictimArgs* blocks,
-                                        const VttVictimArgs* dblk, int n_blocks, int* pending,
-                                        void* stream) {
+extern "C" int vtt_preempt_blocks_begin(const VttVictimArgs* base, const VttVictimArgs* dblk,
+                                        int n_blocks, int* pending, void* stream) {
   const VttVictimArgs& a = *base;
   if (!vtt_walk_ok(a) || n_blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int err = vtt_blocks_setup(blocks, n_blocks, VTT_EV_PREEMPT, s);
+  int err = vtt_victim_setup(a, VTT_EV_PREEMPT, s);
   if (err) return err;
   VTT_LAUNCH(vtt_preempt_blocks_kernel, 1, VTT_VICTIM_THREADS, 0, s)(a, dblk, n_blocks, 0);
   return vtt_walk_pending(a, pending, s);

@@ -1,5 +1,5 @@
-// K8: the whole reclaim action as ONE persistent CTA; K15a: the same walk
-// with the node planes in blocks.
+// K8: the whole reclaim action as ONE launch of one thread-block cluster;
+// K15a: the same walk with the node planes in blocks.
 //
 // Replaces volcano_tpu/scheduler/victim_kernels.py:457 `reclaim_solve`
 // (reclaim.go:42-201): pop the queue with the lowest proportion share, pop
@@ -8,28 +8,30 @@
 //
 // What bounds it on the H100: latency.  Every attempt depends on the state
 // the one before it left, so the action is a chain of at most 2 (J + Q) + 64
-// steps; a step walks the pool once per pass (about 3 passes of V rows,
-// 20-30 bytes a row, from L2) and scores the valid nodes.  Design: the
-// setup kernels group the pool by node once per launch (victim_common.cuh);
-// then one 1024-thread CTA runs the loop, threads owning strided nodes, with
-// the queue and job choice and the state update on thread 0.  An attempt
-// that is not clean (the reference's walk would strand evictions) stops the
-// loop with the abort flag set, as the JAX loop does.
+// steps; a step walks every node's pool rows three times through dependent
+// loads and scores the valid nodes.  Design: the setup kernels group the
+// pool by node once a solve (victim_common.cuh); then vtt_walk_cluster runs
+// the loop on one cluster of up to 16 CTAs x 1024 threads, one node a
+// thread over row-balanced node ranges, with the queue and job choice and
+// the state update on rank 0.  An attempt that is not clean (the
+// reference's walk would strand evictions) stops the loop with the abort
+// flag set, as the JAX loop does.
 //
 // K15a replaces the same function under a mesh with solveMode: batch
 // (volcano_tpu/scheduler/fast_victims.py:148-163: the node planes of the
 // constants and state split into S blocks of rows, the [V] pool, job and
 // queue state replicated).  The walk is the same device code
 // (vtt_rw_advance / vtt_rw_after) with its state in global memory, and
-// every attempt leaves the CTA: vtt_reclaim_blocks_begin groups each local
-// block's pool rows by node and advances the walk to its first attempt;
-// per attempt the host launches every block's core (vtt_walk_blocks_core,
-// victim_step.cu), exchanges the S records (K12b's: the lexicographic
-// minima of the block's covered and valid nodes) and launches
-// vtt_reclaim_blocks_step, which merges them, ranks the chosen node's rows
-// from the replicated pool, applies (node rows on the owner block only)
-// and advances to the next attempt.  One host read of a 4-byte flag per
-// attempt; an abort stops every process at the same attempt, since the
+// every attempt leaves the CTA: vtt_reclaim_blocks_begin groups the
+// replicated pool by node over the whole mesh once a solve and advances the
+// walk to its first attempt; per attempt the host launches the blocks'
+// cores (vtt_walk_blocks_core, victim_step.cu: several CTAs a block, one
+// node a thread), exchanges the S records (K12b's: the lexicographic minima
+// of the block's covered and valid nodes) and launches
+// vtt_reclaim_blocks_step, which merges them, reruns the flag pass of the
+// chosen node's rows from its lists, applies (node rows on the owner block
+// only) and advances to the next attempt.  One host read of a 4-byte flag
+// per attempt; an abort stops every process at the same attempt, since the
 // walk and the records are replicated.
 #include "victim_common.cuh"
 
@@ -104,48 +106,29 @@ static __device__ __forceinline__ void vtt_rw_final(const VttVictimArgs& a, cons
   if (w.iters >= 2 * (a.J + a.Q) + 64) a.ctl[VC_ABORT] = 1;
 }
 
-// one CTA a launch (minBlocks 1): without it ptxas caps the kernel at 32
-// registers and spills in the node walk.  TM: the timed instantiation,
-// thread 0's stage sums into a.x_split
-template <bool TM>
-__global__ void __launch_bounds__(VTT_VICTIM_THREADS, 1)
-    vtt_reclaim_kernel(VttVictimArgs a) {
-  __shared__ VttCoreShared sh;
-  __shared__ VttVJobKey s_key[VTT_VICTIM_THREADS];
-  __shared__ VttWalk w;
-  __shared__ VttWalkTm tm;
-  const bool tm0 = TM && threadIdx.x == 0;
-  if (threadIdx.x == 0) {
+// the walk's state machine, as vtt_walk_cluster takes it
+struct VttReclaimWalk {
+  static __device__ void init(VttWalk& w) {
     w.iters = 0;
     w.jr = VttJournal{false, 0};
   }
-  if (tm0) vtt_tm_start(tm);
-  __syncthreads();
-  for (;;) {
-    const long long c0 = TM ? clock64() : 0;
-    const bool more = vtt_rw_advance(a, w, s_key, TM ? &tm : nullptr);
-    const long long c1 = TM ? clock64() : 0;
-    if (tm0) tm.st[VTT_TM_ADVANCE] += c1 - c0;
-    if (!more) break;
-    int nstar;
-    bool clean;
-    long long c2 = 0;
-    vtt_core(a, w.at, sh, nstar, clean, TM ? &c2 : nullptr);
-    const long long c3 = TM ? clock64() : 0;
-    if (threadIdx.x == 0) {
-      if (nstar >= 0 && clean) vtt_apply(a, w.at, nstar, w.jr);
-      vtt_rw_after(a, w, nstar, clean);
-    }
-    __syncthreads();
-    if (tm0) {
-      tm.st[VTT_TM_SCAN] += c2 - c1;
-      tm.st[VTT_TM_REDUCE] += c3 - c2;
-      tm.st[VTT_TM_APPLY] += clock64() - c3;
-      tm.attempts += 1;
-    }
+  static __device__ bool advance(const VttVictimArgs& a, VttWalk& w, VttVJobKey* s_key,
+                                 VttWalkTm* tm) {
+    return vtt_rw_advance(a, w, s_key, tm);
   }
-  if (threadIdx.x == 0) vtt_rw_final(a, w);
-  if (tm0) vtt_tm_write(tm, a.x_split, 1);
+  static __device__ void after(const VttVictimArgs& a, VttWalk& w, int nstar, bool clean) {
+    if (nstar >= 0 && clean) vtt_apply(a, w.at, nstar, w.jr);
+    vtt_rw_after(a, w, nstar, clean);
+  }
+  static __device__ void finish(const VttVictimArgs& a, const VttWalk& w) { vtt_rw_final(a, w); }
+};
+
+// one CTA an SM (minBlocks 1): without it ptxas caps the kernel at 32
+// registers and spills in the node walk.  TM: the timed instantiation.
+template <bool TM>
+__global__ void __launch_bounds__(VTT_VICTIM_THREADS, 1)
+    vtt_reclaim_kernel(VttVictimArgs a) {
+  vtt_walk_cluster<VttReclaimWalk, TM>(a);
 }
 
 extern "C" int vtt_reclaim_solve(const VttVictimArgs* args, void* stream) {
@@ -154,11 +137,7 @@ extern "C" int vtt_reclaim_solve(const VttVictimArgs* args, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   int err = vtt_victim_setup(a, VTT_EV_RECLAIM, s);
   if (err) return err;
-  if (a.x_split)
-    VTT_LAUNCH(vtt_reclaim_kernel<true>, 1, VTT_VICTIM_THREADS, 0, s)(a);
-  else
-    VTT_LAUNCH(vtt_reclaim_kernel<false>, 1, VTT_VICTIM_THREADS, 0, s)(a);
-  return (int)cudaGetLastError();
+  return vtt_walk_launch(a.x_split ? vtt_reclaim_kernel<true> : vtt_reclaim_kernel<false>, a, s);
 }
 
 // ---- K15a: the walk on node blocks ---------------------------------------
@@ -169,16 +148,16 @@ extern "C" int vtt_reclaim_solve(const VttVictimArgs* args, void* stream) {
 __global__ void __launch_bounds__(VTT_VICTIM_THREADS)
     vtt_reclaim_blocks_kernel(VttVictimArgs a, const VttVictimArgs* blocks, int L, int step) {
   __shared__ VttVJobKey s_key[VTT_VICTIM_THREADS];
-  __shared__ int s_sh[3];
   VttWalk& w = *(VttWalk*)a.walk;
-  if (step) {
-    int nstar, nv;
-    bool clean;
-    vtt_wb_apply(a, blocks, L, w, VTT_EV_RECLAIM, s_sh, nstar, clean, nv);
-    if (threadIdx.x == 0) vtt_rw_after(a, w, nstar, clean);
-  } else if (threadIdx.x == 0) {
-    w.iters = 0;
-    w.jr = VttJournal{false, 0};
+  if (threadIdx.x == 0) {
+    if (step) {
+      int nstar, nv;
+      bool clean;
+      vtt_wb_apply(a, blocks, L, w, nstar, clean, nv);
+      vtt_rw_after(a, w, nstar, clean);
+    } else {
+      VttReclaimWalk::init(w);
+    }
   }
   __syncthreads();
   const bool more = vtt_rw_advance(a, w, s_key);
@@ -188,18 +167,17 @@ __global__ void __launch_bounds__(VTT_VICTIM_THREADS)
   }
 }
 
-// Begin a K15a solve: each local block's pool grouped by node (`blocks`
-// on the host), the walk to its first attempt; *pending says whether one
-// waits (the host then runs vtt_walk_blocks_core, the exchange and
-// vtt_reclaim_blocks_step until it is 0).  `dblk`: the blocks in device
-// memory.
-extern "C" int vtt_reclaim_blocks_begin(const VttVictimArgs* base, const VttVictimArgs* blocks,
-                                        const VttVictimArgs* dblk, int n_blocks, int* pending,
-                                        void* stream) {
+// Begin a K15a solve: the replicated pool grouped by node over the mesh's
+// N rows (the base's node_off and lists, which every block's core slices),
+// the walk to its first attempt; *pending says whether one waits (the host
+// then runs vtt_walk_blocks_core, the exchange and vtt_reclaim_blocks_step
+// until it is 0).  `dblk`: the local blocks in device memory.
+extern "C" int vtt_reclaim_blocks_begin(const VttVictimArgs* base, const VttVictimArgs* dblk,
+                                        int n_blocks, int* pending, void* stream) {
   const VttVictimArgs& a = *base;
   if (!vtt_walk_ok(a) || n_blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int err = vtt_blocks_setup(blocks, n_blocks, VTT_EV_RECLAIM, s);
+  int err = vtt_victim_setup(a, VTT_EV_RECLAIM, s);
   if (err) return err;
   VTT_LAUNCH(vtt_reclaim_blocks_kernel, 1, VTT_VICTIM_THREADS, 0, s)(a, dblk, n_blocks, 0);
   return vtt_walk_pending(a, pending, s);

@@ -14,15 +14,15 @@
 // numbers, so the float64 sums are exact and the result does not depend on
 // the order of terms (see scheduler/victim_kernels.py).
 //
-// In the storm solves (K8-K10, K15a-c) the setup runs once per launch and
-// the attempt core in one persistent CTA: each thread owns a strided set of
-// nodes and walks their lists (base and veto flags, the DRF and proportion
-// admission passes, the eviction-order prefix with its do-while first
-// victim, the node total), then two block-wide lexicographic argmins give
-// the first covered and the first valid node of the walk.  Thread 0
-// applies an attempt that is assigned and clean.  K7 and K12b
-// (victim_step.cu) take the same lists built once per constants and run
-// the same node walk a thread a node over the whole card.
+// In the storm solves (K8-K10, K15a-c) the setup runs once per solve.  K8
+// and K9 run the attempts on one thread-block cluster (vtt_walk_cluster,
+// below): a thread a node walks its lists (base and veto flags, the DRF
+// and proportion admission passes, the eviction-order prefix with its
+// do-while first victim, the node total), then lexicographic minima over
+// the cluster give the first covered and the first valid node of the walk,
+// and rank 0's thread 0 applies an attempt that is assigned and clean.  K7,
+// K12b and K15a / K15b's block cores (victim_step.cu) run the same node walk
+// a thread a node over the whole card.
 #pragma once
 
 #include "common.cuh"
@@ -442,67 +442,47 @@ __device__ __forceinline__ bool vtt_kmin_better(float ka, int ia, float kb, int 
   return ka < kb || (ka == kb && ia < ib);
 }
 
-struct VttCoreShared {
-  float kc[VTT_VICTIM_THREADS], kv[VTT_VICTIM_THREADS];
-  int ic[VTT_VICTIM_THREADS], iv[VTT_VICTIM_THREADS];
+// A CTA's or a warp's (key, node) minima over its covered and its valid
+// nodes (node -1: none): one 16-byte word, so it can be pushed into another
+// CTA's shared memory with vtt_cluster_store.
+struct alignas(16) VttWalkRec {
+  float kc;
+  int ic;
+  float kv;
+  int iv;
 };
 
-// The whole CTA scans its nodes; sh.kc[0] / sh.ic[0] and sh.kv[0] /
-// sh.iv[0] end as the (key, node) lexicographic minimum over the covered
-// and the valid nodes (ic / iv -1 when there is none).  Thread 0 writes
-// clock64 into *ts (when given) once every thread's scan is done.
-static __device__ __forceinline__ void vtt_core_scan(const VttVictimArgs& a,
-                                                     const VttAttempt& at, VttCoreShared& sh,
-                                                     long long* ts = nullptr) {
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  float kc = 0.0f, kv = 0.0f;
-  int ic = -1, iv = -1;
-  for (int n = tid; n < a.N; n += nthr) {
-    bool valid, covered;
-    float key;
-    vtt_core_node(a, at, n, valid, covered, key);
-    if (valid && vtt_kmin_better(key, n, kv, iv)) {
-      kv = key;
-      iv = n;
-    }
-    if (covered && vtt_kmin_better(key, n, kc, ic)) {
-      kc = key;
-      ic = n;
-    }
+__device__ __forceinline__ void vtt_rec_take(VttWalkRec& r, const VttWalkRec& o) {
+  if (vtt_kmin_better(o.kc, o.ic, r.kc, r.ic)) {
+    r.kc = o.kc;
+    r.ic = o.ic;
   }
-  sh.kc[tid] = kc;
-  sh.ic[tid] = ic;
-  sh.kv[tid] = kv;
-  sh.iv[tid] = iv;
-  __syncthreads();
-  if (ts && tid == 0) *ts = clock64();
-  for (int s = nthr / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      if (vtt_kmin_better(sh.kc[tid + s], sh.ic[tid + s], sh.kc[tid], sh.ic[tid])) {
-        sh.kc[tid] = sh.kc[tid + s];
-        sh.ic[tid] = sh.ic[tid + s];
-      }
-      if (vtt_kmin_better(sh.kv[tid + s], sh.iv[tid + s], sh.kv[tid], sh.iv[tid])) {
-        sh.kv[tid] = sh.kv[tid + s];
-        sh.iv[tid] = sh.iv[tid + s];
-      }
-    }
-    __syncthreads();
+  if (vtt_kmin_better(o.kv, o.iv, r.kv, r.iv)) {
+    r.kv = o.kv;
+    r.iv = o.iv;
   }
 }
 
-// The whole CTA runs the attempt; every thread returns the decision:
-// nstar (-1 when no node is covered) and clean.
-static __device__ __forceinline__ void vtt_core(const VttVictimArgs& a, const VttAttempt& at,
-                                                VttCoreShared& sh, int& nstar, bool& clean,
-                                                long long* ts = nullptr) {
-  vtt_core_scan(a, at, sh, ts);
-  nstar = sh.ic[0];
-  if (nstar >= 0)
-    clean = sh.kv[0] == sh.kc[0] && sh.iv[0] == nstar;
-  else
-    clean = sh.iv[0] < 0;
-  __syncthreads();
+// warp-wide minima by an xor butterfly (vtt_kmin_better is a total order
+// on distinct nodes, so both lanes of a pair agree); every lane returns them
+__device__ __forceinline__ void vtt_warp_rec_min(VttWalkRec& r) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    VttWalkRec o;
+    o.kc = __shfl_xor_sync(0xffffffffu, r.kc, off);
+    o.ic = __shfl_xor_sync(0xffffffffu, r.ic, off);
+    o.kv = __shfl_xor_sync(0xffffffffu, r.kv, off);
+    o.iv = __shfl_xor_sync(0xffffffffu, r.iv, off);
+    vtt_rec_take(r, o);
+  }
+}
+
+// nstar (-1 when no node is covered) and clean from merged minima, as the
+// reference's walk defines them: the first covered node, and no valid node
+// before it
+__device__ __forceinline__ void vtt_rec_decide(const VttWalkRec& r, int& nstar, bool& clean) {
+  nstar = r.ic;
+  clean = r.ic >= 0 ? (r.kv == r.kc && r.iv == r.ic) : r.iv < 0;
 }
 
 // ---- state writes, optionally recorded in the undo journal -------------
@@ -785,9 +765,9 @@ static __device__ __forceinline__ int vtt_select_job(const VttVictimArgs& a, int
 
 // ---- K8 and K9 as walks, and their attempts on node blocks (K15a, K15b) --
 
-// A walk's state between attempts: shared memory in the one-CTA solves;
-// global memory (the base's `walk`, replicated on every process) on node
-// blocks, where each attempt is one launch of the blocks' cores, the
+// A walk's state between attempts: rank 0's shared memory in the cluster
+// solves; global memory (the base's `walk`, replicated on every process) on
+// node blocks, where each attempt is one launch of the blocks' cores, the
 // exchange of their records, and one launch that applies the attempt and
 // advances the walk to the next one.
 struct VttWalk {
@@ -804,96 +784,45 @@ struct VttWalk {
 // nstar_val (global rows, -1 for none), any covered, any valid
 #define VTT_VB_WORDS 6
 
-// one block's record from its scan (thread 0)
-static __device__ void vtt_core_record(const VttVictimArgs& a, const VttCoreShared& sh,
-                                       int32_t* rec) {
-  const int ic = sh.ic[0], iv = sh.iv[0];
-  rec[0] = __float_as_int(sh.kc[0]);
-  rec[1] = ic >= 0 ? (int)a.n0 + ic : -1;
-  rec[2] = __float_as_int(sh.kv[0]);
-  rec[3] = iv >= 0 ? (int)a.n0 + iv : -1;
-  rec[4] = ic >= 0;
-  rec[5] = iv >= 0;
-}
-
 // The minimum of the S blocks' records (one thread): nstar (-1 when no
-// node is covered) and clean, exactly as the one-block core defines them.
+// node is covered) and clean, exactly as the one-block walk defines them.
 static __device__ void vtt_merge_records(const int32_t* recv, int S, int& nstar, bool& clean) {
-  float kc = 0.0f, kv = 0.0f;
-  int ic = -1, iv = -1;
+  VttWalkRec m{0.0f, -1, 0.0f, -1};
   for (int b = 0; b < S; ++b) {
     const int32_t* r = recv + (size_t)b * VTT_VB_WORDS;
-    if (r[4] && vtt_kmin_better(__int_as_float(r[0]), r[1], kc, ic)) {
-      kc = __int_as_float(r[0]);
-      ic = r[1];
-    }
-    if (r[5] && vtt_kmin_better(__int_as_float(r[2]), r[3], kv, iv)) {
-      kv = __int_as_float(r[2]);
-      iv = r[3];
-    }
+    vtt_rec_take(m, VttWalkRec{__int_as_float(r[0]), r[4] ? r[1] : -1, __int_as_float(r[2]),
+                               r[5] ? r[3] : -1});
   }
-  nstar = ic;
-  clean = ic >= 0 ? (kv == kc && iv == ic) : iv < 0;
-}
-
-// Node nstar's live pool rows into a.bucket[0, m) and their ranks in the
-// node's four orders into a.l_*[0, m), from the replicated pool (all
-// threads; s_m is shared scratch).  Returns m.
-static __device__ int vtt_gather_node(const VttVictimArgs& a, int nstar, int ev_kind,
-                                      int* s_m) {
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int nt = a.NT > 0 ? (int)a.NT : (int)a.N;
-  if (tid == 0) *s_m = 0;
-  __syncthreads();
-  for (int v = tid; v < a.V; v += nthr)
-    if (a.run_live[v] && vtt_clamp(a.run_node[v], 0, nt - 1) == nstar)
-      a.bucket[atomicAdd(s_m, 1)] = v;
-  __syncthreads();
-  const int m = *s_m;
-  for (int i = tid; i < m; i += nthr)
-    vtt_rank_row(a, ev_kind, a.bucket[i], a.bucket, 0, m, a.l_vidx, a.l_ev, a.l_drf, a.l_prop);
-  __syncthreads();
-  return m;
+  vtt_rec_decide(m, nstar, clean);
 }
 
 // The pending attempt w.at of a walk on node blocks, after the exchange
-// filled a.recv with the S blocks' records (all threads; `a` is the
-// process's replicated base, `blocks` its local blocks in device memory,
-// s_sh three shared ints).  The merge gives nstar and clean; an ok attempt
-// ranks nstar's rows from the replicated pool, reruns their flag pass and
-// applies, journalled as the one-block apply, writing node rows only where
-// a local block owns nstar.  Thread 0 returns nstar, clean and the victims.
+// filled a.recv with the S blocks' records (thread 0; `a` is the
+// process's replicated base with the groups of the whole pool, `blocks`
+// its local blocks in device memory).  The merge gives nstar and clean; an
+// ok attempt reruns the flag pass of nstar's rows from the replicated pool
+// and state (the node may lie on another process) and applies, journalled
+// as the one-block apply, writing node rows only where a local block owns
+// nstar.  Returns nstar, clean and the victims.
 static __device__ void vtt_wb_apply(const VttVictimArgs& a, const VttVictimArgs* blocks,
-                                    int L, VttWalk& w, int ev_kind, int* s_sh, int& nstar,
-                                    bool& clean, int& nv) {
-  if (threadIdx.x == 0) {
-    int n;
-    bool c;
-    vtt_merge_records(a.recv, (int)a.S, n, c);
-    s_sh[1] = n;
-    s_sh[2] = c;
-  }
-  __syncthreads();
-  nstar = s_sh[1];
-  clean = s_sh[2] != 0;
+                                    int L, VttWalk& w, int& nstar, bool& clean, int& nv) {
+  vtt_merge_records(a.recv, (int)a.S, nstar, clean);
   nv = 0;
   if (nstar < 0 || !clean) return;
-  const int m = vtt_gather_node(a, nstar, ev_kind, &s_sh[0]);
-  if (threadIdx.x == 0) {
-    double acc[VTT_MAX_R];
-    vtt_node_flags(a, w.at, 0, m, a.l_vidx, a.l_drf, a.l_prop, a.l_ev, acc);
-    float *rel = nullptr, *used = nullptr;
-    int32_t* tc = nullptr;
-    for (int b = 0; b < L; ++b) {
-      const int n = nstar - (int)blocks[b].n0;
-      if (n >= 0 && n < blocks[b].N) {
-        rel = blocks[b].releasing + (size_t)n * a.R;
-        used = blocks[b].used + (size_t)n * a.R;
-        tc = blocks[b].task_count + n;
-      }
+  const int off = a.node_off[nstar], end = a.node_off[nstar + 1];
+  double acc[VTT_MAX_R];
+  vtt_node_flags(a, w.at, off, end, a.l_vidx, a.l_drf, a.l_prop, a.l_ev, acc);
+  float *rel = nullptr, *used = nullptr;
+  int32_t* tc = nullptr;
+  for (int b = 0; b < L; ++b) {
+    const int n = nstar - (int)blocks[b].n0;
+    if (n >= 0 && n < blocks[b].N) {
+      rel = blocks[b].releasing + (size_t)n * a.R;
+      used = blocks[b].used + (size_t)n * a.R;
+      tc = blocks[b].task_count + n;
     }
-    nv = vtt_apply_on(a, w.at, a.l_ev, 0, m, rel, used, tc, nstar, w.jr);
   }
+  nv = vtt_apply_on(a, w.at, a.l_ev, off, end, rel, used, tc, nstar, w.jr);
 }
 
 // each local block's pool grouped by node, once a solve (node_fill zero)
@@ -916,4 +845,186 @@ static inline int vtt_walk_pending(const VttVictimArgs& a, int* pending, cudaStr
 
 static inline bool vtt_walk_ok(const VttVictimArgs& a) {
   return a.R >= 2 && a.R <= VTT_MAX_R && a.n_keys <= 3 && a.S >= 1;
+}
+
+// ---- K8 and K9 on one thread-block cluster ------------------------------
+//
+// One launch of C CTAs (16, 8, 4, 2 or 1: the largest the card admits
+// unless the caller names one) runs the whole walk.  CTA `rank` owns the
+// whole nodes [vtt_walk_bound(rank), vtt_walk_bound(rank + 1)), balanced by
+// pool rows, one node a thread.  An attempt:
+//   1. rank 0 advances the state machine (its whole CTA, for the job
+//      select) and pushes the attempt into every CTA's shared memory;
+//   2. cluster barrier A: the attempt, and every global write rank 0 made
+//      since the last one (the apply, the journal, cursor, job_avail,
+//      queue_live), reach every CTA;
+//   3. every CTA scans its nodes (vtt_core_node, flags in the global byte a
+//      row), reduces them to its record with warp shuffles and pushes it
+//      into rank 0's shared memory;
+//   4. cluster barrier B: the records and the scans' flags reach rank 0;
+//   5. rank 0 merges the records in rank order (vtt_rec_take: the minimum
+//      does not depend on how the nodes were split), and its thread 0
+//      applies an ok attempt (vtt_apply_on) and runs the walk's after-step.
+// Only rank 0 decides; the others follow the `go` of the attempt it
+// pushed, so every CTA crosses the same barriers.
+
+#define VTT_WALK_MAX_CLUSTER 16
+
+// the attempt rank 0 hands every CTA (whole 16-byte words)
+struct alignas(16) VttWalkMsg {
+  VttAttempt at;
+  int go;
+};
+
+// The first node of CTA `rank`'s range among C: the lowest n whose rows
+// start at or past rank / C of the grouped rows (node_off [N + 1]).  The
+// ranges hold whole nodes; nodes without rows past the last node with
+// rows fall in no range (they are never valid).
+__device__ __forceinline__ int vtt_walk_bound(const VttVictimArgs& a, int rank, int C) {
+  const long long want = ((long long)a.node_off[a.N] * rank + C - 1) / C;
+  int lo = 0, hi = (int)a.N;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a.node_off[mid] >= want)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+// The whole walk on one cluster (see above).  W: the walk's state machine,
+// with static device functions init(w); advance(a, w, s_key, tm), all of
+// rank 0's threads, true with w.at set or false when the walk ended;
+// after(a, w, nstar, clean), one thread, which applies an ok attempt; and
+// finish(a, w).  TM: the timed instantiation, rank 0's thread 0 summing the
+// stages into a.x_split.
+template <class W, bool TM>
+static __device__ __forceinline__ void vtt_walk_cluster(const VttVictimArgs& a) {
+  __shared__ VttWalkRec s_rec[VTT_WALK_MAX_CLUSTER];  // the CTAs' records (rank 0's)
+  __shared__ VttWalkRec s_warp[VTT_VICTIM_THREADS / 32];
+  __shared__ VttWalkMsg s_msg;
+  __shared__ VttVJobKey s_key[VTT_VICTIM_THREADS];
+  __shared__ VttWalk w;
+  __shared__ VttWalkTm tm;
+  __shared__ int s_range[2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = vtt_cluster_rank(), C = vtt_cluster_size();
+  const bool r0 = rank == 0, tm0 = TM && r0 && tid == 0;
+  if (tid == 0) {
+    s_range[0] = vtt_walk_bound(a, rank, C);
+    s_range[1] = vtt_walk_bound(a, rank + 1, C);
+    if (r0) W::init(w);
+  }
+  if (tm0) vtt_tm_start(tm);
+  __syncthreads();
+  const int lo = s_range[0], hi = s_range[1];
+  long long c0 = 0, c1 = 0;
+  for (;;) {
+    if (r0) {
+      if (TM) c0 = clock64();
+      const bool more = W::advance(a, w, s_key, TM ? &tm : nullptr);
+      // thread c hands the attempt to CTA c
+      if (tid < C) vtt_cluster_store(&s_msg, tid, VttWalkMsg{w.at, more ? 1 : 0});
+      if (TM) c1 = clock64();
+    }
+    vtt_cluster_arrive();
+    vtt_cluster_wait();
+    const long long c2 = TM ? clock64() : 0;
+    if (!s_msg.go) {
+      if (tm0) {
+        tm.st[VTT_TM_ADVANCE] += c1 - c0;
+        tm.st[VTT_TM_BARRIER] += c2 - c1;
+      }
+      break;
+    }
+    VttWalkRec r{0.0f, -1, 0.0f, -1};
+    for (int n = lo + tid; n < hi; n += blockDim.x) {
+      bool valid, covered;
+      float key;
+      vtt_core_node(a, s_msg.at, n, valid, covered, key);
+      if (valid && vtt_kmin_better(key, n, r.kv, r.iv)) {
+        r.kv = key;
+        r.iv = n;
+      }
+      if (covered && vtt_kmin_better(key, n, r.kc, r.ic)) {
+        r.kc = key;
+        r.ic = n;
+      }
+    }
+    vtt_warp_rec_min(r);
+    if (lane == 0) s_warp[warp] = r;
+    __syncthreads();
+    const long long c3 = TM ? clock64() : 0;
+    if (warp == 0) {
+      VttWalkRec m = lane < (int)(blockDim.x >> 5) ? s_warp[lane] : VttWalkRec{0.0f, -1, 0.0f, -1};
+      vtt_warp_rec_min(m);
+      if (lane == 0) vtt_cluster_store(&s_rec[rank], 0, m);
+    }
+    const long long c4 = TM ? clock64() : 0;
+    vtt_cluster_arrive();
+    vtt_cluster_wait();
+    if (r0) {
+      if (tid == 0) {
+        const long long c5 = TM ? clock64() : 0;
+        VttWalkRec m{0.0f, -1, 0.0f, -1};
+        for (int c = 0; c < C; ++c) vtt_rec_take(m, s_rec[c]);
+        int nstar;
+        bool clean;
+        vtt_rec_decide(m, nstar, clean);
+        const long long c6 = TM ? clock64() : 0;
+        W::after(a, w, nstar, clean);
+        if (tm0) {
+          tm.st[VTT_TM_ADVANCE] += c1 - c0;
+          tm.st[VTT_TM_SCAN] += c3 - c2;
+          tm.st[VTT_TM_REDUCE] += (c4 - c3) + (c6 - c5);
+          tm.st[VTT_TM_BARRIER] += (c2 - c1) + (c5 - c4);
+          tm.st[VTT_TM_APPLY] += clock64() - c6;
+          tm.attempts += 1;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (r0 && tid == 0) W::finish(a, w);
+  if (tm0) vtt_tm_write(tm, a.x_split, C);
+}
+
+// Launch one cluster of a walk kernel: a.cluster names its size (0: the
+// largest of 16, 8, 4, 2, 1 the card admits); a named size the card
+// refuses is an error, never a smaller cluster.
+static inline int vtt_walk_launch(void (*kernel)(VttVictimArgs), const VttVictimArgs& a,
+                                  cudaStream_t s) {
+  const int64_t want = a.cluster;
+  if (want != 0 && want != 1 && want != 2 && want != 4 && want != 8 && want != 16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  const int sizes[5] = {16, 8, 4, 2, 1};
+  for (int k = 0; k < 5; ++k) {
+    const int C = sizes[k];
+    if (want && want != C) continue;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C, 1, 1);
+    cfg.blockDim = dim3(VTT_VICTIM_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n_clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&n_clusters, kernel, &cfg);
+    if (e != cudaSuccess || n_clusters < 1) {
+      cudaGetLastError();  // a refused size is not an error of the stream
+      if (want) return (int)(e != cudaSuccess ? e : cudaErrorInvalidConfiguration);
+      continue;
+    }
+    e = cudaLaunchKernelEx(&cfg, kernel, a);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  }
+  return (int)cudaErrorInvalidConfiguration;
 }

@@ -257,7 +257,7 @@ static __device__ void vtt_step_nodes(const VttVictimArgs& a, VttStepShared& sh,
   vtt_step_reduce(sh, kc, ic, kv, iv);
 }
 
-// thread 0: the CTA's minima as a record (vtt_core_record's words)
+// thread 0: the CTA's minima as a record of VTT_VB_WORDS words
 static __device__ void vtt_step_record(const VttStepShared& sh, int32_t* rec) {
   rec[0] = __float_as_int(sh.kc[0]);
   rec[1] = sh.ic[0];
@@ -489,28 +489,43 @@ extern "C" int vtt_victim_blocks_apply(const VttVictimArgs* base, const VttStepO
   return (int)cudaGetLastError();
 }
 
-// ---- K15a / K15b: a walk's pending attempt, one core per block -----------
+// ---- K15a / K15b: a walk's pending attempt, several CTAs a block --------
 
-// One CTA a local block (`blocks` in device memory): the block's core over
-// its own rows for the attempt the walk left, as a record into its slot.
-__global__ void __launch_bounds__(VTT_VICTIM_THREADS) vtt_wb_core(const VttVictimArgs* blocks) {
-  __shared__ VttCoreShared sh;
-  __shared__ VttAttempt s_at;
+// K12b's core for a walk's pending attempt: `cpb` CTAs a local block, one
+// node a thread (`blocks` in device memory: each block's node planes, its
+// slice of the base's node_off over the whole pool's groups, the walk).
+// Each CTA's record goes into cta_rec; the last CTA of block b to take its
+// ticket merges the block's records into the block's send slot.
+__global__ void __launch_bounds__(VTT_STEP_THREADS)
+    vtt_wb_core(const VttVictimArgs* blocks, int cpb, int32_t* cta_rec, int32_t* tickets) {
+  __shared__ VttStepShared sh;
   __shared__ VttVictimArgs s_a;
+  const int b = blockIdx.x / cpb, part = blockIdx.x % cpb;
   if (threadIdx.x == 0) {
-    s_a = blocks[blockIdx.x];
-    s_at = ((const VttWalk*)s_a.walk)->at;
+    s_a = blocks[b];
+    sh.at = ((const VttWalk*)s_a.walk)->at;
   }
   __syncthreads();
-  vtt_core_scan(s_a, s_at, sh);
-  if (threadIdx.x == 0) vtt_core_record(s_a, sh, s_a.send);
+  vtt_step_nodes(s_a, sh, part * blockDim.x + threadIdx.x);
+  if (threadIdx.x == 0) vtt_step_record(sh, cta_rec + (size_t)blockIdx.x * VTT_VB_WORDS);
+  if (!vtt_last_cta(&tickets[b], cpb, &sh.last)) return;
+  vtt_records_min(cta_rec + (size_t)b * cpb * VTT_VB_WORDS, cpb, sh);
+  if (threadIdx.x == 0) {
+    vtt_step_record(sh, s_a.send);
+    tickets[b] = 0;
+  }
 }
 
 // The cores of the pending attempt of a K15a / K15b walk: every local
 // block's record into its slot of the send buffer (`dblk`: the L blocks'
-// arguments in device memory).
-extern "C" int vtt_walk_blocks_core(const VttVictimArgs* dblk, int n_blocks, void* stream) {
-  if (n_blocks < 1) return (int)cudaErrorInvalidValue;
-  VTT_LAUNCH(vtt_wb_core, n_blocks, VTT_VICTIM_THREADS, 0, (cudaStream_t)stream)(dblk);
+// arguments in device memory, nb rows each; cta_rec [L * ceil(nb /
+// VTT_STEP_THREADS), VTT_VB_WORDS] scratch; tickets [L], zero between
+// launches).
+extern "C" int vtt_walk_blocks_core(const VttVictimArgs* dblk, int n_blocks, int nb,
+                                    void* cta_rec, void* tickets, void* stream) {
+  if (n_blocks < 1 || nb < 1) return (int)cudaErrorInvalidValue;
+  const int cpb = (nb + VTT_STEP_THREADS - 1) / VTT_STEP_THREADS;
+  VTT_LAUNCH(vtt_wb_core, n_blocks * cpb, VTT_STEP_THREADS, 0, (cudaStream_t)stream)(
+      dblk, cpb, (int32_t*)cta_rec, (int32_t*)tickets);
   return (int)cudaGetLastError();
 }

@@ -1384,12 +1384,16 @@ def _check_blocks(c, s, mesh, fn="victim_step_sharded") -> int:
     return rows.pop()
 
 
-def _blocks_args(c, s0, task_req, task_class, mesh, nb, extra, sizes, flags, block_extra):
+def _blocks_args(c, s0, task_req, task_class, mesh, nb, extra, sizes, flags, block_extra,
+                 block_groups=True):
     """The argument blocks of a solve on node blocks: the base (this
     process's replicated inputs and working state, ``extra``) and each local
     block's (its node planes, working copies of its node state, its setup
-    scratch and ``block_extra(i)``).  Returns (base, blocks, state, bufs,
-    block buffers); ``state`` is the working state, node planes as tuples."""
+    scratch and ``block_extra(i)``).  Without ``block_groups`` the pool is
+    grouped once over the mesh's rows, in the base's node_off and lists,
+    and each block reads its slice of them.  Returns (base, blocks, state,
+    bufs, block buffers); ``state`` is the working state, node planes as
+    tuples."""
     dev = c.run_req.device
     V, R = c.run_req.shape
     J, Q, T = c.job_queue.shape[0], s0.queue_alloc.shape[0], task_req.shape[0]
@@ -1437,6 +1441,8 @@ def _blocks_args(c, s0, task_req, task_class, mesh, nb, extra, sizes, flags, blo
         ctl=torch.zeros(16, dtype=i32, device=dev), bucket=empty(V), l_vidx=empty(V),
         l_ev=empty(V), l_drf=empty(V), l_prop=empty(V),
         flag=torch.zeros(V, dtype=torch.uint8, device=dev), **rep)
+    if not block_groups:
+        bufs.update(node_off=empty(N + 1), node_fill=torch.zeros(N, dtype=i32, device=dev))
     bufs.update(extra)
     base = VictimArgs()
     for name, t in bufs.items():
@@ -1459,12 +1465,16 @@ def _blocks_args(c, s0, task_req, task_class, mesh, nb, extra, sizes, flags, blo
         for k in rows:
             rows[k].append(getattr(s0, k)[i].clone())
             planes[k] = rows[k][-1]
-        planes.update(node_off=empty(nb + 1), node_fill=torch.zeros(nb, dtype=i32, device=dev),
-                      bucket=empty(V), l_vidx=empty(V), l_ev=empty(V), l_drf=empty(V),
-                      l_prop=empty(V), **block_extra(i))
+        if block_groups:
+            planes.update(node_off=empty(nb + 1),
+                          node_fill=torch.zeros(nb, dtype=i32, device=dev), bucket=empty(V),
+                          l_vidx=empty(V), l_ev=empty(V), l_drf=empty(V), l_prop=empty(V))
+        planes.update(block_extra(i))
         for k, t in planes.items():
             setattr(blk, k, t.data_ptr())
         blk.N, blk.n0 = nb, (mesh.first + i) * nb
+        if not block_groups:
+            blk.node_off = bufs["node_off"][blk.n0:].data_ptr()
         blocks[i] = blk
         keep.append(planes)
     state = VictimState(idle=s0.idle, **{k: tuple(v) for k, v in rows.items()}, **rep)
@@ -1554,6 +1564,18 @@ def victim_sharded_launch(lib, stream, c, s, t_req, t_cls, jt, qt, mesh, nb, *, 
 WALK_STAGES = ("advance", "select", "scan", "reduce_exchange", "barrier", "apply")
 
 
+#: cluster sizes the reclaim and preempt walks run on (CTAs of one
+#: thread-block cluster; 16 is the H100's non-portable size)
+WALK_CLUSTERS = (1, 2, 4, 8, 16)
+
+
+def _cluster_sizes(cluster) -> dict:
+    """The argument block's cluster size (0: the largest the card admits)."""
+    if cluster is not None and cluster not in WALK_CLUSTERS:
+        raise ValueError(f"cluster {cluster}: the walks take one of {WALK_CLUSTERS}")
+    return dict(cluster=cluster or 0)
+
+
 def _split_extra(split, dev) -> dict:
     """The argument block's split buffer, validated, or nothing."""
     if split is None:
@@ -1571,7 +1593,8 @@ def reclaim_solve(c, s0, task_req, task_class, job_first, job_prio, job_cand0,
     Replaces volcano_tpu/scheduler/victim_kernels.py:457.  Bound on the
     card by latency: a chain of dependent attempts, each a walk of the pool
     and the nodes.  Design (csrc/reclaim_solve.cu): the pool grouped by
-    node once per launch, then one persistent CTA runs the loop."""
+    node once per launch, then one launch of one thread-block cluster runs
+    the loop, one node a thread, two cluster barriers an attempt."""
     kw = dict(use_gang=use_gang, use_prop=use_prop, use_conformance=use_conformance,
               order_by_priority=order_by_priority, has_proportion=has_proportion,
               job_key_order=tuple(job_key_order))
@@ -1588,10 +1611,14 @@ def reclaim_solve(c, s0, task_req, task_class, job_first, job_prio, job_cand0,
 def reclaim_launch(lib, stream, c, s0, task_req, task_class, job_first, job_prio,
                    job_cand0, queue_live0, pipe0, *, use_gang, use_prop, use_conformance,
                    order_by_priority, has_proportion,
-                   job_key_order=("priority", "gang", "drf"), split=None) -> ReclaimOut:
+                   job_key_order=("priority", "gang", "drf"), cluster=None,
+                   split=None) -> ReclaimOut:
     """Validate, launch csrc/reclaim_solve.cu and return its outputs.
-    ``split``, an int64 [32] tensor, runs the timed instantiation, which
-    writes its stage split there (``WALK_STAGES``)."""
+    The walk runs as one cluster of ``cluster`` CTAs (one of
+    ``WALK_CLUSTERS``; None: the largest the card admits), and raises if
+    the card refuses that size.  ``split``, an int64 [32] tensor, runs the
+    timed instantiation, which writes its stage split there
+    (``WALK_STAGES``)."""
     dev = c.run_req.device
     J, Q = c.job_queue.shape[0], s0.queue_alloc.shape[0]
     for name, t, dt, shape in (
@@ -1606,7 +1633,7 @@ def reclaim_launch(lib, stream, c, s0, task_req, task_class, job_first, job_prio
                  use_conformance=use_conformance, order_by_priority=order_by_priority,
                  has_proportion=has_proportion, job_key_order=job_key_order)
     st, bufs = _victim_launch(lib, stream, "vtt_reclaim_solve", c, s0, task_req, task_class,
-                              extra, {}, flags)
+                              extra, _cluster_sizes(cluster), flags)
     return ReclaimOut(st, bufs["pipe"], _storm_records(bufs), bufs["ctl"][_VC_ABORT] != 0)
 
 
@@ -1619,9 +1646,9 @@ def preempt_solve(c, s0, task_req, task_class, task_attempt, job_start, job_ntas
     On the card, ``nu`` and ``nq`` are host integers.
 
     Replaces volcano_tpu/scheduler/victim_kernels.py:607.  Bound by
-    latency, as K8.  Design (csrc/preempt_solve.cu): one persistent CTA
-    runs the two-phase state machine; a statement's discard replays an
-    undo journal of the words its attempts wrote."""
+    latency, as K8.  Design (csrc/preempt_solve.cu): K8's cluster walk;
+    its rank 0 runs the two-phase state machine, and a statement's discard
+    replays an undo journal of the words its attempts wrote."""
     kw = dict(use_gang=use_gang, use_drf=use_drf, use_conformance=use_conformance,
               order_by_priority=order_by_priority, job_key_order=tuple(job_key_order),
               gang_pipelined=gang_pipelined)
@@ -1639,9 +1666,9 @@ def preempt_launch(lib, stream, c, s0, task_req, task_class, task_attempt, job_s
                    job_ntasks, job_prio, job_avail0, under_request, nu, queues_order, nq,
                    pipe0, *, use_gang, use_drf, use_conformance, order_by_priority,
                    job_key_order=("priority", "gang", "drf"),
-                   gang_pipelined=True, split=None) -> PreemptOut:
+                   gang_pipelined=True, cluster=None, split=None) -> PreemptOut:
     """Validate, launch csrc/preempt_solve.cu and return its outputs;
-    ``split`` as ``reclaim_launch`` takes it."""
+    ``cluster`` and ``split`` as ``reclaim_launch`` takes them."""
     dev = c.run_req.device
     T = task_req.shape[0]
     J, Q = c.job_queue.shape[0], queues_order.shape[0]
@@ -1669,7 +1696,8 @@ def preempt_launch(lib, stream, c, s0, task_req, task_class, task_attempt, job_s
                  use_conformance=use_conformance, order_by_priority=order_by_priority,
                  gang_pipelined=gang_pipelined, job_key_order=job_key_order)
     st, bufs = _victim_launch(lib, stream, "vtt_preempt_solve", c, s0, task_req, task_class,
-                              extra, dict(nu=int(nu), nq=int(nq), jr_cap=jr_cap), flags)
+                              extra, dict(nu=int(nu), nq=int(nq), jr_cap=jr_cap,
+                                          **_cluster_sizes(cluster)), flags)
     ctl = bufs["ctl"]
     if int(ctl[_VC_ERROR]):
         raise RuntimeError("preempt_solve: undo journal overflow")
@@ -1729,19 +1757,24 @@ def _walk_launch(lib, stream, kind, c, s0, task_req, task_class, mesh, nb, extra
     state (node planes as tuples) and the buffers."""
     dev = c.run_req.device
     L = mesh.n_local
-    send = torch.empty((L, VB_WORDS), dtype=torch.int32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    send = torch.empty((L, VB_WORDS), **i32)
+    cta_rec = torch.empty((L * -(-nb // STEP_THREADS), VB_WORDS), **i32)
+    tickets = torch.zeros(L, **i32)
     extra = dict(extra, walk=torch.zeros(WALK_BYTES, dtype=torch.uint8, device=dev))
     base, blocks, state, bufs, keep = _blocks_args(c, s0, task_req, task_class, mesh, nb, extra,
-                                                   sizes, flags, lambda i: {"send": send[i]})
+                                                   sizes, flags, lambda i: {"send": send[i]},
+                                                   block_groups=False)
     raw = bytearray(bytes(blocks))
     dblk = torch.frombuffer(raw, dtype=torch.uint8).clone().to(dev)
     pending = ctypes.c_int(0)
     begin = f"vtt_{kind}_blocks_begin"
     step = f"vtt_{kind}_blocks_step"
-    _raise_on(getattr(lib, begin)(ctypes.byref(base), blocks, dblk.data_ptr(), L,
-                                  ctypes.byref(pending), stream), begin)
+    _raise_on(getattr(lib, begin)(ctypes.byref(base), dblk.data_ptr(), L, ctypes.byref(pending),
+                                  stream), begin)
     while pending.value:
-        _raise_on(lib.vtt_walk_blocks_core(dblk.data_ptr(), L, stream), "vtt_walk_blocks_core")
+        _raise_on(lib.vtt_walk_blocks_core(dblk.data_ptr(), L, nb, cta_rec.data_ptr(),
+                                           tickets.data_ptr(), stream), "vtt_walk_blocks_core")
         recv = _exchanged(mesh, send)
         base.recv = recv.data_ptr()
         _raise_on(getattr(lib, step)(ctypes.byref(base), dblk.data_ptr(), L,
