@@ -43,12 +43,14 @@ Phases, each fatal on failure:
 7. K5 kernels — K3 and K2 with portsel against their plain versions on the
    dynamic-solve inputs the two cells above captured from their first
    cycle (mirror, snapshot, express solve, build_dyn_solve_inputs);
-8. e2e cfg6, cfg6b, cfg6r — bench.py's contended store (10,000 nodes each
-   exactly full on cpu with ten 800m / 1.2Gi residents of q0): cfg6 storms
-   it with 100 urgent gangs x 20 tasks of 1500m / 2Gi (the batched preempt
-   rounds, K10), cfg6b adds an empty-request pod to the first gang (that
-   gang takes the exact preempt solve, K9), cfg6r has 10 gangs x 20 of a
-   second queue reclaiming (K8).  Three cycles each, the victims deleted
+8. e2e cfg6, cfg6b, cfg6r, cfg6-exact — bench.py's contended store
+   (10,000 nodes each exactly full on cpu with ten 800m / 1.2Gi residents
+   of q0): cfg6 storms it with 100 urgent gangs x 20 tasks of 1500m / 2Gi
+   (the batched preempt rounds, K10), cfg6b adds an empty-request pod to
+   the first gang (that gang takes the exact preempt solve, K9), cfg6r has
+   10 gangs x 20 of a second queue reclaiming (K8), cfg6-exact is cfg6
+   under solveMode: exact (every storm task through K9's walk, the
+   preempt phase's wall in the log).  Three cycles each, the victims deleted
    after each (as the kubelet does): no pod evicted twice, every victim a
    q0 resident (below the preemptor's priority in the storm cells), the
    pipelined requests covered by each node's idle plus releasing capacity
@@ -161,6 +163,11 @@ solve's split alone (phase_victim_split: K7 at config 4 and on cfg6r-be's
 first inputs, K12b at config 4 on 4 blocks; device ms and launches by
 kernel, the wrapper's host us, the wall and the host gap, warm, cold and
 the group build alone), so a parent commit is measured in the same call.
+``--storm-split`` runs the build and the storm solves' split alone
+(phase_storm_split: K8 on cfg6r and a 100-gang reclaim, K9 on cfg6b and
+the whole cfg6 storm, K10 on cfg6 and three synthetic shapes, on one
+block, four local blocks and a one-rank NCCL group; device ms by kernel,
+digests, and for K8 / K9 the timed walk's stages and each cluster size).
 ``--exact-split`` runs the build and the exact solve's split alone
 (phase_exact_split: K2 on cfg5-exact's inputs, on the dynamic solves
 cfg5d-exact (K5) and cfg5v-2000 (K5 and K6) capture, at 128 queues and on a
@@ -209,6 +216,12 @@ MAX_CYCLES_DYNAMIC = 3
 # test) and per claim of the task and node (the assumed / capacity test)
 VOLSEL_NODE_OPS = 2
 VOLSEL_CLAIM_OPS = 2
+
+# the reclaim and preempt walks' main-path kernels (K8 / K9 on a cluster,
+# their untimed instantiations; K15a / K15b's block core) by their ptxas
+# entry names, which must build without spills: at 32 registers a thread
+# K8 / K9 spilled in the node walk and ran 12-21% slower (PERF.md §6)
+WALK_KERNEL_NAMES = ("vtt_reclaim_kernelILb0E", "vtt_preempt_kernelILb0E", "vtt_wb_core")
 
 # config 5 (bench.py: N_NODES, N_TASKS, N_JOBS, N_QUEUES, n_best_effort)
 CFG5 = dict(nodes=10_000, jobs=5_000, tasks_per_job=20, queues=2, best_effort=2_000)
@@ -270,8 +283,14 @@ def phase_build():
     t0 = time.perf_counter()
     _build.load()
     log(f"[build] nvcc build+load {time.perf_counter() - t0:.2f} s")
+    entry = ""
     for line in _build.ptxas_report():
         log(f"[ptxas] {line}")
+        if "Compiling entry" in line:
+            entry = line
+        elif (" spill stores" in line and any(k in entry for k in WALK_KERNEL_NAMES)
+              and " 0 bytes spill stores" not in line):
+            raise AssertionError(f"ptxas: a walk kernel spills: {entry}: {line.strip()}")
     return smi
 
 
@@ -1070,6 +1089,9 @@ CFG6_MESH = "4"
 # (tests/test_torch_contention.py TENTH_PATTERN), at full width
 CFG6_PATTERN = {
     "cfg6": [(4000, 2000, 0), (0, 0, 2000), (0, 0, 0)],
+    # cfg6 under solveMode: exact (TENTH_EXACT_PATTERN): every storm task
+    # through K9's walk
+    "cfg6-exact": [(4000, 2000, 0), (0, 0, 2000), (0, 0, 0)],
     "cfg6b": [(4000, 2000, 0), (0, 0, 2000), (0, 0, 0)],
     "cfg6r": [(20, 10, 0), (20, 10, 0), (20, 10, 0)],
 }
@@ -3826,15 +3848,22 @@ def main(argv):
         "allocate_solve_batch_portsel": dyn["allocate_solve_batch_portsel"],
         "allocate_solve_portsel": dyn_exact["allocate_solve_portsel"]}))
     mark("phases 3-7")
+    from volcano_tpu_torch.scheduler.conf import full_conf
+
     launches, captured = {}, {}
-    for cell, want, forbid in (
-        ("cfg6", {"preempt_rounds": 1, "water_fill": 1}, ("reclaim_solve",)),
-        ("cfg6b", {"preempt_rounds": 1, "preempt_solve": 1}, ("reclaim_solve",)),
-        ("cfg6r", {"reclaim_solve": 1}, ("preempt_solve", "preempt_rounds")),
+    exact_conf = full_conf("cuda")
+    exact_conf.solve_mode = "exact"
+    for cell, want, forbid, conf in (
+        ("cfg6", {"preempt_rounds": 1, "water_fill": 1}, ("reclaim_solve",), None),
+        ("cfg6b", {"preempt_rounds": 1, "preempt_solve": 1}, ("reclaim_solve",), None),
+        ("cfg6r", {"reclaim_solve": 1}, ("preempt_solve", "preempt_rounds"), None),
+        ("cfg6-exact", {"preempt_solve": 1, "allocate_solve": 1},
+         ("reclaim_solve", "preempt_rounds", "allocate_solve_batch"), exact_conf),
     ):
-        launches[cell], captured[cell], _ = phase_contention(f"e2e {cell}", cell, want,
-                                                             forbid + MESH_CONTENTION_KERNELS)
+        launches[cell], captured[cell], _ = phase_contention(
+            f"e2e {cell}", cell, want, forbid + MESH_CONTENTION_KERNELS, conf=conf)
     kern.update(phase_victim_kernels(captured, launches))
+    kern["preempt_solve"]["cfg6_exact_launches"] = launches["cfg6-exact"]["preempt_solve"]
     mark("phases 8-9")
     vol_want = {"water_fill": 1, "allocate_solve_batch": 1, "allocate_solve": 1,
                 "allocate_solve_portsel": 1, "allocate_solve_volsel": 1}

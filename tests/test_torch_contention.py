@@ -353,6 +353,23 @@ def test_cfg6_pattern_at_tenth_scale_equals_jax(cell, monkeypatch):
     assert history == TENTH_PATTERN[cell]
 
 
+#: per cycle (evictions, pipelines, binds) of the JAX package on cfg6 at
+#: 1/10 scale under solveMode: exact, victims reaped between cycles: the
+#: preempt pass walks every storm task one attempt at a time (K9 in the
+#: port) and the storm binds in the next cycle
+TENTH_EXACT_PATTERN = [(400, 200, 0), (0, 0, 200), (0, 0, 0)]
+
+
+def test_cfg6_exact_pattern_at_tenth_scale_equals_jax(monkeypatch):
+    """cfg6 at 1/10 scale under solveMode: exact (1,000 nodes, 10 x 20
+    storm gangs, every storm task through the preempt walk), three cycles
+    with the victims reaped between them, equal to the JAX Scheduler cycle
+    by cycle."""
+    _, _, history = run_pair(tenth_scale_spec("cfg6"), monkeypatch, solve_mode="exact",
+                             cycles=3, reap=True)
+    assert history == TENTH_EXACT_PATTERN
+
+
 def test_stranded_walk_raises_naming_the_object_path(monkeypatch):
     """clean=False: qa's reclaimer (2 cpu / 256Mi) walks n0 first, whose qb
     victim (1 cpu / 1Gi) is valid (not below the request in memory) but

@@ -25,6 +25,7 @@ from volcano_tpu_torch.scheduler.simargs import (
     EXACT_EDGE_CASES,
     PORTSEL_KEYS,
     ROUNDS_EDGE_CASES,
+    WALK_EDGE_CASES,
     add_releasing,
     build_batch_edge_args,
     build_exact_edge_args,
@@ -35,6 +36,7 @@ from volcano_tpu_torch.scheduler.simargs import (
     build_storm_sim,
     build_victim_sim,
     build_volsel_args,
+    build_walk_edge_args,
     storm_inputs,
 )
 
@@ -1065,6 +1067,81 @@ def test_gpu_rounds_edge_matches_plain(case, n_blocks):
     nb = tc.node_alloc.shape[0] // n_blocks
     _assert_storm_blocked_same(out_k, S.rounds_blocks_plain(dc, ds, *args, mesh, nb, **kw))
     _assert_storm_blocked_same(out_k, VK.preempt_rounds(tc, ts, *args, **kw))
+
+
+# -- K8 / K9 on a thread-block cluster, K15a / K15b on node blocks -----------
+
+def _walk_inputs(dev, case, kind):
+    c, s, t, kw = build_walk_edge_args(case, kind)
+    tc, ts = interop.victim_from_arrays(c, s, dev)
+    args = [a if isinstance(a, int) else torch.from_numpy(np.asarray(a)).to(dev)
+            for a in storm_inputs(kind, c, s, t)]
+    return tc, ts, args, kw
+
+
+def _walk_launch(kind, dev, *args, **kw):
+    from volcano_tpu_torch import _build
+
+    launch = VK.reclaim_launch if kind == "reclaim" else VK.preempt_launch
+    return launch(_build.load(), K._stream(dev), *args, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["reclaim", "preempt"])
+@pytest.mark.parametrize("case", WALK_EDGE_CASES)
+def test_gpu_walk_edge_matches_plain(case, kind):
+    """K8 / K9 on each edge shape of ``build_walk_edge_args`` at every
+    cluster size the card admits (the portable 1, 2, 4, 8 must be) and at
+    the default, and K15a / K15b on local meshes of 1, 2 and 4 blocks: bit
+    for bit the plain version, state included; each wrapper counts its
+    launch."""
+    from volcano_tpu_torch.parallel import sharded as S
+
+    dev = _cuda()
+    c, s, args, kw = _walk_inputs(dev, case, kind)
+    name = "reclaim_solve" if kind == "reclaim" else "preempt_solve"
+    want = getattr(VK, name + "_plain")(c, s, *args, **kw)
+    admitted = []
+    for cl in VK.WALK_CLUSTERS + (None,):
+        try:
+            out = _walk_launch(kind, dev, c, s, *args, cluster=cl, **kw)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            assert cl == 16, f"portable cluster size {cl} refused"
+            continue
+        _assert_victims_same(out, want)
+        admitted.append(cl)
+    assert {1, 2, 4, 8, None} <= set(admitted)
+    VK.reset_launches()
+    _assert_victims_same(getattr(VK, name)(c, s, *args, **kw), want)
+    assert VK.LAUNCHES[name] == 1
+    for n_blocks in (1, 2, 4):
+        mesh = S.LocalMesh(n_blocks, dev)
+        dc, ds = S._place_victim(mesh, c), S._place_victim(mesh, s)
+        VK.reset_launches()
+        out = getattr(VK, name + "_sharded")(dc, ds, *args, mesh, **kw)
+        assert VK.LAUNCHES[name + "_sharded"] == 1 and VK.LAUNCHES[name] == 0
+        _assert_storm_blocked_same(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["reclaim", "preempt"])
+def test_gpu_walk_timed_cluster_choice_and_refusals(kind):
+    """The timed walk gives the untimed outputs, fills its split (the
+    stages, the attempts) and ran on the largest admitted cluster; a size
+    outside WALK_CLUSTERS raises."""
+    dev = _cuda()
+    c, s, args, kw = _walk_inputs(dev, "row_counts", kind)
+    out = _walk_launch(kind, dev, c, s, *args, **kw)
+    split = torch.zeros(32, dtype=torch.int64, device=dev)
+    timed = _walk_launch(kind, dev, c, s, *args, split=split, **kw)
+    torch.cuda.synchronize()
+    _assert_victims_same(timed, out)
+    sp = split.cpu().tolist()
+    assert sp[0] > 0 and sp[1] > 0 and sp[8] >= int(out.rec.att) > 0
+    assert sp[12] in (8, 16) and sp[13] == 1024  # the largest admitted size; 8 is portable
+    with pytest.raises(ValueError, match="cluster"):
+        _walk_launch(kind, dev, c, s, *args, cluster=3, **kw)
 
 
 # -- K2 on a thread-block cluster --------------------------------------------

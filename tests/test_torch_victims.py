@@ -26,10 +26,13 @@ from volcano_tpu_torch.scheduler import victim_kernels as TV
 from volcano_tpu_torch.scheduler.kernels import SEL_CHUNK
 from volcano_tpu_torch.scheduler.simargs import (
     ROUNDS_EDGE_CASES,
+    WALK_EDGE_CASES,
+    WALK_ROW_COUNTS,
     build_reclaim_abort_sim,
     build_rounds_edge_args,
     build_storm_sim,
     build_victim_sim,
+    build_walk_edge_args,
     storm_inputs,
 )
 
@@ -292,3 +295,51 @@ def test_scalar_resource_solves_match_jax(kind):
         out = run_rounds(c, s, args, use_gang=True, use_drf=True, use_conformance=True,
                          order_by_priority=True, m_chunk=4, p_chunk=3, k_chunk=2)
         assert int(out.att_total)
+
+
+@pytest.mark.parametrize("kind", ["reclaim", "preempt"])
+@pytest.mark.parametrize("case", WALK_EDGE_CASES)
+def test_walk_edge_matches_jax(case, kind):
+    """The reclaim and preempt walks on each edge shape of their cluster
+    and node-block kernels (``build_walk_edge_args``): every output equal
+    to JAX's."""
+    c, s, t, kw = build_walk_edge_args(case, kind)
+    run = run_reclaim if kind == "reclaim" else run_preempt
+    run(c, s, storm_inputs(kind, c, s, t), **kw)
+
+
+@pytest.mark.parametrize("kind", ["reclaim", "preempt"])
+@pytest.mark.parametrize("case", WALK_EDGE_CASES)
+def test_walk_edge_reaches_its_shape(case, kind):
+    """Each walk edge case builds the shape it names, and the walk takes
+    the course it names."""
+    c, s, t, kw = build_walk_edge_args(case, kind)
+    live = s["run_live"]
+    R = c["run_req"].shape[1]
+    tc, ts = interop.victim_from_arrays(c, s)
+    args = [a if isinstance(a, int) else _t(a) for a in storm_inputs(kind, c, s, t)]
+    out = (TV.reclaim_solve if kind == "reclaim" else TV.preempt_solve)(tc, ts, *args, **kw)
+    rows = np.bincount(c["run_node"][live], minlength=c["node_alloc"].shape[0])
+    if case == "row_counts":
+        assert tuple(rows[:len(WALK_ROW_COUNTS)]) == WALK_ROW_COUNTS
+        assert rows.max() > 1024 and int(out.rec.att) > 0
+        # one attempt evicts more victims than the apply stages at once (16)
+        ev = out.rec.evict_att.numpy()
+        assert np.bincount(ev[ev >= 0]).max() > 16
+    elif case == "tied_keys":
+        n = int(c["node_valid"].sum())
+        assert n == 64 and (rows[:n] == 4).all()
+        assert np.unique(c["run_req"][live], axis=0).shape[0] == 1
+        assert np.unique(s["used"][:n], axis=0).shape[0] == 1
+        assert int(out.rec.att) > 0
+    elif case == "none_covered":
+        assert (t["task_req"][:t["nt"]] > c["node_alloc"].max(0)).all()
+        assert int(out.rec.att) == 0 and not bool(out.abort)
+    elif case == "unclean":
+        assert bool(out.abort)
+    elif case == "discard" and kind == "preempt":
+        assert int(out.att_total) > int(out.rec.att) and not bool(out.abort)
+    elif case in ("r4", "r8"):
+        assert R == int(case[1:]) and int(out.rec.att) > 0
+    elif case == "scalar":
+        assert R == 3 and c["class_mask"].shape[0] == 3 and int(out.rec.att) > 0

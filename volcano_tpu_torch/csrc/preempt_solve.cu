@@ -74,6 +74,63 @@ static __device__ __forceinline__ bool vtt_pw_advance(const VttVictimArgs& a, Vt
     const int phase = w.phase;
     __syncthreads();
     if (!go) return false;
+    if (phase == 2) {
+      // Phase 2 takes one attemptless step for each task that is not to
+      // be attempted (cursor + 1) and for each exhausted job (j2pos + 1):
+      // most under-request jobs have no task left or only tasks another
+      // pass takes.  Take such steps together, each run found over the
+      // whole CTA, as many as the iteration cap allows, counted as taken;
+      // then re-check the walk's go.
+      int* s_first = reinterpret_cast<int*>(s_key);
+      // the first i in [lo, hi) with pred(i), or hi (all threads)
+      auto find_first = [&](int lo, int hi, auto pred) -> int {
+        if (tid == 0) *s_first = hi;
+        __syncthreads();
+        for (int base = lo; base < hi; base += blockDim.x) {
+          const int i = base + tid;
+          if (i < hi && pred(i)) atomicMin(s_first, i);
+          __syncthreads();
+          if (*s_first < hi) break;
+        }
+        const int first = *s_first;
+        __syncthreads();
+        return first;
+      };
+      bool moved = false;
+      for (;;) {
+        const int j0 = w.j2pos;
+        const long long left = cap - (long long)w.iters;
+        if (j0 >= nu || left <= 0) break;
+        const int j = a.under_request[vtt_clamp(j0, 0, J - 1)];
+        const int c0 = a.cursor[j], n = a.job_ntasks[j];
+        if (c0 < n) {
+          const int start = a.job_start[j];
+          const int c = find_first(c0, (int)min((long long)n, c0 + left), [&](int k) {
+            return a.task_attempt[vtt_clamp(start + k, 0, T - 1)] != 0;
+          });
+          if (c == c0) break;
+          if (tid == 0) {
+            a.cursor[j] = c;
+            w.iters += c - c0;
+          }
+          __syncthreads();
+          moved = true;
+          if (c < n) break;
+          continue;
+        }
+        const int first = find_first(j0, (int)min((long long)nu, j0 + left), [&](int i) {
+          const int jj = a.under_request[vtt_clamp(i, 0, J - 1)];
+          return a.cursor[jj] < a.job_ntasks[jj];
+        });
+        if (tid == 0) {
+          w.j2pos = first;
+          w.iters += first - j0;
+        }
+        __syncthreads();
+        moved = true;
+      }
+      if (moved) continue;
+    }
     if (phase == 0) {
       const int q = a.queues_order[vtt_clamp(w.qpos, 0, Q - 1)];
       const int j = vtt_select_job(a, q, s_key, tm);

@@ -303,6 +303,16 @@ struct VttAttempt {
   float ls;  // DRF share of the preemptor's job with the request added
 };
 
+// rows of a node list whose loads the apply issues together
+#define VTT_ROW_CHUNK 4
+
+// the list positions [i0, i0 + VTT_ROW_CHUNK) of l[.., end) as pool rows;
+// past the end the last row again (read, never written)
+__device__ __forceinline__ void vtt_chunk_rows(const int32_t* l, int i0, int end, int* v) {
+#pragma unroll
+  for (int k = 0; k < VTT_ROW_CHUNK; ++k) v[k] = l[min(i0 + k, end - 1)];
+}
+
 __device__ __forceinline__ bool vtt_row_base(const VttVictimArgs& a,
                                              const VttAttempt& at, int v) {
   if (!a.run_live[v]) return false;
@@ -507,21 +517,24 @@ __device__ __forceinline__ void vtt_jpush(const VttVictimArgs& a, VttJournal& jr
   ++jr.len;
 }
 
-__device__ __forceinline__ void vtt_wf(const VttVictimArgs& a, VttJournal& jr,
-                                       float* p, float x) {
-  vtt_jpush(a, jr, p, __float_as_uint(*p), 4);
+// *p := x, journalled with its old value `old`, which the caller loaded:
+// an apply loads all the words it is about to write first, so the loads
+// are in flight together rather than one after each journal store
+__device__ __forceinline__ void vtt_wf(const VttVictimArgs& a, VttJournal& jr, float* p,
+                                       float old, float x) {
+  vtt_jpush(a, jr, p, __float_as_uint(old), 4);
   *p = x;
 }
 
-__device__ __forceinline__ void vtt_wi(const VttVictimArgs& a, VttJournal& jr,
-                                       int32_t* p, int32_t x) {
-  vtt_jpush(a, jr, p, (uint32_t)*p, 4);
+__device__ __forceinline__ void vtt_wi(const VttVictimArgs& a, VttJournal& jr, int32_t* p,
+                                       int32_t old, int32_t x) {
+  vtt_jpush(a, jr, p, (uint32_t)old, 4);
   *p = x;
 }
 
-__device__ __forceinline__ void vtt_wb(const VttVictimArgs& a, VttJournal& jr,
-                                       uint8_t* p, uint8_t x) {
-  vtt_jpush(a, jr, p, (uint32_t)*p, 1);
+__device__ __forceinline__ void vtt_wb(const VttVictimArgs& a, VttJournal& jr, uint8_t* p,
+                                       uint8_t old, uint8_t x) {
+  vtt_jpush(a, jr, p, (uint32_t)old, 1);
   *p = x;
 }
 
@@ -537,70 +550,126 @@ __device__ __forceinline__ void vtt_jrestore(const VttVictimArgs& a, VttJournal&
   jr.len = 0;
 }
 
+// victims of one apply staged at a time (vtt_evict_prefix)
+#define VTT_VICT_BATCH 16
+
+// The in-prefix rows of l_ev[p, q) whose job (by_queue: whose queue) is
+// key: their count, their requests added to s (when given).
+static __device__ __forceinline__ int vtt_prefix_rows(const VttVictimArgs& a,
+                                                      const int32_t* l_ev, int p, int q,
+                                                      bool by_queue, int key, double* s) {
+  const int R = (int)a.R;
+  int n = 0;
+  for (int i = p; i < q; ++i) {
+    const int u = l_ev[i];
+    if (!(a.flag[u] & VF_INPRE)) continue;
+    const int j = a.run_job[u];
+    if ((by_queue ? a.job_queue[j] : j) != key) continue;
+    ++n;
+    if (s)
+      for (int r = 0; r < R; ++r) s[r] += (double)a.run_req[(size_t)u * R + r];
+  }
+  return n;
+}
+
 // Evict the in-prefix candidates of one node's eviction list l_ev[off,
 // end) (one thread): the victims' per-job and per-queue sums, run_live and
 // evict_att.  Returns the victim count and their total in vs[] (float64).
+// One pass over the list stages the victims VTT_VICT_BATCH at a time
+// (rows, jobs, queues, the old words of their rows), so a victim's
+// first-of-its-job test and its job's sum read the staged victims, and the
+// list again only where a job's victims span batches.  Each batch's writes
+// go to distinct words, so their order in the journal does not change what
+// a discard restores.
 static __device__ __forceinline__ int vtt_evict_prefix(const VttVictimArgs& a,
                                                        const int32_t* l_ev, int off, int end,
                                                        VttJournal& jr, double* vs) {
+  constexpr int CH = VTT_ROW_CHUNK, B = VTT_VICT_BATCH;
   const int R = (int)a.R, Q = (int)a.Q;
   const int att = a.ctl[VC_ATT];
   for (int r = 0; r < R; ++r) vs[r] = 0.0;
   int nv = 0;
-  for (int i = off; i < end; ++i) {
-    const int v = l_ev[i];
-    if (!(a.flag[v] & VF_INPRE)) continue;
-    ++nv;
-    for (int r = 0; r < R; ++r) vs[r] += (double)a.run_req[(size_t)v * R + r];
-  }
-  // per job and per queue of the victims: one rounded sum each, applied
-  // at the job's / queue's first victim in eviction order
-  for (int i = off; i < end; ++i) {
-    const int v = l_ev[i];
-    if (!(a.flag[v] & VF_INPRE)) continue;
-    const int j = a.run_job[v];
-    const int rq = a.job_queue[j];
-    bool first_j = true, first_q = true;
-    for (int i2 = off; i2 < i; ++i2) {
-      const int u = l_ev[i2];
-      if (!(a.flag[u] & VF_INPRE)) continue;
-      first_j = first_j && a.run_job[u] != j;
-      first_q = first_q && a.job_queue[a.run_job[u]] != rq;
-    }
-    if (first_j) {
-      double js[VTT_MAX_R];
-      int jc = 0;
-      for (int r = 0; r < R; ++r) js[r] = 0.0;
-      for (int i2 = i; i2 < end; ++i2) {
-        const int u = l_ev[i2];
-        if (!(a.flag[u] & VF_INPRE) || a.run_job[u] != j) continue;
-        ++jc;
-        for (int r = 0; r < R; ++r) js[r] += (double)a.run_req[(size_t)u * R + r];
+  for (int p = off; p < end;) {
+    const int p0 = p;
+    int bv[B], bj[B], bq[B], bea[B];
+    uint8_t blive[B];
+    int nb = 0;
+    while (p < end && nb < B) {
+      int v[CH];
+      uint8_t f[CH], live[CH];
+      int32_t ea[CH];
+      vtt_chunk_rows(l_ev, p, end, v);
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        f[k] = a.flag[v[k]];
+        live[k] = a.run_live[v[k]];
+        ea[k] = a.evict_att[v[k]];
       }
-      for (int r = 0; r < R; ++r)
-        vtt_wf(a, jr, &a.job_alloc[(size_t)j * R + r],
-               a.job_alloc[(size_t)j * R + r] - (float)js[r]);
-      vtt_wi(a, jr, &a.job_occupied[j], a.job_occupied[j] - jc);
-    }
-    if (first_q && rq >= 0) {
-      double qs[VTT_MAX_R];
-      for (int r = 0; r < R; ++r) qs[r] = 0.0;
-      for (int i2 = i; i2 < end; ++i2) {
-        const int u = l_ev[i2];
-        if (!(a.flag[u] & VF_INPRE) || a.job_queue[a.run_job[u]] != rq) continue;
-        for (int r = 0; r < R; ++r) qs[r] += (double)a.run_req[(size_t)u * R + r];
+      int taken = 0;  // the chunk's entries scanned before the batch filled
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        if (p + k >= end || nb == B) continue;
+        taken = k + 1;
+        if (!(f[k] & VF_INPRE)) continue;
+        bv[nb] = v[k];
+        blive[nb] = live[k];
+        bea[nb] = ea[k];
+        ++nb;
       }
-      const int q = vtt_clamp(rq, 0, Q - 1);
-      for (int r = 0; r < R; ++r)
-        vtt_wf(a, jr, &a.queue_alloc[(size_t)q * R + r],
-               a.queue_alloc[(size_t)q * R + r] - (float)qs[r]);
+      p += taken;
     }
-  }
-  for (int i = off; i < end; ++i) {
-    const int v = l_ev[i];
-    if (!(a.flag[v] & VF_INPRE)) continue;
-    vtt_wb(a, jr, &a.run_live[v], 0);
-    vtt_wi(a, jr, &a.evict_att[v], att);
+    for (int b = 0; b < nb; ++b) bj[b] = a.run_job[bv[b]];
+    for (int b = 0; b < nb; ++b) bq[b] = a.job_queue[bj[b]];
+    for (int b = 0; b < nb; ++b)
+      for (int r = 0; r < R; ++r) vs[r] += (double)a.run_req[(size_t)bv[b] * R + r];
+    nv += nb;
+    // per job and per queue of the victims: one rounded sum each, applied
+    // at the job's / queue's first victim in eviction order
+    for (int b = 0; b < nb; ++b) {
+      const int j = bj[b], rq = bq[b];
+      bool first_j = true, first_q = true;
+      for (int c = 0; c < b; ++c) {
+        first_j = first_j && bj[c] != j;
+        first_q = first_q && bq[c] != rq;
+      }
+      first_j = first_j && vtt_prefix_rows(a, l_ev, off, p0, false, j, nullptr) == 0;
+      first_q = first_q && vtt_prefix_rows(a, l_ev, off, p0, true, rq, nullptr) == 0;
+      if (first_j) {
+        double js[VTT_MAX_R];
+        for (int r = 0; r < R; ++r) js[r] = 0.0;
+        int jc = 0;
+        for (int c = b; c < nb; ++c) {
+          if (bj[c] != j) continue;
+          ++jc;
+          for (int r = 0; r < R; ++r) js[r] += (double)a.run_req[(size_t)bv[c] * R + r];
+        }
+        jc += vtt_prefix_rows(a, l_ev, p, end, false, j, js);
+        float* ja = &a.job_alloc[(size_t)j * R];
+        float o[VTT_MAX_R];
+        for (int r = 0; r < R; ++r) o[r] = ja[r];
+        const int oc = a.job_occupied[j];
+        for (int r = 0; r < R; ++r) vtt_wf(a, jr, &ja[r], o[r], o[r] - (float)js[r]);
+        vtt_wi(a, jr, &a.job_occupied[j], oc, oc - jc);
+      }
+      if (first_q && rq >= 0) {
+        double qs[VTT_MAX_R];
+        for (int r = 0; r < R; ++r) qs[r] = 0.0;
+        for (int c = b; c < nb; ++c) {
+          if (bq[c] != rq) continue;
+          for (int r = 0; r < R; ++r) qs[r] += (double)a.run_req[(size_t)bv[c] * R + r];
+        }
+        vtt_prefix_rows(a, l_ev, p, end, true, rq, qs);
+        float* qa = &a.queue_alloc[(size_t)vtt_clamp(rq, 0, Q - 1) * R];
+        float o[VTT_MAX_R];
+        for (int r = 0; r < R; ++r) o[r] = qa[r];
+        for (int r = 0; r < R; ++r) vtt_wf(a, jr, &qa[r], o[r], o[r] - (float)qs[r]);
+      }
+    }
+    // the batch's rows and records
+    for (int b = 0; b < nb; ++b) {
+      vtt_wb(a, jr, &a.run_live[bv[b]], blive[b], 0);
+      vtt_wi(a, jr, &a.evict_att[bv[b]], bea[b], att);
+    }
   }
   return nv;
 }
@@ -618,22 +687,33 @@ static __device__ __forceinline__ int vtt_apply_on(const VttVictimArgs& a,
   const int att = a.ctl[VC_ATT];
   double vs[VTT_MAX_R];
   const int nv = vtt_evict_prefix(a, l_ev, off, end, jr, vs);
+  // the preemptor's words, loaded together (after the victims' writes,
+  // which may touch its job's and queue's rows)
+  float* ja = &a.job_alloc[(size_t)at.jt * R];
+  float* qa = at.qt >= 0 ? &a.queue_alloc[(size_t)min(at.qt, Q - 1) * R] : nullptr;
+  float o_rel[VTT_MAX_R], o_used[VTT_MAX_R], o_ja[VTT_MAX_R], o_qa[VTT_MAX_R];
   for (int r = 0; r < R; ++r) {
     if (rel) {
-      vtt_wf(a, jr, &rel[r], rel[r] + ((float)vs[r] - at.req[r]));
-      vtt_wf(a, jr, &used[r], used[r] + at.req[r]);
+      o_rel[r] = rel[r];
+      o_used[r] = used[r];
     }
-    const size_t jr_ = (size_t)at.jt * R + r;
-    vtt_wf(a, jr, &a.job_alloc[jr_], a.job_alloc[jr_] + at.req[r]);
-    if (at.qt >= 0) {
-      const size_t qr = (size_t)min(at.qt, Q - 1) * R + r;
-      vtt_wf(a, jr, &a.queue_alloc[qr], a.queue_alloc[qr] + at.req[r]);
-    }
+    o_ja[r] = ja[r];
+    if (qa) o_qa[r] = qa[r];
   }
-  if (tc) vtt_wi(a, jr, tc, *tc + 1);
-  vtt_wi(a, jr, &a.pipe[at.jt], a.pipe[at.jt] + 1);
-  vtt_wi(a, jr, &a.pipe_node[at.t], n_glob);
-  vtt_wi(a, jr, &a.pipe_att[at.t], att);
+  const int o_tc = tc ? *tc : 0, o_pipe = a.pipe[at.jt];
+  const int o_pn = a.pipe_node[at.t], o_pa = a.pipe_att[at.t];
+  for (int r = 0; r < R; ++r) {
+    if (rel) {
+      vtt_wf(a, jr, &rel[r], o_rel[r], o_rel[r] + ((float)vs[r] - at.req[r]));
+      vtt_wf(a, jr, &used[r], o_used[r], o_used[r] + at.req[r]);
+    }
+    vtt_wf(a, jr, &ja[r], o_ja[r], o_ja[r] + at.req[r]);
+    if (qa) vtt_wf(a, jr, &qa[r], o_qa[r], o_qa[r] + at.req[r]);
+  }
+  if (tc) vtt_wi(a, jr, tc, o_tc, o_tc + 1);
+  vtt_wi(a, jr, &a.pipe[at.jt], o_pipe, o_pipe + 1);
+  vtt_wi(a, jr, &a.pipe_node[at.t], o_pn, n_glob);
+  vtt_wi(a, jr, &a.pipe_att[at.t], o_pa, att);
   a.ctl[VC_ATT] = att + 1;
   return nv;
 }
@@ -908,24 +988,26 @@ static __device__ __forceinline__ void vtt_walk_cluster(const VttVictimArgs& a) 
   __shared__ VttWalk w;
   __shared__ VttWalkTm tm;
   __shared__ int s_range[2];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rank = vtt_cluster_rank(), C = vtt_cluster_size();
-  const bool r0 = rank == 0, tm0 = TM && r0 && tid == 0;
-  if (tid == 0) {
+  // the node walk runs at the register cap (64 at 1024 threads), so the
+  // CTA's rank, size and range are re-read where they are used rather than
+  // held across it
+  const bool tm0 = TM && vtt_cluster_rank() == 0 && threadIdx.x == 0;
+  if (threadIdx.x == 0) {
+    const int rank = vtt_cluster_rank(), C = vtt_cluster_size();
     s_range[0] = vtt_walk_bound(a, rank, C);
     s_range[1] = vtt_walk_bound(a, rank + 1, C);
-    if (r0) W::init(w);
+    if (rank == 0) W::init(w);
   }
   if (tm0) vtt_tm_start(tm);
   __syncthreads();
-  const int lo = s_range[0], hi = s_range[1];
   long long c0 = 0, c1 = 0;
   for (;;) {
-    if (r0) {
+    if (vtt_cluster_rank() == 0) {
       if (TM) c0 = clock64();
       const bool more = W::advance(a, w, s_key, TM ? &tm : nullptr);
       // thread c hands the attempt to CTA c
-      if (tid < C) vtt_cluster_store(&s_msg, tid, VttWalkMsg{w.at, more ? 1 : 0});
+      if ((int)threadIdx.x < vtt_cluster_size())
+        vtt_cluster_store(&s_msg, (int)threadIdx.x, VttWalkMsg{w.at, more ? 1 : 0});
       if (TM) c1 = clock64();
     }
     vtt_cluster_arrive();
@@ -939,7 +1021,7 @@ static __device__ __forceinline__ void vtt_walk_cluster(const VttVictimArgs& a) 
       break;
     }
     VttWalkRec r{0.0f, -1, 0.0f, -1};
-    for (int n = lo + tid; n < hi; n += blockDim.x) {
+    for (int n = s_range[0] + threadIdx.x; n < s_range[1]; n += blockDim.x) {
       bool valid, covered;
       float key;
       vtt_core_node(a, s_msg.at, n, valid, covered, key);
@@ -953,21 +1035,23 @@ static __device__ __forceinline__ void vtt_walk_cluster(const VttVictimArgs& a) 
       }
     }
     vtt_warp_rec_min(r);
-    if (lane == 0) s_warp[warp] = r;
+    if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = r;
     __syncthreads();
     const long long c3 = TM ? clock64() : 0;
-    if (warp == 0) {
-      VttWalkRec m = lane < (int)(blockDim.x >> 5) ? s_warp[lane] : VttWalkRec{0.0f, -1, 0.0f, -1};
+    if (threadIdx.x < 32) {
+      VttWalkRec m = threadIdx.x < (blockDim.x >> 5) ? s_warp[threadIdx.x]
+                                                     : VttWalkRec{0.0f, -1, 0.0f, -1};
       vtt_warp_rec_min(m);
-      if (lane == 0) vtt_cluster_store(&s_rec[rank], 0, m);
+      if (threadIdx.x == 0) vtt_cluster_store(&s_rec[vtt_cluster_rank()], 0, m);
     }
     const long long c4 = TM ? clock64() : 0;
     vtt_cluster_arrive();
     vtt_cluster_wait();
-    if (r0) {
-      if (tid == 0) {
+    if (vtt_cluster_rank() == 0) {
+      if (threadIdx.x == 0) {
         const long long c5 = TM ? clock64() : 0;
         VttWalkRec m{0.0f, -1, 0.0f, -1};
+        const int C = vtt_cluster_size();
         for (int c = 0; c < C; ++c) vtt_rec_take(m, s_rec[c]);
         int nstar;
         bool clean;
@@ -986,8 +1070,8 @@ static __device__ __forceinline__ void vtt_walk_cluster(const VttVictimArgs& a) 
       __syncthreads();
     }
   }
-  if (r0 && tid == 0) W::finish(a, w);
-  if (tm0) vtt_tm_write(tm, a.x_split, C);
+  if (vtt_cluster_rank() == 0 && threadIdx.x == 0) W::finish(a, w);
+  if (tm0) vtt_tm_write(tm, a.x_split, vtt_cluster_size());
 }
 
 // Launch one cluster of a walk kernel: a.cluster names its size (0: the

@@ -821,3 +821,136 @@ def build_reclaim_abort_sim():
     return c, s, dict(task_req=task_req, task_class=np.zeros(T, np.int32),
                       job_start=np.zeros(J, np.int32), job_ntasks=counts,
                       job_prio=np.zeros(J, np.int32), pre=np.array([0]), nt=1, n_jobs=2)
+
+
+#: the shapes the reclaim and preempt walks must get right on a
+#: thread-block cluster and on node blocks (``build_walk_edge_args``)
+WALK_EDGE_CASES = ("row_counts", "tied_keys", "none_covered", "unclean", "discard", "r4", "r8",
+                   "scalar")
+#: the walk edge cases' node row counts, nodes 0-5 (``row_counts``)
+WALK_ROW_COUNTS = (0, 1, 31, 32, 33, 1100)
+
+
+def _resum(c, s):
+    """The state's node, job and queue sums again from the live rows, as
+    ``build_victim_sim`` sums them."""
+    live = s["run_live"]
+    rows, req = c["run_node"][live], c["run_req"][live]
+    N, R = c["node_alloc"].shape
+    used = np.zeros((N, R), np.float32)
+    np.add.at(used, rows, req)
+    count = np.zeros(N, np.int32)
+    np.add.at(count, rows, 1)
+    job_alloc = np.zeros((s["job_alloc"].shape[0], R), np.float32)
+    np.add.at(job_alloc, c["run_job"][live], req)
+    occupied = np.zeros_like(s["job_occupied"])
+    np.add.at(occupied, c["run_job"][live], 1)
+    queue_alloc = np.zeros((s["queue_alloc"].shape[0], R), np.float32)
+    np.add.at(queue_alloc, c["job_queue"][c["run_job"][live]], req)
+    s.update(used=used, idle=np.maximum(c["node_alloc"] - used, 0.0).astype(np.float32),
+             releasing=np.zeros((N, R), np.float32), task_count=count, job_alloc=job_alloc,
+             job_occupied=occupied, queue_alloc=queue_alloc)
+
+
+def _deserve(c, s, seed, n_queues=2):
+    """``build_storm_sim``'s deserved shares from the queues' allocation:
+    queue ``seed % n_queues`` below its share, the others above."""
+    Q = s["queue_alloc"].shape[0]
+    factor = np.where(np.arange(Q) == seed % n_queues, 1.5, 0.6)[:, None]
+    c["queue_deserved"] = (s["queue_alloc"] * factor).astype(np.float32)
+
+
+def _add_scalars(c, s, t, n, rng):
+    """``n`` more scalar resources (0-2 devices a pod, 8 a node, 0-1 a
+    preemptor task), as ``build_storm_sim(scalar=True)`` adds one."""
+    live, valid = s["run_live"], c["node_valid"]
+    V, T = c["run_req"].shape[0], t["task_req"].shape[0]
+    for _ in range(n):
+        c["run_req"] = np.concatenate(
+            [c["run_req"], np.where(live, rng.integers(0, 3, V), 0).astype(np.float32)[:, None]], 1)
+        c["node_alloc"] = np.concatenate(
+            [c["node_alloc"], np.where(valid, 8.0, 0.0).astype(np.float32)[:, None]], 1)
+        c["eps"] = np.append(c["eps"], np.float32(10.0))
+        col = np.where(np.arange(T) < t["nt"], rng.integers(0, 2, T), 0).astype(np.float32)
+        t["task_req"] = np.concatenate([t["task_req"], col[:, None]], 1)
+    c["total"] = c["node_alloc"].sum(0).astype(np.float32)
+
+
+def build_walk_edge_args(case: str, kind: str = "preempt", seed: int = 0):
+    """``(consts, state, tasks, opts)``: a ``build_storm_sim`` scenario
+    reshaped into one edge shape of the reclaim or preempt walk (``kind``),
+    and that solve's options (``storm_inputs(kind, ...)`` gives its
+    arguments):
+
+    * ``row_counts``: nodes of 0, 1, 31, 32, 33 and 1,100 rows
+      (``WALK_ROW_COUNTS``, the last node's capacity 80 nodes'), the rest
+      over six more nodes: a node longer than a CTA's lanes, ranges of a
+      cluster that hold no node; one preemptor that only the long node
+      covers, with dozens of victims;
+    * ``tied_keys``: 64 equal nodes of four equal rows, so every covering
+      node has the same walk key (preempt's score) and nodes in every CTA
+      of a cluster tie;
+    * ``none_covered``: every preemptor asks more than any node holds in
+      every resource: no node is valid, the walk stays clean;
+    * ``unclean``: ``build_reclaim_abort_sim`` without the vetoes (for
+      preempt the preemptor in its victims' queue): the first node of the
+      walk is valid but does not cover, and the walk aborts;
+    * ``discard``: a fresh gang whose first task is small and its others
+      cover nowhere: its statement takes victims, then is discarded and the
+      journal replayed (preempt);
+    * ``r4`` / ``r8``: two or six scalar resources beside cpu and memory;
+    * ``scalar``: ``build_storm_sim(scalar=True, classes=3)``.
+    """
+    if kind == "reclaim":
+        kw = dict(use_gang=True, use_prop=True, use_conformance=True, order_by_priority=True,
+                  has_proportion=True)
+    elif kind == "preempt":
+        kw = dict(use_gang=True, use_drf=True, use_conformance=True, order_by_priority=True)
+    else:
+        raise ValueError(f"unknown walk kind {kind!r}")
+    rng = np.random.default_rng(seed + 2000)
+    if case == "row_counts":
+        c, s, t = build_storm_sim(seed, n_nodes=12, n_victims=1260, n_jobs=12)
+        live = np.flatnonzero(s["run_live"])
+        node = np.repeat(np.arange(len(WALK_ROW_COUNTS)), WALK_ROW_COUNTS)
+        rest = live.size - node.size
+        c["run_node"][live] = np.concatenate([node, 6 + np.arange(rest) % 6])
+        c["node_alloc"][5] *= 80
+        c["total"] = c["node_alloc"].sum(0).astype(np.float32)
+        _resum(c, s)
+        _deserve(c, s, seed)
+        # the first fresh gang's head task fits only the long node, whose
+        # eviction prefix then holds dozens of victims
+        t["task_req"][t["job_start"][12]] = [20000.0, float(40 << 30)]
+    elif case == "tied_keys":
+        c, s, t = build_storm_sim(seed, n_nodes=64, n_victims=256, n_jobs=12)
+        live = np.flatnonzero(s["run_live"])
+        c["run_req"][live] = [500.0, float(512 << 20)]
+        c["run_node"][live] = np.arange(live.size) % 64
+        _resum(c, s)
+        _deserve(c, s, seed)
+    elif case == "none_covered":
+        c, s, t = build_storm_sim(seed)
+        t["task_req"][:t["nt"]] = [1e7, float(1 << 40)]
+    elif case == "unclean":
+        c, s, t = build_reclaim_abort_sim()
+        kw.update(use_gang=False, use_conformance=False,
+                  **({"use_prop": False} if kind == "reclaim" else {"use_drf": False}))
+        if kind == "preempt":
+            c["job_queue"][0] = 0
+    elif case == "discard":
+        c, s, t = build_storm_sim(seed, n_new=3)
+        j = 12  # the first fresh gang (build_storm_sim's n_jobs)
+        first, n = int(t["job_start"][j]), int(t["job_ntasks"][j])
+        t["task_req"][first] = [250.0, float(256 << 20)]
+        t["task_req"][first + 1:first + n] = [1e7, float(1 << 40)]
+    elif case in ("r4", "r8"):
+        c, s, t = build_storm_sim(seed)
+        _add_scalars(c, s, t, int(case[1:]) - 2, rng)
+        _resum(c, s)
+        _deserve(c, s, seed)
+    elif case == "scalar":
+        c, s, t = build_storm_sim(seed, scalar=True, classes=3)
+    else:
+        raise ValueError(f"unknown walk edge case {case!r}")
+    return c, s, t, kw

@@ -1752,9 +1752,10 @@ WALK_BYTES = 512
 
 def _walk_launch(lib, stream, kind, c, s0, task_req, task_class, mesh, nb, extra, sizes,
                  flags):
-    """K15a / K15b on the card: begin, then per pending attempt every local
-    block's core, the exchange of their records and the step.  Returns the
-    state (node planes as tuples) and the buffers."""
+    """K15a / K15b on the card: begin (the pool grouped over the mesh's
+    rows, the walk to its first attempt), then per pending attempt every
+    local block's core, the exchange of their records and the step.
+    Returns the state (node planes as tuples) and the buffers."""
     dev = c.run_req.device
     L = mesh.n_local
     i32 = dict(dtype=torch.int32, device=dev)
@@ -1798,7 +1799,9 @@ def reclaim_solve_sharded(c, s0, task_req, task_class, job_first, job_prio, job_
     latency: each attempt of the walk is a host round trip (the blocks'
     cores, the exchange of one record a block, the step), far above its
     bytes.  Design (csrc/reclaim_solve.cu): K8's walk with its state in
-    global memory, K12b's records, merge and owner-row apply.  CPU tensors
+    global memory, the pool grouped once a solve over the mesh's rows, each
+    attempt's core over several CTAs a block (K12b's records), the merge
+    and an owner-row apply from the chosen node's lists.  CPU tensors
     run ``parallel/sharded.reclaim_blocks_plain``; CUDA tensors launch the
     kernels or raise."""
     kw = dict(use_gang=use_gang, use_prop=use_prop, use_conformance=use_conformance,
