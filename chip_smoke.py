@@ -7,6 +7,8 @@
     python3 chip_smoke.py --victim-split  # only the victim solve's split (K7, K12b)
     python3 chip_smoke.py --storm-split   # only K8-K10 and K15a-c at config 6, timed
     python3 chip_smoke.py --exact-split   # only the exact solve's split (K2, K5 / K6 in it)
+    python3 chip_smoke.py --residue  # only the residue cells (phases 24-25)
+    python3 chip_smoke.py --fast-cells  # only cfg5-batch, cfg5d, cfg6 (parent comparisons)
 
 Phases, each fatal on failure:
 
@@ -16,7 +18,8 @@ Phases, each fatal on failure:
 2. kernels — each kernel on the card at main-path shapes against its plain
    PyTorch version on the same card and inputs, with CUDA-event times:
    water_fill and allocate_solve_batch at build_sim_args(10000, 100000,
-   5000), with the packed decision buffer the solve writes and its one
+   5000) (water_fill beside its launch floor: a one-CTA launch and a
+   4-byte blocking read, k1_launch_floor), with the packed decision buffer the solve writes and its one
    fetch to the host, and the batched solve's split (batch_split: a
    torch.profiler pass over one solve, device ms by kernel of
    csrc/allocate_batch.cu, the rounds and the host gap); allocate_solve at
@@ -151,7 +154,26 @@ Phases, each fatal on failure:
    included, to its plain version on the same blocks and to the one-block
    K8 / K9 / K10; a one-rank NCCL group running four blocks; K15b over the
    whole cfg6 storm (2,000 attempts, phase 9's inputs) on four blocks
-   against the one-block K9.
+   against the one-block K9;
+24. e2e cfg5r — config 5 with 10% dynamic gangs and a best-effort pod on
+   every fifth of them (100 gangs, build_cfg5_store's
+   dynamic_best_effort_every), the other 1,900 best-effort pods on express
+   gangs: the express gangs take K3, the other dynamic gangs K3 with K5,
+   and the 100 "best-effort" residue gangs (2,100 tasks) the object
+   sub-cycle after publish (2,000 through the residue engine in numpy, the
+   100 best-effort pods through backfill).
+   Every gang task and best-effort pod bound within three cycles, the
+   placement invariants after each; the subcycle and residue_vec phases,
+   the engine's task count and the sub-cycle's walls in the log;
+25. e2e cfg6d — cfg6's store (10,000 full nodes, 100,000 residents)
+   stormed by 10 urgent gangs x 20 (cut from 100, so that the object
+   preempt over the storm stays within the run's time), gangs 0 and 5 with
+   host port 30000 + g: the dynamic gangs send the preempt to the object
+   sub-cycle, where a pending dynamic job keeps it on the host preemptor
+   walk (K7 not launched, as in the reference).  Three cycles, victims
+   reaped: no pod evicted twice, victims q0 residents below the storm's
+   priority, pipelines covered, gangs all or nothing, no host port twice,
+   the JAX package's per-cycle pattern; K7 launches and device ms.
 
 With ``--profile``, a torch.profiler pass runs after the build: the
 batched solve's split (``--split``: K3 at config 5 and the 4-block solve at
@@ -168,6 +190,9 @@ the group build alone), so a parent commit is measured in the same call.
 the whole cfg6 storm, K10 on cfg6 and three synthetic shapes, on one
 block, four local blocks and a one-rank NCCL group; device ms by kernel,
 digests, and for K8 / K9 the timed walk's stages and each cluster size).
+``--residue`` runs the build and phases 24-25 alone; ``--fast-cells`` the
+build and cfg5-batch, cfg5d and cfg6 (no sub-cycle), so a parent given
+this file is timed beside the change in one call.
 ``--exact-split`` runs the build and the exact solve's split alone
 (phase_exact_split: K2 on cfg5-exact's inputs, on the dynamic solves
 cfg5d-exact (K5) and cfg5v-2000 (K5 and K6) capture, at 128 queues and on a
@@ -409,6 +434,28 @@ def _exact_solve_ops(out, a, ps_ops=None):
     return ops
 
 
+def k1_launch_floor(dev):
+    """The least time K1's wrapper contract can take, timed as K1 is (CUDA
+    events, 50 calls): one launch of a one-CTA kernel (PyTorch's fill of a
+    one-element int32 tensor) and the blocking 4-byte read of its result;
+    then the same with the three torch.empty calls of K1's wrapper."""
+    import torch
+
+    x = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def launch_read():
+        x.fill_(1)
+        return int(x[0])
+
+    def alloc_launch_read():
+        for shape in ((3, 2), (3, 2), (6,)):
+            torch.empty(shape, dtype=torch.float32, device=dev)
+        return launch_read()
+
+    launch_read()
+    return cuda_ms(launch_read, 50), cuda_ms(alloc_launch_read, 50)
+
+
 def phase_kernels():
     import torch
 
@@ -443,6 +490,11 @@ def phase_kernels():
                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                      bound_by=kind, library_ms=None))
     log(f"[kernels] water_fill ok: {ms:.4f} ms (plain {plain_ms:.3f} ms), rounds {rounds}")
+    floor_ms, floor_alloc_ms = k1_launch_floor(dev)
+    rows[-1]["launch_floor_ms"] = floor_ms
+    log(f"[kernels] water_fill's launch floor (a one-CTA launch and a 4-byte blocking read, "
+        f"50 calls): {floor_ms:.4f} ms; with the wrapper's three allocations "
+        f"{floor_alloc_ms:.4f} ms; K1 at {ms / floor_ms:.2f}x the floor")
 
     solve_in = {k: (des_k if k == "queue_deserved" else a[k]) for k in K._SOLVE_ARGS}
     opts = dict(job_key_order=("priority", "gang", "drf"), use_gang_ready=True,
@@ -639,14 +691,17 @@ def _compare(name, out_k, out_p):
 
 
 def build_cfg5_store(n_jobs=CFG5["jobs"], n_best_effort=CFG5["best_effort"], dynamic_frac=0.0,
-                     volume_tasks=0):
+                     volume_tasks=0, dynamic_best_effort_every=0):
     """bench.py _build_e2e_store with the port's objects: 10k nodes, n_jobs
     gangs x 20 tasks in 2 weighted queues (plus "default"), PodGroups
     Pending (enqueue admits them).  The first ``dynamic_frac`` x 5,000
     gangs are dynamic: even ones give every task host port 20000 + j % 64,
     odd ones label each task grp=g{j % 48} with anti-affinity to that
     label.  One best-effort pod goes on each of the next n_best_effort
-    gangs (never on a dynamic one).  ``volume_tasks`` / 20 volume gangs
+    gangs (never on a dynamic one); with ``dynamic_best_effort_every`` = e,
+    every e-th dynamic gang (j % e == 0) gets one of them instead (which
+    makes it "best-effort" residue) and the rest go on the next express
+    gangs.  ``volume_tasks`` / 20 volume gangs
     vol{v} of 100m / 64Mi tasks (bench.py:329-365): even ones mount claim
     vc{v}, Bound to a 50Gi PV of class net pinned to node
     n{(v * 97) % 10000}; odd ones share the pending 5Gi claim vc{v} of the
@@ -664,6 +719,9 @@ def build_cfg5_store(n_jobs=CFG5["jobs"], n_best_effort=CFG5["best_effort"], dyn
     cpus = rng.choice([250, 500, 1000, 2000], CFG5["jobs"] * tpj)
     mems = rng.choice([256, 512, 1024, 2048], CFG5["jobs"] * tpj) * (1 << 20)
     n_dynamic = int(CFG5["jobs"] * dynamic_frac)
+    dyn_be = (range(0, n_dynamic, dynamic_best_effort_every) if dynamic_best_effort_every
+              else range(0))
+    n_express_be = n_best_effort - len(dyn_be)
     store = Store()
     for q in range(n_q):
         store.create("Queue", Queue(meta=Metadata(name=f"q{q}", namespace=""), weight=n_q - q))
@@ -693,7 +751,7 @@ def build_cfg5_store(n_jobs=CFG5["jobs"], n_best_effort=CFG5["best_effort"], dyn
                               labels=labels),
                 spec=spec))
             k += 1
-        if dyn_kind is None and j < n_dynamic + n_best_effort:
+        if (j in dyn_be) or (dyn_kind is None and j < n_dynamic + n_express_be):
             store.create("Pod", Pod(
                 meta=Metadata(name=f"be{j:05d}", namespace="default", annotations=dict(ann)),
                 spec=PodSpec(resources=Resource())))
@@ -812,10 +870,8 @@ def check_placement(store):
     over = np.nonzero((used > cap).any(axis=1))[0]
     if over.size:
         raise AssertionError(f"{over.size} nodes over capacity, e.g. row {over[0]}")
+    check_placement_ports(store)
     for i, pods in on_node.items():
-        ports = [port for p in pods for port in p.spec.host_ports]
-        if len(ports) != len(set(ports)):
-            raise AssertionError(f"node row {i} holds a host port twice: {sorted(ports)}")
         for p in pods:
             aff = p.spec.affinity
             if aff is None:
@@ -836,7 +892,7 @@ def check_placement(store):
 
 
 def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
-              max_cycles=MAX_CYCLES, capture=None, volume_tasks=0):
+              max_cycles=MAX_CYCLES, capture=None, volume_tasks=0, dynamic_best_effort_every=0):
     """Drive Scheduler.run_once on the card; returns the launch counts of
     the first cycle (reset just before it, read just after).  ``want`` maps
     a kernel to the launches the first cycle must make at least (a name
@@ -844,7 +900,9 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
     ``capture``: a list that receives the first cycle's dynamic-solve
     inputs (backend, snapshot, dyn arrays).  ``volume_tasks``: volume gangs
     as bench.py config5_volumes adds them, held to ``check_volumes`` after
-    every cycle."""
+    every cycle.  ``dynamic_best_effort_every``: best-effort pods on every
+    such dynamic gang (build_cfg5_store), which become residue: the first
+    cycle must then run the object sub-cycle and its residue engine."""
     import torch
 
     from volcano_tpu_torch.scheduler import kernels as K
@@ -853,7 +911,8 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
     from volcano_tpu_torch.scheduler.scheduler import Scheduler
 
     t0 = time.perf_counter()
-    store = build_cfg5_store(n_jobs, n_best_effort, dynamic_frac, volume_tasks)
+    store = build_cfg5_store(n_jobs, n_best_effort, dynamic_frac, volume_tasks,
+                             dynamic_best_effort_every)
     n_dyn = int(CFG5["jobs"] * dynamic_frac)
     n_vol = volume_tasks // CFG5["tasks_per_job"]
     log(f"[{label}] store built: {CFG5['nodes']} nodes, {n_jobs} gangs x "
@@ -882,6 +941,19 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
         cycle_mod.torch_dynamic_solve = solve_dyn
     phases = {k: round(v, 4) for k, v in sched.fast_cycle.phases.items()}
     log(f"[{label}] cycle 1 wall {wall:.3f} s phases {json.dumps(phases)} launches {launches}")
+    if dynamic_best_effort_every:
+        fc = sched.fast_cycle
+        reasons = {}
+        for why in fc.last_residue_reasons.values():
+            reasons[why] = reasons.get(why, 0) + 1
+        missing = {"subcycle", "residue_vec"} - set(phases)
+        if missing or sched.last_path != "fast":
+            raise AssertionError(f"{label}: cycle 1 took the {sched.last_path} path, phases "
+                                 f"{sorted(phases)} lack {sorted(missing)}")
+        log(f"[{label}] residue: {len(fc.last_residue_reasons)} jobs {reasons}, "
+            f"{fc.residue_stats['tasks']} tasks through the engine in "
+            f"{fc.residue_stats['seconds']:.4f} s; sub-cycle walls "
+            f"{json.dumps(_object_walls(sched))}")
     if solve_walls:
         # the dyn_solve phase = the dynamic inputs built on the host, then
         # the upload, the solve and its one fetch
@@ -1105,14 +1177,17 @@ ROUND_ROW_OPS = 18
 PLAIN_STORM_LIMIT_S = 60.0
 
 
-def build_contended_store(cell, reclaim_gangs=CFG6["reclaim_gangs"]):
+def build_contended_store(cell, reclaim_gangs=CFG6["reclaim_gangs"],
+                          storm_gangs=CFG6["storm_gangs"], ported=()):
     """bench.py _build_contended_store with the port's objects: 10,000 nodes
     of 8 cpu / 16Gi / 110 pods, each exactly full on cpu with ten 800m /
     1.2Gi residents of queue q0 (5,000 running jobs x 20).  cfg6 (and
     cfg6-exact): 100 urgent gangs (priority 100) x 20 tasks of 1500m / 2Gi in
     q0; cfg6b: the same plus one empty-request pod no node admits on the
     first gang; cfg6r: no storm, but ``reclaim_gangs`` gangs x 20 tasks of
-    1500m / 2Gi in a second queue q1 (both weight 1) reclaiming."""
+    1500m / 2Gi in a second queue q1 (both weight 1) reclaiming.
+    ``storm_gangs``: the storm's gang count; the gangs g in ``ported`` give
+    each task host port 30000 + g (cfg6d)."""
     from volcano_tpu_torch.api import (
         POD_GROUP_KEY, Metadata, Node, Pod, PodGroup, PodGroupPhase, PodPhase, PodSpec,
         PriorityClass, Queue, Resource,
@@ -1143,7 +1218,7 @@ def build_contended_store(cell, reclaim_gangs=CFG6["reclaim_gangs"]):
                 spec=PodSpec(resources=Resource(800.0, 1.2 * (1 << 30))),
                 phase=PodPhase.RUNNING, node_name=f"n{k % n_nodes:05d}"))
             k += 1
-    gangs = reclaim_gangs if cell == "cfg6r" else CFG6["storm_gangs"]
+    gangs = reclaim_gangs if cell == "cfg6r" else storm_gangs
     for j in range(gangs):
         name = f"rec{j:03d}" if cell == "cfg6r" else f"hot{j:03d}"
         pg = PodGroup(meta=Metadata(name=name, namespace="default"), min_member=tpj,
@@ -1155,7 +1230,8 @@ def build_contended_store(cell, reclaim_gangs=CFG6["reclaim_gangs"]):
         for t in range(tpj):
             store.create("Pod", Pod(
                 meta=Metadata(name=f"{name}-{t}", namespace="default", annotations=dict(ann)),
-                spec=PodSpec(resources=Resource(1500.0, 2.0 * (1 << 30)))))
+                spec=PodSpec(resources=Resource(1500.0, 2.0 * (1 << 30)),
+                             host_ports=[30000 + j] if j in ported else [])))
         if cell == "cfg6b" and j == 0:
             store.create("Pod", Pod(
                 meta=Metadata(name=f"hbe{j:03d}", namespace="default", annotations=dict(ann)),
@@ -3779,6 +3855,150 @@ def phase_contention_mesh_kernels(captured, launches, captured8):
     return rows
 
 
+# the residue cells (phases 24-25).  cfg5r: config 5 with 10% dynamic gangs,
+# one best-effort pod on every fifth of them (100 gangs: 2,100 residue tasks,
+# 2,000 through the engine, the 100 best-effort pods through backfill), the
+# other 1,900 on express gangs.  cfg6d: cfg6's
+# store stormed by 10 gangs x 20 (cut from 100, so that the object preempt
+# over the storm stays within the run's time), gangs 0 and 5 with a host
+# port: the dynamic gangs send the preempt to the object sub-cycle, where a
+# session with a pending dynamic job takes the host preemptor walk (the
+# reference's tensor_actions._victim_path_usable rule), not K7
+CFG5R_DYNAMIC_FRAC = 0.10
+CFG5R_BE_EVERY = 5
+CFG6D = dict(storm_gangs=10, ported=(0, 5))
+# per cycle (evictions, pipelines, binds), the victims reaped between
+# cycles: the JAX package's pattern on cfg6d's storm at 1,000 nodes
+# (tests/test_torch_residue.py CFG6D_TENTH_PATTERN), two 800m victims a
+# 1500m preemptor, the storm bound in the next cycle
+CFG6D_PATTERN = [(400, 200, 0), (0, 0, 200), (0, 0, 0)]
+
+
+def phase_cfg5r():
+    """e2e cfg5r: config 5 with 10% dynamic gangs and best-effort pods on
+    every fifth of them.  The express gangs take K3, the other dynamic
+    gangs K3 with portsel (K5); the residue gangs and their best-effort
+    pods go to the object sub-cycle (the residue engine, then backfill).
+    Every gang task and best-effort pod bound within three cycles, the
+    placement invariants after each.  Returns the first cycle's launches."""
+    return phase_e2e("e2e cfg5r", CFG5["jobs"], CFG5["best_effort"],
+                     want={"water_fill": 1, "allocate_solve_batch": 2,
+                           "allocate_solve_batch_portsel": 1},
+                     forbid=("allocate_solve", "allocate_solve_portsel") + CONTENTION_KERNELS,
+                     dynamic_frac=CFG5R_DYNAMIC_FRAC, max_cycles=MAX_CYCLES_DYNAMIC,
+                     dynamic_best_effort_every=CFG5R_BE_EVERY)
+
+
+def phase_cfg6d():
+    """e2e cfg6d: cfg6's full store (10,000 nodes, 100,000 residents)
+    stormed by CFG6D's gangs, two with host ports, under full_conf("cuda").
+    The fast cycle's solves (K1, K2, K2 with K5) place nothing (the cluster
+    is full); the preempt runs in the object sub-cycle, on the host
+    preemptor walk since a dynamic job is pending (K7, K7g and the fast
+    contention kernels must not launch).  Three cycles, victims reaped: no
+    pod evicted twice, every victim a q0 resident below the storm's
+    priority, the pipelines covered by each node's idle plus releasing
+    capacity and pod cap, gangs pipelined all or nothing, no host port
+    twice on a node, the JAX package's per-cycle pattern; K7 launches and
+    device ms from ObjectCapture.  Returns the first cycle's launches."""
+    import torch
+
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    label = "e2e cfg6d"
+    t0 = time.perf_counter()
+    store = build_contended_store("cfg6", **CFG6D)
+    log(f"[{label}] store built: {CFG6['nodes']} nodes, "
+        f"{CFG6['run_jobs'] * CFG6['tasks_per_job']} residents, {CFG6D['storm_gangs']} storm "
+        f"gangs x {CFG6['tasks_per_job']}, gangs {list(CFG6D['ported'])} with a host port "
+        f"({time.perf_counter() - t0:.1f} s)")
+    sched = Scheduler(store, conf=full_conf("cuda"))
+    log(f"[{label}] prewarm {sched.prewarm():.2f} s")
+    cap = ObjectCapture()
+    history, evicted = [], []
+    try:
+        for cycle in range(len(CFG6D_PATTERN)):
+            n_ev, n_pipe, n_bind = (len(sched.cache.evict_log), len(cap.pipes),
+                                    len(sched.cache.bind_log))
+            if cycle == 0:
+                reset_launches()
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if cycle == 0:
+                launches = read_launches()
+            victims = [k for k, _ in sched.cache.evict_log[n_ev:]]
+            pipes = cap.pipes[n_pipe:]
+            history.append((len(victims), len(pipes), len(sched.cache.bind_log) - n_bind))
+            phases = {k: round(v, 4) for k, v in sched.fast_cycle.phases.items()}
+            sub = (f" sub-cycle walls {json.dumps(_object_walls(sched))}"
+                   if "subcycle" in phases else "")
+            log(f"[{label}] cycle {cycle + 1} wall {wall:.3f} s phases {json.dumps(phases)}{sub} "
+                f"(evictions, pipelines, binds) {history[-1]}; victim_step device "
+                f"{cap.take_device_ms():.3f} ms" + (f" launches {launches}" if cycle == 0 else ""))
+            if cycle == 0 and ("subcycle" not in phases or sched.last_path != "fast"):
+                raise AssertionError(f"{label}: cycle 1 took the {sched.last_path} path with "
+                                     f"phases {sorted(phases)}: the preempt must run in the "
+                                     "object sub-cycle")
+            check_contention_cycle(label, "cfg6", store, victims, pipes)
+            evicted += victims
+            for key in victims:  # the kubelet reaps the victims
+                store.delete("Pod", key)
+    finally:
+        cap.close()
+    if len(set(evicted)) != len(evicted):
+        raise AssertionError(f"{label}: a pod was evicted twice")
+    if history != CFG6D_PATTERN:
+        raise AssertionError(f"{label}: per-cycle (evictions, pipelines, binds) {history}, "
+                             f"the reference's pattern is {CFG6D_PATTERN}")
+    unbound = [p.meta.key for p in store.list("Pod")
+               if p.meta.name.startswith("hot") and not p.node_name]
+    if unbound:
+        raise AssertionError(f"{label}: storm pods unbound: {unbound[:5]}")
+    check_placement_ports(store)
+    want = {"water_fill": 1, "allocate_solve": 1, "allocate_solve_portsel": 1}
+    for name, at_least in want.items():
+        if launches[name] < at_least:
+            raise AssertionError(f"{label}: kernel {name} launched {launches[name]} times on "
+                                 f"the main path, expected at least {at_least}")
+    for name in CONTENTION_KERNELS + MESH_CONTENTION_KERNELS + OBJECT_FORBID:
+        if launches[name]:
+            raise AssertionError(f"{label}: kernel {name} launched ({launches[name]})")
+    log(f"[{label}] invariants hold; evictions per cycle {[h[0] for h in history]}")
+    return launches
+
+
+def phase_fast_cells():
+    """Cells that never reach the object sub-cycle, alone, so that a parent
+    tree (given this file) and a change are timed in one call: cfg5-batch,
+    cfg5d and cfg6 (phases 3, 5 and 8's first cell), each with its checks
+    and its cycle-1 wall split into phases in the log."""
+    phase_e2e("e2e batch", CFG5["jobs"], CFG5["best_effort"],
+              want=("water_fill", "allocate_solve_batch"),
+              forbid=("allocate_solve",) + CONTENTION_KERNELS)
+    phase_e2e("e2e cfg5d", CFG5["jobs"], CFG5["best_effort"],
+              want={"water_fill": 1, "allocate_solve_batch": 2,
+                    "allocate_solve_batch_portsel": 1},
+              forbid=("allocate_solve", "allocate_solve_portsel") + CONTENTION_KERNELS,
+              dynamic_frac=0.10, max_cycles=MAX_CYCLES_DYNAMIC)
+    phase_contention("e2e cfg6", "cfg6", {"preempt_rounds": 1, "water_fill": 1},
+                     ("reclaim_solve",) + MESH_CONTENTION_KERNELS)
+
+
+def check_placement_ports(store):
+    """No node holds a host port twice."""
+    ports = {}
+    for p in store.list("Pod"):
+        if p.node_name:
+            for port in p.spec.host_ports:
+                if (p.node_name, port) in ports:
+                    raise AssertionError(f"node {p.node_name} holds host port {port} twice: "
+                                         f"{ports[(p.node_name, port)]}, {p.meta.key}")
+                ports[(p.node_name, port)] = p.meta.key
+
+
 def _phase_clock():
     """mark(name): log how far into the run ``name`` ended, and its share."""
     t0 = last = time.perf_counter()
@@ -3816,6 +4036,22 @@ def main(argv):
     if "--exact-split" in argv:
         log(smi)
         log(json.dumps({"exact_split": phase_exact_split()}))
+        return 0
+    if "--fast-cells" in argv:
+        log(smi)
+        phase_fast_cells()
+        log(smi)
+        return 0
+    if "--residue" in argv:
+        log(smi)
+        floor_ms, floor_alloc_ms = k1_launch_floor(torch.device("cuda"))
+        log(f"[kernels] water_fill's launch floor {floor_ms:.4f} ms, with the wrapper's "
+            f"allocations {floor_alloc_ms:.4f} ms")
+        phase_cfg5r()
+        mark("phase 24")
+        phase_cfg6d()
+        mark("phase 25")
+        log(smi)
         return 0
     if "--profile" in argv:
         i = argv.index("--profile") + 1
@@ -3902,6 +4138,12 @@ def main(argv):
     mark("phase 22")
     kern.update(phase_contention_mesh_kernels(k15_in, k15_launches, captured))
     mark("phase 23")
+    del k15_in, captured
+    gc.collect()
+    phase_cfg5r()
+    mark("phase 24")
+    phase_cfg6d()
+    mark("phase 25")
     for name, kid in (("allocate_solve_batch", "K3"), ("preempt_rounds", "K10"),
                       ("allocate_solve", "K2"), ("water_fill", "K1")):
         kern[name]["cap_lifts"] = {k: v for k, v in caps.items() if k.split("@")[0] == kid}

@@ -8,8 +8,9 @@ the port's ``Scheduler(..., backend="cpu").run_once()`` must give the same
 ``backend: tpu`` and the same actions and tiers — on the exact path and on
 the batch path (``solveMode: batch``; JAX with ``exactTopK``).  Also: the
 port imports neither jax nor volcano_tpu, its default backend needs a
-card, and the clusters the JAX cycle hands to its object sub-cycle raise
-(those it declines as a whole run on the port's object path).
+card, and the clusters the JAX cycle hands to its object sub-cycle finish
+the port's fast cycle the same way (those it declines as a whole run on the
+port's object path).
 """
 
 import ast
@@ -30,7 +31,7 @@ from volcano_tpu.scheduler.fastpath import build_fast_snapshot as jax_build_fast
 from volcano_tpu.scheduler.scheduler import Scheduler as JScheduler
 from volcano_tpu.store import Store as JStore
 from volcano_tpu_torch import interop
-from volcano_tpu_torch.api import POD_GROUP_KEY, Metadata
+from volcano_tpu_torch.api import POD_GROUP_KEY
 from volcano_tpu_torch.scheduler import conf as tconf
 from volcano_tpu_torch.scheduler.fastpath import ArrayMirror, build_fast_snapshot
 from volcano_tpu_torch.scheduler.scheduler import Scheduler
@@ -307,13 +308,6 @@ def test_default_backend_without_a_card_raises(monkeypatch):
     assert POD_GROUP_KEY == JAX_POD_GROUP_KEY
 
 
-def _pod(name, **spec_kw):
-    from volcano_tpu_torch.api import Pod, PodSpec, Resource
-
-    return Pod(meta=Metadata(name=name, annotations={POD_GROUP_KEY: "job3"}),
-               spec=PodSpec(resources=Resource(500, 1 << 29), **spec_kw))
-
-
 def _jax_case(case):
     """The JAX twin of the object-path cases below: cluster_spec(2) plus
     the case's objects, and the conf."""
@@ -335,77 +329,74 @@ def _jax_case(case):
     return store, conf
 
 
-# (case, the NotImplementedError text, or None where the JAX cycle takes its
-# whole-cycle object path and the port must equal it); the ids are the
-# cases' ids from before the object path was ported
+# (case, where the JAX fast cycle finishes it: "subcycle" when it hands work
+# to its object sub-cycle, "object" when it declines the whole cycle); the
+# ids are the cases' ids from before the object path and the sub-cycle
+# were ported
 OUT_OF_SLICE = [
-    pytest.param("preempt", "preempt in a cycle with dynamic.*item 8b",
-                 id="preempt-contention slice"),
-    pytest.param("plugin", None, id="plugin-object path"),
-    pytest.param("port-overflow", "intern-overflow.*item 8b",
-                 id="port-overflow-intern-overflow.*object path"),
-    pytest.param("best-effort-dynamic", "best-effort.*item 8b",
+    pytest.param("preempt", "subcycle", id="preempt-contention slice"),
+    pytest.param("plugin", "object", id="plugin-object path"),
+    pytest.param("port-overflow", "subcycle", id="port-overflow-intern-overflow.*object path"),
+    pytest.param("best-effort-dynamic", "subcycle",
                  id="best-effort-dynamic-best-effort.*object path"),
-    pytest.param("partition-unsafe", None, id="partition-unsafe-partition unsafe.*object path"),
-    pytest.param("volume", "volume-shape.*item 8b", id="volume-volume-shape.*object path"),
+    pytest.param("partition-unsafe", "object", id="partition-unsafe-partition unsafe.*object path"),
+    pytest.param("volume", "subcycle", id="volume-volume-shape.*object path"),
 ]
 
 
-@pytest.mark.parametrize("case,match", OUT_OF_SLICE)
-def test_out_of_slice_clusters_raise(case, match, monkeypatch):
-    """Clusters the JAX fast cycle hands to its object sub-cycle raise,
-    naming ROADMAP item 8b (the residue cases run without reclaim: with a
-    reclaim pass possible the JAX cycle declines them as a whole, see
-    test_residue_with_reclaim_work_takes_the_object_path).  Those it
-    declines as a whole (a plugin the tensor path does not model; a dynamic
-    job that outranks an express job of its queue) run on the object path
-    and equal the JAX Scheduler."""
-    from volcano_tpu_torch.api import Affinity, PodGroup, PodGroupPhase, Resource
+def _jax_subcycle_case(case):
+    """The JAX store of a case the JAX fast cycle hands to its object
+    sub-cycle: cluster_spec(2) plus an unplaceable host-port job in each
+    queue (preempt beside dynamic jobs), or one residue job (129 host
+    ports, past the 128 the mirror interns; a best-effort pod beside pod
+    anti-affinity; two pending claims of one static class)."""
+    from test_torch_object import _residue_case
 
-    if match is None:
-        from test_torch_object import run_pair
+    if case != "preempt":
+        return _residue_case(case)
+    store = jax_store_from_spec(cluster_spec(2))
+    for q in ("qa", "qb"):
+        pg = jobj.PodGroup(meta=jobj.Metadata(name=f"dyn-{q}", namespace="default"),
+                           min_member=1, queue=q)
+        pg.status.phase = JPhase.INQUEUE
+        store.create("PodGroup", pg)
+        store.create("Pod", jobj.Pod(
+            meta=jobj.Metadata(name=f"dyn-{q}-0", namespace="default",
+                               annotations={JAX_POD_GROUP_KEY: f"dyn-{q}"}),
+            spec=jobj.PodSpec(resources=JResource(64000, 1 << 29), host_ports=[8080])))
+    return store
 
+
+@pytest.mark.parametrize("case,where", OUT_OF_SLICE)
+def test_out_of_slice_clusters_raise(case, where, monkeypatch):
+    """Clusters the JAX fast cycle does not finish on its device passes
+    alone.  Those it hands to its object sub-cycle (the residue cases run
+    without reclaim: with a reclaim pass possible the JAX cycle declines
+    them as a whole, see test_residue_with_reclaim_work_takes_the_object_path)
+    finish the port's fast cycle the same way; those it declines as a whole
+    (a plugin the tensor path does not model; a dynamic job that outranks an
+    express job of its queue) run on the object path.  Two cycles each,
+    equal to the JAX Scheduler cycle by cycle: binds, evictions, pipelines,
+    pods, PodGroup phases and conditions, residue reasons."""
+    from test_torch_object import run_pair, same_fast_cycle
+
+    if where == "object":
         js, jc = _jax_case(case)
         _, sched = run_pair(monkeypatch, lambda: js, jax_conf=jc, fast_path="auto")
         assert sched.last_path == "object"
         return
-    store = interop.store_from_spec(cluster_spec(2))
-    conf = tconf.full_conf("cpu")
-    conf.actions = ["enqueue", "allocate", "backfill", "preempt"]
-    if case == "preempt":
-        # preempt with an unplaceable dynamic job in each queue: the JAX
-        # cycle hands it to its object sub-cycle
-        for q in ("qa", "qb"):
-            pg = PodGroup(meta=Metadata(name=f"dyn-{q}"), min_member=1, queue=q)
-            pg.status.phase = PodGroupPhase.INQUEUE
-            store.create("PodGroup", pg)
-            pod = _pod(f"dyn-{q}-0", host_ports=[8080])
-            pod.meta.annotations[POD_GROUP_KEY] = f"dyn-{q}"
-            pod.spec.resources = Resource(64000, 1 << 29)
-            store.create("Pod", pod)
-    elif case == "port-overflow":
-        # 129 distinct host ports: past the 128 the mirror interns
-        store.create("Pod", _pod("dyn", host_ports=list(range(20000, 20129))))
-    elif case == "best-effort-dynamic":
-        store.create("Pod", _pod("anti", affinity=Affinity(pod_anti_affinity=[{"a": "b"}])))
-        pod = _pod("be")
-        pod.spec.resources = Resource()
-        store.create("Pod", pod)
-    else:
-        # two pending claims of one static class in one pod: a volume shape
-        # the JAX cycle hands to its residue engine (a claim-less volume
-        # binds: tests/test_torch_volumes.py)
-        from volcano_tpu_torch.api import PersistentVolume, PersistentVolumeClaim, StorageClass
+    jc = jconf.full_conf("tpu")
+    jc.actions = ["enqueue", "allocate", "backfill", "preempt"]
+    seen = []
 
-        store.create("StorageClass", StorageClass(meta=Metadata(name="local", namespace=""),
-                                                  provisioner=""))
-        for i in range(2):
-            store.create("PV", PersistentVolume(meta=Metadata(name=f"pv{i}", namespace=""),
-                                                capacity="10Gi", storage_class="local"))
-            store.create("PVC", PersistentVolumeClaim(meta=Metadata(name=f"c{i}"), size="1Gi",
-                                                      storage_class="local"))
-        pod = _pod("vol")
-        pod.volumes = ["c0", "c1"]
-        store.create("Pod", pod)
-    with pytest.raises(NotImplementedError, match=match):
-        Scheduler(store, conf=conf).run_once()
+    def check(cycle, jsched, tsched):
+        same_fast_cycle(cycle, jsched, tsched)
+        seen.append(("subcycle" in tsched.fast_cycle.phases,
+                     dict(tsched.fast_cycle.last_residue_reasons)))
+
+    _, sched = run_pair(monkeypatch, lambda: _jax_subcycle_case(case), jax_conf=jc,
+                        fast_path="auto", cycles=2, each_cycle=check)
+    assert sched.last_path == "fast"
+    assert seen[0][0]  # the first cycle ran the sub-cycle
+    if case != "preempt":
+        assert seen[0][1]

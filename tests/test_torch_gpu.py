@@ -242,8 +242,8 @@ def test_gpu_dynamic_scheduler_binds_equal_cpu(solve_mode, seed):
     for backend in ("cuda", "cpu"):
         store = interop.store_from_spec(_dyn_spec(seed))
         conf = full_conf(backend)
-        # the dynamic pass alone: preempt with dynamic jobs is the object
-        # path's (ROADMAP queue 1 item 8)
+        # the dynamic pass alone: preempt beside dynamic jobs runs in the
+        # object sub-cycle (test_gpu_residue_subcycle_equals_cpu)
         conf.actions = ["enqueue", "allocate", "backfill"]
         conf.solve_mode = solve_mode
         sched = Scheduler(store, conf=conf)
@@ -258,6 +258,40 @@ def test_gpu_dynamic_scheduler_binds_equal_cpu(solve_mode, seed):
             {g.meta.key: g.status.phase for g in store.list("PodGroup")},
         ))
     assert states[0] == states[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(2))
+def test_gpu_residue_subcycle_equals_cpu(seed):
+    """A best-effort pod on every dynamic job makes those jobs residue: under
+    the full conf the fast cycle solves the express jobs on the card (K1,
+    then K2 or K3), hands the residue to its object sub-cycle (the numpy
+    engine, then backfill and preempt) and binds, evicts and writes what the
+    cpu backend's plain versions do."""
+    _cuda()
+    outs = []
+    for backend in ("cuda", "cpu"):
+        spec = _dyn_spec(seed)
+        dyn = sorted({p["group"] for p in spec["pods"] if p.get("phase") != "Running" and (
+            p.get("host_ports") or p.get("pod_affinity") or p.get("pod_anti_affinity"))})
+        assert dyn
+        spec["pods"] += [{"name": f"be-{g}", "group": g, "resources": {}} for g in dyn]
+        store = interop.store_from_spec(spec)
+        sched = Scheduler(store, conf=full_conf(backend))
+        K.reset_launches()
+        sched.run_once()
+        fc = sched.fast_cycle
+        assert sched.last_path == "fast"
+        assert {"subcycle", "residue_vec"} <= set(fc.phases)
+        assert set(fc.last_residue_reasons.values()) == {"best-effort"}
+        if backend == "cuda":
+            assert K.LAUNCHES["water_fill"] >= 1
+            assert K.LAUNCHES["allocate_solve"] + K.LAUNCHES["allocate_solve_batch"] >= 1
+        outs.append((dict(sched.cache.bind_log), list(sched.cache.evict_log),
+                     {g.meta.key: (g.status.phase, [c.message for c in g.status.conditions])
+                      for g in store.list("PodGroup")}))
+    assert outs[0] == outs[1]
+    assert any(k.startswith("default/be-") for k in outs[0][0])
 
 
 # -- K6: volumes ---------------------------------------------------------------

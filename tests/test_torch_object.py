@@ -234,9 +234,10 @@ def _outcome(store, sched):
 
 
 def run_pair(monkeypatch, build, actions=None, tiers=None, fast_path="off",
-             cycles=1, reap=False, jax_conf=None):
+             cycles=1, reap=False, jax_conf=None, each_cycle=None):
     """Both schedulers over ``cycles`` cycles (``reap``: evicted pods are
-    deleted between cycles); asserts equal outcomes after every cycle and
+    deleted between cycles); asserts equal outcomes after every cycle, calls
+    ``each_cycle(cycle, jax_scheduler, port_scheduler)`` if given, and
     returns the per-cycle (evictions, pipelines, binds) and the port's
     scheduler."""
     jpipes = Pipes(monkeypatch, jsession.Session, jstatement.Statement)
@@ -260,6 +261,8 @@ def run_pair(monkeypatch, build, actions=None, tiers=None, fast_path="off",
         for key in ("binds", "evicts", "pods", "groups", "claims"):
             assert to[key] == jo[key], f"cycle {cycle}: {key}"
         assert tpipes.log == jpipes.log, f"cycle {cycle}: pipelines"
+        if each_cycle is not None:
+            each_cycle(cycle, jsched, tsched)
         history.append((len(tsched.cache.evict_log) - n0[0], len(tpipes.log) - n0[1],
                         len(tsched.cache.bind_log) - n0[2]))
         if reap:
@@ -268,6 +271,22 @@ def run_pair(monkeypatch, build, actions=None, tiers=None, fast_path="off",
                     ts.delete("Pod", key)
                     js.delete("Pod", key)
     return history, tsched
+
+
+SUBCYCLE_PHASES = ("subcycle", "residue_vec", "preempt", "dyn_solve", "vol_solve")
+
+
+def same_fast_cycle(cycle, jsched, tsched):
+    """``run_pair``'s ``each_cycle`` for fast cycles: the same path, the
+    same residue reasons, and the sub-cycle phases present in both or in
+    neither."""
+    jfc, tfc = jsched.fast_cycle, tsched.fast_cycle
+    # a JAX fast cycle that finished has published
+    assert (tsched.last_path == "fast") == ("publish" in jfc.phases), f"cycle {cycle}"
+    assert tfc.last_residue_reasons == jfc.last_residue_reasons, f"cycle {cycle}"
+    if tsched.last_path == "fast":
+        for phase in SUBCYCLE_PHASES:
+            assert (phase in tfc.phases) == (phase in jfc.phases), f"cycle {cycle}: {phase}"
 
 
 # -- scenarios ------------------------------------------------------------------

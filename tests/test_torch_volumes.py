@@ -17,8 +17,8 @@
   by their claim's uid, which differs between the stores, so the states
   name them by their claim.
 * Residue: the volume shapes the JAX cycle hands to its residue engine
-  raise NotImplementedError naming ROADMAP queue 1 item 8 in the port,
-  with the JAX cycle's reason class.
+  get the JAX cycle's reason class in the port too, and its object
+  sub-cycle places them as the JAX one does, cycle by cycle.
 * Config 5 with volume gangs (bench.py config5_volumes) at 1/100 of its
   scale, cycle by cycle against the JAX Scheduler.
 """
@@ -665,22 +665,36 @@ RESIDUE_CASES = {
 
 
 @pytest.mark.parametrize("case", list(RESIDUE_CASES))
-def test_residue_volume_shapes_raise_where_jax_leaves_the_device(case):
+def test_residue_volume_shapes_raise_where_jax_leaves_the_device(case, monkeypatch):
+    """Volume shapes the count model cannot express: the JAX fast cycle
+    gives them these residue reasons and places them in its object
+    sub-cycle on the residue engine; the port does the same.  Two cycles on
+    the JAX store copied uid for uid, equal cycle by cycle: binds,
+    evictions, pipelines, pods, PodGroup phases and conditions, claims,
+    residue reasons (tolerance: exact)."""
+    from test_torch_object import run_pair, same_fast_cycle
+
     solve_mode, reasons = RESIDUE_CASES[case]
     spec = residue_spec(case)
-    jpair, tpair = _pair(spec, solve_mode=solve_mode)
-    jpair[1].run_once()
-    got = jpair[1].fast_cycle.last_residue_reasons
+    jc, _ = _confs(solve_mode=solve_mode)
+    got = []
+
+    def check(cycle, jsched, tsched):
+        same_fast_cycle(cycle, jsched, tsched)
+        got.append((dict(jsched.fast_cycle.last_residue_reasons),
+                    set(tsched.fast_cycle.phases)))
+
+    run_pair(monkeypatch, lambda: jax_store_from_spec(spec), jax_conf=jc,
+             fast_path="auto", cycles=2, each_cycle=check)
+    first, phases = got[0]
     if case == "claim-cap":
         # claims intern in mirror-row order: the last two overflow; their
         # pool's other claimants follow them through the contention closure
-        assert {k: v for k, v in got.items() if v == "volume-claim-cap"} == reasons
-        assert set(got.values()) == {"volume-claim-cap", "contended-claims"}
-        reasons = got
-    assert got == reasons
-    want = "|".join(sorted(set(reasons.values())))
-    with pytest.raises(NotImplementedError, match=rf"({want}).*queue 1 item 8b"):
-        tpair[1].run_once()
+        assert {k: v for k, v in first.items() if v == "volume-claim-cap"} == reasons
+        assert set(first.values()) == {"volume-claim-cap", "contended-claims"}
+        reasons = first
+    assert first == reasons
+    assert {"subcycle", "residue_vec"} <= phases
 
 
 # -- config 5 with volume gangs at 1/100 scale ---------------------------------

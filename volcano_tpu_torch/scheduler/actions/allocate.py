@@ -14,9 +14,11 @@ Loop shape:
 
 With a tensor backend on the session the whole loop is the device solve
 (``tensor_actions.allocate``), its decisions replayed through the same
-Session.allocate/pipeline seams.  A filtered pass (``job_filter``) runs the
-per-task loop below; the JAX package routes it to its vectorized residue
-engine, which its own tests hold equal to this loop.
+Session.allocate/pipeline seams.  A filtered pass (``job_filter``, the fast
+cycle's object sub-cycle) runs the vectorized residue engine
+(``scheduler/residue.py``): the same ``allocate_loop`` with the inner step
+batched over the nodes, bit for bit this loop's placements.  The unfiltered
+pass keeps the per-task step below as the oracle.
 """
 
 from __future__ import annotations
@@ -170,10 +172,22 @@ class AllocateAction(Action):
             return
         self._execute_host(ssn)
 
-    def _execute_host(self, ssn: Session, job_filter=None) -> None:
-        # ``job_filter`` restricts the pass to a job subset: the
+    def _execute_host(self, ssn: Session, job_filter=None, vectorized=None,
+                      stats=None) -> None:
+        # ``job_filter`` restricts the pass to a job subset: the residue
+        # jobs of the fast cycle (scheduler.run_object_residue), or the
         # dynamic-predicate jobs after a device solve
-        # (tensor_actions._host_allocate_jobs)
+        # (tensor_actions._host_allocate_jobs).  A filtered pass takes the
+        # vectorized engine; the unfiltered one keeps the per-task step as
+        # the oracle.  ``vectorized`` forces the choice (tests); ``stats``
+        # gathers the engine's {"tasks", "seconds"} for the residue_vec phase
+        if vectorized is None:
+            vectorized = job_filter is not None
+        if vectorized:
+            from volcano_tpu_torch.scheduler import residue
+
+            if residue.vector_allocate(ssn, job_filter, stats=stats):
+                return
         all_nodes = util.get_node_list(ssn.nodes)
         predicate_fn = fit_first_predicate_fn(ssn)
 

@@ -15,9 +15,13 @@ from volcano_tpu_torch.scheduler.session import Session
 class BackfillAction(Action):
     name = "backfill"
 
-    def execute(self, ssn: Session) -> None:
+    def execute(self, ssn: Session, job_filter=None) -> None:
+        # ``job_filter`` restricts the pass to a job subset: the residue
+        # jobs of the fast cycle (scheduler.run_object_residue)
         all_nodes = util.get_node_list(ssn.nodes)
         for job in list(ssn.jobs.values()):
+            if job_filter is not None and not job_filter(job):
+                continue
             if (
                 job.pod_group is not None
                 and job.pod_group.status.phase == PodGroupPhase.PENDING

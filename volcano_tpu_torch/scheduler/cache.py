@@ -11,7 +11,9 @@ verb (``bind_bulk``, ``evict_bulk``, the fast cycle's), with the same
 the pod for deletion (``deleting=True``); the kubelet reaps it.
 ``VolumeBinder`` assumes and commits a pod's claims, as the reference's
 binder does; it takes the pod itself where the JAX binder takes a
-``TaskInfo``.  No async applier or events yet.
+``TaskInfo``.  ``cycle_overlay`` holds the fast cycle's published binds
+while its object sub-cycle runs, and ``snapshot()`` folds them in.  No
+async applier or events yet.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 from volcano_tpu_torch.api.objects import POD_GROUP_KEY, Metadata, PersistentVolume, Pod
 from volcano_tpu_torch.api.resource import parse_quantity
+from volcano_tpu_torch.api.types import TaskStatus
 from volcano_tpu_torch.scheduler.model import ClusterInfo, JobInfo, NodeInfo, QueueInfo, TaskInfo
 
 _LOG = logging.getLogger("volcano_tpu_torch.scheduler")
@@ -290,6 +293,11 @@ class SchedulerCache:
         self.default_queue = default_queue
         self.evictor = Evictor(store)
         self.volume_binder = VolumeBinder(store)
+        # binds the fast cycle published this cycle (pod key -> node): the
+        # object sub-cycle's snapshot folds them in, so it sees the express
+        # placements whatever the bind seam wrote to the store.  Set and
+        # cleared (try/finally) by FastCycle.try_run around the sub-cycle
+        self.cycle_overlay: Dict[str, str] = {}
         self.bind_log: List[Tuple[str, str]] = []
         self.evict_log: List[Tuple[str, str]] = []  # (pod_key, reason)
         # failed side effects, retried by the next cycle's fresh snapshot
@@ -355,10 +363,16 @@ class SchedulerCache:
             cluster.jobs[uid].name = pdb.meta.name
             cluster.jobs[uid].min_available = pdb.min_available
 
+        overlay = self.cycle_overlay
         for pod in self.store.items("Pod"):
             if pod.spec.scheduler_name != self.scheduler_name:
                 continue
             task = TaskInfo(pod)
+            if overlay:
+                host = overlay.get(task.key)
+                if host and not pod.node_name and task.status == TaskStatus.PENDING:
+                    task.node_name = host
+                    task.status = TaskStatus.BOUND
             if task.priority == 0 and task.priority_class:
                 task.priority = priority_classes.get(task.priority_class, default_priority)
             job_uid = self._job_uid_for(pod, pg_by_key)

@@ -25,9 +25,9 @@ final state's node planes are gathered back in the pass's one fetch.
 
 A pass the kernel cannot express — the reference's host walk would strand
 evictions on a node that cannot cover the request (``clean=False``) —
-returns False with nothing recorded; the cycle then raises, since the
-object path that replays such a cycle is not ported yet (ROADMAP queue 1
-item 8).  Left out of this copy: the ``metrics`` counters and the
+returns False with nothing recorded; the cycle then runs the object
+preempt in its sub-cycle, or, if the reclaim pass holds records, takes the
+object path for the whole cycle.  Left out of this copy: the ``metrics`` counters and the
 ``vtprof`` dispatch hooks of the JAX module (ROADMAP queue 1 item 9).
 
 Divergences from the object path are the JAX module's: eviction-order ties

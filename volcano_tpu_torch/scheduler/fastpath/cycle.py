@@ -9,8 +9,12 @@ preempt run only when their conservative prechecks find possible work
 (``scheduler/fast_victims.py``).  Where the JAX ``FastCycle.try_run``
 returns False, this one does too (after shipping the enqueue admissions it
 already made), and the scheduler runs the whole cycle on the object path.
-Where the JAX cycle hands jobs to its object sub-cycle, this cycle raises
-``NotImplementedError`` naming the ROADMAP item that will cover the case.
+Work the device passes cannot express runs after publish in the object
+sub-cycle (``Scheduler.run_object_residue``), timed as ``subcycle`` with the
+residue engine's share as ``residue_vec``: the residue jobs (intern-cap
+overflow, best-effort pods of dynamic jobs, volume shapes the count model
+cannot hold) and the preempt of a cycle with dynamic-predicate jobs, or one
+whose reference walk would strand evictions.
 Under a conf mesh the batched solves (the express one and the dynamic
 one) run on node blocks, and with ``solve_mode="batch"`` the contention
 passes too (K15a-c), as the JAX cycle shards them there.
@@ -23,7 +27,7 @@ placements, the PodGroup statuses and the enqueue admissions.
 from __future__ import annotations
 
 import time
-from typing import Dict, List
+from typing import Dict, List, Set
 
 import numpy as np
 
@@ -46,8 +50,6 @@ from volcano_tpu_torch.scheduler.tensor_backend import TensorBackend
 #: enqueue's overcommit factor (enqueue.go:80)
 OVERCOMMIT_FACTOR = 1.2
 
-_SUBCYCLE = "ROADMAP queue 1 item 8b (object sub-cycle)"
-
 
 class FastCycle:
     def __init__(self, scheduler):
@@ -69,6 +71,10 @@ class FastCycle:
         self.mirror = None
         #: wall seconds per phase of the last try_run
         self.phases: Dict[str, float] = {}
+        #: residue job key -> the class that kept it off the device, last cycle
+        self.last_residue_reasons: Dict[str, str] = {}
+        #: the residue engine's {"tasks", "seconds"} in the last sub-cycle
+        self.residue_stats: Dict[str, float] = {}
         # pg key -> (phase, running, failed, succeeded, message) last written
         self._status_fp: Dict[str, tuple] = {}
         self._err_seen = 0
@@ -97,6 +103,7 @@ class FastCycle:
         if not self.conf_ok():
             return False
         ph = self.phases = {}
+        self.residue_stats = {}
         self._vol_session_cleared = False
         t = time.perf_counter()
         self.sync_mirror()
@@ -117,20 +124,12 @@ class FastCycle:
             # phase appears only when volume pods are pending
             ph["vol_solve"] = aux["vol_solve_s"]
             ph["snapshot"] -= aux["vol_solve_s"]
+        self.last_residue_reasons = dict(aux["residue_reasons"])
         if aux["partition_unsafe"]:
             # a dynamic job outranks an express job in its queue: a
             # device-first pass would invert priority under contention
             return False
         reclaim_work = "reclaim" in self.conf.actions and self._reclaim_possible(snap, aux)
-        # a worker never runs the sub-cycle: the residue is the coordinator's
-        if aux["residue_keys"] and not reclaim_work and self.is_coordinator:
-            # the JAX cycle hands these jobs to its residue engine; the
-            # reasons name the classes (intern-overflow, best-effort,
-            # volume-shape, volume-claim-cap, contended-claims, batch-wave)
-            why = sorted(set(aux["residue_reasons"].values()))
-            raise NotImplementedError(
-                f"dynamic jobs the device solve cannot express ({', '.join(why)}): "
-                f"{_SUBCYCLE}")
 
         # preempt is the last action: it runs only if starving tasks remain
         # after the allocate, backfill and dynamic passes
@@ -184,6 +183,7 @@ class FastCycle:
             be_per_job = np.zeros(snap.job_min_available.shape[0], np.int64)
         ph["backfill"] = time.perf_counter() - t
 
+        residue = bool(aux["residue_keys"])
         unplaced = bool((snap.task_valid & (task_kind == 0)).any())
         # the dynamic pass: dyn-expr jobs (host ports, pod (anti)affinity)
         # run the solve with the portsel extension over the state the
@@ -218,33 +218,37 @@ class FastCycle:
             ph["dyn_solve"] = time.perf_counter() - t
 
         be_left = self._pending_best_effort(m, snap, aux, minus_placed=be_rows)
-        if preempt_later and (unplaced or be_left or dyn_unplaced):
-            if dyn_any:
-                # the contention state folds only the express task layout:
-                # the object machinery must run the preempt, a whole object
-                # cycle once the reclaim pass holds unpublished records
+        obj_preempt = False
+        if preempt_later and (unplaced or residue or be_left or dyn_unplaced):
+            if residue or dyn_any:
+                # residue preemptors, or any dynamic job in the cycle (the
+                # contention state folds only the express task layout): the
+                # object preempt runs in the sub-cycle, a whole object cycle
+                # once the reclaim pass holds unpublished records
                 if cont is not None and (cont.evictions or cont.pipelines):
                     return self._object_path(enq_ops)
-                self._subcycle(enq_ops, "preempt in a cycle with dynamic-predicate jobs")
-            t = time.perf_counter()
-            if cont is None:
-                cont = self._make_contention(snap, aux)
-            cont.advance_post_solve(task_node, task_kind, ready, be_rows, be_nodes)
-            if be_left:
-                # empty-request preemptors join the task arrays (the victim
-                # core takes exactly one victim for them, as the host loop)
-                placed_mask = self._repack_with_best_effort(m, snap, aux, cont, task_kind,
-                                                            be_rows)
+                obj_preempt = True
             else:
-                placed_mask = task_kind > 0
-            if not cont.preempt_pass(placed_mask):
-                # the reference's walk would strand evictions (clean=False);
-                # reclaim's records must not publish without that preempt
-                if cont.evictions or cont.pipelines:
-                    return self._object_path(enq_ops)
-                self._subcycle(enq_ops, "preempt whose reference walk strands evictions "
-                               "(clean=False)")
-            ph["preempt"] = time.perf_counter() - t
+                t = time.perf_counter()
+                if cont is None:
+                    cont = self._make_contention(snap, aux)
+                cont.advance_post_solve(task_node, task_kind, ready, be_rows, be_nodes)
+                if be_left:
+                    # empty-request preemptors join the task arrays (the
+                    # victim core takes exactly one victim for them, as the
+                    # host loop)
+                    placed_mask = self._repack_with_best_effort(m, snap, aux, cont, task_kind,
+                                                                be_rows)
+                else:
+                    placed_mask = task_kind > 0
+                if not cont.preempt_pass(placed_mask):
+                    # the reference's walk would strand evictions
+                    # (clean=False): its records were rolled back; reclaim's
+                    # must not publish without the preempt after them
+                    if cont.evictions or cont.pipelines:
+                        return self._object_path(enq_ops)
+                    obj_preempt = True
+                ph["preempt"] = time.perf_counter() - t
 
         if not self.is_coordinator:
             # owned-slice publish: the fetch zero-filled the express rows
@@ -259,15 +263,37 @@ class FastCycle:
             be_rows = np.zeros(0, np.int64)
             be_nodes = np.zeros(0, np.int32)
             be_per_job = np.zeros_like(be_per_job)
+        # a worker never runs the object sub-cycle: the residue and the
+        # object preempt are the coordinator's
+        run_sub = (residue or obj_preempt) and self.is_coordinator
+        if run_sub:
+            # the sub-cycle's close_session reads store phases: the
+            # admissions land first
+            self._ship_enqueue_ops(enq_ops)
         t = time.perf_counter()
         evicts, ready_status = self._collect_contention(m, snap, aux, cont)
-        publish_and_close(self, m, snap, aux, task_node, task_kind, ready,
-                          be_rows, be_nodes, be_per_job,
-                          pe_rows_solve, task_job_solve, task_req_solve,
-                          evicts=evicts, ready_status=ready_status,
-                          write_status=self.is_coordinator)
-        self._ship_enqueue_ops(enq_ops)
+        # with a sub-cycle, its close_session owns the PodGroup statuses:
+        # it sees the residue placements and the preempt's pipelines
+        pub_binds = publish_and_close(self, m, snap, aux, task_node, task_kind, ready,
+                                      be_rows, be_nodes, be_per_job,
+                                      pe_rows_solve, task_job_solve, task_req_solve,
+                                      evicts=evicts, ready_status=ready_status,
+                                      write_status=not run_sub and self.is_coordinator)
+        if not run_sub:
+            self._ship_enqueue_ops(enq_ops)
         ph["publish"] = time.perf_counter() - t
+        if run_sub:
+            # the sub-cycle's snapshot sees this cycle's published binds
+            # whatever the bind seam wrote to the store
+            self.cache.cycle_overlay = dict(pub_binds)
+            t = time.perf_counter()
+            try:
+                self._object_subcycle(aux["residue_keys"], obj_preempt)
+            finally:
+                self.cache.cycle_overlay = {}
+                ph["subcycle"] = time.perf_counter() - t
+                if self.residue_stats.get("seconds"):
+                    ph["residue_vec"] = self.residue_stats["seconds"]
         return True
 
     def _object_path(self, enq_ops) -> bool:
@@ -277,11 +303,14 @@ class FastCycle:
         self._ship_enqueue_ops(enq_ops)
         return False
 
-    def _subcycle(self, enq_ops, why: str) -> None:
-        """The JAX cycle hands this case to its object sub-cycle, which the
-        port does not have yet: ship the admissions and raise."""
-        self._ship_enqueue_ops(enq_ops)
-        raise NotImplementedError(f"{why}: {_SUBCYCLE}")
+    def _object_subcycle(self, residue_keys: Set[str], run_preempt: bool) -> None:
+        """Work that survived the device passes and needs the object
+        machinery: the residue jobs' allocate and backfill, and the preempt
+        action if ``run_preempt``, in one session that sees the published
+        binds and writes the cycle's PodGroup statuses."""
+        self.sched.run_object_residue(residue_keys, run_preempt)
+        # close_session wrote statuses the fast fingerprints do not know
+        self._status_fp.clear()
 
     # -- contention (fast_victims.py) ------------------------------------------
 
@@ -505,6 +534,10 @@ class FastCycle:
         be_rows = np.nonzero(be)[0]
         if be_rows.size:
             be_rows = be_rows[snap.job_schedulable[aux["pod_j"][be_rows]]]
+        if be_rows.size:
+            # dynamic jobs backfill in the object sub-cycle (a best-effort
+            # pod beside host ports needs the resident-state predicates)
+            be_rows = be_rows[~aux["dyn_job"][aux["pod_j"][be_rows]]]
         if not be_rows.size:
             return np.zeros(0, np.int64), np.zeros(0, np.int32), be_per_job
         # node task counts after the allocate pass

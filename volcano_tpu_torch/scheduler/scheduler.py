@@ -11,9 +11,12 @@ the card and raises RuntimeError when no card is present;
 resolves to the node blocks every batched solve shards over
 (``parallel/sharded.py``).  ``mesh_hosts > 1`` runs the multi-controller
 cycle: this process publishes only its owned task block, and a worker
-(``mesh_host_id != 0``) skips the cycles its fast cycle declines.  The fast
-cycle's object sub-cycle (dynamic-predicate residue jobs) is not ported
-yet: those cycles raise NotImplementedError naming the ROADMAP item.
+(``mesh_host_id != 0``) skips the cycles its fast cycle declines.  Work the
+fast cycle's device passes cannot express (residue jobs, preempt beside
+dynamic-predicate jobs) runs in its object sub-cycle,
+``run_object_residue``: one session that sees the fast cycle's published
+binds, the residue allocate on the vectorized engine
+(``scheduler/residue.py``), backfill, and the preempt action.
 """
 
 from __future__ import annotations
@@ -81,8 +84,8 @@ class Scheduler:
         self.fast_cycle = FastCycle(self) if self.conf.fast_path != "off" else None
         #: "fast" or "object": the path the last cycle took
         self.last_path = ""
-        #: wall seconds of the last object cycle: session_open, each
-        #: action by name, close_session
+        #: wall seconds of the last object cycle or object sub-cycle:
+        #: session_open, each action by name, close_session
         self.object_phases: Dict[str, float] = {}
 
     def prewarm(self) -> float:
@@ -133,6 +136,49 @@ class Scheduler:
             t = time.perf_counter()
             action.execute(ssn)
             ph[name] = time.perf_counter() - t
+        t = time.perf_counter()
+        close_session(ssn)
+        ph["close_session"] = time.perf_counter() - t
+
+    def run_object_residue(self, residue_keys, run_preempt: bool) -> None:
+        """The fast cycle's object sub-cycle: allocate and backfill scoped
+        to the residue jobs (by PodGroup key, or by the shadow uid of plain
+        pods), then the preempt action if ``run_preempt``, in one session
+        that sees the fast cycle's published binds through
+        ``cache.cycle_overlay``.  close_session owns the cycle's PodGroup
+        status writes.  ``object_phases`` gets the sub-cycle's walls."""
+        from volcano_tpu_torch.scheduler.actions.allocate import AllocateAction
+        from volcano_tpu_torch.scheduler.actions.backfill import BackfillAction
+
+        ph = self.object_phases = {}
+        t = time.perf_counter()
+        ssn = self._open_object_session()
+        ph["session_open"] = time.perf_counter() - t
+        if residue_keys:
+            def in_residue(job):
+                if job.pod_group is not None:
+                    return job.pod_group.meta.key in residue_keys
+                # shadow gangs: the session keys them by the same
+                # shadow/{ns}/{owner-or-name} uid as the fast mirror
+                return job.uid in residue_keys
+
+            if "allocate" in self.conf.actions:
+                # the vectorized engine; its share of the sub-cycle is the
+                # fast cycle's residue_vec phase
+                stats = self.fast_cycle.residue_stats if self.fast_cycle is not None else None
+                t = time.perf_counter()
+                AllocateAction()._execute_host(ssn, job_filter=in_residue, stats=stats)
+                ph["allocate"] = time.perf_counter() - t
+            if "backfill" in self.conf.actions:
+                t = time.perf_counter()
+                BackfillAction().execute(ssn, job_filter=in_residue)
+                ph["backfill"] = time.perf_counter() - t
+        if run_preempt:
+            action = get_action("preempt")
+            if action is not None:
+                t = time.perf_counter()
+                action.execute(ssn)
+                ph["preempt"] = time.perf_counter() - t
         t = time.perf_counter()
         close_session(ssn)
         ph["close_session"] = time.perf_counter() - t

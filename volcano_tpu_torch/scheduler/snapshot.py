@@ -23,6 +23,7 @@ import numpy as np
 from volcano_tpu_torch.api.objects import Node, Pod, match_expressions
 from volcano_tpu_torch.api.resource import MIN_MEMORY, MIN_MILLI_CPU, MIN_SCALAR
 from volcano_tpu_torch.api.types import PodGroupPhase, TaskStatus, allocated_status
+from volcano_tpu_torch.scheduler.model import NodeInfo, TaskInfo
 
 
 def _bucket(n: int, minimum: int = 8) -> int:
@@ -146,6 +147,18 @@ def _static_predicate(pod: Pod, node: Node) -> bool:
         if cond.kind in ("MemoryPressure", "DiskPressure", "PIDPressure") and cond.status == "True":
             return False
     return node_selector_fits(pod, node) and taints_tolerated(pod, node)
+
+
+def task_class_key(task: TaskInfo):
+    """``_task_class_key`` of a session task: the residue engine's key of
+    its per-class static node masks."""
+    return _task_class_key(task.pod)
+
+
+def static_predicate_task(task: TaskInfo, node: NodeInfo) -> bool:
+    """``_static_predicate`` in the session's form (a task on a node's
+    info), as the residue engine calls it."""
+    return _static_predicate(task.pod, node.node)
 
 
 def node_affinity_score(pod: Pod, node: Node) -> float:

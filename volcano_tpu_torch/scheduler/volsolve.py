@@ -21,8 +21,8 @@ solve's ``volsel`` extension (K6) tests and decrements:
     PV resolve on the device as in the host binder's assume-cache.
 
 Shapes the count model cannot express get a residue verdict with a reason
-class (the JAX package solves them on its host residue engine; the port
-raises for them until its object path lands):
+class, and the fast cycle's object sub-cycle places them on the host
+residue engine (``scheduler/residue.py``):
 
   * a class pool mixing network and node-pinned PVs, or a PV whose
     affinity matches several nodes;
