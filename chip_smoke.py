@@ -9,6 +9,7 @@
     python3 chip_smoke.py --exact-split   # only the exact solve's split (K2, K5 / K6 in it)
     python3 chip_smoke.py --residue  # only the residue cells (phases 24-25)
     python3 chip_smoke.py --fast-cells  # only cfg5-batch, cfg5d, cfg6 (parent comparisons)
+    python3 chip_smoke.py --publish-split  # only the publish modes at cfg5-batch, cfg6, cfg9
 
 Phases, each fatal on failure:
 
@@ -175,6 +176,23 @@ Phases, each fatal on failure:
    priority, pipelines covered, gangs all or nothing, no host port twice,
    the JAX package's per-cycle pattern; K7 launches and device ms.
 
+Phases 3-6, 8, 10, 16, 21 (cfg5-2h), 22 and 24 run their Scheduler with
+``apply_mode="async"`` and the columnar publish, as the JAX package's
+bench.py runs its configs: the applier is flushed after every cycle (a
+timeout or a dead applier thread fails the phase) before the cell's checks
+read the store, and a ``publish after cycle N`` line gives the cycle's
+``publish`` / ``publish_build`` / ``publish_ship``, the flush wall, the
+applier's ``drain_stats``, the ``err_log`` counts and the Events by
+reason, which must hold one Scheduled Event a bind and one Evict Event (by
+count) an eviction.  The object cells (12, 14, 18) and cfg6d keep the
+synchronous path, now with its Events, and print the same line.
+``--publish-split`` runs the build and phase_publish_split alone:
+cfg5-batch and cfg6 under sync per-object (the parent's path) and async
+columnar, four rounds in rotated order (cfg5-batch's
+cycle 2 alternately with cycle 1's write-back in flight and after a
+flush), then cfg9 under sync and async columnar; every run of a cell must
+make the same decisions.
+
 With ``--profile``, a torch.profiler pass runs after the build: the
 batched solve's split (``--split``: K3 at config 5 and the 4-block solve at
 cfg9's shape, each against its plain version), then one config-5 cycle and
@@ -192,7 +210,9 @@ block, four local blocks and a one-rank NCCL group; device ms by kernel,
 digests, and for K8 / K9 the timed walk's stages and each cluster size).
 ``--residue`` runs the build and phases 24-25 alone; ``--fast-cells`` the
 build and cfg5-batch, cfg5d and cfg6 (no sub-cycle), so a parent given
-this file is timed beside the change in one call.
+this file is timed beside the change in one call.  These cells run under
+the applier with the columnar publish, where a tree without the applier
+publishes inline: pair two trees' ``--fast-cells`` only when both have it.
 ``--exact-split`` runs the build and the exact solve's split alone
 (phase_exact_split: K2 on cfg5-exact's inputs, on the dynamic solves
 cfg5d-exact (K5) and cfg5v-2000 (K5 and K6) capture, at 128 queues and on a
@@ -210,6 +230,7 @@ when CUDA is unavailable or any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -273,6 +294,61 @@ def reset_launches():
 def read_launches():
     """Every kernel's launches since the last reset_launches()."""
     return {k: v for mod in _counters() for k, v in mod.LAUNCHES.items()}
+
+
+#: the applier's drain deadline after a cycle (config 5 and 6 drain in
+#: seconds); cfg9's 1,000,000 binds and as many Events get their own
+FLUSH_TIMEOUT_S = 120.0
+CFG9_FLUSH_TIMEOUT_S = 900.0
+
+
+def async_conf(conf):
+    """A copy of ``conf`` under the applier thread, which ships the columnar
+    publish (the JAX package's bench.py runs its configs so)."""
+    return dataclasses.replace(conf, apply_mode="async")
+
+
+def flush_applier(label, sched, timeout=FLUSH_TIMEOUT_S):
+    """Wait for the applier to land every decision; fails the phase on a
+    timeout (and ``flush`` raises on a dead applier thread).  Returns the
+    wall, 0 without an applier."""
+    applier = sched.cache.applier
+    if applier is None:
+        return 0.0
+    t0 = time.perf_counter()
+    if not applier.flush(timeout):
+        raise AssertionError(f"{label}: the applier did not drain in {timeout:.0f} s "
+                             f"({applier.pending} entries left)")
+    return time.perf_counter() - t0
+
+
+def publish_report(label, sched, flush_s, cycle=1):
+    """The last cycle's publish split (``publish``, ``publish_build``,
+    ``publish_ship``), the flush wall, the applier's ``drain_stats`` and the
+    ``err_log`` counts by op, after a flush.  Fails unless the store holds
+    one Scheduled Event a logged bind and one Evict Event (by count) a
+    logged eviction, less the writes ``err_log`` records as failed."""
+    cache = sched.cache
+    ph = sched.fast_cycle.phases if sched.fast_cycle is not None else {}
+    reasons = {}
+    for ev in cache.store.list("Event"):
+        reasons[ev.reason] = reasons.get(ev.reason, 0) + ev.count
+    errs = {}
+    for op, _, _ in cache.err_log:
+        errs[op] = errs.get(op, 0) + 1
+    row = {k: round(ph[k], 4) for k in ("publish", "publish_build", "publish_ship") if k in ph}
+    row.update(flush_s=round(flush_s, 4), events=reasons, err_log=errs,
+               binds=len(cache.bind_log), evictions=len(cache.evict_log))
+    if cache.applier is not None:
+        row["drain_stats"] = {k: round(v, 4) for k, v in cache.applier.drain_stats.items()}
+    log(f"[{label}] publish after cycle {cycle}: {json.dumps(row)}")
+    want_s = len(cache.bind_log) - errs.get("bind", 0)
+    want_e = len(cache.evict_log) - errs.get("evict", 0)
+    if reasons.get("Scheduled", 0) != want_s or reasons.get("Evict", 0) != want_e:
+        raise AssertionError(f"{label}: {reasons.get('Scheduled', 0)} Scheduled and "
+                             f"{reasons.get('Evict', 0)} Evict Events for {want_s} binds and "
+                             f"{want_e} evictions")
+    return row
 
 
 def cuda_ms(fn, reps):
@@ -918,7 +994,7 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
     log(f"[{label}] store built: {CFG5['nodes']} nodes, {n_jobs} gangs x "
         f"{CFG5['tasks_per_job']} ({n_dyn} dynamic), {n_best_effort} best-effort, "
         f"{n_vol} volume gangs ({time.perf_counter() - t0:.1f} s)")
-    sched = Scheduler(store, conf=full_conf("cuda"))
+    sched = Scheduler(store, conf=async_conf(full_conf("cuda")))
     log(f"[{label}] prewarm {sched.prewarm():.2f} s")
     solve_dyn = cycle_mod.torch_dynamic_solve
     solve_walls = []
@@ -941,6 +1017,7 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
         cycle_mod.torch_dynamic_solve = solve_dyn
     phases = {k: round(v, 4) for k, v in sched.fast_cycle.phases.items()}
     log(f"[{label}] cycle 1 wall {wall:.3f} s phases {json.dumps(phases)} launches {launches}")
+    publish_report(label, sched, flush_applier(label, sched))
     if dynamic_best_effort_every:
         fc = sched.fast_cycle
         reasons = {}
@@ -995,6 +1072,7 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
         sched.run_once()
         log(f"[{label}] cycle {cycles} wall {time.perf_counter() - t0:.3f} s phases "
             f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}")
+        publish_report(label, sched, flush_applier(label, sched), cycles)
         gang, be = check(cycles)
     if gang != want_gang or be != n_best_effort or placeable:
         raise AssertionError(f"{label}: {gang} gang tasks and {be} best-effort bound after "
@@ -1015,6 +1093,8 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
     steady = time.perf_counter() - t0
     log(f"[{label}] steady cycle wall {steady:.4f} s phases "
         f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}")
+    publish_report(label, sched, flush_applier(label, sched), cycles + 1)
+    sched.close()
     if n_vol:
         log(f"[{label}] volume gangs bound per cycle (cumulative): {vol_bound}")
     return launches
@@ -1362,7 +1442,7 @@ def phase_contention(label, cell, want, forbid, conf=None, names=CONTENTION_KERN
     store = build_contended_store(cell)
     log(f"[{label}] store built: {CFG6['nodes']} nodes, "
         f"{CFG6['run_jobs'] * CFG6['tasks_per_job']} residents ({time.perf_counter() - t0:.1f} s)")
-    sched = Scheduler(store, conf=conf or full_conf("cuda"))
+    sched = Scheduler(store, conf=async_conf(conf or full_conf("cuda")))
     log(f"[{label}] mesh {sched.mesh}, solve_mode {sched.conf.solve_mode}; prewarm "
         f"{sched.prewarm():.2f} s")
     cap = ContentionCapture(names)
@@ -1388,6 +1468,7 @@ def phase_contention(label, cell, want, forbid, conf=None, names=CONTENTION_KERN
                 f"(evictions, pipelines, binds) {history[-1]}; {'/'.join(names)} "
                 f"{cap.take_ms():.3f} ms on the stream"
                 + (f" launches {launches}" if cycle == 0 else ""))
+            publish_report(label, sched, flush_applier(label, sched), cycle + 1)
             check_contention_cycle(label, cell, store, victims, pipes)
             evicted += victims
             for key in victims:  # the kubelet reaps the victims
@@ -1395,6 +1476,7 @@ def phase_contention(label, cell, want, forbid, conf=None, names=CONTENTION_KERN
     finally:
         pipes = list(cap.pipes)
         cap.close()
+        sched.close()
     if len(set(evicted)) != len(evicted):
         raise AssertionError(f"{label}: a pod was evicted twice")
     if history != CFG6_PATTERN[cell]:
@@ -1748,6 +1830,7 @@ def _object_cfg6r_be(label, conf, kernel):
             for name in CONTENTION_KERNELS + tuple(k for k in OBJECT_KERNELS if k != kernel):
                 if launches[name]:
                     raise AssertionError(f"{label}: kernel {name} launched ({launches[name]})")
+            publish_report(label, sched, 0.0, cycle + 1)
             check_contention_cycle(label, "cfg6r", store, victims, pipes)
             evicted += victims
             for key in victims:  # the kubelet reaps the victims
@@ -1837,6 +1920,7 @@ def phase_object_cfg5():
             launches = read_launches()
             if cycle == 0:
                 first = launches
+            publish_report(label, sched, 0.0, cycle + 1)
             gang, be = check_placement(store)
             log(f"[{label}] cycle {cycle + 1} wall {wall:.3f} s walls "
                 f"{json.dumps(_object_walls(sched))}; bound {gang} gang tasks; victim_step "
@@ -2282,7 +2366,7 @@ def phase_cfg9():
     log(f"[e2e cfg9] store built: {CFG9['nodes']} nodes, {CFG9['tasks']} tasks in gangs of "
         f"{CFG9['tasks_per_job']} over {CFG9['namespaces']} namespaces "
         f"({time.perf_counter() - t0:.1f} s)")
-    conf = full_conf("cuda")
+    conf = async_conf(full_conf("cuda"))
     conf.mesh = CFG9_MESH
     sched = Scheduler(store, conf=conf)
     if sched.mesh is None or sched.mesh.size != int(CFG9_MESH):
@@ -2318,6 +2402,7 @@ def phase_cfg9():
             raise AssertionError(f"cfg9: kernel {name} launched ({launches[name]})")
     if sched.last_path != "fast" or not captured:
         raise AssertionError(f"cfg9: cycle 1 took the {sched.last_path} path")
+    publish_report("e2e cfg9", sched, flush_applier("e2e cfg9", sched, CFG9_FLUSH_TIMEOUT_S))
     t0 = time.perf_counter()
     bound = check_cfg9_placement(store)
     log(f"[e2e cfg9] bound after cycle 1: {bound} of {CFG9['tasks']} "
@@ -2329,12 +2414,15 @@ def phase_cfg9():
         sched.run_once()
         log(f"[e2e cfg9] cycle {cycles} wall {time.perf_counter() - t0:.3f} s phases "
             f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}")
+        publish_report("e2e cfg9", sched,
+                       flush_applier("e2e cfg9", sched, CFG9_FLUSH_TIMEOUT_S), cycles)
         bound = check_cfg9_placement(store)
         log(f"[e2e cfg9] bound after cycle {cycles}: {bound}")
     if bound != CFG9["tasks"]:
         raise AssertionError(f"cfg9: {bound} of {CFG9['tasks']} gang tasks bound after "
                              f"{cycles} cycles")
     log(f"[e2e cfg9] all bound in {cycles} cycle(s) (deadline {MAX_CYCLES})")
+    sched.close()
     return launches, captured[0]
 
 
@@ -2768,7 +2856,7 @@ def phase_cfg5_two_hosts():
         label = f"e2e cfg5-2h, host {host_id} of {hosts}"
         t0 = time.perf_counter()
         store = build_cfg5_store()
-        conf = full_conf("cuda")
+        conf = async_conf(full_conf("cuda"))
         conf.actions = ["enqueue", "allocate", "backfill"]
         conf.mesh, conf.mesh_hosts, conf.mesh_host_id = CFG9_MESH, hosts, host_id
         sched = Scheduler(store, conf=conf)
@@ -2783,6 +2871,8 @@ def phase_cfg5_two_hosts():
         if sched.last_path != "fast" or launches["sharded_cycle"] != 1:
             raise AssertionError(f"{label}: path {sched.last_path}, launches {launches}")
         binds[(hosts, host_id)] = dict(sched.cache.bind_log)
+        publish_report(label, sched, flush_applier(label, sched))
+        sched.close()
         pending = sum(pg.status.phase == PodGroupPhase.PENDING for pg in store.list("PodGroup"))
         log(f"[{label}] cycle 1 wall {wall:.3f} s phases "
             f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}; "
@@ -3942,6 +4032,7 @@ def phase_cfg6d():
                 raise AssertionError(f"{label}: cycle 1 took the {sched.last_path} path with "
                                      f"phases {sorted(phases)}: the preempt must run in the "
                                      "object sub-cycle")
+            publish_report(label, sched, 0.0, cycle + 1)
             check_contention_cycle(label, "cfg6", store, victims, pipes)
             evicted += victims
             for key in victims:  # the kubelet reaps the victims
@@ -3974,7 +4065,9 @@ def phase_fast_cells():
     """Cells that never reach the object sub-cycle, alone, so that a parent
     tree (given this file) and a change are timed in one call: cfg5-batch,
     cfg5d and cfg6 (phases 3, 5 and 8's first cell), each with its checks
-    and its cycle-1 wall split into phases in the log."""
+    and its cycle-1 wall split into phases in the log.  They publish
+    through the applier (``async_conf``): a tree whose conf has no
+    ``apply_mode`` publishes inline, so its walls do not pair with these."""
     phase_e2e("e2e batch", CFG5["jobs"], CFG5["best_effort"],
               want=("water_fill", "allocate_solve_batch"),
               forbid=("allocate_solve",) + CONTENTION_KERNELS)
@@ -3985,6 +4078,142 @@ def phase_fast_cells():
               dynamic_frac=0.10, max_cycles=MAX_CYCLES_DYNAMIC)
     phase_contention("e2e cfg6", "cfg6", {"preempt_rounds": 1, "water_fill": 1},
                      ("reclaim_solve",) + MESH_CONTENTION_KERNELS)
+
+
+#: the publish modes --publish-split compares, by apply_mode: the parent's
+#: synchronous per-object path (now with its Events), and the applier with
+#: one columnar segment a cycle
+PUBLISH_MODES = {"sync": "sync", "async-columnar": "async"}
+#: rounds of --publish-split at cfg5-batch and cfg6: each round runs every
+#: mode, the order rotated a round; cfg5-batch's even rounds run cycle 2
+#: with cycle 1's write-back in flight, its odd rounds after a flush
+PUBLISH_SPLIT_ROUNDS = 4
+
+
+def _publish_run(label, cell, mode, in_flight):
+    """One store of ``cell`` ("cfg5-batch" or "cfg6") under ``mode``: cycle
+    1, then cycle 2 either at once (with cycle 1's write-back in flight) or
+    after a flush, then a flush.  cfg6's cycle 2 always waits for the flush:
+    the kubelet reaps the victims once their eviction landed, and only then
+    can the storm bind.  The cells' checks hold after the last flush.
+    Returns the walls (cycle 1 and its publish split, the flush after cycle
+    1 when cycle 2 waits for it, cycle 2's wall and drain phase, the last
+    flush), ``drain_stats``, and the decisions (bind and eviction sets)."""
+    import torch
+
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    conf = full_conf("cuda")
+    conf.apply_mode = PUBLISH_MODES[mode]
+    t0 = time.perf_counter()
+    store = build_cfg5_store() if cell == "cfg5-batch" else build_contended_store("cfg6")
+    sched = Scheduler(store, conf=conf)
+    build_s, prewarm_s = time.perf_counter() - t0, sched.prewarm()
+    out = {"cell": cell, "mode": mode, "cycle2": "in flight" if in_flight else "after a flush"}
+    walls = []
+    for cycle in (1, 2):
+        if cycle == 2 and not in_flight:
+            out["flush_after_cycle1_s"] = round(flush_applier(label, sched), 4)
+            if cell == "cfg6":
+                for key, _ in sched.cache.evict_log:  # the kubelet reaps the victims
+                    store.delete("Pod", key)
+        t0 = time.perf_counter()
+        sched.run_once()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        ph = sched.fast_cycle.phases
+        if sched.last_path != "fast":
+            raise AssertionError(f"{label}: cycle {cycle} took the {sched.last_path} path")
+        if cycle == 1:
+            out.update({k: round(ph.get(k, 0.0), 4)
+                        for k in ("publish", "publish_build", "publish_ship")})
+            out["cycle1_s"] = round(walls[0], 4)
+        else:
+            out["cycle2_s"] = round(walls[1], 4)
+            out["cycle2_drain_s"] = round(ph.get("drain", 0.0), 4)
+    key = "flush_after_cycle2_s"
+    out[key] = round(flush_applier(label, sched), 4)
+    report = publish_report(label, sched, out[key], 2)
+    out["drain_stats"] = report.get("drain_stats")
+    out["err_log"] = report["err_log"]
+    out["build_s"], out["prewarm_s"] = round(build_s, 1), round(prewarm_s, 2)
+    if cell == "cfg5-batch":
+        gang, be = check_placement(store)
+        if gang != CFG5["jobs"] * CFG5["tasks_per_job"] or be != CFG5["best_effort"]:
+            raise AssertionError(f"{label}: {gang} gang tasks and {be} best-effort bound")
+    decisions = (tuple(sorted(sched.cache.bind_log)), tuple(sorted(sched.cache.evict_log)))
+    sched.close()
+    log(f"[{label}] {json.dumps(out)}")
+    return out, decisions
+
+
+def phase_publish_split():
+    """The publish modes side by side in one call: cfg5-batch and cfg6 under
+    each of PUBLISH_MODES in PUBLISH_SPLIT_ROUNDS rounds (the order rotated
+    a round; cfg5-batch's cycle 2 alternately with the write-back in flight
+    and after a flush), then cfg9 once under "sync" and once under "async-columnar"
+    (cycle 1, the flush, cycle 2).  Every run of a cell must make the same
+    binds and evictions; each holds its cell's checks and one Event a
+    decision.  Returns every run's walls."""
+    import torch
+
+    rows = []
+    modes = list(PUBLISH_MODES)
+    for cell in ("cfg5-batch", "cfg6"):
+        decided = {}
+        for r in range(PUBLISH_SPLIT_ROUNDS):
+            for mode in modes[r % len(modes):] + modes[:r % len(modes)]:
+                label = f"publish-split {cell} {mode} round {r + 1}"
+                row, decisions = _publish_run(label, cell, mode,
+                                              in_flight=cell == "cfg5-batch" and r % 2 == 0)
+                rows.append(row)
+                decided.setdefault(decisions, []).append(label)
+                gc.collect()
+        if len(decided) != 1:
+            raise AssertionError(f"publish-split {cell}: the runs decided differently: "
+                                 f"{[v for v in decided.values()]}")
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    cfg9 = {}
+    for mode in ("sync", "async-columnar"):
+        label = f"publish-split cfg9 {mode}"
+        conf = full_conf("cuda")
+        conf.apply_mode, conf.mesh = PUBLISH_MODES[mode], CFG9_MESH
+        t0 = time.perf_counter()
+        store = build_cfg9_store()
+        sched = Scheduler(store, conf=conf)
+        out = {"cell": "cfg9", "mode": mode, "build_s": round(time.perf_counter() - t0, 1),
+               "prewarm_s": round(sched.prewarm(), 2)}
+        for cycle in (1, 2):
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ph = sched.fast_cycle.phases
+            out[f"cycle{cycle}_s"] = round(wall, 4)
+            if cycle == 1:
+                out.update({k: round(ph.get(k, 0.0), 4)
+                            for k in ("publish", "publish_build", "publish_ship")})
+                out["flush_after_cycle1_s"] = round(
+                    flush_applier(label, sched, CFG9_FLUSH_TIMEOUT_S), 4)
+            else:
+                out["cycle2_drain_s"] = round(ph.get("drain", 0.0), 4)
+        report = publish_report(label, sched, flush_applier(label, sched, CFG9_FLUSH_TIMEOUT_S), 2)
+        out["drain_stats"], out["err_log"] = report.get("drain_stats"), report["err_log"]
+        bound = check_cfg9_placement(store)
+        if bound != CFG9["tasks"]:
+            raise AssertionError(f"{label}: {bound} of {CFG9['tasks']} tasks bound")
+        cfg9[mode] = sorted(sched.cache.bind_log)
+        sched.close()
+        log(f"[{label}] {json.dumps(out)}")
+        rows.append(out)
+        del sched, store
+        gc.collect()
+    if cfg9["sync"] != cfg9["async-columnar"]:
+        raise AssertionError("publish-split cfg9: the two modes bound differently")
+    return rows
 
 
 def check_placement_ports(store):
@@ -4040,6 +4269,11 @@ def main(argv):
     if "--fast-cells" in argv:
         log(smi)
         phase_fast_cells()
+        log(smi)
+        return 0
+    if "--publish-split" in argv:
+        log(smi)
+        log(json.dumps({"publish_split": phase_publish_split()}))
         log(smi)
         return 0
     if "--residue" in argv:

@@ -187,7 +187,8 @@ def test_exact_cycle_binds_and_phases_equal_jax(seed):
     assert sorted(tsched.cache.bind_log) == sorted(jsched.cache.bind_log)
     assert any(tpods.values())
     assert set(tsched.fast_cycle.phases) == {
-        "drain", "snapshot", "enqueue", "solve", "backfill", "publish"}
+        "drain", "snapshot", "enqueue", "solve", "backfill", "publish",
+        "publish_build", "publish_ship"}
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -6,7 +6,6 @@ commands)."""
 
 from __future__ import annotations
 
-import itertools
 import os
 import secrets
 import threading
@@ -20,14 +19,31 @@ from volcano_tpu_torch.api.types import PodGroupPhase, PodPhase
 POD_GROUP_KEY = "scheduling.volcano.tpu/group-name"
 
 _uid_lock = threading.Lock()
-_uid_counter = itertools.count(1)
+_uid_next = 1
+# process-unique token: uids (and the Event names built from them) must not
+# collide across processes that each run their own counter
 _uid_token = f"{os.getpid():x}{secrets.token_hex(2)}"
 
 
-def new_uid(prefix: str = "obj") -> str:
+def _advance_uids(n: int) -> int:
+    global _uid_next
     with _uid_lock:
-        n = next(_uid_counter)
-    return f"{prefix}-{_uid_token}-{n:08d}"
+        start = _uid_next
+        _uid_next += n
+    return start
+
+
+def new_uid(prefix: str = "obj") -> str:
+    return f"{prefix}-{_uid_token}-{_advance_uids(1):08d}"
+
+
+def reserve_uids(prefix: str, n: int) -> Tuple[str, int]:
+    """Reserve ``n`` consecutive uid-counter slots in one lock hold and
+    return ``(token, start)``: slot ``start + i`` names the uid
+    ``f"{prefix}-{token}-{start + i:08d}"``.  A decision segment reserves
+    its whole Event block this way (``store/segment.py``)."""
+    del prefix  # part of the derived name, not of the reservation
+    return _uid_token, _advance_uids(n)
 
 
 @dataclass

@@ -1,14 +1,17 @@
 """Backfill action: place BestEffort (empty-request) tasks on any node
 passing predicates, with no scoring (the port's copy of
-``volcano_tpu/scheduler/actions/backfill.py``, without the events).
+``volcano_tpu/scheduler/actions/backfill.py``).  A task that finds no
+node records a Warning Event on its gang, once for a given message.
 """
 
 from __future__ import annotations
 
+from volcano_tpu_torch import events
 from volcano_tpu_torch.api.types import PodGroupPhase, TaskStatus
 from volcano_tpu_torch.scheduler import util
 from volcano_tpu_torch.scheduler.cache import VolumeBindingError
 from volcano_tpu_torch.scheduler.framework import Action
+from volcano_tpu_torch.scheduler.model import render_fit_error
 from volcano_tpu_torch.scheduler.session import Session
 
 
@@ -47,13 +50,22 @@ class BackfillAction(Action):
                         continue  # try the next node
                     placed = True
                     break
-                if not placed and (
+                if not placed:
                     # surface the aggregated reasons, keeping allocate's
                     # head-task histogram if it recorded one (that is what
-                    # blocks the gang)
-                    not job.fit_errors
-                    and not job.nodes_fit_delta
-                    and job.fit_error_fn is None
-                ):
-                    job.fit_errors = reasons
-                    job.fit_total_nodes = len(all_nodes)
+                    # blocks the gang), and record a Warning Event for the
+                    # task once, so that a parked task lets the cluster
+                    # quiesce
+                    if (
+                        not job.fit_errors
+                        and not job.nodes_fit_delta
+                        and job.fit_error_fn is None
+                    ):
+                        job.fit_errors = reasons
+                        job.fit_total_nodes = len(all_nodes)
+                    msg = (render_fit_error(len(all_nodes), reasons)
+                           if reasons else "0 nodes are available")
+                    events.record_once(
+                        ssn.cache.store, "PodGroup", f"{job.namespace}/{job.name}",
+                        "Unschedulable", f"task {task.key} unschedulable: {msg}",
+                        type=events.WARNING)

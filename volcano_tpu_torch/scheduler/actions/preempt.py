@@ -1,6 +1,5 @@
 """Preempt action: within-queue preemption for starved high-priority jobs
-(the port's copy of ``volcano_tpu/scheduler/actions/preempt.py``, without
-the metrics).
+(the port's copy of ``volcano_tpu/scheduler/actions/preempt.py``).
 
 Phase 1: per queue, each job with pending tasks opens a Statement, collects
 Running same-queue victims of other jobs via ssn.preemptable, evicts lowest
@@ -13,7 +12,7 @@ from __future__ import annotations
 
 from volcano_tpu_torch.api.resource import Resource
 from volcano_tpu_torch.api.types import PodGroupPhase, TaskStatus
-from volcano_tpu_torch.scheduler import util
+from volcano_tpu_torch.scheduler import metrics, util
 from volcano_tpu_torch.scheduler.framework import Action
 from volcano_tpu_torch.scheduler.pqueue import PriorityQueue
 from volcano_tpu_torch.scheduler.session import Session
@@ -135,6 +134,7 @@ def _preempt(ssn: Session, stmt: Statement, preemptor, task_filter) -> bool:
             task.clone() for task in node.tasks.values() if task_filter(task)
         ]
         victims = ssn.preemptable(preemptor, preemptees)
+        metrics.update_preemption_victims(len(victims or []))
 
         if not victims:
             continue
@@ -159,6 +159,8 @@ def _preempt(ssn: Session, stmt: Statement, preemptor, task_filter) -> bool:
             preempted.add(preemptee.resreq)
             if resreq.less_equal(preempted):
                 break
+
+        metrics.register_preemption_attempt()
 
         if preemptor.init_resreq.less_equal(preempted):
             stmt.pipeline(preemptor, node.name)

@@ -4,16 +4,23 @@ evict and status side effects and the volume binder.
 The port's cut of ``volcano_tpu/scheduler/cache.py``: ``snapshot()``
 builds the object path's ``ClusterInfo`` (shadow gangs for plain pods
 included, their minimum set by a PodDisruptionBudget where one names their
-controller); binds and evictions apply
-synchronously, per task (``bind``, ``evict``) or through the store's bulk
-verb (``bind_bulk``, ``evict_bulk``, the fast cycle's), with the same
-``bind_log`` / ``evict_log`` / ``err_log`` bookkeeping.  An eviction marks
-the pod for deletion (``deleting=True``); the kubelet reaps it.
-``VolumeBinder`` assumes and commits a pod's claims, as the reference's
-binder does; it takes the pod itself where the JAX binder takes a
-``TaskInfo``.  ``cycle_overlay`` holds the fast cycle's published binds
-while its object sub-cycle runs, and ``snapshot()`` folds them in.  No
-async applier or events yet.
+controller).  Binds and evictions apply synchronously by default, per task
+(``bind``, ``evict``) or through the store's bulk verb (``bind_bulk``,
+``evict_bulk``, the fast cycle's), each success recording a Scheduled or
+Evict Event (``events.py``; a failed Event write lands in ``err_log`` as
+"event").  With ``async_apply`` they go to an ``AsyncApplier`` thread
+(``scheduler/apply.py``) instead: per task from ``bind`` / ``evict``, and
+a fast cycle's whole publish as one columnar segment
+(``publish_segment``); ``snapshot()`` overlays the decisions still in
+flight.  ``bind_log`` / ``evict_log`` record decisions (at publish time
+under the applier), ``err_log`` failed writes, retried by the next cycle's
+fresh snapshot.  An eviction marks the pod for deletion (``deleting=True``);
+the kubelet reaps it.  ``VolumeBinder`` assumes and commits a pod's
+claims, as the reference's binder does; it takes the pod itself where the
+JAX binder takes a ``TaskInfo``.  ``cycle_overlay`` holds the fast cycle's
+published binds while its object sub-cycle runs, and ``snapshot()`` folds
+them in too.  Left out: the Binder / Evictor seams for custom binders and
+the bind trace spans (ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from __future__ import annotations
 import logging
 from typing import Dict, List, Optional, Tuple
 
+from volcano_tpu_torch import events
 from volcano_tpu_torch.api.objects import POD_GROUP_KEY, Metadata, PersistentVolume, Pod
 from volcano_tpu_torch.api.resource import parse_quantity
 from volcano_tpu_torch.api.types import TaskStatus
@@ -287,12 +295,21 @@ class SchedulerCache:
     _ERR_LOG_CAP = 1000
 
     def __init__(self, store, scheduler_name: str = "volcano-tpu",
-                 default_queue: str = "default"):
+                 default_queue: str = "default", async_apply: bool = False):
         self.store = store
         self.scheduler_name = scheduler_name
         self.default_queue = default_queue
         self.evictor = Evictor(store)
         self.volume_binder = VolumeBinder(store)
+        # async decision application (the reference's per-bind goroutines,
+        # cache.go:393-447): binds and evictions queue to a background
+        # applier; snapshot() overlays the decisions in flight.  Off by
+        # default: library use and the tests rely on synchronous visibility
+        self.applier = None
+        if async_apply:
+            from volcano_tpu_torch.scheduler.apply import AsyncApplier
+
+            self.applier = AsyncApplier(self)
         # binds the fast cycle published this cycle (pod key -> node): the
         # object sub-cycle's snapshot folds them in, so it sees the express
         # placements whatever the bind seam wrote to the store.  Set and
@@ -363,16 +380,36 @@ class SchedulerCache:
             cluster.jobs[uid].name = pdb.meta.name
             cluster.jobs[uid].min_available = pdb.min_available
 
-        overlay = self.cycle_overlay
+        # decisions in flight: a bind or eviction published but not yet
+        # confirmed by the store must not look schedulable or evictable
+        # again.  The marker copies come BEFORE the pod list: a decision
+        # confirmed in between shows in both (harmless), where the other
+        # order could miss it in both
+        inflight_binds: Dict[str, str] = {}
+        inflight_evicts: Dict[str, str] = {}
+        if self.applier is not None:
+            inflight_binds, inflight_evicts = self.applier.inflight_view()
+        if self.cycle_overlay:
+            merged = dict(self.cycle_overlay)
+            merged.update(inflight_binds)
+            inflight_binds = merged
         for pod in self.store.items("Pod"):
             if pod.spec.scheduler_name != self.scheduler_name:
                 continue
             task = TaskInfo(pod)
-            if overlay:
-                host = overlay.get(task.key)
-                if host and not pod.node_name and task.status == TaskStatus.PENDING:
+            if inflight_binds or inflight_evicts:
+                # the overlay reads the task, never the pod again: the
+                # applier may land the write between TaskInfo's reads and
+                # these (the JAX cache re-reads the pod, and a bind landing
+                # in between leaves the task pending)
+                host = inflight_binds.get(task.key)
+                if host and not task.node_name and task.status in (
+                        TaskStatus.PENDING, TaskStatus.BOUND):
                     task.node_name = host
                     task.status = TaskStatus.BOUND
+                if task.key in inflight_evicts and task.status in (
+                        TaskStatus.RUNNING, TaskStatus.BOUND):
+                    task.status = TaskStatus.RELEASING
             if task.priority == 0 and task.priority_class:
                 task.priority = priority_classes.get(task.priority_class, default_priority)
             job_uid = self._job_uid_for(pod, pg_by_key)
@@ -408,18 +445,37 @@ class SchedulerCache:
 
     # -- side effects ------------------------------------------------------------
 
+    def _record_event(self, key: str, reason: str, message: str,
+                      type_: str = events.NORMAL) -> None:
+        """A Scheduled or Evict Event for a side effect that succeeded; a
+        failed Event write must not unwind the cycle."""
+        try:
+            events.record(self.store, "Pod", key, reason, message, type=type_)
+        except Exception as e:  # noqa: BLE001 — side-effect boundary
+            self._record_err("event", key, e)
+
     def bind(self, task: TaskInfo, hostname: str) -> None:
-        """Write one placement; a vanished pod or a failed write is retried
-        by the next cycle's fresh snapshot."""
+        """Write one placement (with the applier, publish it); a vanished
+        pod or a failed write is retried by the next cycle's fresh
+        snapshot."""
+        if self.applier is not None:
+            self.applier.submit_bind(task.key, hostname)
+            self.bind_log.append((task.key, hostname))
+            return
         try:
             self.store.patch("Pod", task.key, {"node_name": hostname})
         except Exception as e:  # noqa: BLE001 — side-effect boundary
             self._record_err("bind", task.key, e)
             return
         self.bind_log.append((task.key, hostname))
+        self._record_event(task.key, "Scheduled", events.scheduled_message(task.key, hostname))
 
     def evict(self, task: TaskInfo, reason: str) -> None:
         """Mark one pod for deletion (a pod already gone is a success)."""
+        if self.applier is not None:
+            self.applier.submit_evict(task.key, reason)
+            self.evict_log.append((task.key, reason))
+            return
         try:
             if self.store.get("Pod", task.key) is not None:
                 self.store.patch("Pod", task.key, {"deleting": True})
@@ -427,6 +483,7 @@ class SchedulerCache:
             self._record_err("evict", task.key, e)
             return
         self.evict_log.append((task.key, reason))
+        self._record_event(task.key, "Evict", events.evicted_message(reason), events.WARNING)
 
     def update_job_status(self, job: JobInfo) -> None:
         pg = job.pod_group
@@ -434,7 +491,9 @@ class SchedulerCache:
             self.store.update("PodGroup", pg)
 
     def bind_bulk(self, binds: List[Tuple[str, str]]) -> None:
-        """Bind a cycle's placements, (pod_key, node_name) each."""
+        """Bind a cycle's placements, (pod_key, node_name) each, through the
+        store's bulk verb (the synchronous mode; the applier takes a
+        segment)."""
         if not binds:
             return
         try:
@@ -449,12 +508,24 @@ class SchedulerCache:
         for (key, host), err in zip(binds, errs):
             if err is not None:
                 self._record_err("bind", key, RuntimeError(err))
-            else:
-                self.bind_log.append((key, host))
+                continue
+            self.bind_log.append((key, host))
+            self._record_event(key, "Scheduled", events.scheduled_message(key, host))
+
+    def publish_segment(self, seg) -> None:
+        """Publish a cycle's decisions as ONE columnar segment through the
+        applier (the synchronous mode calls bind_bulk / evict_bulk).
+        bind_log / evict_log record the decisions at publish time."""
+        if seg.empty:
+            return
+        self.applier.submit_segment(seg)
+        self.bind_log.extend(zip(seg.bind_keys, seg.bind_hosts))
+        self.evict_log.extend(zip(seg.evict_keys, seg.evict_reason_strs))
 
     def evict_bulk(self, evicts: List[Tuple[str, str]]) -> None:
         """Evict a cycle's victims, (pod_key, reason) each, through the
-        evictor's bulk verb."""
+        evictor's bulk verb (the synchronous mode; the applier takes a
+        segment)."""
         if not evicts:
             return
         try:
@@ -466,8 +537,9 @@ class SchedulerCache:
         for (key, reason), err in zip(evicts, errs):
             if err is not None:
                 self._record_err("evict", key, RuntimeError(err))
-            else:
-                self.evict_log.append((key, reason))
+                continue
+            self.evict_log.append((key, reason))
+            self._record_event(key, "Evict", events.evicted_message(reason), events.WARNING)
 
     def allocate_volumes(self, pod, hostname: str) -> None:
         self.volume_binder.allocate_volumes(pod, hostname)

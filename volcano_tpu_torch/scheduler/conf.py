@@ -9,7 +9,12 @@ batched solve's node planes into blocks (``parallel/sharded.py``
 or a power-of-two block count.  ``mesh_hosts`` / ``mesh_host_id`` launch the
 multi-controller cycle (``parallel/multihost.py``): every host runs the
 same global solve and publishes only its owned task block's binds; host 0,
-the coordinator, also owns statuses and enqueue admissions.
+the coordinator, also owns statuses and enqueue admissions.  ``apply_mode``
+"async" hands binds and evictions to a background applier thread
+(``scheduler/apply.py``), each fast cycle's decisions as ONE columnar
+segment (``store/segment.py``); "sync", the default, applies them inline.
+The JAX conf's ``columnar_publish`` is not kept: the applier always ships
+the segment.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 BACKENDS = ("cuda", "cpu")
+APPLY_MODES = ("sync", "async")
 
 
 @dataclass
@@ -59,13 +65,22 @@ class SchedulerConf:
     # and this process's host id; 1 / 0 is the single controller
     mesh_hosts: int = 1
     mesh_host_id: int = 0
+    # "async": binds and evictions batch through a background applier
+    # thread (the reference's per-bind goroutines, cache.go:393-447), the
+    # fast cycle's as one columnar segment; "sync": applied inline,
+    # deterministic
+    apply_mode: str = "sync"
 
     def __post_init__(self):
         self.validate()
 
     def validate(self) -> None:
-        """Raise ValueError for a host count below 1 or a host id outside
-        [0, mesh_hosts) (the JAX loader's checks)."""
+        """Raise ValueError for a host count below 1, a host id outside
+        [0, mesh_hosts) or an unknown apply mode (the JAX loader's
+        checks)."""
+        if self.apply_mode not in APPLY_MODES:
+            raise ValueError(f"apply_mode must be one of {APPLY_MODES}, "
+                             f"got {self.apply_mode!r}")
         if self.mesh_hosts < 1:
             raise ValueError(f"mesh_hosts must be >= 1, got {self.mesh_hosts}")
         if not 0 <= self.mesh_host_id < self.mesh_hosts:

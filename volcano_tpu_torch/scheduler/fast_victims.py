@@ -27,8 +27,10 @@ A pass the kernel cannot express — the reference's host walk would strand
 evictions on a node that cannot cover the request (``clean=False``) —
 returns False with nothing recorded; the cycle then runs the object
 preempt in its sub-cycle, or, if the reclaim pass holds records, takes the
-object path for the whole cycle.  Left out of this copy: the ``metrics`` counters and the
-``vtprof`` dispatch hooks of the JAX module (ROADMAP queue 1 item 9).
+object path for the whole cycle.  Each pass records the preemption
+metrics (``scheduler/metrics.py``) as the JAX module does.  Left out of
+this copy: the ``vtprof`` dispatch hooks of the JAX module (ROADMAP queue 1
+item 9d).
 
 Divergences from the object path are the JAX module's: eviction-order ties
 break by pod arrival rank rather than uid order, and job and queue
@@ -43,6 +45,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from volcano_tpu_torch.scheduler import metrics
 from volcano_tpu_torch.scheduler import victim_kernels as VK
 
 #: storms above this many preemptor tasks take the batched-rounds kernel
@@ -377,10 +380,15 @@ class FastContention:
             job_key_order=self.job_key_order, gang_pipelined=self.gang_pipelined,
             **self.kw_preempt,
         )
-        state, pipe, ea, pn, pa, (abort,) = self._solve_fetch(out, [out.abort])
+        state, pipe, ea, pn, pa, (abort, att_total, last_v, any_p1) = self._solve_fetch(
+            out, [out.abort, out.att_total, out.last_v, out.any_p1])
         if bool(abort):
             return False
         self._absorb(state, pipe)
+        if bool(any_p1):
+            metrics.update_preemption_victims(int(last_v))
+        for _ in range(int(att_total)):
+            metrics.register_preemption_attempt()
         self._append_records(ea, pn, pa, "preempt")
         return True
 
@@ -407,10 +415,15 @@ class FastContention:
             job_key_order=self.job_key_order, gang_pipelined=self.gang_pipelined,
             **self.kw_preempt,
         )
-        state, pipe, ea, pn, pa, (att_total,) = self._solve_fetch(out, [out.att_total])
+        state, pipe, ea, pn, pa, (att_total, last_v, any_commit) = self._solve_fetch(
+            out, [out.att_total, out.last_v, out.any_commit])
         if int(att_total) == 0:
             return attempt_rows
         self._absorb(state, pipe)
+        if bool(any_commit):
+            metrics.update_preemption_victims(int(last_v))
+        for _ in range(int(att_total)):
+            metrics.register_preemption_attempt()
         self._append_records(ea, pn, pa, "preempt")
         return attempt_rows & ~(pa >= 0)
 

@@ -22,6 +22,9 @@ Under ``mesh_hosts > 1`` every host runs the same global solve and fetches
 only its owned task block; a worker (``mesh_host_id != 0``) publishes only
 those binds, and the coordinator also owns the dynamic and best-effort
 placements, the PodGroup statuses and the enqueue admissions.
+With the cache's async applier the enqueue admissions go to it after
+publish; they are shipped synchronously before an object sub-cycle and on
+every exit to the object path, whose sessions read the store's phases.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 
 from volcano_tpu_torch.api.types import PodGroupPhase
 from volcano_tpu_torch.native import water_fill_np
+from volcano_tpu_torch.scheduler import metrics
 from volcano_tpu_torch.scheduler.fast_victims import FastContention, _rebuild_task_arrays
 from volcano_tpu_torch.scheduler.fastpath.mirror import _PENDING, _RELEASING, ArrayMirror
 from volcano_tpu_torch.scheduler.fastpath.publish import publish_and_close
@@ -77,6 +81,8 @@ class FastCycle:
         self.residue_stats: Dict[str, float] = {}
         # pg key -> (phase, running, failed, succeeded, message) last written
         self._status_fp: Dict[str, tuple] = {}
+        # pg key -> the Unschedulable message of its last Warning Event
+        self._last_unsched: Dict[str, str] = {}
         self._err_seen = 0
         # publish clears the volume binder's session once a cycle
         self._vol_session_cleared = False
@@ -96,6 +102,15 @@ class FastCycle:
             self.mirror = ArrayMirror(
                 self.store, self.cache.scheduler_name, self.cache.default_queue)
         self.mirror.drain()
+
+    def reset_after_abort(self) -> None:
+        """Leadership loss dropped queued decisions (applier.abort_pending):
+        the mirror's optimistic rows and the status fingerprints no longer
+        match the store, so they are rebuilt from a fresh list."""
+        self._status_fp.clear()
+        self._last_unsched.clear()
+        if self.mirror is not None:
+            self.mirror._resync(dims=self.mirror.dims)
 
     def try_run(self) -> bool:
         """One fast cycle; False (nothing published) where the cycle needs
@@ -155,6 +170,7 @@ class FastCycle:
                 # the reference's walk would strand evictions (clean=False)
                 return self._object_path(enq_ops)
             cont.fold_into_snapshot(m)
+            metrics.update_action_duration("reclaim", t)
             ph["reclaim"] = time.perf_counter() - t
 
         t = time.perf_counter()
@@ -173,6 +189,7 @@ class FastCycle:
             task_node = np.zeros(T, np.int32)
             task_kind = np.zeros(T, np.int32)
             ready = snap.job_ready_init.copy()
+        metrics.update_action_duration("allocate", t)
         ph["solve"] = time.perf_counter() - t
 
         t = time.perf_counter()
@@ -248,6 +265,7 @@ class FastCycle:
                     if cont.evictions or cont.pipelines:
                         return self._object_path(enq_ops)
                     obj_preempt = True
+                metrics.update_action_duration("preempt", t)
                 ph["preempt"] = time.perf_counter() - t
 
         if not self.is_coordinator:
@@ -270,17 +288,30 @@ class FastCycle:
             # the sub-cycle's close_session reads store phases: the
             # admissions land first
             self._ship_enqueue_ops(enq_ops)
+            for cls_name, n in aux["residue_task_counts"].items():
+                metrics.register_residue_tasks(cls_name, n)
         t = time.perf_counter()
-        evicts, ready_status = self._collect_contention(m, snap, aux, cont)
-        # with a sub-cycle, its close_session owns the PodGroup statuses:
-        # it sees the residue placements and the preempt's pipelines
-        pub_binds = publish_and_close(self, m, snap, aux, task_node, task_kind, ready,
-                                      be_rows, be_nodes, be_per_job,
-                                      pe_rows_solve, task_job_solve, task_req_solve,
-                                      evicts=evicts, ready_status=ready_status,
-                                      write_status=not run_sub and self.is_coordinator)
-        if not run_sub:
-            self._ship_enqueue_ops(enq_ops)
+        try:
+            evicts, ready_status = self._collect_contention(m, snap, aux, cont)
+            # with a sub-cycle, its close_session owns the PodGroup statuses:
+            # it sees the residue placements and the preempt's pipelines
+            pub_binds = publish_and_close(self, m, snap, aux, task_node, task_kind, ready,
+                                          be_rows, be_nodes, be_per_job,
+                                          pe_rows_solve, task_job_solve, task_req_solve,
+                                          evicts=evicts, ready_status=ready_status,
+                                          write_status=not run_sub and self.is_coordinator)
+        finally:
+            if not run_sub and enq_ops and self.is_coordinator:
+                # nothing of this cycle reads the store's phases: the
+                # conditional patches ride the applier, submitted after
+                # publish so that its first batch does not take the GIL
+                # inside the measured section, and in a finally so that a
+                # publish failure cannot strand the mirror's admissions
+                applier = self.cache.applier
+                if applier is not None:
+                    applier.submit_ops(enq_ops)
+                else:
+                    self._ship_enqueue_ops(enq_ops)
         ph["publish"] = time.perf_counter() - t
         if run_sub:
             # the sub-cycle's snapshot sees this cycle's published binds
@@ -448,11 +479,14 @@ class FastCycle:
         return bool((q_pending & q_victims).sum() > 1)
 
     def _reconcile_failures(self, m: ArrayMirror) -> None:
-        """Failed writes mean the mirror's optimistic rows (or the status
-        fingerprints) never reached the store — re-read them."""
+        """Failed writes (inline or on the applier) mean the mirror's
+        optimistic rows (or the status fingerprints) never reached the store
+        — re-read them."""
         err = self.cache.err_log
         for op, key, _ in err[self._err_seen:]:
-            if op == "bind":
+            if not key or "/" not in key:
+                continue
+            if op in ("bind", "evict"):
                 m.refresh_pod(key)
             elif op == "status":
                 self._status_fp.pop(key, None)
@@ -517,7 +551,13 @@ class FastCycle:
             # admissions are the coordinator's (a worker computes them for
             # the solve's inputs and never writes them)
             return
-        for op, err in zip(ops, self.store.bulk(ops)):
+        try:
+            results = self.store.bulk(ops)
+        except Exception as e:  # noqa: BLE001 — store outage: retried next cycle
+            for op in ops:
+                self.cache._record_err("status", op["key"], e)
+            return
+        for op, err in zip(ops, results):
             if err is not None and not err.startswith("PreconditionFailed"):
                 self.cache._record_err("status", op["key"], RuntimeError(err))
 

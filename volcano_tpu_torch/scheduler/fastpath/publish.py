@@ -1,24 +1,35 @@
 """Publish + close: the fast cycle's output layer.
 
-The port's cut of ``volcano_tpu/scheduler/fastpath/publish.py``: gang-gated
-binds and the contention passes' evictions through the cache's synchronous
-bulk verbs, PodGroup status writes (phase, counts, the Unschedulable
+The port's copy of ``volcano_tpu/scheduler/fastpath/publish.py``:
+gang-gated binds as columns straight from the solve's arrays (pod keys,
+node ids into a table of the nodes they touch), shipped with the
+contention passes' evictions as ONE columnar ``DecisionSegment`` through
+the async applier (``cache.publish_segment``), or through the cache's
+per-object bulk verbs under the synchronous mode; PodGroup status writes (phase, counts, the Unschedulable
 condition with its fit-error message) with the fingerprint discipline that
-skips no-op writes, and the volume binds of the pods that mount claims
-(``volume_bind_filter``).  Left out: the columnar segment and the
-Unschedulable event.
+skips no-op writes, an Unschedulable Warning Event on the condition's
+transitions only (``fc._last_unsched``), the gang metrics, and the volume
+binds of the pods that mount claims (``volume_bind_filter``).  The
+statuses go through the applier when there is one.  ``fc.phases`` gets
+``publish_build`` (columns, statuses, fit errors) and ``publish_ship``
+(the segment or bulk hand-off).
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+import time
+
 import numpy as np
 
-from volcano_tpu_torch.api.objects import PodGroupCondition, PodGroupStatus
+from volcano_tpu_torch import events
+from volcano_tpu_torch.api.objects import Metadata, PodGroupCondition, PodGroupStatus, new_uid
 from volcano_tpu_torch.api.types import PodGroupPhase
+from volcano_tpu_torch.scheduler import metrics
 from volcano_tpu_torch.scheduler.cache import VolumeBindingError
 from volcano_tpu_torch.scheduler.fastpath.mirror import _BOUND, _FAILED, _RUNNING, _SUCCEEDED
+from volcano_tpu_torch.store.segment import DecisionSegment
 
 
 def render_fit_error(total_nodes: int, reasons: Dict[str, int]) -> str:
@@ -38,7 +49,9 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
     contention passes.  ``ready_status``: per-job ready counts at the
     cycle's end for the status section when preempt ran after allocate
     (the bind gate keeps allocate-time readiness).  ``write_status``:
-    False on a multi-controller worker (statuses are the coordinator's)."""
+    False on a multi-controller worker (statuses are the coordinator's) and
+    when the object sub-cycle writes them."""
+    t_build0 = time.perf_counter()
     n_jobs = aux["n_jobs"]
     J = snap.job_min_available.shape[0]
     jm = snap.job_min_available
@@ -57,7 +70,9 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
     ready_final = ready.astype(np.int64) + be_per_job
     gang_ready = ready_final >= jm if fc.gang_on else np.ones(J, bool)
 
-    # -- binds: gang-ready express placements, then backfilled pods
+    # -- binds: gang-ready express placements, then backfilled pods, as
+    # columns: mirror rows all the way, the key strings in one sweep, node
+    # ids interned into a table of only the nodes they touch
     node_rows = aux["node_rows"]
     names = snap.node_names
     cols = []
@@ -69,12 +84,20 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
         keep = gang_ready[pod_j[be_rows]]
         if keep.any():
             cols.append(volume_bind_filter(fc, m, be_rows[keep], be_nodes[keep], names))
-    binds: List[Tuple[str, str]] = []
     for prows, nidx in cols:
         m.p_status[prows] = _BOUND
         m.p_node[prows] = node_rows[nidx]
-        binds.extend(zip((m.pods.row_key[r] for r in prows.tolist()),
-                         (names[n] for n in nidx.tolist())))
+    cols = [(p, n) for p, n in cols if p.size]
+    if cols:
+        rows_all = np.concatenate([p for p, _ in cols])
+        nidx_all = np.concatenate([n for _, n in cols])
+        row_key = m.pods.row_key
+        bind_keys = [row_key[r] for r in rows_all.tolist()]
+        uniq, inv = np.unique(nidx_all, return_inverse=True)
+        bind_table = [names[i] for i in uniq.tolist()]
+        bind_nodes = inv.tolist()
+    else:
+        bind_keys, bind_nodes, bind_table = [], [], []
 
     # -- per-job status (framework._update_pod_group_status parity)
     codes, live = aux["codes"], aux["live"]
@@ -106,6 +129,7 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
     phase_idx = m._phase_idx
     inqueue = phase_idx[PodGroupPhase.INQUEUE]
     ops: List[dict] = []
+    n_unsched_jobs = 0
     for j in range(n_jobs if write_status else 0):
         if shadow_job[j]:
             continue  # shadow gangs have no PodGroup to write to
@@ -114,9 +138,12 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
         unsched = bool(unready[j])
         msg = ""
         if unsched:
+            n_unsched_jobs += 1
+            unready_n = int(jm[j] - status_ready[j])
             fit = fit_msgs.get(j, "")
-            msg = (f"{int(jm[j] - status_ready[j])}/{int(ntasks_per_job[j])} tasks in gang "
+            msg = (f"{unready_n}/{int(ntasks_per_job[j])} tasks in gang "
                    f"unschedulable" + (f": {fit}" if fit else ""))
+            metrics.update_unschedule_task_count(pg_key, unready_n)
         if int(running_ct[j]) and unsched:
             phase = phase_idx[PodGroupPhase.UNKNOWN]
         elif int(allocated_after[j]) > int(jm[j]):
@@ -126,13 +153,26 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
         else:
             phase = inqueue
         fp = (phase, int(running_ct[j]), int(failed_ct[j]), int(succeeded_ct[j]), msg)
-        if fc._status_fp.get(pg_key) == fp:
+        if fc._status_fp.get(pg_key) == fp and not (
+                unsched and fc._last_unsched.get(pg_key) != msg):
             continue
         conditions = []
         if unsched:
             conditions.append(PodGroupCondition(
                 kind="Unschedulable", status="True",
                 reason="NotEnoughResources", message=msg))
+            if fc._last_unsched.get(pg_key) != msg:
+                # a Warning Event on condition transitions only (the gang
+                # plugin's rule)
+                ops.append({"op": "create", "kind": "Event",
+                            "object": events.ClusterEvent(
+                                meta=Metadata(name=new_uid("event"), namespace=""),
+                                involved=("PodGroup", pg_key), reason="Unschedulable",
+                                message=msg, type=events.WARNING)})
+                fc._last_unsched[pg_key] = msg
+                metrics.register_job_retry(pg_key)
+        else:
+            fc._last_unsched.pop(pg_key, None)
         status = PodGroupStatus(
             phase=m._phases[phase], conditions=conditions,
             running=int(running_ct[j]), succeeded=int(succeeded_ct[j]),
@@ -141,13 +181,36 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
         fc._status_fp[pg_key] = fp
         ops.append({"op": "patch", "kind": "PodGroup", "key": pg_key,
                     "fields": {"status": status}})
+    if write_status:
+        metrics.update_unschedule_job_count(n_unsched_jobs)
 
-    fc.cache.bind_bulk(binds)
-    fc.cache.evict_bulk(list(evicts))
+    # -- ship: the segment (or the per-object bulk ops), then the statuses
+    t_ship0 = time.perf_counter()
+    fc.phases["publish_build"] = t_ship0 - t_build0
+    if fc.cache.applier is not None:
+        seg = DecisionSegment.build(bind_keys, bind_nodes, bind_table, list(evicts))
+        fc.cache.publish_segment(seg)
+        binds = seg.bind_pairs()
+    else:
+        binds = list(zip(bind_keys, (bind_table[n] for n in bind_nodes)))
+        fc.cache.bind_bulk(binds)
+        fc.cache.evict_bulk(list(evicts))
     if ops:
-        for op, err in zip(ops, fc.store.bulk(ops)):
-            if err is not None:
-                fc.cache._record_err("status", op["key"], RuntimeError(err))
+        applier = fc.cache.applier
+        if applier is not None:
+            applier.submit_ops(ops)
+        else:
+            try:
+                results = fc.store.bulk(ops)
+            except Exception as e:  # noqa: BLE001 — retried next cycle
+                for op in ops:
+                    fc.cache._record_err("status", op.get("key", op["kind"]), e)
+            else:
+                for op, err in zip(ops, results):
+                    if err is not None:
+                        fc.cache._record_err("status", op.get("key", op["kind"]),
+                                             RuntimeError(err))
+    fc.phases["publish_ship"] = time.perf_counter() - t_ship0
     return binds
 
 

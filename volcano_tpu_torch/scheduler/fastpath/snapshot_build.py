@@ -419,12 +419,25 @@ def build_fast_snapshot(
         "residue_keys": {m.jobs.row_key[job_rows[j]] for j in np.nonzero(resid_job[:n_jobs])[0]},
         "residue_reasons": {m.jobs.row_key[job_rows[j]]: why
                             for j, why in residue_reason_job.items() if j < n_jobs},
+        # pending tasks per residue class: volcano_residue_tasks_total
+        "residue_task_counts": _residue_counts(residue_reason_job, pend_any_per_job, n_jobs),
         # the cycle's volume interning: the dyn-solve payload and publish's
         # volume binds read it; None on volume-free cycles
         "volume_partition": volume_partition,
         "vol_solve_s": vol_solve_s,
     }
     return snap, aux
+
+
+def _residue_counts(residue_reason_job: Dict[int, str], pend_any_per_job: np.ndarray,
+                    n_jobs: int) -> Dict[str, int]:
+    """Pending-task totals per residue class, this cycle's
+    volcano_residue_tasks_total increments."""
+    counts: Dict[str, int] = {}
+    for j, reason in residue_reason_job.items():
+        if j < n_jobs:
+            counts[reason] = counts.get(reason, 0) + int(pend_any_per_job[j])
+    return counts
 
 
 def build_victim_pool(m: ArrayMirror, snap: TensorSnapshot, aux: dict) -> None:

@@ -3,15 +3,18 @@
 The port's copy of ``volcano_tpu/scheduler/framework.py``: the action and
 plugin registries, ``open_session`` (snapshot, the JobValid gate, plugin
 OnSessionOpen) and ``close_session`` (plugin OnSessionClose, then each
-PodGroup's phase and counts written back through the cache).
+PodGroup's phase and counts written back through the cache), each plugin
+callback's wall recorded in ``metrics``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional
 
 from volcano_tpu_torch.api.objects import PodGroupCondition
 from volcano_tpu_torch.api.types import PodGroupPhase, TaskStatus, allocated_status
+from volcano_tpu_torch.scheduler import metrics
 from volcano_tpu_torch.scheduler.conf import Tier
 from volcano_tpu_torch.scheduler.session import Session
 
@@ -91,7 +94,9 @@ def open_session(cache, tiers: List[Tier]) -> Session:
                 ssn.plugins[opt.name] = builder(opt.arguments)
 
     for plugin in ssn.plugins.values():
+        start = time.perf_counter()
         plugin.on_session_open(ssn)
+        metrics.update_plugin_duration(plugin.name, "OnSessionOpen", start)
     return ssn
 
 
@@ -100,7 +105,9 @@ def close_session(ssn: Session) -> None:
     # became ready release their volumes)
     ssn.cache.clear_session_volumes()
     for plugin in ssn.plugins.values():
+        start = time.perf_counter()
         plugin.on_session_close(ssn)
+        metrics.update_plugin_duration(plugin.name, "OnSessionClose", start)
     for job in ssn.jobs.values():
         if job.pod_group is None:
             continue

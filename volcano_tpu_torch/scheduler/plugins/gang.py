@@ -1,11 +1,14 @@
 """Gang plugin: all-or-nothing co-scheduling on min_available (the port's
-copy of ``volcano_tpu/scheduler/plugins/gang.py``, without the metrics
-and events).
+copy of ``volcano_tpu/scheduler/plugins/gang.py``): at session close an
+unready job gets the Unschedulable condition, a Warning Event on the
+condition's transitions only, and its unschedule and retry metrics.
 """
 
 from __future__ import annotations
 
+from volcano_tpu_torch import events
 from volcano_tpu_torch.api.objects import PodGroupCondition
+from volcano_tpu_torch.scheduler import metrics
 from volcano_tpu_torch.scheduler.framework import Plugin
 from volcano_tpu_torch.scheduler.session import Session, ValidateResult
 
@@ -60,6 +63,7 @@ class GangPlugin(Plugin):
         ssn.add_job_pipelined_fn(self.name, lambda job: job.pipelined())
 
     def on_session_close(self, ssn: Session) -> None:
+        unschedulable_jobs = 0
         for job in ssn.jobs.values():
             if job.ready():
                 # clear a stale Unschedulable condition so the next failure
@@ -75,6 +79,9 @@ class GangPlugin(Plugin):
                     ]
             else:
                 unready = job.min_available - job.ready_task_num()
+                unschedulable_jobs += 1
+                metrics.update_unschedule_task_count(job.name, int(unready))
+                metrics.register_job_retry(job.name)
                 if job.pod_group is not None:
                     # gang.go:138-139 appends FitError(); "" means the cycle
                     # produced no fit data (quota-blocked job) — append
@@ -89,8 +96,18 @@ class GangPlugin(Plugin):
                             f"unschedulable" + (f": {fe}" if fe else "")
                         ),
                     )
+                    prev = next((c for c in job.pod_group.status.conditions
+                                 if c.kind == "Unschedulable"), None)
                     job.pod_group.status.conditions = [
                         c
                         for c in job.pod_group.status.conditions
                         if c.kind != "Unschedulable"
                     ] + [cond]
+                    # the unschedulable Warning Event (cache.go:467) on
+                    # condition transitions only, so that a parked gang
+                    # writes nothing on idle cycles
+                    if prev is None or prev.message != cond.message:
+                        events.record(ssn.cache.store, "PodGroup",
+                                      f"{job.namespace}/{job.name}", "Unschedulable",
+                                      cond.message, type=events.WARNING)
+        metrics.update_unschedule_job_count(unschedulable_jobs)

@@ -17,10 +17,17 @@ dynamic-predicate jobs) runs in its object sub-cycle,
 ``run_object_residue``: one session that sees the fast cycle's published
 binds, the residue allocate on the vectorized engine
 (``scheduler/residue.py``), backfill, and the preempt action.
+``apply_mode="async"`` builds the cache with an applier thread: the fast
+cycle's decisions reach the store off the cycle, the applier is flushed
+before a whole cycle runs on the object path, and ``close()`` stops the
+thread.  Every cycle records the scheduler's metrics
+(``scheduler/metrics.py``).  Left out: the leader elector that calls
+``applier.abort_pending`` (ROADMAP item 9b).
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Dict, Optional
 
@@ -28,6 +35,7 @@ import torch
 
 import volcano_tpu_torch.scheduler.actions  # noqa: F401  (registers actions)
 import volcano_tpu_torch.scheduler.plugins  # noqa: F401  (registers plugins)
+from volcano_tpu_torch.scheduler import metrics
 from volcano_tpu_torch.scheduler.cache import SchedulerCache
 from volcano_tpu_torch.scheduler.conf import BACKENDS, SchedulerConf, full_conf
 from volcano_tpu_torch.scheduler.fastpath.cycle import FastCycle
@@ -35,6 +43,8 @@ from volcano_tpu_torch.scheduler.framework import close_session, get_action, ope
 from volcano_tpu_torch.scheduler.tensor_backend import DeviceUploads, TensorBackend
 
 FAST_PATHS = ("auto", "off")
+
+_LOG = logging.getLogger("volcano_tpu_torch.scheduler")
 
 
 def resolve_device(backend: str) -> torch.device:
@@ -79,7 +89,8 @@ class Scheduler:
 
             self.mesh = resolve_mesh(self.conf.mesh, self.device)
         self.cache = SchedulerCache(store, scheduler_name=scheduler_name,
-                                    default_queue=default_queue)
+                                    default_queue=default_queue,
+                                    async_apply=self.conf.apply_mode == "async")
         self.uploads = DeviceUploads(self.device)
         self.fast_cycle = FastCycle(self) if self.conf.fast_path != "off" else None
         #: "fast" or "object": the path the last cycle took
@@ -102,9 +113,15 @@ class Scheduler:
             self.fast_cycle.sync_mirror()
         return time.perf_counter() - t0
 
+    #: seconds the applier gets to drain before a whole-cycle object
+    #: fallback (the JAX scheduler's)
+    FALLBACK_FLUSH_TIMEOUT_S = 60.0
+
     def run_once(self) -> None:
+        start = time.perf_counter()
         if self.fast_cycle is not None and self.fast_cycle.try_run():
             self.last_path = "fast"
+            metrics.update_e2e_duration(start)
             return
         if self.fast_cycle is not None and not self.fast_cycle.is_coordinator:
             # a mesh-host worker whose fast cycle declined: the object path
@@ -112,8 +129,20 @@ class Scheduler:
             # takes; the worker's mirror reconciles through the watch
             self.last_path = "mesh-worker-skip"
             return
+        if self.fast_cycle is not None and self.cache.applier is not None:
+            # earlier fast cycles' decisions (binds, statuses, admissions)
+            # must be IN the store before an object session snapshots it
+            if not self.cache.applier.flush(timeout=self.FALLBACK_FLUSH_TIMEOUT_S):
+                _LOG.warning("the applier did not drain in %.0f s before an object cycle",
+                             self.FALLBACK_FLUSH_TIMEOUT_S)
         self.run_object_actions(self.conf.actions)
         self.last_path = "object"
+        metrics.update_e2e_duration(start)
+
+    def close(self) -> None:
+        """Stop the applier thread (after draining it), if there is one."""
+        if self.cache.applier is not None:
+            self.cache.applier.stop()
 
     def _open_object_session(self):
         ssn = open_session(self.cache, self.conf.tiers)
@@ -135,6 +164,7 @@ class Scheduler:
                 continue
             t = time.perf_counter()
             action.execute(ssn)
+            metrics.update_action_duration(name, t)
             ph[name] = time.perf_counter() - t
         t = time.perf_counter()
         close_session(ssn)
@@ -168,16 +198,19 @@ class Scheduler:
                 stats = self.fast_cycle.residue_stats if self.fast_cycle is not None else None
                 t = time.perf_counter()
                 AllocateAction()._execute_host(ssn, job_filter=in_residue, stats=stats)
+                metrics.update_action_duration("allocate", t)
                 ph["allocate"] = time.perf_counter() - t
             if "backfill" in self.conf.actions:
                 t = time.perf_counter()
                 BackfillAction().execute(ssn, job_filter=in_residue)
+                metrics.update_action_duration("backfill", t)
                 ph["backfill"] = time.perf_counter() - t
         if run_preempt:
             action = get_action("preempt")
             if action is not None:
                 t = time.perf_counter()
                 action.execute(ssn)
+                metrics.update_action_duration("preempt", t)
                 ph["preempt"] = time.perf_counter() - t
         t = time.perf_counter()
         close_session(ssn)

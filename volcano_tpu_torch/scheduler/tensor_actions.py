@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from volcano_tpu_torch.api.types import PodGroupPhase, TaskStatus
+from volcano_tpu_torch.scheduler import metrics
 from volcano_tpu_torch.scheduler.cache import VolumeBindingError
 from volcano_tpu_torch.scheduler.kernels import (
     allocate_solve, allocate_solve_batch, pack_outputs, pack_volsel,
@@ -421,6 +422,8 @@ def preempt(ssn) -> None:
                     for v in victims:
                         stmt.evict(v, "preempt")
                     stmt.pipeline(preemptor, node_name)
+                    metrics.update_preemption_victims(len(victims))
+                    metrics.register_preemption_attempt()
                 if ok:
                     assigned = True
                 if ssn.job_pipelined(preemptor_job):
@@ -452,6 +455,7 @@ def preempt(ssn) -> None:
                     for v in victims:
                         stmt.evict(v, "preempt")
                     stmt.pipeline(preemptor, node_name)
+                    metrics.register_preemption_attempt()
                 stmt.commit()
                 if not ok:
                     break

@@ -4,8 +4,11 @@ The port's own copy of ``volcano_tpu/store/store.py``, cut to the verbs the
 express cycle uses: typed buckets keyed by namespace/name, a monotonically
 increasing resource version, watch queues of add/update/delete events, and
 no-op suppression (a write that changes nothing bumps no version and
-notifies no watcher — quiescence relies on it).  No WAL, segments,
-digests or remote transport.
+notifies no watcher — quiescence relies on it), and ``apply_segment``, the
+in-process apply of a columnar decision segment (``store/segment.py``)
+with its resubmit dedupe.  Event objects keep no shadow copy
+(``SHADOWLESS_KINDS``).  No WAL, lazy segment apply, digests or remote
+transport (ROADMAP items 11 and 13).
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ import copy
 import dataclasses
 import enum
 import threading
-from collections import defaultdict, deque
+import time
+from collections import OrderedDict, defaultdict, deque
 from dataclasses import dataclass
 from typing import Any, Deque, Dict, Iterator, List, Optional
 
@@ -105,18 +109,34 @@ class Store:
         self._shadow: Dict[str, Dict[str, Any]] = defaultdict(dict)
         self._watchers: Dict[str, List[Deque[Event]]] = defaultdict(list)
         self._rv = 0
+        # (ev_token, ev_start) of recently applied decision segments: the
+        # reserved uid block identifies a segment, so a resubmitted one is
+        # recognised and its Event rows dedupe against those that landed
+        self._applied_segments: OrderedDict = OrderedDict()
+        # the async applier writes from its own thread while the owning
+        # thread reads and writes
         self._mu = threading.RLock()
+
+    def _watched(self, kind: str) -> bool:
+        return bool(self._watchers[kind])
 
     @property
     def resource_version(self) -> int:
         return self._rv
 
+    #: kinds that keep no shadow copy: records nobody diff-suppresses (a
+    #: count bump takes the full update() path); a Scheduled Event a bind
+    #: would otherwise pay a deep clone per create
+    SHADOWLESS_KINDS = frozenset({"Event"})
+
     def _notify(self, ev: Event) -> None:
         for q in self._watchers[ev.kind]:
             q.append(ev)
+        # every kind but the shadowless ones is shadowed, watched or not:
+        # update() compares against it to suppress no-op writes
         if ev.type == EventType.DELETED:
             self._shadow[ev.kind].pop(ev.obj.meta.key, None)
-        else:
+        elif ev.kind not in self.SHADOWLESS_KINDS:
             self._shadow[ev.kind][ev.obj.meta.key] = deep_clone(ev.obj)
 
     def create(self, kind: str, obj: Any) -> Any:
@@ -127,8 +147,6 @@ class Store:
             self._rv += 1
             obj.meta.resource_version = self._rv
             if not obj.meta.creation_timestamp:
-                import time
-
                 obj.meta.creation_timestamp = time.time()
             self._objects[kind][key] = obj
             self._notify(Event(kind, EventType.ADDED, obj))
@@ -230,6 +248,83 @@ class Store:
             except Exception as e:  # noqa: BLE001 — per-op isolation
                 results.append(repr(e))
         return results
+
+    # -- columnar segments -------------------------------------------------------
+
+    #: recently applied segments remembered for the resubmit dedupe
+    SEGMENT_DEDUP_CAP = 1024
+
+    def _note_segment(self, seg) -> bool:
+        """Record ``seg``'s reserved uid block as applied; True when it was
+        seen before (a resubmit).  Must run under ``_mu``."""
+        key = (seg.ev_token, seg.ev_start)
+        resubmit = key in self._applied_segments
+        self._applied_segments[key] = True
+        self._applied_segments.move_to_end(key)
+        while len(self._applied_segments) > self.SEGMENT_DEDUP_CAP:
+            self._applied_segments.popitem(last=False)
+        return resubmit
+
+    def apply_segment(self, seg) -> Dict[str, Any]:
+        """Apply one decision segment (``store/segment.py``): the bind
+        patches, the eviction patches, then one Scheduled or Evict Event per
+        row that landed, the same store writes and watch events as the
+        per-object bulk path.  Returns ``{"binds": [[row, err], ...],
+        "evicts": [...], "timings": {"binds_s", "evicts_s", "events_s"}}``
+        with sparse per-row errors, the bulk verb's isolation.  A
+        resubmitted segment (same uid block) creates no Event twice."""
+        from volcano_tpu_torch.store import segment as segmod
+
+        hosts = seg.bind_hosts
+        reasons = seg.evict_reason_strs
+        errs_b: List[List[Any]] = []
+        errs_e: List[List[Any]] = []
+        ev_rows: List[tuple] = []  # (uid slot, involved key, reason, message, type)
+        with self._mu:
+            resubmit = self._note_segment(seg)
+        # a lock hold per row, as Store.bulk: readers interleave between rows
+        t0 = time.perf_counter()
+        for i, key in enumerate(seg.bind_keys):
+            try:
+                self.patch("Pod", key, {"node_name": hosts[i]})
+            except KeyError as e:
+                errs_b.append([i, f"NotFound: {e}"])
+                continue
+            except Exception as e:  # noqa: BLE001 — per-row isolation
+                errs_b.append([i, repr(e)])
+                continue
+            ev_rows.append((seg.ev_start + i, key, segmod.BIND_REASON,
+                            segmod.scheduled_message(key, hosts[i]), segmod.NORMAL))
+        t1 = time.perf_counter()
+        n_b = len(seg.bind_keys)
+        for j, key in enumerate(seg.evict_keys):
+            try:
+                self.patch("Pod", key, {"deleting": True})
+            except KeyError as e:
+                errs_e.append([j, f"NotFound: {e}"])
+                continue
+            except Exception as e:  # noqa: BLE001 — per-row isolation
+                errs_e.append([j, repr(e)])
+                continue
+            ev_rows.append((seg.ev_start + n_b + j, key, segmod.EVICT_REASON,
+                            segmod.evicted_message(reasons[j]), segmod.WARNING))
+        t2 = time.perf_counter()
+        events = self._objects["Event"]
+        for slot, key, reason, message, type_ in ev_rows:
+            name = segmod.event_name(seg.ev_token, slot)
+            if resubmit and f"/{name}" in events:
+                continue  # this row landed with the first submission
+            ev = segmod.materialize_event(name, key, reason, message, type_,
+                                          rv=0, stamp=0.0)
+            try:
+                self.create("Event", ev)
+            except KeyError:
+                # the row exists already (a resubmit past the dedupe window)
+                continue
+        t3 = time.perf_counter()
+        return {"binds": errs_b, "evicts": errs_e,
+                "timings": {"binds_s": t1 - t0, "evicts_s": t2 - t1,
+                            "events_s": t3 - t2}}
 
     def delete(self, kind: str, key: str) -> Optional[Any]:
         with self._mu:
