@@ -10,6 +10,7 @@
     python3 chip_smoke.py --residue  # only the residue cells (phases 24-25)
     python3 chip_smoke.py --fast-cells  # only cfg5-batch, cfg5d, cfg6 (parent comparisons)
     python3 chip_smoke.py --publish-split  # only the publish modes at cfg5-batch, cfg6, cfg9
+    python3 chip_smoke.py --restart-cells  # only the snapshot-cache cells and phase 26
 
 Phases, each fatal on failure:
 
@@ -54,7 +55,9 @@ Phases, each fatal on failure:
    the first gang (that gang takes the exact preempt solve, K9), cfg6r has
    10 gangs x 20 of a second queue reclaiming (K8), cfg6-exact is cfg6
    under solveMode: exact (every storm task through K9's walk, the
-   preempt phase's wall in the log).  Three cycles each, the victims deleted
+   preempt phase's wall in the log).  Two cycles each (the storm's
+   evictions and pipelines, then its binds; the reference pattern's third,
+   quiet cycle is cut for the run's time), the victims deleted
    after each (as the kubelet does): no pod evicted twice, every victim a
    q0 resident (below the preemptor's priority in the storm cells), the
    pipelined requests covered by each node's idle plus releasing capacity
@@ -86,7 +89,13 @@ Phases, each fatal on failure:
    Three cycles, victims reaped: the cfg6 eviction invariants and the JAX
    package's per-cycle pattern at 1/20 scale; K7 and group-build launches,
    K7 device ms, the resyncs' walls and the object cycle's walls (session
-   open, each action, close) per cycle;
+   open, each action, close) per cycle.  Run with the Scheduler's snapshot
+   cache and again without it (``sched.snapshot_cache = None``): the same
+   evictions, pipelines and binds; each cycle's session-open split
+   (ObjectCapture.take_split: the object snapshot, the plugins' opens, the
+   first tensor snapshot build, the rebuilds after each invalidate, the
+   class rows built, the uploads), and with the cache no class row built
+   and no cached array copied again from cycle 2 on;
 13. K7 kernel — the group build against its plain version at bench config
    4's shape, victim_step warm (the groups held) and cold (built in the
    call) against its plain version there (16 solves timed each), a chain of
@@ -95,7 +104,9 @@ Phases, each fatal on failure:
    warm, and the first inputs cfg6r-be gave it, warm and cold;
 14. e2e cfg5-obj — config 5's nodes and 5,000 gangs x 20 (no best-effort
    pods) with fast_path off: the object cycle's allocate runs K3 and the
-   bulk apply; every gang task bound in cycle 1; two cycles;
+   bulk apply; every gang task bound in cycle 1; three cycles, with the
+   snapshot cache and without it (the same binds; the split and the reuse
+   checks of phase 12);
 15. cap lifts — the shapes the card refused before the node-tiled solves,
    each against its plain version: K3 at 65,536- and 131,072-node buckets
    (build_sim_args(40,000 / 100,000, 100,000, 5,000)), K10 at a 65,536-node
@@ -115,13 +126,14 @@ Phases, each fatal on failure:
    over all_gather_into_tensor; the 4-block solve's split (batch_split);
 18. e2e cfg6r-be-mesh — the cfg6r-be store under full_conf("cuda") with
    mesh "4" and solve_mode "batch": every preemptor attempt is one K12b
-   (victim_step_sharded) launch on four node blocks.  Three cycles,
-   victims reaped, the cfg6 eviction invariants and the per-cycle pattern;
+   (victim_step_sharded) launch on four node blocks.  Two cycles (the
+   pattern's first two, cut for the run's time), victims reaped, the cfg6 eviction invariants and the per-cycle pattern;
    the per-cycle (evictions, pipelines, binds), the ordered evictions, the
    pipelines and the binds equal the same store's run under mesh "off"
    with solve_mode "batch" (K7), with as many K12b launches each cycle as
    that run's K7 launches; K12b launches, device ms and the object cycle's
-   walls per cycle;
+   walls per cycle; the mesh "4" run again without the snapshot cache, the
+   same decisions, the split and the reuse checks of phase 12;
 19. K12b kernel — at bench config 4's shape on local meshes of 1, 2, 4 and
    8 blocks (16 solves timed, warm and cold), each bit for bit equal to its
    plain version on the same blocks and to the one-block K7, state
@@ -145,8 +157,9 @@ Phases, each fatal on failure:
    full_conf("cuda") with mesh "4" and solve_mode "batch": every contention
    pass on four node blocks (K15c preempt_rounds_sharded in cfg6 and cfg6b,
    K15b preempt_solve_sharded in cfg6b, K15a reclaim_solve_sharded in
-   cfg6r; the one-block K8-K10 and the object kernels not launched).  Three
-   cycles each, victims reaped, the cfg6 invariants and CFG6_PATTERN; the
+   cfg6r; the one-block K8-K10 and the object kernels not launched).  Two
+   cycles each (as phase 8), victims reaped, the cfg6 invariants and
+   CFG6_PATTERN's first two cycles; the
    ordered evictions, pipelines and binds equal the same store's run under
    mesh "off" with solve_mode "batch" (K8-K10), run first; each cycle's
    wall, phases and the solves' CUDA-event ms;
@@ -174,8 +187,26 @@ Phases, each fatal on failure:
    walk (K7 not launched, as in the reference).  Three cycles, victims
    reaped: no pod evicted twice, victims q0 residents below the storm's
    priority, pipelines covered, gangs all or nothing, no host port twice,
-   the JAX package's per-cycle pattern; K7 launches and device ms.
+   the JAX package's per-cycle pattern; K7 launches and device ms;
+26. e2e cfg5-restart — config 5 (two twin stores, 100,000 gang tasks and
+   2,000 best-effort pods) under ``examples/scheduler-conf.yaml`` loaded by
+   the port's ``load_conf`` (backend cuda, applyMode async, a
+   mirrorCheckpoint under the checkout's ``build/``): a Scheduler's
+   blocking prewarm (the store unchanged, each warmed variant launched
+   once: K1, K3 at the live and the next task bucket, the storm solves
+   K8-K10 empty, K7 in its three modes with K7g) and its first cycle,
+   against a twin Scheduler not prewarmed (the same binds); the mirror
+   checkpointed; a wave of 250 gangs x 20; a restarted Scheduler's restore
+   timed against the twin's full list, their next cycles binding the same
+   5,000 tasks; then two schedulers with leader election on one store: the
+   leader's cycle queued behind a held applier entry, the standby binding
+   nothing, the takeover after the lease expires binding a second wave as
+   the twin's single scheduler does, the deposed leader dropping its queue
+   and rebuilding its mirror.
 
+Every Scheduler's ``prewarm`` runs blocking (``background=False``), and
+the launch counts of a phase start after it: the full prewarm launches
+each variant the live cluster can reach.
 Phases 3-6, 8, 10, 16, 21 (cfg5-2h), 22 and 24 run their Scheduler with
 ``apply_mode="async"`` and the columnar publish, as the JAX package's
 bench.py runs its configs: the applier is flushed after every cycle (a
@@ -208,7 +239,10 @@ the group build alone), so a parent commit is measured in the same call.
 the whole cfg6 storm, K10 on cfg6 and three synthetic shapes, on one
 block, four local blocks and a one-rank NCCL group; device ms by kernel,
 digests, and for K8 / K9 the timed walk's stages and each cluster size).
-``--residue`` runs the build and phases 24-25 alone; ``--fast-cells`` the
+``--residue`` runs the build and phases 24-25 alone; ``--restart-cells``
+the build, phases 12, 14 and 18 (without the kernel phases 13 and 19),
+cfg6b-mesh (the blocked storm solves' empty prewarm launches) and phase 26;
+``--fast-cells`` the
 build and cfg5-batch, cfg5d and cfg6 (no sub-cycle), so a parent given
 this file is timed beside the change in one call.  These cells run under
 the applier with the columnar publish, where a tree without the applier
@@ -995,7 +1029,7 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
         f"{CFG5['tasks_per_job']} ({n_dyn} dynamic), {n_best_effort} best-effort, "
         f"{n_vol} volume gangs ({time.perf_counter() - t0:.1f} s)")
     sched = Scheduler(store, conf=async_conf(full_conf("cuda")))
-    log(f"[{label}] prewarm {sched.prewarm():.2f} s")
+    log(f"[{label}] prewarm {sched.prewarm(background=False):.2f} s")
     solve_dyn = cycle_mod.torch_dynamic_solve
     solve_walls = []
     if capture is not None:
@@ -1236,6 +1270,10 @@ CONTENTION_KERNELS = ("reclaim_solve", "preempt_solve", "preempt_rounds")
 # K15a-c: the same solves on node blocks (a conf mesh with solve_mode batch)
 MESH_CONTENTION_KERNELS = tuple(k + "_sharded" for k in CONTENTION_KERNELS)
 CFG6_MESH = "4"
+# the whole run's phases 8 and 22 take each pattern's first two cycles: the
+# storm's evictions and pipelines, then its binds (the third, quiet cycle
+# is cut for the run's time)
+CONTENTION_CUT_CYCLES = 2
 # per cycle (evictions, pipelines, binds), the victims reaped between
 # cycles: the JAX package's pattern at 1/10 scale
 # (tests/test_torch_contention.py TENTH_PATTERN), at full width
@@ -1425,10 +1463,12 @@ def check_contention_cycle(label, cell, store, victims, pipes):
             raise AssertionError(f"{label}: gangs pipelined partially: {list(partial.items())[:5]}")
 
 
-def phase_contention(label, cell, want, forbid, conf=None, names=CONTENTION_KERNELS):
+def phase_contention(label, cell, want, forbid, conf=None, names=CONTENTION_KERNELS,
+                     cycles=None):
     """Drive Scheduler.run_once on the card over a config-6 store for three
-    cycles under ``conf`` (full_conf("cuda") by default), the victims reaped
-    (deleted, as the kubelet does) after each.  Launch counts are reset
+    cycles (or ``cycles``, the reference pattern's first ones) under
+    ``conf`` (full_conf("cuda") by default), the victims reaped (deleted,
+    as the kubelet does) after each.  Launch counts are reset
     just before the first cycle and read just after it.  Returns
     (first-cycle launches, the first inputs of the kernels in ``names``,
     the run's per-cycle (evictions, pipelines, binds), ordered evictions,
@@ -1444,11 +1484,12 @@ def phase_contention(label, cell, want, forbid, conf=None, names=CONTENTION_KERN
         f"{CFG6['run_jobs'] * CFG6['tasks_per_job']} residents ({time.perf_counter() - t0:.1f} s)")
     sched = Scheduler(store, conf=async_conf(conf or full_conf("cuda")))
     log(f"[{label}] mesh {sched.mesh}, solve_mode {sched.conf.solve_mode}; prewarm "
-        f"{sched.prewarm():.2f} s")
+        f"{sched.prewarm(background=False):.2f} s")
     cap = ContentionCapture(names)
     history, evicted = [], []
+    pattern = CFG6_PATTERN[cell][:cycles]
     try:
-        for cycle in range(len(CFG6_PATTERN[cell])):
+        for cycle in range(len(pattern)):
             n_ev, n_pipe, n_bind = (len(sched.cache.evict_log), len(cap.pipes),
                                     len(sched.cache.bind_log))
             if cycle == 0:
@@ -1479,9 +1520,9 @@ def phase_contention(label, cell, want, forbid, conf=None, names=CONTENTION_KERN
         sched.close()
     if len(set(evicted)) != len(evicted):
         raise AssertionError(f"{label}: a pod was evicted twice")
-    if history != CFG6_PATTERN[cell]:
+    if history != pattern:
         raise AssertionError(f"{label}: per-cycle (evictions, pipelines, binds) {history}, "
-                             f"the reference's pattern is {CFG6_PATTERN[cell]}")
+                             f"the reference's pattern is {pattern}")
     if cell != "cfg6r":
         unbound = [p.meta.key for p in store.list("Pod")
                    if p.meta.name.startswith("hot") and not p.node_name]
@@ -1689,6 +1730,8 @@ def phase_victim_kernels(captured, launches):
 # reaped between cycles: the JAX package's pattern at 1/20 scale
 # (tests/test_torch_object.py CFG6R_BE_PATTERN), at full width
 CFG6R_BE_PATTERN = [(19, 10, 0), (19, 10, 0), (19, 10, 0)]
+# cfg6r-be-mesh's runs take the pattern's first two cycles
+CFG6R_BE_MESH_CYCLES = 2
 # the object path's kernels; the fast-path cells must not launch them
 OBJECT_KERNELS = ("victim_step", "victim_step_sharded")
 #: the object path's group build (once per snapshot load), and with the
@@ -1701,23 +1744,64 @@ class ObjectCapture:
     """During the object cells: the inputs of the first call of each victim
     solve (K7 victim_step, K12b victim_step_sharded), CUDA events around
     every call (their device time per cycle), the walls of the victim
-    driver's resyncs (the snapshot rebuilt after a host detour), and every
-    pipeline as (pod key, node name)."""
+    driver's resyncs (the snapshot rebuilt after a host detour), every
+    pipeline as (pod key, node name), and the session open's split
+    (``take_split``): the object snapshot (``SchedulerCache.snapshot``),
+    every tensor snapshot build (the first of a cycle and each resync's),
+    and the host -> device copies the upload memos made (their count,
+    bytes, wall, and how many were of the snapshot cache's arrays)."""
 
     def __init__(self):
         import torch
 
+        from volcano_tpu_torch.scheduler import cache as C
         from volcano_tpu_torch.scheduler import session as S
         from volcano_tpu_torch.scheduler import statement as ST
         from volcano_tpu_torch.scheduler import tensor_actions as TA
+        from volcano_tpu_torch.scheduler import tensor_backend as TB
 
         self.first, self.events, self.resyncs, self.pipes = {}, [], [], []
+        self.snap_walls, self.builds, self.copies = [], [], []
+        #: the SnapshotCache whose arrays count as cached uploads, or None
+        self.cache = None
         self._saved = [(TA, name, getattr(TA, name)) for name in OBJECT_KERNELS]
         self._saved += [(TA._VictimDriver, "resync", TA._VictimDriver.resync),
                         (S.Session, "pipeline", S.Session.pipeline),
-                        (ST.Statement, "pipeline", ST.Statement.pipeline)]
+                        (ST.Statement, "pipeline", ST.Statement.pipeline),
+                        (C.SchedulerCache, "snapshot", C.SchedulerCache.snapshot),
+                        (TB, "build_tensor_snapshot", TB.build_tensor_snapshot),
+                        (TB.DeviceUploads, "__call__", TB.DeviceUploads.__call__)]
         resync = TA._VictimDriver.resync
         rec = self
+        snapshot, build, upload = (C.SchedulerCache.snapshot, TB.build_tensor_snapshot,
+                                   TB.DeviceUploads.__call__)
+
+        def timed_snapshot(cache):
+            t = time.perf_counter()
+            out = snapshot(cache)
+            rec.snap_walls.append(time.perf_counter() - t)
+            return out
+
+        def timed_build(ssn, **kw):
+            t = time.perf_counter()
+            out = build(ssn, **kw)
+            cache = kw.get("cache")
+            rec.builds.append((time.perf_counter() - t,
+                               dict(cache.stats) if cache is not None else None))
+            return out
+
+        def timed_upload(memo, arr):
+            hit = memo._memo.get(id(arr))
+            if hit is not None and hit[0] is arr:
+                return upload(memo, arr)
+            t = time.perf_counter()
+            out = upload(memo, arr)
+            rec.copies.append((arr.nbytes, time.perf_counter() - t, rec._cached(arr)))
+            return out
+
+        C.SchedulerCache.snapshot = timed_snapshot
+        TB.build_tensor_snapshot = timed_build
+        TB.DeviceUploads.__call__ = timed_upload
 
         def timed(name, step):
             def call(*args, **kwargs):
@@ -1754,6 +1838,40 @@ class ObjectCapture:
         self.events = []
         return ms
 
+    def _cached(self, arr):
+        """"planes" for the cache's class planes, "statics" for its node
+        statics, else None."""
+        c = self.cache
+        if c is None:
+            return None
+        if c._assembled and any(arr is a for a in c._assembled[1:]):
+            return "planes"
+        if c._node_static and any(arr is a for a in c._node_static[1:]):
+            return "statics"
+        return None
+
+    def take_split(self, walls):
+        """The session-open split of the cycle since the last take: the
+        object snapshot, the plugins' opens (the rest of ``session_open``),
+        the first tensor snapshot build, the resyncs' rebuilds, the class
+        rows built, and the uploads (copies, MB, seconds, copies of cached
+        arrays)."""
+        snap = sum(self.snap_walls)
+        builds = self.builds
+        out = dict(object_snapshot=round(snap, 4),
+                   plugins_open=round(walls.get("session_open", 0.0) - snap, 4),
+                   tensor_snapshot=round(builds[0][0], 4) if builds else 0.0,
+                   rebuilds=[round(w, 4) for w, _ in builds[1:]],
+                   rows_built=[st["rows_built"] for _, st in builds if st is not None],
+                   planes_reused=[st["assembled"] for _, st in builds if st is not None],
+                   uploads=dict(copies=len(self.copies),
+                                mb=round(sum(b for b, _, _ in self.copies) / 2 ** 20, 3),
+                                s=round(sum(w for _, w, _ in self.copies), 4),
+                                planes=sum(1 for _, _, c in self.copies if c == "planes"),
+                                statics=sum(1 for _, _, c in self.copies if c == "statics")))
+        self.snap_walls, self.builds, self.copies = [], [], []
+        return out
+
     def close(self):
         for owner, name, fn in self._saved:
             setattr(owner, name, fn)
@@ -1775,16 +1893,32 @@ def _object_walls(sched):
     return {k: round(v, 4) for k, v in sched.object_phases.items()}
 
 
-def _object_cfg6r_be(label, conf, kernel):
+def _check_cache_reuse(label, splits):
+    """With the snapshot cache, from cycle 2 on: no class row is built, the
+    node statics are not copied to the card again, and neither are the
+    class planes wherever every build of the cycle reused them (a cycle
+    whose pending classes changed assembles new planes from cached rows)."""
+    for cycle, sp in enumerate(splits[1:], start=2):
+        up = sp["uploads"]
+        if (any(sp["rows_built"]) or up["statics"]
+                or (all(sp["planes_reused"]) and up["planes"])):
+            raise AssertionError(f"{label}: cycle {cycle} built class rows {sp['rows_built']}, "
+                                 f"copied {up['statics']} node statics and {up['planes']} "
+                                 f"class planes (planes reused {sp['planes_reused']})")
+
+
+def _object_cfg6r_be(label, conf, kernel, cache=True, cycles=len(CFG6R_BE_PATTERN)):
     """Scheduler.run_once on the card over cfg6r-be for three cycles under
     ``conf``, the victims reaped after each: every cycle takes the object
     path (the fast cycle declines a best-effort reclaimer), the best-effort
     reclaimer's attempt is a host detour and every other preemptor attempt
-    one launch of the victim solve ``kernel``.  Launch counts are reset just
+    one launch of the victim solve ``kernel``.  ``cache=False`` runs the
+    Scheduler without its snapshot cache; ``cycles`` cuts the run to the
+    pattern's first cycles.  Launch counts are reset just
     before each cycle and read just after it.  Returns the per-cycle
     launches, the first call's inputs of ``kernel``, and the run's
-    (evictions, pipelines, binds) per cycle, ordered evictions, pipelines
-    and binds."""
+    (evictions, pipelines, binds) per cycle, ordered evictions, pipelines,
+    binds, and each cycle's walls and session-open split."""
     import torch
 
     from volcano_tpu_torch.scheduler.scheduler import Scheduler
@@ -1796,12 +1930,15 @@ def _object_cfg6r_be(label, conf, kernel):
         f"{CFG6['reclaim_gangs']} reclaiming gangs + 1 best-effort pod "
         f"({time.perf_counter() - t0:.1f} s)")
     sched = Scheduler(store, conf=conf)
-    log(f"[{label}] mesh {sched.mesh}, solve_mode {conf.solve_mode}; prewarm "
-        f"{sched.prewarm():.2f} s")
+    if not cache:
+        sched.snapshot_cache = None
+    log(f"[{label}] mesh {sched.mesh}, solve_mode {conf.solve_mode}, snapshot cache "
+        f"{'on' if cache else 'off'}; prewarm {sched.prewarm(background=False):.2f} s")
     cap = ObjectCapture()
-    history, evicted, per_cycle = [], [], []
+    cap.cache = sched.snapshot_cache
+    history, evicted, per_cycle, walls, splits = [], [], [], [], []
     try:
-        for cycle in range(len(CFG6R_BE_PATTERN)):
+        for cycle in range(cycles):
             n_ev, n_pipe, n_bind = (len(sched.cache.evict_log), len(cap.pipes),
                                     len(sched.cache.bind_log))
             n_resync = len(cap.resyncs)
@@ -1819,11 +1956,14 @@ def _object_cfg6r_be(label, conf, kernel):
             pipes = cap.pipes[n_pipe:]
             history.append((len(victims), len(pipes), len(sched.cache.bind_log) - n_bind))
             resyncs = cap.resyncs[n_resync:]
+            walls.append(dict(_object_walls(sched), wall=round(wall, 4)))
+            splits.append(cap.take_split(sched.object_phases))
             log(f"[{label}] cycle {cycle + 1} wall {wall:.3f} s walls "
                 f"{json.dumps(_object_walls(sched))} (evictions, pipelines, binds) "
                 f"{history[-1]}; {kernel} launches {launches[kernel]}, device "
                 f"{cap.take_device_ms():.3f} ms; {len(resyncs)} resyncs "
                 f"{[round(r, 4) for r in resyncs]} s; launches {launches}")
+            log(f"[{label}] cycle {cycle + 1} session-open split {json.dumps(splits[-1])}")
             for name in (kernel, GROUP_KERNEL):
                 if launches[name] < 1:
                     raise AssertionError(f"{label}: {name} not launched in cycle {cycle + 1}")
@@ -1841,20 +1981,44 @@ def _object_cfg6r_be(label, conf, kernel):
         cap.close()
     if len(set(evicted)) != len(evicted):
         raise AssertionError(f"{label}: a pod was evicted twice")
-    if history != CFG6R_BE_PATTERN:
+    if history != CFG6R_BE_PATTERN[:cycles]:
         raise AssertionError(f"{label}: per-cycle (evictions, pipelines, binds) {history}, "
-                             f"the reference's pattern is {CFG6R_BE_PATTERN}")
+                             f"the reference's pattern is {CFG6R_BE_PATTERN[:cycles]}")
+    if cache:
+        _check_cache_reuse(label, splits)
     log(f"[{label}] invariants hold; evictions per cycle {[h[0] for h in history]}")
     return per_cycle, captured, dict(history=history, evicts=list(sched.cache.evict_log),
-                                     pipes=pipes, binds=list(sched.cache.bind_log))
+                                     pipes=pipes, binds=list(sched.cache.bind_log),
+                                     walls=walls, splits=splits)
+
+
+def _same_decisions(label, got, want, keys=("history", "evicts", "pipes", "binds")):
+    for key in keys:
+        if got[key] != want[key]:
+            raise AssertionError(f"{label}: {key} differ with and without the snapshot cache")
+
+
+def _cache_summary(label, on, off):
+    """One line: each cycle's wall and split with the cache and without."""
+    log(f"[{label}] snapshot cache on / off, per cycle: " + json.dumps([
+        {"wall": [a["wall"], b["wall"]], "session_open": [a["session_open"], b["session_open"]],
+         "tensor_snapshot": [sa["tensor_snapshot"], sb["tensor_snapshot"]],
+         "rebuilds": [sa["rebuilds"], sb["rebuilds"]],
+         "uploads_mb": [sa["uploads"]["mb"], sb["uploads"]["mb"]]}
+        for a, b, sa, sb in zip(on["walls"], off["walls"], on["splits"], off["splits"])]))
 
 
 def phase_object_cfg6r_be():
     """cfg6r-be under full_conf("cuda"): every preemptor attempt one K7
-    launch.  Returns (first-cycle launches, the first K7 call's inputs)."""
+    launch; with the snapshot cache, then without it, the same decisions.
+    Returns (first-cycle launches, the first K7 call's inputs)."""
     from volcano_tpu_torch.scheduler.conf import full_conf
 
-    per_cycle, captured, _ = _object_cfg6r_be("e2e cfg6r-be", full_conf("cuda"), "victim_step")
+    per_cycle, captured, on = _object_cfg6r_be("e2e cfg6r-be", full_conf("cuda"), "victim_step")
+    _, _, off = _object_cfg6r_be("e2e cfg6r-be, no cache", full_conf("cuda"), "victim_step",
+                                 cache=False)
+    _same_decisions("cfg6r-be", on, off)
+    _cache_summary("e2e cfg6r-be", on, off)
     return per_cycle[0], captured
 
 
@@ -1869,11 +2033,18 @@ def phase_object_cfg6r_be_mesh():
     from volcano_tpu_torch.scheduler.conf import full_conf
 
     runs = {}
-    for mesh, kernel in (("off", "victim_step"), (CFG6R_BE_MESH, "victim_step_sharded")):
+    for mesh, kernel, cache in (("off", "victim_step", True),
+                                (CFG6R_BE_MESH, "victim_step_sharded", True),
+                                (CFG6R_BE_MESH, "victim_step_sharded", False)):
         conf = full_conf("cuda")
         conf.solve_mode, conf.mesh = "batch", mesh
-        runs[mesh] = _object_cfg6r_be(f"e2e cfg6r-be-mesh, mesh {mesh}", conf, kernel)
-    (oracle, _, want), (per_cycle, captured, got) = runs["off"], runs[CFG6R_BE_MESH]
+        # two cycles a run, for the whole run's time
+        runs[mesh, cache] = _object_cfg6r_be(
+            f"e2e cfg6r-be-mesh, mesh {mesh}" + ("" if cache else ", no cache"), conf, kernel,
+            cache=cache, cycles=CFG6R_BE_MESH_CYCLES)
+    (oracle, _, want), (per_cycle, captured, got) = runs["off", True], runs[CFG6R_BE_MESH, True]
+    _same_decisions("cfg6r-be-mesh", got, runs[CFG6R_BE_MESH, False][2])
+    _cache_summary("e2e cfg6r-be-mesh", got, runs[CFG6R_BE_MESH, False][2])
     for key in ("history", "evicts", "pipes", "binds"):
         if got[key] != want[key]:
             raise AssertionError(f"cfg6r-be-mesh: {key} differ from the mesh-off oracle")
@@ -1888,19 +2059,19 @@ def phase_object_cfg6r_be_mesh():
     return per_cycle[0], captured
 
 
-def phase_object_cfg5():
+def _object_cfg5(label, cache):
     """Config 5's nodes and 5,000 gangs x 20 (no best-effort pods: on the
     object path each would take a Python scan of the 10,000 nodes in
-    backfill) under full_conf("cuda") with fast_path "off": the object
-    cycle's allocate runs K3 and applies its 100,000 placements in bulk;
-    every gang task binds in cycle 1.  Two cycles.  Returns the first
-    cycle's launches."""
+    backfill) under full_conf("cuda") with fast_path "off", three cycles,
+    with the Scheduler's snapshot cache or without it: the object cycle's
+    allocate runs K3 and applies its 100,000 placements in bulk; every gang
+    task binds in cycle 1.  Returns the first cycle's launches and the
+    run's binds, walls and splits."""
     import torch
 
     from volcano_tpu_torch.scheduler.conf import full_conf
     from volcano_tpu_torch.scheduler.scheduler import Scheduler
 
-    label = "e2e cfg5-obj"
     t0 = time.perf_counter()
     store = build_cfg5_store(CFG5["jobs"], 0)
     log(f"[{label}] store built: {CFG5['nodes']} nodes, {CFG5['jobs']} gangs x "
@@ -1908,10 +2079,15 @@ def phase_object_cfg5():
     conf = full_conf("cuda")
     conf.fast_path = "off"
     sched = Scheduler(store, conf=conf)
-    log(f"[{label}] prewarm {sched.prewarm():.2f} s")
+    if not cache:
+        sched.snapshot_cache = None
+    log(f"[{label}] snapshot cache {'on' if cache else 'off'}; prewarm "
+        f"{sched.prewarm(background=False):.2f} s")
     cap = ObjectCapture()
+    cap.cache = sched.snapshot_cache
+    walls, splits = [], []
     try:
-        for cycle in range(2):
+        for cycle in range(3):
             reset_launches()
             t0 = time.perf_counter()
             sched.run_once()
@@ -1922,10 +2098,13 @@ def phase_object_cfg5():
                 first = launches
             publish_report(label, sched, 0.0, cycle + 1)
             gang, be = check_placement(store)
+            walls.append(dict(_object_walls(sched), wall=round(wall, 4)))
+            splits.append(cap.take_split(sched.object_phases))
             log(f"[{label}] cycle {cycle + 1} wall {wall:.3f} s walls "
                 f"{json.dumps(_object_walls(sched))}; bound {gang} gang tasks; victim_step "
                 f"launches {launches['victim_step']}, device {cap.take_device_ms():.3f} ms; "
                 f"launches {launches}")
+            log(f"[{label}] cycle {cycle + 1} session-open split {json.dumps(splits[-1])}")
             if cycle == 0 and gang != CFG5["jobs"] * CFG5["tasks_per_job"]:
                 raise AssertionError(f"{label}: {gang} gang tasks bound in cycle 1")
     finally:
@@ -1936,6 +2115,20 @@ def phase_object_cfg5():
     for name in ("allocate_solve", "victim_step_sharded") + CONTENTION_KERNELS:
         if first[name]:
             raise AssertionError(f"{label}: kernel {name} launched ({first[name]})")
+    if cache:
+        _check_cache_reuse(label, splits)
+    return first, dict(binds=list(sched.cache.bind_log), evicts=list(sched.cache.evict_log),
+                       pipes=list(cap.pipes), walls=walls, splits=splits)
+
+
+def phase_object_cfg5():
+    """cfg5-obj with the snapshot cache and without it: the same binds,
+    evictions and pipelines.  Returns the cached run's first-cycle
+    launches."""
+    first, on = _object_cfg5("e2e cfg5-obj", True)
+    _, off = _object_cfg5("e2e cfg5-obj, no cache", False)
+    _same_decisions("cfg5-obj", on, off, keys=("binds", "evicts", "pipes"))
+    _cache_summary("e2e cfg5-obj", on, off)
     return first
 
 
@@ -2371,7 +2564,7 @@ def phase_cfg9():
     sched = Scheduler(store, conf=conf)
     if sched.mesh is None or sched.mesh.size != int(CFG9_MESH):
         raise AssertionError(f"cfg9: mesh {CFG9_MESH} resolved to {sched.mesh}")
-    log(f"[e2e cfg9] mesh {sched.mesh}; prewarm {sched.prewarm():.2f} s")
+    log(f"[e2e cfg9] mesh {sched.mesh}; prewarm {sched.prewarm(background=False):.2f} s")
     solve = cycle_mod.torch_allocate_solve
     captured = []
 
@@ -2488,6 +2681,12 @@ def phase_sharded_kernels(captured, launches):
             outputs = S.fetch_outputs(out_n, mesh)
         del out_n
         ms[n] = cuda_ms(run, 2)
+        if n != int(CFG9_MESH):
+            # the plain version runs on the cell's blocks only (5-7 s a run at
+            # this shape; cut for the run's time)
+            log(f"[sharded] local mesh of {n} blocks ok: {ms[n]:.3f} ms, equal to the "
+                "one-block K3")
+            continue
         plain_s, plain_ms[n] = _timed(lambda: S.batch_blocks_plain(
             repl, S._blocks(mesh, planes), n, mesh.exchange, w_least, w_balanced, **policy))
         err = max(err, _compare(f"sharded_cycle plain {n} blocks", plain_s, ref))
@@ -2861,7 +3060,7 @@ def phase_cfg5_two_hosts():
         conf.mesh, conf.mesh_hosts, conf.mesh_host_id = CFG9_MESH, hosts, host_id
         sched = Scheduler(store, conf=conf)
         log(f"[{label}] store built ({time.perf_counter() - t0:.1f} s); prewarm "
-            f"{sched.prewarm():.2f} s")
+            f"{sched.prewarm(background=False):.2f} s")
         reset_launches()
         t0 = time.perf_counter()
         sched.run_once()
@@ -3136,7 +3335,7 @@ def _capture_cfg6r_be_step():
     from volcano_tpu_torch.scheduler.scheduler import Scheduler
 
     sched = Scheduler(build_cfg6r_be_store(), conf=full_conf("cuda"))
-    sched.prewarm()
+    sched.prewarm(background=False)
     cap = ObjectCapture()
     try:
         sched.run_once()
@@ -3223,7 +3422,7 @@ def _capture_storms():
             ("preempt_rounds", "preempt_rounds", "cfg6", None)):
         store = build_contended_store(cell, **({"reclaim_gangs": gangs} if gangs else {}))
         sched = Scheduler(store, conf=full_conf("cuda"))
-        sched.prewarm()
+        sched.prewarm(background=False)
         cap = ContentionCapture((name,))
         try:
             sched.run_once()
@@ -3541,7 +3740,7 @@ def _capture_dyn(label, dynamic_frac=0.0, volume_tasks=0):
 
     store = build_cfg5_store(CFG5["jobs"], CFG5["best_effort"], dynamic_frac, volume_tasks)
     sched = Scheduler(store, conf=full_conf("cuda"))
-    sched.prewarm()
+    sched.prewarm(background=False)
     solve_dyn, cap = cycle_mod.torch_dynamic_solve, []
 
     def recording(backend, snap, dyn, n_pending=None):
@@ -3734,7 +3933,7 @@ def phase_profile(out_path=None):
         if mesh:
             conf.mesh = mesh
         sched = Scheduler(store, conf=conf)
-        sched.prewarm()
+        sched.prewarm(background=False)
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             sched.run_once()
@@ -3779,7 +3978,7 @@ def phase_contention_mesh():
             conf.solve_mode, conf.mesh = "batch", mesh
             runs[mesh] = phase_contention(f"e2e {cell}-mesh, mesh {mesh}", cell,
                                           {n: 1 for n in run_names}, forbid, conf=conf,
-                                          names=run_names)
+                                          names=run_names, cycles=CONTENTION_CUT_CYCLES)
         (_, _, want), (first, cap, got) = runs["off"], runs[CFG6_MESH]
         for key in ("history", "evicts", "pipes", "binds"):
             if got[key] != want[key]:
@@ -4004,7 +4203,7 @@ def phase_cfg6d():
         f"gangs x {CFG6['tasks_per_job']}, gangs {list(CFG6D['ported'])} with a host port "
         f"({time.perf_counter() - t0:.1f} s)")
     sched = Scheduler(store, conf=full_conf("cuda"))
-    log(f"[{label}] prewarm {sched.prewarm():.2f} s")
+    log(f"[{label}] prewarm {sched.prewarm(background=False):.2f} s")
     cap = ObjectCapture()
     history, evicted = [], []
     try:
@@ -4109,7 +4308,7 @@ def _publish_run(label, cell, mode, in_flight):
     t0 = time.perf_counter()
     store = build_cfg5_store() if cell == "cfg5-batch" else build_contended_store("cfg6")
     sched = Scheduler(store, conf=conf)
-    build_s, prewarm_s = time.perf_counter() - t0, sched.prewarm()
+    build_s, prewarm_s = time.perf_counter() - t0, sched.prewarm(background=False)
     out = {"cell": cell, "mode": mode, "cycle2": "in flight" if in_flight else "after a flush"}
     walls = []
     for cycle in (1, 2):
@@ -4185,7 +4384,7 @@ def phase_publish_split():
         store = build_cfg9_store()
         sched = Scheduler(store, conf=conf)
         out = {"cell": "cfg9", "mode": mode, "build_s": round(time.perf_counter() - t0, 1),
-               "prewarm_s": round(sched.prewarm(), 2)}
+               "prewarm_s": round(sched.prewarm(background=False), 2)}
         for cycle in (1, 2):
             t0 = time.perf_counter()
             sched.run_once()
@@ -4214,6 +4413,252 @@ def phase_publish_split():
     if cfg9["sync"] != cfg9["async-columnar"]:
         raise AssertionError("publish-split cfg9: the two modes bound differently")
     return rows
+
+
+RESTART_WAVE_GANGS = 250
+#: the conf the restart phase loads: the repo's example, with the card
+EXAMPLE_CONF = os.path.join("examples", "scheduler-conf.yaml")
+
+
+def add_wave(store, tag, n_gangs=RESTART_WAVE_GANGS, seed=1):
+    """A wave of ``n_gangs`` gangs x 20 tasks (config 5's request mix, in
+    queue q{g % 2}), their PodGroups Pending for enqueue to admit."""
+    from volcano_tpu_torch.api import (
+        POD_GROUP_KEY, Metadata, Pod, PodGroup, PodGroupPhase, PodSpec, Resource,
+    )
+
+    rng = np.random.default_rng(seed)
+    tpj = CFG5["tasks_per_job"]
+    cpus = rng.choice([250, 500, 1000, 2000], n_gangs * tpj)
+    mems = rng.choice([256, 512, 1024, 2048], n_gangs * tpj) * (1 << 20)
+    for g in range(n_gangs):
+        name = f"{tag}g{g:04d}"
+        pg = PodGroup(meta=Metadata(name=name, namespace="default"), min_member=tpj,
+                      queue=f"q{g % CFG5['queues']}")
+        pg.status.phase = PodGroupPhase.PENDING
+        store.create("PodGroup", pg)
+        for t in range(tpj):
+            k = g * tpj + t
+            store.create("Pod", Pod(
+                meta=Metadata(name=f"{name}-{t}", namespace="default",
+                              annotations={POD_GROUP_KEY: name}),
+                spec=PodSpec(resources=Resource(float(cpus[k]), float(mems[k])))))
+
+
+def _warm_expected(tasks):
+    """Kernel -> launches a blocking prewarm makes for its task names."""
+    want = {"water_fill": 1}
+    for name in tasks["critical"] + tasks["later"]:
+        base = name.split("@")[0].split(":")[0]
+        if base == "contention":
+            continue  # the deferred part: its tasks follow under their names
+        want[base] = want.get(base, 0) + 1
+        if base.startswith("victim_step"):
+            want["victim_groups"] = want.get("victim_groups", 0) + 1
+    return want
+
+
+def _new_binds(sched, since):
+    return sorted(sched.cache.bind_log[since:])
+
+
+def phase_restart_standby():
+    """Config 5 under the repo's example conf (examples/scheduler-conf.yaml
+    through the port's loader, backend: cuda, applyMode: async,
+    mirrorCheckpoint in the checkout's build directory):
+
+    * prewarm: a Scheduler prewarmed (blocking) against a twin that is not,
+      each's first cycle timed; the prewarm leaves the store as it was and
+      launches each warmed variant once; both cycles make the same binds;
+    * restart: the prewarmed scheduler checkpoints its mirror after its
+      cycle; a wave of 250 gangs x 20 arrives; a restarted Scheduler
+      restores the checkpoint (timed) while the twin's new Scheduler lists
+      the cluster (timed); their next cycles make the same binds;
+    * standby: two schedulers with leader election on one store
+      (``leader.LeaderElector``, one clock), a second wave: the leader's
+      decisions stay queued behind a held applier entry, the standby binds
+      nothing, the lease expires and the standby takes over and binds the
+      wave, the deposed leader drops its queued decisions and rebuilds its
+      mirror; the wave lands as the twin's single scheduler binds it."""
+    import threading
+
+    import torch
+
+    from volcano_tpu_torch.leader import LeaderElector
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    label = "e2e cfg5-restart"
+    here = os.path.dirname(os.path.abspath(__file__))
+    build_dir = os.path.join(here, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    ckpt = os.path.join(build_dir, "chip_smoke_mirror.ckpt")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    with open(os.path.join(here, EXAMPLE_CONF)) as f:
+        text = f.read().replace("backend: tpu", "backend: cuda")
+    text += f"applyMode: async\nmirrorCheckpoint: {ckpt}\n"
+    t0 = time.perf_counter()
+    store_a, store_b = (build_cfg5_store(CFG5["jobs"], CFG5["best_effort"]) for _ in range(2))
+    log(f"[{label}] two config-5 stores built ({time.perf_counter() - t0:.1f} s)")
+    scheds = []
+    try:
+        a = Scheduler.from_conf_yaml(store_a, text)
+        b = Scheduler.from_conf_yaml(store_b, text.replace(f"mirrorCheckpoint: {ckpt}\n", ""))
+        scheds += [a, b]
+        if (a.conf.apply_mode != "async" or a.conf.mirror_checkpoint != ckpt
+                or b.conf.mirror_checkpoint):
+            raise AssertionError(f"{label}: the loaded conf is {a.conf}")
+        log(f"[{label}] {EXAMPLE_CONF} loaded: backend {a.conf.backend}, actions "
+            f"{','.join(a.conf.actions)}, apply_mode {a.conf.apply_mode}")
+        rv0 = (store_a.resource_version, len(store_a.list("Event")))
+        reset_launches()
+        warm_s = a.prewarm(background=False)
+        warm = read_launches()
+        if (store_a.resource_version, len(store_a.list("Event"))) != rv0:
+            raise AssertionError(f"{label}: the prewarm wrote to the store")
+        if a.cache.bind_log or a.prewarm_errors or a.prewarm_device_error:
+            raise AssertionError(f"{label}: prewarm bound {len(a.cache.bind_log)}, errors "
+                                 f"{a.prewarm_errors} {a.prewarm_device_error}")
+        want = _warm_expected(a.prewarm_tasks)
+        got = {k: v for k, v in warm.items() if v}
+        if got != want:
+            raise AssertionError(f"{label}: prewarm launches {got}, its tasks "
+                                 f"{a.prewarm_tasks} make {want}")
+        log(f"[{label}] prewarm {warm_s:.3f} s (blocking, all parts), tasks "
+            f"{json.dumps(a.prewarm_tasks)}, launches {got}")
+        walls = {}
+        for name, sched, store in (("prewarmed", a, store_a), ("cold", b, store_b)):
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            flush = flush_applier(label, sched)
+            gang, _ = check_placement(store)
+            log(f"[{label}] {name} cycle 1 wall {walls[name]:.3f} s phases "
+                f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}, "
+                f"flush {flush:.3f} s, {gang} gang tasks bound")
+        if sorted(a.cache.bind_log) != sorted(b.cache.bind_log) or not a.cache.bind_log:
+            raise AssertionError(f"{label}: the prewarmed and the cold scheduler's binds differ")
+        t0 = time.perf_counter()
+        if not a.save_mirror_checkpoint():
+            raise AssertionError(f"{label}: the checkpoint was skipped after a flush")
+        save_s = time.perf_counter() - t0
+        log(f"[{label}] checkpoint saved in {save_s:.3f} s, {os.path.getsize(ckpt) / 2**20:.1f} "
+            "MB")
+
+        for store in (store_a, store_b):
+            add_wave(store, "w1")
+        c = Scheduler.from_conf_yaml(store_a, text)
+        d = Scheduler.from_conf_yaml(store_b, text.replace(f"mirrorCheckpoint: {ckpt}\n", ""))
+        scheds += [c, d]
+        sync = {}
+        for name, sched in (("restore", c), ("full list", d)):
+            t0 = time.perf_counter()
+            sched.fast_cycle.sync_mirror()
+            sync[name] = time.perf_counter() - t0
+        if not c.fast_cycle.restored_from_checkpoint or d.fast_cycle.restored_from_checkpoint:
+            raise AssertionError(f"{label}: restored {c.fast_cycle.restored_from_checkpoint} / "
+                                 f"{d.fast_cycle.restored_from_checkpoint}")
+        cyc = {}
+        for name, sched in (("restored", c), ("listed", d)):
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            cyc[name] = time.perf_counter() - t0
+            flush_applier(label, sched)
+        if sorted(c.cache.bind_log) != sorted(d.cache.bind_log):
+            raise AssertionError(f"{label}: the restored scheduler's binds differ from the "
+                                 "full-list scheduler's")
+        n_wave = RESTART_WAVE_GANGS * CFG5["tasks_per_job"]
+        if len(c.cache.bind_log) != n_wave:
+            raise AssertionError(f"{label}: {len(c.cache.bind_log)} of the wave's {n_wave} "
+                                 "tasks bound")
+        log(f"[{label}] restart: mirror restore {sync['restore']:.3f} s against a full list "
+            f"{sync['full list']:.3f} s; next cycle {cyc['restored']:.3f} / "
+            f"{cyc['listed']:.3f} s, the same {len(c.cache.bind_log)} binds")
+
+        # standby: c leads store_a, e stands by; d alone on store_b is the reference
+        clock = [0.0]
+        c.elector = LeaderElector(store_a, "vtt-scheduler", "c", clock=lambda: clock[0])
+        e = Scheduler.from_conf_yaml(store_a, text.replace(f"mirrorCheckpoint: {ckpt}\n", ""),
+                                     elector=LeaderElector(store_a, "vtt-scheduler", "e",
+                                                           clock=lambda: clock[0]))
+        scheds.append(e)
+        e.fast_cycle.sync_mirror()
+        for store in (store_a, store_b):
+            add_wave(store, "w2", seed=2)
+        gate, gate_op = threading.Event(), {"op": "patch", "kind": "PodGroup",
+                                            "key": "default/pg00000", "fields": {}}
+        bulk = store_a.bulk
+
+        def held_bulk(ops):
+            if any(op is gate_op for op in ops):
+                gate.wait(300)
+            return bulk(ops)
+
+        store_a.bulk = held_bulk
+        resets = []
+        reset = c.fast_cycle.reset_after_abort
+        c.fast_cycle.reset_after_abort = lambda: (resets.append(1), reset())[1]
+        applier = c.cache.applier
+        n_c = len(c.cache.bind_log)
+        try:
+            applier.submit_ops([gate_op])
+            for _ in range(6000):
+                if applier.pending == 1 and not applier._q:
+                    break
+                time.sleep(0.005)
+            else:
+                raise AssertionError(f"{label}: the applier did not take the held entry")
+            c.run_once()  # leads: the wave's decisions queue behind the held entry
+            queued = len(applier._q)
+            if not queued:
+                raise AssertionError(f"{label}: the leader's decisions did not queue")
+            e.run_once()  # the lease is held: stand by
+            if e.last_path != "standby" or e.cache.bind_log:
+                raise AssertionError(f"{label}: the standby ran {e.last_path} and bound "
+                                     f"{len(e.cache.bind_log)}")
+            clock[0] = 20.0  # c stopped renewing; its 15 s lease expired
+            t0 = time.perf_counter()
+            e.run_once()  # takes over and binds the wave
+            torch.cuda.synchronize()
+            e_wall = time.perf_counter() - t0
+            c.run_once()  # deposed: drops its queued decisions, rebuilds its mirror
+            if c.last_path != "standby" or applier._q or resets != [1]:
+                raise AssertionError(f"{label}: the deposed leader ran {c.last_path}, kept "
+                                     f"{len(applier._q)} entries, reset {len(resets)} times")
+        finally:
+            gate.set()
+            store_a.bulk = bulk
+        flush_applier(label, c)
+        flush_applier(label, e)
+        d_since = len(d.cache.bind_log)
+        d.run_once()
+        flush_applier(label, d)
+        want = _new_binds(d, d_since)
+        got = sorted(e.cache.bind_log)
+        placed = sorted((p.meta.key, p.node_name) for p in store_a.list("Pod")
+                        if p.meta.name.startswith("w2"))
+        if got != want or placed != want or len(want) != n_wave:
+            raise AssertionError(f"{label}: the new leader bound {len(got)}, the store holds "
+                                 f"{len(placed)} of the wave, a single scheduler binds "
+                                 f"{len(want)}")
+        m = c.fast_cycle.mirror
+        rows = [m.pods.key_row[k] for k, _ in want]
+        if (m.p_node[rows] < 0).any():
+            raise AssertionError(f"{label}: the deposed leader's rebuilt mirror misses binds")
+        log(f"[{label}] standby: the leader's cycle queued {queued} entries ({len(c.cache.bind_log) - n_c} "
+            f"binds) and dropped them when deposed; the standby bound nothing, took over "
+            f"and bound the wave's {len(got)} tasks in {e_wall:.3f} s, as the single "
+            "scheduler does")
+    finally:
+        for sched in scheds:
+            sched.close()
+        if os.path.exists(ckpt):
+            os.remove(ckpt)
+    return dict(prewarm_s=warm_s, cycle1_prewarmed_s=walls["prewarmed"],
+                cycle1_cold_s=walls["cold"], checkpoint_save_s=save_s,
+                restore_s=sync["restore"], full_list_s=sync["full list"])
 
 
 def check_placement_ports(store):
@@ -4276,6 +4721,22 @@ def main(argv):
         log(json.dumps({"publish_split": phase_publish_split()}))
         log(smi)
         return 0
+    if "--restart-cells" in argv:
+        log(smi)
+        be_launches, _ = phase_object_cfg6r_be()
+        phase_object_cfg5()
+        phase_object_cfg6r_be_mesh()
+        from volcano_tpu_torch.scheduler.conf import full_conf
+
+        mesh_conf = full_conf("cuda")
+        mesh_conf.solve_mode, mesh_conf.mesh = "batch", "4"
+        run_names = ("preempt_rounds_sharded", "preempt_solve_sharded")
+        phase_contention("e2e cfg6b-mesh, prewarm check", "cfg6b", {n: 1 for n in run_names},
+                         tuple(k for k in CONTENTION_KERNELS + MESH_CONTENTION_KERNELS
+                               if k not in run_names), conf=mesh_conf, names=run_names)
+        log(json.dumps({"restart": phase_restart_standby()}))
+        log(smi)
+        return 0
     if "--residue" in argv:
         log(smi)
         floor_ms, floor_alloc_ms = k1_launch_floor(torch.device("cuda"))
@@ -4331,7 +4792,8 @@ def main(argv):
          ("reclaim_solve", "preempt_rounds", "allocate_solve_batch"), exact_conf),
     ):
         launches[cell], captured[cell], _ = phase_contention(
-            f"e2e {cell}", cell, want, forbid + MESH_CONTENTION_KERNELS, conf=conf)
+            f"e2e {cell}", cell, want, forbid + MESH_CONTENTION_KERNELS, conf=conf,
+            cycles=CONTENTION_CUT_CYCLES)
     kern.update(phase_victim_kernels(captured, launches))
     kern["preempt_solve"]["cfg6_exact_launches"] = launches["cfg6-exact"]["preempt_solve"]
     mark("phases 8-9")
@@ -4378,6 +4840,8 @@ def main(argv):
     mark("phase 24")
     phase_cfg6d()
     mark("phase 25")
+    phase_restart_standby()
+    mark("phase 26")
     for name, kid in (("allocate_solve_batch", "K3"), ("preempt_rounds", "K10"),
                       ("allocate_solve", "K2"), ("water_fill", "K1")):
         kern[name]["cap_lifts"] = {k: v for k, v in caps.items() if k.split("@")[0] == kid}

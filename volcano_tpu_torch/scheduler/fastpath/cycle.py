@@ -29,6 +29,7 @@ every exit to the object path, whose sessions read the store's phases.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Set
 
@@ -73,6 +74,8 @@ class FastCycle:
         self.mesh_host_id = int(self.conf.mesh_host_id)
         self.is_coordinator = self.mesh_host_id == 0
         self.mirror = None
+        #: the mirror came from conf.mirror_checkpoint, not a full list
+        self.restored_from_checkpoint = False
         #: wall seconds per phase of the last try_run
         self.phases: Dict[str, float] = {}
         #: residue job key -> the class that kept it off the device, last cycle
@@ -98,9 +101,20 @@ class FastCycle:
             a in canonical for a in self.conf.actions)
 
     def sync_mirror(self) -> None:
+        """The mirror's one full list (``Scheduler.prewarm`` calls this so
+        that the first cycle pays only watch deltas), then its drains.  With
+        ``conf.mirror_checkpoint`` naming a checkpoint this store lineage
+        can take, the list becomes a restore and a delta reconcile by
+        per-object resource version (``restored_from_checkpoint``)."""
+        if not self.conf_ok():
+            return
         if self.mirror is None:
             self.mirror = ArrayMirror(
                 self.store, self.cache.scheduler_name, self.cache.default_queue)
+            ckpt = self.conf.mirror_checkpoint
+            if ckpt and os.path.exists(ckpt) and self.mirror.try_restore_checkpoint(ckpt):
+                self.restored_from_checkpoint = True
+                return
         self.mirror.drain()
 
     def reset_after_abort(self) -> None:

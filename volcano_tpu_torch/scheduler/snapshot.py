@@ -6,8 +6,11 @@ to the device), shape bucketing, the static predicate-class helpers (node
 selector, required node affinity, taints/tolerations, node conditions,
 preferred node-affinity score), and ``build_tensor_snapshot``, which the
 object path builds from a session (the victim pool's ``run_*`` fields,
-the dynamic-job partition and ``partition_unsafe`` included; no
-cross-cycle ``SnapshotCache``).  The fast cycle builds the same arrays
+the dynamic-job partition and ``partition_unsafe`` included), and the
+cross-cycle ``SnapshotCache`` the Scheduler hands it: per-class predicate
+rows, the assembled ``[C, N]`` mask / score and the node statics returned
+as the same numpy objects while the node epoch holds, and the uploads of
+those objects kept on the device.  The fast cycle builds the same arrays
 from its watch mirror (``fastpath/snapshot_build.py``).  Tasks sharing a
 (selector, affinity, tolerations, ports) template share one [N] predicate
 row, so no [T, N] mask is ever built.
@@ -15,8 +18,9 @@ row, so no [T, N] mask is ever built.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -101,6 +105,23 @@ class TensorSnapshot:
     run_valid: np.ndarray = field(default=None)      # [V] bool
 
 
+def pad_task_bucket(snap: TensorSnapshot, new_t: int) -> TensorSnapshot:
+    """A copy of ``snap`` with the solve's task arrays padded (invalid rows)
+    to ``new_t`` rows: ``Scheduler.prewarm`` launches the allocate solve at
+    the next task bucket before the cluster crosses into it."""
+    import dataclasses
+
+    def pad(a: np.ndarray) -> np.ndarray:
+        extra = new_t - a.shape[0]
+        if extra <= 0:
+            return a
+        return np.concatenate([a, np.zeros((extra,) + a.shape[1:], a.dtype)])
+
+    return dataclasses.replace(snap, task_req=pad(snap.task_req), task_job=pad(snap.task_job),
+                               task_class=pad(snap.task_class),
+                               task_valid=pad(snap.task_valid))
+
+
 def _task_class_key(pod: Pod):
     spec = pod.spec
     aff = spec.affinity
@@ -183,11 +204,70 @@ def _resource_vec(res, dims: List[str], out: np.ndarray) -> None:
 _CRITICAL_CLASSES = ("system-cluster-critical", "system-node-critical")
 
 
+class SnapshotCache:
+    """Cross-cycle snapshot cache of the object path (the JAX
+    ``SnapshotCache``).  Three tiers, all dropped when the node epoch rolls
+    (the ordered (name, resource_version) of the session's nodes: a
+    relabel, a taint, a capacity change, a node added or removed; a bind
+    or an eviction changes no Node object and keeps it) or the
+    node-affinity weight changes:
+
+    * per-class ``[N]`` predicate mask / score rows, LRU-bounded, which
+      save the Python predicate sweep over classes x nodes;
+    * the assembled ``[C, N]`` class mask / score and the node statics
+      (allocatable, pod cap, validity), returned as the SAME numpy objects
+      while unchanged;
+    * ``uploads``: device copies memoised by host-array identity
+      (``tensor_backend.DeviceUploads``), so the reused objects above are
+      not copied to the card again.
+
+    The cached arrays are shared across cycles, so nothing may write them
+    in place: the solves take them as read-only inputs, and every writer of
+    snapshot arrays (the fast cycle's contention fold, the object
+    allocate's bulk apply) writes per-cycle arrays only."""
+
+    def __init__(self, uploads=None, max_class_rows: int = 4096):
+        self._epoch = None
+        self._weight: Optional[float] = None
+        # LRU: the class keys of long-gone jobs must not pin [N] rows
+        self._rows: "OrderedDict[object, tuple]" = OrderedDict()
+        self._max_rows = max_class_rows
+        # (class keys, mask [C, N], score [C, N])
+        self._assembled: Optional[Tuple[tuple, np.ndarray, np.ndarray]] = None
+        # (dims, allocatable [N, R], max tasks [N], valid [N])
+        self._node_static = None
+        #: the device tier, or None (the caller uploads as it likes)
+        self.uploads = uploads
+        #: class rows computed / reused by the last build (the sweep saved)
+        self.stats: Dict[str, int] = {}
+
+    @staticmethod
+    def node_epoch(nodes) -> tuple:
+        return tuple((n.name, n.node.meta.resource_version) for n in nodes)
+
+    def roll_epoch(self, epoch, weight: float) -> None:
+        """Drop every tier when ``epoch`` or ``weight`` differs from the
+        cached one."""
+        if epoch == self._epoch and weight == self._weight:
+            return
+        self._rows.clear()
+        self._assembled = None
+        self._node_static = None
+        # the host arrays are about to be rebuilt with new identities: the
+        # old epoch's uploads must not stay pinned on the card
+        if self.uploads is not None:
+            self.uploads.clear()
+        self._epoch = epoch
+        self._weight = weight
+
+
 def build_tensor_snapshot(ssn, nodeaffinity_weight: float = 1.0,
-                          task_order_by_priority: bool = True) -> TensorSnapshot:
+                          task_order_by_priority: bool = True,
+                          cache: Optional[SnapshotCache] = None) -> TensorSnapshot:
     """The dense snapshot of a session's object state (the JAX
-    ``build_tensor_snapshot`` with ``cache=None``); sums accumulate in
-    float32 in the same order."""
+    ``build_tensor_snapshot``); sums accumulate in float32 in the same
+    order.  With ``cache`` the class rows, the assembled class planes and
+    the node statics come from it while the node epoch holds."""
     volume_constrains = ssn.cache.volume_binder.task_constrains_nodes
 
     # -- resource dims ---------------------------------------------------------
@@ -212,18 +292,27 @@ def build_tensor_snapshot(ssn, nodeaffinity_weight: float = 1.0,
     # -- nodes -----------------------------------------------------------------
     nodes = list(ssn.nodes.values())
     N = _bucket(max(len(nodes), 1))
+    if cache is not None:
+        cache.roll_epoch(SnapshotCache.node_epoch(nodes), nodeaffinity_weight)
     node_idle = np.zeros((N, R), np.float32)
     node_rel = np.zeros((N, R), np.float32)
     node_used = np.zeros((N, R), np.float32)
     node_tc = np.zeros((N,), np.int32)
-    node_allocatable = np.zeros((N, R), np.float32)
-    node_max_tasks = np.full((N,), np.iinfo(np.int32).max, np.int32)
-    node_valid = np.zeros((N,), bool)
+    static = cache._node_static if cache is not None else None
+    if static is not None and static[0] == tuple(dims):
+        _, node_allocatable, node_max_tasks, node_valid = static
+    else:
+        node_allocatable = np.zeros((N, R), np.float32)
+        node_max_tasks = np.full((N,), np.iinfo(np.int32).max, np.int32)
+        node_valid = np.zeros((N,), bool)
+        for i, ni in enumerate(nodes):
+            _resource_vec(ni.allocatable, dims, node_allocatable[i])
+            if ni.allocatable.max_task_num is not None:
+                node_max_tasks[i] = ni.allocatable.max_task_num
+            node_valid[i] = True
+        if cache is not None:
+            cache._node_static = (tuple(dims), node_allocatable, node_max_tasks, node_valid)
     for i, ni in enumerate(nodes):
-        _resource_vec(ni.allocatable, dims, node_allocatable[i])
-        if ni.allocatable.max_task_num is not None:
-            node_max_tasks[i] = ni.allocatable.max_task_num
-        node_valid[i] = True
         _resource_vec(ni.idle, dims, node_idle[i])
         _resource_vec(ni.releasing, dims, node_rel[i])
         _resource_vec(ni.used, dims, node_used[i])
@@ -354,19 +443,44 @@ def build_tensor_snapshot(ssn, nodeaffinity_weight: float = 1.0,
         task_valid[i] = True
         task_uids.append(t.uid)
 
-    # -- predicate classes -----------------------------------------------------
+    # -- predicate classes: the classes x nodes Python sweep, per class row
+    # from the cache while the node epoch holds ---------------------------------
     C = _bucket(max(len(classes), 1), minimum=4)
-    class_mask = np.zeros((C, N), bool)
-    class_score = np.zeros((C, N), np.float32)
-    for c, example in enumerate(class_examples):
-        pod = example.pod
-        for i, ni in enumerate(nodes):
-            ok = _static_predicate(pod, ni.node)
-            class_mask[c, i] = ok
-            if ok:
-                class_score[c, i] = nodeaffinity_weight * node_affinity_score(pod, ni.node)
-    if not class_examples:
-        class_mask[:, : len(nodes)] = True
+    class_keys = tuple(classes)  # insertion order is the class index order
+    assembled = cache._assembled if cache is not None else None
+    if assembled is not None and assembled[0] == class_keys and assembled[1].shape == (C, N):
+        class_mask, class_score = assembled[1], assembled[2]
+        cache.stats = {"rows_built": 0, "rows_reused": len(class_keys), "assembled": 1}
+    else:
+        class_mask = np.zeros((C, N), bool)
+        class_score = np.zeros((C, N), np.float32)
+        rows = cache._rows if cache is not None else {}
+        built = 0
+        for c, example in enumerate(class_examples):
+            key = class_keys[c]
+            cached_row = rows.get(key)
+            if cached_row is not None:
+                class_mask[c, : len(nodes)] = cached_row[0][: len(nodes)]
+                class_score[c, : len(nodes)] = cached_row[1][: len(nodes)]
+                rows.move_to_end(key)
+                continue
+            built += 1
+            pod = example.pod
+            for i, ni in enumerate(nodes):
+                ok = _static_predicate(pod, ni.node)
+                class_mask[c, i] = ok
+                if ok:
+                    class_score[c, i] = nodeaffinity_weight * node_affinity_score(pod, ni.node)
+            if cache is not None:
+                rows[key] = (class_mask[c].copy(), class_score[c].copy())
+                while len(rows) > cache._max_rows:
+                    rows.popitem(last=False)
+        if not class_examples:
+            class_mask[:, : len(nodes)] = True
+        if cache is not None:
+            cache._assembled = (class_keys, class_mask, class_score)
+            cache.stats = {"rows_built": built, "rows_reused": len(class_keys) - built,
+                           "assembled": 0}
 
     total = node_allocatable[node_valid].sum(axis=0).astype(np.float32)
 

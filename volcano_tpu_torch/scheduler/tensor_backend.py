@@ -12,8 +12,13 @@ a batched solve as this process's blocks of rows.
 The fast cycle hands the backend its snapshot (``backend.snapshot =
 snap``).  The object path attaches a backend to its session
 (``ssn=``): the snapshot is then built from the session on first use
-(``build_tensor_snapshot``) and rebuilt after ``invalidate()``, and
-``victim_arrays()`` gives ``victim_step`` its constants and state.
+(``build_tensor_snapshot``, through the Scheduler's ``SnapshotCache`` when
+it has one) and rebuilt after ``invalidate()``, and ``victim_arrays()``
+gives ``victim_step`` its constants and state.  With a cache the backend
+uploads through the cache's own ``DeviceUploads`` (its device tier, which
+an epoch roll clears), so the class planes and node statics it reuses
+across cycles stay on the card; without one it uploads through the
+Scheduler's ``DeviceUploads``, which the fast cycle shares.
 """
 
 from __future__ import annotations
@@ -51,6 +56,9 @@ class DeviceUploads:
         self._memo: "OrderedDict[int, tuple]" = OrderedDict()
         self._max = max_entries
 
+    def clear(self) -> None:
+        self._memo.clear()
+
     def __call__(self, arr: np.ndarray) -> torch.Tensor:
         hit = self._memo.get(id(arr))
         if hit is not None and hit[0] is arr:
@@ -66,8 +74,10 @@ class DeviceUploads:
 class TensorBackend:
     def __init__(self, tiers, device: torch.device, uploads: DeviceUploads,
                  solve_mode: str = "auto", batch_threshold: int = BATCH_THRESHOLD,
-                 ssn=None, mesh=None):
+                 ssn=None, mesh=None, snapshot_cache=None):
         self.ssn = ssn
+        #: the Scheduler's SnapshotCache (object sessions), or None
+        self.snapshot_cache = snapshot_cache
         #: the conf mesh (parallel/sharded.py LocalMesh / GroupMesh) or None
         self.mesh = mesh
         #: the multi-controller launch: this host's id (None: one
@@ -115,7 +125,8 @@ class TensorBackend:
         if self._snapshot is None and self.ssn is not None:
             self._snapshot = build_tensor_snapshot(
                 self.ssn, nodeaffinity_weight=self.nodeaffinity_weight(),
-                task_order_by_priority=self.task_order_by_priority)
+                task_order_by_priority=self.task_order_by_priority,
+                cache=self.snapshot_cache)
         return self._snapshot
 
     @snapshot.setter

@@ -4,7 +4,10 @@ The port's own copy of ``volcano_tpu/store/store.py``, cut to the verbs the
 express cycle uses: typed buckets keyed by namespace/name, a monotonically
 increasing resource version, watch queues of add/update/delete events, and
 no-op suppression (a write that changes nothing bumps no version and
-notifies no watcher — quiescence relies on it), and ``apply_segment``, the
+notifies no watcher — quiescence relies on it), the compare-and-swap
+``update_cas`` (the leader lease's write), a lineage ``uid`` (a mirror
+checkpoint tells "this store restarted" from "another store whose version
+counter happens to align"), and ``apply_segment``, the
 in-process apply of a columnar decision segment (``store/segment.py``)
 with its resubmit dedupe.  Event objects keep no shadow copy
 (``SHADOWLESS_KINDS``).  No WAL, lazy segment apply, digests or remote
@@ -18,6 +21,7 @@ import dataclasses
 import enum
 import threading
 import time
+import uuid
 from collections import OrderedDict, defaultdict, deque
 from dataclasses import dataclass
 from typing import Any, Deque, Dict, Iterator, List, Optional
@@ -76,6 +80,11 @@ class EventType(str, enum.Enum):
     DELETED = "Deleted"
 
 
+class Conflict(Exception):
+    """Optimistic-concurrency failure: the object changed since it was read
+    (the API server's 409 on a stale resourceVersion)."""
+
+
 class PreconditionFailed(Exception):
     """A patch's ``when`` clause did not match the stored object."""
 
@@ -104,6 +113,8 @@ class Store:
     """Typed object buckets + watch queues."""
 
     def __init__(self):
+        #: lineage identity, checked by a mirror checkpoint's restore
+        self.uid = uuid.uuid4().hex
         self._objects: Dict[str, Dict[str, Any]] = defaultdict(dict)
         # last-notified state per object: no-op detection and Event.old
         self._shadow: Dict[str, Dict[str, Any]] = defaultdict(dict)
@@ -165,6 +176,19 @@ class Store:
             self._objects[kind][key] = obj
             self._notify(Event(kind, EventType.UPDATED, obj, old))
             return obj
+
+    def update_cas(self, kind: str, obj: Any, expected_rv: int) -> Any:
+        """Compare-and-swap update: succeeds only while the stored object's
+        resource version still equals ``expected_rv``; raises Conflict
+        otherwise (two candidates racing for one lease cannot both win)."""
+        with self._mu:
+            current = self._objects[kind].get(obj.meta.key)
+            if current is None:
+                raise KeyError(f"{kind} {obj.meta.key} not found")
+            if current.meta.resource_version != expected_rv:
+                raise Conflict(f"{kind} {obj.meta.key}: expected rv {expected_rv}, "
+                               f"have {current.meta.resource_version}")
+            return self.update(kind, obj)
 
     def patch(self, kind: str, key: str, fields: Dict[str, Any],
               when: Optional[Dict[str, Any]] = None) -> Any:
