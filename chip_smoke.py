@@ -11,6 +11,7 @@
     python3 chip_smoke.py --fast-cells  # only cfg5-batch, cfg5d, cfg6 (parent comparisons)
     python3 chip_smoke.py --publish-split  # only the publish modes at cfg5-batch, cfg6, cfg9
     python3 chip_smoke.py --restart-cells  # only the snapshot-cache cells and phase 26
+    python3 chip_smoke.py --delta-cells  # only cfg10, incremental scheduling (phases 27-28)
 
 Phases, each fatal on failure:
 
@@ -36,7 +37,8 @@ Phases, each fatal on failure:
    (enqueue, reclaim, allocate, backfill, preempt; the contention
    prechecks find no work here) on the config-5 store (10,000
    nodes, 5,000 gangs x 20 tasks, 2,000 best-effort pods), launch counts
-   reset just before and read just after;
+   reset just before and read just after, then one steady cycle (the only
+   cell that runs one: cut for the run's time);
 4. e2e exact — the same nodes with 200 gangs x 20 tasks (the exact solve);
 5. e2e cfg5d — config 5 with 10% dynamic gangs (bench.py config5_dynamic:
    500 gangs with a host port or self-anti-affinity, 10,000 tasks): the
@@ -65,7 +67,9 @@ Phases, each fatal on failure:
    (evictions, pipelines, binds) of the JAX package's 1/10-scale run;
 9. K8-K10 kernels — against their plain versions on the inputs the three
    cells captured from their first cycle, and K9 over the whole cfg6 storm
-   as solveMode: exact runs it (2,000 attempts);
+   as solveMode: exact runs it (2,000 attempts), bit for bit against its
+   plain version on the whole storm (on its first 10 gangs only when the
+   whole storm's plain version would pass PLAIN_STORM_LIMIT_S, 60 s);
 10. e2e cfg5v-500, cfg5v-2000 — config 5 plus 500 / 2,000 volume-
    constrained tasks in 20-task gangs (bench.py config5_volumes): even
    gangs mount a Bound claim whose PV is pinned to one node, odd ones share
@@ -86,8 +90,9 @@ Phases, each fatal on failure:
    tensor backend); the reclaimer's attempt is a host detour with a
    resync, every other preemptor attempt one K7 (victim_step) launch over
    the groups _VictimDriver builds once per snapshot load (victim_groups).
-   Three cycles, victims reaped: the cfg6 eviction invariants and the JAX
-   package's per-cycle pattern at 1/20 scale; K7 and group-build launches,
+   Two cycles (the pattern's first two, cut for the run's time), victims
+   reaped: the cfg6 eviction invariants and the JAX package's per-cycle
+   pattern at 1/20 scale; K7 and group-build launches,
    K7 device ms, the resyncs' walls and the object cycle's walls (session
    open, each action, close) per cycle.  Run with the Scheduler's snapshot
    cache and again without it (``sched.snapshot_cache = None``): the same
@@ -104,9 +109,9 @@ Phases, each fatal on failure:
    warm, and the first inputs cfg6r-be gave it, warm and cold;
 14. e2e cfg5-obj — config 5's nodes and 5,000 gangs x 20 (no best-effort
    pods) with fast_path off: the object cycle's allocate runs K3 and the
-   bulk apply; every gang task bound in cycle 1; three cycles, with the
-   snapshot cache and without it (the same binds; the split and the reuse
-   checks of phase 12);
+   bulk apply; every gang task bound in cycle 1; two cycles (the quiet
+   third cut for the run's time) with the snapshot cache and without it
+   (the same binds; the split and the reuse checks of phase 12);
 15. cap lifts — the shapes the card refused before the node-tiled solves,
    each against its plain version: K3 at 65,536- and 131,072-node buckets
    (build_sim_args(40,000 / 100,000, 100,000, 5,000)), K10 at a 65,536-node
@@ -126,8 +131,8 @@ Phases, each fatal on failure:
    over all_gather_into_tensor; the 4-block solve's split (batch_split);
 18. e2e cfg6r-be-mesh — the cfg6r-be store under full_conf("cuda") with
    mesh "4" and solve_mode "batch": every preemptor attempt is one K12b
-   (victim_step_sharded) launch on four node blocks.  Two cycles (the
-   pattern's first two, cut for the run's time), victims reaped, the cfg6 eviction invariants and the per-cycle pattern;
+   (victim_step_sharded) launch on four node blocks.  One cycle (the
+   pattern's first, cut for the run's time), victims reaped, the cfg6 eviction invariants and the per-cycle pattern;
    the per-cycle (evictions, pipelines, binds), the ordered evictions, the
    pipelines and the binds equal the same store's run under mesh "off"
    with solve_mode "batch" (K7), with as many K12b launches each cycle as
@@ -202,7 +207,29 @@ Phases, each fatal on failure:
    leader's cycle queued behind a held applier entry, the standby binding
    nothing, the takeover after the lease expires binding a second wave as
    the twin's single scheduler does, the deposed leader dropping its queue
-   and rebuilding its mirror.
+   and rebuilding its mirror;
+27. e2e cfg10 — incremental scheduling (bench.py config10_delta) at config
+   5's widths: 10,000 nodes and 100,000 resident RUNNING tasks as 5,000
+   gangs x 20 (build_delta_store), full_conf("cuda") with delta on (sync
+   publish, as the JAX bench runs it); an arm cycle and 8 unmeasured
+   warm-up cycles, then a trickle of 200 cycles, each with one 2-pod gang
+   of 100m / 64 MiB and, past 64 live trickle gangs, a departure wave of 8
+   before it.  Micro and full cycle walls (p50 / p99), each mode's
+   phases, fallback reasons, K1 / K2 launches a cycle and the (T, N, J, Q,
+   C) of every solve; every gang bound within two cycles, at least 40
+   micro cycles, full builds only for arm / job-remove, K1 and K2 once a
+   micro cycle at one shape, no kernel library built, no new victim
+   workspace; then K2 on the first micro cycle's inputs against its plain
+   version; then the same trickle on the same store under delta off (the
+   default), 80 cycles timed (cut from 200 for the run's time), each a
+   full build: its walls beside the micro and delta-on full walls;
+28. e2e cfg10/10 — the trickle at 1/10 scale on two stores, delta on with
+   the snapshot-incremental oracle (a full build beside every micro build,
+   equal bit for bit) and delta off, the binds equal cycle by cycle, both
+   walls; then one lockstep open-loop run (volcano_tpu_torch.loadgen) at
+   250 gangs/s for 4 s of virtual time, which must sustain and bind every
+   pod, with its wall time (lockstep waits for each cycle, so "sustained"
+   is no rate).
 
 Every Scheduler's ``prewarm`` runs blocking (``background=False``), and
 the launch counts of a phase start after it: the full prewarm launches
@@ -247,6 +274,9 @@ build and cfg5-batch, cfg5d and cfg6 (no sub-cycle), so a parent given
 this file is timed beside the change in one call.  These cells run under
 the applier with the columnar publish, where a tree without the applier
 publishes inline: pair two trees' ``--fast-cells`` only when both have it.
+``--delta-cells`` runs the build and phases 27-28 alone, so a parent
+given this file is measured in the same call (a tree without
+``conf.delta`` fails there).
 ``--exact-split`` runs the build and the exact solve's split alone
 (phase_exact_split: K2 on cfg5-exact's inputs, on the dynamic solves
 cfg5d-exact (K5) and cfg5v-2000 (K5 and K6) capture, at 128 queues and on a
@@ -265,6 +295,7 @@ when CUDA is unavailable or any phase fails.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -800,6 +831,30 @@ def _compare(name, out_k, out_p):
     return err
 
 
+def _no_gc(build):
+    """``build`` (a store builder) with the cyclic collector paused, then
+    one full collection: the builder makes 10^5-10^6 objects and no
+    garbage, and each collection its allocations trigger walks every live
+    object again.  The closing collection leaves the store in the oldest
+    generation, as the collections during an unpaused build do; without
+    it the next prewarm or cycle pays the young objects' passes.  Set-up
+    only: no measured wall runs under it."""
+
+    @functools.wraps(build)
+    def wrapped(*args, **kwargs):
+        was = gc.isenabled()
+        gc.disable()
+        try:
+            return build(*args, **kwargs)
+        finally:
+            if was:
+                gc.enable()
+                gc.collect()
+
+    return wrapped
+
+
+@_no_gc
 def build_cfg5_store(n_jobs=CFG5["jobs"], n_best_effort=CFG5["best_effort"], dynamic_frac=0.0,
                      volume_tasks=0, dynamic_best_effort_every=0):
     """bench.py _build_e2e_store with the port's objects: 10k nodes, n_jobs
@@ -1002,7 +1057,8 @@ def check_placement(store):
 
 
 def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
-              max_cycles=MAX_CYCLES, capture=None, volume_tasks=0, dynamic_best_effort_every=0):
+              max_cycles=MAX_CYCLES, capture=None, volume_tasks=0, dynamic_best_effort_every=0,
+              steady=False):
     """Drive Scheduler.run_once on the card; returns the launch counts of
     the first cycle (reset just before it, read just after).  ``want`` maps
     a kernel to the launches the first cycle must make at least (a name
@@ -1012,7 +1068,9 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
     as bench.py config5_volumes adds them, held to ``check_volumes`` after
     every cycle.  ``dynamic_best_effort_every``: best-effort pods on every
     such dynamic gang (build_cfg5_store), which become residue: the first
-    cycle must then run the object sub-cycle and its residue engine."""
+    cycle must then run the object sub-cycle and its residue engine.
+    ``steady``: one more cycle once all is bound, its wall and phases (the
+    drain of the landed write-back)."""
     import torch
 
     from volcano_tpu_torch.scheduler import kernels as K
@@ -1122,12 +1180,12 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
             f"1.25Gi 20 pods): {'; '.join(unbound_why)}")
     else:
         log(f"[{label}] all bound in {cycles} cycle(s) (deadline {max_cycles})")
-    t0 = time.perf_counter()
-    sched.run_once()
-    steady = time.perf_counter() - t0
-    log(f"[{label}] steady cycle wall {steady:.4f} s phases "
-        f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}")
-    publish_report(label, sched, flush_applier(label, sched), cycles + 1)
+    if steady:
+        t0 = time.perf_counter()
+        sched.run_once()
+        log(f"[{label}] steady cycle wall {time.perf_counter() - t0:.4f} s phases "
+            f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}")
+        publish_report(label, sched, flush_applier(label, sched), cycles + 1)
     sched.close()
     if n_vol:
         log(f"[{label}] volume gangs bound per cycle (cumulative): {vol_bound}")
@@ -1295,6 +1353,7 @@ ROUND_ROW_OPS = 18
 PLAIN_STORM_LIMIT_S = 60.0
 
 
+@_no_gc
 def build_contended_store(cell, reclaim_gangs=CFG6["reclaim_gangs"],
                           storm_gangs=CFG6["storm_gangs"], ported=()):
     """bench.py _build_contended_store with the port's objects: 10,000 nodes
@@ -1730,8 +1789,11 @@ def phase_victim_kernels(captured, launches):
 # reaped between cycles: the JAX package's pattern at 1/20 scale
 # (tests/test_torch_object.py CFG6R_BE_PATTERN), at full width
 CFG6R_BE_PATTERN = [(19, 10, 0), (19, 10, 0), (19, 10, 0)]
-# cfg6r-be-mesh's runs take the pattern's first two cycles
-CFG6R_BE_MESH_CYCLES = 2
+# cut for the run's time: cfg6r-be's runs take the pattern's first two
+# cycles, cfg6r-be-mesh's its first (with the snapshot cache and without it
+# alike)
+CFG6R_BE_CYCLES = 2
+CFG6R_BE_MESH_CYCLES = 1
 # the object path's kernels; the fast-path cells must not launch them
 OBJECT_KERNELS = ("victim_step", "victim_step_sharded")
 #: the object path's group build (once per snapshot load), and with the
@@ -1877,6 +1939,7 @@ class ObjectCapture:
             setattr(owner, name, fn)
 
 
+@_no_gc
 def build_cfg6r_be_store():
     """cfg6r plus one empty-request pod first in gang rec000's task order
     (a best-effort reclaimer: the fast cycle declines it)."""
@@ -1908,7 +1971,7 @@ def _check_cache_reuse(label, splits):
 
 
 def _object_cfg6r_be(label, conf, kernel, cache=True, cycles=len(CFG6R_BE_PATTERN)):
-    """Scheduler.run_once on the card over cfg6r-be for three cycles under
+    """Scheduler.run_once on the card over cfg6r-be for ``cycles`` cycles under
     ``conf``, the victims reaped after each: every cycle takes the object
     path (the fast cycle declines a best-effort reclaimer), the best-effort
     reclaimer's attempt is a host detour and every other preemptor attempt
@@ -2014,9 +2077,10 @@ def phase_object_cfg6r_be():
     Returns (first-cycle launches, the first K7 call's inputs)."""
     from volcano_tpu_torch.scheduler.conf import full_conf
 
-    per_cycle, captured, on = _object_cfg6r_be("e2e cfg6r-be", full_conf("cuda"), "victim_step")
+    per_cycle, captured, on = _object_cfg6r_be("e2e cfg6r-be", full_conf("cuda"), "victim_step",
+                                                cycles=CFG6R_BE_CYCLES)
     _, _, off = _object_cfg6r_be("e2e cfg6r-be, no cache", full_conf("cuda"), "victim_step",
-                                 cache=False)
+                                 cache=False, cycles=CFG6R_BE_CYCLES)
     _same_decisions("cfg6r-be", on, off)
     _cache_summary("e2e cfg6r-be", on, off)
     return per_cycle[0], captured
@@ -2038,7 +2102,6 @@ def phase_object_cfg6r_be_mesh():
                                 (CFG6R_BE_MESH, "victim_step_sharded", False)):
         conf = full_conf("cuda")
         conf.solve_mode, conf.mesh = "batch", mesh
-        # two cycles a run, for the whole run's time
         runs[mesh, cache] = _object_cfg6r_be(
             f"e2e cfg6r-be-mesh, mesh {mesh}" + ("" if cache else ", no cache"), conf, kernel,
             cache=cache, cycles=CFG6R_BE_MESH_CYCLES)
@@ -2059,10 +2122,14 @@ def phase_object_cfg6r_be_mesh():
     return per_cycle[0], captured
 
 
+#: cycles of each cfg5-obj run (the quiet third is cut for the run's time)
+CFG5_OBJ_CYCLES = 2
+
+
 def _object_cfg5(label, cache):
     """Config 5's nodes and 5,000 gangs x 20 (no best-effort pods: on the
     object path each would take a Python scan of the 10,000 nodes in
-    backfill) under full_conf("cuda") with fast_path "off", three cycles,
+    backfill) under full_conf("cuda") with fast_path "off", CFG5_OBJ_CYCLES cycles,
     with the Scheduler's snapshot cache or without it: the object cycle's
     allocate runs K3 and applies its 100,000 placements in bulk; every gang
     task binds in cycle 1.  Returns the first cycle's launches and the
@@ -2087,7 +2154,7 @@ def _object_cfg5(label, cache):
     cap.cache = sched.snapshot_cache
     walls, splits = [], []
     try:
-        for cycle in range(3):
+        for cycle in range(CFG5_OBJ_CYCLES):
             reset_launches()
             t0 = time.perf_counter()
             sched.run_once()
@@ -2466,6 +2533,7 @@ def phase_cap_lifts():
     return res
 
 
+@_no_gc
 def build_cfg9_store(n_nodes=CFG9["nodes"], n_tasks=CFG9["tasks"],
                      tasks_per_job=CFG9["tasks_per_job"], n_namespaces=CFG9["namespaces"],
                      n_queues=CFG9["queues"]):
@@ -4268,7 +4336,7 @@ def phase_fast_cells():
     through the applier (``async_conf``): a tree whose conf has no
     ``apply_mode`` publishes inline, so its walls do not pair with these."""
     phase_e2e("e2e batch", CFG5["jobs"], CFG5["best_effort"],
-              want=("water_fill", "allocate_solve_batch"),
+              want=("water_fill", "allocate_solve_batch"), steady=True,
               forbid=("allocate_solve",) + CONTENTION_KERNELS)
     phase_e2e("e2e cfg5d", CFG5["jobs"], CFG5["best_effort"],
               want={"water_fill": 1, "allocate_solve_batch": 2,
@@ -4661,6 +4729,411 @@ def phase_restart_standby():
                 restore_s=sync["restore"], full_list_s=sync["full list"])
 
 
+# ---- cfg10: incremental scheduling (delta: on) on a resident config-5 cluster
+
+#: bench.py config10_delta at config 5's widths: 10,000 nodes, 100,000
+#: resident RUNNING tasks as 5,000 gangs x 20 (_build_delta_store), a trickle
+#: of 2-pod gangs of 100m / 64 MiB, a population of 64 live trickle gangs and
+#: departure waves of 8; the trickle keeps bench's 200 cycles, its run under
+#: delta off takes ``off_trickle`` (cut for the run's time)
+CFG10 = dict(nodes=10_000, tasks=100_000, tasks_per_job=20, gang=2, population=64, wave=8,
+             warmup=8, trickle=200, off_trickle=80, scale=10, parity_cycles=40, sat_qps=250.0,
+             sat_s=4.0)
+#: micro cycles the trickle must take at the least
+CFG10_MIN_MICRO = 40
+#: the only full-build reasons a trickle may show
+CFG10_FALLBACKS = ("arm", "job-remove")
+
+
+@_no_gc
+def build_delta_store(n_nodes, n_tasks, tasks_per_job=CFG10["tasks_per_job"]):
+    """bench.py _build_delta_store with the port's objects: RUNNING gangs of
+    ``tasks_per_job`` pinned round-robin on nodes of 32 CPUs / 64 GiB with a
+    pod cap of 200, every pod 250m / 256 MiB, one queue."""
+    from volcano_tpu_torch.api import (
+        POD_GROUP_KEY, Metadata, Node, Pod, PodGroup, PodGroupPhase, PodPhase, PodSpec, Queue,
+        Resource,
+    )
+    from volcano_tpu_torch.store import Store
+
+    store = Store()
+    store.create("Queue", Queue(meta=Metadata(name="default", namespace=""), weight=1))
+    for i in range(n_nodes):
+        store.create("Node", Node(meta=Metadata(name=f"n{i:05d}", namespace=""),
+                                  allocatable=Resource(32000.0, 64.0 * (1 << 30),
+                                                       max_task_num=200)))
+    for j in range(max(n_tasks // tasks_per_job, 1)):
+        pg = PodGroup(meta=Metadata(name=f"res{j:05d}", namespace="default"),
+                      min_member=tasks_per_job, queue="default")
+        pg.status.phase = PodGroupPhase.RUNNING
+        store.create("PodGroup", pg)
+        for t in range(tasks_per_job):
+            store.create("Pod", Pod(
+                meta=Metadata(name=f"res{j:05d}-{t}", namespace="default",
+                              annotations={POD_GROUP_KEY: f"res{j:05d}"}),
+                spec=PodSpec(resources=Resource(250.0, 256.0 * (1 << 20))),
+                phase=PodPhase.RUNNING, node_name=f"n{(j * tasks_per_job + t) % n_nodes:05d}"))
+    return store
+
+
+def _delta_conf(oracle=False):
+    from volcano_tpu_torch.scheduler.conf import full_conf
+
+    conf = full_conf("cuda")
+    conf.delta, conf.delta_oracle = "on", oracle
+    return conf
+
+
+class Trickle:
+    """bench.py config10_delta's trickle on one store: a 2-pod gang a
+    cycle; past the population, the oldest wave of gangs departs first."""
+
+    def __init__(self, store):
+        from collections import deque
+
+        self.store = store
+        self.live = deque()
+        #: gang -> the trickle cycle it arrived before, until seen bound
+        self.unbound = {}
+
+    def submit(self, name, cycle):
+        from volcano_tpu_torch.api import POD_GROUP_KEY, Metadata, Pod, PodGroup, PodSpec, Resource
+
+        self.store.create("PodGroup", PodGroup(meta=Metadata(name=name, namespace="default"),
+                                               min_member=CFG10["gang"], queue="default"))
+        for t in range(CFG10["gang"]):
+            self.store.create("Pod", Pod(
+                meta=Metadata(name=f"{name}-{t}", namespace="default",
+                              annotations={POD_GROUP_KEY: name}),
+                spec=PodSpec(resources=Resource(100.0, 64.0 * (1 << 20)))))
+        self.live.append(name)
+        self.unbound[name] = cycle
+
+    def step(self, name, cycle):
+        """The next arrival, and a departure wave past the population;
+        True when a wave departed."""
+        self.submit(name, cycle)
+        if len(self.live) <= CFG10["population"]:
+            return False
+        for _ in range(CFG10["wave"]):
+            old = self.live.popleft()
+            for t in range(CFG10["gang"]):
+                self.store.delete("Pod", f"default/{old}-{t}")
+            self.store.delete("PodGroup", f"default/{old}")
+            self.unbound.pop(old, None)
+        return True
+
+    def check(self, label, cycle, deadline=MAX_CYCLES):
+        """Fails if a gang waits for its binds past ``deadline`` cycles."""
+        for name, since in list(self.unbound.items()):
+            pods = [self.store.get("Pod", f"default/{name}-{t}") for t in range(CFG10["gang"])]
+            if all(p is not None and p.node_name for p in pods):
+                del self.unbound[name]
+            elif cycle - since + 1 >= deadline:
+                raise AssertionError(f"{label}: gang {name} unbound {cycle - since + 1} cycles "
+                                     f"after it arrived")
+
+
+def _pct(xs, q):
+    return round(float(np.percentile(np.asarray(xs), q)), 3) if xs else None
+
+
+def phase_cfg10():
+    """cfg10 at config 5's widths under full_conf("cuda") with delta on:
+    one arm cycle and 8 unmeasured warm-up cycles, then the trickle, each
+    cycle's launch counts reset just before it and read just after.  Micro
+    and full cycle walls (p50 / p99), each mode's phases (p50), fallback
+    reasons, K1 / K2 launches a cycle, and the (T, N, J, Q, C) of every
+    allocate solve.  Fails unless every trickle gang binds within two
+    cycles, at least CFG10_MIN_MICRO cycles are micro, every full build's
+    reason is arm or job-remove, every micro cycle launches K1 and K2 once
+    (no other solve) at one shape, no kernel library is built and the
+    victim kernels' per-shape workspaces gain no key.  K2 is then held to
+    its plain version on the first micro cycle's solve inputs, and the
+    same trickle runs on under delta off (_cfg10_delta_off).  Returns the
+    phase's figures."""
+    import collections
+
+    import torch
+
+    from volcano_tpu_torch import _build
+    from volcano_tpu_torch.scheduler import kernels as K
+    from volcano_tpu_torch.scheduler import victim_kernels as VK
+    from volcano_tpu_torch.scheduler.fastpath import cycle as cycle_mod
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+    from volcano_tpu_torch.scheduler.tensor_actions import solve_inputs
+
+    label = "e2e cfg10"
+    t0 = time.perf_counter()
+    store = build_delta_store(CFG10["nodes"], CFG10["tasks"])
+    log(f"[{label}] store built: {CFG10['nodes']} nodes, {CFG10['tasks']} resident running "
+        f"tasks in gangs of {CFG10['tasks_per_job']} ({time.perf_counter() - t0:.1f} s)")
+    sched = Scheduler(store, conf=_delta_conf())
+    fc = sched.fast_cycle
+    log(f"[{label}] prewarm {sched.prewarm(background=False):.2f} s")
+    trickle = Trickle(store)
+    t0 = time.perf_counter()
+    sched.run_once()
+    log(f"[{label}] arm cycle {time.perf_counter() - t0:.3f} s, mode "
+        f"{fc.delta.last['mode']} / {fc.delta.last['fallback_reason']}")
+    for i in range(CFG10["warmup"]):
+        trickle.submit(f"wm{i:03d}", i)
+        sched.run_once()
+        trickle.check(label + " warm-up", i)
+
+    solve = cycle_mod.torch_allocate_solve
+    calls = []
+
+    def recording(backend, snap, n_pending=None):
+        calls.append((backend, snap))
+        return solve(backend, snap, n_pending)
+
+    builds = []
+    build = _build.build
+
+    def counting_build(*a, **kw):
+        builds.append(1)
+        return build(*a, **kw)
+
+    ws_before = set(VK._WORKSPACES)
+    lat = {"micro": [], "full": []}
+    phases = {"micro": collections.defaultdict(list), "full": collections.defaultdict(list)}
+    reasons = collections.Counter()
+    launches = {"micro": [], "full": []}
+    shapes = {"micro": set(), "full": set()}
+    first_micro = None
+    waves = 0
+    cycle_mod.torch_allocate_solve, _build.build = recording, counting_build
+    try:
+        for i in range(CFG10["trickle"]):
+            waves += trickle.step(f"tk{i:04d}", i)
+            calls.clear()
+            reset_launches()
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            got = read_launches()
+            mode = fc.delta.last["mode"]
+            if sched.last_path != "fast":
+                raise AssertionError(f"{label}: trickle cycle {i} took the {sched.last_path} path")
+            lat[mode].append(dt_ms)
+            launches[mode].append(got)
+            for backend, snap in calls:
+                shapes[mode].add((snap.task_req.shape[0], snap.node_idle.shape[0],
+                                  snap.job_queue.shape[0], snap.queue_weight.shape[0],
+                                  snap.class_node_mask.shape[0]))
+            for k, v in fc.phases.items():
+                phases[mode][k].append(v * 1e3)
+            if mode == "micro":
+                if first_micro is None and calls:
+                    first_micro = calls[0]
+            else:
+                reasons[fc.delta.last["fallback_reason"]] += 1
+            trickle.check(label, i)
+        sched.run_once()  # the last arrivals' second cycle
+        trickle.check(label, CFG10["trickle"])
+    finally:
+        cycle_mod.torch_allocate_solve, _build.build = solve, build
+    if trickle.unbound:
+        raise AssertionError(f"{label}: gangs unbound after the trickle: {trickle.unbound}")
+    bound = check_cfg9_placement(store)
+
+    n_micro = len(lat["micro"])
+    bad = {r: n for r, n in reasons.items() if r not in CFG10_FALLBACKS}
+    if n_micro < CFG10_MIN_MICRO:
+        raise AssertionError(f"{label}: {n_micro} micro cycles in {CFG10['trickle']}")
+    if bad:
+        raise AssertionError(f"{label}: full builds for {bad} in the trickle")
+    for got in launches["micro"]:
+        if got["water_fill"] != 1 or got["allocate_solve"] != 1:
+            raise AssertionError(f"{label}: a micro cycle's launches {got}")
+        other = {k: v for k, v in got.items()
+                 if v and k not in ("water_fill", "allocate_solve")}
+        if other:
+            raise AssertionError(f"{label}: a micro cycle launched {other}")
+    if len(shapes["micro"]) != 1:
+        raise AssertionError(f"{label}: micro cycles passed shapes {sorted(shapes['micro'])}")
+    if builds or set(VK._WORKSPACES) != ws_before:
+        raise AssertionError(f"{label}: {len(builds)} kernel builds, workspaces "
+                             f"{sorted(ws_before)} -> {sorted(VK._WORKSPACES)}")
+
+    def per_cycle(mode, name):
+        runs = launches[mode]
+        return round(sum(g[name] for g in runs) / max(len(runs), 1), 3)
+
+    out = {
+        "nodes": CFG10["nodes"], "resident_tasks": CFG10["tasks"],
+        "trickle_cycles": CFG10["trickle"], "micro_cycles": n_micro,
+        "full_cycles": len(lat["full"]), "wave_cycles": waves, "bound_tasks": bound,
+        "micro_p50_ms": _pct(lat["micro"], 50), "micro_p99_ms": _pct(lat["micro"], 99),
+        "full_p50_ms": _pct(lat["full"], 50), "full_p99_ms": _pct(lat["full"], 99),
+        "full_reasons": dict(reasons),
+        "micro_phases_p50_ms": {k: _pct(v, 50) for k, v in phases["micro"].items()},
+        "full_phases_p50_ms": {k: _pct(v, 50) for k, v in phases["full"].items()},
+        "k1_per_micro_cycle": per_cycle("micro", "water_fill"),
+        "k2_per_micro_cycle": per_cycle("micro", "allocate_solve"),
+        "k1_per_full_cycle": per_cycle("full", "water_fill"),
+        "k2_per_full_cycle": per_cycle("full", "allocate_solve"),
+        "micro_shapes_TNJQC": sorted(shapes["micro"]),
+        "full_shapes_TNJQC": sorted(shapes["full"]),
+        "kernel_builds": len(builds),
+    }
+    log(f"[{label}] trickle: {json.dumps(out)}")
+
+    # K2 (and the K1 inside it) at the micro cycles' shape against the plain version
+    backend, snap = first_micro
+    inputs = solve_inputs(backend, snap, False)
+    w_least, w_balanced = backend.score_weights()
+    policy = dict(job_key_order=backend.job_key_order, use_gang_ready=backend.gang_job_ready,
+                  use_proportion=backend.proportion_queue_order)
+    args = [inputs[k] for k in K._SOLVE_ARGS] + [w_least, w_balanced]
+    out_k = K.allocate_solve(*args, **policy)
+    plain, plain_ms = _timed(lambda: K.allocate_solve_plain(
+        **inputs, w_least=w_least, w_balanced=w_balanced, **policy))
+    err = _compare("allocate_solve cfg10", out_k, plain)
+    ms = cuda_ms(lambda: K.allocate_solve(*args, **policy), 20)
+    b, kind = bound_ms(nbytes(*inputs.values()) + nbytes(*out_k[:10]),
+                       _exact_solve_ops(out_k, inputs))
+    out["k2_at_micro_shape"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=kind,
+                                    max_abs_err=err, steps=int(out_k.steps))
+    log(f"[{label}] K2 at the micro shape {sorted(shapes['micro'])[0]} ok: {ms:.4f} ms "
+        f"(plain {plain_ms:.1f} ms, bound {b:.5f} ms by {kind}), {int(out_k.steps)} steps")
+    sched.close()
+    del sched, first_micro, calls
+    out["delta_off"] = _cfg10_delta_off(label, store, trickle)
+    log(f"[{label}] cycle walls, ms: delta on micro p50 {out['micro_p50_ms']} / p99 "
+        f"{out['micro_p99_ms']}, delta on full p50 {out['full_p50_ms']} / p99 "
+        f"{out['full_p99_ms']}; delta off p50 {out['delta_off']['p50_ms']} / p99 "
+        f"{out['delta_off']['p99_ms']} (with a departure wave p50 "
+        f"{out['delta_off']['wave_p50_ms']}, without p50 {out['delta_off']['arrival_p50_ms']})")
+    del store
+    gc.collect()
+    return out
+
+
+def _cfg10_delta_off(label, store, trickle):
+    """The same trickle on the same store (its resident tasks and live
+    trickle gangs) under delta off, the default: a new Scheduler with
+    full_conf("cuda"), its first cycle and CFG10["warmup"] warm-up cycles
+    unmeasured, then CFG10["off_trickle"] cycles timed, each a full build;
+    every gang bound within two cycles.  Returns the walls (p50 / p99 of
+    all cycles, of those with a departure wave and of those without) and
+    the phases (p50)."""
+    import collections
+
+    import torch
+
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    label += ", delta off"
+    sched = Scheduler(store, conf=full_conf("cuda"))
+    log(f"[{label}] prewarm {sched.prewarm(background=False):.2f} s")
+    t0 = time.perf_counter()
+    sched.run_once()
+    log(f"[{label}] first cycle {time.perf_counter() - t0:.3f} s")
+    start = CFG10["trickle"] + 1
+    for i in range(start, start + CFG10["warmup"]):
+        trickle.step(f"tk{i:04d}", i)
+        sched.run_once()
+        trickle.check(label + " warm-up", i)
+    lat = {True: [], False: []}
+    phases = collections.defaultdict(list)
+    start += CFG10["warmup"]
+    for i in range(start, start + CFG10["off_trickle"]):
+        wave = trickle.step(f"tk{i:04d}", i)
+        t0 = time.perf_counter()
+        sched.run_once()
+        torch.cuda.synchronize()
+        lat[wave].append((time.perf_counter() - t0) * 1e3)
+        if sched.last_path != "fast":
+            raise AssertionError(f"{label}: trickle cycle {i} took the {sched.last_path} path")
+        for k, v in sched.fast_cycle.phases.items():
+            phases[k].append(v * 1e3)
+        trickle.check(label, i)
+    sched.run_once()
+    trickle.check(label, start + CFG10["off_trickle"])
+    if trickle.unbound:
+        raise AssertionError(f"{label}: gangs unbound after the trickle: {trickle.unbound}")
+    sched.close()
+    walls = lat[True] + lat[False]
+    out = {"cycles": len(walls), "wave_cycles": len(lat[True]),
+           "p50_ms": _pct(walls, 50), "p99_ms": _pct(walls, 99),
+           "wave_p50_ms": _pct(lat[True], 50), "wave_p99_ms": _pct(lat[True], 99),
+           "arrival_p50_ms": _pct(lat[False], 50), "arrival_p99_ms": _pct(lat[False], 99),
+           "phases_p50_ms": {k: _pct(v, 50) for k, v in phases.items()}}
+    log(f"[{label}] trickle: {json.dumps(out)}")
+    return out
+
+
+def phase_cfg10_tenth():
+    """cfg10 at 1/10 scale (1,000 nodes, 10,000 resident tasks), on the
+    card: the trickle on one store under delta on with the
+    snapshot-incremental oracle (a full build beside every micro build,
+    equal bit for bit, or the cycle raises) and on a copy under delta off,
+    their binds equal cycle by cycle; then one lockstep open-loop run at
+    250 gangs/s as config10_delta.run_at runs it (bench.py's saturation
+    step, not the doubling search), which must sustain and bind every
+    pod.  Returns the figures."""
+    from volcano_tpu_torch.loadgen import LoadGen, LoadSpec, run_open_loop
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    label = "e2e cfg10/10"
+    n_nodes, n_tasks = CFG10["nodes"] // CFG10["scale"], CFG10["tasks"] // CFG10["scale"]
+    runs = {}
+    for mode, conf in (("delta", _delta_conf(oracle=True)), ("full", full_conf("cuda"))):
+        store = build_delta_store(n_nodes, n_tasks)
+        sched = Scheduler(store, conf=conf)
+        sched.prewarm(background=False)
+        runs[mode] = (store, sched, Trickle(store))
+    modes = []
+    walls = {mode: [] for mode in runs}
+    for i in range(CFG10["parity_cycles"]):
+        for mode, (store, sched, trickle) in runs.items():
+            trickle.step(f"tk{i:04d}", i)
+            t0 = time.perf_counter()
+            sched.run_once()
+            walls[mode].append((time.perf_counter() - t0) * 1e3)
+            trickle.check(f"{label} {sched.conf.delta}", i)
+        if runs["delta"][1].cache.bind_log != runs["full"][1].cache.bind_log:
+            raise AssertionError(f"{label}: cycle {i} binds differ with delta on and off")
+        modes.append(runs["delta"][1].fast_cycle.delta.last["mode"])
+    n_micro = modes.count("micro")
+    if n_micro < CFG10["parity_cycles"] // 2:
+        raise AssertionError(f"{label}: {n_micro} micro cycles of {len(modes)}")
+    binds = len(runs["delta"][1].cache.bind_log)
+    log(f"[{label}] delta on (oracle on every micro build) and off: equal binds in each of "
+        f"{len(modes)} cycles ({binds} binds, {n_micro} micro cycles); cycle walls p50 / p99 "
+        f"ms: delta on with the oracle {_pct(walls['delta'], 50)} / {_pct(walls['delta'], 99)}, "
+        f"delta off {_pct(walls['full'], 50)} / {_pct(walls['full'], 99)}")
+    del runs
+
+    store = build_delta_store(n_nodes, n_tasks)
+    sched = Scheduler(store, conf=_delta_conf())
+    sched.prewarm(background=False)
+    spec = LoadSpec(qps=CFG10["sat_qps"], duration_s=CFG10["sat_s"], seed=10,
+                    gang_sizes=((1, 6.0), (2, 3.0)), cpu_millis=(100,), mem_mb=(64,),
+                    namespace="sat")
+    gen = LoadGen(store, spec)
+    report = run_open_loop(store, spec, sched.run_once, tick_s=0.05, settle_s=60.0, gen=gen)
+    # lockstep virtual time waits for every cycle: "sustained" holds at any
+    # wall rate, which is the arrivals over the run's wall time
+    wall_rate = len(gen.schedule) / report.wall_s
+    log(f"[{label}] lockstep open loop at {spec.qps:.0f} gangs/s for {spec.duration_s} s of "
+        f"virtual time: {json.dumps(report.as_dict())}; {len(gen.schedule)} gangs in "
+        f"{report.wall_s:.3f} s of wall time, {wall_rate:.1f} gangs/s")
+    if not report.sustained or report.bound_pods != report.submitted_pods:
+        raise AssertionError(f"{label}: the open loop did not sustain: {report.as_dict()}")
+    check_cfg9_placement(store)
+    return {"parity_cycles": len(modes), "parity_micro_cycles": n_micro,
+            "parity_binds": binds,
+            "parity_p50_ms": {mode: _pct(w, 50) for mode, w in walls.items()},
+            "open_loop": dict(report.as_dict(), wall_s=report.wall_s, gangs=len(gen.schedule),
+                              wall_gangs_per_s=wall_rate)}
+
+
 def check_placement_ports(store):
     """No node holds a host port twice."""
     ports = {}
@@ -4737,6 +5210,11 @@ def main(argv):
         log(json.dumps({"restart": phase_restart_standby()}))
         log(smi)
         return 0
+    if "--delta-cells" in argv:
+        log(smi)
+        log(json.dumps({"cfg10": dict(phase_cfg10(), tenth=phase_cfg10_tenth())}))
+        log(smi)
+        return 0
     if "--residue" in argv:
         log(smi)
         floor_ms, floor_alloc_ms = k1_launch_floor(torch.device("cuda"))
@@ -4755,7 +5233,7 @@ def main(argv):
     phase_kernel_sweep()
     mark("phases 1-2")
     batch = phase_e2e("e2e batch", CFG5["jobs"], CFG5["best_effort"],
-                      want=("water_fill", "allocate_solve_batch"),
+                      want=("water_fill", "allocate_solve_batch"), steady=True,
                       forbid=("allocate_solve",) + CONTENTION_KERNELS)
     exact = phase_e2e("e2e exact", 200, 0,
                       want=("water_fill", "allocate_solve"),
@@ -4842,6 +5320,15 @@ def main(argv):
     mark("phase 25")
     phase_restart_standby()
     mark("phase 26")
+    cfg10 = phase_cfg10()
+    mark("phase 27")
+    cfg10["tenth"] = phase_cfg10_tenth()
+    mark("phase 28")
+    log(json.dumps({"cfg10": cfg10}))
+    kern["water_fill"]["cfg10_launches_per_micro_cycle"] = cfg10["k1_per_micro_cycle"]
+    kern["allocate_solve"]["cfg10"] = dict(cfg10["k2_at_micro_shape"],
+                                           launches_per_micro_cycle=cfg10["k2_per_micro_cycle"],
+                                           shape_TNJQC=cfg10["micro_shapes_TNJQC"][0])
     for name, kid in (("allocate_solve_batch", "K3"), ("preempt_rounds", "K10"),
                       ("allocate_solve", "K2"), ("water_fill", "K1")):
         kern[name]["cap_lifts"] = {k: v for k, v in caps.items() if k.split("@")[0] == kid}

@@ -11,10 +11,11 @@
   mapping rules of ``volcano_tpu_torch/scheduler/conf.py`` (``backend: tpu``
   -> ``cuda``, an absent backend -> ``cuda``, an absent ``applyMode`` ->
   ``sync``) wherever the port accepts the text, and both loaders raise
-  ``ValueError`` on the same malformed texts.
+  ``ValueError`` on the same malformed texts.  ``delta`` and every
+  ``delta*`` key load field for field (``DELTA_TEXTS``).
 * Each departure raises ``ValueError``: ``backend: host`` / ``native``,
-  ``columnarPublish: false``, ``exactTopK: false``, ``delta: on`` and the
-  other ``delta*`` keys, and what the reader does not cover.
+  ``columnarPublish: false``, ``exactTopK: false``, and what the reader
+  does not cover.
 * A conf with ``enablePredicate: false`` and ``enableNodeOrder: false``
   schedules as the JAX Scheduler does, on the fast path and on the object
   path (binds, pods and PodGroup statuses; tolerance: exact).
@@ -78,9 +79,20 @@ SUBSET_TEXTS = [
 ]
 
 
+# incremental scheduling's keys, each loaded field for field
+DELTA_TEXTS = [
+    "delta: on\n",
+    "deltaAdmitQps: 100\n",
+    "delta: off\ndeltaOracle: true\n",
+    "backend: tpu\ndelta: \"on\"\ndeltaAdmitQps: 250.5\ndeltaBurst: 16\n"
+    "deltaHighWatermark: 64\ndeltaLowWatermark: 8\ndeltaOracle: yes\n",
+    "delta: sideways\n",
+]
+
+
 def _texts():
     with open(EXAMPLE) as f:
-        return [f.read()] + JAX_TEST_TEXTS + SUBSET_TEXTS
+        return [f.read()] + JAX_TEST_TEXTS + SUBSET_TEXTS + DELTA_TEXTS
 
 
 @pytest.mark.parametrize("text", _texts())
@@ -105,7 +117,9 @@ def _same_fields(jc, tc, text):
     assert tc.backend == _port_backend(text)
     assert tc.apply_mode == (jc.apply_mode or "sync")
     for name in ("solve_mode", "schedule_period", "fast_path", "mesh", "mesh_hosts",
-                 "mesh_host_id", "mirror_checkpoint"):
+                 "mesh_host_id", "mirror_checkpoint", "delta", "delta_admit_qps",
+                 "delta_burst", "delta_high_watermark", "delta_low_watermark",
+                 "delta_oracle"):
         assert getattr(tc, name) == getattr(jc, name), name
 
 
@@ -114,9 +128,7 @@ def _refused(text):
     port refuses)."""
     data = yaml.safe_load(text) or {}
     return (data.get("backend") in ("host", "native")
-            or data.get("columnarPublish") is False or data.get("exactTopK") is False
-            or data.get("delta") in (True, "on")
-            or any(str(k).startswith("delta") and k != "delta" for k in data))
+            or data.get("columnarPublish") is False or data.get("exactTopK") is False)
 
 
 @pytest.mark.parametrize("text", _texts())
@@ -142,9 +154,7 @@ def test_load_conf_equals_jax(text):
     ("backend: gpu\n", "backend"),
     ("columnarPublish: false\n", "columnarPublish"),
     ("exactTopK: false\n", "exactTopK"),
-    ("delta: on\n", "9c"),
-    ("deltaAdmitQps: 100\n", "9c"),
-    ("delta: off\ndeltaOracle: true\n", "9c"),
+    ("delta: sideways\n", "delta"),
     ("applyMode: Async\n", "applyMode"),
     ("fastPath: maybe\n", "fastPath"),
     ("fastPath: off\n", "fastPath"),  # YAML 1.1 reads a bare off as false, as JAX does

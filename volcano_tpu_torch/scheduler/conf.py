@@ -16,7 +16,11 @@ each fast cycle's decisions as ONE columnar segment (``store/segment.py``);
 "sync", the default, applies them inline.  ``mirror_checkpoint`` names the
 file a restarted scheduler restores its watch mirror from
 (``fastpath/mirror.py``); ``schedule_period`` is the daemon loop's period,
-kept for the conf's round trip.
+kept for the conf's round trip.  ``delta: "on"`` runs the fast cycle's
+event-driven micro-cycles (``scheduler/delta/``), with the token-bucket
+admission (``delta_admit_qps``, ``delta_burst``), the backlog shedding
+(``delta_high_watermark``, ``delta_low_watermark``) and the
+``snapshot-incremental`` oracle (``delta_oracle``).
 
 ``load_conf`` reads the reference's scheduler-conf YAML
 (``examples/scheduler-conf.yaml``) with its own reader of the subset such
@@ -34,8 +38,6 @@ no counterpart:
   always ships the columnar segment);
 * ``exactTopK: true`` is accepted; ``false`` raises (the port's batched
   solve is always exact);
-* ``delta: off`` is accepted; ``delta: on`` and every other ``delta*`` key
-  raise (incremental scheduling is ROADMAP queue 1 item 9c);
 * every other key as the JAX loader reads it.
 """
 
@@ -109,6 +111,25 @@ class SchedulerConf:
     # version moved (fastpath/mirror.py), instead of listing the cluster.
     # None: a full list
     mirror_checkpoint: Optional[str] = None
+    # "on": event-driven micro-cycles (scheduler/delta/): the dirty rows of
+    # the watch diff into row-keyed aggregates in place of the snapshot's
+    # O(P) pod sweeps, with a full build on structural events; "off": every
+    # cycle builds full
+    delta: str = "off"
+    # gangs a second admitted to the solve (a token bucket; a gang pays once
+    # and stays admitted until it places or leaves); 0: unlimited
+    delta_admit_qps: float = 0.0
+    # the bucket's depth; 0: max(1, delta_admit_qps)
+    delta_burst: int = 0
+    # above this many pending gangs the lowest-priority ones are shed to a
+    # Backlogged condition (never dropped) until the depth falls to the low
+    # watermark; 0: no shedding
+    delta_high_watermark: int = 0
+    # the re-admit depth; 0: delta_high_watermark // 2
+    delta_low_watermark: int = 0
+    # every micro cycle also builds full and must equal it bit for bit
+    # (the VOLCANO_TPU_DELTA_ORACLE environment variable turns it on too)
+    delta_oracle: bool = False
 
     def __post_init__(self):
         self.validate()
@@ -387,16 +408,21 @@ def load_conf(text: str) -> SchedulerConf:
         conf.fast_path = mode
     if "delta" in data:
         raw = data["delta"]
+        # YAML 1.1 reads a bare on / off as a boolean
         mode = ("on" if raw else "off") if isinstance(raw, bool) else str(raw)
         if mode not in ("on", "off"):
             raise ValueError(f"delta must be 'on' or 'off', got {mode!r}")
-        if mode == "on":
-            raise ValueError("delta: on has no counterpart in the port yet: incremental "
-                             "scheduling is ROADMAP queue 1 item 9c")
-    extra = sorted(k for k in data if str(k).startswith("delta") and k != "delta")
-    if extra:
-        raise ValueError(f"{', '.join(map(str, extra))}: the delta keys have no counterpart "
-                         "in the port yet (ROADMAP queue 1 item 9c)")
+        conf.delta = mode
+    if "deltaAdmitQps" in data:
+        conf.delta_admit_qps = float(data["deltaAdmitQps"])
+    if "deltaBurst" in data:
+        conf.delta_burst = int(data["deltaBurst"])
+    if "deltaHighWatermark" in data:
+        conf.delta_high_watermark = int(data["deltaHighWatermark"])
+    if "deltaLowWatermark" in data:
+        conf.delta_low_watermark = int(data["deltaLowWatermark"])
+    if "deltaOracle" in data:
+        conf.delta_oracle = bool(data["deltaOracle"])
     conf.validate()
     return conf
 

@@ -25,6 +25,10 @@ placements, the PodGroup statuses and the enqueue admissions.
 With the cache's async applier the enqueue admissions go to it after
 publish; they are shipped synchronously before an object sub-cycle and on
 every exit to the object path, whose sessions read the store's phases.
+Under ``delta: on`` a ``DeltaEngine`` (``scheduler/delta/``) builds the
+snapshot: a micro build from the watch's dirty rows where it can, a full
+build with its reason where it cannot, and again full (``contention``)
+when a micro-built cycle finds reclaim or preempt work.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import Dict, List, Set
 
 import numpy as np
 
+from volcano_tpu_torch import timeseries
 from volcano_tpu_torch.api.types import PodGroupPhase
 from volcano_tpu_torch.native import water_fill_np
 from volcano_tpu_torch.scheduler import metrics
@@ -89,6 +94,16 @@ class FastCycle:
         self._err_seen = 0
         # publish clears the volume binder's session once a cycle
         self._vol_session_cleared = False
+        #: the last fast cycle's backlog, binds, evictions, residue jobs and,
+        #: under delta, the engine's mode, reason and admission depths; set
+        #: only while the time-series recorder is armed
+        self.last_cycle_stats: Dict[str, object] = {}
+        #: the incremental engine under ``conf.delta == "on"``, else None
+        self.delta = None
+        if self.conf_ok() and self.conf.delta == "on":
+            from volcano_tpu_torch.scheduler.delta import DeltaEngine
+
+            self.delta = DeltaEngine(self.conf, self.store)
 
     def conf_ok(self) -> bool:
         """False for plugins the tensor path does not model, and for action
@@ -111,10 +126,16 @@ class FastCycle:
         if self.mirror is None:
             self.mirror = ArrayMirror(
                 self.store, self.cache.scheduler_name, self.cache.default_queue)
+            if self.delta is not None:
+                # a new mirror, restored or listed: the first build is full
+                self.delta.arm(self.mirror)
             ckpt = self.conf.mirror_checkpoint
             if ckpt and os.path.exists(ckpt) and self.mirror.try_restore_checkpoint(ckpt):
                 self.restored_from_checkpoint = True
                 return
+        if self.delta is not None:
+            # before the drain: the hook sees this cycle's watch events
+            self.delta.arm(self.mirror)
         self.mirror.drain()
 
     def reset_after_abort(self) -> None:
@@ -142,9 +163,11 @@ class FastCycle:
         if m.ineligible_reason() is not None:
             return False
         t = time.perf_counter()
-        snap, aux = build_fast_snapshot(
-            m, self.nodeaffinity_weight,
-            dyn_batch=(self.conf.solve_mode, self.probe.batch_threshold))
+        dyn_batch = (self.conf.solve_mode, self.probe.batch_threshold)
+        if self.delta is not None:
+            snap, aux = self.delta.build(m, self.nodeaffinity_weight, dyn_batch=dyn_batch)
+        else:
+            snap, aux = build_fast_snapshot(m, self.nodeaffinity_weight, dyn_batch=dyn_batch)
         ph["snapshot"] = time.perf_counter() - t
         if snap is None:
             return False
@@ -163,6 +186,18 @@ class FastCycle:
         # preempt is the last action: it runs only if starving tasks remain
         # after the allocate, backfill and dynamic passes
         preempt_later = "preempt" in self.conf.actions and self._preempt_possible(snap, aux)
+        if (self.delta is not None and self.delta.last["mode"] == "micro"
+                and (reclaim_work or preempt_later)):
+            # a contention wave is structural: the full build on the same
+            # mirror state before the victim pool is carved (the prechecks
+            # hold, and the cached admission decision re-applies)
+            t = time.perf_counter()
+            snap, aux = self.delta.rebuild_full(m, self.nodeaffinity_weight,
+                                                dyn_batch=dyn_batch)
+            ph["snapshot"] += time.perf_counter() - t
+            if snap is None:
+                return False
+            self.last_residue_reasons = dict(aux["residue_reasons"])
 
         enq_ops: List[dict] = []
         if "enqueue" in self.conf.actions:
@@ -327,6 +362,14 @@ class FastCycle:
                 else:
                     self._ship_enqueue_ops(enq_ops)
         ph["publish"] = time.perf_counter() - t
+        if timeseries.RECORDER is not None:
+            # the cycle row's fields, already computed; unarmed, the cycle
+            # pays this one attribute check
+            self.last_cycle_stats = {
+                "backlog": int(aux["n_tasks"]), "binds": len(pub_binds),
+                "evictions": len(evicts), "residue_jobs": len(self.last_residue_reasons)}
+            if self.delta is not None:
+                self.last_cycle_stats.update(self.delta.last)
         if run_sub:
             # the sub-cycle's snapshot sees this cycle's published binds
             # whatever the bind seam wrote to the store
@@ -419,10 +462,13 @@ class FastCycle:
         evicts = []
         run_rows = aux["run_rows"]
         codes = aux["codes"]
+        h = m.delta_hook
         for i, reason in cont.evictions:
             prow = int(run_rows[i])
             m.p_status[prow] = _RELEASING
             codes[prow] = _RELEASING
+            if h is not None:
+                h.pod(prow)
             evicts.append((snap.run_uids[i], reason))
         return evicts, (cont.occ.copy() if cont.advanced else None)
 

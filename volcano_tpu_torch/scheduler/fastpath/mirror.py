@@ -18,8 +18,12 @@ budget-backed row outlives its member pods).  Every pod, node and
 PodGroup row keeps its object's resource version (``p_rv``, ``n_rv``,
 ``j_rv``), so that a checkpoint (``save_checkpoint``) restores in a
 restarted scheduler and re-reads only the objects whose version moved
-while it was cold (``try_restore_checkpoint``).  Left out (ROADMAP item
-11): the digest audit.
+while it was cold (``try_restore_checkpoint``).  Under ``delta: on`` the
+``DeltaEngine`` installs its dirty set as ``delta_hook``: every ingest
+that changes a pod's aggregate contribution records the pod's row, and the
+events that invalidate row-keyed aggregates record a structural reason
+(``resync``, ``node-add``, ``node-remove``, ``job-requeue``,
+``job-remove``).  Left out (ROADMAP item 11): the digest audit.
 """
 
 from __future__ import annotations
@@ -125,6 +129,9 @@ class ArrayMirror:
         ]
         self._synced = False
         self._resyncing = False
+        # the delta engine's dirty set (scheduler/delta/dirty.py), or None.
+        # Not reset by _resync: the hook must see the resync itself
+        self.delta_hook = None
         self._reset_tables(["cpu", "memory"])
 
     def _reset_tables(self, dims: List[str]) -> None:
@@ -228,6 +235,8 @@ class ArrayMirror:
     # -- ingest ---------------------------------------------------------------
 
     def _resync(self, dims: Optional[List[str]] = None) -> None:
+        if self.delta_hook is not None:
+            self.delta_hook.structural("resync")
         self._reset_tables(dims or ["cpu", "memory"])
         self._resyncing = True
         try:
@@ -316,6 +325,9 @@ class ArrayMirror:
         self.n_port_cnt = _grow(self.n_port_cnt, n)
         self.n_sel_cnt = _grow(self.n_sel_cnt, n)
         if new:
+            if self.delta_hook is not None:
+                # a rebirth too: the pods' contributions move rows wholesale
+                self.delta_hook.structural("node-add")
             # a node deleted and re-created takes its resident pods along,
             # and their port / selector counts with them
             retired = self._retired_node_rows.pop(node.meta.name, None)
@@ -348,6 +360,8 @@ class ArrayMirror:
     def _del_node_key(self, name: str) -> None:
         row = self.nodes.release(name)
         if row is not None:
+            if self.delta_hook is not None:
+                self.delta_hook.structural("node-remove")
             self.n_live[row] = False
             self.node_objs[row] = None
             self._retired_node_rows.setdefault(name, []).append(row)
@@ -359,6 +373,8 @@ class ArrayMirror:
     def _on_podgroup(self, pg) -> None:
         row, _ = self.jobs.acquire(pg.meta.key)
         self._grow_job_arrays(row + 1)
+        # a queue move re-buckets its pods' queue aggregates: structural
+        old_q = int(self.j_queue[row]) if self.j_live[row] and not self.j_shadow[row] else None
         self.j_shadow[row] = False
         self.j_min[row] = pg.min_member
         qname = pg.queue or self.default_queue
@@ -372,6 +388,9 @@ class ArrayMirror:
             self._widen_dims(pg.min_resources)
             return
         self.j_live[row] = True
+        h = self.delta_hook
+        if h is not None and old_q is not None and int(self.j_queue[row]) != old_q:
+            h.structural("job-requeue")
         # link pods that arrived before their group
         waiting = self._waiting_on_group.pop(pg.meta.key, None)
         if waiting:
@@ -380,6 +399,8 @@ class ArrayMirror:
                 prow = self.pods.key_row.get(pod_key)
                 if prow is not None:
                     self.p_job[prow] = row
+                    if h is not None:
+                        h.pod(int(prow))
                 self.unlinked_pods.discard(pod_key)
 
     def _del_podgroup(self, pg) -> None:
@@ -388,6 +409,8 @@ class ArrayMirror:
     def _del_podgroup_key(self, pg_key: str) -> None:
         row = self.jobs.release(pg_key)
         if row is not None:
+            if self.delta_hook is not None:
+                self.delta_hook.structural("job-remove")
             self.j_live[row] = False
             P = len(self.p_job)
             for prow in np.nonzero(self.p_live[:P] & (self.p_job[:P] == row))[0]:
@@ -719,6 +742,10 @@ class ArrayMirror:
         crow = int(self.p_node[row])
         if crow >= 0:
             self._add_contrib(row, crow)
+        if self.delta_hook is not None:
+            # the early returns above (class cap, new scalar dim) resync,
+            # which records its own structural reason
+            self.delta_hook.pod(row)
 
     def _del_pod(self, pod) -> None:
         self._del_pod_key(pod.meta.key)
@@ -742,13 +769,16 @@ class ArrayMirror:
             self._sub_contrib(row)
             self.p_labels[row] = None
             self._shadow_ref(int(self.p_job[row]), -1)
+            if self.delta_hook is not None:
+                self.delta_hook.pod(row)
 
     # -- checkpoint (warm restart) ---------------------------------------------
 
     #: the checkpoint's layout version; bump on any change of the row tables
     _CKPT_VERSION = 1
-    #: live handles that never go into a checkpoint
-    _CKPT_SKIP = ("store", "_watches")
+    #: live handles that never go into a checkpoint (the delta hook stays
+    #: the restoring engine's, which re-arms on the new mirror)
+    _CKPT_SKIP = ("store", "_watches", "delta_hook")
 
     def save_checkpoint(self, path: str) -> None:
         """Persist the whole mirror (row tables, interning maps, the objects

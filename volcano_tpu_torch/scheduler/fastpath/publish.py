@@ -12,7 +12,12 @@ transitions only (``fc._last_unsched``), the gang metrics, and the volume
 binds of the pods that mount claims (``volume_bind_filter``).  The
 statuses go through the applier when there is one.  ``fc.phases`` gets
 ``publish_build`` (columns, statuses, fit errors) and ``publish_ship``
-(the segment or bulk hand-off).
+(the segment or bulk hand-off).  Under ``delta: on`` the published bind
+rows go into the engine's dirty set (``mirror.delta_hook``) in both apply
+modes, from this thread only; the applier's landed writes come back
+through the watch.  The gangs admission shed this cycle
+(``aux["delta_shed_jobs"]``) get no status write, which would overwrite
+their ``Backlogged`` condition.
 """
 
 from __future__ import annotations
@@ -87,6 +92,8 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
     for prows, nidx in cols:
         m.p_status[prows] = _BOUND
         m.p_node[prows] = node_rows[nidx]
+        if m.delta_hook is not None:
+            m.delta_hook.pods_many(prows)
     cols = [(p, n) for p, n in cols if p.size]
     if cols:
         rows_all = np.concatenate([p for p, _ in cols])
@@ -130,9 +137,12 @@ def publish_and_close(fc, m, snap, aux, task_node, task_kind, ready,
     inqueue = phase_idx[PodGroupPhase.INQUEUE]
     ops: List[dict] = []
     n_unsched_jobs = 0
+    delta_shed = aux.get("delta_shed_jobs") or ()
     for j in range(n_jobs if write_status else 0):
         if shadow_job[j]:
             continue  # shadow gangs have no PodGroup to write to
+        if j in delta_shed:
+            continue  # kept out of the solve; its Backlogged condition stands
         jrow = aux["job_rows"][j]
         pg_key = m.jobs.row_key[jrow]
         unsched = bool(unready[j])

@@ -8,7 +8,9 @@ tests/test_torch_cycle.py, tests/test_torch_dynamic.py and
 tests/test_torch_volumes.py), plus the dynamic-job partition (host ports,
 pod (anti)affinity, volumes: the per-cycle volume verdicts of
 ``volsolve.py``), the dynamic solve's inputs, and the victim pool of the
-contention passes.  Everything is host-side numpy.
+contention passes.  Everything is host-side numpy.  Under ``delta: on``
+the micro build (``agg=``) gathers the pod sweeps' aggregates from the
+delta engine's row-keyed accumulators.
 """
 
 from __future__ import annotations
@@ -95,12 +97,21 @@ def _task_arrays(m: ArrayMirror, pe_rows: np.ndarray, pod_j: np.ndarray,
 
 def build_fast_snapshot(
     m: ArrayMirror, nodeaffinity_weight: float = 1.0,
-    dyn_batch: Optional[Tuple[str, int]] = None,
+    dyn_batch: Optional[Tuple[str, int]] = None, agg=None,
 ) -> Tuple[Optional[TensorSnapshot], dict]:
     """(snapshot, aux) from the mirror; aux carries the row <-> key maps the
     publish step needs.  The snapshot is None when no queue exists.
     ``dyn_batch``: (solve mode, batch threshold) of the dynamic solve, for
-    the batch-wave demotion of volume jobs."""
+    the batch-wave demotion of volume jobs.
+
+    ``agg`` (``delta/incremental.py`` ``PodAggregates``): the delta micro
+    build.  Node usage, job and queue shares, ready, running and pending
+    counts come from gathers of the row-keyed accumulators in place of the
+    O(P) sweeps; the light O(P) masks (live, pod_j, codes, pe_rows) are
+    computed as in the full build, so the solve, the contention passes and
+    publish see the same inputs.  Only the ``DeltaEngine`` passes it, when
+    no structural event and no pending dynamic or volume pod stands in the
+    way; its oracle holds the result to a full build bit for bit."""
     R = len(m.dims)
     eps = np.array([MIN_MILLI_CPU, MIN_MEMORY] + [MIN_SCALAR] * (R - 2), np.float32)
 
@@ -172,28 +183,37 @@ def build_fast_snapshot(
     codes = m.p_status[:P]
 
     # node usage: every resident charges used; releasing residents also the
-    # releasing pool.  float64 sums of integral values, cast once
+    # releasing pool.  Both builds sum in float64 and cast to float32 once:
+    # the inputs are integral, so the sums are exact and independent of
+    # order, which lets the delta aggregates' add / subtract land on the
+    # bits of a fresh sweep
     node_used = np.zeros((N, R), np.float32)
     node_rel = np.zeros((N, R), np.float32)
     node_tc = np.zeros((N,), np.int32)
-    pn = np.where(live, m.p_node[:P], -1)
-    res_rows = np.nonzero(live & (pn >= 0))[0]
-    if res_rows.size:
-        res_rows = res_rows[m.n_live[pn[res_rows]]]
-    res_nodes = n_idx_of_row[pn[res_rows]] if res_rows.size else res_rows
-    if res_rows.size:
-        ok = res_nodes >= 0
-        res_rows, res_nodes = res_rows[ok], res_nodes[ok]
-    if res_rows.size:
-        used64 = np.zeros((N, R), np.float64)
-        np.add.at(used64, res_nodes, m.p_resreq[res_rows])
-        node_used[:] = used64.astype(np.float32)
-        rel_rows = codes[res_rows] == _RELEASING
-        if rel_rows.any():
-            rel64 = np.zeros((N, R), np.float64)
-            np.add.at(rel64, res_nodes[rel_rows], m.p_resreq[res_rows[rel_rows]])
-            node_rel[:] = rel64.astype(np.float32)
-        node_tc[:] = np.bincount(res_nodes, minlength=N).astype(np.int32)
+    if agg is not None:
+        if n_live_ct:
+            node_used[:n_live_ct] = agg.node_used[node_rows_arr].astype(np.float32)
+            node_rel[:n_live_ct] = agg.node_rel[node_rows_arr].astype(np.float32)
+            node_tc[:n_live_ct] = agg.node_tc[node_rows_arr].astype(np.int32)
+    else:
+        pn = np.where(live, m.p_node[:P], -1)
+        res_rows = np.nonzero(live & (pn >= 0))[0]
+        if res_rows.size:
+            res_rows = res_rows[m.n_live[pn[res_rows]]]
+        res_nodes = n_idx_of_row[pn[res_rows]] if res_rows.size else res_rows
+        if res_rows.size:
+            ok = res_nodes >= 0
+            res_rows, res_nodes = res_rows[ok], res_nodes[ok]
+        if res_rows.size:
+            used64 = np.zeros((N, R), np.float64)
+            np.add.at(used64, res_nodes, m.p_resreq[res_rows])
+            node_used[:] = used64.astype(np.float32)
+            rel_rows = codes[res_rows] == _RELEASING
+            if rel_rows.any():
+                rel64 = np.zeros((N, R), np.float64)
+                np.add.at(rel64, res_nodes[rel_rows], m.p_resreq[res_rows[rel_rows]])
+                node_rel[:] = rel64.astype(np.float32)
+            node_tc[:] = np.bincount(res_nodes, minlength=N).astype(np.int32)
     node_idle = np.maximum(node_alloc - node_used, 0.0)
 
     # shares: allocated statuses charge job/queue alloc and queue request;
@@ -204,29 +224,41 @@ def build_fast_snapshot(
     queue_participates = np.zeros((Q,), bool)
     if n_jobs:
         queue_participates[job_q_idx[job_q_idx >= 0]] = True
-    charge = live & np.isin(codes, _ALLOCATED_CODES)
-    ch_rows = np.nonzero(charge)[0]
-    if ch_rows.size:
-        ja64 = np.zeros(job_alloc_init.shape, np.float64)
-        np.add.at(ja64, pod_j[ch_rows], m.p_resreq[ch_rows])
-        job_alloc_init[:] = ja64.astype(np.float32)
-    qa64 = np.zeros((Q, R), np.float64)
-    qr64 = np.zeros((Q, R), np.float64)
-    if ch_rows.size:
-        chq = ch_rows[job_queue[pod_j[ch_rows]] >= 0]
-        np.add.at(qa64, job_queue[pod_j[chq]], m.p_resreq[chq])
-        np.add.at(qr64, job_queue[pod_j[chq]], m.p_resreq[chq])
     pd_rows = np.nonzero(pend_all)[0]
-    if pd_rows.size:
-        pdq = pd_rows[job_queue[pod_j[pd_rows]] >= 0]
-        np.add.at(qr64, job_queue[pod_j[pdq]], m.p_resreq[pdq])
-    if ch_rows.size or pd_rows.size:
-        queue_alloc[:] = qa64.astype(np.float32)
-        queue_request[:] = qr64.astype(np.float32)
-    rd_rows = np.nonzero(live & np.isin(codes, _READY_CODES))[0]
-    if rd_rows.size:
-        job_ready_init[:n_jobs] = np.bincount(
-            pod_j[rd_rows], minlength=n_jobs).astype(np.int32)[:n_jobs]
+    if agg is not None:
+        # the queue buckets agree with the sweep's job_queue[pod_j]: the
+        # aggregates key by the job's queue row when a pod contributes, and
+        # a queue move is structural
+        if n_jobs:
+            job_alloc_init[:n_jobs] = agg.job_alloc[job_rows].astype(np.float32)
+            job_ready_init[:n_jobs] = agg.job_ready[job_rows].astype(np.int32)
+        for i, name in enumerate(q_names):
+            qrow = m.queues.key_row[name]
+            queue_alloc[i] = agg.q_alloc[qrow].astype(np.float32)
+            queue_request[i] = agg.q_request[qrow].astype(np.float32)
+    else:
+        charge = live & np.isin(codes, _ALLOCATED_CODES)
+        ch_rows = np.nonzero(charge)[0]
+        if ch_rows.size:
+            ja64 = np.zeros(job_alloc_init.shape, np.float64)
+            np.add.at(ja64, pod_j[ch_rows], m.p_resreq[ch_rows])
+            job_alloc_init[:] = ja64.astype(np.float32)
+        qa64 = np.zeros((Q, R), np.float64)
+        qr64 = np.zeros((Q, R), np.float64)
+        if ch_rows.size:
+            chq = ch_rows[job_queue[pod_j[ch_rows]] >= 0]
+            np.add.at(qa64, job_queue[pod_j[chq]], m.p_resreq[chq])
+            np.add.at(qr64, job_queue[pod_j[chq]], m.p_resreq[chq])
+        if pd_rows.size:
+            pdq = pd_rows[job_queue[pod_j[pd_rows]] >= 0]
+            np.add.at(qr64, job_queue[pod_j[pdq]], m.p_resreq[pdq])
+        if ch_rows.size or pd_rows.size:
+            queue_alloc[:] = qa64.astype(np.float32)
+            queue_request[:] = qr64.astype(np.float32)
+        rd_rows = np.nonzero(live & np.isin(codes, _READY_CODES))[0]
+        if rd_rows.size:
+            job_ready_init[:n_jobs] = np.bincount(
+                pod_j[rd_rows], minlength=n_jobs).astype(np.int32)[:n_jobs]
 
     # volume verdicts, once a cycle and only when claim-referencing pending
     # pods exist (volume-free cycles do no work here): each referenced claim
@@ -386,7 +418,11 @@ def build_fast_snapshot(
     run_per_job = np.zeros(nJ, np.int64)
     pend_any_per_job = np.zeros(nJ, np.int64)
     pend_nonbe_per_job = np.zeros(nJ, np.int64)
-    if n_jobs:
+    if n_jobs and agg is not None:
+        run_per_job[:n_jobs] = agg.run_ct[job_rows]
+        pend_any_per_job[:n_jobs] = agg.pend_any[job_rows]
+        pend_nonbe_per_job[:n_jobs] = agg.pend_nonbe[job_rows]
+    elif n_jobs:
         running_rows = np.nonzero(live & (codes == _RUNNING))[0]
         if running_rows.size:
             run_per_job[:n_jobs] = np.bincount(pod_j[running_rows], minlength=n_jobs)[:n_jobs]

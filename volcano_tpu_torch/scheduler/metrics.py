@@ -24,8 +24,7 @@ discarded, never an error) and counted in
 Durations come from monotonic clocks (``time.perf_counter``).  Families of
 the JAX module that wait for other modules of the port: the critical-path
 profiler's (ROADMAP item 9d), the WAL's and replication's (item 11), the
-delta engine's (9c), the process mesh's and the elastic autoscaler's
-(12).
+process mesh's and the elastic autoscaler's (12).
 """
 
 from __future__ import annotations
@@ -322,6 +321,29 @@ def register_kernel_dispatch(kernel: str, n: int = 1) -> None:
     inc("volcano_kernel_dispatch_total", float(n), kernel=kernel)
 
 
+# -- incremental scheduling (scheduler/delta/) ----------------------------------
+
+def register_delta_micro_cycle(n: int = 1) -> None:
+    """Micro snapshot builds: the dirty-set diff in place of the O(P) pod
+    sweeps.  A cycle that then rebuilds full for contention still counts:
+    the series counts builds, not published cycles."""
+    inc("volcano_delta_micro_cycles_total", float(n))
+
+
+def register_delta_fallback(reason: str) -> None:
+    """Full snapshot builds while delta is on, by reason: arm / init /
+    resync / node-add / node-remove / job-remove / job-requeue /
+    job-dropped / dynamic / dirty-storm / contention."""
+    inc("volcano_delta_full_fallbacks_total", reason=reason)
+
+
+def register_delta_shed(n: int = 1) -> None:
+    """Gangs newly shed to the Backlogged condition above the high
+    watermark (a monotone counter: re-admission does not decrement it; the
+    live depth is the cycle row's ``shed_gangs``)."""
+    inc("volcano_delta_shed_gangs_total", float(n))
+
+
 # -- exposition ---------------------------------------------------------------
 
 #: HELP strings of the exposition (the fallback is generated); one line each
@@ -344,6 +366,12 @@ _HELP: Dict[str, str] = {
         "Wall seconds one async-applier batch took to reach the store",
     "volcano_kernel_dispatch_total":
         "Jitted kernel dispatches per kernel",
+    "volcano_delta_micro_cycles_total":
+        "Micro-cycle snapshot builds (dirty-set diff, no full sweep)",
+    "volcano_delta_full_fallbacks_total":
+        "Full snapshot builds under delta mode, by trigger reason",
+    "volcano_delta_shed_gangs_total":
+        "Gangs shed to the Backlogged condition by admission control",
     _DROPPED_SERIES:
         "Observations dropped by the per-metric label-cardinality cap",
 }

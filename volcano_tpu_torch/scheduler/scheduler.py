@@ -21,7 +21,10 @@ binds, the residue allocate on the vectorized engine
 cycle's decisions reach the store off the cycle, the applier is flushed
 before a whole cycle runs on the object path, and ``close()`` stops the
 thread.  Every cycle records the scheduler's metrics
-(``scheduler/metrics.py``).
+(``scheduler/metrics.py``), and, while the time-series recorder is armed
+(``volcano_tpu_torch/timeseries.py``), one cycle row (``_record_cycle``).
+With ``conf.delta == "on"`` the fast cycle runs the incremental engine's
+micro-cycles (``scheduler/delta/``).
 
 Both object sessions, the whole-cycle one and the sub-cycle's, build their
 tensor snapshot through the Scheduler's ``SnapshotCache``
@@ -50,6 +53,7 @@ import torch
 
 import volcano_tpu_torch.scheduler.actions  # noqa: F401  (registers actions)
 import volcano_tpu_torch.scheduler.plugins  # noqa: F401  (registers plugins)
+from volcano_tpu_torch import timeseries
 from volcano_tpu_torch.scheduler import metrics
 from volcano_tpu_torch.scheduler.cache import SchedulerCache
 from volcano_tpu_torch.scheduler.conf import BACKENDS, SchedulerConf, full_conf, load_conf
@@ -138,6 +142,9 @@ class Scheduler:
         #: the last prewarm's failure to load the kernels or touch the
         #: device, or None
         self.prewarm_device_error: Optional[str] = None
+        # the cycle rows' counter and the bind log's length at the last row
+        self._cycle_n = 0
+        self._bind_log_n = 0
 
     @classmethod
     def from_conf_yaml(cls, store, text: str, **kw) -> "Scheduler":
@@ -442,6 +449,8 @@ class Scheduler:
         if self.fast_cycle is not None and self.fast_cycle.try_run():
             self.last_path = "fast"
             metrics.update_e2e_duration(start)
+            if timeseries.RECORDER is not None:
+                self._record_cycle(start, "fast")
             return
         if self.fast_cycle is not None and not self.fast_cycle.is_coordinator:
             # a mesh-host worker whose fast cycle declined: the object path
@@ -458,6 +467,32 @@ class Scheduler:
         self.run_object_actions(self.conf.actions)
         self.last_path = "object"
         metrics.update_e2e_duration(start)
+        if timeseries.RECORDER is not None:
+            self._record_cycle(start, "object")
+
+    def _record_cycle(self, start: float, path: str) -> None:
+        """One ``kind="cycle"`` time-series row; the callers check
+        ``timeseries.RECORDER`` first.  The recorder adds no phase: it
+        observes the cycle and never reshapes it.  (The JAX row's vtprof
+        fields wait for the profiler, ROADMAP item 9d.)"""
+        fields: dict = {"dur_s": round(time.perf_counter() - start, 6),
+                        "path": path, "cycle": self._cycle_n}
+        self._cycle_n += 1
+        fc = self.fast_cycle
+        # both paths append to the bind log, so its watermark moves every
+        # row: an object cycle after fast ones counts only its own binds
+        n_binds = len(self.cache.bind_log)
+        if path == "fast" and fc is not None:
+            fields["phases"] = {k: round(v, 6) for k, v in (fc.phases or {}).items()}
+            fields.update(fc.last_cycle_stats)
+        else:
+            fields["binds"] = n_binds - self._bind_log_n
+        self._bind_log_n = n_binds
+        applier = self.cache.applier
+        if applier is not None:
+            # the decisions published and not yet written back
+            fields["drain_pending"] = applier.pending
+        timeseries.record("cycle", **fields)
 
     def close(self) -> None:
         """Join the background prewarm, then stop the applier thread (after
