@@ -23,12 +23,14 @@ from volcano_tpu_torch.scheduler.scheduler import Scheduler
 from volcano_tpu_torch.scheduler.simargs import (
     BATCH_EDGE_CASES,
     EXACT_EDGE_CASES,
+    GROUP_EDGE_CASES,
     PORTSEL_KEYS,
     ROUNDS_EDGE_CASES,
     WALK_EDGE_CASES,
     add_releasing,
     build_batch_edge_args,
     build_exact_edge_args,
+    build_group_edge_args,
     build_portsel_args,
     build_reclaim_abort_sim,
     build_rounds_edge_args,
@@ -37,6 +39,7 @@ from volcano_tpu_torch.scheduler.simargs import (
     build_victim_sim,
     build_volsel_args,
     build_walk_edge_args,
+    build_water_fill_args,
     storm_inputs,
 )
 
@@ -98,7 +101,80 @@ def test_gpu_water_fill_raises_at_round_cap(monkeypatch):
     a["queue_request"][0] *= 0.25  # one queue capped: needs a second round
     monkeypatch.setattr(K, "WATER_FILL_MAX_ROUNDS", 1)
     with pytest.raises(RuntimeError, match="no convergence"):
+        # the wrapper does not wait for its kernel: the check raises
         K.water_fill(*_water_fill_inputs(a))
+        K.water_fill_check()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["config5", "queues_128", "cells_2048", "staggered_1024"])
+def test_gpu_water_fill_shapes_bit_for_bit(case):
+    """K1 equal to its plain version bit for bit at the main path's shapes,
+    and no allocation but the returned shares after the first call at a
+    shape (the round words sit in the device's workspace)."""
+    dev = _cuda()
+    wf = tuple(torch.from_numpy(build_water_fill_args(case)[k]).to(dev)
+               for k in ("queue_weight", "queue_request", "total", "eps",
+                         "queue_participates"))
+    K.water_fill_check()
+    des = K.water_fill(*wf)
+    K.water_fill_check()
+    assert torch.equal(des, K.water_fill_plain(*wf))
+    torch.cuda.synchronize()
+    for _ in range(2 * K._WF_SLOTS):  # every slot of the workspace taken again
+        before = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        again = K.water_fill(*wf)
+        assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] - before == 1
+    K.water_fill_check()
+    assert torch.equal(again, des)
+
+
+def _capped_shares(dev, monkeypatch, Q=4):
+    """K1 on a [Q, 2] fill that needs two rounds, launched with a cap of
+    one: the shares come back, the error waits for a check."""
+    monkeypatch.setattr(K, "WATER_FILL_MAX_ROUNDS", 1)
+    req = torch.tensor([[250.0, float(1 << 28)]] + [[64000.0, float(1 << 36)]] * (Q - 1),
+                       device=dev)
+    des = K.water_fill(torch.ones(Q, device=dev), req,
+                       torch.tensor([16000.0, float(1 << 35)], device=dev),
+                       torch.tensor([10.0, float(10 << 20)], device=dev),
+                       torch.ones(Q, dtype=torch.bool, device=dev))
+    monkeypatch.setattr(K, "WATER_FILL_MAX_ROUNDS", 4096)
+    return des
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("consumer", ["K2", "K3", "K7", "K12a"])
+def test_gpu_round_cap_reaches_the_consumer(consumer, monkeypatch):
+    """The round-cap error of a K1 launch surfaces in the wrapper of the
+    first kernel that consumes its shares, before that wrapper returns a
+    decision."""
+    from volcano_tpu_torch.parallel import sharded as S
+
+    dev = _cuda()
+    K.water_fill_check()
+    if consumer in ("K2", "K3", "K12a"):
+        a = _args(dev, 0, False)
+        des = _capped_shares(dev, monkeypatch, a["queue_alloc_init"].shape[0])
+        args = {k: (des if k == "queue_deserved" else a[k]) for k in K._SOLVE_ARGS}
+        with pytest.raises(RuntimeError, match="no convergence"):
+            if consumer == "K2":
+                K.allocate_solve(*args.values(), 1.0, 1.0)
+            elif consumer == "K3":
+                K.allocate_solve_batch(*args.values(), 1.0, 1.0)
+            else:
+                mesh = S.LocalMesh(2, dev)
+                planes = {k: S.split_rows(mesh, k, args[k]) for k in K.NODE_PLANES}
+                repl = {k: args[k] for k in K._SOLVE_ARGS if k not in K.NODE_PLANES}
+                S.sharded_solve(mesh, planes, repl, 1.0, 1.0)
+    else:
+        c_np, s_np = build_victim_sim(16, 120, 10, seed=3)
+        c, s = interop.victim_from_arrays(c_np, s_np, dev)
+        des = _capped_shares(dev, monkeypatch, c.queue_deserved.shape[0])
+        c = c._replace(queue_deserved=des)
+        with pytest.raises(RuntimeError, match="no convergence"):
+            VK.victim_step(c, s, torch.tensor([1000.0, float(1 << 30)], device=dev), 0, 0, 0)
+    K.water_fill_check()  # the error was raised once, and nothing pends
 
 
 @pytest.mark.gpu
@@ -662,6 +738,35 @@ def test_gpu_victim_step_chain_reuses_groups(mode):
             sk, sp = out_k.state, out_p.state
             n_ok += int(out_p.packed[3] > 0)
     assert n_ok >= 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,blocks,ev_kind", [
+    (case, blocks, ev) for case in GROUP_EDGE_CASES for blocks in (1, 2, 4)
+    for ev in ("preempt", "reclaim", "rounds")])
+def test_gpu_group_build_edge_shapes(case, blocks, ev_kind):
+    """The one group build (one cluster launch) against its plain version
+    on the edge pools: empty nodes, a node of 1,500 rows, 65,536 node
+    rows, out-of-range nodes, a live mask with holes; on each of 1, 2 and 4
+    node blocks (rows of other blocks' nodes not grouped), every eviction
+    kind, order_by_priority on and off; each build twice over one
+    workspace, so no build depends on another's scratch."""
+    from volcano_tpu_torch import _build
+
+    dev = _cuda()
+    c, s = interop.victim_from_arrays(*build_group_edge_args(case), dev)
+    N = c.node_alloc.shape[0]
+    nb = N // blocks
+    lib, stream = _build.load(), K._stream(dev)
+    for obp in (True, False):
+        for b in range(blocks):
+            want = VK.group_build_plain(c, s.run_live, obp, nb, ev_kind=ev_kind, n0=b * nb,
+                                        nt=N)
+            for _ in range(2):
+                g = VK.victim_groups_launch(lib, stream, c, s.run_live, obp, nb,
+                                            ev_kind=ev_kind, n0=b * nb, nt=N)
+                for name, x, y in zip(VK.VictimGroups._fields, g[:5], want[:5]):
+                    assert torch.equal(x, y), f"{name} obp={obp} block {b}"
 
 
 @pytest.mark.gpu

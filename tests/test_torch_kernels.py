@@ -27,6 +27,7 @@ from volcano_tpu_torch.scheduler.simargs import (
     EXACT_EDGE_CASES,
     PORTSEL_KEYS,
     add_releasing,
+    build_water_fill_args,
     build_batch_edge_args,
     build_exact_edge_args,
     build_sim_args,
@@ -85,6 +86,19 @@ def test_water_fill_matches_jax(seed, n_queues):
     a["queue_request"][0] *= 0.25  # one queue capped below its share
     des_j = np.asarray(JK.water_fill(*[jnp.asarray(x) for x in _water_fill_inputs(a)]))
     des_t = TK.water_fill(*[torch.from_numpy(x) for x in _water_fill_inputs(a)])
+    np.testing.assert_allclose(des_t.numpy(), des_j, rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["staggered_1024", "cells_2048"])
+def test_water_fill_many_cells_matches_jax(case):
+    """K1's plain version against JAX where the card's kernel works
+    hardest: 1,024 queues with staggered requests (21 rounds) and 2,048
+    (queue, dim) cells.  rtol=1e-6 as above; bit-equality is expected
+    (both sum over queues in index order)."""
+    a = build_water_fill_args(case)
+    des_j = np.asarray(JK.water_fill(*[jnp.asarray(x) for x in _water_fill_inputs(a)]))
+    des_t = TK.water_fill(*[torch.from_numpy(x) for x in _water_fill_inputs(a)])
+    assert des_t.shape[0] == 1024
     np.testing.assert_allclose(des_t.numpy(), des_j, rtol=1e-6)
 
 

@@ -12,6 +12,11 @@ against the JAX package's orders, and K7 / K12b driven by them.
   bit for bit;
 * the same chain on node blocks (``victim_blocks_plain`` over one grouping
   of the whole pool);
+* the edge pools of the cluster group build (``build_group_edge_args``:
+  empty nodes, a node of 1,500 rows, 65,536 node rows, out-of-range nodes,
+  a live mask with holes): ``group_build_plain`` on 1, 2 and 4 node
+  blocks, both eviction kinds, ``order_by_priority`` on and off, against
+  the JAX orders;
 * groups of other constants, shapes or eviction order, or missing a live
   row, raising ValueError;
 * the object path's ``_VictimDriver`` building one grouping per snapshot.
@@ -32,6 +37,7 @@ from volcano_tpu_torch import interop
 from volcano_tpu_torch.parallel import sharded as S
 from volcano_tpu_torch.scheduler import tensor_actions as TA
 from volcano_tpu_torch.scheduler import victim_kernels as tvk
+from volcano_tpu_torch.scheduler.simargs import GROUP_EDGE_CASES, build_group_edge_args
 
 torch.set_num_threads(1)
 
@@ -76,6 +82,58 @@ def test_groups_plain_equal_jax_orders(seed, order_by_priority, mask):
         for n in range(N):
             np.testing.assert_array_equal(got[off[n]:off[n + 1]], per_node[n],
                                           err_msg=f"{name} node {n}")
+
+
+def _node_sorted(order, node, rows):
+    """JAX's global ``order`` restricted to ``rows``, stably by node: every
+    node's list one after the other, as the groups lay them out."""
+    order = np.asarray(order)
+    order = order[rows[order]]
+    return order[np.argsort(node[order], kind="stable")]
+
+
+@pytest.mark.parametrize("case,n_blocks,order_by_priority",
+                         list(itertools.product(GROUP_EDGE_CASES, (1, 2, 4), (True, False))))
+def test_group_edge_shapes_equal_jax_orders(case, n_blocks, order_by_priority):
+    """The group build's edge pools: each block's groups
+    (``group_build_plain``, the plain version of a block's build: rows on
+    other blocks' nodes not grouped), in both eviction kinds (preempt's
+    order and reclaim's pool order as l_ev), against the JAX orders
+    restricted to the block's nodes and the live rows.  JAX's orders do
+    not clamp a row's node; the build clamps it into [0, N) as K7 does, so
+    JAX sorts over the clamped nodes (exact: integer keys)."""
+    c, s = build_group_edge_args(case)
+    N, V = c["node_alloc"].shape[0], c["run_req"].shape[0]
+    Q = s["queue_alloc"].shape[0]
+    node = np.clip(c["run_node"], 0, N - 1).astype(np.int32)
+    jc = jvk.VictimConsts(**{k: jnp.asarray(node if k == "run_node" else v)
+                             for k, v in c.items()})
+    rows = s["run_live"]
+    tc, ts = interop.victim_from_arrays(c, s)
+    want = {
+        "l_drf": _node_sorted(jvk._orders_drf(jc)[0], node, rows),
+        "l_prop": _node_sorted(jvk._orders_prop(jc, Q)[0], node, rows),
+        "l_vidx": _node_sorted(jvk._orders_evict(jc, order_by_priority, True)[0], node, rows),
+        ("l_ev", "preempt"): _node_sorted(jvk._orders_evict(jc, order_by_priority, False)[0],
+                                          node, rows),
+    }
+    want["l_ev", "reclaim"] = want["l_vidx"]
+    counts = np.bincount(node[rows], minlength=N)
+    nb = N // n_blocks
+    for b, ev_kind in itertools.product(range(n_blocks), ("preempt", "reclaim")):
+        g = tvk.group_build_plain(tc, ts.run_live, order_by_priority, nb, ev_kind=ev_kind,
+                                  n0=b * nb, nt=N)
+        off = g.node_off.numpy()
+        np.testing.assert_array_equal(np.diff(off), counts[b * nb:(b + 1) * nb])
+        lo = counts[:b * nb].sum()
+        for name in ("l_drf", "l_prop", "l_vidx", "l_ev"):
+            order = want[(name, ev_kind) if name == "l_ev" else name]
+            got = getattr(g, name).numpy()
+            np.testing.assert_array_equal(got[:off[-1]], order[lo:lo + off[-1]],
+                                          err_msg=f"{name} block {b} {ev_kind}")
+            assert (got[off[-1]:] == -1).all() and got.shape == (V,)
+    if case == "big_node":
+        assert counts.max() == 1_500
 
 
 FLAGS = [

@@ -107,7 +107,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points' signatures (pointers and the stream as
     c_void_p, so ctypes never truncates them to 32 bits)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.vtt_water_fill.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp]
+    lib.vtt_water_fill.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp]
     lib.vtt_water_fill.restype = ci
     for fn in (lib.vtt_allocate_solve, lib.vtt_reclaim_solve, lib.vtt_preempt_solve):
         fn.argtypes = [vp, vp]
@@ -118,8 +118,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [vp, vp, ci, vp]
         fn.restype = ci
     cl = ctypes.c_longlong
-    # the victim groups: (args, live mask, stream)
-    lib.vtt_victim_groups.argtypes = [vp, vp, vp]
+    # the victim groups: (args, live mask, eviction kind, stream)
+    lib.vtt_victim_groups.argtypes = [vp, vp, ci, vp]
     lib.vtt_victim_groups.restype = ci
     # K7: (args, outputs, t_cls, jt, qt, mode, stream)
     lib.vtt_victim_step.argtypes = [vp, vp, ci, ci, ci, ci, vp]

@@ -273,6 +273,14 @@ __device__ __forceinline__ void vtt_cluster_store(T* p, int rank, const T& v) {
                    "r"(u.w[i].w)
                  : "memory");
 }
+// the same for one int
+__device__ __forceinline__ void vtt_cluster_store_u32(int* p, int rank, int v) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(addr)
+               : "r"((uint32_t)__cvta_generic_to_shared(p)), "r"((unsigned)rank));
+  asm volatile("st.shared::cluster.u32 [%0], %1;" : : "r"(addr), "r"(v) : "memory");
+}
 __device__ __forceinline__ void vtt_cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release;" ::: "memory");
 }

@@ -869,8 +869,7 @@ static int vtt_sm_count(int* sms) {
 // Begin a solve: each local block's pool rows grouped by node, the
 // replicated within-job ranks, the first round's start; the control block
 // into ctl_out[12].  The host then runs rounds while ctl_out says progress,
-// active jobs and fewer than J + 8 rounds.  job_fill and each block's
-// node_fill must be zero.
+// active jobs and fewer than J + 8 rounds.  job_fill must be zero.
 extern "C" int vtt_rounds_begin(const VttVictimArgs* base, const VttVictimArgs* blocks,
                                 int n_blocks, int32_t* ctl_out, void* stream) {
   const VttVictimArgs& a = *base;

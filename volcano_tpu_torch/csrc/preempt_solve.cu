@@ -249,7 +249,7 @@ extern "C" int vtt_preempt_solve(const VttVictimArgs* args, void* stream) {
   const VttVictimArgs a = *args;
   if (a.R < 2 || a.R > VTT_MAX_R || a.n_keys > 3) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int err = vtt_victim_setup(a, VTT_EV_PREEMPT, s);
+  int err = vtt_group_launch(a, VTT_EV_PREEMPT, s);
   if (err) return err;
   return vtt_walk_launch(a.x_split ? vtt_preempt_kernel<true> : vtt_preempt_kernel<false>, a, s);
 }
@@ -287,7 +287,7 @@ extern "C" int vtt_preempt_blocks_begin(const VttVictimArgs* base, const VttVict
   const VttVictimArgs& a = *base;
   if (!vtt_walk_ok(a) || n_blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int err = vtt_victim_setup(a, VTT_EV_PREEMPT, s);
+  int err = vtt_group_launch(a, VTT_EV_PREEMPT, s);
   if (err) return err;
   VTT_LAUNCH(vtt_preempt_blocks_kernel, 1, VTT_VICTIM_THREADS, 0, s)(a, dblk, n_blocks, 0);
   return vtt_walk_pending(a, pending, s);

@@ -107,8 +107,8 @@ struct VttVictimArgs {
   int32_t* ctl;
   // scratch: pool grouped by node
   int32_t* node_off;   // [N + 1]
-  int32_t* node_fill;  // [N], zeroed by the wrapper
-  int32_t* bucket;     // [V]
+  int32_t* node_fill;  // [N]: counts, then next free slots (zeroed by the build)
+  int32_t* bucket;     // [V x 8]: the grouped rows' keys by node (VttGroupKey)
   int32_t* l_vidx;     // [V] per node: pool order
   int32_t* l_ev;       // [V] per node: eviction order
   int32_t* l_drf;      // [V] per node: (job, pool index)
@@ -177,44 +177,21 @@ __device__ __forceinline__ int vtt_row_queue(const VttVictimArgs& a, int v) {
 
 // ---- setup: the pool grouped by node ------------------------------------
 
-// pool row v's node as a row of these node planes, or -1 when it lies in
-// another block (K12b); out-of-range nodes clamp into [0, NT) as in K7
-__device__ __forceinline__ int vtt_v_node(const VttVictimArgs& a, int v) {
+// the node `node` (a run_node value) as a row of these node planes, or -1
+// when it lies in another block; out-of-range nodes clamp into [0, NT) as
+// in K7
+__device__ __forceinline__ int vtt_node_row(const VttVictimArgs& a, int node) {
   const int nt = a.NT > 0 ? (int)a.NT : (int)a.N;
-  const int n = vtt_clamp(a.run_node[v], 0, nt - 1) - (int)a.n0;
+  const int n = vtt_clamp(node, 0, nt - 1) - (int)a.n0;
   return n >= 0 && n < a.N ? n : -1;
 }
 
 // eviction-order key kinds
 enum { VTT_EV_RECLAIM = 0, VTT_EV_PREEMPT = 1, VTT_EV_ROUNDS = 2 };
 
-// row u before row v in its node's eviction order (rows of one node)
-__device__ __forceinline__ bool vtt_ev_less(const VttVictimArgs& a, int kind,
-                                            int u, int v) {
-  if (kind == VTT_EV_ROUNDS) {
-    const int Q = (int)a.Q;
-    const int qu = vtt_clamp(vtt_row_queue(a, u), 0, Q - 1);
-    const int qv = vtt_clamp(vtt_row_queue(a, v), 0, Q - 1);
-    if (qu != qv) return qu < qv;
-  }
-  if (kind != VTT_EV_RECLAIM) {
-    if (a.order_by_priority && a.run_prio[u] != a.run_prio[v])
-      return a.run_prio[u] < a.run_prio[v];
-    const int ru = -a.run_rank[u], rv = -a.run_rank[v];
-    if (ru != rv) return ru < rv;
-  }
-  return u < v;
-}
-
-static __global__ void vtt_v_count(VttVictimArgs a) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= a.V || !a.run_live[v]) return;
-  const int n = vtt_v_node(a, v);
-  if (n >= 0) atomicAdd(&a.node_fill[n], 1);
-}
-
 // exclusive scan of cnt[0..n) into off[0..n]; one CTA (each thread's
-// chunk sum, a Hillis-Steele block scan of the sums), then cnt := 0
+// chunk sum, a Hillis-Steele block scan of the sums), then cnt := 0 (K10's
+// pool by job; the groups by node are vtt_group_kernel's, below)
 static __global__ void vtt_v_scan(int32_t* cnt, int32_t* off, int n) {
   __shared__ int s_part[VTT_VICTIM_THREADS];
   const int tid = threadIdx.x, nthr = blockDim.x;
@@ -237,60 +214,6 @@ static __global__ void vtt_v_scan(int32_t* cnt, int32_t* off, int n) {
     acc += cnt[i];
     cnt[i] = 0;
   }
-}
-
-static __global__ void vtt_v_bucket(VttVictimArgs a) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= a.V || !a.run_live[v]) return;
-  const int n = vtt_v_node(a, v);
-  if (n >= 0) a.bucket[a.node_off[n] + atomicAdd(&a.node_fill[n], 1)] = v;
-}
-
-// Row v's rank among the rows rows[off, end) of its node under every
-// order, written into the four per-node lists at off + rank.
-__device__ __forceinline__ void vtt_rank_row(const VttVictimArgs& a, int ev_kind, int v,
-                                             const int32_t* rows, int off, int end,
-                                             int32_t* l_vidx, int32_t* l_ev, int32_t* l_drf,
-                                             int32_t* l_prop) {
-  const int Q = (int)a.Q;
-  const int jv = a.run_job[v];
-  const int qv = vtt_clamp(vtt_row_queue(a, v), 0, Q - 1);
-  int p_vidx = 0, p_ev = 0, p_drf = 0, p_prop = 0;
-  for (int i = off; i < end; ++i) {
-    const int u = rows[i];
-    if (u == v) continue;
-    p_vidx += u < v;
-    p_ev += vtt_ev_less(a, ev_kind, u, v);
-    const int ju = a.run_job[u];
-    p_drf += ju < jv || (ju == jv && u < v);
-    const int qu = vtt_clamp(vtt_row_queue(a, u), 0, Q - 1);
-    p_prop += qu < qv || (qu == qv && u < v);
-  }
-  l_vidx[off + p_vidx] = v;
-  l_ev[off + p_ev] = v;
-  l_drf[off + p_drf] = v;
-  l_prop[off + p_prop] = v;
-}
-
-// each live row's rank among its node's rows under every order
-static __global__ void vtt_v_order(VttVictimArgs a, int ev_kind) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= a.V || !a.run_live[v]) return;
-  const int n = vtt_v_node(a, v);
-  if (n < 0) return;
-  vtt_rank_row(a, ev_kind, v, a.bucket, a.node_off[n], a.node_off[n + 1], a.l_vidx, a.l_ev,
-               a.l_drf, a.l_prop);
-}
-
-// launches the setup kernels; node_fill must be zero
-static inline int vtt_victim_setup(const VttVictimArgs& a, int ev_kind,
-                                   cudaStream_t s) {
-  const int vb = (int)((a.V + 255) / 256);
-  VTT_LAUNCH(vtt_v_count, vb, 256, 0, s)(a);
-  VTT_LAUNCH(vtt_v_scan, 1, VTT_VICTIM_THREADS, 0, s)(a.node_fill, a.node_off, (int)a.N);
-  VTT_LAUNCH(vtt_v_bucket, vb, 256, 0, s)(a);
-  VTT_LAUNCH(vtt_v_order, vb, 256, 0, s)(a, ev_kind);
-  return (int)cudaGetLastError();
 }
 
 // ---- the victim core ----------------------------------------------------
@@ -905,16 +828,6 @@ static __device__ void vtt_wb_apply(const VttVictimArgs& a, const VttVictimArgs*
   nv = vtt_apply_on(a, w.at, a.l_ev, off, end, rel, used, tc, nstar, w.jr);
 }
 
-// each local block's pool grouped by node, once a solve (node_fill zero)
-static inline int vtt_blocks_setup(const VttVictimArgs* blocks, int L, int ev_kind,
-                                   cudaStream_t s) {
-  for (int b = 0; b < L; ++b) {
-    const int err = vtt_victim_setup(blocks[b], ev_kind, s);
-    if (err) return err;
-  }
-  return 0;
-}
-
 // the walk's pending flag on the host, once the stream has drained
 static inline int vtt_walk_pending(const VttVictimArgs& a, int* pending, cudaStream_t s) {
   int err = (int)cudaMemcpyAsync(pending, a.ctl + VC_WALK, sizeof(int),
@@ -1074,12 +987,11 @@ static __device__ __forceinline__ void vtt_walk_cluster(const VttVictimArgs& a) 
   if (tm0) vtt_tm_write(tm, a.x_split, vtt_cluster_size());
 }
 
-// Launch one cluster of a walk kernel: a.cluster names its size (0: the
-// largest of 16, 8, 4, 2, 1 the card admits); a named size the card
-// refuses is an error, never a smaller cluster.
-static inline int vtt_walk_launch(void (*kernel)(VttVictimArgs), const VttVictimArgs& a,
-                                  cudaStream_t s) {
-  const int64_t want = a.cluster;
+// Launch one cluster of `kernel`: `want` names its size (0: the largest of
+// 16, 8, 4, 2, 1 the card admits; a named size the card refuses is an
+// error, never a smaller cluster).
+static inline int vtt_cluster_launch(void (*kernel)(VttVictimArgs), const VttVictimArgs& a,
+                                     int64_t want, cudaStream_t s) {
   if (want != 0 && want != 1 && want != 2 && want != 4 && want != 8 && want != 16)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -1111,4 +1023,263 @@ static inline int vtt_walk_launch(void (*kernel)(VttVictimArgs), const VttVictim
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
   }
   return (int)cudaErrorInvalidConfiguration;
+}
+
+// Launch one cluster of a walk kernel: a.cluster names its size.
+static inline int vtt_walk_launch(void (*kernel)(VttVictimArgs), const VttVictimArgs& a,
+                                  cudaStream_t s) {
+  return vtt_cluster_launch(kernel, a, a.cluster, s);
+}
+
+// ---- the group build: the pool grouped by node, one launch ---------------
+//
+// Replaces volcano_tpu/scheduler/victim_kernels.py:131-182 (`_orders_drf`,
+// `_orders_prop`, `_orders_evict`): node_off [N + 1] and the four per-node
+// lists l_vidx, l_ev, l_drf, l_prop of the rows of a.run_live (pool order,
+// the eviction order of kind EV, (job, row), (queue, row)), -1 past the
+// grouped rows.  The node planes are rows [n0, n0 + N) of NT: a row whose
+// clamped node lies outside them is not grouped (a block's build, K10 /
+// K15c).  K7g (victim_groups), and the setup of K8, K9, K10, K15a, K15b and
+// K15c, once a solve.
+//
+// What bounds it on the H100: latency.  The bytes (the pool's five int32
+// columns and the mask read once, the lists and offsets written once) take
+// about 1.3 us at 3.35 TB/s at config 4; four launches of the count, a
+// one-CTA scan over the nodes, the bucket and the rank took 0.094 ms.
+// Design: one launch of one thread-block cluster (the largest the card
+// admits: 16 CTAs x 1024 threads) in place of four launches; five cluster
+// barriers stand where launches and a zeroed workspace stood:
+//   0. the cluster zeroes the node counts (node_fill), so no build depends
+//      on another's end;
+//   1. every row of the mask adds one to its node's count (global
+//      atomics; a thread takes four rows at a time, one load a column,
+//      vtt_group_rows);
+//   2. CTA r scans the counts of its nodes [r * nc, (r + 1) * nc) (a chunk
+//      a thread, warp shuffles) and stores its total into every CTA's
+//      shared memory; after the barrier each CTA knows its base and writes
+//      its nodes' offsets (node_off) and next free slots (node_fill);
+//   3. every row takes a slot of its node (a global atomic) and writes its
+//      sort keys there (VttGroupKey: gathered once, so no comparison reads
+//      through run_job -> job_queue); rows past the grouped ones write -1
+//      into the lists;
+//   4. a thread a bucket slot ranks its row among its node's slots by full
+//      comparison under every order, four slots' keys loaded ahead: the
+//      order in which the atomics filled a bucket cannot change a list.
+// The counts in the CTAs' distributed shared memory instead, added to with
+// remote atomics, and each CTA reading every row to count its own nodes'
+// rows with local atomics, both ran slower on the H100 (PERF.md section 6).
+// What is left is bound by the 16 SMs' scattered stores and loads: the
+// keys' slots, the rank's reads of each node's keys.
+
+// A grouped row's sort keys, gathered once into its bucket slot: the row,
+// its node of these planes, its job, its job's queue clamped into [0, Q),
+// its priority (0 when order_by_priority is off) and its rank.
+struct alignas(16) VttGroupKey {
+  int v, node, job, queue, prio, rank, pad0, pad1;
+};
+
+// u before w in their node's eviction order of kind EV
+template <int EV>
+__device__ __forceinline__ bool vtt_ev_less(const VttGroupKey& u, const VttGroupKey& w) {
+  if (EV == VTT_EV_ROUNDS && u.queue != w.queue) return u.queue < w.queue;
+  if (EV != VTT_EV_RECLAIM) {
+    if (u.prio != w.prio) return u.prio < w.prio;
+    const int ru = -u.rank, rw = -w.rank;
+    if (ru != rw) return ru < rw;
+  }
+  return u.v < w.v;
+}
+
+__device__ __forceinline__ void vtt_cluster_sync() {
+  vtt_cluster_arrive();
+  vtt_cluster_wait();
+}
+
+// Four consecutive pool rows v .. v + 3: each one's node row (-1 when it is
+// not in the mask or lies on another block's nodes) and, when a pass asks
+// for them (KEYS), its job, priority and rank.
+struct VttQuad {
+  int n[4], job[4], prio[4], rank[4];
+};
+
+__device__ __forceinline__ void vtt_unpack4(const int4 x, int* out) {
+  out[0] = x.x;
+  out[1] = x.y;
+  out[2] = x.z;
+  out[3] = x.w;
+}
+
+// f(v, quad) for the rows [0, V) of the pool four at a time over the
+// cluster's threads: one 4-byte load of the mask and one 16-byte load of
+// each column a quad needs, issued together, where the columns are aligned
+// for it; row by row past the last whole quad or when they are not.
+template <bool KEYS, class F>
+__device__ __forceinline__ void vtt_group_rows(const VttVictimArgs& a, F f) {
+  const int V = (int)a.V;
+  const int gt = vtt_cluster_rank() * blockDim.x + threadIdx.x;
+  const int gs = vtt_cluster_size() * blockDim.x;
+  const bool vec = ((uintptr_t)a.run_live & 3) == 0 &&
+                   (((uintptr_t)a.run_node | (uintptr_t)a.run_job | (uintptr_t)a.run_prio |
+                     (uintptr_t)a.run_rank) & 15) == 0;
+  const int v0 = vec ? V & ~3 : 0;
+  for (int q = gt; q < v0 / 4; q += gs) {
+    const uint32_t l4 = reinterpret_cast<const uint32_t*>(a.run_live)[q];
+    int ns[4];
+    VttQuad x;
+    vtt_unpack4(reinterpret_cast<const int4*>(a.run_node)[q], ns);
+    if (KEYS) {
+      vtt_unpack4(reinterpret_cast<const int4*>(a.run_job)[q], x.job);
+      vtt_unpack4(reinterpret_cast<const int4*>(a.run_prio)[q], x.prio);
+      vtt_unpack4(reinterpret_cast<const int4*>(a.run_rank)[q], x.rank);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x.n[j] = (l4 >> (8 * j)) & 0xffu ? vtt_node_row(a, ns[j]) : -1;
+    f(4 * q, x);
+  }
+  for (int v = v0 + gt; v < V; v += gs) {
+    VttQuad x;
+    x.n[0] = a.run_live[v] ? vtt_node_row(a, a.run_node[v]) : -1;
+    x.n[1] = x.n[2] = x.n[3] = -1;
+    if (KEYS) {
+      x.job[0] = a.run_job[v];
+      x.prio[0] = a.run_prio[v];
+      x.rank[0] = a.run_rank[v];
+    }
+    f(v, x);
+  }
+}
+
+template <int EV>
+static __global__ void __launch_bounds__(VTT_VICTIM_THREADS) vtt_group_kernel(VttVictimArgs a) {
+  __shared__ int s_tot[VTT_WALK_MAX_CLUSTER];  // each CTA's grouped rows
+  __shared__ int s_warp[VTT_VICTIM_THREADS / 32];
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int rank = vtt_cluster_rank(), C = vtt_cluster_size();
+  const int N = (int)a.N, V = (int)a.V;
+  const int gt = rank * T + tid, gs = C * T;
+  for (int n = gt; n < N; n += gs) a.node_fill[n] = 0;
+  vtt_cluster_sync();
+  vtt_group_rows<false>(a, [&](int, const VttQuad& x) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (x.n[j] >= 0) atomicAdd(&a.node_fill[x.n[j]], 1);
+  });
+  vtt_cluster_sync();
+  // CTA r's nodes [lo, lo + mine): a chunk of k a thread, the chunks' sums
+  // scanned, the CTA's total into every CTA's shared memory
+  const int nc = (N + C - 1) / C;
+  const int lo = min(N, rank * nc), mine = min(N, lo + nc) - lo;
+  const int k = (mine + T - 1) / T;
+  const int c0 = lo + min(mine, tid * k), c1 = lo + min(mine, (tid + 1) * k);
+  int sum = 0;
+  for (int n = c0; n < c1; ++n) sum += a.node_fill[n];
+  const int lane = tid & 31, wid = tid >> 5;
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += x;
+  }
+  if (lane == 31) s_warp[wid] = incl;
+  __syncthreads();
+  if (wid == 0) {
+    int w = lane < (T >> 5) ? s_warp[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += x;
+    }
+    if (lane < (T >> 5)) s_warp[lane] = w;  // inclusive over warps
+  }
+  __syncthreads();
+  const int excl = (wid ? s_warp[wid - 1] : 0) + incl - sum;
+  if (tid < C) vtt_cluster_store_u32(&s_tot[rank], tid, s_warp[(T >> 5) - 1]);
+  vtt_cluster_sync();
+  int base = 0, total = 0;
+  for (int r = 0; r < C; ++r) {
+    base += r < rank ? s_tot[r] : 0;
+    total += s_tot[r];
+  }
+  int off = base + excl;
+  for (int n = c0; n < c1; ++n) {
+    const int cnt = a.node_fill[n];
+    a.node_off[n] = off;
+    a.node_fill[n] = off;
+    off += cnt;
+  }
+  if (rank == 0 && tid == 0) a.node_off[N] = total;
+  vtt_cluster_sync();
+  VttGroupKey* keys = reinterpret_cast<VttGroupKey*>(a.bucket);
+  const int Q = (int)a.Q;
+  vtt_group_rows<true>(a, [&](int v, const VttQuad& x) {
+    int slot[4], queue[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // the quad's atomics and gathers together
+      if (x.n[j] < 0) continue;
+      slot[j] = atomicAdd(&a.node_fill[x.n[j]], 1);
+      queue[j] = a.job_queue[x.job[j]];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (x.n[j] < 0) continue;
+      VttGroupKey key;
+      key.v = v + j;
+      key.node = x.n[j];
+      key.job = x.job[j];
+      key.queue = vtt_clamp(queue[j], 0, Q - 1);
+      key.prio = a.order_by_priority ? x.prio[j] : 0;
+      key.rank = x.rank[j];
+      key.pad0 = key.pad1 = 0;
+      keys[slot[j]] = key;
+    }
+  });
+  for (int v = total + gt; v < V; v += gs)
+    a.l_vidx[v] = a.l_ev[v] = a.l_drf[v] = a.l_prop[v] = -1;
+  vtt_cluster_sync();
+  // a thread a bucket slot: a warp's threads mostly share a node, so they
+  // read the same keys, four slots' keys loaded ahead of their compares
+  for (int p = gt; p < total; p += gs) {
+    const VttGroupKey key = keys[p];
+    const int off = a.node_off[key.node], end = a.node_off[key.node + 1];
+    int p_vidx = 0, p_ev = 0, p_drf = 0, p_prop = 0;
+    for (int i = off; i < end; i += 4) {
+      VttGroupKey u[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (i + j < end) u[j] = keys[i + j];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (i + j >= end || i + j == p) continue;
+        p_vidx += u[j].v < key.v;
+        p_ev += vtt_ev_less<EV>(u[j], key);
+        p_drf += u[j].job < key.job || (u[j].job == key.job && u[j].v < key.v);
+        p_prop += u[j].queue < key.queue || (u[j].queue == key.queue && u[j].v < key.v);
+      }
+    }
+    a.l_vidx[off + p_vidx] = key.v;
+    a.l_ev[off + p_ev] = key.v;
+    a.l_drf[off + p_drf] = key.v;
+    a.l_prop[off + p_prop] = key.v;
+  }
+}
+
+// Launch the group build of a.run_live over a's node planes with eviction
+// order ev_kind; the cluster size is the largest the card admits.
+static inline int vtt_group_launch(const VttVictimArgs& a, int ev_kind, cudaStream_t s) {
+  if (a.V < 1 || a.N < 1 || !a.run_live || !a.node_fill || ev_kind < 0 || ev_kind > 2)
+    return (int)cudaErrorInvalidValue;
+  void (*kernel)(VttVictimArgs) = ev_kind == VTT_EV_RECLAIM   ? vtt_group_kernel<VTT_EV_RECLAIM>
+                                  : ev_kind == VTT_EV_PREEMPT ? vtt_group_kernel<VTT_EV_PREEMPT>
+                                                              : vtt_group_kernel<VTT_EV_ROUNDS>;
+  return vtt_cluster_launch(kernel, a, 0, s);
+}
+
+// each local block's pool grouped by node, once a solve
+static inline int vtt_blocks_setup(const VttVictimArgs* blocks, int L, int ev_kind,
+                                   cudaStream_t s) {
+  for (int b = 0; b < L; ++b) {
+    const int err = vtt_group_launch(blocks[b], ev_kind, s);
+    if (err) return err;
+  }
+  return 0;
 }

@@ -14,7 +14,8 @@
 // 1.5 us at 3.35 TB/s (the pool and the state read once, the new state
 // written once); what is left above it is one launch, the slowest node's
 // serial walk and the host's round trip per attempt.  Design:
-//   * the groups (vtt_victim_groups, victim_kernels.victim_groups): node_off
+//   * the groups (vtt_victim_groups, victim_kernels.victim_groups; one
+//     cluster launch, vtt_group_kernel in victim_common.cuh): node_off
 //     [N + 1] and four per-node lists of the pool rows (pool order, (job,
 //     row), (queue, row), the preempt eviction order), each node's list the
 //     JAX global lexsort restricted to that node and to the rows of a live
@@ -88,47 +89,15 @@ static inline bool vtt_vb_ok(const VttVictimArgs& a, int t_cls, int jt, int mode
 
 // ---- the groups: the pool grouped by node, once per constants ------------
 
-// rows grouped: those with live[v]; `a` holds the pool, N = NT node rows
-// and n0 = 0, so vtt_v_node only clamps
-static __global__ void vtt_g_count(VttVictimArgs a, const uint8_t* live) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= a.V || !live[v]) return;
-  atomicAdd(&a.node_fill[vtt_v_node(a, v)], 1);
-}
-
-static __global__ void vtt_g_bucket(VttVictimArgs a, const uint8_t* live) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= a.V) return;
-  if (v >= a.node_off[a.N]) a.l_vidx[v] = a.l_ev[v] = a.l_drf[v] = a.l_prop[v] = -1;
-  if (!live[v]) return;
-  const int n = vtt_v_node(a, v);
-  a.bucket[a.node_off[n] + atomicAdd(&a.node_fill[n], 1)] = v;
-}
-
-// each grouped row's rank in its node's four lists; node_fill back to zero
-static __global__ void vtt_g_order(VttVictimArgs a, const uint8_t* live) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= a.V || !live[v]) return;
-  const int n = vtt_v_node(a, v);
-  vtt_rank_row(a, VTT_EV_PREEMPT, v, a.bucket, a.node_off[n], a.node_off[n + 1], a.l_vidx,
-               a.l_ev, a.l_drf, a.l_prop);
-  a.node_fill[n] = 0;
-}
-
-// The groups of the pool rows in `live` into
+// The groups of the pool rows in `live` (vtt_group_kernel, one launch) into
 // node_off [N + 1] and l_vidx, l_ev, l_drf, l_prop [V] (-1 past the grouped
-// rows); node_fill [N] must be zero and is left zero, bucket [V] scratch.
-extern "C" int vtt_victim_groups(const VttVictimArgs* args, const void* live, void* stream) {
-  const VttVictimArgs& a = *args;
-  if (a.V < 1 || a.N < 1 || a.n0 != 0 || !live) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const uint8_t* lv = (const uint8_t*)live;
-  const int vb = (int)((a.V + 255) / 256);
-  VTT_LAUNCH(vtt_g_count, vb, 256, 0, s)(a, lv);
-  VTT_LAUNCH(vtt_v_scan, 1, VTT_VICTIM_THREADS, 0, s)(a.node_fill, a.node_off, (int)a.N);
-  VTT_LAUNCH(vtt_g_bucket, vb, 256, 0, s)(a, lv);
-  VTT_LAUNCH(vtt_g_order, vb, 256, 0, s)(a, lv);
-  return (int)cudaGetLastError();
+// rows) with eviction order ev_kind, over node rows [n0, n0 + N) of NT;
+// bucket [V] scratch.
+extern "C" int vtt_victim_groups(const VttVictimArgs* args, const void* live, int ev_kind,
+                                 void* stream) {
+  VttVictimArgs a = *args;
+  a.run_live = (uint8_t*)live;
+  return vtt_group_launch(a, ev_kind, (cudaStream_t)stream);
 }
 
 // ---- the pieces of K7 and K12b -------------------------------------------

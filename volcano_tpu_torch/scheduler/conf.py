@@ -128,7 +128,6 @@ class SchedulerConf:
     # the re-admit depth; 0: delta_high_watermark // 2
     delta_low_watermark: int = 0
     # every micro cycle also builds full and must equal it bit for bit
-    # (the VOLCANO_TPU_DELTA_ORACLE environment variable turns it on too)
     delta_oracle: bool = False
 
     def __post_init__(self):

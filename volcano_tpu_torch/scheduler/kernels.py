@@ -28,7 +28,10 @@ whose compiler contracts ``a * b + c`` into one fused multiply-add):
   atomics.  Per-node and per-job sums are exact in float32 (whole
   millicores and bytes, far below 2**24 ulps), so any order gives the same
   bits; per-queue sums at cluster scale are not, and both versions add
-  them one after the other in the reference's flat order.
+  them one after the other in index order.  Where such a sum is inexact
+  (K1's live weights and deltas on fractional shares), XLA on the CPU
+  reduces in an order of its own, and the reference's shares can differ
+  from the port's (ROADMAP section 3).
 
 The ``portsel`` extension (host ports and pod (anti)affinity, the dynamic
 solve) takes its bitsets PACKED: ``(node_ports [N, 4], task_ports [T, 4],
@@ -60,7 +63,7 @@ index among equals, and the batch solve's top-K follows ``lax.top_k``
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -868,8 +871,65 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
+#: the most (queue, dim) cells K1's kernel takes: its working cells and
+#: queues live in one CTA's shared memory (csrc VTT_WF_MAX_CELLS)
+WATER_FILL_MAX_CELLS = 8192
+#: round words of a K1 workspace: launches whose round-cap check may be
+#: pending at once (a slot is checked before it is taken again)
+_WF_SLOTS = 8
+
+
+class _WaterFillWorkspace:
+    """K1's scratch on one device: ``_WF_SLOTS`` device round words, their
+    pinned host copies, and an event recorded after each copy.  The
+    kernel's working cells live in shared memory, so a launch allocates
+    only the ``deserved`` it returns (callers keep it for a cycle)."""
+
+    def __init__(self, dev):
+        self.rounds = torch.empty(_WF_SLOTS, dtype=torch.int32, device=dev)
+        self.host = torch.zeros(_WF_SLOTS, dtype=torch.int32, pin_memory=True)
+        self.host_np = self.host.numpy()
+        self.events = [torch.cuda.Event() for _ in range(_WF_SLOTS)]
+        self.next = 0
+
+
+#: K1 workspaces by device; launched under the Scheduler's launch lock,
+#: like every kernel workspace
+_WF_WORKSPACES: Dict[torch.device, _WaterFillWorkspace] = {}
+#: K1 launches whose round word is not checked yet: (workspace, slot)
+_WF_PENDING: List[Tuple[_WaterFillWorkspace, int]] = []
+
+
+def _water_fill_resolve(ws, slot) -> None:
+    """Wait for the round word of ``slot`` and raise if its fill stopped at
+    the cap (the kernel writes -1 then, the rounds taken otherwise)."""
+    _WF_PENDING.remove((ws, slot))
+    ws.events[slot].synchronize()
+    rounds = int(ws.host_np[slot])
+    if rounds < 0:
+        raise RuntimeError(f"water_fill: no convergence in {WATER_FILL_MAX_ROUNDS} rounds")
+    if rounds == 0:
+        raise RuntimeError("water_fill: the kernel wrote no round count")
+
+
+def water_fill_check() -> None:
+    """Raise the round-cap error of every K1 launch not checked yet.
+
+    The wrapper does not wait for its kernel: each consumer of the shares
+    (K2 and K3 through ``solve_launch`` / ``batch_launch``, K12a and K13
+    through ``batch_launch``, K7 and K12b through their launch wrappers)
+    calls this before it returns a decision, after its own launches, so the
+    wait is for a copy that stream order has already finished; the
+    Scheduler calls it again at the end of every cycle.  CPU tensors never
+    pend: the plain version raises at once."""
+    while _WF_PENDING:
+        _water_fill_resolve(*_WF_PENDING[0])
+
+
 def water_fill_launch(lib, stream, weight, request, total, eps, participates):
-    """Launch csrc/water_fill.cu; returns deserved [Q, R]."""
+    """Launch csrc/water_fill.cu; returns deserved [Q, R] without waiting.
+    The round count lands in a pinned host word of this device's workspace
+    (a slot a launch), checked by ``water_fill_check``."""
     dev = request.device
     Q, R = request.shape
     f32 = torch.float32
@@ -880,25 +940,33 @@ def water_fill_launch(lib, stream, weight, request, total, eps, participates):
     _check("participates", participates, torch.bool, (Q,), dev)
     if not 1 <= R <= _MAX_R:
         raise ValueError(f"water_fill kernel takes 1 <= R <= {_MAX_R}, got {R}")
+    if Q * R > WATER_FILL_MAX_CELLS:
+        raise ValueError(f"water_fill kernel takes Q*R <= {WATER_FILL_MAX_CELLS} cells (its "
+                         f"shared memory), got {Q}*{R}")
+    ws = _WF_WORKSPACES.get(dev)
+    if ws is None:
+        ws = _WF_WORKSPACES[dev] = _WaterFillWorkspace(dev)
+    slot = ws.next
+    ws.next = (slot + 1) % _WF_SLOTS
+    if (ws, slot) in _WF_PENDING:
+        _water_fill_resolve(ws, slot)
+    ws.host_np[slot] = 0
     deserved = torch.empty((Q, R), dtype=f32, device=dev)
-    # the kernel's working cells: capped grants, then met / exceeded flags
-    cap = torch.empty((Q, R), dtype=f32, device=dev)
-    flags = torch.empty((2 * Q,), dtype=torch.uint8, device=dev)
-    rounds = torch.empty((1,), dtype=torch.int32, device=dev)
     err = lib.vtt_water_fill(
         weight.data_ptr(), request.data_ptr(), total.data_ptr(), eps.data_ptr(),
         participates.data_ptr(), Q, R, WATER_FILL_MAX_ROUNDS, deserved.data_ptr(),
-        cap.data_ptr(), flags.data_ptr(), rounds.data_ptr(), stream,
+        ws.rounds.data_ptr() + 4 * slot, ws.host.data_ptr() + 4 * slot, stream,
     )
     _raise_on(err, "vtt_water_fill")
-    # the kernel writes -1 when it stopped at the cap; reading it waits for
-    # the kernel (a 4-byte fetch, once a cycle)
-    if int(rounds[0]) < 0:
-        raise RuntimeError(f"water_fill: no convergence in {WATER_FILL_MAX_ROUNDS} rounds")
+    ws.events[slot].record(torch.cuda.current_stream(dev))
+    _WF_PENDING.append((ws, slot))
     return deserved
 
 
 def water_fill(weight, request, total, eps, participates):
+    """Deserved shares [Q, R].  On the card the round-cap error surfaces at
+    the next ``water_fill_check`` (see there), before any decision computed
+    from these shares is returned."""
     dev = request.device
     if dev.type == "cpu":
         return water_fill_plain(weight, request, total, eps, participates)
@@ -1075,6 +1143,7 @@ def solve_launch(lib, stream, batch, a, w_least, w_balanced, job_key_order,
         args.x_split = split.data_ptr()
     _raise_on(lib.vtt_allocate_solve(ctypes.byref(args), stream),
               f"vtt_allocate_solve (cluster {cluster or 'auto'})")
+    water_fill_check()  # the shares' round word, copied before this launch
     out = (packed[:T], packed[T:2 * T], packed[2 * T:3 * T], packed[3 * T:],
            st["job_alloc"], st["queue_alloc"], st["idle"], st["releasing"],
            st["used"], st["dropped"], st["ctl"][0])
@@ -1254,6 +1323,7 @@ def batch_launch(lib, stream, a, blocks, n_blocks, exchange, w_least, w_balanced
         base.recv = recv.data_ptr()
         _raise_on(lib.vtt_batch_decide(ctypes.byref(base), blk_arr, L, stream),
                   "vtt_batch_decide")
+    water_fill_check()  # the round loop's control reads waited on the stream
 
     def rows(name):
         return work[0][name] if L == 1 else torch.cat([w[name] for w in work])

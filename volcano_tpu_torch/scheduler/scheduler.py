@@ -54,7 +54,7 @@ import torch
 import volcano_tpu_torch.scheduler.actions  # noqa: F401  (registers actions)
 import volcano_tpu_torch.scheduler.plugins  # noqa: F401  (registers plugins)
 from volcano_tpu_torch import timeseries
-from volcano_tpu_torch.scheduler import metrics
+from volcano_tpu_torch.scheduler import kernels, metrics
 from volcano_tpu_torch.scheduler.cache import SchedulerCache
 from volcano_tpu_torch.scheduler.conf import BACKENDS, SchedulerConf, full_conf, load_conf
 from volcano_tpu_torch.scheduler.fastpath.cycle import FastCycle
@@ -429,6 +429,8 @@ class Scheduler:
             return
         with self._launch_lock:
             self._run_once_inner()
+            # a cycle whose shares no consumer checked still raises here
+            kernels.water_fill_check()
 
     def _stand_by(self) -> None:
         """A standby (or deposed) scheduler's cycle: only the lease holder

@@ -954,3 +954,84 @@ def build_walk_edge_args(case: str, kind: str = "preempt", seed: int = 0):
     else:
         raise ValueError(f"unknown walk edge case {case!r}")
     return c, s, t, kw
+
+
+#: the pools the group build must get right on a thread-block cluster
+#: (``build_group_edge_args``)
+GROUP_EDGE_CASES = ("empty_nodes", "big_node", "nodes_65536", "clamp", "holes")
+
+
+def build_group_edge_args(case: str, seed: int = 0):
+    """(consts, state) numpy dicts of ``build_victim_sim`` whose pool
+    stresses the group build (``victim_kernels.victim_groups``):
+
+    * ``empty_nodes``: 512 rows on every fourth node of 64, the rest empty;
+    * ``big_node``: 1,500 of 2,000 rows on node 7 (more rows than a CTA has
+      threads), the rest over 31 other nodes;
+    * ``nodes_65536``: 6,000 rows over 65,536 node rows, most of them
+      empty (the node counts of one cluster's shared memory at their
+      largest shape in the port);
+    * ``clamp``: rows whose node lies below 0 or past the node planes,
+      which the build clamps into [0, N) as K7 does;
+    * ``holes``: a live mask with random holes and a run of dead rows.
+
+    The state's sums are not recomputed: the build reads only the pool's
+    node, job, priority and rank columns, the job queues and the mask."""
+    rng = np.random.default_rng(700 + seed)
+    if case == "empty_nodes":
+        c, s = build_victim_sim(64, 512, 16, n_queues=3, seed=seed)
+        c["run_node"][:512] = rng.choice(np.arange(0, 64, 4), 512)
+    elif case == "big_node":
+        c, s = build_victim_sim(32, 2_000, 16, n_queues=3, seed=seed)
+        others = np.setdiff1d(np.arange(32), [7])
+        c["run_node"][:2_000] = rng.choice(others, 2_000)
+        c["run_node"][rng.permutation(2_000)[:1_500]] = 7
+    elif case == "nodes_65536":
+        c, s = build_victim_sim(65_536, 6_000, 64, n_queues=4, seed=seed)
+    elif case == "clamp":
+        c, s = build_victim_sim(16, 200, 8, n_queues=3, seed=seed)
+        out = rng.permutation(200)[:40]
+        c["run_node"][out[:20]] = rng.integers(-5, 0, 20)
+        c["run_node"][out[20:]] = rng.integers(16, 40, 20)
+    elif case == "holes":
+        c, s = build_victim_sim(24, 400, 12, n_queues=3, seed=seed)
+        s["run_live"][rng.random(s["run_live"].shape[0]) < 0.3] = False
+        s["run_live"][100:150] = False
+    else:
+        raise ValueError(f"unknown group edge case {case!r}")
+    return c, s
+
+
+#: K1's shapes (``build_water_fill_args``): the config-5 cell's, 128
+#: queues, 2,048 (queue, dim) cells, and 1,024 queues that take 21 rounds
+WATER_FILL_CASES = ("config5", "queues_128", "cells_2048", "staggered_1024")
+_WATER_FILL_KEYS = ("queue_weight", "queue_request", "total", "eps", "queue_participates")
+
+
+def build_water_fill_args(case: str) -> dict:
+    """K1's five inputs (``queue_weight``, ``queue_request``, ``total``,
+    ``eps``, ``queue_participates``) as numpy arrays: ``config5`` is
+    ``build_sim_args(10,000, 100,000, 5,000)``'s, ``queues_128``
+    ``build_sim_args(10,000, 4,000, 200, n_queues=128, seed=5)``'s,
+    ``cells_2048`` ``build_sim_args(1,000, 4,000, 2,000, n_queues=600,
+    seed=6)``'s (1,024 queue rows x 2 dims), and ``staggered_1024`` 1,024
+    queues of weight 0.95**q whose requests cycle through 1-16 x (250
+    millicores, 256 MiB), sharing 95% of their sum: the fill caps a few
+    queues a round and takes 21 rounds."""
+    if case == "config5":
+        a = build_sim_args(10_000, 100_000, 5_000)
+    elif case == "queues_128":
+        a = build_sim_args(10_000, 4_000, 200, n_queues=128, seed=5)
+    elif case == "cells_2048":
+        a = build_sim_args(1_000, 4_000, 2_000, n_queues=600, seed=6)
+    elif case == "staggered_1024":
+        q = np.arange(1_024)
+        steps = (1 + q % 16).astype(np.float32)
+        req = np.stack([250.0 * steps, steps * float(1 << 28)], 1).astype(np.float32)
+        return dict(queue_weight=(0.95 ** q).astype(np.float32), queue_request=req,
+                    total=(req.sum(0) * 0.95).astype(np.float32),
+                    eps=np.array([10.0, 10 * 1024 * 1024], np.float32),
+                    queue_participates=np.ones(1_024, bool))
+    else:
+        raise ValueError(f"unknown water fill case {case!r}")
+    return {k: a[k] for k in _WATER_FILL_KEYS}

@@ -79,6 +79,7 @@ from volcano_tpu_torch.scheduler.kernels import (
     _stream,
     dominant_share,
     less_equal,
+    water_fill_check,
 )
 
 SHARE_DELTA = 1e-6
@@ -333,6 +334,41 @@ def victim_groups_plain(c: VictimConsts, live, *, order_by_priority=True,
     node_off[1:] = torch.cumsum(torch.bincount(node, minlength=N), 0)
     return VictimGroups(node_off, lists(), lists(-c.run_rank[rows], prio), lists(job),
                         lists(queue), bool(order_by_priority), _group_source(c))
+
+
+def group_build_plain(c: VictimConsts, live, order_by_priority, n_nodes, *,
+                      ev_kind="preempt", n0=0, nt=None) -> VictimGroups:
+    """The plain version of ``victim_groups_launch``: the groups of the rows
+    of ``live`` over node rows [n0, n0 + n_nodes) of ``nt``, l_ev in the
+    eviction order ``ev_kind``.  A block's groups are the slice of the
+    whole pool's (``victim_groups_plain``) at its node rows; reclaim's
+    eviction order is the pool order, the rounds solve's (queue, priority,
+    -rank, row) within each node."""
+    nt = n_nodes if nt is None else nt
+    if ev_kind not in EV_KINDS:
+        raise ValueError(f"group_build_plain: ev_kind must be one of {tuple(EV_KINDS)}")
+    if nt != _group_nodes(c) or not 0 <= n0 <= nt - n_nodes:
+        raise ValueError(f"group_build_plain: node rows [{n0}, {n0 + n_nodes}) of {nt}, the "
+                         f"constants have {_group_nodes(c)}")
+    g = victim_groups_plain(c, live, order_by_priority=order_by_priority)
+    lo, hi = int(g.node_off[n0]), int(g.node_off[n0 + n_nodes])
+    V = c.run_req.shape[0]
+
+    def cut(lst):
+        out = torch.full((V,), -1, dtype=torch.int32, device=lst.device)
+        out[:hi - lo] = lst[lo:hi]
+        return out
+
+    l_ev = {"preempt": g.l_ev, "reclaim": g.l_vidx}.get(ev_kind)
+    if l_ev is None:
+        rows = g.l_vidx.long()[:int(g.node_off[-1])]
+        Q = c.queue_deserved.shape[0]
+        node = torch.clamp(c.run_node[rows], 0, nt - 1)
+        queue = torch.clamp(c.job_queue[c.run_job[rows]], 0, Q - 1)
+        prio = c.run_prio[rows] if order_by_priority else torch.zeros_like(node)
+        l_ev = rows[_lexsort((rows, -c.run_rank[rows], prio, queue, node))].int()
+    return VictimGroups(g.node_off[n0:n0 + n_nodes + 1] - lo, cut(g.l_vidx), cut(l_ev),
+                        cut(g.l_drf), cut(g.l_prop), bool(order_by_priority), g.source)
 
 
 def _check_groups(name, g, c: VictimConsts, n_nodes: int, order_by_priority) -> None:
@@ -959,9 +995,9 @@ def _victim_args(c, s0, task_req, task_class, extra, sizes, flags):
         task_req=task_req, task_class=task_class,
         evict_att=torch.full((V,), -1, **i32), pipe_node=torch.full((T,), -1, **i32),
         pipe_att=torch.full((T,), -1, **i32), ctl=torch.zeros(16, **i32),
-        node_off=torch.empty(N + 1, **i32), node_fill=torch.zeros(N, **i32),
-        bucket=torch.empty(V, **i32), l_vidx=torch.empty(V, **i32),
-        l_ev=torch.empty(V, **i32), l_drf=torch.empty(V, **i32),
+        node_off=torch.empty(N + 1, **i32), node_fill=torch.empty(N, **i32),
+        bucket=torch.empty(V * GROUP_KEY_WORDS, **i32),
+        l_vidx=torch.empty(V, **i32), l_ev=torch.empty(V, **i32), l_drf=torch.empty(V, **i32),
         l_prop=torch.empty(V, **i32), flag=torch.zeros(V, dtype=torch.uint8, device=dev),
     )
     bufs.update(extra)
@@ -1021,10 +1057,13 @@ def victim_groups(c: VictimConsts, live, *, order_by_priority=True,
     ``_orders_prop``, ``_orders_evict``), which the JAX package hoists out
     of its storm loops; K7 and K12b take the groups as they are, so a
     solve over the same constants runs no setup of its own.  Bound on the
-    card by latency (four small launches).  Design (csrc/victim_step.cu
-    ``vtt_victim_groups``): count rows a node, the one-CTA block scan into
-    offsets, bucket the rows, and rank each row among its node's rows in
-    every order.  CPU tensors run ``victim_groups_plain``."""
+    card by latency (the bytes take about 1.3 us at config 4).  Design
+    (csrc/victim_common.cuh ``vtt_group_kernel``, the one group build of
+    the library, which the storm solves' setup launches too): one launch of
+    one thread-block cluster, its scratch zeroed inside the launch; count,
+    scan over nodes, bucket and rank separated by cluster barriers, each
+    row ranked among its node's rows by full comparison.  CPU tensors run
+    ``victim_groups_plain``."""
     dev = _device_of(c, "victim_groups")
     if dev.type == "cpu":
         return victim_groups_plain(c, live, order_by_priority=order_by_priority, mesh=mesh)
@@ -1034,12 +1073,26 @@ def victim_groups(c: VictimConsts, live, *, order_by_priority=True,
     return out
 
 
-def victim_groups_launch(lib, stream, c, live, order_by_priority, n_nodes) -> VictimGroups:
-    """Validate, launch csrc/victim_step.cu's group build and return the
-    groups."""
+#: int32 words of a grouped row's keys in the build's scratch bucket (csrc
+#: VttGroupKey)
+GROUP_KEY_WORDS = 8
+#: the group build's eviction orders (csrc VTT_EV_*): reclaim's pool order,
+#: preempt's (priority, -rank, row), the rounds solve's (queue, priority,
+#: -rank, row)
+EV_KINDS = {"reclaim": 0, "preempt": 1, "rounds": 2}
+
+
+def victim_groups_launch(lib, stream, c, live, order_by_priority, n_nodes, *,
+                         ev_kind="preempt", n0=0, nt=None) -> VictimGroups:
+    """Validate, launch the group build (csrc/victim_step.cu
+    ``vtt_victim_groups``) and return the groups of the rows of ``live``
+    over node rows [n0, n0 + n_nodes) of ``nt`` (default n_nodes; a row on
+    another block's node is not grouped, as in the storm solves' setup on a
+    block), in the eviction order ``ev_kind`` (``EV_KINDS``)."""
     dev = c.run_req.device
     V = c.run_req.shape[0]
     J, Q = c.job_queue.shape[0], c.queue_deserved.shape[0]
+    nt = n_nodes if nt is None else nt
     i32 = dict(dtype=torch.int32, device=dev)
     for name, (t, dt, shape) in {
         "run_node": (c.run_node, torch.int32, (V,)), "run_job": (c.run_job, torch.int32, (V,)),
@@ -1049,10 +1102,13 @@ def victim_groups_launch(lib, stream, c, live, order_by_priority, n_nodes) -> Vi
     }.items():
         _check(name, t, dt, shape, dev)
     _check("live", live, torch.bool, (V,), dev)
-    # node_fill is zero between builds
+    if n_nodes < 1 or not 0 <= n0 <= nt - n_nodes:
+        raise ValueError(f"victim_groups: node rows [{n0}, {n0 + n_nodes}) of {nt}")
+    if ev_kind not in EV_KINDS:
+        raise ValueError(f"victim_groups: ev_kind must be one of {tuple(EV_KINDS)}")
     key = ("groups", dev, V, n_nodes)
-    scratch = _workspace(key, lambda: dict(node_fill=torch.zeros(n_nodes, **i32),
-                                           bucket=torch.empty(V, **i32)))
+    scratch = _workspace(key, lambda: dict(node_fill=torch.empty(n_nodes, **i32),
+                                           bucket=torch.empty(V * GROUP_KEY_WORDS, **i32)))
     g = VictimGroups(torch.empty(n_nodes + 1, **i32), *(torch.empty(V, **i32) for _ in range(4)),
                      bool(order_by_priority), _group_source(c))
     args = VictimArgs()
@@ -1060,10 +1116,10 @@ def victim_groups_launch(lib, stream, c, live, order_by_priority, n_nodes) -> Vi
                         run_rank=c.run_rank, job_queue=c.job_queue, node_off=g.node_off,
                         l_vidx=g.l_vidx, l_ev=g.l_ev, l_drf=g.l_drf, l_prop=g.l_prop).items():
         setattr(args, name, t.data_ptr())
-    args.V, args.N, args.NT, args.Q = V, n_nodes, n_nodes, Q
+    args.V, args.N, args.NT, args.n0, args.Q = V, n_nodes, nt, n0, Q
     args.order_by_priority = int(bool(order_by_priority))
-    _launch_in(key, "vtt_victim_groups",
-               lib.vtt_victim_groups(ctypes.byref(args), live.data_ptr(), stream))
+    _raise_on(lib.vtt_victim_groups(ctypes.byref(args), live.data_ptr(), EV_KINDS[ev_kind],
+                                    stream), "vtt_victim_groups")
     return g
 
 
@@ -1196,7 +1252,8 @@ class _StepWorkspace:
 
 
 #: workspaces by (kind, device, shape): a solve's ``_StepWorkspace``, the
-#: group build's scratch dict; a few shapes live at a time
+#: group build's scratch (the build zeroes what it counts in); a few shapes
+#: live at a time
 _WORKSPACES: Dict[tuple, object] = {}
 
 
@@ -1210,8 +1267,8 @@ def _workspace(key, make):
 
 
 def _launch_in(key, entry, err) -> None:
-    """Raise on a failed launch, dropping the workspace (its tickets or
-    node fills may be left set)."""
+    """Raise on a failed launch, dropping the workspace (its tickets may
+    be left set)."""
     if err:
         _WORKSPACES.pop(key, None)
     _raise_on(err, entry)
@@ -1292,6 +1349,7 @@ def victim_step_launch(lib, stream, c, s, t_req, t_cls, jt, qt, *, mode, use_gan
     _launch_in(key, "vtt_victim_step", lib.vtt_victim_step(
         ctypes.byref(a), ctypes.byref(o), int(t_cls), int(jt), int(qt), _STEP_MODES[mode],
         stream))
+    water_fill_check()  # the shares' round word, copied before this launch
     state = VictimState(idle=s.idle, **outs)
     ws.trusted = (s, state)
     return VictimStepOut(state, packed)
@@ -1438,11 +1496,11 @@ def _blocks_args(c, s0, task_req, task_class, mesh, nb, extra, sizes, flags, blo
         evict_att=torch.full((V,), -1, dtype=i32, device=dev),
         pipe_node=torch.full((T,), -1, dtype=i32, device=dev),
         pipe_att=torch.full((T,), -1, dtype=i32, device=dev),
-        ctl=torch.zeros(16, dtype=i32, device=dev), bucket=empty(V), l_vidx=empty(V),
-        l_ev=empty(V), l_drf=empty(V), l_prop=empty(V),
+        ctl=torch.zeros(16, dtype=i32, device=dev), bucket=empty(V * GROUP_KEY_WORDS),
+        l_vidx=empty(V), l_ev=empty(V), l_drf=empty(V), l_prop=empty(V),
         flag=torch.zeros(V, dtype=torch.uint8, device=dev), **rep)
     if not block_groups:
-        bufs.update(node_off=empty(N + 1), node_fill=torch.zeros(N, dtype=i32, device=dev))
+        bufs.update(node_off=empty(N + 1), node_fill=empty(N))
     bufs.update(extra)
     base = VictimArgs()
     for name, t in bufs.items():
@@ -1466,8 +1524,8 @@ def _blocks_args(c, s0, task_req, task_class, mesh, nb, extra, sizes, flags, blo
             rows[k].append(getattr(s0, k)[i].clone())
             planes[k] = rows[k][-1]
         if block_groups:
-            planes.update(node_off=empty(nb + 1),
-                          node_fill=torch.zeros(nb, dtype=i32, device=dev), bucket=empty(V),
+            planes.update(node_off=empty(nb + 1), node_fill=empty(nb),
+                          bucket=empty(V * GROUP_KEY_WORDS),
                           l_vidx=empty(V), l_ev=empty(V), l_drf=empty(V), l_prop=empty(V))
         planes.update(block_extra(i))
         for k, t in planes.items():
@@ -1551,6 +1609,7 @@ def victim_sharded_launch(lib, stream, c, s, t_req, t_cls, jt, qt, mesh, nb, *, 
     _launch_in(key, "vtt_victim_blocks_apply", lib.vtt_victim_blocks_apply(
         ctypes.byref(a), ctypes.byref(o), recv.data_ptr(), S, mesh.first * nb, L * nb,
         int(t_cls), int(jt), int(qt), mode_i, stream))
+    water_fill_check()  # the shares' round word, copied before these launches
     state = VictimState(idle=s.idle, **outs)
     ws.trusted = (s, state)
     return VictimStepOut(state, packed)
