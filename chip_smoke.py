@@ -21,7 +21,8 @@ Phases, each fatal on failure:
 2. kernels — each kernel on the card at main-path shapes against its plain
    PyTorch version on the same card and inputs, with CUDA-event times:
    water_fill at simargs.WATER_FILL_CASES (k1_split: the config-5 shape,
-   128 queues, 2,048 cells and a 21-round fill, each bit for bit, beside
+   128 queues, 2,048 cells, a 21-round fill, and 4,096 and 8,192 queues
+   summed in two levels of windows, each bit for bit, beside
    its launch floors with and without a 4-byte blocking read,
    k1_launch_floor) and allocate_solve_batch at build_sim_args(10000,
    100000, 5000), with the packed decision buffer the solve writes and its one
@@ -40,7 +41,14 @@ Phases, each fatal on failure:
    prechecks find no work here) on the config-5 store (10,000
    nodes, 5,000 gangs x 20 tasks, 2,000 best-effort pods), launch counts
    reset just before and read just after, then one steady cycle (the only
-   cell that runs one: cut for the run's time);
+   cell that runs one: cut for the run's time), then ARMED_STEADY_CYCLES
+   rounds of three steady cycles, disarmed, vtprof, vtprof and the tracer
+   (armed_steady; they launch no kernel): vtprof's attribution of its own
+   cycles at least ATTRIBUTION_BAR (0.95), no decision made, vtprof's
+   per-kernel dispatch counts equal to LAUNCHES (both empty), no
+   steady-state anomaly, one scrape of the
+   metrics server's /metrics, /debug/prof and /debug/trace, each mode's
+   walls;
 4. e2e exact — the same nodes with 200 gangs x 20 tasks (the exact solve);
 5. e2e cfg5d — config 5 with 10% dynamic gangs (bench.py config5_dynamic:
    500 gangs with a host port or self-anti-affinity, 10,000 tasks): the
@@ -223,14 +231,20 @@ Phases, each fatal on failure:
    C) of every solve; every gang bound within two cycles, at least 40
    micro cycles, full builds only for arm / job-remove, K1 and K2 once a
    micro cycle at one shape, no kernel library built, no new victim
-   workspace; then K2 on the first micro cycle's inputs against its plain
+   workspace; the trickle's second half rotating, cycle by cycle, through
+   disarmed, vtprof, and vtprof with the tracer (after the warmup
+   handshake): no steady-state-recompile anomaly in its armed micro
+   cycles, vtprof's attribution of the micro cycles it profiled alone at
+   least ATTRIBUTION_BAR, its dispatch counts equal to the armed cycles'
+   LAUNCHES, the attribution and the micro walls of each mode;
+   then K2 on the first micro cycle's inputs against its plain
    version; then the same trickle on the same store under delta off (the
    default), 80 cycles timed (cut from 200 for the run's time), each a
    full build: its walls beside the micro and delta-on full walls;
 28. e2e cfg10/10 — the trickle at 1/10 scale on two stores, delta on with
    the snapshot-incremental oracle (a full build beside every micro build,
-   equal bit for bit) and delta off, the binds equal cycle by cycle, both
-   walls; then one lockstep open-loop run (volcano_tpu_torch.loadgen) at
+   equal bit for bit) and vtprof and the tracer armed, and delta off
+   disarmed, the binds equal cycle by cycle, both walls; then one lockstep open-loop run (volcano_tpu_torch.loadgen) at
    250 gangs/s for 4 s of virtual time, which must sustain and bind every
    pod, with its wall time (lockstep waits for each cycle, so "sustained"
    is no rate).
@@ -1262,9 +1276,12 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
     if steady:
         t0 = time.perf_counter()
         sched.run_once()
-        log(f"[{label}] steady cycle wall {time.perf_counter() - t0:.4f} s phases "
+        torch.cuda.synchronize()
+        steady_wall = time.perf_counter() - t0
+        log(f"[{label}] steady cycle wall {steady_wall:.4f} s phases "
             f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}")
         publish_report(label, sched, flush_applier(label, sched), cycles + 1)
+        armed_steady(label, sched, steady_wall)
     sched.close()
     if n_vol:
         log(f"[{label}] volume gangs bound per cycle (cumulative): {vol_bound}")
@@ -4961,6 +4978,171 @@ def _pct(xs, q):
     return round(float(np.percentile(np.asarray(xs), q)), 3) if xs else None
 
 
+#: cfg5-batch's steady cycles run with the profiler and the tracer armed
+ARMED_STEADY_CYCLES = 3
+#: the share of a cycle's wall vtprof must attribute to named segments (the
+#: JAX package's test_vtprof bound)
+ATTRIBUTION_BAR = 0.95
+
+
+def _arm_observability():
+    """Arm vtprof and the tracer, and hand the profiler its warmup
+    handshake at once: the launch shapes, workspaces and builds so far were
+    the warmup.  Returns (profiler, tracer)."""
+    from volcano_tpu_torch import trace, vtprof
+
+    prof = vtprof.arm()
+    tr = trace.arm(trace.Tracer(ring=8192))
+    prof.warmup_handshake()
+    return prof, tr
+
+
+def _disarm_observability():
+    from volcano_tpu_torch import trace, vtprof
+
+    trace.disarm()
+    vtprof.disarm()
+
+
+def _check_dispatches(label, prof, launches):
+    """vtprof's per-kernel dispatch counts equal the wrappers' LAUNCHES
+    over the same cycles (the _portsel / _volsel rows count a flag of a
+    launch counted under its kernel's own name)."""
+    got = {k: int(v["dispatches"]) for k, v in prof.totals.items() if v["dispatches"]}
+    want = {k: v for k, v in launches.items() if v and not k.endswith(("_portsel", "_volsel"))}
+    if got != want:
+        raise AssertionError(f"{label}: vtprof dispatches {got} != LAUNCHES {want}")
+    return got
+
+
+def _scrape(label):
+    """One scrape of the metrics server's /metrics, /debug/prof and
+    /debug/trace while armed; fails unless each answers with the armed
+    profile's series.  Returns the bodies' sizes in bytes."""
+    import urllib.request
+
+    from volcano_tpu_torch.scheduler.metrics_server import MetricsServer
+
+    srv = MetricsServer(port=0).start()
+    sizes = {}
+    try:
+        for path in ("/metrics", "/debug/prof", "/debug/trace"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}{path}", timeout=30) as r:
+                body = r.read()
+            sizes[path] = len(body)
+            if path == "/metrics":
+                text = body.decode()
+                for family in ("volcano_e2e_scheduling_latency_milliseconds",
+                               "volcano_prof_segment_seconds", "volcano_device_bytes"):
+                    if family not in text:
+                        raise AssertionError(f"{label}: /metrics lacks {family}")
+            else:
+                payload = json.loads(body)
+                if not payload.get("armed") or not payload.get(
+                        "cycles" if path == "/debug/prof" else "spans"):
+                    raise AssertionError(f"{label}: {path} answered {str(payload)[:200]}")
+    finally:
+        srv.stop()
+    return sizes
+
+
+#: the observability modes the armed cycles rotate through: disarmed,
+#: vtprof alone, vtprof and the tracer
+OBS_MODES = ("off", "prof", "both")
+
+
+def _set_observability(obs, mode):
+    """Arm ``obs`` (a (profiler, tracer) pair) for ``mode`` of OBS_MODES."""
+    from volcano_tpu_torch import trace, vtprof
+
+    if mode == "off":
+        vtprof.disarm()
+    else:
+        vtprof.arm(obs[0])
+    if mode == "both":
+        trace.arm(obs[1])
+    else:
+        trace.disarm()
+
+
+def _attribution_by_mode(payload, modes):
+    """vtprof's attribution over the profiled cycles of each armed mode
+    (``modes``: the armed cycles' modes, in order)."""
+    from volcano_tpu_torch import vtprof
+
+    out = {}
+    for mode in ("prof", "both"):
+        cycles = [c for c, m in zip(payload["cycles"], modes) if m == mode]
+        out[mode] = vtprof.attribution(dict(payload, cycles=cycles))
+    return out
+
+
+def armed_steady(label, sched, disarmed_wall):
+    """cfg5-batch's steady cycles under the observability modes in turns
+    (OBS_MODES, ARMED_STEADY_CYCLES rounds, so that a drift of the cycle
+    wall falls on each mode alike), launch counts reset before each: the
+    same decisions as the disarmed cycles (none), vtprof's attribution of
+    the cycles it profiled alone at least ATTRIBUTION_BAR (the tracer's own
+    cost is host time no phase holds), its dispatch counts equal to the
+    armed cycles' LAUNCHES, no steady-state anomaly after the warmup
+    handshake, and one scrape of the metrics server; each mode's walls.
+    These cycles find no pending work and launch no kernel: the bar holds
+    the split of host phases, and both dispatch counts are empty.  The
+    split of device work (dispatch, wait, transfer) is held to the bar at
+    cfg10's micro cycles (phase_cfg10), which launch K1 and K2."""
+    import collections
+
+    import torch
+
+    from volcano_tpu_torch import vtprof
+
+    binds, evicts = len(sched.cache.bind_log), len(sched.cache.evict_log)
+    obs = _arm_observability()
+    walls = {m: [] for m in OBS_MODES}
+    armed_launches, armed_modes = collections.Counter(), []
+    try:
+        for _ in range(ARMED_STEADY_CYCLES):
+            for mode in OBS_MODES:
+                _set_observability(obs, mode)
+                reset_launches()
+                t0 = time.perf_counter()
+                sched.run_once()
+                torch.cuda.synchronize()
+                walls[mode].append(time.perf_counter() - t0)
+                flush_applier(label, sched)
+                if mode != "off":
+                    armed_launches.update(read_launches())
+                    armed_modes.append(mode)
+        _set_observability(obs, "both")
+        payload = obs[0].payload()
+        att = _attribution_by_mode(payload, armed_modes)
+        dispatches = _check_dispatches(label, obs[0], armed_launches)
+        anomalies = obs[0].anomalies_snapshot()
+        sizes = _scrape(label)
+        spans = sorted({r["name"] for r in obs[1].records()})
+    finally:
+        _disarm_observability()
+    if (len(sched.cache.bind_log), len(sched.cache.evict_log)) != (binds, evicts):
+        raise AssertionError(f"{label}: steady cycles made decisions")
+    if att["prof"]["coverage"] < ATTRIBUTION_BAR:
+        raise AssertionError(f"{label}: vtprof attributes {att['prof']['coverage']:.4f} of its "
+                             f"cycles' wall (bar {ATTRIBUTION_BAR})")
+    if anomalies:
+        raise AssertionError(f"{label}: anomalies in armed steady cycles: {anomalies}")
+    out = dict(first_steady_wall_s=disarmed_wall, walls_s=walls,
+               coverage=att["prof"]["coverage"], coverage_with_tracer=att["both"]["coverage"],
+               segments=att["prof"]["segments"], dispatches=dispatches, scrape_bytes=sizes,
+               spans=spans)
+    log(f"[{label}] armed steady cycles: {json.dumps(out)}")
+    log(f"[{label}] steady cycle walls in turns, s: disarmed "
+        f"{[round(w, 4) for w in walls['off']]}; vtprof {[round(w, 4) for w in walls['prof']]} "
+        f"(attributed {att['prof']['coverage']:.4f}); vtprof and the tracer "
+        f"{[round(w, 4) for w in walls['both']]} (attributed "
+        f"{att['both']['coverage']:.4f})")
+    log(vtprof.report_text(payload))
+    return out
+
+
 def phase_cfg10():
     """cfg10 at config 5's widths under full_conf("cuda") with delta on:
     one arm cycle and 8 unmeasured warm-up cycles, then the trickle, each
@@ -4971,7 +5153,11 @@ def phase_cfg10():
     cycles, at least CFG10_MIN_MICRO cycles are micro, every full build's
     reason is arm or job-remove, every micro cycle launches K1 and K2 once
     (no other solve) at one shape, no kernel library is built and the
-    victim kernels' per-shape workspaces gain no key.  K2 is then held to
+    victim kernels' per-shape workspaces gain no key.  The trickle's second
+    half rotates through OBS_MODES after the warmup handshake: no
+    steady-state-recompile anomaly in an armed micro cycle, vtprof's
+    attribution of the micro cycles it profiled alone at least
+    ATTRIBUTION_BAR, and its dispatch counts equal to LAUNCHES.  K2 is then held to
     its plain version on the first micro cycle's solve inputs, and the
     same trickle runs on under delta off (_cfg10_delta_off).  Returns the
     phase's figures."""
@@ -5026,9 +5212,20 @@ def phase_cfg10():
     shapes = {"micro": set(), "full": set()}
     first_micro = None
     waves = 0
+    # the trickle's second half rotates through the observability modes
+    # (OBS_MODES: disarmed, vtprof, vtprof and the tracer), cycle by cycle
+    arm_at = CFG10["trickle"] // 2
+    obs = None
+    armed = {"launches": collections.Counter(), "modes": [], "anomalies": [],
+             "micro_ms": {m: [] for m in OBS_MODES}}
     cycle_mod.torch_allocate_solve, _build.build = recording, counting_build
     try:
         for i in range(CFG10["trickle"]):
+            if i == arm_at:
+                obs = _arm_observability()
+            obs_mode = OBS_MODES[(i - arm_at) % len(OBS_MODES)] if obs is not None else None
+            if obs is not None:
+                _set_observability(obs, obs_mode)
             waves += trickle.step(f"tk{i:04d}", i)
             calls.clear()
             reset_launches()
@@ -5053,11 +5250,29 @@ def phase_cfg10():
                     first_micro = calls[0]
             else:
                 reasons[fc.delta.last["fallback_reason"]] += 1
+            if obs is not None:
+                if mode == "micro":
+                    armed["micro_ms"][obs_mode].append(dt_ms)
+                if obs_mode != "off":
+                    armed["launches"].update(got)
+                    # the attribution bar holds the micro cycles (a full
+                    # cycle's mode is "full", which no bar reads)
+                    armed["modes"].append(obs_mode if mode == "micro" else "full")
+                    fresh = obs[0].anomalies_snapshot()[len(armed["anomalies"]):]
+                    armed["anomalies"] += [dict(a, mode=mode) for a in fresh]
             trickle.check(label, i)
+        if obs is not None:
+            armed["payload"] = obs[0].payload()
+            armed["dispatches"] = _check_dispatches(label, obs[0], armed["launches"])
+            armed["spans"] = collections.Counter(r["name"] for r in obs[1].records())
+            _disarm_observability()
+            obs = None
         sched.run_once()  # the last arrivals' second cycle
         trickle.check(label, CFG10["trickle"])
     finally:
         cycle_mod.torch_allocate_solve, _build.build = solve, build
+        if obs is not None:
+            _disarm_observability()
     if trickle.unbound:
         raise AssertionError(f"{label}: gangs unbound after the trickle: {trickle.unbound}")
     bound = check_cfg9_placement(store)
@@ -5103,6 +5318,36 @@ def phase_cfg10():
         "kernel_builds": len(builds),
     }
     log(f"[{label}] trickle: {json.dumps(out)}")
+    from volcano_tpu_torch import vtprof
+
+    recompiles = [a for a in armed["anomalies"]
+                  if a["kind"] == "steady-state-recompile" and a["mode"] == "micro"]
+    if recompiles:
+        raise AssertionError(f"{label}: steady-state-recompile anomalies in armed micro "
+                             f"cycles: {recompiles}")
+    att = _attribution_by_mode(armed["payload"], armed["modes"])
+    if att["prof"]["coverage"] < ATTRIBUTION_BAR:
+        raise AssertionError(f"{label}: vtprof attributes {att['prof']['coverage']:.4f} of its "
+                             f"micro cycles' wall (bar {ATTRIBUTION_BAR})")
+    micro = armed["micro_ms"]
+    out["armed"] = dict(
+        from_cycle=arm_at,
+        micro_cycles={m: len(v) for m, v in micro.items()},
+        full_cycles_armed=armed["modes"].count("full"),
+        micro_p50_ms={m: _pct(v, 50) for m, v in micro.items()},
+        micro_p99_ms={m: _pct(v, 99) for m, v in micro.items()},
+        micro_coverage={m: a["coverage"] for m, a in att.items()},
+        segments={m: a["segments"] for m, a in att.items()},
+        dispatches=armed["dispatches"], anomalies=armed["anomalies"],
+        spans=dict(armed["spans"]))
+    log(f"[{label}] observability in turns (cycles {arm_at}-{CFG10['trickle'] - 1}): "
+        f"{json.dumps(out['armed'])}")
+    log(f"[{label}] micro cycle walls in turns, p50 / p99 ms: disarmed "
+        f"{_pct(micro['off'], 50)} / {_pct(micro['off'], 99)}, vtprof "
+        f"{_pct(micro['prof'], 50)} / {_pct(micro['prof'], 99)}, vtprof and the tracer "
+        f"{_pct(micro['both'], 50)} / {_pct(micro['both'], 99)}; no steady-state-recompile "
+        f"anomaly in {len(micro['prof']) + len(micro['both'])} armed micro cycles")
+    log(vtprof.report_text(armed["payload"]))
 
     # K2 (and the K1 inside it) at the micro cycles' shape against the plain version
     backend, snap = first_micro
@@ -5213,16 +5458,28 @@ def phase_cfg10_tenth():
         runs[mode] = (store, sched, Trickle(store))
     modes = []
     walls = {mode: [] for mode in runs}
-    for i in range(CFG10["parity_cycles"]):
-        for mode, (store, sched, trickle) in runs.items():
-            trickle.step(f"tk{i:04d}", i)
-            t0 = time.perf_counter()
-            sched.run_once()
-            walls[mode].append((time.perf_counter() - t0) * 1e3)
-            trickle.check(f"{label} {sched.conf.delta}", i)
-        if runs["delta"][1].cache.bind_log != runs["full"][1].cache.bind_log:
-            raise AssertionError(f"{label}: cycle {i} binds differ with delta on and off")
-        modes.append(runs["delta"][1].fast_cycle.delta.last["mode"])
+    # the delta-on run's cycles run with vtprof and the tracer armed, the
+    # delta-off run's disarmed: equal binds make the armed run's decisions
+    # the disarmed one's
+    obs = _arm_observability()
+    try:
+        for i in range(CFG10["parity_cycles"]):
+            for mode, (store, sched, trickle) in runs.items():
+                _set_observability(obs, "both" if mode == "delta" else "off")
+                trickle.step(f"tk{i:04d}", i)
+                t0 = time.perf_counter()
+                sched.run_once()
+                walls[mode].append((time.perf_counter() - t0) * 1e3)
+                trickle.check(f"{label} {sched.conf.delta}", i)
+            if runs["delta"][1].cache.bind_log != runs["full"][1].cache.bind_log:
+                raise AssertionError(f"{label}: cycle {i} binds differ with delta on (armed) "
+                                     f"and off (disarmed)")
+            modes.append(runs["delta"][1].fast_cycle.delta.last["mode"])
+    finally:
+        _disarm_observability()
+    log(f"[{label}] armed (delta on: vtprof and the tracer, "
+            f"{len(obs[0].payload()['cycles'])} profiled cycles, {len(obs[1].records())} "
+            f"spans) and disarmed (delta off) runs: equal binds in every cycle")
     n_micro = modes.count("micro")
     if n_micro < CFG10["parity_cycles"] // 2:
         raise AssertionError(f"{label}: {n_micro} micro cycles of {len(modes)}")

@@ -107,11 +107,13 @@ def test_gpu_water_fill_raises_at_round_cap(monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["config5", "queues_128", "cells_2048", "staggered_1024"])
+@pytest.mark.parametrize("case", ["config5", "queues_128", "cells_2048", "staggered_1024",
+                                  "staggered_4096", "staggered_8192"])
 def test_gpu_water_fill_shapes_bit_for_bit(case):
-    """K1 equal to its plain version bit for bit at the main path's shapes,
-    and no allocation but the returned shares after the first call at a
-    shape (the round words sit in the device's workspace)."""
+    """K1 equal to its plain version bit for bit at the main path's shapes
+    and above 1,024 queues (two levels of summing windows, up to the
+    8,192-cell cap), and no allocation but the returned shares after the
+    first call at a shape (the round words sit in the device's workspace)."""
     dev = _cuda()
     wf = tuple(torch.from_numpy(build_water_fill_args(case)[k]).to(dev)
                for k in ("queue_weight", "queue_request", "total", "eps",

@@ -13,6 +13,7 @@ exact_topk=True (the port's top-K is exact).
 The CUDA kernels against their plain versions: tests/test_torch_gpu.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -100,6 +101,37 @@ def test_water_fill_many_cells_matches_jax(case):
     des_t = TK.water_fill(*[torch.from_numpy(x) for x in _water_fill_inputs(a)])
     assert des_t.shape[0] == 1024
     np.testing.assert_allclose(des_t.numpy(), des_j, rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["staggered_4096", "staggered_8192"])
+def test_water_fill_two_level_matches_jax(case):
+    """K1's plain version against JAX above 1,024 queues, where both sum in
+    two levels of windows, up to the 8,192-cell cap.  rtol=1e-6: XLA
+    contracts ``deserved + remaining * frac`` into a fused multiply-add in
+    one column of its fused loop (ROADMAP.md section 3)."""
+    a = build_water_fill_args(case)
+    des_j = np.asarray(JK.water_fill(*[jnp.asarray(x) for x in _water_fill_inputs(a)]))
+    des_t = TK.water_fill(*[torch.from_numpy(x) for x in _water_fill_inputs(a)])
+    assert des_t.shape[0] * des_t.shape[1] == 8_192
+    np.testing.assert_allclose(des_t.numpy(), des_j, rtol=1e-6)
+
+
+WINDOW_SUM_LENGTHS = [1, 2, 31, 32, 33, 64, 65, 500, 1023, 1024, 1025, 1057,
+                      4097, 8192, 32769, 65536, 100000]
+
+
+@pytest.mark.parametrize("cols", [None, 1, 2, 5], ids=lambda c: f"cols{c}")
+@pytest.mark.parametrize("n", WINDOW_SUM_LENGTHS)
+def test_window_sum_matches_xla_bit_for_bit(n, cols):
+    """K1's sum order (``window_sum0``) against ``jax.jit(jnp.sum)`` over
+    axis 0 of a 1-D or [n, cols] float32 input of seeded inexact values
+    spread over six decades, equal bit for bit."""
+    rng = np.random.default_rng(n * 7 + (cols or 0))
+    shape = (n,) if cols is None else (n, cols)
+    x = (rng.random(shape) * 10.0 ** rng.integers(-3, 3, size=shape)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda v: jnp.sum(v, axis=0))(x))
+    got = TK.window_sum0(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 SOLVE_CASES = [

@@ -10,6 +10,7 @@ jobs and tasks, job retries, residue tasks) must be equal, durations by
 their counts.
 """
 
+import json
 import math
 import re
 
@@ -237,3 +238,76 @@ def test_scheduler_series_equal_jax(case):
         assert got[("volcano_unschedule_job_count", None)] == "1"
     if case == "residue":
         assert any(k[0] == "volcano_residue_tasks_total" for k in got)
+
+
+def test_metrics_endpoint_serves_reference_series():
+    """``/metrics`` of the port's MetricsServer after a cycle serves the
+    reference's cycle and action series, as the JAX server does for the
+    same store, ``/healthz`` answers ok, and the views that wait for other
+    modules answer 404."""
+    import urllib.error
+    import urllib.request
+
+    from helpers import build_node, build_pod, build_podgroup, make_store
+    from volcano_tpu.scheduler.metrics_server import MetricsServer as JMetricsServer
+    from volcano_tpu_torch.scheduler.metrics_server import MetricsServer
+
+    jstore = make_store(nodes=[build_node("n1")], podgroups=[build_podgroup("pg", min_member=1)],
+                        pods=[build_pod("p0", group="pg")])
+    store = port_store(jstore)
+    jc = jconf.default_conf()
+    JScheduler(jstore, conf=jc).run_once()
+    Scheduler(store, conf=port_conf(jc)).run_once()
+    bodies = []
+    for cls in (JMetricsServer, MetricsServer):
+        srv = cls(port=0).start()
+        try:
+            base = f"http://127.0.0.1:{srv.port}"
+            with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
+                bodies.append(r.read().decode())
+            with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
+                assert r.read() == b"ok\n"
+            if cls is MetricsServer:
+                with pytest.raises(urllib.error.HTTPError) as e:
+                    urllib.request.urlopen(base + "/debug/digest", timeout=10)
+                assert e.value.code == 404
+        finally:
+            srv.stop()
+    for body in bodies:
+        assert "volcano_e2e_scheduling_latency_milliseconds" in body
+        assert "volcano_action_scheduling_latency_microseconds" in body
+
+
+def test_profiler_hook_traces_each_cycle(tmp_path, monkeypatch):
+    """``VOLCANO_TPU_PROFILE`` wraps every cycle in a ``torch.profiler``
+    trace in a directory of its own (``cycle-NNNNNN``; back-to-back cycles
+    in one second do not clobber each other), as the JAX scheduler's JAX
+    profiler hook does on the same store."""
+    import os
+
+    from volcano_tpu.api import Resource as JResource
+    from volcano_tpu.api.objects import Metadata as JMetadata
+    from volcano_tpu.api.objects import Node as JNode
+    from volcano_tpu.api.objects import Queue as JQueue
+    from volcano_tpu.store import Store as JStore
+    from volcano_tpu_torch.scheduler.conf import full_conf
+
+    jstore = JStore()
+    jstore.create("Queue", JQueue(meta=JMetadata(name="default", namespace=""), weight=1))
+    jstore.create("Node", JNode(meta=JMetadata(name="n0", namespace=""),
+                                allocatable=JResource.from_resource_list(
+                                    {"cpu": "4", "memory": "8Gi", "pods": 110})))
+    store = port_store(jstore)
+    dirs = {}
+    for name, sched in (("jax", JScheduler(jstore, conf=jconf.full_conf("tpu"))),
+                        ("torch", Scheduler(store, conf=full_conf("cpu")))):
+        monkeypatch.setenv("VOLCANO_TPU_PROFILE", str(tmp_path / name))
+        sched.run_once()
+        sched.run_once()  # back to back, in the same wall-clock second
+        dirs[name] = sorted(os.listdir(tmp_path / name))
+        for d in dirs[name]:
+            files = [f for _, _, fs in os.walk(tmp_path / name / d) for f in fs]
+            assert files, d
+    assert dirs["torch"] == dirs["jax"] == ["cycle-000000", "cycle-000001"]
+    with open(tmp_path / "torch" / "cycle-000000" / "trace.json") as f:
+        assert "traceEvents" in json.load(f)

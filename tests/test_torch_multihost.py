@@ -119,6 +119,23 @@ def test_multihost_two_host_lockstep_merges_to_single_host(sweep_args):
     assert bounds[0][1] == bounds[1][0] and bounds[1][1] == kind1.shape[0]
 
 
+def test_armed_lockstep_counts_each_host_fetch_once(sweep_args):
+    """Armed, two-host lockstep: vtprof's hosts table holds each host's
+    build and dispatch walls as the run reports them, and its fetch_s once,
+    from the host's fetch boundary inside the run's own fetch wall."""
+    from volcano_tpu_torch import vtprof
+
+    prof = vtprof.arm()
+    try:
+        res = MH.run_lockstep(sweep_args, 2, n_blocks=4, device="cpu", **CHUNKS)
+    finally:
+        vtprof.disarm()
+    for h, row in enumerate(res["per_host"]):
+        got = prof.hosts[str(h)]
+        assert (got["build_s"], got["dispatch_s"]) == (row["build_s"], row["dispatch_s"])
+        assert 0.0 < got["fetch_s"] <= row["fetch_s"], (h, got, row)
+
+
 @pytest.mark.parametrize("n_hosts", [1, 2, 4])
 def test_run_lockstep_equals_jax(sweep_args, one_block, n_hosts):
     """Tolerance: exact, all 11 merged outputs, against the JAX

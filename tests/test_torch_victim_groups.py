@@ -199,6 +199,49 @@ def test_chain_over_one_grouping_equals_jax(seed, mode):
     assert n_evicted, "the chains must evict"
 
 
+def test_chain_with_inexact_requests_matches_jax():
+    """K7's sum of an attempt's victims (JAX ``vsum`` over the pool rows,
+    in XLA's window order; the port's in float64, rounded once) with
+    inexact requests: 16 reclaim solves over 600 pool rows whose requests
+    are scaled by seeded factors in [1, 1.37).  Decisions and victim masks
+    are equal; the float state is held to 1e-6 of its column's cluster
+    total, the rounding of one sum of a few terms, since the port's
+    rounded float64 sums differ from JAX's float32 ones where those are
+    inexact (ROADMAP.md section 3)."""
+    c, s = jsim.build_victim_sim(8, 600, 20, n_queues=3, seed=11)
+    rng = np.random.default_rng(11)
+    c["run_req"] = (c["run_req"] * (1 + rng.random(c["run_req"].shape) * 0.37)).astype(np.float32)
+    jc = jvk.VictimConsts(**{k: jnp.asarray(v) for k, v in c.items()})
+    js = jvk.VictimState(**{k: jnp.asarray(v) for k, v in s.items()})
+    tc, ts = interop.victim_from_arrays(c, s)
+    V = c["run_req"].shape[0]
+    kw = FLAGS[0]
+    g = tvk.victim_groups_plain(tc, ts.run_live, order_by_priority=kw["order_by_priority"])
+    many = 0
+    for i in range(16):
+        t_req = np.array([rng.choice([3000, 6000, 12000]) * 1.013,
+                          rng.choice([4096, 8192]) * (1 << 20) * 1.007], np.float32)
+        jt = int(rng.integers(0, 20))
+        qt = int(c["job_queue"][jt])
+        jout = jvk.victim_step(jc, js, jnp.asarray(t_req), 0, jt, qt, mode="reclaim", **kw)
+        tout = tvk.victim_step_plain(tc, ts, torch.from_numpy(t_req), 0, jt, qt,
+                                     mode="reclaim", groups=g, **kw)
+        assigned, nstar, vmask, clean = tvk.unpack_step(tout.packed.numpy(), V)
+        assert (assigned, clean) == (bool(jout[1]), bool(jout[4])), i
+        assert nstar == (int(jout[2]) if assigned else 0), i
+        np.testing.assert_array_equal(vmask, np.asarray(jout[3]), err_msg=str(i))
+        many += int(vmask.sum()) >= 3
+        for f in tvk.VictimState._fields:
+            x, y = getattr(tout.state, f).numpy(), np.asarray(getattr(jout[0], f))
+            if x.dtype == np.float32:
+                # each column against its own total: a CPU value off by 0.128 m fails
+                off = np.abs(x.astype(np.float64) - y) > 1e-6 * c["total"].astype(np.float64)
+                assert not off.any(), f"step {i} {f}: {np.argwhere(off)[:4].tolist()}"
+            else:
+                np.testing.assert_array_equal(x, y, err_msg=f"step {i} {f}")
+    assert many, "some solves must sum three or more victims"
+
+
 @pytest.mark.parametrize("n_blocks,mode", list(itertools.product((2, 4),
                                                                  ["queue", "reclaim"])))
 def test_blocks_chain_over_one_grouping_equals_jax(n_blocks, mode):

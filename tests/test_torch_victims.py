@@ -191,6 +191,40 @@ def test_rounds_match_jax(seed, use_drf, order_by_priority, chunks):
     run_rounds(c, s, storm_inputs("rounds", c, s, t), **kw)
 
 
+def test_rounds_with_inexact_requests_over_40_queues_match_jax():
+    """K10's per-node sum of a round's placements over queues (JAX
+    ``consumed`` over 40 queues, in XLA's window order) and its victim
+    sums, with inexact requests (pool requests scaled by seeded factors in
+    [1, 1.37), the preemptors' by 1.0131).  The decisions (``pipe``, the
+    records, the scalars) are equal; the float state is held, column by
+    column, to 1e-6 of that column's cluster total, the rounding of one sum
+    of a few terms, since the port sums in float64 rounded once where JAX sums in
+    float32 (ROADMAP.md section 3)."""
+    c, s, t = build_storm_sim(0, n_nodes=6, n_victims=200, n_jobs=40, n_queues=40, n_new=8)
+    rng = np.random.default_rng(0)
+    c["run_req"] = (c["run_req"] * (1 + rng.random(c["run_req"].shape) * 0.37)).astype(np.float32)
+    args = list(storm_inputs("rounds", c, s, t))
+    args[0] = (np.asarray(args[0]) * 1.0131).astype(np.float32)
+    kw = dict(use_gang=True, use_drf=False, use_conformance=True, order_by_priority=True,
+              job_key_order=KEY_ORDERS[0], gang_pipelined=True)
+    jc, js = _jax(c, s)
+    jo = jax.tree_util.tree_map(np.asarray, JV.preempt_rounds(
+        jc, js, *[jnp.asarray(a) for a in args], **kw))
+    tc, ts = interop.victim_from_arrays(c, s)
+    to = TV.preempt_rounds(tc, ts, *[_t(a) for a in args], **kw)
+    assert int(to.att_total) > 0
+    assert ROUNDS_FIELDS[0] == "state"
+    assert_same(jo[1:], to, ROUNDS_FIELDS[1:])
+    for f, a in zip(to.state._fields, jo[0]):
+        b = getattr(to.state, f).numpy()
+        if b.dtype == np.float32:
+            # each column against its own total: a CPU value off by 0.096 m fails
+            off = np.abs(b.astype(np.float64) - a) > 1e-6 * c["total"].astype(np.float64)
+            assert not off.any(), f"{f}: {np.argwhere(off)[:4].tolist()}"
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=f)
+
+
 def test_rounds_cases_exercise_commits_and_victims():
     total = 0
     for seed in range(3):

@@ -11,16 +11,25 @@
 //   * the working cells (deserved and the capped grants, double-buffered,
 //     the requests and the deltas) and the per-queue weights and live
 //     flags live in dynamic shared memory for the whole loop: 16 bytes a
-//     cell and 9 a queue, at most VTT_WF_MAX_CELLS cells;
+//     cell and 9 a queue (above 1,024 queues 4 more a window of 32 queues
+//     for each of phase B's R + 1 sums), at most VTT_WF_MAX_CELLS cells;
 //   * two barriers a round.  Phase A, a thread per queue: the grant, the
 //     capped cells, the exceeded test and the met flag, each queue's
 //     deltas (capped - deserved) and its next-round weight (0 once met)
-//     written beside them.  Phase B, one warp: lane r < R sums dimension
-//     r's deltas, and lane R the next round's live weights, each over
-//     queues in index order on one thread (the plain version's order: a
-//     tree would change the float bits, and K2, K3 and K7 consume these
-//     shares bit for bit), its loads issued in batches ahead of the adds.
-//     Every thread then reads the stop test itself;
+//     written beside them.  Phase B, a warp a sum: warp r < R sums
+//     dimension r's deltas, and warp R the next round's live weights, each
+//     over queues in the reference's order, which is XLA's window order
+//     (scheduler/kernels.py window_sum0: the axis padded with zeros to a
+//     multiple of 32, floor(pad / 2) in front, each window of 32 summed in
+//     index order, again on the partials until 32 or fewer remain, then
+//     those in index order).  Lane w sums window w, so up to 32 windows
+//     are summed side by side, and the lanes' partials are then added in
+//     index order through shuffles; above 1,024 queues (up to 8,192 at
+//     R = 1) the first level's partials go to shared memory and a second
+//     level of windows sums them.  K2, K3 and K7 consume these shares bit
+//     for bit, so the order is the reference's and no other: the serial
+//     chain a round is about 32 + Q / 32 adds (64 at 1,024 queues) where
+//     index order took Q.  Every thread then reads the stop test itself;
 //   * the round count (or -1 when the loop stopped at max_rounds, which
 //     the reference has no cap for) goes to a host word by an asynchronous
 //     copy on the stream, which the wrapper checks where its consumers wait
@@ -29,25 +38,65 @@
 
 #define VTT_WF_THREADS 1024
 // the most (queue, dim) cells the kernel takes: 25 bytes a cell at R = 1
-// (the worst case) fill 200 KB of the CTA's 227 KB of shared memory
+// (the worst case) and 2 KB of partials fill 202 KB of the CTA's 227 KB of
+// shared memory
 #define VTT_WF_MAX_CELLS 8192
 
-// x[0] + x[stride] + ... + x[(n - 1) * stride] in index order, from 0.0f:
-// batches of VTT_WF_BATCH loads issued together, then added one after the
-// other (the add chain, not the loads' latency, sets the pace)
-#define VTT_WF_BATCH 16
-__device__ __forceinline__ float vtt_wf_seq_sum(const float* x, int n, int stride) {
-  float acc = 0.0f;
-  int k = 0;
-  for (; k + VTT_WF_BATCH <= n; k += VTT_WF_BATCH) {
-    float b[VTT_WF_BATCH];
+// the width of the reference's summing windows, and the most first-level
+// partials (windows) a sum over VTT_WF_MAX_CELLS queues has: two levels
+// of windows reach the final lane sum
+#define VTT_WF_WIN 32
+#define VTT_WF_MAX_WIN (VTT_WF_MAX_CELLS / VTT_WF_WIN)
+static_assert(VTT_WF_MAX_WIN <= VTT_WF_WIN * VTT_WF_WIN, "two levels of windows");
+
+// Window w of x[0], x[stride], .., x[(n - 1) * stride] padded with zeros to
+// a multiple of 32, floor(pad / 2) of them in front: its 32 values added in
+// index order from 0.0f, the padding's zeros included
+__device__ __forceinline__ float vtt_wf_window(const float* x, int n, int stride, int w) {
+  const int nw = (n + VTT_WF_WIN - 1) / VTT_WF_WIN;
+  const int base = w * VTT_WF_WIN - (nw * VTT_WF_WIN - n) / 2;
+  float b[VTT_WF_WIN];
 #pragma unroll
-    for (int j = 0; j < VTT_WF_BATCH; ++j) b[j] = x[(k + j) * stride];
-#pragma unroll
-    for (int j = 0; j < VTT_WF_BATCH; ++j) acc = acc + b[j];
+  for (int j = 0; j < VTT_WF_WIN; ++j) {
+    const int i = base + j;
+    b[j] = (i >= 0 && i < n) ? x[i * stride] : 0.0f;
   }
-  for (; k < n; ++k) acc = acc + x[k * stride];
+  float acc = 0.0f;
+#pragma unroll
+  for (int j = 0; j < VTT_WF_WIN; ++j) acc = acc + b[j];
   return acc;
+}
+
+// Lanes 0 .. n - 1's values (n <= 32) added in index order from 0.0f, on
+// every lane of the warp
+__device__ __forceinline__ float vtt_wf_lane_sum(float v, int n) {
+  float acc = 0.0f;
+  for (int j = 0; j < n; ++j) acc = acc + __shfl_sync(0xffffffffu, v, j);
+  return acc;
+}
+
+// The first-level partials a sum over n values keeps in shared memory: none
+// up to 1,024 values (32 windows, in the lanes' registers), else a window
+// each (at most VTT_WF_MAX_WIN)
+__host__ __device__ __forceinline__ int vtt_wf_part_len(int n) {
+  return n > VTT_WF_WIN * VTT_WF_WIN ? (n + VTT_WF_WIN - 1) / VTT_WF_WIN : 0;
+}
+
+// x[0] + x[stride] + ... + x[(n - 1) * stride] in the reference's window
+// order, by the whole warp (lane = its lane), on every lane; part holds
+// vtt_wf_part_len(n) floats for the first level's partials above 1,024
+// values
+__device__ float vtt_wf_window_sum(const float* x, int n, int stride, float* part, int lane) {
+  if (n <= VTT_WF_WIN) return vtt_wf_lane_sum(lane < n ? x[lane * stride] : 0.0f, n);
+  const int nw = (n + VTT_WF_WIN - 1) / VTT_WF_WIN;
+  if (nw <= VTT_WF_WIN)
+    return vtt_wf_lane_sum(lane < nw ? vtt_wf_window(x, n, stride, lane) : 0.0f, nw);
+  for (int w = lane; w < nw; w += VTT_WF_WIN) part[w] = vtt_wf_window(x, n, stride, w);
+  __syncwarp();
+  const int nw2 = (nw + VTT_WF_WIN - 1) / VTT_WF_WIN;
+  const float p = lane < nw2 ? vtt_wf_window(part, nw, 1, lane) : 0.0f;
+  __syncwarp();
+  return vtt_wf_lane_sum(p, nw2);
 }
 
 __global__ void __launch_bounds__(VTT_WF_THREADS)
@@ -61,12 +110,15 @@ __global__ void __launch_bounds__(VTT_WF_THREADS)
   float* s_delta = s_cells + 3 * cells;          // capped - deserved
   float* s_w = s_cells + 4 * cells;              // weights
   float* s_wnext = s_w + Q;                      // the next round's live weights
-  uint8_t* s_live = reinterpret_cast<uint8_t*>(s_wnext + Q);  // participates && !met
+  const int nw1 = vtt_wf_part_len(Q);            // a sum's first-level partials
+  float* s_part = s_wnext + Q;                   // (R + 1) x nw1 of them
+  uint8_t* s_live = reinterpret_cast<uint8_t*>(s_part + (R + 1) * nw1);  // participates && !met
   __shared__ float s_rem[VTT_MAX_R];
   __shared__ float s_eps[VTT_MAX_R];
   __shared__ float s_tw;
 
   const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, nwarps = nthr / 32;
   for (int c = tid; c < cells; c += nthr) {
     s_des[0][c] = 0.0f;
     s_req[c] = request[c];
@@ -81,7 +133,10 @@ __global__ void __launch_bounds__(VTT_WF_THREADS)
     s_eps[tid] = eps[tid];
   }
   __syncthreads();
-  if (tid == 0) s_tw = vtt_wf_seq_sum(s_wnext, Q, 1);
+  if (warp == 0) {
+    const float tw0 = vtt_wf_window_sum(s_wnext, Q, 1, s_part + R * nw1, lane);
+    if (lane == 0) s_tw = tw0;
+  }
   __syncthreads();
 
   int taken = -1, cur = 0;
@@ -110,13 +165,16 @@ __global__ void __launch_bounds__(VTT_WF_THREADS)
       s_wnext[q] = live && !exc ? s_w[q] : 0.0f;
     }
     __syncthreads();
-    // phase B: one warp, a lane a dimension and one for the weights
-    if (tid <= R) {  // one instruction stream: the lanes do not diverge
-      const float sum = vtt_wf_seq_sum(tid < R ? s_delta + tid : s_wnext, Q, tid < R ? R : 1);
-      if (tid < R)
-        s_rem[tid] = s_rem[tid] - sum;
-      else
-        s_tw = sum;
+    // phase B: a warp a dimension's deltas and one for the weights
+    for (int k = warp; k <= R; k += nwarps) {  // warp-uniform
+      const float sum = vtt_wf_window_sum(k < R ? s_delta + k : s_wnext, Q, k < R ? R : 1,
+                                          s_part + k * nw1, lane);
+      if (lane == 0) {
+        if (k < R)
+          s_rem[k] = s_rem[k] - sum;
+        else
+          s_tw = sum;
+      }
     }
     __syncthreads();
     cur ^= 1;
@@ -133,7 +191,8 @@ __global__ void __launch_bounds__(VTT_WF_THREADS)
 
 // Bytes of dynamic shared memory for Q queues and R dims.
 static inline size_t vtt_wf_smem(int Q, int R) {
-  return (size_t)Q * R * 4 * sizeof(float) + (size_t)Q * (2 * sizeof(float) + 1);
+  return (size_t)Q * R * 4 * sizeof(float) + (size_t)Q * (2 * sizeof(float) + 1) +
+         (size_t)(R + 1) * vtt_wf_part_len(Q) * sizeof(float);
 }
 
 // Launch the fill of deserved [Q, R] and copy its round word (a device
@@ -152,8 +211,9 @@ extern "C" int vtt_water_fill(const float* weight, const float* request,
         vtt_water_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
+  // a thread a queue, and a warp for each of phase B's R + 1 sums
   int threads = 32;
-  while (threads < Q && threads < VTT_WF_THREADS) threads *= 2;
+  while ((threads < Q || threads < 32 * (R + 1)) && threads < VTT_WF_THREADS) threads *= 2;
   VTT_LAUNCH(vtt_water_fill_kernel, 1, threads, smem, s)(
       weight, request, total, eps, participates, Q, R, max_rounds, deserved, rounds_dev);
   int err = (int)cudaGetLastError();

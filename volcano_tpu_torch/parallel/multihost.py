@@ -50,7 +50,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from volcano_tpu_torch import vtprof
 from volcano_tpu_torch.parallel import sharded as S
+from volcano_tpu_torch.scheduler import kernels as K
 
 #: the cycle's outputs, in order (``parallel/sharded.py``'s)
 OUTPUT_NAMES = S.OUTPUT_NAMES
@@ -233,10 +235,16 @@ def _cycle(mesh, dargs, n_tasks, w_least, w_balanced, job_key_order, use_gang_re
     full = dict(dargs)
     for k in _TASK_PLANES:
         full[k] = mesh.gather_tasks(dargs[k], n_tasks)
+    tok = None
+    if vtprof.PROFILER is not None:  # disarmed, no launch key is built
+        tok = vtprof.launch_begin("multihost_cycle", K._launch_key(
+            dargs, job_key_order=tuple(job_key_order), use_gang_ready=use_gang_ready,
+            use_proportion=use_proportion, m_chunk=m_chunk, p_chunk=p_chunk), mesh.device)
     out = S._cycle(mesh, full, w_least, w_balanced, job_key_order, use_gang_ready,
                    use_proportion, m_chunk, p_chunk)
     if mesh.device.type == "cuda":
         LAUNCHES["multihost_cycle"] += 1
+    vtprof.launch_end(tok)
     return out
 
 
@@ -279,12 +287,15 @@ def owned_output_slices(out, host: int, n_hosts: int, mesh=None) -> Dict[str, np
         tlo, thi = host_bounds(T, n_hosts)[host]
         nlo, nhi = host_bounds(N, n_hosts)[host]
         lead = host == 0
-    _sync(out[0].device)
-    res = {OUTPUT_NAMES[i]: out[i][tlo:thi].cpu().numpy() for i in _TASK_OUT}
-    res.update({OUTPUT_NAMES[i]: out[i][nlo:nhi].cpu().numpy() for i in _NODE_OUT})
+    picks = [(OUTPUT_NAMES[i], out[i][tlo:thi]) for i in _TASK_OUT]
+    picks += [(OUTPUT_NAMES[i], out[i][nlo:nhi]) for i in _NODE_OUT]
     if lead:
-        res.update({OUTPUT_NAMES[i]: out[i].cpu().numpy() for i in _GLOBAL_OUT})
-    return res
+        picks += [(OUTPUT_NAMES[i], out[i]) for i in _GLOBAL_OUT]
+    # the per-host fetch boundary: armed, its wall rolls up under this
+    # host's fetch_s
+    arrs = vtprof.fetch_outputs([t for _, t in picks], kernel="multihost_cycle",
+                                phase="fetch", host=host)
+    return {name: a for (name, _), a in zip(picks, arrs)}
 
 
 def merge_output_slices(per_host: List[Dict[str, np.ndarray]]) -> tuple:
@@ -332,6 +343,9 @@ def run_lockstep(args: Dict[str, object], n_hosts: int, *, n_blocks: Optional[in
     host_mesh = S.LocalMesh(mesh.per_host, dev)
     best = None
     for _ in range(max(int(reps), 1)):
+        prof = vtprof.PROFILER
+        if prof is not None:
+            prof.begin_cycle()
         build_s, disp_s, fetch_s = [0.0] * H, [0.0] * H, [0.0] * H
         placed = []
         for h in range(H):
@@ -367,6 +381,14 @@ def run_lockstep(args: Dict[str, object], n_hosts: int, *, n_blocks: Optional[in
             slices.append(owned_output_slices(out, h, H, mesh))
             fetch_s[h] = time.perf_counter() - t0
         path = [build_s[h] + disp_s[h] + fetch_s[h] for h in range(H)]
+        if prof is not None:
+            crit = int(np.argmax(path))
+            # fetch_s rolls up at each host's fetch boundary
+            # (owned_output_slices); the JAX lockstep adds it twice
+            for h in range(H):
+                prof.note_mesh_host(h, build_s=build_s[h], dispatch_s=disp_s[h])
+            prof.end_cycle(path[crit], {"build": build_s[crit], "dispatch": disp_s[crit],
+                                        "fetch": fetch_s[crit]}, "multihost")
         rec = {
             "outputs": merge_output_slices(slices),
             "per_host": [{"build_s": build_s[h], "dispatch_s": disp_s[h],
@@ -534,24 +556,34 @@ def _coordinator(ns) -> int:
 
 def _run_sweep(ns) -> int:
     """In-process host sweep: the lockstep cycle at each host count, the
-    per-host critical paths, the per-doubling ratios and the merged
-    outputs' parity across host counts."""
+    per-host critical paths, the per-doubling ratios, the merged outputs'
+    parity across host counts, and with ``--prof`` the vtprof attribution
+    coverage."""
     hosts = [int(x) for x in str(ns.sweep).split(",") if x.strip()]
     args = _sim_args(ns)
     sweep, ref, parity = {}, None, True
-    for H in hosts:
-        res = _lockstep(ns, args, H)
-        sweep[str(H)] = {"critical_path_s": res["critical_path_s"],
-                         "solve_wait_s": res["solve_wait_s"], "per_host": res["per_host"]}
-        if ref is None:
-            ref = res["outputs"]
-        else:
-            parity = parity and all(np.array_equal(a, b) for a, b in zip(ref, res["outputs"]))
+    profiler = vtprof.arm() if ns.prof else None
+    try:
+        for H in hosts:
+            res = _lockstep(ns, args, H)
+            sweep[str(H)] = {"critical_path_s": res["critical_path_s"],
+                             "solve_wait_s": res["solve_wait_s"], "per_host": res["per_host"]}
+            if ref is None:
+                ref = res["outputs"]
+            else:
+                parity = parity and all(np.array_equal(a, b)
+                                        for a, b in zip(ref, res["outputs"]))
+        coverage = (vtprof.attribution(profiler.payload())["coverage"]
+                    if profiler is not None else None)
+    finally:
+        if profiler is not None:
+            vtprof.disarm()
     scaling = {f"{hosts[i]}->{hosts[i + 1]}":
                sweep[str(hosts[i + 1])]["critical_path_s"]
                / max(sweep[str(hosts[i])]["critical_path_s"], 1e-9)
                for i in range(len(hosts) - 1)}
     print(json.dumps({"sweep": sweep, "scaling_per_doubling": scaling, "parity": parity,
+                      "prof_coverage": coverage,
                       "binds": int((np.asarray(ref[1]) == 1).sum()), "n_nodes": ns.nodes,
                       "n_tasks": ns.tasks, "n_jobs": ns.jobs, "device": str(_device(ns))}))
     return 0
@@ -568,6 +600,8 @@ def main(argv=None) -> int:
     ap.add_argument("--host-id", type=int, default=None,
                     help="worker mode (spawned by the coordinator)")
     ap.add_argument("--sweep", default="", help="in-process host sweep, e.g. 1,2,4")
+    ap.add_argument("--prof", action="store_true",
+                    help="arm vtprof for the run (sweep mode): prof_coverage in the summary")
     ap.add_argument("--nodes", type=int, default=512)
     ap.add_argument("--tasks", type=int, default=2048)
     ap.add_argument("--jobs", type=int, default=128)

@@ -54,6 +54,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from volcano_tpu_torch import vtprof
 from volcano_tpu_torch.scheduler import kernels as K
 
 #: sharded-solve launches on the card since the last ``reset_launches()``
@@ -295,6 +296,13 @@ def sharded_solve(mesh, planes, repl, w_least, w_balanced,
     dev = repl["task_req"].device
     args = (repl, blocks, mesh.size, mesh.exchange, w_least, w_balanced, job_key_order,
             use_gang_ready, use_proportion, m_chunk, p_chunk, portsel_task)
+    tok = None
+    if vtprof.PROFILER is not None:  # disarmed, no launch key is built
+        tok = vtprof.launch_begin("sharded_cycle", K._launch_key(
+            repl, planes, portsel_task, job_key_order=tuple(job_key_order),
+            use_gang_ready=use_gang_ready, use_proportion=use_proportion, m_chunk=m_chunk,
+            p_chunk=p_chunk), dev)
+    vtprof.count_dispatch("allocate_solve_batch")
     if dev.type == "cpu":
         return batch_blocks_plain(*args)
     if dev.type != "cuda":
@@ -306,6 +314,7 @@ def sharded_solve(mesh, planes, repl, w_least, w_balanced,
     K.LAUNCHES["allocate_solve_batch"] += 1
     if portsel_task is not None:
         K.LAUNCHES["allocate_solve_batch_portsel"] += 1
+    vtprof.launch_end(tok)
     return out
 
 
@@ -693,10 +702,8 @@ def fetch_outputs(out, mesh=None) -> List[np.ndarray]:
     for name, x in zip(OUTPUT_NAMES, out):
         if mesh is not None and name in _NODE_OUTPUTS:
             x = mesh.gather_rows(x)
-        if x.device.type == "cuda":
-            torch.cuda.synchronize(x.device)
-        res.append(x.cpu().numpy())
-    return res
+        res.append(x)
+    return list(vtprof.fetch_outputs(res, kernel="sharded_cycle", phase="solve"))
 
 
 # --------------------------------------------------------------------------

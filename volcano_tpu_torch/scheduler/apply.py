@@ -23,7 +23,7 @@ import time
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
 
-from volcano_tpu_torch import events
+from volcano_tpu_torch import events, vtprof
 from volcano_tpu_torch.scheduler import metrics
 from volcano_tpu_torch.store import segment as segmod
 
@@ -281,6 +281,10 @@ class AsyncApplier:
             if k in stats:
                 stats[k] += v
         stats["wire_s"] += max(0.0, total - sum(timings.values()))
+        prof = vtprof.PROFILER
+        if prof is not None:
+            # the cumulative drain walls ride the profile
+            prof.note_drain(stats)
 
     def _split_indexed_evicts(self, seg):
         """Split a segment's eviction rows into (the segment to ship,

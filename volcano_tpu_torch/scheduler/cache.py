@@ -19,16 +19,20 @@ the kubelet reaps it.  ``VolumeBinder`` assumes and commits a pod's
 claims, as the reference's binder does; it takes the pod itself where the
 JAX binder takes a ``TaskInfo``.  ``cycle_overlay`` holds the fast cycle's
 published binds while its object sub-cycle runs, and ``snapshot()`` folds
-them in too.  Left out: the Binder / Evictor seams for custom binders and
-the bind trace spans (ROADMAP item 13).
+them in too.  While the tracer is armed every bind decision records a
+``scheduler.bind`` span in its gang's trace and the pod's first-seen-to-bind
+latency (``_trace_bind``).  Left out: the Binder / Evictor seams for custom
+binders (ROADMAP item 13).
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from typing import Dict, List, Optional, Tuple
 
-from volcano_tpu_torch import events
+from volcano_tpu_torch import events, trace
+from volcano_tpu_torch.scheduler import metrics
 from volcano_tpu_torch.api.objects import POD_GROUP_KEY, Metadata, PersistentVolume, Pod
 from volcano_tpu_torch.api.resource import parse_quantity
 from volcano_tpu_torch.api.types import TaskStatus
@@ -454,6 +458,37 @@ class SchedulerCache:
         except Exception as e:  # noqa: BLE001 — side-effect boundary
             self._record_err("event", key, e)
 
+    def _trace_bind(self, key: str, hostname: str, pod=None, published: bool = False) -> None:
+        """Armed-only forensics at the bind decision: a zero-duration
+        ``scheduler.bind`` span joining the pod's gang trace (the
+        ``volcano.sh/trace-id`` annotation), and the reference's
+        first-seen-to-bind latency series from the pod's
+        ``creation_timestamp``.  ``published=True`` marks the applier's
+        paths, where the span records the decision at publish time (the
+        store write may still fail and retry).  Callers check
+        ``trace.TRACER is not None`` first; the bulk paths pay one store
+        read a bind while armed."""
+        if pod is None:
+            try:
+                pod = self.store.get("Pod", key)
+            except Exception:  # noqa: BLE001 — forensics never breaks a bind
+                pod = None
+        if pod is None:
+            return
+        created = pod.meta.creation_timestamp
+        if created:
+            # a wall-clock read: the start edge is an epoch stamp another
+            # process may have written, so no monotonic clock shares it
+            metrics.update_pod_e2e_latency((time.time() - created) * 1e3)
+        tid = pod.meta.annotations.get(trace.TRACE_ID_KEY, "")
+        if tid:
+            # a marker span at the decision instant, in the gang's trace
+            attrs = {"task": key, "node": hostname}
+            if published:
+                attrs["published"] = True
+            with trace.span("scheduler.bind", trace_id=tid, **attrs):
+                pass
+
     def bind(self, task: TaskInfo, hostname: str) -> None:
         """Write one placement (with the applier, publish it); a vanished
         pod or a failed write is retried by the next cycle's fresh
@@ -461,6 +496,8 @@ class SchedulerCache:
         if self.applier is not None:
             self.applier.submit_bind(task.key, hostname)
             self.bind_log.append((task.key, hostname))
+            if trace.TRACER is not None:
+                self._trace_bind(task.key, hostname, getattr(task, "pod", None), published=True)
             return
         try:
             self.store.patch("Pod", task.key, {"node_name": hostname})
@@ -468,6 +505,8 @@ class SchedulerCache:
             self._record_err("bind", task.key, e)
             return
         self.bind_log.append((task.key, hostname))
+        if trace.TRACER is not None:
+            self._trace_bind(task.key, hostname, getattr(task, "pod", None))
         self._record_event(task.key, "Scheduled", events.scheduled_message(task.key, hostname))
 
     def evict(self, task: TaskInfo, reason: str) -> None:
@@ -510,6 +549,8 @@ class SchedulerCache:
                 self._record_err("bind", key, RuntimeError(err))
                 continue
             self.bind_log.append((key, host))
+            if trace.TRACER is not None:
+                self._trace_bind(key, host)
             self._record_event(key, "Scheduled", events.scheduled_message(key, host))
 
     def publish_segment(self, seg) -> None:
@@ -521,6 +562,9 @@ class SchedulerCache:
         self.applier.submit_segment(seg)
         self.bind_log.extend(zip(seg.bind_keys, seg.bind_hosts))
         self.evict_log.extend(zip(seg.evict_keys, seg.evict_reason_strs))
+        if trace.TRACER is not None:
+            for key, hostname in zip(seg.bind_keys, seg.bind_hosts):
+                self._trace_bind(key, hostname, published=True)
 
     def evict_bulk(self, evicts: List[Tuple[str, str]]) -> None:
         """Evict a cycle's victims, (pod_key, reason) each, through the

@@ -28,9 +28,10 @@ evictions on a node that cannot cover the request (``clean=False``) —
 returns False with nothing recorded; the cycle then runs the object
 preempt in its sub-cycle, or, if the reclaim pass holds records, takes the
 object path for the whole cycle.  Each pass records the preemption
-metrics (``scheduler/metrics.py``) as the JAX module does.  Left out of
-this copy: the ``vtprof`` dispatch hooks of the JAX module (ROADMAP queue 1
-item 9d).
+metrics (``scheduler/metrics.py``) as the JAX module does, and, while the
+profiler is armed, its solve's dispatch and its one fetch
+(``vtprof.device_get``, the whole-pass fetch boundary) under the phase
+``reclaim`` or ``preempt``.
 
 Divergences from the object path are the JAX module's: eviction-order ties
 break by pod arrival rank rather than uid order, and job and queue
@@ -40,17 +41,21 @@ at each step.
 
 from __future__ import annotations
 
+import time
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from volcano_tpu_torch import vtprof
 from volcano_tpu_torch.scheduler import metrics
 from volcano_tpu_torch.scheduler import victim_kernels as VK
 
 #: storms above this many preemptor tasks take the batched-rounds kernel
 #: first (solve_mode "auto"; "batch" always does, "exact" never)
 CONTENTION_BATCH_THRESHOLD = 64
+#: the vtprof phase of each storm solve's dispatch and fetch
+_PHASE = {"reclaim_solve": "reclaim", "preempt_solve": "preempt", "preempt_rounds": "preempt"}
 
 
 def contention_static_args(conf, probe) -> dict:
@@ -76,20 +81,6 @@ def contention_static_args(conf, probe) -> dict:
         has_proportion=probe.enabled.get("proportion", False),
         job_key_order=tuple(probe.job_key_order),
     )
-
-
-def fetch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
-    """Host copies of ``tensors`` in ONE device-to-host transfer: their
-    bytes are packed into one buffer on the device and split on the host."""
-    flat = [t.detach().reshape(-1) for t in tensors]
-    host = torch.cat([f.view(torch.uint8) for f in flat]).cpu().numpy()
-    out, at = [], 0
-    for t, f in zip(tensors, flat):
-        n = f.numel() * f.element_size()
-        dt = torch.empty(0, dtype=t.dtype).numpy().dtype
-        out.append(host[at:at + n].view(dt).reshape(tuple(t.shape)).copy())
-        at += n
-    return out
 
 
 class FastContention:
@@ -174,9 +165,18 @@ class FastContention:
     def _solve(self, name: str, *args, **kw):
         """The pass's storm solve: on whole node planes, or the ``*_sharded``
         one on the mesh's blocks."""
+        prof = vtprof.PROFILER
+        t0 = time.perf_counter() if prof is not None else 0.0
         if self.mesh is None:
-            return getattr(VK, name)(*args, **kw)
-        return getattr(VK, name + "_sharded")(*args, self.mesh, **kw)
+            out = getattr(VK, name)(*args, **kw)
+        else:
+            out = getattr(VK, name + "_sharded")(*args, self.mesh, **kw)
+        if prof is not None:
+            prof.dispatch_end(t0, self._kernel(name), phase=_PHASE[name])
+        return out
+
+    def _kernel(self, name: str) -> str:
+        return name if self.mesh is None else name + "_sharded"
 
     # -- consts rebuild after a task re-pack --------------------------------
 
@@ -270,13 +270,15 @@ class FastContention:
         for t in pt[np.argsort(pipe_att[pt], kind="stable")]:
             self.pipelines.append((int(t), int(pipe_node[t])))
 
-    def _solve_fetch(self, out, extra: Sequence[torch.Tensor]):
-        """The pass's one fetch: final state (node planes gathered from the
-        mesh's blocks), pipe, records, then ``extra``."""
+    def _solve_fetch(self, name: str, out, extra: Sequence[torch.Tensor]):
+        """The pass's one fetch (``vtprof.device_get``): final state (node
+        planes gathered from the mesh's blocks), pipe, records, then
+        ``extra``."""
         state = [self.mesh.gather_rows(torch.cat(x)) if isinstance(x, tuple) else x
                  for x in out.state]
-        host = fetch(state + [out.pipe, out.rec.evict_att, out.rec.pipe_node,
-                              out.rec.pipe_att] + list(extra))
+        host = vtprof.device_get(
+            state + [out.pipe, out.rec.evict_att, out.rec.pipe_node, out.rec.pipe_att]
+            + list(extra), kernel=self._kernel(name), phase=_PHASE[name])
         n = len(VK.VictimState._fields)
         return host[:n], host[n], host[n + 1], host[n + 2], host[n + 3], host[n + 4:]
 
@@ -304,7 +306,7 @@ class FastContention:
             has_proportion=self.has_proportion, job_key_order=self.job_key_order,
             **self.kw_reclaim,
         )
-        state, pipe, ea, pn, pa, (abort,) = self._solve_fetch(out, [out.abort])
+        state, pipe, ea, pn, pa, (abort,) = self._solve_fetch("reclaim_solve", out, [out.abort])
         if bool(abort):
             return False
         self._absorb(state, pipe)
@@ -381,7 +383,7 @@ class FastContention:
             **self.kw_preempt,
         )
         state, pipe, ea, pn, pa, (abort, att_total, last_v, any_p1) = self._solve_fetch(
-            out, [out.abort, out.att_total, out.last_v, out.any_p1])
+            "preempt_solve", out, [out.abort, out.att_total, out.last_v, out.any_p1])
         if bool(abort):
             return False
         self._absorb(state, pipe)
@@ -416,7 +418,7 @@ class FastContention:
             **self.kw_preempt,
         )
         state, pipe, ea, pn, pa, (att_total, last_v, any_commit) = self._solve_fetch(
-            out, [out.att_total, out.last_v, out.any_commit])
+            "preempt_rounds", out, [out.att_total, out.last_v, out.any_commit])
         if int(att_total) == 0:
             return attempt_rows
         self._absorb(state, pipe)

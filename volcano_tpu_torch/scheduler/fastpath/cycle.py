@@ -39,7 +39,7 @@ from typing import Dict, List, Set
 
 import numpy as np
 
-from volcano_tpu_torch import timeseries
+from volcano_tpu_torch import timeseries, vtprof
 from volcano_tpu_torch.api.types import PodGroupPhase
 from volcano_tpu_torch.native import water_fill_np
 from volcano_tpu_torch.scheduler import metrics
@@ -171,6 +171,9 @@ class FastCycle:
         ph["snapshot"] = time.perf_counter() - t
         if snap is None:
             return False
+        if vtprof.PROFILER is not None:
+            # the memory watermark of the snapshot's arrays this cycle
+            vtprof.PROFILER.note_bytes("snapshot", vtprof.array_bytes(snap))
         if aux["vol_solve_s"]:
             # the volume verdicts, carved out of the snapshot phase; the
             # phase appears only when volume pods are pending
@@ -240,6 +243,14 @@ class FastCycle:
             ready = snap.job_ready_init.copy()
         metrics.update_action_duration("allocate", t)
         ph["solve"] = time.perf_counter() - t
+        if vtprof.PROFILER is not None:
+            if self.mesh_hosts > 1:
+                # this host's solve critical path, build leg (the dispatch
+                # and fetch legs are noted at tensor_actions' boundary)
+                vtprof.PROFILER.note_mesh_host(self.mesh_host_id,
+                                               build_s=ph.get("snapshot", 0.0))
+            # task_node, task_kind, task_seq (an int32 a task row each), ready
+            vtprof.PROFILER.note_bytes("solve_out", 3 * task_node.nbytes + ready.nbytes)
 
         t = time.perf_counter()
         if "backfill" in self.conf.actions:

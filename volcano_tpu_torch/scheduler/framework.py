@@ -4,7 +4,8 @@ The port's copy of ``volcano_tpu/scheduler/framework.py``: the action and
 plugin registries, ``open_session`` (snapshot, the JobValid gate, plugin
 OnSessionOpen) and ``close_session`` (plugin OnSessionClose, then each
 PodGroup's phase and counts written back through the cache), each plugin
-callback's wall recorded in ``metrics``.
+callback's wall recorded in ``metrics``, and the trace spans
+``session.snapshot``, ``plugin`` (each callback) and ``session.close``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict, List, Optional
 
+from volcano_tpu_torch import trace
 from volcano_tpu_torch.api.objects import PodGroupCondition
 from volcano_tpu_torch.api.types import PodGroupPhase, TaskStatus, allocated_status
 from volcano_tpu_torch.scheduler import metrics
@@ -71,7 +73,9 @@ def open_session(cache, tiers: List[Tier]) -> Session:
     # start from clean volume session state even if the previous cycle
     # aborted before close_session could clear it
     cache.clear_session_volumes()
-    ssn = Session(cache, tiers, cache.snapshot())
+    with trace.span("session.snapshot"):
+        cluster = cache.snapshot()
+    ssn = Session(cache, tiers, cluster)
 
     for uid, job in list(ssn.jobs.items()):
         vr = ssn.job_valid(job)
@@ -95,7 +99,8 @@ def open_session(cache, tiers: List[Tier]) -> Session:
 
     for plugin in ssn.plugins.values():
         start = time.perf_counter()
-        plugin.on_session_open(ssn)
+        with trace.span("plugin", plugin=plugin.name, callback="OnSessionOpen"):
+            plugin.on_session_open(ssn)
         metrics.update_plugin_duration(plugin.name, "OnSessionOpen", start)
     return ssn
 
@@ -106,13 +111,15 @@ def close_session(ssn: Session) -> None:
     ssn.cache.clear_session_volumes()
     for plugin in ssn.plugins.values():
         start = time.perf_counter()
-        plugin.on_session_close(ssn)
+        with trace.span("plugin", plugin=plugin.name, callback="OnSessionClose"):
+            plugin.on_session_close(ssn)
         metrics.update_plugin_duration(plugin.name, "OnSessionClose", start)
-    for job in ssn.jobs.values():
-        if job.pod_group is None:
-            continue
-        _update_pod_group_status(ssn, job)
-        ssn.cache.update_job_status(job)
+    with trace.span("session.close"):
+        for job in ssn.jobs.values():
+            if job.pod_group is None:
+                continue
+            _update_pod_group_status(ssn, job)
+            ssn.cache.update_job_status(job)
 
 
 def _update_pod_group_status(ssn: Session, job) -> None:

@@ -68,6 +68,8 @@ from typing import Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from volcano_tpu_torch import vtprof
+
 NEG_INF = float("-inf")
 POS_INF = float("inf")
 
@@ -98,6 +100,29 @@ LAUNCHES: Dict[str, int] = {
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _launch_key(*xs, **kw) -> tuple:
+    """A launch's key in vtprof's launch-shape registry: the shapes of the
+    tensor arguments (of each tensor inside a tuple, named tuple or dict)
+    and the static keyword options; other positional values (a job row, a score
+    weight) vary per call and are no part of a shape."""
+    def shape(x):
+        if torch.is_tensor(x):
+            return tuple(x.shape)
+        if isinstance(x, dict):
+            return tuple(sorted((k, shape(v)) for k, v in x.items()))
+        if isinstance(x, (tuple, list)):
+            return tuple(shape(v) if torch.is_tensor(v) or isinstance(v, (tuple, list))
+                         else v if isinstance(v, (bool, str)) else None for v in x)
+        return None
+
+    def static(v):
+        if torch.is_tensor(v) or isinstance(v, (tuple, list)):
+            return shape(v)
+        return v if isinstance(v, (bool, int, float, str)) or v is None else type(v).__name__
+
+    return tuple(shape(x) for x in xs) + tuple(sorted((k, static(v)) for k, v in kw.items()))
 
 
 # --------------------------------------------------------------------------
@@ -140,12 +165,40 @@ def _fma(a, b, c):
     return (d(a) * d(b) + d(c)).float()
 
 
+#: the width of XLA's summing windows
+SUM_WINDOW = 32
+
+
 def _seq_sum0(x):
-    """Sum over axis 0 in index order."""
+    """Sum over axis 0 in index order, from 0.0."""
     acc = torch.zeros_like(x[0])
     for i in range(x.shape[0]):
         acc = acc + x[i]
     return acc
+
+
+def window_sum0(x):
+    """Sum over axis 0 in XLA's order for a float32 axis longer than 32.
+
+    XLA's CPU backend rewrites such a sum as a ``reduce-window`` of size 32
+    and stride 32 followed by a ``reduce`` (the HLO of
+    ``jax.jit(jnp.sum).lower(x).compile()`` under JAX 0.9.0): pad the axis
+    with zeros to a multiple of 32, ``floor(pad / 2)`` in front and the rest
+    behind; sum each window of 32 in index order from 0.0; repeat on the
+    partials until 32 or fewer remain, then sum those in index order.  An
+    axis of 32 or fewer is summed in index order, which is the same rule.
+    Equal bit for bit to ``jax.jit(jnp.sum)`` (tests/test_torch_kernels.py);
+    ``csrc/water_fill.cu`` sums in the same order.
+    """
+    while x.shape[0] > SUM_WINDOW:
+        n = x.shape[0]
+        nw = -(-n // SUM_WINDOW)
+        pad = nw * SUM_WINDOW - n
+        front = x.new_zeros((pad // 2,) + tuple(x.shape[1:]))
+        back = x.new_zeros((pad - pad // 2,) + tuple(x.shape[1:]))
+        w = torch.cat([front, x, back]).reshape((nw, SUM_WINDOW) + tuple(x.shape[1:]))
+        x = _seq_sum0(w.transpose(0, 1))
+    return _seq_sum0(x)
 
 
 def _score_nodes(req, used, cap, class_score_row, w_least, w_balanced):
@@ -205,7 +258,7 @@ def water_fill_plain(weight, request, total, eps, participates):
     zero = torch.zeros((), dtype=request.dtype, device=request.device)
     for _ in range(WATER_FILL_MAX_ROUNDS):
         live = participates & ~met
-        total_weight = _seq_sum0(torch.where(live, weight, zero))
+        total_weight = window_sum0(torch.where(live, weight, zero))
         frac = torch.where(
             total_weight > 0, weight / torch.clamp_min(total_weight, 1e-30), zero
         )
@@ -216,7 +269,7 @@ def water_fill_plain(weight, request, total, eps, participates):
             exceeded[:, None], torch.minimum(new_deserved, request), new_deserved
         )
         met = met | exceeded
-        remaining = remaining - _seq_sum0(capped - deserved)
+        remaining = remaining - window_sum0(capped - deserved)
         deserved = capped
         if not (bool(total_weight > 0) and not bool(is_empty(remaining, eps))):
             return deserved
@@ -968,6 +1021,9 @@ def water_fill(weight, request, total, eps, participates):
     the next ``water_fill_check`` (see there), before any decision computed
     from these shares is returned."""
     dev = request.device
+    tok = None
+    if vtprof.PROFILER is not None:  # disarmed, no launch key is built
+        tok = vtprof.launch_begin("water_fill", _launch_key(request), dev)
     if dev.type == "cpu":
         return water_fill_plain(weight, request, total, eps, participates)
     if dev.type != "cuda":
@@ -976,6 +1032,7 @@ def water_fill(weight, request, total, eps, participates):
 
     out = water_fill_launch(_build.load(), _stream(dev), weight, request, total, eps, participates)
     LAUNCHES["water_fill"] += 1
+    vtprof.launch_end(tok)
     return out
 
 
@@ -1350,6 +1407,10 @@ def _solve(batch, args, kwargs, plain):
     if unknown:
         raise TypeError(f"unexpected arguments {sorted(unknown)}")
     dev = a["idle"].device
+    name = "allocate_solve_batch" if batch else "allocate_solve"
+    tok = None
+    if vtprof.PROFILER is not None:  # disarmed, no launch key is built
+        tok = vtprof.launch_begin(name, _launch_key(*a.values(), **opts), dev)
     if dev.type == "cpu":
         return plain(**a, **opts)
     if dev.type != "cuda":
@@ -1363,12 +1424,12 @@ def _solve(batch, args, kwargs, plain):
         opts.get("use_gang_ready", True), opts.get("use_proportion", True),
         **({k: opts[k] for k in ("m_chunk", "p_chunk", "portsel", "volsel") if k in opts}),
     )
-    name = "allocate_solve_batch" if batch else "allocate_solve"
     LAUNCHES[name] += 1
     if opts.get("portsel") is not None:
         LAUNCHES[name + "_portsel"] += 1
     if opts.get("volsel") is not None:
         LAUNCHES["allocate_solve_volsel"] += 1
+    vtprof.launch_end(tok)
     return out
 
 

@@ -22,9 +22,11 @@ discarded, never an error) and counted in
 ``volcano_metrics_dropped_series_total{metric=...}``.
 
 Durations come from monotonic clocks (``time.perf_counter``).  Families of
-the JAX module that wait for other modules of the port: the critical-path
-profiler's (ROADMAP item 9d), the WAL's and replication's (item 11), the
-process mesh's and the elastic autoscaler's (12).
+the JAX module that wait for other modules of the port: the WAL's,
+replication's and the digest audit's (ROADMAP item 11), the process mesh's
+and the elastic autoscaler's (12).  ``volcano_jit_compiles_total`` keeps
+its JAX name and counts the growth of the launch-shape registry
+(``vtprof.py``); its HELP line says so.
 """
 
 from __future__ import annotations
@@ -317,8 +319,40 @@ def register_residue_tasks(cls: str, count: int) -> None:
     inc("volcano_residue_tasks_total", float(count), **{"class": cls})
 
 
+# -- the critical-path profiler's series (volcano_tpu_torch/vtprof.py) ----------
+
+def register_jit_compile(kernel: str, n: int = 1) -> None:
+    """Growth of one kernel's launch-shape registry seen by the vtprof
+    sentinel: a new launch shape, per-shape workspace or library build
+    (the JAX series counts XLA compiles; the name is kept for the
+    dashboards).  In steady state this series must stay flat."""
+    inc("volcano_jit_compiles_total", float(n), kernel=kernel)
+
+
 def register_kernel_dispatch(kernel: str, n: int = 1) -> None:
     inc("volcano_kernel_dispatch_total", float(n), kernel=kernel)
+
+
+def observe_prof_segment(phase: str, segment: str, seconds: float) -> None:
+    """One cycle's share of a (phase, segment) cell, segment one of host /
+    dispatch / wait / transfer."""
+    observe("volcano_prof_segment_seconds", seconds, phase=phase, segment=segment)
+
+
+def observe_kernel_device_seconds(kernel: str, seconds: float) -> None:
+    """One kernel's device seconds in one cycle: CUDA-event time of its
+    launches on the card, wait + transfer on the CPU."""
+    observe("volcano_kernel_device_seconds", seconds, kernel=kernel)
+
+
+def update_device_bytes(component: str, nbytes: int) -> None:
+    """Memory watermark gauge: bytes held per component (mirror / snapshot /
+    device)."""
+    set_gauge("volcano_device_bytes", float(nbytes), component=component)
+
+
+def register_prof_anomaly(kind: str) -> None:
+    inc("volcano_prof_anomalies_total", kind=kind)
 
 
 # -- incremental scheduling (scheduler/delta/) ----------------------------------
@@ -364,8 +398,19 @@ _HELP: Dict[str, str] = {
         "Tasks routed to the host residue path, by reason class",
     "volcano_decision_drain_batch_seconds":
         "Wall seconds one async-applier batch took to reach the store",
+    "volcano_jit_compiles_total":
+        "New kernel launch shapes, workspaces and library builds per kernel "
+        "(steady state must stay flat)",
     "volcano_kernel_dispatch_total":
         "Jitted kernel dispatches per kernel",
+    "volcano_prof_segment_seconds":
+        "Per-cycle critical-path share by phase and segment",
+    "volcano_kernel_device_seconds":
+        "Per-cycle device seconds per kernel (CUDA events on the card)",
+    "volcano_device_bytes":
+        "Bytes held per component (memory watermark)",
+    "volcano_prof_anomalies_total":
+        "vtprof sentinel trips (steady-state recompiles, leaks) by kind",
     "volcano_delta_micro_cycles_total":
         "Micro-cycle snapshot builds (dirty-set diff, no full sweep)",
     "volcano_delta_full_fallbacks_total":

@@ -37,13 +37,23 @@ cycle drops the decisions its applier still queues from a lost leadership
 the card beside the mirror's first sync (or its restore from
 ``conf.mirror_checkpoint``), and launches each kernel variant the live
 cluster can reach once, its decisions discarded; ``save_mirror_checkpoint``
-writes the checkpoint a restarted scheduler restores from.  Not ported:
-the digest audit tick and the daemon entry (ROADMAP item 11).
+writes the checkpoint a restarted scheduler restores from.  While the
+tracer is armed (``trace.py``) every cycle is a ``scheduler.cycle`` span
+(path fast or object) with its actions, plugins, statements and device
+solves beneath it, and the sub-cycle a ``scheduler.residue`` span; while
+the profiler is armed (``vtprof.py``) every cycle is one profile record
+(``begin_cycle`` / ``end_cycle``) and ``prewarm`` ends with the warmup
+handshake, deferred to the background warm's end when it has one.  With
+``VOLCANO_TPU_PROFILE`` set to a directory, every cycle runs under
+``torch.profiler`` and writes ``cycle-NNNNNN/trace.json`` there.  Not
+ported: the digest audit tick, which raises the steady-state divergence
+crash dump, and the daemon entry (ROADMAP item 11).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from typing import Dict, List, Optional
@@ -53,7 +63,7 @@ import torch
 
 import volcano_tpu_torch.scheduler.actions  # noqa: F401  (registers actions)
 import volcano_tpu_torch.scheduler.plugins  # noqa: F401  (registers plugins)
-from volcano_tpu_torch import timeseries
+from volcano_tpu_torch import timeseries, trace, vtprof
 from volcano_tpu_torch.scheduler import kernels, metrics
 from volcano_tpu_torch.scheduler.cache import SchedulerCache
 from volcano_tpu_torch.scheduler.conf import BACKENDS, SchedulerConf, full_conf, load_conf
@@ -65,6 +75,20 @@ from volcano_tpu_torch.scheduler.tensor_backend import DeviceUploads, TensorBack
 FAST_PATHS = ("auto", "off")
 
 _LOG = logging.getLogger("volcano_tpu_torch.scheduler")
+
+
+def _session_traces(ssn) -> list:
+    """The trace ids the session's gangs carry (PodGroup annotations): the
+    cycle span links them, so that one gang's trace reconstructs the cycle
+    that scheduled it.  Armed-only; the callers check first."""
+    out = set()
+    for job in ssn.jobs.values():
+        pg = job.pod_group
+        if pg is not None:
+            tid = pg.meta.annotations.get(trace.TRACE_ID_KEY, "")
+            if tid:
+                out.add(tid)
+    return sorted(out)
 
 
 def resolve_device(backend: str) -> torch.device:
@@ -145,6 +169,8 @@ class Scheduler:
         # the cycle rows' counter and the bind log's length at the last row
         self._cycle_n = 0
         self._bind_log_n = 0
+        #: the next VOLCANO_TPU_PROFILE cycle directory's number
+        self._profile_cycle = 0
 
     @classmethod
     def from_conf_yaml(cls, store, text: str, **kw) -> "Scheduler":
@@ -229,13 +255,26 @@ class Scheduler:
                               "later": [n for n, _ in later]}
         self._run_warm_tasks(critical)
         if background and later:
+            def bg_warm():
+                self._run_warm_tasks(later, True)
+                # the background warm's launch shapes are warmup too
+                self._warmup_handshake()
+
             self.prewarm_background = threading.Thread(
-                target=self._run_warm_tasks, args=(later, True), daemon=True,
-                name="volcano-prewarm")
+                target=bg_warm, daemon=True, name="volcano-prewarm")
             self.prewarm_background.start()
         else:
             self._run_warm_tasks(later)
+            self._warmup_handshake()
         return time.perf_counter() - t0
+
+    @staticmethod
+    def _warmup_handshake() -> None:
+        """The end of warmup for an armed profiler: the launch shapes,
+        workspaces and builds so far were expected; the first cycle without
+        new ones marks steady state, and any later one is an anomaly."""
+        if vtprof.PROFILER is not None:
+            vtprof.PROFILER.warmup_handshake()
 
     def _run_warm_tasks(self, tasks, swallow: bool = False) -> None:
         """Run (name, thunk) warm tasks in order, each under the launch lock
@@ -428,9 +467,31 @@ class Scheduler:
             self._stand_by()
             return
         with self._launch_lock:
-            self._run_once_inner()
+            profile_dir = os.environ.get("VOLCANO_TPU_PROFILE")
+            if profile_dir:
+                self._run_profiled(profile_dir)
+            else:
+                self._run_once_inner()
             # a cycle whose shares no consumer checked still raises here
             kernels.water_fill_check()
+
+    def _run_profiled(self, profile_dir: str) -> None:
+        """One cycle under ``torch.profiler`` (host activity, and the card's
+        kernels under a ``cuda`` backend), its Chrome trace written to a
+        directory of its own, ``cycle-NNNNNN/trace.json`` under
+        ``profile_dir``, so that cycles in the same second never clobber
+        each other."""
+        from torch.profiler import ProfilerActivity, profile
+
+        cycle_dir = os.path.join(profile_dir, f"cycle-{self._profile_cycle:06d}")
+        self._profile_cycle += 1
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            self._run_once_inner()
+        os.makedirs(cycle_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(cycle_dir, "trace.json"))
 
     def _stand_by(self) -> None:
         """A standby (or deposed) scheduler's cycle: only the lease holder
@@ -448,19 +509,35 @@ class Scheduler:
 
     def _run_once_inner(self) -> None:
         start = time.perf_counter()
-        if self.fast_cycle is not None and self.fast_cycle.try_run():
-            self.last_path = "fast"
-            metrics.update_e2e_duration(start)
-            if timeseries.RECORDER is not None:
-                self._record_cycle(start, "fast")
-            return
-        if self.fast_cycle is not None and not self.fast_cycle.is_coordinator:
+        prof = vtprof.PROFILER
+        if prof is not None:
+            # the profiler's cycle scope (disarmed, the cycle pays this
+            # one attribute check)
+            prof.begin_cycle()
+        fc = self.fast_cycle
+        if fc is not None:
+            with trace.span("scheduler.cycle", path="fast") as cyc:
+                ran = fc.try_run()
+                if trace.TRACER is not None:
+                    self._annotate_fast_cycle(cyc, ran)
+            if ran:
+                self.last_path = "fast"
+                metrics.update_e2e_duration(start)
+                if prof is not None:
+                    prof.end_cycle(time.perf_counter() - start, dict(fc.phases or {}), "fast",
+                                   mirror=fc.mirror)
+                if timeseries.RECORDER is not None:
+                    self._record_cycle(start, "fast")
+                return
+        if fc is not None and not fc.is_coordinator:
             # a mesh-host worker whose fast cycle declined: the object path
             # writes the whole cluster, single-writer work the coordinator
             # takes; the worker's mirror reconciles through the watch
             self.last_path = "mesh-worker-skip"
+            if prof is not None:
+                prof.end_cycle(time.perf_counter() - start, {}, "mesh-worker-skip")
             return
-        if self.fast_cycle is not None and self.cache.applier is not None:
+        if fc is not None and self.cache.applier is not None:
             # earlier fast cycles' decisions (binds, statuses, admissions)
             # must be IN the store before an object session snapshots it
             if not self.cache.applier.flush(timeout=self.FALLBACK_FLUSH_TIMEOUT_S):
@@ -469,14 +546,39 @@ class Scheduler:
         self.run_object_actions(self.conf.actions)
         self.last_path = "object"
         metrics.update_e2e_duration(start)
+        if prof is not None:
+            prof.end_cycle(time.perf_counter() - start, {}, "object")
         if timeseries.RECORDER is not None:
             self._record_cycle(start, "object")
+
+    def _annotate_fast_cycle(self, cyc, ran: bool) -> None:
+        """Armed-only: the fast cycle's phases, its residue classes and the
+        traces of the gangs it served, on its ``scheduler.cycle`` span."""
+        fc = self.fast_cycle
+        cyc.annotate(completed=ran,
+                     **{f"phase.{k}": round(v, 6) for k, v in (fc.phases or {}).items()})
+        reasons = fc.last_residue_reasons
+        if reasons:
+            # which gangs took the slow class and why: the span-side twin
+            # of volcano_residue_tasks_total
+            cyc.annotate(residue_jobs=len(reasons),
+                         residue_classes=",".join(sorted(set(reasons.values()))))
+        if ran:
+            # the mirror keeps arrays, not annotations: read the PodGroups
+            try:
+                cyc.link(*sorted(tid for tid in (
+                    pg.meta.annotations.get(trace.TRACE_ID_KEY, "")
+                    for pg in self.cache.store.list("PodGroup")) if tid))
+            except Exception as e:  # noqa: BLE001 — forensics never breaks a cycle
+                cyc.annotate(link_error=repr(e))
 
     def _record_cycle(self, start: float, path: str) -> None:
         """One ``kind="cycle"`` time-series row; the callers check
         ``timeseries.RECORDER`` first.  The recorder adds no phase: it
-        observes the cycle and never reshapes it.  (The JAX row's vtprof
-        fields wait for the profiler, ROADMAP item 9d.)"""
+        observes the cycle and never reshapes it.  With the profiler armed
+        the row carries the cycle's ``host_s``, ``device_s`` (dispatch +
+        wait) and ``transfer_s``, and on a multi-controller run the
+        per-host solve walls ``mesh_hosts``."""
         fields: dict = {"dur_s": round(time.perf_counter() - start, 6),
                         "path": path, "cycle": self._cycle_n}
         self._cycle_n += 1
@@ -494,6 +596,16 @@ class Scheduler:
         if applier is not None:
             # the decisions published and not yet written back
             fields["drain_pending"] = applier.pending
+        prof = vtprof.PROFILER
+        if prof is not None and prof.cycles:
+            # this cycle's device / host split (end_cycle ran just before)
+            seg = prof.cycles[-1].get("seg") or {}
+            fields["host_s"] = seg.get("host", 0.0)
+            fields["device_s"] = round(seg.get("dispatch", 0.0) + seg.get("wait", 0.0), 6)
+            fields["transfer_s"] = seg.get("transfer", 0.0)
+        if prof is not None and prof.hosts:
+            fields["mesh_hosts"] = {h: {k: round(v, 6) for k, v in row.items()}
+                                    for h, row in prof.hosts.items()}
         timeseries.record("cycle", **fields)
 
     def close(self) -> None:
@@ -522,21 +634,26 @@ class Scheduler:
     def run_object_actions(self, names) -> None:
         """One object-path pass: open a session with the tensor backend
         attached, execute ``names`` in order, close."""
-        ph = self.object_phases = {}
-        t = time.perf_counter()
-        ssn = self._open_object_session()
-        ph["session_open"] = time.perf_counter() - t
-        for name in names:
-            action = get_action(name)
-            if action is None:
-                continue
+        with trace.span("scheduler.cycle", path="object") as cyc:
+            ph = self.object_phases = {}
             t = time.perf_counter()
-            action.execute(ssn)
-            metrics.update_action_duration(name, t)
-            ph[name] = time.perf_counter() - t
-        t = time.perf_counter()
-        close_session(ssn)
-        ph["close_session"] = time.perf_counter() - t
+            ssn = self._open_object_session()
+            ph["session_open"] = time.perf_counter() - t
+            if trace.TRACER is not None:
+                # the cycle serves every gang at once: link each traced one
+                cyc.link(*_session_traces(ssn))
+            for name in names:
+                action = get_action(name)
+                if action is None:
+                    continue
+                t = time.perf_counter()
+                with trace.span("action", action=name):
+                    action.execute(ssn)
+                metrics.update_action_duration(name, t)
+                ph[name] = time.perf_counter() - t
+            t = time.perf_counter()
+            close_session(ssn)
+            ph["close_session"] = time.perf_counter() - t
 
     def run_object_residue(self, residue_keys, run_preempt: bool) -> None:
         """The fast cycle's object sub-cycle: allocate and backfill scoped
@@ -545,6 +662,10 @@ class Scheduler:
         that sees the fast cycle's published binds through
         ``cache.cycle_overlay``.  close_session owns the cycle's PodGroup
         status writes.  ``object_phases`` gets the sub-cycle's walls."""
+        with trace.span("scheduler.residue") as sub:
+            self._run_object_residue(sub, residue_keys, run_preempt)
+
+    def _run_object_residue(self, sub, residue_keys, run_preempt: bool) -> None:
         from volcano_tpu_torch.scheduler.actions.allocate import AllocateAction
         from volcano_tpu_torch.scheduler.actions.backfill import BackfillAction
 
@@ -552,6 +673,8 @@ class Scheduler:
         t = time.perf_counter()
         ssn = self._open_object_session()
         ph["session_open"] = time.perf_counter() - t
+        if trace.TRACER is not None:
+            sub.link(*_session_traces(ssn))
         if residue_keys:
             def in_residue(job):
                 if job.pod_group is not None:
@@ -565,19 +688,22 @@ class Scheduler:
                 # fast cycle's residue_vec phase
                 stats = self.fast_cycle.residue_stats if self.fast_cycle is not None else None
                 t = time.perf_counter()
-                AllocateAction()._execute_host(ssn, job_filter=in_residue, stats=stats)
+                with trace.span("action", action="allocate", residue=True):
+                    AllocateAction()._execute_host(ssn, job_filter=in_residue, stats=stats)
                 metrics.update_action_duration("allocate", t)
                 ph["allocate"] = time.perf_counter() - t
             if "backfill" in self.conf.actions:
                 t = time.perf_counter()
-                BackfillAction().execute(ssn, job_filter=in_residue)
+                with trace.span("action", action="backfill", residue=True):
+                    BackfillAction().execute(ssn, job_filter=in_residue)
                 metrics.update_action_duration("backfill", t)
                 ph["backfill"] = time.perf_counter() - t
         if run_preempt:
             action = get_action("preempt")
             if action is not None:
                 t = time.perf_counter()
-                action.execute(ssn)
+                with trace.span("action", action="preempt"):
+                    action.execute(ssn)
                 metrics.update_action_duration("preempt", t)
                 ph["preempt"] = time.perf_counter() - t
         t = time.perf_counter()

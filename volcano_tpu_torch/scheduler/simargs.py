@@ -1004,7 +1004,12 @@ def build_group_edge_args(case: str, seed: int = 0):
 
 #: K1's shapes (``build_water_fill_args``): the config-5 cell's, 128
 #: queues, 2,048 (queue, dim) cells, and 1,024 queues that take 21 rounds
-WATER_FILL_CASES = ("config5", "queues_128", "cells_2048", "staggered_1024")
+WATER_FILL_CASES = ("config5", "queues_128", "cells_2048", "staggered_1024",
+                    "staggered_4096", "staggered_8192")
+#: the staggered cases' (queues, dims): above 1,024 queues K1 sums in two
+#: levels of windows, and 8,192 cells is its cap
+_STAGGERED = {"staggered_1024": (1_024, 2), "staggered_4096": (4_096, 2),
+              "staggered_8192": (8_192, 1)}
 _WATER_FILL_KEYS = ("queue_weight", "queue_request", "total", "eps", "queue_participates")
 
 
@@ -1017,21 +1022,24 @@ def build_water_fill_args(case: str) -> dict:
     seed=6)``'s (1,024 queue rows x 2 dims), and ``staggered_1024`` 1,024
     queues of weight 0.95**q whose requests cycle through 1-16 x (250
     millicores, 256 MiB), sharing 95% of their sum: the fill caps a few
-    queues a round and takes 21 rounds."""
+    queues a round and takes 21 rounds.  ``staggered_4096`` (4,096 queues x
+    2 dims) and ``staggered_8192`` (8,192 x the millicores alone) repeat
+    that pattern every 1,024 queues, up to K1's cap of 8,192 cells."""
     if case == "config5":
         a = build_sim_args(10_000, 100_000, 5_000)
     elif case == "queues_128":
         a = build_sim_args(10_000, 4_000, 200, n_queues=128, seed=5)
     elif case == "cells_2048":
         a = build_sim_args(1_000, 4_000, 2_000, n_queues=600, seed=6)
-    elif case == "staggered_1024":
-        q = np.arange(1_024)
+    elif case in _STAGGERED:
+        n, dims = _STAGGERED[case]
+        q = np.arange(n)
         steps = (1 + q % 16).astype(np.float32)
-        req = np.stack([250.0 * steps, steps * float(1 << 28)], 1).astype(np.float32)
-        return dict(queue_weight=(0.95 ** q).astype(np.float32), queue_request=req,
+        req = np.stack([250.0 * steps, steps * float(1 << 28)], 1)[:, :dims].astype(np.float32)
+        return dict(queue_weight=(0.95 ** (q % 1_024)).astype(np.float32), queue_request=req,
                     total=(req.sum(0) * 0.95).astype(np.float32),
-                    eps=np.array([10.0, 10 * 1024 * 1024], np.float32),
-                    queue_participates=np.ones(1_024, bool))
+                    eps=np.array([10.0, 10 * 1024 * 1024], np.float32)[:dims],
+                    queue_participates=np.ones(n, bool))
     else:
         raise ValueError(f"unknown water fill case {case!r}")
     return {k: a[k] for k in _WATER_FILL_KEYS}

@@ -3,12 +3,15 @@
 The port's copy of ``volcano_tpu/scheduler/statement.py``.  Evict/Pipeline mutate session state immediately and append to the op log;
 Commit replays evictions against the cache (the real side effect); Discard
 rolls back in reverse order (unevict to Running, unpipeline to Pending).
+Each settlement is a ``statement.commit`` / ``statement.discard`` trace
+span while the tracer is armed.
 """
 
 from __future__ import annotations
 
 from typing import List, Tuple
 
+from volcano_tpu_torch import trace
 from volcano_tpu_torch.api.types import TaskStatus
 from volcano_tpu_torch.scheduler.model import TaskInfo
 from volcano_tpu_torch.scheduler.session import Event, Session
@@ -56,15 +59,17 @@ class Statement:
                 eh.deallocate_func(Event(task))
 
     def discard(self) -> None:
-        for name, task, _ in reversed(self.operations):
-            if name == "evict":
-                self._unevict(task)
-            else:
-                self._unpipeline(task)
+        with trace.span("statement.discard", ops=len(self.operations)):
+            for name, task, _ in reversed(self.operations):
+                if name == "evict":
+                    self._unevict(task)
+                else:
+                    self._unpipeline(task)
         self.operations.clear()
 
     def commit(self) -> None:
-        for name, task, reason in self.operations:
-            if name == "evict":
-                self.ssn.cache.evict(task, reason)
+        with trace.span("statement.commit", ops=len(self.operations)):
+            for name, task, reason in self.operations:
+                if name == "evict":
+                    self.ssn.cache.evict(task, reason)
         self.operations.clear()

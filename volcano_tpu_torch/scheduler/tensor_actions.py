@@ -32,9 +32,11 @@ The port's copy of ``volcano_tpu/scheduler/tensor_actions.py``:
 
 from __future__ import annotations
 
-import numpy as np
-import torch
+import time
 
+import numpy as np
+
+from volcano_tpu_torch import trace, vtprof
 from volcano_tpu_torch.api.types import PodGroupPhase, TaskStatus
 from volcano_tpu_torch.scheduler import metrics
 from volcano_tpu_torch.scheduler.cache import VolumeBindingError
@@ -116,45 +118,62 @@ def solve_inputs(backend, snap, use_batch):
     )
 
 
+def _solve_kernel_name(use_batch: bool) -> str:
+    return "allocate_solve_batch" if use_batch else "allocate_solve"
+
+
 def torch_allocate_solve(backend, snap, n_pending=None):
     """Run the allocate solve for ``snap``; returns numpy (task_node,
-    task_kind, task_seq, ready)."""
+    task_kind, task_seq, ready).  Armed, vtprof times the uploads and
+    launches as the solve's dispatch and the fetch as its wait and
+    transfer (phase ``solve``)."""
     if n_pending is None:
         n_pending = int(snap.task_valid.sum())
     use_batch = use_batch_solve(backend, n_pending)
+    kname = _solve_kernel_name(use_batch)
+    host = backend.mesh_host
+    prof = vtprof.PROFILER
+    t_disp = time.perf_counter() if prof is not None else 0.0
     out = _solve(backend, use_batch, solve_inputs(backend, snap, use_batch))
+    if prof is not None:
+        prof.dispatch_end(t_disp, kname, phase="solve")
     T, J = snap.task_req.shape[0], snap.job_queue.shape[0]
-    if backend.mesh_host is not None:
-        return _fetch_owned(out, T, J, backend.mesh_host, backend.mesh_hosts)
-    return _fetch(out, T, J)
+    if host is not None:
+        if prof is not None:
+            prof.note_mesh_host(host, dispatch_s=time.perf_counter() - t_disp)
+        with trace.span("device.allocate_solve", batch=use_batch, mesh_host=int(host)) as sp:
+            return _fetch_owned(out, T, J, host, backend.mesh_hosts, kname, sp)
+    with trace.span("device.allocate_solve", batch=use_batch) as sp:
+        return _fetch(out, T, J, kname, "solve", sp)
 
 
-def _fetch_owned(out, T, J, host, n_hosts):
+def _fetch_owned(out, T, J, host, n_hosts, kname, span):
     """The multi-controller fetch (JAX tensor_actions.py:522-590): only
     this host's task block of the three task planes, and the whole [J]
     ready plane every host needs for gang gating; rows outside the block
-    are zero-filled (task_kind 0: not this host's to publish)."""
+    are zero-filled (task_kind 0: not this host's to publish).  The
+    per-host vtprof boundary: armed, its wall rolls up under the host's
+    ``fetch_s``."""
     from volcano_tpu_torch.parallel.multihost import host_bounds
 
     packed = pack_outputs(out)
-    if packed.device.type == "cuda":
-        torch.cuda.synchronize(packed.device)
     lo, hi = host_bounds(T, n_hosts)[host]
+    owned = vtprof.fetch_outputs(
+        [packed[k * T + lo:k * T + hi] for k in range(3)] + [packed[3 * T:3 * T + J]],
+        kernel=kname, phase="solve", host=host, span=span)
 
-    def plane(k):
+    def plane(vals):
         buf = np.zeros(T, np.int32)
-        buf[lo:hi] = packed[k * T + lo:k * T + hi].cpu().numpy()
+        buf[lo:hi] = vals
         return buf
 
-    return plane(0), plane(1), plane(2), packed[3 * T:3 * T + J].cpu().numpy()
+    return plane(owned[0]), plane(owned[1]), plane(owned[2]), owned[3]
 
 
-def _fetch(out, T, J):
-    """The one fetch boundary: wait for the device, copy the packed array."""
-    packed = pack_outputs(out)
-    if packed.device.type == "cuda":
-        torch.cuda.synchronize(packed.device)
-    flat = packed.cpu().numpy()
+def _fetch(out, T, J, kname, phase, span):
+    """The one fetch boundary (``vtprof.fetch``): wait for the device, copy
+    the packed array."""
+    flat = vtprof.fetch(pack_outputs(out), kernel=kname, phase=phase, span=span)
     return (
         flat[:T], flat[T:2 * T], flat[2 * T:3 * T],
         np.ascontiguousarray(flat[3 * T:3 * T + J]),
@@ -215,9 +234,16 @@ def dyn_solve_args(backend, snap, dyn, n_pending=None):
 def torch_dynamic_solve(backend, snap, dyn, n_pending=None):
     """Run the dynamic solve; returns numpy (task_node, task_kind,
     task_seq, ready) over the dyn task layout, in ONE packed fetch."""
+    prof = vtprof.PROFILER
+    t_disp = time.perf_counter() if prof is not None else 0.0
     use_batch, inputs, task_words, volsel = dyn_solve_inputs(backend, snap, dyn, n_pending)
     out = _solve(backend, use_batch, inputs, task_words, volsel)
-    return _fetch(out, dyn["task_req"].shape[0], snap.job_queue.shape[0])
+    kname = "dynamic_" + _solve_kernel_name(use_batch)
+    if prof is not None:
+        prof.dispatch_end(t_disp, kname, phase="dyn_solve")
+    with trace.span("device.dynamic_solve", batch=use_batch) as sp:
+        return _fetch(out, dyn["task_req"].shape[0], snap.job_queue.shape[0], kname,
+                      "dyn_solve", sp)
 
 
 # --------------------------------------------------------------------------
@@ -308,20 +334,24 @@ class _VictimDriver:
         snap = self.snap
         jt = self.job_row[task.job_uid]
         qt = self.queue_row.get(self.ssn.jobs[task.job_uid].queue, -1)
+        prof = vtprof.PROFILER
+        t_disp = time.perf_counter() if prof is not None else 0.0
         if self.mesh is None:
+            kname = "victim_step"
             out = victim_step(self.consts, self.state, self.task_req[t],
                               int(snap.task_class[t]), jt, qt, mode=mode, groups=self.groups,
                               **self.kw)
         else:
+            kname = "victim_step_sharded"
             out = victim_step_sharded(self.consts, self.state, self.task_req[t],
                                       int(snap.task_class[t]), jt, qt, self.mesh, mode=mode,
                                       groups=self.groups, **self.kw)
-        packed = out.packed
-        if packed.device.type == "cuda":
-            torch.cuda.synchronize(packed.device)
+        phase = "reclaim" if mode == "reclaim" else "preempt"
+        if prof is not None:
+            prof.dispatch_end(t_disp, kname, phase=phase)
         # the one fetch of the attempt
-        assigned, nstar, vmask, clean = unpack_step(packed.cpu().numpy(),
-                                                    snap.run_req.shape[0])
+        assigned, nstar, vmask, clean = unpack_step(
+            vtprof.fetch(out.packed, kernel=kname, phase=phase), snap.run_req.shape[0])
         if not clean:
             return False, "", [], False
         if not assigned:

@@ -67,12 +67,14 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
+from volcano_tpu_torch import vtprof
 from volcano_tpu_torch.scheduler.kernels import (
     POS_INF,
     SEL_CHUNK,
     _KEY_CODE,
     _MAX_R,
     _check,
+    _launch_key,
     _lexsort,
     _raise_on,
     _score_nodes,
@@ -1065,11 +1067,16 @@ def victim_groups(c: VictimConsts, live, *, order_by_priority=True,
     row ranked among its node's rows by full comparison.  CPU tensors run
     ``victim_groups_plain``."""
     dev = _device_of(c, "victim_groups")
+    tok = None
+    if vtprof.PROFILER is not None:  # disarmed, no launch key is built
+        tok = vtprof.launch_begin(
+            "victim_groups", _launch_key(c, live, order_by_priority=order_by_priority), dev)
     if dev.type == "cpu":
         return victim_groups_plain(c, live, order_by_priority=order_by_priority, mesh=mesh)
     out = victim_groups_launch(*_lib_stream(dev), c, live, order_by_priority,
                                _group_nodes(c, mesh))
     LAUNCHES["victim_groups"] += 1
+    vtprof.launch_end(tok)
     return out
 
 
@@ -1144,12 +1151,16 @@ def victim_step(c, s, t_req, t_cls, jt, qt, *, mode="queue", use_gang=True, use_
     kw = dict(mode=mode, use_gang=use_gang, use_drf=use_drf, use_prop=use_prop,
               use_conformance=use_conformance, order_by_priority=order_by_priority)
     dev = _device_of(c, "victim_step")
+    tok = None
+    if vtprof.PROFILER is not None:  # disarmed, no launch key is built
+        tok = vtprof.launch_begin("victim_step", _launch_key(c, s, t_req, **kw), dev)
     if dev.type == "cpu":
         return victim_step_plain(c, s, t_req, t_cls, jt, qt, groups=groups, **kw)
     if groups is None:
         groups = victim_groups(c, s.run_live, order_by_priority=order_by_priority)
     out = victim_step_launch(*_lib_stream(dev), c, s, t_req, t_cls, jt, qt, groups=groups, **kw)
     LAUNCHES["victim_step"] += 1
+    vtprof.launch_end(tok)
     return out
 
 
@@ -1255,6 +1266,10 @@ class _StepWorkspace:
 #: group build's scratch (the build zeroes what it counts in); a few shapes
 #: live at a time
 _WORKSPACES: Dict[tuple, object] = {}
+#: the kernel a workspace kind serves, under which vtprof's launch-shape
+#: registry counts the workspaces made
+_WORKSPACE_KERNEL = {"groups": "victim_groups", "step": "victim_step",
+                     "blocks": "victim_step_sharded"}
 
 
 def _workspace(key, make):
@@ -1263,6 +1278,7 @@ def _workspace(key, make):
         if len(_WORKSPACES) >= 8:
             _WORKSPACES.clear()
         ws = _WORKSPACES[key] = make()
+        vtprof.note_compile(_WORKSPACE_KERNEL[key[0]])
     return ws
 
 
@@ -1413,6 +1429,9 @@ def victim_step_sharded(c, s, t_req, t_cls, jt, qt, mesh, *, mode="queue", use_g
               use_conformance=use_conformance, order_by_priority=order_by_priority)
     dev = _device_of(c, "victim_step_sharded")
     nb = _check_blocks(c, s, mesh)
+    tok = None
+    if vtprof.PROFILER is not None:  # disarmed, no launch key is built
+        tok = vtprof.launch_begin("victim_step_sharded", _launch_key(c, s, t_req, **kw), dev)
     if dev.type == "cpu":
         from volcano_tpu_torch.parallel.sharded import victim_blocks_plain
 
@@ -1422,6 +1441,7 @@ def victim_step_sharded(c, s, t_req, t_cls, jt, qt, mesh, *, mode="queue", use_g
     out = victim_sharded_launch(*_lib_stream(dev), c, s, t_req, t_cls, jt, qt, mesh, nb,
                                 groups=groups, **kw)
     LAUNCHES["victim_step_sharded"] += 1
+    vtprof.launch_end(tok)
     return out
 
 
@@ -1658,12 +1678,16 @@ def reclaim_solve(c, s0, task_req, task_class, job_first, job_prio, job_cand0,
               order_by_priority=order_by_priority, has_proportion=has_proportion,
               job_key_order=tuple(job_key_order))
     dev = _device_of(c, "reclaim_solve")
+    tok = None
+    if vtprof.PROFILER is not None:  # disarmed, no launch key is built
+        tok = vtprof.launch_begin("reclaim_solve", _launch_key(c, s0, task_req, **kw), dev)
     if dev.type == "cpu":
         return reclaim_solve_plain(c, s0, task_req, task_class, job_first, job_prio,
                                    job_cand0, queue_live0, pipe0, **kw)
     out = reclaim_launch(*_lib_stream(dev), c, s0, task_req, task_class, job_first,
                          job_prio, job_cand0, queue_live0, pipe0, **kw)
     LAUNCHES["reclaim_solve"] += 1
+    vtprof.launch_end(tok)
     return out
 
 
@@ -1714,10 +1738,14 @@ def preempt_solve(c, s0, task_req, task_class, task_attempt, job_start, job_ntas
     dev = _device_of(c, "preempt_solve")
     args = (c, s0, task_req, task_class, task_attempt, job_start, job_ntasks, job_prio,
             job_avail0, under_request, nu, queues_order, nq, pipe0)
+    tok = None
+    if vtprof.PROFILER is not None:  # disarmed, no launch key is built
+        tok = vtprof.launch_begin("preempt_solve", _launch_key(c, s0, task_req, **kw), dev)
     if dev.type == "cpu":
         return preempt_solve_plain(*args, **kw)
     out = preempt_launch(*_lib_stream(dev), *args, **kw)
     LAUNCHES["preempt_solve"] += 1
+    vtprof.launch_end(tok)
     return out
 
 
@@ -1784,10 +1812,14 @@ def preempt_rounds(c, s0, task_req, task_class, rows_packed, job_pstart, job_pco
     args = (c, s0, task_req, task_class, rows_packed, job_pstart, job_pcount, job_prio,
             job_avail0, pipe0)
     kw.update(m_chunk=m_chunk, p_chunk=p_chunk, k_chunk=k_chunk)
+    tok = None
+    if vtprof.PROFILER is not None:  # disarmed, no launch key is built
+        tok = vtprof.launch_begin("preempt_rounds", _launch_key(c, s0, task_req, **kw), dev)
     if dev.type == "cpu":
         return preempt_rounds_plain(*args, **kw)
     out = rounds_launch(*_lib_stream(dev), *args, **kw)
     LAUNCHES["preempt_rounds"] += 1
+    vtprof.launch_end(tok)
     return out
 
 
@@ -1869,12 +1901,16 @@ def reclaim_solve_sharded(c, s0, task_req, task_class, job_first, job_prio, job_
     dev = _device_of(c, "reclaim_solve_sharded")
     nb = _check_blocks(c, s0, mesh, "reclaim_solve_sharded")
     args = (c, s0, task_req, task_class, job_first, job_prio, job_cand0, queue_live0, pipe0)
+    tok = None
+    if vtprof.PROFILER is not None:  # disarmed, no launch key is built
+        tok = vtprof.launch_begin("reclaim_solve_sharded", _launch_key(c, s0, task_req, **kw), dev)
     if dev.type == "cpu":
         from volcano_tpu_torch.parallel.sharded import reclaim_blocks_plain
 
         return reclaim_blocks_plain(*args, mesh, nb, **kw)
     out = reclaim_blocks_launch(*_lib_stream(dev), *args, mesh, nb, **kw)
     LAUNCHES["reclaim_solve_sharded"] += 1
+    vtprof.launch_end(tok)
     return out
 
 
@@ -1922,12 +1958,16 @@ def preempt_solve_sharded(c, s0, task_req, task_class, task_attempt, job_start, 
     nb = _check_blocks(c, s0, mesh, "preempt_solve_sharded")
     args = (c, s0, task_req, task_class, task_attempt, job_start, job_ntasks, job_prio,
             job_avail0, under_request, nu, queues_order, nq, pipe0)
+    tok = None
+    if vtprof.PROFILER is not None:  # disarmed, no launch key is built
+        tok = vtprof.launch_begin("preempt_solve_sharded", _launch_key(c, s0, task_req, **kw), dev)
     if dev.type == "cpu":
         from volcano_tpu_torch.parallel.sharded import preempt_blocks_plain
 
         return preempt_blocks_plain(*args, mesh, nb, **kw)
     out = preempt_blocks_launch(*_lib_stream(dev), *args, mesh, nb, **kw)
     LAUNCHES["preempt_solve_sharded"] += 1
+    vtprof.launch_end(tok)
     return out
 
 
@@ -1995,12 +2035,16 @@ def preempt_rounds_sharded(c, s0, task_req, task_class, rows_packed, job_pstart,
     nb = _check_blocks(c, s0, mesh, "preempt_rounds_sharded")
     args = (c, s0, task_req, task_class, rows_packed, job_pstart, job_pcount, job_prio,
             job_avail0, pipe0)
+    tok = None
+    if vtprof.PROFILER is not None:  # disarmed, no launch key is built
+        tok = vtprof.launch_begin("preempt_rounds_sharded", _launch_key(c, s0, task_req, **kw), dev)
     if dev.type == "cpu":
         from volcano_tpu_torch.parallel.sharded import rounds_blocks_plain
 
         return rounds_blocks_plain(*args, mesh, nb, **kw)
     out = rounds_blocks_launch(*_lib_stream(dev), *args, mesh, nb, **kw)
     LAUNCHES["preempt_rounds_sharded"] += 1
+    vtprof.launch_end(tok)
     return out
 
 

@@ -1,8 +1,9 @@
 """Per-cycle volume interning for the dynamic solve's volume extension.
 
-The port's copy of ``volcano_tpu/scheduler/volsolve.py`` (the JAX
-package's profiler hooks left out; the cycle times the whole pass as its
-``vol_solve`` phase).  Once per cycle it turns the store's
+The port's copy of ``volcano_tpu/scheduler/volsolve.py`` (the cycle
+times the whole pass as its ``vol_solve`` phase; an armed profiler also
+counts the claims interned, ``volsolve.claims``, and times the payload
+build, ``volsolve.payload``).  Once per cycle it turns the store's
 PVC/PV/StorageClass state into the device payload that the exact allocate
 solve's ``volsel`` extension (K6) tests and decrements:
 
@@ -35,10 +36,12 @@ residue engine (``scheduler/residue.py``):
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from volcano_tpu_torch import vtprof
 from volcano_tpu_torch.api.resource import parse_quantity
 from volcano_tpu_torch.scheduler import kernels
 from volcano_tpu_torch.scheduler.snapshot import _bucket
@@ -161,6 +164,11 @@ class VolumeCycleIndex:
         if info is not None:
             return info
         info = self.claims[claim_key] = self._resolve(claim_key)
+        prof = vtprof.PROFILER
+        if prof is not None:
+            # the claims interned this cycle: the volume pass's share of
+            # the profile's host breakdown
+            prof.count("volsolve.claims")
         return info
 
     def _resolve(self, claim_key: str) -> ClaimInfo:
@@ -389,6 +397,16 @@ class VolumePartition:
     # -- device payload ------------------------------------------------------
 
     def payload(self, rows: np.ndarray, T: int, N: int) -> Optional[dict]:
+        """``_payload``, timed as the host sub-segment ``volsolve.payload``
+        while the profiler is armed."""
+        prof = vtprof.PROFILER
+        t0 = time.perf_counter() if prof is not None else 0.0
+        out = self._payload(rows, T, N)
+        if prof is not None:
+            prof.note_host("volsolve.payload", time.perf_counter() - t0)
+        return out
+
+    def _payload(self, rows: np.ndarray, T: int, N: int) -> Optional[dict]:
         """Device arrays for the dyn-solve task layout, in the JAX
         package's form (``kernels.pack_volsel`` packs the claim bits for
         the solve); None when no routed task carries volume state.

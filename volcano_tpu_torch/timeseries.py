@@ -7,10 +7,14 @@ sample after every completed cycle (``Scheduler._record_cycle``): its
 wall, the fast cycle's phases, the backlog (pending tasks entering the
 solve), the binds and evictions published, the applier's queued entries,
 and under ``delta: on`` the engine's ``mode``, ``fallback_reason``,
-``backlog_gangs``, ``held_gangs`` and ``shed_gangs``.  The vtprof fields of
-the JAX row (``host_s``, ``device_s``, ``transfer_s``, ``mesh_hosts``) wait
-for the profiler (ROADMAP item 9d), and the servers that serve the ring
-for item 11.
+``backlog_gangs``, ``held_gangs`` and ``shed_gangs``, and while the
+profiler is armed (``vtprof.py``) the cycle's ``host_s``, ``device_s``
+(dispatch + wait) and ``transfer_s`` segments and, on a multi-controller
+run, the per-host solve walls ``mesh_hosts``.  The profiler's sentinels
+record ``kind="anomaly"`` samples: ``anomaly`` carries the trip class
+(``steady-state-recompile``, ``device-bytes-leak``) beside the trip's
+fields.  The metrics server serves the ring at ``/debug/timeseries``
+(:func:`debug_payload`); the store server's flush samples wait for item 11.
 
 Unarmed is the default and costs one module attribute check per site
 (``RECORDER is None``); :func:`arm` arms in-process.  The JAX package's
@@ -20,6 +24,7 @@ reader (ROADMAP item 11).
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import deque
@@ -46,6 +51,10 @@ class Recorder:
         """The ring, oldest first."""
         with self._mu:
             return list(self._ring)
+
+    def payload(self) -> Dict[str, Any]:
+        return {"armed": True, "pid": os.getpid(), "now": time.time(),
+                "ring": self.ring_size, "samples": self.samples()}
 
 
 #: the process recorder; None: unarmed, and every recording site is one
@@ -75,3 +84,11 @@ def record(kind: str, **fields: Any) -> None:
 def samples() -> List[Dict[str, Any]]:
     rec = RECORDER
     return rec.samples() if rec is not None else []
+
+
+def debug_payload() -> Dict[str, Any]:
+    """The ``/debug/timeseries`` response body (the metrics server's)."""
+    rec = RECORDER
+    if rec is None:
+        return {"armed": False, "pid": os.getpid(), "now": time.time(), "samples": []}
+    return rec.payload()
