@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --profile [OUT.json]  # first a profiler pass
-    python3 chip_smoke.py --split    # only K1's shapes and the batched solve's stage split
+    python3 chip_smoke.py --split    # only K1's shapes, the batched solve's stage split, K13 at cfg9
     python3 chip_smoke.py --victim-split  # only the victim solve's split (K7, K12b)
     python3 chip_smoke.py --storm-split   # only K8-K10 and K15a-c at config 6, timed
     python3 chip_smoke.py --exact-split   # only the exact solve's split (K2, K5 / K6 in it)
@@ -12,6 +12,7 @@
     python3 chip_smoke.py --publish-split  # only the publish modes at cfg5-batch, cfg6, cfg9
     python3 chip_smoke.py --restart-cells  # only the snapshot-cache cells and phase 26
     python3 chip_smoke.py --delta-cells  # only cfg10, incremental scheduling (phases 27-28)
+    python3 chip_smoke.py --store-cells  # only cfg5-batch and config 7 (phases 3 and 29)
 
 Phases, each fatal on failure:
 
@@ -131,7 +132,8 @@ Phases, each fatal on failure:
    cells;
 16. e2e cfg9 — bench.py's cfg9 store (_build_shard_e2e_store: 100,000
    nodes, 1,000,000 tasks in gangs of 20 over 16 namespaces, two weighted
-   queues) under full_conf("cuda") with mesh "4" (solve_mode auto: the
+   queues; here at 3/10 of its nodes and tasks, CFG9_MAIN, cut for the
+   run's time limit) under full_conf("cuda") with mesh "4" (solve_mode auto: the
    batched solve runs on four node blocks, K12a): every gang task bound
    within two cycles, no node over capacity, every gang all or nothing;
    the first batched solve's inputs captured;
@@ -247,12 +249,23 @@ Phases, each fatal on failure:
    disarmed, the binds equal cycle by cycle, both walls; then one lockstep open-loop run (volcano_tpu_torch.loadgen) at
    250 gangs/s for 4 s of virtual time, which must sustain and bind every
    pod, with its wall time (lockstep waits for each cycle, so "sustained"
-   is no rate).
+   is no rate);
+29. e2e cfg7 — config 5 through the port's apiserver (bench.py config7):
+   two StoreServer processes spawned (127.0.0.1, port 0), one with the
+   WAL armed and a state file, each loaded in turn from one config-5
+   build through RemoteStore.bulk in 4,000-op batches;
+   then Scheduler(RemoteStore, full_conf("cuda")) under the applier on
+   each in turn: prewarm, cycle 1 (K1, K3; its binds equal phase 3's pod
+   for pod), the drain (drain_stats), on the WAL-off server 102,000 pods
+   bound in RemoteStore.items("Pod") and two steady cycles, on the WAL
+   server its /healthz WAL stats, a SIGKILL and a restart from the state
+   directory (the recovery wall; every acknowledged bind there again);
+   no server process may map torch or CUDA (/proc/<pid>/maps).
 
 Every Scheduler's ``prewarm`` runs blocking (``background=False``), and
 the launch counts of a phase start after it: the full prewarm launches
 each variant the live cluster can reach.
-Phases 3-6, 8, 10, 16, 21 (cfg5-2h), 22 and 24 run their Scheduler with
+Phases 3-6, 8, 10, 16, 21 (cfg5-2h), 22, 24 and 29 run their Scheduler with
 ``apply_mode="async"`` and the columnar publish, as the JAX package's
 bench.py runs its configs: the applier is flushed after every cycle (a
 timeout or a dead applier thread fails the phase) before the cell's checks
@@ -271,7 +284,9 @@ make the same decisions.
 
 With ``--profile``, a torch.profiler pass runs after the build: the
 batched solve's split (``--split``: K3 at config 5 and the 4-block solve at
-cfg9's shape, each against its plain version), then one config-5 cycle and
+cfg9's shape, each against its plain version, then K13's lockstep at 1, 2
+and 4 hosts on the latter's inputs, bit for bit against it: K13's one
+check at the full cfg9 shape), then one config-5 cycle and
 one cfg9 cycle: device time by kernel and the device's idle share of the
 cycles (also written to OUT.json when given).  ``--split`` runs the build
 and that split alone.  ``--victim-split`` runs the build and the victim
@@ -294,7 +309,8 @@ the applier with the columnar publish, where a tree without the applier
 publishes inline: pair two trees' ``--fast-cells`` only when both have it.
 ``--delta-cells`` runs the build and phases 27-28 alone, so a parent
 given this file is measured in the same call (a tree without
-``conf.delta`` fails there).
+``conf.delta`` fails there).  ``--store-cells`` runs the build, phase 3
+(its binds the reference) and phase 29 alone.
 ``--exact-split`` runs the build and the exact solve's split alone
 (phase_exact_split: K2 on cfg5-exact's inputs, on the dynamic solves
 cfg5d-exact (K5) and cfg5v-2000 (K5 and K6) capture, at 128 queues and on a
@@ -1151,7 +1167,7 @@ def check_placement(store):
 
 def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
               max_cycles=MAX_CYCLES, capture=None, volume_tasks=0, dynamic_best_effort_every=0,
-              steady=False):
+              steady=False, binds=None):
     """Drive Scheduler.run_once on the card; returns the launch counts of
     the first cycle (reset just before it, read just after).  ``want`` maps
     a kernel to the launches the first cycle must make at least (a name
@@ -1163,7 +1179,8 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
     such dynamic gang (build_cfg5_store), which become residue: the first
     cycle must then run the object sub-cycle and its residue engine.
     ``steady``: one more cycle once all is bound, its wall and phases (the
-    drain of the landed write-back)."""
+    drain of the landed write-back).  ``binds``: a list that receives the
+    first cycle's ``bind_log`` (phase 29 holds config 7's to it)."""
     import torch
 
     from volcano_tpu_torch.scheduler import kernels as K
@@ -1202,6 +1219,8 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
         cycle_mod.torch_dynamic_solve = solve_dyn
     phases = {k: round(v, 4) for k, v in sched.fast_cycle.phases.items()}
     log(f"[{label}] cycle 1 wall {wall:.3f} s phases {json.dumps(phases)} launches {launches}")
+    if binds is not None:
+        binds.extend(sched.cache.bind_log)
     publish_report(label, sched, flush_applier(label, sched))
     if dynamic_best_effort_every:
         fc = sched.fast_cycle
@@ -2222,10 +2241,10 @@ def phase_object_cfg6r_be_mesh():
 CFG5_OBJ_CYCLES = 2
 
 
-def _object_cfg5(label, cache):
+def _object_cfg5(label, cache, cycles=CFG5_OBJ_CYCLES):
     """Config 5's nodes and 5,000 gangs x 20 (no best-effort pods: on the
     object path each would take a Python scan of the 10,000 nodes in
-    backfill) under full_conf("cuda") with fast_path "off", CFG5_OBJ_CYCLES cycles,
+    backfill) under full_conf("cuda") with fast_path "off", ``cycles`` cycles,
     with the Scheduler's snapshot cache or without it: the object cycle's
     allocate runs K3 and applies its 100,000 placements in bulk; every gang
     task binds in cycle 1.  Returns the first cycle's launches and the
@@ -2250,7 +2269,7 @@ def _object_cfg5(label, cache):
     cap.cache = sched.snapshot_cache
     walls, splits = [], []
     try:
-        for cycle in range(CFG5_OBJ_CYCLES):
+        for cycle in range(cycles):
             reset_launches()
             t0 = time.perf_counter()
             sched.run_once()
@@ -2289,7 +2308,9 @@ def phase_object_cfg5():
     evictions and pipelines.  Returns the cached run's first-cycle
     launches."""
     first, on = _object_cfg5("e2e cfg5-obj", True)
-    _, off = _object_cfg5("e2e cfg5-obj, no cache", False)
+    # one cycle without the cache: cycle 2 binds nothing (all bind in cycle
+    # 1), so the decisions compare whole; cut for the run's time limit
+    _, off = _object_cfg5("e2e cfg5-obj, no cache", False, cycles=1)
     _same_decisions("cfg5-obj", on, off, keys=("binds", "evicts", "pipes"))
     _cache_summary("e2e cfg5-obj", on, off)
     return first
@@ -2563,6 +2584,10 @@ def phase_victim_step_kernel(captured, launches):
 
 # cfg9 (bench.py N_NODES9, N_TASKS9, CFG9_NAMESPACES, _build_shard_e2e_store)
 CFG9 = dict(nodes=100_000, tasks=1_000_000, tasks_per_job=20, namespaces=16, queues=2)
+#: the main run's cfg9 (phases 16, 17 and 20): 3/10 of the nodes and tasks,
+#: cut for the run's time limit when phase 29 came (PERF.md section 4);
+#: --publish-split runs CFG9
+CFG9_MAIN = dict(CFG9, nodes=30_000, tasks=300_000)
 #: the conf mesh of the cfg9 cell (bench.py config9_shard sets conf.mesh)
 CFG9_MESH = "4"
 #: the conf mesh of the cfg6r-be-mesh cell
@@ -2742,8 +2767,9 @@ def check_cfg9_placement(store):
     return sum(per_gang.values())
 
 
-def phase_cfg9():
-    """cfg9 end to end: 100,000 nodes, the cfg9 tasks in gangs of 20,
+def phase_cfg9(cfg=CFG9_MAIN):
+    """cfg9 end to end (``cfg``: its nodes and tasks, CFG9_MAIN in the main
+    run): the nodes, the cfg9 tasks in gangs of 20,
     full_conf("cuda") with mesh "4" and solve_mode auto (the batched solve
     runs: the pending tasks are far above the exact threshold).  Launch
     counts reset just before cycle 1 and read just after; every gang task
@@ -2757,9 +2783,9 @@ def phase_cfg9():
     from volcano_tpu_torch.scheduler.scheduler import Scheduler
 
     t0 = time.perf_counter()
-    store = build_cfg9_store()
-    log(f"[e2e cfg9] store built: {CFG9['nodes']} nodes, {CFG9['tasks']} tasks in gangs of "
-        f"{CFG9['tasks_per_job']} over {CFG9['namespaces']} namespaces "
+    store = build_cfg9_store(cfg["nodes"], cfg["tasks"])
+    log(f"[e2e cfg9] store built: {cfg['nodes']} nodes, {cfg['tasks']} tasks in gangs of "
+        f"{cfg['tasks_per_job']} over {cfg['namespaces']} namespaces "
         f"({time.perf_counter() - t0:.1f} s)")
     conf = async_conf(full_conf("cuda"))
     conf.mesh = CFG9_MESH
@@ -2800,10 +2826,10 @@ def phase_cfg9():
     publish_report("e2e cfg9", sched, flush_applier("e2e cfg9", sched, CFG9_FLUSH_TIMEOUT_S))
     t0 = time.perf_counter()
     bound = check_cfg9_placement(store)
-    log(f"[e2e cfg9] bound after cycle 1: {bound} of {CFG9['tasks']} "
+    log(f"[e2e cfg9] bound after cycle 1: {bound} of {cfg['tasks']} "
         f"(checked in {time.perf_counter() - t0:.1f} s)")
     cycles = 1
-    while bound < CFG9["tasks"] and cycles < MAX_CYCLES:
+    while bound < cfg["tasks"] and cycles < MAX_CYCLES:
         cycles += 1
         t0 = time.perf_counter()
         sched.run_once()
@@ -2813,8 +2839,8 @@ def phase_cfg9():
                        flush_applier("e2e cfg9", sched, CFG9_FLUSH_TIMEOUT_S), cycles)
         bound = check_cfg9_placement(store)
         log(f"[e2e cfg9] bound after cycle {cycles}: {bound}")
-    if bound != CFG9["tasks"]:
-        raise AssertionError(f"cfg9: {bound} of {CFG9['tasks']} gang tasks bound after "
+    if bound != cfg["tasks"]:
+        raise AssertionError(f"cfg9: {bound} of {cfg['tasks']} gang tasks bound after "
                              f"{cycles} cycles")
     log(f"[e2e cfg9] all bound in {cycles} cycle(s) (deadline {MAX_CYCLES})")
     sched.close()
@@ -3439,7 +3465,8 @@ def phase_split():
     its shapes (k1_split, the solve's shares), then K3 at config 5
     (build_sim_args(10,000, 100,000, 5,000)) and the 4-block sharded solve
     at cfg9's shape (build_sim_args(100,000, 1,000,000, 50,000, seed=9)),
-    each from batch_split."""
+    each from batch_split; then K13 at that full cfg9 shape
+    (lockstep_cfg9_shape), which the main run holds at CFG9_MAIN only."""
     import torch
 
     from volcano_tpu_torch.parallel import sharded as S
@@ -3453,7 +3480,8 @@ def phase_split():
          (100_000, 1_000_000, 50_000, 9), int(CFG9_MESH)),
     ):
         n, t, j, seed = shape
-        si = _solve_inputs_np(build_sim_args(n, t, j, seed=seed))
+        a = build_sim_args(n, t, j, seed=seed)
+        si = _solve_inputs_np(a)
         if blocks is None:
             args = [si[k] for k in K._SOLVE_ARGS] + [1.0, 1.0]
 
@@ -3469,8 +3497,41 @@ def phase_split():
         res[key] = batch_split(label, run)
         res[key]["max_abs_err"] = _compare(label, run(), K.allocate_solve_batch_plain(
             **si, w_least=1.0, w_balanced=1.0))
-        del si, run
+        if blocks is not None:
+            res["K13 cfg9-shape"] = lockstep_cfg9_shape(a, S.fetch_outputs(run(), mesh),
+                                                        blocks)
+        del si, run, a
     return res
+
+
+def lockstep_cfg9_shape(args, want, n_blocks):
+    """K13 at cfg9's full shape (``args``: build_sim_args' numpy planes):
+    run_lockstep at 1, 2 and 4 hosts over ``n_blocks`` node blocks, each
+    merged output bit for bit equal to ``want``, the K12a run's on the same
+    blocks.  Launch counts reset just before the runs and read just after.
+    Returns each host count's critical path and solve wait."""
+    import torch
+
+    from volcano_tpu_torch.parallel import multihost as MH
+
+    reset_launches()
+    out = {}
+    for H in (1, 2, 4):
+        res = MH.run_lockstep(args, H, n_blocks=n_blocks, device=torch.device("cuda"))
+        for name, g, w in zip(MH.OUTPUT_NAMES, res["outputs"], want):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"K13 at cfg9's shape, {H} hosts: {name} differs from "
+                                     f"the {n_blocks}-block K12a run")
+        out[str(H)] = {"critical_path_s": res["critical_path_s"],
+                       "solve_wait_s": res["solve_wait_s"]}
+        log(f"[K13] cfg9's shape, {H} host(s) x {n_blocks // H} block(s) ok, equal to K12a "
+            f"bit for bit: critical path {res['critical_path_s']:.4f} s, solve_wait "
+            f"{res['solve_wait_s']:.4f} s")
+    launches = read_launches()
+    if launches["multihost_cycle"] != 3 or launches["sharded_cycle"] != 3:
+        raise AssertionError(f"K13 at cfg9's shape: launches {launches}")
+    out["launches"] = launches["multihost_cycle"]
+    return out
 
 
 #: calls of each solve the victim split times and profiles
@@ -5514,6 +5575,264 @@ def phase_cfg10_tenth():
                               wall_gangs_per_s=wall_rate)}
 
 
+#: config 7 (bench.py config7): config 5 through the port's apiserver in
+#: its own process, loaded with RemoteStore.bulk in batches of this many ops
+CFG7_BULK_OPS = 4_000
+#: the spawned apiserver's deadline to put its URL (a recovery included)
+CFG7_BOOT_TIMEOUT_S = 300.0
+#: the WAL-on run's save interval: the WAL alone holds every acknowledged
+#: write, so its drain measures the fsync on the ACK path (bench.py's choice)
+CFG7_WAL_SAVE_INTERVAL_S = 3600.0
+
+
+def _cfg7_server(ctx, wal_state=""):
+    """Spawn the port's StoreServer in its own process; (process, URL, the
+    wall until it put its URL).  ``wal_state``: the state file of a server
+    with the WAL armed beside it (saved every CFG7_WAL_SAVE_INTERVAL_S), or
+    "" for a server without durability.  A server that cannot start or bind
+    fails the phase: there is no fallback to an in-process store."""
+    from volcano_tpu_torch.store.server import serve_in_child
+
+    q = ctx.Queue()
+    args = (q, wal_state, True, CFG7_WAL_SAVE_INTERVAL_S) if wal_state else (q,)
+    proc = ctx.Process(target=serve_in_child, args=args, daemon=True)
+    t0 = time.perf_counter()
+    proc.start()
+    try:
+        url = q.get(timeout=CFG7_BOOT_TIMEOUT_S)
+    except Exception as e:  # noqa: BLE001 — the phase fails with the cause
+        proc.kill()
+        proc.join(30)
+        raise AssertionError(f"cfg7: the apiserver did not come up ({e!r}; exit code "
+                             f"{proc.exitcode})")
+    return proc, url, time.perf_counter() - t0
+
+
+def _get_json(url, path):
+    import urllib.request
+
+    with urllib.request.urlopen(url + path, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+#: shared objects whose mapping in a process means it loaded torch (and
+#: could have initialized CUDA): torch's own libraries, the CUDA runtime
+#: and the driver
+TORCH_LIBS = ("libtorch", "libc10", "libcudart", "libcuda.so")
+
+
+def _torch_libs_mapped(pid):
+    """The TORCH_LIBS shared objects mapped into process ``pid``, read from
+    its /proc/<pid>/maps: none for an apiserver, whose process never
+    imports torch."""
+    with open(f"/proc/{pid}/maps") as f:
+        paths = {line.split()[-1] for line in f if "/" in line}
+    return sorted(p for p in paths if any(lib in os.path.basename(p) for lib in TORCH_LIBS))
+
+
+def _cfg7_stop(proc, kill=False):
+    """Stop a spawned apiserver: SIGTERM (its graceful flush), or SIGKILL
+    where the state it would flush is thrown away with its directory."""
+    if proc.is_alive() and not kill:
+        proc.terminate()
+        proc.join(60)
+    if proc.is_alive():
+        proc.kill()
+        proc.join(30)
+
+
+def _cfg7_load(remote, ops):
+    """Create ``ops`` through ``RemoteStore.bulk`` in CFG7_BULK_OPS batches;
+    the wall."""
+    t0 = time.perf_counter()
+    for i in range(0, len(ops), CFG7_BULK_OPS):
+        errs = [e for e in remote.bulk(ops[i:i + CFG7_BULK_OPS]) if e]
+        if errs:
+            raise AssertionError(f"cfg7: the store load failed: {errs[:3]}")
+    return time.perf_counter() - t0
+
+
+def _cfg7_run(label, server, ref_binds, wal_state=""):
+    """One config-7 pass (bench.py config7's one_run) against a loaded
+    apiserver process, ``server`` = (ctx, process, URL):
+    ``Scheduler(RemoteStore(url), full_conf("cuda"))`` under the applier:
+    prewarm, cycle 1 and the drain.  Cycle 1's binds must equal
+    ``ref_binds`` (phase 3's in-process cfg5-batch run) pod for pod.
+    Without ``wal_state`` (the server has no durability): every pod carries
+    a node in the store after the drain, then two steady cycles.  With it
+    (the state file of a WAL server): the WAL stats, then a SIGKILL after
+    the drain's acknowledgements and a boot from that state: every
+    acknowledged bind must be there.  The server process must never map
+    torch or CUDA (TORCH_LIBS).  Returns the measurements and the live
+    process."""
+    import torch
+
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+    from volcano_tpu_torch.store.client import RemoteStore
+
+    ctx, proc, url = server
+    want_pods = CFG5["jobs"] * CFG5["tasks_per_job"] + CFG5["best_effort"]
+    out = {}
+    walls = out["walls"] = {}
+    last = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        walls[name] = round(now - last[0], 3)
+        last[0] = now
+
+    remote = RemoteStore(url, timeout=900)
+    sched = Scheduler(remote, conf=async_conf(full_conf("cuda")))
+    out["prewarm_s"] = round(sched.prewarm(background=False), 3)
+    lap("prewarm")
+    reset_launches()
+    t0 = time.perf_counter()
+    sched.run_once()
+    torch.cuda.synchronize()
+    publish = time.perf_counter() - t0
+    launches = read_launches()
+    out["cycle1_s"] = round(publish, 4)
+    out["phases"] = {k: round(v, 4) for k, v in sched.fast_cycle.phases.items()}
+    out["path"] = sched.last_path
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    binds = list(sched.cache.bind_log)
+    flush_applier(label, sched)
+    out["drain_s"] = round(time.perf_counter() - t0 - publish, 4)
+    out["drain_stats"] = {k: round(v, 4) for k, v in sched.cache.applier.drain_stats.items()}
+    lap("cycle 1 and the drain")
+    log(f"[{label}] prewarm {out['prewarm_s']} s; cycle 1 {out['cycle1_s']} s ({out['path']}) "
+        f"phases {json.dumps(out['phases'])} launches {out['launches']}; drain "
+        f"{out['drain_s']} s {json.dumps(out['drain_stats'])}")
+    if sched.cache.err_log:
+        raise AssertionError(f"{label}: err_log {sched.cache.err_log[:3]}")
+    for name in ("water_fill", "allocate_solve_batch"):
+        if launches[name] < 1:
+            raise AssertionError(f"{label}: kernel {name} launched {launches[name]} "
+                                 f"times on the main path, expected at least 1")
+    for name in ("allocate_solve",) + CONTENTION_KERNELS + OBJECT_FORBID:
+        if launches[name]:
+            raise AssertionError(f"{label}: kernel {name} launched ({launches[name]})")
+    if len(binds) != len(ref_binds) or dict(binds) != dict(ref_binds):
+        got, want = dict(binds), dict(ref_binds)
+        diff = [(k, got.get(k), want.get(k)) for k in sorted(set(got) | set(want))
+                if got.get(k) != want.get(k)]
+        raise AssertionError(f"{label}: cycle 1 bound {len(binds)} pods, the in-process "
+                             f"run {len(ref_binds)}; {len(diff)} differ, e.g. {diff[:5]}")
+    out["binds_equal_in_process"] = len(binds)
+    out["bind_order_equal"] = binds == list(ref_binds)
+    if not wal_state:
+        out["bound"] = sum(1 for p in remote.items("Pod") if p.node_name)
+        lap("the pods listed")
+        if out["bound"] != want_pods:
+            raise AssertionError(f"{label}: {out['bound']} of {want_pods} pods carry a node "
+                                 f"after the drain")
+        sched.run_once()
+        flush_applier(label, sched)
+        lap("steady cycle 1 (the write-back's watch drain)")
+        t1 = time.perf_counter()
+        sched.run_once()
+        torch.cuda.synchronize()
+        out["steady_s"] = round(time.perf_counter() - t1, 4)
+        out["steady_phases"] = {k: round(v, 4) for k, v in sched.fast_cycle.phases.items()}
+        flush_applier(label, sched)
+        lap("steady cycle 2")
+    else:
+        out["wal"] = _get_json(url, "/healthz")["wal"]
+    mapped = _torch_libs_mapped(proc.pid)
+    if mapped:
+        raise AssertionError(f"{label}: the apiserver process mapped torch or CUDA: {mapped}")
+    sched.close()
+    lap("close")
+    if wal_state:
+        proc.kill()
+        proc.join(60)
+        proc, url, recovery_s = _cfg7_server(ctx, wal_state)
+        out["recovery_s"] = round(recovery_s, 3)
+        lap("SIGKILL and recovery")
+        # the restarted server's pods, read off the wire without decoding,
+        # against the binds the drain acknowledged (the applier's err_log is
+        # empty): every pod bound, to its node
+        after = {f"{p['meta']['namespace']}/{p['meta']['name']}": p["node_name"]
+                 for p in _get_json(url, "/apis/Pod")["items"]}
+        out["bound_after_restart"] = sum(1 for n in after.values() if n)
+        acked = dict(binds)
+        if after != acked or len(after) != want_pods:
+            diff = [k for k in set(after) | set(acked) if after.get(k) != acked.get(k)]
+            raise AssertionError(f"{label}: {len(diff)} pods differ from the acknowledged binds "
+                                 f"across the SIGKILL and restart, e.g. {diff[:5]}")
+        out["wal_after_restart"] = _get_json(url, "/healthz")["wal"]
+        mapped = _torch_libs_mapped(proc.pid)
+        if mapped:
+            raise AssertionError(f"{label}: the restarted apiserver mapped torch or CUDA: "
+                                 f"{mapped}")
+        lap("the recovered pods read")
+        log(f"[{label}] SIGKILL and restart: recovered in {out['recovery_s']} s, "
+            f"{out['bound_after_restart']} pods bound as acknowledged")
+    log(f"[{label}] walls, s: {json.dumps(walls)}")
+    return out, proc
+
+
+def phase_cfg7(ref_binds):
+    """Phase 29, config 7 (bench.py:681-790): config 5 through the port's
+    apiserver in its own OS process (spawned, 127.0.0.1, port 0) and a
+    RemoteStore.  Two servers: one without durability (the run with its
+    steady cycles) and one with the WAL armed and a state file (killed
+    with SIGKILL after the drain and restarted from its directory).  Each
+    is loaded with the same config-5 store in turn, the WAL-off one first,
+    so that each load's wall is its own (bench.py loads one server a run),
+    then the runs go one after the other."""
+    import multiprocessing as mp
+    import tempfile
+
+    from volcano_tpu_torch.store.client import RemoteStore
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="cfg7-") as d:
+        state = os.path.join(d, "state.json")
+        procs = {}
+        try:
+            procs["off"] = _cfg7_server(ctx)
+            procs["on"] = _cfg7_server(ctx, state)
+            t0 = time.perf_counter()
+            local = build_cfg5_store()
+            build_s = time.perf_counter() - t0
+            ops = [{"op": "create", "kind": kind, "object": obj}
+                   for kind in ("Queue", "PriorityClass", "Node", "PodGroup", "Pod")
+                   for obj in local.items(kind)]
+            loads = {name: _cfg7_load(RemoteStore(procs[name][1], timeout=900), ops)
+                     for name in ("off", "on")}
+            n_objects = len(ops)
+            del local, ops
+            gc.collect()
+            log(f"[cfg7] config 5 built in {build_s:.3f} s and loaded into each apiserver in "
+                f"turn through RemoteStore.bulk: {n_objects} objects, WAL off "
+                f"{loads['off']:.3f} s, WAL on {loads['on']:.3f} s (up in {procs['off'][2]:.3f} "
+                f"/ {procs['on'][2]:.3f} s)")
+            off, proc = _cfg7_run("e2e cfg7", (ctx,) + procs["off"][:2], ref_binds)
+            procs["off"] = (proc,)
+            off.update(store_load_s=round(loads["off"], 3), objects=n_objects)
+            on, proc = _cfg7_run("e2e cfg7-wal", (ctx,) + procs["on"][:2], ref_binds,
+                                 wal_state=state)
+            procs["on"] = (proc,)
+            on.update(store_load_s=round(loads["on"], 3), objects=n_objects)
+        finally:
+            # the WAL server's state goes with the directory: no final flush
+            for name, entry in procs.items():
+                _cfg7_stop(entry[0], kill=name == "on")
+    out = {"wal_off": off, "wal_on": on,
+           "wal_drain_ratio": round(on["drain_s"] / max(off["drain_s"], 1e-9), 3),
+           "wal_load_ratio": round(on["store_load_s"] / max(off["store_load_s"], 1e-9), 3)}
+    wal = on.get("wal") or {}
+    log(f"[cfg7] store_load_s {off['store_load_s']} (WAL on {on['store_load_s']}, ratio "
+        f"{out['wal_load_ratio']}); prewarm {off['prewarm_s']} s; cycle 1 {off['cycle1_s']} s; "
+        f"drain {off['drain_s']} s; steady {off.get('steady_s')} s; WAL on: drain "
+        f"{on['drain_s']} s (ratio {out['wal_drain_ratio']}), fsync_s {wal.get('fsync_s')}, "
+        f"fsync_total {wal.get('fsync_total')}, records {wal.get('records')}; recovery "
+        f"{on['recovery_s']} s")
+    return out
+
+
 def check_placement_ports(store):
     """No node holds a host port twice."""
     ports = {}
@@ -5612,6 +5931,17 @@ def _run(argv, mark, smi):
         log(json.dumps({"cfg10": dict(phase_cfg10(), tenth=phase_cfg10_tenth())}))
         log(smi)
         return False
+    if "--store-cells" in argv:
+        log(smi)
+        ref = []
+        phase_e2e("e2e batch", CFG5["jobs"], CFG5["best_effort"],
+                  want=("water_fill", "allocate_solve_batch"),
+                  forbid=("allocate_solve",) + CONTENTION_KERNELS, binds=ref)
+        mark("phase 3")
+        log(json.dumps({"cfg7": phase_cfg7(ref)}))
+        mark("phase 29")
+        log(smi)
+        return False
     if "--residue" in argv:
         log(smi)
         floor_ms, floor_nr_ms, _ = k1_launch_floor(torch.device("cuda"))
@@ -5629,9 +5959,10 @@ def _run(argv, mark, smi):
     kern = phase_kernels()
     phase_kernel_sweep()
     mark("phases 1-2")
+    batch_binds = []
     batch = phase_e2e("e2e batch", CFG5["jobs"], CFG5["best_effort"],
                       want=("water_fill", "allocate_solve_batch"), steady=True,
-                      forbid=("allocate_solve",) + CONTENTION_KERNELS)
+                      forbid=("allocate_solve",) + CONTENTION_KERNELS, binds=batch_binds)
     exact = phase_e2e("e2e exact", 200, 0,
                       want=("water_fill", "allocate_solve"),
                       forbid=("allocate_solve_batch",) + CONTENTION_KERNELS)
@@ -5722,6 +6053,9 @@ def _run(argv, mark, smi):
     cfg10["tenth"] = phase_cfg10_tenth()
     mark("phase 28")
     log(json.dumps({"cfg10": cfg10}))
+    log(smi)
+    log(json.dumps({"cfg7": phase_cfg7(batch_binds)}))
+    mark("phase 29")
     kern["water_fill"]["cfg10_launches_per_micro_cycle"] = cfg10["k1_per_micro_cycle"]
     kern["allocate_solve"]["cfg10"] = dict(cfg10["k2_at_micro_shape"],
                                            launches_per_micro_cycle=cfg10["k2_per_micro_cycle"],

@@ -14,6 +14,7 @@ from volcano_tpu_torch.api.objects import (
     PodSpec,
     PriorityClass,
     Queue,
+    QueueStatus,
     StorageClass,
     Taint,
     Toleration,

@@ -1,8 +1,10 @@
 """Cluster objects the fast cycle reads and writes: Pod, Node, PodGroup,
-Queue, PriorityClass and the volume objects PersistentVolumeClaim,
-StorageClass and PersistentVolume (the port's copy of
-``volcano_tpu/api/objects.py``, without budgets, node pools and
-commands)."""
+Queue, PriorityClass, PodDisruptionBudget and the volume objects
+PersistentVolumeClaim, StorageClass and PersistentVolume (the port's copy
+of ``volcano_tpu/api/objects.py``, without node pools, commands, config
+maps and services, which come with the controllers, ROADMAP item 12).
+Every class keeps the JAX class's fields in its order, so that the wire
+codec (``store/codec.py``) encodes equal objects to equal JSON."""
 
 from __future__ import annotations
 
@@ -137,13 +139,16 @@ def match_expressions(labels: Dict[str, str], term) -> bool:
 class PodSpec:
     resources: Resource = field(default_factory=Resource)       # sum of containers
     init_resources: Resource = field(default_factory=Resource)  # max of init containers
+    image: str = ""                                             # container image
     node_selector: Dict[str, str] = field(default_factory=dict)
     affinity: Optional[Affinity] = None
     tolerations: List[Toleration] = field(default_factory=list)
     host_ports: List[int] = field(default_factory=list)
     priority_class: str = ""
     priority: int = 0
+    restart_policy: str = "OnFailure"
     scheduler_name: str = "volcano-tpu"
+    best_effort: bool = False  # carried on the wire; the scheduler derives its own
 
     def resreq(self) -> Resource:
         return self.resources.clone()
@@ -161,6 +166,10 @@ class Pod:
     phase: PodPhase = PodPhase.PENDING
     node_name: str = ""
     deleting: bool = False
+    exit_code: int = 0          # of the first failed container
+    subdomain: str = ""
+    hostname: str = ""
+    env: Dict[str, str] = field(default_factory=dict)
     volumes: List[str] = field(default_factory=list)  # mounted claim names
 
     @property
@@ -178,12 +187,15 @@ class NodeCondition:
 class Node:
     meta: Metadata
     allocatable: Resource = field(default_factory=Resource)
+    capacity: Resource = field(default_factory=Resource)
     labels: Dict[str, str] = field(default_factory=dict)
     taints: List[Taint] = field(default_factory=list)
     unschedulable: bool = False
     conditions: List[NodeCondition] = field(default_factory=lambda: [NodeCondition("Ready")])
 
     def __post_init__(self):
+        if self.capacity.is_empty() and not self.allocatable.is_empty():
+            self.capacity = self.allocatable.clone()
         # node name is both metadata and a label (kubernetes.io/hostname)
         self.labels.setdefault("kubernetes.io/hostname", self.meta.name)
 
@@ -222,9 +234,17 @@ class PodGroup:
 
 
 @dataclass
+class QueueStatus:
+    unknown: int = 0
+    pending: int = 0
+    running: int = 0
+
+
+@dataclass
 class Queue:
     meta: Metadata
     weight: int = 1
+    status: QueueStatus = field(default_factory=QueueStatus)
 
 
 @dataclass

@@ -11,7 +11,7 @@ measures pod first-seen -> bind latency into the bounded histograms of
 * ``harness`` — ``run_open_loop`` (wall-clock or lockstep pacing), the
   ``SLOReport`` percentile readout, and ``saturation_search`` (raise the
   rate until p99 leaves its band).  The follower fan-out pass of the JAX
-  harness waits for the store server (ROADMAP item 11).
+  harness waits for the replicated store (ROADMAP item 11b).
 """
 
 from volcano_tpu_torch.loadgen.harness import (  # noqa: F401

@@ -1,13 +1,15 @@
 """Asynchronous, batched side-effect application for the scheduler cache.
 
 The port's copy of ``volcano_tpu/scheduler/apply.py`` without the
-namespace-sharded segment ship (ROADMAP item 11) and the chaos crash point
+namespace-sharded segment ship (ROADMAP item 11b) and the chaos crash point
 (item 13).  The reference never serializes its cycle behind API writes:
 every bind and eviction runs on its own goroutine with resync on error
 (KB/pkg/scheduler/cache/cache.go:393-447).  Here one applier thread drains
 a decision queue into the store: a columnar segment (``store/segment.py``)
 through ``Store.apply_segment``, everything else through the store's bulk
-verb, so that the cycle publishes its decisions and returns.
+verb, so that the cycle publishes its decisions and returns.  Over a
+``RemoteStore`` a segment whose ship a connection cut left in doubt is
+shipped once more: the server dedupes it on its reserved uid block.
 
 Decisions in flight (submitted, not yet confirmed by the store) overlay
 the next snapshot: a cycle that starts before the writes land still sees
@@ -251,7 +253,7 @@ class AsyncApplier:
         if not ship.empty:
             t0 = time.perf_counter()
             try:
-                res = self.store.apply_segment(ship)
+                res = self._ship_segment(ship)
             except Exception as e:  # noqa: BLE001 — store outage: retried next cycle
                 for task_key in ship.bind_keys:
                     self.cache._record_err("bind", task_key, e)
@@ -265,6 +267,23 @@ class AsyncApplier:
             # after the segment, keeping the stream's binds-then-evictions
             # order of a cycle
             self._apply_ops([("evict", k, r) for k, r in hit_pairs])
+
+    def _ship_segment(self, ship):
+        """One segment ship, re-shipped once after a connection-level cut (a
+        server that died mid-request, a reply cut mid-body): unlike a blind
+        mutation retry this is safe, because the store dedupes the segment
+        on its reserved uid block (binds and evictions suppress as no-ops,
+        Events that landed are skipped).  Anything else, a second cut
+        included, goes to the caller's error path and the next cycle
+        solves again."""
+        try:
+            return self.store.apply_segment(ship)
+        except Exception as e:  # noqa: BLE001 — classified just below
+            from volcano_tpu_torch.store.client import _connection_cut
+
+            if not _connection_cut(e):
+                raise
+        return self.store.apply_segment(ship)
 
     def _settle_segment_result(self, ship, res, total: float) -> None:
         """Record a segment's per-row errors, index its fresh Evict Events

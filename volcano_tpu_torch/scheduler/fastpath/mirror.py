@@ -23,7 +23,10 @@ while it was cold (``try_restore_checkpoint``).  Under ``delta: on`` the
 that changes a pod's aggregate contribution records the pod's row, and the
 events that invalidate row-keyed aggregates record a structural reason
 (``resync``, ``node-add``, ``node-remove``, ``job-requeue``,
-``job-remove``).  Left out (ROADMAP item 11): the digest audit.
+``job-remove``).  Over a ``RemoteStore``, a watch that fell off the
+server's event log (``StaleWatch``) relists in ``drain``
+(``stale_relists`` counts them).  Left out (ROADMAP item 11b): the digest
+audit.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import numpy as np
 
 from volcano_tpu_torch.api.objects import POD_GROUP_KEY
 from volcano_tpu_torch.api.types import PodGroupPhase, TaskStatus, task_status_of_pod
+from volcano_tpu_torch.store.client import StaleWatch
 from volcano_tpu_torch.store.store import EventType
 
 # status codes (i8) — a compressed TaskStatus for the pod table
@@ -129,6 +133,8 @@ class ArrayMirror:
         ]
         self._synced = False
         self._resyncing = False
+        #: relists after a remote watch fell off the server's event log
+        self.stale_relists = 0
         # the delta engine's dirty set (scheduler/delta/dirty.py), or None.
         # Not reset by _resync: the hook must see the resync itself
         self.delta_hook = None
@@ -263,10 +269,24 @@ class ArrayMirror:
 
     def drain(self) -> None:
         """Apply queued watch events; the first call performs the full sync
-        (row upserts are idempotent, so events queued meanwhile re-apply)."""
+        (row upserts are idempotent, so events queued meanwhile re-apply).
+        Falling off a RemoteStore server's event log (``StaleWatch``)
+        recovers here with a relist."""
         if not self._synced:
             self._full_sync()
             return
+        try:
+            self._drain_events()
+        except StaleWatch:
+            # poll() moved the cursor past the gap.  The queues' buffers from
+            # before it go first: applied on top of the relist, an update of
+            # an object whose delete fell in the gap would bring it back
+            for _, q in self._watches:
+                getattr(q, "_buf", q).clear()
+            self.stale_relists += 1
+            self._resync(dims=self.dims)
+
+    def _drain_events(self) -> None:
         resync = False
         for kind, q in self._watches:
             while q:

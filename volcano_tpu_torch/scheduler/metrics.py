@@ -21,10 +21,11 @@ per metric name.  Past the cap a new series is dropped (the observation is
 discarded, never an error) and counted in
 ``volcano_metrics_dropped_series_total{metric=...}``.
 
-Durations come from monotonic clocks (``time.perf_counter``).  Families of
-the JAX module that wait for other modules of the port: the WAL's,
-replication's and the digest audit's (ROADMAP item 11), the process mesh's
-and the elastic autoscaler's (12).  ``volcano_jit_compiles_total`` keeps
+Durations come from monotonic clocks (``time.perf_counter``).  The store
+WAL's families are the apiserver's (``store/wal.py``, ``store/server.py``).
+Families of the JAX module that wait for other modules of the port:
+replication's, the digest audit's and the process mesh's (ROADMAP item
+11b), the elastic autoscaler's (12).  ``volcano_jit_compiles_total`` keeps
 its JAX name and counts the growth of the launch-shape registry
 (``vtprof.py``); its HELP line says so.
 """
@@ -378,6 +379,30 @@ def register_delta_shed(n: int = 1) -> None:
     inc("volcano_delta_shed_gangs_total", float(n))
 
 
+# -- store WAL durability series (store/wal.py) --------------------------------
+
+def register_wal_append(n: int = 1) -> None:
+    """Records appended to the store's write-ahead log (one a mutation
+    request or op; a whole decision segment is ONE record)."""
+    inc("volcano_store_wal_appended_records_total", float(n))
+
+
+def register_wal_fsync(n: int = 1) -> None:
+    """Group-commit fsyncs of the WAL tail, the ACK barrier; the ratio to
+    the appended records shows how well group commit amortizes."""
+    inc("volcano_store_wal_fsync_total", float(n))
+
+
+def observe_wal_fsync(seconds: float) -> None:
+    """Duration of one group-commit fsync: the ACK barrier's tail."""
+    observe("volcano_store_wal_fsync_seconds", seconds)
+
+
+def register_wal_recovery(n: int) -> None:
+    """Records replayed from the WAL tail during crash recovery."""
+    inc("volcano_store_wal_recovery_replayed_records_total", float(n))
+
+
 # -- exposition ---------------------------------------------------------------
 
 #: HELP strings of the exposition (the fallback is generated); one line each
@@ -396,6 +421,14 @@ _HELP: Dict[str, str] = {
         "Schedule attempts by result",
     "volcano_residue_tasks_total":
         "Tasks routed to the host residue path, by reason class",
+    "volcano_store_wal_appended_records_total":
+        "Records appended to the store write-ahead log",
+    "volcano_store_wal_fsync_total":
+        "Group-commit fsyncs of the WAL tail (the ACK barrier)",
+    "volcano_store_wal_fsync_seconds":
+        "Duration of one group-commit WAL fsync in seconds",
+    "volcano_store_wal_recovery_replayed_records_total":
+        "WAL records replayed during crash recovery",
     "volcano_decision_drain_batch_seconds":
         "Wall seconds one async-applier batch took to reach the store",
     "volcano_jit_compiles_total":

@@ -14,7 +14,7 @@ modules:
 * ``/healthz``: ``ok``.
 
 ``/debug/digest`` (the digest audit) and the fleet's merged ``/metrics``
-wait for ROADMAP items 11 and 13 and answer 404 like any unknown path.
+wait for ROADMAP items 11b and 13 and answer 404 like any unknown path.
 """
 
 from __future__ import annotations

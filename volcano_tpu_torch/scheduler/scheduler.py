@@ -47,7 +47,9 @@ handshake, deferred to the background warm's end when it has one.  With
 ``VOLCANO_TPU_PROFILE`` set to a directory, every cycle runs under
 ``torch.profiler`` and writes ``cycle-NNNNNN/trace.json`` there.  Not
 ported: the digest audit tick, which raises the steady-state divergence
-crash dump, and the daemon entry (ROADMAP item 11).
+crash dump, and the daemon entry (ROADMAP item 11b).  The store may be a
+``store.client.RemoteStore``: the apiserver then runs in a process of its
+own (``store/server.py``).
 """
 
 from __future__ import annotations

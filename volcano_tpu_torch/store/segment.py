@@ -1,13 +1,18 @@
 """Columnar decision segments: one unit for a whole cycle's output.
 
-The port's copy of ``volcano_tpu/store/segment.py`` without the server's
-log blocks.  A ``DecisionSegment`` holds parallel columns (pod keys, node
+The port's copy of ``volcano_tpu/store/segment.py``.  A ``DecisionSegment`` holds parallel columns (pod keys, node
 ids, reason codes) over interned string tables, built straight from the
 fast cycle's solve outputs and handed to the async applier as ONE queue
 entry; ``Store.apply_segment`` applies it (a patch per row, then one
 Scheduled or Evict Event per row that landed).  The segment reserves the
 uid block its Events draw their names from (``event_name``), so that a
 resubmitted segment is recognised and creates no second Event.
+
+The server half: ``Store.apply_segment_lazy`` stages a segment's rows
+without touching a live object, and the StoreServer logs each section as
+one ``PatchLogBlock`` or ``EventLogBlock``, whose rows expand into watch
+entries (``encode_event_row``: the codec's encoding, built directly) only
+when a watcher reads them.
 """
 
 from __future__ import annotations
@@ -138,3 +143,145 @@ def materialize_event(name: str, involved_key: str, reason: str, message: str,
         meta=Metadata(name=name, namespace="", uid=name,
                       resource_version=rv, creation_timestamp=stamp),
         involved=("Pod", involved_key), reason=reason, message=message, type=type_)
+
+
+def encode_event_row(name: str, involved_key: str, reason: str,
+                     message: str, type_: str, rv: int,
+                     stamp: float) -> Dict[str, Any]:
+    """The codec encoding of ``materialize_event(...)``, built directly:
+    field for field ``codec.encode(ClusterEvent(...))``
+    (``tests/test_torch_columnar_server.py`` holds the byte equality)."""
+    return {
+        "meta": {
+            "name": name, "namespace": "", "uid": name,
+            "labels": {}, "annotations": {},
+            "resource_version": rv, "creation_timestamp": stamp,
+            "owner": None,
+        },
+        "involved": ["Pod", involved_key],
+        "reason": reason,
+        "message": message,
+        "type": type_,
+        "count": 1,
+    }
+
+
+# -- server-side columnar log blocks ----------------------------------------
+
+
+class PatchLogBlock:
+    """A run of same-field scalar patches in the server's event log: one
+    block instead of N encoded-dict entries.  Rows expand lazily into the
+    dicts the per-object patch path logs (``object``: the pre-encoding
+    plus the delta, ``old``: the shared pre-encoding)."""
+
+    kind = "Pod"
+    type = "Updated"
+
+    __slots__ = ("field", "keys", "values", "pre", "rv0", "seq0", "post",
+                 "_rows")
+
+    def __init__(self, field: str, keys: List[str], values: List[Any],
+                 pre: List[Dict[str, Any]], rv0: int):
+        self.field = field
+        self.keys = keys
+        self.values = values  # parallel to keys (per-row scalars)
+        self.pre = pre
+        self.rv0 = rv0  # resource_version of row 0
+        self.seq0 = 0  # seq of row 0, stamped when appended to the log
+        self.post: List[Optional[Dict[str, Any]]] = [None] * len(keys)
+        self._rows: Optional[List[Dict[str, Any]]] = None
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def materialize_enc(self, i: int) -> Dict[str, Any]:
+        enc = self.post[i]
+        if enc is None:
+            enc = dict(self.pre[i])
+            meta = dict(enc["meta"])
+            meta["resource_version"] = self.rv0 + i
+            enc["meta"] = meta
+            enc[self.field] = self.values[i]
+            self.post[i] = enc
+        return enc
+
+    def wire_rows(self, a: int, b: int) -> List[Dict[str, Any]]:
+        rows = self._rows
+        if rows is None:
+            seq0, kind, type_, pre = self.seq0, self.kind, self.type, self.pre
+            rows = self._rows = [
+                {"seq": seq0 + i, "kind": kind, "type": type_,
+                 "object": self.materialize_enc(i), "old": pre[i]}
+                for i in range(len(self.keys))
+            ]
+        return rows[a:b]
+
+
+class EventLogBlock:
+    """A run of segment-born Event creates in the server's log.  Rows
+    never exist as ClusterEvent objects here — names, messages, and
+    encodings derive from the columns on demand (``Store`` materializes
+    the objects separately, only when an Event read asks for them)."""
+
+    kind = "Event"
+    type = "Added"
+
+    __slots__ = ("reason", "ev_type", "token", "uid_idx", "inv_keys",
+                 "values", "rv0", "stamp", "seq0", "encs", "_rows")
+
+    def __init__(self, reason: str, token: str, uid_idx: List[int],
+                 inv_keys: List[str], values: List[str], rv0: int,
+                 stamp: float):
+        self.reason = reason
+        self.ev_type = WARNING if reason == EVICT_REASON else NORMAL
+        self.token = token
+        self.uid_idx = uid_idx  # uid-block slot per row
+        self.inv_keys = inv_keys
+        self.values = values  # hostnames (binds) / reason strings (evicts)
+        self.rv0 = rv0
+        self.stamp = stamp
+        self.seq0 = 0
+        self.encs: List[Optional[Dict[str, Any]]] = [None] * len(inv_keys)
+        self._rows: Optional[List[Dict[str, Any]]] = None
+
+    def __len__(self) -> int:
+        return len(self.inv_keys)
+
+    def name(self, i: int) -> str:
+        return event_name(self.token, self.uid_idx[i])
+
+    def key(self, i: int) -> str:
+        return f"/{self.name(i)}"  # Metadata.key with namespace ""
+
+    def message(self, i: int) -> str:
+        if self.reason == BIND_REASON:
+            return scheduled_message(self.inv_keys[i], self.values[i])
+        return evicted_message(self.values[i])
+
+    def materialize(self, i: int) -> ClusterEvent:
+        return materialize_event(
+            self.name(i), self.inv_keys[i], self.reason, self.message(i),
+            self.ev_type, self.rv0 + i, self.stamp,
+        )
+
+    def materialize_enc(self, i: int) -> Dict[str, Any]:
+        enc = self.encs[i]
+        if enc is None:
+            enc = encode_event_row(
+                self.name(i), self.inv_keys[i], self.reason,
+                self.message(i), self.ev_type, self.rv0 + i, self.stamp,
+            )
+            self.encs[i] = enc
+        return enc
+
+    def wire_rows(self, a: int, b: int) -> List[Dict[str, Any]]:
+        rows = self._rows
+        if rows is None:
+            seq0, kind, type_ = self.seq0, self.kind, self.type
+            rows = self._rows = [
+                {"seq": seq0 + i, "kind": kind, "type": type_,
+                 "object": self.materialize_enc(i), "old": None}
+                for i in range(len(self.inv_keys))
+            ]
+        return rows[a:b]

@@ -9,9 +9,13 @@ notifies no watcher — quiescence relies on it), the compare-and-swap
 checkpoint tells "this store restarted" from "another store whose version
 counter happens to align"), and ``apply_segment``, the
 in-process apply of a columnar decision segment (``store/segment.py``)
-with its resubmit dedupe.  Event objects keep no shadow copy
-(``SHADOWLESS_KINDS``).  No WAL, lazy segment apply, digests or remote
-transport (ROADMAP items 11 and 13).
+with its resubmit dedupe, and ``apply_segment_lazy``, the StoreServer's
+half of the columnar wire: a segment's rows are staged in a lazy overlay
+and folded into the live objects by the first verb that reads or writes
+their key (``_materialize``).  Event objects keep no shadow copy
+(``SHADOWLESS_KINDS``).  The durability (``store/wal.py``) and the HTTP
+transport (``store/server.py``, ``store/client.py``) sit around it; the
+state digests wait for ROADMAP item 11b.
 """
 
 from __future__ import annotations
@@ -54,10 +58,11 @@ def deep_clone(o: Any) -> Any:
     t = o.__class__
     if t in _ATOMIC:
         return o
+    # atomic members (most of an object's) skip the recursive call
     if t is dict:
-        return {k: deep_clone(v) for k, v in o.items()}
+        return {k: v if v.__class__ in _ATOMIC else deep_clone(v) for k, v in o.items()}
     if t is list:
-        return [deep_clone(v) for v in o]
+        return [v if v.__class__ in _ATOMIC else deep_clone(v) for v in o]
     if t is tuple:
         return tuple(deep_clone(v) for v in o)
     if t in _FIELDS:
@@ -70,7 +75,8 @@ def deep_clone(o: Any) -> Any:
         return copy.deepcopy(o)
     new = object.__new__(t)
     for f in fields:
-        setattr(new, f, deep_clone(getattr(o, f)))
+        v = getattr(o, f)
+        setattr(new, f, v if v.__class__ in _ATOMIC else deep_clone(v))
     return new
 
 
@@ -95,6 +101,12 @@ class Event:
     type: EventType
     obj: Any
     old: Any = None
+    #: a copy-on-write patch's field map (possibly dotted paths): lets the
+    #: StoreServer update its encoded-object cache by delta
+    fields: Any = None
+    #: remote transport only (``RemoteStore.poll``): the wire encoding of
+    #: the post-state, carried from the watch entry
+    enc: Any = None
 
 
 def _walk(obj: Any, dotted: str):
@@ -119,6 +131,13 @@ class Store:
         # last-notified state per object: no-op detection and Event.old
         self._shadow: Dict[str, Dict[str, Any]] = defaultdict(dict)
         self._watchers: Dict[str, List[Deque[Event]]] = defaultdict(list)
+        # the lazy columnar overlay (apply_segment_lazy): per kind, field
+        # patches and creates acknowledged but not yet applied to the live
+        # objects, key -> (fields, rv) / (log block, row).  Every verb
+        # materializes the keys it touches first, so the per-object work
+        # is paid on the first read, not at the segment's apply
+        self._lazy_patch: Dict[str, Dict[str, Any]] = defaultdict(dict)
+        self._lazy_create: Dict[str, Dict[str, Any]] = defaultdict(dict)
         self._rv = 0
         # (ev_token, ev_start) of recently applied decision segments: the
         # reserved uid block identifies a segment, so a resubmitted one is
@@ -128,12 +147,79 @@ class Store:
         # thread reads and writes
         self._mu = threading.RLock()
 
+    def __getstate__(self):
+        # the lock is process-local; lazily pending segment rows
+        # materialize first so that the pickle holds plain objects
+        self.materialize_all()
+        state = self.__dict__.copy()
+        del state["_mu"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.__dict__.setdefault("_lazy_patch", defaultdict(dict))
+        self.__dict__.setdefault("_lazy_create", defaultdict(dict))
+        self.__dict__.setdefault("_applied_segments", OrderedDict())
+        self._mu = threading.RLock()
+
     def _watched(self, kind: str) -> bool:
         return bool(self._watchers[kind])
 
     @property
     def resource_version(self) -> int:
         return self._rv
+
+    def _advance_rv(self, n: int = 1) -> int:
+        """Consume ``n`` resource versions and return the last one (the
+        caller's block is ``last - n + 1 .. last``)."""
+        self._rv += n
+        return self._rv
+
+    # -- the lazy segment overlay ----------------------------------------------
+
+    def _materialize(self, kind: str, key: str) -> None:
+        """Fold the pending segment rows of ``key`` into the live object and
+        its no-op-suppression shadow.  Every verb that reads or writes the
+        key calls it first.  Must run under ``_mu``."""
+        lp = self._lazy_patch.get(kind)
+        if lp:
+            entry = lp.pop(key, None)
+            if entry is not None:
+                fields, rv = entry
+                obj = self._objects[kind][key]
+                for name, v in fields.items():
+                    setattr(obj, name, v)
+                obj.meta.resource_version = rv
+                shadow = self._shadow[kind].get(key)
+                if shadow is not None:
+                    new_shadow = copy.copy(shadow)
+                    new_shadow.meta = copy.copy(shadow.meta)
+                    new_shadow.meta.resource_version = rv
+                    for name, v in fields.items():
+                        setattr(new_shadow, name, deep_clone(v))
+                    self._shadow[kind][key] = new_shadow
+        lc = self._lazy_create.get(kind)
+        if lc:
+            entry = lc.pop(key, None)
+            if entry is not None:
+                block, i = entry
+                self._objects[kind][key] = block.materialize(i)
+
+    def _materialize_kind(self, kind: str) -> None:
+        lp = self._lazy_patch.get(kind)
+        lc = self._lazy_create.get(kind)
+        if not lp and not lc:
+            return
+        for key in list(lp or ()):
+            self._materialize(kind, key)
+        for key in list(lc or ()):
+            self._materialize(kind, key)
+
+    def materialize_all(self) -> None:
+        """Materialize every pending segment row (pickling, state flushes)."""
+        with self._mu:
+            for kind in list(self._lazy_patch) + list(self._lazy_create):
+                self._materialize_kind(kind)
 
     #: kinds that keep no shadow copy: records nobody diff-suppresses (a
     #: count bump takes the full update() path); a Scheduled Event a bind
@@ -153,10 +239,10 @@ class Store:
     def create(self, kind: str, obj: Any) -> Any:
         with self._mu:
             key = obj.meta.key
-            if key in self._objects[kind]:
+            lc = self._lazy_create.get(kind)
+            if key in self._objects[kind] or (lc and key in lc):
                 raise KeyError(f"{kind} {key} already exists")
-            self._rv += 1
-            obj.meta.resource_version = self._rv
+            obj.meta.resource_version = self._advance_rv()
             if not obj.meta.creation_timestamp:
                 obj.meta.creation_timestamp = time.time()
             self._objects[kind][key] = obj
@@ -166,13 +252,13 @@ class Store:
     def update(self, kind: str, obj: Any) -> Any:
         with self._mu:
             key = obj.meta.key
+            self._materialize(kind, key)
             if key not in self._objects[kind]:
                 raise KeyError(f"{kind} {key} not found")
             old = self._shadow[kind].get(key)
             if old is not None and old == obj:
                 return obj
-            self._rv += 1
-            obj.meta.resource_version = self._rv
+            obj.meta.resource_version = self._advance_rv()
             self._objects[kind][key] = obj
             self._notify(Event(kind, EventType.UPDATED, obj, old))
             return obj
@@ -182,6 +268,7 @@ class Store:
         resource version still equals ``expected_rv``; raises Conflict
         otherwise (two candidates racing for one lease cannot both win)."""
         with self._mu:
+            self._materialize(kind, obj.meta.key)
             current = self._objects[kind].get(obj.meta.key)
             if current is None:
                 raise KeyError(f"{kind} {obj.meta.key} not found")
@@ -196,6 +283,7 @@ class Store:
         dotted paths to expected values; a mismatch raises
         PreconditionFailed and writes nothing."""
         with self._mu:
+            self._materialize(kind, key)
             obj = self._objects[kind].get(key)
             if obj is None:
                 raise KeyError(f"{kind} {key} not found")
@@ -227,8 +315,7 @@ class Store:
             for k, v in fields.items():
                 parent, leaf = _walk(obj, k)
                 setattr(parent, leaf, v)
-            self._rv += 1
-            obj.meta.resource_version = self._rv
+            obj.meta.resource_version = self._advance_rv()
             # copy-on-write shadow: only the patched path is cloned
             new_shadow = copy.copy(shadow)
             new_shadow.meta = copy.copy(shadow.meta)
@@ -240,7 +327,7 @@ class Store:
                     setattr(cur, p, child)
                     cur = child
                 setattr(cur, paths[k][-1], deep_clone(v))
-            ev = Event(kind, EventType.UPDATED, obj, shadow)
+            ev = Event(kind, EventType.UPDATED, obj, shadow, fields=fields)
             for q in self._watchers[kind]:
                 q.append(ev)
             self._shadow[kind][key] = new_shadow
@@ -350,18 +437,142 @@ class Store:
                 "timings": {"binds_s": t1 - t0, "evicts_s": t2 - t1,
                             "events_s": t3 - t2}}
 
+    def _stage_lazy_rows(self, keys: List[str], field: str, values: Optional[List[Any]]):
+        """Stage one segment section's scalar patches in the lazy overlay:
+        per row the existence and pending-aware no-op checks, a contiguous
+        rv block for the rows that change, a last-wins merge into a pending
+        entry.  ``values`` is the per-row column, or None for the constant
+        True (eviction rows).  Returns ``(sparse errs, changed rows, Event
+        rows, rv0)``.  Must run under ``_mu``."""
+        pods = self._objects["Pod"]
+        pend = self._lazy_patch["Pod"]
+        errs: List[List[Any]] = []
+        changed: List[int] = []
+        ev_rows: List[int] = []
+        for i, key in enumerate(keys):
+            obj = pods.get(key)
+            if obj is None:
+                errs.append([i, "NotFound: " + repr(f"Pod {key} not found")])
+                continue
+            p = pend.get(key)
+            cur = p[0].get(field, _MISSING) if p else _MISSING
+            if cur is _MISSING:
+                cur = getattr(obj, field)
+            ev_rows.append(i)
+            if cur == (True if values is None else values[i]):
+                continue  # a no-op write: its Event only, no patch row
+            changed.append(i)
+        rv0 = self._advance_rv(len(changed)) - len(changed) + 1
+        for j, i in enumerate(changed):
+            key = keys[i]
+            value = True if values is None else values[i]
+            p = pend.get(key)
+            if p is None:
+                pend[key] = ({field: value}, rv0 + j)
+            else:
+                f = dict(p[0])
+                f[field] = value
+                pend[key] = (f, rv0 + j)
+        return errs, changed, ev_rows, rv0
+
+    def apply_segment_lazy(self, seg, stamp: Optional[float] = None) -> Dict[str, Any]:
+        """The server half of the columnar wire: acknowledge a whole
+        decision segment under one lock hold without touching a live
+        object.  Bind and eviction rows stage in the lazy-patch overlay
+        (resource versions assigned now, fields folded in on the first
+        read); Event rows stage as ``EventLogBlock`` references that become
+        ClusterEvent objects only when an Event read asks.  No watcher
+        event fans out: the StoreServer appends the blocks to its own log.
+        Returns the sparse per-row errors and the blocks the server logs:
+
+          bind_block:   (keys, hostnames, rv0) of the rows that changed
+          evict_block:  (keys, rv0)
+          event_blocks: (bind EventLogBlock, evict EventLogBlock)
+
+        A row whose write is a no-op (already on that node, already
+        deleting) gets its Event but no patch row, as on the per-object
+        path.  ``stamp`` pins the Events' creation time (WAL replay passes
+        the original one); None is now.  A resubmitted segment (same uid
+        block) stages no Event row a second time."""
+        from volcano_tpu_torch.store import segment as segmod
+
+        with self._mu:
+            t0 = time.perf_counter()
+            if stamp is None:
+                stamp = time.time()
+            resubmit = self._note_segment(seg)
+            hosts = seg.bind_hosts
+            errs_b, changed_b, ev_b, rv_b0 = self._stage_lazy_rows(
+                seg.bind_keys, "node_name", hosts)
+            t1 = time.perf_counter()
+            errs_e, changed_e, ev_e, rv_e0 = self._stage_lazy_rows(
+                seg.evict_keys, "deleting", None)
+            t2 = time.perf_counter()
+            n_b = len(seg.bind_keys)
+            if resubmit:
+                # drop the Event rows the first submission staged or
+                # materialized already (slot -> key through the uid block)
+                lc0 = self._lazy_create.get("Event") or {}
+                events = self._objects["Event"]
+
+                def _fresh(slot: int) -> bool:
+                    k = f"/{segmod.event_name(seg.ev_token, slot)}"
+                    return k not in lc0 and k not in events
+
+                ev_b = [i for i in ev_b if _fresh(seg.ev_start + i)]
+                ev_e = [j for j in ev_e if _fresh(seg.ev_start + n_b + j)]
+            # the Event rows' rv block follows every patch, the per-object
+            # path's order
+            n_ev = len(ev_b) + len(ev_e)
+            rv_ev0 = self._advance_rv(n_ev) - n_ev + 1
+            ebind = segmod.EventLogBlock(
+                segmod.BIND_REASON, seg.ev_token,
+                [seg.ev_start + i for i in ev_b],
+                [seg.bind_keys[i] for i in ev_b],
+                [hosts[i] for i in ev_b],
+                rv_ev0, stamp)
+            reasons = seg.evict_reason_strs
+            eevict = segmod.EventLogBlock(
+                segmod.EVICT_REASON, seg.ev_token,
+                [seg.ev_start + n_b + j for j in ev_e],
+                [seg.evict_keys[j] for j in ev_e],
+                [reasons[j] for j in ev_e],
+                rv_ev0 + len(ev_b), stamp)
+            lc = self._lazy_create["Event"]
+            for blk in (ebind, eevict):
+                for r in range(len(blk)):
+                    lc[blk.key(r)] = (blk, r)
+            t3 = time.perf_counter()
+            return {
+                "binds": errs_b, "evicts": errs_e,
+                "bind_block": ([seg.bind_keys[i] for i in changed_b],
+                               [hosts[i] for i in changed_b], rv_b0),
+                "evict_block": ([seg.evict_keys[j] for j in changed_e], rv_e0),
+                "event_blocks": (ebind, eevict),
+                "timings": {"binds_s": t1 - t0, "evicts_s": t2 - t1,
+                            "events_s": t3 - t2},
+            }
+
     def delete(self, kind: str, key: str) -> Optional[Any]:
         with self._mu:
+            self._materialize(kind, key)
             obj = self._objects[kind].pop(key, None)
             if obj is not None:
                 self._notify(Event(kind, EventType.DELETED, obj))
             return obj
 
     def get(self, kind: str, key: str) -> Optional[Any]:
+        lp = self._lazy_patch.get(kind)
+        lc = self._lazy_create.get(kind)
+        if (lp and key in lp) or (lc and key in lc):
+            with self._mu:
+                self._materialize(kind, key)
         return self._objects[kind].get(key)
 
     def list(self, kind: str) -> List[Any]:
         with self._mu:
+            # lazily created objects (segment Events) materialize only here
+            self._materialize_kind(kind)
             return list(self._objects[kind].values())
 
     def items(self, kind: str) -> Iterator[Any]:
@@ -372,3 +583,6 @@ class Store:
         q: Deque[Event] = deque()
         self._watchers[kind].append(q)
         return q
+
+    def pending_events(self) -> bool:
+        return any(q for qs in self._watchers.values() for q in qs)

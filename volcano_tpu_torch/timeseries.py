@@ -14,12 +14,14 @@ run, the per-host solve walls ``mesh_hosts``.  The profiler's sentinels
 record ``kind="anomaly"`` samples: ``anomaly`` carries the trip class
 (``steady-state-recompile``, ``device-bytes-leak``) beside the trip's
 fields.  The metrics server serves the ring at ``/debug/timeseries``
-(:func:`debug_payload`); the store server's flush samples wait for item 11.
+(:func:`debug_payload`), and the store server (``store/server.py``) records
+a ``kind="store"`` sample a state flush (the log position, the WAL's
+stats).
 
 Unarmed is the default and costs one module attribute check per site
 (``RECORDER is None``); :func:`arm` arms in-process.  The JAX package's
-``VOLCANO_TPU_TIMESERIES`` variable comes with the port's daemon, its only
-reader (ROADMAP item 11).
+``VOLCANO_TPU_TIMESERIES`` variable comes with the scheduler's daemon
+entry, its only reader (ROADMAP item 11b).
 """
 
 from __future__ import annotations

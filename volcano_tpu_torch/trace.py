@@ -23,7 +23,8 @@ Concepts
   ``volcano.sh/trace-id`` annotation (:func:`stamp`), which the
   scheduler joins at bind time.  The ``X-Volcano-Trace`` header helpers
   (:func:`format_header`, :func:`parse_header`, :func:`request_context`)
-  are kept for the store server and client (ROADMAP item 11).
+  carry a client's context into the store server's request span
+  (``store/client.py``, ``store/server.py``).
 
 Arming: ``VOLCANO_TPU_TRACE=1`` (defaults) or a JSON dict
 ``{"ring": 4096, "dir": "/path/for/crash/dumps"}``.  ``0``/``off``/unset
@@ -450,7 +451,7 @@ def crash_dump(reason: str) -> Optional[str]:
     summary under ``"profile"``.  Returns the path written, or None when
     disarmed.  Never raises: forensics must not mask the original failure.
     (The JAX dump's ``"audit"`` section waits for the digest audit,
-    ROADMAP item 11.)"""
+    ROADMAP item 11b.)"""
     from volcano_tpu_torch import timeseries, vtprof
 
     tr = TRACER
