@@ -11,8 +11,8 @@
     python3 chip_smoke.py --fast-cells  # only cfg5-batch, cfg5d, cfg6 (parent comparisons)
     python3 chip_smoke.py --publish-split  # only the publish modes at cfg5-batch, cfg6, cfg9
     python3 chip_smoke.py --restart-cells  # only the snapshot-cache cells and phase 26
-    python3 chip_smoke.py --delta-cells  # only cfg10, incremental scheduling (phases 27-28)
-    python3 chip_smoke.py --store-cells  # only cfg5-batch and config 7 (phases 3 and 29)
+    python3 chip_smoke.py --delta-cells  # only cfg10 and config 8 (phases 27-28, 30)
+    python3 chip_smoke.py --store-cells  # only cfg5-batch, config 7, cfg9b (phases 3, 29, 31)
 
 Phases, each fatal on failure:
 
@@ -80,7 +80,9 @@ Phases, each fatal on failure:
    cells captured from their first cycle, and K9 over the whole cfg6 storm
    as solveMode: exact runs it (2,000 attempts), bit for bit against its
    plain version on the whole storm (on its first 10 gangs only when the
-   whole storm's plain version would pass PLAIN_STORM_LIMIT_S, 60 s);
+   whole storm's plain version would pass PLAIN_STORM_LIMIT_S, 20 s, cut
+   for the run's time: in practice on the first 10 gangs; ``--storm-split``
+   holds the whole storm against it);
 10. e2e cfg5v-500, cfg5v-2000 — config 5 plus 500 / 2,000 volume-
    constrained tasks in 20-task gangs (bench.py config5_volumes): even
    gangs mount a Bound claim whose PV is pinned to one node, odd ones share
@@ -106,8 +108,10 @@ Phases, each fatal on failure:
    pattern at 1/20 scale; K7 and group-build launches,
    K7 device ms, the resyncs' walls and the object cycle's walls (session
    open, each action, close) per cycle.  Run with the Scheduler's snapshot
-   cache and again without it (``sched.snapshot_cache = None``): the same
-   evictions, pipelines and binds; each cycle's session-open split
+   cache and, under ``--restart-cells`` only (cut from the main run for its
+   time), again without it (``sched.snapshot_cache = None``; one cycle):
+   the same first-cycle evictions, pipelines and binds; each cycle's
+   session-open split
    (ObjectCapture.take_split: the object snapshot, the plugins' opens, the
    first tensor snapshot build, the rebuilds after each invalidate, the
    class rows built, the uploads), and with the cache no class row built
@@ -123,8 +127,9 @@ Phases, each fatal on failure:
 14. e2e cfg5-obj — config 5's nodes and 5,000 gangs x 20 (no best-effort
    pods) with fast_path off: the object cycle's allocate runs K3 and the
    bulk apply; every gang task bound in cycle 1; two cycles (the quiet
-   third cut for the run's time) with the snapshot cache and without it
-   (the same binds; the split and the reuse checks of phase 12);
+   third cut for the run's time) with the snapshot cache and, under
+   ``--restart-cells`` only, one without it (the same binds; the split and
+   the reuse checks of phase 12);
 15. cap lifts — the shapes the card refused before the node-tiled solves,
    each against its plain version: K3 at 65,536- and 131,072-node buckets
    (build_sim_args(40,000 / 100,000, 100,000, 5,000)), K10 at a 65,536-node
@@ -132,7 +137,7 @@ Phases, each fatal on failure:
    cells;
 16. e2e cfg9 — bench.py's cfg9 store (_build_shard_e2e_store: 100,000
    nodes, 1,000,000 tasks in gangs of 20 over 16 namespaces, two weighted
-   queues; here at 3/10 of its nodes and tasks, CFG9_MAIN, cut for the
+   queues; here at 1/10 of its nodes and tasks, CFG9_MAIN, cut for the
    run's time limit) under full_conf("cuda") with mesh "4" (solve_mode auto: the
    batched solve runs on four node blocks, K12a): every gang task bound
    within two cycles, no node over capacity, every gang all or nothing;
@@ -151,8 +156,9 @@ Phases, each fatal on failure:
    pipelines and the binds equal the same store's run under mesh "off"
    with solve_mode "batch" (K7), with as many K12b launches each cycle as
    that run's K7 launches; K12b launches, device ms and the object cycle's
-   walls per cycle; the mesh "4" run again without the snapshot cache, the
-   same decisions, the split and the reuse checks of phase 12;
+   walls per cycle; under ``--restart-cells`` the mesh "4" run again
+   without the snapshot cache, the same decisions, the split and the
+   reuse checks of phase 12;
 19. K12b kernel — at bench config 4's shape on local meshes of 1, 2, 4 and
    8 blocks (16 solves timed, warm and cold), each bit for bit equal to its
    plain version on the same blocks and to the one-block K7, state
@@ -241,7 +247,7 @@ Phases, each fatal on failure:
    LAUNCHES, the attribution and the micro walls of each mode;
    then K2 on the first micro cycle's inputs against its plain
    version; then the same trickle on the same store under delta off (the
-   default), 80 cycles timed (cut from 200 for the run's time), each a
+   default), 40 cycles timed (cut from 200 for the run's time), each a
    full build: its walls beside the micro and delta-on full walls;
 28. e2e cfg10/10 — the trickle at 1/10 scale on two stores, delta on with
    the snapshot-incremental oracle (a full build beside every micro build,
@@ -257,10 +263,30 @@ Phases, each fatal on failure:
    then Scheduler(RemoteStore, full_conf("cuda")) under the applier on
    each in turn: prewarm, cycle 1 (K1, K3; its binds equal phase 3's pod
    for pod), the drain (drain_stats), on the WAL-off server 102,000 pods
-   bound in RemoteStore.items("Pod") and two steady cycles, on the WAL
+   bound in its pod list (read off the wire) and two steady cycles, on the WAL
    server its /healthz WAL stats, a SIGKILL and a restart from the state
    directory (the recovery wall; every acknowledged bind there again);
-   no server process may map torch or CUDA (/proc/<pid>/maps).
+   no server process may map torch or CUDA (/proc/<pid>/maps);
+30. e2e cfg8 — config 8 (bench.py config8_open_loop): the open loop of 1-,
+   2- and 4-pod gangs at 25 gangs/s for 8 s on the 200-node in-process
+   store (full_conf("cuda"), async apply, a blocking prewarm and the warm
+   burst first), the best of two runs by p99, each with every arrived pod
+   bound by the end of settle, the rate sustained, K1 and K2 launched and
+   no node over its caps; then the saturation search from 50 gangs/s,
+   doubling up to 3 times on 4 s runs, against the 1,000 ms p99 band;
+   first-seen to bind p50 / p99 / p999 and the saturation rate (runs after
+   phase 28);
+31. e2e cfg9b — bench.py config9_shard's sharded drain against one shard:
+   the cfg9 store at 10,000 nodes and 100,000 tasks (16 namespaces, two
+   queues) loaded in turn into a spawned 4-shard port apiserver and a
+   one-shard one (WAL off), then on each Scheduler(RemoteStore,
+   full_conf("cuda"), mesh "off") under the applier: prewarm, cycle 1
+   (K1, K3), the drain (the 4-shard applier splits the segment by
+   namespace and ships a sub-segment a shard concurrently: shardNN_s,
+   split_s, ship_s, wire_s); both runs bind the same pods on the same
+   nodes, every task bound and listed as bound, every shard the
+   namespaces hash to carries rows, no server maps torch or CUDA; the
+   drain ratio is a reading (runs after phase 29).
 
 Every Scheduler's ``prewarm`` runs blocking (``background=False``), and
 the launch counts of a phase start after it: the full prewarm launches
@@ -307,10 +333,10 @@ build and cfg5-batch, cfg5d and cfg6 (no sub-cycle), so a parent given
 this file is timed beside the change in one call.  These cells run under
 the applier with the columnar publish, where a tree without the applier
 publishes inline: pair two trees' ``--fast-cells`` only when both have it.
-``--delta-cells`` runs the build and phases 27-28 alone, so a parent
-given this file is measured in the same call (a tree without
+``--delta-cells`` runs the build and phases 27-28 and 30 alone, so a
+parent given this file is measured in the same call (a tree without
 ``conf.delta`` fails there).  ``--store-cells`` runs the build, phase 3
-(its binds the reference) and phase 29 alone.
+(its binds the reference), phase 29 and phase 31 alone.
 ``--exact-split`` runs the build and the exact solve's split alone
 (phase_exact_split: K2 on cfg5-exact's inputs, on the dynamic solves
 cfg5d-exact (K5) and cfg5v-2000 (K5 and K6) capture, at 128 queues and on a
@@ -1465,7 +1491,11 @@ VICTIM_ROW_OPS = 12
 # per pool row and round of the batched rounds: the candidate analysis 10
 # and the victim materialisation 8
 ROUND_ROW_OPS = 18
-PLAIN_STORM_LIMIT_S = 60.0
+#: in the main run the whole cfg6 storm's plain K9 runs only under this
+#: estimate; past it the first 10 gangs hold it (cut from 60 s for the run's
+#: time: the whole storm's plain version takes about 33 s on slower hosts;
+#: --storm-split holds the whole storm)
+PLAIN_STORM_LIMIT_S = 20.0
 
 
 @_no_gc
@@ -1865,9 +1895,10 @@ def phase_victim_kernels(captured, launches):
     # it past PLAIN_STORM_LIMIT_S
     ex10, ekw = _storm_exact_args(captured["cfg6"]["preempt_rounds"], n_gangs=10)
     t0 = time.perf_counter()
-    VK.preempt_solve_plain(*ex10, **ekw)
+    out_p10 = VK.preempt_solve_plain(*ex10, **ekw)
     torch.cuda.synchronize()
-    est = (time.perf_counter() - t0) * CFG6["storm_gangs"] / 10
+    plain10_ms = (time.perf_counter() - t0) * 1e3
+    est = plain10_ms / 1e3 * CFG6["storm_gangs"] / 10
     ex, ekw = _storm_exact_args(captured["cfg6"]["preempt_rounds"])
     held = est > PLAIN_STORM_LIMIT_S
     out_k = VK.preempt_solve(*ex, **ekw)
@@ -1875,11 +1906,8 @@ def phase_victim_kernels(captured, launches):
     b, kind = bound_ms(_victim_bytes(ex, out_k), _victim_ops("preempt_solve", ex, out_k))
     if held:
         out_k10 = VK.preempt_solve(*ex10, **ekw)
-        t0 = time.perf_counter()
-        out_p = VK.preempt_solve_plain(*ex10, **ekw)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = _victim_compare("preempt_solve storm (first 10 gangs)", out_k10, out_p)
+        plain_ms = plain10_ms
+        err = _victim_compare("preempt_solve storm (first 10 gangs)", out_k10, out_p10)
     else:
         t0 = time.perf_counter()
         out_p = VK.preempt_solve_plain(*ex, **ekw)
@@ -1904,9 +1932,8 @@ def phase_victim_kernels(captured, launches):
 # reaped between cycles: the JAX package's pattern at 1/20 scale
 # (tests/test_torch_object.py CFG6R_BE_PATTERN), at full width
 CFG6R_BE_PATTERN = [(19, 10, 0), (19, 10, 0), (19, 10, 0)]
-# cut for the run's time: cfg6r-be's runs take the pattern's first two
-# cycles, cfg6r-be-mesh's its first (with the snapshot cache and without it
-# alike)
+# cut for the run's time: cfg6r-be's cached run takes the pattern's first
+# two cycles, its run without the cache and cfg6r-be-mesh's runs the first
 CFG6R_BE_CYCLES = 2
 CFG6R_BE_MESH_CYCLES = 1
 # the object path's kernels; the fast-path cells must not launch them
@@ -2186,43 +2213,55 @@ def _cache_summary(label, on, off):
         for a, b, sa, sb in zip(on["walls"], off["walls"], on["splits"], off["splits"])]))
 
 
-def phase_object_cfg6r_be():
+def phase_object_cfg6r_be(no_cache=True):
     """cfg6r-be under full_conf("cuda"): every preemptor attempt one K7
-    launch; with the snapshot cache, then without it, the same decisions.
-    Returns (first-cycle launches, the first K7 call's inputs)."""
+    launch; with the snapshot cache, then (with ``no_cache``) one cycle
+    without it, the same decisions as the cached run's first.  Returns
+    (first-cycle launches, the first K7 call's inputs)."""
     from volcano_tpu_torch.scheduler.conf import full_conf
 
     per_cycle, captured, on = _object_cfg6r_be("e2e cfg6r-be", full_conf("cuda"), "victim_step",
                                                 cycles=CFG6R_BE_CYCLES)
-    _, _, off = _object_cfg6r_be("e2e cfg6r-be, no cache", full_conf("cuda"), "victim_step",
-                                 cache=False, cycles=CFG6R_BE_CYCLES)
-    _same_decisions("cfg6r-be", on, off)
-    _cache_summary("e2e cfg6r-be", on, off)
+    if no_cache:
+        # one cycle without the cache, held to the cached run's first (cut
+        # for the run's time)
+        n_ev, n_pipe, n_bind = on["history"][0]
+        first = dict(history=on["history"][:1], evicts=on["evicts"][:n_ev],
+                     pipes=on["pipes"][:n_pipe], binds=on["binds"][:n_bind])
+        _, _, off = _object_cfg6r_be("e2e cfg6r-be, no cache", full_conf("cuda"), "victim_step",
+                                     cache=False, cycles=1)
+        _same_decisions("cfg6r-be", first, off)
+        _cache_summary("e2e cfg6r-be", on, off)
     return per_cycle[0], captured
 
 
-def phase_object_cfg6r_be_mesh():
+def phase_object_cfg6r_be_mesh(no_cache=True):
     """cfg6r-be-mesh: the cfg6r-be store under full_conf("cuda") with mesh
     "4" and solve_mode "batch", so that every preemptor attempt is one K12b
     launch on four node blocks, against the same store under mesh "off"
-    with solve_mode "batch" (K7): equal per-cycle (evictions, pipelines,
-    binds), ordered evictions, pipelines and binds, and as many K12b
-    launches each cycle as the oracle's K7 launches.  Returns the mesh
-    run's first-cycle launches and the first K12b call's inputs."""
+    with solve_mode "batch" (K7), run first: equal per-cycle (evictions,
+    pipelines, binds), ordered evictions, pipelines and binds, and as many
+    K12b launches each cycle as the oracle's K7 launches.  ``no_cache``:
+    the mesh run again without the snapshot cache, the same decisions.
+    Returns the mesh run's first-cycle launches and the first K12b call's
+    inputs."""
     from volcano_tpu_torch.scheduler.conf import full_conf
 
     runs = {}
     for mesh, kernel, cache in (("off", "victim_step", True),
                                 (CFG6R_BE_MESH, "victim_step_sharded", True),
                                 (CFG6R_BE_MESH, "victim_step_sharded", False)):
+        if not (cache or no_cache):
+            continue
         conf = full_conf("cuda")
         conf.solve_mode, conf.mesh = "batch", mesh
         runs[mesh, cache] = _object_cfg6r_be(
             f"e2e cfg6r-be-mesh, mesh {mesh}" + ("" if cache else ", no cache"), conf, kernel,
             cache=cache, cycles=CFG6R_BE_MESH_CYCLES)
     (oracle, _, want), (per_cycle, captured, got) = runs["off", True], runs[CFG6R_BE_MESH, True]
-    _same_decisions("cfg6r-be-mesh", got, runs[CFG6R_BE_MESH, False][2])
-    _cache_summary("e2e cfg6r-be-mesh", got, runs[CFG6R_BE_MESH, False][2])
+    if no_cache:
+        _same_decisions("cfg6r-be-mesh", got, runs[CFG6R_BE_MESH, False][2])
+        _cache_summary("e2e cfg6r-be-mesh", got, runs[CFG6R_BE_MESH, False][2])
     for key in ("history", "evicts", "pipes", "binds"):
         if got[key] != want[key]:
             raise AssertionError(f"cfg6r-be-mesh: {key} differ from the mesh-off oracle")
@@ -2303,16 +2342,17 @@ def _object_cfg5(label, cache, cycles=CFG5_OBJ_CYCLES):
                        pipes=list(cap.pipes), walls=walls, splits=splits)
 
 
-def phase_object_cfg5():
-    """cfg5-obj with the snapshot cache and without it: the same binds,
-    evictions and pipelines.  Returns the cached run's first-cycle
-    launches."""
+def phase_object_cfg5(no_cache=True):
+    """cfg5-obj with the snapshot cache and, with ``no_cache``, without it:
+    the same binds, evictions and pipelines.  Returns the cached run's
+    first-cycle launches."""
     first, on = _object_cfg5("e2e cfg5-obj", True)
-    # one cycle without the cache: cycle 2 binds nothing (all bind in cycle
-    # 1), so the decisions compare whole; cut for the run's time limit
-    _, off = _object_cfg5("e2e cfg5-obj, no cache", False, cycles=1)
-    _same_decisions("cfg5-obj", on, off, keys=("binds", "evicts", "pipes"))
-    _cache_summary("e2e cfg5-obj", on, off)
+    if no_cache:
+        # one cycle without the cache: cycle 2 binds nothing (all bind in
+        # cycle 1), so the decisions compare whole; cut for the run's time
+        _, off = _object_cfg5("e2e cfg5-obj, no cache", False, cycles=1)
+        _same_decisions("cfg5-obj", on, off, keys=("binds", "evicts", "pipes"))
+        _cache_summary("e2e cfg5-obj", on, off)
     return first
 
 
@@ -2584,10 +2624,10 @@ def phase_victim_step_kernel(captured, launches):
 
 # cfg9 (bench.py N_NODES9, N_TASKS9, CFG9_NAMESPACES, _build_shard_e2e_store)
 CFG9 = dict(nodes=100_000, tasks=1_000_000, tasks_per_job=20, namespaces=16, queues=2)
-#: the main run's cfg9 (phases 16, 17 and 20): 3/10 of the nodes and tasks,
-#: cut for the run's time limit when phase 29 came (PERF.md section 4);
-#: --publish-split runs CFG9
-CFG9_MAIN = dict(CFG9, nodes=30_000, tasks=300_000)
+#: the main run's cfg9 (phases 16, 17 and 20): 1/10 of the nodes and tasks,
+#: cut for the run's time limit when phases 29 (to 3/10) and 30-31 (to
+#: 1/10) came (PERF.md section 4); --publish-split runs CFG9
+CFG9_MAIN = dict(CFG9, nodes=10_000, tasks=100_000)
 #: the conf mesh of the cfg9 cell (bench.py config9_shard sets conf.mesh)
 CFG9_MESH = "4"
 #: the conf mesh of the cfg6r-be-mesh cell
@@ -2743,20 +2783,30 @@ def check_cfg9_placement(store):
     Returns the tasks bound."""
     from volcano_tpu_torch.api import POD_GROUP_KEY
 
-    nodes = {}
+    nodes = [(n.meta.name, n.allocatable.milli_cpu, n.allocatable.memory,
+              n.allocatable.max_task_num) for n in store.list("Node")]
+    pods = [(p.meta.namespace, p.meta.annotations.get(POD_GROUP_KEY, ""), p.node_name,
+             p.spec.resources.milli_cpu, p.spec.resources.memory) for p in store.list("Pod")]
+    return check_placement_rows(nodes, pods)
+
+
+def check_placement_rows(nodes, pods):
+    """check_cfg9_placement over rows: ``nodes`` (name, cpu, memory, pod
+    cap), ``pods`` (namespace, group, node or "", cpu, memory)."""
+    index = {}
     cap = []
-    for i, n in enumerate(store.list("Node")):
-        nodes[n.meta.name] = i
-        cap.append((n.allocatable.milli_cpu, n.allocatable.memory, n.allocatable.max_task_num))
+    for i, (name, cpu, mem, max_pods) in enumerate(nodes):
+        index[name] = i
+        cap.append((cpu, mem, max_pods))
     cap = np.array(cap)
     used = np.zeros_like(cap)
     per_gang, size = {}, {}
-    for p in store.list("Pod"):
-        g = (p.meta.namespace, p.meta.annotations.get(POD_GROUP_KEY, ""))
+    for ns, group, node_name, cpu, mem in pods:
+        g = (ns, group)
         size[g] = size.get(g, 0) + 1
-        if not p.node_name:
+        if not node_name:
             continue
-        used[nodes[p.node_name]] += (p.spec.resources.milli_cpu, p.spec.resources.memory, 1)
+        used[index[node_name]] += (cpu, mem, 1)
         per_gang[g] = per_gang.get(g, 0) + 1
     over = np.nonzero((used > cap).any(axis=1))[0]
     if over.size:
@@ -3893,10 +3943,11 @@ def phase_storm_split(reps=STORM_SPLIT_REPS):
     on the synthetic shapes), then each split by victim_split (device ms by
     kernel, host gap; for K10 the count's and the select's ms), with the
     rounds and an output digest of K10, so a parent and a change compare in
-    one chip call; K8 and K9 also against their plain versions (the whole
-    storm's is phase 9's, on its first 10 gangs), with an output digest,
-    their ok attempts, the setup kernels' device ms and walk_split (the
-    timed walk's stages, each cluster size) where the tree has them."""
+    one chip call; K8 and K9 also against their plain versions (K9 over the
+    whole storm too, which the main run's phase 9 holds on its first 10
+    gangs), with an output digest, their ok attempts, the setup kernels'
+    device ms and walk_split (the timed walk's stages, each cluster size)
+    where the tree has them."""
     import torch
     import torch.distributed as dist
 
@@ -3939,9 +3990,8 @@ def phase_storm_split(reps=STORM_SPLIT_REPS):
                             evictions=int((ref.rec.evict_att >= 0).sum()),
                             setup_ms=setup["one block"],
                             setup_ms_blocks=setup[f"{mesh.size} blocks"])
-            if "storm" not in cell:  # the whole storm's plain version: phase 9, on 10 gangs
-                _solve_compare(f"storm split {cell} {name}, plain", ref,
-                               getattr(VK, name + "_plain")(*args, **kw))
+            _solve_compare(f"storm split {cell} {name}, plain", ref,
+                           getattr(VK, name + "_plain")(*args, **kw))
             res[key]["walk"] = walk_split(f"{cell} {name}", name, args, kw,
                                           res[key]["one_block_ms"], res[key]["digest"], n)
         if name == "preempt_rounds":
@@ -4938,7 +4988,7 @@ def phase_restart_standby():
 #: departure waves of 8; the trickle keeps bench's 200 cycles, its run under
 #: delta off takes ``off_trickle`` (cut for the run's time)
 CFG10 = dict(nodes=10_000, tasks=100_000, tasks_per_job=20, gang=2, population=64, wave=8,
-             warmup=8, trickle=200, off_trickle=80, scale=10, parity_cycles=40, sat_qps=250.0,
+             warmup=8, trickle=200, off_trickle=40, scale=10, parity_cycles=40, sat_qps=250.0,
              sat_s=4.0)
 #: micro cycles the trickle must take at the least
 CFG10_MIN_MICRO = 40
@@ -5575,6 +5625,115 @@ def phase_cfg10_tenth():
                               wall_gangs_per_s=wall_rate)}
 
 
+#: config 8 (bench.py config8_open_loop, :870-957): the open-loop SLO
+#: harness on _build_open_loop_store's cluster (nodes of 8,000m, 16 GiB and
+#: 110 pods, one weight-1 queue); the base rate's runs, the saturation
+#: search's start (twice the base) and doublings, its runs' length and the
+#: p99 band
+CFG8 = dict(nodes=200, node_cpu_milli=8000.0, node_mem=16.0 * (1 << 30), node_pods=110,
+            qps=25.0, duration_s=8.0, base_runs=2, band_p99_ms=1000.0, max_doublings=3,
+            settle_s=30.0)
+#: the unmeasured warm burst before every run (bench.py's ``warm``)
+CFG8_WARM = dict(qps=300.0, duration_s=0.15, seed=1, gang_sizes=((1, 5.0), (2, 3.0), (4, 2.0)),
+                 cpu_millis=(250, 500), mem_mb=(256, 512), dwell_s=0.05, namespace="warm",
+                 prefix="wm")
+#: the measured arrivals, at the run's rate and length (bench.py's ``spec``)
+CFG8_LOAD = dict(seed=8, gang_sizes=((1, 5.0), (2, 3.0), (4, 2.0)), cpu_millis=(250, 500),
+                 mem_mb=(256, 512), dwell_s=6.0, namespace="load")
+
+
+def build_open_loop_store(n_nodes=CFG8["nodes"]):
+    """bench.py _build_open_loop_store with the port's objects: one weight-1
+    queue and ``n_nodes`` nodes of 8,000m / 16 GiB / 110 pods."""
+    from volcano_tpu_torch.api import Metadata, Node, Queue, Resource
+    from volcano_tpu_torch.store import Store
+
+    store = Store()
+    store.create("Queue", Queue(meta=Metadata(name="default", namespace=""), weight=1))
+    for i in range(n_nodes):
+        store.create("Node", Node(meta=Metadata(name=f"n{i:04d}", namespace=""),
+                                  allocatable=Resource(CFG8["node_cpu_milli"], CFG8["node_mem"],
+                                                       max_task_num=CFG8["node_pods"])))
+    return store
+
+
+def cfg8_specs(qps, duration_s):
+    """(the warm burst's LoadSpec, the measured run's) of one config-8 run."""
+    from volcano_tpu_torch.loadgen import LoadSpec
+
+    return LoadSpec(**CFG8_WARM), LoadSpec(qps=qps, duration_s=duration_s, **CFG8_LOAD)
+
+
+def _cfg8_run(label, qps, duration_s, checks):
+    """One config-8 run as bench.py's run_at: a fresh store and
+    Scheduler(full_conf("cuda"), async apply), a blocking prewarm, the warm
+    burst, then the measured open loop.  Launch counts reset just before
+    the measured run and read just after; the placement holds (no node over
+    its CPU, memory or pod cap, every gang all or nothing).  With
+    ``checks``: every arrived pod bound by the end of settle, the run
+    sustained, K1 and K2 launched.  Returns (report, launches)."""
+    from volcano_tpu_torch.loadgen import run_open_loop
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    store = build_open_loop_store()
+    sched = Scheduler(store, conf=async_conf(full_conf("cuda")))
+    try:
+        sched.prewarm(background=False)
+        warm, spec = cfg8_specs(qps, duration_s)
+        run_open_loop(store, warm, sched.run_once, settle_s=CFG8["settle_s"])
+        reset_launches()
+        report = run_open_loop(store, spec, sched.run_once, settle_s=CFG8["settle_s"])
+        launches = {k: v for k, v in read_launches().items() if v}
+        flush_applier(label, sched)
+    finally:
+        sched.close()
+    check_cfg9_placement(store)
+    if checks:
+        if report.bound_pods != report.submitted_pods or report.unbound_pods:
+            raise AssertionError(f"{label}: {report.bound_pods} of {report.submitted_pods} "
+                                 f"arrived pods bound by the end of settle")
+        if not report.sustained:
+            raise AssertionError(f"{label}: the run did not sustain {qps} gangs/s: "
+                                 f"{report.as_dict()}")
+        for name in ("water_fill", "allocate_solve"):
+            if launches.get(name, 0) < 1:
+                raise AssertionError(f"{label}: kernel {name} launched "
+                                     f"{launches.get(name, 0)} times on the main path")
+    log(f"[{label}] {qps:.0f} gangs/s for {duration_s} s: {json.dumps(report.as_dict())} "
+        f"launches {launches}")
+    return report, launches
+
+
+def phase_cfg8():
+    """Phase 30, config 8 (bench.py config8_open_loop): the open loop at 25
+    gangs/s of 1-, 2- and 4-pod gangs for 8 s against the in-process store,
+    the best of two runs by p99 (each checked: every pod bound, the rate
+    sustained, K1 and K2 launched, the placement), then the saturation
+    search from 50 gangs/s, doubling up to 3 times on runs of 4 s, until
+    p99 leaves the 1,000 ms band.  Returns the figures."""
+    from volcano_tpu_torch.loadgen import saturation_search
+
+    label = "e2e cfg8"
+    runs = [_cfg8_run(f"{label} base {i + 1}", CFG8["qps"], CFG8["duration_s"], checks=True)
+            for i in range(CFG8["base_runs"])]
+    base, launches = min(runs, key=lambda r: r[0].p99_ms)
+    sat = saturation_search(
+        lambda q: _cfg8_run(f"{label} saturation", q, max(CFG8["duration_s"] / 2.0, 3.0),
+                            checks=False)[0],
+        base_qps=CFG8["qps"] * 2, band_p99_ms=CFG8["band_p99_ms"],
+        max_doublings=CFG8["max_doublings"])
+    out = {"qps": CFG8["qps"], "p50_ms": round(base.p50_ms, 2),
+           "p99_ms": round(base.p99_ms, 2), "p999_ms": round(base.p999_ms, 2),
+           "report": base.as_dict(), "launches": launches, "band_p99_ms": CFG8["band_p99_ms"],
+           "saturation": sat.as_dict()}
+    log(f"[{label}] first-seen to bind at {CFG8['qps']:.0f} gangs/s (best of "
+        f"{CFG8['base_runs']} by p99): p50 {out['p50_ms']} ms, p99 {out['p99_ms']} ms, p999 "
+        f"{out['p999_ms']} ms; saturation: sustained {sat.sustained_qps} gangs/s, breach "
+        f"{sat.breach_qps}")
+    return out
+
+
 #: config 7 (bench.py config7): config 5 through the port's apiserver in
 #: its own process, loaded with RemoteStore.bulk in batches of this many ops
 CFG7_BULK_OPS = 4_000
@@ -5585,16 +5744,18 @@ CFG7_BOOT_TIMEOUT_S = 300.0
 CFG7_WAL_SAVE_INTERVAL_S = 3600.0
 
 
-def _cfg7_server(ctx, wal_state=""):
+def _cfg7_server(ctx, wal_state="", shards=1):
     """Spawn the port's StoreServer in its own process; (process, URL, the
     wall until it put its URL).  ``wal_state``: the state file of a server
     with the WAL armed beside it (saved every CFG7_WAL_SAVE_INTERVAL_S), or
-    "" for a server without durability.  A server that cannot start or bind
-    fails the phase: there is no fallback to an in-process store."""
+    "" for a server without durability; ``shards``: its decision-bus shard
+    count.  A server that cannot start or bind fails the phase: there is no
+    fallback to an in-process store."""
     from volcano_tpu_torch.store.server import serve_in_child
 
     q = ctx.Queue()
-    args = (q, wal_state, True, CFG7_WAL_SAVE_INTERVAL_S) if wal_state else (q,)
+    args = ((q, wal_state, True, CFG7_WAL_SAVE_INTERVAL_S, shards) if wal_state
+            else (q, "", False, 0.25, shards))
     proc = ctx.Process(target=serve_in_child, args=args, daemon=True)
     t0 = time.perf_counter()
     proc.start()
@@ -5722,7 +5883,8 @@ def _cfg7_run(label, server, ref_binds, wal_state=""):
     out["binds_equal_in_process"] = len(binds)
     out["bind_order_equal"] = binds == list(ref_binds)
     if not wal_state:
-        out["bound"] = sum(1 for p in remote.items("Pod") if p.node_name)
+        # read off the wire without decoding
+        out["bound"] = sum(1 for p in _get_json(url, "/apis/Pod")["items"] if p["node_name"])
         lap("the pods listed")
         if out["bound"] != want_pods:
             raise AssertionError(f"{label}: {out['bound']} of {want_pods} pods carry a node "
@@ -5833,6 +5995,163 @@ def phase_cfg7(ref_binds):
     return out
 
 
+#: cfg9b (bench.py config9_shard's comparison, :1180-1210, _cfg9_run
+#: :1034): the cfg9 store at cfg7's scale (bench.py N_NODES, N_TASKS; its
+#: VOLCANO_TPU_CFG9B_SCALE 1.0) through a spawned apiserver of this many
+#: shards, against one of a single shard
+CFG9B = dict(CFG9, nodes=10_000, tasks=100_000, shards=4)
+
+
+def _cfg9b_run(label, server, want_shards):
+    """One cfg9b pass (bench.py _cfg9_run with mesh "off") against a loaded
+    apiserver process, ``server`` = (process, URL): Scheduler(RemoteStore(url),
+    full_conf("cuda"), async apply, mesh "off"): a blocking prewarm, cycle 1
+    with the launch counts reset just before it and read just after, the
+    drain until the applier holds nothing, then cycles until every task is
+    bound (at most MAX_CYCLES in all).  Checks: K1 and K3 launched and no
+    other solve; the server's pods listed equal to the cycles' binds, every
+    gang task bound and no node over its caps (check_cfg9_placement); the
+    drain's shardNN_s keys exactly ``want_shards`` (the shards the 16
+    namespaces hash to; none for one shard); the process maps no torch or
+    CUDA.  Returns the measurements and the binds."""
+    import torch
+
+    from volcano_tpu_torch.scheduler.conf import full_conf
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+    from volcano_tpu_torch.store.client import RemoteStore
+
+    proc, url = server
+    out = {}
+    remote = RemoteStore(url, timeout=900)
+    conf = async_conf(full_conf("cuda"))
+    conf.mesh = "off"
+    sched = Scheduler(remote, conf=conf)
+    try:
+        out["prewarm_s"] = round(sched.prewarm(background=False), 3)
+        out["segment_shards"] = remote.segment_shards
+        reset_launches()
+        t0 = time.perf_counter()
+        sched.run_once()
+        torch.cuda.synchronize()
+        out["cycle1_s"] = round(time.perf_counter() - t0, 4)
+        launches = read_launches()
+        out["launches"] = {k: v for k, v in launches.items() if v}
+        out["phases"] = {k: round(v, 4) for k, v in sched.fast_cycle.phases.items()}
+        t1 = time.perf_counter()
+        flush_applier(label, sched, CFG9_FLUSH_TIMEOUT_S)
+        out["drain_s"] = round(time.perf_counter() - t1, 4)
+        out["drain_stats"] = {k: round(v, 4)
+                              for k, v in sorted(sched.cache.applier.drain_stats.items())}
+        out["cycle1_binds"] = len(sched.cache.bind_log)
+        cycles = 1
+        while len(sched.cache.bind_log) < CFG9B["tasks"] and cycles < MAX_CYCLES:
+            cycles += 1
+            sched.run_once()
+            flush_applier(label, sched, CFG9_FLUSH_TIMEOUT_S)
+        out["cycles"] = cycles
+        if sched.cache.err_log:
+            raise AssertionError(f"{label}: err_log {sched.cache.err_log[:3]}")
+        binds = list(sched.cache.bind_log)
+    finally:
+        sched.close()
+    log(f"[{label}] prewarm {out['prewarm_s']} s; cycle 1 {out['cycle1_s']} s phases "
+        f"{json.dumps(out['phases'])} launches {out['launches']}; drain {out['drain_s']} s "
+        f"{json.dumps(out['drain_stats'])}; {len(binds)} binds in {cycles} cycle(s)")
+    for name in ("water_fill", "allocate_solve_batch"):
+        if launches[name] < 1:
+            raise AssertionError(f"{label}: kernel {name} launched {launches[name]} times on "
+                                 f"the main path, expected at least 1")
+    for name in ("allocate_solve", "sharded_cycle") + CONTENTION_KERNELS + OBJECT_FORBID:
+        if launches[name]:
+            raise AssertionError(f"{label}: kernel {name} launched ({launches[name]})")
+    got_shards = {int(k[5:7]) for k in out["drain_stats"] if k.startswith("shard")}
+    if got_shards != want_shards:
+        raise AssertionError(f"{label}: the drain shipped to shards {sorted(got_shards)}, the "
+                             f"namespaces hash to {sorted(want_shards)}")
+    # the server's pods and nodes read off the wire without decoding (a pod
+    # list moves about 50 MB of JSON)
+    from volcano_tpu_torch.api import POD_GROUP_KEY
+
+    t0 = time.perf_counter()
+    pods = _get_json(url, "/apis/Pod")["items"]
+    listed = {f"{p['meta']['namespace']}/{p['meta']['name']}": p["node_name"] for p in pods}
+    nodes = [(n["meta"]["name"], n["allocatable"]["cpu"], n["allocatable"]["mem"],
+              n["allocatable"]["max_task_num"]) for n in _get_json(url, "/apis/Node")["items"]]
+    bound = check_placement_rows(nodes, [
+        (p["meta"]["namespace"], p["meta"]["annotations"].get(POD_GROUP_KEY, ""),
+         p["node_name"], p["spec"]["resources"]["cpu"], p["spec"]["resources"]["mem"])
+        for p in pods])
+    out["list_check_s"] = round(time.perf_counter() - t0, 3)
+    if bound != CFG9B["tasks"] or {k: n for k, n in listed.items() if n} != dict(binds):
+        raise AssertionError(f"{label}: {bound} of {CFG9B['tasks']} tasks bound on the server; "
+                             f"{len(binds)} binds in the cycles")
+    mapped = _torch_libs_mapped(proc.pid)
+    if mapped:
+        raise AssertionError(f"{label}: the apiserver process mapped torch or CUDA: {mapped}")
+    return out, binds
+
+
+def phase_cfg9b():
+    """Phase 31, cfg9b (bench.py config9_shard's cfg9b line): the cfg9 store
+    at 10,000 nodes and 100,000 tasks (gangs of 20 over 16 namespaces, two
+    queues) through a spawned port apiserver of 4 shards and one of 1 (WAL
+    off, save interval 0.25 as bench.py's _apiserver_proc), loaded one after
+    the other through RemoteStore.bulk in CFG7_BULK_OPS batches, then driven
+    one after the other (_cfg9b_run).  Both runs must bind the same pods on
+    the same nodes.  The sharded drain over the single one is a reading, not
+    a gate (bench.py gates nothing on it).  Returns the figures."""
+    import multiprocessing as mp
+
+    from volcano_tpu_torch.store.client import RemoteStore
+    from volcano_tpu_torch.store.partition import shard_of
+
+    ctx = mp.get_context("spawn")
+    n = CFG9B["shards"]
+    want = {shard_of(f"team{i}", n) for i in range(CFG9B["namespaces"])}
+    procs = {}
+    runs = {}
+    try:
+        procs["sharded"] = _cfg7_server(ctx, shards=n)
+        procs["single"] = _cfg7_server(ctx)
+        t0 = time.perf_counter()
+        local = build_cfg9_store(CFG9B["nodes"], CFG9B["tasks"])
+        build_s = time.perf_counter() - t0
+        ops = [{"op": "create", "kind": kind, "object": obj}
+               for kind in ("Queue", "Node", "PodGroup", "Pod") for obj in local.items(kind)]
+        loads = {name: _cfg7_load(RemoteStore(procs[name][1], timeout=900), ops)
+                 for name in ("sharded", "single")}
+        n_objects = len(ops)
+        del local, ops
+        gc.collect()
+        log(f"[cfg9b] store built in {build_s:.3f} s ({CFG9B['nodes']} nodes, {CFG9B['tasks']} "
+            f"tasks in gangs of {CFG9B['tasks_per_job']} over {CFG9B['namespaces']} "
+            f"namespaces) and loaded into each apiserver in turn: {n_objects} objects, "
+            f"{n} shards {loads['sharded']:.3f} s, one shard {loads['single']:.3f} s")
+        for name, shards in (("sharded", want), ("single", set())):
+            out, binds = _cfg9b_run(f"e2e cfg9b {name}", procs[name][:2], shards)
+            out["store_load_s"] = round(loads[name], 3)
+            runs[name] = (out, binds)
+    finally:
+        for entry in procs.values():
+            _cfg7_stop(entry[0])
+    (sh, sh_binds), (one, one_binds) = runs["sharded"], runs["single"]
+    if dict(sh_binds) != dict(one_binds) or len(sh_binds) != len(one_binds):
+        got, ref = dict(sh_binds), dict(one_binds)
+        diff = [k for k in set(got) | set(ref) if got.get(k) != ref.get(k)]
+        raise AssertionError(f"cfg9b: the {n}-shard and one-shard runs bind differently: "
+                             f"{len(diff)} pods, e.g. {diff[:5]}")
+    out = {"shards": n, "objects": n_objects, "sharded": sh, "single": one,
+           "ratio": round(sh["drain_s"] / max(one["drain_s"], 1e-9), 3),
+           "drain_shards_s": {k: v for k, v in sh["drain_stats"].items()
+                              if k.startswith("shard")}}
+    log(f"[cfg9b] drain {n} shards {sh['drain_s']} s, one shard {one['drain_s']} s, ratio "
+        f"{out['ratio']}; per shard {json.dumps(out['drain_shards_s'])}; split_s "
+        f"{sh['drain_stats']['split_s']}, ship_s {sh['drain_stats']['ship_s']}, wire_s "
+        f"{sh['drain_stats']['wire_s']} (one shard {one['drain_stats']['wire_s']}); both runs "
+        f"bound the same {len(sh_binds)} pods on the same nodes")
+    return out
+
+
 def check_placement_ports(store):
     """No node holds a host port twice."""
     ports = {}
@@ -5912,7 +6231,7 @@ def _run(argv, mark, smi):
         return False
     if "--restart-cells" in argv:
         log(smi)
-        be_launches, _ = phase_object_cfg6r_be()
+        phase_object_cfg6r_be()
         phase_object_cfg5()
         phase_object_cfg6r_be_mesh()
         from volcano_tpu_torch.scheduler.conf import full_conf
@@ -5929,6 +6248,9 @@ def _run(argv, mark, smi):
     if "--delta-cells" in argv:
         log(smi)
         log(json.dumps({"cfg10": dict(phase_cfg10(), tenth=phase_cfg10_tenth())}))
+        mark("phases 27-28")
+        log(json.dumps({"cfg8": phase_cfg8()}))
+        mark("phase 30")
         log(smi)
         return False
     if "--store-cells" in argv:
@@ -5940,6 +6262,8 @@ def _run(argv, mark, smi):
         mark("phase 3")
         log(json.dumps({"cfg7": phase_cfg7(ref)}))
         mark("phase 29")
+        log(json.dumps({"cfg9b": phase_cfg9b()}))
+        mark("phase 31")
         log(smi)
         return False
     if "--residue" in argv:
@@ -6014,10 +6338,12 @@ def _run(argv, mark, smi):
                     volume_tasks=2000)
     kern.update(phase_volsel_kernel(cap[0], vol["allocate_solve_volsel"]))
     mark("phases 10-11")
-    be_launches, step_in = phase_object_cfg6r_be()
+    # the runs without the snapshot cache are --restart-cells' (cut from the
+    # main run for its time)
+    be_launches, step_in = phase_object_cfg6r_be(no_cache=False)
     kern.update(phase_victim_step_kernel(step_in, be_launches))
     mark("phases 12-13")
-    phase_object_cfg5()
+    phase_object_cfg5(no_cache=False)
     caps = phase_cap_lifts()
     mark("phases 14-15")
     cfg9_launches, cfg9_captured = phase_cfg9()
@@ -6029,7 +6355,7 @@ def _run(argv, mark, smi):
     del cfg9_captured, k12a_out
     gc.collect()
     mark("phase 20")
-    mesh_launches, sharded_step_in = phase_object_cfg6r_be_mesh()
+    mesh_launches, sharded_step_in = phase_object_cfg6r_be_mesh(no_cache=False)
     kern.update(phase_victim_sharded_kernel(sharded_step_in,
                                             mesh_launches["victim_step_sharded"]))
     mark("phases 18-19")
@@ -6053,9 +6379,13 @@ def _run(argv, mark, smi):
     cfg10["tenth"] = phase_cfg10_tenth()
     mark("phase 28")
     log(json.dumps({"cfg10": cfg10}))
+    log(json.dumps({"cfg8": phase_cfg8()}))
+    mark("phase 30")
     log(smi)
     log(json.dumps({"cfg7": phase_cfg7(batch_binds)}))
     mark("phase 29")
+    log(json.dumps({"cfg9b": phase_cfg9b()}))
+    mark("phase 31")
     kern["water_fill"]["cfg10_launches_per_micro_cycle"] = cfg10["k1_per_micro_cycle"]
     kern["allocate_solve"]["cfg10"] = dict(cfg10["k2_at_micro_shape"],
                                            launches_per_micro_cycle=cfg10["k2_per_micro_cycle"],

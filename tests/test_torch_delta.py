@@ -519,3 +519,44 @@ def test_podgroup_without_pods_past_the_row_capacity_builds_micro():
     sched.run_once()
     assert sched.fast_cycle.delta.last["mode"] == "micro"
     assert store.get("Pod", "default/late1-0").node_name == "n0"
+
+
+def _crash_kill_run(kill_every):
+    """tests/test_delta.py:567-597's 12-step script in both packages at once:
+    a 1-pod gang in each of the first 6 steps, one cycle a step, and with
+    ``kill_every`` each Scheduler rebuilt from scratch (a fresh mirror and
+    engine, a full relist) every that many pumps.  Returns each package's
+    sorted (pod key, node) and its ``arm`` fallbacks in the run."""
+    for mod in (jmetrics, tmetrics):
+        mod.reset()
+    stores = Stores(_mixed_store(5, running_jobs=0), *_confs())
+    for step in range(12):
+        if kill_every and step and step % kill_every == 0:
+            jc, tc = _confs()
+            stores.jsched = JScheduler(stores.js, conf=jc)
+            stores.tsched = Scheduler(stores.ts, conf=tc)
+        if step < 6:
+            stores.create("PodGroup", build_podgroup(f"ck{step}", min_member=1, queue="qa"))
+            stores.create("Pod", build_pod(f"ck{step}-0", group=f"ck{step}", cpu="100m",
+                                           memory="128Mi"))
+        stores.cycle()
+    out = []
+    for store, mod in ((stores.js, jmetrics), (stores.ts, tmetrics)):
+        out.append((sorted((p.meta.key, p.node_name) for p in store.list("Pod")),
+                    mod.get_counter("volcano_delta_full_fallbacks_total", reason="arm")))
+    return out
+
+
+def test_crash_kill_restart_rearms_delta_and_converges_as_jax():
+    """test_delta.py:567: the Scheduler killed and rebuilt every 3 pumps
+    converges to the placements of an uninterrupted delta run, in the port
+    as in JAX: the port's crashed placements equal its uninterrupted ones
+    and the JAX crashed run's, every pod is bound, and each package counts
+    an ``arm`` fallback at every (re)start, at least 4 in the crashed run."""
+    (j_whole, _), (t_whole, _) = _crash_kill_run(0)
+    (j_crash, j_arm), (t_crash, t_arm) = _crash_kill_run(3)
+    assert t_crash == t_whole
+    assert t_crash == j_crash == j_whole
+    assert len(t_crash) > 6
+    assert all(node for _, node in t_crash)
+    assert t_arm == j_arm >= 4

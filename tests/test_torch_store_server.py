@@ -4,10 +4,10 @@
 Each case mirrors one of ``tests/test_remote_store.py`` (its line named),
 run on the port's objects, server and client; the four cases with Jobs,
 the job controller or admission (``:157``, ``:213``, ``:278``, ``:546``)
-wait for the controllers (ROADMAP item 12).  Then what this slice refuses
-by name: a Job write (item 12), ``shards > 1``, replication, the seq bus
-and the process mesh, ``/repl/*`` and ``/debug/digest`` (item 11b),
-``/chaos`` (item 13).  Then the process rule: importing the server loads
+wait for the controllers (ROADMAP item 12).  Then what the port refuses
+by name: a Job write (item 12), ``/debug/digest`` (item 11b part 2),
+replication and ``/repl/*`` (part 3), the seq bus and the process mesh
+(part 4), ``/chaos`` (item 13); and the partitioned bus (part 1) booting.  Then the process rule: importing the server loads
 no torch, and a spawned server never initializes CUDA.
 
 Every server listens on port 0 and keeps its state under ``tmp_path``, so
@@ -450,29 +450,54 @@ def test_job_writes_fail_naming_item_12(server):
 
 
 def test_later_options_and_routes_fail_naming_their_item(server, tmp_path):
-    for kw in ({"shards": 4}, {"repl": {"peers": []}}, {"seq_bus": object()},
-               {"proc_shard": (0, 2)}):
-        with pytest.raises(ValueError, match="item 11b"):
+    """The options and routes of later parts raise or answer naming their
+    item; the partitioned bus (item 11b part 1) boots, serves and applies:
+    ``shards=4`` with and without the WAL, ``/watch?shard=``, a shard-tagged
+    segment op, a partitioned WAL directory at boot."""
+    for kw, item in (({"repl": {"peers": []}}, "item 11b part 3"),
+                     ({"seq_bus": object()}, "item 11b part 4"),
+                     ({"proc_shard": (0, 2)}, "item 11b part 4")):
+        with pytest.raises(ValueError, match=item):
             StoreServer(**kw)
     url = server.url
-    for path in ("/repl/status", "/repl/feed?from=0", "/debug/digest", "/watch?shard=1"):
+    for path, item in (("/repl/status", "part 3"), ("/repl/feed?from=0", "part 3"),
+                       ("/debug/digest", "part 2")):
         code, out = _get(url, path)
-        assert code == 404 and "item 11b" in out["error"], (path, out)
+        assert code == 404 and f"item 11b {item}" in out["error"], (path, out)
     code, out = _get(url, "/chaos")
     assert code == 404 and "item 13" in out["error"]
     code, out = _send(url, "POST", "/chaos", {"rules": []})
     assert code == 404 and "item 13" in out["error"]
+    from volcano_tpu_torch.store.partition import shard_of
     from volcano_tpu_torch.store.segment import DecisionSegment
 
-    op = DecisionSegment.build(["default/x"], [0], ["n0"]).to_wire()
-    op["shard"] = 1
-    res = RemoteStore(url)._request("POST", "/bulk", {"ops": [op]})[1]
-    assert "item 11b" in res["results"][0]
-    # a partitioned life's WAL directory is refused, not dropped
-    wal_dir = tmp_path / "state.json.wal" / "s00"
-    wal_dir.mkdir(parents=True)
-    with pytest.raises(ValueError, match="item 11b"):
-        StoreServer(state_path=str(tmp_path / "state.json"), wal=True)
+    state = str(tmp_path / "state.json")
+    shard = shard_of("default", 4)
+    for wal in (False, True):
+        srv = StoreServer(shards=4, state_path=state, wal=wal).start()
+        try:
+            assert _get(srv.url, "/healthz")[1]["shards"] == 4
+            rs = RemoteStore(srv.url)
+            since = srv.seq
+            rs.create("Pod", pod(f"x{int(wal)}"))
+            code, out = _get(srv.url, f"/watch?since={since}&shard={shard}")
+            assert code == 200 and [e["object"]["meta"]["name"]
+                                    for e in out["events"]] == [f"x{int(wal)}"]
+            op = DecisionSegment.build([f"default/x{int(wal)}"], [0], ["n0"]).to_wire()
+            op["shard"] = shard
+            res = rs._request("POST", "/bulk", {"ops": [op]})[1]["results"][0]
+            assert not res["binds"] and not res["evicts"], res
+            assert rs.get("Pod", f"default/x{int(wal)}").node_name == "n0"
+        finally:
+            srv.stop()
+    # the partitioned life's WAL directory boots a one-shard server with
+    # every acknowledged record
+    assert (tmp_path / "state.json.wal" / f"s{shard:02d}").is_dir()
+    srv = StoreServer(state_path=state, wal=True).start()
+    try:
+        assert [srv.store.get("Pod", f"default/x{i}").node_name for i in (0, 1)] == ["n0"] * 2
+    finally:
+        srv.stop()
 
 
 # -- the process rule --------------------------------------------------------------

@@ -1,8 +1,7 @@
 """Asynchronous, batched side-effect application for the scheduler cache.
 
-The port's copy of ``volcano_tpu/scheduler/apply.py`` without the
-namespace-sharded segment ship (ROADMAP item 11b) and the chaos crash point
-(item 13).  The reference never serializes its cycle behind API writes:
+The port's copy of ``volcano_tpu/scheduler/apply.py`` without the chaos
+crash point (ROADMAP item 13).  The reference never serializes its cycle behind API writes:
 every bind and eviction runs on its own goroutine with resync on error
 (KB/pkg/scheduler/cache/cache.go:393-447).  Here one applier thread drains
 a decision queue into the store: a columnar segment (``store/segment.py``)
@@ -10,6 +9,9 @@ through ``Store.apply_segment``, everything else through the store's bulk
 verb, so that the cycle publishes its decisions and returns.  Over a
 ``RemoteStore`` a segment whose ship a connection cut left in doubt is
 shipped once more: the server dedupes it on its reserved uid block.
+Against a partitioned server (``segment_shards`` > 1) a segment splits by
+namespace shard (``store/partition.py``) and the sub-segments ship
+concurrently, one request a shard.
 
 Decisions in flight (submitted, not yet confirmed by the store) overlay
 the next snapshot: a cycle that starts before the writes land still sees
@@ -64,9 +66,13 @@ class AsyncApplier:
         #: cumulative drain seconds by section: a segment's bind, eviction
         #: and Event sections as the store timed them, the other op batches
         #: (PodGroup statuses, enqueue admissions, Event bumps) under pg_s,
-        #: and the applier's own share of a segment ship under wire_s
+        #: the applier's own share of a segment ship under wire_s; on a
+        #: partitioned store the split's wall (split_s), the concurrent
+        #: fan-out's (ship_s) and each shard's ship wall (shardNN_s, added
+        #: at a shard's first ship)
         self.drain_stats: Dict[str, float] = {
             "binds_s": 0.0, "evicts_s": 0.0, "events_s": 0.0, "pg_s": 0.0, "wire_s": 0.0,
+            "split_s": 0.0, "ship_s": 0.0,
         }
         #: the applier thread's exception, if it died (flush raises it)
         self.error: Optional[BaseException] = None
@@ -251,43 +257,119 @@ class AsyncApplier:
             if hit is not None:
                 ship, hit_pairs = hit
         if not ship.empty:
-            t0 = time.perf_counter()
-            try:
-                res = self._ship_segment(ship)
-            except Exception as e:  # noqa: BLE001 — store outage: retried next cycle
-                for task_key in ship.bind_keys:
-                    self.cache._record_err("bind", task_key, e)
-                for task_key in ship.evict_keys:
-                    self.cache._record_err("evict", task_key, e)
-                for task_key, _ in hit_pairs:
-                    self.cache._record_err("evict", task_key, e)
-                return
-            self._settle_segment_result(ship, res, time.perf_counter() - t0)
+            nshards = self._segment_shard_count()
+            if nshards > 1:
+                if not self._apply_segment_sharded(ship, nshards):
+                    for task_key, _ in hit_pairs:
+                        self.cache._record_err("evict", task_key,
+                                               RuntimeError("sharded segment ship failed"))
+                    return
+            else:
+                t0 = time.perf_counter()
+                try:
+                    res = self._ship_segment(ship)
+                except Exception as e:  # noqa: BLE001 — store outage: retried next cycle
+                    for task_key in ship.bind_keys:
+                        self.cache._record_err("bind", task_key, e)
+                    for task_key in ship.evict_keys:
+                        self.cache._record_err("evict", task_key, e)
+                    for task_key, _ in hit_pairs:
+                        self.cache._record_err("evict", task_key, e)
+                    return
+                self._settle_segment_result(ship, res, time.perf_counter() - t0)
         if hit_pairs:
             # after the segment, keeping the stream's binds-then-evictions
             # order of a cycle
             self._apply_ops([("evict", k, r) for k, r in hit_pairs])
 
-    def _ship_segment(self, ship):
+    def _segment_shard_count(self) -> int:
+        """The store's decision-bus shard count: 1 for an in-process Store
+        (no ``segment_shards``) or an unpartitioned server.  A failure to
+        read it degrades to 1: the unsplit ship then meets the outage on
+        the usual error path."""
+        try:
+            return max(1, int(getattr(self.store, "segment_shards", 1)))
+        except Exception:  # noqa: BLE001 — outage: the ship reports it
+            return 1
+
+    def _apply_segment_sharded(self, ship, nshards: int) -> bool:
+        """Split a cycle's segment by namespace shard and ship the
+        sub-segments concurrently, a request a shard on at most 8 threads:
+        each lands under its shard's apply lock and WAL.  Per-row errors and
+        the Evict Event index settle a sub-segment at a time, as a whole
+        segment's do.  Returns False when every sub-segment failed in
+        transport (the caller then fails the index-hit pairs)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from volcano_tpu_torch.store.partition import split_segment
+
+        stats = self.drain_stats
+        t0 = time.perf_counter()
+        subs = split_segment(ship, nshards)
+        stats["split_s"] += time.perf_counter() - t0
+        if not subs:
+            return True
+
+        def ship_one(shard, sub):
+            t = time.perf_counter()
+            try:
+                res = self._ship_segment(sub, shard=shard)
+                return shard, sub, res, time.perf_counter() - t, None
+            except Exception as e:  # noqa: BLE001 — per-shard isolation
+                return shard, sub, None, time.perf_counter() - t, e
+
+        t_fan = time.perf_counter()
+        if len(subs) == 1:
+            outcomes = [ship_one(*subs[0])]
+        else:
+            with ThreadPoolExecutor(max_workers=min(len(subs), 8),
+                                    thread_name_prefix="volcano-seg-shard") as ex:
+                outcomes = list(ex.map(lambda t: ship_one(*t), subs))
+        fan_wall = time.perf_counter() - t_fan
+        # the fan-out's wall: encode, transport and the serialized applies
+        stats["ship_s"] += fan_wall
+        any_ok = False
+        server_s = 0.0
+        for shard, sub, res, total, err in outcomes:
+            if err is not None:
+                for task_key in sub.bind_keys:
+                    self.cache._record_err("bind", task_key, err)
+                for task_key in sub.evict_keys:
+                    self.cache._record_err("evict", task_key, err)
+                continue
+            any_ok = True
+            server_s += sum((res.get("timings") or {}).values())
+            self._settle_segment_result(sub, res, total, shard=shard, accrue_wire=False)
+        # the wire of the whole fan-out, once: its wall less the server's
+        # sections (summing overlapping ship walls would count it N times)
+        stats["wire_s"] += max(0.0, fan_wall - server_s)
+        return any_ok
+
+    def _ship_segment(self, ship, shard: Optional[int] = None):
         """One segment ship, re-shipped once after a connection-level cut (a
         server that died mid-request, a reply cut mid-body): unlike a blind
         mutation retry this is safe, because the store dedupes the segment
         on its reserved uid block (binds and evictions suppress as no-ops,
-        Events that landed are skipped).  Anything else, a second cut
-        included, goes to the caller's error path and the next cycle
-        solves again."""
+        Events that landed are skipped; a sub-segment has a block of its
+        own).  Anything else, a second cut included, goes to the caller's
+        error path and the next cycle solves again."""
+        kw = {} if shard is None else {"shard": shard}
         try:
-            return self.store.apply_segment(ship)
+            return self.store.apply_segment(ship, **kw)
         except Exception as e:  # noqa: BLE001 — classified just below
             from volcano_tpu_torch.store.client import _connection_cut
 
             if not _connection_cut(e):
                 raise
-        return self.store.apply_segment(ship)
+        return self.store.apply_segment(ship, **kw)
 
-    def _settle_segment_result(self, ship, res, total: float) -> None:
-        """Record a segment's per-row errors, index its fresh Evict Events
-        and add the drain attribution (``total``: the ship's wall)."""
+    def _settle_segment_result(self, ship, res, total: float, shard: Optional[int] = None,
+                               accrue_wire: bool = True) -> None:
+        """Record a (sub-)segment's per-row errors, index its fresh Evict
+        Events and add the drain attribution (``total``: the ship's wall).
+        ``shard`` adds ``shardNN_s``, that shard's ship wall, time queued
+        behind other shards on the server included; a concurrent fan-out
+        passes ``accrue_wire=False`` and adds its wire once itself."""
         for row, err in res.get("binds") or ():
             self.cache._record_err("bind", ship.bind_keys[row], RuntimeError(err))
         evict_errs = {row for row, _ in res.get("evicts") or ()}
@@ -299,7 +381,11 @@ class AsyncApplier:
         for k, v in timings.items():
             if k in stats:
                 stats[k] += v
-        stats["wire_s"] += max(0.0, total - sum(timings.values()))
+        if accrue_wire:
+            stats["wire_s"] += max(0.0, total - sum(timings.values()))
+        if shard is not None:
+            key = f"shard{int(shard):02d}_s"
+            stats[key] = stats.get(key, 0.0) + total
         prof = vtprof.PROFILER
         if prof is not None:
             # the cumulative drain walls ride the profile

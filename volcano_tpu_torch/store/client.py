@@ -1,7 +1,7 @@
 """RemoteStore: a Store-compatible client of the HTTP store server.
 
-The port's copy of ``volcano_tpu/store/client.py`` for one unreplicated
-server.  The scheduler takes a Store and uses its verbs (create, update,
+The port's copy of ``volcano_tpu/store/client.py`` for an unreplicated
+server, partitioned or not.  The scheduler takes a Store and uses its verbs (create, update,
 update_cas, patch, bulk, apply_segment, delete, get, list, items, watch),
 so pointing it at a RemoteStore moves it into its own OS process with no
 other change.  Watch queues buffer locally and refill from the server's
@@ -13,9 +13,13 @@ relists, the reference's "resourceVersion too old" recovery.
 An idempotent GET is re-issued once after a connection cut; a mutation is
 never re-issued blindly (a cut request may have committed), except a
 decision segment, which the applier re-ships once because the server
-dedupes it on its reserved uid block.  The replica-set verbs
-(``resolve_leader``, the NotLeader redirect) and the digest beacons wait for
-ROADMAP item 11b.
+dedupes it on its reserved uid block.  Against a partitioned server
+(``/healthz`` ``shards`` > 1, read once into ``segment_shards``) the applier
+ships one sub-segment a shard, ``apply_segment(sub, shard=s)``; a
+``RemoteStore(url, shard=i)`` watches shard i's slice of the log.  The
+digest beacons wait for ROADMAP item 11b part 2, the replica-set verbs
+(``resolve_leader``, the NotLeader redirect) for part 3, the process mesh's
+shard map for part 4.
 """
 
 from __future__ import annotations
@@ -109,11 +113,17 @@ def _connection_cut(e: BaseException) -> bool:
 
 
 class RemoteStore:
-    def __init__(self, url: str, timeout: float = 30.0):
+    def __init__(self, url: str, timeout: float = 30.0, shard: Optional[int] = None):
         self.url = url.rstrip("/")
         self.timeout = timeout
         self._watches: Dict[str, List[_RemoteWatchQueue]] = {}
         self._cursor = 0
+        #: a shard-scoped watcher (partitioned servers) polls only that
+        #: shard's slice of the log
+        self.shard = shard
+        #: the server's decision-bus shard count from /healthz, read once
+        #: (1: unpartitioned); a reconnect clears it
+        self._segment_shards: Optional[int] = None
 
     # -- http ------------------------------------------------------------------
 
@@ -142,8 +152,11 @@ class RemoteStore:
                     body = {"error": str(e)}
                 return e.code, body
             except (OSError, http.client.HTTPException) as e:
-                if attempt + 1 < attempts and _connection_cut(e):
-                    continue
+                if _connection_cut(e):
+                    # the server may come back partitioned otherwise
+                    self._segment_shards = None
+                    if attempt + 1 < attempts:
+                        continue
                 raise
 
     @staticmethod
@@ -304,24 +317,36 @@ class RemoteStore:
 
     @property
     def segment_shards(self) -> int:
-        """The server's decision-bus shard count: 1 (the partitioned bus is
-        ROADMAP item 11b)."""
-        return 1
+        """The server's partitioned-bus shard count (``/healthz``
+        ``shards``), read once and cached until a reconnect.  The async
+        applier splits a cycle's segment by namespace shard and ships the
+        sub-segments concurrently when it is above 1."""
+        if self._segment_shards is None:
+            code, body = self._request("GET", "/healthz")
+            if code != 200:
+                raise RemoteStoreError(self._err(code, body))
+            self._segment_shards = max(1, int(body.get("shards", 1)))
+        return self._segment_shards
 
     @property
     def proc_shard_map(self) -> Optional[List[str]]:
-        """The process mesh's shard map: None (ROADMAP item 11b)."""
+        """The process mesh's shard map: None (ROADMAP item 11b part 4)."""
         return None
 
-    def apply_segment(self, seg) -> Dict[str, Any]:
+    def apply_segment(self, seg, shard: Optional[int] = None) -> Dict[str, Any]:
         """Ship one columnar decision segment (``store/segment.py``) in ONE
         request: the whole cycle's binds, evictions and their Events as
         parallel columns over interned string tables.  The server applies
-        it under one lock hold, lazily.  Returns the sparse per-row error
-        dict ``{"binds": [[row, err], ...], "evicts": [...], "timings":
-        {...}}``; raises on a transport failure (no blind retry here: the
-        applier owns the one re-ship)."""
-        code, body = self._request("POST", "/bulk", {"ops": [seg.to_wire()]})
+        it under one lock hold, lazily; on a partitioned server ``shard``
+        routes a sub-segment to that shard's apply lock, WAL and watch
+        slice.  Returns the sparse per-row error dict ``{"binds": [[row,
+        err], ...], "evicts": [...], "timings": {...}}``; raises on a
+        transport failure (no blind retry here: the applier owns the one
+        re-ship)."""
+        op = seg.to_wire()
+        if shard is not None:
+            op["shard"] = int(shard)
+        code, body = self._request("POST", "/bulk", {"ops": [op]})
         if code != 200:
             raise RemoteStoreError(self._err(code, body))
         res = (body.get("results") or [None])[0]
@@ -391,8 +416,9 @@ class RemoteStore:
         if not self._watches:
             return 0
         kinds = ",".join(sorted(self._watches))
+        shard_arg = f"&shard={self.shard}" if self.shard is not None else ""
         code, body = self._request(
-            "GET", f"/watch?since={self._cursor}&kinds={kinds}&timeout={timeout}")
+            "GET", f"/watch?since={self._cursor}&kinds={kinds}&timeout={timeout}{shard_arg}")
         if code != 200:
             raise RemoteStoreError(self._err(code, body))
         if body.get("relist"):

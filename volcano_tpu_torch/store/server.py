@@ -1,6 +1,6 @@
 """The store server: an HTTP "API server" hosting the watchable Store.
 
-The port's copy of ``volcano_tpu/store/server.py`` with one shard.  The
+The port's copy of ``volcano_tpu/store/server.py``.  The
 reference's components never talk to each other directly: they watch and
 write objects through the Kubernetes API server.  This server gives the
 port that boundary over HTTP, so that the scheduler runs in its own OS
@@ -13,8 +13,8 @@ process against an apiserver in another:
   PATCH  /apis/<kind>/obj?key=<k>     patch (dotted fields, a ``when`` clause)
   DELETE /apis/<kind>/obj?key=<k>     delete
   POST   /bulk                        N ops; ``patch_col`` runs, decision segments
-  GET    /watch?since=<seq>&kinds=a,b&timeout=<s>   long-poll of the event log
-  GET    /healthz                     liveness, the store uid, the WAL's stats
+  GET    /watch?since=<seq>&kinds=a,b&timeout=<s>[&shard=i]   long-poll of the event log
+  GET    /healthz                     liveness, the store uid, the shard count, the WAL's stats
   GET    /metrics, /debug/trace, /debug/timeseries, /debug/prof
 
 Every mutation appends to one ordered event log; a client resumes from its
@@ -28,9 +28,16 @@ background saver, or at every mutation with ``save_interval <= 0``; with
 package's, so either package's client talks to either package's server and
 either server recovers the other's state directory.
 
-Not here yet, each refused by name: ``shards > 1``, replication, the shared
-seq bus and the process mesh, ``/repl/*`` and ``/debug/digest`` (ROADMAP
-item 11b); ``/chaos`` (item 13); the Job kind and its admission (item 12).
+``shards=N`` partitions the decision bus (``store/partition.py``): a
+segment op tagged ``shard`` applies under that shard's apply lock, its log
+entries carry the shard (``/watch?shard=i`` serves one shard's slice), and
+with ``wal`` each shard has a WAL directory of its own whose tails recovery
+merges by ``seq``.
+
+Not here yet, each refused by name: the digest audit and ``/debug/digest``
+(ROADMAP item 11b part 2), replication and ``/repl/*`` (part 3), the shared
+seq bus and the process mesh (part 4); ``/chaos`` (item 13); the Job kind
+and its admission (item 12).
 
 This process imports no torch at start and never initializes CUDA: the
 card belongs to the scheduler.  ``python -m volcano_tpu_torch.store.server``
@@ -55,13 +62,16 @@ from volcano_tpu_torch.store.codec import (
     encode,
     unknown_kind,
 )
+from volcano_tpu_torch.store.partition import shard_of_key
 from volcano_tpu_torch.store.store import PreconditionFailed, Store
 
 #: cap on buffered event rows; a client further behind must relist
 LOG_CAP = 100_000
 
-#: what the routes and options of the multi-shard server answer with
-LATER_11B = "comes with the multi-shard store (ROADMAP item 11b)"
+#: what the routes and options of later parts answer with
+LATER_DIGEST = "comes with the digest audit (ROADMAP item 11b part 2)"
+LATER_REPL = "comes with replication (ROADMAP item 11b part 3)"
+LATER_MESH = "comes with the process mesh (ROADMAP item 11b part 4)"
 LATER_13 = "fault injection (/chaos) comes with the tooling (ROADMAP item 13)"
 
 
@@ -105,17 +115,26 @@ class StoreServer:
         seq_bus=None,
         proc_shard: Optional[tuple] = None,
     ):
-        if int(shards) != 1:
-            raise ValueError(f"shards={shards}: the partitioned decision bus {LATER_11B}")
         if repl is not None:
-            raise ValueError(f"repl: replication {LATER_11B}")
+            raise ValueError(f"repl: {LATER_REPL}")
         if seq_bus is not None or proc_shard is not None:
-            raise ValueError(f"seq_bus / proc_shard: the process mesh {LATER_11B}")
+            raise ValueError(f"seq_bus / proc_shard: {LATER_MESH}")
         self.store = store or Store()
-        # lock order: _flush_lock before lock, never the reverse
+        # lock order: _flush_lock before lock, and a shard's apply lock
+        # before lock; never the reverse
         self.lock = threading.RLock()
         self.cond = threading.Condition(self.lock)
-        self.shards = 1
+        # the partitioned decision bus: the shard count of the segment
+        # stream, the WAL and the watch slices (1: the unpartitioned server
+        # byte for byte).  A shard's apply lock keeps its sub-segments in
+        # ship order; the applies of two shards still serialize on the
+        # server lock, and overlap in what lies outside it (the request's
+        # decode, the reply, the shard's own WAL fsync)
+        self.shards = max(1, int(shards))
+        self._shard_locks = [threading.RLock() for _ in range(self.shards)]
+        #: the newest seq that touched each shard (an untagged entry
+        #: touches every shard)
+        self._shard_seq = [0] * self.shards
         # the ordered event log: per-event dict entries, or columnar block
         # entries {"seq": the last row's seq, "n": rows, "kind": K,
         # "block": PatchLogBlock | EventLogBlock, "start": the first row}
@@ -140,9 +159,16 @@ class StoreServer:
             if state_path is None:
                 raise ValueError("wal requires state_path (the WAL checkpoints into "
                                  "the state file)")
-            from volcano_tpu_torch.store.wal import WriteAheadLog
+            wal_dir = wal if isinstance(wal, str) else state_path + ".wal"
+            if self.shards > 1:
+                # one WAL a shard, each with its own group-commit fsync
+                from volcano_tpu_torch.store.partition import ShardedWAL
 
-            self.wal = WriteAheadLog(wal if isinstance(wal, str) else state_path + ".wal")
+                self.wal = ShardedWAL(wal_dir, self.shards)
+            else:
+                from volcano_tpu_torch.store.wal import WriteAheadLog
+
+                self.wal = WriteAheadLog(wal_dir)
         self._sync_persist = (state_path is not None and save_interval <= 0
                               and self.wal is None)
         self._dirty_kinds: set = set()
@@ -208,8 +234,10 @@ class StoreServer:
                 item (the request body, if any, is drained first)."""
                 if path == "/chaos":
                     msg = LATER_13
-                elif path.startswith("/repl/") or path == "/debug/digest":
-                    msg = f"{path} {LATER_11B}"
+                elif path.startswith("/repl/"):
+                    msg = f"{path} {LATER_REPL}"
+                elif path == "/debug/digest":
+                    msg = f"{path} {LATER_DIGEST}"
                 else:
                     return False
                 n = int(self.headers.get("Content-Length", 0) or 0)
@@ -256,9 +284,10 @@ class StoreServer:
                     since = int(q.get("since", ["0"])[0])
                     kinds = set(q.get("kinds", [""])[0].split(",")) - {""}
                     timeout = float(q.get("timeout", ["0"])[0])
-                    if q.get("shard", [None])[0] is not None:
-                        return self._reply(404, {"error": f"/watch?shard= {LATER_11B}"})
-                    return self._reply(200, server.watch_since(since, kinds, timeout))
+                    shard_q = q.get("shard", [None])[0]
+                    return self._reply(200, server.watch_since(
+                        since, kinds, timeout,
+                        shard=int(shard_q) if shard_q is not None else None))
                 if len(parts) == 2 and parts[0] == "apis":
                     kind = parts[1]
                     if self._unknown(kind):
@@ -469,7 +498,16 @@ class StoreServer:
         """N mutations in one round trip (``Store.bulk``'s op shapes, objects
         encoded, plus ``patch_col`` runs and decision segments).  The lock
         is reentrant: holding it across the batch keeps the batch contiguous
-        in the event log."""
+        in the event log.  A bulk of one segment op, the shape the applier
+        ships a sub-segment in, skips the batch's hold: the apply takes its
+        shard lock, then the server lock."""
+        if len(ops) == 1 and ops[0].get("op") == "segment":
+            try:
+                results = [self._apply_segment(ops[0])]
+            except Exception as e:  # noqa: BLE001 — per-op isolation
+                results = [repr(e)]
+            self._commit_ack()
+            return results
         results: List[Optional[str]] = []
         with self.lock:
             for op in ops:
@@ -495,8 +533,10 @@ class StoreServer:
                         continue
                     elif verb == "segment":
                         # a decision segment: its result is the sparse
-                        # per-row error dict
-                        results.append(self._apply_segment(op))
+                        # per-row error dict.  The batch holds the server
+                        # lock, which covers every shard: the shard lock is
+                        # skipped, so that the order stays shard, server
+                        results.append(self._apply_segment(op, _in_bulk=True))
                         continue
                     elif verb == "delete":
                         if kind not in KIND_CLASSES:
@@ -571,7 +611,8 @@ class StoreServer:
             col_dec[f] = _decoder(hint) if hint is not None else (lambda v: v)
         return col_dec
 
-    def _apply_segment(self, op: Dict[str, Any], stamp: Optional[float] = None) -> Dict[str, Any]:
+    def _apply_segment(self, op: Dict[str, Any], _in_bulk: bool = False,
+                       stamp: Optional[float] = None) -> Dict[str, Any]:
         """Apply one columnar decision segment: the cycle's binds, evictions
         and Events land under ONE lock hold, with no per-object store
         write, encode or log entry.  The store stages the rows lazily
@@ -580,14 +621,22 @@ class StoreServer:
         shared by every watcher) and the encoded-object cache entry of
         every key it covers (``_enc_of``).  The segment applies whole or
         not at all; it never flushes inline (the bulk wrapper's
-        ``_commit_ack`` runs outside the lock)."""
-        if op.get("shard") is not None:
-            raise ValueError(f"a segment for shard {op.get('shard')}: the sharded ship "
-                             f"{LATER_11B}")
+        ``_commit_ack`` runs outside the lock).
+
+        On a partitioned server the op's ``shard`` tag picks the apply lock
+        (taken before the server lock, skipped inside a held bulk), the WAL
+        and the tag of its log entries.  An untagged segment (a client that
+        does not split) locks and logs durably as shard 0, and its entries
+        stay untagged, so that every shard's watchers receive its rows."""
+        from contextlib import nullcontext
+
         from volcano_tpu_torch.store.segment import DecisionSegment, PatchLogBlock
 
         seg = DecisionSegment.from_wire(op)
-        with self.lock:
+        shard_tag = op.get("shard")
+        shard = int(shard_tag) % self.shards if shard_tag is not None else 0
+        shard_lock = nullcontext() if _in_bulk else self._shard_locks[shard]
+        with shard_lock, self.lock:
             # queued per-object events keep their place in the order
             self._pump_log()
             if stamp is None:
@@ -600,42 +649,61 @@ class StoreServer:
             if bkeys:
                 pre = [self._enc_pre("Pod", k) for k in bkeys]
                 blk = PatchLogBlock("node_name", bkeys, bvals, pre, rv_b0)
-                self._append_block(blk)
+                self._append_block(blk, shard_tag)
                 for i, k in enumerate(bkeys):
                     pend[("Pod", k)] = (blk, i)
                 self._dirty_kinds.add("Pod")
             if ekeys:
                 pre = [self._enc_pre("Pod", k) for k in ekeys]
                 blk = PatchLogBlock("deleting", ekeys, [True] * len(ekeys), pre, rv_e0)
-                self._append_block(blk)
+                self._append_block(blk, shard_tag)
                 for i, k in enumerate(ekeys):
                     pend[("Pod", k)] = (blk, i)
                 self._dirty_kinds.add("Pod")
             for blk in (ebind, eevict):
                 if len(blk):
-                    self._append_block(blk)
+                    self._append_block(blk, shard_tag)
                     for i in range(len(blk)):
                         pend[("Event", blk.key(i))] = (blk, i)
                     self._dirty_kinds.add("Event")
             self._trim_log()
             if self.wal is not None:
                 # the WHOLE cycle is one WAL record: the wire op verbatim and
-                # the Event stamp, so replay reproduces the same lazy apply
+                # the Event stamp, so replay reproduces the same lazy apply;
+                # the shard tag routes it to that shard's WAL
                 rec = dict(op)
                 rec["stamp"] = stamp
-                rec["shard"] = 0
+                rec["shard"] = shard
                 self._wal_append(rec)
             self.cond.notify_all()
         return res
 
-    def _append_block(self, blk) -> None:
+    def _append_block(self, blk, shard=None) -> None:
         """One log entry for a whole columnar block; its rows hold the seq
-        range ``blk.seq0 .. entry["seq"]``."""
+        range ``blk.seq0 .. entry["seq"]``.  On a partitioned server the
+        entry carries its shard (``/watch?shard=i`` serves and expands only
+        that shard's blocks); ``shard=None``, a cross-shard segment, leaves
+        it untagged, served to every shard's watchers."""
         n = len(blk)
         self.seq += n
         blk.seq0 = self.seq - n + 1
         self._log_rows += n
-        self.log.append({"seq": self.seq, "n": n, "kind": blk.kind, "block": blk, "start": 0})
+        entry = {"seq": self.seq, "n": n, "kind": blk.kind, "block": blk, "start": 0}
+        if self.shards > 1 and shard is not None:
+            entry["shard"] = int(shard) % self.shards
+            self._note_watermark(entry["shard"], self.seq)
+        else:
+            # every shard's stream carries an untagged block
+            for s in range(self.shards):
+                self._note_watermark(s, self.seq)
+        self.log.append(entry)
+
+    def _note_watermark(self, shard: int, seq: int) -> None:
+        """Advance shard ``shard``'s newest seq (a monotone max)."""
+        marks = self._shard_seq
+        s = int(shard) % len(marks)
+        if seq > marks[s]:
+            marks[s] = seq
 
     def _enc_of(self, kind: str, key: str) -> Optional[Dict[str, Any]]:
         """The object's current encoding, resolving the lazy columnar half of
@@ -699,7 +767,6 @@ class StoreServer:
                         torn_tails=self.wal.torn_tails if self.wal else 0)
 
     def _recover(self):
-        self._refuse_sharded_wal()
         data = {}
         if os.path.exists(self.state_path):
             with open(self.state_path) as f:
@@ -711,8 +778,10 @@ class StoreServer:
                 # a snapshot without a floor was written by a WAL-off life
                 # (a WAL-on life stamps one before serving): any leftover
                 # segments predate it, and replaying them would resurrect
-                # older values
+                # older values; so would segments in a layout this life's
+                # WAL does not own (a shard-count change ago)
                 self.wal.drop_all()
+                self._drop_foreign_wal(data)
             else:
                 replayed, skipped = self._replay_wal(data)
                 if replayed:
@@ -728,50 +797,40 @@ class StoreServer:
             replayed, skipped = self._absorb_leftover_wal(data)
         return replayed, skipped
 
-    def _refuse_sharded_wal(self) -> None:
-        """A partitioned life's WAL (``<dir>/sNN``) holds acknowledged
-        records this one-shard server cannot merge: refuse to boot rather
-        than drop them."""
-        wal_dir = self.wal.dir if self.wal is not None else self.state_path + ".wal"
-        try:
-            names = os.listdir(wal_dir)
-        except OSError:
-            return
-        shard_dirs = [n for n in names if n[:1] == "s" and n[1:].isdigit()
-                      and os.path.isdir(os.path.join(wal_dir, n))]
-        if shard_dirs:
-            raise ValueError(f"{wal_dir} holds a partitioned WAL ({sorted(shard_dirs)}): "
-                             f"its recovery {LATER_11B}")
-
-    @staticmethod
-    def _wal_floor_of(data) -> int:
-        """The snapshot's WAL floor; a partitioned life's per-shard list
-        replays the single log from 0 (its records apply idempotently over
-        the snapshot)."""
+    def _wal_floor_of(self, data):
+        """The snapshot's WAL floor in the shape this life's WAL speaks: an
+        int for the single log, a list (one a shard) for the partitioned
+        bus.  A floor another shard count stamped reads as 0, replay all
+        (the records apply idempotently over the snapshot)."""
         floor = data.get("wal_floor", 0)
+        if getattr(self.wal, "nshards", 1) > 1:
+            return floor if isinstance(floor, list) else 0
         return 0 if isinstance(floor, list) else int(floor)
 
-    def _absorb_leftover_wal(self, data):
-        """A WAL-off boot beside leftover WAL segments: a WAL-on life
-        crashed with acknowledged records past its last checkpoint.
-        Replay them, snapshot at once so they are durable again, then
-        retire the segments."""
+    @staticmethod
+    def _read_tails(sources, pending):
+        """Append ``(seq, tiebreak, rec)`` for every record at or above its
+        floor in each ``(dir, floor)`` of ``sources`` to ``pending``;
+        returns every segment file found (the covered ones too), as
+        ``(dir, path)``."""
         from volcano_tpu_torch.store import wal as walmod
 
-        wal_dir = self.state_path + ".wal"
-        floor = self._wal_floor_of(data)
-        pending = []  # (seq, tiebreak, rec)
-        seg_paths = []
-        for idx in walmod.list_segment_indices(wal_dir):
-            path = os.path.join(wal_dir, f"{idx:08d}.wal")
-            seg_paths.append(path)
-            if idx < floor:
-                continue  # covered by the snapshot: reaped, not replayed
-            records, _torn = walmod.read_records(path)
-            for rec in records:
-                pending.append((int(rec.get("seq", 0)), len(pending), rec))
-        if not seg_paths:
-            return 0, 0
+        files = []
+        for src_dir, floor in sources:
+            for idx in walmod.list_segment_indices(src_dir):
+                path = os.path.join(src_dir, f"{idx:08d}.wal")
+                files.append((src_dir, path))
+                if idx < floor:
+                    continue  # covered by the snapshot: reaped, not replayed
+                records, _torn = walmod.read_records(path)
+                for rec in records:
+                    pending.append((int(rec.get("seq", 0)), len(pending), rec))
+        return files
+
+    def _apply_tail(self, pending):
+        """Replay ``pending`` in seq order, resuming the seq / rv line each
+        record was acknowledged under; returns (replayed, skipped): a
+        record that cannot apply is skipped and counted, never fatal."""
         pending.sort(key=lambda t: (t[0], t[1]))
         replayed = skipped = 0
         for _, _, rec in pending:
@@ -781,20 +840,86 @@ class StoreServer:
             except Exception:  # noqa: BLE001 — recovery must not die
                 skipped += 1
             self._continue_line(rec)
-        if replayed:
-            from volcano_tpu_torch.scheduler import metrics
+        return replayed, skipped
 
-            metrics.register_wal_recovery(replayed)
-        # the absorbed tail is durable before the segments go; a crash in
-        # between absorbs it again next boot, idempotently
+    def _retire(self, files) -> None:
+        """Make the absorbed records durable in a snapshot, then unlink
+        their segment ``files``; a crash in between absorbs them again next
+        boot, idempotently."""
+        from volcano_tpu_torch.store import wal as walmod
+
         self.flush_state(force=True)
-        for path in seg_paths:
+        touched = set()
+        for src_dir, path in files:
             try:
                 os.unlink(path)
             except OSError:
                 pass
-        walmod.fsync_dir(wal_dir)
+            touched.add(src_dir)
+        for src_dir in sorted(touched):
+            walmod.fsync_dir(src_dir)
+
+    def _absorb_leftover_wal(self, data):
+        """A WAL-off boot beside leftover WAL segments: a WAL-on life
+        crashed with acknowledged records past its last checkpoint.  Replay
+        them (the top-level log and every shard's, merged by seq), snapshot
+        at once so they are durable again, then retire the segments."""
+        from volcano_tpu_torch.store.partition import leftover_shard_dirs
+
+        wal_dir = self.state_path + ".wal"
+        floor_raw = data.get("wal_floor", 0)
+        floors = floor_raw if isinstance(floor_raw, list) else []
+        flat = 0 if isinstance(floor_raw, list) else int(floor_raw)
+        sources = [(wal_dir, flat)] + [
+            (d, int(floors[i]) if i < len(floors) else 0)
+            for i, d in enumerate(leftover_shard_dirs(wal_dir))]
+        pending = []
+        files = self._read_tails(sources, pending)
+        if not files:
+            return 0, 0
+        replayed, skipped = self._apply_tail(pending)
+        if replayed:
+            from volcano_tpu_torch.scheduler import metrics
+
+            metrics.register_wal_recovery(replayed)
+        self._retire(files)
         return replayed, skipped
+
+    def _foreign_wal_sources(self, data):
+        """``[(dir, floor)]`` of the WAL locations a shard-count change left
+        behind: a single-log life owns the top level and leaves every shard
+        directory; an N-shard life owns ``s00 .. s{N-1}`` and leaves the top
+        level and any wider life's higher shards.  A floor comes from the
+        snapshot in the shape the leaving life stamped it (entry i for
+        ``s{i}``, the int for the top level); without one, 0."""
+        from volcano_tpu_torch.store.partition import leftover_shard_dirs
+
+        nshards_now = getattr(self.wal, "nshards", 1)
+        floor_raw = data.get("wal_floor", 0) if data else 0
+        floors = floor_raw if isinstance(floor_raw, list) else []
+        flat = 0 if isinstance(floor_raw, list) else int(floor_raw)
+        sources = [] if nshards_now == 1 else [(self.wal.dir, flat)]
+        for d in leftover_shard_dirs(self.wal.dir):
+            i = int(os.path.basename(d)[1:])
+            if nshards_now == 1 or i >= nshards_now:
+                sources.append((d, int(floors[i]) if i < len(floors) else 0))
+        return sources
+
+    def _drop_foreign_wal(self, data) -> None:
+        """Unlink every segment of the layouts this life does not own (they
+        predate a snapshot a WAL-off life wrote)."""
+        from volcano_tpu_torch.store import wal as walmod
+
+        for src_dir, _floor in self._foreign_wal_sources(data):
+            dropped = False
+            for idx in walmod.list_segment_indices(src_dir):
+                try:
+                    os.unlink(os.path.join(src_dir, f"{idx:08d}.wal"))
+                    dropped = True
+                except OSError:
+                    pass
+            if dropped:
+                walmod.fsync_dir(src_dir)
 
     def _continue_line(self, rec: Dict[str, Any]) -> None:
         """Resume the seq / rv line a replayed record was acknowledged under:
@@ -836,23 +961,21 @@ class StoreServer:
             self.store.uid = uid
 
     def _replay_wal(self, data):
-        """Replay the WAL tail (segments at or above the snapshot's floor)
-        through the store verbs, before any watch queue exists: clients
-        behind the crash relist.  Returns (replayed, skipped): a record that
-        cannot apply is skipped and counted, never fatal."""
+        """Replay the WAL tail through the store verbs, before any watch
+        queue exists (clients behind the crash relist): this life's own
+        layout (segments at or above the snapshot's floor) merged by seq
+        with any tail a shard-count change left in another layout (a
+        ``--shards 4`` life's acknowledged records survive a ``--shards 1``
+        boot and the reverse).  The other layout's segments are then
+        snapshotted and retired.  Returns (replayed, skipped)."""
         pending = []
         for rec in self.wal.replay(self._wal_floor_of(data)):
             pending.append((int(rec.get("seq", 0)), len(pending), rec))
-        pending.sort(key=lambda t: (t[0], t[1]))
-        replayed = skipped = 0
-        for _, _, rec in pending:
-            replayed += 1
-            try:
-                self._replay_record(rec)
-            except Exception:  # noqa: BLE001 — recovery must never crash
-                skipped += 1
-            self._continue_line(rec)
-        return replayed, skipped
+        foreign = self._read_tails(self._foreign_wal_sources(data), pending)
+        out = self._apply_tail(pending)
+        if foreign:
+            self._retire(foreign)
+        return out
 
     def _replay_record(self, rec: Dict[str, Any]) -> None:
         """Apply one WAL record, its wire form with the server-stamped meta
@@ -1050,8 +1173,11 @@ class StoreServer:
         return enc, encode(ev.old) if ev.old is not None else None
 
     def _pump_log(self) -> None:
-        """Drain the store's watch queues into the ordered log."""
+        """Drain the store's watch queues into the ordered log.  A
+        partitioned server tags each entry with its object's namespace
+        shard (``/watch?shard=`` serves by it; the wire never carries it)."""
         moved = False
+        sharded = self.shards > 1
         for kind, q in self._queues.items():
             while q:
                 ev = q.popleft()
@@ -1059,8 +1185,12 @@ class StoreServer:
                 self.seq += 1
                 self._log_rows += 1
                 enc_obj, enc_old = self._encode_event_obj(kind, ev)
-                self.log.append({"seq": self.seq, "kind": kind, "type": ev.type.value,
-                                 "object": enc_obj, "old": enc_old})
+                entry = {"seq": self.seq, "kind": kind, "type": ev.type.value,
+                         "object": enc_obj, "old": enc_old}
+                if sharded:
+                    entry["shard"] = shard_of_key(ev.obj.meta.key, self.shards)
+                self.log.append(entry)
+                self._note_watermark(entry.get("shard", 0), self.seq)
                 moved = True
         self._trim_log()
         # an unconsumed hint (a no-op write, no event) must not describe a
@@ -1070,11 +1200,15 @@ class StoreServer:
         if moved:
             self.cond.notify_all()
 
-    def watch_since(self, since: int, kinds, timeout: float) -> Dict[str, Any]:
+    def watch_since(self, since: int, kinds, timeout: float,
+                    shard: Optional[int] = None) -> Dict[str, Any]:
         """The log rows after ``since`` of ``kinds`` (all when empty),
         waiting up to ``timeout`` seconds for one; ``relist`` when the cursor
-        fell off the buffer or comes from before a restart."""
+        fell off the buffer or comes from before a restart.  ``shard`` (a
+        partitioned server) serves that shard's entries and the untagged
+        ones: a shard's watcher expands only its own shard's blocks."""
         deadline = time.monotonic() + timeout
+        strip = self.shards > 1
         with self.lock:
             if since < self.seq - self._log_rows or since > self.seq:
                 return {"events": None, "next": self.seq, "relist": True}
@@ -1091,11 +1225,15 @@ class StoreServer:
                         lo = mid + 1
                 evs = []
                 for e in log[lo:]:
+                    # an untagged entry reaches every shard's watcher
+                    if shard is not None and e.get("shard", shard) != shard:
+                        continue
                     if kinds and e["kind"] not in kinds:
                         continue
                     blk = e.get("block")
                     if blk is None:
-                        evs.append(e)
+                        evs.append({k: v for k, v in e.items() if k != "shard"}
+                                   if strip else e)
                         continue
                     # a columnar block: only the rows past the cursor
                     # expand (memoized on the block, shared by watchers)
@@ -1154,26 +1292,29 @@ class StoreServer:
 
 
 def serve_in_child(url_q, state: str = "", wal: bool = False,
-                   save_interval: float = 0.25) -> None:
+                   save_interval: float = 0.25, shards: int = 1) -> None:
     """A ``multiprocessing`` target (the spawn context): an apiserver on a
     free port of 127.0.0.1, no default queue, its URL put on ``url_q``;
     serves until terminated (SIGTERM flushes) or killed."""
-    run_apiserver(state=state, wal=wal, save_interval=save_interval, default_queue=False,
+    run_apiserver(state=state, wal=wal, save_interval=save_interval, shards=shards,
+                  default_queue=False,
                   announce=lambda line, **_: url_q.put(line.rsplit(" ", 1)[-1]))
 
 
 def run_apiserver(port: int = 0, host: str = "127.0.0.1", state: str = "", wal: bool = False,
-                  save_interval: float = 0.25, default_queue: bool = True,
+                  save_interval: float = 0.25, shards: int = 1, default_queue: bool = True,
                   announce=print) -> None:
     """Serve until SIGTERM, then stop: the saver joins, the state file is
     flushed and the WAL tail fsynced.  ``state`` names the state file;
-    ``wal`` arms the write-ahead log beside it (``<state>.wal/``)."""
+    ``wal`` arms the write-ahead log beside it (``<state>.wal/``, a
+    subdirectory a shard when ``shards`` > 1); ``shards`` partitions the
+    decision bus."""
     import signal
     import sys
 
     trace.set_component("apiserver")
     srv = StoreServer(host=host, port=port, state_path=state or None, wal=wal,
-                      save_interval=save_interval)
+                      save_interval=save_interval, shards=shards)
     if default_queue and srv.store.get("Queue", "/default") is None:
         from volcano_tpu_torch.api.objects import Metadata, Queue
 
@@ -1195,7 +1336,7 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(prog="python -m volcano_tpu_torch.store.server",
-                                 description="the port's apiserver (one shard)")
+                                 description="the port's apiserver")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=0, help="0 picks a free port")
     ap.add_argument("--state", default="", help="the state file (durable objects)")
@@ -1203,12 +1344,16 @@ def main(argv=None) -> int:
                     help="the write-ahead log beside the state file")
     ap.add_argument("--save-interval", type=float, default=0.25,
                     help="seconds between state flushes; <= 0 flushes before every reply")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="partition the decision bus into this many namespace shards")
     ap.add_argument("--no-default-queue", action="store_true")
     args = ap.parse_args(argv)
     if args.wal and not args.state:
         ap.error("--wal requires --state")
+    if args.shards < 1:
+        ap.error("--shards must be at least 1")
     run_apiserver(port=args.port, host=args.host, state=args.state, wal=args.wal,
-                  save_interval=args.save_interval,
+                  save_interval=args.save_interval, shards=args.shards,
                   default_queue=not args.no_default_queue)
     return 0
 

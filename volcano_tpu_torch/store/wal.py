@@ -218,7 +218,7 @@ class WriteAheadLog:
 
     def synced_ticket(self) -> int:
         """Highest append ticket covered by a successful fsync (the
-        watermark replication ships below, ROADMAP item 11b)."""
+        watermark replication ships below, ROADMAP item 11b part 3)."""
         with self._cv:
             return self._synced
 
