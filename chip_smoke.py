@@ -2,6 +2,7 @@
 """Chip smoke run of the PyTorch/CUDA port (volcano_tpu_torch) on one GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
+    python3 chip_smoke.py --armed-everywhere  # every phase, the digest audit armed in all
     python3 chip_smoke.py --profile [OUT.json]  # first a profiler pass
     python3 chip_smoke.py --split    # only K1's shapes, the batched solve's stage split, K13 at cfg9
     python3 chip_smoke.py --victim-split  # only the victim solve's split (K7, K12b)
@@ -49,7 +50,14 @@ Phases, each fatal on failure:
    per-kernel dispatch counts equal to LAUNCHES (both empty), no
    steady-state anomaly, one scrape of the
    metrics server's /metrics, /debug/prof and /debug/trace, each mode's
-   walls;
+   walls.  It runs with the digest audit armed (vtaudit), and records the
+   digest's stages: the store build, the prewarm and its mirror seed, cycle
+   1, the flush, the steady cycle holding the first audit tick (the fold
+   of cycle 1's write-back) and one more steady cycle; its mirror must
+   have verified its digest with no divergence.  Under --store-cells,
+   phase 3 once more with VOLCANO_TPU_AUDIT=0 (phase_digest_cost; the
+   same binds), and the two arms' stages side by side (cut from the main
+   run for its time);
 4. e2e exact — the same nodes with 200 gangs x 20 tasks (the exact solve);
 5. e2e cfg5d — config 5 with 10% dynamic gangs (bench.py config5_dynamic:
    500 gangs with a host port or self-anti-affinity, 10,000 tasks): the
@@ -83,8 +91,9 @@ Phases, each fatal on failure:
    whole storm's plain version would pass PLAIN_STORM_LIMIT_S, 20 s, cut
    for the run's time: in practice on the first 10 gangs; ``--storm-split``
    holds the whole storm against it);
-10. e2e cfg5v-500, cfg5v-2000 — config 5 plus 500 / 2,000 volume-
-   constrained tasks in 20-task gangs (bench.py config5_volumes): even
+10. e2e cfg5v-2000 — config 5 plus 2,000 volume-constrained tasks in
+   20-task gangs (bench.py config5_volumes; cfg5v-500, the same path at a
+   quarter of the volume tasks, is cut for the run's time): even
    gangs mount a Bound claim whose PV is pinned to one node, odd ones share
    one pending claim of the static class volb, drawn from a node-pinned PV
    pool.  The volume gangs take the dynamic solve on K2 with K5 and K6
@@ -170,7 +179,8 @@ Phases, each fatal on failure:
    phase 16's captured inputs, the merged outputs bit for bit equal to
    phase 17's 4-block K12a run, each host's build / dispatch / owned fetch
    walls and the solve_wait; four hosts' owned slices tiling every output;
-21. cfg5-2h and the process mode — config 5's store under mesh "4" (no
+21. cfg5-2h and the process mode — config 5's nodes with half its gangs
+   (CFG5_2H, a depth cut for the run's time) under mesh "4" (no
    reclaim or preempt: mesh_hosts > 1 refuses them) on one host, then as
    the coordinator and the worker of two hosts, each over its own store:
    disjoint binds whose union is the one host's, the worker writing no
@@ -257,16 +267,26 @@ Phases, each fatal on failure:
    pod, with its wall time (lockstep waits for each cycle, so "sustained"
    is no rate);
 29. e2e cfg7 — config 5 through the port's apiserver (bench.py config7):
-   two StoreServer processes spawned (127.0.0.1, port 0), one with the
-   WAL armed and a state file, each loaded in turn from one config-5
-   build through RemoteStore.bulk in 4,000-op batches;
+   StoreServer processes spawned (127.0.0.1, port 0), one with the WAL
+   armed and a state file, loaded side by side from one config-5 build
+   through /bulk in 4,000-op batches;
    then Scheduler(RemoteStore, full_conf("cuda")) under the applier on
    each in turn: prewarm, cycle 1 (K1, K3; its binds equal phase 3's pod
    for pod), the drain (drain_stats), on the WAL-off server 102,000 pods
    bound in its pod list (read off the wire) and two steady cycles, on the WAL
    server its /healthz WAL stats, a SIGKILL and a restart from the state
    directory (the recovery wall; every acknowledged bind there again);
-   no server process may map torch or CUDA (/proc/<pid>/maps);
+   no server process may map torch or CUDA (/proc/<pid>/maps).  The
+   WAL-off run has the digest audit armed: after the steady cycles the
+   mirror has verified its digest against the beacons with no divergence
+   (a lease heartbeat moves the log if the relist passed the last beacon)
+   and the server's kept root equals its recompute.  Then bench.py's
+   digest-off arm: a third server, loaded beside the others, and its
+   scheduler with VOLCANO_TPU_AUDIT=0, the WAL-off workload without steady
+   cycles (cycle 1's binds equal phase 3's); the digest-on over digest-off
+   drain beside bench.py's band (max_ratio 1.05, min_delta_s 0.25), a
+   reading.  The WAL-on run reads no digest: the main run holds it
+   disarmed (cut_audit);
 30. e2e cfg8 — config 8 (bench.py config8_open_loop): the open loop of 1-,
    2- and 4-pod gangs at 25 gangs/s for 8 s on the 200-node in-process
    store (full_conf("cuda"), async apply, a blocking prewarm and the warm
@@ -278,7 +298,7 @@ Phases, each fatal on failure:
    phase 28);
 31. e2e cfg9b — bench.py config9_shard's sharded drain against one shard:
    the cfg9 store at 10,000 nodes and 100,000 tasks (16 namespaces, two
-   queues) loaded in turn into a spawned 4-shard port apiserver and a
+   queues) loaded side by side into a spawned 4-shard port apiserver and a
    one-shard one (WAL off), then on each Scheduler(RemoteStore,
    full_conf("cuda"), mesh "off") under the applier: prewarm, cycle 1
    (K1, K3), the drain (the 4-shard applier splits the segment by
@@ -286,7 +306,41 @@ Phases, each fatal on failure:
    split_s, ship_s, wire_s); both runs bind the same pods on the same
    nodes, every task bound and listed as bound, every shard the
    namespaces hash to carries rows, no server maps torch or CUDA; the
-   drain ratio is a reading (runs after phase 29).
+   drain ratio is a reading (runs after phase 29); the digest audit armed
+   (the store that produces the load's ops is built disarmed): each
+   server's /healthz shard digests sum to its root, the two roots equal;
+32. e2e cfg8-daemons — config 8 through the deployed process model: the
+   port's apiserver (``python -m volcano_tpu_torch.cli apiserver --shards
+   4 --wal --state F``) and scheduler daemon (``python -m
+   volcano_tpu_torch.cli scheduler --period 0.05 --metrics-port 0``,
+   leader election on, on the card) spawned with the digest audit armed;
+   phase 30's 200-node cluster loaded through RemoteStore, then phase 30's
+   warm burst and base LoadSpec driven from this process with a no-op
+   step (the daemon runs every cycle): first-seen to bind p50 / p99 /
+   p999 beside phase 30's, the daemon's boot to first cycle and prewarm,
+   its digest checks, divergences and beacon lag p50 from its /metrics.
+   The daemon runs with vtprof armed (VOLCANO_TPU_PROF): its first cycle
+   takes the fast path, so do at least 90% of the measured loop's cycles
+   and the rest the object path (its /debug/prof ring), and its K1 and K2
+   dispatch counters
+   (volcano_kernel_dispatch_total, read just before and just after the
+   measured loop) both grow.
+   Hard: every arrived pod bound and no node over its caps; at least one
+   digest check and no divergence; once quiet the daemon's /debug/digest
+   kinds equal the apiserver's over the mirror's kinds; /healthz's four
+   shard digests sum to its root; the apiserver maps no torch or CUDA
+   library, the daemon maps libcuda; SIGTERM ends both with code 0.
+
+The digest audit (VOLCANO_TPU_AUDIT) is armed, the deployed default (a
+spawned process inherits the setting), except in the arms that measure it
+disarmed (phase 3's and phase 29's digest-off arms) and, in the main run,
+as a depth cut for the run's time (cut_audit, PERF.md section 4): phases
+4-25, phase 28 and phase 29's WAL-on server and its scheduler, whose
+cells read no digest, and the mirrors of phase 26's prewarm and standby
+parts and phase 27's delta-off run.  Phase 26's restart part (the armed
+checkpoint restore against an armed full list) and phase 27's delta-on
+run stay armed and fail on a digest divergence.  ``--armed-everywhere``
+runs the main run without that cut.
 
 Every Scheduler's ``prewarm`` runs blocking (``background=False``), and
 the launch counts of a phase start after it: the full prewarm launches
@@ -336,7 +390,8 @@ publishes inline: pair two trees' ``--fast-cells`` only when both have it.
 ``--delta-cells`` runs the build and phases 27-28 and 30 alone, so a
 parent given this file is measured in the same call (a tree without
 ``conf.delta`` fails there).  ``--store-cells`` runs the build, phase 3
-(its binds the reference), phase 29 and phase 31 alone.
+(its binds the reference) with its digest-off arm, phase 29, phase 31 and
+phase 32 alone.
 ``--exact-split`` runs the build and the exact solve's split alone
 (phase_exact_split: K2 on cfg5-exact's inputs, on the dynamic solves
 cfg5d-exact (K5) and cfg5v-2000 (K5 and K6) capture, at 128 queues and on a
@@ -357,6 +412,7 @@ when CUDA is unavailable or any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -403,6 +459,66 @@ CFG5 = dict(nodes=10_000, jobs=5_000, tasks_per_job=20, queues=2, best_effort=2_
 
 def log(*a):
     print(*a, flush=True)
+
+
+#: the digest audit's switch (volcano_tpu_torch/vtaudit.py), read by every
+#: Store, mirror and apiserver at construction; a spawned process inherits
+#: it.  The run holds it armed, the deployed default, except in the arms
+#: that measure it disarmed and in the phases ``cut_audit`` names
+AUDIT_ENV = "VOLCANO_TPU_AUDIT"
+
+#: ``--armed-everywhere``: the main run with no phase disarmed for its time
+ARMED_EVERYWHERE = False
+
+
+@contextlib.contextmanager
+def audit(armed):
+    """The block with the digest audit armed or disarmed."""
+    prev = os.environ.get(AUDIT_ENV)
+    os.environ[AUDIT_ENV] = "1" if armed else "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(AUDIT_ENV, None)
+        else:
+            os.environ[AUDIT_ENV] = prev
+
+
+def cut_audit():
+    """A phase whose cell reads no digest, run disarmed to keep the main
+    run inside its time limit (a depth cut, PERF.md section 4 lists each);
+    armed under ``--armed-everywhere``."""
+    return audit(ARMED_EVERYWHERE)
+
+
+@contextlib.contextmanager
+def digest_timers():
+    """Time every mirror table seed (``ArrayMirror._audit_rebuild``, the
+    list seed of a full sync) and every audit tick (``Scheduler.
+    _audit_tick``, the fold and verify) in the block: yields ``{"seed":
+    [s, ...], "tick": [s, ...]}``.  Disarmed, both return at once."""
+    from volcano_tpu_torch.scheduler.fastpath.mirror import ArrayMirror
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    out = {"seed": [], "tick": []}
+    orig = ArrayMirror._audit_rebuild, Scheduler._audit_tick
+
+    def timed(fn, key):
+        def wrapper(self, *args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                out[key].append(time.perf_counter() - t)
+        return wrapper
+
+    ArrayMirror._audit_rebuild = timed(orig[0], "seed")
+    Scheduler._audit_tick = timed(orig[1], "tick")
+    try:
+        yield out
+    finally:
+        ArrayMirror._audit_rebuild, Scheduler._audit_tick = orig
 
 
 def _counters():
@@ -1193,7 +1309,7 @@ def check_placement(store):
 
 def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
               max_cycles=MAX_CYCLES, capture=None, volume_tasks=0, dynamic_best_effort_every=0,
-              steady=False, binds=None):
+              steady=False, binds=None, stages=None):
     """Drive Scheduler.run_once on the card; returns the launch counts of
     the first cycle (reset just before it, read just after).  ``want`` maps
     a kernel to the launches the first cycle must make at least (a name
@@ -1206,7 +1322,12 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
     cycle must then run the object sub-cycle and its residue engine.
     ``steady``: one more cycle once all is bound, its wall and phases (the
     drain of the landed write-back).  ``binds``: a list that receives the
-    first cycle's ``bind_log`` (phase 29 holds config 7's to it)."""
+    first cycle's ``bind_log`` (phase 29 holds config 7's to it).
+    ``stages``: the dict ``digest_timers()`` yields, which receives the
+    digest's stage walls beside its timers: the build, the prewarm and its
+    mirror seed, cycle 1, the flush, the steady cycle with the first audit
+    tick, one more steady cycle, and the audit's counts; it needs
+    ``steady``."""
     import torch
 
     from volcano_tpu_torch.scheduler import kernels as K
@@ -1214,16 +1335,22 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
     from volcano_tpu_torch.scheduler.fastpath import cycle as cycle_mod
     from volcano_tpu_torch.scheduler.scheduler import Scheduler
 
+    walls = stages if stages is not None else {}
+    timers = stages if stages is not None else {"seed": [], "tick": []}
     t0 = time.perf_counter()
     store = build_cfg5_store(n_jobs, n_best_effort, dynamic_frac, volume_tasks,
                              dynamic_best_effort_every)
+    walls["build_s"] = round(time.perf_counter() - t0, 3)
     n_dyn = int(CFG5["jobs"] * dynamic_frac)
     n_vol = volume_tasks // CFG5["tasks_per_job"]
     log(f"[{label}] store built: {CFG5['nodes']} nodes, {n_jobs} gangs x "
         f"{CFG5['tasks_per_job']} ({n_dyn} dynamic), {n_best_effort} best-effort, "
         f"{n_vol} volume gangs ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     sched = Scheduler(store, conf=async_conf(full_conf("cuda")))
     log(f"[{label}] prewarm {sched.prewarm(background=False):.2f} s")
+    walls["prewarm_s"] = round(time.perf_counter() - t0, 3)
+    walls["seed_s"] = round(sum(timers["seed"]), 3)
     solve_dyn = cycle_mod.torch_dynamic_solve
     solve_walls = []
     if capture is not None:
@@ -1243,11 +1370,13 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
         launches = read_launches()
     finally:
         cycle_mod.torch_dynamic_solve = solve_dyn
+    walls["cycle1_s"] = round(wall, 4)
     phases = {k: round(v, 4) for k, v in sched.fast_cycle.phases.items()}
     log(f"[{label}] cycle 1 wall {wall:.3f} s phases {json.dumps(phases)} launches {launches}")
     if binds is not None:
         binds.extend(sched.cache.bind_log)
-    publish_report(label, sched, flush_applier(label, sched))
+    walls["flush_s"] = round(flush_applier(label, sched), 3)
+    publish_report(label, sched, walls["flush_s"])
     if dynamic_best_effort_every:
         fc = sched.fast_cycle
         reasons = {}
@@ -1319,6 +1448,7 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
     else:
         log(f"[{label}] all bound in {cycles} cycle(s) (deadline {max_cycles})")
     if steady:
+        n_ticks = len(timers["tick"])
         t0 = time.perf_counter()
         sched.run_once()
         torch.cuda.synchronize()
@@ -1326,11 +1456,85 @@ def phase_e2e(label, n_jobs, n_best_effort, want, forbid, dynamic_frac=0.0,
         log(f"[{label}] steady cycle wall {steady_wall:.4f} s phases "
             f"{json.dumps({k: round(v, 4) for k, v in sched.fast_cycle.phases.items()})}")
         publish_report(label, sched, flush_applier(label, sched), cycles + 1)
+        if stages is not None:
+            walls["steady1_s"] = round(steady_wall, 4)
+            walls["first_tick_s"] = round(sum(timers["tick"][n_ticks:]), 4)
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            walls["steady2_s"] = round(time.perf_counter() - t0, 4)
+            _digest_verdict(label, sched, walls)
         armed_steady(label, sched, steady_wall)
     sched.close()
     if n_vol:
         log(f"[{label}] volume gangs bound per cycle (cumulative): {vol_bound}")
     return launches
+
+
+def _no_divergence(label, *scheds):
+    """The schedulers' digest checks and divergences summed; a divergence
+    fails the phase (a cell that reads no digest of its own, run armed)."""
+    mirrors = [s.fast_cycle.mirror for s in scheds]
+    out = {"armed": all(m._audit is not None for m in mirrors),
+           "checks": sum(m.audit_checks for m in mirrors),
+           "divergences": sum(m.audit_divergences for m in mirrors)}
+    if out["divergences"]:
+        raise AssertionError(f"{label}: digest divergences {out} "
+                             f"({[m.last_audit for m in mirrors]})")
+    return out
+
+
+def _digest_verdict(label, sched, walls):
+    """The mirror's audit counts into ``walls``; armed, at least one check
+    and no divergence, or the phase fails."""
+    from volcano_tpu_torch import vtaudit
+
+    mirror = sched.fast_cycle.mirror
+    walls["armed"] = mirror._audit is not None
+    walls["audit_checks"] = mirror.audit_checks
+    walls["divergences"] = mirror.audit_divergences
+    if walls["armed"] != vtaudit.enabled():
+        raise AssertionError(f"{label}: the mirror's audit armed {walls['armed']}, the "
+                             f"environment {vtaudit.enabled()}")
+    if walls["armed"] and (mirror.audit_checks < 1 or mirror.audit_divergences):
+        raise AssertionError(f"{label}: {mirror.audit_checks} digest checks, "
+                             f"{mirror.audit_divergences} divergences ({mirror.last_audit})")
+
+
+def phase_e2e_batch(label, binds, stages):
+    """Phase 3, cfg5-batch: K1 and K3 in cycle 1, steady cycles after, its
+    first cycle's binds into ``binds`` and the digest's stage walls into
+    ``stages`` (``digest_timers()``'s dict)."""
+    return phase_e2e(label, CFG5["jobs"], CFG5["best_effort"],
+                     want=("water_fill", "allocate_solve_batch"), steady=True,
+                     forbid=("allocate_solve",) + CONTENTION_KERNELS, binds=binds, stages=stages)
+
+
+#: the digest's stage walls phase 3 records (``phase_e2e``'s ``stages``)
+DIGEST_STAGES = ("build_s", "prewarm_s", "seed_s", "cycle1_s", "flush_s", "steady1_s",
+                 "first_tick_s", "steady2_s")
+
+
+def _stage_walls(stages):
+    """The stage walls and the audit's counts out of ``stages``."""
+    return {k: stages[k] for k in DIGEST_STAGES + ("audit_checks", "divergences")}
+
+
+def phase_digest_cost(armed, ref_binds):
+    """The digest's cost at cfg5-batch (in-process): phase 3's stage walls
+    (armed) beside phase 3 once more with the audit disarmed, in one call;
+    both must bind the same pods in cycle 1."""
+    binds = []
+    with audit(False), digest_timers() as off:
+        phase_e2e_batch("e2e batch, digest off", binds, off)
+    if binds != list(ref_binds):
+        raise AssertionError(f"digest off: cycle 1 bound {len(binds)} pods, phase 3 "
+                             f"{len(ref_binds)}, or in another order")
+    out = {"armed": _stage_walls(armed), "disarmed": _stage_walls(off),
+           "delta_s": {k: round(armed[k] - off[k], 4) for k in DIGEST_STAGES}}
+    log(f"[digest cost cfg5-batch] armed {json.dumps(out['armed'])}; disarmed "
+        f"{json.dumps(out['disarmed'])}; armed - disarmed {json.dumps(out['delta_s'])}")
+    return out
 
 
 def phase_portsel_kernels(captured, n_launches):
@@ -3310,9 +3514,14 @@ def phase_multihost_cfg9(captured, want, k12a_row):
         solve_wait_s={str(h): r["solve_wait_s"] for h, r in walls.items()})}
 
 
+#: cfg5-2h's gangs and best-effort pods: half of config 5's on its 10,000
+#: nodes (a depth cut for the run's time)
+CFG5_2H = (CFG5["jobs"] // 2, CFG5["best_effort"] // 2)
+
+
 def phase_cfg5_two_hosts():
-    """cfg5-2h: config 5's store (phase 3) under full_conf("cuda") without
-    reclaim and preempt (mesh_hosts > 1 refuses them) and mesh "4", once on
+    """cfg5-2h: config 5's nodes with half its gangs (CFG5_2H) under
+    full_conf("cuda") without reclaim and preempt (mesh_hosts > 1 refuses them) and mesh "4", once on
     a single host and once each as the coordinator (mesh_host_id 0) and the
     worker (1) of two hosts, each over its own copy of the store: disjoint
     bind sets whose union binds the single host's pods, every gang task on
@@ -3332,7 +3541,7 @@ def phase_cfg5_two_hosts():
     for hosts, host_id in ((1, 0), (2, 0), (2, 1)):
         label = f"e2e cfg5-2h, host {host_id} of {hosts}"
         t0 = time.perf_counter()
-        store = build_cfg5_store()
+        store = build_cfg5_store(*CFG5_2H)
         conf = async_conf(full_conf("cuda"))
         conf.actions = ["enqueue", "allocate", "backfill"]
         conf.mesh, conf.mesh_hosts, conf.mesh_host_id = CFG9_MESH, hosts, host_id
@@ -4817,7 +5026,9 @@ def phase_restart_standby():
         text = f.read().replace("backend: tpu", "backend: cuda")
     text += f"applyMode: async\nmirrorCheckpoint: {ckpt}\n"
     t0 = time.perf_counter()
-    store_a, store_b = (build_cfg5_store(CFG5["jobs"], CFG5["best_effort"]) for _ in range(2))
+    store_a = build_cfg5_store(CFG5["jobs"], CFG5["best_effort"])
+    with cut_audit():  # the reference twin: its scheduler's verifies find no table
+        store_b = build_cfg5_store(CFG5["jobs"], CFG5["best_effort"])
     log(f"[{label}] two config-5 stores built ({time.perf_counter() - t0:.1f} s)")
     scheds = []
     try:
@@ -4831,7 +5042,11 @@ def phase_restart_standby():
             f"{','.join(a.conf.actions)}, apply_mode {a.conf.apply_mode}")
         rv0 = (store_a.resource_version, len(store_a.list("Event")))
         reset_launches()
-        warm_s = a.prewarm(background=False)
+        # the prewarm and standby parts read no digest: their mirrors are
+        # disarmed for the run's time (the stores and the restart part's
+        # schedulers stay armed)
+        with cut_audit():
+            warm_s = a.prewarm(background=False)
         warm = read_launches()
         if (store_a.resource_version, len(store_a.list("Event"))) != rv0:
             raise AssertionError(f"{label}: the prewarm wrote to the store")
@@ -4848,7 +5063,8 @@ def phase_restart_standby():
         walls = {}
         for name, sched, store in (("prewarmed", a, store_a), ("cold", b, store_b)):
             t0 = time.perf_counter()
-            sched.run_once()
+            with cut_audit():  # the cold scheduler's mirror is built here
+                sched.run_once()
             torch.cuda.synchronize()
             walls[name] = time.perf_counter() - t0
             flush = flush_applier(label, sched)
@@ -4892,9 +5108,11 @@ def phase_restart_standby():
         if len(c.cache.bind_log) != n_wave:
             raise AssertionError(f"{label}: {len(c.cache.bind_log)} of the wave's {n_wave} "
                                  "tasks bound")
+        restart_audit = _no_divergence(label, c, d)
         log(f"[{label}] restart: mirror restore {sync['restore']:.3f} s against a full list "
             f"{sync['full list']:.3f} s; next cycle {cyc['restored']:.3f} / "
-            f"{cyc['listed']:.3f} s, the same {len(c.cache.bind_log)} binds")
+            f"{cyc['listed']:.3f} s, the same {len(c.cache.bind_log)} binds; digest "
+            f"{json.dumps(restart_audit)}")
 
         # standby: c leads store_a, e stands by; d alone on store_b is the reference
         clock = [0.0]
@@ -4903,7 +5121,8 @@ def phase_restart_standby():
                                      elector=LeaderElector(store_a, "vtt-scheduler", "e",
                                                            clock=lambda: clock[0]))
         scheds.append(e)
-        e.fast_cycle.sync_mirror()
+        with cut_audit():
+            e.fast_cycle.sync_mirror()
         for store in (store_a, store_b):
             add_wave(store, "w2", seed=2)
         gate, gate_op = threading.Event(), {"op": "patch", "kind": "PodGroup",
@@ -4977,7 +5196,7 @@ def phase_restart_standby():
             os.remove(ckpt)
     return dict(prewarm_s=warm_s, cycle1_prewarmed_s=walls["prewarmed"],
                 cycle1_cold_s=walls["cold"], checkpoint_save_s=save_s,
-                restore_s=sync["restore"], full_list_s=sync["full list"])
+                restore_s=sync["restore"], full_list_s=sync["full list"], audit=restart_audit)
 
 
 # ---- cfg10: incremental scheduling (delta: on) on a resident config-5 cluster
@@ -5478,9 +5697,12 @@ def phase_cfg10():
                                     max_abs_err=err, steps=int(out_k.steps))
     log(f"[{label}] K2 at the micro shape {sorted(shapes['micro'])[0]} ok: {ms:.4f} ms "
         f"(plain {plain_ms:.1f} ms, bound {b:.5f} ms by {kind}), {int(out_k.steps)} steps")
+    out["audit"] = _no_divergence(label, sched)
+    log(f"[{label}] digest under delta on: {json.dumps(out['audit'])}")
     sched.close()
     del sched, first_micro, calls
-    out["delta_off"] = _cfg10_delta_off(label, store, trickle)
+    with cut_audit():  # the delta-off scheduler reads no digest
+        out["delta_off"] = _cfg10_delta_off(label, store, trickle)
     log(f"[{label}] cycle walls, ms: delta on micro p50 {out['micro_p50_ms']} / p99 "
         f"{out['micro_p99_ms']}, delta on full p50 {out['full_p50_ms']} / p99 "
         f"{out['full_p99_ms']}; delta off p50 {out['delta_off']['p50_ms']} / p99 "
@@ -5664,6 +5886,39 @@ def cfg8_specs(qps, duration_s):
     return LoadSpec(**CFG8_WARM), LoadSpec(qps=qps, duration_s=duration_s, **CFG8_LOAD)
 
 
+def cfg8_cluster_ops(n_nodes=CFG8["nodes"]):
+    """Phase 30's cluster as ``RemoteStore.bulk`` create ops: the queue,
+    then the nodes (phase 32 loads it into a spawned apiserver)."""
+    store = build_open_loop_store(n_nodes)
+    return [{"op": "create", "kind": kind, "object": obj}
+            for kind in ("Queue", "Node") for obj in store.list(kind)]
+
+
+def cfg8_daemon_specs():
+    """(warm burst, measured run) of phase 32: phase 30's base LoadSpecs."""
+    return cfg8_specs(CFG8["qps"], CFG8["duration_s"])
+
+
+def quiet_digests(metrics_url, api_url, timeout_s):
+    """Poll the scheduler daemon's /debug/digest (its mirror's table) and the
+    apiserver's until the mirror holds no unfolded event and its kinds equal
+    the apiserver's over the kinds it watches (``mirror.WATCHED_KINDS``), or
+    ``timeout_s`` passed; returns the last (mirror's, apiserver's) bodies,
+    the apiserver's kinds cut to the watched ones."""
+    from volcano_tpu_torch.scheduler.fastpath.mirror import WATCHED_KINDS
+
+    deadline = time.monotonic() + timeout_s
+    while True:
+        mine = _get_json(metrics_url, "/debug/digest")
+        theirs = _get_json(api_url, "/debug/digest")
+        want = theirs["kinds"] = {k: v for k, v in (theirs.get("kinds") or {}).items()
+                                  if k in WATCHED_KINDS}
+        if (mine.get("pending") == 0 and (mine.get("digest") or {}).get("kinds") == want) \
+                or time.monotonic() > deadline:
+            return mine, theirs
+        time.sleep(0.1)
+
+
 def _cfg8_run(label, qps, duration_s, checks):
     """One config-8 run as bench.py's run_at: a fresh store and
     Scheduler(full_conf("cuda"), async apply), a blocking prewarm, the warm
@@ -5735,7 +5990,8 @@ def phase_cfg8():
 
 
 #: config 7 (bench.py config7): config 5 through the port's apiserver in
-#: its own process, loaded with RemoteStore.bulk in batches of this many ops
+#: its own process, loaded through /bulk in batches of this many ops
+#: (``_cfg7_load``)
 CFG7_BULK_OPS = 4_000
 #: the spawned apiserver's deadline to put its URL (a recovery included)
 CFG7_BOOT_TIMEOUT_S = 300.0
@@ -5802,18 +6058,81 @@ def _cfg7_stop(proc, kill=False):
         proc.join(30)
 
 
-def _cfg7_load(remote, ops):
-    """Create ``ops`` through ``RemoteStore.bulk`` in CFG7_BULK_OPS batches;
-    the wall."""
-    t0 = time.perf_counter()
-    for i in range(0, len(ops), CFG7_BULK_OPS):
-        errs = [e for e in remote.bulk(ops[i:i + CFG7_BULK_OPS]) if e]
-        if errs:
-            raise AssertionError(f"cfg7: the store load failed: {errs[:3]}")
-    return time.perf_counter() - t0
+def _cfg7_load(urls, ops):
+    """Create ``ops`` in every apiserver of ``urls`` at once, a thread a
+    server, through the /bulk verb in CFG7_BULK_OPS batches (the ops'
+    objects encoded once for all, as ``RemoteStore.bulk`` encodes them);
+    each server's wall, in ``urls``' order.  The servers load side by side
+    (each in its own process) to keep the run inside its limit, so a wall
+    includes the others' share of the host."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from volcano_tpu_torch.store.client import RemoteStore
+    from volcano_tpu_torch.store.codec import encode
+
+    wire = [{"op": op["op"], "kind": op["kind"], "object": encode(op["object"])} for op in ops]
+
+    def load(url):
+        remote = RemoteStore(url, timeout=900)
+        t0 = time.perf_counter()
+        for i in range(0, len(wire), CFG7_BULK_OPS):
+            code, body = remote._request("POST", "/bulk", {"ops": wire[i:i + CFG7_BULK_OPS]})
+            errs = [e for e in body.get("results") or [] if e] if code == 200 else [body]
+            if errs:
+                raise AssertionError(f"cfg7: the store load of {url} failed: {errs[:3]}")
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(urls)) as ex:
+        return list(ex.map(load, urls))
 
 
-def _cfg7_run(label, server, ref_binds, wal_state=""):
+def _server_digest_check(label, url):
+    """The apiserver's kept digest equals its recompute of the raw objects
+    (``/debug/digest`` against ``?recompute=1``); returns the root."""
+    kept = _get_json(url, "/debug/digest")
+    if not kept.get("enabled"):
+        raise AssertionError(f"{label}: the apiserver's digest is disarmed")
+    rec = _get_json(url, "/debug/digest?recompute=1")
+    if (kept["root"], kept["shards"]) != (rec["root"], rec["shards"]):
+        raise AssertionError(f"{label}: the apiserver's kept digest {kept['root']} differs "
+                             f"from its recompute {rec['root']}")
+    return kept["root"]
+
+
+#: cycles a quiet scheduler gets for its first digest check after the
+#: drain (a beacon closes a poll batch within VOLCANO_TPU_AUDIT_BEACON_S)
+AUDIT_WAIT_CYCLES = 40
+
+
+def _await_audit(label, sched):
+    """Quiet cycles until the mirror has verified its digest once; fails
+    without a check or with a divergence.  Returns (checks, divergences).
+    A beacon follows only a move of the log, and the relist after the
+    drain (whose write-back outruns the log's LOG_CAP rows) can carry the
+    mirror's cursor past the last one; so when the first quiet cycles bring
+    no check, a lease heartbeat, the write a leader-elected deployment
+    makes every few seconds (a Lease: the mirror watches none), moves the
+    log once."""
+    from volcano_tpu_torch.api import Metadata
+    from volcano_tpu_torch.leader import Lease
+
+    mirror = sched.fast_cycle.mirror
+    for i in range(AUDIT_WAIT_CYCLES):
+        if mirror.audit_checks:
+            break
+        if i == AUDIT_WAIT_CYCLES // 4:
+            mirror.store.create("Lease", Lease(meta=Metadata(name="cfg7-heartbeat",
+                                                             namespace=""),
+                                               holder=label, renewed_at=time.time()))
+        time.sleep(0.1)
+        sched.run_once()
+    if mirror.audit_checks < 1 or mirror.audit_divergences:
+        raise AssertionError(f"{label}: {mirror.audit_checks} digest checks, "
+                             f"{mirror.audit_divergences} divergences ({mirror.last_audit})")
+    return mirror.audit_checks, mirror.audit_divergences
+
+
+def _cfg7_run(label, server, ref_binds, wal_state="", steady=True):
     """One config-7 pass (bench.py config7's one_run) against a loaded
     apiserver process, ``server`` = (ctx, process, URL):
     ``Scheduler(RemoteStore(url), full_conf("cuda"))`` under the applier:
@@ -5823,8 +6142,12 @@ def _cfg7_run(label, server, ref_binds, wal_state=""):
     a node in the store after the drain, then two steady cycles.  With it
     (the state file of a WAL server): the WAL stats, then a SIGKILL after
     the drain's acknowledgements and a boot from that state: every
-    acknowledged bind must be there.  The server process must never map
-    torch or CUDA (TORCH_LIBS).  Returns the measurements and the live
+    acknowledged bind must be there.  ``steady=False`` (the digest-off arm,
+    bench.py's ``one_run(steady_cycles=False)``) ends after the drain.  With
+    the digest armed, after the WAL-off run's steady cycles the mirror has
+    verified its digest against the beacons with no divergence and the
+    server's kept root equals its recompute.  The server process must never
+    map torch or CUDA (TORCH_LIBS).  Returns the measurements and the live
     process."""
     import torch
 
@@ -5882,7 +6205,7 @@ def _cfg7_run(label, server, ref_binds, wal_state=""):
                              f"run {len(ref_binds)}; {len(diff)} differ, e.g. {diff[:5]}")
     out["binds_equal_in_process"] = len(binds)
     out["bind_order_equal"] = binds == list(ref_binds)
-    if not wal_state:
+    if not wal_state and steady:
         # read off the wire without decoding
         out["bound"] = sum(1 for p in _get_json(url, "/apis/Pod")["items"] if p["node_name"])
         lap("the pods listed")
@@ -5899,7 +6222,13 @@ def _cfg7_run(label, server, ref_binds, wal_state=""):
         out["steady_phases"] = {k: round(v, 4) for k, v in sched.fast_cycle.phases.items()}
         flush_applier(label, sched)
         lap("steady cycle 2")
-    else:
+        if sched.fast_cycle.mirror._audit is not None:
+            out["audit_checks"], out["divergences"] = _await_audit(label, sched)
+            out["root"] = _server_digest_check(label, url)
+            lap("the digest checks")
+            log(f"[{label}] digest: {out['audit_checks']} checks, {out['divergences']} "
+                f"divergences; the server's kept root {out['root']} equals its recompute")
+    elif wal_state:
         out["wal"] = _get_json(url, "/healthz")["wal"]
     mapped = _torch_libs_mapped(proc.pid)
     if mapped:
@@ -5935,19 +6264,29 @@ def _cfg7_run(label, server, ref_binds, wal_state=""):
     return out, proc
 
 
+#: bench.py's band on cfg7's digest-on over digest-off drain
+#: (``cfg7_digest_on_vs_off_drain``, bench.py:2336-2341): a breach needs the
+#: ratio above max_ratio and the difference above min_delta_s
+CFG7_DIGEST_BAND = dict(max_ratio=1.05, min_delta_s=0.25)
+
+
 def phase_cfg7(ref_binds):
-    """Phase 29, config 7 (bench.py:681-790): config 5 through the port's
+    """Phase 29, config 7 (bench.py:681-864): config 5 through the port's
     apiserver in its own OS process (spawned, 127.0.0.1, port 0) and a
-    RemoteStore.  Two servers: one without durability (the run with its
-    steady cycles) and one with the WAL armed and a state file (killed
-    with SIGKILL after the drain and restarted from its directory).  Each
-    is loaded with the same config-5 store in turn, the WAL-off one first,
-    so that each load's wall is its own (bench.py loads one server a run),
-    then the runs go one after the other."""
+    RemoteStore. Three servers: one without durability and with the digest
+    audit armed (the run with its steady cycles and the digest checks), one
+    with the WAL armed and a state file (killed with SIGKILL after the drain
+    and restarted from its directory; its cell reads no digest, so the main
+    run holds it disarmed, ``cut_audit``), and bench.py's digest-off arm:
+    the WAL-off workload again with ``VOLCANO_TPU_AUDIT=0`` in the server
+    and the scheduler, no steady cycles. The three are loaded with the same
+    config-5 store side by side (``_cfg7_load``; bench.py loads one server a
+    run), so a load wall holds the others' share of the host and no ratio of
+    two is reported; then the runs go one after the other. The digest-on
+    over digest-off drain is a reading beside bench.py's band, not a gate;
+    both arms must bind phase 3's pods."""
     import multiprocessing as mp
     import tempfile
-
-    from volcano_tpu_torch.store.client import RemoteStore
 
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="cfg7-") as d:
@@ -5955,43 +6294,69 @@ def phase_cfg7(ref_binds):
         procs = {}
         try:
             procs["off"] = _cfg7_server(ctx)
-            procs["on"] = _cfg7_server(ctx, state)
-            t0 = time.perf_counter()
-            local = build_cfg5_store()
-            build_s = time.perf_counter() - t0
+            with cut_audit():
+                procs["on"] = _cfg7_server(ctx, state)
+            with audit(False):
+                procs["nodigest"] = _cfg7_server(ctx)
+                # the store only produces the load's ops: built disarmed
+                t0 = time.perf_counter()
+                local = build_cfg5_store(CFG5["jobs"], CFG5["best_effort"])
+                build_s = time.perf_counter() - t0
             ops = [{"op": "create", "kind": kind, "object": obj}
                    for kind in ("Queue", "PriorityClass", "Node", "PodGroup", "Pod")
                    for obj in local.items(kind)]
-            loads = {name: _cfg7_load(RemoteStore(procs[name][1], timeout=900), ops)
-                     for name in ("off", "on")}
+            names = ("off", "on", "nodigest")
+            loads = dict(zip(names, _cfg7_load([procs[n][1] for n in names], ops)))
             n_objects = len(ops)
             del local, ops
             gc.collect()
-            log(f"[cfg7] config 5 built in {build_s:.3f} s and loaded into each apiserver in "
-                f"turn through RemoteStore.bulk: {n_objects} objects, WAL off "
-                f"{loads['off']:.3f} s, WAL on {loads['on']:.3f} s (up in {procs['off'][2]:.3f} "
-                f"/ {procs['on'][2]:.3f} s)")
+            log(f"[cfg7] config 5 built in {build_s:.3f} s and loaded into the apiservers side "
+                f"by side through /bulk: {n_objects} objects, WAL off "
+                f"{loads['off']:.3f} s, WAL on {loads['on']:.3f} s, WAL and digest off "
+                f"{loads['nodigest']:.3f} s (up in {procs['off'][2]:.3f} / "
+                f"{procs['on'][2]:.3f} / {procs['nodigest'][2]:.3f} s)")
             off, proc = _cfg7_run("e2e cfg7", (ctx,) + procs["off"][:2], ref_binds)
             procs["off"] = (proc,)
             off.update(store_load_s=round(loads["off"], 3), objects=n_objects)
-            on, proc = _cfg7_run("e2e cfg7-wal", (ctx,) + procs["on"][:2], ref_binds,
-                                 wal_state=state)
+            with cut_audit():
+                on, proc = _cfg7_run("e2e cfg7-wal", (ctx,) + procs["on"][:2], ref_binds,
+                                     wal_state=state)
             procs["on"] = (proc,)
             on.update(store_load_s=round(loads["on"], 3), objects=n_objects)
+            with audit(False):
+                nd, proc = _cfg7_run("e2e cfg7-digest-off", (ctx,) + procs["nodigest"][:2],
+                                     ref_binds, steady=False)
+                procs["nodigest"] = (proc,)
+                nd.update(store_load_s=round(loads["nodigest"], 3), objects=n_objects)
         finally:
             # the WAL server's state goes with the directory: no final flush
             for name, entry in procs.items():
                 _cfg7_stop(entry[0], kill=name == "on")
-    out = {"wal_off": off, "wal_on": on,
+    ratio = off["drain_s"] / max(nd["drain_s"], 1e-9)
+    band = CFG7_DIGEST_BAND
+    out = {"wal_off": off, "wal_on": on, "digest_off": nd,
            "wal_drain_ratio": round(on["drain_s"] / max(off["drain_s"], 1e-9), 3),
-           "wal_load_ratio": round(on["store_load_s"] / max(off["store_load_s"], 1e-9), 3)}
+           "cfg7_digest_on_vs_off_drain": {
+               "drain_s": off["drain_s"], "publish_s": off["cycle1_s"],
+               "digest_off_drain_s": nd["drain_s"], "digest_off_publish_s": nd["cycle1_s"],
+               "ratio": round(ratio, 3), "band": band,
+               "inside_band": not (ratio > band["max_ratio"]
+                                   and off["drain_s"] - nd["drain_s"] > band["min_delta_s"]),
+               "prewarm_ratio": round(off["prewarm_s"] / max(nd["prewarm_s"], 1e-9), 3)}}
     wal = on.get("wal") or {}
-    log(f"[cfg7] store_load_s {off['store_load_s']} (WAL on {on['store_load_s']}, ratio "
-        f"{out['wal_load_ratio']}); prewarm {off['prewarm_s']} s; cycle 1 {off['cycle1_s']} s; "
+    dg = out["cfg7_digest_on_vs_off_drain"]
+    log(f"[cfg7] store_load_s {off['store_load_s']} (WAL on {on['store_load_s']}; loaded side "
+        f"by side, so each wall holds the others' share of the host); prewarm "
+        f"{off['prewarm_s']} s; cycle 1 {off['cycle1_s']} s; "
         f"drain {off['drain_s']} s; steady {off.get('steady_s')} s; WAL on: drain "
         f"{on['drain_s']} s (ratio {out['wal_drain_ratio']}), fsync_s {wal.get('fsync_s')}, "
         f"fsync_total {wal.get('fsync_total')}, records {wal.get('records')}; recovery "
         f"{on['recovery_s']} s")
+    log(f"[cfg7] digest on / off: drain {dg['drain_s']} / {dg['digest_off_drain_s']} s, "
+        f"publish {dg['publish_s']} / {dg['digest_off_publish_s']} s, ratio {dg['ratio']} "
+        f"(bench.py's band: ratio <= {band['max_ratio']} or a difference <= "
+        f"{band['min_delta_s']} s; inside: {dg['inside_band']}); prewarm ratio "
+        f"{dg['prewarm_ratio']}")
     return out
 
 
@@ -6095,14 +6460,15 @@ def phase_cfg9b():
     """Phase 31, cfg9b (bench.py config9_shard's cfg9b line): the cfg9 store
     at 10,000 nodes and 100,000 tasks (gangs of 20 over 16 namespaces, two
     queues) through a spawned port apiserver of 4 shards and one of 1 (WAL
-    off, save interval 0.25 as bench.py's _apiserver_proc), loaded one after
-    the other through RemoteStore.bulk in CFG7_BULK_OPS batches, then driven
+    off, save interval 0.25 as bench.py's _apiserver_proc), loaded side by
+    side through /bulk in CFG7_BULK_OPS batches (``_cfg7_load``), then driven
     one after the other (_cfg9b_run).  Both runs must bind the same pods on
     the same nodes.  The sharded drain over the single one is a reading, not
-    a gate (bench.py gates nothing on it).  Returns the figures."""
+    a gate (bench.py gates nothing on it).  With the digest audit armed,
+    each server's /healthz shard digests sum to its root, and the two roots
+    are equal (the same objects).  Returns the figures."""
     import multiprocessing as mp
 
-    from volcano_tpu_torch.store.client import RemoteStore
     from volcano_tpu_torch.store.partition import shard_of
 
     ctx = mp.get_context("spawn")
@@ -6114,22 +6480,25 @@ def phase_cfg9b():
         procs["sharded"] = _cfg7_server(ctx, shards=n)
         procs["single"] = _cfg7_server(ctx)
         t0 = time.perf_counter()
-        local = build_cfg9_store(CFG9B["nodes"], CFG9B["tasks"])
+        with audit(False):  # the store only produces the load's ops
+            local = build_cfg9_store(CFG9B["nodes"], CFG9B["tasks"])
         build_s = time.perf_counter() - t0
         ops = [{"op": "create", "kind": kind, "object": obj}
                for kind in ("Queue", "Node", "PodGroup", "Pod") for obj in local.items(kind)]
-        loads = {name: _cfg7_load(RemoteStore(procs[name][1], timeout=900), ops)
-                 for name in ("sharded", "single")}
+        loads = dict(zip(("sharded", "single"),
+                         _cfg7_load([procs[k][1] for k in ("sharded", "single")], ops)))
         n_objects = len(ops)
         del local, ops
         gc.collect()
         log(f"[cfg9b] store built in {build_s:.3f} s ({CFG9B['nodes']} nodes, {CFG9B['tasks']} "
             f"tasks in gangs of {CFG9B['tasks_per_job']} over {CFG9B['namespaces']} "
-            f"namespaces) and loaded into each apiserver in turn: {n_objects} objects, "
+            f"namespaces) and loaded into the apiservers side by side: {n_objects} objects, "
             f"{n} shards {loads['sharded']:.3f} s, one shard {loads['single']:.3f} s")
         for name, shards in (("sharded", want), ("single", set())):
             out, binds = _cfg9b_run(f"e2e cfg9b {name}", procs[name][:2], shards)
             out["store_load_s"] = round(loads[name], 3)
+            out["root"] = _healthz_digest(f"e2e cfg9b {name}", procs[name][1],
+                                          n if name == "sharded" else 1)
             runs[name] = (out, binds)
     finally:
         for entry in procs.values():
@@ -6140,6 +6509,9 @@ def phase_cfg9b():
         diff = [k for k in set(got) | set(ref) if got.get(k) != ref.get(k)]
         raise AssertionError(f"cfg9b: the {n}-shard and one-shard runs bind differently: "
                              f"{len(diff)} pods, e.g. {diff[:5]}")
+    if sh["root"] != one["root"]:
+        raise AssertionError(f"cfg9b: the {n}-shard server's digest root {sh['root']} differs "
+                             f"from the one-shard server's {one['root']}")
     out = {"shards": n, "objects": n_objects, "sharded": sh, "single": one,
            "ratio": round(sh["drain_s"] / max(one["drain_s"], 1e-9), 3),
            "drain_shards_s": {k: v for k, v in sh["drain_stats"].items()
@@ -6148,7 +6520,261 @@ def phase_cfg9b():
         f"{out['ratio']}; per shard {json.dumps(out['drain_shards_s'])}; split_s "
         f"{sh['drain_stats']['split_s']}, ship_s {sh['drain_stats']['ship_s']}, wire_s "
         f"{sh['drain_stats']['wire_s']} (one shard {one['drain_stats']['wire_s']}); both runs "
-        f"bound the same {len(sh_binds)} pods on the same nodes")
+        f"bound the same {len(sh_binds)} pods on the same nodes; both servers' digest root "
+        f"{sh['root']}")
+    return out
+
+
+def _healthz_digest(label, url, nshards):
+    """The apiserver's /healthz digest: ``nshards`` shard digests that sum
+    to its root, which it returns."""
+    from volcano_tpu_torch import vtaudit
+
+    hz = _get_json(url, "/healthz").get("digest")
+    if not hz:
+        raise AssertionError(f"{label}: /healthz carries no digest")
+    total = sum(int(e["digest"], 16) for e in hz["shards"]) % (1 << 64)
+    if len(hz["shards"]) != nshards or vtaudit.hexd(total) != hz["root"]:
+        raise AssertionError(f"{label}: /healthz's shard digests do not sum to its root: {hz}")
+    return hz["root"]
+
+
+#: phase 32's spawned processes' deadlines: the apiserver's first line, the
+#: daemon's metrics line (torch's import, the card, the kernel library
+#: load and the prewarm before it), a SIGTERM's exit
+DAEMON_BOOT_TIMEOUT_S = 300.0
+DAEMON_STOP_TIMEOUT_S = 60.0
+
+
+#: the port's daemon entry
+PORT_CLI = [sys.executable, "-m", "volcano_tpu_torch.cli"]
+
+
+class Proc:
+    """A spawned process (``argv``, from this file's directory), its output
+    lines collected by a reader thread and shown with ``label`` when a wait
+    fails."""
+
+    def __init__(self, label, argv, env):
+        import threading
+
+        self.label = label
+        self.proc = subprocess.Popen(
+            argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.lines = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_line(self, needle, timeout, start=0):
+        """The first output line from index ``start`` on holding ``needle``;
+        fails on the deadline or when the process ended first."""
+        deadline = time.monotonic() + timeout
+        while True:
+            for line in self.lines[start:]:
+                if needle in line:
+                    return line
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                self._reader.join(5)
+                raise AssertionError(f"{self.label}: no {needle!r} (exit code "
+                                     f"{self.proc.returncode}); its last lines:\n"
+                                     + "\n".join(self.lines[-40:]))
+            time.sleep(0.05)
+
+    def stop(self):
+        """SIGTERM, then the exit code (SIGKILL past the deadline: None)."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(DAEMON_STOP_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+                return None
+        self._reader.join(5)
+        return self.proc.returncode
+
+
+def _hist_quantile(text, name, q):
+    """Quantile ``q`` of histogram ``name`` from a Prometheus exposition:
+    the upper bound of the first bucket whose cumulative count reaches
+    ``q`` of the total; None without samples."""
+    buckets, count = [], 0.0
+    for line in text.splitlines():
+        if line.startswith(name + "_bucket{"):
+            le = line.split('le="', 1)[1].split('"', 1)[0]
+            buckets.append((float("inf") if le == "+Inf" else float(le),
+                            float(line.rsplit(" ", 1)[-1])))
+        elif line.startswith(name + "_count"):
+            count = float(line.rsplit(" ", 1)[-1])
+    for le, cum in sorted(buckets):
+        if count and cum >= q * count:
+            return le
+    return None
+
+
+def _counter(text, name, **labels):
+    """Counter ``name`` (of the series with ``labels``) from a Prometheus
+    exposition; 0 without a sample."""
+    series = name + ("{" + ",".join(f'{k}="{v}"' for k, v in labels.items()) + "}"
+                     if labels else "")
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[-1])
+    return 0.0
+
+
+#: the daemon's profiler (vtprof) ring, long enough for every cycle of
+#: phase 32's measured open loop (about 20 a second)
+CFG8_DAEMON_PROF = '{"ring": 4096}'
+#: the least share of phase 32's measured cycles that must take the fast
+#: path; the rest may be object cycles, the fast cycle's designed fallback
+#: (one of 112 was, in one run: ROADMAP section 2b item 20)
+CFG8_DAEMON_FAST_SHARE = 0.9
+
+
+def phase_cfg8_daemons(cfg8=None):
+    """Phase 32, config 8 through the deployed process model: the port's
+    apiserver (``python -m volcano_tpu_torch.cli apiserver --shards 4``, the
+    WAL on, a state file) and its scheduler daemon (``python -m
+    volcano_tpu_torch.cli scheduler --period 0.05 --metrics-port 0``, leader
+    election on, ``VOLCANO_TPU_BACKEND`` unset: the card), both spawned with
+    the digest audit armed.  Phase 30's 200-node cluster goes in through
+    RemoteStore; this process then runs phase 30's warm burst and base
+    LoadSpec (``cfg8_daemon_specs``) through ``run_open_loop`` with a no-op
+    step: the daemon drives every cycle.  Checks: every arrived pod bound,
+    no node over its caps; the daemon's digest checks >= 1 with no
+    divergence, and once quiet its mirror's kinds equal the apiserver's over
+    the kinds it watches; /healthz's four shard digests sum to its root; the
+    apiserver maps no torch or CUDA library and the daemon maps libcuda;
+    SIGTERM stops both with exit code 0.  The daemon runs with its profiler
+    armed (``VOLCANO_TPU_PROF``): its first cycle must take the fast path,
+    at least CFG8_DAEMON_FAST_SHARE of the measured loop's cycles too and
+    the rest the object path (``/debug/prof``'s ring), and its
+    ``volcano_kernel_dispatch_total`` of K1 (water_fill) and K2
+    (allocate_solve), read just before and just after the measured loop,
+    must both grow: the daemon's cycles went through the kernels.
+    ``cfg8``: phase 30's figures, for the side-by-side line.  Returns the
+    figures."""
+    import tempfile
+    import urllib.request
+
+    from volcano_tpu_torch.loadgen import run_open_loop
+    from volcano_tpu_torch.store.client import RemoteStore
+
+    import collections
+
+    label = "e2e cfg8-daemons"
+    env = dict(os.environ, VOLCANO_TPU_AUDIT="1")
+    env.pop("VOLCANO_TPU_BACKEND", None)
+    out = {}
+
+    def scrape(path):
+        with urllib.request.urlopen(murl + path, timeout=60) as r:
+            return r.read().decode()
+
+    def state():
+        """The daemon's K1 and K2 dispatches and its profiled cycles."""
+        text = scrape("/metrics")
+        return ({k: _counter(text, "volcano_kernel_dispatch_total", kernel=k)
+                 for k in ("water_fill", "allocate_solve")},
+                json.loads(scrape("/debug/prof"))["cycles"])
+
+    with tempfile.TemporaryDirectory(prefix="cfg8d-") as d:
+        api = Proc(f"{label} apiserver",
+                   PORT_CLI + ["apiserver", "--port", "0", "--shards", "4", "--wal", "--state",
+                               os.path.join(d, "state.json"), "--no-default-queue"], env)
+        sch = None
+        try:
+            url = api.wait_line("apiserver listening on", DAEMON_BOOT_TIMEOUT_S).rsplit(" ", 1)[-1]
+            remote = RemoteStore(url, timeout=120)
+            errs = [e for e in remote.bulk(cfg8_cluster_ops()) if e]
+            if errs:
+                raise AssertionError(f"{label}: the cluster load failed: {errs[:3]}")
+            t_spawn = time.perf_counter()
+            sch = Proc(f"{label} scheduler",
+                       PORT_CLI + ["scheduler", "--server", url, "--period", "0.05",
+                                   "--metrics-port", "0"],
+                       dict(env, VOLCANO_TPU_PROF=CFG8_DAEMON_PROF))
+            device = sch.wait_line(" cycling every ", DAEMON_BOOT_TIMEOUT_S)
+            if " on cuda" not in device:
+                raise AssertionError(f"{label}: the daemon is not on the card: {device}")
+            warm_line = sch.wait_line("solves warm in", DAEMON_BOOT_TIMEOUT_S)
+            murl = sch.wait_line("metrics on http", DAEMON_BOOT_TIMEOUT_S).rsplit(" ", 1)[-1]
+            murl = murl.rsplit("/metrics", 1)[0]
+            first = sch.wait_line("first cycle (fast) done", DAEMON_BOOT_TIMEOUT_S)
+            out["spawn_to_first_cycle_s"] = round(time.perf_counter() - t_spawn, 3)
+            out["prewarm_s"] = float(warm_line.rsplit("solves warm in ", 1)[1].rstrip("s"))
+            out["boot_to_first_cycle_s"] = float(first.split(" done ", 1)[1].split("s")[0])
+            warm, spec = cfg8_daemon_specs()
+            run_open_loop(remote, warm, lambda: None, settle_s=CFG8["settle_s"])
+            before, ring = state()
+            last = max((c["cycle"] for c in ring), default=-1)
+            report = run_open_loop(remote, spec, lambda: None, settle_s=CFG8["settle_s"])
+            after, ring = state()
+            out["dispatches"] = {k: after[k] - before[k] for k in after}
+            paths = collections.Counter(c["path"] for c in ring if c["cycle"] > last)
+            out["cycle_paths"] = dict(paths)
+            kept = min((c["cycle"] for c in ring), default=None)
+            n_cycles = sum(paths.values())
+            if (not n_cycles or set(paths) - {"fast", "object"} or kept > last + 1
+                    or paths["fast"] < CFG8_DAEMON_FAST_SHARE * n_cycles):
+                raise AssertionError(f"{label}: the measured loop's cycles took the paths "
+                                     f"{dict(paths)} (the profiler's ring from cycle {kept}, "
+                                     f"the loop from {last + 1}); at least "
+                                     f"{CFG8_DAEMON_FAST_SHARE:.0%} must be fast, the rest "
+                                     f"object fallbacks")
+            if min(out["dispatches"].values()) < 1:
+                raise AssertionError(f"{label}: the daemon's K1 / K2 dispatches over the measured "
+                                     f"loop {out['dispatches']}: both must grow")
+            out["report"] = report.as_dict()
+            out.update(p50_ms=round(report.p50_ms, 2), p99_ms=round(report.p99_ms, 2),
+                       p999_ms=round(report.p999_ms, 2))
+            if report.bound_pods != report.submitted_pods or report.unbound_pods:
+                raise AssertionError(f"{label}: {report.bound_pods} of {report.submitted_pods} "
+                                     f"arrived pods bound by the end of settle")
+            out["tasks_bound_now"] = check_cfg9_placement(remote)
+            mine, theirs = quiet_digests(murl, url, 60.0)
+            want = theirs["kinds"]
+            if mine.get("pending") or mine["digest"]["kinds"] != want:
+                raise AssertionError(f"{label}: once quiet the mirror's kinds "
+                                     f"{mine['digest']['kinds']} (pending {mine.get('pending')}) "
+                                     f"differ from the apiserver's {want}")
+            text = scrape("/metrics")
+            out["audit_checks"] = _counter(text, "volcano_audit_digest_checks_total")
+            out["divergences"] = _counter(text, "volcano_audit_divergence_total")
+            out["beacon_lag_p50_s"] = _hist_quantile(text, "volcano_audit_beacon_lag_seconds", 0.5)
+            if out["audit_checks"] < 1 or out["divergences"]:
+                raise AssertionError(f"{label}: the daemon's digest checks "
+                                     f"{out['audit_checks']}, divergences {out['divergences']}")
+            out["root"], out["kinds"] = _healthz_digest(label, url, 4), sorted(want)
+            api_libs, sch_libs = _torch_libs_mapped(api.proc.pid), _torch_libs_mapped(sch.proc.pid)
+            if api_libs:
+                raise AssertionError(f"{label}: the apiserver mapped torch or CUDA: {api_libs}")
+            if not any("libcuda.so" in os.path.basename(p) for p in sch_libs):
+                raise AssertionError(f"{label}: the daemon maps no libcuda: {sch_libs}")
+        finally:
+            codes = {"scheduler": sch.stop() if sch is not None else None,
+                     "apiserver": api.stop()}
+        out["exit_codes"] = codes
+        if codes != {"scheduler": 0, "apiserver": 0}:
+            raise AssertionError(f"{label}: SIGTERM exit codes {codes}; the daemon's last lines:"
+                                 f"\n" + "\n".join((sch.lines if sch else [])[-20:]))
+    ref = ("phase 30 in-process: p50 {p50_ms} ms, p99 {p99_ms}, p999 {p999_ms}".format(**cfg8)
+           if cfg8 else "phase 30 not run in this mode")
+    log(f"[{label}] first-seen to bind at {CFG8['qps']:.0f} gangs/s through the daemons: p50 "
+        f"{out['p50_ms']} ms, p99 {out['p99_ms']}, p999 {out['p999_ms']} ({ref}); daemon "
+        f"boot to first cycle {out['boot_to_first_cycle_s']} s (spawn to its line "
+        f"{out['spawn_to_first_cycle_s']} s), prewarm {out['prewarm_s']} s; digest checks "
+        f"{out['audit_checks']:.0f}, divergences {out['divergences']:.0f}, beacon lag p50 "
+        f"{out['beacon_lag_p50_s']} s; over the measured loop K1 / K2 dispatched "
+        f"{out['dispatches']['water_fill']:.0f} / {out['dispatches']['allocate_solve']:.0f} "
+        f"times in {sum(out['cycle_paths'].values())} cycles {out['cycle_paths']}; "
+        f"{json.dumps(out['report'])}")
     return out
 
 
@@ -6203,6 +6829,9 @@ def _run(argv, mark, smi):
     result line main prints after the last [ecc] line."""
     import torch
 
+    global ARMED_EVERYWHERE
+    ARMED_EVERYWHERE = "--armed-everywhere" in argv
+    os.environ[AUDIT_ENV] = "1"
     if "--split" in argv:
         log(smi)
         log(json.dumps({"split": phase_split()}))
@@ -6256,14 +6885,17 @@ def _run(argv, mark, smi):
     if "--store-cells" in argv:
         log(smi)
         ref = []
-        phase_e2e("e2e batch", CFG5["jobs"], CFG5["best_effort"],
-                  want=("water_fill", "allocate_solve_batch"),
-                  forbid=("allocate_solve",) + CONTENTION_KERNELS, binds=ref)
+        with digest_timers() as stages:
+            phase_e2e_batch("e2e batch", ref, stages)
         mark("phase 3")
+        log(json.dumps({"digest_cost": phase_digest_cost(stages, ref)}))
+        mark("phase 3's digest-off arm")
         log(json.dumps({"cfg7": phase_cfg7(ref)}))
         mark("phase 29")
         log(json.dumps({"cfg9b": phase_cfg9b()}))
         mark("phase 31")
+        log(json.dumps({"cfg8_daemons": phase_cfg8_daemons()}))
+        mark("phase 32")
         log(smi)
         return False
     if "--residue" in argv:
@@ -6284,108 +6916,115 @@ def _run(argv, mark, smi):
     phase_kernel_sweep()
     mark("phases 1-2")
     batch_binds = []
-    batch = phase_e2e("e2e batch", CFG5["jobs"], CFG5["best_effort"],
-                      want=("water_fill", "allocate_solve_batch"), steady=True,
-                      forbid=("allocate_solve",) + CONTENTION_KERNELS, binds=batch_binds)
-    exact = phase_e2e("e2e exact", 200, 0,
-                      want=("water_fill", "allocate_solve"),
-                      forbid=("allocate_solve_batch",) + CONTENTION_KERNELS)
-    captured = {}
-    cap = []
-    dyn = phase_e2e("e2e cfg5d", CFG5["jobs"], CFG5["best_effort"],
-                    want={"water_fill": 1, "allocate_solve_batch": 2,
-                          "allocate_solve_batch_portsel": 1},
-                    forbid=("allocate_solve", "allocate_solve_portsel") + CONTENTION_KERNELS,
-                    dynamic_frac=0.10, max_cycles=MAX_CYCLES_DYNAMIC, capture=cap)
-    captured["cfg5d"] = cap[0]
-    cap = []
-    dyn_exact = phase_e2e("e2e cfg5d-exact", CFG5["jobs"], CFG5["best_effort"],
-                          want={"water_fill": 1, "allocate_solve_batch": 1,
-                                "allocate_solve": 1, "allocate_solve_portsel": 1},
-                          forbid=("allocate_solve_batch_portsel",) + CONTENTION_KERNELS,
-                          dynamic_frac=0.04, max_cycles=MAX_CYCLES_DYNAMIC, capture=cap)
-    captured["cfg5d-exact"] = cap[0]
-    kern.update(phase_portsel_kernels(captured, {
-        "allocate_solve_batch_portsel": dyn["allocate_solve_batch_portsel"],
-        "allocate_solve_portsel": dyn_exact["allocate_solve_portsel"]}))
-    mark("phases 3-7")
-    from volcano_tpu_torch.scheduler.conf import full_conf
+    with digest_timers() as stages:
+        batch = phase_e2e_batch("e2e batch", batch_binds, stages)
+    # the disarmed arm runs under --store-cells (cut for the run's time)
+    log(f"[digest cost cfg5-batch] armed {json.dumps(_stage_walls(stages))}")
+    mark("phase 3")
+    # phases 4-25 read no digest: disarmed, a depth cut for the run's time
+    # (PERF.md section 4); --armed-everywhere keeps them armed
+    with cut_audit():
+        exact = phase_e2e("e2e exact", 200, 0,
+                          want=("water_fill", "allocate_solve"),
+                          forbid=("allocate_solve_batch",) + CONTENTION_KERNELS)
+        captured = {}
+        cap = []
+        dyn = phase_e2e("e2e cfg5d", CFG5["jobs"], CFG5["best_effort"],
+                        want={"water_fill": 1, "allocate_solve_batch": 2,
+                              "allocate_solve_batch_portsel": 1},
+                        forbid=("allocate_solve", "allocate_solve_portsel") + CONTENTION_KERNELS,
+                        dynamic_frac=0.10, max_cycles=MAX_CYCLES_DYNAMIC, capture=cap)
+        captured["cfg5d"] = cap[0]
+        cap = []
+        dyn_exact = phase_e2e("e2e cfg5d-exact", CFG5["jobs"], CFG5["best_effort"],
+                              want={"water_fill": 1, "allocate_solve_batch": 1,
+                                    "allocate_solve": 1, "allocate_solve_portsel": 1},
+                              forbid=("allocate_solve_batch_portsel",) + CONTENTION_KERNELS,
+                              dynamic_frac=0.04, max_cycles=MAX_CYCLES_DYNAMIC, capture=cap)
+        captured["cfg5d-exact"] = cap[0]
+        kern.update(phase_portsel_kernels(captured, {
+            "allocate_solve_batch_portsel": dyn["allocate_solve_batch_portsel"],
+            "allocate_solve_portsel": dyn_exact["allocate_solve_portsel"]}))
+        mark("phases 4-7")
+        from volcano_tpu_torch.scheduler.conf import full_conf
 
-    launches, captured = {}, {}
-    exact_conf = full_conf("cuda")
-    exact_conf.solve_mode = "exact"
-    for cell, want, forbid, conf in (
-        ("cfg6", {"preempt_rounds": 1, "water_fill": 1}, ("reclaim_solve",), None),
-        ("cfg6b", {"preempt_rounds": 1, "preempt_solve": 1}, ("reclaim_solve",), None),
-        ("cfg6r", {"reclaim_solve": 1}, ("preempt_solve", "preempt_rounds"), None),
-        ("cfg6-exact", {"preempt_solve": 1, "allocate_solve": 1},
-         ("reclaim_solve", "preempt_rounds", "allocate_solve_batch"), exact_conf),
-    ):
-        launches[cell], captured[cell], _ = phase_contention(
-            f"e2e {cell}", cell, want, forbid + MESH_CONTENTION_KERNELS, conf=conf,
-            cycles=CONTENTION_CUT_CYCLES)
-    kern.update(phase_victim_kernels(captured, launches))
-    kern["preempt_solve"]["cfg6_exact_launches"] = launches["cfg6-exact"]["preempt_solve"]
-    mark("phases 8-9")
-    vol_want = {"water_fill": 1, "allocate_solve_batch": 1, "allocate_solve": 1,
-                "allocate_solve_portsel": 1, "allocate_solve_volsel": 1}
-    vol_forbid = ("allocate_solve_batch_portsel",) + CONTENTION_KERNELS
-    phase_e2e("e2e cfg5v-500", CFG5["jobs"], CFG5["best_effort"], want=vol_want,
-              forbid=vol_forbid, max_cycles=MAX_CYCLES_DYNAMIC, volume_tasks=500)
-    cap = []
-    vol = phase_e2e("e2e cfg5v-2000", CFG5["jobs"], CFG5["best_effort"], want=vol_want,
-                    forbid=vol_forbid, max_cycles=MAX_CYCLES_DYNAMIC, capture=cap,
-                    volume_tasks=2000)
-    kern.update(phase_volsel_kernel(cap[0], vol["allocate_solve_volsel"]))
-    mark("phases 10-11")
-    # the runs without the snapshot cache are --restart-cells' (cut from the
-    # main run for its time)
-    be_launches, step_in = phase_object_cfg6r_be(no_cache=False)
-    kern.update(phase_victim_step_kernel(step_in, be_launches))
-    mark("phases 12-13")
-    phase_object_cfg5(no_cache=False)
-    caps = phase_cap_lifts()
-    mark("phases 14-15")
-    cfg9_launches, cfg9_captured = phase_cfg9()
-    k12a_out, k12a = phase_sharded_kernels(cfg9_captured, cfg9_launches)
-    kern.update(k12a)
-    mark("phases 16-17")
-    # phase 20 runs on phase 16's captured inputs, then the cfg9 objects go
-    kern.update(phase_multihost_cfg9(cfg9_captured, k12a_out, k12a["sharded_cycle"]))
-    del cfg9_captured, k12a_out
-    gc.collect()
-    mark("phase 20")
-    mesh_launches, sharded_step_in = phase_object_cfg6r_be_mesh(no_cache=False)
-    kern.update(phase_victim_sharded_kernel(sharded_step_in,
-                                            mesh_launches["victim_step_sharded"]))
-    mark("phases 18-19")
-    phase_cfg5_two_hosts()
-    phase_multihost_cli()
-    mark("phase 21")
-    k15_launches, k15_in = phase_contention_mesh()
-    mark("phase 22")
-    kern.update(phase_contention_mesh_kernels(k15_in, k15_launches, captured))
-    mark("phase 23")
-    del k15_in, captured
-    gc.collect()
-    phase_cfg5r()
-    mark("phase 24")
-    phase_cfg6d()
-    mark("phase 25")
+        launches, captured = {}, {}
+        exact_conf = full_conf("cuda")
+        exact_conf.solve_mode = "exact"
+        for cell, want, forbid, conf in (
+            ("cfg6", {"preempt_rounds": 1, "water_fill": 1}, ("reclaim_solve",), None),
+            ("cfg6b", {"preempt_rounds": 1, "preempt_solve": 1}, ("reclaim_solve",), None),
+            ("cfg6r", {"reclaim_solve": 1}, ("preempt_solve", "preempt_rounds"), None),
+            ("cfg6-exact", {"preempt_solve": 1, "allocate_solve": 1},
+             ("reclaim_solve", "preempt_rounds", "allocate_solve_batch"), exact_conf),
+        ):
+            launches[cell], captured[cell], _ = phase_contention(
+                f"e2e {cell}", cell, want, forbid + MESH_CONTENTION_KERNELS, conf=conf,
+                cycles=CONTENTION_CUT_CYCLES)
+        kern.update(phase_victim_kernels(captured, launches))
+        kern["preempt_solve"]["cfg6_exact_launches"] = launches["cfg6-exact"]["preempt_solve"]
+        mark("phases 8-9")
+        vol_want = {"water_fill": 1, "allocate_solve_batch": 1, "allocate_solve": 1,
+                    "allocate_solve_portsel": 1, "allocate_solve_volsel": 1}
+        vol_forbid = ("allocate_solve_batch_portsel",) + CONTENTION_KERNELS
+        cap = []
+        vol = phase_e2e("e2e cfg5v-2000", CFG5["jobs"], CFG5["best_effort"], want=vol_want,
+                        forbid=vol_forbid, max_cycles=MAX_CYCLES_DYNAMIC, capture=cap,
+                        volume_tasks=2000)
+        kern.update(phase_volsel_kernel(cap[0], vol["allocate_solve_volsel"]))
+        mark("phases 10-11")
+        # the runs without the snapshot cache are --restart-cells' (cut from the
+        # main run for its time)
+        be_launches, step_in = phase_object_cfg6r_be(no_cache=False)
+        kern.update(phase_victim_step_kernel(step_in, be_launches))
+        mark("phases 12-13")
+        phase_object_cfg5(no_cache=False)
+        caps = phase_cap_lifts()
+        mark("phases 14-15")
+        cfg9_launches, cfg9_captured = phase_cfg9()
+        k12a_out, k12a = phase_sharded_kernels(cfg9_captured, cfg9_launches)
+        kern.update(k12a)
+        mark("phases 16-17")
+        # phase 20 runs on phase 16's captured inputs, then the cfg9 objects go
+        kern.update(phase_multihost_cfg9(cfg9_captured, k12a_out, k12a["sharded_cycle"]))
+        del cfg9_captured, k12a_out
+        gc.collect()
+        mark("phase 20")
+        mesh_launches, sharded_step_in = phase_object_cfg6r_be_mesh(no_cache=False)
+        kern.update(phase_victim_sharded_kernel(sharded_step_in,
+                                                mesh_launches["victim_step_sharded"]))
+        mark("phases 18-19")
+        phase_cfg5_two_hosts()
+        phase_multihost_cli()
+        mark("phase 21")
+        k15_launches, k15_in = phase_contention_mesh()
+        mark("phase 22")
+        kern.update(phase_contention_mesh_kernels(k15_in, k15_launches, captured))
+        mark("phase 23")
+        del k15_in, captured
+        gc.collect()
+        phase_cfg5r()
+        mark("phase 24")
+        phase_cfg6d()
+        mark("phase 25")
     phase_restart_standby()
     mark("phase 26")
     cfg10 = phase_cfg10()
     mark("phase 27")
-    cfg10["tenth"] = phase_cfg10_tenth()
+    with cut_audit():  # phase 27 is the armed delta-on cell
+        cfg10["tenth"] = phase_cfg10_tenth()
     mark("phase 28")
     log(json.dumps({"cfg10": cfg10}))
-    log(json.dumps({"cfg8": phase_cfg8()}))
+    cfg8 = phase_cfg8()
+    log(json.dumps({"cfg8": cfg8}))
     mark("phase 30")
     log(smi)
     log(json.dumps({"cfg7": phase_cfg7(batch_binds)}))
     mark("phase 29")
     log(json.dumps({"cfg9b": phase_cfg9b()}))
     mark("phase 31")
+    log(json.dumps({"cfg8_daemons": phase_cfg8_daemons(cfg8)}))
+    mark("phase 32")
     kern["water_fill"]["cfg10_launches_per_micro_cycle"] = cfg10["k1_per_micro_cycle"]
     kern["allocate_solve"]["cfg10"] = dict(cfg10["k2_at_micro_shape"],
                                            launches_per_micro_cycle=cfg10["k2_per_micro_cycle"],

@@ -278,11 +278,15 @@ def _frozen_stream(monkeypatch, make_server, Client, pkg, Segment):
         monkeypatch.setattr(objects, "_uid_token", "t0")
         monkeypatch.setattr(objects, "_uid_next", 1000)
     monkeypatch.setattr(time, "time", lambda: 1234.5)
+    # a digest beacon after every mutation: the streams then carry the
+    # state digest at each step, compared without its wall-clock stamp
+    monkeypatch.setenv("VOLCANO_TPU_AUDIT_BEACON_S", "0")
     srv = make_server().start()
     try:
         _drive(Client(srv.url), pkg, Segment)
-        return [e for e in srv.watch_since(0, set(), 0)["events"]
-                if e["kind"] != "__beacon__" and "digest" not in e]
+        return [dict(e, digest={k: v for k, v in e["digest"].items() if k != "ts"})
+                if e["kind"] == "__beacon__" else e
+                for e in srv.watch_since(0, set(), 0)["events"]]
     finally:
         srv.stop()
 
@@ -293,5 +297,6 @@ def test_same_ops_give_equal_watch_streams(monkeypatch):
     port = _frozen_stream(monkeypatch, StoreServer, RemoteStore, PORT, DecisionSegment)
     jax = _frozen_stream(monkeypatch, JStoreServer, JRemoteStore, JAX, JSegment)
     assert len(port) == len(jax) > 30
+    assert sum(e["kind"] == "__beacon__" for e in port) > 10
     for a, b in zip(port, jax):
         assert json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True), (a, b)

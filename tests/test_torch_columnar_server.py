@@ -22,6 +22,8 @@ import json
 import re
 import time
 
+import pytest
+
 from volcano_tpu_torch.api import objects as api_objects
 from volcano_tpu_torch.events import events_for
 from volcano_tpu_torch.scheduler.cache import SchedulerCache
@@ -36,6 +38,16 @@ from volcano_tpu_torch.store.segment import (
 from volcano_tpu_torch.store.server import StoreServer
 
 from test_torch_store_server import node, pod, podgroup
+
+
+@pytest.fixture(autouse=True)
+def _op_determined_seqs(monkeypatch):
+    """The digest beacons take seqs on a wall-clock cadence (1 s by
+    default), so a slow run would slip one in where these cases expect
+    only their own writes: the cadence is pinned past each case, as
+    ``tests/test_procmesh.py:118`` does.  The digest stays armed;
+    ``stamp_beacon`` still stamps one on demand."""
+    monkeypatch.setenv("VOLCANO_TPU_AUDIT_BEACON_S", "3600")
 
 
 def _seg(bind_pairs, evicts=(), node_table=None):

@@ -243,9 +243,9 @@ def test_scheduler_series_equal_jax(case):
 def test_metrics_endpoint_serves_reference_series():
     """``/metrics`` of the port's MetricsServer after a cycle serves the
     reference's cycle and action series, as the JAX server does for the
-    same store, ``/healthz`` answers ok, and the views that wait for other
-    modules answer 404."""
-    import urllib.error
+    same store, ``/healthz`` answers ok, and ``/debug/digest`` serves the
+    scheduler mirror's state digest view; a process without a mirror
+    answers as the JAX one does."""
     import urllib.request
 
     from helpers import build_node, build_pod, build_podgroup, make_store
@@ -257,8 +257,12 @@ def test_metrics_endpoint_serves_reference_series():
     store = port_store(jstore)
     jc = jconf.default_conf()
     JScheduler(jstore, conf=jc).run_once()
-    Scheduler(store, conf=port_conf(jc)).run_once()
-    bodies = []
+    sched = Scheduler(store, conf=port_conf(jc))
+    sched.run_once()
+    from volcano_tpu import vtaudit as jvtaudit
+
+    jvtaudit.set_debug_source(None)  # an earlier test's JAX mirror
+    bodies, digests = [], []
     for cls in (JMetricsServer, MetricsServer):
         srv = cls(port=0).start()
         try:
@@ -267,12 +271,18 @@ def test_metrics_endpoint_serves_reference_series():
                 bodies.append(r.read().decode())
             with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
                 assert r.read() == b"ok\n"
-            if cls is MetricsServer:
-                with pytest.raises(urllib.error.HTTPError) as e:
-                    urllib.request.urlopen(base + "/debug/digest", timeout=10)
-                assert e.value.code == 404
+            with urllib.request.urlopen(base + "/debug/digest", timeout=10) as r:
+                digests.append(json.loads(r.read()))
         finally:
             srv.stop()
+    jdig, dig = digests
+    assert dig["enabled"] and dig["source"] == "mirror", dig
+    assert dig == json.loads(json.dumps(sched.fast_cycle.mirror._audit_debug()))
+    assert {"Pod", "Node", "PodGroup", "Queue"} <= set(dig["digest"]["kinds"]), dig
+    from volcano_tpu_torch import vtaudit
+
+    vtaudit.set_debug_source(None)
+    assert vtaudit.debug_payload() == jdig, jdig
     for body in bodies:
         assert "volcano_e2e_scheduling_latency_milliseconds" in body
         assert "volcano_action_scheduling_latency_microseconds" in body

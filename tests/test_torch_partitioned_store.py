@@ -71,10 +71,13 @@ _NAMESPACES = [f"team{i}" for i in range(8)]
 
 
 @pytest.fixture(autouse=True)
-def _no_jax_beacons(monkeypatch):
-    """The JAX servers' digest beacons are part 2's; the port's client does
-    not decode them yet."""
-    monkeypatch.setenv("VOLCANO_TPU_AUDIT", "0")
+def _op_determined_seqs(monkeypatch):
+    """The digest beacons take seqs on a wall-clock cadence (1 s by
+    default), so a slow run would slip one in where these cases expect
+    only their own writes: the cadence is pinned past each case, as
+    ``tests/test_procmesh.py:118`` does.  The digest stays armed;
+    ``stamp_beacon`` still stamps one on demand."""
+    monkeypatch.setenv("VOLCANO_TPU_AUDIT_BEACON_S", "3600")
 
 
 def _seed_pods(create, n, namespaces=_NAMESPACES, build=pod):
@@ -760,5 +763,62 @@ def test_concurrent_sub_segment_ships_beside_held_bulks_do_not_deadlock():
         assert errors == []
         pods = {p.meta.key: p.node_name for p in rs.list("Pod")}
         assert all(pods[f"{_NAMESPACES[i % 8]}/p{i}"] for i in range(400))
+    finally:
+        srv.stop()
+
+
+# -- the per-shard digest (test_partitioned_store.py:513) ---------------------------
+
+
+def test_healthz_carries_per_shard_digest_and_seq(monkeypatch):
+    """``/healthz`` serves the kept digest of each shard beside that shard's
+    newest seq, the shards summing to the root, equal to ``/debug/digest``
+    and to the JAX server's for the same writes; one more write in one
+    namespace moves exactly its shard's digest and seq."""
+    import urllib.request
+
+    from volcano_tpu_torch import vtaudit
+
+    def healthz(url):
+        with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+            return json.load(r)["digest"]
+
+    _freeze(monkeypatch)
+    jsrv = JStoreServer(shards=NSHARDS).start()
+    try:
+        _seed_pods(JRemoteStore(jsrv.url).create, 16, build=jbuild_pod)
+        jdg = healthz(jsrv.url)
+    finally:
+        jsrv.stop()
+    _freeze(monkeypatch)
+    srv = StoreServer(shards=NSHARDS).start()
+    try:
+        rs = RemoteStore(srv.url)
+        _seed_pods(rs.create, 16)
+        dg = healthz(srv.url)
+        assert dg == jdg
+        assert dg["seq"] == srv.seq and len(dg["shards"]) == NSHARDS
+        total = sum(int(s["digest"], 16) for s in dg["shards"]) % (1 << 64)
+        assert vtaudit.hexd(total) == dg["root"]
+        touched = {shard_of(ns, NSHARDS) for ns in _NAMESPACES}
+        for s, entry in enumerate(dg["shards"]):
+            assert entry["seq"] <= dg["seq"]
+            if s in touched:
+                assert entry["seq"] > 0
+        with urllib.request.urlopen(srv.url + "/debug/digest", timeout=10) as r:
+            dbg = json.load(r)
+        assert dbg["root"] == dg["root"]
+        assert dbg["shards"] == [e["digest"] for e in dg["shards"]]
+        assert dbg["shard_seq"] == [e["seq"] for e in dg["shards"]]
+        before = dg["shards"]
+        rs.create("Pod", pod("extra", namespace=_NAMESPACES[0]))
+        after = healthz(srv.url)["shards"]
+        hot = shard_of(_NAMESPACES[0], NSHARDS)
+        for s in range(NSHARDS):
+            if s == hot:
+                assert after[s]["digest"] != before[s]["digest"]
+                assert after[s]["seq"] > before[s]["seq"]
+            else:
+                assert after[s] == before[s]
     finally:
         srv.stop()

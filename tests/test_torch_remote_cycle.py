@@ -55,6 +55,16 @@ _JAX_SERVER = (
 )
 
 
+@pytest.fixture(autouse=True)
+def _op_determined_seqs(monkeypatch):
+    """The digest beacons take seqs on a wall-clock cadence (1 s by
+    default), so a slow run would slip one in where these cases expect
+    only their own writes: the cadence is pinned past each case, as
+    ``tests/test_procmesh.py:118`` does.  The digest stays armed;
+    ``stamp_beacon`` still stamps one on demand."""
+    monkeypatch.setenv("VOLCANO_TPU_AUDIT_BEACON_S", "3600")
+
+
 class _Spawned:
     """An apiserver in a process of its own; its URL from its first line."""
 

@@ -47,6 +47,17 @@ from volcano_tpu_torch.store.codec import KIND_CLASSES, decode, encode
 from volcano_tpu_torch.store.server import StoreServer
 from volcano_tpu_torch.store.store import Conflict, PreconditionFailed
 
+
+@pytest.fixture(autouse=True)
+def _op_determined_seqs(monkeypatch):
+    """The digest beacons take seqs on a wall-clock cadence (1 s by
+    default), so a slow run would slip one in where these cases expect
+    only their own writes: the cadence is pinned past each case, as
+    ``tests/test_procmesh.py:118`` does.  The digest stays armed;
+    ``stamp_beacon`` still stamps one on demand."""
+    monkeypatch.setenv("VOLCANO_TPU_AUDIT_BEACON_S", "3600")
+
+
 # -- the port's builders (tests/helpers.py's, on the port's classes) -----------
 
 
@@ -453,17 +464,21 @@ def test_later_options_and_routes_fail_naming_their_item(server, tmp_path):
     """The options and routes of later parts raise or answer naming their
     item; the partitioned bus (item 11b part 1) boots, serves and applies:
     ``shards=4`` with and without the WAL, ``/watch?shard=``, a shard-tagged
-    segment op, a partitioned WAL directory at boot."""
+    segment op, a partitioned WAL directory at boot.  ``/debug/digest``
+    (item 11b part 2) answers with the state digest."""
     for kw, item in (({"repl": {"peers": []}}, "item 11b part 3"),
                      ({"seq_bus": object()}, "item 11b part 4"),
                      ({"proc_shard": (0, 2)}, "item 11b part 4")):
         with pytest.raises(ValueError, match=item):
             StoreServer(**kw)
     url = server.url
-    for path, item in (("/repl/status", "part 3"), ("/repl/feed?from=0", "part 3"),
-                       ("/debug/digest", "part 2")):
+    for path, item in (("/repl/status", "part 3"), ("/repl/feed?from=0", "part 3")):
         code, out = _get(url, path)
         assert code == 404 and f"item 11b {item}" in out["error"], (path, out)
+    code, out = _get(url, "/debug/digest")
+    assert code == 200 and out["enabled"] and out["seq"] == server.seq, out
+    assert out["root"] == _get(url, "/debug/digest?recompute=1")[1]["root"]
+    assert out["root"] == server.store.recompute_digest().payload()["root"]
     code, out = _get(url, "/chaos")
     assert code == 404 and "item 13" in out["error"]
     code, out = _send(url, "POST", "/chaos", {"rules": []})

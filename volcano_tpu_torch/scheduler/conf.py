@@ -33,7 +33,9 @@ no counterpart:
 * ``backend: tpu`` -> ``"cuda"``; ``cuda`` and ``cpu`` stay; an absent
   key -> ``"cuda"``; ``host`` and ``native`` raise (the port has no object
   oracle or C++ solver tier);
-* an absent ``applyMode`` -> ``"sync"`` (the JAX conf keeps None);
+* an absent ``applyMode`` -> ``apply_mode_default``, ``"sync"`` (the JAX
+  conf keeps None, which its scheduler daemon reads as async; the port's
+  daemon passes ``"async"``);
 * ``columnarPublish: true`` is accepted; ``false`` raises (the applier
   always ships the columnar segment);
 * ``exactTopK: true`` is accepted; ``false`` raises (the port's batched
@@ -338,9 +340,10 @@ def parse_yaml(text: str) -> Any:
     return value
 
 
-def load_conf(text: str) -> SchedulerConf:
+def load_conf(text: str, apply_mode_default: str = "sync") -> SchedulerConf:
     """Parse a scheduler-conf YAML string (the reference's shape) under the
-    mapping rules of this module's docstring."""
+    mapping rules of this module's docstring; ``apply_mode_default`` is the
+    apply mode of a conf that names no ``applyMode``."""
     data = parse_yaml(text) or {}
     if not isinstance(data, dict):
         raise ValueError("a scheduler conf is a mapping")
@@ -373,6 +376,7 @@ def load_conf(text: str) -> SchedulerConf:
         raise ValueError(f"backend must be one of tpu, {', '.join(BACKENDS)}, got {backend!r}")
     conf.backend = backend
     conf.solve_mode = str(data.get("solveMode", conf.solve_mode))
+    conf.apply_mode = apply_mode_default
     if "applyMode" in data:
         mode = str(data["applyMode"])
         if mode not in APPLY_MODES:

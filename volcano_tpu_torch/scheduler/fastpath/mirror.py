@@ -25,8 +25,13 @@ events that invalidate row-keyed aggregates record a structural reason
 (``resync``, ``node-add``, ``node-remove``, ``job-requeue``,
 ``job-remove``).  Over a ``RemoteStore``, a watch that fell off the
 server's event log (``StaleWatch``) relists in ``drain``
-(``stale_relists`` counts them).  Left out (ROADMAP item 11b): the digest
-audit.
+(``stale_relists`` counts them).  The digest audit (``vtaudit.py``): the
+mirror keeps a digest table of its own from the same watch stream the row
+tables consume (seeded from the lists at every full sync, the events
+recorded per key as they drain and folded only at a verify), and
+``audit_verify`` compares its kinds with the store's: against the newest
+beacon over a ``RemoteStore``, under the store's lock in-process.  A
+mismatch resyncs the mirror; the scheduler's audit tick counts it.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
+from volcano_tpu_torch import vtaudit
 from volcano_tpu_torch.api.objects import POD_GROUP_KEY
 from volcano_tpu_torch.api.types import PodGroupPhase, TaskStatus, task_status_of_pod
 from volcano_tpu_torch.store.client import StaleWatch
@@ -54,6 +60,11 @@ _STATUS_CODE = {
     TaskStatus.FAILED: _FAILED,
     TaskStatus.UNKNOWN: _OTHER,
 }
+
+#: the kinds the mirror watches (the store's kind names; its digest audits
+#: them all)
+WATCHED_KINDS = ("Pod", "Node", "PodGroup", "Queue", "PriorityClass", "PodDisruptionBudget",
+                 "PV", "PVC", "StorageClass")
 
 #: statuses that count as "allocated" (helpers.go:66-73) and as gang-ready
 _ALLOCATED_CODES = (_BOUND, _RUNNING)
@@ -126,15 +137,22 @@ class ArrayMirror:
         self.store = store
         self.scheduler_name = scheduler_name
         self.default_queue = default_queue
-        self._watches = [
-            (kind, store.watch(kind))
-            for kind in ("Pod", "Node", "PodGroup", "Queue", "PriorityClass",
-                         "PodDisruptionBudget", "PV", "PVC", "StorageClass")
-        ]
+        self._watches = [(kind, store.watch(kind)) for kind in WATCHED_KINDS]
         self._synced = False
         self._resyncing = False
         #: relists after a remote watch fell off the server's event log
         self.stale_relists = 0
+        # the independent digest (vtaudit.py), fed by the same watch stream
+        # as the row tables, so that equality with the store's proves the
+        # stream delivered the whole state.  The drain records each event
+        # per key (the last write wins, _audit_pending) and a verify folds
+        # them, so the drain pays two dict writes an event
+        self._audit = vtaudit.DigestTable() if vtaudit.enabled() else None
+        self._audit_pending: Dict[str, Dict[str, tuple]] = {}
+        self.audit_checks = 0
+        self.audit_divergences = 0
+        self.last_audit: Optional[Dict] = None
+        vtaudit.set_debug_source(self._audit_debug)
         # the delta engine's dirty set (scheduler/delta/dirty.py), or None.
         # Not reset by _resync: the hook must see the resync itself
         self.delta_hook = None
@@ -251,20 +269,25 @@ class ArrayMirror:
             self._resyncing = False
 
     def _full_sync(self) -> None:
-        for pc in self.store.items("PriorityClass"):
+        # the lists seed the digest table too: over a RemoteStore a second
+        # list of every pod would cost as much as the first
+        listed = {kind: self.store.list(kind) for kind in
+                  ("PriorityClass", "Queue", "Node", "PodGroup", "PodDisruptionBudget", "Pod")}
+        for pc in listed["PriorityClass"]:
             self._on_priority_class(pc)
-        for q in self.store.items("Queue"):
+        for q in listed["Queue"]:
             self._on_queue(q)
-        for node in self.store.items("Node"):
+        for node in listed["Node"]:
             self._on_node(node)
-        for pg in self.store.items("PodGroup"):
+        for pg in listed["PodGroup"]:
             self._on_podgroup(pg)
         # budgets before pods, like the object snapshot: a budget creates or
         # configures the shadow gang its controller's plain pods join
-        for pdb in self.store.items("PodDisruptionBudget"):
+        for pdb in listed["PodDisruptionBudget"]:
             self._on_pdb(pdb)
-        for pod in self.store.items("Pod"):
+        for pod in listed["Pod"]:
             self._on_pod(pod)
+        self._audit_rebuild(listed)
         self._synced = True
 
     def drain(self) -> None:
@@ -288,10 +311,22 @@ class ArrayMirror:
 
     def _drain_events(self) -> None:
         resync = False
+        audit = self._audit
         for kind, q in self._watches:
+            audited = audit is not None and kind in vtaudit.AUDITED_KINDS
             while q:
                 ev = q.popleft()
                 deleted = ev.type == EventType.DELETED
+                if audited:
+                    # the key's absolute state (post-state or deleted): the
+                    # last write wins, so a fold reaches the final state
+                    # whatever the order within a key.  A remote event
+                    # carries its wire encoding; an in-process one folds
+                    # from the live object, equal at quiescence
+                    self._audit_pending.setdefault(kind, {})[ev.obj.meta.key] = (
+                        ("del", None) if deleted
+                        else ("enc", ev.enc) if getattr(ev, "enc", None) is not None
+                        else ("obj", ev.obj))
                 if kind == "Pod":
                     self._del_pod(ev.obj) if deleted else self._on_pod(ev.obj)
                 elif kind == "Node":
@@ -307,6 +342,99 @@ class ArrayMirror:
                 # them from the store once a cycle
         if resync:
             self._resync()
+
+    # -- the state-digest audit (vtaudit.py) ----------------------------------------
+
+    def _audit_rebuild(self, listed: Optional[Dict[str, list]] = None) -> None:
+        """Seed the digest table from the store's lists, the audit's full
+        sync (the list is the seed; pending events re-apply idempotently).
+        ``listed`` holds the lists the caller already took, by kind; the
+        other watched kinds are listed here."""
+        if self._audit is None:
+            return
+        listed = listed or {}
+        self._audit_pending.clear()
+        self._audit = vtaudit.table_from_objects(
+            (kind, obj) for kind, _ in self._watches
+            for obj in (listed[kind] if kind in listed else self.store.items(kind)))
+
+    def _audit_fold(self) -> None:
+        """Fold the recorded per-key events into the table (at a verify,
+        never an event at a time)."""
+        t = self._audit
+        for kind, pend in self._audit_pending.items():
+            for key, (mode, val) in pend.items():
+                if mode == "del":
+                    t.remove(kind, key)
+                elif mode == "enc":
+                    t.set_enc(kind, key, val)
+                else:
+                    t.set_obj(kind, key, val)
+        self._audit_pending.clear()
+
+    def audit_verify(self) -> Optional[Dict]:
+        """Compare the mirror's digest kinds with the store's: against the
+        newest beacon over a ``RemoteStore``, under the store's lock
+        in-process.  Only at quiescence (every watch queue drained and,
+        remotely, the beacon closing its poll batch), so that both sides
+        describe one seq; None otherwise.  A mismatch resyncs the mirror
+        after it is reported; the caller counts it."""
+        if self._audit is None or not self._synced or self._resyncing:
+            return None
+        watched = [k for k, _ in self._watches if k in vtaudit.AUDITED_KINDS]
+        store = self.store
+        if hasattr(store, "last_beacon"):  # a RemoteStore
+            ref = store.last_beacon
+            if ref is None or not store.beacon_is_tail:
+                return None
+            try:
+                undrained = any(q for _, q in self._watches)
+            except StaleWatch:
+                # the quiescence peek polls the wire, so it can fall off the
+                # server's log as drain() can: the same recovery, and
+                # certainly not quiescent
+                for _, q in self._watches:
+                    getattr(q, "_buf", q).clear()
+                self.stale_relists += 1
+                self._resync(dims=self.dims)
+                return None
+            if undrained:
+                return None  # events past the beacon's seq
+            self._audit_fold()
+            mine = {k: vtaudit.hexd(d) for k, d in self._audit.kind_rollup().items()}
+            bad = vtaudit.diff_kinds(mine, ref.get("kinds") or {}, watched)
+            res = {"ok": not bad, "kinds": bad, "seq": ref.get("seq"),
+                   "ts": ref.get("ts"), "mode": "beacon"}
+        else:  # the in-process Store: compare under its apply lock
+            with store._mu:
+                if any(q for _, q in self._watches):
+                    return None
+                dg = store._digest
+                if dg is None:
+                    return None
+                self._audit_fold()
+                mine = {k: vtaudit.hexd(d) for k, d in self._audit.kind_rollup().items()}
+                theirs = {k: vtaudit.hexd(d) for k, d in dg.kind_rollup().items()}
+            bad = vtaudit.diff_kinds(mine, theirs, watched)
+            res = {"ok": not bad, "kinds": bad, "seq": None, "ts": None, "mode": "store"}
+        self.audit_checks += 1
+        self.last_audit = res
+        if bad:
+            self.audit_divergences += 1
+            self._resync(dims=self.dims)
+        return res
+
+    def _audit_debug(self) -> Dict:
+        """The metrics server's ``/debug/digest`` body.  It only reads: the
+        scheduler's thread owns the table and folds, so a racing write at
+        worst garbles one reply (the registry catches and reports it)."""
+        t = self._audit
+        if t is None:
+            return {"enabled": False, "source": "mirror", "digest": None}
+        return {"enabled": True, "source": "mirror", "digest": t.payload(),
+                "pending": sum(len(m) for m in self._audit_pending.values()),
+                "checks": self.audit_checks, "divergences": self.audit_divergences,
+                "last": self.last_audit}
 
     def _vec(self, res, out_row: np.ndarray) -> bool:
         """Write a Resource into a row; False on an unknown scalar dim."""
@@ -797,8 +925,10 @@ class ArrayMirror:
     #: the checkpoint's layout version; bump on any change of the row tables
     _CKPT_VERSION = 1
     #: live handles that never go into a checkpoint (the delta hook stays
-    #: the restoring engine's, which re-arms on the new mirror)
-    _CKPT_SKIP = ("store", "_watches", "delta_hook")
+    #: the restoring engine's, which re-arms on the new mirror).  The audit
+    #: table stays out too: a restore rebuilds it from the store, so a
+    #: stale digest can never mask drift
+    _CKPT_SKIP = ("store", "_watches", "delta_hook", "_audit", "_audit_pending")
 
     def save_checkpoint(self, path: str) -> None:
         """Persist the whole mirror (row tables, interning maps, the objects
@@ -852,26 +982,30 @@ class ArrayMirror:
         """The delta relist: re-ingest the objects whose resource version
         moved while the checkpoint was cold and drop the vanished ones.
         Every ingest is idempotent, so the watch events queued meanwhile
-        re-apply harmlessly at the next drain."""
+        re-apply harmlessly at the next drain.  The lists seed the digest
+        table too, as in ``_full_sync``."""
         store = self.store
         # queues and priority classes re-wire job and pod rows: any drift
         # there takes the (cheap at their cardinality) full resync
-        qs = store.list("Queue")
+        listed = {"Queue": store.list("Queue"), "PriorityClass": store.list("PriorityClass")}
+        qs = listed["Queue"]
         q_ok = len(qs) == len(self.queues.key_row)
         for q in qs:
             r = self.queues.key_row.get(q.meta.name)
             q_ok = q_ok and r is not None and bool(self.q_live[r]) and (
                 self.q_weight[r] == q.weight)
-        pcs = {pc.meta.name: pc.value for pc in store.items("PriorityClass")}
+        pcs = {pc.meta.name: pc.value for pc in listed["PriorityClass"]}
         defp = 0
-        for pc in store.items("PriorityClass"):
+        for pc in listed["PriorityClass"]:
             if pc.global_default:
                 defp = pc.value
         if not q_ok or pcs != self.priority_classes or defp != self.default_priority:
             self._resync(dims=self.dims)
             return
+        for kind in ("Node", "PodGroup", "PodDisruptionBudget", "Pod"):
+            listed[kind] = store.list(kind)
         seen = set()
-        for node in store.items("Node"):
+        for node in listed["Node"]:
             seen.add(node.meta.name)
             row = self.nodes.key_row.get(node.meta.name)
             if row is None or not self.n_live[row] or self.n_rv[row] != node.meta.resource_version:
@@ -879,7 +1013,7 @@ class ArrayMirror:
         for name in [k for k in self.nodes.key_row if k not in seen]:
             self._del_node_key(name)
         seen = set()
-        for pg in store.items("PodGroup"):
+        for pg in listed["PodGroup"]:
             seen.add(pg.meta.key)
             row = self.jobs.key_row.get(pg.meta.key)
             if row is None or not self.j_live[row] or self.j_rv[row] != pg.meta.resource_version:
@@ -888,7 +1022,7 @@ class ArrayMirror:
             self._del_podgroup_key(key)
         # budgets: re-apply all, demote the rows whose budget vanished
         pdb_rows = set()
-        for pdb in store.items("PodDisruptionBudget"):
+        for pdb in listed["PodDisruptionBudget"]:
             self._on_pdb(pdb)
             if pdb.meta.owner is not None:
                 r = self.jobs.key_row.get(self._pdb_key(pdb))
@@ -900,7 +1034,7 @@ class ArrayMirror:
                 self.j_pdb[r] = False
                 self._shadow_ref(int(r), 0)
         seen = set()
-        for pod in store.items("Pod"):
+        for pod in listed["Pod"]:
             if pod.spec.scheduler_name != self.scheduler_name:
                 continue
             key = pod.meta.key
@@ -910,6 +1044,7 @@ class ArrayMirror:
                 self._on_pod(pod)
         for key in [k for k in self.pods.key_row if k not in seen]:
             self._del_pod_key(key)
+        self._audit_rebuild(listed)
 
     # -- eligibility ----------------------------------------------------------
 

@@ -23,9 +23,10 @@ discarded, never an error) and counted in
 
 Durations come from monotonic clocks (``time.perf_counter``).  The store
 WAL's families are the apiserver's (``store/wal.py``, ``store/server.py``).
-Families of the JAX module that wait for other modules of the port:
-replication's, the digest audit's and the process mesh's (ROADMAP item
-11b), the elastic autoscaler's (12).  ``volcano_jit_compiles_total`` keeps
+The digest audit's families are the scheduler's audit tick's
+(``Scheduler._audit_tick``).  Families of the JAX module that wait for
+other modules of the port: replication's and the process mesh's (ROADMAP
+item 11b parts 3-4), the elastic autoscaler's (12).  ``volcano_jit_compiles_total`` keeps
 its JAX name and counts the growth of the launch-shape registry
 (``vtprof.py``); its HELP line says so.
 """
@@ -356,6 +357,26 @@ def register_prof_anomaly(kind: str) -> None:
     inc("volcano_prof_anomalies_total", kind=kind)
 
 
+# -- the state digest's audit (vtaudit.py) --------------------------------------
+
+def register_audit_check(n: int = 1) -> None:
+    """Digest verifies the mirror completed against a store checkpoint
+    (a beacon, or the in-process store's table under its lock)."""
+    inc("volcano_audit_digest_checks_total", float(n))
+
+
+def register_audit_divergence(n: int = 1) -> None:
+    """Digest mismatches: in steady state this series stays at zero; any
+    advance is the steady-state-divergence anomaly."""
+    inc("volcano_audit_divergence_total", float(n))
+
+
+def observe_beacon_lag(seconds: float) -> None:
+    """The age of the beacon a verify consumed (its wall-clock stamp to
+    the verify)."""
+    observe("volcano_audit_beacon_lag_seconds", seconds)
+
+
 # -- incremental scheduling (scheduler/delta/) ----------------------------------
 
 def register_delta_micro_cycle(n: int = 1) -> None:
@@ -421,6 +442,12 @@ _HELP: Dict[str, str] = {
         "Schedule attempts by result",
     "volcano_residue_tasks_total":
         "Tasks routed to the host residue path, by reason class",
+    "volcano_audit_digest_checks_total":
+        "Mirror-vs-store digest verification passes completed",
+    "volcano_audit_divergence_total":
+        "State digest mismatches detected (steady state: zero)",
+    "volcano_audit_beacon_lag_seconds":
+        "Age of the digest beacon consumed by a verification pass",
     "volcano_store_wal_appended_records_total":
         "Records appended to the store write-ahead log",
     "volcano_store_wal_fsync_total":

@@ -11,10 +11,11 @@ modules:
 * ``/debug/trace``: the flight recorder (``trace.debug_payload``);
 * ``/debug/timeseries``: the cycle ring (``timeseries.debug_payload``);
 * ``/debug/prof``: the critical-path profile (``vtprof.debug_payload``);
+* ``/debug/digest``: the scheduler mirror's state digest, its pending
+  events, its checks and divergences (``vtaudit.debug_payload``);
 * ``/healthz``: ``ok``.
 
-``/debug/digest`` (the digest audit) and the fleet's merged ``/metrics``
-wait for ROADMAP items 11b and 13 and answer 404 like any unknown path.
+The fleet's merged ``/metrics`` waits for ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -24,12 +25,13 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-from volcano_tpu_torch import timeseries, trace, vtprof
+from volcano_tpu_torch import timeseries, trace, vtaudit, vtprof
 from volcano_tpu_torch.scheduler import metrics
 
 _JSON_VIEWS = {
     "/debug/timeseries": timeseries.debug_payload,
     "/debug/prof": vtprof.debug_payload,
+    "/debug/digest": vtaudit.debug_payload,
 }
 
 

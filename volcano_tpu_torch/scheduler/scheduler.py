@@ -45,11 +45,15 @@ the profiler is armed (``vtprof.py``) every cycle is one profile record
 (``begin_cycle`` / ``end_cycle``) and ``prewarm`` ends with the warmup
 handshake, deferred to the background warm's end when it has one.  With
 ``VOLCANO_TPU_PROFILE`` set to a directory, every cycle runs under
-``torch.profiler`` and writes ``cycle-NNNNNN/trace.json`` there.  Not
-ported: the digest audit tick, which raises the steady-state divergence
-crash dump, and the daemon entry (ROADMAP item 11b).  The store may be a
+``torch.profiler`` and writes ``cycle-NNNNNN/trace.json`` there.  After
+every fast cycle the digest audit tick (``_audit_tick``) verifies the
+mirror's state digest against the store's newest checkpoint, once a beacon
+seq or store resource version; a mismatch counts in
+``volcano_audit_divergence_total``, records a ``steady-state-divergence``
+anomaly row and calls ``trace.crash_dump``.  The store may be a
 ``store.client.RemoteStore``: the apiserver then runs in a process of its
-own (``store/server.py``).
+own (``store/server.py``), and ``python -m volcano_tpu_torch.cli
+scheduler`` (``cli/daemons.py``) is the daemon that deploys it.
 """
 
 from __future__ import annotations
@@ -173,6 +177,9 @@ class Scheduler:
         self._bind_log_n = 0
         #: the next VOLCANO_TPU_PROFILE cycle directory's number
         self._profile_cycle = 0
+        # the digest audit's throttle: the checkpoint (beacon seq or store
+        # resource version) the last verify consumed
+        self._audit_marker: object = None
 
     @classmethod
     def from_conf_yaml(cls, store, text: str, **kw) -> "Scheduler":
@@ -530,6 +537,7 @@ class Scheduler:
                                    mirror=fc.mirror)
                 if timeseries.RECORDER is not None:
                     self._record_cycle(start, "fast")
+                self._audit_tick()
                 return
         if fc is not None and not fc.is_coordinator:
             # a mesh-host worker whose fast cycle declined: the object path
@@ -552,6 +560,44 @@ class Scheduler:
             prof.end_cycle(time.perf_counter() - start, {}, "object")
         if timeseries.RECORDER is not None:
             self._record_cycle(start, "object")
+
+    def _audit_tick(self) -> None:
+        """The digest verify after a fast cycle: the mirror's watch-fed
+        digest against the store's newest checkpoint, at most once a beacon
+        seq (RemoteStore) or store resource version (in-process), so a busy
+        scheduler never verifies one state twice.  A mismatch is the
+        ``steady-state-divergence`` anomaly: the metric, the time-series
+        anomaly row and ``trace.crash_dump``."""
+        fc = self.fast_cycle
+        if fc is None:
+            return
+        mirror = fc.mirror
+        if getattr(mirror, "_audit", None) is None:
+            return
+        store = mirror.store
+        if hasattr(store, "last_beacon"):
+            ref = store.last_beacon
+            marker = None if ref is None else ref.get("seq")
+        else:
+            marker = store.resource_version
+        if marker is None or marker == self._audit_marker:
+            return
+        res = mirror.audit_verify()
+        if res is None:
+            return  # not quiescent: a later cycle retries this marker
+        self._audit_marker = marker
+        metrics.register_audit_check()
+        ts = res.get("ts")
+        if ts is not None:
+            # the beacon's wall-clock age: a coarse staleness reading
+            metrics.observe_beacon_lag(max(0.0, time.time() - ts))
+        if not res["ok"]:
+            metrics.register_audit_divergence()
+            if timeseries.RECORDER is not None:
+                timeseries.record("anomaly", anomaly="steady-state-divergence",
+                                  kinds=",".join(res["kinds"]), seq=res.get("seq"),
+                                  mode=res.get("mode"), cycle=self._cycle_n)
+            trace.crash_dump("steady-state-divergence")
 
     def _annotate_fast_cycle(self, cyc, ran: bool) -> None:
         """Armed-only: the fast cycle's phases, its residue classes and the

@@ -16,10 +16,13 @@ decision segment, which the applier re-ships once because the server
 dedupes it on its reserved uid block.  Against a partitioned server
 (``/healthz`` ``shards`` > 1, read once into ``segment_shards``) the applier
 ships one sub-segment a shard, ``apply_segment(sub, shard=s)``; a
-``RemoteStore(url, shard=i)`` watches shard i's slice of the log.  The
-digest beacons wait for ROADMAP item 11b part 2, the replica-set verbs
-(``resolve_leader``, the NotLeader redirect) for part 3, the process mesh's
-shard map for part 4.
+``RemoteStore(url, shard=i)`` watches shard i's slice of the log.  A
+digest beacon in the watch stream (``vtaudit.py``) is never an object
+event: ``poll`` keeps the newest one in ``last_beacon`` and whether it
+closed its batch in ``beacon_is_tail``, the quiescence gate of the
+mirror's verify.  The replica-set verbs (``resolve_leader``, the NotLeader
+redirect) wait for ROADMAP item 11b part 3, the process mesh's shard map
+for part 4.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Any, Dict, List, Optional
 from urllib.parse import quote
 
 from volcano_tpu_torch import trace
+from volcano_tpu_torch.vtaudit import BEACON_KIND
 from volcano_tpu_torch.store.codec import decode_object, encode, encode_fields
 from volcano_tpu_torch.store.store import Conflict, Event, EventType, PreconditionFailed
 
@@ -124,6 +128,13 @@ class RemoteStore:
         #: the server's decision-bus shard count from /healthz, read once
         #: (1: unpartitioned); a reconnect clears it
         self._segment_shards: Optional[int] = None
+        #: the newest digest beacon of the watch stream: the seq-pinned
+        #: checkpoint a mirror verifies against
+        self.last_beacon: Optional[Dict[str, Any]] = None
+        #: True while that beacon was the last event of the last non-empty
+        #: poll batch (a beacon mid-batch pins a digest the consumer has
+        #: already moved past)
+        self.beacon_is_tail = False
 
     # -- http ------------------------------------------------------------------
 
@@ -425,12 +436,19 @@ class RemoteStore:
             self._cursor = body["next"]
             raise StaleWatch("watch cursor fell off the server log; relist")
         events = body.get("events") or []
-        for e in events:
+        last = len(events) - 1
+        for i, e in enumerate(events):
             kind = e["kind"]
+            if kind == BEACON_KIND:
+                # an audit checkpoint, not an object: never decoded
+                self.last_beacon = e.get("digest")
+                self.beacon_is_tail = i == last
+                continue
             ev = _WireEvent(kind, EventType(e["type"]), decode_object(kind, e["object"]),
                             e.get("old") or None, e["object"])
             for q in self._watches.get(kind, []):
                 q.append(ev)
+            self.beacon_is_tail = False
         self._cursor = max(self._cursor, body.get("next", self._cursor))
         return len(events)
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import typing
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, List, Tuple, Union
 
 from volcano_tpu_torch.api.objects import (
     Node,
@@ -85,6 +85,18 @@ _fields_cache: Dict[type, Tuple[str, ...]] = {}
 _SCALARS = (bool, int, float, str)
 
 
+def resource_fields(r: Resource) -> List[Tuple[str, Any]]:
+    """A ``Resource``'s encoded form as (wire key, value) pairs in the
+    encoded order: "cpu" and "mem" always, "scalars" when there are any,
+    "max_task_num" when it is set."""
+    out: List[Tuple[str, Any]] = [("cpu", r.milli_cpu), ("mem", r.memory)]
+    if r.scalars:
+        out.append(("scalars", dict(r.scalars)))
+    if r.max_task_num is not None:
+        out.append(("max_task_num", r.max_task_num))
+    return out
+
+
 def encode(obj: Any) -> Any:
     """Dataclass tree -> JSON-compatible value.  Type-directed on decode, so
     encode is purely structural; it dispatches on the exact class through
@@ -100,12 +112,7 @@ def encode(obj: Any) -> Any:
     if isinstance(obj, _SCALARS):
         return obj
     if isinstance(obj, Resource):
-        out: Dict[str, Any] = {"cpu": obj.milli_cpu, "mem": obj.memory}
-        if obj.scalars:
-            out["scalars"] = dict(obj.scalars)
-        if obj.max_task_num is not None:
-            out["max_task_num"] = obj.max_task_num
-        return out
+        return dict(resource_fields(obj))
     if dataclasses.is_dataclass(obj):
         names = tuple(f.name for f in dataclasses.fields(cls))
         _fields_cache[cls] = names

@@ -14,7 +14,9 @@ process against an apiserver in another:
   DELETE /apis/<kind>/obj?key=<k>     delete
   POST   /bulk                        N ops; ``patch_col`` runs, decision segments
   GET    /watch?since=<seq>&kinds=a,b&timeout=<s>[&shard=i]   long-poll of the event log
-  GET    /healthz                     liveness, the store uid, the shard count, the WAL's stats
+  GET    /healthz                     liveness, the store uid, the shard count, the WAL's
+                                      stats, the state digest (root, seq, each shard's)
+  GET    /debug/digest[?recompute=1][&detail=buckets][&shard=i][&kind=K&namespace=NS]
   GET    /metrics, /debug/trace, /debug/timeseries, /debug/prof
 
 Every mutation appends to one ordered event log; a client resumes from its
@@ -34,10 +36,16 @@ entries carry the shard (``/watch?shard=i`` serves one shard's slice), and
 with ``wal`` each shard has a WAL directory of its own whose tails recovery
 merges by ``seq``.
 
-Not here yet, each refused by name: the digest audit and ``/debug/digest``
-(ROADMAP item 11b part 2), replication and ``/repl/*`` (part 3), the shared
-seq bus and the process mesh (part 4); ``/chaos`` (item 13); the Job kind
-and its admission (item 12).
+The state digest (``vtaudit.py``): the store keeps it under every verb;
+``/debug/digest`` serves its tiers (the root and the shards, the buckets,
+one bucket's objects; ``recompute=1`` the ground truth of the raw
+objects), and the server stamps a seq-pinned digest beacon into the event
+log at most once every ``VOLCANO_TPU_AUDIT_BEACON_S`` seconds while the
+log moves, which every watcher receives whatever its kind or shard filter.
+
+Not here yet, each refused by name: replication and ``/repl/*`` (ROADMAP
+item 11b part 3), the shared seq bus and the process mesh (part 4);
+``/chaos`` (item 13); the Job kind and its admission (item 12).
 
 This process imports no torch at start and never initializes CUDA: the
 card belongs to the scheduler.  ``python -m volcano_tpu_torch.store.server``
@@ -54,9 +62,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 from urllib.parse import parse_qs, urlparse
 
-from volcano_tpu_torch import timeseries, trace
+from volcano_tpu_torch import timeseries, trace, vtaudit
 from volcano_tpu_torch.store.codec import (
     KIND_CLASSES,
+    LATER_KINDS,
     decode_fields,
     decode_object,
     encode,
@@ -69,7 +78,6 @@ from volcano_tpu_torch.store.store import PreconditionFailed, Store
 LOG_CAP = 100_000
 
 #: what the routes and options of later parts answer with
-LATER_DIGEST = "comes with the digest audit (ROADMAP item 11b part 2)"
 LATER_REPL = "comes with replication (ROADMAP item 11b part 3)"
 LATER_MESH = "comes with the process mesh (ROADMAP item 11b part 4)"
 LATER_13 = "fault injection (/chaos) comes with the tooling (ROADMAP item 13)"
@@ -135,6 +143,12 @@ class StoreServer:
         #: the newest seq that touched each shard (an untagged entry
         #: touches every shard)
         self._shard_seq = [0] * self.shards
+        # the digest beacons' cadence: the seq of the last beacon and its
+        # monotonic stamp time.  The clock starts at boot, so a short-lived
+        # server never stamps one unasked; recovery is this constructor, so
+        # a recovered server starts the same way
+        self._beacon_seq = 0
+        self._beacon_mono = time.monotonic()
         # the ordered event log: per-event dict entries, or columnar block
         # entries {"seq": the last row's seq, "n": rows, "kind": K,
         # "block": PatchLogBlock | EventLogBlock, "start": the first row}
@@ -236,8 +250,6 @@ class StoreServer:
                     msg = LATER_13
                 elif path.startswith("/repl/"):
                     msg = f"{path} {LATER_REPL}"
-                elif path == "/debug/digest":
-                    msg = f"{path} {LATER_DIGEST}"
                 else:
                     return False
                 n = int(self.headers.get("Content-Length", 0) or 0)
@@ -246,8 +258,12 @@ class StoreServer:
                 self._reply(404, {"error": msg})
                 return True
 
-            def _unknown(self, kind: str) -> bool:
-                if kind in KIND_CLASSES:
+            def _unknown(self, kind: str, read: bool = False) -> bool:
+                """Answer 422 for a kind outside the registry.  A read of a
+                kind no package has answers as an empty store does, as the
+                JAX server's (its mirror lists kinds of no registry); a read
+                of a kind of a later item still answers 422."""
+                if kind in KIND_CLASSES or (read and kind not in LATER_KINDS):
                     return False
                 n = int(self.headers.get("Content-Length", 0) or 0)
                 if n:
@@ -266,6 +282,8 @@ class StoreServer:
                     return self._reply(200, trace.debug_payload())
                 if u.path == "/debug/timeseries":
                     return self._reply(200, timeseries.debug_payload())
+                if u.path == "/debug/digest":
+                    return self._reply(200, server.digest_debug(q))
                 if u.path == "/debug/prof":
                     # vtprof imports torch: only this handler loads it
                     from volcano_tpu_torch import vtprof
@@ -277,6 +295,15 @@ class StoreServer:
                     return self._reply_text(200, metrics.expose_text().encode())
                 if u.path == "/healthz":
                     payload = {"ok": True, "uid": server.store.uid, "shards": server.shards}
+                    with server.lock:
+                        server._pump_log()
+                        dg = server.store.digest_payload(server.shards)
+                        if dg is not None:
+                            # a digest and a seq a shard: shard skew at a glance
+                            payload["digest"] = {
+                                "root": dg["root"], "seq": server.seq,
+                                "shards": [{"digest": d, "seq": s}
+                                           for d, s in zip(dg["shards"], server._shard_seq)]}
                     if server.wal is not None:
                         payload["wal"] = server.wal.stats()
                     return self._reply(200, payload)
@@ -290,7 +317,7 @@ class StoreServer:
                         shard=int(shard_q) if shard_q is not None else None))
                 if len(parts) == 2 and parts[0] == "apis":
                     kind = parts[1]
-                    if self._unknown(kind):
+                    if self._unknown(kind, read=True):
                         return
                     with server.lock:
                         # drain queued events first: a write that bypassed
@@ -666,6 +693,8 @@ class StoreServer:
                     for i in range(len(blk)):
                         pend[("Event", blk.key(i))] = (blk, i)
                     self._dirty_kinds.add("Event")
+            # the segment's blocks are in the log: a due beacon may stamp
+            self._maybe_beacon()
             self._trim_log()
             if self.wal is not None:
                 # the WHOLE cycle is one WAL record: the wire op verbatim and
@@ -1192,13 +1221,84 @@ class StoreServer:
                 self.log.append(entry)
                 self._note_watermark(entry.get("shard", 0), self.seq)
                 moved = True
+        beaconed = self._maybe_beacon()
         self._trim_log()
         # an unconsumed hint (a no-op write, no event) must not describe a
         # later mutation of its key
         if self._enc_hints:
             self._enc_hints.clear()
-        if moved:
+        if moved or beaconed:
             self.cond.notify_all()
+
+    # -- digest beacons and the audit surface (vtaudit.py) ------------------------
+
+    def _maybe_beacon(self) -> bool:
+        """Stamp a digest beacon if one is due (the caller holds the server
+        lock): the audit armed, the seq moved since the last beacon, the
+        cadence interval passed, and every store watch queue drained (a
+        beacon ahead of unpumped events would pin a digest the log cannot
+        reproduce yet)."""
+        if self.store._digest is None:
+            return False
+        if self.seq == self._beacon_seq:
+            return False
+        if time.monotonic() - self._beacon_mono < vtaudit.beacon_interval_s():
+            return False
+        if any(self._queues.values()):
+            return False
+        return self.stamp_beacon()
+
+    def stamp_beacon(self) -> bool:
+        """Append a seq-pinned digest beacon to the event log (the caller
+        holds the server lock; the store's lock nests inside it).  It takes
+        one seq and one log row like any entry, so cursors move past it.
+        It is not written to the WAL: recovery re-derives the digest, and
+        the watch's ``since > seq`` relist absorbs a lost beacon's seq."""
+        payload = self.store.digest_payload(self.shards)
+        if payload is None:
+            return False
+        self.seq += 1
+        self._log_rows += 1
+        self.log.append(vtaudit.beacon_entry(self.seq, payload, time.time()))
+        self._beacon_seq = self.seq
+        self._beacon_mono = time.monotonic()
+        self.cond.notify_all()
+        return True
+
+    def digest_debug(self, q: Dict[str, List[str]]) -> Dict[str, Any]:
+        """The ``/debug/digest`` body.  Plain: the root and the shards'
+        rollups at the server's seq, with ``shard_seq``, each shard's
+        newest seq.  ``?detail=buckets`` (with ``&shard=i`` one shard's):
+        the per-``(kind, namespace)`` buckets.  ``?kind=K&namespace=NS``:
+        the per-object digests of one bucket.  ``recompute=1`` on any tier
+        serves a fresh digest of the raw objects instead of the kept table,
+        so that kept against recomputed names an object whose state changed
+        behind the verbs."""
+        with self.lock:
+            self._pump_log()
+            rec = (q.get("recompute") or [None])[0] not in (None, "", "0")
+            t = self.store.recompute_digest() if rec else None
+            kind = (q.get("kind") or [None])[0]
+            if kind is not None:
+                ns = (q.get("namespace") or [""])[0]
+                objs = (t.object_payload(kind, ns) if t is not None
+                        else self.store.digest_objects(kind, ns))
+                return {"seq": self.seq, "kind": kind, "namespace": ns,
+                        "recompute": rec, "objects": objs}
+            sh = (q.get("shard") or [None])[0]
+            if (q.get("detail") or [None])[0] == "buckets" or sh is not None:
+                shard = int(sh) if sh is not None else None
+                buckets = (t.bucket_payload(shard, self.shards) if t is not None
+                           else self.store.digest_buckets(shard, self.shards))
+                return {"seq": self.seq, "recompute": rec, "buckets": buckets}
+            payload = (t.payload(self.shards) if t is not None
+                       else self.store.digest_payload(self.shards))
+            out: Dict[str, Any] = {"enabled": self.store._digest is not None,
+                                   "seq": self.seq, "recompute": rec,
+                                   "shard_seq": list(self._shard_seq)}
+            if payload is not None:
+                out.update(payload)
+            return out
 
     def watch_since(self, since: int, kinds, timeout: float,
                     shard: Optional[int] = None) -> Dict[str, Any]:
@@ -1206,10 +1306,15 @@ class StoreServer:
         waiting up to ``timeout`` seconds for one; ``relist`` when the cursor
         fell off the buffer or comes from before a restart.  ``shard`` (a
         partitioned server) serves that shard's entries and the untagged
-        ones: a shard's watcher expands only its own shard's blocks."""
+        ones: a shard's watcher expands only its own shard's blocks.  A
+        digest beacon passes every kind filter."""
         deadline = time.monotonic() + timeout
         strip = self.shards > 1
         with self.lock:
+            # a quiescent server still beacons on the poll path, so a
+            # watcher that drained a burst gets its checkpoint without
+            # waiting for the next mutation
+            self._maybe_beacon()
             if since < self.seq - self._log_rows or since > self.seq:
                 return {"events": None, "next": self.seq, "relist": True}
             while True:
@@ -1228,12 +1333,15 @@ class StoreServer:
                     # an untagged entry reaches every shard's watcher
                     if shard is not None and e.get("shard", shard) != shard:
                         continue
-                    if kinds and e["kind"] not in kinds:
-                        continue
                     blk = e.get("block")
                     if blk is None:
-                        evs.append({k: v for k, v in e.items() if k != "shard"}
-                                   if strip else e)
+                        # a beacon reaches every watcher, whatever its kinds
+                        if (e["kind"] == vtaudit.BEACON_KIND or not kinds
+                                or e["kind"] in kinds):
+                            evs.append({k: v for k, v in e.items() if k != "shard"}
+                                       if strip else e)
+                        continue
+                    if kinds and e["kind"] not in kinds:
                         continue
                     # a columnar block: only the rows past the cursor
                     # expand (memoized on the block, shared by watchers)

@@ -13,9 +13,13 @@ with its resubmit dedupe, and ``apply_segment_lazy``, the StoreServer's
 half of the columnar wire: a segment's rows are staged in a lazy overlay
 and folded into the live objects by the first verb that reads or writes
 their key (``_materialize``).  Event objects keep no shadow copy
-(``SHADOWLESS_KINDS``).  The durability (``store/wal.py``) and the HTTP
-transport (``store/server.py``, ``store/client.py``) sit around it; the
-state digests wait for ROADMAP item 11b.
+(``SHADOWLESS_KINDS``).  Every verb keeps the incremental state digest
+(``vtaudit.py``) under ``_mu`` when the audit is armed
+(``VOLCANO_TPU_AUDIT``, on by default, read at construction): ``_digest``,
+served by ``digest_payload`` / ``digest_buckets`` / ``digest_objects``,
+against ``recompute_digest``'s ground truth.  The durability
+(``store/wal.py``) and the HTTP transport (``store/server.py``,
+``store/client.py``) sit around it.
 """
 
 from __future__ import annotations
@@ -143,6 +147,12 @@ class Store:
         # reserved uid block identifies a segment, so a resubmitted one is
         # recognised and its Event rows dedupe against those that landed
         self._applied_segments: OrderedDict = OrderedDict()
+        # the incremental state digest (vtaudit.py): per-object digests and
+        # (kind, namespace) bucket sums, kept by every mutating verb under
+        # _mu; None when the audit is disarmed
+        from volcano_tpu_torch import vtaudit
+
+        self._digest = vtaudit.DigestTable() if vtaudit.enabled() else None
         # the async applier writes from its own thread while the owning
         # thread reads and writes
         self._mu = threading.RLock()
@@ -160,6 +170,15 @@ class Store:
         self.__dict__.setdefault("_lazy_patch", defaultdict(dict))
         self.__dict__.setdefault("_lazy_create", defaultdict(dict))
         self.__dict__.setdefault("_applied_segments", OrderedDict())
+        from volcano_tpu_torch import vtaudit
+
+        if not vtaudit.enabled():
+            self.__dict__["_digest"] = None
+        elif self.__dict__.get("_digest") is None:
+            # pickled by a disarmed life: rebuild from the objects
+            self.__dict__["_digest"] = vtaudit.table_from_objects(
+                (kind, obj) for kind, bucket in self._objects.items()
+                for obj in bucket.values())
         self._mu = threading.RLock()
 
     def _watched(self, kind: str) -> bool:
@@ -246,6 +265,9 @@ class Store:
             if not obj.meta.creation_timestamp:
                 obj.meta.creation_timestamp = time.time()
             self._objects[kind][key] = obj
+            dg = self._digest
+            if dg is not None:
+                dg.set_obj(kind, key, obj)
             self._notify(Event(kind, EventType.ADDED, obj))
             return obj
 
@@ -260,6 +282,9 @@ class Store:
                 return obj
             obj.meta.resource_version = self._advance_rv()
             self._objects[kind][key] = obj
+            dg = self._digest
+            if dg is not None:
+                dg.set_obj(kind, key, obj)
             self._notify(Event(kind, EventType.UPDATED, obj, old))
             return obj
 
@@ -312,9 +337,16 @@ class Store:
             if all(_leaf(obj, paths[k]) == v and _leaf(shadow, paths[k]) == v
                    for k, v in fields.items()):
                 return obj  # no-op
+            dg = self._digest
+            trips = [] if dg is not None else None
             for k, v in fields.items():
                 parent, leaf = _walk(obj, k)
+                if trips is not None:
+                    # the value before setattr: the digest delta's old leaf
+                    trips.append((k, getattr(parent, leaf), v))
                 setattr(parent, leaf, v)
+            if trips is not None:
+                dg.apply_fields(kind, key, trips, obj=obj)
             obj.meta.resource_version = self._advance_rv()
             # copy-on-write shadow: only the patched path is cloned
             new_shadow = copy.copy(shadow)
@@ -448,6 +480,7 @@ class Store:
         pend = self._lazy_patch["Pod"]
         errs: List[List[Any]] = []
         changed: List[int] = []
+        old_vals: List[Any] = []  # the pending-aware values before, beside changed
         ev_rows: List[int] = []
         for i, key in enumerate(keys):
             obj = pods.get(key)
@@ -462,10 +495,17 @@ class Store:
             if cur == (True if values is None else values[i]):
                 continue  # a no-op write: its Event only, no patch row
             changed.append(i)
+            old_vals.append(cur)
         rv0 = self._advance_rv(len(changed)) - len(changed) + 1
+        dg = self._digest
         for j, i in enumerate(changed):
             key = keys[i]
             value = True if values is None else values[i]
+            if dg is not None:
+                # a staged row digests now (one scalar-leaf delta): the
+                # materialization later folds exactly this value, so it is
+                # digest-neutral
+                dg.apply_fields("Pod", key, ((field, old_vals[j], value),))
             p = pend.get(key)
             if p is None:
                 pend[key] = ({field: value}, rv0 + j)
@@ -558,6 +598,9 @@ class Store:
             self._materialize(kind, key)
             obj = self._objects[kind].pop(key, None)
             if obj is not None:
+                dg = self._digest
+                if dg is not None:
+                    dg.remove(kind, key)
                 self._notify(Event(kind, EventType.DELETED, obj))
             return obj
 
@@ -577,6 +620,40 @@ class Store:
 
     def items(self, kind: str) -> Iterator[Any]:
         return iter(self.list(kind))
+
+    # -- the state digest (vtaudit.py) --------------------------------------------
+
+    def digest_payload(self, nshards: int = 1) -> Optional[Dict[str, Any]]:
+        """The kept digest's rollup (root, shards, kinds; hex): the store
+        half of ``/healthz``, ``/debug/digest`` and the beacons.  None when
+        the audit is disarmed."""
+        with self._mu:
+            dg = self._digest
+            return None if dg is None else dg.payload(nshards)
+
+    def digest_buckets(self, shard: Optional[int] = None, nshards: int = 1) -> Dict[str, str]:
+        """The kept per-(kind, namespace) bucket digests."""
+        with self._mu:
+            dg = self._digest
+            return {} if dg is None else dg.bucket_payload(shard, nshards)
+
+    def digest_objects(self, kind: str, namespace: str) -> Dict[str, str]:
+        """The kept per-object digests of one bucket."""
+        with self._mu:
+            dg = self._digest
+            return {} if dg is None else dg.object_payload(kind, namespace)
+
+    def recompute_digest(self):
+        """The ground truth: a fresh digest of every (materialized) object,
+        independent of the kept table.  A write that bypassed the verbs
+        shows as the difference between the two."""
+        from volcano_tpu_torch import vtaudit
+
+        with self._mu:
+            self.materialize_all()
+            return vtaudit.table_from_objects(
+                (kind, obj) for kind, bucket in self._objects.items()
+                for obj in bucket.values())
 
     def watch(self, kind: str) -> Deque[Event]:
         """Subscribe to a kind; returns the event queue to drain."""

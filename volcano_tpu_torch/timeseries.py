@@ -19,19 +19,22 @@ a ``kind="store"`` sample a state flush (the log position, the WAL's
 stats).
 
 Unarmed is the default and costs one module attribute check per site
-(``RECORDER is None``); :func:`arm` arms in-process.  The JAX package's
-``VOLCANO_TPU_TIMESERIES`` variable comes with the scheduler's daemon
-entry, its only reader (ROADMAP item 11b).
+(``RECORDER is None``); :func:`arm` arms in-process, and the scheduler's
+daemon entry (``cli/daemons.py``) arms at boot from
+``VOLCANO_TPU_TIMESERIES`` (``1``, or ``{"ring": N}``) through
+:func:`arm_from_env`.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+ENV_VAR = "VOLCANO_TPU_TIMESERIES"
 DEFAULT_RING = 2048
 
 
@@ -69,6 +72,21 @@ def arm(recorder: Optional[Recorder] = None) -> Recorder:
     global RECORDER
     RECORDER = recorder or Recorder()
     return RECORDER
+
+
+def arm_from_env() -> Optional[Recorder]:
+    """Arm from ``VOLCANO_TPU_TIMESERIES`` (unset, 0, off or none leaves
+    the recorder as it is); returns the recorder or None."""
+    raw = os.environ.get(ENV_VAR, "").strip()
+    if not raw or raw in ("0", "off", "none"):
+        return RECORDER
+    ring = DEFAULT_RING
+    if raw.startswith("{"):
+        try:
+            ring = int(json.loads(raw).get("ring", DEFAULT_RING))
+        except ValueError:
+            pass
+    return arm(Recorder(ring=ring))
 
 
 def disarm() -> None:

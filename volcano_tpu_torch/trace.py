@@ -450,9 +450,10 @@ def crash_dump(reason: str) -> Optional[str]:
     sentinel trips ride under ``"anomalies"`` and its critical-path
     summary under ``"profile"``.  Returns the path written, or None when
     disarmed.  Never raises: forensics must not mask the original failure.
-    (The JAX dump's ``"audit"`` section waits for the digest audit,
-    ROADMAP item 11b.)"""
-    from volcano_tpu_torch import timeseries, vtprof
+    When a digest source is registered (the scheduler's mirror), its view
+    and last verdict ride under ``"audit"``, so that a
+    steady-state-divergence dump names the kinds that differ."""
+    from volcano_tpu_torch import timeseries, vtaudit, vtprof
 
     tr = TRACER
     if tr is None:
@@ -467,6 +468,9 @@ def crash_dump(reason: str) -> Optional[str]:
         extra = dict(extra or {})
         extra["anomalies"] = vtprof.PROFILER.anomalies_snapshot()
         extra["profile"] = vtprof.PROFILER.summary()
+    if vtaudit.has_debug_source():
+        extra = dict(extra or {})
+        extra["audit"] = vtaudit.debug_payload()
     try:
         os.makedirs(directory, exist_ok=True)
         return tr.dump_to(path, reason, extra=extra)
